@@ -1,0 +1,171 @@
+"""Build, load and launch the CUDA kernels in csrc/.
+
+Each csrc/<name>.cu is compiled on first use by nvcc for sm_90a into its own
+shared library with a plain C interface, under build/winograd_tpu_torch/ at
+the repository root, named by a hash of the csrc sources and the flags (so
+an edited source rebuilds and an unchanged one loads at once). The library
+is loaded with ctypes. Pointers and the stream go over as c_void_p, counts
+as c_int. Every C entry returns cudaGetLastError() after its launch, and
+launch() raises if that is not cudaSuccess.
+
+There is no fallback: without nvcc, or when the build fails, this raises
+with the compiler's output.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+import time
+from typing import Dict
+
+import torch
+
+CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = CSRC.parent.parent / "build" / "winograd_tpu_torch"
+KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+# Launches per kernel, counted by launch() once the kernel was accepted, and
+# per kernel the launches of each argument shape its wrapper reports.
+LAUNCHES: collections.Counter = collections.Counter()
+LAUNCH_SHAPES: Dict[str, collections.Counter] = collections.defaultdict(collections.Counter)
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.access(nvcc, os.X_OK):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of winograd_tpu_torch are built "
+            "from csrc/ on first use and need the CUDA toolkit"
+        )
+    return nvcc
+
+
+def _library_path(name: str) -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _start_build(name: str):
+    """Start nvcc for csrc/<name>.cu; returns (process, temp path, final path)
+    or None when the library is already built."""
+    out = _library_path(name)
+    if out.exists():
+        return None
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    proc = subprocess.Popen(
+        cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return proc, tmp, out
+
+
+def _finish_build(name: str, started) -> None:
+    proc, tmp, out = started
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)
+
+
+def build_all() -> float:
+    """Compile every kernel library not yet built, one nvcc per source, all
+    started together. Returns the wall seconds taken."""
+    t0 = time.perf_counter()
+    started = {name: _start_build(name) for name in KERNELS}
+    for name, s in started.items():
+        if s is not None:
+            _finish_build(name, s)
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, built first if needed."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        started = _start_build(name)
+        if started is not None:
+            _finish_build(name, started)
+        lib = ctypes.CDLL(str(_library_path(name)))
+        lib.wt_error_string.restype = ctypes.c_char_p
+        _LIBS[name] = lib
+    return lib
+
+
+def check_operands(scale: torch.Tensor, bias: torch.Tensor, cout: int,
+                   *tensors: torch.Tensor) -> None:
+    """Every operand of a kernel is a contiguous float32 tensor on the same
+    CUDA device, and the folded BN is one (scale, bias) pair per output
+    channel."""
+    if scale.shape != (cout,) or bias.shape != (cout,):
+        raise ValueError(
+            f"scale {tuple(scale.shape)} and bias {tuple(bias.shape)} must be ({cout},)")
+    tensors = (scale, bias) + tensors
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev or t.device.type != "cuda":
+            raise ValueError(f"kernel operands must share one CUDA device, got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"kernel operands must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def cint(v) -> ctypes.c_int:
+    return ctypes.c_int(int(v))
+
+
+def reset_counts() -> None:
+    LAUNCHES.clear()
+    LAUNCH_SHAPES.clear()
+
+
+def launch(name: str, entry: str, shape: tuple, device: torch.device, *args) -> None:
+    """Call the C entry `entry` of library `name` with `device` current, on
+    its current stream; raise if the launch was refused, else count it under
+    `name` and its argument `shape`."""
+    lib = library(name)
+    with torch.cuda.device(device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+        err = getattr(lib, entry)(*args, stream)
+    if err != 0:
+        msg = lib.wt_error_string(err).decode()
+        raise RuntimeError(f"{name}.{entry}: CUDA error {err} ({msg})")
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[name][shape] += 1
+
+
+def require_device(device) -> torch.device:
+    """Resolve an entry point's device. CUDA is the default and must exist;
+    the CPU runs only when the caller asks for it."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU"
+        )
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device

@@ -1,0 +1,86 @@
+"""Fused 3x3 conv (pad 1, stride 1) + folded BN + ReLU by Winograd F(m,3).
+
+Port of winograd_tpu/kernels/winograd.py::conv3x3_bn_winograd_pallas (both
+its kernels, _winograd_kernel and _winograd_kernel_p64). The CUDA kernel is
+csrc/winograd.cu; the plain twin does the same Winograd algebra on u with
+this package's transform matrices.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from winograd_tpu_torch.kernels import _build, transforms
+
+
+def tile_size(u: torch.Tensor) -> int:
+    """The Winograd output tile m, inferred from u's leading dim a^2."""
+    m = {36: 4, 16: 2}.get(u.shape[0])
+    if m is None:
+        raise ValueError(
+            f"filter leading dim {u.shape[0]} is not 36 (F(4,3)) or 16 (F(2,3))"
+        )
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _matrices(m: int, dtype: torch.dtype, device: torch.device):
+    """(Bt, At) as tensors, copied to the device once (so the plain version
+    makes no host-to-device copy after its first call)."""
+    bt, _, at = transforms.matrices(m)
+    return (torch.as_tensor(bt, dtype=dtype, device=device),
+            torch.as_tensor(at, dtype=dtype, device=device))
+
+
+def conv3x3_bn_winograd_plain(x, u, scale, bias, relu: bool = True) -> torch.Tensor:
+    """The Winograd algorithm in plain PyTorch: tiles, Bt d Bt^T, per-position
+    products with u, At M At^T, crop, BN (+ReLU). x: (N, H, W, Cin)."""
+    m = tile_size(u)
+    a = m + 2
+    n, h, w, cin = x.shape
+    cout = u.shape[2]
+    th, tw = -(-h // m), -(-w // m)
+    bt, at = _matrices(m, x.dtype, x.device)
+    # Zero pad 1 on the left/top, and on the right/bottom up to m*t + 2.
+    xp = F.pad(x, (0, 0, 1, m * tw + 1 - w, 1, m * th + 1 - h))
+    d = xp.unfold(1, a, m).unfold(2, a, m)              # (n, th, tw, cin, a, a)
+    v = torch.einsum("ik,nyxckl,jl->nyxijc", bt, d, bt)  # Bt d Bt^T
+    mm = torch.einsum("nyxpc,pco->nyxpo", v.reshape(n, th, tw, a * a, cin), u)
+    mm = mm.reshape(n, th, tw, a, a, cout)
+    y = torch.einsum("pi,nyxijo,qj->nypxqo", at, mm, at)  # At M At^T
+    y = y.reshape(n, th * m, tw * m, cout)[:, :h, :w]
+    y = y * scale + bias
+    return torch.relu(y) if relu else y
+
+
+def conv3x3_bn_winograd(x, u, scale, bias, relu: bool = True) -> torch.Tensor:
+    """Fused 3x3 conv + BN (+ReLU) via Winograd F(m,3).
+
+    x: (H, W, Cin) or (N, H, W, Cin); u: (a^2, Cin, Cout) from
+    transforms.transform_filter, m inferred from a^2 (36 -> F(4,3),
+    16 -> F(2,3)); scale, bias: (Cout,). CPU tensors run the plain version;
+    CUDA tensors launch csrc/winograd.cu."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    n, h, w, cin = x.shape
+    if u.shape[1] != cin:
+        raise ValueError(f"u {tuple(u.shape)} does not take {cin} input channels")
+    m = tile_size(u)
+    if x.device.type == "cpu":
+        out = conv3x3_bn_winograd_plain(x, u, scale, bias, relu)
+    else:
+        cout = u.shape[2]
+        _build.check_operands(scale, bias, cout, x, u)
+        out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
+        c = _build.cint
+        _build.launch(
+            "winograd", "winograd_conv3x3_bn", (n, h, w, cin, cout, m, bool(relu)),
+            x.device,
+            _build.ptr(x), _build.ptr(u), _build.ptr(scale), _build.ptr(bias),
+            _build.ptr(out), c(n), c(h), c(w), c(cin), c(cout), c(m), c(relu),
+        )
+    return out[0] if squeeze else out

@@ -1,0 +1,139 @@
+"""The complete ResNet-50 classifier: stem, projection block, 16-block trunk,
+head; a 224x224x3 image to 1000 logits through the port's four kernels.
+
+Port of winograd_tpu/models/resnet50.py::resnet50_forward_pallas on the
+per-layer route (the JAX package's stage, transition and block megakernels
+are not ported yet). Per image the forward launches the pointwise kernel
+40 times, Winograd 6, direct 7 and the stem 1.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+
+from winograd_tpu_torch.config import BN_EPS
+from winograd_tpu_torch.kernels import _build, transforms
+from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
+from winograd_tpu_torch.kernels.stem import stem_fused
+from winograd_tpu_torch.models.convert import params_from_jax, stem_filter_s2d
+from winograd_tpu_torch.models.downsample import (
+    projection_bottleneck_block,
+    resnet50_stages,
+)
+
+__all__ = [
+    "head", "init_resnet50_arrays", "init_resnet50_params", "resnet50_forward",
+    "stem", "stem_filter_s2d",
+]
+
+
+def stem(x: torch.Tensor, params: Dict) -> torch.Tensor:
+    """7x7/2 conv + BN + ReLU + 3x3/2 maxpool; keys w192_stem, s_stem, b_stem."""
+    return stem_fused(x, params["w192_stem"], params["s_stem"], params["b_stem"])
+
+
+def head(x: torch.Tensor, params: Dict) -> torch.Tensor:
+    """Global avgpool + FC through the pointwise kernel with scale 1; keys
+    w_fc (C, classes), b_fc (classes,)."""
+    w_fc = params["w_fc"]
+    ones = torch.ones(w_fc.shape[1], dtype=w_fc.dtype, device=w_fc.device)
+    return conv1x1_bn(x.mean(dim=(-3, -2)), w_fc, ones, params["b_fc"], relu=False)
+
+
+def resnet50_forward(x, params: Dict, device="cuda") -> torch.Tensor:
+    """Logits of image(s) x, (H, W, 3) or (N, H, W, 3), in the dtype of the
+    params, which must live on `device`. CUDA runs the kernels; the CPU
+    (only on request) runs their plain versions."""
+    device = _build.require_device(device)
+    dtype = params["head"]["w_fc"].dtype
+    x = torch.as_tensor(x, dtype=dtype, device=device).contiguous()
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    h = stem(x, params["stem"])
+    h = projection_bottleneck_block(h, params["proj"])
+    h = resnet50_stages(h, params["stages"])
+    logits = head(h, params["head"])
+    return logits[0] if squeeze else logits
+
+
+# Random parameters: the same numpy draws, in the same order, as
+# winograd_tpu/datagen/generate.py's _rand / _bn_params / _*_params_random,
+# so one seed gives both packages the same network.
+
+
+def _rand(rng, *shape, scale: float = 1.0) -> np.ndarray:
+    return ((rng.random(shape) - 0.5) * scale).astype(np.float32)
+
+
+def _bn(rng, channels: int, scale: float):
+    gamma = _rand(rng, channels, scale=scale)
+    beta = _rand(rng, channels, scale=scale)
+    mean = _rand(rng, channels, scale=scale)
+    var = (rng.random(channels) * 3 + 5).astype(np.float32)
+    return transforms.fold_batchnorm(gamma, beta, mean, var, eps=BN_EPS)
+
+
+def _transition(rng, c_in, c_mid, c_out, bn_scale) -> Dict[str, np.ndarray]:
+    w_mid = _rand(rng, c_mid, c_mid, 3, 3)
+    (s1, b1), (s2, b2), (s3, b3), (sp, bp) = (
+        _bn(rng, c, bn_scale) for c in (c_mid, c_mid, c_out, c_out)
+    )
+    return dict(
+        w_reduce=_rand(rng, c_in, c_mid), s_reduce=s1, b_reduce=b1,
+        w_mid=w_mid, s_mid=s2, b_mid=b2,
+        w_expand=_rand(rng, c_mid, c_out), s_expand=s3, b_expand=b3,
+        w_proj=_rand(rng, c_in, c_out), s_proj=sp, b_proj=bp,
+    )
+
+
+def _block(rng, c_io, c_mid, bn_scale) -> Dict[str, np.ndarray]:
+    w_mid = _rand(rng, c_mid, c_mid, 3, 3)
+    (s1, b1), (s2, b2), (s3, b3) = (_bn(rng, c, bn_scale) for c in (c_mid, c_mid, c_io))
+    return dict(
+        w_reduce=_rand(rng, c_io, c_mid), s_reduce=s1, b_reduce=b1,
+        w_mid=w_mid, s_mid=s2, b_mid=b2,
+        w_expand=_rand(rng, c_mid, c_io), s_expand=s3, b_expand=b3,
+    )
+
+
+def init_resnet50_arrays(cfg, seed: int = 0) -> Dict:
+    """Random full-model parameters as numpy arrays in the JAX package's
+    tree structure, with raw filters (w7_stem, w_mid); params_from_jax
+    derives the kernels' layouts from them."""
+    rng = np.random.default_rng(seed)
+    w7 = _rand(rng, cfg.stem_c, 3, 7, 7)
+    s_stem, b_stem = _bn(rng, cfg.stem_c, 0.5)
+    c_io0, c_mid0 = cfg.stages[0][0], cfg.stages[0][1]
+    proj = _transition(rng, cfg.stem_c, c_mid0, c_io0, 0.5)
+    stages = []
+    prev = None
+    for c_io, c_mid, _hw, blocks in cfg.stages:
+        transition = None
+        if prev is not None:
+            transition = _transition(rng, prev, c_mid, c_io, 0.5)
+        stages.append({
+            "transition": transition,
+            "blocks": [_block(rng, c_io, c_mid, 0.5) for _ in range(blocks)],
+        })
+        prev = c_io
+    c_last = cfg.stages[-1][0]
+    return {
+        "stem": {"w7_stem": w7, "s_stem": s_stem, "b_stem": b_stem},
+        "proj": proj,
+        "stages": stages,
+        "head": {
+            "w_fc": _rand(rng, c_last, cfg.num_classes, scale=2 * np.sqrt(2.0 / c_last)),
+            "b_fc": _rand(rng, cfg.num_classes),
+        },
+    }
+
+
+def init_resnet50_params(cfg, seed: int = 0, device="cuda", dtype=torch.float32) -> Dict:
+    """Seeded random parameters on `device`, every kernel layout built by
+    this package's transforms."""
+    device = _build.require_device(device)
+    return params_from_jax(init_resnet50_arrays(cfg, seed), device, dtype)
