@@ -12,25 +12,36 @@ Phases, each of which must pass (exit 1 otherwise):
    limit as nvidia-smi reports them.
 2. build: compiles csrc/*.cu with nvcc for sm_90a, one process per source.
 3. serving: ResNet50Engine with seeded full-width weights answers N=1
-   requests and N=8 requests. The launch counters are zeroed just before
-   and read just after; each forward must launch pointwise 40, Winograd 6,
-   direct 7 and stem 1 times. One image's logits must agree with the same
+   requests and N=8 requests on the JAX package's fused route. The launch
+   counters are zeroed just before and read just after; each forward must
+   launch stem 1, pointwise 8, Winograd 1, stage 3, transition 3 and
+   direct 2 times. One image's logits must agree with the same
    model through the plain versions on the CPU in float64 within
    1e-4 * max(1, max|golden|); every row of the N=8 logits must agree with
    that image's N=1 logits within the same bound. The first N=1 forward's
    launches, recorded by shape in kernels/_build.py, are the shape list of
    phase 4.
 4. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the served forward gave it (and Winograd F(4,3) at
-   14x14x128), max abs error <= 1e-4 on seeded unit-scale inputs. One JSON
+   every shape the served forward gave it, and at shapes off the served
+   N=1 list (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and
+   9; the conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
+   geometry), max abs error <= 1e-4 * max(1, max|plain|) on seeded
+   unit-scale inputs. One JSON
    line per shape: error; device times of the kernel, its plain version and
    the library call (20 calls captured in a CUDA graph, the median of 20
    replays between CUDA events, divided by 20; inputs stay in L2 between
    calls); "wrapper_ms", one eager wrapper call between CUDA events, host
    path included (median of 20 after 2 warm-ups); and the bound: the larger
    of FLOPs over the FP32 peak and bytes over HBM bandwidth (H100 SXM data
-   sheet: 67 TFLOP/s FP32, 3.35 TB/s).
-5. a "kernels" JSON line (per-image sums over the main path's shapes), the
+   sheet: 67 TFLOP/s FP32, 3.35 TB/s). The stage and transition rows time
+   a cooperative launch, which CUDA graphs capture like any other.
+5. profile: torch.profiler over 5 N=1 and 3 N=8 requests served as in
+   phase 3, each ended by a synchronize (after the launch counts were
+   read): device time by kernel name per request, and the device's idle
+   share, 1 - device busy time over the host clock of the profiled
+   requests (an upper bound for unprofiled serving: the profiler adds host
+   time).
+6. a "kernels" JSON line (per-image sums over the main path's shapes), the
    card line, and last {"ok": true, "device": {...}}.
 """
 
@@ -48,7 +59,9 @@ import numpy as np
 FP32_FLOPS = 67e12   # H100 SXM, FP32 outside the tensor cores, dense
 HBM_BYTES_S = 3.35e12
 ATOL = 1e-4
-EXPECTED_PER_FORWARD = {"pointwise": 40, "winograd": 6, "direct": 7, "stem": 1}
+EXPECTED_PER_FORWARD = {
+    "stem": 1, "pointwise": 8, "winograd": 1, "stage": 3, "transition": 3, "direct": 2,
+}
 SOURCES = {
     "pointwise": ("winograd_tpu/kernels/pointwise.py:67",
                   ["winograd_tpu/kernels/pointwise.py:67 _matmul_bn_kernel"]),
@@ -59,6 +72,14 @@ SOURCES = {
                ["winograd_tpu/kernels/direct.py:97 _direct_kernel"]),
     "stem": ("winograd_tpu/kernels/stem.py:59",
              ["winograd_tpu/kernels/stem.py:59 _stem_kernel"]),
+    "stage": ("winograd_tpu/kernels/stage.py:129",
+              ["winograd_tpu/kernels/stage.py:129 _stage_kernel",
+               "winograd_tpu/kernels/stage.py:169 _stage_kernel_resident",
+               "winograd_tpu/kernels/block.py:32 _block_kernel",
+               "winograd_tpu/kernels/block.py:150 _block_kernel_winograd"]),
+    "transition": ("winograd_tpu/kernels/transition.py:38",
+                   ["winograd_tpu/kernels/transition.py:38 _transition_kernel",
+                    "winograd_tpu/kernels/transition.py:119 _transition_kernel_resident"]),
 }
 
 
@@ -76,6 +97,15 @@ def _winograd_transform_flops(m):
     bt, _, at = transforms.matrices(m)
     a = m + 2
     return 2 * (2 * a * np.count_nonzero(bt)), 2 * ((a + m) * np.count_nonzero(at))
+
+
+def _kernel_name(key):
+    """A profiler event's kernel name without namespace, template or
+    arguments; PyTorch's own kernels are lumped as "pytorch_ops"."""
+    if "at::native" in key:
+        return "pytorch_ops"
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("(")[0].split("<")[0].strip()
 
 
 def main() -> int:
@@ -100,7 +130,13 @@ def main() -> int:
         conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter,
     )
     from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain
+    from winograd_tpu_torch.kernels.stage import (
+        resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params,
+    )
     from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_plain
+    from winograd_tpu_torch.kernels.transition import (
+        fuse_transition_weights, transition_block_fused, transition_block_fused_plain,
+    )
     from winograd_tpu_torch.kernels.winograd import (
         conv3x3_bn_winograd, conv3x3_bn_winograd_plain,
     )
@@ -223,6 +259,66 @@ def main() -> int:
                 2 * n * ho * wo * 49 * cin * c,
                 4 * (n * h * w * cin + 64 * cin * c + n * po * qo * c + 2 * c))
 
+    def conv3x3_filter(rng, cin, cout):
+        w = _rand(rng, cout, cin, 3, 3)
+        return w, t(w).contiguous(memory_format=torch.channels_last)
+
+    def stage_case(rng, n, h, w, cio, cmid, nb, mid):
+        blocks, lib_w = [], []
+        for _ in range(nb):
+            wm, wm_cl = conv3x3_filter(rng, cmid, cmid)
+            (s1, b1), (s2, b2), (s3, b3) = bn(rng, cmid), bn(rng, cmid), bn(rng, cio)
+            blocks.append(dict(
+                w_reduce=t(_rand(rng, cio, cmid)), s_reduce=s1, b_reduce=b1,
+                u2_mid=t(transforms.transform_filter(wm, m=2)), w9_mid=t(direct_filter(wm)),
+                s_mid=s2, b_mid=b2, w_expand=t(_rand(rng, cmid, cio)), s_expand=s3, b_expand=b3))
+            lib_w.append((blocks[-1]["w_reduce"], wm_cl, blocks[-1]["w_expand"]))
+        stacked = stack_stage_params(blocks)
+        x = t(_rand(rng, n, h, w, cio))
+
+        def lib():
+            y = x
+            for wr, wm_cl, we in lib_w:
+                y = torch.matmul(y, wr)
+                y = F.conv2d(nchw(y), wm_cl, padding=1).permute(0, 2, 3, 1)
+                y = torch.matmul(y, we)
+            return y
+
+        p = n * h * w
+        if mid == "winograd2":
+            nt = n * (-(-h // 2)) * (-(-w // 2))
+            fwd, inv = _winograd_transform_flops(2)
+            mid_flops, mid_elems = 2 * 16 * nt * cmid * cmid + nt * (fwd + inv) * cmid, 16 * cmid * cmid
+        else:
+            mid_flops, mid_elems = 2 * p * 9 * cmid * cmid, 9 * cmid * cmid
+        flops = nb * (4 * p * cio * cmid + mid_flops)
+        nbytes = 4 * (2 * p * cio + nb * (2 * cio * cmid + mid_elems + 4 * cmid + 2 * cio))
+        return (lambda: resnet_stage_fused(x, stacked, mid),
+                lambda: resnet_stage_fused_plain(x, stacked, mid), lib, flops, nbytes)
+
+    def transition_case(rng, n, h, w, cin, cmid, cout):
+        wm, wm_cl = conv3x3_filter(rng, cmid, cmid)
+        (s1, b1), (s2, b2), (s3, b3), (sp, bp) = (bn(rng, c) for c in (cmid, cmid, cout, cout))
+        params = dict(w_reduce=t(_rand(rng, cin, cmid)), s_reduce=s1, b_reduce=b1,
+                      w9_mid=t(direct_filter(wm)), s_mid=s2, b_mid=b2,
+                      w_expand=t(_rand(rng, cmid, cout)), s_expand=s3, b_expand=b3,
+                      w_proj=t(_rand(rng, cin, cout)), s_proj=sp, b_proj=bp)
+        params["wep"], params["bep"] = fuse_transition_weights(params)
+        x = t(_rand(rng, n, h, w, cin))
+
+        def lib():
+            y = torch.matmul(x, params["w_reduce"])
+            y = F.conv2d(nchw(y), wm_cl, stride=2, padding=1).permute(0, 2, 3, 1)
+            return (torch.matmul(y, params["w_expand"])
+                    + torch.matmul(x[:, ::2, ::2, :], params["w_proj"]))
+
+        ho, wo = -(-h // 2), -(-w // 2)
+        flops = 2 * n * (h * w * cin * cmid + ho * wo * (9 * cmid * cmid + (cmid + cin) * cout))
+        nbytes = 4 * (n * h * w * cin + n * ho * wo * cout + cin * cmid + 9 * cmid * cmid
+                      + (cmid + cin) * cout + 4 * cmid + cout)
+        return (lambda: transition_block_fused(x, params),
+                lambda: transition_block_fused_plain(x, params), lib, flops, nbytes)
+
     # -- serving at full width ---------------------------------------------
     cfg = ResNet50Config()
     params = init_resnet50_params(cfg, seed=0, device=dev)
@@ -276,10 +372,42 @@ def main() -> int:
         "n8_vs_n1_max_abs_err": err8, "launches": launches, "forwards": forwards,
     }), flush=True)
 
+    from torch.profiler import ProfilerActivity, profile
+
+    for n, reps in ((1, 5), (8, 3)):
+        engine(images[:n])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                engine(images[:n])
+                torch.cuda.synchronize()
+            window_ms = 1e3 * (time.perf_counter() - t0) / reps
+        by_name = collections.defaultdict(float)
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
+                by_name[_kernel_name(e.key)] += e.device_time_total / reps / 1e3
+        busy = sum(by_name.values())
+        check(0 < busy <= window_ms, f"profile N={n}: device busy {busy} ms of {window_ms} ms")
+        print(json.dumps({
+            "phase": "profile", "n": n, "device_busy_ms": busy, "request_ms": window_ms,
+            "idle_share": 1 - busy / window_ms,
+            "device_ms_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+        }), flush=True)
+
     make_case = {"pointwise": pointwise_case, "winograd": winograd_case,
-                "direct": direct_case, "stem": stem_case}
-    # F(4,3) accuracy at the mode-0 shape; not on the served path.
-    extra = {"winograd": [(1, 14, 14, 128, 128, 4, True)]}
+                 "direct": direct_case, "stem": stem_case, "stage": stage_case,
+                 "transition": transition_case}
+    # Off the served N=1 list: F(4,3) accuracy at the mode-0 shape; the
+    # block at modes 6 and 9; the batched layouts' cases (rows 7 and 9 of
+    # the TPU kernel table) at N=8; the conv5_x stage geometry, which the
+    # served route runs per layer.
+    extra = {
+        "winograd": [(1, 14, 14, 128, 128, 4, True)],
+        "stage": [(1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2"),
+                  (8, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct")],
+        "transition": [(8, 14, 14, 1024, 512, 2048)],
+    }
     totals = {}
     rng = np.random.default_rng(0)
     for name in EXPECTED_PER_FORWARD:
@@ -293,13 +421,14 @@ def main() -> int:
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             finite = bool(torch.isfinite(got).all())
-            check(finite and err <= ATOL, f"{name}{shape}: max abs err {err} (finite={finite})")
+            tol = ATOL * max(1.0, ref.abs().max().item())
+            check(finite and err <= tol, f"{name}{shape}: max abs err {err} > {tol} (finite={finite})")
             ms, plain_ms, lib_ms = device_ms(kern), device_ms(plain), device_ms(lib)
             host_ms = wrapper_ms(kern)
             bound_ms, bound_by = bound(flops, nbytes)
             print(json.dumps({
                 "kernel": name, "shape": shape, "per_image": per_image,
-                "max_abs_err": err, "ms": ms, "wrapper_ms": host_ms, "plain_ms": plain_ms,
+                "max_abs_err": err, "tol": tol, "ms": ms, "wrapper_ms": host_ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "gflops_s": flops / ms / 1e6,
             }), flush=True)

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain twins on the card, at edge
 shapes the served path does not reach: ragged channel counts, maps that the
-Winograd tile does not divide, odd stem images, batches. Needs an NVIDIA
+Winograd tile does not divide, odd stem images, batches, stages and
+transitions whose phases split K. Needs an NVIDIA
 GPU and nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -18,7 +19,13 @@ from winograd_tpu_torch.kernels.direct import (
     conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter,
 )
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain
+from winograd_tpu_torch.kernels.stage import (
+    resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params,
+)
 from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_plain
+from winograd_tpu_torch.kernels.transition import (
+    transition_block_fused, transition_block_fused_plain,
+)
 from winograd_tpu_torch.kernels.winograd import (
     conv3x3_bn_winograd, conv3x3_bn_winograd_plain,
 )
@@ -104,3 +111,71 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         conv1x1_bn(x.double(), w.double(), s.double(), b.double(), True)
     with pytest.raises(ValueError):
         conv1x1_bn(x, w, s[:3], b[:3], True)                 # BN not per channel
+
+
+def _stacked(rng, dev, nb, cio, cmid):
+    blocks = []
+    for _ in range(nb):
+        w = (rng.random((cmid, cmid, 3, 3)) - 0.5).astype(np.float32)
+        (s1, b1), (s2, b2), (s3, b3) = (_bn(rng, dev, c) for c in (cmid, cmid, cio))
+        blocks.append(dict(
+            w_reduce=_r(rng, dev, cio, cmid), s_reduce=s1, b_reduce=b1,
+            u2_mid=torch.as_tensor(transforms.transform_filter(w, m=2), device=dev),
+            w9_mid=torch.as_tensor(direct_filter(w), device=dev), s_mid=s2, b_mid=b2,
+            w_expand=_r(rng, dev, cmid, cio), s_expand=s3, b_expand=b3))
+    return stack_stage_params(blocks)
+
+
+# (N, H=W, Cio, Cmid, blocks): odd maps, ragged channels, and shapes whose
+# GEMM phases split K (K >= 256) with a ragged last split.
+@pytest.mark.parametrize("mid", ["direct", "winograd2"])
+@pytest.mark.parametrize("n,hw,cio,cmid,nb", [
+    (1, 7, 70, 20, 3), (3, 9, 70, 20, 1), (3, 29, 70, 20, 3), (1, 7, 300, 40, 2),
+    (2, 9, 144, 300, 2),
+])
+def test_stage_edges_and_batches(dev, mid, n, hw, cio, cmid, nb):
+    rng = np.random.default_rng(n * hw + cio + cmid + nb)
+    stacked = _stacked(rng, dev, nb, cio, cmid)
+    x = _r(rng, dev, n, hw, hw, cio)
+    _agree(resnet_stage_fused(x, stacked, mid), resnet_stage_fused_plain(x, stacked, mid))
+
+
+def _transition(rng, dev, cin, cmid, cout):
+    w = (rng.random((cmid, cmid, 3, 3)) - 0.5).astype(np.float32)
+    (s1, b1), (s2, b2), (s3, b3), (sp, bp) = (_bn(rng, dev, c) for c in (cmid, cmid, cout, cout))
+    return dict(w_reduce=_r(rng, dev, cin, cmid), s_reduce=s1, b_reduce=b1,
+                w9_mid=torch.as_tensor(direct_filter(w), device=dev), s_mid=s2, b_mid=b2,
+                w_expand=_r(rng, dev, cmid, cout), s_expand=s3, b_expand=b3,
+                w_proj=_r(rng, dev, cin, cout), s_proj=sp, b_proj=bp)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cmid,cout", [
+    (3, 15, 15, 70, 20, 130), (3, 7, 7, 300, 40, 90), (1, 14, 14, 64, 32, 128),
+    (2, 9, 8, 256, 300, 70),
+])
+def test_transition_odd_maps_and_batches(dev, n, h, w, cin, cmid, cout):
+    rng = np.random.default_rng(h * w + cin + cout)
+    p = _transition(rng, dev, cin, cmid, cout)
+    x = _r(rng, dev, n, h, w, cin)
+    _agree(transition_block_fused(x, p), transition_block_fused_plain(x, p))
+
+
+def test_stage_and_transition_reject_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(1)
+    stacked = _stacked(rng, dev, 2, 16, 8)
+    x = _r(rng, dev, 1, 7, 7, 16)
+    with pytest.raises(ValueError):
+        resnet_stage_fused(x.transpose(1, 2).contiguous().transpose(1, 2), stacked)
+    with pytest.raises(TypeError):
+        resnet_stage_fused(x.double(), {k: v.double() for k, v in stacked.items()})
+    with pytest.raises(ValueError):
+        resnet_stage_fused(x[..., :8].contiguous(), stacked)               # Cio mismatch
+    with pytest.raises(ValueError):
+        resnet_stage_fused(x, dict(stacked, w_expand=stacked["w_expand"][:, :, :8]))
+    p = _transition(rng, dev, 16, 8, 32)
+    with pytest.raises(ValueError):
+        transition_block_fused(x.transpose(1, 2), p)                       # not contiguous
+    with pytest.raises(TypeError):
+        transition_block_fused(x.double(), {k: v.double() for k, v in p.items()})
+    with pytest.raises(ValueError):
+        transition_block_fused(x, dict(p, w9_mid=p["w9_mid"][:-1].contiguous()))

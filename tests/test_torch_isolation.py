@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of winograd_tpu_torch loads
-neither jax nor winograd_tpu, and its entry points refuse to run on the CPU
-unless the caller asks for it."""
+neither jax nor winograd_tpu, chip_smoke.py has no import statement of
+either, and the port's entry points refuse to run on the CPU unless the
+caller asks for it."""
 
+import ast
 import pathlib
 import subprocess
 import sys
@@ -34,6 +36,22 @@ def test_port_imports_no_jax_and_no_jax_package():
     count, bad = res.stdout.split(" ", 1)
     assert int(count) >= 15, res.stdout
     assert bad.strip() == "[]", res.stdout
+
+
+def test_chip_smoke_imports_no_jax_and_no_jax_package():
+    """chip_smoke.py imports inside main(), so importing it proves nothing:
+    every import statement of its source is checked instead."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    modules = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            modules += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            assert node.level == 0, "chip_smoke.py runs from the repository root"
+            modules.append(node.module)
+    tops = {m.split(".")[0] for m in modules}
+    assert "winograd_tpu_torch" in tops and "torch" in tops, modules
+    assert not tops & {"jax", "jaxlib", "winograd_tpu"}, modules
 
 
 def test_entry_points_refuse_cpu_unless_asked():

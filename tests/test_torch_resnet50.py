@@ -1,8 +1,9 @@
 """The port's whole slice against the JAX package, on the tiny ResNet-50 of
 tests/test_resnet50.py: JAX init_resnet50_params -> numpy ->
 params_from_jax -> port resnet50_forward (CPU, plain versions) against JAX
-resnet50_forward_pallas (Pallas interpret mode), and the engine on top.
-Bound everywhere: 1e-4 * max(1, max|ref|)."""
+resnet50_forward_pallas (Pallas interpret mode), and the engine on top; a
+three-stage trunk against JAX resnet50_stages; and the route each gate
+picks at the full-width shapes. Bound everywhere: 1e-4 * max(1, max|ref|)."""
 
 import dataclasses
 
@@ -13,13 +14,15 @@ import pytest
 import torch
 
 from winograd_tpu.config import ResNet50Config as JaxResNet50Config
+from winograd_tpu.config import TransitionConfig
 from winograd_tpu.models.resnet import bottleneck_block_pallas
 from winograd_tpu.models.resnet50 import init_resnet50_params as jax_init
 from winograd_tpu.models.resnet50 import resnet50_forward_pallas, resnet50_forward_xla
 from winograd_tpu_torch.config import PARITY_ATOL, ResNet50Config
 from winograd_tpu_torch.engine import ResNet50Engine
 from winograd_tpu_torch.models import resnet
-from winograd_tpu_torch.models.convert import params_from_jax
+from winograd_tpu_torch.models.convert import params_from_jax, params_to, stages_from_jax
+from winograd_tpu_torch.models.downsample import resnet50_stages
 from winograd_tpu_torch.models.resnet50 import (
     init_resnet50_arrays,
     init_resnet50_params,
@@ -103,6 +106,20 @@ def test_bottleneck_block_takes_winograd_at_28x28():
     assert direct.shape == (1, 14, 14, 8)
 
 
+@pytest.mark.parametrize("algo", ["fused", "direct", "winograd"])
+def test_bottleneck_block_routes_match_jax(algo):
+    """Each of the block's routes (one block kernel launch, or per layer with
+    either 3x3) against the JAX package's fused block."""
+    from winograd_tpu.datagen.generate import _block_params_random
+
+    rng = np.random.default_rng(12)
+    blk = _block_params_random(rng, 32, 8, bn_scale=0.5)
+    x = (rng.random((2, 14, 14, 32)) - 0.5).astype(np.float32)
+    ref = bottleneck_block_pallas(jnp.asarray(x), jax.tree.map(jnp.asarray, blk), algo3x3="fused")
+    params = {k: torch.from_numpy(np.asarray(v)) for k, v in blk.items()}
+    assert _close(resnet.bottleneck_block(torch.from_numpy(x), params, algo3x3=algo).numpy(), ref)
+
+
 def test_engine_rejects_unported_options():
     cfg = _TinyR50("tiny_resnet50")
     params = init_resnet50_params(cfg, seed=0, device="cpu")
@@ -115,3 +132,122 @@ def test_full_width_config_matches_jax_package():
     ours, theirs = ResNet50Config(), JaxResNet50Config("resnet50_full")
     assert ours.stages == theirs.stages
     assert (ours.img, ours.stem_c, ours.num_classes) == (theirs.img, theirs.stem_c, theirs.num_classes)
+
+
+def test_trunk_matches_jax_resnet50_stages():
+    """Three stages of two blocks at 28x28 (F(2,3) mid), 14x14 and 7x7
+    (direct mid), the last two entered through stride-2 transitions: the
+    stage kernel on both mids and the transition kernel, through
+    stages_from_jax (stacked params, fused transition weights) and through
+    raw per-block params (stacked and fused per call)."""
+    from winograd_tpu.datagen.generate import _block_params_random, _transition_params_random
+    from winograd_tpu.models.downsample import resnet50_stages as jax_stages
+
+    rng = np.random.default_rng(11)
+    stages, c_prev = [], None
+    for c_io, c_mid, hw in ((32, 8, 28), (64, 16, 14), (128, 32, 7)):
+        t = None if c_prev is None else _transition_params_random(
+            rng, TransitionConfig("t", c_prev, c_mid, c_io, hw=2 * hw), bn_scale=0.5)
+        blocks = [_block_params_random(rng, c_io, c_mid, bn_scale=0.5) for _ in range(2)]
+        stages.append({"transition": t, "blocks": blocks})
+        c_prev = c_io
+    x = (rng.random((1, 28, 28, 32)) - 0.5).astype(np.float32)
+    ref = np.asarray(jax_stages(jnp.asarray(x), jax.tree.map(jnp.asarray, stages),
+                                precision="highest"))
+    assert ref.shape == (1, 7, 7, 128)
+    converted = stages_from_jax(stages, device="cpu")
+    assert all(st["stacked"] is not None for st in converted)
+    moved = params_to(converted, "cpu", torch.float64)      # a copy, weights still stored once
+    assert moved[2]["blocks"][1]["w9_mid"].data_ptr() == moved[2]["stacked"]["w9_mid"][1].data_ptr()
+    assert moved[2]["blocks"][1]["s_mid"].shape == (32,)
+    assert _close(resnet50_stages(torch.from_numpy(x), converted).numpy(), ref)
+    raw = [{"transition": None if st["transition"] is None else
+            {k: torch.from_numpy(np.asarray(v)) for k, v in st["transition"].items()},
+            "blocks": [{k: torch.from_numpy(np.asarray(v)) for k, v in b.items()}
+                       for b in st["blocks"]]} for st in stages]
+    assert _close(resnet50_stages(torch.from_numpy(x), raw).numpy(), ref)
+
+
+def _shape_only(*shape):
+    return np.broadcast_to(np.float32(0), shape)
+
+
+def _block_shapes(c_io, c_mid):
+    return {"w_reduce": _shape_only(c_io, c_mid), "w9_mid": _shape_only(9 * c_mid, c_mid),
+            "u2_mid": _shape_only(16, c_mid, c_mid), "w_expand": _shape_only(c_mid, c_io),
+            **{k: _shape_only(c_mid) for k in ("s_reduce", "b_reduce", "s_mid", "b_mid")},
+            **{k: _shape_only(c_io) for k in ("s_expand", "b_expand")}}
+
+
+def _routes(monkeypatch):
+    """Stub every kernel call of both packages' block, stage and transition
+    functions with one that records the route taken and runs nothing."""
+    import winograd_tpu.kernels.block as jax_block
+    import winograd_tpu.kernels.stage as jax_stage
+    import winograd_tpu.kernels.transition as jax_transition
+    import winograd_tpu.models.resnet as jax_resnet
+    from winograd_tpu_torch.models import downsample
+
+    taken = []
+
+    def record(route):
+        def stub(x, *args, **kwargs):
+            taken.append(route)
+            return x
+        return stub
+
+    for mod, name, route in (
+        (jax_stage, "resnet_stage_fused_pallas", "fused_stage"),
+        (jax_stage, "stack_stage_params", None),
+        (jax_block, "bottleneck_block_fused_pallas", "fused"),
+        (jax_resnet, "conv1x1_bn_pallas", None),
+        (jax_resnet, "conv3x3_bn_direct_pallas", "direct"),
+        (jax_resnet, "conv3x3_bn_winograd_pallas", "winograd"),
+        (jax_transition, "transition_block_fused_pallas", "transition_fused"),
+        (resnet, "resnet_stage_fused", "fused_stage"),
+        (resnet, "stack_stage_params", None),
+        (resnet, "bottleneck_block_fused", "fused"),
+        (resnet, "conv1x1_bn", None),
+        (resnet, "conv3x3_bn_direct", "direct"),
+        (resnet, "conv3x3_bn_winograd", "winograd"),
+        (downsample, "transition_block_fused", "transition_fused"),
+    ):
+        monkeypatch.setattr(mod, name, (lambda x, *a, **k: x) if route is None else record(route))
+    return taken
+
+
+def test_route_choice_matches_jax_gates_at_full_width(monkeypatch):
+    """Arithmetic on shapes only: for each full-width ResNet-50 stage (and
+    single-block stages of its geometries), the port's resnet_stage,
+    bottleneck_block and downsample_bottleneck_block take the route the
+    JAX package's gates take. No kernel runs."""
+    from winograd_tpu.models.downsample import downsample_bottleneck_block_pallas
+    from winograd_tpu.models.resnet import resnet_stage_pallas
+    from winograd_tpu_torch.models.downsample import downsample_bottleneck_block
+
+    taken = _routes(monkeypatch)
+
+    def route(fn, x, *args):
+        taken.clear()
+        fn(x, *args)
+        return list(taken)
+
+    cfg = ResNet50Config()
+    jx, tx = jnp.zeros(1), torch.zeros(1)
+    full = []
+    for c_io, c_mid, _hw, n_blocks in cfg.stages:
+        for blocks in ([_block_shapes(c_io, c_mid)] * n_blocks, [_block_shapes(c_io, c_mid)]):
+            ours = route(resnet.resnet_stage, tx, blocks)
+            assert ours == route(resnet_stage_pallas, jx, blocks), (c_io, c_mid, len(blocks))
+            if len(blocks) > 1:
+                full.append(ours)
+        block = _block_shapes(c_io, c_mid)
+        assert route(resnet.bottleneck_block, tx, block) == route(
+            bottleneck_block_pallas, jx, block)
+        assert resnet.block_algo(block) == ("fused" if c_io < 2048 else "direct")
+        transition = dict(block, w_proj=_shape_only(c_io // 2, c_io),
+                          s_proj=_shape_only(c_io), b_proj=_shape_only(c_io))
+        assert route(downsample_bottleneck_block, tx, transition) == route(
+            downsample_bottleneck_block_pallas, jx, transition) == ["transition_fused"]
+    assert full == [["fused_stage"], ["fused_stage"], ["fused_stage"], ["direct", "direct"]]
+

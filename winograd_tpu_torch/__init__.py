@@ -1,14 +1,18 @@
 """winograd_tpu_torch — the PyTorch/CUDA port of winograd_tpu for one NVIDIA H100.
 
 The served path is the f32 ResNet-50 classifier (224x224x3 image to 1000
-logits) composed from per-layer fused kernels, each hand-written in CUDA C++
-for sm_90a (csrc/) and bound with ctypes (kernels/_build.py):
+logits) on the JAX package's fused route, through kernels hand-written in
+CUDA C++ for sm_90a (csrc/) and bound with ctypes (kernels/_build.py):
 
 * kernels/pointwise.py — 1x1 conv as a GEMM + folded BN (+ReLU); also the
-  stride-2 3x3 (strided im2col) and the head FC.
+  composed stride-2 3x3 (strided im2col) and the head FC.
 * kernels/winograd.py — 3x3 s1 conv, Winograd F(2,3) or F(4,3) + BN + ReLU.
 * kernels/direct.py — 3x3 s1 conv as an implicit GEMM + BN + ReLU.
 * kernels/stem.py — 7x7/2 conv + BN + ReLU + 3x3/2 maxpool.
+* kernels/stage.py — a run of identity bottlenecks in one persistent launch
+  (kernels/block.py runs one block through it).
+* kernels/transition.py — the stride-2 transition block in one persistent
+  launch.
 
 Every kernel wrapper runs its plain PyTorch version for tensors on the CPU
 (the tests) and launches the kernel for CUDA tensors; there is no fallback

@@ -47,8 +47,10 @@ __global__ void __launch_bounds__(wt::kGemmThreads) direct_kernel(
     const float* __restrict__ scale, const float* __restrict__ bias,
     float* __restrict__ out, int N, int H, int W, int Cin, int Cout,
     int relu) {
+  __shared__ __align__(16) float smem[wt::kGemmSmemFloats];
   wt::gemm_bn_tile(Im2colA{x, H, W, Cin}, w9, scale, bias, out, N * H * W,
-                   9 * Cin, Cout, relu);
+                   9 * Cin, Cout, relu, blockIdx.y * wt::kBM,
+                   blockIdx.x * wt::kBN, smem);
 }
 
 extern "C" int direct_conv3x3_bn(const float* x, const float* w9,

@@ -1,10 +1,14 @@
-// One output tile of C[P, N] = A[P, K] x B[K, N] with the folded-BN epilogue
-// y = C * scale[n] + bias[n] (+ ReLU), in FP32 FFMA with FP32 accumulation.
+// One output tile of C[P, N] = A[P, K] x B[K, N] in FP32 FFMA with FP32
+// accumulation, handed to an epilogue functor; gemm_bn_tile is the tile with
+// the folded-BN epilogue y = C * scale[n] + bias[n] (+ ReLU).
 //
-// Shared by the pointwise kernel (A is the activation matrix) and the direct
+// Shared by the pointwise kernel (A is the activation matrix), the direct
 // 3x3 kernel (A is the implicit im2col matrix, gathered on the fly into
-// shared memory). The A operand comes through a loader functor
-// `float a(int p, int k)`; B is a row-major (K, N) weight matrix.
+// shared memory) and the persistent stage and transition kernels, which walk
+// a list of tiles and split K across blocks. The A operand comes through a
+// loader functor `float a(int p, int k)`; B is a row-major (K, N) weight
+// matrix. The caller names the tile (p0, n0), the K range [k_begin, k_end)
+// and the shared memory (kGemmSmemFloats floats, 16-byte aligned).
 //
 // Tile: 64 x 64 outputs per block of 256 threads, 4 x 4 per thread, K in
 // steps of 16 staged in shared memory. A is stored k-major so each thread
@@ -21,6 +25,7 @@ constexpr int kBM = 64;
 constexpr int kBN = 64;
 constexpr int kBK = 16;
 constexpr int kGemmThreads = 256;
+constexpr int kGemmSmemFloats = kBK * (kBM + 4) + kBK * kBN;
 
 struct RowMajorA {
   const float* __restrict__ x;
@@ -30,16 +35,29 @@ struct RowMajorA {
   }
 };
 
-template <class ALoad>
-__device__ __forceinline__ void gemm_bn_tile(
-    const ALoad& a_at, const float* __restrict__ b,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    float* __restrict__ out, int P, int K, int N, int relu) {
-  __shared__ __align__(16) float As[kBK][kBM + 4];
-  __shared__ __align__(16) float Bs[kBK][kBN];
+// y = acc * scale[n] + bias[n] (+ ReLU) into out[p, n] (row stride N).
+struct BnEpilogue {
+  const float* __restrict__ scale;
+  const float* __restrict__ bias;
+  float* out;
+  int N;
+  int relu;
+  __device__ __forceinline__ void operator()(int p, int n, float acc) const {
+    float y = acc * scale[n] + bias[n];
+    if (relu) y = fmaxf(y, 0.f);
+    out[static_cast<size_t>(p) * N + n] = y;
+  }
+};
+
+template <class ALoad, class Epilogue>
+__device__ __forceinline__ void gemm_tile(const ALoad& a_at,
+                                          const float* __restrict__ b, int P,
+                                          int K, int N, int p0, int n0,
+                                          int k_begin, int k_end, float* smem,
+                                          const Epilogue& epi) {
+  float(*As)[kBM + 4] = reinterpret_cast<float(*)[kBM + 4]>(smem);
+  float(*Bs)[kBN] = reinterpret_cast<float(*)[kBN]>(smem + kBK * (kBM + 4));
   const int tid = threadIdx.x;
-  const int p0 = blockIdx.y * kBM;
-  const int n0 = blockIdx.x * kBN;
   const int ty = tid / 16;
   const int tx = tid % 16;
 
@@ -49,7 +67,7 @@ __device__ __forceinline__ void gemm_bn_tile(
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = 0; k0 < K; k0 += kBK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
     // A tile (64 rows x 16 k): neighbouring threads take neighbouring k.
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -57,7 +75,7 @@ __device__ __forceinline__ void gemm_bn_tile(
       const int kk = tid % 16;
       const int p = p0 + r;
       const int k = k0 + kk;
-      As[kk][r] = (p < P && k < K) ? a_at(p, k) : 0.f;
+      As[kk][r] = (p < P && k < k_end) ? a_at(p, k) : 0.f;
     }
     // B tile (16 k x 64 columns): neighbouring threads take neighbouring n.
 #pragma unroll
@@ -66,7 +84,7 @@ __device__ __forceinline__ void gemm_bn_tile(
       const int c = tid % 64;
       const int k = k0 + kk;
       const int n = n0 + c;
-      Bs[kk][c] = (k < K && n < N) ? b[static_cast<size_t>(k) * N + n] : 0.f;
+      Bs[kk][c] = (k < k_end && n < N) ? b[static_cast<size_t>(k) * N + n] : 0.f;
     }
     __syncthreads();
 #pragma unroll
@@ -87,17 +105,22 @@ __device__ __forceinline__ void gemm_bn_tile(
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + tx * 4 + j;
     if (n >= N) continue;
-    const float s = scale[n];
-    const float t = bias[n];
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int p = p0 + ty * 4 + i;
-      if (p >= P) continue;
-      float y = acc[i][j] * s + t;
-      if (relu) y = fmaxf(y, 0.f);
-      out[static_cast<size_t>(p) * N + n] = y;
+      if (p < P) epi(p, n, acc[i][j]);
     }
   }
+}
+
+template <class ALoad>
+__device__ __forceinline__ void gemm_bn_tile(
+    const ALoad& a_at, const float* __restrict__ b,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    float* __restrict__ out, int P, int K, int N, int relu, int p0, int n0,
+    float* smem) {
+  gemm_tile(a_at, b, P, K, N, p0, n0, 0, K, smem,
+            BnEpilogue{scale, bias, out, N, relu});
 }
 
 }  // namespace wt

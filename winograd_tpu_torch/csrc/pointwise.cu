@@ -26,7 +26,9 @@ __global__ void __launch_bounds__(wt::kGemmThreads) pointwise_kernel(
     const float* __restrict__ x, const float* __restrict__ w,
     const float* __restrict__ scale, const float* __restrict__ bias,
     float* __restrict__ out, int P, int K, int N, int relu) {
-  wt::gemm_bn_tile(wt::RowMajorA{x, K}, w, scale, bias, out, P, K, N, relu);
+  __shared__ __align__(16) float smem[wt::kGemmSmemFloats];
+  wt::gemm_bn_tile(wt::RowMajorA{x, K}, w, scale, bias, out, P, K, N, relu,
+                   blockIdx.y * wt::kBM, blockIdx.x * wt::kBN, smem);
 }
 
 extern "C" int pointwise_conv1x1_bn(const float* x, const float* w,

@@ -1,0 +1,238 @@
+// The Winograd F(m,3) tile body, m = 2 or 4: one work item computes TT
+// tiles x COB output channels of a 3x3 conv (stride 1, pad 1) + folded BN
+// (+ ReLU), for every tile position, with the whole Winograd chain on chip:
+//   V = Bt d Bt^T per (m+2)^2 input tile and channel,
+//   M[p] = V[p] U[p] per tile position p,
+//   Y = At M At^T, then y = Y * scale + bias (+ ReLU), stored clipped at the
+//   right and bottom edges when m does not divide the map.
+//
+// Shared by csrc/winograd.cu (TT = 8, 128 threads per block) and the
+// persistent stage kernel's F(2,3) mid-layer (csrc/stage.cu, TT = 16, 256
+// threads). Thread `tid` of the item takes tile tid / kWinoTX and output
+// channels (tid % kWinoTX) * CPT .. + CPT. Input channels are consumed in
+// stages of kWinoCK: the input transform runs one thread per (tile,
+// channel) of the stage, in registers with the constant matrices folded in
+// at compile time, and stages V and the matching slice of U in shared
+// memory (wino_smem_floats<M, TT>() floats, 16-byte aligned). The input is
+// read through the functor `Load` (`float ld(const float* p)`), so a kernel
+// that produced it in the same launch can bypass L1.
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace wt {
+
+constexpr int kWinoTX = 16;  // output-channel groups per item
+constexpr int kWinoCK = 8;   // input channels per shared-memory stage
+
+template <int M>
+struct Wino;
+
+template <>
+struct Wino<2> {
+  static constexpr int CPT = 4;  // output channels per thread
+  __host__ __device__ static constexpr float bt(int i, int k) {
+    constexpr float m[4][4] = {
+        {1, 0, -1, 0}, {0, 1, 1, 0}, {0, -1, 1, 0}, {0, 1, 0, -1}};
+    return m[i][k];
+  }
+  __host__ __device__ static constexpr float at(int i, int k) {
+    constexpr float m[2][4] = {{1, 1, 1, 0}, {0, 1, -1, -1}};
+    return m[i][k];
+  }
+};
+
+template <>
+struct Wino<4> {
+  static constexpr int CPT = 2;
+  __host__ __device__ static constexpr float bt(int i, int k) {
+    constexpr float m[6][6] = {
+        {4, 0, -5, 0, 1, 0},  {0, -4, -4, 1, 1, 0}, {0, 4, -4, -1, 1, 0},
+        {0, -2, -1, 2, 1, 0}, {0, 2, -1, -2, 1, 0}, {0, 4, 0, -5, 0, 1}};
+    return m[i][k];
+  }
+  __host__ __device__ static constexpr float at(int i, int k) {
+    constexpr float m[4][6] = {{1, 1, 1, 1, 1, 0},
+                               {0, 1, -1, 2, -2, 0},
+                               {0, 1, 1, 4, 4, 0},
+                               {0, 1, -1, 8, -8, 1}};
+    return m[i][k];
+  }
+};
+
+template <int M>
+__host__ __device__ constexpr int wino_cob() {
+  return kWinoTX * Wino<M>::CPT;
+}
+
+template <int M, int TT>
+__host__ __device__ constexpr int wino_smem_floats() {
+  return (M + 2) * (M + 2) * kWinoCK * (TT + wino_cob<M>());
+}
+
+// out = T in T^T for a constant R x C matrix T (C = M + 2), zero terms
+// skipped at compile time. `T(i, k)` is Wino<M>::bt or ::at.
+template <int M, int R, bool kInverse>
+__device__ __forceinline__ void sandwich(const float (&in)[M + 2][M + 2],
+                                         float (&out)[R][R]) {
+  constexpr int A = M + 2;
+  float t[R][A];
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < A; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < A; ++k) {
+        const float c = kInverse ? Wino<M>::at(i, k) : Wino<M>::bt(i, k);
+        if (c != 0.f) s = fmaf(c, in[k][j], s);
+      }
+      t[i][j] = s;
+    }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      float s = 0.f;
+#pragma unroll
+      for (int k = 0; k < A; ++k) {
+        const float c = kInverse ? Wino<M>::at(j, k) : Wino<M>::bt(j, k);
+        if (c != 0.f) s = fmaf(c, t[i][k], s);
+      }
+      out[i][j] = s;
+    }
+}
+
+struct PlainLoad {
+  __device__ __forceinline__ float operator()(const float* p) const { return *p; }
+};
+
+// Tiles t0 .. t0 + TT - 1 (row-major over N x ceil(H/M) x ceil(W/M)) and
+// output channels co0 .. co0 + COB - 1, by threads 0 .. TT * kWinoTX - 1.
+template <int M, int TT, class Load>
+__device__ __forceinline__ void wino_tile(
+    const Load& ld, const float* x, const float* __restrict__ u,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    float* out, int N, int H, int W, int Cin, int Cout, int relu, int t0,
+    int co0, int tid, float* smem) {
+  constexpr int A = M + 2;
+  constexpr int A2 = A * A;
+  constexpr int CPT = Wino<M>::CPT;
+  constexpr int COB = wino_cob<M>();
+  float(*Vs)[kWinoCK][TT] = reinterpret_cast<float(*)[kWinoCK][TT]>(smem);
+  float(*Us)[kWinoCK][COB] =
+      reinterpret_cast<float(*)[kWinoCK][COB]>(smem + A2 * kWinoCK * TT);
+
+  const int tx = tid % kWinoTX;
+  const int ty = tid / kWinoTX;
+  const int th = (H + M - 1) / M;
+  const int tw = (W + M - 1) / M;
+  const int nt = N * th * tw;
+
+  float acc[A2][CPT];
+#pragma unroll
+  for (int p = 0; p < A2; ++p)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) acc[p][j] = 0.f;
+
+  for (int c0 = 0; c0 < Cin; c0 += kWinoCK) {
+    // Input transform: one thread per (tile, channel) of the stage.
+    if (tid < TT * kWinoCK) {
+      const int lt = tid / kWinoCK;
+      const int lc = tid % kWinoCK;
+      const int g = t0 + lt;
+      const int c = c0 + lc;
+      float d[A][A];
+      const bool live = g < nt && c < Cin;
+      int n = 0, y0 = 0, x0 = 0;
+      if (live) {
+        n = g / (th * tw);
+        const int r = g - n * th * tw;
+        y0 = (r / tw) * M - 1;
+        x0 = (r % tw) * M - 1;
+      }
+#pragma unroll
+      for (int i = 0; i < A; ++i)
+#pragma unroll
+        for (int j = 0; j < A; ++j) {
+          const int yy = y0 + i;
+          const int xx = x0 + j;
+          d[i][j] = (live && yy >= 0 && yy < H && xx >= 0 && xx < W)
+                        ? ld(&x[(static_cast<size_t>(n * H + yy) * W + xx) * Cin + c])
+                        : 0.f;
+        }
+      float v[A][A];
+      sandwich<M, A, false>(d, v);
+#pragma unroll
+      for (int i = 0; i < A; ++i)
+#pragma unroll
+        for (int j = 0; j < A; ++j) Vs[i * A + j][lc][lt] = v[i][j];
+    }
+    // The stage's slice of U[a^2, Cin, Cout]; neighbouring threads take
+    // neighbouring output channels.
+    for (int idx = tid; idx < A2 * kWinoCK * COB; idx += TT * kWinoTX) {
+      const int p = idx / (kWinoCK * COB);
+      const int rem = idx - p * (kWinoCK * COB);
+      const int c = rem / COB;
+      const int co = rem - c * COB;
+      const int ci = c0 + c;
+      const int coo = co0 + co;
+      Us[p][c][co] = (ci < Cin && coo < Cout)
+                         ? u[(static_cast<size_t>(p) * Cin + ci) * Cout + coo]
+                         : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int c = 0; c < kWinoCK; ++c) {
+#pragma unroll
+      for (int p = 0; p < A2; ++p) {
+        const float v = Vs[p][c][ty];
+        if constexpr (CPT == 4) {
+          const float4 w = *reinterpret_cast<const float4*>(&Us[p][c][tx * 4]);
+          acc[p][0] = fmaf(v, w.x, acc[p][0]);
+          acc[p][1] = fmaf(v, w.y, acc[p][1]);
+          acc[p][2] = fmaf(v, w.z, acc[p][2]);
+          acc[p][3] = fmaf(v, w.w, acc[p][3]);
+        } else {
+          const float2 w = *reinterpret_cast<const float2*>(&Us[p][c][tx * 2]);
+          acc[p][0] = fmaf(v, w.x, acc[p][0]);
+          acc[p][1] = fmaf(v, w.y, acc[p][1]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  const int g = t0 + ty;
+  if (g >= nt) return;
+  const int n = g / (th * tw);
+  const int r = g - n * th * tw;
+  const int oy0 = (r / tw) * M;
+  const int ox0 = (r % tw) * M;
+#pragma unroll
+  for (int j = 0; j < CPT; ++j) {
+    const int co = co0 + tx * CPT + j;
+    if (co >= Cout) continue;
+    float mm[A][A];
+#pragma unroll
+    for (int p = 0; p < A2; ++p) mm[p / A][p % A] = acc[p][j];
+    float y[M][M];
+    sandwich<M, M, true>(mm, y);
+    const float s = scale[co];
+    const float b = bias[co];
+#pragma unroll
+    for (int oi = 0; oi < M; ++oi)
+#pragma unroll
+      for (int oj = 0; oj < M; ++oj) {
+        const int oy = oy0 + oi;
+        const int ox = ox0 + oj;
+        if (oy < H && ox < W) {
+          float val = y[oi][oj] * s + b;
+          if (relu) val = fmaxf(val, 0.f);
+          out[(static_cast<size_t>(n * H + oy) * W + ox) * Cout + co] = val;
+        }
+      }
+  }
+}
+
+}  // namespace wt

@@ -110,15 +110,9 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_operands(scale: torch.Tensor, bias: torch.Tensor, cout: int,
-                   *tensors: torch.Tensor) -> None:
+def check_tensors(*tensors: torch.Tensor) -> None:
     """Every operand of a kernel is a contiguous float32 tensor on the same
-    CUDA device, and the folded BN is one (scale, bias) pair per output
-    channel."""
-    if scale.shape != (cout,) or bias.shape != (cout,):
-        raise ValueError(
-            f"scale {tuple(scale.shape)} and bias {tuple(bias.shape)} must be ({cout},)")
-    tensors = (scale, bias) + tensors
+    CUDA device."""
     dev = tensors[0].device
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
@@ -127,6 +121,16 @@ def check_operands(scale: torch.Tensor, bias: torch.Tensor, cout: int,
             raise TypeError(f"kernel operands must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
+
+
+def check_operands(scale: torch.Tensor, bias: torch.Tensor, cout: int,
+                   *tensors: torch.Tensor) -> None:
+    """check_tensors, and the folded BN is one (scale, bias) pair per output
+    channel."""
+    if scale.shape != (cout,) or bias.shape != (cout,):
+        raise ValueError(
+            f"scale {tuple(scale.shape)} and bias {tuple(bias.shape)} must be ({cout},)")
+    check_tensors(scale, bias, *tensors)
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -142,6 +146,13 @@ def reset_counts() -> None:
     LAUNCH_SHAPES.clear()
 
 
+def check_error(lib: ctypes.CDLL, what: str, err: int) -> None:
+    """Raise if a C entry of `lib` returned a CUDA error code."""
+    if err != 0:
+        msg = lib.wt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
 def launch(name: str, entry: str, shape: tuple, device: torch.device, *args) -> None:
     """Call the C entry `entry` of library `name` with `device` current, on
     its current stream; raise if the launch was refused, else count it under
@@ -150,9 +161,7 @@ def launch(name: str, entry: str, shape: tuple, device: torch.device, *args) -> 
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
         err = getattr(lib, entry)(*args, stream)
-    if err != 0:
-        msg = lib.wt_error_string(err).decode()
-        raise RuntimeError(f"{name}.{entry}: CUDA error {err} ({msg})")
+    check_error(lib, f"{name}.{entry}", err)
     LAUNCHES[name] += 1
     LAUNCH_SHAPES[name][shape] += 1
 

@@ -5,18 +5,25 @@ params_from_jax takes the parameter tree that winograd_tpu builds
 arrays, and returns the port's parameter dicts, so that both packages
 compute the same network. Each offline layout the port runs (u2_mid, w9_mid,
 w192_stem) is derived here from the raw filter (w_mid, w7_stem) when the
-tree has it, in the target dtype, with this package's own transforms.
+tree has it, in the target dtype, with this package's own transforms. Each
+transition also gets its fused expand/projection weights (wep, bep), and
+each stage that runs as one stage kernel its blocks' params stacked once
+("stacked"), with the per-block tensors as views into the stack, so a
+request never stacks and the weights are stored once.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
 
 from winograd_tpu_torch.kernels import transforms
 from winograd_tpu_torch.kernels.direct import direct_filter
+from winograd_tpu_torch.kernels.stage import stack_stage_params
+from winograd_tpu_torch.kernels.transition import fuse_transition_weights
+from winograd_tpu_torch.models.resnet import stage_algo
 
 BN_KEYS = ("s_reduce", "b_reduce", "s_mid", "b_mid", "s_expand", "b_expand")
 BLOCK_KEYS = ("w_reduce", "u2_mid", "w9_mid", "w_expand") + BN_KEYS
@@ -54,6 +61,41 @@ def _layer(tree: Dict, keys, np_dtype, device, dtype) -> Dict[str, torch.Tensor]
     }
 
 
+def _transition(tree: Dict, np_dtype, device, dtype) -> Dict[str, torch.Tensor]:
+    layer = _layer(tree, TRANSITION_KEYS, np_dtype, device, dtype)
+    layer["wep"], layer["bep"] = fuse_transition_weights(layer)
+    return layer
+
+
+def _block_views(stacked: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
+    """Each block's params as views into its stage's stacked params."""
+    return [
+        {k: stacked[k][i].reshape(-1) if k in BN_KEYS else stacked[k][i] for k in BLOCK_KEYS}
+        for i in range(stacked["w_reduce"].shape[0])
+    ]
+
+
+def _stage(tree: Dict, np_dtype, device, dtype) -> Dict:
+    blocks = [_layer(b, BLOCK_KEYS, np_dtype, device, dtype) for b in tree["blocks"]]
+    stacked = None
+    if stage_algo(blocks) == "fused_stage":
+        stacked = stack_stage_params(blocks)
+        blocks = _block_views(stacked)
+    transition = tree.get("transition")
+    return {
+        "transition": None if transition is None else _transition(transition, np_dtype, device, dtype),
+        "blocks": blocks,
+        "stacked": stacked,
+    }
+
+
+def stages_from_jax(stages: List[Dict], device="cuda", dtype=torch.float32) -> List[Dict]:
+    """The JAX package's resnet50_stages structure (numpy arrays) -> the
+    port's stages on `device`."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return [_stage(st, np_dtype, device, dtype) for st in stages]
+
+
 def params_from_jax(tree: Dict, device="cuda", dtype=torch.float32) -> Dict:
     """The JAX parameter tree {"stem", "proj", "stages", "head"} (numpy
     arrays) -> the port's parameters on `device`."""
@@ -64,24 +106,20 @@ def params_from_jax(tree: Dict, device="cuda", dtype=torch.float32) -> Dict:
     return {
         "stem": _layer(stem, ("w192_stem", "s_stem", "b_stem"), np_dtype, device, dtype),
         "proj": _layer(tree["proj"], PROJECTION_KEYS, np_dtype, device, dtype),
-        "stages": [
-            {
-                "transition": None
-                if st.get("transition") is None
-                else _layer(st["transition"], TRANSITION_KEYS, np_dtype, device, dtype),
-                "blocks": [
-                    _layer(b, BLOCK_KEYS, np_dtype, device, dtype) for b in st["blocks"]
-                ],
-            }
-            for st in tree["stages"]
-        ],
+        "stages": stages_from_jax(tree["stages"], device, dtype),
         "head": _layer(tree["head"], ("w_fc", "b_fc"), np_dtype, device, dtype),
     }
 
 
 def params_to(params, device=None, dtype=None):
-    """The same parameter structure with every tensor moved/cast."""
+    """The same parameter structure with every tensor moved/cast (a tensor
+    already on `device` in `dtype` stays as it is). A stage's blocks become
+    views into its moved "stacked" params again, so the weights stay stored
+    once."""
     if isinstance(params, dict):
+        if params.get("stacked") is not None:
+            moved = {k: params_to(v, device, dtype) for k, v in params.items() if k != "blocks"}
+            return dict(moved, blocks=_block_views(moved["stacked"]))
         return {k: params_to(v, device, dtype) for k, v in params.items()}
     if isinstance(params, list):
         return [params_to(v, device, dtype) for v in params]

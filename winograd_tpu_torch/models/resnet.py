@@ -1,46 +1,125 @@
-"""Identity bottleneck block and stage, composed from the per-layer kernels.
+"""Identity bottleneck block and stage, on the JAX package's routes.
 
-Port of winograd_tpu/models/resnet.py::bottleneck_block_pallas with
-algo3x3 "winograd" / "direct" (the per-layer route) and the identity-stage
-loop. Block params: w_reduce (Cio, Cmid), s_reduce, b_reduce, u2_mid
-(16, Cmid, Cmid) and w9_mid (9*Cmid, Cmid) layouts of the 3x3 filter,
-s_mid, b_mid, w_expand (Cmid, Cio), s_expand, b_expand.
+Port of winograd_tpu/models/resnet.py::bottleneck_block_pallas and
+::resnet_stage_pallas with their route choice. A uniform run of identity
+blocks whose weights pass the stage gate runs as one stage kernel launch
+(kernels/stage.py); otherwise each block runs alone, as one block kernel
+launch when its weights pass the block gate (kernels/block.py), else per
+layer: pointwise reduce, the 3x3 (direct or Winograd F(2,3)), pointwise
+expand, then the skip add and ReLU. Block params: w_reduce (Cio, Cmid),
+s_reduce, b_reduce, u2_mid (16, Cmid, Cmid) and w9_mid (9*Cmid, Cmid)
+layouts of the 3x3 filter, s_mid, b_mid, w_expand (Cmid, Cio), s_expand,
+b_expand.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
+from winograd_tpu_torch.kernels.block import bottleneck_block_fused
 from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
+from winograd_tpu_torch.kernels.stage import (
+    WINOGRAD_MIN_PIXELS,
+    resnet_stage_fused,
+    stack_stage_params,
+)
 from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
 
-# Stride-1 3x3s on maps of at least this many pixels run Winograd F(2,3);
-# smaller maps run the direct implicit GEMM. The JAX package's rule
-# (kernels/stage.py mid_algo="auto"); not yet re-measured on the H100.
-WINOGRAD_MIN_PIXELS = 28 * 28
+__all__ = [
+    "BLOCK_FUSED_MAX_WEIGHT_BYTES", "STAGE_FUSED_MAX_WEIGHT_BYTES", "WINOGRAD_MIN_PIXELS",
+    "block_algo", "bottleneck_block", "conv3x3_mid", "resnet_stage", "stage_algo",
+]
+
+# A block runs as one fused launch when its f32 weights take at most this
+# many bytes (conv5_x's 17.8 MB do not). The JAX package's rule
+# (models/resnet.py bottleneck_block_pallas, a VMEM budget on the TPU); not
+# re-derived on the H100.
+BLOCK_FUSED_MAX_WEIGHT_BYTES = 8 * 2**20
+
+# A uniform stage of more than one block runs as one fused launch when two
+# blocks' f32 weights take at most this many bytes (conv4_x's 8.9 MB do,
+# conv5_x's 35.7 MB do not). The JAX package's rule (models/resnet.py
+# resnet_stage_pallas, a double-buffered VMEM budget on the TPU); not
+# re-derived on the H100.
+STAGE_FUSED_MAX_WEIGHT_BYTES = 10 * 2**20
+
+
+def _weight_elems(params: Dict) -> int:
+    cio, cmid = params["w_reduce"].shape
+    return 2 * cio * cmid + 9 * cmid * cmid
+
+
+def block_algo(params: Dict) -> str:
+    """The route bottleneck_block's "auto" takes: "fused", or "direct" when
+    the weights fail the block gate, or "winograd" without w9_mid."""
+    if "w9_mid" not in params:
+        return "winograd"
+    return "fused" if 4 * _weight_elems(params) <= BLOCK_FUSED_MAX_WEIGHT_BYTES else "direct"
+
+
+def stage_algo(blocks: List[Dict]) -> str:
+    """The route resnet_stage's "auto" takes: "fused_stage" for more than
+    one block of one geometry, all with w9_mid, within the stage gate;
+    else "per_block"."""
+    uniform = (
+        len(blocks) > 1
+        and all("w9_mid" in p for p in blocks)
+        and len({tuple(p["w_reduce"].shape) for p in blocks}) == 1
+    )
+    if uniform and 4 * 2 * _weight_elems(blocks[0]) <= STAGE_FUSED_MAX_WEIGHT_BYTES:
+        return "fused_stage"
+    return "per_block"
 
 
 def conv3x3_mid(h: torch.Tensor, params: Dict) -> torch.Tensor:
-    """The block's stride-1 3x3 + BN + ReLU on the route its map size picks."""
+    """A block's stride-1 3x3 + BN + ReLU as one per-layer launch, on the
+    route its map size picks: Winograd F(2,3) from WINOGRAD_MIN_PIXELS up,
+    direct below."""
     if h.shape[-3] * h.shape[-2] >= WINOGRAD_MIN_PIXELS:
         return conv3x3_bn_winograd(h, params["u2_mid"], params["s_mid"], params["b_mid"])
     return conv3x3_bn_direct(h, params["w9_mid"], params["s_mid"], params["b_mid"])
 
 
-def bottleneck_block(x: torch.Tensor, params: Dict) -> torch.Tensor:
-    """1x1 reduce (+ReLU) -> 3x3 (+ReLU) -> 1x1 expand, identity skip, ReLU."""
+def bottleneck_block(x: torch.Tensor, params: Dict, algo3x3: str = "auto") -> torch.Tensor:
+    """1x1 reduce (+ReLU) -> 3x3 (+ReLU) -> 1x1 expand, identity skip, ReLU.
+
+    algo3x3: "fused" (one block kernel launch, kernels/block.py), "direct"
+    or "winograd" (three per-layer launches with that 3x3; "winograd" runs
+    F(2,3) on u2_mid; the JAX package's route runs F(4,3) on u_mid, a
+    layout the port's params do not carry), or "auto" (block_algo)."""
     p = params
+    if algo3x3 == "auto":
+        algo3x3 = block_algo(p)
+    if algo3x3 == "fused":
+        return bottleneck_block_fused(x, p)
     h = conv1x1_bn(x, p["w_reduce"], p["s_reduce"], p["b_reduce"], relu=True)
-    h = conv3x3_mid(h, p)
+    if algo3x3 == "direct":
+        h = conv3x3_bn_direct(h, p["w9_mid"], p["s_mid"], p["b_mid"])
+    elif algo3x3 == "winograd":
+        h = conv3x3_bn_winograd(h, p["u2_mid"], p["s_mid"], p["b_mid"])
+    else:
+        raise ValueError(f"unknown algo3x3 {algo3x3!r}")
     h = conv1x1_bn(h, p["w_expand"], p["s_expand"], p["b_expand"], relu=False)
     return torch.relu(h + x)
 
 
-def resnet_stage(x: torch.Tensor, blocks: List[Dict]) -> torch.Tensor:
-    """A run of identity bottleneck blocks."""
+def resnet_stage(x: torch.Tensor, blocks: List[Dict], algo: str = "auto",
+                 stacked: Optional[Dict] = None) -> torch.Tensor:
+    """A run of identity bottleneck blocks.
+
+    algo: "fused_stage" (one stage kernel launch, kernels/stage.py),
+    "per_block" (bottleneck_block each), or "auto" (stage_algo). stacked:
+    the blocks' params from stack_stage_params, made once at conversion
+    (models/convert.py); stacked here when absent."""
+    if algo == "auto":
+        algo = stage_algo(blocks)
+    if algo == "fused_stage":
+        return resnet_stage_fused(x, stacked if stacked is not None else stack_stage_params(blocks))
+    if algo != "per_block":
+        raise ValueError(f"unknown algo {algo!r}")
     for params in blocks:
         x = bottleneck_block(x, params)
     return x

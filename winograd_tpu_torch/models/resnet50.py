@@ -1,11 +1,12 @@
 """The complete ResNet-50 classifier: stem, projection block, 16-block trunk,
-head; a 224x224x3 image to 1000 logits through the port's four kernels.
+head; a 224x224x3 image to 1000 logits through the port's six kernels.
 
-Port of winograd_tpu/models/resnet50.py::resnet50_forward_pallas on the
-per-layer route (the JAX package's stage, transition and block megakernels
-are not ported yet). Per image the forward launches the pointwise kernel
-40 times, Winograd 6, direct 7 and the stem 1.
-"""
+Port of winograd_tpu/models/resnet50.py::resnet50_forward_pallas on the JAX
+package's fused route. Per forward at full width: the stem 1 launch; the
+projection block pointwise 3 and Winograd 1; the stage kernel 3 (conv2_x,
+conv3_x, conv4_x, one launch each); the transition kernel 3; conv5_x's two
+identity blocks, whose weights fail the fused gates (models/resnet.py), per
+layer: pointwise 4 and direct 2; the head pointwise 1. 18 launches in all."""
 
 from __future__ import annotations
 
