@@ -11,38 +11,60 @@ Phases, each of which must pass (exit 1 otherwise):
    yardsticks compute in full float32. Prints the card's name and power
    limit as nvidia-smi reports them.
 2. build: compiles csrc/*.cu with nvcc for sm_90a, one process per source.
-3. serving: ResNet50Engine with seeded full-width weights answers N=1
-   requests and N=8 requests on the JAX package's fused route. The launch
-   counters are zeroed just before and read just after; each forward must
-   launch stem 1, pointwise 8, Winograd 1, stage 3, transition 3 and
-   direct 2 times. One image's logits must agree with the same
-   model through the plain versions on the CPU in float64 within
-   1e-4 * max(1, max|golden|); every row of the N=8 logits must agree with
-   that image's N=1 logits within the same bound. The first N=1 forward's
-   launches, recorded by shape in kernels/_build.py, are the shape list of
-   phase 4.
-4. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the served forward gave it, and at shapes off the served
-   N=1 list (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and
-   9; the conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
-   geometry), max abs error <= 1e-4 * max(1, max|plain|) on seeded
-   unit-scale inputs. One JSON
-   line per shape: error; device times of the kernel, its plain version and
-   the library call (20 calls captured in a CUDA graph, the median of 20
-   replays between CUDA events, divided by 20; inputs stay in L2 between
-   calls); "wrapper_ms", one eager wrapper call between CUDA events, host
-   path included (median of 20 after 2 warm-ups); and the bound: the larger
-   of FLOPs over the FP32 peak and bytes over HBM bandwidth (H100 SXM data
-   sheet: 67 TFLOP/s FP32, 3.35 TB/s). The stage and transition rows time
-   a cooperative launch, which CUDA graphs capture like any other.
-5. profile: torch.profiler over 5 N=1 and 3 N=8 requests served as in
+3. serving (f32 tier): ResNet50Engine with seeded full-width weights
+   answers 10 N=1 requests and 3 N=8 requests on the JAX package's fused
+   route. The launch counters are zeroed just before and read just after;
+   each forward must launch stem 1, pointwise 8, Winograd 1, stage 3,
+   transition 3 and direct 2 times. One image's logits must agree with the
+   same model through the plain versions on the CPU in float64 (the
+   golden) within 1e-4 * max(1, max|golden|); every row of the N=8 logits
+   must agree with that image's N=1 logits within the same bound.
+4. profile (f32): torch.profiler over 5 N=1 and 3 N=8 requests served as in
    phase 3, each ended by a synchronize (after the launch counts were
    read): device time by kernel name per request, and the device's idle
    share, 1 - device busy time over the host clock of the profiled
    requests (an upper bound for unprofiled serving: the profiler adds host
    time).
-6. a "kernels" JSON line (per-image sums over the main path's shapes), the
-   card line, and last {"ok": true, "device": {...}}.
+5. serving_int8: ResNet50Engine(tier="int8") on the same weights and
+   images, 10 N=1 and 3 N=8 requests, counters zeroed just before and read
+   just after: each forward must launch stem 1 (at bf16), pointwise_int8 4,
+   direct_int8 1, stage_int8 4 and transition_int8 3 times. Logits against
+   the f32 golden of phase 3 within INT8_RTOL_BACKBONE (5e-2) *
+   max(1, max|golden|); against the port's int8 forward through the plain
+   versions on the CPU in float32 within 1e-3 * max(1, max|ref|); each N=8
+   row against that image's N=1 logits within the same 1e-3 bound.
+6. profile_int8: as phase 4, for the int8 tier.
+7. kernels: each kernel against its plain PyTorch version on the card, at
+   every shape the first N=1 forward of phases 3 and 5 gave it (recorded by
+   shape in kernels/_build.py), and at shapes off the served N=1 lists
+   (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and 9; the
+   conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
+   geometry; the int8 stage at N=8 and at one block (mode 6); the int8
+   14->7 transition at N=8), on seeded inputs. Bound: max abs error <=
+   1e-4 * max(1, max|plain|); the int8 stage and transition, whose chained
+   quantizations may flip a rounding on f32-level differences, 1e-3 *
+   max(1, max|plain|). One JSON line per shape: error; device times of the
+   kernel, its plain version and the library call (20 calls captured in a
+   CUDA graph, the median of 20 replays between CUDA events, divided by 20;
+   inputs stay in L2 between calls); "wrapper_ms", one eager wrapper call
+   between CUDA events, host path included (median of 20 after 2
+   warm-ups); and the bound: the larger of the operations' time and the
+   bytes' time (H100 SXM data sheet: 67 TFLOP/s FP32 outside the tensor
+   cores, 989 TFLOP/s BF16 and 1979 TOPS INT8 dense on the tensor cores,
+   3.35 TB/s HBM). Operations: int8 MACs x 2 at the INT8 rate; the bf16
+   stem's products and the int8 stage's bf16-filter F(2,3) products (as
+   two BF16 passes, the JAX kernel's hi/lo split) at the BF16 rate; f32
+   GEMMs, Winograd transforms, epilogues (4 FLOPs an output) and int8
+   quantization (2 a quantized value) at the FP32 rate. Bytes: each input
+   read once (int8 weights 1 byte, bf16 filters 2), each output written
+   once. Library: torch.matmul / F.conv2d (f32), and for the int8 kernels
+   torch._int_mm on operands quantized (the 3x3s im2col'd) before the timed
+   region, summed over the kernel's GEMMs, rows padded to 32 where P <= 16
+   (the call refuses fewer than 17), and torch.bmm in bf16 for the F(2,3)
+   mid's products.
+8. a "kernels" JSON line (per-image sums over each path's shapes; the stem
+   row sums its f32 and bf16 shapes), the card line, and last
+   {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -57,10 +79,16 @@ import time
 import numpy as np
 
 FP32_FLOPS = 67e12   # H100 SXM, FP32 outside the tensor cores, dense
+BF16_FLOPS = 989e12  # tensor cores, dense
+INT8_OPS = 1979e12   # tensor cores, dense
 HBM_BYTES_S = 3.35e12
 ATOL = 1e-4
+INT8_CHAINED_RTOL = 1e-3
 EXPECTED_PER_FORWARD = {
     "stem": 1, "pointwise": 8, "winograd": 1, "stage": 3, "transition": 3, "direct": 2,
+}
+EXPECTED_PER_FORWARD_INT8 = {
+    "stem": 1, "pointwise_int8": 4, "direct_int8": 1, "stage_int8": 4, "transition_int8": 3,
 }
 SOURCES = {
     "pointwise": ("winograd_tpu/kernels/pointwise.py:67",
@@ -80,7 +108,22 @@ SOURCES = {
     "transition": ("winograd_tpu/kernels/transition.py:38",
                    ["winograd_tpu/kernels/transition.py:38 _transition_kernel",
                     "winograd_tpu/kernels/transition.py:119 _transition_kernel_resident"]),
+    "pointwise_int8": ("winograd_tpu/kernels/quantized.py:66",
+                       ["winograd_tpu/kernels/quantized.py:66 _quant_matmul_kernel"]),
+    "direct_int8": ("winograd_tpu/kernels/quantized.py:149",
+                    ["winograd_tpu/kernels/quantized.py:149 _direct_int8_kernel",
+                     "winograd_tpu/kernels/quantized.py:183 _direct_int8_banded_kernel"]),
+    "stage_int8": ("winograd_tpu/kernels/quantized.py:765",
+                   ["winograd_tpu/kernels/quantized.py:765 _stage_int8_kernel",
+                    "winograd_tpu/kernels/quantized.py:853 _stage_int8_kernel_resident",
+                    "winograd_tpu/kernels/quantized.py:653 _block_int8_kernel"]),
+    "transition_int8": ("winograd_tpu/kernels/quantized.py:941",
+                        ["winograd_tpu/kernels/quantized.py:941 _transition_int8_kernel",
+                         "winograd_tpu/kernels/quantized.py:1003 "
+                         "_transition_int8_kernel_resident"]),
 }
+# Chained int8 layers: a rounding may flip on f32-level differences.
+CHAINED = ("stage_int8", "transition_int8")
 
 
 def _rand(rng, *shape):
@@ -123,11 +166,12 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from winograd_tpu_torch.config import ResNet50Config
+    from winograd_tpu_torch.config import INT8_RTOL_BACKBONE, ResNet50Config
     from winograd_tpu_torch.engine import ResNet50Engine
     from winograd_tpu_torch.kernels import _build, transforms
+    from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels.direct import (
-        conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter,
+        conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter, im2col3x3,
     )
     from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain
     from winograd_tpu_torch.kernels.stage import (
@@ -135,14 +179,16 @@ def main() -> int:
     )
     from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_plain
     from winograd_tpu_torch.kernels.transition import (
-        fuse_transition_weights, transition_block_fused, transition_block_fused_plain,
+        fuse_transition_weights, strided_im2col, transition_block_fused,
+        transition_block_fused_plain,
     )
     from winograd_tpu_torch.kernels.winograd import (
         conv3x3_bn_winograd, conv3x3_bn_winograd_plain,
     )
     from winograd_tpu_torch.models.convert import params_from_jax, stem_filter_s2d
     from winograd_tpu_torch.models.resnet50 import (
-        init_resnet50_arrays, init_resnet50_params, resnet50_forward,
+        init_resnet50_arrays, init_resnet50_params, quantize_resnet50, resnet50_forward,
+        resnet50_forward_int8,
     )
 
     dev = torch.device("cuda", 0)
@@ -207,21 +253,25 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in pairs) / calls
 
-    def bound(flops, nbytes):
-        ops_ms, bytes_ms = 1e3 * flops / FP32_FLOPS, 1e3 * nbytes / HBM_BYTES_S
-        return max(ops_ms, bytes_ms), ("operations" if ops_ms >= bytes_ms else "bytes")
+    def bound(work, nbytes):
+        """work: operations by peak rate ({rate: count}). Returns the
+        operations' time and the bytes' time, in ms; the bound is the
+        larger."""
+        ops_ms = 1e3 * sum(n / rate for rate, n in work.items())
+        bytes_ms = 1e3 * nbytes / HBM_BYTES_S
+        return ops_ms, bytes_ms
 
     def nchw(x):
         return x.permute(0, 3, 1, 2)
 
-    # -- cases: (kernel fn, plain fn, library fn, flops, bytes) ----
+    # -- f32 cases: (kernel fn, plain fn, library fn, work, bytes) ----------
     def pointwise_case(rng, p, k, n, relu):
         x, w = t(_rand(rng, p, k)), t(_rand(rng, k, n))
         s, b = bn(rng, n)
         return (lambda: conv1x1_bn(x, w, s, b, relu),
                 lambda: conv1x1_bn_plain(x, w, s, b, relu),
                 lambda: torch.matmul(x, w),
-                2 * p * k * n, 4 * (p * k + k * n + p * n + 2 * n))
+                {FP32_FLOPS: 2 * p * k * n}, 4 * (p * k + k * n + p * n + 2 * n))
 
     def conv3x3_inputs(rng, n, h, w, cin, cout):
         x, wt = t(_rand(rng, n, h, w, cin)), _rand(rng, cout, cin, 3, 3)
@@ -237,42 +287,52 @@ def main() -> int:
         flops = 2 * a2 * nt * cin * cout + nt * (fwd * cin + inv * cout)
         return (lambda: conv3x3_bn_winograd(x, u, s, b, relu),
                 lambda: conv3x3_bn_winograd_plain(x, u, s, b, relu),
-                lib, flops, 4 * (n * h * w * (cin + cout) + a2 * cin * cout + 2 * cout))
+                lib, {FP32_FLOPS: flops},
+                4 * (n * h * w * (cin + cout) + a2 * cin * cout + 2 * cout))
 
     def direct_case(rng, n, h, w, cin, cout, relu):
         x, wt, s, b, lib = conv3x3_inputs(rng, n, h, w, cin, cout)
         w9 = t(direct_filter(wt))
         return (lambda: conv3x3_bn_direct(x, w9, s, b, relu),
                 lambda: conv3x3_bn_direct_plain(x, w9, s, b, relu),
-                lib, 2 * n * h * w * 9 * cin * cout,
+                lib, {FP32_FLOPS: 2 * n * h * w * 9 * cin * cout},
                 4 * (n * h * w * (cin + cout) + 9 * cin * cout + 2 * cout))
 
-    def stem_case(rng, n, h, w, cin, c):
+    def stem_case(rng, n, h, w, cin, c, precision):
         x, w7 = t(_rand(rng, n, h, w, cin)), _rand(rng, c, cin, 7, 7)
         s, b = bn(rng, c)
         w192 = t(stem_filter_s2d(w7))
-        w7_cl = t(w7).contiguous(memory_format=torch.channels_last)
+        dt = torch.bfloat16 if precision == "bf16" else torch.float32
+        x_lib = nchw(x).to(dt)
+        w7_cl = t(w7).to(dt).contiguous(memory_format=torch.channels_last)
         ho, wo, po, qo = -(-h // 2), -(-w // 2), -(-h // 4), -(-w // 4)
-        return (lambda: stem_fused(x, w192, s, b),
-                lambda: stem_fused_plain(x, w192, s, b),
-                lambda: F.max_pool2d(F.conv2d(nchw(x), w7_cl, stride=2, padding=3), 3, 2, 1),
-                2 * n * ho * wo * 49 * cin * c,
+        rate = BF16_FLOPS if precision == "bf16" else FP32_FLOPS
+        return (lambda: stem_fused(x, w192, s, b, precision),
+                lambda: stem_fused_plain(x, w192, s, b, precision),
+                lambda: F.max_pool2d(F.conv2d(x_lib, w7_cl, stride=2, padding=3), 3, 2, 1),
+                {rate: 2 * n * ho * wo * 49 * cin * c},
                 4 * (n * h * w * cin + 64 * cin * c + n * po * qo * c + 2 * c))
 
     def conv3x3_filter(rng, cin, cout):
         w = _rand(rng, cout, cin, 3, 3)
         return w, t(w).contiguous(memory_format=torch.channels_last)
 
-    def stage_case(rng, n, h, w, cio, cmid, nb, mid):
-        blocks, lib_w = [], []
+    def stage_blocks(rng, cio, cmid, nb):
+        blocks = []
         for _ in range(nb):
-            wm, wm_cl = conv3x3_filter(rng, cmid, cmid)
+            wm = _rand(rng, cmid, cmid, 3, 3)
             (s1, b1), (s2, b2), (s3, b3) = bn(rng, cmid), bn(rng, cmid), bn(rng, cio)
             blocks.append(dict(
                 w_reduce=t(_rand(rng, cio, cmid)), s_reduce=s1, b_reduce=b1,
                 u2_mid=t(transforms.transform_filter(wm, m=2)), w9_mid=t(direct_filter(wm)),
-                s_mid=s2, b_mid=b2, w_expand=t(_rand(rng, cmid, cio)), s_expand=s3, b_expand=b3))
-            lib_w.append((blocks[-1]["w_reduce"], wm_cl, blocks[-1]["w_expand"]))
+                s_mid=s2, b_mid=b2, w_expand=t(_rand(rng, cmid, cio)), s_expand=s3,
+                b_expand=b3, w_mid=wm))
+        return blocks
+
+    def stage_case(rng, n, h, w, cio, cmid, nb, mid):
+        blocks = stage_blocks(rng, cio, cmid, nb)
+        lib_w = [(b["w_reduce"], t(b.pop("w_mid")).contiguous(memory_format=torch.channels_last),
+                  b["w_expand"]) for b in blocks]
         stacked = stack_stage_params(blocks)
         x = t(_rand(rng, n, h, w, cio))
 
@@ -294,15 +354,20 @@ def main() -> int:
         flops = nb * (4 * p * cio * cmid + mid_flops)
         nbytes = 4 * (2 * p * cio + nb * (2 * cio * cmid + mid_elems + 4 * cmid + 2 * cio))
         return (lambda: resnet_stage_fused(x, stacked, mid),
-                lambda: resnet_stage_fused_plain(x, stacked, mid), lib, flops, nbytes)
+                lambda: resnet_stage_fused_plain(x, stacked, mid), lib, {FP32_FLOPS: flops},
+                nbytes)
+
+    def transition_params(rng, cin, cmid, cout):
+        wm = _rand(rng, cmid, cmid, 3, 3)
+        (s1, b1), (s2, b2), (s3, b3), (sp, bp) = (bn(rng, c) for c in (cmid, cmid, cout, cout))
+        return wm, dict(w_reduce=t(_rand(rng, cin, cmid)), s_reduce=s1, b_reduce=b1,
+                        w9_mid=t(direct_filter(wm)), s_mid=s2, b_mid=b2,
+                        w_expand=t(_rand(rng, cmid, cout)), s_expand=s3, b_expand=b3,
+                        w_proj=t(_rand(rng, cin, cout)), s_proj=sp, b_proj=bp)
 
     def transition_case(rng, n, h, w, cin, cmid, cout):
-        wm, wm_cl = conv3x3_filter(rng, cmid, cmid)
-        (s1, b1), (s2, b2), (s3, b3), (sp, bp) = (bn(rng, c) for c in (cmid, cmid, cout, cout))
-        params = dict(w_reduce=t(_rand(rng, cin, cmid)), s_reduce=s1, b_reduce=b1,
-                      w9_mid=t(direct_filter(wm)), s_mid=s2, b_mid=b2,
-                      w_expand=t(_rand(rng, cmid, cout)), s_expand=s3, b_expand=b3,
-                      w_proj=t(_rand(rng, cin, cout)), s_proj=sp, b_proj=bp)
+        wm, params = transition_params(rng, cin, cmid, cout)
+        wm_cl = t(wm).contiguous(memory_format=torch.channels_last)
         params["wep"], params["bep"] = fuse_transition_weights(params)
         x = t(_rand(rng, n, h, w, cin))
 
@@ -317,40 +382,148 @@ def main() -> int:
         nbytes = 4 * (n * h * w * cin + n * ho * wo * cout + cin * cmid + 9 * cmid * cmid
                       + (cmid + cin) * cout + 4 * cmid + cout)
         return (lambda: transition_block_fused(x, params),
-                lambda: transition_block_fused_plain(x, params), lib, flops, nbytes)
+                lambda: transition_block_fused_plain(x, params), lib, {FP32_FLOPS: flops},
+                nbytes)
+
+    # -- int8 cases ---------------------------------------------------------
+    def qrows(a):
+        """Activations quantized per row as int8 (rows of a 2-D view), with
+        at least 32 rows (torch._int_mm refuses 16 or fewer)."""
+        q = q8.quantize_rows(a.reshape(-1, a.shape[-1]))[0].to(torch.int8)
+        return F.pad(q, (0, 0, 0, 32 - q.shape[0])) if q.shape[0] <= 16 else q.contiguous()
+
+    def int_mm(*pairs):
+        """The GEMMs through torch._int_mm, int8 x int8 -> int32."""
+        def run():
+            return [torch._int_mm(a, b) for a, b in pairs]
+        return run
+
+    def qweights(w):
+        w_q, s_w = q8.quantize_weights(w)
+        return t(w_q), t(s_w)
+
+    def pointwise_int8_case(rng, p, k, n, relu):
+        x = t(_rand(rng, p, k))
+        w_q, s_w = qweights(_rand(rng, k, n))
+        s, b = bn(rng, n)
+        return (lambda: q8.conv1x1_bn_int8(x, w_q, s_w, s, b, relu),
+                lambda: q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, relu),
+                int_mm((qrows(x), w_q)),
+                {INT8_OPS: 2 * p * k * n, FP32_FLOPS: 4 * p * n + 2 * p * k},
+                4 * p * k + k * n + 4 * p * n + 12 * n)
+
+    def direct_int8_case(rng, n, h, w, cin, cout, relu):
+        x = t(_rand(rng, n, h, w, cin))
+        w9_q, s_w9 = qweights(direct_filter(_rand(rng, cout, cin, 3, 3)))
+        s, b = bn(rng, cout)
+        p = n * h * w
+        return (lambda: q8.conv3x3_bn_int8(x, w9_q, s_w9, s, b, relu),
+                lambda: q8.conv3x3_bn_int8_plain(x, w9_q, s_w9, s, b, relu),
+                int_mm((qrows(im2col3x3(x)), w9_q)),
+                {INT8_OPS: 2 * p * 9 * cin * cout, FP32_FLOPS: 4 * p * cout + 2 * p * 9 * cin},
+                4 * p * cin + 9 * cin * cout + 4 * p * cout + 12 * cout)
+
+    def stage_int8_case(rng, n, h, w, cio, cmid, nb, mid):
+        blocks = stage_blocks(rng, cio, cmid, nb)
+        for b in blocks:
+            del b["w_mid"]
+        qs = {k: v.to(dev) for k, v in q8.quantize_stage_params(blocks).items()}
+        x = t(_rand(rng, n, h, w, cio))
+        p = n * h * w
+        hq = qrows(t(_rand(rng, p, cmid)))
+        pairs = []
+        for b in range(nb):
+            pairs += [(qrows(x), qs["w_reduce_q"][b]), (hq, qs["w_expand_q"][b])]
+            if mid == "direct":
+                pairs.append((qrows(im2col3x3(t(_rand(rng, n, h, w, cmid)))), qs["w9_mid_q"][b]))
+        mm = int_mm(*pairs)
+        work = {INT8_OPS: nb * 4 * p * cio * cmid,
+                FP32_FLOPS: nb * (4 * p * (2 * cmid + cio) + 2 * p * (cio + cmid))}
+        if mid == "winograd2":
+            nt = n * (-(-h // 2)) * (-(-w // 2))
+            fwd, inv = _winograd_transform_flops(2)
+            work[BF16_FLOPS] = nb * 2 * (2 * 16 * nt * cmid * cmid)
+            work[FP32_FLOPS] += nb * nt * (fwd + inv) * cmid
+            v = t(_rand(rng, 16, nt, cmid)).to(torch.bfloat16)
+            u = qs["u2_mid_bf16"]
+
+            def lib():
+                return mm(), [torch.bmm(v, u[b]) for b in range(nb)]
+            mid_bytes = 2 * 16 * cmid * cmid
+        else:
+            work[INT8_OPS] += nb * 2 * p * 9 * cmid * cmid
+            work[FP32_FLOPS] += nb * 2 * p * 9 * cmid
+            lib = mm
+            mid_bytes = 9 * cmid * cmid
+        nbytes = 8 * p * cio + nb * (2 * cio * cmid + mid_bytes + 4 * (6 * cmid + 3 * cio))
+        return (lambda: q8.resnet_stage_int8(x, qs, mid),
+                lambda: q8.resnet_stage_int8_plain(x, qs, mid), lib, work, nbytes)
+
+    def transition_int8_case(rng, n, h, w, cin, cmid, cout):
+        _, params = transition_params(rng, cin, cmid, cout)
+        qp = {k: v.to(dev) for k, v in q8.quantize_transition_params(params).items()}
+        x = t(_rand(rng, n, h, w, cin))
+        ho, wo = -(-h // 2), -(-w // 2)
+        p1, p2 = n * h * w, n * ho * wo
+        h1 = t(_rand(rng, n, h, w, cmid))
+        lib = int_mm((qrows(x), qp["w_reduce_q"]), (qrows(strided_im2col(h1)), qp["w9_mid_q"]),
+                     (qrows(t(_rand(rng, p2, cmid))), qp["w_expand_q"]),
+                     (qrows(x[:, ::2, ::2, :]), qp["w_proj_q"]))
+        macs = p1 * cin * cmid + p2 * (9 * cmid * cmid + cmid * cout + cin * cout)
+        work = {INT8_OPS: 2 * macs,
+                FP32_FLOPS: 4 * (p1 * cmid + p2 * cmid + 2 * p2 * cout)
+                + 2 * (p1 * cin + p2 * (9 * cmid + cmid + cin))}
+        nbytes = (4 * (p1 * cin + p2 * cout) + cin * cmid + 9 * cmid * cmid
+                  + (cmid + cin) * cout + 4 * (6 * cmid + 6 * cout))
+        return (lambda: q8.transition_block_int8(x, qp),
+                lambda: q8.transition_block_int8_plain(x, qp), lib, work, nbytes)
 
     # -- serving at full width ---------------------------------------------
     cfg = ResNet50Config()
     params = init_resnet50_params(cfg, seed=0, device=dev)
-    engine = ResNet50Engine(params, device=dev)
     rng = np.random.default_rng(1)
     images = _rand(rng, 8, cfg.img, cfg.img, 3)
     n_single, n_batch = 10, 3
-    _build.reset_counts()
-    single = {0: engine(images[0])}
-    torch.cuda.synchronize()
-    shapes = {name: collections.Counter(c) for name, c in _build.LAUNCH_SHAPES.items()}
-    lat = []
-    for i in range(n_single):
-        t0 = time.perf_counter()
-        logits = engine(images[i % 8])
-        torch.cuda.synchronize()
-        lat.append(time.perf_counter() - t0)
-        single.setdefault(i % 8, logits)
-    batch_s = []
-    for _ in range(n_batch):
-        t0 = time.perf_counter()
-        logits8 = engine(images)
-        torch.cuda.synchronize()
-        batch_s.append(time.perf_counter() - t0)
-    launches = dict(_build.LAUNCHES)
-    forwards = 1 + n_single + n_batch
-    for name, per in EXPECTED_PER_FORWARD.items():
-        check(launches.get(name, 0) == per * forwards,
-              f"{name}: {launches.get(name, 0)} launches in {forwards} forwards, want {per} each")
-        check(sum(shapes.get(name, {}).values()) == per,
-              f"{name}: first forward launched {dict(shapes.get(name, {}))}, want {per}")
 
+    def serve(engine):
+        """The counted run of one tier: counters zeroed, one N=1 forward
+        whose launches by shape are kept, n_single N=1 and n_batch N=8
+        requests, counters read. Returns (N=1 logits by image, N=8 logits,
+        N=1 seconds, N=8 seconds, launches, first forward's shapes)."""
+        _build.reset_counts()
+        single = {0: engine(images[0])}
+        torch.cuda.synchronize()
+        shapes = {name: collections.Counter(c) for name, c in _build.LAUNCH_SHAPES.items()}
+        lat = []
+        for i in range(n_single):
+            t0 = time.perf_counter()
+            logits = engine(images[i % 8])
+            torch.cuda.synchronize()
+            lat.append(time.perf_counter() - t0)
+            single.setdefault(i % 8, logits)
+        batch_s = []
+        for _ in range(n_batch):
+            t0 = time.perf_counter()
+            logits8 = engine(images)
+            torch.cuda.synchronize()
+            batch_s.append(time.perf_counter() - t0)
+        return single, logits8, lat, batch_s, dict(_build.LAUNCHES), shapes
+
+    def check_launches(expected, launches, shapes, tier):
+        forwards = 1 + n_single + n_batch
+        for name, per in expected.items():
+            check(launches.get(name, 0) == per * forwards,
+                  f"{tier} {name}: {launches.get(name, 0)} launches in {forwards} forwards, "
+                  f"want {per} each")
+            check(sum(shapes.get(name, {}).values()) == per,
+                  f"{tier} {name}: first forward launched {dict(shapes.get(name, {}))}, want {per}")
+        extra = set(launches) - set(expected)
+        check(not extra, f"{tier}: kernels off the path launched: {sorted(extra)}")
+        return forwards
+
+    engine = ResNet50Engine(params, device=dev)
+    single, logits8, lat, batch_s, launches, shapes = serve(engine)
+    forwards = check_launches(EXPECTED_PER_FORWARD, launches, shapes, "f32")
     golden = resnet50_forward(
         images[0], params_from_jax(init_resnet50_arrays(cfg, seed=0), "cpu", torch.float64),
         device="cpu",
@@ -374,71 +547,128 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
-    for n, reps in ((1, 5), (8, 3)):
-        engine(images[:n])
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                engine(images[:n])
-                torch.cuda.synchronize()
-            window_ms = 1e3 * (time.perf_counter() - t0) / reps
-        by_name = collections.defaultdict(float)
-        for e in prof.key_averages():
-            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
-                by_name[_kernel_name(e.key)] += e.device_time_total / reps / 1e3
-        busy = sum(by_name.values())
-        check(0 < busy <= window_ms, f"profile N={n}: device busy {busy} ms of {window_ms} ms")
-        print(json.dumps({
-            "phase": "profile", "n": n, "device_busy_ms": busy, "request_ms": window_ms,
-            "idle_share": 1 - busy / window_ms,
-            "device_ms_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
-        }), flush=True)
+    def profile_phase(engine, phase):
+        for n, reps in ((1, 5), (8, 3)):
+            engine(images[:n])
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    engine(images[:n])
+                    torch.cuda.synchronize()
+                window_ms = 1e3 * (time.perf_counter() - t0) / reps
+            by_name = collections.defaultdict(float)
+            for e in prof.key_averages():
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
+                    by_name[_kernel_name(e.key)] += e.device_time_total / reps / 1e3
+            busy = sum(by_name.values())
+            check(0 < busy <= window_ms, f"{phase} N={n}: device busy {busy} ms of {window_ms} ms")
+            print(json.dumps({
+                "phase": phase, "n": n, "device_busy_ms": busy, "request_ms": window_ms,
+                "idle_share": 1 - busy / window_ms,
+                "device_ms_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
+            }), flush=True)
 
+    profile_phase(engine, "profile")
+    del engine
+
+    # -- the int8 tier ------------------------------------------------------
+    engine8 = ResNet50Engine(params, tier="int8", device=dev)
+    single8, logits88, lat8, batch8_s, launches8, shapes8 = serve(engine8)
+    check_launches(EXPECTED_PER_FORWARD_INT8, launches8, shapes8, "int8")
+    check(set(shapes8.get("stem", {})) == {(1, cfg.img, cfg.img, 3, cfg.stem_c, "bf16")},
+          f"int8 stem shapes {dict(shapes8.get('stem', {}))}, want bf16")
+    cpu_params = params_from_jax(init_resnet50_arrays(cfg, seed=0), "cpu", torch.float32)
+    ref_int8 = resnet50_forward_int8(images[0], quantize_resnet50(cpu_params), device="cpu")
+    got8 = single8[0].cpu()
+    gold_tol = INT8_RTOL_BACKBONE * max(1.0, float(np.abs(golden).max()))
+    gold_err = float(np.abs(got8.double().numpy() - golden).max())
+    cpu_tol = INT8_CHAINED_RTOL * max(1.0, ref_int8.abs().max().item())
+    cpu_err = (got8 - ref_int8).abs().max().item()
+    check(got8.shape == (cfg.num_classes,) and bool(torch.isfinite(got8).all())
+          and gold_err < gold_tol, f"int8 N=1 logits vs f32 golden: {gold_err} >= {gold_tol}")
+    check(cpu_err <= cpu_tol, f"int8 N=1 logits vs the CPU plain int8 forward: {cpu_err} > {cpu_tol}")
+    ref88 = torch.stack([single8[i] for i in range(8)])
+    err88 = float((logits88 - ref88).abs().max())
+    tol88 = INT8_CHAINED_RTOL * max(1.0, ref88.abs().max().item())
+    check(tuple(logits88.shape) == (8, cfg.num_classes) and bool(torch.isfinite(logits88).all())
+          and err88 <= tol88, f"int8 N=8 logits vs each image's N=1 logits: {err88} > {tol88}")
+    print(json.dumps({
+        "phase": "serving_int8", "n1_latency_ms_median": 1e3 * statistics.median(lat8),
+        "n1_latency_ms": [1e3 * v for v in lat8],
+        "n8_images_per_s": 8 / statistics.median(batch8_s),
+        "golden_max_abs_err": gold_err, "golden_tol": gold_tol,
+        "cpu_int8_max_abs_err": cpu_err, "cpu_int8_tol": cpu_tol,
+        "n8_vs_n1_max_abs_err": err88, "n8_vs_n1_tol": tol88,
+        "same_class_as_f32": int(got8.argmax()) == int(np.argmax(golden)),
+        "launches": launches8, "forwards": forwards,
+    }), flush=True)
+    profile_phase(engine8, "profile_int8")
+    del engine8
+
+    # -- kernels against their plain versions ------------------------------
     make_case = {"pointwise": pointwise_case, "winograd": winograd_case,
                  "direct": direct_case, "stem": stem_case, "stage": stage_case,
-                 "transition": transition_case}
-    # Off the served N=1 list: F(4,3) accuracy at the mode-0 shape; the
-    # block at modes 6 and 9; the batched layouts' cases (rows 7 and 9 of
-    # the TPU kernel table) at N=8; the conv5_x stage geometry, which the
-    # served route runs per layer.
+                 "transition": transition_case, "pointwise_int8": pointwise_int8_case,
+                 "direct_int8": direct_int8_case, "stage_int8": stage_int8_case,
+                 "transition_int8": transition_int8_case}
+    # Off the served N=1 lists: F(4,3) accuracy at the mode-0 shape; the
+    # block at modes 6 and 9; the batched layouts' cases (rows 7, 9, 18 and
+    # 20 of the TPU kernel table) at N=8; the conv5_x stage geometry, which
+    # the f32 route runs per layer; the int8 block (row 16) at mode 6.
     extra = {
         "winograd": [(1, 14, 14, 128, 128, 4, True)],
         "stage": [(1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2"),
                   (8, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct")],
         "transition": [(8, 14, 14, 1024, 512, 2048)],
+        "stage_int8": [(8, 14, 14, 1024, 256, 5, "direct"), (1, 14, 14, 1024, 256, 1, "direct")],
+        "transition_int8": [(8, 14, 14, 1024, 512, 2048)],
     }
+    all_launches = collections.Counter(launches) + collections.Counter(launches8)
+    per_image = collections.defaultdict(collections.Counter)
+    for shp in (shapes, shapes8):
+        for name, counter in shp.items():
+            per_image[name].update(counter)
     totals = {}
     rng = np.random.default_rng(0)
-    for name in EXPECTED_PER_FORWARD:
-        counter = shapes.get(name, collections.Counter())
+    for name in make_case:
+        counter = per_image.get(name, collections.Counter())
+        rtol = INT8_CHAINED_RTOL if name in CHAINED else ATOL
         tot = collections.defaultdict(float)
         tot["max_abs_err"] = 0.0
+        lib_ok = True
         for shape in list(counter) + extra.get(name, []):
-            per_image = counter.get(shape, 0)
-            kern, plain, lib, flops, nbytes = make_case[name](rng, *shape)
+            n_img = counter.get(shape, 0)
+            kern, plain, lib, work, nbytes = make_case[name](rng, *shape)
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
             finite = bool(torch.isfinite(got).all())
-            tol = ATOL * max(1.0, ref.abs().max().item())
+            tol = rtol * max(1.0, ref.abs().max().item())
             check(finite and err <= tol, f"{name}{shape}: max abs err {err} > {tol} (finite={finite})")
-            ms, plain_ms, lib_ms = device_ms(kern), device_ms(plain), device_ms(lib)
+            try:
+                lib()
+                torch.cuda.synchronize()
+                lib_ms = device_ms(lib)
+            except RuntimeError as e:   # a library call that refuses these operands
+                print(json.dumps({"kernel": name, "shape": shape, "library_error": str(e)[:300]}))
+                lib_ms, lib_ok = None, False
+            ms, plain_ms = device_ms(kern), device_ms(plain)
             host_ms = wrapper_ms(kern)
-            bound_ms, bound_by = bound(flops, nbytes)
+            ops_ms, bytes_ms = bound(work, nbytes)
             print(json.dumps({
-                "kernel": name, "shape": shape, "per_image": per_image,
+                "kernel": name, "shape": shape, "per_image": n_img,
                 "max_abs_err": err, "tol": tol, "ms": ms, "wrapper_ms": host_ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "gflops_s": flops / ms / 1e6,
+                "library_ms": lib_ms, "bound_ms": max(ops_ms, bytes_ms),
+                "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+                "gops_s": sum(work.values()) / ms / 1e6,
             }), flush=True)
             tot["max_abs_err"] = max(tot["max_abs_err"], err)
             for key, v in (("ms", ms), ("wrapper_ms", host_ms), ("plain_ms", plain_ms),
-                           ("library_ms", lib_ms),
-                           ("ops_ms", 1e3 * flops / FP32_FLOPS),
-                           ("bytes_ms", 1e3 * nbytes / HBM_BYTES_S),
-                           ("bound_ms", bound_ms)):
-                tot[key] += per_image * v
+                           ("library_ms", lib_ms or 0.0), ("ops_ms", ops_ms),
+                           ("bytes_ms", bytes_ms), ("bound_ms", max(ops_ms, bytes_ms))):
+                tot[key] += n_img * v
+        tot["library_ok"] = lib_ok
         totals[name] = tot
 
     kernels = []
@@ -446,12 +676,12 @@ def main() -> int:
         replaces, covers = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda", "source": f"winograd_tpu_torch/csrc/{name}.cu",
-            "replaces": replaces, "covers": covers, "launches": launches.get(name, 0),
+            "replaces": replaces, "covers": covers, "launches": all_launches.get(name, 0),
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "wrapper_ms": tot["wrapper_ms"], "plain_ms": tot["plain_ms"],
             "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
-            "library_ms": tot["library_ms"],
+            "library_ms": tot["library_ms"] if tot["library_ok"] else None,
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

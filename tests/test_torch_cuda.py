@@ -1,13 +1,16 @@
 """The port's CUDA kernels against their plain twins on the card, at edge
 shapes the served path does not reach: ragged channel counts, maps that the
 Winograd tile does not divide, odd stem images, batches, stages and
-transitions whose phases split K. Needs an NVIDIA
-GPU and nvcc; skipped elsewhere. Run on the card with
+transitions whose phases split K, and the int8 tier's kernels at ragged
+rows, border-heavy 7x7 maps and N=8. Needs an NVIDIA GPU and nvcc; skipped
+elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (--noconftest: the repo's conftest imports jax, which the port's machine
-need not have). Bound: 1e-4 * max(1, max|ref|) in float32, TF32 off.
+need not have). Bound: 1e-4 * max(1, max|ref|) in float32, TF32 off; the
+int8 stage and transition, whose chained quantizations may flip a rounding
+on f32-level differences, 1e-3 * max(1, max|ref|).
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ from winograd_tpu_torch.kernels import transforms
 from winograd_tpu_torch.kernels.direct import (
     conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter,
 )
+from winograd_tpu_torch.kernels import quantized as q8
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain
 from winograd_tpu_torch.kernels.stage import (
     resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params,
@@ -52,11 +56,11 @@ def _bn(rng, dev, c):
             _r(rng, dev, c))
 
 
-def _agree(out, ref):
+def _agree(out, ref, rtol=1e-4):
     torch.cuda.synchronize()
     assert out.shape == ref.shape
     assert torch.isfinite(out).all()
-    bound = 1e-4 * max(1.0, ref.abs().max().item())
+    bound = rtol * max(1.0, ref.abs().max().item())
     assert (out - ref).abs().max().item() <= bound
 
 
@@ -179,3 +183,115 @@ def test_stage_and_transition_reject_what_the_kernels_do_not_take(dev):
         transition_block_fused(x.double(), {k: v.double() for k, v in p.items()})
     with pytest.raises(ValueError):
         transition_block_fused(x, dict(p, w9_mid=p["w9_mid"][:-1].contiguous()))
+
+
+# --- the int8 tier -------------------------------------------------------
+
+
+def _q(rng, dev, k, n):
+    w_q, s_w = q8.quantize_weights((rng.random((k, n)) - 0.5).astype(np.float32))
+    return torch.as_tensor(w_q, device=dev), torch.as_tensor(s_w, device=dev)
+
+
+@pytest.mark.parametrize("p,k,n", [(1, 8, 5), (65, 132, 70), (129, 4608, 33)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_pointwise_int8_ragged(dev, p, k, n, relu):
+    rng = np.random.default_rng(p + k + n)
+    x = _r(rng, dev, p, k)
+    x[0] = 0.0                                            # a zero row keeps scale 1
+    w_q, s_w = _q(rng, dev, k, n)
+    s, b = _bn(rng, dev, n)
+    _agree(q8.conv1x1_bn_int8(x, w_q, s_w, s, b, relu),
+           q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, relu))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 5, 7, 4, 70), (8, 7, 7, 16, 24), (1, 9, 9, 12, 65)])
+def test_direct_int8_borders_and_batches(dev, n, h, w, cin, cout):
+    rng = np.random.default_rng(h * w + cout)
+    x = _r(rng, dev, n, h, w, cin)
+    w9_q, s_w9 = _q(rng, dev, 9 * cin, cout)
+    s, b = _bn(rng, dev, cout)
+    _agree(q8.conv3x3_bn_int8(x, w9_q, s_w9, s, b), q8.conv3x3_bn_int8_plain(x, w9_q, s_w9, s, b))
+
+
+@pytest.mark.parametrize("n,h,w,cin,c", [(2, 30, 30, 3, 16), (1, 33, 31, 3, 64)])
+def test_stem_bf16_odd_images(dev, n, h, w, cin, c):
+    rng = np.random.default_rng(h * w + c + 1)
+    x = _r(rng, dev, n, h, w, cin)
+    w192 = torch.as_tensor(stem_filter_s2d((rng.random((c, cin, 7, 7)) - 0.5).astype(np.float32)),
+                           device=dev)
+    s, b = _bn(rng, dev, c)
+    _agree(stem_fused(x, w192, s, b, "bf16"), stem_fused_plain(x, w192, s, b, "bf16"))
+
+
+def _qstacked(rng, dev, nb, cio, cmid):
+    blocks = []
+    for _ in range(nb):
+        w = (rng.random((cmid, cmid, 3, 3)) - 0.5).astype(np.float32)
+        (s1, b1), (s2, b2), (s3, b3) = (_bn(rng, dev, c) for c in (cmid, cmid, cio))
+        blocks.append(dict(
+            w_reduce=(rng.random((cio, cmid)) - 0.5).astype(np.float32), s_reduce=s1,
+            b_reduce=b1, u2_mid=transforms.transform_filter(w, m=2), w9_mid=direct_filter(w),
+            s_mid=s2, b_mid=b2, w_expand=(rng.random((cmid, cio)) - 0.5).astype(np.float32),
+            s_expand=s3, b_expand=b3))
+    return {k: v.to(dev) for k, v in q8.quantize_stage_params(blocks).items()}
+
+
+# (N, H=W, Cio, Cmid, blocks): border-heavy 7x7 and odd maps, N=8, phases
+# that split K, and Cmid 256 (two 128-channel expand groups on winograd2).
+@pytest.mark.parametrize("mid", ["direct", "winograd2"])
+@pytest.mark.parametrize("n,hw,cio,cmid,nb", [
+    (1, 7, 68, 20, 3), (8, 7, 72, 40, 2), (3, 9, 68, 20, 1), (1, 7, 300, 40, 2),
+    (2, 9, 144, 256, 2),
+])
+def test_stage_int8_edges_and_batches(dev, mid, n, hw, cio, cmid, nb):
+    rng = np.random.default_rng(n * hw + cio + cmid + nb)
+    stacked = _qstacked(rng, dev, nb, cio, cmid)
+    x = _r(rng, dev, n, hw, hw, cio).abs()
+    _agree(q8.resnet_stage_int8(x, stacked, mid), q8.resnet_stage_int8_plain(x, stacked, mid),
+           rtol=1e-3)
+
+
+def _qtransition(rng, dev, cin, cmid, cout):
+    w = (rng.random((cmid, cmid, 3, 3)) - 0.5).astype(np.float32)
+    (s1, b1), (s2, b2), (s3, b3), (sp, bp) = (_bn(rng, dev, c) for c in (cmid, cmid, cout, cout))
+    p = dict(w_reduce=(rng.random((cin, cmid)) - 0.5).astype(np.float32), s_reduce=s1,
+             b_reduce=b1, w9_mid=direct_filter(w), s_mid=s2, b_mid=b2,
+             w_expand=(rng.random((cmid, cout)) - 0.5).astype(np.float32), s_expand=s3,
+             b_expand=b3, w_proj=(rng.random((cin, cout)) - 0.5).astype(np.float32),
+             s_proj=sp, b_proj=bp)
+    return {k: v.to(dev) for k, v in q8.quantize_transition_params(p).items()}
+
+
+@pytest.mark.parametrize("n,h,w,cin,cmid,cout", [
+    (3, 15, 15, 68, 20, 130), (8, 7, 7, 300, 40, 90), (1, 14, 14, 64, 32, 128),
+    (2, 9, 8, 256, 300, 70), (8, 14, 14, 128, 64, 256),
+])
+def test_transition_int8_odd_maps_and_batches(dev, n, h, w, cin, cmid, cout):
+    rng = np.random.default_rng(h * w + cin + cout + 1)
+    p = _qtransition(rng, dev, cin, cmid, cout)
+    x = _r(rng, dev, n, h, w, cin).abs()
+    _agree(q8.transition_block_int8(x, p), q8.transition_block_int8_plain(x, p), rtol=1e-3)
+
+
+def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(2)
+    x = _r(rng, dev, 8, 12)
+    w_q, s_w = _q(rng, dev, 12, 8)
+    s, b = _bn(rng, dev, 8)
+    with pytest.raises(TypeError):
+        q8.conv1x1_bn_int8(x, w_q.float(), s_w, s, b, True)          # weights not int8
+    with pytest.raises(ValueError):
+        q8.conv1x1_bn_int8(x[:, :10].contiguous(), w_q[:10].contiguous(), s_w, s, b, True)  # K % 4
+    with pytest.raises(ValueError):
+        q8.conv1x1_bn_int8(x, w_q, s_w[:4], s, b, True)               # s_w not per channel
+    stacked = _qstacked(rng, dev, 2, 16, 8)
+    xs = _r(rng, dev, 1, 7, 7, 16)
+    with pytest.raises(TypeError):
+        q8.resnet_stage_int8(xs, dict(stacked, u2_mid_bf16=stacked["u2_mid_bf16"].float()),
+                             "winograd2")
+    with pytest.raises(ValueError):
+        q8.resnet_stage_int8(xs, dict(stacked, w_expand_q=stacked["w_expand_q"][:, :, :8]))
+    p = _qtransition(rng, dev, 16, 8, 32)
+    with pytest.raises(TypeError):
+        q8.transition_block_int8(xs, dict(p, w_proj_q=p["w_proj_q"].float()))

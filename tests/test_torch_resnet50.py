@@ -123,7 +123,7 @@ def test_bottleneck_block_routes_match_jax(algo):
 def test_engine_rejects_unported_options():
     cfg = _TinyR50("tiny_resnet50")
     params = init_resnet50_params(cfg, seed=0, device="cpu")
-    for kw in ({"tier": "bf16w"}, {"tier": "int8"}, {"mesh": object()}, {"partition": "model"}):
+    for kw in ({"tier": "bf16w"}, {"mesh": object()}, {"partition": "model"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ResNet50Engine(params, device="cpu", **kw)
 

@@ -1,6 +1,6 @@
 """winograd_tpu_torch — the PyTorch/CUDA port of winograd_tpu for one NVIDIA H100.
 
-The served path is the f32 ResNet-50 classifier (224x224x3 image to 1000
+The served path is the ResNet-50 classifier (224x224x3 image to 1000
 logits) on the JAX package's fused route, through kernels hand-written in
 CUDA C++ for sm_90a (csrc/) and bound with ctypes (kernels/_build.py):
 
@@ -13,6 +13,11 @@ CUDA C++ for sm_90a (csrc/) and bound with ctypes (kernels/_build.py):
   (kernels/block.py runs one block through it).
 * kernels/transition.py — the stride-2 transition block in one persistent
   launch.
+
+The int8 serving tier of the same classifier (engine tier "int8",
+models/resnet50.py::resnet50_forward_int8) runs the stem at bf16 and
+kernels/quantized.py: int8 pointwise and direct 3x3 kernels, and the int8
+stage and transition kernels, on csrc/gemm_int8.cuh's int8 tile.
 
 Every kernel wrapper runs its plain PyTorch version for tensors on the CPU
 (the tests) and launches the kernel for CUDA tensors; there is no fallback

@@ -1,8 +1,8 @@
 """Static configuration of the port's served model and its accuracy bar.
 
-A copy of the parts of winograd_tpu/config.py that the served path needs
-(ResNet50Config, PARITY_ATOL, BN_EPS), kept here so the port imports
-nothing from the JAX package.
+A copy of the parts of winograd_tpu/config.py that the served paths need
+(ResNet50Config, PARITY_ATOL, INT8_RTOL_BACKBONE, BN_EPS), kept here so the
+port imports nothing from the JAX package.
 """
 
 from __future__ import annotations
@@ -36,4 +36,8 @@ class ResNet50Config:
 
 # f32 correctness bar: max abs error <= 1e-4 against the float64 golden.
 PARITY_ATOL = 1e-4
+# int8 serving tier bar for whole backbones and the classifier: max abs
+# error <= 5e-2 * max(1, max|golden|) against the f32 model's float64
+# golden (8-bit quantization, compounded over the layers).
+INT8_RTOL_BACKBONE = 5e-2
 BN_EPS = 1e-5

@@ -50,6 +50,46 @@ struct RowsCg {
   }
 };
 
+// The stride-1 pad-1 3x3 im2col matrix of an (N, H, W, C) map written
+// earlier in the launch, k = (3r + s) * C + c.
+struct Im2colCg {
+  const float* x;
+  int H, W, C;
+  __device__ __forceinline__ float operator()(int p, int k) const {
+    const int rs = k / C;
+    const int c = k - rs * C;
+    const int r = rs / 3;
+    const int s = rs - 3 * r;
+    const int hw = H * W;
+    const int n = p / hw;
+    const int q = p - n * hw;
+    const int y = q / W + r - 1;
+    const int xx = q % W + s - 1;
+    if (y < 0 || y >= H || xx < 0 || xx >= W) return 0.f;
+    return __ldcg(x + (static_cast<size_t>(n * H + y) * W + xx) * C + c);
+  }
+};
+
+// The stride-2 SAME 3x3 im2col matrix of an (N, H, W, C) map written earlier
+// in the launch, at output rows p = (n, oy, ox), k = (3r + s) * C + c.
+struct Im2colS2Cg {
+  const float* x;
+  int H, W, C, Ho, Wo;
+  __device__ __forceinline__ float operator()(int p, int k) const {
+    const int rs = k / C;
+    const int c = k - rs * C;
+    const int r = rs / 3;
+    const int s = rs - 3 * r;
+    const int hwo = Ho * Wo;
+    const int n = p / hwo;
+    const int q = p - n * hwo;
+    const int y = 2 * (q / Wo) + r - 1;
+    const int xx = 2 * (q % Wo) + s - 1;
+    if (y < 0 || y >= H || xx < 0 || xx >= W) return 0.f;
+    return __ldcg(x + (static_cast<size_t>(n * H + y) * W + xx) * C + c);
+  }
+};
+
 struct CgLoad {
   __device__ __forceinline__ float operator()(const float* p) const { return __ldcg(p); }
 };
@@ -111,19 +151,23 @@ __device__ __forceinline__ void gemm_phase(const GemmPhase& g, const ALoad& a,
 
 }  // namespace wt
 
-// Host side: the K split of a phase. A phase with fewer output tiles than
-// the grid has blocks splits K so that about one item lands on each block,
-// keeping at least 8 k steps (128 of K) per split and at most 16 splits.
-inline wt::GemmPhase plan_phase(int P, int K, int N, int grid) {
-  const int tiles = ((P + wt::kBM - 1) / wt::kBM) * ((N + wt::kBN - 1) / wt::kBN);
-  int splits = grid / tiles;
-  splits = splits < K / 128 ? splits : K / 128;
+// Host side: `want` K splits of at least 128 of K each (at most 16), each
+// but the last a multiple of `step`, the tile's k per stage; one split
+// when fewer than two are wanted or possible.
+inline wt::GemmPhase split_k(int P, int K, int N, int want, int step = wt::kBK) {
+  int splits = want < K / 128 ? want : K / 128;
   splits = splits < 16 ? splits : 16;
   if (splits < 2) return wt::GemmPhase{P, K, N, 1, K};
   int chunk = (K + splits - 1) / splits;
-  chunk = (chunk + wt::kBK - 1) / wt::kBK * wt::kBK;
-  splits = (K + chunk - 1) / chunk;
-  return wt::GemmPhase{P, K, N, splits, chunk};
+  chunk = (chunk + step - 1) / step * step;
+  return wt::GemmPhase{P, K, N, (K + chunk - 1) / chunk, chunk};
+}
+
+// The K split of a phase: one with fewer output tiles than the grid has
+// blocks splits K so that about one item lands on each block.
+inline wt::GemmPhase plan_phase(int P, int K, int N, int grid, int step = wt::kBK) {
+  const int tiles = ((P + wt::kBM - 1) / wt::kBM) * ((N + wt::kBN - 1) / wt::kBN);
+  return split_k(P, K, N, grid / tiles, step);
 }
 
 // Workspace parts start at multiples of this many floats (256 bytes).

@@ -67,25 +67,6 @@ struct StageArgs {
   wt::GemmPhase reduce, mid, expand;
 };
 
-// The stride-1 pad-1 3x3 im2col matrix of h1, k = (3r + s) * C + c.
-struct Im2colCg {
-  const float* x;
-  int H, W, C;
-  __device__ __forceinline__ float operator()(int p, int k) const {
-    const int rs = k / C;
-    const int c = k - rs * C;
-    const int r = rs / 3;
-    const int s = rs - 3 * r;
-    const int hw = H * W;
-    const int n = p / hw;
-    const int q = p - n * hw;
-    const int y = q / W + r - 1;
-    const int xx = q % W + s - 1;
-    if (y < 0 || y >= H || xx < 0 || xx >= W) return 0.f;
-    return __ldcg(x + (static_cast<size_t>(n * H + y) * W + xx) * C + c);
-  }
-};
-
 // out[p, n] = relu(acc * scale[n] + bias[n] + res[p, n]); res may be out.
 struct ResidualEpilogue {
   const float* __restrict__ scale;
@@ -127,7 +108,7 @@ __global__ void __launch_bounds__(wt::kGemmThreads) stage_kernel(StageArgs a) {
             threadIdx.x, smem);
       }
     } else {
-      wt::gemm_phase(a.mid, Im2colCg{a.h1, a.H, a.W, cmid},
+      wt::gemm_phase(a.mid, wt::Im2colCg{a.h1, a.H, a.W, cmid},
                      a.wm + static_cast<size_t>(blk) * 9 * cmid * cmid,
                      wt::BnEpilogue{s2, b2, a.h2, cmid, 1}, a.part, a.bar, smem);
     }

@@ -54,26 +54,6 @@ struct TransitionArgs {
   wt::GemmPhase reduce, mid, expand;
 };
 
-// The stride-2 SAME 3x3 im2col matrix of h1 (N, H, W, C) at output rows
-// p = (n, oy, ox), k = (3r + s) * C + c.
-struct Im2colS2Cg {
-  const float* x;
-  int H, W, C, Ho, Wo;
-  __device__ __forceinline__ float operator()(int p, int k) const {
-    const int rs = k / C;
-    const int c = k - rs * C;
-    const int r = rs / 3;
-    const int s = rs - 3 * r;
-    const int hwo = Ho * Wo;
-    const int n = p / hwo;
-    const int q = p - n * hwo;
-    const int y = 2 * (q / Wo) + r - 1;
-    const int xx = 2 * (q % Wo) + s - 1;
-    if (y < 0 || y >= H || xx < 0 || xx >= W) return 0.f;
-    return __ldcg(x + (static_cast<size_t>(n * H + y) * W + xx) * C + c);
-  }
-};
-
 // [h2 | x[:, ::2, ::2]] at output rows p = (n, oy, ox): k < Cmid reads h2,
 // the rest the block input at (2 oy, 2 ox).
 struct ConcatSkipA {
@@ -105,7 +85,7 @@ __global__ void __launch_bounds__(wt::kGemmThreads) transition_kernel(Transition
   wt::gemm_phase(a.reduce, wt::RowsCg{a.x, a.Cin}, a.wr,
                  wt::BnEpilogue{a.s1, a.b1, a.h1, a.Cmid, 1}, a.part, a.bar, smem);
   wt::grid_sync(a.bar);
-  wt::gemm_phase(a.mid, Im2colS2Cg{a.h1, a.H, a.W, a.Cmid, ho, wo}, a.w9,
+  wt::gemm_phase(a.mid, wt::Im2colS2Cg{a.h1, a.H, a.W, a.Cmid, ho, wo}, a.w9,
                  wt::BnEpilogue{a.s2, a.b2, a.h2, a.Cmid, 1}, a.part, a.bar, smem);
   wt::grid_sync(a.bar);
   wt::gemm_phase(a.expand, ConcatSkipA{a.h2, a.x, a.H, a.W, a.Cin, a.Cmid, ho, wo},

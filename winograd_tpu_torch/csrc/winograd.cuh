@@ -15,10 +15,25 @@
 // at compile time, and stages V and the matching slice of U in shared
 // memory (wino_smem_floats<M, TT>() floats, 16-byte aligned). The input is
 // read through the functor `Load` (`float ld(const float* p)`), so a kernel
-// that produced it in the same launch can bypass L1.
+// that produced it in the same launch can bypass L1. The filter U is float,
+// or __nv_bfloat16 for the int8 stage's bf16-weight mid-layer
+// (csrc/stage_int8.cu): it is widened to float as it is staged.
+//
+// The arithmetic type TA is float (FP32 FMA throughout; the f32 kernels) or
+// double: then the transforms, the products and their sums run in FP64 and
+// each output is rounded to float once, before a BN whose multiply and add
+// round separately. That makes the result independent of the order of the
+// sums (to a last-bit tie in FP64), so a plain version computing the same
+// algebra in float64 matches it to the bit; the int8 stage needs that,
+// because its next layer's quantization turns any last-bit difference into
+// a whole quantization step. CPT output channels per thread (4 at F(2,3)
+// and 2 at F(4,3) by default; 2 for the FP64 accumulators' registers).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace wt {
 
@@ -70,22 +85,31 @@ __host__ __device__ constexpr int wino_smem_floats() {
   return (M + 2) * (M + 2) * kWinoCK * (TT + wino_cob<M>());
 }
 
+// Shared memory of wino_tile with arithmetic type TA and CPT channels per
+// thread: V in TA, the U stage in float.
+template <int M, int TT, class TA, int CPT>
+__host__ __device__ constexpr int wino_smem_bytes() {
+  return (M + 2) * (M + 2) * kWinoCK * (TT * static_cast<int>(sizeof(TA)) + 4 * kWinoTX * CPT);
+}
+
+__device__ __forceinline__ float mul_add(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double mul_add(double a, double b, double c) { return fma(a, b, c); }
+
 // out = T in T^T for a constant R x C matrix T (C = M + 2), zero terms
 // skipped at compile time. `T(i, k)` is Wino<M>::bt or ::at.
-template <int M, int R, bool kInverse>
-__device__ __forceinline__ void sandwich(const float (&in)[M + 2][M + 2],
-                                         float (&out)[R][R]) {
+template <int M, int R, bool kInverse, class T>
+__device__ __forceinline__ void sandwich(const T (&in)[M + 2][M + 2], T (&out)[R][R]) {
   constexpr int A = M + 2;
-  float t[R][A];
+  T t[R][A];
 #pragma unroll
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < A; ++j) {
-      float s = 0.f;
+      T s = 0;
 #pragma unroll
       for (int k = 0; k < A; ++k) {
         const float c = kInverse ? Wino<M>::at(i, k) : Wino<M>::bt(i, k);
-        if (c != 0.f) s = fmaf(c, in[k][j], s);
+        if (c != 0.f) s = mul_add(T(c), in[k][j], s);
       }
       t[i][j] = s;
     }
@@ -93,11 +117,11 @@ __device__ __forceinline__ void sandwich(const float (&in)[M + 2][M + 2],
   for (int i = 0; i < R; ++i)
 #pragma unroll
     for (int j = 0; j < R; ++j) {
-      float s = 0.f;
+      T s = 0;
 #pragma unroll
       for (int k = 0; k < A; ++k) {
         const float c = kInverse ? Wino<M>::at(j, k) : Wino<M>::bt(j, k);
-        if (c != 0.f) s = fmaf(c, t[i][k], s);
+        if (c != 0.f) s = mul_add(T(c), t[i][k], s);
       }
       out[i][j] = s;
     }
@@ -107,21 +131,24 @@ struct PlainLoad {
   __device__ __forceinline__ float operator()(const float* p) const { return *p; }
 };
 
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+
 // Tiles t0 .. t0 + TT - 1 (row-major over N x ceil(H/M) x ceil(W/M)) and
-// output channels co0 .. co0 + COB - 1, by threads 0 .. TT * kWinoTX - 1.
-template <int M, int TT, class Load>
+// output channels co0 .. co0 + COB - 1 (COB = kWinoTX * CPT), by threads
+// 0 .. TT * kWinoTX - 1; smem holds wino_smem_bytes<M, TT, TA, CPT>().
+template <int M, int TT, class Load, class TU, class TA = float, int CPT = Wino<M>::CPT>
 __device__ __forceinline__ void wino_tile(
-    const Load& ld, const float* x, const float* __restrict__ u,
+    const Load& ld, const float* x, const TU* __restrict__ u,
     const float* __restrict__ scale, const float* __restrict__ bias,
     float* out, int N, int H, int W, int Cin, int Cout, int relu, int t0,
     int co0, int tid, float* smem) {
   constexpr int A = M + 2;
   constexpr int A2 = A * A;
-  constexpr int CPT = Wino<M>::CPT;
-  constexpr int COB = wino_cob<M>();
-  float(*Vs)[kWinoCK][TT] = reinterpret_cast<float(*)[kWinoCK][TT]>(smem);
-  float(*Us)[kWinoCK][COB] =
-      reinterpret_cast<float(*)[kWinoCK][COB]>(smem + A2 * kWinoCK * TT);
+  constexpr int COB = kWinoTX * CPT;
+  TA(*Vs)[kWinoCK][TT] = reinterpret_cast<TA(*)[kWinoCK][TT]>(smem);
+  float(*Us)[kWinoCK][COB] = reinterpret_cast<float(*)[kWinoCK][COB]>(
+      reinterpret_cast<char*>(smem) + sizeof(TA) * A2 * kWinoCK * TT);
 
   const int tx = tid % kWinoTX;
   const int ty = tid / kWinoTX;
@@ -129,11 +156,11 @@ __device__ __forceinline__ void wino_tile(
   const int tw = (W + M - 1) / M;
   const int nt = N * th * tw;
 
-  float acc[A2][CPT];
+  TA acc[A2][CPT];
 #pragma unroll
   for (int p = 0; p < A2; ++p)
 #pragma unroll
-    for (int j = 0; j < CPT; ++j) acc[p][j] = 0.f;
+    for (int j = 0; j < CPT; ++j) acc[p][j] = 0;
 
   for (int c0 = 0; c0 < Cin; c0 += kWinoCK) {
     // Input transform: one thread per (tile, channel) of the stage.
@@ -142,7 +169,7 @@ __device__ __forceinline__ void wino_tile(
       const int lc = tid % kWinoCK;
       const int g = t0 + lt;
       const int c = c0 + lc;
-      float d[A][A];
+      TA d[A][A];
       const bool live = g < nt && c < Cin;
       int n = 0, y0 = 0, x0 = 0;
       if (live) {
@@ -161,7 +188,7 @@ __device__ __forceinline__ void wino_tile(
                         ? ld(&x[(static_cast<size_t>(n * H + yy) * W + xx) * Cin + c])
                         : 0.f;
         }
-      float v[A][A];
+      TA v[A][A];
       sandwich<M, A, false>(d, v);
 #pragma unroll
       for (int i = 0; i < A; ++i)
@@ -178,7 +205,7 @@ __device__ __forceinline__ void wino_tile(
       const int ci = c0 + c;
       const int coo = co0 + co;
       Us[p][c][co] = (ci < Cin && coo < Cout)
-                         ? u[(static_cast<size_t>(p) * Cin + ci) * Cout + coo]
+                         ? to_float(u[(static_cast<size_t>(p) * Cin + ci) * Cout + coo])
                          : 0.f;
     }
     __syncthreads();
@@ -186,17 +213,17 @@ __device__ __forceinline__ void wino_tile(
     for (int c = 0; c < kWinoCK; ++c) {
 #pragma unroll
       for (int p = 0; p < A2; ++p) {
-        const float v = Vs[p][c][ty];
+        const TA v = Vs[p][c][ty];
         if constexpr (CPT == 4) {
           const float4 w = *reinterpret_cast<const float4*>(&Us[p][c][tx * 4]);
-          acc[p][0] = fmaf(v, w.x, acc[p][0]);
-          acc[p][1] = fmaf(v, w.y, acc[p][1]);
-          acc[p][2] = fmaf(v, w.z, acc[p][2]);
-          acc[p][3] = fmaf(v, w.w, acc[p][3]);
+          acc[p][0] = mul_add(v, TA(w.x), acc[p][0]);
+          acc[p][1] = mul_add(v, TA(w.y), acc[p][1]);
+          acc[p][2] = mul_add(v, TA(w.z), acc[p][2]);
+          acc[p][3] = mul_add(v, TA(w.w), acc[p][3]);
         } else {
           const float2 w = *reinterpret_cast<const float2*>(&Us[p][c][tx * 2]);
-          acc[p][0] = fmaf(v, w.x, acc[p][0]);
-          acc[p][1] = fmaf(v, w.y, acc[p][1]);
+          acc[p][0] = mul_add(v, TA(w.x), acc[p][0]);
+          acc[p][1] = mul_add(v, TA(w.y), acc[p][1]);
         }
       }
     }
@@ -213,10 +240,10 @@ __device__ __forceinline__ void wino_tile(
   for (int j = 0; j < CPT; ++j) {
     const int co = co0 + tx * CPT + j;
     if (co >= Cout) continue;
-    float mm[A][A];
+    TA mm[A][A];
 #pragma unroll
     for (int p = 0; p < A2; ++p) mm[p / A][p % A] = acc[p][j];
-    float y[M][M];
+    TA y[M][M];
     sandwich<M, M, true>(mm, y);
     const float s = scale[co];
     const float b = bias[co];
@@ -227,7 +254,11 @@ __device__ __forceinline__ void wino_tile(
         const int oy = oy0 + oi;
         const int ox = ox0 + oj;
         if (oy < H && ox < W) {
-          float val = y[oi][oj] * s + b;
+          float val;
+          if constexpr (std::is_same<TA, float>::value)
+            val = y[oi][oj] * s + b;
+          else
+            val = __fadd_rn(__fmul_rn(static_cast<float>(y[oi][oj]), s), b);
           if (relu) val = fmaxf(val, 0.f);
           out[(static_cast<size_t>(n * H + oy) * W + ox) * Cout + co] = val;
         }

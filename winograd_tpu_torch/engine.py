@@ -1,7 +1,7 @@
 """Serving layer: the ResNet-50 classifier with its weights resident on a device.
 
-Port of winograd_tpu/engine.py::ResNet50Engine at the f32 tier on one
-device. The bf16w and int8 tiers and the mesh partitions are not ported yet.
+Port of winograd_tpu/engine.py::ResNet50Engine at the f32 and int8 tiers
+on one device. The bf16w tier and the mesh partitions are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,24 +12,30 @@ import torch
 
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.models.convert import params_to
-from winograd_tpu_torch.models.resnet50 import resnet50_forward
+from winograd_tpu_torch.models.resnet50 import (
+    quantize_resnet50,
+    resnet50_forward,
+    resnet50_forward_int8,
+)
 
 
 class ResNet50Engine:
     """Serves the complete ResNet-50 classifier (224x224x3 image in, 1000
     logits out) through the port's kernels.
 
-    params: the port's parameter dicts (models/resnet50.py::
+    params: the port's f32 parameter dicts (models/resnet50.py::
     init_resnet50_params, or models/convert.py::params_from_jax); they are
-    copied to `device` once. device defaults to "cuda" and must exist; the
-    CPU runs the kernels' plain versions and only when asked for."""
+    copied to `device` once. tier "f32" serves them as they are; "int8"
+    quantizes them once here (models/resnet50.py::quantize_resnet50) and
+    serves resnet50_forward_int8. device defaults to "cuda" and must exist;
+    the CPU runs the kernels' plain versions and only when asked for."""
 
     def __init__(self, params: Dict, tier: str = "f32", device="cuda",
                  mesh=None, partition: str = "data"):
-        if tier != "f32":
+        if tier not in ("f32", "int8"):
             raise NotImplementedError(
                 f"tier={tier!r} is not ported yet (ROADMAP.md, queue A item 5: "
-                "serving tiers); only 'f32' is served"
+                "serving tiers); 'f32' and 'int8' are served"
             )
         if mesh is not None or partition != "data":
             raise NotImplementedError(
@@ -38,14 +44,17 @@ class ResNet50Engine:
             )
         self.tier = tier
         self.device = _build.require_device(device)
+        if tier == "int8":
+            params = quantize_resnet50(params)
         self._params = params_to(params, self.device, torch.float32)
+        self._forward = resnet50_forward_int8 if tier == "int8" else resnet50_forward
 
     def __call__(self, x) -> torch.Tensor:
         """x: (224, 224, 3) or (N, 224, 224, 3) image(s), array or tensor;
         returns (num_classes,) / (N, num_classes) logits on the engine's
         device. A single image runs as N=1."""
         with torch.inference_mode():
-            return resnet50_forward(x, self._params, self.device)
+            return self._forward(x, self._params, self.device)
 
     def classify(self, x) -> torch.Tensor:
         """Argmax class id(s) for image(s) x."""

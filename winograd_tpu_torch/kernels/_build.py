@@ -110,15 +110,25 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_tensors(*tensors: torch.Tensor) -> None:
-    """Every operand of a kernel is a contiguous float32 tensor on the same
-    CUDA device."""
-    dev = tensors[0].device
+# The element types a kernel operand may have: float32 activations, BN and
+# scales; int8 quantized weights; bfloat16 filters (the int8 tier's F(2,3)
+# mid-layer).
+OPERAND_DTYPES = (torch.float32, torch.int8, torch.bfloat16)
+
+
+def check_tensors(*tensors: torch.Tensor, dtype: torch.dtype = torch.float32,
+                  device=None) -> None:
+    """Every operand is a contiguous `dtype` tensor (one of OPERAND_DTYPES)
+    on one CUDA device (`device` when given, else the first tensor's)."""
+    if dtype not in OPERAND_DTYPES:
+        raise TypeError(f"{dtype} is not a kernel operand type {OPERAND_DTYPES}")
+    for t in tensors:
+        if t.dtype != dtype:
+            raise TypeError(f"kernel operands must be {dtype}, got {t.dtype}")
+    dev = tensors[0].device if device is None else torch.device(device)
     for t in tensors:
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"kernel operands must share one CUDA device, got {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"kernel operands must be float32, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("kernel operands must be contiguous")
 

@@ -1,0 +1,409 @@
+"""The int8 serving tier: offline weight quantization, the four int8 kernels
+and their plain twins.
+
+Port of winograd_tpu/kernels/quantized.py. Weights are quantized offline,
+symmetric per output column (quantize_weights); activations are quantized
+per row inside each kernel: s_x = max|row| / 127 (1 for a zero row),
+q = clamp(round_half_even(x / s_x), -127, 127); the int8 x int8 product is
+summed exactly in int32 and dequantized as float(acc) * (s_x * s_w), then
+the folded BN (+ReLU). A row is the GEMM's row: a pixel over its channels
+for a 1x1, an im2col row over all 9*C gathered values (zero padding
+included) for a 3x3.
+
+Kernels (CUDA C++ for sm_90a, csrc/*_int8.cu on csrc/gemm_int8.cuh):
+
+* conv1x1_bn_int8 -> csrc/pointwise_int8.cu (_quant_matmul_kernel);
+* conv3x3_bn_int8 -> csrc/direct_int8.cu (_direct_int8_kernel and its
+  row-banded twin);
+* resnet_stage_int8 -> csrc/stage_int8.cu (_stage_int8_kernel, its
+  resident twin, and _block_int8_kernel at one block); the mid-layer is the
+  int8 direct 3x3 or, on maps of 28x28 and up, F(2,3) on bf16 filters;
+* transition_block_int8 -> csrc/transition_int8.cu (_transition_int8_kernel
+  and its resident twin).
+
+The plain twins compute the integer product as a float64 matmul of the int8
+values (exact: every |sum| < 2^53) and cast it as int32 -> float32 would;
+they run on the CPU and on the card. CPU tensors run them; CUDA tensors
+launch the kernels or raise. Kernels and twins agree to the bit, on purpose:
+in a chain of int8 layers a last-bit difference moves a value across a
+rounding boundary of the next quantization now and then, a whole step, and
+that grows block after block. So the scale is a true division (never a
+multiply by 1/127), the epilogues round each multiply and add in the same
+order, and the bf16-filter F(2,3) mid computes its algebra in float64 and
+rounds once (the kernel in FP64), which makes it independent of the order
+of its sums.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from winograd_tpu_torch.kernels import _build
+from winograd_tpu_torch.kernels.direct import im2col3x3
+from winograd_tpu_torch.kernels.stage import WINOGRAD_MIN_PIXELS
+from winograd_tpu_torch.kernels.transition import strided_im2col
+from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd_plain
+
+BN_KEYS = ("s_reduce", "b_reduce", "s_mid", "b_mid", "s_expand", "b_expand")
+PROJ_BN_KEYS = ("s_proj", "b_proj")
+
+
+# --- offline quantization (numpy; copies of the JAX package's) -------------
+
+
+def quantize_weights(w):
+    """Symmetric per-output-channel int8 weights. w: (Cin, Cout) ->
+    (w_q int8 (Cin, Cout), s_w float32 (Cout,)), numpy."""
+    w = np.asarray(w, np.float32)
+    s_w = np.abs(w).max(axis=0) / 127.0
+    s_w = np.where(s_w == 0, 1.0, s_w).astype(np.float32)
+    w_q = np.clip(np.rint(w / s_w), -127, 127).astype(np.int8)
+    return w_q, s_w
+
+
+def _numpy(v) -> np.ndarray:
+    return v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def _quantize(params: Dict, weight_keys, bn_keys) -> Dict[str, torch.Tensor]:
+    out = {}
+    for key in weight_keys:
+        w_q, s_w = quantize_weights(_numpy(params[key]))
+        out[f"{key}_q"] = torch.from_numpy(w_q)
+        out[f"{key}_s"] = torch.from_numpy(s_w)
+    for key in bn_keys:
+        out[key] = torch.from_numpy(np.asarray(_numpy(params[key]), np.float32))
+    return out
+
+
+def quantize_block_params(params: Dict) -> Dict[str, torch.Tensor]:
+    """An identity block's three weight matrices to int8 (w_reduce_q/_s,
+    w9_mid_q/_s, w_expand_q/_s); BN stays float32; the F(2,3) filter u2_mid,
+    when present, becomes u2_mid_bf16 (round to nearest even)."""
+    out = _quantize(params, ("w_reduce", "w9_mid", "w_expand"), BN_KEYS)
+    if "u2_mid" in params:
+        u2 = torch.from_numpy(np.asarray(_numpy(params["u2_mid"]), np.float32))
+        out["u2_mid_bf16"] = u2.to(torch.bfloat16)
+    return out
+
+
+def quantize_stage_params(blocks: List[Dict]) -> Dict[str, torch.Tensor]:
+    """A stage's blocks quantized and stacked on a leading block axis (1-D
+    arrays as (B, 1, C)), the int8 twin of kernels/stage.py's
+    stack_stage_params."""
+    qs = [quantize_block_params(p) for p in blocks]
+    out = {}
+    for key in qs[0]:
+        ts = [q[key] for q in qs]
+        if ts[0].dim() == 1:
+            ts = [t.reshape(1, -1) for t in ts]
+        out[key] = torch.stack(ts).contiguous()
+    return out
+
+
+def quantize_transition_params(params: Dict) -> Dict[str, torch.Tensor]:
+    """A transition (or projection) block's four weight matrices to int8;
+    BN stays float32."""
+    return _quantize(params, ("w_reduce", "w9_mid", "w_expand", "w_proj"),
+                     BN_KEYS + PROJ_BN_KEYS)
+
+
+# --- the int8 product --------------------------------------------------------
+
+
+def quantize_rows(x: torch.Tensor):
+    """Per-row symmetric int8 quantization of x (..., K): (q, s_x) with q
+    the int8 values (in x's dtype) and s_x (..., 1)."""
+    m = x.abs().amax(dim=-1, keepdim=True)
+    s = m / torch.full_like(m, 127.0)  # true division: a scalar divisor becomes * (1/127)
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    return torch.clamp(torch.round(x / s), -127, 127), s
+
+
+def qdot_plain(x: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor) -> torch.Tensor:
+    """Dynamic per-row activation quantization, the exact integer product,
+    dequantization: float(q(x) @ w_q) * (s_x * s_w), in x's dtype."""
+    q, s = quantize_rows(x)
+    acc = torch.matmul(q.double(), w_q.double())
+    return acc.to(x.dtype) * (s * s_w.to(x.dtype))
+
+
+# --- plain twins -------------------------------------------------------------
+
+
+def _bn_relu(y, scale, bias, relu: bool):
+    y = y * scale + bias
+    return torch.relu(y) if relu else y
+
+
+def conv1x1_bn_int8_plain(x, w_q, s_w, scale, bias, relu: bool) -> torch.Tensor:
+    return _bn_relu(qdot_plain(x, w_q, s_w), scale, bias, relu)
+
+
+def conv3x3_bn_int8_plain(x, w9_q, s_w9, scale, bias, relu: bool = True) -> torch.Tensor:
+    """im2col (zero padding in the rows' scales), then the int8 product.
+    x: (N, H, W, Cin)."""
+    return _bn_relu(qdot_plain(im2col3x3(x), w9_q, s_w9), scale, bias, relu)
+
+
+def winograd2_mid_plain(h, u2_bf16, scale, bias) -> torch.Tensor:
+    """The int8 stage's F(2,3) mid on the bf16 filter: the Winograd algebra
+    in float64 (order-free to the last bit of h's dtype), rounded once, then
+    BN and ReLU. h: (N, H, W, C)."""
+    ones = torch.ones(u2_bf16.shape[-1], dtype=torch.float64, device=h.device)
+    y = conv3x3_bn_winograd_plain(h.double(), u2_bf16.double(), ones, torch.zeros_like(ones),
+                                  relu=False).to(h.dtype)
+    return torch.relu(y * scale + bias)
+
+
+def resolve_mid_algo(mid_algo: str, qstacked: Dict, h: int, w: int) -> str:
+    """"auto" takes F(2,3) on the bf16 filter ("winograd2") when
+    u2_mid_bf16 is there and the map has at least WINOGRAD_MIN_PIXELS
+    pixels, else "direct" (the JAX package's rule)."""
+    if mid_algo == "auto":
+        wino = "u2_mid_bf16" in qstacked and h * w >= WINOGRAD_MIN_PIXELS
+        return "winograd2" if wino else "direct"
+    if mid_algo not in ("direct", "winograd2"):
+        raise ValueError(f"unknown mid_algo {mid_algo!r}")
+    if mid_algo == "winograd2" and "u2_mid_bf16" not in qstacked:
+        raise ValueError("mid_algo 'winograd2' needs the bf16 F(2,3) filter u2_mid_bf16")
+    return mid_algo
+
+
+def expand_groups(cmid: int, mid_algo: str) -> int:
+    """The winograd2 route quantizes h2 for the expand GEMM per group of
+    128 channels when Cmid is a multiple of 128 (else one group); the
+    direct route over all of Cmid."""
+    return cmid // 128 if mid_algo == "winograd2" and cmid % 128 == 0 else 1
+
+
+def resnet_stage_int8_plain(x, qstacked: Dict, mid_algo: str = "auto") -> torch.Tensor:
+    """The int8 stage block by block in plain PyTorch. x: (N, H, W, Cio)."""
+    mid_algo = resolve_mid_algo(mid_algo, qstacked, x.shape[-3], x.shape[-2])
+    q = qstacked
+    cmid = q["w_reduce_q"].shape[2]
+    groups = expand_groups(cmid, mid_algo)
+    cg = cmid // groups
+    for b in range(q["w_reduce_q"].shape[0]):
+        h = conv1x1_bn_int8_plain(x, q["w_reduce_q"][b], q["w_reduce_s"][b, 0],
+                                  q["s_reduce"][b, 0], q["b_reduce"][b, 0], True)
+        if mid_algo == "winograd2":
+            h = winograd2_mid_plain(h, q["u2_mid_bf16"][b], q["s_mid"][b, 0], q["b_mid"][b, 0])
+        else:
+            h = conv3x3_bn_int8_plain(h, q["w9_mid_q"][b], q["w9_mid_s"][b, 0],
+                                      q["s_mid"][b, 0], q["b_mid"][b, 0])
+        h3 = None
+        for g in range(groups):
+            part = qdot_plain(h[..., g * cg:(g + 1) * cg], q["w_expand_q"][b, g * cg:(g + 1) * cg],
+                              q["w_expand_s"][b, 0])
+            h3 = part if h3 is None else h3 + part
+        x = torch.relu(h3 * q["s_expand"][b, 0] + q["b_expand"][b, 0] + x)
+    return x
+
+
+def transition_block_int8_plain(x, q: Dict) -> torch.Tensor:
+    """Reduce, strided-im2col 3x3, then the expand and projection products
+    quantized separately, each with its BN, added, ReLU. x: (N, H, W, Cin)."""
+    h = conv1x1_bn_int8_plain(x, q["w_reduce_q"], q["w_reduce_s"], q["s_reduce"],
+                              q["b_reduce"], True)
+    h = conv1x1_bn_int8_plain(strided_im2col(h), q["w9_mid_q"], q["w9_mid_s"], q["s_mid"],
+                              q["b_mid"], True)
+    h3 = conv1x1_bn_int8_plain(h, q["w_expand_q"], q["w_expand_s"], q["s_expand"],
+                               q["b_expand"], False)
+    skip = conv1x1_bn_int8_plain(x[:, ::2, ::2, :], q["w_proj_q"], q["w_proj_s"],
+                                 q["s_proj"], q["b_proj"], False)
+    return torch.relu(h3 + skip)
+
+
+# --- kernel wrappers ---------------------------------------------------------
+
+
+def _check_k(k: int) -> None:
+    if k % 4:
+        raise ValueError(f"the int8 kernels pack four k to a word; K = {k} is not a multiple of 4")
+
+
+def _check_shapes(pairs) -> None:
+    for name, t, shape in pairs:
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name} {tuple(t.shape)}, want {tuple(shape)}")
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_words(name: str, entry: str, device_index: int, *dims) -> int:
+    """4-byte words of workspace the C entry `entry` of library `name` needs
+    for these dims on the device (its `<entry>_workspace` function)."""
+    lib = _build.library(name)
+    words = ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        err = getattr(lib, f"{entry}_workspace")(*map(_build.cint, dims), ctypes.byref(words))
+    _build.check_error(lib, f"{entry}_workspace", err)
+    return words.value
+
+
+def conv1x1_bn_int8(x, w_q, s_w, scale, bias, relu: bool) -> torch.Tensor:
+    """Int8 pointwise conv + BN (+ReLU).
+
+    x: (..., Cin) float32; w_q: (Cin, Cout) int8; s_w, scale, bias: (Cout,).
+    Returns x.shape[:-1] + (Cout,). CPU tensors run the plain version; CUDA
+    tensors launch csrc/pointwise_int8.cu."""
+    cin, cout = w_q.shape
+    if x.shape[-1] != cin:
+        raise ValueError(f"x channels {x.shape[-1]} != weight Cin {cin}")
+    if x.device.type == "cpu":
+        return conv1x1_bn_int8_plain(x, w_q, s_w, scale, bias, relu)
+    _check_k(cin)
+    _build.check_operands(scale, bias, cout, x, s_w)
+    _check_shapes([("s_w", s_w, (cout,))])
+    _build.check_tensors(w_q, dtype=torch.int8, device=x.device)
+    p = x.numel() // cin
+    out = torch.empty(*x.shape[:-1], cout, device=x.device, dtype=torch.float32)
+    ptr, c = _build.ptr, _build.cint
+    _build.launch(
+        "pointwise_int8", "pointwise_int8_conv1x1_bn", (p, cin, cout, bool(relu)), x.device,
+        ptr(x), ptr(w_q), ptr(s_w), ptr(scale), ptr(bias), ptr(out),
+        c(p), c(cin), c(cout), c(relu),
+    )
+    return out
+
+
+def conv3x3_bn_int8(x, w9_q, s_w9, scale, bias, relu: bool = True) -> torch.Tensor:
+    """Int8 3x3 conv (pad 1, stride 1) + BN (+ReLU), per-im2col-row scales.
+
+    x: (H, W, Cin) or (N, H, W, Cin) float32; w9_q: (9*Cin, Cout) int8 in
+    kernels/direct.py::direct_filter's row order; s_w9, scale, bias:
+    (Cout,). CPU tensors run the plain version; CUDA tensors launch
+    csrc/direct_int8.cu."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    n, h, w, cin = x.shape
+    if w9_q.shape[0] != 9 * cin:
+        raise ValueError(f"w9_q {tuple(w9_q.shape)} does not take {cin} input channels")
+    cout = w9_q.shape[1]
+    if x.device.type == "cpu":
+        out = conv3x3_bn_int8_plain(x, w9_q, s_w9, scale, bias, relu)
+    else:
+        _check_k(9 * cin)
+        _build.check_operands(scale, bias, cout, x, s_w9)
+        _check_shapes([("s_w9", s_w9, (cout,))])
+        _build.check_tensors(w9_q, dtype=torch.int8, device=x.device)
+        out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
+        ptr, c = _build.ptr, _build.cint
+        _build.launch(
+            "direct_int8", "direct_int8_conv3x3_bn", (n, h, w, cin, cout, bool(relu)),
+            x.device, ptr(x), ptr(w9_q), ptr(s_w9), ptr(scale), ptr(bias), ptr(out),
+            c(n), c(h), c(w), c(cin), c(cout), c(relu),
+        )
+    return out[0] if squeeze else out
+
+
+def resnet_stage_int8(x, qstacked: Dict, mid_algo: str = "auto") -> torch.Tensor:
+    """B int8 identity bottleneck blocks in one launch.
+
+    x: (H, W, Cio) or (N, H, W, Cio) float32; qstacked from
+    quantize_stage_params (B = 1 is one block). mid_algo: "direct" (int8
+    w9_mid), "winograd2" (F(2,3) on u2_mid_bf16) or "auto"
+    (resolve_mid_algo). The JAX package's block-outer resident layout needs
+    no option here: the CUDA kernel reads each block's weights once for the
+    whole batch. CPU tensors run the plain version; CUDA tensors launch
+    csrc/stage_int8.cu."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    n, h, w, cio = x.shape
+    q = qstacked
+    nb, cio_w, cmid = q["w_reduce_q"].shape
+    if cio_w != cio:
+        raise ValueError(f"w_reduce_q {tuple(q['w_reduce_q'].shape)} does not take {cio} channels")
+    mid_algo = resolve_mid_algo(mid_algo, q, h, w)
+    if x.device.type == "cpu":
+        out = resnet_stage_int8_plain(x, q, mid_algo)
+        return out[0] if squeeze else out
+    _check_k(cio)
+    _check_k(cmid)
+    wino = mid_algo == "winograd2"
+    mid_key, mid_shape, mid_dtype = (
+        ("u2_mid_bf16", (nb, 16, cmid, cmid), torch.bfloat16) if wino
+        else ("w9_mid_q", (nb, 9 * cmid, cmid), torch.int8))
+    row_m, row_o = (nb, 1, cmid), (nb, 1, cio)
+    f32 = [("x", x, x.shape)] + [
+        (k, q[k], s) for k, s in (
+            ("w_reduce_s", row_m), ("s_reduce", row_m), ("b_reduce", row_m),
+            ("w9_mid_s", row_m), ("s_mid", row_m), ("b_mid", row_m),
+            ("w_expand_s", row_o), ("s_expand", row_o), ("b_expand", row_o))]
+    int8 = [("w_reduce_q", q["w_reduce_q"], (nb, cio, cmid)),
+            ("w_expand_q", q["w_expand_q"], (nb, cmid, cio))]
+    _check_shapes(f32 + int8 + [(mid_key, q[mid_key], mid_shape)])
+    _build.check_tensors(*(t for _, t, _ in f32))
+    _build.check_tensors(*(t for _, t, _ in int8), dtype=torch.int8, device=x.device)
+    _build.check_tensors(q[mid_key], dtype=mid_dtype, device=x.device)
+    words = _workspace_words("stage_int8", "resnet_stage_int8", x.device.index, n, h, w, cio, cmid, int(wino))
+    ws = torch.empty(words, device=x.device, dtype=torch.float32)
+    out = torch.empty_like(x)
+    ptr, c = _build.ptr, _build.cint
+    _build.launch(
+        "stage_int8", "resnet_stage_int8", (n, h, w, cio, cmid, nb, mid_algo), x.device,
+        ptr(x), ptr(q["w_reduce_q"]), ptr(q["w_reduce_s"]), ptr(q["s_reduce"]),
+        ptr(q["b_reduce"]), ptr(q[mid_key]), ptr(q["w9_mid_s"]), ptr(q["s_mid"]),
+        ptr(q["b_mid"]), ptr(q["w_expand_q"]), ptr(q["w_expand_s"]), ptr(q["s_expand"]),
+        ptr(q["b_expand"]), ptr(out), ptr(ws), ctypes.c_longlong(words),
+        c(n), c(h), c(w), c(cio), c(cmid), c(nb), c(wino),
+    )
+    return out[0] if squeeze else out
+
+
+def transition_block_int8(x, qparams: Dict) -> torch.Tensor:
+    """Int8 stride-2 transition block in one launch. x: (H, W, Cin) or
+    (N, H, W, Cin) float32; qparams from quantize_transition_params.
+    Returns (..., ceil(H/2), ceil(W/2), Cout). The JAX package's tile-outer
+    resident layout needs no option here: the kernel reads each weight once
+    for the whole batch. CPU tensors run the plain version; CUDA tensors
+    launch csrc/transition_int8.cu."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    n, h, w, cin = x.shape
+    q = qparams
+    cin_w, cmid = q["w_reduce_q"].shape
+    if cin_w != cin:
+        raise ValueError(f"w_reduce_q {tuple(q['w_reduce_q'].shape)} does not take {cin} channels")
+    if x.device.type == "cpu":
+        out = transition_block_int8_plain(x, q)
+        return out[0] if squeeze else out
+    _check_k(cin)
+    _check_k(cmid)
+    cout = q["w_expand_q"].shape[1]
+    f32 = [("x", x, x.shape)] + [
+        (k, q[k], (c,)) for k, c in (
+            ("w_reduce_s", cmid), ("s_reduce", cmid), ("b_reduce", cmid),
+            ("w9_mid_s", cmid), ("s_mid", cmid), ("b_mid", cmid),
+            ("w_expand_s", cout), ("s_expand", cout), ("b_expand", cout),
+            ("w_proj_s", cout), ("s_proj", cout), ("b_proj", cout))]
+    int8 = [("w_reduce_q", q["w_reduce_q"], (cin, cmid)),
+            ("w9_mid_q", q["w9_mid_q"], (9 * cmid, cmid)),
+            ("w_expand_q", q["w_expand_q"], (cmid, cout)),
+            ("w_proj_q", q["w_proj_q"], (cin, cout))]
+    _check_shapes(f32 + int8)
+    _build.check_tensors(*(t for _, t, _ in f32))
+    _build.check_tensors(*(t for _, t, _ in int8), dtype=torch.int8, device=x.device)
+    words = _workspace_words("transition_int8", "transition_block_int8", x.device.index, n, h, w, cin, cmid, cout)
+    ws = torch.empty(words, device=x.device, dtype=torch.float32)
+    out = torch.empty(n, -(-h // 2), -(-w // 2), cout, device=x.device, dtype=torch.float32)
+    ptr, c = _build.ptr, _build.cint
+    _build.launch(
+        "transition_int8", "transition_block_int8", (n, h, w, cin, cmid, cout), x.device,
+        ptr(x), *(ptr(q[k]) for k in (
+            "w_reduce_q", "w_reduce_s", "s_reduce", "b_reduce",
+            "w9_mid_q", "w9_mid_s", "s_mid", "b_mid",
+            "w_expand_q", "w_expand_s", "s_expand", "b_expand",
+            "w_proj_q", "w_proj_s", "s_proj", "b_proj")),
+        ptr(out), ptr(ws), ctypes.c_longlong(words),
+        c(n), c(h), c(w), c(cin), c(cmid), c(cout),
+    )
+    return out[0] if squeeze else out

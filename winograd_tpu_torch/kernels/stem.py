@@ -4,7 +4,11 @@ Port of winograd_tpu/kernels/stem.py::stem_fused_pallas. The CUDA kernel is
 csrc/stem.cu and reads the raw NHWC image; the plain twin takes the
 space-to-depth route of the JAX package (pad, s2d by the stride, the 4x4
 cell neighbourhood as a 64*Cin patch matrix, one matmul with w192), then
-BN, ReLU and the maxpool.
+BN, ReLU and the maxpool. Precision "f32" is the f32 tier's stem; "bf16"
+(the int8 tier's, the JAX package's stem_fused_pallas(precision="bf16"))
+rounds the image and w192 to bf16; the kernel sums their exact products
+in FP64 and rounds once, and the plain twin does the matmul in float64, so
+the two agree to the bit.
 """
 
 from __future__ import annotations
@@ -31,18 +35,33 @@ def stem_s2d_cols(x: torch.Tensor) -> torch.Tensor:
     )
 
 
-def stem_fused_plain(x, w192, scale, bias) -> torch.Tensor:
+PRECISIONS = ("f32", "bf16")
+
+
+def _round_bf16(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def stem_fused_plain(x, w192, scale, bias, precision: str = "f32") -> torch.Tensor:
     """s2d patch matmul, BN, ReLU, 3x3/2 maxpool. x: (N, H, W, Cin)."""
-    y = torch.relu(torch.matmul(stem_s2d_cols(x), w192) * scale + bias)
+    if precision == "bf16":
+        cols = stem_s2d_cols(_round_bf16(x)).double()
+        y = torch.matmul(cols, _round_bf16(w192).double()).to(x.dtype)
+    else:
+        y = torch.matmul(stem_s2d_cols(x), w192)
+    y = torch.relu(y * scale + bias)
     return maxpool3x3_s2(y)
 
 
-def stem_fused(x, w192, scale, bias) -> torch.Tensor:
+def stem_fused(x, w192, scale, bias, precision: str = "f32") -> torch.Tensor:
     """Whole stem, (H, W, Cin) or (N, H, W, Cin) -> (..., ceil(H/4),
     ceil(W/4), C).
 
-    w192: (64*Cin, C), models/resnet50.py::stem_filter_s2d(w7). CPU tensors
-    run the plain version; CUDA tensors launch csrc/stem.cu."""
+    w192: (64*Cin, C), models/resnet50.py::stem_filter_s2d(w7); precision
+    "f32" or "bf16" (PRECISIONS). CPU tensors run the plain version; CUDA
+    tensors launch csrc/stem.cu."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown stem precision {precision!r}; choose from {PRECISIONS}")
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
@@ -50,7 +69,7 @@ def stem_fused(x, w192, scale, bias) -> torch.Tensor:
     if w192.shape[0] != 64 * cin:
         raise ValueError(f"w192 {tuple(w192.shape)} does not take {cin} input channels")
     if x.device.type == "cpu":
-        out = stem_fused_plain(x, w192, scale, bias)
+        out = stem_fused_plain(x, w192, scale, bias, precision)
     else:
         c = w192.shape[1]
         _build.check_operands(scale, bias, c, x, w192)
@@ -58,8 +77,8 @@ def stem_fused(x, w192, scale, bias) -> torch.Tensor:
         out = torch.empty(n, po, qo, c, device=x.device, dtype=torch.float32)
         i = _build.cint
         _build.launch(
-            "stem", "stem_conv7x7_bn_relu_maxpool", (n, h, w, cin, c), x.device,
+            "stem", "stem_conv7x7_bn_relu_maxpool", (n, h, w, cin, c, precision), x.device,
             _build.ptr(x), _build.ptr(w192), _build.ptr(scale), _build.ptr(bias),
-            _build.ptr(out), i(n), i(h), i(w), i(cin), i(c),
+            _build.ptr(out), i(n), i(h), i(w), i(cin), i(c), i(precision == "bf16"),
         )
     return out[0] if squeeze else out

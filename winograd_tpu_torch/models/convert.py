@@ -10,6 +10,13 @@ transition also gets its fused expand/projection weights (wep, bep), and
 each stage that runs as one stage kernel its blocks' params stacked once
 ("stacked"), with the per-block tensors as views into the stack, so a
 request never stacks and the weights are stored once.
+
+qparams_from_jax takes the JAX package's int8 tree
+(models/resnet50.py::quantize_resnet50, as numpy arrays) and returns the
+port's int8 parameters (models/resnet50.py::quantize_resnet50 builds the
+same from the port's own f32 parameters): int8 weights stay torch.int8,
+the bf16 F(2,3) filters torch.bfloat16, and each stage's blocks arrive
+stacked once.
 """
 
 from __future__ import annotations
@@ -27,7 +34,9 @@ from winograd_tpu_torch.models.resnet import stage_algo
 
 BN_KEYS = ("s_reduce", "b_reduce", "s_mid", "b_mid", "s_expand", "b_expand")
 BLOCK_KEYS = ("w_reduce", "u2_mid", "w9_mid", "w_expand") + BN_KEYS
-PROJECTION_KEYS = ("w_reduce", "u2_mid", "w_expand", "w_proj", "s_proj", "b_proj") + BN_KEYS
+PROJECTION_KEYS = ("w_reduce", "u2_mid", "w9_mid", "w_expand", "w_proj", "s_proj",
+                   "b_proj") + BN_KEYS
+STEM_KEYS = ("w192_stem", "s_stem", "b_stem")
 TRANSITION_KEYS = ("w_reduce", "w9_mid", "w_expand", "w_proj", "s_proj", "b_proj") + BN_KEYS
 
 
@@ -96,26 +105,58 @@ def stages_from_jax(stages: List[Dict], device="cuda", dtype=torch.float32) -> L
     return [_stage(st, np_dtype, device, dtype) for st in stages]
 
 
+def _stem(tree: Dict, np_dtype, device, dtype) -> Dict[str, torch.Tensor]:
+    stem = dict(tree)
+    if "w7_stem" in stem:
+        stem["w192_stem"] = stem_filter_s2d(stem["w7_stem"], np_dtype)
+    return _layer(stem, STEM_KEYS, np_dtype, device, dtype)
+
+
 def params_from_jax(tree: Dict, device="cuda", dtype=torch.float32) -> Dict:
     """The JAX parameter tree {"stem", "proj", "stages", "head"} (numpy
     arrays) -> the port's parameters on `device`."""
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    stem = dict(tree["stem"])
-    if "w7_stem" in stem:
-        stem["w192_stem"] = stem_filter_s2d(stem["w7_stem"], np_dtype)
     return {
-        "stem": _layer(stem, ("w192_stem", "s_stem", "b_stem"), np_dtype, device, dtype),
+        "stem": _stem(tree["stem"], np_dtype, device, dtype),
         "proj": _layer(tree["proj"], PROJECTION_KEYS, np_dtype, device, dtype),
         "stages": stages_from_jax(tree["stages"], device, dtype),
         "head": _layer(tree["head"], ("w_fc", "b_fc"), np_dtype, device, dtype),
     }
 
 
+def _tensor(a) -> torch.Tensor:
+    """A numpy array (ml_dtypes bfloat16 included) as a tensor of its type,
+    on a copy."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def qparams_from_jax(qtree: Dict, device="cuda") -> Dict:
+    """The JAX int8 tree {"stem", "proj", "stages", "head"} (numpy arrays;
+    each stage {"transition", "blocks": stacked int8 params}) -> the port's
+    int8 parameters on `device`. The stem keeps its f32 w192 layout."""
+    stem = _stem(qtree["stem"], np.float32, "cpu", torch.float32)
+    out = {
+        "stem": stem,
+        "proj": {k: _tensor(v) for k, v in qtree["proj"].items()},
+        "stages": [{
+            "transition": None if st.get("transition") is None
+            else {k: _tensor(v) for k, v in st["transition"].items()},
+            "blocks": {k: _tensor(v) for k, v in st["blocks"].items()},
+        } for st in qtree["stages"]],
+        "head": {k: _tensor(v) for k, v in qtree["head"].items()},
+    }
+    return params_to(out, device)
+
+
 def params_to(params, device=None, dtype=None):
-    """The same parameter structure with every tensor moved/cast (a tensor
-    already on `device` in `dtype` stays as it is). A stage's blocks become
-    views into its moved "stacked" params again, so the weights stay stored
-    once."""
+    """The same parameter structure with every tensor moved, and every
+    float32/float64 tensor cast to `dtype` (int8 weights and bf16 filters
+    keep their type; a tensor already where it belongs stays as it is). A
+    stage's blocks become views into its moved "stacked" params again, so
+    the weights stay stored once."""
     if isinstance(params, dict):
         if params.get("stacked") is not None:
             moved = {k: params_to(v, device, dtype) for k, v in params.items() if k != "blocks"}
@@ -125,4 +166,5 @@ def params_to(params, device=None, dtype=None):
         return [params_to(v, device, dtype) for v in params]
     if params is None:
         return None
-    return params.to(device=device, dtype=dtype).contiguous()
+    cast = dtype if params.dtype in (torch.float32, torch.float64) else None
+    return params.to(device=device, dtype=cast).contiguous()

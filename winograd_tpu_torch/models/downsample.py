@@ -8,6 +8,10 @@ Transition params are the identity block's plus w_proj (Cin, Cout), s_proj,
 b_proj, with the 3x3 filter as w9_mid, and the fused wep/bep
 (models/convert.py). The projection block (conv2_x's entry) runs per layer,
 its 3x3 Winograd F(2,3) on u2_mid, as in the JAX package.
+
+At the int8 tier (quantize_backbone, resnet50_stages_int8) every
+transition is one int8 transition kernel launch and every identity run one
+int8 stage kernel launch (kernels/quantized.py), with no weight gate.
 """
 
 from __future__ import annotations
@@ -17,6 +21,12 @@ from typing import Dict, List
 import torch
 
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
+from winograd_tpu_torch.kernels.quantized import (
+    quantize_stage_params,
+    quantize_transition_params,
+    resnet_stage_int8,
+    transition_block_int8,
+)
 from winograd_tpu_torch.kernels.transition import strided_im2col, transition_block_fused
 from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
 from winograd_tpu_torch.models.resnet import resnet_stage
@@ -63,4 +73,25 @@ def resnet50_stages(x: torch.Tensor, stages: List[Dict]) -> torch.Tensor:
         if stage.get("transition") is not None:
             x = downsample_bottleneck_block(x, stage["transition"])
         x = resnet_stage(x, stage["blocks"], stacked=stage.get("stacked"))
+    return x
+
+
+def quantize_backbone(stages: List[Dict]) -> List[Dict]:
+    """The port's f32 stages -> their int8 form for resnet50_stages_int8:
+    each transition quantized, each stage's blocks quantized and stacked."""
+    return [{
+        "transition": None if st.get("transition") is None
+        else quantize_transition_params(st["transition"]),
+        "blocks": quantize_stage_params(st["blocks"]),
+    } for st in stages]
+
+
+def resnet50_stages_int8(x: torch.Tensor, qstages: List[Dict]) -> torch.Tensor:
+    """The multi-stage backbone at the int8 tier: each stage's transition
+    through the int8 transition kernel, its identity blocks through the
+    int8 stage kernel (mid-layer by map size, kernels/quantized.py)."""
+    for st in qstages:
+        if st.get("transition") is not None:
+            x = transition_block_int8(x, st["transition"])
+        x = resnet_stage_int8(x, st["blocks"])
     return x

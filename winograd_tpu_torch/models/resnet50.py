@@ -6,7 +6,15 @@ package's fused route. Per forward at full width: the stem 1 launch; the
 projection block pointwise 3 and Winograd 1; the stage kernel 3 (conv2_x,
 conv3_x, conv4_x, one launch each); the transition kernel 3; conv5_x's two
 identity blocks, whose weights fail the fused gates (models/resnet.py), per
-layer: pointwise 4 and direct 2; the head pointwise 1. 18 launches in all."""
+layer: pointwise 4 and direct 2; the head pointwise 1. 18 launches in all.
+
+resnet50_forward_int8 is the port of resnet50_forward_int8, the int8
+serving tier, on parameters from quantize_resnet50: the stem at bf16 (1
+launch); the projection block per layer, int8 pointwise 3 and int8 direct 1
+(the add and ReLU are PyTorch ops); the int8 transition kernel 3; the int8
+stage kernel 4 (F(2,3) on bf16 filters at conv2_x and conv3_x, the int8
+direct mid at conv4_x and conv5_x); the head int8 pointwise 1. 13 launches
+in all."""
 
 from __future__ import annotations
 
@@ -18,22 +26,32 @@ import torch
 from winograd_tpu_torch.config import BN_EPS
 from winograd_tpu_torch.kernels import _build, transforms
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
+from winograd_tpu_torch.kernels.quantized import (
+    conv1x1_bn_int8,
+    conv3x3_bn_int8,
+    quantize_transition_params,
+    quantize_weights,
+)
 from winograd_tpu_torch.kernels.stem import stem_fused
 from winograd_tpu_torch.models.convert import params_from_jax, stem_filter_s2d
 from winograd_tpu_torch.models.downsample import (
     projection_bottleneck_block,
+    quantize_backbone,
     resnet50_stages,
+    resnet50_stages_int8,
 )
 
 __all__ = [
-    "head", "init_resnet50_arrays", "init_resnet50_params", "resnet50_forward",
-    "stem", "stem_filter_s2d",
+    "head", "head_int8", "init_resnet50_arrays", "init_resnet50_params",
+    "projection_block_int8", "quantize_resnet50", "resnet50_forward",
+    "resnet50_forward_int8", "stem", "stem_filter_s2d",
 ]
 
 
-def stem(x: torch.Tensor, params: Dict) -> torch.Tensor:
-    """7x7/2 conv + BN + ReLU + 3x3/2 maxpool; keys w192_stem, s_stem, b_stem."""
-    return stem_fused(x, params["w192_stem"], params["s_stem"], params["b_stem"])
+def stem(x: torch.Tensor, params: Dict, precision: str = "f32") -> torch.Tensor:
+    """7x7/2 conv + BN + ReLU + 3x3/2 maxpool; keys w192_stem, s_stem, b_stem;
+    precision "f32" or "bf16" (the int8 tier's)."""
+    return stem_fused(x, params["w192_stem"], params["s_stem"], params["b_stem"], precision)
 
 
 def head(x: torch.Tensor, params: Dict) -> torch.Tensor:
@@ -44,20 +62,73 @@ def head(x: torch.Tensor, params: Dict) -> torch.Tensor:
     return conv1x1_bn(x.mean(dim=(-3, -2)), w_fc, ones, params["b_fc"], relu=False)
 
 
+def _images(x, dtype, device):
+    x = torch.as_tensor(x, dtype=dtype, device=device).contiguous()
+    return (x[None], True) if x.dim() == 3 else (x, False)
+
+
 def resnet50_forward(x, params: Dict, device="cuda") -> torch.Tensor:
     """Logits of image(s) x, (H, W, 3) or (N, H, W, 3), in the dtype of the
     params, which must live on `device`. CUDA runs the kernels; the CPU
     (only on request) runs their plain versions."""
     device = _build.require_device(device)
-    dtype = params["head"]["w_fc"].dtype
-    x = torch.as_tensor(x, dtype=dtype, device=device).contiguous()
-    squeeze = x.dim() == 3
-    if squeeze:
-        x = x[None]
+    x, squeeze = _images(x, params["head"]["w_fc"].dtype, device)
     h = stem(x, params["stem"])
     h = projection_bottleneck_block(h, params["proj"])
     h = resnet50_stages(h, params["stages"])
     logits = head(h, params["head"])
+    return logits[0] if squeeze else logits
+
+
+def quantize_resnet50(params: Dict) -> Dict:
+    """The port's f32 parameters -> the int8 tier's (the JAX package's
+    quantize_resnet50): the stem stays f32 (it runs at bf16); the
+    projection block, the trunk and the head FC go int8 (weights per output
+    channel; BN and biases f32)."""
+    w_q, s_w = quantize_weights(params["head"]["w_fc"].detach().cpu().numpy())
+    return {
+        "stem": {k: params["stem"][k] for k in ("w192_stem", "s_stem", "b_stem")},
+        "proj": quantize_transition_params(params["proj"]),
+        "stages": quantize_backbone(params["stages"]),
+        "head": {"w_fc_q": torch.from_numpy(w_q), "w_fc_s": torch.from_numpy(s_w),
+                 "b_fc": params["head"]["b_fc"].detach().cpu().float()},
+    }
+
+
+def projection_block_int8(x: torch.Tensor, q: Dict) -> torch.Tensor:
+    """conv2_x's stride-1 projection block at the int8 tier, per layer:
+    int8 1x1 reduce, int8 direct 3x3, int8 1x1 expand, int8 1x1
+    projection; add, ReLU (quantize_transition_params layout)."""
+    h = conv1x1_bn_int8(x, q["w_reduce_q"], q["w_reduce_s"], q["s_reduce"], q["b_reduce"], True)
+    h = conv3x3_bn_int8(h, q["w9_mid_q"], q["w9_mid_s"], q["s_mid"], q["b_mid"], True)
+    h = conv1x1_bn_int8(h, q["w_expand_q"], q["w_expand_s"], q["s_expand"], q["b_expand"],
+                        False)
+    skip = conv1x1_bn_int8(x, q["w_proj_q"], q["w_proj_s"], q["s_proj"], q["b_proj"], False)
+    return torch.relu(h + skip)
+
+
+def head_int8(x: torch.Tensor, q: Dict) -> torch.Tensor:
+    """Global avgpool + the int8 FC with BN scale 1; keys w_fc_q (C,
+    classes) int8, w_fc_s, b_fc (classes,). The mean is taken in float64
+    and rounded once, so it does not depend on the order of its sum (the
+    FC's row scale would turn a last-bit difference into a quantization
+    step)."""
+    ones = torch.ones(q["w_fc_q"].shape[1], dtype=torch.float32, device=x.device)
+    pooled = x.double().mean(dim=(-3, -2)).to(x.dtype)
+    return conv1x1_bn_int8(pooled, q["w_fc_q"], q["w_fc_s"], ones, q["b_fc"], False)
+
+
+def resnet50_forward_int8(x, qparams: Dict, device="cuda") -> torch.Tensor:
+    """Logits of image(s) x, (H, W, 3) or (N, H, W, 3), at the int8 tier, on
+    parameters from quantize_resnet50 (or convert.py::qparams_from_jax)
+    that live on `device`; float32. CUDA runs the kernels; the CPU (only on
+    request) runs their plain versions."""
+    device = _build.require_device(device)
+    x, squeeze = _images(x, torch.float32, device)
+    h = stem(x, qparams["stem"], precision="bf16")
+    h = projection_block_int8(h, qparams["proj"])
+    h = resnet50_stages_int8(h, qparams["stages"])
+    logits = head_int8(h, qparams["head"])
     return logits[0] if squeeze else logits
 
 
