@@ -34,16 +34,34 @@ Phases, each of which must pass (exit 1 otherwise):
    versions on the CPU in float32 within 1e-3 * max(1, max|ref|); each N=8
    row against that image's N=1 logits within the same 1e-3 bound.
 6. profile_int8: as phase 4, for the int8 tier.
-7. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the first N=1 forward of phases 3 and 5 gave it (recorded by
-   shape in kernels/_build.py), and at shapes off the served N=1 lists
-   (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and 9; the
-   conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
+7. serving_basic: ResNetBasicEngine with seeded full-width ResNet-34
+   weights (bench mode 24), 10 N=1 and 3 N=8 requests on the same images,
+   counters zeroed just before and read just after: each forward must
+   launch stem 1, Winograd 24, pointwise 7, direct 1 and basic_stage 1
+   times; logits against the same model through the plain versions on the
+   CPU in float64 within 1e-4 * max(1, max|golden|), N=8 rows against N=1
+   within the same bound.
+8. profile_basic: as phase 4, for phase 7.
+9. serving_basic_int8: ResNetBasicEngine(tier="int8") on the same weights
+   and images: each forward must launch stem 1 (at bf16), Winograd 6 (on
+   bf16 filters), winograd_int8 18, pointwise_int8 7, direct_int8 1 and
+   basic_stage_int8 1 times; logits against phase 7's golden within 5e-2 *
+   max(1, max|golden|), against the port's int8 forward through the plain
+   versions on the CPU in float32 within 1e-3 * max(1, max|ref|), N=8 rows
+   against N=1 within 1e-3.
+10. profile_basic_int8: as phase 4, for phase 9.
+11. kernels: each kernel against its plain PyTorch version on the card, at
+   every shape the first N=1 forward of phases 3, 5, 7 and 9 gave it
+   (recorded by shape in kernels/_build.py), and at shapes off the served
+   N=1 lists (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and
+   9; the conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
-   14->7 transition at N=8), on seeded inputs. Bound: max abs error <=
-   1e-4 * max(1, max|plain|); the int8 stage and transition, whose chained
-   quantizations may flip a rounding on f32-level differences, 1e-3 *
-   max(1, max|plain|). One JSON line per shape: error; device times of the
+   14->7 transition at N=8; both basic stages at N=8 and at one block, the
+   ResNet-18 run; the int8 Winograd at N=8, 14x14x256), on seeded inputs.
+   Bound: max abs error <= 1e-4 * max(1, max|plain|); the int8 stage,
+   transition and basic stage, whose chained quantizations may flip a
+   rounding on f32-level differences, and the int8 Winograd, whose V is
+   quantized, 1e-3 * max(1, max|plain|). One JSON line per shape: error; device times of the
    kernel, its plain version and the library call (20 calls captured in a
    CUDA graph, the median of 20 replays between CUDA events, divided by 20;
    inputs stay in L2 between calls); "wrapper_ms", one eager wrapper call
@@ -55,15 +73,18 @@ Phases, each of which must pass (exit 1 otherwise):
    stem's products and the int8 stage's bf16-filter F(2,3) products (as
    two BF16 passes, the JAX kernel's hi/lo split) at the BF16 rate; f32
    GEMMs, Winograd transforms, epilogues (4 FLOPs an output) and int8
-   quantization (2 a quantized value) at the FP32 rate. Bytes: each input
-   read once (int8 weights 1 byte, bf16 filters 2), each output written
-   once. Library: torch.matmul / F.conv2d (f32), and for the int8 kernels
-   torch._int_mm on operands quantized (the 3x3s im2col'd) before the timed
-   region, summed over the kernel's GEMMs, rows padded to 32 where P <= 16
-   (the call refuses fewer than 17), and torch.bmm in bf16 for the F(2,3)
-   mid's products.
-8. a "kernels" JSON line (per-image sums over each path's shapes; the stem
-   row sums its f32 and bf16 shapes), the card line, and last
+   quantization (2 a quantized value) at the FP32 rate; the bf16-filter
+   Winograd's products as two BF16 passes too. Bytes: each input read once
+   (int8 weights 1 byte, bf16 filters 2), each output written once.
+   Library: torch.matmul / F.conv2d (f32; a basic stage its 2B convs), the
+   bf16-filter Winograd F.conv2d in bf16, and for the int8 kernels
+   torch._int_mm on operands quantized (the 3x3s im2col'd, the int8
+   Winograd's V per position) before the timed region, summed over the
+   kernel's GEMMs, rows padded to 32 where P <= 16 (the call refuses fewer
+   than 17), and torch.bmm in bf16 for the F(2,3) mid's products.
+12. a "kernels" JSON line (per-image sums over each path's shapes, both
+   models and tiers; the stem row sums its f32 and bf16 shapes, the
+   Winograd row its f32 and bf16-filter shapes), the card line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -89,6 +110,13 @@ EXPECTED_PER_FORWARD = {
 }
 EXPECTED_PER_FORWARD_INT8 = {
     "stem": 1, "pointwise_int8": 4, "direct_int8": 1, "stage_int8": 4, "transition_int8": 3,
+}
+EXPECTED_PER_FORWARD_BASIC = {
+    "stem": 1, "winograd": 24, "pointwise": 7, "direct": 1, "basic_stage": 1,
+}
+EXPECTED_PER_FORWARD_BASIC_INT8 = {
+    "stem": 1, "winograd": 6, "winograd_int8": 18, "pointwise_int8": 7, "direct_int8": 1,
+    "basic_stage_int8": 1,
 }
 SOURCES = {
     "pointwise": ("winograd_tpu/kernels/pointwise.py:67",
@@ -121,9 +149,16 @@ SOURCES = {
                         ["winograd_tpu/kernels/quantized.py:941 _transition_int8_kernel",
                          "winograd_tpu/kernels/quantized.py:1003 "
                          "_transition_int8_kernel_resident"]),
+    "winograd_int8": ("winograd_tpu/kernels/quantized.py:393",
+                      ["winograd_tpu/kernels/quantized.py:393 _winograd_int8_kernel"]),
+    "basic_stage": ("winograd_tpu/kernels/basic_stage.py:59",
+                    ["winograd_tpu/kernels/basic_stage.py:59 _basic_stage_kernel"]),
+    "basic_stage_int8": ("winograd_tpu/kernels/basic_stage.py:202",
+                         ["winograd_tpu/kernels/basic_stage.py:202 _basic_stage_int8_kernel"]),
 }
-# Chained int8 layers: a rounding may flip on f32-level differences.
-CHAINED = ("stage_int8", "transition_int8")
+# Chained int8 layers, and the int8 Winograd's quantized V: a rounding may
+# flip on f32-level differences.
+CHAINED = ("stage_int8", "transition_int8", "basic_stage_int8", "winograd_int8")
 
 
 def _rand(rng, *shape):
@@ -166,9 +201,10 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from winograd_tpu_torch.config import INT8_RTOL_BACKBONE, ResNet50Config
-    from winograd_tpu_torch.engine import ResNet50Engine
+    from winograd_tpu_torch.config import INT8_RTOL_BACKBONE, ResNet34Config, ResNet50Config
+    from winograd_tpu_torch.engine import ResNet50Engine, ResNetBasicEngine
     from winograd_tpu_torch.kernels import _build, transforms
+    from winograd_tpu_torch.kernels import basic_stage as bs
     from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels.direct import (
         conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter, im2col3x3,
@@ -183,7 +219,11 @@ def main() -> int:
         transition_block_fused_plain,
     )
     from winograd_tpu_torch.kernels.winograd import (
-        conv3x3_bn_winograd, conv3x3_bn_winograd_plain,
+        conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain,
+    )
+    from winograd_tpu_torch.models.basic import (
+        basicnet_forward, basicnet_forward_int8, basicnet_params, init_basicnet_arrays,
+        quantize_basicnet,
     )
     from winograd_tpu_torch.models.convert import params_from_jax, stem_filter_s2d
     from winograd_tpu_torch.models.resnet50 import (
@@ -279,15 +319,26 @@ def main() -> int:
         w_cl = t(wt).contiguous(memory_format=torch.channels_last)
         return x, wt, s, b, lambda: F.conv2d(nchw(x), w_cl, padding=1)
 
-    def winograd_case(rng, n, h, w, cin, cout, m, relu):
+    def winograd_case(rng, n, h, w, cin, cout, m, relu, filt="f32"):
+        """filt "bf16": the bf16-filter F(2,3) (its products as two BF16
+        passes, the JAX kernel's hi/lo split; library F.conv2d in bf16)."""
         x, wt, s, b, lib = conv3x3_inputs(rng, n, h, w, cin, cout)
         u = t(transforms.transform_filter(wt, m=m))
         a2, nt = (m + 2) ** 2, n * (-(-h // m)) * (-(-w // m))
         fwd, inv = _winograd_transform_flops(m)
-        flops = 2 * a2 * nt * cin * cout + nt * (fwd * cin + inv * cout)
+        products, transforms_flops = 2 * a2 * nt * cin * cout, nt * (fwd * cin + inv * cout)
+        if filt == "bf16":
+            u = u.to(torch.bfloat16)
+            x16 = nchw(x).to(torch.bfloat16)
+            w16 = t(wt).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            return (lambda: conv3x3_bn_winograd(x, u, s, b, relu),
+                    lambda: winograd2_mid_plain(x, u, s, b, relu),
+                    lambda: F.conv2d(x16, w16, padding=1),
+                    {BF16_FLOPS: 2 * products, FP32_FLOPS: transforms_flops},
+                    4 * n * h * w * (cin + cout) + 2 * a2 * cin * cout + 8 * cout)
         return (lambda: conv3x3_bn_winograd(x, u, s, b, relu),
                 lambda: conv3x3_bn_winograd_plain(x, u, s, b, relu),
-                lib, {FP32_FLOPS: flops},
+                lib, {FP32_FLOPS: products + transforms_flops},
                 4 * (n * h * w * (cin + cout) + a2 * cin * cout + 2 * cout))
 
     def direct_case(rng, n, h, w, cin, cout, relu):
@@ -385,6 +436,36 @@ def main() -> int:
                 lambda: transition_block_fused_plain(x, params), lib, {FP32_FLOPS: flops},
                 nbytes)
 
+    def basic_blocks(rng, c, nb):
+        blocks = []
+        for _ in range(nb):
+            blk = {}
+            for leg in ("a", "b"):
+                w = _rand(rng, c, c, 3, 3)
+                blk[f"w_{leg}"], blk[f"w9_{leg}"] = w, direct_filter(w)
+                blk[f"s_{leg}"], blk[f"b_{leg}"] = (v.cpu().numpy() for v in bn(rng, c))
+            blocks.append(blk)
+        return blocks
+
+    def basic_stage_case(rng, n, h, w, c, nb):
+        blocks = basic_blocks(rng, c, nb)
+        stacked = {k: v.to(dev) for k, v in bs.stack_basic_stage_params(blocks).items()}
+        lib_w = [t(blk[f"w_{leg}"]).contiguous(memory_format=torch.channels_last)
+                 for blk in blocks for leg in ("a", "b")]
+        x = t(_rand(rng, n, h, w, c))
+
+        def lib():
+            y = nchw(x)
+            for wc in lib_w:
+                y = F.conv2d(y, wc, padding=1)
+            return y
+
+        p = n * h * w
+        return (lambda: bs.basic_stage_fused(x, stacked),
+                lambda: bs.basic_stage_fused_plain(x, stacked), lib,
+                {FP32_FLOPS: nb * 2 * 2 * p * 9 * c * c},
+                4 * (2 * p * c + nb * (2 * 9 * c * c + 4 * c)))
+
     # -- int8 cases ---------------------------------------------------------
     def qrows(a):
         """Activations quantized per row as int8 (rows of a 2-D view), with
@@ -393,7 +474,19 @@ def main() -> int:
         return F.pad(q, (0, 0, 0, 32 - q.shape[0])) if q.shape[0] <= 16 else q.contiguous()
 
     def int_mm(*pairs):
-        """The GEMMs through torch._int_mm, int8 x int8 -> int32."""
+        """The GEMMs through torch._int_mm, int8 x int8 -> int32. A B that
+        cuBLASLt refuses row-major (some int8 shapes have no kernel in that
+        layout) is handed over column-major, its layout chosen offline,
+        before the timed region."""
+        def layout(a, b):
+            try:
+                torch._int_mm(a, b)
+                return a, b
+            except RuntimeError:
+                return a, b.t().contiguous().t()
+
+        pairs = [layout(a, b) for a, b in pairs]
+
         def run():
             return [torch._int_mm(a, b) for a, b in pairs]
         return run
@@ -459,6 +552,33 @@ def main() -> int:
         return (lambda: q8.resnet_stage_int8(x, qs, mid),
                 lambda: q8.resnet_stage_int8_plain(x, qs, mid), lib, work, nbytes)
 
+    def basic_stage_int8_case(rng, n, h, w, c, nb):
+        qs = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(basic_blocks(rng, c, nb)).items()}
+        x = t(_rand(rng, n, h, w, c))
+        cols = qrows(im2col3x3(x))
+        p = n * h * w
+        lib = int_mm(*[(cols, qs[f"w9_{leg}_q"][b]) for b in range(nb) for leg in ("a", "b")])
+        work = {INT8_OPS: nb * 2 * 2 * p * 9 * c * c,
+                FP32_FLOPS: nb * 2 * (4 * p * c + 2 * p * 9 * c)}
+        return (lambda: bs.basic_stage_int8(x, qs), lambda: bs.basic_stage_int8_plain(x, qs),
+                lib, work, 8 * p * c + nb * (2 * 9 * c * c + 4 * 6 * c))
+
+    def winograd_int8_case(rng, n, h, w, cin, cout, relu):
+        x = t(_rand(rng, n, h, w, cin))
+        u_q, s_u = (t(a) for a in q8.quantize_winograd_filter(
+            transforms.transform_filter(_rand(rng, cout, cin, 3, 3), m=2)))
+        s, b = bn(rng, cout)
+        nt = n * (-(-h // 2)) * (-(-w // 2))
+        v = t(_rand(rng, 16, nt, cin))
+        lib = int_mm(*[(qrows(v[p]), u_q[p]) for p in range(16)])
+        fwd, inv = _winograd_transform_flops(2)
+        work = {INT8_OPS: 2 * 16 * nt * cin * cout,
+                FP32_FLOPS: nt * (fwd * cin + inv * cout) + 2 * 16 * nt * (cin + cout)
+                + 4 * n * h * w * cout}
+        return (lambda: q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, relu),
+                lambda: q8.conv3x3_bn_winograd_int8_plain(x, u_q, s_u, s, b, relu),
+                lib, work, 4 * n * h * w * (cin + cout) + 16 * cin * cout + 4 * 18 * cout)
+
     def transition_int8_case(rng, n, h, w, cin, cmid, cout):
         _, params = transition_params(rng, cin, cmid, cout)
         qp = {k: v.to(dev) for k, v in q8.quantize_transition_params(params).items()}
@@ -521,29 +641,62 @@ def main() -> int:
         check(not extra, f"{tier}: kernels off the path launched: {sorted(extra)}")
         return forwards
 
-    engine = ResNet50Engine(params, device=dev)
-    single, logits8, lat, batch_s, launches, shapes = serve(engine)
-    forwards = check_launches(EXPECTED_PER_FORWARD, launches, shapes, "f32")
-    golden = resnet50_forward(
-        images[0], params_from_jax(init_resnet50_arrays(cfg, seed=0), "cpu", torch.float64),
-        device="cpu",
-    ).numpy()
-    got = single[0].double().cpu().numpy()
-    tol = ATOL * max(1.0, float(np.abs(golden).max()))
-    err = float(np.abs(got - golden).max())
-    check(got.shape == (cfg.num_classes,) and np.isfinite(got).all() and err <= tol,
-          f"N=1 logits vs float64 CPU golden: max abs err {err} > {tol}")
-    ref8 = torch.stack([single[i] for i in range(8)])
-    err8 = float((logits8.double() - ref8.double()).abs().max())
-    check(tuple(logits8.shape) == (8, cfg.num_classes) and bool(torch.isfinite(logits8).all())
-          and err8 <= tol, f"N=8 logits vs each image's N=1 logits: {err8}")
-    print(json.dumps({
-        "phase": "serving", "n1_latency_ms_median": 1e3 * statistics.median(lat),
-        "n1_latency_ms": [1e3 * v for v in lat],
-        "n8_images_per_s": 8 / statistics.median(batch_s),
-        "golden_max_abs_err": err, "golden_tol": tol, "golden_max_abs": float(np.abs(golden).max()),
-        "n8_vs_n1_max_abs_err": err8, "launches": launches, "forwards": forwards,
-    }), flush=True)
+    def serve_f32(phase, engine, expected, golden):
+        """The f32 tier's counted run and checks; returns (launches, shapes)."""
+        single, logits8, lat, batch_s, launches, shapes = serve(engine)
+        forwards = check_launches(expected, launches, shapes, phase)
+        got = single[0].double().cpu().numpy()
+        tol = ATOL * max(1.0, float(np.abs(golden).max()))
+        err = float(np.abs(got - golden).max())
+        check(got.shape == golden.shape and np.isfinite(got).all() and err <= tol,
+              f"{phase}: N=1 logits vs float64 CPU golden: max abs err {err} > {tol}")
+        ref8 = torch.stack([single[i] for i in range(8)])
+        err8 = float((logits8.double() - ref8.double()).abs().max())
+        check(tuple(logits8.shape) == (8,) + golden.shape and bool(torch.isfinite(logits8).all())
+              and err8 <= tol, f"{phase}: N=8 logits vs each image's N=1 logits: {err8}")
+        print(json.dumps({
+            "phase": phase, "n1_latency_ms_median": 1e3 * statistics.median(lat),
+            "n1_latency_ms": [1e3 * v for v in lat],
+            "n8_images_per_s": 8 / statistics.median(batch_s),
+            "golden_max_abs_err": err, "golden_tol": tol,
+            "golden_max_abs": float(np.abs(golden).max()),
+            "n8_vs_n1_max_abs_err": err8, "launches": launches, "forwards": forwards,
+        }), flush=True)
+        return launches, shapes
+
+    def serve_int8(phase, engine, expected, golden, ref_int8, cfg):
+        """The int8 tier's counted run and checks; returns (launches, shapes)."""
+        single8, logits88, lat8, batch8_s, launches8, shapes8 = serve(engine)
+        forwards = check_launches(expected, launches8, shapes8, phase)
+        check(set(shapes8.get("stem", {})) == {(1, cfg.img, cfg.img, 3, cfg.stem_c, "bf16")},
+              f"{phase} stem shapes {dict(shapes8.get('stem', {}))}, want bf16")
+        check(all(shape[-1] == "bf16" for shape in shapes8.get("winograd", {})),
+              f"{phase} Winograd shapes {dict(shapes8.get('winograd', {}))}, want bf16 filters")
+        got8 = single8[0].cpu()
+        gold_tol = INT8_RTOL_BACKBONE * max(1.0, float(np.abs(golden).max()))
+        gold_err = float(np.abs(got8.double().numpy() - golden).max())
+        cpu_tol = INT8_CHAINED_RTOL * max(1.0, ref_int8.abs().max().item())
+        cpu_err = (got8 - ref_int8).abs().max().item()
+        check(got8.shape == golden.shape and bool(torch.isfinite(got8).all())
+              and gold_err < gold_tol, f"{phase}: N=1 logits vs f32 golden: {gold_err} >= {gold_tol}")
+        check(cpu_err <= cpu_tol,
+              f"{phase}: N=1 logits vs the CPU plain int8 forward: {cpu_err} > {cpu_tol}")
+        ref88 = torch.stack([single8[i] for i in range(8)])
+        err88 = float((logits88 - ref88).abs().max())
+        tol88 = INT8_CHAINED_RTOL * max(1.0, ref88.abs().max().item())
+        check(tuple(logits88.shape) == (8,) + golden.shape and bool(torch.isfinite(logits88).all())
+              and err88 <= tol88, f"{phase}: N=8 logits vs each image's N=1 logits: {err88} > {tol88}")
+        print(json.dumps({
+            "phase": phase, "n1_latency_ms_median": 1e3 * statistics.median(lat8),
+            "n1_latency_ms": [1e3 * v for v in lat8],
+            "n8_images_per_s": 8 / statistics.median(batch8_s),
+            "golden_max_abs_err": gold_err, "golden_tol": gold_tol,
+            "cpu_int8_max_abs_err": cpu_err, "cpu_int8_tol": cpu_tol,
+            "n8_vs_n1_max_abs_err": err88, "n8_vs_n1_tol": tol88,
+            "same_class_as_f32": int(got8.argmax()) == int(np.argmax(golden)),
+            "launches": launches8, "forwards": forwards,
+        }), flush=True)
+        return launches8, shapes8
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -569,49 +722,49 @@ def main() -> int:
                 "device_ms_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
             }), flush=True)
 
+    served = []  # (launches, first forward's shapes) of each counted run
+    golden = resnet50_forward(
+        images[0], params_from_jax(init_resnet50_arrays(cfg, seed=0), "cpu", torch.float64),
+        device="cpu",
+    ).numpy()
+    engine = ResNet50Engine(params, device=dev)
+    served.append(serve_f32("serving", engine, EXPECTED_PER_FORWARD, golden))
     profile_phase(engine, "profile")
     del engine
 
     # -- the int8 tier ------------------------------------------------------
     engine8 = ResNet50Engine(params, tier="int8", device=dev)
-    single8, logits88, lat8, batch8_s, launches8, shapes8 = serve(engine8)
-    check_launches(EXPECTED_PER_FORWARD_INT8, launches8, shapes8, "int8")
-    check(set(shapes8.get("stem", {})) == {(1, cfg.img, cfg.img, 3, cfg.stem_c, "bf16")},
-          f"int8 stem shapes {dict(shapes8.get('stem', {}))}, want bf16")
     cpu_params = params_from_jax(init_resnet50_arrays(cfg, seed=0), "cpu", torch.float32)
     ref_int8 = resnet50_forward_int8(images[0], quantize_resnet50(cpu_params), device="cpu")
-    got8 = single8[0].cpu()
-    gold_tol = INT8_RTOL_BACKBONE * max(1.0, float(np.abs(golden).max()))
-    gold_err = float(np.abs(got8.double().numpy() - golden).max())
-    cpu_tol = INT8_CHAINED_RTOL * max(1.0, ref_int8.abs().max().item())
-    cpu_err = (got8 - ref_int8).abs().max().item()
-    check(got8.shape == (cfg.num_classes,) and bool(torch.isfinite(got8).all())
-          and gold_err < gold_tol, f"int8 N=1 logits vs f32 golden: {gold_err} >= {gold_tol}")
-    check(cpu_err <= cpu_tol, f"int8 N=1 logits vs the CPU plain int8 forward: {cpu_err} > {cpu_tol}")
-    ref88 = torch.stack([single8[i] for i in range(8)])
-    err88 = float((logits88 - ref88).abs().max())
-    tol88 = INT8_CHAINED_RTOL * max(1.0, ref88.abs().max().item())
-    check(tuple(logits88.shape) == (8, cfg.num_classes) and bool(torch.isfinite(logits88).all())
-          and err88 <= tol88, f"int8 N=8 logits vs each image's N=1 logits: {err88} > {tol88}")
-    print(json.dumps({
-        "phase": "serving_int8", "n1_latency_ms_median": 1e3 * statistics.median(lat8),
-        "n1_latency_ms": [1e3 * v for v in lat8],
-        "n8_images_per_s": 8 / statistics.median(batch8_s),
-        "golden_max_abs_err": gold_err, "golden_tol": gold_tol,
-        "cpu_int8_max_abs_err": cpu_err, "cpu_int8_tol": cpu_tol,
-        "n8_vs_n1_max_abs_err": err88, "n8_vs_n1_tol": tol88,
-        "same_class_as_f32": int(got8.argmax()) == int(np.argmax(golden)),
-        "launches": launches8, "forwards": forwards,
-    }), flush=True)
+    served.append(serve_int8("serving_int8", engine8, EXPECTED_PER_FORWARD_INT8, golden,
+                             ref_int8, cfg))
     profile_phase(engine8, "profile_int8")
-    del engine8
+    del engine8, params, cpu_params
+
+    # -- the basic family: ResNet-34 at both tiers -------------------------
+    cfg34 = ResNet34Config("resnet34")
+    case34 = init_basicnet_arrays(cfg34, seed=0)
+    golden34 = basicnet_forward(images[0], basicnet_params(case34, cfg34, "cpu", torch.float64),
+                                device="cpu").numpy()
+    engine = ResNetBasicEngine(basicnet_params(case34, cfg34, dev), device=dev)
+    served.append(serve_f32("serving_basic", engine, EXPECTED_PER_FORWARD_BASIC, golden34))
+    profile_phase(engine, "profile_basic")
+    del engine
+    cpu34 = basicnet_params(case34, cfg34, "cpu")
+    ref34_int8 = basicnet_forward_int8(images[0], quantize_basicnet(cpu34), device="cpu")
+    engine8 = ResNetBasicEngine(cpu34, tier="int8", device=dev)
+    served.append(serve_int8("serving_basic_int8", engine8, EXPECTED_PER_FORWARD_BASIC_INT8,
+                             golden34, ref34_int8, cfg34))
+    profile_phase(engine8, "profile_basic_int8")
+    del engine8, cpu34
 
     # -- kernels against their plain versions ------------------------------
     make_case = {"pointwise": pointwise_case, "winograd": winograd_case,
                  "direct": direct_case, "stem": stem_case, "stage": stage_case,
                  "transition": transition_case, "pointwise_int8": pointwise_int8_case,
                  "direct_int8": direct_int8_case, "stage_int8": stage_int8_case,
-                 "transition_int8": transition_int8_case}
+                 "transition_int8": transition_int8_case, "winograd_int8": winograd_int8_case,
+                 "basic_stage": basic_stage_case, "basic_stage_int8": basic_stage_int8_case}
     # Off the served N=1 lists: F(4,3) accuracy at the mode-0 shape; the
     # block at modes 6 and 9; the batched layouts' cases (rows 7, 9, 18 and
     # 20 of the TPU kernel table) at N=8; the conv5_x stage geometry, which
@@ -623,11 +776,15 @@ def main() -> int:
         "transition": [(8, 14, 14, 1024, 512, 2048)],
         "stage_int8": [(8, 14, 14, 1024, 256, 5, "direct"), (1, 14, 14, 1024, 256, 1, "direct")],
         "transition_int8": [(8, 14, 14, 1024, 512, 2048)],
+        "basic_stage": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
+        "basic_stage_int8": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
+        "winograd_int8": [(8, 14, 14, 256, 256, True)],
     }
-    all_launches = collections.Counter(launches) + collections.Counter(launches8)
+    all_launches = collections.Counter()
     per_image = collections.defaultdict(collections.Counter)
-    for shp in (shapes, shapes8):
-        for name, counter in shp.items():
+    for launches, shapes in served:
+        all_launches.update(launches)
+        for name, counter in shapes.items():
             per_image[name].update(counter)
     totals = {}
     rng = np.random.default_rng(0)

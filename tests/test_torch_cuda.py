@@ -2,25 +2,29 @@
 shapes the served path does not reach: ragged channel counts, maps that the
 Winograd tile does not divide, odd stem images, batches, stages and
 transitions whose phases split K, and the int8 tier's kernels at ragged
-rows, border-heavy 7x7 maps and N=8. Needs an NVIDIA GPU and nvcc; skipped
+rows, border-heavy 7x7 maps and N=8; the basic family's kernels (the f32
+and int8 basic stage, the int8 Winograd in both of its branches, the
+bf16-filter Winograd) at N=3, one block, channel counts off 128 and an
+all-zero image (every row's scale 1). Needs an NVIDIA GPU and nvcc; skipped
 elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (--noconftest: the repo's conftest imports jax, which the port's machine
 need not have). Bound: 1e-4 * max(1, max|ref|) in float32, TF32 off; the
-int8 stage and transition, whose chained quantizations may flip a rounding
-on f32-level differences, 1e-3 * max(1, max|ref|).
+int8 stage, transition, basic stage and Winograd, whose quantizations may
+flip a rounding on f32-level differences, 1e-3 * max(1, max|ref|).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from winograd_tpu_torch.kernels import transforms
+from winograd_tpu_torch.kernels import _build, transforms
 from winograd_tpu_torch.kernels.direct import (
     conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter,
 )
+from winograd_tpu_torch.kernels import basic_stage as bs
 from winograd_tpu_torch.kernels import quantized as q8
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain
 from winograd_tpu_torch.kernels.stage import (
@@ -42,6 +46,10 @@ pytestmark = pytest.mark.cuda
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    try:
+        _build._nvcc()
+    except RuntimeError:
+        pytest.skip("needs nvcc to build the kernels")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -295,3 +303,100 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
     p = _qtransition(rng, dev, 16, 8, 32)
     with pytest.raises(TypeError):
         q8.transition_block_int8(xs, dict(p, w_proj_q=p["w_proj_q"].float()))
+
+
+# --- the basic family ------------------------------------------------------
+
+
+def _basic_blocks(rng, nb, c):
+    blocks = []
+    for _ in range(nb):
+        b = {}
+        for leg in ("a", "b"):
+            w = ((rng.random((c, c, 3, 3)) - 0.5) * 0.2).astype(np.float32)
+            b[f"w9_{leg}"] = direct_filter(w)
+            b[f"s_{leg}"] = (rng.random(c) * 0.5 + 0.25).astype(np.float32)
+            b[f"b_{leg}"] = (rng.random(c) - 0.5).astype(np.float32)
+        blocks.append(b)
+    return blocks
+
+
+# (N, H=W, C, blocks): N=3, one block (ResNet-18's run), channels off 64 and
+# 128, conv5_x's 7x7x512 at two blocks (36 K splits), K splits with a ragged
+# last range; the first image all zero where N > 1 (every row's scale 1).
+BASIC_SHAPES = [(3, 7, 40, 1), (1, 7, 512, 2), (2, 5, 20, 3), (8, 7, 36, 2), (1, 9, 68, 1)]
+
+
+@pytest.mark.parametrize("n,hw,c,nb", BASIC_SHAPES)
+def test_basic_stage_edges_and_batches(dev, n, hw, c, nb):
+    rng = np.random.default_rng(n * hw + c + nb)
+    stacked = {k: v.to(dev) for k, v in bs.stack_basic_stage_params(_basic_blocks(rng, nb, c)).items()}
+    x = _r(rng, dev, n, hw, hw, c).abs()
+    if n > 1:
+        x[0] = 0.0
+    _agree(bs.basic_stage_fused(x, stacked), bs.basic_stage_fused_plain(x, stacked))
+
+
+@pytest.mark.parametrize("n,hw,c,nb", BASIC_SHAPES)
+def test_basic_stage_int8_edges_and_batches(dev, n, hw, c, nb):
+    rng = np.random.default_rng(n * hw + c + nb + 1)
+    q = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(_basic_blocks(rng, nb, c)).items()}
+    x = _r(rng, dev, n, hw, hw, c).abs()
+    if n > 1:
+        x[0] = 0.0
+    _agree(bs.basic_stage_int8(x, q), bs.basic_stage_int8_plain(x, q), rtol=1e-3)
+
+
+# (N, H, W, Cin, Cout): one output tile over one group of Cin off 128, over
+# two 128-channel groups, the quantized V stash at 14x14x256 and at N=8,
+# odd maps, a Cout below one 64-channel block.
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (3, 7, 7, 72, 96), (2, 9, 5, 256, 128), (1, 14, 14, 256, 256), (8, 14, 14, 256, 256),
+    (1, 28, 28, 128, 128), (3, 6, 5, 40, 20),
+])
+@pytest.mark.parametrize("relu", [True, False])
+def test_winograd_int8_branches_and_edges(dev, n, h, w, cin, cout, relu):
+    rng = np.random.default_rng(h * w + cin + cout + relu)
+    x = _r(rng, dev, n, h, w, cin).abs()
+    if n > 1:
+        x[0] = 0.0
+    wt = ((rng.random((cout, cin, 3, 3)) - 0.5) * 0.2).astype(np.float32)
+    u_q, s_u = (torch.as_tensor(a, device=dev)
+                for a in q8.quantize_winograd_filter(transforms.transform_filter(wt, m=2)))
+    s, b = _bn(rng, dev, cout)
+    _agree(q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, relu),
+           q8.conv3x3_bn_winograd_int8_plain(x, u_q, s_u, s, b, relu), rtol=1e-3)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 7, 9, 13, 70), (1, 56, 56, 64, 64), (2, 6, 6, 20, 33)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_winograd_bf16_filter_edges(dev, n, h, w, cin, cout, relu):
+    rng = np.random.default_rng(h * w + cin + cout + 2 * relu)
+    x = _r(rng, dev, n, h, w, cin)
+    wt = (rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)
+    u = torch.as_tensor(transforms.transform_filter(wt, m=2), device=dev).to(torch.bfloat16)
+    s, b = _bn(rng, dev, cout)
+    from winograd_tpu_torch.kernels.winograd import winograd2_mid_plain
+
+    _agree(conv3x3_bn_winograd(x, u, s, b, relu), winograd2_mid_plain(x, u, s, b, relu))
+
+
+def test_basic_wrappers_reject_what_the_kernels_do_not_take(dev):
+    rng = np.random.default_rng(4)
+    stacked = {k: v.to(dev) for k, v in bs.stack_basic_stage_params(_basic_blocks(rng, 2, 8)).items()}
+    x = _r(rng, dev, 1, 5, 5, 8)
+    with pytest.raises(TypeError):
+        bs.basic_stage_fused(x, dict(stacked, w9_a=stacked["w9_a"].double()))
+    q = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(_basic_blocks(rng, 1, 6)).items()}
+    with pytest.raises(ValueError):
+        bs.basic_stage_int8(_r(rng, dev, 1, 5, 5, 6), q)                 # C % 4
+    u_q = torch.zeros(16, 8, 192, dtype=torch.int8, device=dev)
+    s_u, sb = torch.ones(16, 192, device=dev), torch.ones(192, device=dev)
+    with pytest.raises(ValueError):
+        q8.conv3x3_bn_winograd_int8(x, u_q, s_u, sb, sb)                # Cout 192 > 128
+    with pytest.raises(TypeError):
+        q8.conv3x3_bn_winograd_int8(x, u_q[..., :64].float(), s_u[:, :64].contiguous(),
+                                    sb[:64], sb[:64])                   # filter not int8
+    u4 = torch.zeros(36, 8, 4, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError):
+        conv3x3_bn_winograd(x, u4, sb[:4], sb[:4])                      # bf16 at F(4,3)

@@ -1,8 +1,9 @@
 """Static configuration of the port's served model and its accuracy bar.
 
 A copy of the parts of winograd_tpu/config.py that the served paths need
-(ResNet50Config, PARITY_ATOL, INT8_RTOL_BACKBONE, BN_EPS), kept here so the
-port imports nothing from the JAX package.
+(ResNet50Config, BasicNetConfig, ResNet34Config, PARITY_ATOL,
+INT8_RTOL_BACKBONE, BN_EPS), kept here so the port imports nothing from the
+JAX package.
 """
 
 from __future__ import annotations
@@ -32,6 +33,41 @@ class ResNet50Config:
     stem_c: int = 64
     num_classes: int = 1000
     batch: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class BasicNetConfig:
+    """The complete ResNet-18 classifier, the basic-block family (two 3x3
+    convs per block; torchvision BasicBlock semantics). Stage tuples are
+    (channels, hw, blocks); stage 0's blocks are all identity (the stem
+    already outputs its width), later stages enter with a stride-2
+    downsample block (stride-2 3x3 + 3x3, stride-2 1x1 projection skip)
+    counted in `blocks`."""
+
+    name: str
+    stages = (
+        (64, 56, 2),
+        (128, 28, 2),
+        (256, 14, 2),
+        (512, 7, 2),
+    )
+    img: int = 224
+    stem_c: int = 64
+    num_classes: int = 1000
+    batch: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ResNet34Config(BasicNetConfig):
+    """The complete ResNet-34 classifier: the deeper basic-block depths
+    (3/4/6/3), same stage geometries and kernels as ResNet-18."""
+
+    stages = (
+        (64, 56, 3),
+        (128, 28, 4),
+        (256, 14, 6),
+        (512, 7, 3),
+    )
 
 
 # f32 correctness bar: max abs error <= 1e-4 against the float64 golden.

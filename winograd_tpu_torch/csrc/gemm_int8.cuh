@@ -185,6 +185,25 @@ struct Int8BnEpilogue {
   }
 };
 
+// out[p, n] = relu(deq * scale[n] + bias[n] + res[p, n]), deq the
+// dequantized product, each multiply and add rounded on its own; res may be
+// out (each element is read only by the thread that overwrites it).
+struct ResidualInt8Epilogue {
+  const float* __restrict__ sw;
+  const float* __restrict__ scale;
+  const float* __restrict__ bias;
+  const float* res;
+  float* out;
+  int N;
+  __device__ __forceinline__ void store(int p, int n, float deq) const {
+    const size_t i = static_cast<size_t>(p) * N + n;
+    out[i] = fmaxf(__fadd_rn(bn_rn(deq, scale[n], bias[n]), __ldcg(res + i)), 0.f);
+  }
+  __device__ __forceinline__ void operator()(int p, int n, int acc, float sx) const {
+    store(p, n, dequant(acc, sx, sw[n]));
+  }
+};
+
 // One whole tile: its row scales over all of K (in the block), the
 // product, and `epi(p, n, acc, s_x)` for every output in range. smem:
 // kInt8SmemBytes, 16-byte aligned.

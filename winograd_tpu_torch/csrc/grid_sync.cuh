@@ -94,6 +94,20 @@ struct CgLoad {
   __device__ __forceinline__ float operator()(const float* p) const { return __ldcg(p); }
 };
 
+// out[p, n] = relu(acc * scale[n] + bias[n] + res[p, n]); res may be out
+// (each element is read only by the thread that overwrites it).
+struct ResidualEpilogue {
+  const float* __restrict__ scale;
+  const float* __restrict__ bias;
+  const float* res;
+  float* out;
+  int N;
+  __device__ __forceinline__ void operator()(int p, int n, float acc) const {
+    const size_t i = static_cast<size_t>(p) * N + n;
+    out[i] = fmaxf(acc * scale[n] + bias[n] + __ldcg(res + i), 0.f);
+  }
+};
+
 // Partial sums of one K split into part[p, n].
 struct PartialEpilogue {
   float* part;
@@ -151,12 +165,13 @@ __device__ __forceinline__ void gemm_phase(const GemmPhase& g, const ALoad& a,
 
 }  // namespace wt
 
-// Host side: `want` K splits of at least 128 of K each (at most 16), each
-// but the last a multiple of `step`, the tile's k per stage; one split
-// when fewer than two are wanted or possible.
-inline wt::GemmPhase split_k(int P, int K, int N, int want, int step = wt::kBK) {
+// Host side: `want` K splits of at least 128 of K each (at most `cap`),
+// each but the last a multiple of `step`, the tile's k per stage; one
+// split when fewer than two are wanted or possible.
+inline wt::GemmPhase split_k(int P, int K, int N, int want, int step = wt::kBK,
+                             int cap = 16) {
   int splits = want < K / 128 ? want : K / 128;
-  splits = splits < 16 ? splits : 16;
+  splits = splits < cap ? splits : cap;
   if (splits < 2) return wt::GemmPhase{P, K, N, 1, K};
   int chunk = (K + splits - 1) / splits;
   chunk = (chunk + step - 1) / step * step;
@@ -165,9 +180,10 @@ inline wt::GemmPhase split_k(int P, int K, int N, int want, int step = wt::kBK) 
 
 // The K split of a phase: one with fewer output tiles than the grid has
 // blocks splits K so that about one item lands on each block.
-inline wt::GemmPhase plan_phase(int P, int K, int N, int grid, int step = wt::kBK) {
+inline wt::GemmPhase plan_phase(int P, int K, int N, int grid, int step = wt::kBK,
+                                int cap = 16) {
   const int tiles = ((P + wt::kBM - 1) / wt::kBM) * ((N + wt::kBN - 1) / wt::kBN);
-  return split_k(P, K, N, grid / tiles, step);
+  return split_k(P, K, N, grid / tiles, step, cap);
 }
 
 // Workspace parts start at multiples of this many floats (256 bytes).

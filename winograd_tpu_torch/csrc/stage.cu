@@ -67,19 +67,6 @@ struct StageArgs {
   wt::GemmPhase reduce, mid, expand;
 };
 
-// out[p, n] = relu(acc * scale[n] + bias[n] + res[p, n]); res may be out.
-struct ResidualEpilogue {
-  const float* __restrict__ scale;
-  const float* __restrict__ bias;
-  const float* res;
-  float* out;
-  int N;
-  __device__ __forceinline__ void operator()(int p, int n, float acc) const {
-    const size_t i = static_cast<size_t>(p) * N + n;
-    out[i] = fmaxf(acc * scale[n] + bias[n] + __ldcg(res + i), 0.f);
-  }
-};
-
 __global__ void __launch_bounds__(wt::kGemmThreads) stage_kernel(StageArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int cio = a.Cio, cmid = a.Cmid;
@@ -116,7 +103,7 @@ __global__ void __launch_bounds__(wt::kGemmThreads) stage_kernel(StageArgs a) {
 
     wt::gemm_phase(a.expand, wt::RowsCg{a.h2, cmid},
                    a.we + static_cast<size_t>(blk) * cmid * cio,
-                   ResidualEpilogue{a.s3 + static_cast<size_t>(blk) * cio,
+                   wt::ResidualEpilogue{a.s3 + static_cast<size_t>(blk) * cio,
                                     a.b3 + static_cast<size_t>(blk) * cio, act,
                                     a.out, cio},
                    a.part, a.bar, smem);

@@ -91,29 +91,11 @@ struct StageInt8Args {
   wt::GemmPhase reduce, mid, expand;
 };
 
-// out[p, n] = relu(deq * s3[n] + b3[n] + res[p, n]), deq the dequantized
-// product; res may be out.
-struct ResidualInt8Epilogue {
-  const float* __restrict__ sw;
-  const float* __restrict__ scale;
-  const float* __restrict__ bias;
-  const float* res;
-  float* out;
-  int N;
-  __device__ __forceinline__ void store(int p, int n, float deq) const {
-    const size_t i = static_cast<size_t>(p) * N + n;
-    out[i] = fmaxf(__fadd_rn(wt::bn_rn(deq, scale[n], bias[n]), __ldcg(res + i)), 0.f);
-  }
-  __device__ __forceinline__ void operator()(int p, int n, int acc, float sx) const {
-    store(p, n, wt::dequant(acc, sx, sw[n]));
-  }
-};
-
 // The expand GEMM with h2 quantized per group of K / groups channels: each
 // tile adds the groups' dequantized products in f32, in group order (no K
 // split: this route runs only where Cmid is a multiple of 128 above 128).
 __device__ void grouped_expand(const StageInt8Args& a, const int8_t* we,
-                               const ResidualInt8Epilogue& epi, int* smem) {
+                               const wt::ResidualInt8Epilogue& epi, int* smem) {
   float* sxs = reinterpret_cast<float*>(smem + 2 * wt::kW8 * wt::kBM);
   const int P = a.N * a.H * a.W;
   const int cg = a.Cmid / a.groups;
@@ -190,7 +172,7 @@ __global__ void __launch_bounds__(wt::kGemmThreads) stage_int8_kernel(StageInt8A
     wt::row_scales_phase(wt::RowsCg{a.h2, cmid}, P, cmid / a.groups, a.groups, a.sx);
     wt::grid_sync(a.bar);
     const int8_t* we = a.we + bm * cio;
-    const ResidualInt8Epilogue epi{a.swe + bo, a.s3 + bo, a.b3 + bo, act, a.out, cio};
+    const wt::ResidualInt8Epilogue epi{a.swe + bo, a.s3 + bo, a.b3 + bo, act, a.out, cio};
     if (a.groups == 1)
       wt::int8_gemm_phase(a.expand, wt::RowsCg{a.h2, cmid}, we, a.sx, epi, a.part, a.bar,
                           ismem);

@@ -31,6 +31,13 @@
 // which holds 1e-4 for F(4,3) too. The inner loop issues one shared-memory
 // load per CPT FMAs, so it runs well below the FFMA peak; a wgmma/3xTF32
 // product per position is later work.
+//
+// winograd_conv3x3_bn_bf16 is the same tile body at F(2,3) on a bf16
+// filter in FP64 (the int8 tier's stride-1 3x3 at 64 channels, the JAX
+// package's conv3x3_bn_winograd_pallas(precision="bf16w") at 56x56x64 on
+// the basic family's int8 route).
+
+#include <cuda_bf16.h>
 
 #include "common.cuh"
 #include "winograd.cuh"
@@ -39,29 +46,31 @@ namespace {
 
 constexpr int kTT = 8;  // tiles per block (threadIdx.y)
 
-template <int M>
+// TU: the filter's element type; TA and CPT: winograd.cuh's arithmetic type
+// and output channels per thread.
+template <int M, class TU, class TA, int CPT>
 __global__ void __launch_bounds__(kTT * wt::kWinoTX) winograd_kernel(
-    const float* __restrict__ x, const float* __restrict__ u,
+    const float* __restrict__ x, const TU* __restrict__ u,
     const float* __restrict__ scale, const float* __restrict__ bias,
     float* __restrict__ out, int N, int H, int W, int Cin, int Cout,
     int relu) {
-  __shared__ __align__(16) float smem[wt::wino_smem_floats<M, kTT>()];
-  wt::wino_tile<M, kTT>(wt::PlainLoad{}, x, u, scale, bias, out, N, H, W,
-                        Cin, Cout, relu, blockIdx.x * kTT,
-                        blockIdx.y * wt::wino_cob<M>(),
-                        threadIdx.y * wt::kWinoTX + threadIdx.x, smem);
+  __shared__ __align__(16) unsigned char smem[wt::wino_smem_bytes<M, kTT, TA, CPT>()];
+  wt::wino_tile<M, kTT, wt::PlainLoad, TU, TA, CPT>(
+      wt::PlainLoad{}, x, u, scale, bias, out, N, H, W, Cin, Cout, relu, blockIdx.x * kTT,
+      blockIdx.y * wt::kWinoTX * CPT, threadIdx.y * wt::kWinoTX + threadIdx.x,
+      reinterpret_cast<float*>(smem));
 }
 
-template <int M>
-int launch(const float* x, const float* u, const float* scale,
+template <int M, class TU, class TA = float, int CPT = wt::Wino<M>::CPT>
+int launch(const float* x, const TU* u, const float* scale,
            const float* bias, float* out, int N, int H, int W, int Cin,
            int Cout, int relu, cudaStream_t stream) {
-  constexpr int COB = wt::wino_cob<M>();
+  constexpr int COB = wt::kWinoTX * CPT;
   const int nt = N * ((H + M - 1) / M) * ((W + M - 1) / M);
   const dim3 grid((nt + kTT - 1) / kTT, (Cout + COB - 1) / COB);
   const dim3 block(wt::kWinoTX, kTT);
-  winograd_kernel<M><<<grid, block, 0, stream>>>(x, u, scale, bias, out, N,
-                                                 H, W, Cin, Cout, relu);
+  winograd_kernel<M, TU, TA, CPT><<<grid, block, 0, stream>>>(x, u, scale, bias, out, N,
+                                                              H, W, Cin, Cout, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -77,4 +86,19 @@ extern "C" int winograd_conv3x3_bn(const float* x, const float* u,
   if (m == 2) return launch<2>(x, u, scale, bias, out, N, H, W, Cin, Cout, relu, s);
   if (m == 4) return launch<4>(x, u, scale, bias, out, N, H, W, Cin, Cout, relu, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// F(2,3) on a bf16 filter (the int8 tier's bf16-weight 3x3): the filter is
+// widened to float as it is staged, and the transforms, products and sums
+// run in FP64, each output rounded to float once before a BN whose multiply
+// and add round separately (winograd.cuh), so the result matches a float64
+// plain version to the bit. It feeds the next layer's int8 quantizations.
+extern "C" int winograd_conv3x3_bn_bf16(const float* x, const __nv_bfloat16* u,
+                                        const float* scale, const float* bias, float* out,
+                                        int N, int H, int W, int Cin, int Cout, int relu,
+                                        void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch<2, __nv_bfloat16, double, 2>(x, u, scale, bias, out, N, H, W, Cin, Cout, relu,
+                                             static_cast<cudaStream_t>(stream));
 }

@@ -1,7 +1,9 @@
-"""Serving layer: the ResNet-50 classifier with its weights resident on a device.
+"""Serving layer: the ResNet classifiers with their weights resident on a device.
 
-Port of winograd_tpu/engine.py::ResNet50Engine at the f32 and int8 tiers
-on one device. The bf16w tier and the mesh partitions are not ported yet.
+Port of winograd_tpu/engine.py::ResNet50Engine and ::ResNetBasicEngine
+(ResNet-18/34) at the f32 and int8 tiers on one device. The bf16w tier and
+the mesh partitions are not ported yet, nor the engines' from_torch and
+from_checkpoint constructors.
 """
 
 from __future__ import annotations
@@ -11,6 +13,11 @@ from typing import Dict
 import torch
 
 from winograd_tpu_torch.kernels import _build
+from winograd_tpu_torch.models.basic import (
+    basicnet_forward,
+    basicnet_forward_int8,
+    quantize_basicnet,
+)
 from winograd_tpu_torch.models.convert import params_to
 from winograd_tpu_torch.models.resnet50 import (
     quantize_resnet50,
@@ -19,16 +26,12 @@ from winograd_tpu_torch.models.resnet50 import (
 )
 
 
-class ResNet50Engine:
-    """Serves the complete ResNet-50 classifier (224x224x3 image in, 1000
-    logits out) through the port's kernels.
+class _ClassifierEngine:
+    """A classifier's weights resident on one device, served at the f32 or
+    the int8 tier. A subclass names its model's f32 forward, int8 forward
+    and quantizer."""
 
-    params: the port's f32 parameter dicts (models/resnet50.py::
-    init_resnet50_params, or models/convert.py::params_from_jax); they are
-    copied to `device` once. tier "f32" serves them as they are; "int8"
-    quantizes them once here (models/resnet50.py::quantize_resnet50) and
-    serves resnet50_forward_int8. device defaults to "cuda" and must exist;
-    the CPU runs the kernels' plain versions and only when asked for."""
+    _f32_forward = _int8_forward = _quantize = None
 
     def __init__(self, params: Dict, tier: str = "f32", device="cuda",
                  mesh=None, partition: str = "data"):
@@ -45,9 +48,9 @@ class ResNet50Engine:
         self.tier = tier
         self.device = _build.require_device(device)
         if tier == "int8":
-            params = quantize_resnet50(params)
+            params = type(self)._quantize(params)
         self._params = params_to(params, self.device, torch.float32)
-        self._forward = resnet50_forward_int8 if tier == "int8" else resnet50_forward
+        self._forward = type(self)._int8_forward if tier == "int8" else type(self)._f32_forward
 
     def __call__(self, x) -> torch.Tensor:
         """x: (224, 224, 3) or (N, 224, 224, 3) image(s), array or tensor;
@@ -59,3 +62,35 @@ class ResNet50Engine:
     def classify(self, x) -> torch.Tensor:
         """Argmax class id(s) for image(s) x."""
         return torch.argmax(self(x), dim=-1)
+
+
+class ResNet50Engine(_ClassifierEngine):
+    """Serves the complete ResNet-50 classifier (224x224x3 image in, 1000
+    logits out) through the port's kernels.
+
+    params: the port's f32 parameter dicts (models/resnet50.py::
+    init_resnet50_params, or models/convert.py::params_from_jax); they are
+    copied to `device` once. tier "f32" serves them as they are; "int8"
+    quantizes them once here (models/resnet50.py::quantize_resnet50) and
+    serves resnet50_forward_int8. device defaults to "cuda" and must exist;
+    the CPU runs the kernels' plain versions and only when asked for."""
+
+    _f32_forward = staticmethod(resnet50_forward)
+    _int8_forward = staticmethod(resnet50_forward_int8)
+    _quantize = staticmethod(quantize_resnet50)
+
+
+class ResNetBasicEngine(_ClassifierEngine):
+    """Serves the basic-block family (ResNet-18/34: 224x224x3 image in, 1000
+    logits out) through the port's kernels.
+
+    params: the port's f32 parameters (models/basic.py::basicnet_params,
+    or models/convert.py::basicnet_params_from_jax); they are copied to
+    `device` once. tier "f32" serves them as they are (basicnet_forward);
+    "int8" quantizes them once here (models/basic.py::quantize_basicnet) and
+    serves basicnet_forward_int8. device defaults to "cuda" and must exist;
+    the CPU runs the kernels' plain versions and only when asked for."""
+
+    _f32_forward = staticmethod(basicnet_forward)
+    _int8_forward = staticmethod(basicnet_forward_int8)
+    _quantize = staticmethod(quantize_basicnet)

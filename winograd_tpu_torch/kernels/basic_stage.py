@@ -1,0 +1,163 @@
+"""A run of identity basic blocks (ResNet-18/34) over all images in one launch,
+at f32 and at the int8 tier.
+
+Port of winograd_tpu/kernels/basic_stage.py: basic_stage_fused_pallas
+(_basic_stage_kernel) and basic_stage_int8_pallas (_basic_stage_int8_kernel).
+Each block is two stride-1 SAME 3x3 convs as im2col GEMMs,
+h1 = relu(conv_a(x) * s_a + b_a), out = relu(conv_b(h1) * s_b + b_b + x).
+The CUDA kernels are csrc/basic_stage.cu and csrc/basic_stage_int8.cu,
+persistent kernels whose conv phases run over all N*H*W rows one grid
+barrier apart; the plain twins run the same chain block by block with the
+plain versions of the per-layer direct kernels. Parameters arrive stacked
+per block: w9_a/w9_b (B, 9C, C), BN rows s_a/b_a/s_b/b_b (B, 1, C)
+(stack_basic_stage_params); at int8 w9_a_q/w9_b_q (B, 9C, C) int8 with
+weight scales w9_a_s/w9_b_s (B, 1, C) (quantize_basic_stage_params).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from winograd_tpu_torch.kernels import _build
+from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct_plain
+from winograd_tpu_torch.kernels.quantized import (
+    _numpy, _workspace_words, conv3x3_bn_int8_plain, quantize_weights,
+)
+
+STACK_KEYS = ("w9_a", "s_a", "b_a", "w9_b", "s_b", "b_b")
+QSTACK_KEYS = ("w9_a_q", "w9_a_s", "s_a", "b_a", "w9_b_q", "w9_b_s", "s_b", "b_b")
+
+
+def stack_basic_stage_params(blocks: List[Dict]) -> Dict[str, torch.Tensor]:
+    """Stack per-block identity basic-block params on a leading block axis
+    (BN rows as (B, 1, C)), in the blocks' dtype. A copy of the JAX
+    package's stack_basic_stage_params, on tensors."""
+    out = {}
+    for key in STACK_KEYS:
+        ts = [torch.as_tensor(p[key]) for p in blocks]
+        if ts[0].dim() == 1:
+            ts = [t.reshape(1, -1) for t in ts]
+        out[key] = torch.stack(ts).contiguous()
+    return out
+
+
+def quantize_basic_stage_params(blocks: List[Dict]) -> Dict[str, torch.Tensor]:
+    """Offline int8 quantization of a run of identity basic blocks:
+    per-output-channel weight scales (quantize_weights), stacked per block;
+    BN rows stay float32, as (B, 1, C). A copy of the JAX package's
+    quantize_basic_stage_params."""
+    out = {}
+    for leg in ("a", "b"):
+        qs = [quantize_weights(_numpy(p[f"w9_{leg}"])) for p in blocks]
+        out[f"w9_{leg}_q"] = torch.from_numpy(np.stack([w for w, _ in qs]))
+        out[f"w9_{leg}_s"] = torch.from_numpy(np.stack([s.reshape(1, -1) for _, s in qs]))
+        for key in (f"s_{leg}", f"b_{leg}"):
+            rows = [np.asarray(_numpy(p[key]), np.float32).reshape(1, -1) for p in blocks]
+            out[key] = torch.from_numpy(np.stack(rows))
+    return out
+
+
+def basic_stage_fused_plain(x, stacked: Dict) -> torch.Tensor:
+    """The f32 run block by block in plain PyTorch. x: (N, H, W, C)."""
+    s = stacked
+    for b in range(s["w9_a"].shape[0]):
+        h = conv3x3_bn_direct_plain(x, s["w9_a"][b], s["s_a"][b, 0], s["b_a"][b, 0], True)
+        h = conv3x3_bn_direct_plain(h, s["w9_b"][b], s["s_b"][b, 0], s["b_b"][b, 0], False)
+        x = torch.relu(h + x)
+    return x
+
+
+def basic_stage_int8_plain(x, qstacked: Dict) -> torch.Tensor:
+    """The int8 run block by block in plain PyTorch: each conv an int8 3x3
+    with per-im2col-row scales. x: (N, H, W, C)."""
+    q = qstacked
+    for b in range(q["w9_a_q"].shape[0]):
+        h = conv3x3_bn_int8_plain(x, q["w9_a_q"][b], q["w9_a_s"][b, 0], q["s_a"][b, 0],
+                                  q["b_a"][b, 0], True)
+        h = conv3x3_bn_int8_plain(h, q["w9_b_q"][b], q["w9_b_s"][b, 0], q["s_b"][b, 0],
+                                  q["b_b"][b, 0], False)
+        x = torch.relu(h + x)
+    return x
+
+
+def _check_stack(stacked: Dict, keys, nb: int, c: int) -> None:
+    for key in keys:
+        want = (nb, 9 * c, c) if key.startswith("w9_") and not key.endswith("_s") else (nb, 1, c)
+        if tuple(stacked[key].shape) != want:
+            raise ValueError(f"{key} {tuple(stacked[key].shape)}, want {want}")
+
+
+@functools.lru_cache(maxsize=None)
+def _workspace_floats(device_index: int, n, h, w, c) -> int:
+    lib = _build.library("basic_stage")
+    floats = ctypes.c_longlong(0)
+    with torch.cuda.device(device_index):
+        err = lib.basic_stage_workspace(*map(_build.cint, (n, h, w, c)), ctypes.byref(floats))
+    _build.check_error(lib, "basic_stage_workspace", err)
+    return floats.value
+
+
+def _images(x):
+    return (x[None], True) if x.dim() == 3 else (x, False)
+
+
+def basic_stage_fused(x, stacked: Dict) -> torch.Tensor:
+    """B identity basic blocks in one launch.
+
+    x: (H, W, C) or (N, H, W, C) float32; stacked from
+    stack_basic_stage_params. CPU tensors run the plain version; CUDA
+    tensors launch csrc/basic_stage.cu."""
+    x, squeeze = _images(x)
+    n, h, w, c = x.shape
+    nb = stacked["w9_a"].shape[0]
+    _check_stack(stacked, STACK_KEYS, nb, c)
+    if x.device.type == "cpu":
+        out = basic_stage_fused_plain(x, stacked)
+    else:
+        ops = [x] + [stacked[k] for k in STACK_KEYS]
+        _build.check_tensors(*ops)
+        floats = _workspace_floats(x.device.index, n, h, w, c)
+        ws = torch.empty(floats, device=x.device, dtype=torch.float32)
+        out = torch.empty_like(x)
+        _build.launch(
+            "basic_stage", "basic_stage", (n, h, w, c, nb), x.device,
+            *map(_build.ptr, ops), _build.ptr(out), _build.ptr(ws), ctypes.c_longlong(floats),
+            *map(_build.cint, (n, h, w, c, nb)),
+        )
+    return out[0] if squeeze else out
+
+
+def basic_stage_int8(x, qstacked: Dict) -> torch.Tensor:
+    """B int8 identity basic blocks in one launch.
+
+    x: (H, W, C) or (N, H, W, C) float32; qstacked from
+    quantize_basic_stage_params. CPU tensors run the plain version; CUDA
+    tensors launch csrc/basic_stage_int8.cu."""
+    x, squeeze = _images(x)
+    n, h, w, c = x.shape
+    q = qstacked
+    nb = q["w9_a_q"].shape[0]
+    _check_stack(q, QSTACK_KEYS, nb, c)
+    if x.device.type == "cpu":
+        out = basic_stage_int8_plain(x, q)
+    else:
+        if c % 4:
+            raise ValueError(f"the int8 kernels pack four k to a word; C = {c} is not a multiple of 4")
+        f32 = [x] + [q[k] for k in QSTACK_KEYS if not k.endswith("_q")]
+        _build.check_tensors(*f32)
+        _build.check_tensors(q["w9_a_q"], q["w9_b_q"], dtype=torch.int8, device=x.device)
+        words = _workspace_words("basic_stage_int8", "basic_stage_int8", x.device.index, n, h, w, c)
+        ws = torch.empty(words, device=x.device, dtype=torch.float32)
+        out = torch.empty_like(x)
+        _build.launch(
+            "basic_stage_int8", "basic_stage_int8", (n, h, w, c, nb), x.device,
+            *(_build.ptr(t) for t in (x, *(q[k] for k in QSTACK_KEYS))),
+            _build.ptr(out), _build.ptr(ws), ctypes.c_longlong(words),
+            *map(_build.cint, (n, h, w, c, nb)),
+        )
+    return out[0] if squeeze else out

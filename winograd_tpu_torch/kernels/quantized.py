@@ -19,7 +19,10 @@ Kernels (CUDA C++ for sm_90a, csrc/*_int8.cu on csrc/gemm_int8.cuh):
   resident twin, and _block_int8_kernel at one block); the mid-layer is the
   int8 direct 3x3 or, on maps of 28x28 and up, F(2,3) on bf16 filters;
 * transition_block_int8 -> csrc/transition_int8.cu (_transition_int8_kernel
-  and its resident twin).
+  and its resident twin);
+* conv3x3_bn_winograd_int8 -> csrc/winograd_int8.cu (_winograd_int8_kernel):
+  F(2,3) with V quantized per row (a 4x4 tile at one of its 16 positions)
+  and per-position filter scales (quantize_winograd_filter).
 
 The plain twins compute the integer product as a float64 matmul of the int8
 values (exact: every |sum| < 2^53) and cast it as int32 -> float32 would;
@@ -42,12 +45,13 @@ from typing import Dict, List
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.direct import im2col3x3
 from winograd_tpu_torch.kernels.stage import WINOGRAD_MIN_PIXELS
 from winograd_tpu_torch.kernels.transition import strided_im2col
-from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd_plain
+from winograd_tpu_torch.kernels.winograd import winograd2_mid_plain, winograd_matrices
 
 BN_KEYS = ("s_reduce", "b_reduce", "s_mid", "b_mid", "s_expand", "b_expand")
 PROJ_BN_KEYS = ("s_proj", "b_proj")
@@ -113,6 +117,17 @@ def quantize_transition_params(params: Dict) -> Dict[str, torch.Tensor]:
                      BN_KEYS + PROJ_BN_KEYS)
 
 
+def quantize_winograd_filter(u):
+    """Per-position per-output-channel symmetric int8 quantization of the
+    F(2,3) filter u (a2, Cin, Cout): (u_q int8 (a2, Cin, Cout), s_u float32
+    (a2, Cout)), numpy. A copy of the JAX package's."""
+    u = np.asarray(u, np.float32)
+    s_u = np.abs(u).max(axis=1) / 127.0
+    s_u = np.where(s_u == 0, 1.0, s_u).astype(np.float32)
+    u_q = np.clip(np.rint(u / s_u[:, None, :]), -127, 127).astype(np.int8)
+    return u_q, s_u
+
+
 # --- the int8 product --------------------------------------------------------
 
 
@@ -151,14 +166,52 @@ def conv3x3_bn_int8_plain(x, w9_q, s_w9, scale, bias, relu: bool = True) -> torc
     return _bn_relu(qdot_plain(im2col3x3(x), w9_q, s_w9), scale, bias, relu)
 
 
-def winograd2_mid_plain(h, u2_bf16, scale, bias) -> torch.Tensor:
-    """The int8 stage's F(2,3) mid on the bf16 filter: the Winograd algebra
-    in float64 (order-free to the last bit of h's dtype), rounded once, then
-    BN and ReLU. h: (N, H, W, C)."""
-    ones = torch.ones(u2_bf16.shape[-1], dtype=torch.float64, device=h.device)
-    y = conv3x3_bn_winograd_plain(h.double(), u2_bf16.double(), ones, torch.zeros_like(ones),
-                                  relu=False).to(h.dtype)
-    return torch.relu(y * scale + bias)
+# Output channels per tile of the JAX int8 Winograd kernel (tile_co): a map
+# with more output channels than this is tiled and stashes V quantized over
+# all of Cin; one tile quantizes V per group of WINO_INT8_GROUP channels.
+WINO_INT8_TILE_CO = 128
+WINO_INT8_GROUP = 128
+
+
+def wino_int8_stash(cout: int) -> bool:
+    """True when the JAX kernel takes its quantized-V-stash branch (more
+    than one output-channel tile); Cout must then be a multiple of 128."""
+    if cout > WINO_INT8_TILE_CO and cout % WINO_INT8_TILE_CO:
+        raise ValueError(f"the int8 Winograd tiles Cout = {cout} > 128 by 128")
+    return cout > WINO_INT8_TILE_CO
+
+
+def conv3x3_bn_winograd_int8_plain(x, u_q, s_u, scale, bias, relu: bool = True) -> torch.Tensor:
+    """The int8 F(2,3) in plain PyTorch. V = Bt d Bt^T and At M At^T in
+    float64, each rounded to x's dtype once; V quantized per (tile,
+    position) row, per WINO_INT8_GROUP channels with the groups' dequantized
+    products added in order, or over all of Cin with one int32 sum
+    (wino_int8_stash: scale max|V| / 127, 1 / 127 for a zero row); the
+    product dequantized by (s_v * s_u). x: (N, H, W, Cin)."""
+    n, h, w, cin = x.shape
+    cout = u_q.shape[2]
+    th, tw = -(-h // 2), -(-w // 2)
+    bt, at = winograd_matrices(2, torch.float64, x.device)
+    xp = F.pad(x.double(), (0, 0, 1, 2 * tw + 1 - w, 1, 2 * th + 1 - h))
+    d = xp.unfold(1, 4, 2).unfold(2, 4, 2)                 # (n, th, tw, cin, 4, 4)
+    v = torch.einsum("ik,nyxckl,jl->nyxijc", bt, d, bt).reshape(-1, 16, cin).to(x.dtype)
+    uq, su = u_q.double(), s_u.to(x.dtype)
+    if wino_int8_stash(cout):
+        m = v.abs().amax(dim=-1, keepdim=True)
+        s = torch.where(m == 0, torch.ones_like(m), m) / torch.full_like(m, 127.0)
+        q = torch.clamp(torch.round(v / s), -127, 127)
+        mm = torch.einsum("tpc,pco->tpo", q.double(), uq).to(x.dtype) * (s * su)
+    else:
+        cg = WINO_INT8_GROUP if cin % WINO_INT8_GROUP == 0 else cin
+        mm = None
+        for g in range(0, cin, cg):
+            q, s = quantize_rows(v[..., g:g + cg])
+            part = torch.einsum("tpc,pco->tpo", q.double(), uq[:, g:g + cg]).to(x.dtype) * (s * su)
+            mm = part if mm is None else mm + part
+    y = torch.einsum("pi,tijo,qj->tpqo", at, mm.double().reshape(-1, 4, 4, cout), at)
+    y = y.to(x.dtype).reshape(n, th, tw, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
+    y = y.reshape(n, 2 * th, 2 * tw, cout)[:, :h, :w]
+    return _bn_relu(y, scale, bias, relu)
 
 
 def resolve_mid_algo(mid_algo: str, qstacked: Dict, h: int, w: int) -> str:
@@ -299,6 +352,37 @@ def conv3x3_bn_int8(x, w9_q, s_w9, scale, bias, relu: bool = True) -> torch.Tens
             "direct_int8", "direct_int8_conv3x3_bn", (n, h, w, cin, cout, bool(relu)),
             x.device, ptr(x), ptr(w9_q), ptr(s_w9), ptr(scale), ptr(bias), ptr(out),
             c(n), c(h), c(w), c(cin), c(cout), c(relu),
+        )
+    return out[0] if squeeze else out
+
+
+def conv3x3_bn_winograd_int8(x, u_q, s_u, scale, bias, relu: bool = True) -> torch.Tensor:
+    """Int8 3x3 conv (pad 1, stride 1) + BN (+ReLU) by Winograd F(2,3).
+
+    x: (H, W, Cin) or (N, H, W, Cin) float32; u_q (16, Cin, Cout) int8 and
+    s_u (16, Cout) from quantize_winograd_filter(transform_filter(w, m=2));
+    scale, bias: (Cout,). Cout above 128 must be a multiple of 128. CPU
+    tensors run the plain version; CUDA tensors launch csrc/winograd_int8.cu."""
+    squeeze = x.dim() == 3
+    if squeeze:
+        x = x[None]
+    n, h, w, cin = x.shape
+    if u_q.shape[0] != 16 or u_q.shape[1] != cin:
+        raise ValueError(f"u_q {tuple(u_q.shape)} is not an F(2,3) filter for {cin} channels")
+    cout = u_q.shape[2]
+    stash = wino_int8_stash(cout)
+    if x.device.type == "cpu":
+        out = conv3x3_bn_winograd_int8_plain(x, u_q, s_u, scale, bias, relu)
+    else:
+        _build.check_operands(scale, bias, cout, x, s_u)
+        _check_shapes([("s_u", s_u, (16, cout))])
+        _build.check_tensors(u_q, dtype=torch.int8, device=x.device)
+        out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
+        ptr, c = _build.ptr, _build.cint
+        _build.launch(
+            "winograd_int8", "winograd_int8_conv3x3_bn", (n, h, w, cin, cout, bool(relu)),
+            x.device, ptr(x), ptr(u_q), ptr(s_u), ptr(scale), ptr(bias), ptr(out),
+            c(n), c(h), c(w), c(cin), c(cout), c(stash), c(relu),
         )
     return out[0] if squeeze else out
 

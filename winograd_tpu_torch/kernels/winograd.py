@@ -4,6 +4,12 @@ Port of winograd_tpu/kernels/winograd.py::conv3x3_bn_winograd_pallas (both
 its kernels, _winograd_kernel and _winograd_kernel_p64). The CUDA kernel is
 csrc/winograd.cu; the plain twin does the same Winograd algebra on u with
 this package's transform matrices.
+
+A bfloat16 u (F(2,3) only) is the int8 tier's bf16-weight 3x3, the JAX
+package's conv3x3_bn_winograd_pallas(precision="bf16w"): the kernel runs its
+algebra in FP64 and rounds each output once, and its plain twin
+(winograd2_mid_plain) does the algebra in float64, so the two agree to the
+bit, as the int8 layer it feeds needs.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ def tile_size(u: torch.Tensor) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _matrices(m: int, dtype: torch.dtype, device: torch.device):
+def winograd_matrices(m: int, dtype: torch.dtype, device: torch.device):
     """(Bt, At) as tensors, copied to the device once (so the plain version
     makes no host-to-device copy after its first call)."""
     bt, _, at = transforms.matrices(m)
@@ -43,7 +49,7 @@ def conv3x3_bn_winograd_plain(x, u, scale, bias, relu: bool = True) -> torch.Ten
     n, h, w, cin = x.shape
     cout = u.shape[2]
     th, tw = -(-h // m), -(-w // m)
-    bt, at = _matrices(m, x.dtype, x.device)
+    bt, at = winograd_matrices(m, x.dtype, x.device)
     # Zero pad 1 on the left/top, and on the right/bottom up to m*t + 2.
     xp = F.pad(x, (0, 0, 1, m * tw + 1 - w, 1, m * th + 1 - h))
     d = xp.unfold(1, a, m).unfold(2, a, m)              # (n, th, tw, cin, a, a)
@@ -56,13 +62,25 @@ def conv3x3_bn_winograd_plain(x, u, scale, bias, relu: bool = True) -> torch.Ten
     return torch.relu(y) if relu else y
 
 
+def winograd2_mid_plain(h, u2_bf16, scale, bias, relu: bool = True) -> torch.Tensor:
+    """F(2,3) on a bf16 filter: the Winograd algebra in float64 (order-free
+    to the last bit of h's dtype), rounded once, then BN (+ReLU), each
+    multiply and add rounded on its own. h: (N, H, W, C)."""
+    ones = torch.ones(u2_bf16.shape[-1], dtype=torch.float64, device=h.device)
+    y = conv3x3_bn_winograd_plain(h.double(), u2_bf16.double(), ones, torch.zeros_like(ones),
+                                  relu=False).to(h.dtype)
+    y = y * scale + bias
+    return torch.relu(y) if relu else y
+
+
 def conv3x3_bn_winograd(x, u, scale, bias, relu: bool = True) -> torch.Tensor:
     """Fused 3x3 conv + BN (+ReLU) via Winograd F(m,3).
 
     x: (H, W, Cin) or (N, H, W, Cin); u: (a^2, Cin, Cout) from
     transforms.transform_filter, m inferred from a^2 (36 -> F(4,3),
-    16 -> F(2,3)); scale, bias: (Cout,). CPU tensors run the plain version;
-    CUDA tensors launch csrc/winograd.cu."""
+    16 -> F(2,3)), float32, or bfloat16 at F(2,3) (the FP64 route of the
+    module docstring); scale, bias: (Cout,). CPU tensors run the plain
+    version; CUDA tensors launch csrc/winograd.cu."""
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
@@ -70,17 +88,28 @@ def conv3x3_bn_winograd(x, u, scale, bias, relu: bool = True) -> torch.Tensor:
     if u.shape[1] != cin:
         raise ValueError(f"u {tuple(u.shape)} does not take {cin} input channels")
     m = tile_size(u)
+    bf16 = u.dtype == torch.bfloat16
+    if bf16 and m != 2:
+        raise ValueError("a bfloat16 filter takes F(2,3) only (u of 16 positions)")
     if x.device.type == "cpu":
-        out = conv3x3_bn_winograd_plain(x, u, scale, bias, relu)
+        plain = winograd2_mid_plain if bf16 else conv3x3_bn_winograd_plain
+        out = plain(x, u, scale, bias, relu)
     else:
         cout = u.shape[2]
-        _build.check_operands(scale, bias, cout, x, u)
+        _build.check_operands(scale, bias, cout, x)
+        _build.check_tensors(u, dtype=u.dtype if bf16 else torch.float32, device=x.device)
         out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
-        c = _build.cint
-        _build.launch(
-            "winograd", "winograd_conv3x3_bn", (n, h, w, cin, cout, m, bool(relu)),
-            x.device,
-            _build.ptr(x), _build.ptr(u), _build.ptr(scale), _build.ptr(bias),
-            _build.ptr(out), c(n), c(h), c(w), c(cin), c(cout), c(m), c(relu),
-        )
+        c, ptr = _build.cint, _build.ptr
+        if bf16:
+            _build.launch(
+                "winograd", "winograd_conv3x3_bn_bf16", (n, h, w, cin, cout, m, bool(relu), "bf16"),
+                x.device, ptr(x), ptr(u), ptr(scale), ptr(bias), ptr(out),
+                c(n), c(h), c(w), c(cin), c(cout), c(relu),
+            )
+        else:
+            _build.launch(
+                "winograd", "winograd_conv3x3_bn", (n, h, w, cin, cout, m, bool(relu)), x.device,
+                ptr(x), ptr(u), ptr(scale), ptr(bias), ptr(out),
+                c(n), c(h), c(w), c(cin), c(cout), c(m), c(relu),
+            )
     return out[0] if squeeze else out

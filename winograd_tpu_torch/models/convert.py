@@ -17,6 +17,12 @@ port's int8 parameters (models/resnet50.py::quantize_resnet50 builds the
 same from the port's own f32 parameters): int8 weights stay torch.int8,
 the bf16 F(2,3) filters torch.bfloat16, and each stage's blocks arrive
 stacked once.
+
+basicnet_params_from_jax and qbasicnet_params_from_jax do the same for the
+basic family (ResNet-18/34, winograd_tpu/models/basic.py::basicnet_params
+and ::quantize_basicnet): a stage that carries the stacked "fused" artifact
+of the basic-stage kernel stores it once, and its blocks' tensors of the
+same keys are views into it.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import numpy as np
 import torch
 
 from winograd_tpu_torch.kernels import transforms
+from winograd_tpu_torch.kernels.basic_stage import stack_basic_stage_params
 from winograd_tpu_torch.kernels.direct import direct_filter
 from winograd_tpu_torch.kernels.stage import stack_stage_params
 from winograd_tpu_torch.kernels.transition import fuse_transition_weights
@@ -151,16 +158,31 @@ def qparams_from_jax(qtree: Dict, device="cuda") -> Dict:
     return params_to(out, device)
 
 
+def basic_block_views(fused: Dict[str, torch.Tensor], blocks: List[Dict]) -> List[Dict]:
+    """Each basic block with its tensors of the fused stack's keys replaced
+    by views into the stack (rows (1, C) as (C,))."""
+    out = []
+    for i, b in enumerate(blocks):
+        views = {k: v[i].reshape(-1) if v[i].shape[0] == 1 else v[i] for k, v in fused.items()}
+        out.append(dict(b, **views))
+    return out
+
+
 def params_to(params, device=None, dtype=None):
     """The same parameter structure with every tensor moved, and every
     float32/float64 tensor cast to `dtype` (int8 weights and bf16 filters
     keep their type; a tensor already where it belongs stays as it is). A
-    stage's blocks become views into its moved "stacked" params again, so
-    the weights stay stored once."""
+    stage's blocks become views into its moved "stacked" (bottleneck) or
+    "fused" (basic) params again, so the weights stay stored once."""
     if isinstance(params, dict):
         if params.get("stacked") is not None:
             moved = {k: params_to(v, device, dtype) for k, v in params.items() if k != "blocks"}
             return dict(moved, blocks=_block_views(moved["stacked"]))
+        if params.get("fused") is not None:
+            moved = {k: params_to(v, device, dtype) for k, v in params.items() if k != "blocks"}
+            rest = [{k: params_to(v, device, dtype) for k, v in b.items() if k not in moved["fused"]}
+                    for b in params["blocks"]]
+            return dict(moved, blocks=basic_block_views(moved["fused"], rest))
         return {k: params_to(v, device, dtype) for k, v in params.items()}
     if isinstance(params, list):
         return [params_to(v, device, dtype) for v in params]
@@ -168,3 +190,45 @@ def params_to(params, device=None, dtype=None):
         return None
     cast = dtype if params.dtype in (torch.float32, torch.float64) else None
     return params.to(device=device, dtype=cast).contiguous()
+
+
+def _arrays(tree, convert) -> Dict:
+    return None if tree is None else {k: convert(v) for k, v in tree.items()}
+
+
+def basicnet_params_from_jax(tree: Dict, device="cuda", dtype=torch.float32) -> Dict:
+    """The JAX basic family's parameter tree {"stem", "stages", "head"}
+    (models/basic.py::basicnet_params, numpy arrays) -> the port's
+    parameters on `device` in `dtype`. A stage with the "fused" artifact
+    gets it stacked once from its blocks (stack_basic_stage_params), the
+    blocks' tensors of its keys as views."""
+    def tensor(a):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=device).contiguous()
+
+    stages = []
+    for st in tree["stages"]:
+        out = {"entry": _arrays(st.get("entry"), tensor),
+               "blocks": [_arrays(b, tensor) for b in st["blocks"]]}
+        if "fused" in st:
+            out["fused"] = stack_basic_stage_params(out["blocks"])
+            out["blocks"] = basic_block_views(out["fused"], out["blocks"])
+        stages.append(out)
+    return {"stem": _arrays(tree["stem"], tensor), "stages": stages,
+            "head": _arrays(tree["head"], tensor)}
+
+
+def qbasicnet_params_from_jax(qtree: Dict, device="cuda") -> Dict:
+    """The JAX basic family's int8 tree (models/basic.py::quantize_basicnet,
+    numpy arrays) -> the port's int8 parameters on `device`: int8 weights
+    stay torch.int8, the bf16 F(2,3) filters torch.bfloat16; a stage's
+    "fused" stack is stored once and its blocks' tensors of its keys are
+    views."""
+    stages = []
+    for st in qtree["stages"]:
+        out = {"entry": _arrays(st.get("entry"), _tensor),
+               "blocks": [_arrays(b, _tensor) for b in st["blocks"]]}
+        if st.get("fused") is not None:
+            out["fused"] = _arrays(st["fused"], _tensor)
+        stages.append(out)
+    return params_to({"stem": _arrays(qtree["stem"], _tensor), "stages": stages,
+                      "head": _arrays(qtree["head"], _tensor)}, device)

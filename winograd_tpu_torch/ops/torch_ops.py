@@ -1,7 +1,7 @@
 """Plain PyTorch operators on F.conv2d / matmul, NHWC at every function.
 
 Port of the parts of winograd_tpu/ops/jnp_ops.py that the served ResNet-50
-path needs. This is the vendor-baseline role (cuDNN and cuBLAS on the card,
+and ResNet-18/34 paths need. This is the vendor-baseline role (cuDNN and cuBLAS on the card,
 with TF32 left to the caller's backend flags); the served path does not
 call it, except for maxpool3x3_s2, which the stem's plain twin uses.
 """
@@ -102,4 +102,25 @@ def downsample_bottleneck_block(x, params, stride: int = 2):
     h = conv1x1_bn(h, p["w_expand"], p["s_expand"], p["b_expand"], False)
     skip = x[..., ::2, ::2, :] if stride == 2 else x
     skip = conv1x1_bn(skip, p["w_proj"], p["s_proj"], p["b_proj"], False)
+    return torch.relu(h + skip)
+
+
+def basic_block(x, params):
+    """Basic block with identity skip (ResNet-18/34): 3x3 + BN + ReLU ->
+    3x3 + BN -> add -> ReLU. Keys: w_a/w_b (C, C, 3, 3) OIHW, s_a/b_a,
+    s_b/b_b."""
+    p = params
+    h = conv3x3_bn_relu(x, p["w_a"], p["s_a"], p["b_a"], True)
+    h = conv3x3_bn_relu(h, p["w_b"], p["s_b"], p["b_b"], False)
+    return torch.relu(h + x)
+
+
+def downsample_basic_block(x, params):
+    """Basic downsampling block: stride-2 3x3 + BN + ReLU -> 3x3 + BN;
+    stride-2 1x1 projection shortcut + BN; add -> ReLU. Keys as basic_block
+    (w_a is (Cout, Cin, 3, 3)) plus w_proj (Cin, Cout), s_proj, b_proj."""
+    p = params
+    h = conv3x3_s2_bn_relu(x, p["w_a"], p["s_a"], p["b_a"], True)
+    h = conv3x3_bn_relu(h, p["w_b"], p["s_b"], p["b_b"], False)
+    skip = conv1x1_bn(x[..., ::2, ::2, :], p["w_proj"], p["s_proj"], p["b_proj"], False)
     return torch.relu(h + skip)
