@@ -57,22 +57,28 @@ Phases, each of which must pass (exit 1 otherwise):
    9; the conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
    14->7 transition at N=8; both basic stages at N=8 and at one block, the
-   ResNet-18 run; the int8 Winograd at N=8, 14x14x256), on seeded inputs.
-   Bound: max abs error <= 1e-4 * max(1, max|plain|); the int8 stage,
-   transition and basic stage, whose chained quantizations may flip a
-   rounding on f32-level differences, and the int8 Winograd, whose V is
-   quantized, 1e-3 * max(1, max|plain|). One JSON line per shape: error; device times of the
+   ResNet-18 run; the int8 Winograd at N=8, 14x14x256; the pointwise head
+   and conv5_x reduce at N=8; the int8 direct 3x3 at N=8, 7x7x512), on
+   seeded inputs. Bound: max abs error <= 1e-4 * max(1, max|plain|); the
+   int8 stage, transition and basic stage, whose chained quantizations may
+   flip a rounding on f32-level differences, and the int8 Winograd, whose
+   V is quantized, 1e-3 * max(1, max|plain|); the int8 direct 3x3 (one
+   quantization, an exact int32 sum) 0: equal to its twin. One JSON line
+   per shape: error; the K split of the split-K kernels ("splits":
+   pointwise and direct_int8, from their wrappers' plans); device times of the
    kernel, its plain version and the library call (20 calls captured in a
    CUDA graph, the median of 20 replays between CUDA events, divided by 20;
    inputs stay in L2 between calls); "wrapper_ms", one eager wrapper call
    between CUDA events, host path included (median of 20 after 2
    warm-ups); and the bound: the larger of the operations' time and the
    bytes' time (H100 SXM data sheet: 67 TFLOP/s FP32 outside the tensor
-   cores, 989 TFLOP/s BF16 and 1979 TOPS INT8 dense on the tensor cores,
-   3.35 TB/s HBM). Operations: int8 MACs x 2 at the INT8 rate; the bf16
-   stem's products and the int8 stage's bf16-filter F(2,3) products (as
-   two BF16 passes, the JAX kernel's hi/lo split) at the BF16 rate; f32
-   GEMMs, Winograd transforms, epilogues (4 FLOPs an output) and int8
+   cores, 495 TFLOP/s TF32, 989 TFLOP/s BF16 and 1979 TOPS INT8 dense on
+   the tensor cores, 3.35 TB/s HBM). Operations: int8 MACs x 2 at the INT8
+   rate; the bf16 stem's products and the int8 stage's bf16-filter F(2,3)
+   products (as two BF16 passes, the JAX kernel's hi/lo split) at the BF16
+   rate; the pointwise kernel's tensor-core products (P > 8) as three TF32
+   passes (its 3xTF32 split) at the TF32 rate; its GEMV's (P <= 8) and the
+   other f32 GEMMs, Winograd transforms, epilogues (4 FLOPs an output) and int8
    quantization (2 a quantized value) at the FP32 rate; the bf16-filter
    Winograd's products as two BF16 passes too. Bytes: each input read once
    (int8 weights 1 byte, bf16 filters 2), each output written once.
@@ -100,6 +106,7 @@ import time
 import numpy as np
 
 FP32_FLOPS = 67e12   # H100 SXM, FP32 outside the tensor cores, dense
+TF32_FLOPS = 495e12  # tensor cores, dense
 BF16_FLOPS = 989e12  # tensor cores, dense
 INT8_OPS = 1979e12   # tensor cores, dense
 HBM_BYTES_S = 3.35e12
@@ -159,6 +166,8 @@ SOURCES = {
 # Chained int8 layers, and the int8 Winograd's quantized V: a rounding may
 # flip on f32-level differences.
 CHAINED = ("stage_int8", "transition_int8", "basic_stage_int8", "winograd_int8")
+# One quantization and an exact int32 sum: the kernel equals its twin.
+EXACT = ("direct_int8",)
 
 
 def _rand(rng, *shape):
@@ -209,7 +218,7 @@ def main() -> int:
     from winograd_tpu_torch.kernels.direct import (
         conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter, im2col3x3,
     )
-    from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain
+    from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain, split_plan
     from winograd_tpu_torch.kernels.stage import (
         resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params,
     )
@@ -305,13 +314,20 @@ def main() -> int:
         return x.permute(0, 3, 1, 2)
 
     # -- f32 cases: (kernel fn, plain fn, library fn, work, bytes) ----------
+    def pointwise_work(p, k, n):
+        """The GEMV's FFMA products at the FP32 rate; the MMA tiles' as three
+        TF32 passes (3xTF32); the epilogue at the FP32 rate."""
+        if split_plan(p, k, n, _build.sm_count(dev)).gemv:
+            return {FP32_FLOPS: 2 * p * k * n + 4 * p * n}
+        return {TF32_FLOPS: 3 * 2 * p * k * n, FP32_FLOPS: 4 * p * n}
+
     def pointwise_case(rng, p, k, n, relu):
         x, w = t(_rand(rng, p, k)), t(_rand(rng, k, n))
         s, b = bn(rng, n)
         return (lambda: conv1x1_bn(x, w, s, b, relu),
                 lambda: conv1x1_bn_plain(x, w, s, b, relu),
                 lambda: torch.matmul(x, w),
-                {FP32_FLOPS: 2 * p * k * n}, 4 * (p * k + k * n + p * n + 2 * n))
+                pointwise_work(p, k, n), 4 * (p * k + k * n + p * n + 2 * n))
 
     def conv3x3_inputs(rng, n, h, w, cin, cout):
         x, wt = t(_rand(rng, n, h, w, cin)), _rand(rng, cout, cin, 3, 3)
@@ -779,6 +795,14 @@ def main() -> int:
         "basic_stage": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "basic_stage_int8": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "winograd_int8": [(8, 14, 14, 256, 256, True)],
+        "pointwise": [(8, 2048, 1000, False), (392, 2048, 512, True)],
+        "direct_int8": [(8, 7, 7, 512, 512, False)],
+    }
+    sms = _build.sm_count(dev)
+    splits_of = {
+        "pointwise": lambda p, k, n, relu: split_plan(p, k, n, sms).splits,
+        "direct_int8": lambda n, h, w, cin, cout, relu: q8.direct_int8_plan(
+            n, h, w, cin, cout, sms).splits,
     }
     all_launches = collections.Counter()
     per_image = collections.defaultdict(collections.Counter)
@@ -790,7 +814,7 @@ def main() -> int:
     rng = np.random.default_rng(0)
     for name in make_case:
         counter = per_image.get(name, collections.Counter())
-        rtol = INT8_CHAINED_RTOL if name in CHAINED else ATOL
+        rtol = 0.0 if name in EXACT else INT8_CHAINED_RTOL if name in CHAINED else ATOL
         tot = collections.defaultdict(float)
         tot["max_abs_err"] = 0.0
         lib_ok = True
@@ -813,8 +837,9 @@ def main() -> int:
             ms, plain_ms = device_ms(kern), device_ms(plain)
             host_ms = wrapper_ms(kern)
             ops_ms, bytes_ms = bound(work, nbytes)
+            splits = {"splits": splits_of[name](*shape)} if name in splits_of else {}
             print(json.dumps({
-                "kernel": name, "shape": shape, "per_image": n_img,
+                "kernel": name, "shape": shape, "per_image": n_img, **splits,
                 "max_abs_err": err, "tol": tol, "ms": ms, "wrapper_ms": host_ms, "plain_ms": plain_ms,
                 "library_ms": lib_ms, "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",

@@ -5,7 +5,10 @@ transitions whose phases split K, and the int8 tier's kernels at ragged
 rows, border-heavy 7x7 maps and N=8; the basic family's kernels (the f32
 and int8 basic stage, the int8 Winograd in both of its branches, the
 bf16-filter Winograd) at N=3, one block, channel counts off 128 and an
-all-zero image (every row's scale 1). Needs an NVIDIA GPU and nvcc; skipped
+all-zero image (every row's scale 1); the split-K pointwise kernel at the
+served small-P shapes, a ragged last split and one split, bit-identical
+from call to call, and the int8 direct 3x3 on the tensor cores held to
+exact equality with its twin. Needs an NVIDIA GPU and nvcc; skipped
 elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -13,7 +16,8 @@ elsewhere. Run on the card with
 (--noconftest: the repo's conftest imports jax, which the port's machine
 need not have). Bound: 1e-4 * max(1, max|ref|) in float32, TF32 off; the
 int8 stage, transition, basic stage and Winograd, whose quantizations may
-flip a rounding on f32-level differences, 1e-3 * max(1, max|ref|).
+flip a rounding on f32-level differences, 1e-3 * max(1, max|ref|); the
+int8 direct 3x3 (one quantization, an exact int32 sum), 0.
 """
 
 import numpy as np
@@ -26,7 +30,7 @@ from winograd_tpu_torch.kernels.direct import (
 )
 from winograd_tpu_torch.kernels import basic_stage as bs
 from winograd_tpu_torch.kernels import quantized as q8
-from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain
+from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain, split_plan
 from winograd_tpu_torch.kernels.stage import (
     resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params,
 )
@@ -400,3 +404,56 @@ def test_basic_wrappers_reject_what_the_kernels_do_not_take(dev):
     u4 = torch.zeros(36, 8, 4, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
         conv3x3_bn_winograd(x, u4, sb[:4], sb[:4])                      # bf16 at F(4,3)
+
+
+# --- the split-K pointwise and int8 direct kernels ---------------------------
+
+# (P, K, N): the served small-P products (the heads at N=1 and N=8, conv5_x's
+# reduce, ResNet-34's strided conv5_x and conv4_x entries), one whose K is
+# not a multiple of its split chunk, and one at a single split.
+POINTWISE_SPLIT_SHAPES = [(1, 2048, 1000), (8, 2048, 1000), (49, 2048, 512), (49, 2304, 512),
+                          (196, 1152, 256), (49, 2000, 512), (3136, 64, 256)]
+
+
+@pytest.mark.parametrize("p,k,n", POINTWISE_SPLIT_SHAPES)
+def test_pointwise_split_k_shapes(dev, p, k, n):
+    plan = split_plan(p, k, n, _build.sm_count(dev))
+    if (p, k, n) == (49, 2000, 512):
+        assert plan.splits > 1 and k % plan.chunk
+    if (p, k, n) == (3136, 64, 256):
+        assert plan.splits == 1
+    rng = np.random.default_rng(p + k + n)
+    x, w = _r(rng, dev, p, k), _r(rng, dev, k, n)
+    s, b = _bn(rng, dev, n)
+    _agree(conv1x1_bn(x, w, s, b, p > 8), conv1x1_bn_plain(x, w, s, b, p > 8))
+
+
+@pytest.mark.parametrize("p,k,n", [(1, 2048, 1000), (49, 2304, 512)])
+def test_pointwise_split_k_repeats_to_the_bit(dev, p, k, n):
+    rng = np.random.default_rng(k + n)
+    x, w = _r(rng, dev, p, k), _r(rng, dev, k, n)
+    s, b = _bn(rng, dev, n)
+    first = conv1x1_bn(x, w, s, b, False)
+    again = conv1x1_bn(x, w, s, b, False)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
+
+
+# (N, H, W, Cin, Cout): ResNet-34's int8 entry b-leg (K split ~16 ways),
+# ResNet-50's int8 projection 3x3 (49 row tiles), and K = 36 (Cin 4,
+# zero-padded to the MMA's 32-byte depth) with an all-zero image.
+@pytest.mark.parametrize("n,h,w,cin,cout,relu", [
+    (1, 7, 7, 512, 512, False), (1, 56, 56, 64, 64, True), (2, 5, 7, 4, 70, True),
+])
+def test_direct_int8_equals_its_twin(dev, n, h, w, cin, cout, relu):
+    rng = np.random.default_rng(h * w + cin + cout)
+    x = _r(rng, dev, n, h, w, cin)
+    if n > 1:
+        x[0] = 0.0
+    w9_q, s_w9 = _q(rng, dev, 9 * cin, cout)
+    s, b = _bn(rng, dev, cout)
+    out = q8.conv3x3_bn_int8(x, w9_q, s_w9, s, b, relu)
+    ref = q8.conv3x3_bn_int8_plain(x, w9_q, s_w9, s, b, relu)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape and torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() == 0.0

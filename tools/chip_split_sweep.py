@@ -1,0 +1,208 @@
+#!/usr/bin/env python3
+"""K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct_int8.cu)
+on one CUDA card, and an A/B of their wrappers against another checkout.
+
+    python3 tools/chip_split_sweep.py             # the sweep
+    python3 tools/chip_split_sweep.py --ab DIR    # the A/B against DIR
+
+Run from the repository root on a machine with a CUDA card and nvcc. The
+shapes are each served shape of the two kernels (the four served forwards
+of chip_smoke.py at N=1 and N=8). Every timed call is first held against
+its plain twin (pointwise within 1e-4 * max(1, max|plain|), direct_int8
+exactly). Device ms per call: 20 calls in one CUDA graph, the median of 20
+replays between CUDA events, inputs in L2. The card's name and power limit
+come first, then one JSON line per shape and candidate.
+
+The sweep times each shape under the K split its wrapper's plan picks
+("chosen") and under the splits that kernels/splitk.py::split_k gives for
+1, 2, 4, ..., 32 wanted ranges.
+
+--ab DIR times the public wrappers (kernels/pointwise.py::conv1x1_bn,
+kernels/quantized.py::conv3x3_bn_int8) of the checkout DIR (for example an
+unpacked `git archive` of another commit under build/) and of this one,
+each in a process of its own that imports that checkout's package and
+builds its kernels there, in turns DIR, this, this, DIR, on the same
+seeded inputs ("--wrappers ROOT" is one such turn).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import statistics
+import subprocess
+import sys
+
+import numpy as np
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+POINTWISE = [  # (P, K, N, relu)
+    (1, 2048, 1000, False), (8, 2048, 1000, False), (1, 512, 1000, False),
+    (49, 2048, 512, True), (49, 512, 2048, False), (49, 2304, 512, True), (49, 256, 512, False),
+    (196, 1152, 256, True), (196, 128, 256, False), (392, 2048, 512, True),
+    (784, 576, 128, True), (784, 64, 128, False), (3136, 64, 64, True), (3136, 64, 256, False),
+]
+DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
+    (1, 56, 56, 64, 64, True), (1, 7, 7, 512, 512, False), (8, 7, 7, 512, 512, False),
+    (8, 56, 56, 64, 64, True),
+]
+WANTS = (1, 2, 4, 8, 16, 32)
+
+
+def device_ms(fn, calls=20, reps=20, warmup=2):
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    pairs = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in pairs) / calls
+
+
+def cases(dev):
+    """(kernel, shape, the wrapper's call, its plain twin's, the check of an
+    output) for each shape, on inputs seeded alike in every checkout."""
+    import torch
+
+    from winograd_tpu_torch.kernels import pointwise as pw
+    from winograd_tpu_torch.kernels import quantized as q8
+    from winograd_tpu_torch.kernels.direct import direct_filter
+
+    rng = np.random.default_rng(0)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    def rand(*shape):
+        return t((rng.random(shape) - 0.5).astype(np.float32))
+
+    for p, k, n, relu in POINTWISE:
+        x, w, s, b = rand(p, k), rand(k, n), t((rng.random(n) * 0.5).astype(np.float32)), rand(n)
+        ref = pw.conv1x1_bn_plain(x, w, s, b, relu)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        yield ("pointwise", (p, k, n, relu), (x, w, s, b, relu), ref,
+               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for n, h, wd, cin, cout, relu in DIRECT_INT8:
+        x = rand(n, h, wd, cin)
+        w9_q, s_w9 = (t(a) for a in q8.quantize_weights(
+            direct_filter((rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32))))
+        s, b = t((rng.random(cout) * 0.5).astype(np.float32)), rand(cout)
+        ref = q8.conv3x3_bn_int8_plain(x, w9_q, s_w9, s, b, relu)
+        yield ("direct_int8", (n, h, wd, cin, cout, relu), (x, w9_q, s_w9, s, b, relu), ref,
+               lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
+
+
+def wrappers(dev) -> bool:
+    """One A/B turn: each shape's public wrapper of the imported checkout."""
+    from winograd_tpu_torch.kernels import _build
+    from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
+    from winograd_tpu_torch.kernels.quantized import conv3x3_bn_int8
+
+    _build.build_all()
+    call = {"pointwise": conv1x1_bn, "direct_int8": conv3x3_bn_int8}
+    ok = True
+    for name, shape, args, _, agrees in cases(dev):
+        fn = (lambda f=call[name], args=args: f(*args))
+        ok &= agrees(fn())
+        print(json.dumps({"kernel": name, "shape": shape, "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
+def ab(other: pathlib.Path) -> bool:
+    """Turns other, this, this, other; one line per shape."""
+    times, ok = {}, True
+    for turn, root in enumerate((other, ROOT, ROOT, other)):
+        run = subprocess.run([sys.executable, __file__, "--wrappers", str(root)],
+                             capture_output=True, text=True)
+        sys.stderr.write(run.stderr)
+        ok &= run.returncode == 0
+        for line in run.stdout.splitlines():
+            if line.startswith("{"):
+                r = json.loads(line)
+                times.setdefault((r["kernel"], tuple(r["shape"])), [None] * 4)[turn] = r["ms"]
+    for (name, shape), ms in times.items():
+        print(json.dumps({"kernel": name, "shape": shape, "other": str(other),
+                          "other_ms": [ms[0], ms[3]], "this_ms": [ms[1], ms[2]]}), flush=True)
+    return ok
+
+
+def sweep(dev) -> bool:
+    import torch
+
+    from winograd_tpu_torch.kernels import _build
+    from winograd_tpu_torch.kernels import pointwise as pw
+    from winograd_tpu_torch.kernels import quantized as q8
+    from winograd_tpu_torch.kernels.splitk import split_k
+
+    _build.build_all()
+    sms = _build.sm_count(dev)
+    ok = True
+    for name, shape, args, ref, agrees in cases(dev):
+        if name == "pointwise":
+            p, k, n, _ = shape
+            chosen = pw.split_plan(p, k, n, sms)
+            kp, step, run = k, pw.SPLIT_STEP, pw.conv1x1_bn_planned
+        else:
+            chosen = q8.direct_int8_plan(*shape[:5], sms)
+            kp, step, run = chosen.kp, q8.DIRECT_INT8_STEP, q8.conv3x3_bn_int8_planned
+        plans = {chosen.splits: chosen}
+        for want in WANTS:
+            sp = split_k(kp, want, step, step)
+            plans.setdefault(sp.splits, chosen._replace(splits=sp.splits, chunk=sp.chunk))
+        for splits, plan in sorted(plans.items()):
+            fn = (lambda run=run, plan=plan: run(*args, plan))
+            y = fn()
+            ok &= agrees(y)
+            print(json.dumps({"kernel": name, "shape": shape, "splits": splits,
+                              "chunk": plan.chunk, "chosen": plan == chosen,
+                              "max_abs_err": (y - ref).abs().max().item(),
+                              "ms": device_ms(fn)}), flush=True)
+    torch.cuda.synchronize()
+    return ok
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--ab", type=pathlib.Path, metavar="DIR")
+    ap.add_argument("--wrappers", type=pathlib.Path, metavar="ROOT")
+    args = ap.parse_args()
+    sys.path.insert(0, str((args.wrappers or ROOT).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_split_sweep: needs a CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    if args.wrappers:
+        ok = wrappers(dev)
+    else:
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+        ok = ab(args.ab.resolve()) if args.ab else sweep(dev)
+    if not ok:
+        print("chip_split_sweep: a call disagreed with its plain twin", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

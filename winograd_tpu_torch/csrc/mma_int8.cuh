@@ -1,0 +1,270 @@
+// The int8 tier's GEMM on the int8 tensor cores, in the phases of a
+// persistent cooperative kernel: quantize the activation rows once, lay the
+// weights out k-contiguous, then multiply with split K and add the splits.
+//
+// The arithmetic is gemm_int8.cuh's (per-row scale s = max|row| / 127 by
+// IEEE division, 1 for a zero row; q = clamp(rint(a / s), -127, 127); the
+// product summed exactly in int32; the epilogue's multiplies and adds
+// rounded one by one), so a kernel built on it agrees with the plain twins
+// of kernels/quantized.py to the bit. What differs is where the work is
+// done:
+// * quantize_rows_phase: each row's scale and int8 values are computed once,
+//   by a group of 1-8 warps that walks the row in float4s through a loader,
+//   and stored as a (P, Kp) int8 matrix (Kp = K rounded up to kKAlign, zero
+//   past K) with the scales beside it.
+// * transpose_phase: mma.sync's B operand is k-contiguous per column, the
+//   weights are (K, N) n-contiguous; each launch writes them once as an
+//   (N, Kp) int8 matrix, zero past K (2.4 MB at 7x7x512, L2-resident for
+//   the product that follows).
+// * gemm_phase: 64 x 64 tiles, 8 warps of 32 x 16 outputs, each k step of
+//   32 one mma.sync.m16n8k32.row.col.s32.s8.s8.s32 per 16 x 8 fragment; A
+//   and B arrive by 16-byte cp.async copies in a kStages-deep ring of
+//   kBK-byte stages (rows padded to kLd bytes: a warp's fragment loads hit
+//   32 distinct banks). Work items are (split, tile) pairs dealt to the
+//   blocks; with several splits each item writes int32 partial sums and,
+//   after a grid barrier, the blocks add them (exact in any order) and
+//   apply the epilogue once per element.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "cp_async.cuh"
+#include "gemm_int8.cuh"
+
+namespace wt {
+namespace s8mma {
+
+constexpr int kBM = 64;
+constexpr int kBN = 64;
+constexpr int kBK = 64;      // bytes of k per stage: two mma k steps
+constexpr int kStages = 4;
+constexpr int kThreads = 256;
+constexpr int kLd = kBK + 16;
+constexpr int kStageBytes = (kBM + kBN) * kLd;
+constexpr int kSmemBytes = kStages * kStageBytes;
+constexpr int kKAlign = 32;  // K of the quantized operands is padded to this
+
+static_assert(kThreads == kGemmThreads, "the grid barrier's blocks are kGemmThreads wide");
+
+using Acc = int[2][2][4];
+
+__device__ __forceinline__ void mma(int (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ unsigned ld32(const int8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+__device__ __forceinline__ float abs_max4(float m, float4 v) {
+  return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// Quantize rows p < P of a (P, K) float matrix, K % 4 == 0, read through
+// `a` (a.row(p) once per row; a.walk(row, j) a walk at float4 j, k = 4j;
+// a.load(walk) its four values; a.next(row, walk, step) on by `step`
+// float4s), into aq (P, Kp) int8 (zero for K <= k < Kp) and their scales
+// into sx[p]. Rows are dealt to groups of warps across the grid; `red`:
+// kThreads / 32 floats of shared memory. The caller places the barrier.
+template <class Loader>
+__device__ __forceinline__ void quantize_rows_phase(const Loader& a, int P, int K, int Kp,
+                                                    int8_t* aq, float* sx, float* red) {
+  const int k4 = K / 4, kp4 = Kp / 4;
+  int wpr = 1;  // warps a row: at most eight float4s a thread, or all 8 warps
+  while (wpr < kThreads / 32 && k4 > 8 * 32 * wpr) wpr *= 2;
+  const int rows = kThreads / 32 / wpr;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int first = warp / wpr * wpr, gi = (warp - first) * 32 + lane, gn = 32 * wpr;
+  for (int base = blockIdx.x * rows; base < P; base += gridDim.x * rows) {
+    const int p = base + warp / wpr;
+    float m = 0.f;
+    if (p < P) {
+      const auto row = a.row(p);
+      auto it = a.walk(row, gi);
+      for (int j = gi; j < k4; j += gn, a.next(row, it, gn)) m = abs_max4(m, a.load(it));
+    }
+    m = warp_max(m);
+    if (lane == 0) red[warp] = m;
+    __syncthreads();
+    for (int w = first; w < first + wpr; ++w) m = fmaxf(m, red[w]);
+    const float s = scale_from_max(m);
+    if (p < P) {
+      const auto row = a.row(p);
+      unsigned* dst = reinterpret_cast<unsigned*>(aq + static_cast<size_t>(p) * Kp);
+      auto it = a.walk(row, gi);
+      for (int j = gi; j < k4; j += gn, a.next(row, it, gn)) {
+        const float4 v = a.load(it);
+        dst[j] = static_cast<unsigned>(
+            pack4(quantize(v.x, s), quantize(v.y, s), quantize(v.z, s), quantize(v.w, s)));
+      }
+      for (int j = k4 + gi; j < kp4; j += gn) dst[j] = 0u;
+      if (gi == 0) sx[p] = s;
+    }
+    __syncthreads();  // red is reused by the next rows
+  }
+}
+
+// bt[n][k] = b[k][n] for k < K and 0 for K <= k < Kp: the (K, N) int8
+// weights as (N, Kp), sixteen k a thread, grid-wide. The caller places the
+// barrier.
+__device__ __forceinline__ void transpose_phase(const int8_t* __restrict__ b, int K, int N,
+                                                int Kp, int8_t* bt) {
+  const long long items = static_cast<long long>(Kp / 16) * N;
+  for (long long item = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       item < items; item += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const int kg = static_cast<int>(item / N), n = static_cast<int>(item % N);
+    unsigned w[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int k = kg * 16 + j;
+      const unsigned v =
+          k < K ? static_cast<unsigned char>(__ldg(b + static_cast<size_t>(k) * N + n)) : 0u;
+      w[j / 4] |= v << (8 * (j % 4));
+    }
+    *reinterpret_cast<uint4*>(bt + static_cast<size_t>(n) * Kp + kg * 16) =
+        make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// One stage: aq[p0 .. p0+63, kb .. kb+63] and bt[n0 .. n0+63, kb .. kb+63],
+// one 16-byte copy of each a thread.
+__device__ __forceinline__ void load_stage(int8_t* sa, int8_t* sb, const int8_t* aq,
+                                           const int8_t* bt, int P, int N, int Kp, int p0,
+                                           int n0, int kb, int k1) {
+  const int r = threadIdx.x / 4, c = threadIdx.x % 4 * 16;
+  const int k = kb + c;
+  bool ok = p0 + r < P && k < k1;
+  cp_async16(sa + r * kLd + c, ok ? aq + static_cast<size_t>(p0 + r) * Kp + k : aq, ok);
+  ok = n0 + r < N && k < k1;
+  cp_async16(sb + r * kLd + c, ok ? bt + static_cast<size_t>(n0 + r) * Kp + k : bt, ok);
+}
+
+__device__ __forceinline__ void mma_stage(const int8_t* sa, const int8_t* sb, Acc& acc, int wm,
+                                          int wn) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int ks = 0; ks < kBK; ks += 32) {
+    unsigned a[2][4], b[2][2];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const int8_t* r0 = sa + (wm * 32 + mi * 16 + g) * kLd + ks + 4 * t;
+      a[mi][0] = ld32(r0);
+      a[mi][1] = ld32(r0 + 8 * kLd);
+      a[mi][2] = ld32(r0 + 16);
+      a[mi][3] = ld32(r0 + 8 * kLd + 16);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) {
+      const int8_t* c0 = sb + (wn * 16 + ni * 8 + g) * kLd + ks + 4 * t;
+      b[ni][0] = ld32(c0);
+      b[ni][1] = ld32(c0 + 16);
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni) mma(acc[mi][ni], a[mi], b[ni]);
+  }
+}
+
+// acc = aq[p0.., k0:k1] x bt[n0.., k0:k1]^T for the 64 x 64 tile; smem:
+// kSmemBytes, 16-byte aligned. Ends with every copy landed and a
+// __syncthreads, so the caller may reuse the ring.
+__device__ __forceinline__ void tile(const int8_t* aq, const int8_t* bt, int P, int N, int Kp,
+                                     int p0, int n0, int k0, int k1, int8_t* smem, Acc& acc) {
+  const int warp = threadIdx.x / 32;
+  const int wm = warp / 4, wn = warp % 4;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+
+  const int steps = (k1 - k0 + kBK - 1) / kBK;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) {
+      int8_t* st = smem + s * kStageBytes;
+      load_stage(st, st + kBM * kLd, aq, bt, P, N, Kp, p0, n0, k0 + s * kBK, k1);
+    }
+    cp_async_commit();
+  }
+  for (int it = 0; it < steps; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage `it` landed for all; slot (it - 1) is free
+    const int next = it + kStages - 1;
+    if (next < steps) {
+      int8_t* st = smem + (next % kStages) * kStageBytes;
+      load_stage(st, st + kBM * kLd, aq, bt, P, N, Kp, p0, n0, k0 + next * kBK, k1);
+    }
+    cp_async_commit();
+    const int8_t* st = smem + (it % kStages) * kStageBytes;
+    mma_stage(st, st + kBM * kLd, acc, wm, wn);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+}
+
+// Calls f(row, col, value) for each of the thread's 16 accumulators, with
+// row and col relative to the tile's corner.
+template <class F>
+__device__ __forceinline__ void for_each_acc(const Acc& acc, const F& f) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int r0 = warp / 4 * 32 + lane / 4, c0 = warp % 4 * 16 + lane % 4 * 2;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        f(r0 + mi * 16 + e / 2 * 8, c0 + ni * 8 + e % 2, acc[mi][ni][e]);
+}
+
+// C = aq x bt^T over the whole phase, every output through
+// epi(p, n, acc, sx[p]); aq, bt and sx were written before a barrier. K
+// (Kp bytes) in `splits` ranges of `chunk` (a multiple of kBK when
+// splits > 1); with several, int32 partial sums go to part (splits x P x
+// N), and after a barrier the blocks add them and apply the epilogue. The
+// caller places the barrier that ends the phase.
+template <class Epilogue>
+__device__ __forceinline__ void gemm_phase(const int8_t* aq, const int8_t* bt, const float* sx,
+                                           int P, int N, int Kp, int splits, int chunk,
+                                           const Epilogue& epi, int* part, unsigned int* bar,
+                                           int8_t* smem) {
+  const int tiles_n = (N + kBN - 1) / kBN;
+  const int tiles = (P + kBM - 1) / kBM * tiles_n;
+  for (int item = blockIdx.x; item < tiles * splits; item += gridDim.x) {
+    const int split = item / tiles, t = item - split * tiles;
+    const int p0 = t / tiles_n * kBM, n0 = t % tiles_n * kBN;
+    const int k0 = split * chunk, k1 = min(Kp, k0 + chunk);
+    Acc acc;
+    tile(aq, bt, P, N, Kp, p0, n0, k0, k1, smem, acc);
+    int* sp = splits == 1 ? nullptr : part + static_cast<size_t>(split) * P * N;
+    for_each_acc(acc, [&](int r, int c, int v) {
+      const int p = p0 + r, n = n0 + c;
+      if (p >= P || n >= N) return;
+      if (splits == 1)
+        epi(p, n, v, __ldcg(sx + p));
+      else
+        sp[static_cast<size_t>(p) * N + n] = v;
+    });
+  }
+  if (splits == 1) return;
+  grid_sync(bar);
+  const size_t pn = static_cast<size_t>(P) * N;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < pn;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    int s = __ldcg(part + i);
+    for (int k = 1; k < splits; ++k) s += __ldcg(part + k * pn + i);
+    const int p = static_cast<int>(i / N);
+    epi(p, static_cast<int>(i % N), s, __ldcg(sx + p));
+  }
+}
+
+}  // namespace s8mma
+}  // namespace wt

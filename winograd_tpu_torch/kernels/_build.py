@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
@@ -149,6 +150,18 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def cint(v) -> ctypes.c_int:
     return ctypes.c_int(int(v))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (the K-split plans aim at
+    one or two work items per SM)."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return _sm_count(index)
 
 
 def reset_counts() -> None:

@@ -10,11 +10,13 @@ the folded BN (+ReLU). A row is the GEMM's row: a pixel over its channels
 for a 1x1, an im2col row over all 9*C gathered values (zero padding
 included) for a 3x3.
 
-Kernels (CUDA C++ for sm_90a, csrc/*_int8.cu on csrc/gemm_int8.cuh):
+Kernels (CUDA C++ for sm_90a, csrc/*_int8.cu on csrc/gemm_int8.cuh's
+arithmetic):
 
 * conv1x1_bn_int8 -> csrc/pointwise_int8.cu (_quant_matmul_kernel);
 * conv3x3_bn_int8 -> csrc/direct_int8.cu (_direct_int8_kernel and its
-  row-banded twin);
+  row-banded twin) on csrc/mma_int8.cuh: rows quantized once, the product
+  on the int8 tensor cores with K split by direct_int8_plan;
 * resnet_stage_int8 -> csrc/stage_int8.cu (_stage_int8_kernel, its
   resident twin, and _block_int8_kernel at one block); the mid-layer is the
   int8 direct 3x3 or, on maps of 28x28 and up, F(2,3) on bf16 filters;
@@ -41,7 +43,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -49,6 +51,7 @@ import torch.nn.functional as F
 
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.direct import im2col3x3
+from winograd_tpu_torch.kernels.splitk import H100_SMS, split_k
 from winograd_tpu_torch.kernels.stage import WINOGRAD_MIN_PIXELS
 from winograd_tpu_torch.kernels.transition import strided_im2col
 from winograd_tpu_torch.kernels.winograd import winograd2_mid_plain, winograd_matrices
@@ -276,6 +279,78 @@ def transition_block_int8_plain(x, q: Dict) -> torch.Tensor:
 # --- kernel wrappers ---------------------------------------------------------
 
 
+# The plan of a csrc/direct_int8.cu launch. The kernel's geometry, which its
+# C entry checks every plan against (s8::kKAlign, s8::kBM, s8::kBK;
+# tests/test_torch_splitk.py reads them from the sources): K (9 * Cin)
+# padded to DIRECT_INT8_K_ALIGN bytes, DIRECT_INT8_TILE x DIRECT_INT8_TILE
+# output tiles, DIRECT_INT8_STEP-byte cp.async stages. The plan's own rule:
+# a cooperative grid of DIRECT_INT8_BLOCKS_PER_SM blocks an SM (the entry
+# refuses more than the card holds resident); K split until tiles x splits
+# reach about one work item a block, in multiples of DIRECT_INT8_STEP at
+# least DIRECT_INT8_MIN_CHUNK long (tuned on the served shapes by
+# tools/chip_split_sweep.py); workspace parts start at multiples of
+# WORKSPACE_ALIGN words.
+DIRECT_INT8_K_ALIGN = 32
+DIRECT_INT8_TILE = 64
+DIRECT_INT8_STEP = 64
+DIRECT_INT8_BLOCKS_PER_SM = 2
+DIRECT_INT8_MIN_CHUNK = 128
+WORKSPACE_ALIGN = 64
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+class DirectInt8Workspace(NamedTuple):
+    """Where csrc/direct_int8.cu's parts lie in its workspace, in 4-byte
+    words: the grid barrier at 0, the row scales at `sx`, the quantized rows
+    at `aq`, the transposed weights at `bt`, the int32 partial sums at
+    `part`; `words` in all."""
+
+    sx: int
+    aq: int
+    bt: int
+    part: int
+    words: int
+
+
+class DirectInt8Plan(NamedTuple):
+    """How csrc/direct_int8.cu runs one conv: the padded K, the output
+    tiles, the cooperative grid's blocks and the K split."""
+
+    kp: int
+    tiles: int
+    blocks: int
+    splits: int
+    chunk: int
+
+    def workspace(self, p: int, cout: int) -> DirectInt8Workspace:
+        """The grid barrier, p row scales, the (p, kp) quantized rows, the
+        (cout, kp) transposed weights, and splits x p x cout int32 partial
+        sums past one split, each part at a multiple of WORKSPACE_ALIGN."""
+        sx = WORKSPACE_ALIGN
+        aq = sx + _round_up(p, WORKSPACE_ALIGN)
+        bt = aq + _round_up(p * self.kp // 4, WORKSPACE_ALIGN)
+        part = bt + _round_up(cout * self.kp // 4, WORKSPACE_ALIGN)
+        return DirectInt8Workspace(
+            sx, aq, bt, part, part + (self.splits * p * cout if self.splits > 1 else 0))
+
+    def workspace_words(self, p: int, cout: int) -> int:
+        return self.workspace(p, cout).words
+
+
+def direct_int8_plan(n: int, h: int, w: int, cin: int, cout: int,
+                     sms: int = H100_SMS) -> DirectInt8Plan:
+    """The grid and K split of an (n, h, w, cin) -> cout int8 3x3 on a card
+    with `sms` SMs."""
+    p, kp = n * h * w, _round_up(9 * cin, DIRECT_INT8_K_ALIGN)
+    tiles = -(-p // DIRECT_INT8_TILE) * -(-cout // DIRECT_INT8_TILE)
+    blocks = DIRECT_INT8_BLOCKS_PER_SM * sms
+    split = split_k(kp, blocks // tiles, DIRECT_INT8_STEP, DIRECT_INT8_MIN_CHUNK)
+    return DirectInt8Plan(kp, tiles, blocks, split.splits, split.chunk)
+
+
 def _check_k(k: int) -> None:
     if k % 4:
         raise ValueError(f"the int8 kernels pack four k to a word; K = {k} is not a multiple of 4")
@@ -346,14 +421,31 @@ def conv3x3_bn_int8(x, w9_q, s_w9, scale, bias, relu: bool = True) -> torch.Tens
         _build.check_operands(scale, bias, cout, x, s_w9)
         _check_shapes([("s_w9", s_w9, (cout,))])
         _build.check_tensors(w9_q, dtype=torch.int8, device=x.device)
-        out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
-        ptr, c = _build.ptr, _build.cint
-        _build.launch(
-            "direct_int8", "direct_int8_conv3x3_bn", (n, h, w, cin, cout, bool(relu)),
-            x.device, ptr(x), ptr(w9_q), ptr(s_w9), ptr(scale), ptr(bias), ptr(out),
-            c(n), c(h), c(w), c(cin), c(cout), c(relu),
-        )
+        out = conv3x3_bn_int8_planned(
+            x, w9_q, s_w9, scale, bias, relu,
+            direct_int8_plan(n, h, w, cin, cout, _build.sm_count(x.device)))
     return out[0] if squeeze else out
+
+
+def conv3x3_bn_int8_planned(x, w9_q, s_w9, scale, bias, relu: bool,
+                            plan: DirectInt8Plan) -> torch.Tensor:
+    """conv3x3_bn_int8's launch on CUDA tensors under an explicit plan (the
+    wrapper passes direct_int8_plan's; tools/chip_split_sweep.py times
+    others). x: (N, H, W, Cin); operands as conv3x3_bn_int8 checks them."""
+    n, h, w, cin = x.shape
+    cout = w9_q.shape[1]
+    at = plan.workspace(n * h * w, cout)
+    ws = torch.empty(at.words, device=x.device, dtype=torch.float32)
+    out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
+    ptr, c, ll = _build.ptr, _build.cint, ctypes.c_longlong
+    _build.launch(
+        "direct_int8", "direct_int8_conv3x3_bn", (n, h, w, cin, cout, bool(relu)),
+        x.device, ptr(x), ptr(w9_q), ptr(s_w9), ptr(scale), ptr(bias), ptr(out),
+        ptr(ws), ll(at.words), ll(at.sx), ll(at.aq), ll(at.bt), ll(at.part),
+        c(n), c(h), c(w), c(cin), c(cout), c(relu), c(plan.kp), c(DIRECT_INT8_TILE),
+        c(plan.blocks), c(plan.splits), c(plan.chunk),
+    )
+    return out
 
 
 def conv3x3_bn_winograd_int8(x, u_q, s_u, scale, bias, relu: bool = True) -> torch.Tensor:

@@ -1,0 +1,36 @@
+"""How a GEMM kernel of the port splits K over blocks (plain Python, so the
+CPU tests reach it).
+
+A kernel whose output tiles are fewer than the card's SMs leaves SMs idle
+and waits on one block's walk over all of K. Splitting K into ranges, one
+block (or work item) each, multiplies the blocks; the partial sums are then
+added in split order by the kernel (csrc/pointwise.cu, csrc/direct_int8.cu).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+# SMs of an H100 SXM: the number the plans aim at when the device is not
+# named (the wrappers pass the card's own count).
+H100_SMS = 132
+
+
+class Split(NamedTuple):
+    """K as `splits` ranges [s * chunk, min(K, (s + 1) * chunk))."""
+
+    splits: int
+    chunk: int
+
+
+def split_k(k: int, want: int, step: int, min_chunk: int) -> Split:
+    """About `want` ranges of K, each a multiple of `step` long (the kernel's
+    staging step) except the last, and at least `min_chunk` long; one range
+    (chunk = k) when fewer than two are wanted or fit."""
+    if want < 2 or k < 2 * min_chunk:
+        return Split(1, k)
+    chunk = -(-k // want)
+    chunk = max(min_chunk, -(-chunk // step) * step)
+    splits = -(-k // chunk)
+    return Split(splits, chunk) if splits > 1 else Split(1, k)
+
