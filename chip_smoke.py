@@ -58,14 +58,16 @@ Phases, each of which must pass (exit 1 otherwise):
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
    14->7 transition at N=8; both basic stages at N=8 and at one block, the
    ResNet-18 run; the int8 Winograd at N=8, 14x14x256; the pointwise head
-   and conv5_x reduce at N=8; the int8 direct 3x3 at N=8, 7x7x512), on
+   and conv5_x reduce at N=8; the f32 and int8 direct 3x3s at N=8,
+   7x7x512), on
    seeded inputs. Bound: max abs error <= 1e-4 * max(1, max|plain|); the
-   int8 stage, transition and basic stage, whose chained quantizations may
-   flip a rounding on f32-level differences, and the int8 Winograd, whose
-   V is quantized, 1e-3 * max(1, max|plain|); the int8 direct 3x3 (one
-   quantization, an exact int32 sum) 0: equal to its twin. One JSON line
-   per shape: error; the K split of the split-K kernels ("splits":
-   pointwise and direct_int8, from their wrappers' plans); device times of the
+   int8 transition and basic stage, whose chained quantizations may flip a
+   rounding on f32-level differences, and the int8 Winograd, whose V is
+   quantized, 1e-3 * max(1, max|plain|); the int8 direct 3x3 and the int8
+   stage (their twins' arithmetic, exact int32 sums) 0: equal to their
+   twins. One JSON line per shape: error; the K split of the split-K
+   kernels ("splits": pointwise, direct and direct_int8, from their
+   wrappers' plans); device times of the
    kernel, its plain version and the library call (20 calls captured in a
    CUDA graph, the median of 20 replays between CUDA events, divided by 20;
    inputs stay in L2 between calls); "wrapper_ms", one eager wrapper call
@@ -76,8 +78,9 @@ Phases, each of which must pass (exit 1 otherwise):
    the tensor cores, 3.35 TB/s HBM). Operations: int8 MACs x 2 at the INT8
    rate; the bf16 stem's products and the int8 stage's bf16-filter F(2,3)
    products (as two BF16 passes, the JAX kernel's hi/lo split) at the BF16
-   rate; the pointwise kernel's tensor-core products (P > 8) as three TF32
-   passes (its 3xTF32 split) at the TF32 rate; its GEMV's (P <= 8) and the
+   rate; the pointwise kernel's tensor-core products (P > 8) and the direct
+   3x3's as three TF32 passes (their 3xTF32 split) at the TF32 rate; the
+   pointwise GEMV's (P <= 8) and the
    other f32 GEMMs, Winograd transforms, epilogues (4 FLOPs an output) and int8
    quantization (2 a quantized value) at the FP32 rate; the bf16-filter
    Winograd's products as two BF16 passes too. Bytes: each input read once
@@ -165,9 +168,10 @@ SOURCES = {
 }
 # Chained int8 layers, and the int8 Winograd's quantized V: a rounding may
 # flip on f32-level differences.
-CHAINED = ("stage_int8", "transition_int8", "basic_stage_int8", "winograd_int8")
-# One quantization and an exact int32 sum: the kernel equals its twin.
-EXACT = ("direct_int8",)
+CHAINED = ("transition_int8", "basic_stage_int8", "winograd_int8")
+# The twin's arithmetic (quantized once a row, exact int32 sums, epilogues
+# rounded as the twin rounds): the kernel equals its twin.
+EXACT = ("direct_int8", "stage_int8")
 
 
 def _rand(rng, *shape):
@@ -216,7 +220,7 @@ def main() -> int:
     from winograd_tpu_torch.kernels import basic_stage as bs
     from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels.direct import (
-        conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter, im2col3x3,
+        conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter, direct_plan, im2col3x3,
     )
     from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain, split_plan
     from winograd_tpu_torch.kernels.stage import (
@@ -360,9 +364,10 @@ def main() -> int:
     def direct_case(rng, n, h, w, cin, cout, relu):
         x, wt, s, b, lib = conv3x3_inputs(rng, n, h, w, cin, cout)
         w9 = t(direct_filter(wt))
+        p = n * h * w
         return (lambda: conv3x3_bn_direct(x, w9, s, b, relu),
                 lambda: conv3x3_bn_direct_plain(x, w9, s, b, relu),
-                lib, {FP32_FLOPS: 2 * n * h * w * 9 * cin * cout},
+                lib, {TF32_FLOPS: 3 * 2 * p * 9 * cin * cout, FP32_FLOPS: 4 * p * cout},
                 4 * (n * h * w * (cin + cout) + 9 * cin * cout + 2 * cout))
 
     def stem_case(rng, n, h, w, cin, c, precision):
@@ -784,7 +789,8 @@ def main() -> int:
     # Off the served N=1 lists: F(4,3) accuracy at the mode-0 shape; the
     # block at modes 6 and 9; the batched layouts' cases (rows 7, 9, 18 and
     # 20 of the TPU kernel table) at N=8; the conv5_x stage geometry, which
-    # the f32 route runs per layer; the int8 block (row 16) at mode 6.
+    # the f32 route runs per layer; the int8 block (row 16) at mode 6; the
+    # f32 and int8 direct 3x3s at N=8.
     extra = {
         "winograd": [(1, 14, 14, 128, 128, 4, True)],
         "stage": [(1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2"),
@@ -797,10 +803,12 @@ def main() -> int:
         "winograd_int8": [(8, 14, 14, 256, 256, True)],
         "pointwise": [(8, 2048, 1000, False), (392, 2048, 512, True)],
         "direct_int8": [(8, 7, 7, 512, 512, False)],
+        "direct": [(8, 7, 7, 512, 512, True)],
     }
     sms = _build.sm_count(dev)
     splits_of = {
         "pointwise": lambda p, k, n, relu: split_plan(p, k, n, sms).splits,
+        "direct": lambda n, h, w, cin, cout, relu: direct_plan(n, h, w, cin, cout, sms).splits,
         "direct_int8": lambda n, h, w, cin, cout, relu: q8.direct_int8_plan(
             n, h, w, cin, cout, sms).splits,
     }

@@ -7,17 +7,20 @@ and int8 basic stage, the int8 Winograd in both of its branches, the
 bf16-filter Winograd) at N=3, one block, channel counts off 128 and an
 all-zero image (every row's scale 1); the split-K pointwise kernel at the
 served small-P shapes, a ragged last split and one split, bit-identical
-from call to call, and the int8 direct 3x3 on the tensor cores held to
-exact equality with its twin. Needs an NVIDIA GPU and nvcc; skipped
-elsewhere. Run on the card with
+from call to call, the split-K direct 3x3 at its served 7x7x512 shape,
+the int8 direct 3x3 and stage on the tensor cores held to exact equality
+with their twins (the stage at its served shapes too), and every int8
+entry at channel counts that its wrapper pads. Needs an NVIDIA GPU and
+nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 (--noconftest: the repo's conftest imports jax, which the port's machine
 need not have). Bound: 1e-4 * max(1, max|ref|) in float32, TF32 off; the
-int8 stage, transition, basic stage and Winograd, whose quantizations may
-flip a rounding on f32-level differences, 1e-3 * max(1, max|ref|); the
-int8 direct 3x3 (one quantization, an exact int32 sum), 0.
+int8 transition, basic stage and Winograd, whose quantizations may flip a
+rounding on f32-level differences, 1e-3 * max(1, max|ref|); the int8
+direct 3x3 and stage (the same arithmetic as their twins, exact int32
+sums) and the padded int8 entries, 0.
 """
 
 import numpy as np
@@ -26,7 +29,7 @@ import torch
 
 from winograd_tpu_torch.kernels import _build, transforms
 from winograd_tpu_torch.kernels.direct import (
-    conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter,
+    conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter, direct_plan,
 )
 from winograd_tpu_torch.kernels import basic_stage as bs
 from winograd_tpu_torch.kernels import quantized as q8
@@ -68,6 +71,13 @@ def _bn(rng, dev, c):
             _r(rng, dev, c))
 
 
+def _equal(out, ref):
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() == 0.0
+
+
 def _agree(out, ref, rtol=1e-4):
     torch.cuda.synchronize()
     assert out.shape == ref.shape
@@ -105,6 +115,21 @@ def test_direct_ragged(dev, n, h, w, cin, cout):
     s, b = _bn(rng, dev, cout)
     _agree(conv3x3_bn_direct(x, w9, s, b, relu=False),
            conv3x3_bn_direct_plain(x, w9, s, b, relu=False))
+
+
+# The served 7x7x512 3x3 (ResNet-50's conv5_x, ResNet-34's entry b-leg) at
+# N=1 and N=8, K split over blocks; two calls equal to the bit.
+@pytest.mark.parametrize("n", [1, 8])
+def test_direct_split_k_served_shape(dev, n):
+    rng = np.random.default_rng(n)
+    x = _r(rng, dev, n, 7, 7, 512)
+    w9 = torch.as_tensor(direct_filter((rng.random((512, 512, 3, 3)) - 0.5).astype(np.float32)),
+                         device=dev)
+    s, b = _bn(rng, dev, 512)
+    assert direct_plan(n, 7, 7, 512, 512, _build.sm_count(dev)).splits > 1
+    first = conv3x3_bn_direct(x, w9, s, b, relu=True)
+    _agree(first, conv3x3_bn_direct_plain(x, w9, s, b, relu=True))
+    assert torch.equal(first, conv3x3_bn_direct(x, w9, s, b, relu=True))
 
 
 @pytest.mark.parametrize("n,h,w,cin,c", [(2, 30, 30, 3, 16), (1, 33, 31, 3, 64), (1, 17, 18, 4, 24)])
@@ -260,8 +285,44 @@ def test_stage_int8_edges_and_batches(dev, mid, n, hw, cio, cmid, nb):
     rng = np.random.default_rng(n * hw + cio + cmid + nb)
     stacked = _qstacked(rng, dev, nb, cio, cmid)
     x = _r(rng, dev, n, hw, hw, cio).abs()
-    _agree(q8.resnet_stage_int8(x, stacked, mid), q8.resnet_stage_int8_plain(x, stacked, mid),
-           rtol=1e-3)
+    _equal(q8.resnet_stage_int8(x, stacked, mid), q8.resnet_stage_int8_plain(x, stacked, mid))
+
+
+# The served int8 stages on the direct mid (conv4_x at N=1 and N=8, conv5_x)
+# and the winograd2 ones (conv2_x, conv3_x), held to the bit: a last-bit
+# difference here moves a whole quantization step in the next block.
+@pytest.mark.parametrize("n,hw,cio,cmid,nb,mid", [
+    (1, 14, 1024, 256, 5, "direct"), (8, 14, 1024, 256, 5, "direct"),
+    (1, 7, 2048, 512, 2, "direct"), (8, 7, 2048, 512, 2, "direct"),
+    (1, 56, 256, 64, 2, "winograd2"), (1, 28, 512, 128, 3, "winograd2"),
+])
+def test_stage_int8_equals_its_twin(dev, n, hw, cio, cmid, nb, mid):
+    rng = np.random.default_rng(hw + cmid + nb)
+    stacked = _qstacked(rng, dev, nb, cio, cmid)
+    x = _r(rng, dev, n, hw, hw, cio).abs()
+    _equal(q8.resnet_stage_int8(x, stacked, mid), q8.resnet_stage_int8_plain(x, stacked, mid))
+
+
+# Every int8 entry at channel counts off the kernels' four-k words, which
+# the wrappers pad with zero channels: equal to the twins on the unpadded
+# operands.
+@pytest.mark.parametrize("c", [3, 6])
+def test_int8_entries_take_any_channel_count(dev, c):
+    rng = np.random.default_rng(40 + c)
+    x = _r(rng, dev, 2, 7, 5, c).abs()
+    w_q, s_w = _q(rng, dev, c, 12)
+    s, b = _bn(rng, dev, 12)
+    _equal(q8.conv1x1_bn_int8(x, w_q, s_w, s, b, True),
+           q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, True))
+    w9_q, s_w9 = _q(rng, dev, 9 * c, 12)
+    _equal(q8.conv3x3_bn_int8(x, w9_q, s_w9, s, b), q8.conv3x3_bn_int8_plain(x, w9_q, s_w9, s, b))
+    for mid in ("direct", "winograd2"):
+        stacked = _qstacked(rng, dev, 2, c, 6)
+        _equal(q8.resnet_stage_int8(x, stacked, mid), q8.resnet_stage_int8_plain(x, stacked, mid))
+    p = _qtransition(rng, dev, c, 6, 16)
+    _equal(q8.transition_block_int8(x, p), q8.transition_block_int8_plain(x, p))
+    qb = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(_basic_blocks(rng, 2, c)).items()}
+    _equal(bs.basic_stage_int8(x, qb), bs.basic_stage_int8_plain(x, qb))
 
 
 def _qtransition(rng, dev, cin, cmid, cout):
@@ -293,8 +354,9 @@ def test_int8_wrappers_reject_what_the_kernels_do_not_take(dev):
     s, b = _bn(rng, dev, 8)
     with pytest.raises(TypeError):
         q8.conv1x1_bn_int8(x, w_q.float(), s_w, s, b, True)          # weights not int8
-    with pytest.raises(ValueError):
-        q8.conv1x1_bn_int8(x[:, :10].contiguous(), w_q[:10].contiguous(), s_w, s, b, True)  # K % 4
+    x10, w10 = x[:, :10].contiguous(), w_q[:10].contiguous()         # K % 4: padded, taken
+    assert torch.equal(q8.conv1x1_bn_int8(x10, w10, s_w, s, b, True),
+                       q8.conv1x1_bn_int8_plain(x10, w10, s_w, s, b, True))
     with pytest.raises(ValueError):
         q8.conv1x1_bn_int8(x, w_q, s_w[:4], s, b, True)               # s_w not per channel
     stacked = _qstacked(rng, dev, 2, 16, 8)
@@ -392,8 +454,8 @@ def test_basic_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(TypeError):
         bs.basic_stage_fused(x, dict(stacked, w9_a=stacked["w9_a"].double()))
     q = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(_basic_blocks(rng, 1, 6)).items()}
-    with pytest.raises(ValueError):
-        bs.basic_stage_int8(_r(rng, dev, 1, 5, 5, 6), q)                 # C % 4
+    x6 = _r(rng, dev, 1, 5, 5, 6)                                       # C % 4: padded, taken
+    assert torch.equal(bs.basic_stage_int8(x6, q), bs.basic_stage_int8_plain(x6, q))
     u_q = torch.zeros(16, 8, 192, dtype=torch.int8, device=dev)
     s_u, sb = torch.ones(16, 192, device=dev), torch.ones(192, device=dev)
     with pytest.raises(ValueError):

@@ -1,7 +1,7 @@
 """The K-split plans of the port's redesigned GEMM kernels (plain Python, no
 card needed): kernels/splitk.py::split_k, kernels/pointwise.py::split_plan
-(csrc/pointwise.cu) and kernels/quantized.py::direct_int8_plan
-(csrc/direct_int8.cu). Every K index lies in exactly one range, every range
+(csrc/pointwise.cu), kernels/direct.py::direct_plan (csrc/direct.cu) and
+kernels/quantized.py::direct_int8_plan (csrc/direct_int8.cu). Every K index lies in exactly one range, every range
 but the last is a multiple of the kernel's staging step, and tiles x splits
 reach about one wave of SMs where K allows, never more than the kernel's
 blocks in flight. The plans' copies of the kernels' geometry equal the
@@ -14,6 +14,7 @@ import re
 import numpy as np
 import pytest
 
+from winograd_tpu_torch.kernels import direct as dr
 from winograd_tpu_torch.kernels import pointwise as pw
 from winograd_tpu_torch.kernels import quantized as q8
 from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, split_k
@@ -95,6 +96,50 @@ def test_pointwise_plan_follows_the_sm_count():
     small = pw.split_plan(49, 2048, 512, sms=66)
     assert pw.split_plan(196, 128, 256).splits == 1              # below MMA_SPLIT_MIN_K
     assert small.splits == 8 and pw.split_plan(49, 2048, 512, sms=132).splits == 16
+
+
+# The served f32 3x3 of csrc/direct.cu (N, H, W, Cin, Cout), 7x7x512 at N=1
+# and N=8, and its split on 132 SMs: 16 ways at N=1 (8 tiles fill one wave),
+# 9 at N=8 (56 tiles; no block walks more than DIRECT_MAX_CHUNK of K).
+SERVED_DIRECT = {(1, 7, 7, 512, 512): 16, (8, 7, 7, 512, 512): 9}
+
+
+@pytest.mark.parametrize("shape", sorted(SERVED_DIRECT))
+def test_direct_plan_fills_the_card(shape):
+    n, h, w, cin, cout = shape
+    plan = dr.direct_plan(n, h, w, cin, cout)
+    assert plan.splits == SERVED_DIRECT[shape]
+    assert not plan.gemv and plan.tile == pw.MMA_TILE
+    _covers_once(plan, 9 * cin, pw.SPLIT_STEP)
+    assert dr.DIRECT_MIN_CHUNK <= plan.chunk <= dr.DIRECT_MAX_CHUNK
+    assert plan.tiles == -(-n * h * w // pw.MMA_TILE) * -(-cout // pw.MMA_TILE)
+    assert plan.tiles * plan.splits >= 0.9 * H100_SMS            # a wave, or more
+    if plan.tiles * plan.splits > H100_SMS:                        # more only to cap the walk
+        assert plan.chunk == dr.DIRECT_MAX_CHUNK
+    assert dr.direct_plan(n, h, w, cin, cout, sms=66).splits <= plan.splits
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 5, 7, 3, 70), (1, 9, 9, 13, 65),
+                                            (1, 14, 14, 256, 256), (3, 6, 6, 100, 33)])
+def test_direct_plan_and_workspace_on_ragged_shapes(n, h, w, cin, cout):
+    plan = dr.direct_plan(n, h, w, cin, cout)
+    k, p = 9 * cin, n * h * w
+    _covers_once(plan, k, pw.SPLIT_STEP)
+    words = plan.workspace_words(p, cout)
+    if k < pw.MMA_SPLIT_MIN_K:
+        assert plan.splits == 1 and words == 0
+    if plan.splits > 1:
+        counters = words - plan.splits * p * cout
+        assert counters >= plan.tiles and counters % pw.COUNTER_WORDS == 0
+
+
+def test_direct_entry_checks_the_pointwise_geometry():
+    """csrc/direct.cu runs splitk_tf32.cuh's MMA tiles, whose width and split
+    step are mma_tf32.cuh's (checked against the plans above), and refuses
+    a plan of another tile width."""
+    src = (CSRC / "direct.cu").read_text()
+    assert '#include "splitk_tf32.cuh"' in src and "tile != tc::kBM" in src
+    assert "constexpr int kSplitStep = tc::kBK;" in (CSRC / "splitk_tf32.cuh").read_text()
 
 
 # The served int8 3x3s of csrc/direct_int8.cu (N, H, W, Cin, Cout) and

@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct_int8.cu)
-on one CUDA card, and an A/B of their wrappers against another checkout.
+"""K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct.cu,
+csrc/direct_int8.cu) on one CUDA card, and an A/B of their wrappers (and of
+the int8 stage's, csrc/stage_int8.cu) against another checkout.
 
     python3 tools/chip_split_sweep.py             # the sweep
     python3 tools/chip_split_sweep.py --ab DIR    # the A/B against DIR
 
 Run from the repository root on a machine with a CUDA card and nvcc. The
-shapes are each served shape of the two kernels (the four served forwards
-of chip_smoke.py at N=1 and N=8). Every timed call is first held against
-its plain twin (pointwise within 1e-4 * max(1, max|plain|), direct_int8
-exactly). Device ms per call: 20 calls in one CUDA graph, the median of 20
+shapes are each served shape of the kernels (the four served forwards of
+chip_smoke.py at N=1 and N=8). Every timed call is first held against its
+plain twin (pointwise and direct within 1e-4 * max(1, max|plain|),
+direct_int8 and stage_int8 exactly). Device ms per call: 20 calls in one CUDA graph, the median of 20
 replays between CUDA events, inputs in L2. The card's name and power limit
 come first, then one JSON line per shape and candidate.
 
@@ -18,7 +19,8 @@ The sweep times each shape under the K split its wrapper's plan picks
 1, 2, 4, ..., 32 wanted ranges.
 
 --ab DIR times the public wrappers (kernels/pointwise.py::conv1x1_bn,
-kernels/quantized.py::conv3x3_bn_int8) of the checkout DIR (for example an
+kernels/direct.py::conv3x3_bn_direct, kernels/quantized.py::conv3x3_bn_int8
+and ::resnet_stage_int8) of the checkout DIR (for example an
 unpacked `git archive` of another commit under build/) and of this one,
 each in a process of its own that imports that checkout's package and
 builds its kernels there, in turns DIR, this, this, DIR, on the same
@@ -44,11 +46,19 @@ POINTWISE = [  # (P, K, N, relu)
     (196, 1152, 256, True), (196, 128, 256, False), (392, 2048, 512, True),
     (784, 576, 128, True), (784, 64, 128, False), (3136, 64, 64, True), (3136, 64, 256, False),
 ]
+DIRECT = [  # (N, H, W, Cin, Cout, relu)
+    (1, 7, 7, 512, 512, True), (8, 7, 7, 512, 512, True),
+]
+STAGE_INT8 = [  # (N, H, W, Cio, Cmid, blocks, mid): A/B only (its plan is the kernel's)
+    (1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
+    (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
+    (8, 14, 14, 1024, 256, 5, "direct"),
+]
 DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
     (1, 56, 56, 64, 64, True), (1, 7, 7, 512, 512, False), (8, 7, 7, 512, 512, False),
     (8, 56, 56, 64, 64, True),
 ]
-WANTS = (1, 2, 4, 8, 16, 32)
+WANTS = (1, 2, 4, 8, 16, 32, 64)
 
 
 def device_ms(fn, calls=20, reps=20, warmup=2):
@@ -83,7 +93,8 @@ def cases(dev):
 
     from winograd_tpu_torch.kernels import pointwise as pw
     from winograd_tpu_torch.kernels import quantized as q8
-    from winograd_tpu_torch.kernels.direct import direct_filter
+    from winograd_tpu_torch.kernels import transforms
+    from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct_plain, direct_filter
 
     rng = np.random.default_rng(0)
 
@@ -99,6 +110,30 @@ def cases(dev):
         tol = 1e-4 * max(1.0, ref.abs().max().item())
         yield ("pointwise", (p, k, n, relu), (x, w, s, b, relu), ref,
                lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for n, h, wd, cin, cout, relu in DIRECT:
+        x = rand(n, h, wd, cin)
+        w9 = t(direct_filter((rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)))
+        s, b = t((rng.random(cout) * 0.5).astype(np.float32)), rand(cout)
+        ref = conv3x3_bn_direct_plain(x, w9, s, b, relu)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        yield ("direct", (n, h, wd, cin, cout, relu), (x, w9, s, b, relu), ref,
+               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for n, h, wd, cio, cmid, nb, mid in STAGE_INT8:
+        blocks = []
+        for _ in range(nb):
+            wm = (rng.random((cmid, cmid, 3, 3)) - 0.5).astype(np.float32)
+            blocks.append(dict(
+                w_reduce=(rng.random((cio, cmid)) - 0.5).astype(np.float32),
+                s_reduce=(rng.random(cmid) * 0.5).astype(np.float32), b_reduce=rand(cmid).cpu(),
+                u2_mid=transforms.transform_filter(wm, m=2), w9_mid=direct_filter(wm),
+                s_mid=(rng.random(cmid) * 0.5).astype(np.float32), b_mid=rand(cmid).cpu(),
+                w_expand=(rng.random((cmid, cio)) - 0.5).astype(np.float32),
+                s_expand=(rng.random(cio) * 0.5).astype(np.float32), b_expand=rand(cio).cpu()))
+        qs = {k: v.to(dev) for k, v in q8.quantize_stage_params(blocks).items()}
+        x = rand(n, h, wd, cio).abs()
+        ref = q8.resnet_stage_int8_plain(x, qs, mid)
+        yield ("stage_int8", (n, h, wd, cio, cmid, nb, mid), (x, qs, mid), ref,
+               lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
     for n, h, wd, cin, cout, relu in DIRECT_INT8:
         x = rand(n, h, wd, cin)
         w9_q, s_w9 = (t(a) for a in q8.quantize_weights(
@@ -112,11 +147,13 @@ def cases(dev):
 def wrappers(dev) -> bool:
     """One A/B turn: each shape's public wrapper of the imported checkout."""
     from winograd_tpu_torch.kernels import _build
+    from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct
     from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
-    from winograd_tpu_torch.kernels.quantized import conv3x3_bn_int8
+    from winograd_tpu_torch.kernels.quantized import conv3x3_bn_int8, resnet_stage_int8
 
     _build.build_all()
-    call = {"pointwise": conv1x1_bn, "direct_int8": conv3x3_bn_int8}
+    call = {"pointwise": conv1x1_bn, "direct": conv3x3_bn_direct,
+            "direct_int8": conv3x3_bn_int8, "stage_int8": resnet_stage_int8}
     ok = True
     for name, shape, args, _, agrees in cases(dev):
         fn = (lambda f=call[name], args=args: f(*args))
@@ -147,6 +184,7 @@ def sweep(dev) -> bool:
     import torch
 
     from winograd_tpu_torch.kernels import _build
+    from winograd_tpu_torch.kernels import direct as dr
     from winograd_tpu_torch.kernels import pointwise as pw
     from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels.splitk import split_k
@@ -155,10 +193,15 @@ def sweep(dev) -> bool:
     sms = _build.sm_count(dev)
     ok = True
     for name, shape, args, ref, agrees in cases(dev):
+        if name == "stage_int8":
+            continue
         if name == "pointwise":
             p, k, n, _ = shape
             chosen = pw.split_plan(p, k, n, sms)
             kp, step, run = k, pw.SPLIT_STEP, pw.conv1x1_bn_planned
+        elif name == "direct":
+            chosen = dr.direct_plan(*shape[:5], sms)
+            kp, step, run = 9 * shape[3], pw.SPLIT_STEP, dr.conv3x3_bn_direct_planned
         else:
             chosen = q8.direct_int8_plan(*shape[:5], sms)
             kp, step, run = chosen.kp, q8.DIRECT_INT8_STEP, q8.conv3x3_bn_int8_planned

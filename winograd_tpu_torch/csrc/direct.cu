@@ -2,68 +2,88 @@
 // out[(n,y,x), co] = sum_k im2col[(n,y,x), k] w9[k, co], k = (3r+s)*Cin + c.
 //
 // Replaces: winograd_tpu/kernels/direct.py::_direct_kernel
-// (conv3x3_bn_direct_pallas). On the served ResNet-50 path it runs the 3x3
-// of every conv4_x (14x14x256) and conv5_x (7x7x512) identity block.
+// (conv3x3_bn_direct_pallas). On the served paths it runs ResNet-50's two
+// conv5_x identity 3x3s at 7x7x512 (the f32 route runs conv5_x per layer)
+// and ResNet-34's conv5_x entry b-leg at 7x7x512.
 //
-// Bound on the H100: 2*H*W*9*Cin*Cout FLOPs against
-// 4*(H*W*(Cin+Cout) + 9*Cin*Cout) bytes. At 14x14x256 that is 231 MFLOP on
-// 2.8 MB (84 FLOP/byte, bound by the FP32 FFMA rate); at 7x7x512 it is
-// 231 MFLOP on 9.6 MB of mostly weights (24 FLOP/byte, near the ridge).
+// Bound on the H100: at 7x7x512, 231 MFLOP (three TF32 passes: 1.4 us at
+// 495 TFLOP/s) on 9.4 MB of f32 weights (2.8 us at 3.35 TB/s): bytes. But
+// 49 rows and 512 columns are 8 output tiles of 64 x 64: a kernel that gives
+// each tile one block leaves 124 of 132 SMs idle, and each block's walk
+// over K = 4608 alone is the time.
 //
-// Design: the im2col matrix is never written to device memory. Each block
-// gathers its (64 rows x 16 k) slice of it straight from the NHWC input
-// into shared memory, zero where the 3x3 window leaves the map, and runs
-// the same FP32 FFMA tile as the pointwise kernel (gemm.cuh), with BN and
-// ReLU in the epilogue. The gather re-reads each input pixel up to 9 times
-// from L2; at these map sizes the whole input stays in L2.
+// Design: splitk_tf32.cuh's split-K MMA kernel, the pointwise kernel's, with
+// A an implicit im2col. The 64 x 64 tiles run in 3xTF32 on the tensor cores
+// (mma_tf32.cuh, FP32-level error), A and B staged by cp.async in a 4-deep
+// ring; the im2col matrix is never written: a copy of A names the source
+// pixel of its k (the window (r, s) = divmod(k / Cin, 3)) or zero-fills
+// where the window leaves the map. Where Cin % 4 == 0 four consecutive k
+// lie in one window and one pixel, so A moves in 16-byte copies; other Cin
+// take the 4-byte copies. K is split over blocks by the host's plan
+// (kernels/direct.py::direct_plan) until tiles x splits reach about two
+// blocks an SM; the last block of a tile adds the splits' f32 partials in
+// split order and applies BN (+ ReLU), so calls repeat to the bit. This
+// entry checks the plan against the geometry compiled here.
+
+#include <stdint.h>
 
 #include "common.cuh"
-#include "gemm.cuh"
+#include "splitk_tf32.cuh"
 
 namespace {
 
+namespace tc = wt::tf32x3;
+namespace sk = wt::splitk;
+
+// The stride-1 pad-1 3x3 im2col rows of an (N, H, W, C) map as an A source:
+// at(p, k) is the address of the input value at row p = (n, y, x) and
+// k = (3r + s) * C + c, or null past P or where the window leaves the map.
 struct Im2colA {
   const float* __restrict__ x;
-  int H, W, C;
-  __device__ __forceinline__ float operator()(int p, int k) const {
+  int H, W, C, P;
+  __device__ __forceinline__ const float* base() const { return x; }
+  __device__ __forceinline__ const float* at(int p, int k) const {
+    if (p >= P) return nullptr;
     const int rs = k / C;
     const int c = k - rs * C;
-    const int r = rs / 3;
-    const int s = rs - 3 * r;
     const int hw = H * W;
     const int n = p / hw;
     const int q = p - n * hw;
-    const int y = q / W + r - 1;
-    const int xx = q % W + s - 1;
-    if (y < 0 || y >= H || xx < 0 || xx >= W) return 0.f;
-    return x[(static_cast<size_t>(n * H + y) * W + xx) * C + c];
+    const int y = q / W + rs / 3 - 1;
+    const int xx = q % W + rs % 3 - 1;
+    if (y < 0 || y >= H || xx < 0 || xx >= W) return nullptr;
+    return x + (static_cast<size_t>(n * H + y) * W + xx) * C + c;
   }
 };
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-__global__ void __launch_bounds__(wt::kGemmThreads) direct_kernel(
-    const float* __restrict__ x, const float* __restrict__ w9,
-    const float* __restrict__ scale, const float* __restrict__ bias,
-    float* __restrict__ out, int N, int H, int W, int Cin, int Cout,
-    int relu) {
-  __shared__ __align__(16) float smem[wt::kGemmSmemFloats];
-  wt::gemm_bn_tile(Im2colA{x, H, W, Cin}, w9, scale, bias, out, N * H * W,
-                   9 * Cin, Cout, relu, blockIdx.y * wt::kBM,
-                   blockIdx.x * wt::kBN, smem);
-}
-
-extern "C" int direct_conv3x3_bn(const float* x, const float* w9,
-                                 const float* scale, const float* bias,
-                                 float* out, int N, int H, int W, int Cin,
-                                 int Cout, int relu, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
+// The host's plan (kernels/direct.py::direct_plan): `tile` is the width of
+// the output tiles and must be this library's (64); K = 9 * Cin in `splits`
+// ranges of `chunk`, the last one shorter, chunk a multiple of
+// sk::kSplitStep when splits > 1. ws (may be null at one split): one counter
+// per output tile from word 0, the splits x P x Cout partial sums from word
+// `part` (a multiple of 4), ws_words words in all.
+extern "C" int direct_conv3x3_bn(const float* x, const float* w9, const float* scale,
+                                 const float* bias, float* out, float* ws, long long ws_words,
+                                 long long part, int N, int H, int W, int Cin, int Cout,
+                                 int relu, int tile, int splits, int chunk, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || tile != tc::kBM)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int P = N * H * W;
-  const dim3 grid((Cout + wt::kBN - 1) / wt::kBN, (P + wt::kBM - 1) / wt::kBM);
-  direct_kernel<<<grid, wt::kGemmThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(x, w9, scale, bias, out,
-                                                       N, H, W, Cin, Cout,
-                                                       relu);
-  return static_cast<int>(cudaGetLastError());
+  const int P = N * H * W, K = 9 * Cin;
+  const int tiles = (P + tile - 1) / tile * ((Cout + tile - 1) / tile);
+  if (!sk::plan_fits(P, K, Cout, tiles, splits, chunk, ws_words, part))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  sk::Args a{x, w9, scale, bias, out, nullptr, nullptr, P, K, Cout, relu, splits, chunk};
+  cudaError_t e = sk::bind_workspace(a, ws, part, tiles, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Im2colA src{x, H, W, Cin, P};
+  if (Cin % 4 == 0 && Cout % 4 == 0 && aligned16(x) && aligned16(w9) && aligned16(out))
+    e = sk::launch_mma<true>(a, src, tiles, s);
+  else
+    e = sk::launch_mma<false>(a, src, tiles, s);
+  return static_cast<int>(e);
 }

@@ -44,55 +44,6 @@ namespace s8 = wt::s8mma;
 
 constexpr int kSplitStep = s8::kBK;
 
-// The stride-1 pad-1 3x3 im2col rows of an (N, H, W, 4 * C4) map, four
-// channels at a time; kVec: x is 16-byte aligned. A walk over a row's
-// float4s goes window by window (rs = 3r + s): it holds the float4 c4
-// within the window and the window's source pixel, worked out when the walk
-// enters the window (null where the window leaves the map).
-template <bool kVec>
-struct Im2colRows {
-  const float* x;
-  int H, W, C4;
-  struct Row {
-    int n, y, x;
-  };
-  struct Walk {
-    const float* px;
-    int rs, c4;
-  };
-  __device__ __forceinline__ Row row(int p) const {
-    const int hw = H * W;
-    const int n = p / hw, q = p - n * hw;
-    return Row{n, q / W, q % W};
-  }
-  __device__ __forceinline__ const float* window(const Row& r, int rs) const {
-    if (rs >= 9) return nullptr;
-    const int y = r.y + rs / 3 - 1, xx = r.x + rs % 3 - 1;
-    if (y < 0 || y >= H || xx < 0 || xx >= W) return nullptr;
-    return x + (static_cast<size_t>(r.n * H + y) * W + xx) * (4 * C4);
-  }
-  // The walk at float4 j of the row (one division a walk).
-  __device__ __forceinline__ Walk walk(const Row& r, int j) const {
-    const int rs = j / C4;
-    return Walk{window(r, rs), rs, j - rs * C4};
-  }
-  __device__ __forceinline__ void next(const Row& r, Walk& it, int step) const {
-    it.c4 += step;
-    if (it.c4 < C4) return;
-    do {
-      it.c4 -= C4;
-      ++it.rs;
-    } while (it.c4 >= C4);
-    it.px = window(r, it.rs);
-  }
-  __device__ __forceinline__ float4 load(const Walk& it) const {
-    if (it.px == nullptr) return make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* src = it.px + 4 * it.c4;
-    if (kVec) return __ldg(reinterpret_cast<const float4*>(src));
-    return make_float4(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3));
-  }
-};
-
 struct Args {
   const float* x;
   const int8_t* w9q;  // (K, Cout)
@@ -113,8 +64,8 @@ __global__ void __launch_bounds__(s8::kThreads) direct_int8_kernel(Args a) {
   __shared__ __align__(16) int8_t smem[s8::kSmemBytes];
   __shared__ float red[s8::kThreads / 32];
   const int P = a.N * a.H * a.W, K = 9 * a.Cin;
-  s8::quantize_rows_phase(Im2colRows<kVec>{a.x, a.H, a.W, a.Cin / 4}, P, K, a.Kp, a.aq, a.sx,
-                          red);
+  s8::quantize_rows_phase(s8::Im2colRows<kVec, false>{a.x, a.H, a.W, a.Cin / 4}, P, K, a.Kp,
+                          a.aq, a.sx, red);
   s8::transpose_phase(a.w9q, K, a.Cout, a.Kp, a.bt);
   wt::grid_sync(a.bar);
   s8::gemm_phase(a.aq, a.bt, a.sx, P, a.Cout, a.Kp, a.splits, a.chunk,

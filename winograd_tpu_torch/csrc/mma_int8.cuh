@@ -9,9 +9,9 @@
 // of kernels/quantized.py to the bit. What differs is where the work is
 // done:
 // * quantize_rows_phase: each row's scale and int8 values are computed once,
-//   by a group of 1-8 warps that walks the row in float4s through a loader,
-//   and stored as a (P, Kp) int8 matrix (Kp = K rounded up to kKAlign, zero
-//   past K) with the scales beside it.
+//   by a group of 1-8 warps that walks the row in float4s through a loader
+//   (RowsCg4, Im2colRows), and stored as a (P, Kp) int8 matrix (Kp = K
+//   rounded up to kKAlign, zero past K) with the scales beside it.
 // * transpose_phase: mma.sync's B operand is k-contiguous per column, the
 //   weights are (K, N) n-contiguous; each launch writes them once as an
 //   (N, Kp) int8 matrix, zero past K (2.4 MB at 7x7x512, L2-resident for
@@ -64,28 +64,117 @@ __device__ __forceinline__ float abs_max4(float m, float4 v) {
   return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
 }
 
+// Four floats from src: one 16-byte load where kVec (src 16-byte aligned),
+// else four; through L2 only where kCg (data written earlier in the launch,
+// see grid_sync.cuh), else the read-only path.
+template <bool kVec, bool kCg>
+__device__ __forceinline__ float4 load4(const float* src) {
+  if (kVec) {
+    const float4* p = reinterpret_cast<const float4*>(src);
+    return kCg ? __ldcg(p) : __ldg(p);
+  }
+  if (kCg) return make_float4(__ldcg(src), __ldcg(src + 1), __ldcg(src + 2), __ldcg(src + 3));
+  return make_float4(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3));
+}
+
+// Loaders for quantize_rows_phase.
+//
+// The rows of a row-major (P, ld) float matrix, ld % 4 == 0, 16-byte
+// aligned, written earlier in the launch.
+struct RowsCg4 {
+  const float* x;
+  int ld;
+  using Row = const float*;
+  using Walk = const float*;
+  __device__ __forceinline__ Row row(int p) const { return x + static_cast<size_t>(p) * ld; }
+  __device__ __forceinline__ Walk walk(Row r, int j) const { return r + 4 * j; }
+  __device__ __forceinline__ void next(Row, Walk& it, int step) const { it += 4 * step; }
+  __device__ __forceinline__ float4 load(Walk it) const { return load4<true, true>(it); }
+};
+
+// The stride-1 pad-1 3x3 im2col rows of an (N, H, W, 4 * C4) map, four
+// channels at a time; kVec: x is 16-byte aligned; kCg: x was written
+// earlier in the launch. A walk over a row's float4s goes window by window
+// (rs = 3r + s): it holds the float4 c4 within the window and the window's
+// source pixel, worked out when the walk enters the window (null where the
+// window leaves the map).
+template <bool kVec, bool kCg>
+struct Im2colRows {
+  const float* x;
+  int H, W, C4;
+  struct Row {
+    int n, y, x;
+  };
+  struct Walk {
+    const float* px;
+    int rs, c4;
+  };
+  __device__ __forceinline__ Row row(int p) const {
+    const int hw = H * W;
+    const int n = p / hw, q = p - n * hw;
+    return Row{n, q / W, q % W};
+  }
+  __device__ __forceinline__ const float* window(const Row& r, int rs) const {
+    if (rs >= 9) return nullptr;
+    const int y = r.y + rs / 3 - 1, xx = r.x + rs % 3 - 1;
+    if (y < 0 || y >= H || xx < 0 || xx >= W) return nullptr;
+    return x + (static_cast<size_t>(r.n * H + y) * W + xx) * (4 * C4);
+  }
+  // The walk at float4 j of the row (one division a walk).
+  __device__ __forceinline__ Walk walk(const Row& r, int j) const {
+    const int rs = j / C4;
+    return Walk{window(r, rs), rs, j - rs * C4};
+  }
+  __device__ __forceinline__ void next(const Row& r, Walk& it, int step) const {
+    it.c4 += step;
+    if (it.c4 < C4) return;
+    do {
+      it.c4 -= C4;
+      ++it.rs;
+    } while (it.c4 >= C4);
+    it.px = window(r, it.rs);
+  }
+  __device__ __forceinline__ float4 load(const Walk& it) const {
+    if (it.px == nullptr) return make_float4(0.f, 0.f, 0.f, 0.f);
+    return load4<kVec, kCg>(it.px + 4 * it.c4);
+  }
+};
+
 // Quantize rows p < P of a (P, K) float matrix, K % 4 == 0, read through
 // `a` (a.row(p) once per row; a.walk(row, j) a walk at float4 j, k = 4j;
 // a.load(walk) its four values; a.next(row, walk, step) on by `step`
 // float4s), into aq (P, Kp) int8 (zero for K <= k < Kp) and their scales
-// into sx[p]. Rows are dealt to groups of warps across the grid; `red`:
-// kThreads / 32 floats of shared memory. The caller places the barrier.
+// into sx[p]. Rows are dealt to groups of warps across the grid, enough
+// warps a row that a lane holds at most kRowVecs float4s of it; a lane
+// issues its loads together and keeps the values in registers for the
+// quantizing pass (a row longer than 8 warps' registers reloads the rest).
+// `red`: kThreads / 32 floats of shared memory. The caller places the
+// barrier.
+constexpr int kRowVecs = 8;
+
 template <class Loader>
 __device__ __forceinline__ void quantize_rows_phase(const Loader& a, int P, int K, int Kp,
                                                     int8_t* aq, float* sx, float* red) {
   const int k4 = K / 4, kp4 = Kp / 4;
-  int wpr = 1;  // warps a row: at most eight float4s a thread, or all 8 warps
-  while (wpr < kThreads / 32 && k4 > 8 * 32 * wpr) wpr *= 2;
+  int wpr = 1;  // warps a row
+  while (wpr < kThreads / 32 && k4 > kRowVecs * 32 * wpr) wpr *= 2;
   const int rows = kThreads / 32 / wpr;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int first = warp / wpr * wpr, gi = (warp - first) * 32 + lane, gn = 32 * wpr;
   for (int base = blockIdx.x * rows; base < P; base += gridDim.x * rows) {
     const int p = base + warp / wpr;
+    float4 v[kRowVecs];
     float m = 0.f;
     if (p < P) {
       const auto row = a.row(p);
       auto it = a.walk(row, gi);
-      for (int j = gi; j < k4; j += gn, a.next(row, it, gn)) m = abs_max4(m, a.load(it));
+#pragma unroll
+      for (int i = 0; i < kRowVecs; ++i, a.next(row, it, gn))
+        v[i] = gi + i * gn < k4 ? a.load(it) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int i = 0; i < kRowVecs; ++i) m = abs_max4(m, v[i]);
+      for (int j = gi + kRowVecs * gn; j < k4; j += gn, a.next(row, it, gn))
+        m = abs_max4(m, a.load(it));
     }
     m = warp_max(m);
     if (lane == 0) red[warp] = m;
@@ -93,13 +182,18 @@ __device__ __forceinline__ void quantize_rows_phase(const Loader& a, int P, int 
     for (int w = first; w < first + wpr; ++w) m = fmaxf(m, red[w]);
     const float s = scale_from_max(m);
     if (p < P) {
-      const auto row = a.row(p);
       unsigned* dst = reinterpret_cast<unsigned*>(aq + static_cast<size_t>(p) * Kp);
-      auto it = a.walk(row, gi);
-      for (int j = gi; j < k4; j += gn, a.next(row, it, gn)) {
-        const float4 v = a.load(it);
-        dst[j] = static_cast<unsigned>(
-            pack4(quantize(v.x, s), quantize(v.y, s), quantize(v.z, s), quantize(v.w, s)));
+      const auto q4 = [&](const float4& u) {
+        return static_cast<unsigned>(
+            pack4(quantize(u.x, s), quantize(u.y, s), quantize(u.z, s), quantize(u.w, s)));
+      };
+#pragma unroll
+      for (int i = 0; i < kRowVecs; ++i)
+        if (gi + i * gn < k4) dst[gi + i * gn] = q4(v[i]);
+      if (gi + kRowVecs * gn < k4) {
+        const auto row = a.row(p);
+        auto it = a.walk(row, gi + kRowVecs * gn);
+        for (int j = gi + kRowVecs * gn; j < k4; j += gn, a.next(row, it, gn)) dst[j] = q4(a.load(it));
       }
       for (int j = k4 + gi; j < kp4; j += gn) dst[j] = 0u;
       if (gi == 0) sx[p] = s;
@@ -108,15 +202,41 @@ __device__ __forceinline__ void quantize_rows_phase(const Loader& a, int P, int 
   }
 }
 
-// bt[n][k] = b[k][n] for k < K and 0 for K <= k < Kp: the (K, N) int8
-// weights as (N, Kp), sixteen k a thread, grid-wide. The caller places the
-// barrier.
-__device__ __forceinline__ void transpose_phase(const int8_t* __restrict__ b, int K, int N,
-                                                int Kp, int8_t* bt) {
-  const long long items = static_cast<long long>(Kp / 16) * N;
-  for (long long item = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-       item < items; item += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const int kg = static_cast<int>(item / N), n = static_cast<int>(item % N);
+// The transpose of (K, N) int8 weights b into bt (N, Kp), k-contiguous, zero
+// for K <= k < Kp, cut into items of sixteen k: of four columns each, one
+// 4-byte load a k, where N % 4 == 0 and b is 4-byte aligned (vec), else of
+// one column.
+struct Transpose {
+  const int8_t* __restrict__ b;
+  int K, N, Kp;
+  int8_t* bt;
+  __device__ __forceinline__ bool vec() const {
+    return N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 4 == 0;
+  }
+  __device__ __forceinline__ long long items() const {
+    return static_cast<long long>(Kp / 16) * (vec() ? N / 4 : N);
+  }
+  __device__ __forceinline__ void item(long long i) const {
+    if (vec()) {
+      const int n4s = N / 4;
+      const int kg = static_cast<int>(i / n4s), n4 = static_cast<int>(i % n4s);
+      unsigned w[4][4] = {};  // [column][word]
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int k = kg * 16 + j;
+        const unsigned v =
+            k < K ? __ldg(reinterpret_cast<const unsigned*>(b + static_cast<size_t>(k) * N) + n4)
+                  : 0u;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) w[c][j / 4] |= ((v >> (8 * c)) & 0xffu) << (8 * (j % 4));
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        *reinterpret_cast<uint4*>(bt + static_cast<size_t>(4 * n4 + c) * Kp + kg * 16) =
+            make_uint4(w[c][0], w[c][1], w[c][2], w[c][3]);
+      return;
+    }
+    const int kg = static_cast<int>(i / N), n = static_cast<int>(i % N);
     unsigned w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
@@ -128,6 +248,17 @@ __device__ __forceinline__ void transpose_phase(const int8_t* __restrict__ b, in
     *reinterpret_cast<uint4*>(bt + static_cast<size_t>(n) * Kp + kg * 16) =
         make_uint4(w[0], w[1], w[2], w[3]);
   }
+};
+
+// Every item of one transpose, dealt to the whole grid. The caller places
+// the barrier.
+__device__ __forceinline__ void transpose_phase(const int8_t* __restrict__ b, int K, int N,
+                                                int Kp, int8_t* bt) {
+  const Transpose t{b, K, N, Kp, bt};
+  const long long items = t.items();
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < items;
+       i += static_cast<long long>(gridDim.x) * blockDim.x)
+    t.item(i);
 }
 
 // One stage: aq[p0 .. p0+63, kb .. kb+63] and bt[n0 .. n0+63, kb .. kb+63],
@@ -210,19 +341,24 @@ __device__ __forceinline__ void tile(const int8_t* aq, const int8_t* bt, int P, 
   __syncthreads();
 }
 
-// Calls f(row, col, value) for each of the thread's 16 accumulators, with
-// row and col relative to the tile's corner.
+// The row and column, relative to the tile's corner, of this thread's
+// accumulator acc[mi][ni][e].
+__device__ __forceinline__ int acc_row(int mi, int e) {
+  return threadIdx.x / 32 / 4 * 32 + threadIdx.x % 32 / 4 + mi * 16 + e / 2 * 8;
+}
+__device__ __forceinline__ int acc_col(int ni, int e) {
+  return threadIdx.x / 32 % 4 * 16 + threadIdx.x % 4 * 2 + ni * 8 + e % 2;
+}
+
+// Calls f(row, col, value) for each of the thread's 16 accumulators.
 template <class F>
 __device__ __forceinline__ void for_each_acc(const Acc& acc, const F& f) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int r0 = warp / 4 * 32 + lane / 4, c0 = warp % 4 * 16 + lane % 4 * 2;
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        f(r0 + mi * 16 + e / 2 * 8, c0 + ni * 8 + e % 2, acc[mi][ni][e]);
+      for (int e = 0; e < 4; ++e) f(acc_row(mi, e), acc_col(ni, e), acc[mi][ni][e]);
 }
 
 // C = aq x bt^T over the whole phase, every output through
@@ -259,8 +395,14 @@ __device__ __forceinline__ void gemm_phase(const int8_t* aq, const int8_t* bt, c
   const size_t pn = static_cast<size_t>(P) * N;
   for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < pn;
        i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    int s = __ldcg(part + i);
-    for (int k = 1; k < splits; ++k) s += __ldcg(part + k * pn + i);
+    int s = 0;
+    for (int k0 = 0; k0 < splits; k0 += 8) {  // eight splits' loads in flight
+      int v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = k0 + u < splits ? __ldcg(part + (k0 + u) * pn + i) : 0;
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s += v[u];
+    }
     const int p = static_cast<int>(i / N);
     epi(p, static_cast<int>(i % N), s, __ldcg(sx + p));
   }

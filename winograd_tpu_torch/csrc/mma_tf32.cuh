@@ -1,6 +1,9 @@
 // A 64 x 64 FP32 GEMM tile on the tensor cores in 3xTF32, fed by a ring of
-// cp.async stages: acc = A[p0.., k0:k1] x B[k0:k1, n0..] with A (P, K) and
-// B (K, N) row-major in device memory.
+// cp.async stages: acc = A[p0.., k0:k1] x B[k0:k1, n0..] with B (K, N)
+// row-major in device memory and A given by a source that names, for a row
+// p and a k, the address of A[p, k] or "zero" (RowMajorA: a (P, K) matrix;
+// csrc/direct.cu's implicit im2col: zero where the 3x3 window leaves the
+// map).
 //
 // 3xTF32: every operand x is split as hi = tf32(x) (cvt.rna, 10 explicit
 // mantissa bits) and lo = tf32(x - hi), and each k step accumulates
@@ -16,11 +19,11 @@
 // static shared memory: the kernel needs cudaFuncSetAttribute). A rows are
 // padded to 36 floats and B rows to 72, so the fragment loads of a warp hit
 // 32 distinct banks. kVec selects 16-byte copies (K and N multiples of 4,
-// operands 16-byte aligned) or 4-byte ones (any shape); both zero-fill past
-// P, N and k1.
+// operands 16-byte aligned; the A source's four floats from a k that is a
+// multiple of 4 lie in one row of memory) or 4-byte ones (any shape); both
+// zero-fill past N and k1 and where the A source says zero.
 //
-// Shared by csrc/pointwise.cu; the later per-layer and persistent f32
-// kernels can walk their tiles with it.
+// Shared by csrc/pointwise.cu and csrc/direct.cu (through splitk_tf32.cuh).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -61,19 +64,36 @@ __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// A row-major (P, K) matrix as an A source: at(p, k) is the address of
+// A[p, k], or null past P; base() a global address of A for the zero-filling
+// copies, which read nothing. (The caller keeps k < K.)
+struct RowMajorA {
+  const float* __restrict__ a;
+  int P, K;
+  __device__ __forceinline__ const float* base() const { return a; }
+  __device__ __forceinline__ const float* at(int p, int k) const {
+    return p < P ? a + static_cast<size_t>(p) * K + k : nullptr;
+  }
+};
+
+template <class ASrc>
+__device__ __forceinline__ const float* a_source(const ASrc& a, int p, int k, int k1) {
+  return k < k1 ? a.at(p, k) : nullptr;
+}
+
 // One stage: A[p0 .. p0+63, kb .. kb+31] and B[kb .. kb+31, n0 .. n0+63].
-template <bool kVec>
-__device__ __forceinline__ void load_stage(float* sa, float* sb, const float* __restrict__ a,
-                                           const float* __restrict__ b, int P, int K, int N,
-                                           int p0, int n0, int kb, int k1) {
+template <bool kVec, class ASrc>
+__device__ __forceinline__ void load_stage(float* sa, float* sb, const ASrc& a,
+                                           const float* __restrict__ b, int N, int p0, int n0,
+                                           int kb, int k1) {
   const int tid = threadIdx.x;
   if (kVec) {
 #pragma unroll
     for (int i = 0; i < kBM * kBK / 4 / kThreads; ++i) {
       const int idx = tid + i * kThreads;
       const int r = idx / (kBK / 4), c = idx % (kBK / 4) * 4;
-      const bool ok = p0 + r < P && kb + c < k1;
-      cp_async16(sa + r * kLdA + c, ok ? a + static_cast<size_t>(p0 + r) * K + kb + c : a, ok);
+      const float* src = a_source(a, p0 + r, kb + c, k1);
+      cp_async16(sa + r * kLdA + c, src ? src : a.base(), src != nullptr);
     }
 #pragma unroll
     for (int i = 0; i < kBK * kBN / 4 / kThreads; ++i) {
@@ -87,8 +107,8 @@ __device__ __forceinline__ void load_stage(float* sa, float* sb, const float* __
     for (int i = 0; i < kBM * kBK / kThreads; ++i) {
       const int idx = tid + i * kThreads;
       const int r = idx / kBK, c = idx % kBK;
-      const bool ok = p0 + r < P && kb + c < k1;
-      cp_async4(sa + r * kLdA + c, ok ? a + static_cast<size_t>(p0 + r) * K + kb + c : a, ok);
+      const float* src = a_source(a, p0 + r, kb + c, k1);
+      cp_async4(sa + r * kLdA + c, src ? src : a.base(), src != nullptr);
     }
 #pragma unroll 4
     for (int i = 0; i < kBK * kBN / kThreads; ++i) {
@@ -141,13 +161,12 @@ __device__ __forceinline__ void mma_stage(const float* sa, const float* sb, Acc&
   }
 }
 
-// acc = A[p0.., k0:k1] x B[k0:k1, n0..] for the block's 64 x 64 tile; smem:
-// kSmemBytes, 16-byte aligned. Ends with every copy landed and a
-// __syncthreads, so the caller may reuse the ring.
-template <bool kVec>
-__device__ __forceinline__ void tile(const float* __restrict__ a, const float* __restrict__ b,
-                                     int P, int K, int N, int p0, int n0, int k0, int k1,
-                                     float* smem, Acc& acc) {
+// acc = A[p0.., k0:k1] x B[k0:k1, n0..] for the block's 64 x 64 tile, A
+// through the source `a`; smem: kSmemBytes, 16-byte aligned. Ends with every
+// copy landed and a __syncthreads, so the caller may reuse the ring.
+template <bool kVec, class ASrc>
+__device__ __forceinline__ void tile(const ASrc& a, const float* __restrict__ b, int N, int p0,
+                                     int n0, int k0, int k1, float* smem, Acc& acc) {
   const int warp = threadIdx.x / 32;
   const int wm = warp / 2, wn = warp % 2;
 #pragma unroll
@@ -162,7 +181,7 @@ __device__ __forceinline__ void tile(const float* __restrict__ a, const float* _
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < steps) {
       float* st = smem + s * kStageFloats;
-      load_stage<kVec>(st, st + kBM * kLdA, a, b, P, K, N, p0, n0, k0 + s * kBK, k1);
+      load_stage<kVec>(st, st + kBM * kLdA, a, b, N, p0, n0, k0 + s * kBK, k1);
     }
     cp_async_commit();
   }
@@ -172,7 +191,7 @@ __device__ __forceinline__ void tile(const float* __restrict__ a, const float* _
     const int next = it + kStages - 1;
     if (next < steps) {
       float* st = smem + (next % kStages) * kStageFloats;
-      load_stage<kVec>(st, st + kBM * kLdA, a, b, P, K, N, p0, n0, k0 + next * kBK, k1);
+      load_stage<kVec>(st, st + kBM * kLdA, a, b, N, p0, n0, k0 + next * kBK, k1);
     }
     cp_async_commit();
     const float* st = smem + (it % kStages) * kStageFloats;

@@ -26,7 +26,8 @@ import torch
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct_plain
 from winograd_tpu_torch.kernels.quantized import (
-    _numpy, _workspace_words, conv3x3_bn_int8_plain, quantize_weights,
+    _numpy, _workspace_words, ceil4, conv3x3_bn_int8_plain, pad_to, pad_windows,
+    quantize_weights,
 )
 
 STACK_KEYS = ("w9_a", "s_a", "b_a", "w9_b", "s_b", "b_b")
@@ -85,6 +86,17 @@ def basic_stage_int8_plain(x, qstacked: Dict) -> torch.Tensor:
     return x
 
 
+def pad_basic_stage_int8(q: Dict, c: int) -> Dict:
+    """quantize_basic_stage_params' stack padded to c channels (zero
+    channels, see kernels/quantized.py::pad_to)."""
+    q = dict(q)
+    for leg in ("a", "b"):
+        q[f"w9_{leg}_q"] = pad_windows(q[f"w9_{leg}_q"], c, c)
+        for key in (f"w9_{leg}_s", f"s_{leg}", f"b_{leg}"):
+            q[key] = pad_to(q[key], 2, c)
+    return q
+
+
 def _check_stack(stacked: Dict, keys, nb: int, c: int) -> None:
     for key in keys:
         want = (nb, 9 * c, c) if key.startswith("w9_") and not key.endswith("_s") else (nb, 1, c)
@@ -136,18 +148,20 @@ def basic_stage_int8(x, qstacked: Dict) -> torch.Tensor:
     """B int8 identity basic blocks in one launch.
 
     x: (H, W, C) or (N, H, W, C) float32; qstacked from
-    quantize_basic_stage_params. CPU tensors run the plain version; CUDA
+    quantize_basic_stage_params. Any C (padded to a multiple of 4, see
+    kernels/quantized.py::pad_to). CPU tensors run the plain version; CUDA
     tensors launch csrc/basic_stage_int8.cu."""
     x, squeeze = _images(x)
-    n, h, w, c = x.shape
+    c_x = x.shape[-1]
     q = qstacked
     nb = q["w9_a_q"].shape[0]
-    _check_stack(q, QSTACK_KEYS, nb, c)
+    _check_stack(q, QSTACK_KEYS, nb, c_x)
+    if c_x % 4:
+        x, q = pad_to(x, -1, ceil4(c_x)), pad_basic_stage_int8(q, ceil4(c_x))
+    n, h, w, c = x.shape
     if x.device.type == "cpu":
         out = basic_stage_int8_plain(x, q)
     else:
-        if c % 4:
-            raise ValueError(f"the int8 kernels pack four k to a word; C = {c} is not a multiple of 4")
         f32 = [x] + [q[k] for k in QSTACK_KEYS if not k.endswith("_q")]
         _build.check_tensors(*f32)
         _build.check_tensors(q["w9_a_q"], q["w9_b_q"], dtype=torch.int8, device=x.device)
@@ -160,4 +174,6 @@ def basic_stage_int8(x, qstacked: Dict) -> torch.Tensor:
             _build.ptr(out), _build.ptr(ws), ctypes.c_longlong(words),
             *map(_build.cint, (n, h, w, c, nb)),
         )
+    if c != c_x:
+        out = out[..., :c_x].contiguous()
     return out[0] if squeeze else out

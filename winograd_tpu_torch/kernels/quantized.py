@@ -11,15 +11,16 @@ for a 1x1, an im2col row over all 9*C gathered values (zero padding
 included) for a 3x3.
 
 Kernels (CUDA C++ for sm_90a, csrc/*_int8.cu on csrc/gemm_int8.cuh's
-arithmetic):
+arithmetic; every one takes any channel count, see pad_to):
 
 * conv1x1_bn_int8 -> csrc/pointwise_int8.cu (_quant_matmul_kernel);
 * conv3x3_bn_int8 -> csrc/direct_int8.cu (_direct_int8_kernel and its
   row-banded twin) on csrc/mma_int8.cuh: rows quantized once, the product
   on the int8 tensor cores with K split by direct_int8_plan;
 * resnet_stage_int8 -> csrc/stage_int8.cu (_stage_int8_kernel, its
-  resident twin, and _block_int8_kernel at one block); the mid-layer is the
-  int8 direct 3x3 or, on maps of 28x28 and up, F(2,3) on bf16 filters;
+  resident twin, and _block_int8_kernel at one block) on csrc/mma_int8.cuh
+  as conv3x3_bn_int8; the mid-layer is the int8 direct 3x3 or, on maps of
+  28x28 and up, F(2,3) on bf16 filters;
 * transition_block_int8 -> csrc/transition_int8.cu (_transition_int8_kernel
   and its resident twin);
 * conv3x3_bn_winograd_int8 -> csrc/winograd_int8.cu (_winograd_int8_kernel):
@@ -238,12 +239,15 @@ def expand_groups(cmid: int, mid_algo: str) -> int:
     return cmid // 128 if mid_algo == "winograd2" and cmid % 128 == 0 else 1
 
 
-def resnet_stage_int8_plain(x, qstacked: Dict, mid_algo: str = "auto") -> torch.Tensor:
-    """The int8 stage block by block in plain PyTorch. x: (N, H, W, Cio)."""
+def resnet_stage_int8_plain(x, qstacked: Dict, mid_algo: str = "auto",
+                            groups: int = 0) -> torch.Tensor:
+    """The int8 stage block by block in plain PyTorch. x: (N, H, W, Cio).
+    groups: the expand's quantization groups; 0 takes expand_groups(Cmid)
+    (the wrapper passes the unpadded Cmid's when it pads)."""
     mid_algo = resolve_mid_algo(mid_algo, qstacked, x.shape[-3], x.shape[-2])
     q = qstacked
     cmid = q["w_reduce_q"].shape[2]
-    groups = expand_groups(cmid, mid_algo)
+    groups = groups or expand_groups(cmid, mid_algo)
     cg = cmid // groups
     for b in range(q["w_reduce_q"].shape[0]):
         h = conv1x1_bn_int8_plain(x, q["w_reduce_q"][b], q["w_reduce_s"][b, 0],
@@ -351,9 +355,66 @@ def direct_int8_plan(n: int, h: int, w: int, cin: int, cout: int,
     return DirectInt8Plan(kp, tiles, blocks, split.splits, split.chunk)
 
 
-def _check_k(k: int) -> None:
-    if k % 4:
-        raise ValueError(f"the int8 kernels pack four k to a word; K = {k} is not a multiple of 4")
+# The int8 kernels pack four k to a 32-bit word and take channel counts that
+# are multiples of 4. The wrappers pad any other count with zero channels
+# before they dispatch: zero input channels and zero weight rows; a padded
+# output channel gets a zero weight column, a zero weight scale and a zero
+# BN scale and bias. A zero column changes neither a row's max|a| nor its
+# int32 sum, and a padded output channel ends as relu(0) = 0 (plus a zero
+# residual), so the padded call gives the unpadded one's bits, and the
+# wrappers slice the padded channels off. Counts that are multiples of 4
+# (every served width) are passed through untouched.
+
+
+def ceil4(c: int) -> int:
+    return -(-c // 4) * 4
+
+
+def pad_to(t: torch.Tensor, dim: int, size: int) -> torch.Tensor:
+    """t zero-padded at the end of `dim` to `size` (t itself when it already is)."""
+    extra = size - t.shape[dim]
+    if extra == 0:
+        return t
+    return F.pad(t, [0, 0] * (t.dim() - 1 - dim % t.dim()) + [0, extra])
+
+
+def pad_windows(w9: torch.Tensor, cin: int, cout: int) -> torch.Tensor:
+    """(..., 9 * Ci, Co) im2col weights (direct_filter's row order) to
+    (..., 9 * cin, cout): zero rows for each window's padded channels, zero
+    columns for the padded outputs."""
+    *lead, k, co = w9.shape
+    w = w9.reshape(*lead, 9, k // 9, co)
+    return pad_to(pad_to(w, -2, cin), -1, cout).reshape(*lead, 9 * cin, cout)
+
+
+def _pad_keys(q: Dict, keys, dim: int, size: int) -> None:
+    for key in keys:
+        q[key] = pad_to(q[key], dim, size)
+
+
+def pad_stage_int8(q: Dict, cio: int, cmid: int) -> Dict:
+    """quantize_stage_params' stack padded to cio and cmid channels."""
+    q = dict(q)
+    _pad_keys(q, ("w_reduce_s", "s_reduce", "b_reduce", "w9_mid_s", "s_mid", "b_mid"), 2, cmid)
+    _pad_keys(q, ("w_expand_s", "s_expand", "b_expand"), 2, cio)
+    q["w_reduce_q"] = pad_to(pad_to(q["w_reduce_q"], 1, cio), 2, cmid)
+    q["w_expand_q"] = pad_to(pad_to(q["w_expand_q"], 1, cmid), 2, cio)
+    q["w9_mid_q"] = pad_windows(q["w9_mid_q"], cmid, cmid)
+    if "u2_mid_bf16" in q:
+        q["u2_mid_bf16"] = pad_to(pad_to(q["u2_mid_bf16"], 2, cmid), 3, cmid)
+    return q
+
+
+def pad_transition_int8(q: Dict, cin: int, cmid: int) -> Dict:
+    """quantize_transition_params' weights padded to cin and cmid channels
+    (Cout is the GEMMs' N and needs none)."""
+    q = dict(q)
+    _pad_keys(q, ("w_reduce_s", "s_reduce", "b_reduce", "w9_mid_s", "s_mid", "b_mid"), 0, cmid)
+    q["w_reduce_q"] = pad_to(pad_to(q["w_reduce_q"], 0, cin), 1, cmid)
+    q["w_proj_q"] = pad_to(q["w_proj_q"], 0, cin)
+    q["w9_mid_q"] = pad_windows(q["w9_mid_q"], cmid, cmid)
+    q["w_expand_q"] = pad_to(q["w_expand_q"], 0, cmid)
+    return q
 
 
 def _check_shapes(pairs) -> None:
@@ -378,14 +439,17 @@ def conv1x1_bn_int8(x, w_q, s_w, scale, bias, relu: bool) -> torch.Tensor:
     """Int8 pointwise conv + BN (+ReLU).
 
     x: (..., Cin) float32; w_q: (Cin, Cout) int8; s_w, scale, bias: (Cout,).
-    Returns x.shape[:-1] + (Cout,). CPU tensors run the plain version; CUDA
-    tensors launch csrc/pointwise_int8.cu."""
+    Returns x.shape[:-1] + (Cout,). Any Cin (padded to a multiple of 4, see
+    pad_to). CPU tensors run the plain version; CUDA tensors launch
+    csrc/pointwise_int8.cu."""
     cin, cout = w_q.shape
     if x.shape[-1] != cin:
         raise ValueError(f"x channels {x.shape[-1]} != weight Cin {cin}")
+    if cin % 4:
+        cin = ceil4(cin)
+        x, w_q = pad_to(x, -1, cin), pad_to(w_q, 0, cin)
     if x.device.type == "cpu":
         return conv1x1_bn_int8_plain(x, w_q, s_w, scale, bias, relu)
-    _check_k(cin)
     _build.check_operands(scale, bias, cout, x, s_w)
     _check_shapes([("s_w", s_w, (cout,))])
     _build.check_tensors(w_q, dtype=torch.int8, device=x.device)
@@ -405,8 +469,8 @@ def conv3x3_bn_int8(x, w9_q, s_w9, scale, bias, relu: bool = True) -> torch.Tens
 
     x: (H, W, Cin) or (N, H, W, Cin) float32; w9_q: (9*Cin, Cout) int8 in
     kernels/direct.py::direct_filter's row order; s_w9, scale, bias:
-    (Cout,). CPU tensors run the plain version; CUDA tensors launch
-    csrc/direct_int8.cu."""
+    (Cout,). Any Cin (padded to a multiple of 4, see pad_to). CPU tensors
+    run the plain version; CUDA tensors launch csrc/direct_int8.cu."""
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
@@ -414,10 +478,12 @@ def conv3x3_bn_int8(x, w9_q, s_w9, scale, bias, relu: bool = True) -> torch.Tens
     if w9_q.shape[0] != 9 * cin:
         raise ValueError(f"w9_q {tuple(w9_q.shape)} does not take {cin} input channels")
     cout = w9_q.shape[1]
+    if cin % 4:
+        cin = ceil4(cin)
+        x, w9_q = pad_to(x, -1, cin), pad_windows(w9_q, cin, cout)
     if x.device.type == "cpu":
         out = conv3x3_bn_int8_plain(x, w9_q, s_w9, scale, bias, relu)
     else:
-        _check_k(9 * cin)
         _build.check_operands(scale, bias, cout, x, s_w9)
         _check_shapes([("s_w9", s_w9, (cout,))])
         _build.check_tensors(w9_q, dtype=torch.int8, device=x.device)
@@ -487,22 +553,36 @@ def resnet_stage_int8(x, qstacked: Dict, mid_algo: str = "auto") -> torch.Tensor
     w9_mid), "winograd2" (F(2,3) on u2_mid_bf16) or "auto"
     (resolve_mid_algo). The JAX package's block-outer resident layout needs
     no option here: the CUDA kernel reads each block's weights once for the
-    whole batch. CPU tensors run the plain version; CUDA tensors launch
+    whole batch. Any Cio and Cmid (padded to multiples of 4, see pad_to).
+    CPU tensors run the plain version; CUDA tensors launch
     csrc/stage_int8.cu."""
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
-    n, h, w, cio = x.shape
+    cio_x = x.shape[-1]
     q = qstacked
     nb, cio_w, cmid = q["w_reduce_q"].shape
-    if cio_w != cio:
-        raise ValueError(f"w_reduce_q {tuple(q['w_reduce_q'].shape)} does not take {cio} channels")
-    mid_algo = resolve_mid_algo(mid_algo, q, h, w)
+    if cio_w != cio_x:
+        raise ValueError(f"w_reduce_q {tuple(q['w_reduce_q'].shape)} does not take {cio_x} channels")
+    mid_algo = resolve_mid_algo(mid_algo, q, x.shape[1], x.shape[2])
+    groups = expand_groups(cmid, mid_algo)
+    if cio_x % 4 or cmid % 4:
+        x = pad_to(x, -1, ceil4(cio_x))
+        q = pad_stage_int8(q, ceil4(cio_x), ceil4(cmid))
+        cmid = ceil4(cmid)
     if x.device.type == "cpu":
-        out = resnet_stage_int8_plain(x, q, mid_algo)
-        return out[0] if squeeze else out
-    _check_k(cio)
-    _check_k(cmid)
+        out = resnet_stage_int8_plain(x, q, mid_algo, groups)
+    else:
+        out = _stage_int8_launch(x, q, mid_algo, groups)
+    if out.shape[-1] != cio_x:
+        out = out[..., :cio_x].contiguous()
+    return out[0] if squeeze else out
+
+
+def _stage_int8_launch(x, q: Dict, mid_algo: str, groups: int) -> torch.Tensor:
+    """resnet_stage_int8's launch on CUDA tensors; channels multiples of 4."""
+    n, h, w, cio = x.shape
+    nb, _, cmid = q["w_reduce_q"].shape
     wino = mid_algo == "winograd2"
     mid_key, mid_shape, mid_dtype = (
         ("u2_mid_bf16", (nb, 16, cmid, cmid), torch.bfloat16) if wino
@@ -519,7 +599,10 @@ def resnet_stage_int8(x, qstacked: Dict, mid_algo: str = "auto") -> torch.Tensor
     _build.check_tensors(*(t for _, t, _ in f32))
     _build.check_tensors(*(t for _, t, _ in int8), dtype=torch.int8, device=x.device)
     _build.check_tensors(q[mid_key], dtype=mid_dtype, device=x.device)
-    words = _workspace_words("stage_int8", "resnet_stage_int8", x.device.index, n, h, w, cio, cmid, int(wino))
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads rows as float4s
+    words = _workspace_words("stage_int8", "resnet_stage_int8", x.device.index,
+                             n, h, w, cio, cmid, nb, int(wino), groups)
     ws = torch.empty(words, device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     ptr, c = _build.ptr, _build.cint
@@ -529,9 +612,9 @@ def resnet_stage_int8(x, qstacked: Dict, mid_algo: str = "auto") -> torch.Tensor
         ptr(q["b_reduce"]), ptr(q[mid_key]), ptr(q["w9_mid_s"]), ptr(q["s_mid"]),
         ptr(q["b_mid"]), ptr(q["w_expand_q"]), ptr(q["w_expand_s"]), ptr(q["s_expand"]),
         ptr(q["b_expand"]), ptr(out), ptr(ws), ctypes.c_longlong(words),
-        c(n), c(h), c(w), c(cio), c(cmid), c(nb), c(wino),
+        c(n), c(h), c(w), c(cio), c(cmid), c(nb), c(wino), c(groups),
     )
-    return out[0] if squeeze else out
+    return out
 
 
 def transition_block_int8(x, qparams: Dict) -> torch.Tensor:
@@ -539,8 +622,9 @@ def transition_block_int8(x, qparams: Dict) -> torch.Tensor:
     (N, H, W, Cin) float32; qparams from quantize_transition_params.
     Returns (..., ceil(H/2), ceil(W/2), Cout). The JAX package's tile-outer
     resident layout needs no option here: the kernel reads each weight once
-    for the whole batch. CPU tensors run the plain version; CUDA tensors
-    launch csrc/transition_int8.cu."""
+    for the whole batch. Any Cin and Cmid (padded to multiples of 4, see
+    pad_to). CPU tensors run the plain version; CUDA tensors launch
+    csrc/transition_int8.cu."""
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
@@ -549,11 +633,12 @@ def transition_block_int8(x, qparams: Dict) -> torch.Tensor:
     cin_w, cmid = q["w_reduce_q"].shape
     if cin_w != cin:
         raise ValueError(f"w_reduce_q {tuple(q['w_reduce_q'].shape)} does not take {cin} channels")
+    if cin % 4 or cmid % 4:
+        cin, cmid = ceil4(cin), ceil4(cmid)
+        x, q = pad_to(x, -1, cin), pad_transition_int8(q, cin, cmid)
     if x.device.type == "cpu":
         out = transition_block_int8_plain(x, q)
         return out[0] if squeeze else out
-    _check_k(cin)
-    _check_k(cmid)
     cout = q["w_expand_q"].shape[1]
     f32 = [("x", x, x.shape)] + [
         (k, q[k], (c,)) for k, c in (
