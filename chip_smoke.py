@@ -67,7 +67,8 @@ Phases, each of which must pass (exit 1 otherwise):
    stage (their twins' arithmetic, exact int32 sums) 0: equal to their
    twins. One JSON line per shape: error; the K split of the split-K
    kernels ("splits": pointwise, direct and direct_int8, from their
-   wrappers' plans); device times of the
+   wrappers' plans; for the f32 Winograd its plan's Cin splits); device
+   times of the
    kernel, its plain version and the library call (20 calls captured in a
    CUDA graph, the median of 20 replays between CUDA events, divided by 20;
    inputs stay in L2 between calls); "wrapper_ms", one eager wrapper call
@@ -78,12 +79,13 @@ Phases, each of which must pass (exit 1 otherwise):
    the tensor cores, 3.35 TB/s HBM). Operations: int8 MACs x 2 at the INT8
    rate; the bf16 stem's products and the int8 stage's bf16-filter F(2,3)
    products (as two BF16 passes, the JAX kernel's hi/lo split) at the BF16
-   rate; the pointwise kernel's tensor-core products (P > 8) and the direct
-   3x3's as three TF32 passes (their 3xTF32 split) at the TF32 rate; the
-   pointwise GEMV's (P <= 8) and the
-   other f32 GEMMs, Winograd transforms, epilogues (4 FLOPs an output) and int8
-   quantization (2 a quantized value) at the FP32 rate; the bf16-filter
-   Winograd's products as two BF16 passes too. Bytes: each input read once
+   rate; the tensor-core products of the pointwise kernel (P > 8), the
+   direct 3x3, the f32 Winograd and the f32 stage (its reduce, mid and
+   expand) as three TF32 passes (their 3xTF32 split) at the TF32 rate; the
+   pointwise GEMV's (P <= 8) and the other f32 GEMMs, Winograd transforms,
+   epilogues (4 FLOPs an output, 5 with a residual) and int8 quantization
+   (2 a quantized value) at the FP32 rate; the bf16-filter Winograd's
+   products as two BF16 passes too. Bytes: each input read once
    (int8 weights 1 byte, bf16 filters 2), each output written once.
    Library: torch.matmul / F.conv2d (f32; a basic stage its 2B convs), the
    bf16-filter Winograd F.conv2d in bf16, and for the int8 kernels
@@ -232,7 +234,7 @@ def main() -> int:
         transition_block_fused_plain,
     )
     from winograd_tpu_torch.kernels.winograd import (
-        conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain,
+        conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain, winograd_plan,
     )
     from winograd_tpu_torch.models.basic import (
         basicnet_forward, basicnet_forward_int8, basicnet_params, init_basicnet_arrays,
@@ -358,7 +360,8 @@ def main() -> int:
                     4 * n * h * w * (cin + cout) + 2 * a2 * cin * cout + 8 * cout)
         return (lambda: conv3x3_bn_winograd(x, u, s, b, relu),
                 lambda: conv3x3_bn_winograd_plain(x, u, s, b, relu),
-                lib, {FP32_FLOPS: products + transforms_flops},
+                lib, {TF32_FLOPS: 3 * products,
+                      FP32_FLOPS: transforms_flops + 4 * n * h * w * cout},
                 4 * (n * h * w * (cin + cout) + a2 * cin * cout + 2 * cout))
 
     def direct_case(rng, n, h, w, cin, cout, relu):
@@ -417,17 +420,19 @@ def main() -> int:
             return y
 
         p = n * h * w
+        epilogues = 4 * p * 2 * cmid + 5 * p * cio
         if mid == "winograd2":
             nt = n * (-(-h // 2)) * (-(-w // 2))
             fwd, inv = _winograd_transform_flops(2)
-            mid_flops, mid_elems = 2 * 16 * nt * cmid * cmid + nt * (fwd + inv) * cmid, 16 * cmid * cmid
+            mid_products, mid_elems = 2 * 16 * nt * cmid * cmid, 16 * cmid * cmid
+            epilogues += nt * (fwd + inv) * cmid
         else:
-            mid_flops, mid_elems = 2 * p * 9 * cmid * cmid, 9 * cmid * cmid
-        flops = nb * (4 * p * cio * cmid + mid_flops)
+            mid_products, mid_elems = 2 * p * 9 * cmid * cmid, 9 * cmid * cmid
+        work = {TF32_FLOPS: nb * 3 * (4 * p * cio * cmid + mid_products),
+                FP32_FLOPS: nb * epilogues}
         nbytes = 4 * (2 * p * cio + nb * (2 * cio * cmid + mid_elems + 4 * cmid + 2 * cio))
         return (lambda: resnet_stage_fused(x, stacked, mid),
-                lambda: resnet_stage_fused_plain(x, stacked, mid), lib, {FP32_FLOPS: flops},
-                nbytes)
+                lambda: resnet_stage_fused_plain(x, stacked, mid), lib, work, nbytes)
 
     def transition_params(rng, cin, cmid, cout):
         wm = _rand(rng, cmid, cmid, 3, 3)
@@ -806,11 +811,19 @@ def main() -> int:
         "direct": [(8, 7, 7, 512, 512, True)],
     }
     sms = _build.sm_count(dev)
+
+    def winograd_cut(n, h, w, cin, cout, m, relu, filt="f32"):
+        """The f32 route's Cin splits."""
+        if filt == "bf16":
+            return None
+        return winograd_plan(n, h, w, cin, cout, m, sms).splits
+
     splits_of = {
         "pointwise": lambda p, k, n, relu: split_plan(p, k, n, sms).splits,
         "direct": lambda n, h, w, cin, cout, relu: direct_plan(n, h, w, cin, cout, sms).splits,
         "direct_int8": lambda n, h, w, cin, cout, relu: q8.direct_int8_plan(
             n, h, w, cin, cout, sms).splits,
+        "winograd": winograd_cut,
     }
     all_launches = collections.Counter()
     per_image = collections.defaultdict(collections.Counter)

@@ -10,7 +10,11 @@ served small-P shapes, a ragged last split and one split, bit-identical
 from call to call, the split-K direct 3x3 at its served 7x7x512 shape,
 the int8 direct 3x3 and stage on the tensor cores held to exact equality
 with their twins (the stage at its served shapes too), and every int8
-entry at channel counts that its wrapper pads. Needs an NVIDIA GPU and
+entry at channel counts that its wrapper pads; the f32 Winograd and stage
+on the tensor cores at their served shapes (N=1 and N=8, both mids, the
+F(4,3) check shape), their plans filling a wave of SMs and two calls equal
+to the bit, and the Winograd at ragged Cin and Cout (Cin 3 and 13, Cout off
+multiples of 4 on the 4-byte path) and split Cin. Needs an NVIDIA GPU and
 nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -41,8 +45,10 @@ from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_plain
 from winograd_tpu_torch.kernels.transition import (
     transition_block_fused, transition_block_fused_plain,
 )
+from winograd_tpu_torch.kernels.splitk import split_k
 from winograd_tpu_torch.kernels.winograd import (
-    conv3x3_bn_winograd, conv3x3_bn_winograd_plain,
+    WINOGRAD_STEP, conv3x3_bn_winograd, conv3x3_bn_winograd_plain, conv3x3_bn_winograd_planned,
+    winograd_plan, winograd_tiles,
 )
 from winograd_tpu_torch.models.convert import stem_filter_s2d
 
@@ -519,3 +525,66 @@ def test_direct_int8_equals_its_twin(dev, n, h, w, cin, cout, relu):
     torch.cuda.synchronize()
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() == 0.0
+
+
+# --- the f32 Winograd and stage on the tensor cores -------------------------
+
+# The served f32 Winograd convs (N, H, W, Cin, Cout, m), ResNet-50's
+# projection and ResNet-34's identity 3x3s at N=1 and N=8, and the F(4,3)
+# check shape: the plan's items fill a wave, the call agrees with its twin
+# and repeats to the bit.
+@pytest.mark.parametrize("n,h,w,cin,cout,m", [
+    (1, 56, 56, 64, 64, 2), (1, 28, 28, 128, 128, 2), (1, 14, 14, 256, 256, 2),
+    (1, 14, 14, 128, 128, 4), (8, 56, 56, 64, 64, 2), (8, 14, 14, 256, 256, 2),
+])
+def test_winograd_served_shapes(dev, n, h, w, cin, cout, m):
+    rng = np.random.default_rng(n * h + cin + m)
+    x = _r(rng, dev, n, h, w, cin)
+    wt = (rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)
+    u = torch.as_tensor(transforms.transform_filter(wt, m=m), device=dev)
+    s, b = _bn(rng, dev, cout)
+    sms = _build.sm_count(dev)
+    plan = winograd_plan(n, h, w, cin, cout, m, sms)
+    assert plan.items(winograd_tiles(n, h, w, m), cout, (m + 2) ** 2) >= sms
+    first = conv3x3_bn_winograd(x, u, s, b)
+    _agree(first, conv3x3_bn_winograd_plain(x, u, s, b))
+    assert torch.equal(first, conv3x3_bn_winograd(x, u, s, b))
+
+
+# Ragged Cin and Cout (Cin 3 and 13, V's rows zero-padded to 4; Cout 70
+# and 33 take the 4-byte copies) under the wrapper's plan, and under a plan
+# that splits Cin into ranges of WINOGRAD_STEP multiples with a ragged last
+# one.
+@pytest.mark.parametrize("m", [2, 4])
+@pytest.mark.parametrize("n,hw,cin,cout", [(2, 10, 3, 70), (1, 7, 13, 33), (1, 9, 200, 68)])
+def test_winograd_ragged_channels_and_split_cin(dev, m, n, hw, cin, cout):
+    rng = np.random.default_rng(hw * cin + cout + m)
+    x = _r(rng, dev, n, hw, hw, cin)
+    wt = (rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)
+    u = torch.as_tensor(transforms.transform_filter(wt, m=m), device=dev)
+    s, b = _bn(rng, dev, cout)
+    ref = conv3x3_bn_winograd_plain(x, u, s, b, relu=False)
+    _agree(conv3x3_bn_winograd(x, u, s, b, relu=False), ref)
+    split = split_k(cin, 3, WINOGRAD_STEP, WINOGRAD_STEP)
+    plan = winograd_plan(n, hw, hw, cin, cout, m, _build.sm_count(dev))._replace(
+        splits=split.splits, chunk=split.chunk)
+    if cin == 200:
+        assert plan.splits == 3 and cin % plan.chunk
+    _agree(conv3x3_bn_winograd_planned(x, u, s, b, False, plan), ref)
+
+
+# The served f32 stages (conv2_x and conv3_x on the F(2,3) mid, conv4_x on
+# the direct mid) at N=1, conv2_x and conv4_x at N=8, and the block at
+# mode 9: each agrees with its twin, and two calls are equal to the bit.
+@pytest.mark.parametrize("n,hw,cio,cmid,nb,mid", [
+    (1, 56, 256, 64, 2, "winograd2"), (1, 28, 512, 128, 3, "winograd2"),
+    (1, 14, 1024, 256, 5, "direct"), (8, 56, 256, 64, 2, "winograd2"),
+    (8, 14, 1024, 256, 5, "direct"), (1, 28, 512, 128, 1, "winograd2"),
+])
+def test_stage_served_shapes(dev, n, hw, cio, cmid, nb, mid):
+    rng = np.random.default_rng(n + hw + nb)
+    stacked = _stacked(rng, dev, nb, cio, cmid)
+    x = _r(rng, dev, n, hw, hw, cio)
+    first = resnet_stage_fused(x, stacked, mid)
+    _agree(first, resnet_stage_fused_plain(x, stacked, mid))
+    assert torch.equal(first, resnet_stage_fused(x, stacked, mid))

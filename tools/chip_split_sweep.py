@@ -1,30 +1,40 @@
 #!/usr/bin/env python3
 """K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct.cu,
-csrc/direct_int8.cu) on one CUDA card, and an A/B of their wrappers (and of
-the int8 stage's, csrc/stage_int8.cu) against another checkout.
+csrc/direct_int8.cu) and of the f32 Winograd's work-item cut
+(csrc/winograd.cu) on one CUDA card, and an A/B of their wrappers (and of
+the f32 and int8 stages', csrc/stage.cu and csrc/stage_int8.cu) against
+another checkout.
 
-    python3 tools/chip_split_sweep.py             # the sweep
-    python3 tools/chip_split_sweep.py --ab DIR    # the A/B against DIR
+    python3 tools/chip_split_sweep.py [--only NAME,...]    # the sweep
+    python3 tools/chip_split_sweep.py --ab DIR [--only ...] # the A/B against DIR
 
 Run from the repository root on a machine with a CUDA card and nvcc. The
 shapes are each served shape of the kernels (the four served forwards of
-chip_smoke.py at N=1 and N=8). Every timed call is first held against its
-plain twin (pointwise and direct within 1e-4 * max(1, max|plain|),
-direct_int8 and stage_int8 exactly). Device ms per call: 20 calls in one CUDA graph, the median of 20
+chip_smoke.py at N=1 and N=8, and the f32 Winograd's F(4,3) check shape).
+Every timed call is first held against its plain twin (pointwise, direct,
+winograd and stage within 1e-4 * max(1, max|plain|), direct_int8 and
+stage_int8 exactly). Device ms per call: 20 calls in one CUDA graph, the median of 20
 replays between CUDA events, inputs in L2. The card's name and power limit
 come first, then one JSON line per shape and candidate.
 
 The sweep times each shape under the K split its wrapper's plan picks
 ("chosen") and under the splits that kernels/splitk.py::split_k gives for
-1, 2, 4, ..., 32 wanted ranges.
+1, 2, 4, ..., 32 wanted ranges; the f32 Winograd under its plan and under
+the Cin splits that split_k gives for 1, 2, 3, 4 and 8 wanted ranges of at
+least 32.
 
 --ab DIR times the public wrappers (kernels/pointwise.py::conv1x1_bn,
-kernels/direct.py::conv3x3_bn_direct, kernels/quantized.py::conv3x3_bn_int8
-and ::resnet_stage_int8) of the checkout DIR (for example an
+kernels/direct.py::conv3x3_bn_direct, kernels/winograd.py::
+conv3x3_bn_winograd, kernels/stage.py::resnet_stage_fused,
+kernels/quantized.py::conv3x3_bn_int8 and ::resnet_stage_int8) of the
+checkout DIR (for example an
 unpacked `git archive` of another commit under build/) and of this one,
 each in a process of its own that imports that checkout's package and
 builds its kernels there, in turns DIR, this, this, DIR, on the same
 seeded inputs ("--wrappers ROOT" is one such turn).
+
+--only takes kernel names (pointwise, direct, winograd, stage, direct_int8,
+stage_int8) and keeps those shapes alone.
 """
 
 from __future__ import annotations
@@ -48,6 +58,16 @@ POINTWISE = [  # (P, K, N, relu)
 ]
 DIRECT = [  # (N, H, W, Cin, Cout, relu)
     (1, 7, 7, 512, 512, True), (8, 7, 7, 512, 512, True),
+]
+WINOGRAD = [  # (N, H, W, Cin, Cout, m, relu)
+    (1, 56, 56, 64, 64, 2, True), (1, 28, 28, 128, 128, 2, True), (1, 14, 14, 256, 256, 2, True),
+    (1, 14, 14, 128, 128, 4, True), (8, 56, 56, 64, 64, 2, True), (8, 28, 28, 128, 128, 2, True),
+    (8, 14, 14, 256, 256, 2, True),
+]
+STAGE = [  # (N, H, W, Cio, Cmid, blocks, mid): A/B only (its plan is the kernel's)
+    (1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
+    (1, 14, 14, 1024, 256, 5, "direct"), (8, 14, 14, 1024, 256, 5, "direct"),
+    (1, 28, 28, 512, 128, 1, "winograd2"), (1, 14, 14, 1024, 256, 1, "direct"),
 ]
 STAGE_INT8 = [  # (N, H, W, Cio, Cmid, blocks, mid): A/B only (its plan is the kernel's)
     (1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
@@ -86,15 +106,27 @@ def device_ms(fn, calls=20, reps=20, warmup=2):
     return statistics.median(a.elapsed_time(b) for a, b in pairs) / calls
 
 
+ONLY = ()  # kernel names kept by --only; all when empty
+
+
 def cases(dev):
     """(kernel, shape, the wrapper's call, its plain twin's, the check of an
-    output) for each shape, on inputs seeded alike in every checkout."""
+    output) for each shape of the kernels --only keeps, on inputs seeded
+    alike in every checkout."""
+    for case in _cases_all(dev):
+        if not ONLY or case[0] in ONLY:
+            yield case
+
+
+def _cases_all(dev):
     import torch
 
     from winograd_tpu_torch.kernels import pointwise as pw
     from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels import transforms
     from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct_plain, direct_filter
+    from winograd_tpu_torch.kernels.stage import resnet_stage_fused_plain, stack_stage_params
+    from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd_plain
 
     rng = np.random.default_rng(0)
 
@@ -117,6 +149,31 @@ def cases(dev):
         ref = conv3x3_bn_direct_plain(x, w9, s, b, relu)
         tol = 1e-4 * max(1.0, ref.abs().max().item())
         yield ("direct", (n, h, wd, cin, cout, relu), (x, w9, s, b, relu), ref,
+               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for n, h, wd, cin, cout, m, relu in WINOGRAD:
+        x = rand(n, h, wd, cin)
+        u = t(transforms.transform_filter((rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32),
+                                          m=m))
+        s, b = t((rng.random(cout) * 0.5).astype(np.float32)), rand(cout)
+        ref = conv3x3_bn_winograd_plain(x, u, s, b, relu)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        yield ("winograd", (n, h, wd, cin, cout, m, relu), (x, u, s, b, relu), ref,
+               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for n, h, wd, cio, cmid, nb, mid in STAGE:
+        blocks = []
+        for _ in range(nb):
+            wm = (rng.random((cmid, cmid, 3, 3)) - 0.5).astype(np.float32)
+            blocks.append(dict(
+                w_reduce=rand(cio, cmid), s_reduce=t((rng.random(cmid) * 0.5).astype(np.float32)),
+                b_reduce=rand(cmid), u2_mid=t(transforms.transform_filter(wm, m=2)),
+                w9_mid=t(direct_filter(wm)), s_mid=t((rng.random(cmid) * 0.5).astype(np.float32)),
+                b_mid=rand(cmid), w_expand=rand(cmid, cio),
+                s_expand=t((rng.random(cio) * 0.5).astype(np.float32)), b_expand=rand(cio)))
+        stacked = stack_stage_params(blocks)
+        x = rand(n, h, wd, cio)
+        ref = resnet_stage_fused_plain(x, stacked, mid)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        yield ("stage", (n, h, wd, cio, cmid, nb, mid), (x, stacked, mid), ref,
                lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
     for n, h, wd, cio, cmid, nb, mid in STAGE_INT8:
         blocks = []
@@ -150,10 +207,13 @@ def wrappers(dev) -> bool:
     from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct
     from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
     from winograd_tpu_torch.kernels.quantized import conv3x3_bn_int8, resnet_stage_int8
+    from winograd_tpu_torch.kernels.stage import resnet_stage_fused
+    from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
 
     _build.build_all()
-    call = {"pointwise": conv1x1_bn, "direct": conv3x3_bn_direct,
-            "direct_int8": conv3x3_bn_int8, "stage_int8": resnet_stage_int8}
+    call = {"pointwise": conv1x1_bn, "direct": conv3x3_bn_direct, "winograd": conv3x3_bn_winograd,
+            "stage": resnet_stage_fused, "direct_int8": conv3x3_bn_int8,
+            "stage_int8": resnet_stage_int8}
     ok = True
     for name, shape, args, _, agrees in cases(dev):
         fn = (lambda f=call[name], args=args: f(*args))
@@ -166,8 +226,8 @@ def ab(other: pathlib.Path) -> bool:
     """Turns other, this, this, other; one line per shape."""
     times, ok = {}, True
     for turn, root in enumerate((other, ROOT, ROOT, other)):
-        run = subprocess.run([sys.executable, __file__, "--wrappers", str(root)],
-                             capture_output=True, text=True)
+        run = subprocess.run([sys.executable, __file__, "--wrappers", str(root),
+                              "--only", ",".join(ONLY)], capture_output=True, text=True)
         sys.stderr.write(run.stderr)
         ok &= run.returncode == 0
         for line in run.stdout.splitlines():
@@ -187,13 +247,17 @@ def sweep(dev) -> bool:
     from winograd_tpu_torch.kernels import direct as dr
     from winograd_tpu_torch.kernels import pointwise as pw
     from winograd_tpu_torch.kernels import quantized as q8
+    from winograd_tpu_torch.kernels import winograd as wg
     from winograd_tpu_torch.kernels.splitk import split_k
 
     _build.build_all()
     sms = _build.sm_count(dev)
     ok = True
     for name, shape, args, ref, agrees in cases(dev):
-        if name == "stage_int8":
+        if name in ("stage", "stage_int8"):
+            continue
+        if name == "winograd":
+            ok &= sweep_winograd(shape, args, ref, agrees, wg, split_k, sms)
             continue
         if name == "pointwise":
             p, k, n, _ = shape
@@ -221,11 +285,39 @@ def sweep(dev) -> bool:
     return ok
 
 
+def sweep_winograd(shape, args, ref, agrees, wg, split_k, sms) -> bool:
+    """The f32 Winograd under its plan and under other Cin splits of its
+    work items."""
+    n, h, w, cin, cout, m, _ = shape
+    a2 = (m + 2) ** 2
+    chosen = wg.winograd_plan(n, h, w, cin, cout, m, sms)
+    plans = [chosen]
+    for want in (1, 2, 3, 4, 8):
+        sp = split_k(cin, want, wg.WINOGRAD_STEP, wg.WINOGRAD_STEP)
+        plan = chosen._replace(splits=sp.splits, chunk=sp.chunk)
+        if plan not in plans:
+            plans.append(plan)
+    ok = True
+    tiles = wg.winograd_tiles(n, h, w, m)
+    for plan in plans:
+        fn = (lambda plan=plan: wg.conv3x3_bn_winograd_planned(*args, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": "winograd", "shape": shape, "splits": plan.splits, "chunk": plan.chunk,
+                          "items": plan.items(tiles, cout, a2), "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--ab", type=pathlib.Path, metavar="DIR")
     ap.add_argument("--wrappers", type=pathlib.Path, metavar="ROOT")
+    ap.add_argument("--only", default="", metavar="NAME,...")
     args = ap.parse_args()
+    global ONLY
+    ONLY = tuple(n for n in args.only.split(",") if n)
     sys.path.insert(0, str((args.wrappers or ROOT).resolve()))
     import torch
 

@@ -5,14 +5,13 @@
 
 Run from the repository root on a machine with a CUDA card and nvcc. Builds
 winograd_tpu_torch/csrc/stage.cu twice under build/winograd_tpu_torch/ab/:
-as committed ("one": 175 registers, one 256-thread block per SM) and with
-__launch_bounds__(256, 2) ("two": at most 128 registers, two blocks per SM,
-so every persistent phase has twice the blocks). Prints each build's
-register and spill line, then for each stage shape of the served ResNet-50
-at N=1 and N=8 (and the conv5_x geometry) the device ms per call of both
-builds, timed in turns one, two, two, one (10 calls in one CUDA graph, the
-median of 10 replays between CUDA events), after holding each against the
-plain twin within 1e-4 * max(1, max|plain|).
+with its cooperative grid capped at one 128-thread block per SM ("one")
+and as committed, at two ("two"; kMaxBlocksPerSm). Prints each build's
+register and spill lines, then for each stage shape of the served
+ResNet-50 at N=1 and N=8 (and the conv5_x geometry) the device ms per call
+of both builds, timed in turns one, two, two, one (10 calls in one CUDA
+graph, the median of 10 replays between CUDA events), after holding each
+against the plain twin within 1e-4 * max(1, max|plain|).
 """
 
 from __future__ import annotations
@@ -35,8 +34,8 @@ CASES = [  # (N, H=W, Cio, Cmid, blocks)
     (8, 56, 256, 64, 2), (8, 28, 512, 128, 3), (8, 14, 1024, 256, 5),
     (1, 7, 2048, 512, 2),
 ]
-COMMITTED = "__launch_bounds__(wt::kGemmThreads) stage_kernel"
-VARIANTS = {"one": COMMITTED, "two": "__launch_bounds__(wt::kGemmThreads, 2) stage_kernel"}
+COMMITTED = "constexpr int kMaxBlocksPerSm = 2;"
+VARIANTS = {"one": "constexpr int kMaxBlocksPerSm = 1;", "two": COMMITTED}
 
 
 def main() -> int:
@@ -58,7 +57,7 @@ def main() -> int:
         shutil.copytree(_build.CSRC, d)
         src = (d / "stage.cu").read_text()
         if COMMITTED not in src:
-            raise RuntimeError("stage.cu no longer declares the launch bounds this tool edits")
+            raise RuntimeError("stage.cu no longer declares the blocks an SM this tool edits")
         (d / "stage.cu").write_text(src.replace(COMMITTED, bounds))
         res = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
                               str(d / "libstage.so"), str(d / "stage.cu")],

@@ -1,20 +1,35 @@
 #!/usr/bin/env python3
-"""Where the int8 stage kernel's time goes, phase by phase, on one CUDA card.
+"""Where the stage kernels' time goes, phase by phase, on one CUDA card.
 
-    python3 tools/chip_stage_timeline.py [--root DIR]
+    python3 tools/chip_stage_timeline.py [--root DIR] [--kernel stage|stage_int8|both]
+                                         [--variant as_is,one_pass,no_mma]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
-builds a copy of DIR's winograd_tpu_torch/csrc/stage_int8.cu (default: this
-checkout's; DIR may be an unpacked `git archive` of another commit under
-build/) in which thread 0 of block 0 reads %globaltimer once before the
-first block's phases and again after every grid barrier of the kernel body
-(the K-split barriers inside a GEMM phase are not stamped), and calls DIR's
-resnet_stage_int8 wrapper on that library at the served shapes. Each line
-gives the kernel's stamped span and the spans between stamps in
-microseconds: a phase's span is its slowest block's work plus the barrier.
-First, the grid barrier alone (grid_sync.cuh, 256 threads a block): its
-cost per crossing at one and two blocks an SM. The card's name and power
-limit come first.
+builds a copy of DIR's winograd_tpu_torch/csrc/stage.cu (the f32 stage)
+and of its stage_int8.cu (default: this checkout's; DIR may be an
+unpacked `git archive` of another commit under build/) in which thread 0
+of block 0 reads %globaltimer once before the first block's phases and
+again after every grid barrier of the kernel body (the barriers inside a
+phase, before its K-split sum or its Winograd inverse, are not stamped),
+and calls DIR's resnet_stage_fused and resnet_stage_int8 wrappers on those
+libraries at the served shapes. Each line gives the kernel's stamped span
+and the spans between stamps in microseconds: a phase's span is its
+slowest block's work plus the barrier. The f32 stage's spans are, per
+block, reduce, mid, expand (the last block's expand is not stamped: the
+kernel ends there); the int8 stage's are the weight transpose with block
+0's first quantize, then per block the phases between its barriers. First,
+the grid barrier alone (grid_sync.cuh, 256 threads a block): its cost per
+crossing at one and two blocks an SM. The card's name and power limit come
+first.
+
+--variant builds the f32 stage once per named variant of its tensor-core
+tile (csrc/mma_tf32.cuh, edited in a copy of the sources) and stamps each:
+"as_is" the committed 3xTF32 tile; "one_pass" only the hi*hi pass of its
+three mma.sync passes (TF32 accuracy, so its lines report the error but do
+not fail); "no_mma" none of them (the cp.async ring, the fragment splits the
+compiler keeps, the epilogues and barriers alone; its output is not the
+stage's). What a phase loses between the variants is what its products
+cost.
 """
 
 from __future__ import annotations
@@ -23,17 +38,34 @@ import argparse
 import ctypes
 import json
 import pathlib
+import shutil
 import subprocess
 import sys
 
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-SHAPES = [  # (N, H, W, Cio, Cmid, blocks, mid): the served stages, and conv4_x at N=8
-    (1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
-    (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
-    (8, 14, 14, 1024, 256, 5, "direct"),
-]
+SHAPES = {  # (N, H, W, Cio, Cmid, blocks, mid): the served stages, and conv4_x at N=8
+    "stage": [(1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
+              (1, 14, 14, 1024, 256, 5, "direct"), (8, 14, 14, 1024, 256, 5, "direct")],
+    "stage_int8": [(1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
+                   (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
+                   (8, 14, 14, 1024, 256, 5, "direct")],
+}
+# Per kernel source: the last include, after which the stamp buffer goes,
+# and the head of the blocks' loop, before which the first stamp goes.
+LAYOUT = {
+    "stage": ('#include "wino_tf32.cuh"\n',
+              "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act"),
+    "stage_int8": ('#include "winograd.cuh"\n',
+                   "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act"),
+}
+# The tile's three passes in csrc/mma_tf32.cuh::mma_stage, and the passes
+# each --variant keeps out.
+PASSES = {"lo_hi": "mma(acc[mi][ni], al[mi], bh[ni]);",
+          "hi_lo": "mma(acc[mi][ni], ah[mi], bl[ni]);",
+          "hi_hi": "mma(acc[mi][ni], ah[mi], bh[ni]);"}
+VARIANTS = {"as_is": (), "one_pass": ("lo_hi", "hi_lo"), "no_mma": ("lo_hi", "hi_lo", "hi_hi")}
 STAMP = ("{ if (blockIdx.x == 0 && threadIdx.x == 0) { unsigned long long t; "
          "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); "
          "if (g_stamps < 1024) g_stamp[g_stamps++] = t; } }")
@@ -63,41 +95,67 @@ extern "C" int read_stamps(unsigned long long* host, int* n) {
 '''
 
 
-def stamped_source(src: str) -> str:
-    """stage_int8.cu with a stamp before the blocks' loop and after every
-    grid barrier of the kernel body, and a C entry that reads the stamps."""
-    include = '#include "winograd.cuh"\n'
-    loop = "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act"
+def stamped_source(src: str, kernel: str) -> str:
+    """The kernel's source with a stamp before the blocks' loop and after
+    every grid barrier of the kernel body, and a C entry that reads the
+    stamps."""
+    include, loop = LAYOUT[kernel]
     if include not in src or loop not in src:
-        raise SystemExit("stage_int8.cu does not have the layout this tool stamps")
+        raise SystemExit(f"{kernel}.cu does not have the layout this tool stamps")
     src = src.replace("wt::grid_sync(a.bar);", "{ wt::grid_sync(a.bar); STAMP }")
     src = src.replace(include, include + "__device__ unsigned long long g_stamp[1024];\n"
                       "__device__ int g_stamps;\n#define STAMP " + STAMP + "\n", 1)
     return src.replace(loop, "  STAMP\n" + loop, 1) + READ_STAMPS
 
 
-def build(root: pathlib.Path, out: pathlib.Path):
-    """The barrier benchmark and the stamped stage library, built together."""
+def variant_sources(csrc: pathlib.Path, out: pathlib.Path, variant: str) -> pathlib.Path:
+    """A copy of csrc under out/variant with the variant's passes of the
+    tf32 tile taken out; returns the copy."""
+    dst = out / variant
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(csrc, dst)
+    tile = (dst / "mma_tf32.cuh").read_text()
+    for name in VARIANTS[variant]:
+        if tile.count(PASSES[name]) != 1:
+            raise SystemExit(f"mma_tf32.cuh does not have the {name} pass this tool edits")
+        tile = tile.replace(PASSES[name], "(void)0;")
+    (dst / "mma_tf32.cuh").write_text(tile)
+    return dst
+
+
+def build(root: pathlib.Path, out: pathlib.Path, kernels, variants=("as_is",)):
+    """The barrier benchmark and the stamped stage libraries (the f32 stage
+    once per variant, "stage_stamped:<variant>"), built together; returns
+    {name: library}."""
     from winograd_tpu_torch.kernels import _build
 
     csrc = root / "winograd_tpu_torch" / "csrc"
     out.mkdir(parents=True, exist_ok=True)
     (out / "barrier.cu").write_text(BARRIER_BENCH)
-    (out / "stage_stamped.cu").write_text(stamped_source((csrc / "stage_int8.cu").read_text()))
-    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o",
-                               str(out / f"lib{name}.so"), str(out / f"{name}.cu")],
+    jobs = {"barrier": (out / "barrier.cu", csrc)}  # name -> (source, include dir)
+    for kernel in kernels:
+        stamped = stamped_source((csrc / f"{kernel}.cu").read_text(), kernel)
+        for variant in (variants if kernel == "stage" else ("as_is",)):
+            src = variant_sources(csrc, out, variant) if kernel == "stage" else out
+            (src / f"{kernel}_stamped.cu").write_text(stamped)
+            name = f"{kernel}_stamped:{variant}" if kernel == "stage" else f"{kernel}_stamped"
+            jobs[name] = (src / f"{kernel}_stamped.cu", src if kernel == "stage" else csrc)
+    lib_of = {name: out / f"lib{name.replace(':', '_')}.so" for name in jobs}
+    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(inc), "-o",
+                               str(lib_of[name]), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for name in ("barrier", "stage_stamped")]
+             for name, (src, inc) in jobs.items()]
     for proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"nvcc failed:\n{log}")
-    libs = [ctypes.CDLL(str(out / f"lib{name}.so")) for name in ("barrier", "stage_stamped")]
-    for lib in libs:
+    libs = {name: ctypes.CDLL(str(lib_of[name])) for name in jobs}
+    for lib in libs.values():
         for fn in ("barrier_bench", "read_stamps"):
             if hasattr(lib, fn):
                 getattr(lib, fn).restype = ctypes.c_int
-    libs[1].wt_error_string.restype = ctypes.c_char_p
+        if hasattr(lib, "wt_error_string"):
+            lib.wt_error_string.restype = ctypes.c_char_p
     return libs
 
 
@@ -120,13 +178,15 @@ def barrier_us(lib, dev, blocks: int) -> float:
     return 1e3 * (ms[1] - ms[0]) / 100
 
 
-def stage_case(rng, dev, n, h, w, cio, cmid, nb):
-    """Seeded quantized stage params and a ReLU'd input."""
+def stage_case(rng, dev, kernel, n, h, w, cio, cmid, nb):
+    """Seeded stage params (quantized for the int8 stage) and a ReLU'd
+    input."""
     import torch
 
     from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels import transforms
     from winograd_tpu_torch.kernels.direct import direct_filter
+    from winograd_tpu_torch.kernels.stage import stack_stage_params
 
     def rand(*shape):
         return (rng.random(shape) - 0.5).astype(np.float32)
@@ -139,15 +199,24 @@ def stage_case(rng, dev, n, h, w, cio, cmid, nb):
             u2_mid=transforms.transform_filter(wm, m=2), w9_mid=direct_filter(wm),
             s_mid=rand(cmid) + 0.5, b_mid=rand(cmid), w_expand=rand(cmid, cio),
             s_expand=rand(cio) + 0.5, b_expand=rand(cio)))
-    qs = {k: v.to(dev) for k, v in q8.quantize_stage_params(blocks).items()}
-    return torch.as_tensor(np.abs(rand(n, h, w, cio)), device=dev), qs
+    if kernel == "stage_int8":
+        params = {k: v.to(dev) for k, v in q8.quantize_stage_params(blocks).items()}
+    else:
+        params = {k: v.to(dev) for k, v in stack_stage_params(blocks).items()}
+    return torch.as_tensor(np.abs(rand(n, h, w, cio)), device=dev), params
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=pathlib.Path, default=ROOT,
                     help="the checkout whose kernel and wrapper are timed")
+    ap.add_argument("--kernel", choices=("stage", "stage_int8", "both"), default="both")
+    ap.add_argument("--variant", default="as_is", metavar="NAME,...",
+                    help="variants of the f32 stage's tile: " + ", ".join(VARIANTS))
     args = ap.parse_args()
+    variants = tuple(v for v in args.variant.split(",") if v)
+    if not variants or any(v not in VARIANTS for v in variants):
+        ap.error(f"--variant takes names from {', '.join(VARIANTS)}")
     root = args.root.resolve()
     sys.path.insert(0, str(root))
     import torch
@@ -157,37 +226,57 @@ def main() -> int:
         return 1
     from winograd_tpu_torch.kernels import _build
     from winograd_tpu_torch.kernels import quantized as q8
+    from winograd_tpu_torch.kernels import stage as st
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    bench, stage = build(root, ROOT / "build" / "stage_timeline" / root.name)
+    kernels = ("stage", "stage_int8") if args.kernel == "both" else (args.kernel,)
+    libs = build(root, ROOT / "build" / "stage_timeline" / root.name, kernels, variants)
     sms = _build.sm_count(dev)
     for per_sm in (1, 2):
-        print(json.dumps({"barrier_us": barrier_us(bench, dev, per_sm * sms),
+        print(json.dumps({"barrier_us": barrier_us(libs["barrier"], dev, per_sm * sms),
                           "blocks": per_sm * sms}), flush=True)
-    _build._LIBS["stage_int8"] = stage  # the wrapper launches the stamped library
-    q8._workspace_words.cache_clear()
+    wrappers = {"stage": (st.resnet_stage_fused, st.resnet_stage_fused_plain,
+                          st._workspace_floats),
+                "stage_int8": (q8.resnet_stage_int8, q8.resnet_stage_int8_plain,
+                               q8._workspace_words)}
     rng = np.random.default_rng(0)
     stamps, count = (ctypes.c_ulonglong * 1024)(), ctypes.c_int(0)
     ok = True
-    for n, h, w, cio, cmid, nb, mid in SHAPES:
-        x, qs = stage_case(rng, dev, n, h, w, cio, cmid, nb)
-        ref = q8.resnet_stage_int8_plain(x, qs, mid)
-        for _ in range(3):  # the last of three calls
-            torch.cuda.synchronize()
-            if stage.read_stamps(stamps, ctypes.byref(count)):
-                raise SystemExit("read_stamps failed")
-            y = q8.resnet_stage_int8(x, qs, mid)
-            torch.cuda.synchronize()
-            if stage.read_stamps(stamps, ctypes.byref(count)):
-                raise SystemExit("read_stamps failed")
-        ok &= bool(torch.equal(y, ref))
-        ts = [stamps[i] for i in range(count.value)]
-        print(json.dumps({"shape": [n, h, w, cio, cmid, nb, mid], "root": str(root),
-                          "stamped_us": (ts[-1] - ts[0]) / 1e3,
-                          "spans_us": [round((b - a) / 1e3, 2) for a, b in zip(ts, ts[1:])],
-                          "equal_to_twin": bool(torch.equal(y, ref))}), flush=True)
+    for kernel in kernels:
+        call, plain, workspace = wrappers[kernel]
+        cases = []
+        for n, h, w, cio, cmid, nb, mid in SHAPES[kernel]:
+            x, params = stage_case(rng, dev, kernel, n, h, w, cio, cmid, nb)
+            cases.append(((n, h, w, cio, cmid, nb, mid), x, params, plain(x, params, mid)))
+        for variant in (variants if kernel == "stage" else ("as_is",)):
+            lib = libs[f"{kernel}_stamped:{variant}" if kernel == "stage" else f"{kernel}_stamped"]
+            _build._LIBS[kernel] = lib  # the wrapper launches the stamped library
+            workspace.cache_clear()
+            for shape, x, params, ref in cases:
+                for _ in range(3):  # the last of three calls
+                    torch.cuda.synchronize()
+                    if lib.read_stamps(stamps, ctypes.byref(count)):
+                        raise SystemExit("read_stamps failed")
+                    y = call(x, params, shape[-1])
+                    torch.cuda.synchronize()
+                    if lib.read_stamps(stamps, ctypes.byref(count)):
+                        raise SystemExit("read_stamps failed")
+                err = (y - ref).abs().max().item()
+                if kernel == "stage_int8":
+                    agrees = bool(torch.equal(y, ref))
+                else:
+                    agrees = err <= 1e-4 * max(1.0, ref.abs().max().item())
+                if variant == "as_is":
+                    ok &= agrees
+                ts = [stamps[i] for i in range(count.value)]
+                print(json.dumps({"kernel": kernel, "variant": variant, "shape": list(shape),
+                                  "root": str(root), "stamped_us": (ts[-1] - ts[0]) / 1e3,
+                                  "spans_us": [round((b - a) / 1e3, 2)
+                                               for a, b in zip(ts, ts[1:])],
+                                  "max_abs_err": err, "agrees_with_twin": agrees}), flush=True)
     return 0 if ok else 1
 
 

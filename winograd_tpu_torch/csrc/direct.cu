@@ -35,27 +35,6 @@ namespace {
 namespace tc = wt::tf32x3;
 namespace sk = wt::splitk;
 
-// The stride-1 pad-1 3x3 im2col rows of an (N, H, W, C) map as an A source:
-// at(p, k) is the address of the input value at row p = (n, y, x) and
-// k = (3r + s) * C + c, or null past P or where the window leaves the map.
-struct Im2colA {
-  const float* __restrict__ x;
-  int H, W, C, P;
-  __device__ __forceinline__ const float* base() const { return x; }
-  __device__ __forceinline__ const float* at(int p, int k) const {
-    if (p >= P) return nullptr;
-    const int rs = k / C;
-    const int c = k - rs * C;
-    const int hw = H * W;
-    const int n = p / hw;
-    const int q = p - n * hw;
-    const int y = q / W + rs / 3 - 1;
-    const int xx = q % W + rs % 3 - 1;
-    if (y < 0 || y >= H || xx < 0 || xx >= W) return nullptr;
-    return x + (static_cast<size_t>(n * H + y) * W + xx) * C + c;
-  }
-};
-
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 }  // namespace
@@ -80,7 +59,7 @@ extern "C" int direct_conv3x3_bn(const float* x, const float* w9, const float* s
   sk::Args a{x, w9, scale, bias, out, nullptr, nullptr, P, K, Cout, relu, splits, chunk};
   cudaError_t e = sk::bind_workspace(a, ws, part, tiles, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const Im2colA src{x, H, W, Cin, P};
+  const tc::Im2colA src{x, H, W, Cin, P};
   if (Cin % 4 == 0 && Cout % 4 == 0 && aligned16(x) && aligned16(w9) && aligned16(out))
     e = sk::launch_mma<true>(a, src, tiles, s);
   else

@@ -197,15 +197,17 @@ inline size_t phase_partial_floats(const wt::GemmPhase& g) {
   return g.splits > 1 ? static_cast<size_t>(g.splits) * g.P * g.N : 0;
 }
 
-// Blocks of `kernel` (kGemmThreads threads, `smem` bytes of dynamic shared
-// memory) that the current device holds resident at once; 0 on error.
-inline int cooperative_grid(const void* kernel, size_t smem) {
+// Blocks of `kernel` (`threads` threads, `smem` bytes of dynamic shared
+// memory) that the current device holds resident at once, at most
+// `max_per_sm` an SM; 0 on error.
+inline int cooperative_grid(const void* kernel, size_t smem, int threads = wt::kGemmThreads,
+                            int max_per_sm = 1 << 30) {
   int dev = 0, sms = 0, per_sm = 0;
   if (cudaGetDevice(&dev) != cudaSuccess) return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
     return 0;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, wt::kGemmThreads,
-                                                    smem) != cudaSuccess)
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem) !=
+      cudaSuccess)
     return 0;
-  return per_sm * sms;
+  return (per_sm < max_per_sm ? per_sm : max_per_sm) * sms;
 }

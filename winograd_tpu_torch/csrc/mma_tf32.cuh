@@ -2,8 +2,8 @@
 // cp.async stages: acc = A[p0.., k0:k1] x B[k0:k1, n0..] with B (K, N)
 // row-major in device memory and A given by a source that names, for a row
 // p and a k, the address of A[p, k] or "zero" (RowMajorA: a (P, K) matrix;
-// csrc/direct.cu's implicit im2col: zero where the 3x3 window leaves the
-// map).
+// Im2colA: the implicit im2col of a stride-1 3x3, zero where the window
+// leaves the map).
 //
 // 3xTF32: every operand x is split as hi = tf32(x) (cvt.rna, 10 explicit
 // mantissa bits) and lo = tf32(x - hi), and each k step accumulates
@@ -21,9 +21,16 @@
 // 32 distinct banks. kVec selects 16-byte copies (K and N multiples of 4,
 // operands 16-byte aligned; the A source's four floats from a k that is a
 // multiple of 4 lie in one row of memory) or 4-byte ones (any shape); both
-// zero-fill past N and k1 and where the A source says zero.
+// zero-fill past N and k1 and where the A source says zero. The 16-byte
+// copies bypass L1 (cp.async.cg); the 4-byte cp.async exists only through
+// L1, so an A written earlier in the same launch (kCg: a persistent
+// kernel's activation, behind a grid barrier) takes 4-byte __ldcg loads
+// stored to shared memory instead.
 //
-// Shared by csrc/pointwise.cu and csrc/direct.cu (through splitk_tf32.cuh).
+// Shared by csrc/pointwise.cu and csrc/direct.cu (through splitk_tf32.cuh's
+// split-K kernel), csrc/stage.cu (splitk_tf32.cuh's gemm_phase) and the
+// Winograd products of wino_tf32.cuh (csrc/winograd.cu, csrc/stage.cu),
+// whose A is V = Bt d Bt^T read from the workspace its V phase wrote.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,16 +83,36 @@ struct RowMajorA {
   }
 };
 
+// The stride-1 pad-1 3x3 im2col rows of an (N, H, W, C) map as an A source:
+// at(p, k) is the address of the input value at row p = (n, y, x) and
+// k = (3r + s) * C + c, or null past P or where the window leaves the map.
+struct Im2colA {
+  const float* __restrict__ x;
+  int H, W, C, P;
+  __device__ __forceinline__ const float* base() const { return x; }
+  __device__ __forceinline__ const float* at(int p, int k) const {
+    if (p >= P) return nullptr;
+    const int rs = k / C;
+    const int c = k - rs * C;
+    const int hw = H * W;
+    const int n = p / hw;
+    const int q = p - n * hw;
+    const int y = q / W + rs / 3 - 1;
+    const int xx = q % W + rs % 3 - 1;
+    if (y < 0 || y >= H || xx < 0 || xx >= W) return nullptr;
+    return x + (static_cast<size_t>(n * H + y) * W + xx) * C + c;
+  }
+};
+
 template <class ASrc>
 __device__ __forceinline__ const float* a_source(const ASrc& a, int p, int k, int k1) {
   return k < k1 ? a.at(p, k) : nullptr;
 }
 
-// One stage: A[p0 .. p0+63, kb .. kb+31] and B[kb .. kb+31, n0 .. n0+63].
-template <bool kVec, class ASrc>
-__device__ __forceinline__ void load_stage(float* sa, float* sb, const ASrc& a,
-                                           const float* __restrict__ b, int N, int p0, int n0,
-                                           int kb, int k1) {
+// A[p0 .. p0+63, kb .. kb+31] into the stage's A rows; kCg: A was written
+// earlier in the launch (4-byte loads through L2 only).
+template <bool kVec, bool kCg, class ASrc>
+__device__ __forceinline__ void load_a(float* sa, const ASrc& a, int p0, int kb, int k1) {
   const int tid = threadIdx.x;
   if (kVec) {
 #pragma unroll
@@ -95,6 +122,26 @@ __device__ __forceinline__ void load_stage(float* sa, float* sb, const ASrc& a,
       const float* src = a_source(a, p0 + r, kb + c, k1);
       cp_async16(sa + r * kLdA + c, src ? src : a.base(), src != nullptr);
     }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < kBM * kBK / kThreads; ++i) {
+      const int idx = tid + i * kThreads;
+      const int r = idx / kBK, c = idx % kBK;
+      const float* src = a_source(a, p0 + r, kb + c, k1);
+      if (kCg)
+        sa[r * kLdA + c] = src ? __ldcg(src) : 0.f;
+      else
+        cp_async4(sa + r * kLdA + c, src ? src : a.base(), src != nullptr);
+    }
+  }
+}
+
+// B[kb .. kb+31, n0 .. n0+63] into the stage's B rows.
+template <bool kVec>
+__device__ __forceinline__ void load_b(float* sb, const float* __restrict__ b, int N, int n0,
+                                       int kb, int k1) {
+  const int tid = threadIdx.x;
+  if (kVec) {
 #pragma unroll
     for (int i = 0; i < kBK * kBN / 4 / kThreads; ++i) {
       const int idx = tid + i * kThreads;
@@ -103,13 +150,6 @@ __device__ __forceinline__ void load_stage(float* sa, float* sb, const ASrc& a,
       cp_async16(sb + r * kLdB + c, ok ? b + static_cast<size_t>(kb + r) * N + n0 + c : b, ok);
     }
   } else {
-#pragma unroll 4
-    for (int i = 0; i < kBM * kBK / kThreads; ++i) {
-      const int idx = tid + i * kThreads;
-      const int r = idx / kBK, c = idx % kBK;
-      const float* src = a_source(a, p0 + r, kb + c, k1);
-      cp_async4(sa + r * kLdA + c, src ? src : a.base(), src != nullptr);
-    }
 #pragma unroll 4
     for (int i = 0; i < kBK * kBN / kThreads; ++i) {
       const int idx = tid + i * kThreads;
@@ -162,9 +202,11 @@ __device__ __forceinline__ void mma_stage(const float* sa, const float* sb, Acc&
 }
 
 // acc = A[p0.., k0:k1] x B[k0:k1, n0..] for the block's 64 x 64 tile, A
-// through the source `a`; smem: kSmemBytes, 16-byte aligned. Ends with every
-// copy landed and a __syncthreads, so the caller may reuse the ring.
-template <bool kVec, class ASrc>
+// through the source `a` (kCg: written earlier in the launch), over stages
+// kBK deep (the last one shorter) on a ring of kStages; smem: kSmemBytes,
+// 16-byte aligned. Ends with every copy landed and a __syncthreads, so the
+// caller may reuse the ring.
+template <bool kVec, bool kCg, class ASrc>
 __device__ __forceinline__ void tile(const ASrc& a, const float* __restrict__ b, int N, int p0,
                                      int n0, int k0, int k1, float* smem, Acc& acc) {
   const int warp = threadIdx.x / 32;
@@ -176,23 +218,23 @@ __device__ __forceinline__ void tile(const ASrc& a, const float* __restrict__ b,
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
 
+  // Stage kb's A and B rows into the ring slot at st (the 4-byte kCg loads
+  // of A are plain shared stores, visible after the next __syncthreads).
+  const auto load = [&](float* st, int kb) {
+    load_a<kVec, kCg>(st, a, p0, kb, k1);
+    load_b<kVec>(st + kBM * kLdA, b, N, n0, kb, k1);
+  };
   const int steps = (k1 - k0 + kBK - 1) / kBK;
 #pragma unroll
   for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) {
-      float* st = smem + s * kStageFloats;
-      load_stage<kVec>(st, st + kBM * kLdA, a, b, N, p0, n0, k0 + s * kBK, k1);
-    }
+    if (s < steps) load(smem + s * kStageFloats, k0 + s * kBK);
     cp_async_commit();
   }
   for (int it = 0; it < steps; ++it) {
     cp_async_wait<kStages - 2>();
     __syncthreads();  // stage `it` landed for all; slot (it - 1) is free
     const int next = it + kStages - 1;
-    if (next < steps) {
-      float* st = smem + (next % kStages) * kStageFloats;
-      load_stage<kVec>(st, st + kBM * kLdA, a, b, N, p0, n0, k0 + next * kBK, k1);
-    }
+    if (next < steps) load(smem + (next % kStages) * kStageFloats, k0 + next * kBK);
     cp_async_commit();
     const float* st = smem + (it % kStages) * kStageFloats;
     mma_stage(st, st + kBM * kLdA, acc, wm, wn);

@@ -15,10 +15,16 @@
 //
 // The MMA path (mma_kernel) multiplies 64 x 64 tiles of mma_tf32.cuh, with A
 // from any of its sources; pointwise.cu's GEMV reuses the reduction.
+//
+// gemm_phase is the same product as one phase of a persistent cooperative
+// kernel (csrc/stage.cu): its work items, (split, tile) pairs, are dealt to
+// the grid's blocks, and the splits' partial sums are added in split order
+// behind a grid barrier (grid_sync.cuh) by all blocks, each element once.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "grid_sync.cuh"
 #include "mma_tf32.cuh"
 
 namespace wt {
@@ -130,7 +136,7 @@ __global__ void __launch_bounds__(tc::kThreads) mma_kernel(Args a, ASrc src) {
   const int p0 = tile / tiles_n * tc::kBM, n0 = tile % tiles_n * tc::kBN;
   const int k0 = split * a.chunk, k1 = min(a.K, k0 + a.chunk);
   tc::Acc acc;
-  tc::tile<kVec>(src, a.w, a.N, p0, n0, k0, k1, smem, acc);
+  tc::tile<kVec, false>(src, a.w, a.N, p0, n0, k0, k1, smem, acc);
 
   if (a.splits == 1) {
     tc::for_each_acc(acc, [&](int r, int c, float v) {
@@ -148,6 +154,54 @@ __global__ void __launch_bounds__(tc::kThreads) mma_kernel(Args a, ASrc src) {
     reduce_splits<float4, 8, 1, tc::kThreads>(a, p0, n0, tc::kBM * tc::kBN / 4, tc::kBN / 4, 4);
   else
     reduce_splits<float, 8, 1, tc::kThreads>(a, p0, n0, tc::kBM * tc::kBN, tc::kBN, 1);
+}
+
+// C = A x B over the phase g (P, K, N, and K in g.splits ranges of g.chunk,
+// each a multiple of tc::kBK but the last), every output through
+// epi(p, n, acc); A from the source `a` (kCg: written earlier in the
+// launch), B (K, N) row-major; kVec: 16-byte copies (K and N multiples of 4,
+// operands 16-byte aligned). Past one split each item writes its partial
+// tile to part (splits x P x N) and, after a grid barrier, the blocks add
+// the splits in order 0, 1, ... and apply epi. smem: tc::kSmemBytes. The
+// caller places the barrier that ends the phase.
+template <bool kVec, bool kCg, class ASrc, class Epilogue>
+__device__ __forceinline__ void gemm_phase(const GemmPhase& g, const ASrc& a,
+                                           const float* __restrict__ b, const Epilogue& epi,
+                                           float* part, unsigned int* bar, float* smem) {
+  const int tiles_n = (g.N + tc::kBN - 1) / tc::kBN;
+  const int tiles = (g.P + tc::kBM - 1) / tc::kBM * tiles_n;
+  for (int item = blockIdx.x; item < tiles * g.splits; item += gridDim.x) {
+    const int split = item / tiles, t = item - split * tiles;
+    const int p0 = t / tiles_n * tc::kBM, n0 = t % tiles_n * tc::kBN;
+    const int k0 = split * g.chunk, k1 = min(g.K, k0 + g.chunk);
+    tc::Acc acc;
+    tc::tile<kVec, kCg>(a, b, g.N, p0, n0, k0, k1, smem, acc);
+    float* sp = part + static_cast<size_t>(split) * g.P * g.N;
+    tc::for_each_acc(acc, [&](int r, int c, float v) {
+      const int p = p0 + r, n = n0 + c;
+      if (p >= g.P || n >= g.N) return;
+      if (g.splits == 1)
+        epi(p, n, v);
+      else
+        sp[static_cast<size_t>(p) * g.N + n] = v;
+    });
+  }
+  if (g.splits == 1) return;
+  grid_sync(bar);
+  const size_t pn = static_cast<size_t>(g.P) * g.N;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < pn;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float s = __ldcg(part + i);
+    for (int k = 1; k < g.splits; k += 8) {  // eight splits' loads in flight
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = k + u < g.splits ? __ldcg(part + (k + u) * pn + i) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k + u < g.splits) s += v[u];
+    }
+    epi(static_cast<int>(i / g.N), static_cast<int>(i % g.N), s);
+  }
 }
 
 // Host side. True when a plan fits: K in `splits` ranges of `chunk`, the

@@ -17,35 +17,49 @@
 // conv3_x (3 blocks, 28x28, 512/128, F(2,3)) and conv4_x (5 blocks, 14x14,
 // 1024/256, direct).
 //
-// Bound on the H100: at N=1 the FLOPs (2*H*W*(2*Cio*Cmid + 9*Cmid^2) per
-// block, fewer with F(2,3)) against x, out and the weights read once: 0.64
-// GFLOP on 7.2 MB for conv2_x, 2.2 GFLOP on 24 MB for conv4_x; all bound by
-// the FP32 FFMA rate (67 TFLOP/s).
+// Bound on the H100: the products (2*H*W*(2*Cio*Cmid + 9*Cmid^2) FLOPs per
+// block, fewer with F(2,3)) as three TF32 passes at 495 TFLOP/s against x,
+// out and the weights read once at 3.35 TB/s: 2.2 GFLOP on 24 MB for
+// conv4_x at N=1 (13 us against 7 us), 17.6 GFLOP at N=8 (0.11 ms):
+// operations; at N=1 the phases are small (16 to 196 MMA tiles), so filling
+// the card, not the rate, is the work.
 //
 // Design: the TPU keeps the activation in VMEM across blocks; an SM's 228 KB
 // cannot hold it (conv2_x is 3.2 MB per image), so the Hopper counterpart is
 // a persistent cooperative kernel whose grid is what the card holds
-// resident. Each phase walks its output tiles over all blocks, and a grid
-// barrier (grid_sync.cuh) separates phases and blocks; h1 and h2 live in a
-// device workspace that fits the 50 MB L2 (12.8 MB at N=8 conv2_x). The
-// GEMM phases use the 64 x 64 FFMA tile of gemm.cuh; a phase with fewer
-// tiles than the grid has blocks splits K and adds the splits in a fixed
-// order after a barrier (deterministic, no atomics). The F(2,3) mid-layer is the Winograd tile
-// body of winograd.cuh at 16 tiles x 64 channels per item. One dynamic
-// shared buffer is carved per phase. FP32 FFMA throughout (the 1e-4 bar).
+// resident (at most kMaxBlocksPerSm 128-thread blocks an SM). Each phase
+// deals its work items to all blocks, and a grid barrier (grid_sync.cuh)
+// separates phases and blocks; h1 and h2 live in a device workspace that
+// fits the 50 MB L2 (12.8 MB at N=8 conv2_x). The GEMM phases (reduce, the
+// direct mid on an implicit im2col of h1, expand with its residual) are
+// splitk_tf32.cuh's gemm_phase: 64 x 64 3xTF32 mma.sync tiles on a 4-deep
+// cp.async ring (mma_tf32.cuh), K split over blocks where a phase has
+// fewer tiles than the grid has blocks or an item would walk more than
+// kMaxWalk of K, the splits added in order behind a grid barrier
+// (deterministic). The F(2,3) mid is wino_tf32.cuh's phase, the per-layer
+// Winograd's: V written once, then items of one position, Cin range and
+// 64 x 64 block of tiles and channels on the same tiles, then the grid
+// applies At M At^T and BN, two barriers apart; its Cin split is the
+// host's (kernels/winograd.py::winograd_plan for Cmid, passed in by
+// kernels/stage.py), whose grid of two blocks an SM is kMaxBlocksPerSm's. So a block is three
+// phases, each one item walk plus its split reduction (the Winograd mid
+// also its V phase), and four to seven grid barriers. One dynamic shared
+// buffer (the MMA ring, 72 KB) serves every phase.
+
+#include <stdint.h>
 
 #include "common.cuh"
-#include "gemm.cuh"
-#include "grid_sync.cuh"
-#include "winograd.cuh"
+#include "splitk_tf32.cuh"
+#include "wino_tf32.cuh"
 
 namespace {
 
-constexpr int kWinoTiles = 16;  // Winograd tiles per item (256 threads)
-constexpr size_t kSmemBytes =
-    sizeof(float) * (wt::wino_smem_floats<2, kWinoTiles>() > wt::kGemmSmemFloats
-                         ? wt::wino_smem_floats<2, kWinoTiles>()
-                         : wt::kGemmSmemFloats);
+namespace tc = wt::tf32x3;
+namespace sk = wt::splitk;
+namespace wtc = wt::winotc;
+
+constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
+constexpr int kMaxWalk = 512;       // K a GEMM item walks, at most
 
 struct StageArgs {
   const float* x;
@@ -61,99 +75,134 @@ struct StageArgs {
   const float* b3;
   float* h1;
   float* h2;
+  float* v;  // the F(2,3) mid's V
   float* part;
   unsigned int* bar;
   int N, H, W, Cio, Cmid, B, wino;
   wt::GemmPhase reduce, mid, expand;
+  wtc::Conv wconv;  // the F(2,3) mid's geometry and cut
+  wtc::Cut wcut;
 };
 
-__global__ void __launch_bounds__(wt::kGemmThreads) stage_kernel(StageArgs a) {
+// kVec: Cio and Cmid multiples of 4, every operand 16-byte aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm) stage_kernel(StageArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int cio = a.Cio, cmid = a.Cmid;
-  const int th = (a.H + 1) / 2, tw = (a.W + 1) / 2;
-  const int wino_items = ((a.N * th * tw + kWinoTiles - 1) / kWinoTiles) *
-                         ((cmid + wt::wino_cob<2>() - 1) / wt::wino_cob<2>());
+  const int P = a.N * a.H * a.W;
   for (int blk = 0; blk < a.B; ++blk) {
     const float* act = blk == 0 ? a.x : a.out;
-    const float* s1 = a.s1 + static_cast<size_t>(blk) * cmid;
-    const float* b1 = a.b1 + static_cast<size_t>(blk) * cmid;
-    const float* s2 = a.s2 + static_cast<size_t>(blk) * cmid;
-    const float* b2 = a.b2 + static_cast<size_t>(blk) * cmid;
+    const size_t bm = static_cast<size_t>(blk) * cmid, bo = static_cast<size_t>(blk) * cio;
 
-    wt::gemm_phase(a.reduce, wt::RowsCg{act, cio},
-                   a.wr + static_cast<size_t>(blk) * cio * cmid,
-                   wt::BnEpilogue{s1, b1, a.h1, cmid, 1}, a.part, a.bar, smem);
+    sk::gemm_phase<kVec, true>(a.reduce, tc::RowMajorA{act, P, cio}, a.wr + bm * cio,
+                               wt::BnEpilogue{a.s1 + bm, a.b1 + bm, a.h1, cmid, 1}, a.part,
+                               a.bar, smem);
     wt::grid_sync(a.bar);
 
-    if (a.wino) {
-      const float* u2 = a.wm + static_cast<size_t>(blk) * 16 * cmid * cmid;
-      const int cgroups = (cmid + wt::wino_cob<2>() - 1) / wt::wino_cob<2>();
-      for (int item = blockIdx.x; item < wino_items; item += gridDim.x) {
-        wt::wino_tile<2, kWinoTiles>(
-            wt::CgLoad{}, a.h1, u2, s2, b2, a.h2, a.N, a.H, a.W, cmid, cmid, 1,
-            (item / cgroups) * kWinoTiles, (item % cgroups) * wt::wino_cob<2>(),
-            threadIdx.x, smem);
-      }
-    } else {
-      wt::gemm_phase(a.mid, wt::Im2colCg{a.h1, a.H, a.W, cmid},
-                     a.wm + static_cast<size_t>(blk) * 9 * cmid * cmid,
-                     wt::BnEpilogue{s2, b2, a.h2, cmid, 1}, a.part, a.bar, smem);
-    }
+    if (a.wino)
+      wtc::phase<2, kVec, true>(a.wconv, a.wcut, a.h1, a.wm + bm * 16 * cmid, a.s2 + bm,
+                                a.b2 + bm, a.h2, 1, a.v, a.part, a.bar, smem);
+    else
+      sk::gemm_phase<kVec, true>(a.mid, tc::Im2colA{a.h1, a.H, a.W, cmid, P},
+                                 a.wm + bm * 9 * cmid,
+                                 wt::BnEpilogue{a.s2 + bm, a.b2 + bm, a.h2, cmid, 1}, a.part,
+                                 a.bar, smem);
     wt::grid_sync(a.bar);
 
-    wt::gemm_phase(a.expand, wt::RowsCg{a.h2, cmid},
-                   a.we + static_cast<size_t>(blk) * cmid * cio,
-                   wt::ResidualEpilogue{a.s3 + static_cast<size_t>(blk) * cio,
-                                    a.b3 + static_cast<size_t>(blk) * cio, act,
-                                    a.out, cio},
-                   a.part, a.bar, smem);
+    sk::gemm_phase<kVec, true>(
+        a.expand, tc::RowMajorA{a.h2, P, cmid}, a.we + bm * cio,
+        wt::ResidualEpilogue{a.s3 + bo, a.b3 + bo, act, a.out, cio}, a.part, a.bar, smem);
     if (blk + 1 < a.B) wt::grid_sync(a.bar);
   }
 }
 
-int grid_size() {
-  static int cache[64] = {0};
+template <bool kVec>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(&stage_kernel<kVec>);
+}
+
+// Blocks of the instantiation in the cooperative grid: what the current
+// device holds resident, at most kMaxBlocksPerSm an SM (the dynamic shared
+// memory limit raised once per device); 0 on error.
+int grid_size(bool vec) {
+  static int cache[64][2] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cache[dev] == 0) cache[dev] = cooperative_grid(reinterpret_cast<const void*>(stage_kernel), kSmemBytes);
-  return cache[dev];
+  if (cache[dev][vec] == 0) {
+    const void* kernel = vec ? kernel_of<true>() : kernel_of<false>();
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(tc::kSmemBytes)) != cudaSuccess)
+      return 0;
+    cache[dev][vec] = cooperative_grid(kernel, tc::kSmemBytes, tc::kThreads, kMaxBlocksPerSm);
+  }
+  return cache[dev][vec];
+}
+
+// The K split of a GEMM phase: about one item a block, and K cut further
+// until no item walks more than kMaxWalk of it (an item's walk is latency
+// bound, so items beyond one a block still pay; kernels/direct.py's rule).
+wt::GemmPhase tf32_phase(int P, int K, int N, int grid) {
+  const int tiles = ((P + tc::kBM - 1) / tc::kBM) * ((N + tc::kBN - 1) / tc::kBN);
+  const int walk = (K + kMaxWalk - 1) / kMaxWalk;
+  return split_k(P, K, N, grid / tiles > walk ? grid / tiles : walk, tc::kBK);
 }
 
 struct Plan {
   int grid;
   wt::GemmPhase reduce, mid, expand;
-  size_t h1, h2, part, total;  // workspace offsets and size, in floats
+  wtc::Conv wconv;
+  wtc::Cut wcut;
+  size_t h1, h2, v, part, total;  // workspace offsets and size, in floats
 };
 
-int make_plan(int N, int H, int W, int Cio, int Cmid, int wino, Plan* pl) {
+// vec: the kVec instantiation (the two have the same plan but may hold
+// different grids); wcut: the F(2,3) mid's cut (read when wino), which
+// must fit (wino_tf32.cuh::cut_fits).
+int make_plan(int N, int H, int W, int Cio, int Cmid, int wino, wtc::Cut wcut, bool vec,
+              Plan* pl) {
   if (N <= 0 || H <= 0 || W <= 0 || Cio <= 0 || Cmid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  pl->grid = grid_size();
+  pl->wconv = wtc::make_conv<2>(N, H, W, Cmid, Cmid);
+  pl->wcut = wcut;
+  if (wino && !wtc::cut_fits(pl->wconv, wcut)) return static_cast<int>(cudaErrorInvalidValue);
+  pl->grid = grid_size(vec);
   if (pl->grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int P = N * H * W;
-  pl->reduce = plan_phase(P, Cio, Cmid, pl->grid);
-  pl->mid = plan_phase(P, 9 * Cmid, Cmid, wino ? 0 : pl->grid);
-  pl->expand = plan_phase(P, Cmid, Cio, pl->grid);
+  pl->reduce = tf32_phase(P, Cio, Cmid, pl->grid);
+  pl->mid = wino ? split_k(P, 9 * Cmid, Cmid, 1) : tf32_phase(P, 9 * Cmid, Cmid, pl->grid);
+  pl->expand = tf32_phase(P, Cmid, Cio, pl->grid);
   size_t part = phase_partial_floats(pl->reduce);
-  if (phase_partial_floats(pl->mid) > part) part = phase_partial_floats(pl->mid);
   if (phase_partial_floats(pl->expand) > part) part = phase_partial_floats(pl->expand);
+  const size_t mid = wino ? wtc::part_floats(pl->wconv, 16, pl->wcut)
+                          : phase_partial_floats(pl->mid);
+  if (mid > part) part = mid;
   pl->h1 = kWorkspaceAlign;  // the barrier's two counters sit at the front
   pl->h2 = pl->h1 + workspace_round_up(static_cast<size_t>(P) * Cmid);
-  pl->part = pl->h2 + workspace_round_up(static_cast<size_t>(P) * Cmid);
+  pl->v = pl->h2 + workspace_round_up(static_cast<size_t>(P) * Cmid);
+  pl->part = pl->v + (wino ? workspace_round_up(wtc::v_floats(pl->wconv, 16)) : 0);
   pl->total = pl->part + part;
   return 0;
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-// Floats of workspace resnet_stage needs for this shape on the current
-// device (into *floats); returns a CUDA error code.
-extern "C" int resnet_stage_workspace(int N, int H, int W, int Cio, int Cmid,
-                                      int wino, long long* floats) {
-  Plan pl;
-  const int err = make_plan(N, H, W, Cio, Cmid, wino, &pl);
-  if (err == 0) *floats = static_cast<long long>(pl.total);
-  return err;
+// Floats of workspace resnet_stage needs for this shape and F(2,3) cut
+// (wsplits Cin ranges of wchunk) on the current device (into *floats);
+// returns a CUDA error code. The two instantiations' plans differ at most
+// in their grid, so the larger workspace is given.
+extern "C" int resnet_stage_workspace(int N, int H, int W, int Cio, int Cmid, int wino,
+                                      int wsplits, int wchunk, long long* floats) {
+  long long most = 0;
+  for (const bool vec : {true, false}) {
+    Plan pl;
+    const int err = make_plan(N, H, W, Cio, Cmid, wino, wtc::Cut{wsplits, wchunk}, vec, &pl);
+    if (err != 0) return err;
+    if (static_cast<long long>(pl.total) > most) most = static_cast<long long>(pl.total);
+  }
+  *floats = most;
+  return 0;
 }
 
 extern "C" int resnet_stage(const float* x, const float* wr, const float* s1,
@@ -161,10 +210,13 @@ extern "C" int resnet_stage(const float* x, const float* wr, const float* s1,
                             const float* b2, const float* we, const float* s3,
                             const float* b3, float* out, float* ws,
                             long long ws_floats, int N, int H, int W, int Cio,
-                            int Cmid, int B, int wino, void* stream) {
+                            int Cmid, int B, int wino, int wsplits, int wchunk,
+                            void* stream) {
   if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = Cio % 4 == 0 && Cmid % 4 == 0 && aligned16(x) && aligned16(out) &&
+                   aligned16(wr) && aligned16(wm) && aligned16(we) && aligned16(ws);
   Plan pl;
-  const int err = make_plan(N, H, W, Cio, Cmid, wino, &pl);
+  const int err = make_plan(N, H, W, Cio, Cmid, wino, wtc::Cut{wsplits, wchunk}, vec, &pl);
   if (err != 0) return err;
   if (ws_floats < static_cast<long long>(pl.total))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -173,12 +225,11 @@ extern "C" int resnet_stage(const float* x, const float* wr, const float* s1,
   cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   StageArgs a{x,  out, wr, s1, b1, wm, s2, b2, we, s3, b3,
-              ws + pl.h1, ws + pl.h2, ws + pl.part, bar,
-              N,  H,   W,  Cio, Cmid, B, wino, pl.reduce, pl.mid, pl.expand};
+              ws + pl.h1, ws + pl.h2, ws + pl.v, ws + pl.part, bar,
+              N,  H,   W,  Cio, Cmid, B, wino, pl.reduce, pl.mid, pl.expand, pl.wconv, pl.wcut};
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(stage_kernel),
-                                  dim3(pl.grid), dim3(wt::kGemmThreads), args,
-                                  kSmemBytes, s);
+  e = cudaLaunchCooperativeKernel(vec ? kernel_of<true>() : kernel_of<false>(), dim3(pl.grid),
+                                  dim3(tc::kThreads), args, tc::kSmemBytes, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

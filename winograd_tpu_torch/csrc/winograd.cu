@@ -9,45 +9,57 @@
 // ::_winograd_kernel_p64 (conv3x3_bn_winograd_pallas). The p64 variant packs
 // two 64-channel tile columns into the TPU's 128 lanes; on Hopper the same
 // kernel serves every channel count, so one kernel covers both. On the
-// served ResNet-50 path it runs the projection block's 3x3 and the conv2_x
-// identity blocks at 56x56x64, and the conv3_x identity blocks at 28x28x128,
-// all F(2,3).
+// served paths it runs ResNet-50's projection 3x3 at 56x56x64 and
+// ResNet-34's identity 3x3s at 56x56x64, 28x28x128 and 14x14x256, all
+// F(2,3).
 //
-// Bound on the H100: F(2,3) does 16 products of (tiles x Cin x Cout) per
-// 4 outputs; at 56x56x64 that is 103 MFLOP on 1.9 MB, at 28x28x128 103 MFLOP
-// on 1.9 MB: both bound by the FP32 FFMA rate (and far from it, see below).
+// Bound on the H100: at each served shape the 16 products of (tiles x Cin x
+// Cout) are 103 MFLOP at N=1; as three TF32 passes (the 3xTF32 split) at
+// 495 TFLOP/s that is 0.6 us, and the map, U and the output (1.9 MB at
+// 28x28x128) take about as long at 3.35 TB/s. But the products are small:
+// 49 to 784 tiles (1 to 13 blocks of 64 rows) x 64 to 256 output channels,
+// a handful of MMA tiles per position; a kernel that gives a block all
+// positions of its tiles (as the TPU kernel and this file's FP64 route do)
+// fills 7 to 98 of the 132 SMs and walks all of Cin for 16 positions alone.
 //
-// Design: one block of 8 x 16 threads owns 8 tiles x COB output channels for
-// every tile position, so the whole Winograd chain for those outputs stays
-// on chip (the tile body is csrc/winograd.cuh, shared with the stage
-// kernel's F(2,3) mid-layer). Input channels are consumed in stages of 8: the block gathers
-// its tiles with zero padding (the left/top pad of 1 and the right/bottom
-// overhang), applies Bt d Bt^T in registers with the constant matrices
-// folded in at compile time, and stages V and the matching slice of U in
-// shared memory. Each thread then accumulates, in registers, all (m+2)^2
-// positions of one tile for CPT output channels (F(2,3): 16 x 4, F(4,3):
-// 36 x 2 accumulators), applies At M At^T in registers, and stores with
-// the BN epilogue. All arithmetic is FP32 FFMA with FP32 accumulation,
-// which holds 1e-4 for F(4,3) too. The inner loop issues one shared-memory
-// load per CPT FMAs, so it runs well below the FFMA peak; a wgmma/3xTF32
-// product per position is later work.
+// Design (the f32 route): one cooperative launch of wino_tf32.cuh's phase.
+// The grid writes V once to the workspace; after a grid barrier, work items
+// (position, Cin split, tile block, Cout block), cut by the host's plan
+// (kernels/winograd.py::winograd_plan: Cin split until the items reach the
+// grid's blocks, at 28x28x128 and 14x14x256),
+// multiply V[q] by U[q] on the 3xTF32 MMA tiles (mma_tf32.cuh, both
+// operands by 16-byte cp.async) and write their partial M; after a second
+// barrier the grid adds each position's splits in split order and applies
+// At M At^T and BN, so calls repeat to the bit. V and M take 3.2 MB each at
+// N=1 56x56x64 and 26 MB each at N=8, more than half the 50 MB L2 together:
+// there M is written while V is read, and part of both goes to HBM. This
+// entry checks the plan against the geometry compiled here and refuses a
+// grid larger than the card holds resident.
 //
-// winograd_conv3x3_bn_bf16 is the same tile body at F(2,3) on a bf16
-// filter in FP64 (the int8 tier's stride-1 3x3 at 64 channels, the JAX
-// package's conv3x3_bn_winograd_pallas(precision="bf16w") at 56x56x64 on
-// the basic family's int8 route).
+// winograd_conv3x3_bn_bf16 is the F(2,3) tile body of winograd.cuh on a
+// bf16 filter in FP64 (the int8 tier's stride-1 3x3 at 64 channels, the
+// JAX package's conv3x3_bn_winograd_pallas(precision="bf16w") at 56x56x64
+// on the basic family's int8 route), one block of 8 x 16 threads per 8
+// tiles x 32 output channels with every position on chip, as before: its
+// arithmetic must match a float64 plain version to the bit.
 
 #include <cuda_bf16.h>
 
+#include <stdint.h>
+
 #include "common.cuh"
 #include "winograd.cuh"
+#include "wino_tf32.cuh"
 
 namespace {
 
-constexpr int kTT = 8;  // tiles per block (threadIdx.y)
+namespace tc = wt::tf32x3;
+namespace wtc = wt::winotc;
 
-// TU: the filter's element type; TA and CPT: winograd.cuh's arithmetic type
-// and output channels per thread.
+constexpr int kTT = 8;  // tiles per block of the FP64 route (threadIdx.y)
+
+// The FP64 route: TU the filter's element type; TA and CPT winograd.cuh's
+// arithmetic type and output channels per thread.
 template <int M, class TU, class TA, int CPT>
 __global__ void __launch_bounds__(kTT * wt::kWinoTX) winograd_kernel(
     const float* __restrict__ x, const TU* __restrict__ u,
@@ -61,7 +73,7 @@ __global__ void __launch_bounds__(kTT * wt::kWinoTX) winograd_kernel(
       reinterpret_cast<float*>(smem));
 }
 
-template <int M, class TU, class TA = float, int CPT = wt::Wino<M>::CPT>
+template <int M, class TU, class TA, int CPT>
 int launch(const float* x, const TU* u, const float* scale,
            const float* bias, float* out, int N, int H, int W, int Cin,
            int Cout, int relu, cudaStream_t stream) {
@@ -74,18 +86,92 @@ int launch(const float* x, const TU* u, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The f32 route on the tensor cores.
+struct TcArgs {
+  const float* x;
+  const float* u;
+  const float* scale;
+  const float* bias;
+  float* out;
+  float* v;
+  float* part;
+  unsigned int* bar;
+  wtc::Conv cv;
+  wtc::Cut cut;
+  int relu;
+};
+
+template <int M, bool kVec>
+__global__ void __launch_bounds__(tc::kThreads) winograd_tc_kernel(TcArgs a) {
+  extern __shared__ __align__(16) float smem[];
+  wtc::phase<M, kVec, false>(a.cv, a.cut, a.x, a.u, a.scale, a.bias, a.out, a.relu, a.v,
+                             a.part, a.bar, smem);
+}
+
+// Blocks of the instantiation that the current device holds resident (its
+// dynamic shared memory limit raised once per device); 0 on error.
+template <int M, bool kVec>
+int resident_blocks() {
+  static int cache[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cache[dev] == 0) {
+    const void* kernel = reinterpret_cast<const void*>(&winograd_tc_kernel<M, kVec>);
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(tc::kSmemBytes)) != cudaSuccess)
+      return 0;
+    cache[dev] = cooperative_grid(kernel, tc::kSmemBytes, tc::kThreads);
+  }
+  return cache[dev];
+}
+
+template <int M, bool kVec>
+int launch_tc(TcArgs& a, int blocks, cudaStream_t s) {
+  const int resident = resident_blocks<M, kVec>();
+  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
+  cudaError_t e = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&winograd_tc_kernel<M, kVec>),
+                                  dim3(blocks), dim3(tc::kThreads), args, tc::kSmemBytes, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-extern "C" int winograd_conv3x3_bn(const float* x, const float* u,
-                                   const float* scale, const float* bias,
-                                   float* out, int N, int H, int W, int Cin,
-                                   int Cout, int m, int relu, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
+// The host's plan (kernels/winograd.py::winograd_plan): a cooperative grid
+// of `blocks` blocks (at most what the card holds resident), Cin in
+// `splits` ranges of `chunk` (the last one shorter; chunk a multiple of the
+// MMA stage, tc::kBK, past one split); `tile` the width of the MMA tile, which
+// must be this library's (64). ws: the grid barrier's two counters at word
+// 0, V ((m+2)^2 x tiles x Cin rounded up to 4) from word `v`, the splits x
+// (m+2)^2 x tiles x Cout partial products from word `part` (both multiples
+// of 4, in that order), ws_words words in all.
+extern "C" int winograd_conv3x3_bn(const float* x, const float* u, const float* scale,
+                                   const float* bias, float* out, float* ws, long long ws_words,
+                                   long long v, long long part, int N, int H, int W, int Cin,
+                                   int Cout, int m, int relu, int tile, int blocks, int splits,
+                                   int chunk, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || (m != 2 && m != 4) ||
+      tile != tc::kBM || blocks <= 0 || ws == nullptr || !aligned16(ws))
     return static_cast<int>(cudaErrorInvalidValue);
+  const int a2 = (m + 2) * (m + 2);
+  const wtc::Conv cv = m == 2 ? wtc::make_conv<2>(N, H, W, Cin, Cout)
+                              : wtc::make_conv<4>(N, H, W, Cin, Cout);
+  const wtc::Cut cut{splits, chunk};
+  if (!wtc::cut_fits(cv, cut) || v < 2 || v % 4 != 0 || part % 4 != 0 ||
+      part < v + static_cast<long long>(wtc::v_floats(cv, a2)) ||
+      ws_words < part + static_cast<long long>(wtc::part_floats(cv, a2, cut)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TcArgs a{x,   u,        scale, bias, out, ws + v, ws + part,
+           reinterpret_cast<unsigned int*>(ws), cv, cut, relu};
   const auto s = static_cast<cudaStream_t>(stream);
-  if (m == 2) return launch<2>(x, u, scale, bias, out, N, H, W, Cin, Cout, relu, s);
-  if (m == 4) return launch<4>(x, u, scale, bias, out, N, H, W, Cin, Cout, relu, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = Cout % 4 == 0 && aligned16(u);
+  if (m == 2) return vec ? launch_tc<2, true>(a, blocks, s) : launch_tc<2, false>(a, blocks, s);
+  return vec ? launch_tc<4, true>(a, blocks, s) : launch_tc<4, false>(a, blocks, s);
 }
 
 // F(2,3) on a bf16 filter (the int8 tier's bf16-weight 3x3): the filter is

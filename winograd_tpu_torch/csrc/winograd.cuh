@@ -1,33 +1,36 @@
-// The Winograd F(m,3) tile body, m = 2 or 4: one work item computes TT
-// tiles x COB output channels of a 3x3 conv (stride 1, pad 1) + folded BN
-// (+ ReLU), for every tile position, with the whole Winograd chain on chip:
+// The Winograd F(m,3) matrices (Wino<M>, m = 2 or 4), the sandwich T in T^T
+// of their nonzero entries, and the FP64 tile body of the F(2,3) routes
+// that must match a float64 plain version to the bit.
+//
+// wino_tile: one work item computes TT tiles x kWinoTX * CPT output
+// channels of a 3x3 conv (stride 1, pad 1) + folded BN (+ ReLU), for every
+// tile position, with the whole Winograd chain on chip:
 //   V = Bt d Bt^T per (m+2)^2 input tile and channel,
 //   M[p] = V[p] U[p] per tile position p,
 //   Y = At M At^T, then y = Y * scale + bias (+ ReLU), stored clipped at the
 //   right and bottom edges when m does not divide the map.
-//
-// Shared by csrc/winograd.cu (TT = 8, 128 threads per block) and the
-// persistent stage kernel's F(2,3) mid-layer (csrc/stage.cu, TT = 16, 256
-// threads). Thread `tid` of the item takes tile tid / kWinoTX and output
-// channels (tid % kWinoTX) * CPT .. + CPT. Input channels are consumed in
-// stages of kWinoCK: the input transform runs one thread per (tile,
-// channel) of the stage, in registers with the constant matrices folded in
-// at compile time, and stages V and the matching slice of U in shared
-// memory (wino_smem_floats<M, TT>() floats, 16-byte aligned). The input is
-// read through the functor `Load` (`float ld(const float* p)`), so a kernel
-// that produced it in the same launch can bypass L1. The filter U is float,
-// or __nv_bfloat16 for the int8 stage's bf16-weight mid-layer
-// (csrc/stage_int8.cu): it is widened to float as it is staged.
-//
-// The arithmetic type TA is float (FP32 FMA throughout; the f32 kernels) or
-// double: then the transforms, the products and their sums run in FP64 and
-// each output is rounded to float once, before a BN whose multiply and add
-// round separately. That makes the result independent of the order of the
-// sums (to a last-bit tie in FP64), so a plain version computing the same
-// algebra in float64 matches it to the bit; the int8 stage needs that,
+// The transforms, the products and their sums run in FP64 (TA = double)
+// and each output is rounded to float once, before a BN whose multiply and
+// add round separately. That makes the result independent of the order of
+// the sums (to a last-bit tie in FP64), so a plain version computing the
+// same algebra in float64 matches it to the bit; the int8 tier needs that,
 // because its next layer's quantization turns any last-bit difference into
-// a whole quantization step. CPT output channels per thread (4 at F(2,3)
-// and 2 at F(4,3) by default; 2 for the FP64 accumulators' registers).
+// a whole quantization step. CPT = 2 output channels per thread (the FP64
+// accumulators' registers).
+//
+// Used by csrc/winograd.cu's F(2,3) on bf16 filters (TT = 8, 128 threads
+// per block) and by the int8 stage's winograd2 mid-layer
+// (csrc/stage_int8.cu, TT = 16, 256 threads). Thread `tid` of the item
+// takes tile tid / kWinoTX and output channels (tid % kWinoTX) * CPT ..
+// + CPT. Input channels are consumed in stages of kWinoCK: the input
+// transform runs one thread per (tile, channel) of the stage, in registers
+// with the constant matrices folded in at compile time, and stages V and
+// the matching slice of U in shared memory (wino_smem_bytes, 16-byte
+// aligned). The input is read through the functor `Load` (`float ld(const
+// float* p)`), so a kernel that produced it in the same launch can bypass
+// L1. The filter U (float or __nv_bfloat16) is widened to float as it is
+// staged. The f32 Winograd (csrc/wino_tf32.cuh) shares only the matrices
+// and the sandwich.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -45,7 +48,6 @@ struct Wino;
 
 template <>
 struct Wino<2> {
-  static constexpr int CPT = 4;  // output channels per thread
   __host__ __device__ static constexpr float bt(int i, int k) {
     constexpr float m[4][4] = {
         {1, 0, -1, 0}, {0, 1, 1, 0}, {0, -1, 1, 0}, {0, 1, 0, -1}};
@@ -59,7 +61,6 @@ struct Wino<2> {
 
 template <>
 struct Wino<4> {
-  static constexpr int CPT = 2;
   __host__ __device__ static constexpr float bt(int i, int k) {
     constexpr float m[6][6] = {
         {4, 0, -5, 0, 1, 0},  {0, -4, -4, 1, 1, 0}, {0, 4, -4, -1, 1, 0},
@@ -74,16 +75,6 @@ struct Wino<4> {
     return m[i][k];
   }
 };
-
-template <int M>
-__host__ __device__ constexpr int wino_cob() {
-  return kWinoTX * Wino<M>::CPT;
-}
-
-template <int M, int TT>
-__host__ __device__ constexpr int wino_smem_floats() {
-  return (M + 2) * (M + 2) * kWinoCK * (TT + wino_cob<M>());
-}
 
 // Shared memory of wino_tile with arithmetic type TA and CPT channels per
 // thread: V in TA, the U stage in float.
@@ -137,12 +128,13 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162f
 // Tiles t0 .. t0 + TT - 1 (row-major over N x ceil(H/M) x ceil(W/M)) and
 // output channels co0 .. co0 + COB - 1 (COB = kWinoTX * CPT), by threads
 // 0 .. TT * kWinoTX - 1; smem holds wino_smem_bytes<M, TT, TA, CPT>().
-template <int M, int TT, class Load, class TU, class TA = float, int CPT = Wino<M>::CPT>
+template <int M, int TT, class Load, class TU, class TA, int CPT>
 __device__ __forceinline__ void wino_tile(
     const Load& ld, const float* x, const TU* __restrict__ u,
     const float* __restrict__ scale, const float* __restrict__ bias,
     float* out, int N, int H, int W, int Cin, int Cout, int relu, int t0,
     int co0, int tid, float* smem) {
+  static_assert(std::is_same<TA, double>::value && CPT == 2, "the FP64 routes' tile");
   constexpr int A = M + 2;
   constexpr int A2 = A * A;
   constexpr int COB = kWinoTX * CPT;
@@ -214,17 +206,9 @@ __device__ __forceinline__ void wino_tile(
 #pragma unroll
       for (int p = 0; p < A2; ++p) {
         const TA v = Vs[p][c][ty];
-        if constexpr (CPT == 4) {
-          const float4 w = *reinterpret_cast<const float4*>(&Us[p][c][tx * 4]);
-          acc[p][0] = mul_add(v, TA(w.x), acc[p][0]);
-          acc[p][1] = mul_add(v, TA(w.y), acc[p][1]);
-          acc[p][2] = mul_add(v, TA(w.z), acc[p][2]);
-          acc[p][3] = mul_add(v, TA(w.w), acc[p][3]);
-        } else {
-          const float2 w = *reinterpret_cast<const float2*>(&Us[p][c][tx * 2]);
-          acc[p][0] = mul_add(v, TA(w.x), acc[p][0]);
-          acc[p][1] = mul_add(v, TA(w.y), acc[p][1]);
-        }
+        const float2 w = *reinterpret_cast<const float2*>(&Us[p][c][tx * 2]);
+        acc[p][0] = mul_add(v, TA(w.x), acc[p][0]);
+        acc[p][1] = mul_add(v, TA(w.y), acc[p][1]);
       }
     }
     __syncthreads();
@@ -254,11 +238,7 @@ __device__ __forceinline__ void wino_tile(
         const int oy = oy0 + oi;
         const int ox = ox0 + oj;
         if (oy < H && ox < W) {
-          float val;
-          if constexpr (std::is_same<TA, float>::value)
-            val = y[oi][oj] * s + b;
-          else
-            val = __fadd_rn(__fmul_rn(static_cast<float>(y[oi][oj]), s), b);
+          float val = __fadd_rn(__fmul_rn(static_cast<float>(y[oi][oj]), s), b);
           if (relu) val = fmaxf(val, 0.f);
           out[(static_cast<size_t>(n * H + oy) * W + ox) * Cout + co] = val;
         }

@@ -19,7 +19,7 @@ import torch
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct_plain
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn_plain
-from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd_plain
+from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd_plain, winograd_plan
 
 # Stride-1 3x3s on maps of at least this many pixels run Winograd F(2,3);
 # smaller maps run the direct implicit GEMM. The JAX package's rule
@@ -79,13 +79,14 @@ def resnet_stage_fused_plain(x, stacked: Dict, mid_algo: str = "auto") -> torch.
 
 
 @functools.lru_cache(maxsize=None)
-def _workspace_floats(device_index: int, n, h, w, cio, cmid, wino) -> int:
+def _workspace_floats(device_index: int, n, h, w, cio, cmid, wino, splits, chunk) -> int:
     lib = _build.library("stage")
     floats = ctypes.c_longlong(0)
     c = _build.cint
     with torch.cuda.device(device_index):
         err = lib.resnet_stage_workspace(
-            c(n), c(h), c(w), c(cio), c(cmid), c(wino), ctypes.byref(floats))
+            c(n), c(h), c(w), c(cio), c(cmid), c(wino), c(splits), c(chunk),
+            ctypes.byref(floats))
     _build.check_error(lib, "resnet_stage_workspace", err)
     return floats.value
 
@@ -124,7 +125,11 @@ def resnet_stage_fused(x, stacked: Dict, mid_algo: str = "auto",
             raise ValueError(f"{key} {tuple(stacked[key].shape)}, want {shape}")
     ops = [x] + [stacked[k] for k in keys]
     _build.check_tensors(*ops)
-    floats = _workspace_floats(x.device.index, n, h, w, cio, cmid, int(wino))
+    # The F(2,3) mid's Cin split: the per-layer Winograd's plan for Cmid
+    # (the kernel's grid is as many blocks an SM as that plan's).
+    cut = winograd_plan(n, h, w, cmid, cmid, 2, _build.sm_count(x.device))
+    floats = _workspace_floats(x.device.index, n, h, w, cio, cmid, int(wino), cut.splits,
+                               cut.chunk)
     ws = torch.empty(floats, device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     c = _build.cint
@@ -132,6 +137,6 @@ def resnet_stage_fused(x, stacked: Dict, mid_algo: str = "auto",
         "stage", "resnet_stage", (n, h, w, cio, cmid, nb, mid_algo), x.device,
         *map(_build.ptr, ops), _build.ptr(out),
         _build.ptr(ws), ctypes.c_longlong(floats),
-        c(n), c(h), c(w), c(cio), c(cmid), c(nb), c(wino),
+        c(n), c(h), c(w), c(cio), c(cmid), c(nb), c(wino), c(cut.splits), c(cut.chunk),
     )
     return out[0] if squeeze else out

@@ -2,8 +2,11 @@
 
 Port of winograd_tpu/kernels/winograd.py::conv3x3_bn_winograd_pallas (both
 its kernels, _winograd_kernel and _winograd_kernel_p64). The CUDA kernel is
-csrc/winograd.cu; the plain twin does the same Winograd algebra on u with
-this package's transform matrices.
+csrc/winograd.cu: at f32 V written once, then the per-position products on
+the 3xTF32 tensor cores (csrc/wino_tf32.cuh), cut into work items by
+winograd_plan; the plain
+twin does the same Winograd algebra on u with this package's transform
+matrices.
 
 A bfloat16 u (F(2,3) only) is the int8 tier's bf16-weight 3x3, the JAX
 package's conv3x3_bn_winograd_pallas(precision="bf16w"): the kernel runs its
@@ -14,12 +17,80 @@ bit, as the int8 layer it feeds needs.
 
 from __future__ import annotations
 
+import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from winograd_tpu_torch.kernels import _build, transforms
+from winograd_tpu_torch.kernels.splitk import H100_SMS, split_k
+
+# The plan of an f32 csrc/winograd.cu launch. The kernel's geometry, which
+# its C entry checks every plan against (tests/test_torch_winograd_plan.py
+# reads them from the sources): the work items' tile blocks and Cout blocks
+# are WINOGRAD_TILE wide (the MMA tile, csrc/mma_tf32.cuh), a Cin range past
+# one split is a multiple of WINOGRAD_STEP (its cp.async stage). The plan's
+# own rule: a cooperative grid of WINOGRAD_BLOCKS_PER_SM blocks an SM (the
+# entry refuses more than the card holds resident; csrc/stage.cu's grid
+# holds as many, and its F(2,3) mid takes this plan too); a work item is one
+# tile position, and Cin is split, in ranges at least WINOGRAD_MIN_CHUNK
+# long, until the items reach the grid's blocks. Tuned on the served shapes
+# by tools/chip_split_sweep.py (PERF.md): items of several positions were
+# slower at every served shape, at N=8 by up to 30%. The workspace holds the
+# grid barrier's counters, then V and the partial products, each part at a
+# multiple of WINOGRAD_ALIGN words.
+WINOGRAD_TILE = 64
+WINOGRAD_STEP = 32
+WINOGRAD_BLOCKS_PER_SM = 2
+WINOGRAD_MIN_CHUNK = 64
+WINOGRAD_ALIGN = 64
+
+
+class WinogradWorkspace(NamedTuple):
+    """Word offsets of V and of the partial products, and the words in all."""
+
+    v: int
+    part: int
+    words: int
+
+
+class WinogradPlan(NamedTuple):
+    """How csrc/winograd.cu cuts an F(m,3) conv into work items: one tile
+    position an item, Cin in `splits` ranges of `chunk`, on a cooperative
+    grid of `blocks` blocks."""
+
+    blocks: int
+    splits: int
+    chunk: int
+
+    def items(self, tiles: int, cout: int, a2: int) -> int:
+        """Work items: positions x splits x tile blocks x Cout blocks."""
+        return a2 * self.splits * -(-tiles // WINOGRAD_TILE) * -(-cout // WINOGRAD_TILE)
+
+    def workspace(self, tiles: int, cin: int, cout: int, a2: int) -> WinogradWorkspace:
+        """The grid barrier's counters, V (a2 x tiles x cin rounded up to 4),
+        then splits x a2 x tiles x cout partial products."""
+        v = WINOGRAD_ALIGN
+        part = v + -(-a2 * tiles * -(-cin // 4) * 4 // WINOGRAD_ALIGN) * WINOGRAD_ALIGN
+        return WinogradWorkspace(v, part, part + self.splits * a2 * tiles * cout)
+
+
+def winograd_tiles(n: int, h: int, w: int, m: int) -> int:
+    return n * -(-h // m) * -(-w // m)
+
+
+@functools.lru_cache(maxsize=None)
+def winograd_plan(n: int, h: int, w: int, cin: int, cout: int, m: int,
+                  sms: int = H100_SMS) -> WinogradPlan:
+    """The grid and the cut of an (n, h, w, cin) -> cout F(m,3) conv on a card
+    with `sms` SMs."""
+    blocks = WINOGRAD_BLOCKS_PER_SM * sms
+    plan = WinogradPlan(blocks, 1, cin)
+    items = plan.items(winograd_tiles(n, h, w, m), cout, (m + 2) ** 2)
+    split = split_k(cin, -(-blocks // items), WINOGRAD_STEP, WINOGRAD_MIN_CHUNK)
+    return plan._replace(splits=split.splits, chunk=split.chunk)
 
 
 def tile_size(u: torch.Tensor) -> int:
@@ -107,9 +178,29 @@ def conv3x3_bn_winograd(x, u, scale, bias, relu: bool = True) -> torch.Tensor:
                 c(n), c(h), c(w), c(cin), c(cout), c(relu),
             )
         else:
-            _build.launch(
-                "winograd", "winograd_conv3x3_bn", (n, h, w, cin, cout, m, bool(relu)), x.device,
-                ptr(x), ptr(u), ptr(scale), ptr(bias), ptr(out),
-                c(n), c(h), c(w), c(cin), c(cout), c(m), c(relu),
-            )
+            plan = winograd_plan(n, h, w, cin, cout, m, _build.sm_count(x.device))
+            out = conv3x3_bn_winograd_planned(x, u, scale, bias, relu, plan, out)
     return out[0] if squeeze else out
+
+
+def conv3x3_bn_winograd_planned(x, u, scale, bias, relu: bool, plan: WinogradPlan,
+                                out=None) -> torch.Tensor:
+    """conv3x3_bn_winograd's f32 launch on CUDA tensors under an explicit plan
+    (the wrapper passes winograd_plan's; tools/chip_split_sweep.py times
+    others). x: (N, H, W, Cin), u float32; operands as conv3x3_bn_winograd
+    checks them."""
+    n, h, w, cin = x.shape
+    m, cout = tile_size(u), u.shape[2]
+    at = plan.workspace(winograd_tiles(n, h, w, m), cin, cout, (m + 2) ** 2)
+    ws = torch.empty(at.words, device=x.device, dtype=torch.float32)
+    if out is None:
+        out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
+    c, ptr = _build.cint, _build.ptr
+    _build.launch(
+        "winograd", "winograd_conv3x3_bn", (n, h, w, cin, cout, m, bool(relu)), x.device,
+        ptr(x), ptr(u), ptr(scale), ptr(bias), ptr(out), ptr(ws), ctypes.c_longlong(at.words),
+        ctypes.c_longlong(at.v), ctypes.c_longlong(at.part), c(n), c(h), c(w), c(cin), c(cout),
+        c(m), c(relu),
+        c(WINOGRAD_TILE), c(plan.blocks), c(plan.splits), c(plan.chunk),
+    )
+    return out
