@@ -56,22 +56,22 @@ Phases, each of which must pass (exit 1 otherwise):
    N=1 lists (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and
    9; the conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
-   14->7 transition at N=8; both basic stages at N=8 and at one block, the
-   ResNet-18 run; the int8 Winograd at N=8, 14x14x256; the pointwise head
-   and conv5_x reduce at N=8; the f32 and int8 direct 3x3s at N=8,
-   7x7x512), on
-   seeded inputs. Bound: max abs error <= 1e-4 * max(1, max|plain|); the
-   int8 transition and basic stage, whose chained quantizations may flip a
-   rounding on f32-level differences, and the int8 Winograd, whose V is
-   quantized, 1e-3 * max(1, max|plain|); the int8 direct 3x3 and the int8
-   stage (their twins' arithmetic, exact int32 sums) 0: equal to their
-   twins. One JSON line per shape: error; the K split of the split-K
-   kernels ("splits": pointwise, direct and direct_int8, from their
-   wrappers' plans; for the f32 Winograd its plan's Cin splits); device
-   times of the
-   kernel, its plain version and the library call (20 calls captured in a
-   CUDA graph, the median of 20 replays between CUDA events, divided by 20;
-   inputs stay in L2 between calls); "wrapper_ms", one eager wrapper call
+   14->7 transition at N=8; the stem at N=8 in both precisions; both basic
+   stages at N=8 and at one block, the ResNet-18 run; the int8 Winograd at
+   N=8, 14x14x256; the pointwise head and conv5_x reduce at N=8; the f32
+   and int8 direct 3x3s at N=8, 7x7x512), on seeded inputs. Bound: max
+   abs error <= 1e-4 * max(1, max|plain|); the int8 basic stage, whose
+   chained quantizations may flip a rounding on f32-level differences, and
+   the int8 Winograd, whose V is quantized, 1e-3 * max(1, max|plain|); the
+   int8 direct 3x3, stage and transition (their twins' arithmetic, exact
+   int32 sums) and the bf16 stem (exact FP64 sums of bf16 products) 0:
+   equal to their twins. One JSON line per shape: error; the K split of
+   the split-K kernels ("splits": pointwise, direct and direct_int8, from
+   their wrappers' plans; for the f32 Winograd its plan's Cin splits);
+   device times of the kernel, its plain version and the library call (20
+   calls captured in a CUDA graph, the median of 20 replays between CUDA
+   events, divided by 20; inputs stay in L2 between calls); "wrapper_ms",
+   one eager wrapper call
    between CUDA events, host path included (median of 20 after 2
    warm-ups); and the bound: the larger of the operations' time and the
    bytes' time (H100 SXM data sheet: 67 TFLOP/s FP32 outside the tensor
@@ -170,10 +170,12 @@ SOURCES = {
 }
 # Chained int8 layers, and the int8 Winograd's quantized V: a rounding may
 # flip on f32-level differences.
-CHAINED = ("transition_int8", "basic_stage_int8", "winograd_int8")
+CHAINED = ("basic_stage_int8", "winograd_int8")
 # The twin's arithmetic (quantized once a row, exact int32 sums, epilogues
-# rounded as the twin rounds): the kernel equals its twin.
-EXACT = ("direct_int8", "stage_int8")
+# rounded as the twin rounds): the kernel equals its twin. So does the stem
+# at "bf16" (its shapes end in the precision): exact FP64 sums of bf16
+# products, rounded once.
+EXACT = ("direct_int8", "stage_int8", "transition_int8")
 
 
 def _rand(rng, *shape):
@@ -795,7 +797,7 @@ def main() -> int:
     # block at modes 6 and 9; the batched layouts' cases (rows 7, 9, 18 and
     # 20 of the TPU kernel table) at N=8; the conv5_x stage geometry, which
     # the f32 route runs per layer; the int8 block (row 16) at mode 6; the
-    # f32 and int8 direct 3x3s at N=8.
+    # f32 and int8 direct 3x3s at N=8; the stem at N=8 in both precisions.
     extra = {
         "winograd": [(1, 14, 14, 128, 128, 4, True)],
         "stage": [(1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2"),
@@ -803,6 +805,7 @@ def main() -> int:
         "transition": [(8, 14, 14, 1024, 512, 2048)],
         "stage_int8": [(8, 14, 14, 1024, 256, 5, "direct"), (1, 14, 14, 1024, 256, 1, "direct")],
         "transition_int8": [(8, 14, 14, 1024, 512, 2048)],
+        "stem": [(8, 224, 224, 3, 64, "f32"), (8, 224, 224, 3, 64, "bf16")],
         "basic_stage": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "basic_stage_int8": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "winograd_int8": [(8, 14, 14, 256, 256, True)],
@@ -835,13 +838,14 @@ def main() -> int:
     rng = np.random.default_rng(0)
     for name in make_case:
         counter = per_image.get(name, collections.Counter())
-        rtol = 0.0 if name in EXACT else INT8_CHAINED_RTOL if name in CHAINED else ATOL
         tot = collections.defaultdict(float)
         tot["max_abs_err"] = 0.0
         lib_ok = True
         for shape in list(counter) + extra.get(name, []):
             n_img = counter.get(shape, 0)
             kern, plain, lib, work, nbytes = make_case[name](rng, *shape)
+            exact = name in EXACT or name == "stem" and shape[-1] == "bf16"
+            rtol = 0.0 if exact else INT8_CHAINED_RTOL if name in CHAINED else ATOL
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()

@@ -14,7 +14,11 @@ entry at channel counts that its wrapper pads; the f32 Winograd and stage
 on the tensor cores at their served shapes (N=1 and N=8, both mids, the
 F(4,3) check shape), their plans filling a wave of SMs and two calls equal
 to the bit, and the Winograd at ragged Cin and Cout (Cin 3 and 13, Cout off
-multiples of 4 on the 4-byte path) and split Cin. Needs an NVIDIA GPU and
+multiples of 4 on the 4-byte path) and split Cin; the stem on the FP64
+tensor cores at its served shape (N=1 and N=8, both precisions, the bf16
+stem equal to its twin there and on the odd images), and the int8
+transition on s8 mma.sync equal to its twin and repeating to the bit at its
+served shapes, odd maps and padded channel counts. Needs an NVIDIA GPU and
 nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -23,8 +27,9 @@ nvcc; skipped elsewhere. Run on the card with
 need not have). Bound: 1e-4 * max(1, max|ref|) in float32, TF32 off; the
 int8 transition, basic stage and Winograd, whose quantizations may flip a
 rounding on f32-level differences, 1e-3 * max(1, max|ref|); the int8
-direct 3x3 and stage (the same arithmetic as their twins, exact int32
-sums) and the padded int8 entries, 0.
+direct 3x3, stage and transition (the same arithmetic as their twins,
+exact int32 sums), the padded int8 entries and the bf16 stem (exact FP64
+sums), 0.
 """
 
 import numpy as np
@@ -588,3 +593,52 @@ def test_stage_served_shapes(dev, n, hw, cio, cmid, nb, mid):
     first = resnet_stage_fused(x, stacked, mid)
     _agree(first, resnet_stage_fused_plain(x, stacked, mid))
     assert torch.equal(first, resnet_stage_fused(x, stacked, mid))
+
+
+# --- the stem on the FP64 tensor cores, the int8 transition on s8 mma.sync --
+
+def _stem_case(rng, dev, n, h, w, cin, c):
+    x = _r(rng, dev, n, h, w, cin)
+    w192 = torch.as_tensor(stem_filter_s2d((rng.random((c, cin, 7, 7)) - 0.5).astype(np.float32)),
+                           device=dev)
+    s, b = _bn(rng, dev, c)
+    return x, w192, s, b
+
+
+# The served stem (224x224x3 -> 56x56x64) at N=1 and N=8: "f32" within the
+# f32 bar, "bf16" (the int8 tiers' stem, exact FP64 sums) equal to its twin.
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [1, 8])
+def test_stem_served_shape(dev, n, precision):
+    x, w192, s, b = _stem_case(np.random.default_rng(n), dev, n, 224, 224, 3, 64)
+    out = stem_fused(x, w192, s, b, precision)
+    ref = stem_fused_plain(x, w192, s, b, precision)
+    if precision == "bf16":
+        _equal(out, ref)
+    else:
+        _agree(out, ref)
+
+
+@pytest.mark.parametrize("n,h,w,cin,c", [
+    (2, 30, 30, 3, 16), (1, 33, 31, 3, 64), (1, 17, 18, 4, 24),
+])
+def test_stem_bf16_equals_its_twin_on_odd_images(dev, n, h, w, cin, c):
+    x, w192, s, b = _stem_case(np.random.default_rng(h * w + c + 2), dev, n, h, w, cin, c)
+    _equal(stem_fused(x, w192, s, b, "bf16"), stem_fused_plain(x, w192, s, b, "bf16"))
+
+
+# The served int8 transitions (56->28, 28->14, 14->7 at N=1; 14->7 at N=8),
+# odd maps, and channel counts off multiples of 4 (padded by the wrapper):
+# equal to the twin, and two calls equal to the bit.
+@pytest.mark.parametrize("n,h,w,cin,cmid,cout", [
+    (1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024), (1, 14, 14, 1024, 512, 2048),
+    (8, 14, 14, 1024, 512, 2048), (3, 15, 15, 68, 20, 130), (2, 9, 8, 256, 300, 70),
+    (8, 7, 7, 300, 40, 90), (2, 7, 5, 6, 10, 18),
+])
+def test_transition_int8_equals_its_twin(dev, n, h, w, cin, cmid, cout):
+    rng = np.random.default_rng(h * w + cin + cmid + cout)
+    p = _qtransition(rng, dev, cin, cmid, cout)
+    x = _r(rng, dev, n, h, w, cin).abs()
+    first = q8.transition_block_int8(x, p)
+    _equal(first, q8.transition_block_int8_plain(x, p))
+    assert torch.equal(first, q8.transition_block_int8(x, p))

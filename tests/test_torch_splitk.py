@@ -1,12 +1,13 @@
 """The K-split plans of the port's redesigned GEMM kernels (plain Python, no
 card needed): kernels/splitk.py::split_k, kernels/pointwise.py::split_plan
 (csrc/pointwise.cu), kernels/direct.py::direct_plan (csrc/direct.cu) and
-kernels/quantized.py::direct_int8_plan (csrc/direct_int8.cu). Every K index lies in exactly one range, every range
-but the last is a multiple of the kernel's staging step, and tiles x splits
-reach about one wave of SMs where K allows, never more than the kernel's
-blocks in flight. The plans' copies of the kernels' geometry equal the
-constants compiled into the kernels (whose C entries refuse a plan that
-does not fit them)."""
+kernels/quantized.py::direct_int8_plan (csrc/direct_int8.cu) and
+::transition_int8_plan (csrc/transition_int8.cu). Every K index lies in
+exactly one range, every range but the last is a multiple of the kernel's
+staging step, and tiles x splits reach about one wave of SMs where K
+allows, never more than the kernel's blocks in flight. The plans' copies
+of the kernels' geometry equal the constants compiled into the kernels
+(whose C entries refuse a plan that does not fit them)."""
 
 import pathlib
 import re
@@ -193,6 +194,64 @@ def test_direct_int8_workspace_holds_every_part():
     assert least <= one.workspace_words(70, 70) <= least + 4 * q8.WORKSPACE_ALIGN
 
 
+# The served int8 transitions (N, H, W, Cin, Cmid, Cout) and the splits of
+# their reduce, mid, expand and projection on 132 SMs: at N=1 the phases
+# split K towards a wave in ranges of at least 256; at N=8 the 14->7 reduce
+# and last phase have a tile for most blocks and keep one range each.
+SERVED_TRANSITION_INT8 = {
+    (1, 56, 56, 256, 128, 512): (1, 5, 1, 1), (1, 28, 28, 512, 256, 1024): (2, 9, 1, 2),
+    (1, 14, 14, 1024, 512, 2048): (4, 18, 2, 4), (8, 14, 14, 1024, 512, 2048): (1, 4, 1, 1),
+}
+
+
+def _transition_tiles(n, h, w, cin, cmid, cout):
+    """Output tiles of the reduce, the mid and the last phase."""
+    p1, p2 = n * h * w, n * -(-h // 2) * -(-w // 2)
+    tile = q8.DIRECT_INT8_TILE
+    return (-(-p1 // tile) * -(-cmid // tile), -(-p2 // tile) * -(-cmid // tile),
+            -(-p2 // tile) * -(-cout // tile))
+
+
+@pytest.mark.parametrize("shape", sorted(SERVED_TRANSITION_INT8))
+def test_transition_int8_plan_fills_the_card(shape):
+    plan = q8.transition_int8_plan(*shape)
+    phases = (plan.reduce, plan.mid, plan.expand, plan.proj)
+    assert tuple(s.splits for s in phases) == SERVED_TRANSITION_INT8[shape]
+    for split, kp in zip(phases, (plan.kpr, plan.kpm, plan.kpe, plan.kpr)):
+        _covers_once(split, kp, q8.DIRECT_INT8_STEP)
+        assert split.splits == 1 or split.chunk >= q8.TRANSITION_INT8_MIN_CHUNK
+    wave = q8.DIRECT_INT8_BLOCKS_PER_SM * H100_SMS
+    assert plan.blocks == wave
+    reduce, mid, last = _transition_tiles(*shape)
+    assert reduce * plan.reduce.splits <= max(wave, reduce)
+    assert mid * plan.mid.splits <= max(wave, mid)
+    slots = plan.expand.splits + plan.proj.splits
+    assert slots == 2 or last * slots <= wave   # one item a tile, or a wave of slots
+    assert plan.args() == (wave,) + plan.reduce + plan.mid + plan.expand + plan.proj
+
+
+@pytest.mark.parametrize("shape", [(3, 15, 15, 68, 20, 130), (2, 9, 8, 256, 300, 70),
+                                   (8, 7, 7, 300, 40, 90), (2, 7, 5, 8, 12, 16)])
+def test_transition_int8_plan_on_ragged_shapes(shape):
+    n, h, w, cin, cmid, cout = shape
+    plan = q8.transition_int8_plan(*shape)
+    for kp, k in ((plan.kpr, cin), (plan.kpm, 9 * cmid), (plan.kpe, cmid)):
+        assert kp % q8.DIRECT_INT8_K_ALIGN == 0 and k <= kp < k + q8.DIRECT_INT8_K_ALIGN
+    for split, kp in zip((plan.reduce, plan.mid, plan.expand, plan.proj),
+                         (plan.kpr, plan.kpm, plan.kpe, plan.kpr)):
+        _covers_once(split, kp, q8.DIRECT_INT8_STEP)
+    last = _transition_tiles(*shape)[2]
+    slots = plan.expand.splits + plan.proj.splits
+    assert slots == 2 or last * slots <= plan.blocks
+
+
+def test_transition_int8_plan_follows_the_sm_count():
+    shape = (1, 14, 14, 1024, 512, 2048)
+    small, large = q8.transition_int8_plan(*shape, sms=66), q8.transition_int8_plan(*shape)
+    assert small.blocks == large.blocks // 2
+    assert small.mid.splits < large.mid.splits and small.reduce.splits <= large.reduce.splits
+
+
 CSRC = pathlib.Path(q8.__file__).resolve().parent.parent / "csrc"
 
 
@@ -210,6 +269,16 @@ def _constexpr(source: str, name: str) -> int:
     (q8.DIRECT_INT8_K_ALIGN, "mma_int8.cuh", "kKAlign"),
     (q8.DIRECT_INT8_TILE, "mma_int8.cuh", "kBM"),
     (q8.DIRECT_INT8_STEP, "mma_int8.cuh", "kBK"),
+    (q8.DIRECT_INT8_BLOCKS_PER_SM, "transition_int8.cu", "kBlocksPerSm"),
 ])
 def test_plans_match_the_kernels_geometry(value, source, name):
     assert value == _constexpr(source, name)
+
+
+def test_transition_int8_entry_checks_the_int8_geometry():
+    """The transition's C entry refuses a K split off the s8 tile's stage and
+    a grid larger than its blocks an SM hold."""
+    src = (CSRC / "transition_int8.cu").read_text()
+    assert "constexpr int kSplitStep = s8::kBK;" in src
+    assert "__launch_bounds__(s8::kThreads, kBlocksPerSm)" in src
+    assert '#include "gemm_int8.cuh"' not in src

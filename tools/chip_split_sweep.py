@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct.cu,
-csrc/direct_int8.cu) and of the f32 Winograd's work-item cut
-(csrc/winograd.cu) on one CUDA card, and an A/B of their wrappers (and of
-the f32 and int8 stages', csrc/stage.cu and csrc/stage_int8.cu) against
-another checkout.
+csrc/direct_int8.cu, csrc/transition_int8.cu) and of the f32 Winograd's
+work-item cut (csrc/winograd.cu) on one CUDA card, and an A/B of their
+wrappers (and of the f32 and int8 stages', csrc/stage.cu and
+csrc/stage_int8.cu, and the stem's, csrc/stem.cu) against another
+checkout.
 
     python3 tools/chip_split_sweep.py [--only NAME,...]    # the sweep
     python3 tools/chip_split_sweep.py --ab DIR [--only ...] # the A/B against DIR
@@ -12,29 +13,34 @@ Run from the repository root on a machine with a CUDA card and nvcc. The
 shapes are each served shape of the kernels (the four served forwards of
 chip_smoke.py at N=1 and N=8, and the f32 Winograd's F(4,3) check shape).
 Every timed call is first held against its plain twin (pointwise, direct,
-winograd and stage within 1e-4 * max(1, max|plain|), direct_int8 and
-stage_int8 exactly). Device ms per call: 20 calls in one CUDA graph, the median of 20
-replays between CUDA events, inputs in L2. The card's name and power limit
+winograd, stage and stem within 1e-4 * max(1, max|plain|), transition_int8
+within 1e-3 * max(1, max|plain|), the bound its kernels before the s8
+mma.sync design met, direct_int8 and stage_int8 exactly). Device ms per
+call: 20 calls in one CUDA graph, the median of 20 replays between CUDA
+events, inputs in L2. The card's name and power limit
 come first, then one JSON line per shape and candidate.
 
 The sweep times each shape under the K split its wrapper's plan picks
 ("chosen") and under the splits that kernels/splitk.py::split_k gives for
 1, 2, 4, ..., 32 wanted ranges; the f32 Winograd under its plan and under
 the Cin splits that split_k gives for 1, 2, 3, 4 and 8 wanted ranges of at
-least 32.
+least 32; the int8 transition under its plan and under plans that change
+one of its phases: the reduce's or the mid's split for 1, 2, 4, ..., 32
+wanted ranges, or the last phase's expand and projection splits for 1, 2
+and 4 by 1, 2, 4 and 8 wanted ranges.
 
 --ab DIR times the public wrappers (kernels/pointwise.py::conv1x1_bn,
 kernels/direct.py::conv3x3_bn_direct, kernels/winograd.py::
 conv3x3_bn_winograd, kernels/stage.py::resnet_stage_fused,
-kernels/quantized.py::conv3x3_bn_int8 and ::resnet_stage_int8) of the
-checkout DIR (for example an
+kernels/stem.py::stem_fused, kernels/quantized.py::conv3x3_bn_int8,
+::resnet_stage_int8 and ::transition_block_int8) of the checkout DIR (for example an
 unpacked `git archive` of another commit under build/) and of this one,
 each in a process of its own that imports that checkout's package and
 builds its kernels there, in turns DIR, this, this, DIR, on the same
 seeded inputs ("--wrappers ROOT" is one such turn).
 
 --only takes kernel names (pointwise, direct, winograd, stage, direct_int8,
-stage_int8) and keeps those shapes alone.
+stage_int8, stem, transition_int8) and keeps those shapes alone.
 """
 
 from __future__ import annotations
@@ -74,6 +80,15 @@ STAGE_INT8 = [  # (N, H, W, Cio, Cmid, blocks, mid): A/B only (its plan is the k
     (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
     (8, 14, 14, 1024, 256, 5, "direct"),
 ]
+STEM = [  # (N, H, W, Cin, C, precision): A/B only (its grid is the kernel's)
+    (1, 224, 224, 3, 64, "f32"), (1, 224, 224, 3, 64, "bf16"), (8, 224, 224, 3, 64, "f32"),
+    (8, 224, 224, 3, 64, "bf16"),
+]
+TRANSITION_INT8 = [  # (N, H, W, Cin, Cmid, Cout): A/B only
+    (1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024), (1, 14, 14, 1024, 512, 2048),
+    (8, 14, 14, 1024, 512, 2048),
+]
+A_B_ONLY = ("stage", "stage_int8", "stem")
 DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
     (1, 56, 56, 64, 64, True), (1, 7, 7, 512, 512, False), (8, 7, 7, 512, 512, False),
     (8, 56, 56, 64, 64, True),
@@ -126,7 +141,9 @@ def _cases_all(dev):
     from winograd_tpu_torch.kernels import transforms
     from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct_plain, direct_filter
     from winograd_tpu_torch.kernels.stage import resnet_stage_fused_plain, stack_stage_params
+    from winograd_tpu_torch.kernels.stem import stem_fused_plain
     from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd_plain
+    from winograd_tpu_torch.models.convert import stem_filter_s2d
 
     rng = np.random.default_rng(0)
 
@@ -199,6 +216,29 @@ def _cases_all(dev):
         ref = q8.conv3x3_bn_int8_plain(x, w9_q, s_w9, s, b, relu)
         yield ("direct_int8", (n, h, wd, cin, cout, relu), (x, w9_q, s_w9, s, b, relu), ref,
                lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
+    for n, h, wd, cin, c, precision in STEM:
+        x = rand(n, h, wd, cin)
+        w192 = t(stem_filter_s2d((rng.random((c, cin, 7, 7)) - 0.5).astype(np.float32)))
+        s, b = t((rng.random(c) * 0.5).astype(np.float32)), rand(c)
+        ref = stem_fused_plain(x, w192, s, b, precision)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        yield ("stem", (n, h, wd, cin, c, precision), (x, w192, s, b, precision), ref,
+               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for n, h, wd, cin, cmid, cout in TRANSITION_INT8:
+        wm = (rng.random((cmid, cmid, 3, 3)) - 0.5).astype(np.float32)
+        qp = {k: v.to(dev) for k, v in q8.quantize_transition_params(dict(
+            w_reduce=(rng.random((cin, cmid)) - 0.5).astype(np.float32),
+            s_reduce=(rng.random(cmid) * 0.5).astype(np.float32), b_reduce=rand(cmid).cpu(),
+            w9_mid=direct_filter(wm), s_mid=(rng.random(cmid) * 0.5).astype(np.float32),
+            b_mid=rand(cmid).cpu(), w_expand=(rng.random((cmid, cout)) - 0.5).astype(np.float32),
+            s_expand=(rng.random(cout) * 0.5).astype(np.float32), b_expand=rand(cout).cpu(),
+            w_proj=(rng.random((cin, cout)) - 0.5).astype(np.float32),
+            s_proj=(rng.random(cout) * 0.5).astype(np.float32), b_proj=rand(cout).cpu())).items()}
+        x = rand(n, h, wd, cin).abs()
+        ref = q8.transition_block_int8_plain(x, qp)
+        tol = 1e-3 * max(1.0, ref.abs().max().item())
+        yield ("transition_int8", (n, h, wd, cin, cmid, cout), (x, qp), ref,
+               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
 
 
 def wrappers(dev) -> bool:
@@ -206,14 +246,18 @@ def wrappers(dev) -> bool:
     from winograd_tpu_torch.kernels import _build
     from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct
     from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
-    from winograd_tpu_torch.kernels.quantized import conv3x3_bn_int8, resnet_stage_int8
+    from winograd_tpu_torch.kernels.quantized import (
+        conv3x3_bn_int8, resnet_stage_int8, transition_block_int8,
+    )
     from winograd_tpu_torch.kernels.stage import resnet_stage_fused
+    from winograd_tpu_torch.kernels.stem import stem_fused
     from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
 
     _build.build_all()
     call = {"pointwise": conv1x1_bn, "direct": conv3x3_bn_direct, "winograd": conv3x3_bn_winograd,
             "stage": resnet_stage_fused, "direct_int8": conv3x3_bn_int8,
-            "stage_int8": resnet_stage_int8}
+            "stage_int8": resnet_stage_int8, "stem": stem_fused,
+            "transition_int8": transition_block_int8}
     ok = True
     for name, shape, args, _, agrees in cases(dev):
         fn = (lambda f=call[name], args=args: f(*args))
@@ -254,10 +298,13 @@ def sweep(dev) -> bool:
     sms = _build.sm_count(dev)
     ok = True
     for name, shape, args, ref, agrees in cases(dev):
-        if name in ("stage", "stage_int8"):
+        if name in A_B_ONLY:
             continue
         if name == "winograd":
             ok &= sweep_winograd(shape, args, ref, agrees, wg, split_k, sms)
+            continue
+        if name == "transition_int8":
+            ok &= sweep_transition_int8(shape, args, ref, agrees, q8, sms)
             continue
         if name == "pointwise":
             p, k, n, _ = shape
@@ -282,6 +329,40 @@ def sweep(dev) -> bool:
                               "max_abs_err": (y - ref).abs().max().item(),
                               "ms": device_ms(fn)}), flush=True)
     torch.cuda.synchronize()
+    return ok
+
+
+def sweep_transition_int8(shape, args, ref, agrees, q8, sms) -> bool:
+    """The int8 transition under its plan and under plans that change one
+    phase's K split."""
+    from winograd_tpu_torch.kernels.splitk import split_k
+
+    chosen = q8.transition_int8_plan(*shape, sms)
+
+    def split(k, want):
+        return split_k(k, want, q8.DIRECT_INT8_STEP, q8.DIRECT_INT8_MIN_CHUNK)
+
+    plans = {("chosen",): chosen}
+    for want in WANTS:
+        plans.setdefault(("reduce", want), chosen._replace(reduce=split(chosen.kpr, want)))
+        plans.setdefault(("mid", want), chosen._replace(mid=split(chosen.kpm, want)))
+    for we in (1, 2, 4):
+        for wp in (1, 2, 4, 8):
+            plans.setdefault(("last", we, wp), chosen._replace(
+                expand=split(chosen.kpe, we), proj=split(chosen.kpr, wp)))
+    ok, seen = True, set()
+    for varied, plan in plans.items():
+        if plan.args() in seen and varied != ("chosen",):
+            continue
+        seen.add(plan.args())
+        x, q = args
+        fn = (lambda plan=plan: q8.transition_block_int8_planned(x, q, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": "transition_int8", "shape": shape, "varied": varied,
+                          "plan": plan.args(), "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
     return ok
 
 

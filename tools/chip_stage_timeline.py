@@ -1,26 +1,32 @@
 #!/usr/bin/env python3
-"""Where the stage kernels' time goes, phase by phase, on one CUDA card.
+"""Where the persistent kernels' time goes, phase by phase, on one CUDA card.
 
-    python3 tools/chip_stage_timeline.py [--root DIR] [--kernel stage|stage_int8|both]
-                                         [--variant as_is,one_pass,no_mma]
+    python3 tools/chip_stage_timeline.py [--root DIR]
+        [--kernel stage|stage_int8|transition_int8|both] [--variant as_is,one_pass,no_mma]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
-builds a copy of DIR's winograd_tpu_torch/csrc/stage.cu (the f32 stage)
-and of its stage_int8.cu (default: this checkout's; DIR may be an
-unpacked `git archive` of another commit under build/) in which thread 0
-of block 0 reads %globaltimer once before the first block's phases and
-again after every grid barrier of the kernel body (the barriers inside a
-phase, before its K-split sum or its Winograd inverse, are not stamped),
-and calls DIR's resnet_stage_fused and resnet_stage_int8 wrappers on those
-libraries at the served shapes. Each line gives the kernel's stamped span
-and the spans between stamps in microseconds: a phase's span is its
-slowest block's work plus the barrier. The f32 stage's spans are, per
-block, reduce, mid, expand (the last block's expand is not stamped: the
-kernel ends there); the int8 stage's are the weight transpose with block
-0's first quantize, then per block the phases between its barriers. First,
-the grid barrier alone (grid_sync.cuh, 256 threads a block): its cost per
-crossing at one and two blocks an SM. The card's name and power limit come
-first.
+builds a copy of DIR's winograd_tpu_torch/csrc/stage.cu (the f32 stage),
+of its stage_int8.cu and of its transition_int8.cu (default: this
+checkout's; DIR may be an unpacked `git archive` of another commit under
+build/) in which thread 0 of block 0 reads %globaltimer once before the
+first phase and again after every grid barrier of the kernel body (the
+barriers inside a phase of mma_int8.cuh or splitk_tf32.cuh, before its
+K-split sum or its Winograd inverse, are not stamped), and calls DIR's
+resnet_stage_fused, resnet_stage_int8 and transition_block_int8 wrappers
+on those libraries at the served shapes ("both" is the two stages). Each
+line gives the kernel's stamped span and the spans between stamps in
+microseconds: a phase's span is its slowest block's work plus the barrier.
+The f32 stage's spans are, per block, reduce, mid, expand (the last
+block's expand is not stamped: the kernel ends there); the int8 stage's
+are the weight transpose with block 0's first quantize, then per block the
+phases between its barriers. The int8 transition's copy ends in one more
+barrier and stamp, so its spans are all six phases: the weight transposes
+with x's quantization, the reduce, the strided im2col's quantization, the
+mid, h2's quantization with the projection rows' gather, and expand with
+projection (where that last phase splits K, its products and its sum of
+the slots apart: seven spans). First, the grid barrier alone
+(grid_sync.cuh, 256 threads a block): its cost per crossing at one and two
+blocks an SM. The card's name and power limit come first.
 
 --variant builds the f32 stage once per named variant of its tensor-core
 tile (csrc/mma_tf32.cuh, edited in a copy of the sources) and stamps each:
@@ -52,13 +58,20 @@ SHAPES = {  # (N, H, W, Cio, Cmid, blocks, mid): the served stages, and conv4_x 
                    (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
                    (8, 14, 14, 1024, 256, 5, "direct")],
 }
+# (N, H, W, Cin, Cmid, Cout): the served int8 transitions, and 14->7 at N=8.
+TRANSITION_SHAPES = [(1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024),
+                     (1, 14, 14, 1024, 512, 2048), (8, 14, 14, 1024, 512, 2048)]
 # Per kernel source: the last include, after which the stamp buffer goes,
-# and the head of the blocks' loop, before which the first stamp goes.
+# the head of the phases, before which the first stamp goes, and the
+# kernel's last statement, after which a barrier and a stamp go (None: not
+# stamped).
 LAYOUT = {
     "stage": ('#include "wino_tf32.cuh"\n',
-              "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act"),
+              "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act", None),
     "stage_int8": ('#include "winograd.cuh"\n',
-                   "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act"),
+                   "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act", None),
+    "transition_int8": ('#include "mma_int8.cuh"\n', "  // 0. The four weight matrices",
+                        "  expand_and_project(a, P2, smem);\n"),
 }
 # The tile's three passes in csrc/mma_tf32.cuh::mma_stage, and the passes
 # each --variant keeps out.
@@ -96,16 +109,19 @@ extern "C" int read_stamps(unsigned long long* host, int* n) {
 
 
 def stamped_source(src: str, kernel: str) -> str:
-    """The kernel's source with a stamp before the blocks' loop and after
-    every grid barrier of the kernel body, and a C entry that reads the
+    """The kernel's source with a stamp before its phases and after every
+    grid barrier of the kernel body (and a barrier and a stamp after its
+    last statement, where LAYOUT names one), and a C entry that reads the
     stamps."""
-    include, loop = LAYOUT[kernel]
-    if include not in src or loop not in src:
+    include, head, last = LAYOUT[kernel]
+    if include not in src or head not in src or last is not None and src.count(last) != 1:
         raise SystemExit(f"{kernel}.cu does not have the layout this tool stamps")
     src = src.replace("wt::grid_sync(a.bar);", "{ wt::grid_sync(a.bar); STAMP }")
+    if last is not None:
+        src = src.replace(last, last + "  { wt::grid_sync(a.bar); STAMP }\n")
     src = src.replace(include, include + "__device__ unsigned long long g_stamp[1024];\n"
                       "__device__ int g_stamps;\n#define STAMP " + STAMP + "\n", 1)
-    return src.replace(loop, "  STAMP\n" + loop, 1) + READ_STAMPS
+    return src.replace(head, "  STAMP\n" + head, 1) + READ_STAMPS
 
 
 def variant_sources(csrc: pathlib.Path, out: pathlib.Path, variant: str) -> pathlib.Path:
@@ -124,7 +140,7 @@ def variant_sources(csrc: pathlib.Path, out: pathlib.Path, variant: str) -> path
 
 
 def build(root: pathlib.Path, out: pathlib.Path, kernels, variants=("as_is",)):
-    """The barrier benchmark and the stamped stage libraries (the f32 stage
+    """The barrier benchmark and the stamped kernel libraries (the f32 stage
     once per variant, "stage_stamped:<variant>"), built together; returns
     {name: library}."""
     from winograd_tpu_torch.kernels import _build
@@ -206,11 +222,31 @@ def stage_case(rng, dev, kernel, n, h, w, cio, cmid, nb):
     return torch.as_tensor(np.abs(rand(n, h, w, cio)), device=dev), params
 
 
+def transition_case(rng, dev, n, h, w, cin, cmid, cout):
+    """Seeded quantized transition params and a ReLU'd input."""
+    import torch
+
+    from winograd_tpu_torch.kernels import quantized as q8
+    from winograd_tpu_torch.kernels.direct import direct_filter
+
+    def rand(*shape):
+        return (rng.random(shape) - 0.5).astype(np.float32)
+
+    params = dict(
+        w_reduce=rand(cin, cmid), s_reduce=rand(cmid) + 0.5, b_reduce=rand(cmid),
+        w9_mid=direct_filter(rand(cmid, cmid, 3, 3)), s_mid=rand(cmid) + 0.5, b_mid=rand(cmid),
+        w_expand=rand(cmid, cout), s_expand=rand(cout) + 0.5, b_expand=rand(cout),
+        w_proj=rand(cin, cout), s_proj=rand(cout) + 0.5, b_proj=rand(cout))
+    params = {k: v.to(dev) for k, v in q8.quantize_transition_params(params).items()}
+    return torch.as_tensor(np.abs(rand(n, h, w, cin)), device=dev), params
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=pathlib.Path, default=ROOT,
                     help="the checkout whose kernel and wrapper are timed")
-    ap.add_argument("--kernel", choices=("stage", "stage_int8", "both"), default="both")
+    ap.add_argument("--kernel", choices=("stage", "stage_int8", "transition_int8", "both"),
+                    default="both")
     ap.add_argument("--variant", default="as_is", metavar="NAME,...",
                     help="variants of the f32 stage's tile: " + ", ".join(VARIANTS))
     args = ap.parse_args()
@@ -241,31 +277,37 @@ def main() -> int:
     wrappers = {"stage": (st.resnet_stage_fused, st.resnet_stage_fused_plain,
                           st._workspace_floats),
                 "stage_int8": (q8.resnet_stage_int8, q8.resnet_stage_int8_plain,
-                               q8._workspace_words)}
+                               q8._workspace_words),
+                "transition_int8": (q8.transition_block_int8, q8.transition_block_int8_plain,
+                                    q8._workspace_words)}
     rng = np.random.default_rng(0)
     stamps, count = (ctypes.c_ulonglong * 1024)(), ctypes.c_int(0)
     ok = True
     for kernel in kernels:
         call, plain, workspace = wrappers[kernel]
-        cases = []
-        for n, h, w, cio, cmid, nb, mid in SHAPES[kernel]:
+        cases = []  # (shape, the wrapper's operands, the twin's output)
+        if kernel == "transition_int8":
+            for shape in TRANSITION_SHAPES:
+                x, params = transition_case(rng, dev, *shape)
+                cases.append((shape, (x, params), plain(x, params)))
+        for n, h, w, cio, cmid, nb, mid in SHAPES.get(kernel, []):
             x, params = stage_case(rng, dev, kernel, n, h, w, cio, cmid, nb)
-            cases.append(((n, h, w, cio, cmid, nb, mid), x, params, plain(x, params, mid)))
+            cases.append(((n, h, w, cio, cmid, nb, mid), (x, params, mid), plain(x, params, mid)))
         for variant in (variants if kernel == "stage" else ("as_is",)):
             lib = libs[f"{kernel}_stamped:{variant}" if kernel == "stage" else f"{kernel}_stamped"]
             _build._LIBS[kernel] = lib  # the wrapper launches the stamped library
             workspace.cache_clear()
-            for shape, x, params, ref in cases:
+            for shape, operands, ref in cases:
                 for _ in range(3):  # the last of three calls
                     torch.cuda.synchronize()
                     if lib.read_stamps(stamps, ctypes.byref(count)):
                         raise SystemExit("read_stamps failed")
-                    y = call(x, params, shape[-1])
+                    y = call(*operands)
                     torch.cuda.synchronize()
                     if lib.read_stamps(stamps, ctypes.byref(count)):
                         raise SystemExit("read_stamps failed")
                 err = (y - ref).abs().max().item()
-                if kernel == "stage_int8":
+                if kernel != "stage":
                     agrees = bool(torch.equal(y, ref))
                 else:
                     agrees = err <= 1e-4 * max(1.0, ref.abs().max().item())

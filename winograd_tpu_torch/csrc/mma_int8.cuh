@@ -92,13 +92,15 @@ struct RowsCg4 {
   __device__ __forceinline__ float4 load(Walk it) const { return load4<true, true>(it); }
 };
 
-// The stride-1 pad-1 3x3 im2col rows of an (N, H, W, 4 * C4) map, four
-// channels at a time; kVec: x is 16-byte aligned; kCg: x was written
-// earlier in the launch. A walk over a row's float4s goes window by window
-// (rs = 3r + s): it holds the float4 c4 within the window and the window's
-// source pixel, worked out when the walk enters the window (null where the
-// window leaves the map).
-template <bool kVec, bool kCg>
+// The pad-1 3x3 im2col rows of an (N, H, W, 4 * C4) map at stride kStride,
+// four channels at a time: row p = (n, oy, ox) of the (N, ceil(H / kStride),
+// ceil(W / kStride)) output takes the taps (kStride oy + r - 1, kStride ox +
+// s - 1), zero outside the map (stride 2 is the transition's SAME 3x3). kVec:
+// x is 16-byte aligned; kCg: x was written earlier in the launch. A walk
+// over a row's float4s goes window by window (rs = 3r + s): it holds the
+// float4 c4 within the window and the window's source pixel, worked out
+// when the walk enters the window (null where the window leaves the map).
+template <bool kVec, bool kCg, int kStride = 1>
 struct Im2colRows {
   const float* x;
   int H, W, C4;
@@ -110,9 +112,10 @@ struct Im2colRows {
     int rs, c4;
   };
   __device__ __forceinline__ Row row(int p) const {
-    const int hw = H * W;
+    const int ho = (H + kStride - 1) / kStride, wo = (W + kStride - 1) / kStride;
+    const int hw = ho * wo;
     const int n = p / hw, q = p - n * hw;
-    return Row{n, q / W, q % W};
+    return Row{n, q / wo * kStride, q % wo * kStride};
   }
   __device__ __forceinline__ const float* window(const Row& r, int rs) const {
     if (rs >= 9) return nullptr;

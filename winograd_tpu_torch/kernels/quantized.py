@@ -22,7 +22,9 @@ arithmetic; every one takes any channel count, see pad_to):
   as conv3x3_bn_int8; the mid-layer is the int8 direct 3x3 or, on maps of
   28x28 and up, F(2,3) on bf16 filters;
 * transition_block_int8 -> csrc/transition_int8.cu (_transition_int8_kernel
-  and its resident twin);
+  and its resident twin) on csrc/mma_int8.cuh as resnet_stage_int8: every
+  row quantized once, the grid and the phases' K splits by
+  transition_int8_plan;
 * conv3x3_bn_winograd_int8 -> csrc/winograd_int8.cu (_winograd_int8_kernel):
   F(2,3) with V quantized per row (a 4x4 tile at one of its 16 positions)
   and per-position filter scales (quantize_winograd_filter).
@@ -52,7 +54,7 @@ import torch.nn.functional as F
 
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.direct import im2col3x3
-from winograd_tpu_torch.kernels.splitk import H100_SMS, split_k
+from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, split_k
 from winograd_tpu_torch.kernels.stage import WINOGRAD_MIN_PIXELS
 from winograd_tpu_torch.kernels.transition import strided_im2col
 from winograd_tpu_torch.kernels.winograd import winograd2_mid_plain, winograd_matrices
@@ -355,6 +357,62 @@ def direct_int8_plan(n: int, h: int, w: int, cin: int, cout: int,
     return DirectInt8Plan(kp, tiles, blocks, split.splits, split.chunk)
 
 
+class TransitionInt8Plan(NamedTuple):
+    """How csrc/transition_int8.cu runs one transition: the padded K of its
+    operands (kpr: Cin, the reduce's and the projection's; kpm: 9 * Cmid,
+    the mid's; kpe: Cmid, the expand's), the cooperative grid's blocks, and
+    the K split of each product. The last phase's expand and projection
+    split apart, into slots of their own."""
+
+    kpr: int
+    kpm: int
+    kpe: int
+    blocks: int
+    reduce: Split
+    mid: Split
+    expand: Split
+    proj: Split
+
+    def args(self) -> tuple:
+        """The plan as the C entry takes it: blocks, then (splits, chunk) of
+        the reduce, the mid, the expand and the projection."""
+        return (self.blocks,) + self.reduce + self.mid + self.expand + self.proj
+
+
+# The int8 transition's splits are at least this long: each split of one
+# of its five products costs a partial-sum pass and a grid barrier, and
+# tools/chip_split_sweep.py found 128-long ones slower at the served N=1
+# shapes (PERF.md).
+TRANSITION_INT8_MIN_CHUNK = 256
+
+
+def transition_int8_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int,
+                         sms: int = H100_SMS) -> TransitionInt8Plan:
+    """The grid and K splits of an (n, h, w, cin) -> cmid -> cout int8
+    transition on a card with `sms` SMs: csrc/mma_int8.cuh's geometry as in
+    direct_int8_plan, DIRECT_INT8_BLOCKS_PER_SM blocks an SM, splits at
+    least TRANSITION_INT8_MIN_CHUNK long. The reduce and the mid split K
+    until tiles x splits reach about one item a block. The last phase
+    shares the blocks left per output tile between its two products in
+    proportion to their K; with one range each, a block runs both products
+    of a tile and needs no partial sums."""
+    p1, p2 = n * h * w, n * -(-h // 2) * -(-w // 2)
+    kpr, kpm, kpe = (_round_up(k, DIRECT_INT8_K_ALIGN) for k in (cin, 9 * cmid, cmid))
+    blocks = DIRECT_INT8_BLOCKS_PER_SM * sms
+
+    def tiles(p: int, cols: int) -> int:
+        return -(-p // DIRECT_INT8_TILE) * -(-cols // DIRECT_INT8_TILE)
+
+    def split(k: int, want: int) -> Split:
+        return split_k(k, want, DIRECT_INT8_STEP, TRANSITION_INT8_MIN_CHUNK)
+
+    slots = blocks // tiles(p2, cout)
+    expand = split(kpe, min(round(slots * kpe / (kpe + kpr)), slots - 1))
+    return TransitionInt8Plan(
+        kpr, kpm, kpe, blocks, split(kpr, blocks // tiles(p1, cmid)),
+        split(kpm, blocks // tiles(p2, cmid)), expand, split(kpr, slots - expand.splits))
+
+
 # The int8 kernels pack four k to a 32-bit word and take channel counts that
 # are multiples of 4. The wrappers pad any other count with zero channels
 # before they dispatch: zero input channels and zero weight rows; a padded
@@ -653,7 +711,22 @@ def transition_block_int8(x, qparams: Dict) -> torch.Tensor:
     _check_shapes(f32 + int8)
     _build.check_tensors(*(t for _, t, _ in f32))
     _build.check_tensors(*(t for _, t, _ in int8), dtype=torch.int8, device=x.device)
-    words = _workspace_words("transition_int8", "transition_block_int8", x.device.index, n, h, w, cin, cmid, cout)
+    out = transition_block_int8_planned(
+        x, q, transition_int8_plan(n, h, w, cin, cmid, cout, _build.sm_count(x.device)))
+    return out[0] if squeeze else out
+
+
+def transition_block_int8_planned(x, q: Dict, plan: TransitionInt8Plan) -> torch.Tensor:
+    """transition_block_int8's launch on CUDA tensors under an explicit plan
+    (the wrapper passes transition_int8_plan's; tools/chip_split_sweep.py
+    times others). x: (N, H, W, Cin); Cin and Cmid multiples of 4; operands
+    as transition_block_int8 checks them."""
+    n, h, w, cin = x.shape
+    cmid, cout = q["w_expand_q"].shape
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads rows as float4s
+    words = _workspace_words("transition_int8", "transition_block_int8", x.device.index,
+                             n, h, w, cin, cmid, cout, *plan.args())
     ws = torch.empty(words, device=x.device, dtype=torch.float32)
     out = torch.empty(n, -(-h // 2), -(-w // 2), cout, device=x.device, dtype=torch.float32)
     ptr, c = _build.ptr, _build.cint
@@ -665,6 +738,6 @@ def transition_block_int8(x, qparams: Dict) -> torch.Tensor:
             "w_expand_q", "w_expand_s", "s_expand", "b_expand",
             "w_proj_q", "w_proj_s", "s_proj", "b_proj")),
         ptr(out), ptr(ws), ctypes.c_longlong(words),
-        c(n), c(h), c(w), c(cin), c(cmid), c(cout),
+        c(n), c(h), c(w), c(cin), c(cmid), c(cout), *map(c, plan.args()),
     )
-    return out[0] if squeeze else out
+    return out
