@@ -58,16 +58,21 @@ Phases, each of which must pass (exit 1 otherwise):
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
    14->7 transition at N=8; the stem at N=8 in both precisions; both basic
    stages at N=8 and at one block, the ResNet-18 run; the int8 Winograd at
-   N=8, 14x14x256; the pointwise head and conv5_x reduce at N=8; the f32
-   and int8 direct 3x3s at N=8, 7x7x512), on seeded inputs. Bound: max
+   N=8, 14x14x256; the pointwise head and conv5_x reduce at N=8; the int8
+   pointwise head at N=8; the f32 and int8 direct 3x3s at N=8, 7x7x512),
+   on seeded inputs. Bound: max
    abs error <= 1e-4 * max(1, max|plain|); the int8 basic stage, whose
    chained quantizations may flip a rounding on f32-level differences, and
    the int8 Winograd, whose V is quantized, 1e-3 * max(1, max|plain|); the
    int8 direct 3x3, stage and transition (their twins' arithmetic, exact
    int32 sums) and the bf16 stem (exact FP64 sums of bf16 products) 0:
-   equal to their twins. One JSON line per shape: error; the K split of
-   the split-K kernels ("splits": pointwise, direct and direct_int8, from
-   their wrappers' plans; for the f32 Winograd its plan's Cin splits);
+   equal to their twins; so is the int8 pointwise (held to 0 since its
+   redesign on the tensor cores). One JSON line per shape: error; the K
+   split of the split-K kernels ("splits": pointwise, direct, direct_int8
+   and pointwise_int8, from their wrappers' plans, pointwise_int8 with its
+   plan's "route", GEMV, one_pass or cooperative; the f32 transition's
+   splits of its reduce, mid and expand; for the f32 Winograd its plan's
+   Cin splits);
    device times of the kernel, its plain version and the library call (20
    calls captured in a CUDA graph, the median of 20 replays between CUDA
    events, divided by 20; inputs stay in L2 between calls); "wrapper_ms",
@@ -80,8 +85,9 @@ Phases, each of which must pass (exit 1 otherwise):
    rate; the bf16 stem's products and the int8 stage's bf16-filter F(2,3)
    products (as two BF16 passes, the JAX kernel's hi/lo split) at the BF16
    rate; the tensor-core products of the pointwise kernel (P > 8), the
-   direct 3x3, the f32 Winograd and the f32 stage (its reduce, mid and
-   expand) as three TF32 passes (their 3xTF32 split) at the TF32 rate; the
+   direct 3x3, the f32 Winograd, the f32 stage and the f32 transition
+   (their reduce, mid and expand) as three TF32 passes (their 3xTF32
+   split) at the TF32 rate; the
    pointwise GEMV's (P <= 8) and the other f32 GEMMs, Winograd transforms,
    epilogues (4 FLOPs an output, 5 with a residual) and int8 quantization
    (2 a quantized value) at the FP32 rate; the bf16-filter Winograd's
@@ -175,7 +181,7 @@ CHAINED = ("basic_stage_int8", "winograd_int8")
 # rounded as the twin rounds): the kernel equals its twin. So does the stem
 # at "bf16" (its shapes end in the precision): exact FP64 sums of bf16
 # products, rounded once.
-EXACT = ("direct_int8", "stage_int8", "transition_int8")
+EXACT = ("direct_int8", "stage_int8", "transition_int8", "pointwise_int8")
 
 
 def _rand(rng, *shape):
@@ -233,7 +239,7 @@ def main() -> int:
     from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_plain
     from winograd_tpu_torch.kernels.transition import (
         fuse_transition_weights, strided_im2col, transition_block_fused,
-        transition_block_fused_plain,
+        transition_block_fused_plain, transition_plan,
     )
     from winograd_tpu_torch.kernels.winograd import (
         conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain, winograd_plan,
@@ -457,11 +463,13 @@ def main() -> int:
                     + torch.matmul(x[:, ::2, ::2, :], params["w_proj"]))
 
         ho, wo = -(-h // 2), -(-w // 2)
-        flops = 2 * n * (h * w * cin * cmid + ho * wo * (9 * cmid * cmid + (cmid + cin) * cout))
-        nbytes = 4 * (n * h * w * cin + n * ho * wo * cout + cin * cmid + 9 * cmid * cmid
+        p1, p2 = n * h * w, n * ho * wo
+        flops = 2 * (p1 * cin * cmid + p2 * (9 * cmid * cmid + (cmid + cin) * cout))
+        nbytes = 4 * (p1 * cin + p2 * cout + cin * cmid + 9 * cmid * cmid
                       + (cmid + cin) * cout + 4 * cmid + cout)
         return (lambda: transition_block_fused(x, params),
-                lambda: transition_block_fused_plain(x, params), lib, {FP32_FLOPS: flops},
+                lambda: transition_block_fused_plain(x, params), lib,
+                {TF32_FLOPS: 3 * flops, FP32_FLOPS: 4 * (p1 + p2) * cmid + 2 * p2 * cout},
                 nbytes)
 
     def basic_blocks(rng, c, nb):
@@ -810,6 +818,7 @@ def main() -> int:
         "basic_stage_int8": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "winograd_int8": [(8, 14, 14, 256, 256, True)],
         "pointwise": [(8, 2048, 1000, False), (392, 2048, 512, True)],
+        "pointwise_int8": [(8, 2048, 1000, False)],
         "direct_int8": [(8, 7, 7, 512, 512, False)],
         "direct": [(8, 7, 7, 512, 512, True)],
     }
@@ -827,6 +836,11 @@ def main() -> int:
         "direct_int8": lambda n, h, w, cin, cout, relu: q8.direct_int8_plan(
             n, h, w, cin, cout, sms).splits,
         "winograd": winograd_cut,
+        "pointwise_int8": lambda p, k, n, relu: q8.pointwise_int8_plan(p, k, n, sms).splits,
+        "transition": lambda *shape: [s.splits for s in transition_plan(*shape, sms)[1:]],
+    }
+    routes_of = {
+        "pointwise_int8": lambda p, k, n, relu: q8.pointwise_int8_plan(p, k, n, sms).path,
     }
     all_launches = collections.Counter()
     per_image = collections.defaultdict(collections.Counter)
@@ -863,6 +877,8 @@ def main() -> int:
             host_ms = wrapper_ms(kern)
             ops_ms, bytes_ms = bound(work, nbytes)
             splits = {"splits": splits_of[name](*shape)} if name in splits_of else {}
+            if name in routes_of:
+                splits["route"] = routes_of[name](*shape)
             print(json.dumps({
                 "kernel": name, "shape": shape, "per_image": n_img, **splits,
                 "max_abs_err": err, "tol": tol, "ms": ms, "wrapper_ms": host_ms, "plain_ms": plain_ms,

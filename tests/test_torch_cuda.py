@@ -48,7 +48,8 @@ from winograd_tpu_torch.kernels.stage import (
 )
 from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_plain
 from winograd_tpu_torch.kernels.transition import (
-    transition_block_fused, transition_block_fused_plain,
+    fuse_transition_weights, transition_block_fused, transition_block_fused_plain,
+    transition_block_fused_planned, transition_plan,
 )
 from winograd_tpu_torch.kernels.splitk import split_k
 from winograd_tpu_torch.kernels.winograd import (
@@ -201,15 +202,21 @@ def _transition(rng, dev, cin, cmid, cout):
                 w_proj=_r(rng, dev, cin, cout), s_proj=sp, b_proj=bp)
 
 
+# Odd maps, ragged channels (the 4-byte path), batches, and the served
+# transitions (56->28, 28->14, 14->7 at N=1; 14->7 at N=8) on the 3xTF32
+# phases: within the f32 bar, two calls equal to the bit.
 @pytest.mark.parametrize("n,h,w,cin,cmid,cout", [
     (3, 15, 15, 70, 20, 130), (3, 7, 7, 300, 40, 90), (1, 14, 14, 64, 32, 128),
-    (2, 9, 8, 256, 300, 70),
+    (2, 9, 8, 256, 300, 70), (1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024),
+    (1, 14, 14, 1024, 512, 2048), (8, 14, 14, 1024, 512, 2048),
 ])
 def test_transition_odd_maps_and_batches(dev, n, h, w, cin, cmid, cout):
     rng = np.random.default_rng(h * w + cin + cout)
     p = _transition(rng, dev, cin, cmid, cout)
     x = _r(rng, dev, n, h, w, cin)
-    _agree(transition_block_fused(x, p), transition_block_fused_plain(x, p))
+    first = transition_block_fused(x, p)
+    _agree(first, transition_block_fused_plain(x, p))
+    assert torch.equal(first, transition_block_fused(x, p))
 
 
 def test_stage_and_transition_reject_what_the_kernels_do_not_take(dev):
@@ -233,6 +240,24 @@ def test_stage_and_transition_reject_what_the_kernels_do_not_take(dev):
         transition_block_fused(x, dict(p, w9_mid=p["w9_mid"][:-1].contiguous()))
 
 
+def test_transition_entry_refuses_a_plan_it_does_not_take(dev):
+    """csrc/transition.cu's entry refuses a grid larger than it holds
+    resident, a split off the tile's k step and one that leaves K uncovered."""
+    rng = np.random.default_rng(3)
+    p = _transition(rng, dev, 256, 64, 128)
+    wep, bep = fuse_transition_weights(p)
+    x = _r(rng, dev, 1, 14, 14, 256)
+    args = (x, p["w_reduce"], p["s_reduce"], p["b_reduce"], p["w9_mid"], p["s_mid"],
+            p["b_mid"], wep, bep)
+    plan = transition_plan(1, 14, 14, 256, 64, 128, _build.sm_count(dev))
+    _agree(transition_block_fused_planned(*args, plan), transition_block_fused_plain(x, p))
+    for bad in (plan._replace(blocks=4 * plan.blocks),
+                plan._replace(reduce=split_k(256, 2, 32, 32)._replace(chunk=100)),
+                plan._replace(mid=plan.mid._replace(splits=1, chunk=64))):
+        with pytest.raises(RuntimeError):
+            transition_block_fused_planned(*args, bad)
+
+
 # --- the int8 tier -------------------------------------------------------
 
 
@@ -241,7 +266,10 @@ def _q(rng, dev, k, n):
     return torch.as_tensor(w_q, device=dev), torch.as_tensor(s_w, device=dev)
 
 
-@pytest.mark.parametrize("p,k,n", [(1, 8, 5), (65, 132, 70), (129, 4608, 33)])
+# Ragged rows and columns, K off multiples of 32 (zero-padded to the MMA's
+# depth), a zero row: equal to the twin on every path of the plan.
+@pytest.mark.parametrize("p,k,n", [(1, 8, 5), (65, 132, 70), (129, 4608, 33), (7, 300, 70),
+                                   (100, 36, 130)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_pointwise_int8_ragged(dev, p, k, n, relu):
     rng = np.random.default_rng(p + k + n)
@@ -249,8 +277,56 @@ def test_pointwise_int8_ragged(dev, p, k, n, relu):
     x[0] = 0.0                                            # a zero row keeps scale 1
     w_q, s_w = _q(rng, dev, k, n)
     s, b = _bn(rng, dev, n)
-    _agree(q8.conv1x1_bn_int8(x, w_q, s_w, s, b, relu),
-           q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, relu))
+    ref = q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, relu)
+    _equal(q8.conv1x1_bn_int8(x, w_q, s_w, s, b, relu), ref)
+    sms = _build.sm_count(dev)
+    for path in q8.POINTWISE_INT8_PATHS:
+        try:
+            plan = q8.pointwise_int8_plan(p, k, n, sms, path)
+        except ValueError:                                # a path that cannot take the shape
+            continue
+        _equal(q8.conv1x1_bn_int8_planned(x, w_q, s_w, s, b, relu, plan), ref)
+
+
+# The served int8 1x1s (P, K, N, relu): ResNet-50's projection block and
+# head, ResNet-34's strided b-legs, projections and head, at N=1 and N=8
+# (P x 8): equal to the twin, and two calls equal to the bit.
+SERVED_POINTWISE_INT8 = [
+    (3136, 64, 64, True), (3136, 64, 256, False), (1, 2048, 1000, False), (8, 2048, 1000, False),
+    (784, 576, 128, True), (196, 1152, 256, True), (49, 2304, 512, True), (784, 64, 128, False),
+    (196, 128, 256, False), (49, 256, 512, False), (1, 512, 1000, False), (8, 512, 1000, False),
+    (25088, 64, 256, True), (392, 2304, 512, True), (1568, 1152, 256, True),
+]
+
+
+@pytest.mark.parametrize("p,k,n,relu", SERVED_POINTWISE_INT8)
+def test_pointwise_int8_served_shapes(dev, p, k, n, relu):
+    rng = np.random.default_rng(p + k + n)
+    x = _r(rng, dev, p, k).abs() if relu else _r(rng, dev, p, k)
+    w_q, s_w = _q(rng, dev, k, n)
+    s, b = _bn(rng, dev, n)
+    first = q8.conv1x1_bn_int8(x, w_q, s_w, s, b, relu)
+    _equal(first, q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, relu))
+    assert torch.equal(first, q8.conv1x1_bn_int8(x, w_q, s_w, s, b, relu))
+
+
+def test_pointwise_int8_entry_refuses_a_plan_it_does_not_take(dev):
+    """csrc/pointwise_int8.cu's entry refuses a GEMV past its rows, a one-pass
+    K past its shared memory, a cooperative grid larger than it holds
+    resident, and a split that leaves K uncovered."""
+    rng = np.random.default_rng(4)
+    w_q, s_w = _q(rng, dev, 512, 64)
+    s, b = _bn(rng, dev, 64)
+    sms = _build.sm_count(dev)
+    gemv = q8.pointwise_int8_plan(8, 512, 64, sms)
+    coop = q8.pointwise_int8_plan(100, 512, 64, sms)
+    one = q8.pointwise_int8_plan(100, 256, 64, sms)
+    for p, k, bad in ((9, 512, gemv), (100, 512, one._replace(kp=512, chunk=512)),
+                      (100, 512, coop._replace(blocks=4 * coop.blocks)),
+                      (100, 512, coop._replace(splits=1)), (8, 512, gemv._replace(chunk=32))):
+        x = _r(rng, dev, p, k)
+        with pytest.raises(RuntimeError):
+            q8.conv1x1_bn_int8_planned(x, w_q[:k].contiguous(), s_w, s, b, True, bad)
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", [(2, 5, 7, 4, 70), (8, 7, 7, 16, 24), (1, 9, 9, 12, 65)])

@@ -1,23 +1,30 @@
 """The K-split plans of the port's redesigned GEMM kernels (plain Python, no
 card needed): kernels/splitk.py::split_k, kernels/pointwise.py::split_plan
 (csrc/pointwise.cu), kernels/direct.py::direct_plan (csrc/direct.cu) and
-kernels/quantized.py::direct_int8_plan (csrc/direct_int8.cu) and
-::transition_int8_plan (csrc/transition_int8.cu). Every K index lies in
-exactly one range, every range but the last is a multiple of the kernel's
-staging step, and tiles x splits reach about one wave of SMs where K
-allows, never more than the kernel's blocks in flight. The plans' copies
-of the kernels' geometry equal the constants compiled into the kernels
-(whose C entries refuse a plan that does not fit them)."""
+kernels/quantized.py::direct_int8_plan (csrc/direct_int8.cu),
+::transition_int8_plan (csrc/transition_int8.cu) and ::pointwise_int8_plan
+(csrc/pointwise_int8.cu, which also picks its path), and
+kernels/transition.py::transition_plan (csrc/transition.cu). Every K index
+lies in exactly one range, every range but the last is a multiple of the
+kernel's staging step, and tiles x splits reach about one wave of SMs
+where K allows, never more than the kernel's blocks in flight. The plans'
+copies of the kernels' geometry equal the constants compiled into the
+kernels (whose C entries refuse a plan that does not fit them), and the
+wrappers hand the C entries their plans."""
 
+import ctypes
 import pathlib
 import re
 
 import numpy as np
 import pytest
+import torch
 
+from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels import direct as dr
 from winograd_tpu_torch.kernels import pointwise as pw
 from winograd_tpu_torch.kernels import quantized as q8
+from winograd_tpu_torch.kernels import transition as tr
 from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, split_k
 
 
@@ -252,6 +259,206 @@ def test_transition_int8_plan_follows_the_sm_count():
     assert small.mid.splits < large.mid.splits and small.reduce.splits <= large.reduce.splits
 
 
+# The served products of csrc/pointwise_int8.cu (P, K, N) at N=1 and N=8
+# and the path and split each takes on 132 SMs: the heads on the GEMV, the
+# K <= 256 1x1s in one pass a tile, the strided b-legs (K 576-2304) on the
+# cooperative grid, split towards a wave of its 264 blocks.
+SERVED_POINTWISE_INT8 = {
+    (1, 2048, 1000): ("gemv", 16), (8, 2048, 1000): ("gemv", 16),
+    (1, 512, 1000): ("gemv", 8), (8, 512, 1000): ("gemv", 8),
+    (3136, 64, 64): ("one_pass", 1), (3136, 64, 256): ("one_pass", 1),
+    (25088, 64, 64): ("one_pass", 1), (25088, 64, 256): ("one_pass", 1),
+    (784, 64, 128): ("one_pass", 1), (196, 128, 256): ("one_pass", 1),
+    (49, 256, 512): ("one_pass", 1), (6272, 64, 128): ("one_pass", 1),
+    (1568, 128, 256): ("one_pass", 1), (392, 256, 512): ("one_pass", 1),
+    (784, 576, 128): ("cooperative", 5), (196, 1152, 256): ("cooperative", 9),
+    (49, 2304, 512): ("cooperative", 18), (6272, 576, 128): ("cooperative", 1),
+    (1568, 1152, 256): ("cooperative", 2), (392, 2304, 512): ("cooperative", 4),
+}
+
+
+def _pointwise_int8_step(plan) -> int:
+    return q8.POINTWISE_INT8_GEMV_STEP if plan.path == "gemv" else q8.DIRECT_INT8_STEP
+
+
+@pytest.mark.parametrize("shape", sorted(SERVED_POINTWISE_INT8))
+def test_pointwise_int8_plan_fills_the_card(shape):
+    p, k, n = shape
+    plan = q8.pointwise_int8_plan(p, k, n)
+    assert (plan.path, plan.splits) == SERVED_POINTWISE_INT8[shape]
+    _covers_once(plan, plan.kp, _pointwise_int8_step(plan))
+    if plan.path == "gemv":
+        assert plan.kp == k and plan.tile == q8.POINTWISE_INT8_GEMV_COLS
+        assert plan.tiles == -(-n // plan.tile) and plan.blocks == plan.tiles * plan.splits
+        assert plan.blocks <= H100_SMS                       # one block an SM at most
+        assert 2 * plan.blocks >= H100_SMS or plan.chunk == q8.POINTWISE_INT8_GEMV_MIN_CHUNK
+        return
+    assert plan.kp == -(-k // 32) * 32 and plan.tile == q8.DIRECT_INT8_TILE
+    assert plan.tiles == -(-p // 64) * -(-n // 64)
+    if plan.path == "one_pass":                              # a tile a block, K unsplit
+        assert plan.kp <= q8.POINTWISE_INT8_ONE_PASS_MAX_K
+        assert plan.blocks == plan.tiles and plan.splits == 1
+        return
+    wave = q8.DIRECT_INT8_BLOCKS_PER_SM * H100_SMS
+    assert plan.kp > q8.POINTWISE_INT8_ONE_PASS_MAX_K and plan.blocks == wave
+    assert plan.tiles * plan.splits <= max(wave, plan.tiles)
+    assert (plan.splits == 1 or 2 * plan.tiles * plan.splits >= wave
+            or plan.chunk == q8.DIRECT_INT8_MIN_CHUNK)   # a wave, or the shortest ranges
+
+
+@pytest.mark.parametrize("p,k,n", [(1, 8, 5), (65, 132, 70), (129, 4608, 33), (7, 300, 70),
+                                   (100, 36, 130), (8, 4096, 4096), (9, 260, 1)])
+def test_pointwise_int8_plan_covers_k_on_ragged_shapes(p, k, n):
+    for path in q8.POINTWISE_INT8_PATHS:
+        try:
+            plan = q8.pointwise_int8_plan(p, k, n, path=path)
+        except ValueError:                                   # the path does not take the shape
+            assert (path == "gemv" and p > q8.POINTWISE_INT8_GEMV_MAX_ROWS
+                    or path == "one_pass" and k > q8.POINTWISE_INT8_ONE_PASS_MAX_K)
+            continue
+        assert plan.path == path and plan.kp >= k
+        assert plan.kp == k if path == "gemv" else plan.kp % q8.DIRECT_INT8_K_ALIGN == 0
+        _covers_once(plan, plan.kp, _pointwise_int8_step(plan))
+    with pytest.raises(ValueError):
+        q8.pointwise_int8_plan(p, k, n, path="dp4a")
+
+
+def test_pointwise_int8_workspace_holds_every_part():
+    coop = q8.pointwise_int8_plan(49, 2304, 512)
+    p, n = 49, 512
+    at = coop.workspace(p, n)
+    # barrier, scales, quantized rows, transposed weights, int32 partials
+    assert 2 <= at.sx and at.sx + p <= at.aq and at.aq + p * coop.kp // 4 <= at.bt
+    assert at.bt + n * coop.kp // 4 <= at.part and at.part + coop.splits * p * n == at.words
+    assert all(v % 4 == 0 for v in (at.aq, at.bt, at.part))
+    gemv = q8.pointwise_int8_plan(8, 2048, 1000)
+    at = gemv.workspace(8, 1000)
+    # a counter per column tile, then the int32 partials
+    assert gemv.tiles <= at.part and at.part % 4 == 0 and at.words == at.part + gemv.splits * 8000
+    assert q8.pointwise_int8_plan(3136, 64, 256).workspace(3136, 256).words == 0
+    one = q8.pointwise_int8_plan(2, 64, 1000, path="gemv")
+    assert one.splits == 1 and one.workspace(2, 1000).words == 0
+
+
+def test_pointwise_int8_plan_takes_the_gemv_at_few_rows_and_follows_the_sm_count():
+    for p in range(1, q8.POINTWISE_INT8_GEMV_MAX_ROWS + 1):
+        assert q8.pointwise_int8_plan(p, 2048, 1000).path == "gemv"
+    assert q8.pointwise_int8_plan(q8.POINTWISE_INT8_GEMV_MAX_ROWS + 1, 2048, 1000).path \
+        == "cooperative"
+    small, large = (q8.pointwise_int8_plan(1, 2048, 1000, sms=sms) for sms in (66, H100_SMS))
+    assert small.splits == 8 and large.splits == 16 and small.blocks <= 66
+    small, large = (q8.pointwise_int8_plan(49, 2304, 512, sms=sms) for sms in (66, H100_SMS))
+    assert small.blocks == large.blocks // 2 and small.splits < large.splits
+
+
+# The served f32 transitions (N, H, W, Cin, Cmid, Cout) and the splits of
+# their reduce, mid and expand on 132 SMs (a grid of two blocks an SM): at
+# N=1 every phase splits K towards a wave; at N=8 14->7 the reduce and the
+# expand fill the grid with tiles and keep one range, and the walk cap of
+# 512 splits the mid further than the wave asks.
+SERVED_TRANSITION = {
+    (1, 56, 56, 256, 128, 512): (2, 9, 2), (1, 28, 28, 512, 256, 1024): (4, 15, 4),
+    (1, 14, 14, 1024, 512, 2048): (8, 29, 8), (8, 14, 14, 1024, 512, 2048): (1, 9, 1),
+}
+
+
+def _transition_f32_phases(n, h, w, cin, cmid, cout):
+    """(P, K, N) of the reduce, the mid and the expand."""
+    p1, p2 = n * h * w, n * -(-h // 2) * -(-w // 2)
+    return (p1, cin, cmid), (p2, 9 * cmid, cmid), (p2, cmid + cin, cout)
+
+
+@pytest.mark.parametrize("shape", sorted(SERVED_TRANSITION))
+def test_transition_plan_fills_the_card(shape):
+    plan = tr.transition_plan(*shape)
+    splits = (plan.reduce, plan.mid, plan.expand)
+    assert tuple(s.splits for s in splits) == SERVED_TRANSITION[shape]
+    wave = tr.TRANSITION_BLOCKS_PER_SM * H100_SMS
+    assert plan.blocks == wave and plan.args() == (wave,) + plan.reduce + plan.mid + plan.expand
+    for split, (p, k, n) in zip(splits, _transition_f32_phases(*shape)):
+        _covers_once(split, k, tr.TRANSITION_STEP)
+        tiles = -(-p // tr.TRANSITION_TILE) * -(-n // tr.TRANSITION_TILE)
+        assert split.splits <= tr.TRANSITION_MAX_SPLITS
+        assert split.splits == 1 or split.chunk >= tr.TRANSITION_MIN_CHUNK
+        if 2 * tiles >= wave:               # tiles fill half the grid: about a wave
+            assert tiles * split.splits <= max(wave, tiles)
+        else:                               # else no item walks past the cap
+            assert (split.chunk <= tr.TRANSITION_MAX_WALK
+                    or split.splits == tr.TRANSITION_MAX_SPLITS)
+        if tiles * split.splits > max(wave, tiles):     # more items only to cap the walk
+            assert -(-k // (split.splits - 1)) > tr.TRANSITION_MAX_WALK
+
+
+@pytest.mark.parametrize("shape", [(3, 15, 15, 70, 20, 130), (2, 9, 8, 256, 300, 70),
+                                   (3, 7, 7, 300, 40, 90), (1, 3, 3, 4, 4, 4)])
+def test_transition_plan_on_ragged_shapes(shape):
+    plan = tr.transition_plan(*shape)
+    for split, (_, k, _) in zip((plan.reduce, plan.mid, plan.expand),
+                                _transition_f32_phases(*shape)):
+        _covers_once(split, k, tr.TRANSITION_STEP)
+
+
+def test_transition_plan_follows_the_sm_count():
+    shape = (1, 14, 14, 1024, 512, 2048)
+    small, large = tr.transition_plan(*shape, sms=66), tr.transition_plan(*shape)
+    assert small.blocks == large.blocks // 2
+    assert small.reduce.splits < large.reduce.splits and small.expand.splits < large.expand.splits
+
+
+def _stub_launches(monkeypatch, sms):
+    """Stand-ins for the card: meta tensors pass the operand checks, the
+    device has `sms` SMs, and each launch and workspace query is recorded
+    with its integer arguments instead of made."""
+    calls = []
+    monkeypatch.setattr(_build, "check_tensors", lambda *t, **k: None)
+    monkeypatch.setattr(_build, "check_operands", lambda *t, **k: None)
+    monkeypatch.setattr(_build, "sm_count", lambda device: sms)
+    monkeypatch.setattr(_build, "ptr", lambda t: ctypes.c_void_p(0))
+    monkeypatch.setattr(_build, "launch", lambda name, entry, shape, device, *args: calls.append(
+        (entry, [a.value for a in args if isinstance(a, ctypes.c_int)])))
+
+    def workspace(*args):
+        calls.append(("transition_block_workspace", list(args[1:])))
+        return 1
+    monkeypatch.setattr(tr, "_workspace_floats", workspace)
+    return calls
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 66])
+@pytest.mark.parametrize("p,k,n", [(1, 2048, 1000), (3136, 64, 256), (49, 2304, 512)])
+def test_pointwise_int8_wrapper_launches_the_plan(monkeypatch, sms, p, k, n):
+    """conv1x1_bn_int8 hands csrc/pointwise_int8.cu pointwise_int8_plan's
+    path, padded K, tile, grid and split for the card's SM count (its last
+    six integers)."""
+    calls = _stub_launches(monkeypatch, sms)
+    e = lambda *shape: torch.empty(*shape, device="meta")  # noqa: E731
+    w_q = torch.empty(k, n, device="meta", dtype=torch.int8)
+    q8.conv1x1_bn_int8(e(p, k), w_q, e(n), e(n), e(n), False)
+    [(entry, ints)] = calls
+    assert entry == "pointwise_int8_conv1x1_bn"
+    assert ints[:4] == [p, k, n, 0]
+    assert ints[4:] == list(q8.pointwise_int8_plan(p, k, n, sms).args())
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 66])
+@pytest.mark.parametrize("shape", sorted(SERVED_TRANSITION))
+def test_transition_wrapper_launches_the_plan(monkeypatch, sms, shape):
+    """transition_block_fused hands csrc/transition.cu transition_plan's grid
+    and splits, in the workspace query and in the launch alike."""
+    n, h, w, cin, cmid, cout = shape
+    calls = _stub_launches(monkeypatch, sms)
+    e = lambda *shape: torch.empty(*shape, device="meta")  # noqa: E731
+    params = dict(w_reduce=e(cin, cmid), s_reduce=e(cmid), b_reduce=e(cmid),
+                  w9_mid=e(9 * cmid, cmid), s_mid=e(cmid), b_mid=e(cmid),
+                  wep=e(cmid + cin, cout), bep=e(1, cout))
+    tr.transition_block_fused(e(n, h, w, cin), params)
+    plan = tr.transition_plan(*shape, sms)
+    [(query, q_ints), (entry, ints)] = calls
+    assert (query, entry) == ("transition_block_workspace", "transition_block")
+    assert q_ints == list(shape) + list(plan.args())
+    assert ints == list(shape) + list(plan.args())
+
+
 CSRC = pathlib.Path(q8.__file__).resolve().parent.parent / "csrc"
 
 
@@ -270,6 +477,17 @@ def _constexpr(source: str, name: str) -> int:
     (q8.DIRECT_INT8_TILE, "mma_int8.cuh", "kBM"),
     (q8.DIRECT_INT8_STEP, "mma_int8.cuh", "kBK"),
     (q8.DIRECT_INT8_BLOCKS_PER_SM, "transition_int8.cu", "kBlocksPerSm"),
+    (q8.POINTWISE_INT8_GEMV_MAX_ROWS, "pointwise_int8.cu", "kGemvMaxP"),
+    (q8.POINTWISE_INT8_GEMV_COLS, "pointwise_int8.cu", "kGemvCols"),
+    (q8.POINTWISE_INT8_GEMV_STEP, "pointwise_int8.cu", "kGemvStep"),
+    (q8.POINTWISE_INT8_ONE_PASS_MAX_K, "pointwise_int8.cu", "kOnePassMaxK"),
+    (q8.POINTWISE_INT8_PATHS.index("gemv"), "pointwise_int8.cu", "kGemv"),
+    (q8.POINTWISE_INT8_PATHS.index("one_pass"), "pointwise_int8.cu", "kOnePass"),
+    (q8.POINTWISE_INT8_PATHS.index("cooperative"), "pointwise_int8.cu", "kCooperative"),
+    (tr.TRANSITION_TILE, "mma_tf32.cuh", "kBM"),
+    (tr.TRANSITION_TILE, "mma_tf32.cuh", "kBN"),
+    (tr.TRANSITION_STEP, "mma_tf32.cuh", "kBK"),
+    (tr.TRANSITION_BLOCKS_PER_SM, "transition.cu", "kMaxBlocksPerSm"),
 ])
 def test_plans_match_the_kernels_geometry(value, source, name):
     assert value == _constexpr(source, name)
@@ -282,3 +500,24 @@ def test_transition_int8_entry_checks_the_int8_geometry():
     assert "constexpr int kSplitStep = s8::kBK;" in src
     assert "__launch_bounds__(s8::kThreads, kBlocksPerSm)" in src
     assert '#include "gemm_int8.cuh"' not in src
+
+
+def test_pointwise_int8_entry_checks_the_int8_geometry():
+    """The int8 pointwise multiplies on mma_int8.cuh's s8 tile (the one pass
+    through its warp tile, the cooperative form through its phases), splits
+    the cooperative K on the tile's stage, and no longer uses gemm_int8.cuh's
+    __dp4a tile."""
+    src = (CSRC / "pointwise_int8.cu").read_text()
+    assert '#include "mma_int8.cuh"' in src and '#include "gemm_int8.cuh"' not in src
+    assert "constexpr int kSplitStep = s8::kBK;" in src
+    assert "s8::mma_k32(" in src and "s8::gemm_phase(" in src
+
+
+def test_transition_entry_runs_the_tf32_phases():
+    """The f32 transition's three GEMMs are splitk_tf32.cuh's 3xTF32 phases,
+    its grid capped at two blocks an SM; it no longer includes gemm.cuh."""
+    src = (CSRC / "transition.cu").read_text()
+    assert '#include "splitk_tf32.cuh"' in src and '#include "gemm.cuh"' not in src
+    assert src.count("sk::gemm_phase<kVec, true>(") == 3
+    assert "__launch_bounds__(tc::kThreads, kMaxBlocksPerSm)" in src
+    assert "tc::Im2colA<2>{" in src

@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct.cu,
-csrc/direct_int8.cu, csrc/transition_int8.cu) and of the f32 Winograd's
-work-item cut (csrc/winograd.cu) on one CUDA card, and an A/B of their
-wrappers (and of the f32 and int8 stages', csrc/stage.cu and
-csrc/stage_int8.cu, and the stem's, csrc/stem.cu) against another
-checkout.
+csrc/direct_int8.cu, csrc/transition_int8.cu, csrc/pointwise_int8.cu and
+csrc/transition.cu) and of the f32 Winograd's work-item cut
+(csrc/winograd.cu) on one CUDA card, and an A/B of their wrappers (and of
+the f32 and int8 stages', csrc/stage.cu and csrc/stage_int8.cu, and the
+stem's, csrc/stem.cu) against another checkout.
 
     python3 tools/chip_split_sweep.py [--only NAME,...]    # the sweep
     python3 tools/chip_split_sweep.py --ab DIR [--only ...] # the A/B against DIR
@@ -13,9 +13,10 @@ Run from the repository root on a machine with a CUDA card and nvcc. The
 shapes are each served shape of the kernels (the four served forwards of
 chip_smoke.py at N=1 and N=8, and the f32 Winograd's F(4,3) check shape).
 Every timed call is first held against its plain twin (pointwise, direct,
-winograd, stage and stem within 1e-4 * max(1, max|plain|), transition_int8
-within 1e-3 * max(1, max|plain|), the bound its kernels before the s8
-mma.sync design met, direct_int8 and stage_int8 exactly). Device ms per
+winograd, stage, stem and transition within 1e-4 * max(1, max|plain|),
+transition_int8 within 1e-3 * max(1, max|plain|), the bound its kernels
+before the s8 mma.sync design met, direct_int8, stage_int8 and
+pointwise_int8 exactly). Device ms per
 call: 20 calls in one CUDA graph, the median of 20 replays between CUDA
 events, inputs in L2. The card's name and power limit
 come first, then one JSON line per shape and candidate.
@@ -27,20 +28,27 @@ the Cin splits that split_k gives for 1, 2, 3, 4 and 8 wanted ranges of at
 least 32; the int8 transition under its plan and under plans that change
 one of its phases: the reduce's or the mid's split for 1, 2, 4, ..., 32
 wanted ranges, or the last phase's expand and projection splits for 1, 2
-and 4 by 1, 2, 4 and 8 wanted ranges.
+and 4 by 1, 2, 4 and 8 wanted ranges; the f32 transition under its plan
+and under plans that change one phase's split (reduce, mid or expand) for
+1, 2, 4, ..., 32 wanted ranges; the int8 pointwise under its plan and on
+every other path that takes the shape (GEMV at P <= 8, one pass at a
+padded K <= 256, cooperative), the GEMV's and the cooperative form's K
+split for 1, 2, 4, ..., 32 wanted ranges.
 
 --ab DIR times the public wrappers (kernels/pointwise.py::conv1x1_bn,
 kernels/direct.py::conv3x3_bn_direct, kernels/winograd.py::
 conv3x3_bn_winograd, kernels/stage.py::resnet_stage_fused,
-kernels/stem.py::stem_fused, kernels/quantized.py::conv3x3_bn_int8,
-::resnet_stage_int8 and ::transition_block_int8) of the checkout DIR (for example an
+kernels/stem.py::stem_fused, kernels/transition.py::transition_block_fused,
+kernels/quantized.py::conv3x3_bn_int8, ::resnet_stage_int8,
+::transition_block_int8 and ::conv1x1_bn_int8) of the checkout DIR (for example an
 unpacked `git archive` of another commit under build/) and of this one,
 each in a process of its own that imports that checkout's package and
 builds its kernels there, in turns DIR, this, this, DIR, on the same
 seeded inputs ("--wrappers ROOT" is one such turn).
 
 --only takes kernel names (pointwise, direct, winograd, stage, direct_int8,
-stage_int8, stem, transition_int8) and keeps those shapes alone.
+stage_int8, stem, transition_int8, pointwise_int8, transition) and keeps
+those shapes alone.
 """
 
 from __future__ import annotations
@@ -87,6 +95,19 @@ STEM = [  # (N, H, W, Cin, C, precision): A/B only (its grid is the kernel's)
 TRANSITION_INT8 = [  # (N, H, W, Cin, Cmid, Cout): A/B only
     (1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024), (1, 14, 14, 1024, 512, 2048),
     (8, 14, 14, 1024, 512, 2048),
+]
+TRANSITION = [  # (N, H, W, Cin, Cmid, Cout)
+    (1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024), (1, 14, 14, 1024, 512, 2048),
+    (8, 14, 14, 1024, 512, 2048),
+]
+POINTWISE_INT8 = [  # (P, K, N, relu): the served int8 1x1s at N=1 and N=8
+    (1, 2048, 1000, False), (8, 2048, 1000, False), (1, 512, 1000, False), (8, 512, 1000, False),
+    (3136, 64, 64, True), (3136, 64, 256, False), (25088, 64, 64, True),
+    (25088, 64, 256, False), (784, 64, 128, False), (196, 128, 256, False),
+    (49, 256, 512, False), (6272, 64, 128, False), (1568, 128, 256, False),
+    (392, 256, 512, False), (784, 576, 128, True), (196, 1152, 256, True),
+    (49, 2304, 512, True), (6272, 576, 128, True), (1568, 1152, 256, True),
+    (392, 2304, 512, True),
 ]
 A_B_ONLY = ("stage", "stage_int8", "stem")
 DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
@@ -142,6 +163,9 @@ def _cases_all(dev):
     from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct_plain, direct_filter
     from winograd_tpu_torch.kernels.stage import resnet_stage_fused_plain, stack_stage_params
     from winograd_tpu_torch.kernels.stem import stem_fused_plain
+    from winograd_tpu_torch.kernels.transition import (
+        fuse_transition_weights, transition_block_fused_plain,
+    )
     from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd_plain
     from winograd_tpu_torch.models.convert import stem_filter_s2d
 
@@ -239,6 +263,29 @@ def _cases_all(dev):
         tol = 1e-3 * max(1.0, ref.abs().max().item())
         yield ("transition_int8", (n, h, wd, cin, cmid, cout), (x, qp), ref,
                lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for n, h, wd, cin, cmid, cout in TRANSITION:
+        wm = (rng.random((cmid, cmid, 3, 3)) - 0.5).astype(np.float32)
+        params = dict(
+            w_reduce=rand(cin, cmid), s_reduce=t((rng.random(cmid) * 0.5).astype(np.float32)),
+            b_reduce=rand(cmid), w9_mid=t(direct_filter(wm)),
+            s_mid=t((rng.random(cmid) * 0.5).astype(np.float32)), b_mid=rand(cmid),
+            w_expand=rand(cmid, cout), s_expand=t((rng.random(cout) * 0.5).astype(np.float32)),
+            b_expand=rand(cout), w_proj=rand(cin, cout),
+            s_proj=t((rng.random(cout) * 0.5).astype(np.float32)), b_proj=rand(cout))
+        params["wep"], params["bep"] = fuse_transition_weights(params)  # as the models store it
+        x = rand(n, h, wd, cin)
+        ref = transition_block_fused_plain(x, params)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        yield ("transition", (n, h, wd, cin, cmid, cout), (x, params), ref,
+               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for p, k, n, relu in POINTWISE_INT8:
+        x = rand(p, k).abs() if relu else rand(p, k)
+        w_q, s_w = (t(a) for a in q8.quantize_weights(
+            (rng.random((k, n)) - 0.5).astype(np.float32)))
+        s, b = t((rng.random(n) * 0.5).astype(np.float32)), rand(n)
+        ref = q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, relu)
+        yield ("pointwise_int8", (p, k, n, relu), (x, w_q, s_w, s, b, relu), ref,
+               lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
 
 
 def wrappers(dev) -> bool:
@@ -247,17 +294,19 @@ def wrappers(dev) -> bool:
     from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct
     from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
     from winograd_tpu_torch.kernels.quantized import (
-        conv3x3_bn_int8, resnet_stage_int8, transition_block_int8,
+        conv1x1_bn_int8, conv3x3_bn_int8, resnet_stage_int8, transition_block_int8,
     )
     from winograd_tpu_torch.kernels.stage import resnet_stage_fused
     from winograd_tpu_torch.kernels.stem import stem_fused
+    from winograd_tpu_torch.kernels.transition import transition_block_fused
     from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
 
     _build.build_all()
     call = {"pointwise": conv1x1_bn, "direct": conv3x3_bn_direct, "winograd": conv3x3_bn_winograd,
             "stage": resnet_stage_fused, "direct_int8": conv3x3_bn_int8,
             "stage_int8": resnet_stage_int8, "stem": stem_fused,
-            "transition_int8": transition_block_int8}
+            "transition_int8": transition_block_int8, "transition": transition_block_fused,
+            "pointwise_int8": conv1x1_bn_int8}
     ok = True
     for name, shape, args, _, agrees in cases(dev):
         fn = (lambda f=call[name], args=args: f(*args))
@@ -305,6 +354,12 @@ def sweep(dev) -> bool:
             continue
         if name == "transition_int8":
             ok &= sweep_transition_int8(shape, args, ref, agrees, q8, sms)
+            continue
+        if name == "transition":
+            ok &= sweep_transition(shape, args, ref, agrees, sms)
+            continue
+        if name == "pointwise_int8":
+            ok &= sweep_pointwise_int8(shape, args, ref, agrees, q8, sms)
             continue
         if name == "pointwise":
             p, k, n, _ = shape
@@ -361,6 +416,71 @@ def sweep_transition_int8(shape, args, ref, agrees, q8, sms) -> bool:
         ok &= agrees(y)
         print(json.dumps({"kernel": "transition_int8", "shape": shape, "varied": varied,
                           "plan": plan.args(), "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
+def sweep_transition(shape, args, ref, agrees, sms) -> bool:
+    """The f32 transition under its plan and under plans that change one
+    phase's K split."""
+    from winograd_tpu_torch.kernels import transition as tr
+    from winograd_tpu_torch.kernels.splitk import split_k
+
+    n, h, w, cin, cmid, cout = shape
+    chosen = tr.transition_plan(*shape, sms)
+    ks = {"reduce": cin, "mid": 9 * cmid, "expand": cmid + cin}
+    plans = {("chosen",): chosen}
+    for want in WANTS:
+        for phase, k in ks.items():
+            plans.setdefault((phase, want), chosen._replace(
+                **{phase: split_k(k, want, tr.TRANSITION_STEP, tr.TRANSITION_STEP)}))
+    x, params = args
+    operands = (x, params["w_reduce"], params["s_reduce"], params["b_reduce"],
+                params["w9_mid"], params["s_mid"], params["b_mid"], params["wep"], params["bep"])
+    ok, seen = True, set()
+    for varied, plan in plans.items():
+        if plan.args() in seen and varied != ("chosen",):
+            continue
+        seen.add(plan.args())
+        fn = (lambda plan=plan: tr.transition_block_fused_planned(*operands, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": "transition", "shape": shape, "varied": varied,
+                          "plan": plan.args(), "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
+def sweep_pointwise_int8(shape, args, ref, agrees, q8, sms) -> bool:
+    """The int8 pointwise under its plan, and on every path that takes the
+    shape at the K splits split_k gives for WANTS."""
+    from winograd_tpu_torch.kernels.splitk import split_k
+
+    p, k, n, _ = shape
+    chosen = q8.pointwise_int8_plan(p, k, n, sms)
+    plans = [chosen]
+    for path in q8.POINTWISE_INT8_PATHS:
+        try:
+            base = q8.pointwise_int8_plan(p, k, n, sms, path)
+        except ValueError:
+            continue
+        step = q8.POINTWISE_INT8_GEMV_STEP if path == "gemv" else q8.DIRECT_INT8_STEP
+        for want in (1,) if path == "one_pass" else WANTS:
+            sp = split_k(base.kp, want, step, step)
+            plan = base._replace(splits=sp.splits, chunk=sp.chunk)
+            if path == "gemv":
+                plan = plan._replace(blocks=plan.tiles * sp.splits)
+            if plan not in plans:
+                plans.append(plan)
+    ok = True
+    for plan in plans:
+        fn = (lambda plan=plan: q8.conv1x1_bn_int8_planned(*args, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": "pointwise_int8", "shape": shape, "path": plan.path,
+                          "splits": plan.splits, "chunk": plan.chunk, "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
                           "ms": device_ms(fn)}), flush=True)
     return ok

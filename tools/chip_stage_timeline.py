@@ -2,18 +2,20 @@
 """Where the persistent kernels' time goes, phase by phase, on one CUDA card.
 
     python3 tools/chip_stage_timeline.py [--root DIR]
-        [--kernel stage|stage_int8|transition_int8|both] [--variant as_is,one_pass,no_mma]
+        [--kernel stage|stage_int8|transition_int8|transition|both]
+        [--variant as_is,one_pass,no_mma]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 builds a copy of DIR's winograd_tpu_torch/csrc/stage.cu (the f32 stage),
-of its stage_int8.cu and of its transition_int8.cu (default: this
-checkout's; DIR may be an unpacked `git archive` of another commit under
-build/) in which thread 0 of block 0 reads %globaltimer once before the
-first phase and again after every grid barrier of the kernel body (the
-barriers inside a phase of mma_int8.cuh or splitk_tf32.cuh, before its
-K-split sum or its Winograd inverse, are not stamped), and calls DIR's
-resnet_stage_fused, resnet_stage_int8 and transition_block_int8 wrappers
-on those libraries at the served shapes ("both" is the two stages). Each
+of its stage_int8.cu, of its transition_int8.cu and of its transition.cu
+(the f32 transition; default: this checkout's; DIR may be an unpacked `git
+archive` of another commit under build/) in which thread 0 of block 0
+reads %globaltimer once before the first phase and again after every grid
+barrier of the kernel body (the barriers inside a phase of mma_int8.cuh or
+splitk_tf32.cuh, before its K-split sum or its Winograd inverse, are not
+stamped), and calls DIR's resnet_stage_fused, resnet_stage_int8,
+transition_block_int8 and transition_block_fused wrappers on those
+libraries at the served shapes ("both" is the two stages). Each
 line gives the kernel's stamped span and the spans between stamps in
 microseconds: a phase's span is its slowest block's work plus the barrier.
 The f32 stage's spans are, per block, reduce, mid, expand (the last
@@ -24,18 +26,20 @@ barrier and stamp, so its spans are all six phases: the weight transposes
 with x's quantization, the reduce, the strided im2col's quantization, the
 mid, h2's quantization with the projection rows' gather, and expand with
 projection (where that last phase splits K, its products and its sum of
-the slots apart: seven spans). First, the grid barrier alone
+the slots apart: seven spans). The f32 transition's copy ends the same
+way: its spans are the reduce, the mid and the expand with the projection,
+each with its split sum. First, the grid barrier alone
 (grid_sync.cuh, 256 threads a block): its cost per crossing at one and two
 blocks an SM. The card's name and power limit come first.
 
---variant builds the f32 stage once per named variant of its tensor-core
-tile (csrc/mma_tf32.cuh, edited in a copy of the sources) and stamps each:
-"as_is" the committed 3xTF32 tile; "one_pass" only the hi*hi pass of its
-three mma.sync passes (TF32 accuracy, so its lines report the error but do
-not fail); "no_mma" none of them (the cp.async ring, the fragment splits the
-compiler keeps, the epilogues and barriers alone; its output is not the
-stage's). What a phase loses between the variants is what its products
-cost.
+--variant builds the f32 stage and the f32 transition (TF32_KERNELS) once
+per named variant of their tensor-core tile (csrc/mma_tf32.cuh, edited in a
+copy of the sources) and stamps each: "as_is" the committed 3xTF32 tile;
+"one_pass" only the hi*hi pass of its three mma.sync passes (TF32 accuracy,
+so its lines report the error but do not fail); "no_mma" none of them (the
+cp.async ring, the fragment splits the compiler keeps, the epilogues and
+barriers alone; its output is not the kernel's). What a phase loses
+between the variants is what its products cost.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ SHAPES = {  # (N, H, W, Cio, Cmid, blocks, mid): the served stages, and conv4_x 
                    (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
                    (8, 14, 14, 1024, 256, 5, "direct")],
 }
-# (N, H, W, Cin, Cmid, Cout): the served int8 transitions, and 14->7 at N=8.
+# (N, H, W, Cin, Cmid, Cout): the served transitions, and 14->7 at N=8.
 TRANSITION_SHAPES = [(1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024),
                      (1, 14, 14, 1024, 512, 2048), (8, 14, 14, 1024, 512, 2048)]
 # Per kernel source: the last include, after which the stamp buffer goes,
@@ -72,6 +76,8 @@ LAYOUT = {
                    "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act", None),
     "transition_int8": ('#include "mma_int8.cuh"\n', "  // 0. The four weight matrices",
                         "  expand_and_project(a, P2, smem);\n"),
+    "transition": ('#include "splitk_tf32.cuh"\n', "  sk::gemm_phase<kVec, true>(a.reduce,",
+                   "BiasReluEpilogue{a.bep, a.out, a.Cout}, a.part, a.bar, smem);\n"),
 }
 # The tile's three passes in csrc/mma_tf32.cuh::mma_stage, and the passes
 # each --variant keeps out.
@@ -79,6 +85,7 @@ PASSES = {"lo_hi": "mma(acc[mi][ni], al[mi], bh[ni]);",
           "hi_lo": "mma(acc[mi][ni], ah[mi], bl[ni]);",
           "hi_hi": "mma(acc[mi][ni], ah[mi], bh[ni]);"}
 VARIANTS = {"as_is": (), "one_pass": ("lo_hi", "hi_lo"), "no_mma": ("lo_hi", "hi_lo", "hi_hi")}
+TF32_KERNELS = ("stage", "transition")  # the kernels on that tile, built once per variant
 STAMP = ("{ if (blockIdx.x == 0 && threadIdx.x == 0) { unsigned long long t; "
          "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); "
          "if (g_stamps < 1024) g_stamp[g_stamps++] = t; } }")
@@ -140,9 +147,9 @@ def variant_sources(csrc: pathlib.Path, out: pathlib.Path, variant: str) -> path
 
 
 def build(root: pathlib.Path, out: pathlib.Path, kernels, variants=("as_is",)):
-    """The barrier benchmark and the stamped kernel libraries (the f32 stage
-    once per variant, "stage_stamped:<variant>"), built together; returns
-    {name: library}."""
+    """The barrier benchmark and the stamped kernel libraries (each of
+    TF32_KERNELS once per variant, "<kernel>_stamped:<variant>"), built
+    together; returns {name: library}."""
     from winograd_tpu_torch.kernels import _build
 
     csrc = root / "winograd_tpu_torch" / "csrc"
@@ -151,11 +158,12 @@ def build(root: pathlib.Path, out: pathlib.Path, kernels, variants=("as_is",)):
     jobs = {"barrier": (out / "barrier.cu", csrc)}  # name -> (source, include dir)
     for kernel in kernels:
         stamped = stamped_source((csrc / f"{kernel}.cu").read_text(), kernel)
-        for variant in (variants if kernel == "stage" else ("as_is",)):
-            src = variant_sources(csrc, out, variant) if kernel == "stage" else out
+        tf32 = kernel in TF32_KERNELS
+        for variant in (variants if tf32 else ("as_is",)):
+            src = variant_sources(csrc, out, variant) if tf32 else out
             (src / f"{kernel}_stamped.cu").write_text(stamped)
-            name = f"{kernel}_stamped:{variant}" if kernel == "stage" else f"{kernel}_stamped"
-            jobs[name] = (src / f"{kernel}_stamped.cu", src if kernel == "stage" else csrc)
+            name = f"{kernel}_stamped:{variant}" if tf32 else f"{kernel}_stamped"
+            jobs[name] = (src / f"{kernel}_stamped.cu", src if tf32 else csrc)
     lib_of = {name: out / f"lib{name.replace(':', '_')}.so" for name in jobs}
     procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(inc), "-o",
                                str(lib_of[name]), str(src)],
@@ -222,8 +230,9 @@ def stage_case(rng, dev, kernel, n, h, w, cio, cmid, nb):
     return torch.as_tensor(np.abs(rand(n, h, w, cio)), device=dev), params
 
 
-def transition_case(rng, dev, n, h, w, cin, cmid, cout):
-    """Seeded quantized transition params and a ReLU'd input."""
+def transition_case(rng, dev, kernel, n, h, w, cin, cmid, cout):
+    """Seeded transition params (quantized for the int8 transition) and a
+    ReLU'd input."""
     import torch
 
     from winograd_tpu_torch.kernels import quantized as q8
@@ -237,7 +246,10 @@ def transition_case(rng, dev, n, h, w, cin, cmid, cout):
         w9_mid=direct_filter(rand(cmid, cmid, 3, 3)), s_mid=rand(cmid) + 0.5, b_mid=rand(cmid),
         w_expand=rand(cmid, cout), s_expand=rand(cout) + 0.5, b_expand=rand(cout),
         w_proj=rand(cin, cout), s_proj=rand(cout) + 0.5, b_proj=rand(cout))
-    params = {k: v.to(dev) for k, v in q8.quantize_transition_params(params).items()}
+    if kernel == "transition_int8":
+        params = {k: v.to(dev) for k, v in q8.quantize_transition_params(params).items()}
+    else:
+        params = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
     return torch.as_tensor(np.abs(rand(n, h, w, cin)), device=dev), params
 
 
@@ -245,10 +257,12 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=pathlib.Path, default=ROOT,
                     help="the checkout whose kernel and wrapper are timed")
-    ap.add_argument("--kernel", choices=("stage", "stage_int8", "transition_int8", "both"),
+    ap.add_argument("--kernel",
+                    choices=("stage", "stage_int8", "transition_int8", "transition", "both"),
                     default="both")
     ap.add_argument("--variant", default="as_is", metavar="NAME,...",
-                    help="variants of the f32 stage's tile: " + ", ".join(VARIANTS))
+                    help="variants of the f32 stage's and transition's tile: "
+                    + ", ".join(VARIANTS))
     args = ap.parse_args()
     variants = tuple(v for v in args.variant.split(",") if v)
     if not variants or any(v not in VARIANTS for v in variants):
@@ -263,6 +277,7 @@ def main() -> int:
     from winograd_tpu_torch.kernels import _build
     from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels import stage as st
+    from winograd_tpu_torch.kernels import transition as tr
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
@@ -279,22 +294,25 @@ def main() -> int:
                 "stage_int8": (q8.resnet_stage_int8, q8.resnet_stage_int8_plain,
                                q8._workspace_words),
                 "transition_int8": (q8.transition_block_int8, q8.transition_block_int8_plain,
-                                    q8._workspace_words)}
+                                    q8._workspace_words),
+                "transition": (tr.transition_block_fused, tr.transition_block_fused_plain,
+                               tr._workspace_floats)}
     rng = np.random.default_rng(0)
     stamps, count = (ctypes.c_ulonglong * 1024)(), ctypes.c_int(0)
     ok = True
     for kernel in kernels:
         call, plain, workspace = wrappers[kernel]
         cases = []  # (shape, the wrapper's operands, the twin's output)
-        if kernel == "transition_int8":
+        if kernel in ("transition_int8", "transition"):
             for shape in TRANSITION_SHAPES:
-                x, params = transition_case(rng, dev, *shape)
+                x, params = transition_case(rng, dev, kernel, *shape)
                 cases.append((shape, (x, params), plain(x, params)))
         for n, h, w, cio, cmid, nb, mid in SHAPES.get(kernel, []):
             x, params = stage_case(rng, dev, kernel, n, h, w, cio, cmid, nb)
             cases.append(((n, h, w, cio, cmid, nb, mid), (x, params, mid), plain(x, params, mid)))
-        for variant in (variants if kernel == "stage" else ("as_is",)):
-            lib = libs[f"{kernel}_stamped:{variant}" if kernel == "stage" else f"{kernel}_stamped"]
+        tf32 = kernel in TF32_KERNELS
+        for variant in (variants if tf32 else ("as_is",)):
+            lib = libs[f"{kernel}_stamped:{variant}" if tf32 else f"{kernel}_stamped"]
             _build._LIBS[kernel] = lib  # the wrapper launches the stamped library
             workspace.cache_clear()
             for shape, operands, ref in cases:
@@ -307,7 +325,7 @@ def main() -> int:
                     if lib.read_stamps(stamps, ctypes.byref(count)):
                         raise SystemExit("read_stamps failed")
                 err = (y - ref).abs().max().item()
-                if kernel != "stage":
+                if kernel not in ("stage", "transition"):
                     agrees = bool(torch.equal(y, ref))
                 else:
                     agrees = err <= 1e-4 * max(1.0, ref.abs().max().item())

@@ -2,13 +2,13 @@
 // accumulation, handed to an epilogue functor; gemm_bn_tile is the tile with
 // the folded-BN epilogue y = C * scale[n] + bias[n] (+ ReLU).
 //
-// Shared by the pointwise kernel (A is the activation matrix), the direct
-// 3x3 kernel (A is the implicit im2col matrix, gathered on the fly into
-// shared memory) and the persistent stage and transition kernels, which walk
-// a list of tiles and split K across blocks. The A operand comes through a
-// loader functor `float a(int p, int k)`; B is a row-major (K, N) weight
-// matrix. The caller names the tile (p0, n0), the K range [k_begin, k_end)
-// and the shared memory (kGemmSmemFloats floats, 16-byte aligned).
+// Run by the persistent basic-stage kernel (csrc/basic_stage.cu, through
+// grid_sync.cuh's gemm_phase), which walks a list of tiles and splits K
+// across blocks; the port's other f32 GEMMs run on mma_tf32.cuh's
+// tensor-core tile. The A operand comes through a loader functor
+// `float a(int p, int k)`; B is a row-major (K, N) weight matrix. The caller
+// names the tile (p0, n0), the K range [k_begin, k_end) and the shared
+// memory (kGemmSmemFloats floats, 16-byte aligned).
 //
 // Tile: 64 x 64 outputs per block of 256 threads, 4 x 4 per thread, K in
 // steps of 16 staged in shared memory. A is stored k-major so each thread
@@ -26,14 +26,6 @@ constexpr int kBN = 64;
 constexpr int kBK = 16;
 constexpr int kGemmThreads = 256;
 constexpr int kGemmSmemFloats = kBK * (kBM + 4) + kBK * kBN;
-
-struct RowMajorA {
-  const float* __restrict__ x;
-  int ld;
-  __device__ __forceinline__ float operator()(int p, int k) const {
-    return x[static_cast<size_t>(p) * ld + k];
-  }
-};
 
 // y = acc * scale[n] + bias[n] (+ ReLU) into out[p, n] (row stride N).
 struct BnEpilogue {

@@ -20,9 +20,9 @@
 // (through a loader functor `float a(int p, int k)`, zero past the ragged
 // edge), both operands are packed four k to a 32-bit word, and each thread
 // runs 16 __dp4a (four int8 MACs into int32) per word pair. The tile's row
-// scales live in shared memory: the per-layer kernels compute them in the
-// block (row_scales_tile), the persistent kernels in a sub-phase of their
-// own behind a grid barrier (row_scales_phase), then copy the tile's rows.
+// scales live in shared memory: the persistent kernels compute them in a
+// sub-phase of their own behind a grid barrier (row_scales_phase), then
+// copy the tile's rows.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -58,19 +58,6 @@ __device__ __forceinline__ float warp_row_scale(const ALoad& a, int p, int k0, i
   float m = 0.f;
   for (int k = threadIdx.x % 32; k < klen; k += 32) m = fmaxf(m, fabsf(a(p, k0 + k)));
   return scale_from_max(warp_max(m));
-}
-
-// The scales of the tile's rows p0 .. p0 + 63 over all of K into sx[64]
-// (1 past P), by the block's 8 warps; ends with a __syncthreads.
-template <class ALoad>
-__device__ __forceinline__ void row_scales_tile(const ALoad& a, int P, int K, int p0,
-                                                float* sx) {
-  const int warp = threadIdx.x / 32;
-  for (int r = warp; r < kBM; r += kGemmThreads / 32) {
-    const float s = p0 + r < P ? warp_row_scale(a, p0 + r, 0, K) : 1.f;
-    if (threadIdx.x % 32 == 0) sx[r] = s;
-  }
-  __syncthreads();
 }
 
 // Every row's scale over k in [g * klen, (g + 1) * klen) into
@@ -203,30 +190,6 @@ struct ResidualInt8Epilogue {
     store(p, n, dequant(acc, sx, sw[n]));
   }
 };
-
-// One whole tile: its row scales over all of K (in the block), the
-// product, and `epi(p, n, acc, s_x)` for every output in range. smem:
-// kInt8SmemBytes, 16-byte aligned.
-template <class ALoad, class Epilogue>
-__device__ __forceinline__ void int8_gemm_tile(const ALoad& a, const int8_t* __restrict__ b,
-                                               int P, int K, int N, int p0, int n0,
-                                               int* smem, const Epilogue& epi) {
-  float* sx = reinterpret_cast<float*>(smem + 2 * kW8 * kBM);
-  row_scales_tile(a, P, K, p0, sx);
-  int acc[4][4];
-  int8_tile(a, b, sx, P, N, p0, n0, 0, K, smem, acc);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = p0 + ty * 4 + i;
-    if (p >= P) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) epi(p, n, acc[i][j], sx[ty * 4 + i]);
-    }
-  }
-}
 
 // The tile's row scales, computed earlier in the launch, into sx[64].
 __device__ __forceinline__ void load_tile_scales(const float* scales, int stride, int P,

@@ -70,26 +70,6 @@ struct Im2colCg {
   }
 };
 
-// The stride-2 SAME 3x3 im2col matrix of an (N, H, W, C) map written earlier
-// in the launch, at output rows p = (n, oy, ox), k = (3r + s) * C + c.
-struct Im2colS2Cg {
-  const float* x;
-  int H, W, C, Ho, Wo;
-  __device__ __forceinline__ float operator()(int p, int k) const {
-    const int rs = k / C;
-    const int c = k - rs * C;
-    const int r = rs / 3;
-    const int s = rs - 3 * r;
-    const int hwo = Ho * Wo;
-    const int n = p / hwo;
-    const int q = p - n * hwo;
-    const int y = 2 * (q / Wo) + r - 1;
-    const int xx = 2 * (q % Wo) + s - 1;
-    if (y < 0 || y >= H || xx < 0 || xx >= W) return 0.f;
-    return __ldcg(x + (static_cast<size_t>(n * H + y) * W + xx) * C + c);
-  }
-};
-
 struct CgLoad {
   __device__ __forceinline__ float operator()(const float* p) const { return __ldcg(p); }
 };

@@ -277,32 +277,38 @@ __device__ __forceinline__ void load_stage(int8_t* sa, int8_t* sb, const int8_t*
   cp_async16(sb + r * kLd + c, ok ? bt + static_cast<size_t>(n0 + r) * Kp + k : bt, ok);
 }
 
-__device__ __forceinline__ void mma_stage(const int8_t* sa, const int8_t* sb, Acc& acc, int wm,
-                                          int wn) {
+// The warp (wm, wn) multiplies its 32 x 16 outputs over the 32 k from byte
+// ks of the rows of sa and sb (shared memory, rows of ld bytes).
+__device__ __forceinline__ void mma_k32(const int8_t* sa, const int8_t* sb, int ld, int ks,
+                                        Acc& acc, int wm, int wn) {
   const int lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
+  unsigned a[2][4], b[2][2];
 #pragma unroll
-  for (int ks = 0; ks < kBK; ks += 32) {
-    unsigned a[2][4], b[2][2];
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-      const int8_t* r0 = sa + (wm * 32 + mi * 16 + g) * kLd + ks + 4 * t;
-      a[mi][0] = ld32(r0);
-      a[mi][1] = ld32(r0 + 8 * kLd);
-      a[mi][2] = ld32(r0 + 16);
-      a[mi][3] = ld32(r0 + 8 * kLd + 16);
-    }
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni) {
-      const int8_t* c0 = sb + (wn * 16 + ni * 8 + g) * kLd + ks + 4 * t;
-      b[ni][0] = ld32(c0);
-      b[ni][1] = ld32(c0 + 16);
-    }
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 2; ++ni) mma(acc[mi][ni], a[mi], b[ni]);
+  for (int mi = 0; mi < 2; ++mi) {
+    const int8_t* r0 = sa + (wm * 32 + mi * 16 + g) * ld + ks + 4 * t;
+    a[mi][0] = ld32(r0);
+    a[mi][1] = ld32(r0 + 8 * ld);
+    a[mi][2] = ld32(r0 + 16);
+    a[mi][3] = ld32(r0 + 8 * ld + 16);
   }
+#pragma unroll
+  for (int ni = 0; ni < 2; ++ni) {
+    const int8_t* c0 = sb + (wn * 16 + ni * 8 + g) * ld + ks + 4 * t;
+    b[ni][0] = ld32(c0);
+    b[ni][1] = ld32(c0 + 16);
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni) mma(acc[mi][ni], a[mi], b[ni]);
+}
+
+// One ring stage (kBK bytes of k, rows of kLd bytes).
+__device__ __forceinline__ void mma_stage(const int8_t* sa, const int8_t* sb, Acc& acc, int wm,
+                                          int wn) {
+#pragma unroll
+  for (int ks = 0; ks < kBK; ks += 32) mma_k32(sa, sb, kLd, ks, acc, wm, wn);
 }
 
 // acc = aq[p0.., k0:k1] x bt[n0.., k0:k1]^T for the 64 x 64 tile; smem:

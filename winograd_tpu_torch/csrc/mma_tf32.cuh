@@ -2,8 +2,8 @@
 // cp.async stages: acc = A[p0.., k0:k1] x B[k0:k1, n0..] with B (K, N)
 // row-major in device memory and A given by a source that names, for a row
 // p and a k, the address of A[p, k] or "zero" (RowMajorA: a (P, K) matrix;
-// Im2colA: the implicit im2col of a stride-1 3x3, zero where the window
-// leaves the map).
+// Im2colA: the implicit im2col of a pad-1 3x3 at stride 1 or 2, zero where
+// the window leaves the map).
 //
 // 3xTF32: every operand x is split as hi = tf32(x) (cvt.rna, 10 explicit
 // mantissa bits) and lo = tf32(x - hi), and each k step accumulates
@@ -28,8 +28,8 @@
 // stored to shared memory instead.
 //
 // Shared by csrc/pointwise.cu and csrc/direct.cu (through splitk_tf32.cuh's
-// split-K kernel), csrc/stage.cu (splitk_tf32.cuh's gemm_phase) and the
-// Winograd products of wino_tf32.cuh (csrc/winograd.cu, csrc/stage.cu),
+// split-K kernel), csrc/stage.cu and csrc/transition.cu (splitk_tf32.cuh's
+// gemm_phase) and the Winograd products of wino_tf32.cuh (csrc/winograd.cu, csrc/stage.cu),
 // whose A is V = Bt d Bt^T read from the workspace its V phase wrote.
 #pragma once
 
@@ -83,9 +83,13 @@ struct RowMajorA {
   }
 };
 
-// The stride-1 pad-1 3x3 im2col rows of an (N, H, W, C) map as an A source:
-// at(p, k) is the address of the input value at row p = (n, y, x) and
-// k = (3r + s) * C + c, or null past P or where the window leaves the map.
+// The pad-1 3x3 im2col rows of an (N, H, W, C) map at stride kStride as an
+// A source: row p = (n, oy, ox) of the (N, ceil(H / kStride), ceil(W /
+// kStride)) output and k = (3r + s) * C + c take the input value at
+// (kStride oy + r - 1, kStride ox + s - 1); at(p, k) is its address, or null
+// past P or where the window leaves the map (stride 2 is the transition's
+// SAME 3x3). A brace-initialised Im2colA{...} is the stride-1 source.
+template <int kStride = 1>
 struct Im2colA {
   const float* __restrict__ x;
   int H, W, C, P;
@@ -94,15 +98,17 @@ struct Im2colA {
     if (p >= P) return nullptr;
     const int rs = k / C;
     const int c = k - rs * C;
-    const int hw = H * W;
+    const int ho = (H + kStride - 1) / kStride, wo = (W + kStride - 1) / kStride;
+    const int hw = ho * wo;
     const int n = p / hw;
     const int q = p - n * hw;
-    const int y = q / W + rs / 3 - 1;
-    const int xx = q % W + rs % 3 - 1;
+    const int y = q / wo * kStride + rs / 3 - 1;
+    const int xx = q % wo * kStride + rs % 3 - 1;
     if (y < 0 || y >= H || xx < 0 || xx >= W) return nullptr;
     return x + (static_cast<size_t>(n * H + y) * W + xx) * C + c;
   }
 };
+Im2colA(const float*, int, int, int, int) -> Im2colA<1>;
 
 template <class ASrc>
 __device__ __forceinline__ const float* a_source(const ASrc& a, int p, int k, int k1) {

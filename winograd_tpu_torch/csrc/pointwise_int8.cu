@@ -1,46 +1,412 @@
 // Int8 1x1 conv + folded BN (+ ReLU) with per-row dynamic activation
 // quantization: out[p, n] = float(q(x)[p, :] . w_q[:, n]) * (s_x[p] * s_w[n])
-// * scale[n] + bias[n] (+ ReLU); gemm_int8.cuh states the arithmetic.
+// * scale[n] + bias[n] (+ ReLU); gemm_int8.cuh states the arithmetic (row
+// scale max|x| / 127 by IEEE division, 1 for a zero row; rint clamped to
+// +-127; an exact int32 sum; the epilogue's multiplies and adds rounded one
+// by one), so the kernel equals kernels/quantized.py::conv1x1_bn_int8_plain
+// to the bit.
 //
 // Replaces: winograd_tpu/kernels/quantized.py::_quant_matmul_kernel
 // (conv1x1_bn_int8_pallas). On the int8 ResNet-50 path it runs the
-// projection block's three 1x1s (3136 x 64 -> 64 and 256) and the head FC
-// (P = 1, K = 2048, N = 1000).
+// projection block's three 1x1s (3136 x 64 -> 64, 256 and 256) and the head
+// FC (P = 1, K = 2048, N = 1000); on the int8 ResNet-34 path the strided
+// 3x3 b-legs as GEMMs on a strided im2col (784 x 576 -> 128, 196 x 1152 ->
+// 256, 49 x 2304 -> 512), the projections (784 x 64 -> 128, 196 x 128 ->
+// 256, 49 x 256 -> 512) and the head (1 x 512 -> 1000).
 //
-// Bound on the H100: the int8 products at 1979 TOPS are far below the
-// bytes: x in f32 (4 bytes a value), the int8 weights and the f32 output,
-// at 3.35 TB/s. At 3136 x 64 -> 256 that is 4.0 MB, ~1.2 us; the head reads
-// its 2 MB of int8 weights once.
+// Bound on the H100: bytes. The int8 products at 1979 TOPS take at most
+// 0.06 us at these shapes; x in f32 (4 bytes a value), the int8 weights and
+// the f32 output take 0.06-1.2 us at 3.35 TB/s (the head reads its 2 MB of
+// int8 weights once: 0.6 us). Their output tiles number 8 to 196, so one
+// block walking a tile's whole K alone leaves most SMs idle.
 //
-// Design: the int8 tile of gemm_int8.cuh, one 64 x 64 output tile per
-// block: the block first finds its 64 rows' scales (one warp per row over
-// all of K), then quantizes x as it stages it, multiplies by __dp4a into
-// int32 and applies the dequant/BN epilogue. Each block of a row band
-// recomputes the band's scales; at these widths that is a few KB of reads.
-// No tensor cores (mma/wgmma) yet: that is later work.
+// Design, three paths (the host's plan, kernels/quantized.py::
+// pointwise_int8_plan, picks one; this entry checks the plan against the
+// geometry compiled here and refuses one that does not fit):
+// * GEMV (P <= kGemvMaxP, the head): a block owns kGemvCols columns and a
+//   K range. It finds its rows' scales over all of K (P <= 8 rows), then
+//   quantizes the rows over its K range once into shared memory; each warp
+//   reads four weight rows of its 128 columns at a time, coalesced along N,
+//   turns them k-contiguous in registers (byte permutes) and multiplies by
+//   __dp4a into int32. The warps' sums meet in shared memory; with several
+//   K ranges the last block of a column tile adds the int32 partial sums
+//   (exact in any order) and applies the epilogue once.
+// * One pass (Kp <= kOnePassMaxK, the 1x1s of K 64-256): one block a
+//   64 x 64 output tile, no barrier: it quantizes its 64 rows once into
+//   shared memory (a warp's eight rows' loads in flight together), writes
+//   its 64 weight columns k-contiguous beside them, and multiplies on
+//   mma.sync.m16n8k32 s8 (mma_int8.cuh's warp tile). A row band is
+//   quantized once per column tile (1 to 4 times on the served shapes).
+// * Cooperative (longer K, the strided b-legs): direct_int8.cu's phases on
+//   mma_int8.cuh. The grid quantizes every row once into a (P, Kp) int8
+//   workspace and writes the weights k-contiguous (N, Kp) beside it; a grid
+//   barrier; then 64 x 64 mma.sync tiles on cp.async stages with K split so
+//   that tiles x splits reach about one wave of blocks; the int32 splits
+//   are added after a second barrier and the epilogue runs once an element.
+
+#include <stdint.h>
 
 #include "common.cuh"
-#include "gemm_int8.cuh"
+#include "mma_int8.cuh"
 
-__global__ void __launch_bounds__(wt::kGemmThreads) pointwise_int8_kernel(
-    const float* __restrict__ x, const int8_t* __restrict__ wq,
-    const float* __restrict__ sw, const float* __restrict__ scale,
-    const float* __restrict__ bias, float* __restrict__ out, int P, int K, int N,
-    int relu) {
-  __shared__ __align__(16) int smem[wt::kInt8SmemBytes / 4];
-  wt::int8_gemm_tile(wt::RowMajorA{x, K}, wq, P, K, N, blockIdx.y * wt::kBM,
-                     blockIdx.x * wt::kBN, smem,
-                     wt::Int8BnEpilogue{sw, scale, bias, out, N, relu});
+namespace {
+
+namespace s8 = wt::s8mma;
+
+// The plan's paths, as the host numbers them.
+constexpr int kGemv = 0;
+constexpr int kOnePass = 1;
+constexpr int kCooperative = 2;
+
+constexpr int kGemvMaxP = 8;      // rows the GEMV's registers and shared arrays hold
+constexpr int kGemvCols = 128;    // columns a GEMV block owns: four a lane
+constexpr int kGemvThreads = 256;
+constexpr int kGemvWarps = kGemvThreads / 32;
+constexpr int kGemvStep = 32;     // a GEMV split is a multiple of this: one 4-k group a warp
+constexpr int kGemvXChunk = 1024;  // k of x quantized into shared memory at a time
+constexpr int kOnePassMaxK = 256;  // Kp of the rows the one-pass form holds in shared memory
+constexpr int kOnePassLd = kOnePassMaxK + 16;  // bytes a shared row: 32 distinct banks a fragment
+constexpr int kSplitStep = s8::kBK;  // the cooperative form's split is a multiple of this
+
+static_assert(kGemvStep == 4 * kGemvWarps, "a GEMV step is one 4-k group a warp");
+static_assert(kGemvXChunk % kGemvStep == 0, "x chunks hold whole GEMV steps");
+static_assert(kOnePassMaxK % 128 == 0, "a lane holds kOnePassMaxK / 128 float4s of a row");
+
+struct Args {
+  const float* x;     // (P, K), 16-byte aligned, K % 4 == 0
+  const int8_t* wq;   // (K, N)
+  const float* sw;
+  const float* scale;
+  const float* bias;
+  float* out;
+  unsigned int* bar;  // the cooperative grid's barrier, or the GEMV's tile counters
+  float* sx;          // cooperative: P row scales
+  int8_t* aq;         // cooperative: (P, Kp) quantized rows
+  int8_t* bt;         // cooperative: (N, Kp) weights, k-contiguous
+  int* part;          // int32 partial sums of the K splits
+  int P, K, N, relu, Kp, splits, chunk;
+};
+
+__device__ __forceinline__ wt::Int8BnEpilogue epilogue(const Args& a) {
+  return wt::Int8BnEpilogue{a.sw, a.scale, a.bias, a.out, a.N, a.relu};
 }
 
-extern "C" int pointwise_int8_conv1x1_bn(const float* x, const int8_t* wq,
-                                         const float* sw, const float* scale,
-                                         const float* bias, float* out, int P,
-                                         int K, int N, int relu, void* stream) {
-  if (P <= 0 || K <= 0 || N <= 0 || K % 4 != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((N + wt::kBN - 1) / wt::kBN, (P + wt::kBM - 1) / wt::kBM);
-  pointwise_int8_kernel<<<grid, wt::kGemmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, wq, sw, scale, bias, out, P, K, N, relu);
+__device__ __forceinline__ unsigned quantize4(const float4& v, float s) {
+  return static_cast<unsigned>(wt::pack4(wt::quantize(v.x, s), wt::quantize(v.y, s),
+                                         wt::quantize(v.z, s), wt::quantize(v.w, s)));
+}
+
+// Four rows' words (word i: columns c = 0..3 of row i, one byte each) as
+// four columns' words (word c: rows i = 0..3 of column c): the k-contiguous
+// layout of __dp4a's and mma.sync's B operand.
+__device__ __forceinline__ void transpose4(const unsigned (&r)[4], unsigned (&c)[4]) {
+  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+  const unsigned t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t1, 0x5410);
+  c[1] = __byte_perm(t0, t1, 0x7632);
+  c[2] = __byte_perm(t2, t3, 0x5410);
+  c[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// The weights of rows k .. k+3 at columns n .. n+3, one word a row, zero
+// past K and N; kVec: N % 4 == 0 and wq 4-byte aligned.
+template <bool kVec>
+__device__ __forceinline__ void weight_rows4(const Args& a, int k, int n, unsigned (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int8_t* row = a.wq + static_cast<size_t>(k + i) * a.N + n;
+    r[i] = 0u;
+    if (k + i >= a.K) continue;
+    if (kVec) {
+      if (n < a.N) r[i] = __ldg(reinterpret_cast<const unsigned*>(row));
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (n + c < a.N)
+          r[i] |= static_cast<unsigned>(static_cast<uint8_t>(__ldg(row + c))) << (8 * c);
+    }
+  }
+}
+
+// --- GEMV: P <= kGemvMaxP -------------------------------------------------
+
+template <bool kVec>
+__global__ void __launch_bounds__(kGemvThreads) pointwise_int8_gemv(Args a) {
+  __shared__ float sx[kGemvMaxP];
+  __shared__ unsigned xq[kGemvMaxP][kGemvXChunk / 4];
+  __shared__ int red[kGemvWarps][kGemvMaxP][kGemvCols];
+  __shared__ bool last;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int n0 = blockIdx.x * kGemvCols, split = blockIdx.y;
+  const int k0 = split * a.chunk, k1 = min(a.K, k0 + a.chunk);
+  const int n = n0 + 4 * lane;
+
+  if (warp < a.P) {  // row `warp`'s scale over all of K
+    const float4* row = reinterpret_cast<const float4*>(a.x + static_cast<size_t>(warp) * a.K);
+    float m = 0.f;
+    for (int j = lane; j < a.K / 4; j += 32) m = s8::abs_max4(m, __ldg(row + j));
+    m = wt::warp_max(m);
+    if (lane == 0) sx[warp] = wt::scale_from_max(m);
+  }
+  int acc[kGemvMaxP][4];
+#pragma unroll
+  for (int p = 0; p < kGemvMaxP; ++p)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[p][e] = 0;
+
+  for (int kc = k0; kc < k1; kc += kGemvXChunk) {
+    const int words = min(kGemvXChunk, k1 - kc) / 4;
+    __syncthreads();  // the scales are in; every warp is done with the last chunk
+    for (int i = threadIdx.x; i < a.P * words; i += kGemvThreads) {
+      const int p = i / words, j = i - p * words;
+      const float4 v =
+          __ldg(reinterpret_cast<const float4*>(a.x + static_cast<size_t>(p) * a.K + kc) + j);
+      xq[p][j] = quantize4(v, sx[p]);
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int j = warp; j < words; j += kGemvWarps) {
+      unsigned r[4], c[4];
+      weight_rows4<kVec>(a, kc + 4 * j, n, r);
+      transpose4(r, c);
+#pragma unroll
+      for (int p = 0; p < kGemvMaxP; ++p) {
+        if (p < a.P) {
+          const int xv = static_cast<int>(xq[p][j]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][e] = __dp4a(xv, static_cast<int>(c[e]), acc[p][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int p = 0; p < kGemvMaxP; ++p)
+    if (p < a.P)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[warp][p][4 * lane + e] = acc[p][e];
+  __syncthreads();
+
+  const wt::Int8BnEpilogue epi = epilogue(a);
+  int* part = a.part + static_cast<size_t>(split) * a.P * a.N;
+  for (int i = threadIdx.x; i < a.P * kGemvCols; i += kGemvThreads) {
+    const int p = i / kGemvCols, c = i % kGemvCols;
+    if (n0 + c >= a.N) continue;
+    int s = 0;
+#pragma unroll
+    for (int w = 0; w < kGemvWarps; ++w) s += red[w][p][c];
+    if (a.splits == 1)
+      epi(p, n0 + c, s, sx[p]);
+    else
+      part[static_cast<size_t>(p) * a.N + n0 + c] = s;
+  }
+  if (a.splits == 1) return;
+  // The last block of this column tile to arrive sees every split's sums.
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.bar + blockIdx.x, 1u) == a.splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const size_t pn = static_cast<size_t>(a.P) * a.N;
+  for (int i = threadIdx.x; i < a.P * kGemvCols; i += kGemvThreads) {
+    const int p = i / kGemvCols, c = i % kGemvCols;
+    if (n0 + c >= a.N) continue;
+    const size_t at = static_cast<size_t>(p) * a.N + n0 + c;
+    int s = 0;
+#pragma unroll 8
+    for (int k = 0; k < a.splits; ++k) s += __ldcg(a.part + k * pn + at);
+    epi(p, n0 + c, s, sx[p]);
+  }
+}
+
+// --- one pass: Kp <= kOnePassMaxK -----------------------------------------
+
+constexpr int kRowF4 = kOnePassMaxK / 128;           // float4s of a row a lane holds
+constexpr int kRowsPerWarp = s8::kBM / (s8::kThreads / 32);
+
+template <bool kVec>
+__global__ void __launch_bounds__(s8::kThreads) pointwise_int8_one_pass(Args a) {
+  __shared__ __align__(16) int8_t sa[s8::kBM * kOnePassLd];
+  __shared__ __align__(16) int8_t sb[s8::kBN * kOnePassLd];
+  __shared__ float sx[s8::kBM];
+  const int tiles_n = (a.N + s8::kBN - 1) / s8::kBN;
+  const int p0 = blockIdx.x / tiles_n * s8::kBM, n0 = blockIdx.x % tiles_n * s8::kBN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int k4 = a.K / 4, kp4 = a.Kp / 4;
+
+  // The block's 64 weight columns, k-contiguous: items of four k by four
+  // columns, their loads issued before the rows'.
+  constexpr int kItems = kOnePassMaxK / 4 * (s8::kBN / 4) / s8::kThreads;
+  unsigned w[kItems][4];
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int item = threadIdx.x + i * s8::kThreads, kg = item / (s8::kBN / 4);
+    if (kg < kp4) weight_rows4<kVec>(a, 4 * kg, n0 + item % (s8::kBN / 4) * 4, w[i]);
+  }
+  // The warp's rows r = warp, warp + 8, ...: every load in flight, then
+  // each row's scale and its int8 values, zero past K and past P.
+  float4 v[kRowsPerWarp][kRowF4];
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int p = p0 + warp + i * (s8::kThreads / 32);
+    const float4* row = reinterpret_cast<const float4*>(a.x + static_cast<size_t>(p) * a.K);
+#pragma unroll
+    for (int f = 0; f < kRowF4; ++f) {
+      const int j = lane + 32 * f;
+      v[i][f] = p < a.P && j < k4 ? __ldg(row + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kRowsPerWarp; ++i) {
+    const int r = warp + i * (s8::kThreads / 32);
+    float m = 0.f;
+#pragma unroll
+    for (int f = 0; f < kRowF4; ++f) m = s8::abs_max4(m, v[i][f]);
+    const float s = wt::scale_from_max(wt::warp_max(m));
+    unsigned* dst = reinterpret_cast<unsigned*>(sa + r * kOnePassLd);
+#pragma unroll
+    for (int f = 0; f < kRowF4; ++f) {
+      const int j = lane + 32 * f;
+      if (j < kp4) dst[j] = quantize4(v[i][f], s);  // zeros quantize to zero
+    }
+    if (lane == 0) sx[r] = s;
+  }
+#pragma unroll
+  for (int i = 0; i < kItems; ++i) {
+    const int item = threadIdx.x + i * s8::kThreads, kg = item / (s8::kBN / 4);
+    if (kg >= kp4) continue;
+    unsigned c[4];
+    transpose4(w[i], c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      *reinterpret_cast<unsigned*>(sb + (item % (s8::kBN / 4) * 4 + e) * kOnePassLd + 4 * kg) =
+          c[e];
+  }
+  __syncthreads();
+
+  s8::Acc acc;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
+  for (int ks = 0; ks < a.Kp; ks += 32)
+    s8::mma_k32(sa, sb, kOnePassLd, ks, acc, warp / 4, warp % 4);
+  const wt::Int8BnEpilogue epi = epilogue(a);
+  s8::for_each_acc(acc, [&](int r, int c, int v) {
+    if (p0 + r < a.P && n0 + c < a.N) epi(p0 + r, n0 + c, v, sx[r]);
+  });
+}
+
+// --- cooperative: longer K ------------------------------------------------
+
+__global__ void __launch_bounds__(s8::kThreads) pointwise_int8_cooperative(Args a) {
+  __shared__ __align__(16) int8_t smem[s8::kSmemBytes];
+  __shared__ float red[s8::kThreads / 32];
+  s8::quantize_rows_phase(s8::RowsCg4{a.x, a.K}, a.P, a.K, a.Kp, a.aq, a.sx, red);
+  s8::transpose_phase(a.wq, a.K, a.N, a.Kp, a.bt);
+  wt::grid_sync(a.bar);
+  s8::gemm_phase(a.aq, a.bt, a.sx, a.P, a.N, a.Kp, a.splits, a.chunk, epilogue(a), a.part,
+                 a.bar, smem);
+}
+
+// Blocks of the cooperative kernel the current device holds resident at
+// once (a cooperative grid may not be larger); 0 on error.
+int resident_blocks() {
+  static int cache[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (cache[dev] == 0)
+    cache[dev] = cooperative_grid(reinterpret_cast<const void*>(pointwise_int8_cooperative), 0);
+  return cache[dev];
+}
+
+bool vec_weights(const int8_t* wq, int N) {
+  return N % 4 == 0 && reinterpret_cast<uintptr_t>(wq) % 4 == 0;
+}
+
+}  // namespace
+
+// The host's plan (kernels/quantized.py::pointwise_int8_plan): `path` (0
+// GEMV, 1 one pass, 2 cooperative); Kp, K padded to a multiple of
+// s8::kKAlign (K itself for the GEMV); `tile` the output tiles' width
+// (kGemvCols, else s8::kBM); `blocks` the grid (the GEMV's column tiles x
+// splits, the one pass's tiles, the cooperative grid, at most what the
+// device holds resident); Kp in `splits` ranges of `chunk`, the last one
+// shorter. ws, ws_words 4-byte words (may be null where the plan needs
+// none): for the GEMV past one split, a counter per column tile from word 0
+// and the splits x P x N int32 partial sums from word `part`; for the
+// cooperative form, the grid barrier at word 0, then the P row scales at
+// `sx`, the (P, Kp) quantized rows at `aq`, the (N, Kp) transposed weights
+// at `bt` and, past one split, the partial sums at `part`. x must be
+// 16-byte aligned and K a multiple of 4 (the wrapper pads Cin).
+extern "C" int pointwise_int8_conv1x1_bn(const float* x, const int8_t* wq, const float* sw,
+                                         const float* scale, const float* bias, float* out,
+                                         float* ws, long long ws_words, long long sx,
+                                         long long aq, long long bt, long long part, int P,
+                                         int K, int N, int relu, int path, int Kp, int tile,
+                                         int blocks, int splits, int chunk, void* stream) {
+  const auto invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (P <= 0 || K <= 0 || N <= 0 || K % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
+      Kp < K || splits <= 0 || chunk <= 0 || blocks <= 0 ||
+      static_cast<long long>(chunk) * splits < Kp ||
+      static_cast<long long>(chunk) * (splits - 1) >= Kp)
+    return invalid;
+  const auto s = static_cast<cudaStream_t>(stream);
+  Args a{x, wq, sw, scale, bias, out, nullptr, nullptr, nullptr, nullptr, nullptr,
+         P, K, N, relu, Kp, splits, chunk};
+  const int tiles_mma = (P + s8::kBM - 1) / s8::kBM * ((N + s8::kBN - 1) / s8::kBN);
+  const bool vec = vec_weights(wq, N);
+  cudaError_t e = cudaSuccess;
+  if (path == kGemv) {
+    const int tiles = (N + kGemvCols - 1) / kGemvCols;
+    if (P > kGemvMaxP || tile != kGemvCols || Kp != K || blocks != tiles * splits ||
+        (splits > 1 && (chunk % kGemvStep != 0 || part < tiles || part % 4 != 0 ||
+                        ws_words < part + static_cast<long long>(splits) * P * N)))
+      return invalid;
+    if (splits > 1) {
+      a.bar = reinterpret_cast<unsigned int*>(ws);
+      a.part = reinterpret_cast<int*>(ws + part);
+      e = cudaMemsetAsync(a.bar, 0, sizeof(unsigned int) * tiles, s);
+      if (e != cudaSuccess) return static_cast<int>(e);
+    }
+    const dim3 grid(tiles, splits);
+    if (vec)
+      pointwise_int8_gemv<true><<<grid, kGemvThreads, 0, s>>>(a);
+    else
+      pointwise_int8_gemv<false><<<grid, kGemvThreads, 0, s>>>(a);
+  } else if (path == kOnePass) {
+    if (tile != s8::kBM || Kp % s8::kKAlign != 0 || Kp > kOnePassMaxK || splits != 1 ||
+        blocks != tiles_mma)
+      return invalid;
+    if (vec)
+      pointwise_int8_one_pass<true><<<blocks, s8::kThreads, 0, s>>>(a);
+    else
+      pointwise_int8_one_pass<false><<<blocks, s8::kThreads, 0, s>>>(a);
+  } else if (path == kCooperative) {
+    if (tile != s8::kBM || Kp % s8::kKAlign != 0 || (splits > 1 && chunk % kSplitStep != 0) ||
+        sx < 2 || aq < sx + P || bt < aq + static_cast<long long>(P) * Kp / 4 ||
+        part < bt + static_cast<long long>(N) * (Kp / 4) || aq % 4 != 0 || bt % 4 != 0 ||
+        part % 4 != 0 ||
+        ws_words < part + (splits > 1 ? static_cast<long long>(splits) * P * N : 0))
+      return invalid;
+    const int resident = resident_blocks();
+    if (resident <= 0 || blocks > resident)
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    a.bar = reinterpret_cast<unsigned int*>(ws);
+    a.sx = ws + sx;
+    a.aq = reinterpret_cast<int8_t*>(ws + aq);
+    a.bt = reinterpret_cast<int8_t*>(ws + bt);
+    a.part = reinterpret_cast<int*>(ws + part);
+    e = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    void* args[] = {&a};
+    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(pointwise_int8_cooperative),
+                                    dim3(blocks), dim3(s8::kThreads), args, 0, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  } else {
+    return invalid;
+  }
   return static_cast<int>(cudaGetLastError());
 }

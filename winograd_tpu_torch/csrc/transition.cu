@@ -16,24 +16,39 @@
 // the three transitions 56->28 (256->128->512), 28->14 (512->256->1024) and
 // 14->7 (1024->512->2048).
 //
-// Bound on the H100: ~0.75 GFLOP per transition at N=1 against 6.3 / 8.4 /
-// 25.3 MB (x, out and the weights read once); bound by the FP32 FFMA rate
-// (67 TFLOP/s), the last one nearly by its 25 MB of weights (7.6 us).
+// Bound on the H100: ~0.75 GFLOP per transition at N=1 (5.96 GFLOP for
+// 14->7 at N=8), as three TF32 passes at 495 TFLOP/s, against x, out and the
+// weights read once (6.3 / 8.4 / 25.3 MB at N=1; 7.6 us for the last at
+// 3.35 TB/s): bytes at N=1, operations at N=8. At N=1 the phases are small
+// (8 to 98 output tiles), so filling the card, not the rate, is the work.
 //
-// Design: the persistent cooperative kernel of csrc/stage.cu with three
-// GEMM phases separated by grid barriers; h1 and h2 live in a device
-// workspace that fits the L2. The strided im2col tile and the projection operand
-// x[::2, ::2] are gathered by the A loaders of the 64 x 64 FFMA tile
-// (gemm.cuh) and never materialised. Phases with fewer tiles than the grid
-// has blocks split K and add the splits in a fixed order after a barrier.
+// Design: csrc/stage.cu's, a persistent cooperative kernel of at most
+// kMaxBlocksPerSm 128-thread blocks an SM whose three GEMM phases are
+// splitk_tf32.cuh's gemm_phase (64 x 64 3xTF32 mma.sync tiles on a 4-deep
+// cp.async ring, 72 KB of dynamic shared memory), separated by grid
+// barriers; h1 and h2 live in a device workspace that fits the L2. The A
+// operands are gathered by the tile's cp.async copies and never
+// materialised: the reduce reads x's rows (RowMajorA), the mid the strided
+// im2col of h1 (mma_tf32.cuh's Im2colA at stride 2), the expand the rows
+// of [h2 | x[:, ::2, ::2]] (ConcatSkipA). Where a phase has fewer tiles
+// than the grid has blocks, or an item would walk a long K, it splits K
+// and adds the splits in a fixed order behind a grid barrier, so the result
+// does not depend on timing. The grid and each phase's split are the
+// host's plan (kernels/transition.py::transition_plan); this entry checks
+// it against the geometry compiled here, works out the workspace from it
+// and refuses a plan that does not fit.
+
+#include <stdint.h>
 
 #include "common.cuh"
-#include "gemm.cuh"
-#include "grid_sync.cuh"
+#include "splitk_tf32.cuh"
 
 namespace {
 
-constexpr size_t kSmemBytes = sizeof(float) * wt::kGemmSmemFloats;
+namespace tc = wt::tf32x3;
+namespace sk = wt::splitk;
+
+constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
 
 struct TransitionArgs {
   const float* x;
@@ -54,19 +69,23 @@ struct TransitionArgs {
   wt::GemmPhase reduce, mid, expand;
 };
 
-// [h2 | x[:, ::2, ::2]] at output rows p = (n, oy, ox): k < Cmid reads h2,
-// the rest the block input at (2 oy, 2 ox).
+// [h2 | x[:, ::2, ::2]] as an A source of mma_tf32.cuh: at output row
+// p = (n, oy, ox), k < Cmid is h2's value, the rest the block input's at
+// (2 oy, 2 ox). Cmid and Cin are multiples of 4 on the 16-byte path, so a
+// copy of four k never straddles the two.
 struct ConcatSkipA {
   const float* h2;
   const float* __restrict__ x;
-  int H, W, Cin, Cmid, Ho, Wo;
-  __device__ __forceinline__ float operator()(int p, int k) const {
-    if (k < Cmid) return __ldcg(h2 + static_cast<size_t>(p) * Cmid + k);
+  int H, W, Cin, Cmid, Ho, Wo, P;
+  __device__ __forceinline__ const float* base() const { return h2; }
+  __device__ __forceinline__ const float* at(int p, int k) const {
+    if (p >= P) return nullptr;
+    if (k < Cmid) return h2 + static_cast<size_t>(p) * Cmid + k;
     const int hwo = Ho * Wo;
     const int n = p / hwo;
     const int q = p - n * hwo;
-    return x[(static_cast<size_t>(n * H + 2 * (q / Wo)) * W + 2 * (q % Wo)) * Cin +
-             (k - Cmid)];
+    return x + (static_cast<size_t>(n * H + 2 * (q / Wo)) * W + 2 * (q % Wo)) * Cin +
+           (k - Cmid);
   }
 };
 
@@ -79,44 +98,73 @@ struct BiasReluEpilogue {
   }
 };
 
-__global__ void __launch_bounds__(wt::kGemmThreads) transition_kernel(TransitionArgs a) {
+// kVec: Cin, Cmid and Cout multiples of 4, every operand 16-byte aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm)
+    transition_kernel(TransitionArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int ho = (a.H + 1) / 2, wo = (a.W + 1) / 2;
-  wt::gemm_phase(a.reduce, wt::RowsCg{a.x, a.Cin}, a.wr,
-                 wt::BnEpilogue{a.s1, a.b1, a.h1, a.Cmid, 1}, a.part, a.bar, smem);
+  const int P1 = a.N * a.H * a.W, P2 = a.N * ho * wo;
+  sk::gemm_phase<kVec, true>(a.reduce, tc::RowMajorA{a.x, P1, a.Cin}, a.wr,
+                             wt::BnEpilogue{a.s1, a.b1, a.h1, a.Cmid, 1}, a.part, a.bar, smem);
   wt::grid_sync(a.bar);
-  wt::gemm_phase(a.mid, wt::Im2colS2Cg{a.h1, a.H, a.W, a.Cmid, ho, wo}, a.w9,
-                 wt::BnEpilogue{a.s2, a.b2, a.h2, a.Cmid, 1}, a.part, a.bar, smem);
+  sk::gemm_phase<kVec, true>(a.mid, tc::Im2colA<2>{a.h1, a.H, a.W, a.Cmid, P2}, a.w9,
+                             wt::BnEpilogue{a.s2, a.b2, a.h2, a.Cmid, 1}, a.part, a.bar, smem);
   wt::grid_sync(a.bar);
-  wt::gemm_phase(a.expand, ConcatSkipA{a.h2, a.x, a.H, a.W, a.Cin, a.Cmid, ho, wo},
-                 a.wep, BiasReluEpilogue{a.bep, a.out, a.Cout}, a.part, a.bar, smem);
+  sk::gemm_phase<kVec, true>(a.expand,
+                             ConcatSkipA{a.h2, a.x, a.H, a.W, a.Cin, a.Cmid, ho, wo, P2}, a.wep,
+                             BiasReluEpilogue{a.bep, a.out, a.Cout}, a.part, a.bar, smem);
 }
 
-int grid_size() {
-  static int cache[64] = {0};
+template <bool kVec>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(&transition_kernel<kVec>);
+}
+
+// Blocks of the instantiation that the current device holds resident at
+// once, at most kMaxBlocksPerSm an SM (the dynamic shared memory limit
+// raised once per device); 0 on error.
+int resident_blocks(bool vec) {
+  static int cache[64][2] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cache[dev] == 0)
-    cache[dev] = cooperative_grid(reinterpret_cast<const void*>(transition_kernel), kSmemBytes);
-  return cache[dev];
+  if (cache[dev][vec] == 0) {
+    const void* kernel = vec ? kernel_of<true>() : kernel_of<false>();
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(tc::kSmemBytes)) != cudaSuccess)
+      return 0;
+    cache[dev][vec] = cooperative_grid(kernel, tc::kSmemBytes, tc::kThreads, kMaxBlocksPerSm);
+  }
+  return cache[dev][vec];
+}
+
+// One phase of the host's plan: K in `splits` ranges of `chunk`, the last
+// one shorter, chunk a multiple of the tile's k step when splits > 1.
+bool phase_fits(const wt::GemmPhase& g) {
+  return g.P > 0 && g.K > 0 && g.N > 0 && g.splits > 0 && g.chunk > 0 &&
+         static_cast<long long>(g.chunk) * g.splits >= g.K &&
+         static_cast<long long>(g.chunk) * (g.splits - 1) < g.K &&
+         (g.splits == 1 || g.chunk % sk::kSplitStep == 0);
 }
 
 struct Plan {
-  int grid;
   wt::GemmPhase reduce, mid, expand;
   size_t h1, h2, part, total;  // workspace offsets and size, in floats
 };
 
-int make_plan(int N, int H, int W, int Cin, int Cmid, int Cout, Plan* pl) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cmid <= 0 || Cout <= 0)
+// The plan's phases and the workspace's layout: the grid barrier's two
+// counters, h1, h2, then the largest phase's partial sums.
+int make_plan(int N, int H, int W, int Cin, int Cmid, int Cout, int blocks, int rs, int rc,
+              int ms, int mc, int es, int ec, Plan* pl) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cmid <= 0 || Cout <= 0 || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  pl->grid = grid_size();
-  if (pl->grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int P1 = N * H * W;
   const int P2 = N * ((H + 1) / 2) * ((W + 1) / 2);
-  pl->reduce = plan_phase(P1, Cin, Cmid, pl->grid);
-  pl->mid = plan_phase(P2, 9 * Cmid, Cmid, pl->grid);
-  pl->expand = plan_phase(P2, Cmid + Cin, Cout, pl->grid);
+  pl->reduce = wt::GemmPhase{P1, Cin, Cmid, rs, rc};
+  pl->mid = wt::GemmPhase{P2, 9 * Cmid, Cmid, ms, mc};
+  pl->expand = wt::GemmPhase{P2, Cmid + Cin, Cout, es, ec};
+  if (!phase_fits(pl->reduce) || !phase_fits(pl->mid) || !phase_fits(pl->expand))
+    return static_cast<int>(cudaErrorInvalidValue);
   size_t part = phase_partial_floats(pl->reduce);
   if (phase_partial_floats(pl->mid) > part) part = phase_partial_floats(pl->mid);
   if (phase_partial_floats(pl->expand) > part) part = phase_partial_floats(pl->expand);
@@ -127,29 +175,41 @@ int make_plan(int N, int H, int W, int Cin, int Cmid, int Cout, Plan* pl) {
   return 0;
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-// Floats of workspace transition_block needs for this shape on the current
-// device (into *floats); returns a CUDA error code.
-extern "C" int transition_block_workspace(int N, int H, int W, int Cin, int Cmid,
-                                          int Cout, long long* floats) {
+// Floats of workspace transition_block needs for this shape under the plan
+// (blocks, then (splits, chunk) of the reduce, the mid and the expand), into
+// *floats; returns a CUDA error code.
+extern "C" int transition_block_workspace(int N, int H, int W, int Cin, int Cmid, int Cout,
+                                          int blocks, int rs, int rc, int ms, int mc, int es,
+                                          int ec, long long* floats) {
   Plan pl;
-  const int err = make_plan(N, H, W, Cin, Cmid, Cout, &pl);
+  const int err = make_plan(N, H, W, Cin, Cmid, Cout, blocks, rs, rc, ms, mc, es, ec, &pl);
   if (err == 0) *floats = static_cast<long long>(pl.total);
   return err;
 }
 
+// The host's plan (kernels/transition.py::transition_plan): a cooperative
+// grid of `blocks` blocks, at most as many as the device holds resident
+// (kMaxBlocksPerSm an SM), and each phase's K split; ws: ws_floats floats
+// laid out as transition_block_workspace says.
 extern "C" int transition_block(const float* x, const float* wr, const float* s1,
                                 const float* b1, const float* w9, const float* s2,
-                                const float* b2, const float* wep,
-                                const float* bep, float* out, float* ws,
-                                long long ws_floats, int N, int H, int W,
-                                int Cin, int Cmid, int Cout, void* stream) {
+                                const float* b2, const float* wep, const float* bep, float* out,
+                                float* ws, long long ws_floats, int N, int H, int W, int Cin,
+                                int Cmid, int Cout, int blocks, int rs, int rc, int ms, int mc,
+                                int es, int ec, void* stream) {
   Plan pl;
-  const int err = make_plan(N, H, W, Cin, Cmid, Cout, &pl);
+  const int err = make_plan(N, H, W, Cin, Cmid, Cout, blocks, rs, rc, ms, mc, es, ec, &pl);
   if (err != 0) return err;
   if (ws_floats < static_cast<long long>(pl.total))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = Cin % 4 == 0 && Cmid % 4 == 0 && Cout % 4 == 0 && aligned16(x) &&
+                   aligned16(wr) && aligned16(w9) && aligned16(wep) && aligned16(ws);
+  const int resident = resident_blocks(vec);
+  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto s = static_cast<cudaStream_t>(stream);
   unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
   cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
@@ -158,9 +218,8 @@ extern "C" int transition_block(const float* x, const float* wr, const float* s1
                    ws + pl.h1, ws + pl.h2, ws + pl.part, bar,
                    N,  H,  W,  Cin, Cmid, Cout, pl.reduce, pl.mid, pl.expand};
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(transition_kernel),
-                                  dim3(pl.grid), dim3(wt::kGemmThreads), args,
-                                  kSmemBytes, s);
+  e = cudaLaunchCooperativeKernel(vec ? kernel_of<true>() : kernel_of<false>(), dim3(blocks),
+                                  dim3(tc::kThreads), args, tc::kSmemBytes, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,10 @@ included) for a 3x3.
 Kernels (CUDA C++ for sm_90a, csrc/*_int8.cu on csrc/gemm_int8.cuh's
 arithmetic; every one takes any channel count, see pad_to):
 
-* conv1x1_bn_int8 -> csrc/pointwise_int8.cu (_quant_matmul_kernel);
+* conv1x1_bn_int8 -> csrc/pointwise_int8.cu (_quant_matmul_kernel): a
+  GEMV at a few rows, else the product on the int8 tensor cores, rows
+  quantized in one pass a block (short K) or once by a cooperative grid
+  with K split (longer K), the path and split by pointwise_int8_plan;
 * conv3x3_bn_int8 -> csrc/direct_int8.cu (_direct_int8_kernel and its
   row-banded twin) on csrc/mma_int8.cuh: rows quantized once, the product
   on the int8 tensor cores with K split by direct_int8_plan;
@@ -54,6 +57,7 @@ import torch.nn.functional as F
 
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.direct import im2col3x3
+from winograd_tpu_torch.kernels.pointwise import COUNTER_WORDS
 from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, split_k
 from winograd_tpu_torch.kernels.stage import WINOGRAD_MIN_PIXELS
 from winograd_tpu_torch.kernels.transition import strided_im2col
@@ -321,6 +325,18 @@ class DirectInt8Workspace(NamedTuple):
     words: int
 
 
+def _mma_int8_workspace(p: int, kp: int, cout: int, splits: int) -> DirectInt8Workspace:
+    """The layout of a cooperative launch on csrc/mma_int8.cuh: the grid
+    barrier, p row scales, the (p, kp) quantized rows, the (cout, kp)
+    transposed weights, and splits x p x cout int32 partial sums past one
+    split, each part at a multiple of WORKSPACE_ALIGN."""
+    sx = WORKSPACE_ALIGN
+    aq = sx + _round_up(p, WORKSPACE_ALIGN)
+    bt = aq + _round_up(p * kp // 4, WORKSPACE_ALIGN)
+    part = bt + _round_up(cout * kp // 4, WORKSPACE_ALIGN)
+    return DirectInt8Workspace(sx, aq, bt, part, part + (splits * p * cout if splits > 1 else 0))
+
+
 class DirectInt8Plan(NamedTuple):
     """How csrc/direct_int8.cu runs one conv: the padded K, the output
     tiles, the cooperative grid's blocks and the K split."""
@@ -332,15 +348,7 @@ class DirectInt8Plan(NamedTuple):
     chunk: int
 
     def workspace(self, p: int, cout: int) -> DirectInt8Workspace:
-        """The grid barrier, p row scales, the (p, kp) quantized rows, the
-        (cout, kp) transposed weights, and splits x p x cout int32 partial
-        sums past one split, each part at a multiple of WORKSPACE_ALIGN."""
-        sx = WORKSPACE_ALIGN
-        aq = sx + _round_up(p, WORKSPACE_ALIGN)
-        bt = aq + _round_up(p * self.kp // 4, WORKSPACE_ALIGN)
-        part = bt + _round_up(cout * self.kp // 4, WORKSPACE_ALIGN)
-        return DirectInt8Workspace(
-            sx, aq, bt, part, part + (self.splits * p * cout if self.splits > 1 else 0))
+        return _mma_int8_workspace(p, self.kp, cout, self.splits)
 
     def workspace_words(self, p: int, cout: int) -> int:
         return self.workspace(p, cout).words
@@ -411,6 +419,84 @@ def transition_int8_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int,
     return TransitionInt8Plan(
         kpr, kpm, kpe, blocks, split(kpr, blocks // tiles(p1, cmid)),
         split(kpm, blocks // tiles(p2, cmid)), expand, split(kpr, slots - expand.splits))
+
+
+# The plan of a csrc/pointwise_int8.cu launch. The kernel's geometry, which
+# its C entry checks every plan against (tests/test_torch_splitk.py reads
+# it from the sources): rows at or below POINTWISE_INT8_GEMV_MAX_ROWS may
+# take the GEMV (blocks of POINTWISE_INT8_GEMV_COLS columns, splits in
+# multiples of POINTWISE_INT8_GEMV_STEP); a padded K of at most
+# POINTWISE_INT8_ONE_PASS_MAX_K may take the one-pass form (one block a
+# 64 x 64 tile); any shape the cooperative form, on the direct_int8 plan's
+# geometry. The plan's own rule: the GEMV at P <= 8, its K split until its
+# column tiles x splits reach about one block an SM, in ranges at least
+# POINTWISE_INT8_GEMV_MIN_CHUNK long; else the one-pass form where the
+# padded K fits it, and the cooperative form for longer K, split as
+# direct_int8_plan splits (the routes were timed against each other at the
+# served shapes by tools/chip_split_sweep.py, PERF.md).
+POINTWISE_INT8_GEMV_MAX_ROWS = 8
+POINTWISE_INT8_GEMV_COLS = 128
+POINTWISE_INT8_GEMV_STEP = 32
+POINTWISE_INT8_GEMV_MIN_CHUNK = 64
+POINTWISE_INT8_ONE_PASS_MAX_K = 256
+POINTWISE_INT8_PATHS = ("gemv", "one_pass", "cooperative")  # the C entry's numbering
+
+
+class PointwiseInt8Plan(NamedTuple):
+    """How csrc/pointwise_int8.cu runs one (P, K) x (K, N) product: the
+    path, the padded K (K itself for the GEMV), the output tiles' width and
+    count, the grid's blocks and the K split."""
+
+    path: str
+    kp: int
+    tile: int
+    tiles: int
+    blocks: int
+    splits: int
+    chunk: int
+
+    def workspace(self, p: int, n: int) -> DirectInt8Workspace:
+        """The cooperative form's layout (_mma_int8_workspace); for the GEMV
+        past one split, its column tiles' counters from word 0 (room rounded
+        up to COUNTER_WORDS) and the int32 partial sums at `part`; nothing
+        else."""
+        if self.path == "cooperative":
+            return _mma_int8_workspace(p, self.kp, n, self.splits)
+        if self.path == "gemv" and self.splits > 1:
+            part = _round_up(self.tiles, COUNTER_WORDS)
+            return DirectInt8Workspace(0, 0, 0, part, part + self.splits * p * n)
+        return DirectInt8Workspace(0, 0, 0, 0, 0)
+
+    def args(self) -> tuple:
+        """The plan as the C entry takes it: path, Kp, tile, blocks, splits,
+        chunk."""
+        return (POINTWISE_INT8_PATHS.index(self.path), self.kp, self.tile, self.blocks,
+                self.splits, self.chunk)
+
+
+def pointwise_int8_plan(p: int, k: int, n: int, sms: int = H100_SMS,
+                        path: str | None = None) -> PointwiseInt8Plan:
+    """The path, grid and K split of a (p, k) x (k, n) int8 product (k a
+    multiple of 4) on a card with `sms` SMs; `path` forces a path that
+    takes the shape (tools/chip_split_sweep.py times the others)."""
+    kp = _round_up(k, DIRECT_INT8_K_ALIGN)
+    if path is None:
+        path = ("gemv" if p <= POINTWISE_INT8_GEMV_MAX_ROWS
+                else "one_pass" if kp <= POINTWISE_INT8_ONE_PASS_MAX_K else "cooperative")
+    if (path not in POINTWISE_INT8_PATHS or path == "gemv" and p > POINTWISE_INT8_GEMV_MAX_ROWS
+            or path == "one_pass" and kp > POINTWISE_INT8_ONE_PASS_MAX_K):
+        raise ValueError(f"path {path!r} does not take a ({p}, {k}) x ({k}, {n}) product")
+    if path == "gemv":
+        tiles = -(-n // POINTWISE_INT8_GEMV_COLS)
+        split = split_k(k, sms // tiles, POINTWISE_INT8_GEMV_STEP, POINTWISE_INT8_GEMV_MIN_CHUNK)
+        return PointwiseInt8Plan(path, k, POINTWISE_INT8_GEMV_COLS, tiles, tiles * split.splits,
+                                 split.splits, split.chunk)
+    tiles = -(-p // DIRECT_INT8_TILE) * -(-n // DIRECT_INT8_TILE)
+    if path == "one_pass":
+        return PointwiseInt8Plan(path, kp, DIRECT_INT8_TILE, tiles, tiles, 1, kp)
+    blocks = DIRECT_INT8_BLOCKS_PER_SM * sms
+    split = split_k(kp, blocks // tiles, DIRECT_INT8_STEP, DIRECT_INT8_MIN_CHUNK)
+    return PointwiseInt8Plan(path, kp, DIRECT_INT8_TILE, tiles, blocks, split.splits, split.chunk)
 
 
 # The int8 kernels pack four k to a 32-bit word and take channel counts that
@@ -512,12 +598,28 @@ def conv1x1_bn_int8(x, w_q, s_w, scale, bias, relu: bool) -> torch.Tensor:
     _check_shapes([("s_w", s_w, (cout,))])
     _build.check_tensors(w_q, dtype=torch.int8, device=x.device)
     p = x.numel() // cin
+    return conv1x1_bn_int8_planned(x, w_q, s_w, scale, bias, relu,
+                                   pointwise_int8_plan(p, cin, cout, _build.sm_count(x.device)))
+
+
+def conv1x1_bn_int8_planned(x, w_q, s_w, scale, bias, relu: bool,
+                            plan: PointwiseInt8Plan) -> torch.Tensor:
+    """conv1x1_bn_int8's launch on CUDA tensors under an explicit plan (the
+    wrapper passes pointwise_int8_plan's; tools/chip_split_sweep.py times
+    others). Cin a multiple of 4; operands as conv1x1_bn_int8 checks them."""
+    cin, cout = w_q.shape
+    p = x.numel() // cin
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads rows as float4s
+    at = plan.workspace(p, cout)
+    ws = torch.empty(at.words, device=x.device, dtype=torch.float32) if at.words else None
     out = torch.empty(*x.shape[:-1], cout, device=x.device, dtype=torch.float32)
-    ptr, c = _build.ptr, _build.cint
+    ptr, c, ll = _build.ptr, _build.cint, ctypes.c_longlong
     _build.launch(
         "pointwise_int8", "pointwise_int8_conv1x1_bn", (p, cin, cout, bool(relu)), x.device,
         ptr(x), ptr(w_q), ptr(s_w), ptr(scale), ptr(bias), ptr(out),
-        c(p), c(cin), c(cout), c(relu),
+        ptr(ws) if ws is not None else ctypes.c_void_p(0), ll(at.words), ll(at.sx), ll(at.aq),
+        ll(at.bt), ll(at.part), c(p), c(cin), c(cout), c(relu), *map(c, plan.args()),
     )
     return out
 

@@ -2,23 +2,25 @@
 
 Port of winograd_tpu/kernels/transition.py::transition_block_fused_pallas
 (both its kernels, _transition_kernel and _transition_kernel_resident). The
-CUDA kernel is csrc/transition.cu: reduce GEMM, stride-2 3x3 through a
-strided im2col gathered in shared memory, and one GEMM over the combined
-[h2 | x[::2, ::2]] rows with the expand and projection weights fused
-offline; the plain twin runs the same three products in PyTorch.
+CUDA kernel is csrc/transition.cu: a cooperative launch of three 3xTF32
+tensor-core GEMM phases (reduce, the stride-2 3x3 on an implicit strided
+im2col, and one GEMM over the combined [h2 | x[::2, ::2]] rows with the
+expand and projection weights fused offline), each phase's K split by
+transition_plan; the plain twin runs the same three products in PyTorch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict
+from typing import Dict, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn_plain
+from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, split_k
 
 
 def fuse_transition_weights(params: Dict):
@@ -63,14 +65,70 @@ def transition_block_fused_plain(x, params: Dict) -> torch.Tensor:
     return torch.relu(torch.matmul(h2xs, wep) + bep[0])
 
 
+# The plan of a csrc/transition.cu launch. The kernel's geometry, which its
+# C entry checks every plan against (tests/test_torch_splitk.py reads it
+# from the sources): TRANSITION_TILE x TRANSITION_TILE output tiles
+# (mma_tf32.cuh's kBM), splits in multiples of TRANSITION_STEP (its kBK), a
+# cooperative grid of at most TRANSITION_BLOCKS_PER_SM blocks an SM
+# (transition.cu's kMaxBlocksPerSm). The plan's own rule: each phase splits
+# K until tiles x splits reach about one item a block; a phase whose tiles
+# fill less than half the grid splits further, until no item walks more
+# than TRANSITION_MAX_WALK of K (a walk is latency bound); at most
+# TRANSITION_MAX_SPLITS ranges, each at least TRANSITION_MIN_CHUNK long.
+# tools/chip_split_sweep.py timed one phase's split at a time at the served
+# shapes (PERF.md): the walk cap pays where the tiles are few (the N=8 14->7
+# mid) and costs where they fill the grid (its reduce and expand), and 29
+# ranges beat 16 for the N=1 14->7 mid.
+TRANSITION_TILE = 64
+TRANSITION_STEP = 32
+TRANSITION_BLOCKS_PER_SM = 2
+TRANSITION_MAX_WALK = 512
+TRANSITION_MAX_SPLITS = 32
+TRANSITION_MIN_CHUNK = 128
+
+
+class TransitionPlan(NamedTuple):
+    """How csrc/transition.cu runs one transition: the cooperative grid's
+    blocks and the K split of its reduce (K = Cin), mid (9 * Cmid) and
+    expand (Cmid + Cin)."""
+
+    blocks: int
+    reduce: Split
+    mid: Split
+    expand: Split
+
+    def args(self) -> tuple:
+        """The plan as the C entry takes it: blocks, then (splits, chunk) of
+        the reduce, the mid and the expand."""
+        return (self.blocks,) + self.reduce + self.mid + self.expand
+
+
+def transition_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int,
+                    sms: int = H100_SMS) -> TransitionPlan:
+    """The grid and K splits of an (n, h, w, cin) -> cmid -> cout transition
+    on a card with `sms` SMs."""
+    p1, p2 = n * h * w, n * -(-h // 2) * -(-w // 2)
+    blocks = TRANSITION_BLOCKS_PER_SM * sms
+
+    def phase(p: int, k: int, cols: int) -> Split:
+        tiles = -(-p // TRANSITION_TILE) * -(-cols // TRANSITION_TILE)
+        want = blocks // tiles
+        if 2 * tiles < blocks:
+            want = max(want, -(-k // TRANSITION_MAX_WALK))
+        return split_k(k, min(want, TRANSITION_MAX_SPLITS), TRANSITION_STEP,
+                       TRANSITION_MIN_CHUNK)
+
+    return TransitionPlan(blocks, phase(p1, cin, cmid), phase(p2, 9 * cmid, cmid),
+                          phase(p2, cmid + cin, cout))
+
+
 @functools.lru_cache(maxsize=None)
-def _workspace_floats(device_index: int, n, h, w, cin, cmid, cout) -> int:
+def _workspace_floats(device_index: int, n, h, w, cin, cmid, cout, *plan) -> int:
     lib = _build.library("transition")
     floats = ctypes.c_longlong(0)
-    c = _build.cint
     with torch.cuda.device(device_index):
         err = lib.transition_block_workspace(
-            c(n), c(h), c(w), c(cin), c(cmid), c(cout), ctypes.byref(floats))
+            *map(_build.cint, (n, h, w, cin, cmid, cout) + plan), ctypes.byref(floats))
     _build.check_error(lib, "transition_block_workspace", err)
     return floats.value
 
@@ -103,15 +161,29 @@ def transition_block_fused(x, params: Dict, resident=None) -> torch.Tensor:
             raise ValueError(f"operand {tuple(t.shape)}, want {shape}")
     _build.check_operands(params["s_reduce"], params["b_reduce"], cmid, x, params["w_reduce"])
     _build.check_operands(params["s_mid"], params["b_mid"], cmid, x, params["w9_mid"], wep, bep)
-    floats = _workspace_floats(x.device.index, n, h, w, cin, cmid, cout)
+    out = transition_block_fused_planned(
+        x, params["w_reduce"], params["s_reduce"], params["b_reduce"], params["w9_mid"],
+        params["s_mid"], params["b_mid"], wep, bep,
+        transition_plan(n, h, w, cin, cmid, cout, _build.sm_count(x.device)))
+    return out[0] if squeeze else out
+
+
+def transition_block_fused_planned(x, wr, s1, b1, w9, s2, b2, wep, bep,
+                                   plan: TransitionPlan) -> torch.Tensor:
+    """transition_block_fused's launch on CUDA tensors under an explicit plan
+    (the wrapper passes transition_plan's; tools/chip_split_sweep.py times
+    others). x: (N, H, W, Cin); operands as transition_block_fused checks
+    them."""
+    n, h, w, cin = x.shape
+    cmid, cout = wr.shape[1], wep.shape[1]
+    floats = _workspace_floats(x.device.index, n, h, w, cin, cmid, cout, *plan.args())
     ws = torch.empty(floats, device=x.device, dtype=torch.float32)
     out = torch.empty(n, -(-h // 2), -(-w // 2), cout, device=x.device, dtype=torch.float32)
     p, c = _build.ptr, _build.cint
     _build.launch(
         "transition", "transition_block", (n, h, w, cin, cmid, cout), x.device,
-        p(x), p(params["w_reduce"]), p(params["s_reduce"]), p(params["b_reduce"]),
-        p(params["w9_mid"]), p(params["s_mid"]), p(params["b_mid"]), p(wep), p(bep),
+        p(x), p(wr), p(s1), p(b1), p(w9), p(s2), p(b2), p(wep), p(bep),
         p(out), p(ws), ctypes.c_longlong(floats),
-        c(n), c(h), c(w), c(cin), c(cmid), c(cout),
+        c(n), c(h), c(w), c(cin), c(cmid), c(cout), *map(c, plan.args()),
     )
-    return out[0] if squeeze else out
+    return out
