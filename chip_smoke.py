@@ -58,21 +58,21 @@ Phases, each of which must pass (exit 1 otherwise):
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
    14->7 transition at N=8; the stem at N=8 in both precisions; both basic
    stages at N=8 and at one block, the ResNet-18 run; the int8 Winograd at
-   N=8, 14x14x256; the pointwise head and conv5_x reduce at N=8; the int8
-   pointwise head at N=8; the f32 and int8 direct 3x3s at N=8, 7x7x512),
-   on seeded inputs. Bound: max
-   abs error <= 1e-4 * max(1, max|plain|); the int8 basic stage, whose
-   chained quantizations may flip a rounding on f32-level differences, and
-   the int8 Winograd, whose V is quantized, 1e-3 * max(1, max|plain|); the
-   int8 direct 3x3, stage and transition (their twins' arithmetic, exact
-   int32 sums) and the bf16 stem (exact FP64 sums of bf16 products) 0:
-   equal to their twins; so is the int8 pointwise (held to 0 since its
-   redesign on the tensor cores). One JSON line per shape: error; the K
-   split of the split-K kernels ("splits": pointwise, direct, direct_int8
-   and pointwise_int8, from their wrappers' plans, pointwise_int8 with its
-   plan's "route", GEMV, one_pass or cooperative; the f32 transition's
-   splits of its reduce, mid and expand; for the f32 Winograd its plan's
-   Cin splits);
+   N=8, 14x14x256 and 28x28x128; the pointwise head and conv5_x reduce
+   at N=8; the int8 pointwise head at N=8; the f32 and int8 direct 3x3s at
+   N=8, 7x7x512), on seeded inputs. Bound: max abs error <= 1e-4 *
+   max(1, max|plain|); the int8 direct 3x3, stage, transition, pointwise,
+   basic stage and Winograd (their twins' arithmetic, exact int32 sums,
+   the Winograd's transforms in FP64 rounded once) and the bf16 stem
+   (exact FP64 sums of bf16 products) 0: equal to their twins (the int8
+   basic stage and Winograd held to 0 since their redesign on the tensor
+   cores, 1e-3 before). One JSON line per shape:
+   error; the K split of the split-K kernels ("splits": pointwise, direct,
+   direct_int8, pointwise_int8 and basic_stage_int8, from their wrappers'
+   plans, pointwise_int8 with its plan's "route", GEMV, one_pass or
+   cooperative; the f32 transition's splits of its reduce, mid and expand;
+   for the f32 Winograd its plan's Cin splits); the int8 Winograd's plan
+   (its items' "tile_blocks" and "col_blocks", its grid's "blocks");
    device times of the kernel, its plain version and the library call (20
    calls captured in a CUDA graph, the median of 20 replays between CUDA
    events, divided by 20; inputs stay in L2 between calls); "wrapper_ms",
@@ -174,14 +174,12 @@ SOURCES = {
     "basic_stage_int8": ("winograd_tpu/kernels/basic_stage.py:202",
                          ["winograd_tpu/kernels/basic_stage.py:202 _basic_stage_int8_kernel"]),
 }
-# Chained int8 layers, and the int8 Winograd's quantized V: a rounding may
-# flip on f32-level differences.
-CHAINED = ("basic_stage_int8", "winograd_int8")
 # The twin's arithmetic (quantized once a row, exact int32 sums, epilogues
-# rounded as the twin rounds): the kernel equals its twin. So does the stem
-# at "bf16" (its shapes end in the precision): exact FP64 sums of bf16
-# products, rounded once.
-EXACT = ("direct_int8", "stage_int8", "transition_int8", "pointwise_int8")
+# rounded as the twin rounds, the int8 Winograd's transforms in FP64 rounded
+# once): the kernel equals its twin. So does the stem at "bf16" (its shapes
+# end in the precision): exact FP64 sums of bf16 products, rounded once.
+EXACT = ("direct_int8", "stage_int8", "transition_int8", "pointwise_int8", "basic_stage_int8",
+         "winograd_int8")
 
 
 def _rand(rng, *shape):
@@ -816,7 +814,7 @@ def main() -> int:
         "stem": [(8, 224, 224, 3, 64, "f32"), (8, 224, 224, 3, 64, "bf16")],
         "basic_stage": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "basic_stage_int8": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
-        "winograd_int8": [(8, 14, 14, 256, 256, True)],
+        "winograd_int8": [(8, 14, 14, 256, 256, True), (8, 28, 28, 128, 128, True)],
         "pointwise": [(8, 2048, 1000, False), (392, 2048, 512, True)],
         "pointwise_int8": [(8, 2048, 1000, False)],
         "direct_int8": [(8, 7, 7, 512, 512, False)],
@@ -838,9 +836,19 @@ def main() -> int:
         "winograd": winograd_cut,
         "pointwise_int8": lambda p, k, n, relu: q8.pointwise_int8_plan(p, k, n, sms).splits,
         "transition": lambda *shape: [s.splits for s in transition_plan(*shape, sms)[1:]],
+        "basic_stage_int8": lambda n, h, w, c, nb: bs.basic_stage_int8_plan(
+            n, h, w, c, sms).splits,
     }
-    routes_of = {
-        "pointwise_int8": lambda p, k, n, relu: q8.pointwise_int8_plan(p, k, n, sms).path,
+
+    def winograd_int8_cut(n, h, w, cin, cout, relu):
+        plan = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
+        return {"tile_blocks": plan.tile_blocks, "col_blocks": plan.col_blocks,
+                "blocks": plan.blocks}
+
+    plans_of = {
+        "pointwise_int8": lambda p, k, n, relu: {
+            "route": q8.pointwise_int8_plan(p, k, n, sms).path},
+        "winograd_int8": winograd_int8_cut,
     }
     all_launches = collections.Counter()
     per_image = collections.defaultdict(collections.Counter)
@@ -859,7 +867,7 @@ def main() -> int:
             n_img = counter.get(shape, 0)
             kern, plain, lib, work, nbytes = make_case[name](rng, *shape)
             exact = name in EXACT or name == "stem" and shape[-1] == "bf16"
-            rtol = 0.0 if exact else INT8_CHAINED_RTOL if name in CHAINED else ATOL
+            rtol = 0.0 if exact else ATOL
             got, ref = kern(), plain()
             torch.cuda.synchronize()
             err = (got - ref).abs().max().item()
@@ -877,8 +885,8 @@ def main() -> int:
             host_ms = wrapper_ms(kern)
             ops_ms, bytes_ms = bound(work, nbytes)
             splits = {"splits": splits_of[name](*shape)} if name in splits_of else {}
-            if name in routes_of:
-                splits["route"] = routes_of[name](*shape)
+            if name in plans_of:
+                splits.update(plans_of[name](*shape))
             print(json.dumps({
                 "kernel": name, "shape": shape, "per_image": n_img, **splits,
                 "max_abs_err": err, "tol": tol, "ms": ms, "wrapper_ms": host_ms, "plain_ms": plain_ms,

@@ -25,11 +25,13 @@ nvcc; skipped elsewhere. Run on the card with
 
 (--noconftest: the repo's conftest imports jax, which the port's machine
 need not have). Bound: 1e-4 * max(1, max|ref|) in float32, TF32 off; the
-int8 transition, basic stage and Winograd, whose quantizations may flip a
-rounding on f32-level differences, 1e-3 * max(1, max|ref|); the int8
-direct 3x3, stage and transition (the same arithmetic as their twins,
-exact int32 sums), the padded int8 entries and the bf16 stem (exact FP64
-sums), 0.
+int8 transition at odd maps, 1e-3 * max(1, max|ref|), the bound it met
+before its s8 mma.sync design; the int8 direct 3x3, stage, transition,
+basic stage and Winograd (the same arithmetic as their twins, exact int32
+sums, the Winograd's transforms in FP64 rounded once; the last two also at
+their served shapes, under their plans and another grid or split, and
+repeating to the bit), the padded int8 entries and the bf16 stem (exact
+FP64 sums), 0.
 """
 
 import numpy as np
@@ -490,26 +492,66 @@ def test_basic_stage_edges_and_batches(dev, n, hw, c, nb):
     _agree(bs.basic_stage_fused(x, stacked), bs.basic_stage_fused_plain(x, stacked))
 
 
-@pytest.mark.parametrize("n,hw,c,nb", BASIC_SHAPES)
-def test_basic_stage_int8_edges_and_batches(dev, n, hw, c, nb):
-    rng = np.random.default_rng(n * hw + c + nb + 1)
+def _basic_int8(rng, dev, n, hw, c, nb):
     q = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(_basic_blocks(rng, nb, c)).items()}
     x = _r(rng, dev, n, hw, hw, c).abs()
     if n > 1:
         x[0] = 0.0
-    _agree(bs.basic_stage_int8(x, q), bs.basic_stage_int8_plain(x, q), rtol=1e-3)
+    return x, q
+
+
+@pytest.mark.parametrize("n,hw,c,nb", BASIC_SHAPES)
+def test_basic_stage_int8_edges_and_batches(dev, n, hw, c, nb):
+    x, q = _basic_int8(np.random.default_rng(n * hw + c + nb + 1), dev, n, hw, c, nb)
+    _equal(bs.basic_stage_int8(x, q), bs.basic_stage_int8_plain(x, q))
+
+
+# The served int8 basic stage (N, H=W, C, blocks): ResNet-34's conv5_x run at
+# N=1 and N=8 and ResNet-18's one block, under the plan's split and unsplit:
+# equal to the twin, and two calls equal to the bit.
+@pytest.mark.parametrize("n,hw,c,nb", [(1, 7, 512, 2), (8, 7, 512, 2), (1, 7, 512, 1)])
+def test_basic_stage_int8_served_shapes(dev, n, hw, c, nb):
+    x, q = _basic_int8(np.random.default_rng(n + nb), dev, n, hw, c, nb)
+    ref = bs.basic_stage_int8_plain(x, q)
+    first = bs.basic_stage_int8(x, q)
+    _equal(first, ref)
+    assert torch.equal(first, bs.basic_stage_int8(x, q))
+    plan = bs.basic_stage_int8_plan(n, hw, hw, c, _build.sm_count(dev))
+    _equal(bs.basic_stage_int8_planned(x, q, plan._replace(splits=1, chunk=plan.kp)), ref)
+
+
+def test_basic_stage_int8_entry_refuses_a_plan_it_does_not_take(dev):
+    """csrc/basic_stage_int8.cu's entry refuses a grid larger than it holds
+    resident, a split off the s8 tile's stage and one that leaves K
+    uncovered."""
+    x, q = _basic_int8(np.random.default_rng(5), dev, 1, 7, 64, 1)
+    plan = bs.basic_stage_int8_plan(1, 7, 7, 64, _build.sm_count(dev))
+    assert plan.splits > 1
+    for bad in (plan._replace(blocks=4 * plan.blocks), plan._replace(chunk=plan.chunk + 32),
+                plan._replace(splits=1)):
+        with pytest.raises(RuntimeError):
+            bs.basic_stage_int8_planned(x, q, bad)
 
 
 # (N, H, W, Cin, Cout): one output tile over one group of Cin off 128, over
 # two 128-channel groups, the quantized V stash at 14x14x256 and at N=8,
-# odd maps, a Cout below one 64-channel block.
+# odd maps, a Cout below one column block, Cin 13 (read a channel at a
+# time); eight groups at Cin 1024, whose shared memory leaves one block an
+# SM.
 @pytest.mark.parametrize("n,h,w,cin,cout", [
     (3, 7, 7, 72, 96), (2, 9, 5, 256, 128), (1, 14, 14, 256, 256), (8, 14, 14, 256, 256),
-    (1, 28, 28, 128, 128), (3, 6, 5, 40, 20),
+    (1, 28, 28, 128, 128), (3, 6, 5, 40, 20), (2, 5, 7, 13, 36), (1, 7, 7, 1024, 64),
 ])
 @pytest.mark.parametrize("relu", [True, False])
 def test_winograd_int8_branches_and_edges(dev, n, h, w, cin, cout, relu):
     rng = np.random.default_rng(h * w + cin + cout + relu)
+    x, u_q, s_u, s, b = _winograd_int8(rng, dev, n, h, w, cin, cout)
+    _equal(q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, relu),
+           q8.conv3x3_bn_winograd_int8_plain(x, u_q, s_u, s, b, relu))
+
+
+def _winograd_int8(rng, dev, n, h, w, cin, cout):
+    """Seeded int8 Winograd operands; the first image all zero where N > 1."""
     x = _r(rng, dev, n, h, w, cin).abs()
     if n > 1:
         x[0] = 0.0
@@ -517,8 +559,39 @@ def test_winograd_int8_branches_and_edges(dev, n, h, w, cin, cout, relu):
     u_q, s_u = (torch.as_tensor(a, device=dev)
                 for a in q8.quantize_winograd_filter(transforms.transform_filter(wt, m=2)))
     s, b = _bn(rng, dev, cout)
-    _agree(q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, relu),
-           q8.conv3x3_bn_winograd_int8_plain(x, u_q, s_u, s, b, relu), rtol=1e-3)
+    return x, u_q, s_u, s, b
+
+
+# The served int8 Winograds (N, H, W, Cin, Cout): ResNet-34's 28x28x128 (one
+# output tile) and 14x14x256 (the stash) at N=1 and N=8, both legs (ReLU or
+# not), on the plan's grid and on one block an SM: equal to the twin, two
+# calls equal to the bit.
+@pytest.mark.parametrize("n,h,w,cin,cout", [(1, 28, 28, 128, 128), (1, 14, 14, 256, 256),
+                                            (8, 28, 28, 128, 128), (8, 14, 14, 256, 256)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_winograd_int8_served_shapes(dev, n, h, w, cin, cout, relu):
+    x, u_q, s_u, s, b = _winograd_int8(np.random.default_rng(h + cin + relu), dev, n, h, w,
+                                       cin, cout)
+    ref = q8.conv3x3_bn_winograd_int8_plain(x, u_q, s_u, s, b, relu)
+    first = q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, relu)
+    _equal(first, ref)
+    assert torch.equal(first, q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, relu))
+    sms = _build.sm_count(dev)
+    plan = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
+    one = plan._replace(blocks=min(plan.items(), sms))
+    _equal(q8.conv3x3_bn_winograd_int8_planned(x, u_q, s_u, s, b, relu, one), ref)
+
+
+def test_winograd_int8_entry_refuses_a_plan_it_does_not_take(dev):
+    """csrc/winograd_int8.cu's entry refuses a grid larger than it holds
+    resident and a padded Cin off the MMA's depth."""
+    n, h, w, cin, cout = 1, 14, 14, 64, 64
+    x, u_q, s_u, s, b = _winograd_int8(np.random.default_rng(6), dev, n, h, w, cin, cout)
+    plan = q8.winograd_int8_plan(n, h, w, cin, cout, _build.sm_count(dev))
+    for bad in (plan._replace(blocks=8 * _build.sm_count(dev)), plan._replace(kp=plan.kp + 32),
+                plan._replace(kp=plan.kp - 32)):
+        with pytest.raises(RuntimeError):
+            q8.conv3x3_bn_winograd_int8_planned(x, u_q, s_u, s, b, True, bad)
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", [(3, 7, 9, 13, 70), (1, 56, 56, 64, 64), (2, 6, 6, 20, 33)])

@@ -3,8 +3,11 @@ card needed): kernels/splitk.py::split_k, kernels/pointwise.py::split_plan
 (csrc/pointwise.cu), kernels/direct.py::direct_plan (csrc/direct.cu) and
 kernels/quantized.py::direct_int8_plan (csrc/direct_int8.cu),
 ::transition_int8_plan (csrc/transition_int8.cu) and ::pointwise_int8_plan
-(csrc/pointwise_int8.cu, which also picks its path), and
-kernels/transition.py::transition_plan (csrc/transition.cu). Every K index
+(csrc/pointwise_int8.cu, which also picks its path),
+kernels/transition.py::transition_plan (csrc/transition.cu) and
+kernels/basic_stage.py::basic_stage_int8_plan (csrc/basic_stage_int8.cu);
+and kernels/quantized.py::winograd_int8_plan (csrc/winograd_int8.cu: its
+work items and grid). Every K index
 lies in exactly one range, every range but the last is a multiple of the
 kernel's staging step, and tiles x splits reach about one wave of SMs
 where K allows, never more than the kernel's blocks in flight. The plans'
@@ -21,6 +24,7 @@ import pytest
 import torch
 
 from winograd_tpu_torch.kernels import _build
+from winograd_tpu_torch.kernels import basic_stage as bs
 from winograd_tpu_torch.kernels import direct as dr
 from winograd_tpu_torch.kernels import pointwise as pw
 from winograd_tpu_torch.kernels import quantized as q8
@@ -405,6 +409,99 @@ def test_transition_plan_follows_the_sm_count():
     assert small.reduce.splits < large.reduce.splits and small.expand.splits < large.expand.splits
 
 
+# The served int8 Winograds (N, H, W, Cin, Cout) and the cooperative form's
+# items: 16 positions x tile blocks of 16 x column blocks of 128; at N=1
+# every item has a block of the 264-block grid to itself.
+SERVED_WINOGRAD_INT8 = {
+    (1, 28, 28, 128, 128): 208, (1, 14, 14, 256, 256): 128, (8, 28, 28, 128, 128): 1568,
+    (8, 14, 14, 256, 256): 800,
+}
+
+
+@pytest.mark.parametrize("shape", sorted(SERVED_WINOGRAD_INT8))
+def test_winograd_int8_plan_fills_the_card(shape):
+    n, h, w, cin, cout = shape
+    plan = q8.winograd_int8_plan(*shape)
+    assert plan.items() == SERVED_WINOGRAD_INT8[shape]
+    assert plan.kp == cin and plan.tiles == n * -(-h // 2) * -(-w // 2)
+    wave = q8.WINO_INT8_BLOCKS_PER_SM * H100_SMS
+    assert plan.blocks == min(plan.items(), wave)
+    assert plan.args() == (plan.kp, q8.WINO_INT8_TILES, q8.WINO_INT8_COLS, plan.blocks)
+
+
+# Ragged Cin (not multiples of 32 or of 4) and Cout (below one column
+# block), odd maps, N=3; Cin of 256 at Cout 128 (two scale groups).
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 7, 7, 72, 96), (2, 9, 5, 256, 128),
+                                            (3, 6, 5, 40, 20), (3, 7, 9, 13, 70),
+                                            (1, 1, 1, 1, 1)])
+def test_winograd_int8_plan_covers_ragged_shapes(n, h, w, cin, cout):
+    tiles = n * -(-h // 2) * -(-w // 2)
+    plan = q8.winograd_int8_plan(n, h, w, cin, cout)
+    assert plan.tiles == tiles
+    assert plan.kp % q8.DIRECT_INT8_K_ALIGN == 0 and cin <= plan.kp < cin + 32
+    # every tile and output channel lies in one item's blocks
+    assert (plan.tile_blocks - 1) * q8.WINO_INT8_TILES < tiles <= (
+        plan.tile_blocks * q8.WINO_INT8_TILES)
+    assert (plan.col_blocks - 1) * q8.WINO_INT8_COLS < cout <= plan.col_blocks * q8.WINO_INT8_COLS
+    assert 1 <= plan.blocks == min(plan.items(), q8.WINO_INT8_BLOCKS_PER_SM * H100_SMS)
+    assert q8.wino_int8_groups(256, 128) == 2 and q8.wino_int8_groups(72, 96) == 1
+
+
+def test_winograd_int8_workspace_and_shared_memory():
+    """The workspace holds the grid barrier and M (16, T, Cout) in f32. A
+    block's shared memory (the C entry's Layout) decides its blocks an SM,
+    and a Cin past one block's shared memory is refused."""
+    plan = q8.winograd_int8_plan(8, 14, 14, 256, 256)
+    assert plan.workspace_words(256) == q8.WORKSPACE_ALIGN + 16 * 392 * 256
+    # V in f32, the quantized rows and columns (rows of Kp + 16 bytes), the
+    # scales, 16-byte aligned
+    rows = q8.WINO_INT8_TILES + q8.WINO_INT8_COLS
+    assert q8.winograd_int8_smem(256, 1) == 16 * 256 * 4 + rows * 272 + 64
+    assert q8.winograd_int8_smem(256, 2) == 16 * 256 * 4 + rows * 272 + 128
+    wide = q8.winograd_int8_plan(1, 14, 14, 1024, 256)       # one block an SM fits
+    assert wide.blocks == min(wide.items(), H100_SMS)
+    with pytest.raises(ValueError):
+        q8.winograd_int8_plan(1, 14, 14, 2048, 256)
+
+
+def test_winograd_int8_plan_follows_the_sm_count():
+    small, large = (q8.winograd_int8_plan(8, 28, 28, 128, 128, sms=sms) for sms in (66, H100_SMS))
+    assert small.blocks == 2 * 66 and large.blocks == 2 * H100_SMS
+    assert small.items() == large.items()
+    few = q8.winograd_int8_plan(1, 6, 6, 64, 64, sms=H100_SMS)
+    assert few.blocks == few.items() == 16 * 1 * 1                # never more blocks than items
+
+
+# The served int8 basic stages (N, H, W, C) and their K split on 132 SMs:
+# 4608-deep convs on 8 output tiles at N=1 split 24 ways, on 56 at N=8 4.
+SERVED_BASIC_STAGE_INT8 = {(1, 7, 7, 512): 24, (8, 7, 7, 512): 4}
+
+
+@pytest.mark.parametrize("shape", sorted(SERVED_BASIC_STAGE_INT8))
+def test_basic_stage_int8_plan_fills_the_card(shape):
+    n, h, w, c = shape
+    plan = bs.basic_stage_int8_plan(*shape)
+    assert plan.splits == SERVED_BASIC_STAGE_INT8[shape]
+    assert plan.kp == 9 * c and plan.tiles == -(-n * h * w // 64) * -(-c // 64)
+    _covers_once(plan, plan.kp, q8.DIRECT_INT8_STEP)
+    wave = q8.DIRECT_INT8_BLOCKS_PER_SM * H100_SMS
+    assert plan.blocks == wave
+    assert plan.tiles * plan.splits <= wave and 2 * plan.tiles * plan.splits >= wave
+
+
+@pytest.mark.parametrize("n,hw,c", [(3, 7, 40), (2, 5, 20), (8, 7, 36), (1, 9, 68), (1, 3, 4)])
+def test_basic_stage_int8_plan_covers_k_on_ragged_shapes(n, hw, c):
+    plan = bs.basic_stage_int8_plan(n, hw, hw, c)
+    assert plan.kp % q8.DIRECT_INT8_K_ALIGN == 0 and 9 * c <= plan.kp < 9 * c + 32
+    _covers_once(plan, plan.kp, q8.DIRECT_INT8_STEP)
+    assert plan.splits == 1 or plan.chunk >= q8.DIRECT_INT8_MIN_CHUNK
+
+
+def test_basic_stage_int8_plan_follows_the_sm_count():
+    small, large = (bs.basic_stage_int8_plan(1, 7, 7, 512, sms=sms) for sms in (66, H100_SMS))
+    assert small.blocks == large.blocks // 2 and small.splits < large.splits
+
+
 def _stub_launches(monkeypatch, sms):
     """Stand-ins for the card: meta tensors pass the operand checks, the
     device has `sms` SMs, and each launch and workspace query is recorded
@@ -459,6 +556,43 @@ def test_transition_wrapper_launches_the_plan(monkeypatch, sms, shape):
     assert ints == list(shape) + list(plan.args())
 
 
+@pytest.mark.parametrize("sms", [H100_SMS, 66])
+@pytest.mark.parametrize("shape", sorted(SERVED_WINOGRAD_INT8))
+def test_winograd_int8_wrapper_launches_the_plan(monkeypatch, sms, shape):
+    """conv3x3_bn_winograd_int8 hands csrc/winograd_int8.cu
+    winograd_int8_plan's padded Cin, item geometry and grid for the card's
+    SM count (its last four integers), after the stash flag and ReLU."""
+    n, h, w, cin, cout = shape
+    calls = _stub_launches(monkeypatch, sms)
+    e = lambda *shape: torch.empty(*shape, device="meta")  # noqa: E731
+    u_q = torch.empty(16, cin, cout, device="meta", dtype=torch.int8)
+    q8.conv3x3_bn_winograd_int8(e(n, h, w, cin), u_q, e(16, cout), e(cout), e(cout), True)
+    [(entry, ints)] = calls
+    assert entry == "winograd_int8_conv3x3_bn"
+    assert ints[:7] == [n, h, w, cin, cout, int(cout > 128), 1]
+    assert ints[7:] == list(q8.winograd_int8_plan(*shape, sms).args())
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 66])
+@pytest.mark.parametrize("shape", sorted(SERVED_BASIC_STAGE_INT8))
+def test_basic_stage_int8_wrapper_launches_the_plan(monkeypatch, sms, shape):
+    """basic_stage_int8 hands csrc/basic_stage_int8.cu basic_stage_int8_plan's
+    grid and split, in the workspace query and in the launch alike."""
+    n, h, w, c = shape
+    calls = _stub_launches(monkeypatch, sms)
+    monkeypatch.setattr(bs, "_workspace_words", lambda name, entry, index, *dims: calls.append(
+        (f"{entry}_workspace", list(dims))) or 1)
+    e = lambda *shape: torch.empty(*shape, device="meta")  # noqa: E731
+    q = {k: e(2, 1, c) for k in bs.QSTACK_KEYS}
+    q["w9_a_q"] = q["w9_b_q"] = torch.empty(2, 9 * c, c, device="meta", dtype=torch.int8)
+    bs.basic_stage_int8(e(n, h, w, c), q)
+    plan = bs.basic_stage_int8_plan(*shape, sms)
+    [(query, q_ints), (entry, ints)] = calls
+    assert (query, entry) == ("basic_stage_int8_workspace", "basic_stage_int8")
+    assert q_ints == [n, h, w, c, 2, plan.blocks, plan.splits, plan.chunk]
+    assert ints == q_ints
+
+
 CSRC = pathlib.Path(q8.__file__).resolve().parent.parent / "csrc"
 
 
@@ -488,6 +622,11 @@ def _constexpr(source: str, name: str) -> int:
     (tr.TRANSITION_TILE, "mma_tf32.cuh", "kBN"),
     (tr.TRANSITION_STEP, "mma_tf32.cuh", "kBK"),
     (tr.TRANSITION_BLOCKS_PER_SM, "transition.cu", "kMaxBlocksPerSm"),
+    (q8.WINO_INT8_TILES, "winograd_int8.cu", "kTiles"),
+    (q8.WINO_INT8_COLS, "winograd_int8.cu", "kCols"),
+    (q8.WINO_INT8_BLOCKS_PER_SM, "winograd_int8.cu", "kBlocksPerSm"),
+    (q8.WINO_INT8_PAD, "winograd_int8.cu", "kPad"),
+    (q8.DIRECT_INT8_BLOCKS_PER_SM, "basic_stage_int8.cu", "kBlocksPerSm"),
 ])
 def test_plans_match_the_kernels_geometry(value, source, name):
     assert value == _constexpr(source, name)
@@ -521,3 +660,26 @@ def test_transition_entry_runs_the_tf32_phases():
     assert src.count("sk::gemm_phase<kVec, true>(") == 3
     assert "__launch_bounds__(tc::kThreads, kMaxBlocksPerSm)" in src
     assert "tc::Im2colA<2>{" in src
+
+
+def test_winograd_int8_runs_on_the_s8_tensor_cores():
+    """The int8 Winograd multiplies on s8 mma.sync (mma_int8.cuh's
+    fragments), with no __dp4a left, and runs the inverse after one grid
+    barrier of its one cooperative launch."""
+    src = (CSRC / "winograd_int8.cu").read_text()
+    assert '#include "mma_int8.cuh"' in src and "__dp4a" not in src
+    assert "s8::mma(" in src and "s8::frag_a(" in src and "s8::frag_b(" in src
+    assert src.count("wt::grid_sync(") == 1 and "cudaLaunchCooperativeKernel" in src
+
+
+def test_basic_stage_int8_runs_the_mma_int8_phases():
+    """The int8 basic stage runs mma_int8.cuh's quantize, transpose and GEMM
+    phases, its split on the s8 tile's stage; gemm_int8.cuh's __dp4a tile
+    has no user left and is gone."""
+    src = (CSRC / "basic_stage_int8.cu").read_text()
+    assert src.count("s8::quantize_rows_phase(") == 2 and src.count("s8::gemm_phase(") == 2
+    assert "s8::Transpose{" in src and "constexpr int kSplitStep = s8::kBK;" in src
+    gemm = (CSRC / "gemm_int8.cuh").read_text()
+    assert "__dp4a" not in gemm
+    for gone in ("row_scales_phase", "int8_tile", "int8_gemm_phase", "kInt8SmemBytes", "kBK8"):
+        assert not any(gone in f.read_text() for f in CSRC.glob("*.c*"))

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct.cu,
-csrc/direct_int8.cu, csrc/transition_int8.cu, csrc/pointwise_int8.cu and
-csrc/transition.cu) and of the f32 Winograd's work-item cut
-(csrc/winograd.cu) on one CUDA card, and an A/B of their wrappers (and of
-the f32 and int8 stages', csrc/stage.cu and csrc/stage_int8.cu, and the
+csrc/direct_int8.cu, csrc/transition_int8.cu, csrc/pointwise_int8.cu,
+csrc/transition.cu and csrc/basic_stage_int8.cu), of the f32 Winograd's
+work-item cut (csrc/winograd.cu) and of the int8 Winograd's grid
+(csrc/winograd_int8.cu) on one CUDA card, and an A/B of their wrappers (and
+of the f32 and int8 stages', csrc/stage.cu and csrc/stage_int8.cu, and the
 stem's, csrc/stem.cu) against another checkout.
 
     python3 tools/chip_split_sweep.py [--only NAME,...]    # the sweep
@@ -15,8 +16,8 @@ chip_smoke.py at N=1 and N=8, and the f32 Winograd's F(4,3) check shape).
 Every timed call is first held against its plain twin (pointwise, direct,
 winograd, stage, stem and transition within 1e-4 * max(1, max|plain|),
 transition_int8 within 1e-3 * max(1, max|plain|), the bound its kernels
-before the s8 mma.sync design met, direct_int8, stage_int8 and
-pointwise_int8 exactly). Device ms per
+before the s8 mma.sync design met, direct_int8, stage_int8, pointwise_int8,
+basic_stage_int8 and winograd_int8 exactly). Device ms per
 call: 20 calls in one CUDA graph, the median of 20 replays between CUDA
 events, inputs in L2. The card's name and power limit
 come first, then one JSON line per shape and candidate.
@@ -33,22 +34,26 @@ and under plans that change one phase's split (reduce, mid or expand) for
 1, 2, 4, ..., 32 wanted ranges; the int8 pointwise under its plan and on
 every other path that takes the shape (GEMV at P <= 8, one pass at a
 padded K <= 256, cooperative), the GEMV's and the cooperative form's K
-split for 1, 2, 4, ..., 32 wanted ranges.
+split for 1, 2, 4, ..., 32 wanted ranges; the int8 basic stage under its
+plan and under the K splits split_k gives for 1, 2, 4, ..., 64 wanted
+ranges (both convs share one split); the int8 Winograd under its plan and
+on a grid of one block an SM.
 
 --ab DIR times the public wrappers (kernels/pointwise.py::conv1x1_bn,
 kernels/direct.py::conv3x3_bn_direct, kernels/winograd.py::
 conv3x3_bn_winograd, kernels/stage.py::resnet_stage_fused,
 kernels/stem.py::stem_fused, kernels/transition.py::transition_block_fused,
 kernels/quantized.py::conv3x3_bn_int8, ::resnet_stage_int8,
-::transition_block_int8 and ::conv1x1_bn_int8) of the checkout DIR (for example an
+::transition_block_int8, ::conv1x1_bn_int8 and ::conv3x3_bn_winograd_int8,
+kernels/basic_stage.py::basic_stage_int8) of the checkout DIR (for example an
 unpacked `git archive` of another commit under build/) and of this one,
 each in a process of its own that imports that checkout's package and
 builds its kernels there, in turns DIR, this, this, DIR, on the same
 seeded inputs ("--wrappers ROOT" is one such turn).
 
 --only takes kernel names (pointwise, direct, winograd, stage, direct_int8,
-stage_int8, stem, transition_int8, pointwise_int8, transition) and keeps
-those shapes alone.
+stage_int8, stem, transition_int8, pointwise_int8, transition,
+winograd_int8, basic_stage_int8) and keeps those shapes alone.
 """
 
 from __future__ import annotations
@@ -109,6 +114,13 @@ POINTWISE_INT8 = [  # (P, K, N, relu): the served int8 1x1s at N=1 and N=8
     (49, 2304, 512, True), (6272, 576, 128, True), (1568, 1152, 256, True),
     (392, 2304, 512, True),
 ]
+WINOGRAD_INT8 = [  # (N, H, W, Cin, Cout, relu): ResNet-34's int8 Winograds at N=1 and N=8
+    (1, 28, 28, 128, 128, True), (1, 14, 14, 256, 256, True), (8, 28, 28, 128, 128, True),
+    (8, 14, 14, 256, 256, True),
+]
+BASIC_STAGE_INT8 = [  # (N, H, W, C, blocks): ResNet-34's conv5_x run, and ResNet-18's
+    (1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1),
+]
 A_B_ONLY = ("stage", "stage_int8", "stem")
 DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
     (1, 56, 56, 64, 64, True), (1, 7, 7, 512, 512, False), (8, 7, 7, 512, 512, False),
@@ -157,6 +169,7 @@ def cases(dev):
 def _cases_all(dev):
     import torch
 
+    from winograd_tpu_torch.kernels import basic_stage as bs
     from winograd_tpu_torch.kernels import pointwise as pw
     from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels import transforms
@@ -286,15 +299,35 @@ def _cases_all(dev):
         ref = q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, relu)
         yield ("pointwise_int8", (p, k, n, relu), (x, w_q, s_w, s, b, relu), ref,
                lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
+    for n, h, wd, cin, cout, relu in WINOGRAD_INT8:
+        x = rand(n, h, wd, cin).abs()
+        u_q, s_u = (t(a) for a in q8.quantize_winograd_filter(transforms.transform_filter(
+            (rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32), m=2)))
+        s, b = t((rng.random(cout) * 0.5).astype(np.float32)), rand(cout)
+        ref = q8.conv3x3_bn_winograd_int8_plain(x, u_q, s_u, s, b, relu)
+        yield ("winograd_int8", (n, h, wd, cin, cout, relu), (x, u_q, s_u, s, b, relu), ref,
+               lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
+    for n, h, wd, c, nb in BASIC_STAGE_INT8:
+        blocks = [{f"{k}_{leg}": v for leg in ("a", "b") for k, v in (
+            ("w9", direct_filter(((rng.random((c, c, 3, 3)) - 0.5) * 0.2).astype(np.float32))),
+            ("s", (rng.random(c) * 0.5 + 0.25).astype(np.float32)),
+            ("b", (rng.random(c) - 0.5).astype(np.float32)))} for _ in range(nb)]
+        qs = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(blocks).items()}
+        x = rand(n, h, wd, c).abs()
+        ref = bs.basic_stage_int8_plain(x, qs)
+        yield ("basic_stage_int8", (n, h, wd, c, nb), (x, qs), ref,
+               lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
 
 
 def wrappers(dev) -> bool:
     """One A/B turn: each shape's public wrapper of the imported checkout."""
     from winograd_tpu_torch.kernels import _build
+    from winograd_tpu_torch.kernels.basic_stage import basic_stage_int8
     from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct
     from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
     from winograd_tpu_torch.kernels.quantized import (
-        conv1x1_bn_int8, conv3x3_bn_int8, resnet_stage_int8, transition_block_int8,
+        conv1x1_bn_int8, conv3x3_bn_int8, conv3x3_bn_winograd_int8, resnet_stage_int8,
+        transition_block_int8,
     )
     from winograd_tpu_torch.kernels.stage import resnet_stage_fused
     from winograd_tpu_torch.kernels.stem import stem_fused
@@ -306,7 +339,8 @@ def wrappers(dev) -> bool:
             "stage": resnet_stage_fused, "direct_int8": conv3x3_bn_int8,
             "stage_int8": resnet_stage_int8, "stem": stem_fused,
             "transition_int8": transition_block_int8, "transition": transition_block_fused,
-            "pointwise_int8": conv1x1_bn_int8}
+            "pointwise_int8": conv1x1_bn_int8, "winograd_int8": conv3x3_bn_winograd_int8,
+            "basic_stage_int8": basic_stage_int8}
     ok = True
     for name, shape, args, _, agrees in cases(dev):
         fn = (lambda f=call[name], args=args: f(*args))
@@ -360,6 +394,12 @@ def sweep(dev) -> bool:
             continue
         if name == "pointwise_int8":
             ok &= sweep_pointwise_int8(shape, args, ref, agrees, q8, sms)
+            continue
+        if name == "winograd_int8":
+            ok &= sweep_winograd_int8(shape, args, ref, agrees, q8, sms)
+            continue
+        if name == "basic_stage_int8":
+            ok &= sweep_basic_stage_int8(shape, args, ref, agrees, sms)
             continue
         if name == "pointwise":
             p, k, n, _ = shape
@@ -481,6 +521,51 @@ def sweep_pointwise_int8(shape, args, ref, agrees, q8, sms) -> bool:
         ok &= agrees(y)
         print(json.dumps({"kernel": "pointwise_int8", "shape": shape, "path": plan.path,
                           "splits": plan.splits, "chunk": plan.chunk, "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
+def sweep_winograd_int8(shape, args, ref, agrees, q8, sms) -> bool:
+    """The int8 Winograd under its plan and on a grid of one block an SM."""
+    n, h, w, cin, cout, _ = shape
+    chosen = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
+    plans = [chosen]
+    for per_sm in range(1, q8.WINO_INT8_BLOCKS_PER_SM):
+        plan = chosen._replace(blocks=min(chosen.items(), per_sm * sms))
+        if plan not in plans:
+            plans.append(plan)
+    ok = True
+    for plan in plans:
+        fn = (lambda plan=plan: q8.conv3x3_bn_winograd_int8_planned(*args, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": "winograd_int8", "shape": shape,
+                          "items": plan.items(), "blocks": plan.blocks, "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
+def sweep_basic_stage_int8(shape, args, ref, agrees, sms) -> bool:
+    """The int8 basic stage under its plan and under the K splits split_k
+    gives for WANTS."""
+    from winograd_tpu_torch.kernels import basic_stage as bs
+    from winograd_tpu_torch.kernels import quantized as q8
+    from winograd_tpu_torch.kernels.splitk import split_k
+
+    chosen = bs.basic_stage_int8_plan(*shape[:4], sms)
+    plans = {chosen.splits: chosen}
+    for want in WANTS:
+        sp = split_k(chosen.kp, want, q8.DIRECT_INT8_STEP, q8.DIRECT_INT8_STEP)
+        plans.setdefault(sp.splits, chosen._replace(splits=sp.splits, chunk=sp.chunk))
+    ok = True
+    for splits, plan in sorted(plans.items()):
+        fn = (lambda plan=plan: bs.basic_stage_int8_planned(*args, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": "basic_stage_int8", "shape": shape, "splits": splits,
+                          "chunk": plan.chunk, "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
                           "ms": device_ms(fn)}), flush=True)
     return ok

@@ -2,20 +2,22 @@
 """Where the persistent kernels' time goes, phase by phase, on one CUDA card.
 
     python3 tools/chip_stage_timeline.py [--root DIR]
-        [--kernel stage|stage_int8|transition_int8|transition|both]
+        [--kernel stage|stage_int8|transition_int8|transition|basic_stage_int8|winograd_int8|both]
         [--variant as_is,one_pass,no_mma]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 builds a copy of DIR's winograd_tpu_torch/csrc/stage.cu (the f32 stage),
-of its stage_int8.cu, of its transition_int8.cu and of its transition.cu
-(the f32 transition; default: this checkout's; DIR may be an unpacked `git
-archive` of another commit under build/) in which thread 0 of block 0
-reads %globaltimer once before the first phase and again after every grid
-barrier of the kernel body (the barriers inside a phase of mma_int8.cuh or
-splitk_tf32.cuh, before its K-split sum or its Winograd inverse, are not
-stamped), and calls DIR's resnet_stage_fused, resnet_stage_int8,
-transition_block_int8 and transition_block_fused wrappers on those
-libraries at the served shapes ("both" is the two stages). Each
+of its stage_int8.cu, of its transition_int8.cu, of its transition.cu (the
+f32 transition), of its basic_stage_int8.cu and of its winograd_int8.cu
+(default: this checkout's; DIR may be an unpacked `git archive` of another
+commit under build/) in which thread 0 of block 0 reads %globaltimer once
+before the first phase and again after every grid barrier of the kernel
+body (the barriers inside a phase of mma_int8.cuh or splitk_tf32.cuh,
+before its K-split sum or its Winograd inverse, are not stamped), and
+calls DIR's resnet_stage_fused, resnet_stage_int8, transition_block_int8,
+transition_block_fused, basic_stage_int8 and conv3x3_bn_winograd_int8
+wrappers on those libraries at the served shapes ("both" is the two
+stages). Each
 line gives the kernel's stamped span and the spans between stamps in
 microseconds: a phase's span is its slowest block's work plus the barrier.
 The f32 stage's spans are, per block, reduce, mid, expand (the last
@@ -28,7 +30,13 @@ mid, h2's quantization with the projection rows' gather, and expand with
 projection (where that last phase splits K, its products and its sum of
 the slots apart: seven spans). The f32 transition's copy ends the same
 way: its spans are the reduce, the mid and the expand with the projection,
-each with its split sum. First, the grid barrier alone
+each with its split sum. The int8 basic stage's copy gets a barrier and a
+stamp after each block's last phase: per block, the quantize phase (block
+0's with the weight transposes), the first conv with its split sum, the
+second quantize, the second conv with its split sum (and, before the next
+block, one barrier alone). The int8 Winograd's copy ends the same way:
+the position items, then the inverse.
+First, the grid barrier alone
 (grid_sync.cuh, 256 threads a block): its cost per crossing at one and two
 blocks an SM. The card's name and power limit come first.
 
@@ -65,6 +73,11 @@ SHAPES = {  # (N, H, W, Cio, Cmid, blocks, mid): the served stages, and conv4_x 
 # (N, H, W, Cin, Cmid, Cout): the served transitions, and 14->7 at N=8.
 TRANSITION_SHAPES = [(1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024),
                      (1, 14, 14, 1024, 512, 2048), (8, 14, 14, 1024, 512, 2048)]
+# (N, H, W, C, blocks): ResNet-34's conv5_x run at N=1 and N=8, ResNet-18's.
+BASIC_STAGE_SHAPES = [(1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1)]
+# (N, H, W, Cin, Cout, relu): the served int8 Winograds at N=1 and N=8.
+WINOGRAD_INT8_SHAPES = [(1, 28, 28, 128, 128, True), (1, 14, 14, 256, 256, True),
+                        (8, 28, 28, 128, 128, True), (8, 14, 14, 256, 256, True)]
 # Per kernel source: the last include, after which the stamp buffer goes,
 # the head of the phases, before which the first stamp goes, and the
 # kernel's last statement, after which a barrier and a stamp go (None: not
@@ -78,6 +91,12 @@ LAYOUT = {
                         "  expand_and_project(a, P2, smem);\n"),
     "transition": ('#include "splitk_tf32.cuh"\n', "  sk::gemm_phase<kVec, true>(a.reduce,",
                    "BiasReluEpilogue{a.bep, a.out, a.Cout}, a.part, a.bar, smem);\n"),
+    "basic_stage_int8": ('#include "mma_int8.cuh"\n',
+                         "  // Every block's two weight matrices k-contiguous",
+                         "act, a.out, c},\n                   a.part, a.bar, smem);\n"),
+    "winograd_int8": ('#include "winograd.cuh"\n',
+                      "  const int items = 16 * a.tile_blocks * a.col_blocks;",
+                      "static_cast<int>(i % a.Cout), mp);\n  }\n"),
 }
 # The tile's three passes in csrc/mma_tf32.cuh::mma_stage, and the passes
 # each --variant keeps out.
@@ -253,12 +272,46 @@ def transition_case(rng, dev, kernel, n, h, w, cin, cmid, cout):
     return torch.as_tensor(np.abs(rand(n, h, w, cin)), device=dev), params
 
 
+def basic_stage_case(rng, dev, n, h, w, c, nb):
+    """Seeded int8 basic-stage params and a ReLU'd input."""
+    import torch
+
+    from winograd_tpu_torch.kernels import basic_stage as bs
+    from winograd_tpu_torch.kernels.direct import direct_filter
+
+    def rand(*shape):
+        return (rng.random(shape) - 0.5).astype(np.float32)
+
+    blocks = [{f"{k}_{leg}": v for leg in ("a", "b") for k, v in (
+        ("w9", direct_filter(rand(c, c, 3, 3) * 0.2)), ("s", rand(c) + 0.5), ("b", rand(c)))}
+        for _ in range(nb)]
+    params = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(blocks).items()}
+    return torch.as_tensor(np.abs(rand(n, h, w, c)), device=dev), params
+
+
+def winograd_int8_case(rng, dev, n, h, w, cin, cout, relu):
+    """Seeded int8 F(2,3) operands and a ReLU'd input."""
+    import torch
+
+    from winograd_tpu_torch.kernels import quantized as q8
+    from winograd_tpu_torch.kernels import transforms
+
+    def rand(*shape):
+        return (rng.random(shape) - 0.5).astype(np.float32)
+
+    u_q, s_u = q8.quantize_winograd_filter(transforms.transform_filter(rand(cout, cin, 3, 3), m=2))
+    t = (lambda a: torch.as_tensor(a, device=dev))  # noqa: E731
+    return (t(np.abs(rand(n, h, w, cin))), t(u_q), t(s_u), t(rand(cout) + 0.5), t(rand(cout)),
+            relu)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=pathlib.Path, default=ROOT,
                     help="the checkout whose kernel and wrapper are timed")
     ap.add_argument("--kernel",
-                    choices=("stage", "stage_int8", "transition_int8", "transition", "both"),
+                    choices=("stage", "stage_int8", "transition_int8", "transition",
+                             "basic_stage_int8", "winograd_int8", "both"),
                     default="both")
     ap.add_argument("--variant", default="as_is", metavar="NAME,...",
                     help="variants of the f32 stage's and transition's tile: "
@@ -275,6 +328,7 @@ def main() -> int:
         print("chip_stage_timeline: needs a CUDA device", file=sys.stderr)
         return 1
     from winograd_tpu_torch.kernels import _build
+    from winograd_tpu_torch.kernels import basic_stage as bs
     from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels import stage as st
     from winograd_tpu_torch.kernels import transition as tr
@@ -296,7 +350,11 @@ def main() -> int:
                 "transition_int8": (q8.transition_block_int8, q8.transition_block_int8_plain,
                                     q8._workspace_words),
                 "transition": (tr.transition_block_fused, tr.transition_block_fused_plain,
-                               tr._workspace_floats)}
+                               tr._workspace_floats),
+                "basic_stage_int8": (bs.basic_stage_int8, bs.basic_stage_int8_plain,
+                                     q8._workspace_words),
+                "winograd_int8": (q8.conv3x3_bn_winograd_int8,
+                                  q8.conv3x3_bn_winograd_int8_plain, None)}
     rng = np.random.default_rng(0)
     stamps, count = (ctypes.c_ulonglong * 1024)(), ctypes.c_int(0)
     ok = True
@@ -310,11 +368,20 @@ def main() -> int:
         for n, h, w, cio, cmid, nb, mid in SHAPES.get(kernel, []):
             x, params = stage_case(rng, dev, kernel, n, h, w, cio, cmid, nb)
             cases.append(((n, h, w, cio, cmid, nb, mid), (x, params, mid), plain(x, params, mid)))
+        if kernel == "basic_stage_int8":
+            for shape in BASIC_STAGE_SHAPES:
+                operands = basic_stage_case(rng, dev, *shape)
+                cases.append((shape, operands, plain(*operands)))
+        if kernel == "winograd_int8":
+            for shape in WINOGRAD_INT8_SHAPES:
+                operands = winograd_int8_case(rng, dev, *shape)
+                cases.append((shape, operands, plain(*operands)))
         tf32 = kernel in TF32_KERNELS
         for variant in (variants if tf32 else ("as_is",)):
             lib = libs[f"{kernel}_stamped:{variant}" if tf32 else f"{kernel}_stamped"]
             _build._LIBS[kernel] = lib  # the wrapper launches the stamped library
-            workspace.cache_clear()
+            if workspace is not None:
+                workspace.cache_clear()
             for shape, operands, ref in cases:
                 for _ in range(3):  # the last of three calls
                     torch.cuda.synchronize()

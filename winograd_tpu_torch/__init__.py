@@ -17,7 +17,9 @@ CUDA C++ for sm_90a (csrc/) and bound with ctypes (kernels/_build.py):
 The int8 serving tier of the same classifier (engine tier "int8",
 models/resnet50.py::resnet50_forward_int8) runs the stem at bf16 and
 kernels/quantized.py: int8 pointwise and direct 3x3 kernels, and the int8
-stage and transition kernels, on csrc/gemm_int8.cuh's int8 tile.
+stage and transition kernels, on the int8 tensor cores (csrc/mma_int8.cuh).
+The basic-block family (ResNet-18/34, models/basic.py) adds the f32 and
+int8 basic stages (kernels/basic_stage.py) and the int8 Winograd F(2,3).
 
 Every kernel wrapper runs its plain PyTorch version for tensors on the CPU
 (the tests) and launches the kernel for CUDA tensors; there is no fallback

@@ -18,27 +18,34 @@
 // int8 weights, 4 * 2.4 MB read once, take 2.8 us at 3.35 TB/s: bound by
 // bytes.
 //
-// Design: the persistent cooperative kernel of csrc/basic_stage.cu on the
-// int8 tile of gemm_int8.cuh, with stage_int8.cu's direct-mid recipe. A
-// row's scale needs its whole 9 * C window before a GEMM can quantize it,
-// and that window was written by many blocks in the previous phase; so each
-// conv is preceded by a scale sub-phase (one warp per im2col row, zero
-// padding included) that writes the scales to the workspace, and a grid
-// barrier. The GEMM phases split K over int32 partial sums (up to 36 ranges
-// at N=1, where the 49-row map has 8 output tiles); the sum is exact, so
-// the f32 epilogue runs once per element after it, as
-// acc * (s_x * s_w) * s + b (+ act), each multiply and add rounded on its
-// own in the plain version's order, so the two agree to the bit.
+// Design: csrc/stage_int8.cu's direct-mid phases on mma_int8.cuh, in one
+// cooperative launch. A row's scale needs its whole 9 * C window, written
+// by many blocks in the phase before, so each conv is a quantize phase
+// (quantize_rows_phase over Im2colRows: every im2col row's scale and int8
+// values once, zero padding included, into a (P, Kp) int8 matrix), a grid
+// barrier, and a gemm_phase: 64 x 64 s8 mma.sync tiles, K split over exact
+// int32 partial sums where the tiles are fewer than the blocks (24 ranges
+// at N=1, 4 at N=8: the host's plan, kernels/basic_stage.py::
+// basic_stage_int8_plan, picks the split and this entry checks it), added
+// after a barrier, then the epilogue once per element, as acc * (s_x *
+// s_w) * s + b (+ act), each multiply and add rounded on its own in the
+// plain version's order, so the two agree to the bit. The 2B weight
+// matrices are written k-contiguous (C, Kp) once a launch, beside block 0's
+// first quantize phase (9.4 MB at conv5_x's two blocks, L2-resident).
+
+#include <stdint.h>
 
 #include "common.cuh"
-#include "gemm_int8.cuh"
-#include "grid_sync.cuh"
+#include "mma_int8.cuh"
 
 namespace {
 
-constexpr int kMaxSplits = 36;  // 4608 / 128: the 7x7x512 conv at N=1
+namespace s8 = wt::s8mma;
 
-struct BasicStageInt8Args {
+constexpr int kBlocksPerSm = 2;
+constexpr int kSplitStep = s8::kBK;  // a split but the last is a multiple of this
+
+struct Args {
   const float* x;
   float* out;
   const int8_t* wa;  // (B, 9*C, C) int8
@@ -50,100 +57,140 @@ struct BasicStageInt8Args {
   const float* sb;
   const float* bb;
   float* h1;
-  float* sx;  // row scales, P
+  float* sx;    // row scales, P
+  int8_t* aq;   // quantized im2col rows, (P, Kp)
+  int8_t* bta;  // (B, C, Kp) first convs' weights, k-contiguous
+  int8_t* btb;  // (B, C, Kp) second convs'
   int* part;
   unsigned int* bar;
-  int N, H, W, C, B;
-  wt::GemmPhase conv;
+  int N, H, W, C, B, Kp, splits, chunk;
 };
 
-__global__ void __launch_bounds__(wt::kGemmThreads) basic_stage_int8_kernel(BasicStageInt8Args a) {
-  __shared__ __align__(16) int smem[wt::kInt8SmemBytes / 4];
-  const int c = a.C;
+__global__ void __launch_bounds__(s8::kThreads, kBlocksPerSm) basic_stage_int8_kernel(Args a) {
+  __shared__ __align__(16) int8_t smem[s8::kSmemBytes];
+  __shared__ float red[s8::kThreads / 32];
+  const int c = a.C, k = 9 * c;
   const int P = a.N * a.H * a.W;
+
+  // Every block's two weight matrices k-contiguous, for the whole launch.
+  {
+    const auto transpose = [&](int m) {  // m = 2 * block + leg
+      const size_t in = static_cast<size_t>(m / 2) * k * c;
+      const size_t to = static_cast<size_t>(m / 2) * c * a.Kp;
+      return m % 2 ? s8::Transpose{a.wb + in, k, c, a.Kp, a.btb + to}
+                   : s8::Transpose{a.wa + in, k, c, a.Kp, a.bta + to};
+    };
+    const long long per = transpose(0).items();
+    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+         i < per * 2 * a.B; i += static_cast<long long>(gridDim.x) * blockDim.x)
+      transpose(static_cast<int>(i / per)).item(i % per);
+  }
   for (int blk = 0; blk < a.B; ++blk) {
     const float* act = blk == 0 ? a.x : a.out;
-    const size_t bw = static_cast<size_t>(blk) * 9 * c * c;
-    const size_t bc = static_cast<size_t>(blk) * c;
+    const size_t bw = static_cast<size_t>(blk) * c * a.Kp, bc = static_cast<size_t>(blk) * c;
 
-    const wt::Im2colCg cola{act, a.H, a.W, c};
-    wt::row_scales_phase(cola, P, 9 * c, 1, a.sx);
+    if (blk > 0) wt::grid_sync(a.bar);
+    s8::quantize_rows_phase(s8::Im2colRows<true, true>{act, a.H, a.W, c / 4}, P, k, a.Kp, a.aq,
+                            a.sx, red);
     wt::grid_sync(a.bar);
-    wt::int8_gemm_phase(a.conv, cola, a.wa + bw, a.sx,
-                        wt::Int8BnEpilogue{a.swa + bc, a.sa + bc, a.ba + bc, a.h1, c, 1},
-                        a.part, a.bar, smem);
+    s8::gemm_phase(a.aq, a.bta + bw, a.sx, P, c, a.Kp, a.splits, a.chunk,
+                   wt::Int8BnEpilogue{a.swa + bc, a.sa + bc, a.ba + bc, a.h1, c, 1}, a.part,
+                   a.bar, smem);
     wt::grid_sync(a.bar);
 
-    const wt::Im2colCg colb{a.h1, a.H, a.W, c};
-    wt::row_scales_phase(colb, P, 9 * c, 1, a.sx);
+    s8::quantize_rows_phase(s8::Im2colRows<true, true>{a.h1, a.H, a.W, c / 4}, P, k, a.Kp, a.aq,
+                            a.sx, red);
     wt::grid_sync(a.bar);
-    wt::int8_gemm_phase(a.conv, colb, a.wb + bw, a.sx,
-                        wt::ResidualInt8Epilogue{a.swb + bc, a.sb + bc, a.bb + bc, act, a.out, c},
-                        a.part, a.bar, smem);
-    if (blk + 1 < a.B) wt::grid_sync(a.bar);
+    s8::gemm_phase(a.aq, a.btb + bw, a.sx, P, c, a.Kp, a.splits, a.chunk,
+                   wt::ResidualInt8Epilogue{a.swb + bc, a.sb + bc, a.bb + bc, act, a.out, c},
+                   a.part, a.bar, smem);
   }
 }
 
-int grid_size() {
+// Blocks of the kernel in the cooperative grid: what the current device
+// holds resident, at most kBlocksPerSm an SM; 0 on error.
+int resident_blocks() {
   static int cache[64] = {0};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cache[dev] == 0)
-    cache[dev] = cooperative_grid(reinterpret_cast<const void*>(basic_stage_int8_kernel), 0);
+    cache[dev] = cooperative_grid(reinterpret_cast<const void*>(basic_stage_int8_kernel), 0,
+                                  s8::kThreads, kBlocksPerSm);
   return cache[dev];
 }
 
+// 4-byte words holding `bytes` bytes, rounded up to the workspace's step.
+size_t words_of(size_t bytes) { return workspace_round_up((bytes + 3) / 4); }
+
 struct Plan {
-  int grid;
-  wt::GemmPhase conv;
-  size_t h1, sx, part, total;  // workspace offsets and size, in 4-byte words
+  int Kp;
+  size_t h1, sx, aq, bta, btb, part, total;  // workspace offsets and size, in words
 };
 
-int make_plan(int N, int H, int W, int C, Plan* pl) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || (9 * C) % 4 != 0)
+// The workspace of the host's plan (grid `blocks`, Kp in `splits` ranges of
+// `chunk`), after checking it against the kernel's geometry.
+int make_plan(int N, int H, int W, int C, int B, int blocks, int splits, int chunk, Plan* pl) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || B <= 0 || C % 4 != 0 || blocks <= 0 ||
+      splits <= 0 || chunk <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  pl->grid = grid_size();
-  if (pl->grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const int P = N * H * W;
-  pl->conv = plan_phase(P, 9 * C, C, pl->grid, wt::kBK8, kMaxSplits);
+  const size_t P = static_cast<size_t>(N) * H * W;
+  pl->Kp = (9 * C + s8::kKAlign - 1) / s8::kKAlign * s8::kKAlign;
+  if (static_cast<long long>(chunk) * splits < pl->Kp ||
+      static_cast<long long>(chunk) * (splits - 1) >= pl->Kp ||
+      (splits > 1 && chunk % kSplitStep != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int resident = resident_blocks();
+  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const size_t wt_bytes = static_cast<size_t>(B) * C * pl->Kp;
   pl->h1 = kWorkspaceAlign;  // the barrier's two counters sit at the front
-  pl->sx = pl->h1 + workspace_round_up(static_cast<size_t>(P) * C);
-  pl->part = pl->sx + workspace_round_up(static_cast<size_t>(P));
-  pl->total = pl->part + phase_partial_floats(pl->conv);
+  pl->sx = pl->h1 + workspace_round_up(P * C);
+  pl->aq = pl->sx + workspace_round_up(P);
+  pl->bta = pl->aq + words_of(P * pl->Kp);
+  pl->btb = pl->bta + words_of(wt_bytes);
+  pl->part = pl->btb + words_of(wt_bytes);
+  pl->total = pl->part + (splits > 1 ? static_cast<size_t>(splits) * P * C : 0);
   return 0;
 }
 
 }  // namespace
 
-// 4-byte words of workspace basic_stage_int8 needs for this shape on the
-// current device (into *words); returns a CUDA error code.
-extern "C" int basic_stage_int8_workspace(int N, int H, int W, int C, long long* words) {
+// 4-byte words of workspace basic_stage_int8 needs for this shape and plan
+// on the current device (into *words); returns a CUDA error code.
+extern "C" int basic_stage_int8_workspace(int N, int H, int W, int C, int B, int blocks,
+                                          int splits, int chunk, long long* words) {
   Plan pl;
-  const int err = make_plan(N, H, W, C, &pl);
+  const int err = make_plan(N, H, W, C, B, blocks, splits, chunk, &pl);
   if (err == 0) *words = static_cast<long long>(pl.total);
   return err;
 }
 
+// The host's plan (kernels/basic_stage.py::basic_stage_int8_plan): the
+// cooperative grid's `blocks` (at most what the device holds resident) and
+// the K split of both convs, Kp = 9 * C padded to a multiple of s8::kKAlign
+// in `splits` ranges of `chunk`. C a multiple of 4 (the wrapper pads other
+// counts with zero channels); x and out 16-byte aligned.
 extern "C" int basic_stage_int8(const float* x, const int8_t* wa, const float* swa,
                                 const float* sa, const float* ba, const int8_t* wb,
                                 const float* swb, const float* sb, const float* bb, float* out,
                                 float* ws, long long ws_words, int N, int H, int W, int C, int B,
-                                void* stream) {
-  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                int blocks, int splits, int chunk, void* stream) {
   Plan pl;
-  const int err = make_plan(N, H, W, C, &pl);
+  const int err = make_plan(N, H, W, C, B, blocks, splits, chunk, &pl);
   if (err != 0) return err;
-  if (ws_words < static_cast<long long>(pl.total)) return static_cast<int>(cudaErrorInvalidValue);
+  if (ws_words < static_cast<long long>(pl.total) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto s = static_cast<cudaStream_t>(stream);
   unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
   cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  BasicStageInt8Args a{x,  out, wa, swa, sa, ba, wb, swb, sb, bb,
-                       ws + pl.h1, ws + pl.sx, reinterpret_cast<int*>(ws + pl.part), bar,
-                       N,  H,   W,  C,   B,  pl.conv};
+  Args a{x, out, wa, swa, sa, ba, wb, swb, sb, bb, ws + pl.h1, ws + pl.sx,
+         reinterpret_cast<int8_t*>(ws + pl.aq), reinterpret_cast<int8_t*>(ws + pl.bta),
+         reinterpret_cast<int8_t*>(ws + pl.btb), reinterpret_cast<int*>(ws + pl.part), bar,
+         N, H, W, C, B, pl.Kp, splits, chunk};
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(basic_stage_int8_kernel),
-                                  dim3(pl.grid), dim3(wt::kGemmThreads), args, 0, s);
+                                  dim3(blocks), dim3(s8::kThreads), args, 0, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

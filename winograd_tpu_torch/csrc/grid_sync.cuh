@@ -41,15 +41,6 @@ __device__ __forceinline__ void grid_sync(unsigned int* bar) {
   __syncthreads();
 }
 
-// Rows of a row-major (P, ld) matrix written earlier in the launch.
-struct RowsCg {
-  const float* x;
-  int ld;
-  __device__ __forceinline__ float operator()(int p, int k) const {
-    return __ldcg(x + static_cast<size_t>(p) * ld + k);
-  }
-};
-
 // The stride-1 pad-1 3x3 im2col matrix of an (N, H, W, C) map written
 // earlier in the launch, k = (3r + s) * C + c.
 struct Im2colCg {

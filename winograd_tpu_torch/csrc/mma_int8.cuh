@@ -60,6 +60,64 @@ __device__ __forceinline__ unsigned ld32(const int8_t* p) {
   return *reinterpret_cast<const unsigned*>(p);
 }
 
+// Four values quantized by scale s, packed four k to a word.
+__device__ __forceinline__ unsigned quantize4(const float4& v, float s) {
+  return static_cast<unsigned>(
+      pack4(quantize(v.x, s), quantize(v.y, s), quantize(v.z, s), quantize(v.w, s)));
+}
+
+// Four rows' words (word i: columns c = 0..3 of row i, one byte each) as
+// four columns' words (word c: rows i = 0..3 of column c): the k-contiguous
+// layout of __dp4a's and mma.sync's B operand.
+__device__ __forceinline__ void transpose4(const unsigned (&r)[4], unsigned (&c)[4]) {
+  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
+  const unsigned t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
+  c[0] = __byte_perm(t0, t1, 0x5410);
+  c[1] = __byte_perm(t0, t1, 0x7632);
+  c[2] = __byte_perm(t2, t3, 0x5410);
+  c[3] = __byte_perm(t2, t3, 0x7632);
+}
+
+// Rows k .. k+3 of a row-major (K, N) int8 matrix w at columns n .. n+3,
+// one word a row, zero past K and N; kVec: N % 4 == 0 and w 4-byte aligned.
+template <bool kVec>
+__device__ __forceinline__ void rows4(const int8_t* __restrict__ w, int K, int N, int k, int n,
+                                      unsigned (&r)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int8_t* row = w + static_cast<size_t>(k + i) * N + n;
+    r[i] = 0u;
+    if (k + i >= K) continue;
+    if (kVec) {
+      if (n < N) r[i] = __ldg(reinterpret_cast<const unsigned*>(row));
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        if (n + c < N)
+          r[i] |= static_cast<unsigned>(static_cast<uint8_t>(__ldg(row + c))) << (8 * c);
+    }
+  }
+}
+
+// mma.sync's m16n8k32 fragments from shared memory (rows of ld bytes, k
+// from byte ks): A of rows r0 .. r0+15, B of columns (k-contiguous rows of
+// sb) n0 .. n0+7.
+__device__ __forceinline__ void frag_a(const int8_t* sa, int ld, int r0, int ks, unsigned (&a)[4]) {
+  const int lane = threadIdx.x % 32;
+  const int8_t* r = sa + (r0 + lane / 4) * ld + ks + 4 * (lane % 4);
+  a[0] = ld32(r);
+  a[1] = ld32(r + 8 * ld);
+  a[2] = ld32(r + 16);
+  a[3] = ld32(r + 8 * ld + 16);
+}
+
+__device__ __forceinline__ void frag_b(const int8_t* sb, int ld, int n0, int ks, unsigned (&b)[2]) {
+  const int lane = threadIdx.x % 32;
+  const int8_t* c = sb + (n0 + lane / 4) * ld + ks + 4 * (lane % 4);
+  b[0] = ld32(c);
+  b[1] = ld32(c + 16);
+}
+
 __device__ __forceinline__ float abs_max4(float m, float4 v) {
   return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
 }
@@ -186,17 +244,14 @@ __device__ __forceinline__ void quantize_rows_phase(const Loader& a, int P, int 
     const float s = scale_from_max(m);
     if (p < P) {
       unsigned* dst = reinterpret_cast<unsigned*>(aq + static_cast<size_t>(p) * Kp);
-      const auto q4 = [&](const float4& u) {
-        return static_cast<unsigned>(
-            pack4(quantize(u.x, s), quantize(u.y, s), quantize(u.z, s), quantize(u.w, s)));
-      };
 #pragma unroll
       for (int i = 0; i < kRowVecs; ++i)
-        if (gi + i * gn < k4) dst[gi + i * gn] = q4(v[i]);
+        if (gi + i * gn < k4) dst[gi + i * gn] = quantize4(v[i], s);
       if (gi + kRowVecs * gn < k4) {
         const auto row = a.row(p);
         auto it = a.walk(row, gi + kRowVecs * gn);
-        for (int j = gi + kRowVecs * gn; j < k4; j += gn, a.next(row, it, gn)) dst[j] = q4(a.load(it));
+        for (int j = gi + kRowVecs * gn; j < k4; j += gn, a.next(row, it, gn))
+          dst[j] = quantize4(a.load(it), s);
       }
       for (int j = k4 + gi; j < kp4; j += gn) dst[j] = 0u;
       if (gi == 0) sx[p] = s;
@@ -281,23 +336,11 @@ __device__ __forceinline__ void load_stage(int8_t* sa, int8_t* sb, const int8_t*
 // ks of the rows of sa and sb (shared memory, rows of ld bytes).
 __device__ __forceinline__ void mma_k32(const int8_t* sa, const int8_t* sb, int ld, int ks,
                                         Acc& acc, int wm, int wn) {
-  const int lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;
   unsigned a[2][4], b[2][2];
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
-    const int8_t* r0 = sa + (wm * 32 + mi * 16 + g) * ld + ks + 4 * t;
-    a[mi][0] = ld32(r0);
-    a[mi][1] = ld32(r0 + 8 * ld);
-    a[mi][2] = ld32(r0 + 16);
-    a[mi][3] = ld32(r0 + 8 * ld + 16);
-  }
+  for (int mi = 0; mi < 2; ++mi) frag_a(sa, ld, wm * 32 + mi * 16, ks, a[mi]);
 #pragma unroll
-  for (int ni = 0; ni < 2; ++ni) {
-    const int8_t* c0 = sb + (wn * 16 + ni * 8 + g) * ld + ks + 4 * t;
-    b[ni][0] = ld32(c0);
-    b[ni][1] = ld32(c0 + 16);
-  }
+  for (int ni = 0; ni < 2; ++ni) frag_b(sb, ld, wn * 16 + ni * 8, ks, b[ni]);
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll

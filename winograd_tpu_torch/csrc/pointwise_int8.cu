@@ -91,43 +91,6 @@ __device__ __forceinline__ wt::Int8BnEpilogue epilogue(const Args& a) {
   return wt::Int8BnEpilogue{a.sw, a.scale, a.bias, a.out, a.N, a.relu};
 }
 
-__device__ __forceinline__ unsigned quantize4(const float4& v, float s) {
-  return static_cast<unsigned>(wt::pack4(wt::quantize(v.x, s), wt::quantize(v.y, s),
-                                         wt::quantize(v.z, s), wt::quantize(v.w, s)));
-}
-
-// Four rows' words (word i: columns c = 0..3 of row i, one byte each) as
-// four columns' words (word c: rows i = 0..3 of column c): the k-contiguous
-// layout of __dp4a's and mma.sync's B operand.
-__device__ __forceinline__ void transpose4(const unsigned (&r)[4], unsigned (&c)[4]) {
-  const unsigned t0 = __byte_perm(r[0], r[1], 0x5140), t1 = __byte_perm(r[2], r[3], 0x5140);
-  const unsigned t2 = __byte_perm(r[0], r[1], 0x7362), t3 = __byte_perm(r[2], r[3], 0x7362);
-  c[0] = __byte_perm(t0, t1, 0x5410);
-  c[1] = __byte_perm(t0, t1, 0x7632);
-  c[2] = __byte_perm(t2, t3, 0x5410);
-  c[3] = __byte_perm(t2, t3, 0x7632);
-}
-
-// The weights of rows k .. k+3 at columns n .. n+3, one word a row, zero
-// past K and N; kVec: N % 4 == 0 and wq 4-byte aligned.
-template <bool kVec>
-__device__ __forceinline__ void weight_rows4(const Args& a, int k, int n, unsigned (&r)[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int8_t* row = a.wq + static_cast<size_t>(k + i) * a.N + n;
-    r[i] = 0u;
-    if (k + i >= a.K) continue;
-    if (kVec) {
-      if (n < a.N) r[i] = __ldg(reinterpret_cast<const unsigned*>(row));
-    } else {
-#pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (n + c < a.N)
-          r[i] |= static_cast<unsigned>(static_cast<uint8_t>(__ldg(row + c))) << (8 * c);
-    }
-  }
-}
-
 // --- GEMV: P <= kGemvMaxP -------------------------------------------------
 
 template <bool kVec>
@@ -161,14 +124,14 @@ __global__ void __launch_bounds__(kGemvThreads) pointwise_int8_gemv(Args a) {
       const int p = i / words, j = i - p * words;
       const float4 v =
           __ldg(reinterpret_cast<const float4*>(a.x + static_cast<size_t>(p) * a.K + kc) + j);
-      xq[p][j] = quantize4(v, sx[p]);
+      xq[p][j] = s8::quantize4(v, sx[p]);
     }
     __syncthreads();
 #pragma unroll 4
     for (int j = warp; j < words; j += kGemvWarps) {
       unsigned r[4], c[4];
-      weight_rows4<kVec>(a, kc + 4 * j, n, r);
-      transpose4(r, c);
+      s8::rows4<kVec>(a.wq, a.K, a.N, kc + 4 * j, n, r);
+      s8::transpose4(r, c);
 #pragma unroll
       for (int p = 0; p < kGemvMaxP; ++p) {
         if (p < a.P) {
@@ -241,7 +204,7 @@ __global__ void __launch_bounds__(s8::kThreads) pointwise_int8_one_pass(Args a) 
 #pragma unroll
   for (int i = 0; i < kItems; ++i) {
     const int item = threadIdx.x + i * s8::kThreads, kg = item / (s8::kBN / 4);
-    if (kg < kp4) weight_rows4<kVec>(a, 4 * kg, n0 + item % (s8::kBN / 4) * 4, w[i]);
+    if (kg < kp4) s8::rows4<kVec>(a.wq, a.K, a.N, 4 * kg, n0 + item % (s8::kBN / 4) * 4, w[i]);
   }
   // The warp's rows r = warp, warp + 8, ...: every load in flight, then
   // each row's scale and its int8 values, zero past K and past P.
@@ -267,7 +230,7 @@ __global__ void __launch_bounds__(s8::kThreads) pointwise_int8_one_pass(Args a) 
 #pragma unroll
     for (int f = 0; f < kRowF4; ++f) {
       const int j = lane + 32 * f;
-      if (j < kp4) dst[j] = quantize4(v[i][f], s);  // zeros quantize to zero
+      if (j < kp4) dst[j] = s8::quantize4(v[i][f], s);  // zeros quantize to zero
     }
     if (lane == 0) sx[r] = s;
   }
@@ -276,7 +239,7 @@ __global__ void __launch_bounds__(s8::kThreads) pointwise_int8_one_pass(Args a) 
     const int item = threadIdx.x + i * s8::kThreads, kg = item / (s8::kBN / 4);
     if (kg >= kp4) continue;
     unsigned c[4];
-    transpose4(w[i], c);
+    s8::transpose4(w[i], c);
 #pragma unroll
     for (int e = 0; e < 4; ++e)
       *reinterpret_cast<unsigned*>(sb + (item % (s8::kBN / 4) * 4 + e) * kOnePassLd + 4 * kg) =

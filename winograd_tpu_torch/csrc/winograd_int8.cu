@@ -25,253 +25,407 @@
 // are 51 M int8 MACs, 0.05 us at 1979 TOPS; x and out in f32 and the int8
 // filter take 0.3-0.4 us at 3.35 TB/s: bound by bytes.
 //
-// Design: a row's scale needs all of its channels, and the TPU kernel holds
-// them in VMEM. Here one block owns 8 tiles and all of Cin (and 64 output
-// channels), so it finds its rows' scales itself and needs no grid barrier:
-// pass 1 transforms its tiles' input channel by channel (one warp per tile,
-// a lane per channel) and reduces |V| per row with warp shuffles; pass 2
-// transforms again in stages of 32 channels, quantizes, packs four
-// channels to a word in shared memory beside the stage's slice of u_q, and
-// each thread runs __dp4a into int32 for one tile, four output channels
-// and all 16 positions. The transforms and At run in FP64 and round once:
-// V is quantized, and a last-bit difference from the plain version would
-// move a value across a rounding step (as in csrc/stage_int8.cu); the
-// dequantization and BN round each multiply and add on its own in the
-// plain version's order, so the two agree to the bit. Blocks that share
-// tiles (the output-channel tiles) transform their input again rather than
-// exchange it.
+// Design: the 16 positions are 16 independent int8 GEMMs, (T, Cin) x (Cin,
+// Cout), and a row's scale needs only its own position's V. So a work item
+// is (a block of kTiles tiles, one position p, a block of kCols output
+// channels): it computes V[p] of its tiles over all of Cin straight from x
+// (the four pixels that position reads, with wt::sandwich's FP64 FMA chain
+// for that element, so no value can differ from the full transform's), once,
+// into shared memory; each warp reduces two rows' |V| (whole row or per
+// group) and quantizes them once, k-contiguous; the item's slice of u_q[p]
+// is turned k-contiguous as it is staged (four weight rows at a time, byte
+// permutes, as csrc/pointwise_int8.cu does), so the wrapper keeps the JAX
+// layout; each warp multiplies its 16 columns on mma.sync.m16n8k32 s8
+// (mma_int8.cuh's fragments), one int32 sum a group, and dequantizes into
+// M (16, T, Cout) in f32 in the workspace. The items of all 16 positions
+// are dealt to a resident cooperative grid; after one grid barrier
+// (grid_sync.cuh) the grid runs At M At^T, BN and ReLU once per (tile,
+// output channel): one launch. At N=1 that is 208 items at 28x28x128 and
+// 128 at 14x14x256, one a block; V[p] is transformed once per column block
+// (once at Cout <= 128, twice at 256). Half as many columns an item read x
+// twice as often and ran 4-38% slower; a form in which a block owned its
+// tiles for all 16 positions, with M in shared memory and no barrier, ran
+// 1.6-9x slower (tools/chip_split_sweep.py, PERF.md). The host's plan
+// (kernels/quantized.py::winograd_int8_plan) sets the grid; this entry
+// checks it.
+// The transforms and At run in FP64 and round once, the scale is an IEEE
+// division, the dequantization and BN round each multiply and add on its own
+// in the plain version's order, and the groups' parts are added in group
+// order: the kernel equals kernels/quantized.py::
+// conv3x3_bn_winograd_int8_plain to the bit.
 
 #include <stdint.h>
 
 #include "common.cuh"
-#include "gemm_int8.cuh"
+#include "mma_int8.cuh"
 #include "winograd.cuh"
 
 namespace {
 
-constexpr int kTT = 8;                // tiles per block (one per warp in pass 1, 2 passes)
-constexpr int kTX = 16;               // output-channel groups per block
-constexpr int kCPT = 4;               // output channels per thread
-constexpr int kCOB = kTX * kCPT;      // output channels per block
-constexpr int kThreads = kTT * kTX;   // 128
-constexpr int kCK = 32;               // input channels per shared-memory stage
-constexpr int kWK = kCK / 4;          // packed words per stage
-constexpr int kSmemWords = 16 * kWK * kTT + 16 * kWK * kCOB;
+namespace s8 = wt::s8mma;
 
-// The 16 values of V for channel c of tile g (row-major over N x th x tw),
-// each rounded to float once; zeros past the map.
-__device__ __forceinline__ void tile_v(const float* __restrict__ x, int g, int c, int H, int W,
-                                       int Cin, int th, int tw, float (&v)[16]) {
-  const int n = g / (th * tw);
-  const int r = g - n * th * tw;
-  const int y0 = (r / tw) * 2 - 1;
-  const int x0 = (r % tw) * 2 - 1;
-  double d[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int yy = y0 + i, xx = x0 + j;
-      d[i][j] = (yy >= 0 && yy < H && xx >= 0 && xx < W)
-                    ? x[(static_cast<size_t>(n * H + yy) * W + xx) * Cin + c]
-                    : 0.0;
-    }
-  double vv[4][4];
-  wt::sandwich<2, 4, false>(d, vv);
-#pragma unroll
-  for (int p = 0; p < 16; ++p) v[p] = static_cast<float>(vv[p / 4][p % 4]);
+constexpr int kTiles = 16;   // Winograd tiles an item: the rows of one m16 fragment
+constexpr int kCols = 128;   // output channels an item: kFrags n8 fragments a warp
+constexpr int kThreads = s8::kThreads;
+constexpr int kWarps = kThreads / 32;
+constexpr int kFrags = kCols / 8 / kWarps;
+constexpr int kRows = kTiles / kWarps;  // rows a warp quantizes
+constexpr int kBlocksPerSm = 2;
+constexpr int kPad = 16;  // bytes past Kp in a quantized row: 32 distinct banks a fragment
+constexpr int kBatch = 4;  // weight items a thread has in flight at once
+constexpr int kBatchV = kBatch * kTiles / (kCols / 4);  // and V items, in the same ratio
+
+static_assert(kCols == 8 * kFrags * kWarps, "a warp owns kFrags n8 fragments of the columns");
+static_assert(kTiles == kRows * kWarps, "a warp quantizes whole rows");
+static_assert(kCols / 4 % kTiles == 0 && kBatch * kTiles % (kCols / 4) == 0,
+              "a batch holds whole V items beside its weight items");
+
+struct Args {
+  const float* x;     // (N, H, W, Cin)
+  const int8_t* uq;   // (16, Cin, Cout)
+  const float* su;    // (16, Cout)
+  const float* scale;
+  const float* bias;
+  float* out;
+  float* m;           // M (16, T, Cout)
+  unsigned int* bar;  // the grid barrier
+  int N, H, W, Cin, Cout, relu, stash;
+  int groups, cg;     // the row scales' groups of cg channels (one in the stash)
+  int Kp, tw, hw, T, tile_blocks, col_blocks;
+  bool xvec, uvec;    // x read as float4s; u_q's rows read as words
+};
+
+// Shared memory of an item, in bytes: V of its rows in f32, the rows
+// quantized, the weight columns k-contiguous, the rows' scales.
+struct Layout {
+  int ld, aq, bq, sc, bytes;
+  __host__ __device__ Layout(int Kp, int groups) {
+    ld = Kp + kPad;
+    aq = kTiles * Kp * 4;
+    bq = aq + kTiles * ld;
+    sc = bq + kCols * ld;
+    bytes = sc + (kTiles * groups * 4 + 15) / 16 * 16;
+  }
+};
+
+// Tile t's output corner (n, oy0, ox0).
+__device__ __forceinline__ void tile_corner(const Args& a, int t, int& n, int& oy0, int& ox0) {
+  n = t / a.hw;
+  const int r = t - n * a.hw;
+  oy0 = r / a.tw * 2;
+  ox0 = r % a.tw * 2;
 }
 
-// kStash: the Cout > 128 branch (one scale per row over all of Cin).
-template <bool kStash>
-__global__ void __launch_bounds__(kThreads) winograd_int8_kernel(
-    const float* __restrict__ x, const int8_t* __restrict__ uq, const float* __restrict__ su,
-    const float* __restrict__ scale, const float* __restrict__ bias, float* __restrict__ out,
-    int N, int H, int W, int Cin, int Cout, int cg, int relu) {
-  extern __shared__ __align__(16) int smem[];
-  int(*Vq)[kWK][kTT] = reinterpret_cast<int(*)[kWK][kTT]>(smem);
-  int(*Uq)[kWK][kCOB] = reinterpret_cast<int(*)[kWK][kCOB]>(smem + 16 * kWK * kTT);
-  float* sv = reinterpret_cast<float*>(smem + kSmemWords);  // [kTT][16][groups]
+// Channels c .. c+3 of pixel (n, y, x), zero outside the map and past Cin.
+__device__ __forceinline__ float4 pixel4(const Args& a, int n, int y, int x, int c) {
+  if (y < 0 || y >= a.H || x < 0 || x >= a.W) return make_float4(0.f, 0.f, 0.f, 0.f);
+  const float* px = a.x + (static_cast<size_t>(n * a.H + y) * a.W + x) * a.Cin + c;
+  if (a.xvec) return __ldg(reinterpret_cast<const float4*>(px));
+  float v[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) v[e] = c + e < a.Cin ? __ldg(px + e) : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
 
-  const int groups = kStash ? 1 : Cin / cg;
-  const int glen = kStash ? Cin : cg;
-  const int tid = threadIdx.x;
-  const int tx = tid % kTX, ty = tid / kTX;
-  const int lane = tid % 32, warp = tid / 32;
-  const int th = (H + 1) / 2, tw = (W + 1) / 2;
-  const int nt = N * th * tw;
-  const int t0 = blockIdx.x * kTT;
-  const int co0 = blockIdx.y * kCOB;
+// The two nonzero entries of row i of Bt, in column order.
+struct BtRow {
+  int k[2];
+  double c[2];
+  __device__ __forceinline__ explicit BtRow(int i) {
+    bool first = true;
+#pragma unroll
+    for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float v = wt::Wino<2>::bt(ii, j);
+        if (v == 0.f || ii != i) continue;
+        if (first) {
+          k[0] = j;
+          c[0] = v;
+        } else {
+          k[1] = j;
+          c[1] = v;
+        }
+        first = false;
+      }
+  }
+};
 
-  // Pass 1: every row's scale, a warp per tile, a lane per channel.
-  for (int lt = warp; lt < kTT; lt += kThreads / 32) {
-    const int g = t0 + lt;
-    if (g >= nt) continue;
-    for (int grp = 0; grp < groups; ++grp) {
-      float m[16];
+// V[pi][pj] of one channel from its four pixels d[k][l] (k over the rows,
+// l over the columns that Bt's rows pi and pj select): wt::sandwich<2, 4,
+// false>'s FMA chain for that element, zero terms skipped, so equal to the
+// full transform's value.
+__device__ __forceinline__ float v_of(const BtRow& rp, const BtRow& cp, const float (&d)[2][2]) {
+  double t[2];
 #pragma unroll
-      for (int p = 0; p < 16; ++p) m[p] = 0.f;
-      for (int c = grp * glen + lane; c < (grp + 1) * glen; c += 32) {
-        float v[16];
-        tile_v(x, g, c, H, W, Cin, th, tw, v);
+  for (int l = 0; l < 2; ++l)
+    t[l] = fma(rp.c[1], static_cast<double>(d[1][l]),
+               fma(rp.c[0], static_cast<double>(d[0][l]), 0.0));
+  return static_cast<float>(fma(cp.c[1], t[1], fma(cp.c[0], t[0], 0.0)));
+}
+
+// M[p] of the item's kTiles tiles from t0 and kCols output channels from
+// co0 through store(row, column, value), rows and columns relative to the
+// item (the caller skips none: store checks t < T and co < Cout).
+template <class Store>
+__device__ __forceinline__ void position_item(const Args& a, const Layout& L, int p, int t0,
+                                              int co0, int8_t* smem, const Store& store) {
+  float* vf = reinterpret_cast<float*>(smem);
+  int8_t* aq = smem + L.aq;
+  int8_t* bq = smem + L.bq;
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int q4 = a.Kp / 4;
+  __syncthreads();  // the previous item is done with shared memory
+  // The weight scales of the thread's output columns, in flight from here.
+  const int row0 = lane / 4, col0 = warp * 8 * kFrags + 2 * (lane % 4);
+  float su[kFrags][2];
 #pragma unroll
-        for (int p = 0; p < 16; ++p) m[p] = fmaxf(m[p], fabsf(v[p]));
+  for (int f = 0; f < kFrags; ++f)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      su[f][e] = __ldg(a.su + p * a.Cout + min(co0 + col0 + 8 * f + e, a.Cout - 1));
+
+  // u_q[p]'s slice k-contiguous (items of four k by four columns) and V[p]
+  // of every (row, four channels), zero past T and Cin, in batches of
+  // kBatch weight items and kBatchV V items a thread: every
+  // weight word and pixel of a batch is requested before any is used, so a
+  // thread waits on memory once a batch (once an item at Kp <= 256).
+  const int8_t* up = a.uq + static_cast<size_t>(p) * a.Cin * a.Cout;
+  const BtRow rp(p / 4), cp(p % 4);
+  const int bitems = q4 * (kCols / 4), vitems = kTiles * q4;
+  for (int b0 = threadIdx.x, v0 = threadIdx.x; b0 < bitems;
+       b0 += kBatch * kThreads, v0 += kBatchV * kThreads) {
+    unsigned w[kBatch][4];
+    float4 d4[kBatchV][2][2];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = b0 + u * kThreads;
+      if (i >= bitems) break;
+      const int kq = i / (kCols / 4), nq = i % (kCols / 4);
+      if (a.uvec)
+        s8::rows4<true>(up, a.Cin, a.Cout, 4 * kq, co0 + 4 * nq, w[u]);
+      else
+        s8::rows4<false>(up, a.Cin, a.Cout, 4 * kq, co0 + 4 * nq, w[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatchV; ++u) {
+      const int i = v0 + u * kThreads;
+      if (i >= vitems) break;
+      const int r = i / q4, c = 4 * (i - r * q4);
+      int n, y0, x0;
+      tile_corner(a, t0 + r, n, y0, x0);
+      const bool live = t0 + r < a.T && c < a.Cin;
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+#pragma unroll
+        for (int l = 0; l < 2; ++l)
+          d4[u][k][l] = live ? pixel4(a, n, y0 - 1 + rp.k[k], x0 - 1 + cp.k[l], c)
+                             : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int i = b0 + u * kThreads;
+      if (i >= bitems) break;
+      const int kq = i / (kCols / 4), nq = i % (kCols / 4);
+      unsigned cw[4];
+      s8::transpose4(w[u], cw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        *reinterpret_cast<unsigned*>(bq + (4 * nq + e) * L.ld + 4 * kq) = cw[e];
+    }
+#pragma unroll
+    for (int u = 0; u < kBatchV; ++u) {
+      const int i = v0 + u * kThreads;
+      if (i >= vitems) break;
+      float v[4];
+#pragma unroll
+      for (int ch = 0; ch < 4; ++ch) {
+        float d[2][2];
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+#pragma unroll
+          for (int l = 0; l < 2; ++l) d[k][l] = reinterpret_cast<const float*>(&d4[u][k][l])[ch];
+        v[ch] = v_of(rp, cp, d);
       }
-#pragma unroll
-      for (int p = 0; p < 16; ++p) {
-        const float mx = wt::warp_max(m[p]);
-        if (lane == 0)
-          sv[(lt * 16 + p) * groups + grp] =
-              kStash ? (mx == 0.f ? 1.f : mx) / 127.f : wt::scale_from_max(mx);
-      }
+      reinterpret_cast<float4*>(vf)[i] = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
   __syncthreads();
 
-  // Pass 2: quantized products, int32 per group; f32 per row over groups.
-  int acc[16][kCPT];
-  float mm[16][kCPT];
+  // Each row's scale per group and its int8 values, a warp kRows rows side
+  // by side.
+  const int gq = a.groups == 1 ? q4 : a.cg / 4;  // float4s a group
+  const float4* row[kRows];
+  unsigned* dst[kRows];
 #pragma unroll
-  for (int p = 0; p < 16; ++p)
-#pragma unroll
-    for (int j = 0; j < kCPT; ++j) {
-      acc[p][j] = 0;
-      mm[p][j] = 0.f;
-    }
-  const int gt = t0 + ty;  // this thread's tile
-  for (int c0 = 0; c0 < Cin; c0 += kCK) {
-    const int grp = kStash ? 0 : c0 / cg;
-    // V of the stage, quantized, four channels to a word.
-    for (int idx = tid; idx < kTT * kWK; idx += kThreads) {
-      const int lt = idx / kWK;
-      const int w = idx - lt * kWK;
-      const int g = t0 + lt;
-      unsigned int word[16];
-#pragma unroll
-      for (int p = 0; p < 16; ++p) word[p] = 0u;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = c0 + 4 * w + e;
-        if (g < nt && c < Cin) {
-          float v[16];
-          tile_v(x, g, c, H, W, Cin, th, tw, v);
-#pragma unroll
-          for (int p = 0; p < 16; ++p) {
-            const int q = wt::quantize(v[p], sv[(lt * 16 + p) * groups + grp]);
-            word[p] |= static_cast<unsigned int>(q & 0xff) << (8 * e);
-          }
-        }
-      }
-#pragma unroll
-      for (int p = 0; p < 16; ++p) Vq[p][w][lt] = static_cast<int>(word[p]);
-    }
-    // The stage's slice of u_q; neighbouring threads take neighbouring
-    // output channels.
-    for (int idx = tid; idx < 16 * kWK * kCOB; idx += kThreads) {
-      const int p = idx / (kWK * kCOB);
-      const int rem = idx - p * (kWK * kCOB);
-      const int w = rem / kCOB;
-      const int co = co0 + rem - w * kCOB;
-      int q[4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = c0 + 4 * w + e;
-        q[e] = (c < Cin && co < Cout)
-                   ? static_cast<int>(uq[(static_cast<size_t>(p) * Cin + c) * Cout + co])
-                   : 0;
-      }
-      Uq[p][w][rem - w * kCOB] = wt::pack4(q[0], q[1], q[2], q[3]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int w = 0; w < kWK; ++w)
-#pragma unroll
-      for (int p = 0; p < 16; ++p) {
-        const int a = Vq[p][w][ty];
-        const int4 b = *reinterpret_cast<const int4*>(&Uq[p][w][tx * kCPT]);
-        acc[p][0] = __dp4a(a, b.x, acc[p][0]);
-        acc[p][1] = __dp4a(a, b.y, acc[p][1]);
-        acc[p][2] = __dp4a(a, b.z, acc[p][2]);
-        acc[p][3] = __dp4a(a, b.w, acc[p][3]);
-      }
-    __syncthreads();
-    if (!kStash && gt < nt && (c0 + kCK >= Cin || (c0 + kCK) % cg == 0)) {
-      // The group ends here: dequantize its product and add it in group order.
-#pragma unroll
-      for (int p = 0; p < 16; ++p) {
-        const float s = sv[(ty * 16 + p) * groups + grp];
-#pragma unroll
-        for (int j = 0; j < kCPT; ++j) {
-          const int co = min(co0 + tx * kCPT + j, Cout - 1);
-          const float part = wt::dequant(acc[p][j], s, su[p * Cout + co]);
-          mm[p][j] = grp == 0 ? part : __fadd_rn(mm[p][j], part);
-          acc[p][j] = 0;
-        }
-      }
-    }
+  for (int rr = 0; rr < kRows; ++rr) {
+    row[rr] = reinterpret_cast<const float4*>(vf + (warp + rr * kWarps) * a.Kp);
+    dst[rr] = reinterpret_cast<unsigned*>(aq + (warp + rr * kWarps) * L.ld);
   }
+  for (int g = 0; g < a.groups; ++g) {
+    float m[kRows] = {};
+    for (int j = g * gq + lane; j < (g + 1) * gq; j += 32)
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) m[rr] = s8::abs_max4(m[rr], row[rr][j]);
+    float s[kRows];
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr) {
+      m[rr] = wt::warp_max(m[rr]);
+      s[rr] = a.stash ? (m[rr] == 0.f ? 1.f : m[rr]) / 127.f : wt::scale_from_max(m[rr]);
+      if (lane == 0) sc[(warp + rr * kWarps) * a.groups + g] = s[rr];
+    }
+    for (int j = g * gq + lane; j < (g + 1) * gq; j += 32)
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) dst[rr][j] = s8::quantize4(row[rr][j], s[rr]);
+  }
+  __syncthreads();
 
-  if (gt >= nt) return;
-  const int n = gt / (th * tw);
-  const int r = gt - n * th * tw;
-  const int oy0 = (r / tw) * 2;
-  const int ox0 = (r % tw) * 2;
+  // The warp's 16 x (8 kFrags) outputs, an int32 sum a group, dequantized
+  // and added in group order.
+  const int klen = a.groups == 1 ? a.Kp : a.cg;
+  float out[kFrags][4];
+  for (int g = 0; g < a.groups; ++g) {
+    int acc[kFrags][4] = {};
+    for (int ks = g * klen; ks < (g + 1) * klen; ks += 32) {
+      unsigned fa[4];
+      s8::frag_a(aq, L.ld, 0, ks, fa);
 #pragma unroll
-  for (int j = 0; j < kCPT; ++j) {
-    const int co = co0 + tx * kCPT + j;
-    if (co >= Cout) continue;
-    double md[4][4];
-#pragma unroll
-    for (int p = 0; p < 16; ++p)
-      md[p / 4][p % 4] = kStash ? wt::dequant(acc[p][j], sv[ty * 16 + p], su[p * Cout + co])
-                                : mm[p][j];
-    double y[2][2];
-    wt::sandwich<2, 2, true>(md, y);
-#pragma unroll
-    for (int oi = 0; oi < 2; ++oi)
-#pragma unroll
-      for (int oj = 0; oj < 2; ++oj) {
-        const int oy = oy0 + oi, ox = ox0 + oj;
-        if (oy < H && ox < W) {
-          float val = wt::bn_rn(static_cast<float>(y[oi][oj]), scale[co], bias[co]);
-          if (relu) val = fmaxf(val, 0.f);
-          out[(static_cast<size_t>(n * H + oy) * W + ox) * Cout + co] = val;
-        }
+      for (int f = 0; f < kFrags; ++f) {
+        unsigned fb[2];
+        s8::frag_b(bq, L.ld, warp * 8 * kFrags + 8 * f, ks, fb);
+        s8::mma(acc[f], fa, fb);
       }
+    }
+#pragma unroll
+    for (int f = 0; f < kFrags; ++f)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float part =
+            wt::dequant(acc[f][e], sc[(row0 + e / 2 * 8) * a.groups + g], su[f][e % 2]);
+        out[f][e] = g == 0 ? part : __fadd_rn(out[f][e], part);
+      }
+  }
+#pragma unroll
+  for (int f = 0; f < kFrags; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) store(row0 + e / 2 * 8, col0 + 8 * f + e % 2, out[f][e]);
+}
+
+// y = At M At^T of tile t at output channel co, rounded once, then BN (+
+// ReLU), stored clipped at the map's edges.
+__device__ __forceinline__ void inverse(const Args& a, int t, int co, const float (&mp)[16]) {
+  double md[4][4];
+#pragma unroll
+  for (int p = 0; p < 16; ++p) md[p / 4][p % 4] = mp[p];
+  double y[2][2];
+  wt::sandwich<2, 2, true>(md, y);
+  int n, oy0, ox0;
+  tile_corner(a, t, n, oy0, ox0);
+  const float s = __ldg(a.scale + co), b = __ldg(a.bias + co);
+#pragma unroll
+  for (int oi = 0; oi < 2; ++oi)
+#pragma unroll
+    for (int oj = 0; oj < 2; ++oj) {
+      const int oy = oy0 + oi, ox = ox0 + oj;
+      if (oy < a.H && ox < a.W) {
+        float val = wt::bn_rn(static_cast<float>(y[oi][oj]), s, b);
+        if (a.relu) val = fmaxf(val, 0.f);
+        a.out[(static_cast<size_t>(n * a.H + oy) * a.W + ox) * a.Cout + co] = val;
+      }
+    }
+}
+
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) winograd_int8_kernel(Args a) {
+  extern __shared__ __align__(16) int8_t smem[];
+  const Layout L(a.Kp, a.groups);
+  const int items = 16 * a.tile_blocks * a.col_blocks;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int p = item % 16, tc = item / 16;
+    const int t0 = tc / a.col_blocks * kTiles, co0 = tc % a.col_blocks * kCols;
+    position_item(a, L, p, t0, co0, smem, [&](int r, int c, float v) {
+      if (t0 + r < a.T && co0 + c < a.Cout)
+        a.m[(static_cast<size_t>(p) * a.T + t0 + r) * a.Cout + co0 + c] = v;
+    });
+  }
+  wt::grid_sync(a.bar);
+  const size_t tc = static_cast<size_t>(a.T) * a.Cout;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * kThreads + threadIdx.x; i < tc;
+       i += static_cast<size_t>(gridDim.x) * kThreads) {
+    float mp[16];
+#pragma unroll
+    for (int p = 0; p < 16; ++p) mp[p] = __ldcg(a.m + p * tc + i);
+    inverse(a, static_cast<int>(i / a.Cout), static_cast<int>(i % a.Cout), mp);
   }
 }
 
-template <bool kStash>
-int launch(const float* x, const int8_t* uq, const float* su, const float* scale,
-           const float* bias, float* out, int N, int H, int W, int Cin, int Cout, int cg,
-           int relu, cudaStream_t stream) {
-  const int groups = kStash ? 1 : Cin / cg;
-  const size_t smem = 4 * (static_cast<size_t>(kSmemWords) + static_cast<size_t>(kTT) * 16 * groups);
-  const void* fn = reinterpret_cast<const void*>(winograd_int8_kernel<kStash>);
-  if (smem > 48 * 1024) {
-    const cudaError_t e =
-        cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+const void* kernel() { return reinterpret_cast<const void*>(winograd_int8_kernel); }
+
+// The blocks of the cooperative grid that the current device holds
+// resident with `bytes` of dynamic shared memory, at most kBlocksPerSm an
+// SM, after letting the kernel take that much (the attribute only ever
+// grows, so a size allowed once stays allowed); 0 on error. Computed once
+// per device and size: the served layers alternate between two sizes.
+int resident_blocks(int bytes) {
+  constexpr int kSizes = 8;
+  static int allowed[64] = {};
+  static int cache[64][kSizes][2] = {};  // [device][slot] = {bytes, blocks}
+  static int next[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  for (int i = 0; i < kSizes; ++i)
+    if (cache[dev][i][0] == bytes) return cache[dev][i][1];
+  if (bytes > 48 * 1024 && bytes > allowed[dev]) {
+    if (cudaFuncSetAttribute(kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) !=
+        cudaSuccess)
+      return 0;
+    allowed[dev] = bytes;
   }
-  const int nt = N * ((H + 1) / 2) * ((W + 1) / 2);
-  const dim3 grid((nt + kTT - 1) / kTT, (Cout + kCOB - 1) / kCOB);
-  winograd_int8_kernel<kStash><<<grid, kThreads, smem, stream>>>(x, uq, su, scale, bias, out, N,
-                                                                 H, W, Cin, Cout, cg, relu);
-  return static_cast<int>(cudaGetLastError());
+  const int blocks = cooperative_grid(kernel(), bytes, kThreads, kBlocksPerSm);
+  if (blocks > 0) {
+    int* slot = cache[dev][next[dev]++ % kSizes];
+    slot[0] = bytes;
+    slot[1] = blocks;
+  }
+  return blocks;
 }
 
 }  // namespace
 
-// stash = 1 takes the Cout > 128 branch (one scale per row over all of Cin,
-// the JAX kernel's quantized V stash), 0 the per-group branch.
+// The host's plan (kernels/quantized.py::winograd_int8_plan): Kp, Cin
+// padded to a multiple of s8::kKAlign; `tiles` and `cols`, an item's
+// Winograd tiles and output channels (kTiles, kCols); `blocks`, the
+// cooperative grid (at most what the device holds resident). stash = 1
+// takes the Cout > 128 branch (one scale per row over all of Cin, the JAX
+// kernel's quantized V stash), 0 the per-group branch. ws, ws_words 4-byte
+// words: the grid barrier at word 0 and M (16, T, Cout) in f32 from word
+// kWorkspaceAlign, T = N * ceil(H / 2) * ceil(W / 2).
 extern "C" int winograd_int8_conv3x3_bn(const float* x, const int8_t* uq, const float* su,
                                         const float* scale, const float* bias, float* out,
-                                        int N, int H, int W, int Cin, int Cout, int stash,
-                                        int relu, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
+                                        float* ws, long long ws_words, int N, int H, int W,
+                                        int Cin, int Cout, int stash, int relu, int Kp, int tiles,
+                                        int cols, int blocks, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || tiles != kTiles || cols != kCols ||
+      Kp != (Cin + s8::kKAlign - 1) / s8::kKAlign * s8::kKAlign || blocks <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
+  const int th = (H + 1) / 2, tw = (W + 1) / 2;
   const int cg = Cin % 128 == 0 ? 128 : Cin;
-  if (stash) return launch<true>(x, uq, su, scale, bias, out, N, H, W, Cin, Cout, cg, relu, s);
-  return launch<false>(x, uq, su, scale, bias, out, N, H, W, Cin, Cout, cg, relu, s);
+  Args a{x, uq, su, scale, bias, out, ws + kWorkspaceAlign, reinterpret_cast<unsigned int*>(ws),
+         N, H, W, Cin, Cout, relu, stash, stash ? 1 : Cin / cg, cg, Kp, tw, th * tw, N * th * tw,
+         0, (Cout + kCols - 1) / kCols,
+         Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0,
+         Cout % 4 == 0 && reinterpret_cast<uintptr_t>(uq) % 4 == 0};
+  a.tile_blocks = (a.T + kTiles - 1) / kTiles;
+  if (ws_words < static_cast<long long>(kWorkspaceAlign) + 16LL * a.T * Cout)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int bytes = Layout(Kp, a.groups).bytes;
+  const int resident = resident_blocks(bytes);
+  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto s = static_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(kernel(), dim3(blocks), dim3(kThreads), args, bytes, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
 }

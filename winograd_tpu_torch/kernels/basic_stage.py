@@ -7,8 +7,10 @@ Each block is two stride-1 SAME 3x3 convs as im2col GEMMs,
 h1 = relu(conv_a(x) * s_a + b_a), out = relu(conv_b(h1) * s_b + b_b + x).
 The CUDA kernels are csrc/basic_stage.cu and csrc/basic_stage_int8.cu,
 persistent kernels whose conv phases run over all N*H*W rows one grid
-barrier apart; the plain twins run the same chain block by block with the
-plain versions of the per-layer direct kernels. Parameters arrive stacked
+barrier apart (the int8 one on the int8 tensor cores, each im2col row
+quantized once, its grid and K split by basic_stage_int8_plan); the plain
+twins run the same chain block by block with the plain versions of the
+per-layer direct kernels. Parameters arrive stacked
 per block: w9_a/w9_b (B, 9C, C), BN rows s_a/b_a/s_b/b_b (B, 1, C)
 (stack_basic_stage_params); at int8 w9_a_q/w9_b_q (B, 9C, C) int8 with
 weight scales w9_a_s/w9_b_s (B, 1, C) (quantize_basic_stage_params).
@@ -26,9 +28,10 @@ import torch
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct_plain
 from winograd_tpu_torch.kernels.quantized import (
-    _numpy, _workspace_words, ceil4, conv3x3_bn_int8_plain, pad_to, pad_windows,
-    quantize_weights,
+    DirectInt8Plan, _numpy, _workspace_words, ceil4, conv3x3_bn_int8_plain, direct_int8_plan,
+    pad_to, pad_windows, quantize_weights,
 )
+from winograd_tpu_torch.kernels.splitk import H100_SMS
 
 STACK_KEYS = ("w9_a", "s_a", "b_a", "w9_b", "s_b", "b_b")
 QSTACK_KEYS = ("w9_a_q", "w9_a_s", "s_a", "b_a", "w9_b_q", "w9_b_s", "s_b", "b_b")
@@ -95,6 +98,16 @@ def pad_basic_stage_int8(q: Dict, c: int) -> Dict:
         for key in (f"w9_{leg}_s", f"s_{leg}", f"b_{leg}"):
             q[key] = pad_to(q[key], 2, c)
     return q
+
+
+def basic_stage_int8_plan(n: int, h: int, w: int, c: int, sms: int = H100_SMS) -> DirectInt8Plan:
+    """The cooperative grid and the K split of csrc/basic_stage_int8.cu's
+    convs at (n, h, w, c) on a card with `sms` SMs: each conv is the int8
+    direct 3x3's product, (P, 9 * C) x (9 * C, C) on mma_int8.cuh's tiles,
+    split as direct_int8_plan splits it (K towards a wave of
+    DIRECT_INT8_BLOCKS_PER_SM blocks an SM in ranges of at least
+    DIRECT_INT8_MIN_CHUNK; the C entry checks the split and the grid)."""
+    return direct_int8_plan(n, h, w, c, c, sms)
 
 
 def _check_stack(stacked: Dict, keys, nb: int, c: int) -> None:
@@ -165,15 +178,31 @@ def basic_stage_int8(x, qstacked: Dict) -> torch.Tensor:
         f32 = [x] + [q[k] for k in QSTACK_KEYS if not k.endswith("_q")]
         _build.check_tensors(*f32)
         _build.check_tensors(q["w9_a_q"], q["w9_b_q"], dtype=torch.int8, device=x.device)
-        words = _workspace_words("basic_stage_int8", "basic_stage_int8", x.device.index, n, h, w, c)
-        ws = torch.empty(words, device=x.device, dtype=torch.float32)
-        out = torch.empty_like(x)
-        _build.launch(
-            "basic_stage_int8", "basic_stage_int8", (n, h, w, c, nb), x.device,
-            *(_build.ptr(t) for t in (x, *(q[k] for k in QSTACK_KEYS))),
-            _build.ptr(out), _build.ptr(ws), ctypes.c_longlong(words),
-            *map(_build.cint, (n, h, w, c, nb)),
-        )
+        out = basic_stage_int8_planned(
+            x, q, basic_stage_int8_plan(n, h, w, c, _build.sm_count(x.device)))
     if c != c_x:
         out = out[..., :c_x].contiguous()
     return out[0] if squeeze else out
+
+
+def basic_stage_int8_planned(x, q: Dict, plan: DirectInt8Plan) -> torch.Tensor:
+    """basic_stage_int8's launch on CUDA tensors under an explicit plan (the
+    wrapper passes basic_stage_int8_plan's; tools/chip_split_sweep.py times
+    others). x: (N, H, W, C), C a multiple of 4; operands as
+    basic_stage_int8 checks them."""
+    n, h, w, c = x.shape
+    nb = q["w9_a_q"].shape[0]
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads im2col rows as float4s
+    cut = (plan.blocks, plan.splits, plan.chunk)
+    words = _workspace_words("basic_stage_int8", "basic_stage_int8", x.device.index,
+                             n, h, w, c, nb, *cut)
+    ws = torch.empty(words, device=x.device, dtype=torch.float32)
+    out = torch.empty_like(x)
+    _build.launch(
+        "basic_stage_int8", "basic_stage_int8", (n, h, w, c, nb), x.device,
+        *(_build.ptr(t) for t in (x, *(q[k] for k in QSTACK_KEYS))),
+        _build.ptr(out), _build.ptr(ws), ctypes.c_longlong(words),
+        *map(_build.cint, (n, h, w, c, nb, *cut)),
+    )
+    return out

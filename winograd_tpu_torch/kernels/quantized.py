@@ -11,7 +11,8 @@ for a 1x1, an im2col row over all 9*C gathered values (zero padding
 included) for a 3x3.
 
 Kernels (CUDA C++ for sm_90a, csrc/*_int8.cu on csrc/gemm_int8.cuh's
-arithmetic; every one takes any channel count, see pad_to):
+arithmetic and csrc/mma_int8.cuh's s8 mma.sync; every one takes any
+channel count, see pad_to):
 
 * conv1x1_bn_int8 -> csrc/pointwise_int8.cu (_quant_matmul_kernel): a
   GEMV at a few rows, else the product on the int8 tensor cores, rows
@@ -30,7 +31,10 @@ arithmetic; every one takes any channel count, see pad_to):
   transition_int8_plan;
 * conv3x3_bn_winograd_int8 -> csrc/winograd_int8.cu (_winograd_int8_kernel):
   F(2,3) with V quantized per row (a 4x4 tile at one of its 16 positions)
-  and per-position filter scales (quantize_winograd_filter).
+  and per-position filter scales (quantize_winograd_filter); work items of
+  16 tiles x one position x 128 output channels, V transformed and
+  quantized once an item, the products on the int8 tensor cores, the
+  inverse after a grid barrier, the grid by winograd_int8_plan.
 
 The plain twins compute the integer product as a float64 matmul of the int8
 values (exact: every |sum| < 2^53) and cast it as int32 -> float32 would;
@@ -499,6 +503,83 @@ def pointwise_int8_plan(p: int, k: int, n: int, sms: int = H100_SMS,
     return PointwiseInt8Plan(path, kp, DIRECT_INT8_TILE, tiles, blocks, split.splits, split.chunk)
 
 
+# The plan of a csrc/winograd_int8.cu launch. The kernel's geometry, which
+# its C entry checks every plan against (tests/test_torch_splitk.py reads it
+# from the source): a work item is WINO_INT8_TILES Winograd tiles by
+# WINO_INT8_COLS output channels at one position, the items are dealt to a
+# resident cooperative grid of at most WINO_INT8_BLOCKS_PER_SM blocks an SM,
+# and the padded Cin is a multiple of DIRECT_INT8_K_ALIGN. Each item's
+# shared memory (winograd_int8_smem) grows with the padded Cin; the grid
+# takes one block an SM where two do not fit.
+WINO_INT8_TILES = 16
+WINO_INT8_COLS = 128
+WINO_INT8_BLOCKS_PER_SM = 2
+WINO_INT8_PAD = 16
+H100_SMEM_PER_SM = 233472     # bytes of shared memory an SM holds (228 KB)
+H100_SMEM_PER_BLOCK = 232448  # the most one block may take (227 KB)
+SMEM_RESERVED_PER_BLOCK = 1024
+
+
+def wino_int8_groups(cin: int, cout: int) -> int:
+    """The int8 Winograd's row-scale groups: one in the stash branch, else
+    Cin / WINO_INT8_GROUP where that divides Cin, else one."""
+    return 1 if wino_int8_stash(cout) or cin % WINO_INT8_GROUP else cin // WINO_INT8_GROUP
+
+
+def winograd_int8_smem(kp: int, groups: int) -> int:
+    """Bytes of shared memory a block of csrc/winograd_int8.cu takes (its
+    Layout): V of the item's rows in f32, the rows and weight columns
+    quantized (rows of kp + WINO_INT8_PAD bytes), the rows' scales."""
+    ld = kp + WINO_INT8_PAD
+    scales = -(-WINO_INT8_TILES * groups * 4 // 16) * 16
+    return WINO_INT8_TILES * kp * 4 + (WINO_INT8_TILES + WINO_INT8_COLS) * ld + scales
+
+
+class WinogradInt8Plan(NamedTuple):
+    """How csrc/winograd_int8.cu runs one conv: the padded Cin, the map's
+    Winograd tiles, the items' tile and column blocks, and the cooperative
+    grid's blocks."""
+
+    kp: int
+    tiles: int
+    tile_blocks: int
+    col_blocks: int
+    blocks: int
+
+    def items(self) -> int:
+        """Work items: 16 positions x tile blocks x column blocks."""
+        return 16 * self.tile_blocks * self.col_blocks
+
+    def workspace_words(self, cout: int) -> int:
+        """The grid barrier and M (16, tiles, cout) in f32 from word
+        WORKSPACE_ALIGN."""
+        return WORKSPACE_ALIGN + 16 * self.tiles * cout
+
+    def args(self) -> tuple:
+        """The plan as the C entry takes it: Kp, an item's tiles and
+        columns, blocks."""
+        return (self.kp, WINO_INT8_TILES, WINO_INT8_COLS, self.blocks)
+
+
+def winograd_int8_plan(n: int, h: int, w: int, cin: int, cout: int,
+                       sms: int = H100_SMS) -> WinogradInt8Plan:
+    """The work items and grid of an (n, h, w, cin) -> cout int8 F(2,3) on a
+    card with `sms` SMs: one block an item, at most a resident wave of
+    WINO_INT8_BLOCKS_PER_SM blocks an SM (one where two blocks' shared
+    memory does not fit); a Cin past one block's shared memory is refused."""
+    kp = _round_up(cin, DIRECT_INT8_K_ALIGN)
+    smem = winograd_int8_smem(kp, wino_int8_groups(cin, cout))
+    if smem > H100_SMEM_PER_BLOCK:
+        raise ValueError(f"the int8 Winograd holds at most {H100_SMEM_PER_BLOCK} bytes a "
+                         f"block, not {smem} (Cin {cin})")
+    tiles = n * -(-h // 2) * -(-w // 2)
+    tile_blocks, col_blocks = -(-tiles // WINO_INT8_TILES), -(-cout // WINO_INT8_COLS)
+    per_sm = min(WINO_INT8_BLOCKS_PER_SM,
+                 H100_SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
+    return WinogradInt8Plan(kp, tiles, tile_blocks, col_blocks,
+                            min(16 * tile_blocks * col_blocks, per_sm * sms))
+
+
 # The int8 kernels pack four k to a 32-bit word and take channel counts that
 # are multiples of 4. The wrappers pad any other count with zero channels
 # before they dispatch: zero input channels and zero weight rows; a padded
@@ -679,8 +760,10 @@ def conv3x3_bn_winograd_int8(x, u_q, s_u, scale, bias, relu: bool = True) -> tor
 
     x: (H, W, Cin) or (N, H, W, Cin) float32; u_q (16, Cin, Cout) int8 and
     s_u (16, Cout) from quantize_winograd_filter(transform_filter(w, m=2));
-    scale, bias: (Cout,). Cout above 128 must be a multiple of 128. CPU
-    tensors run the plain version; CUDA tensors launch csrc/winograd_int8.cu."""
+    scale, bias: (Cout,). Cout above 128 must be a multiple of 128; on the
+    card Cin is bounded by a block's shared memory (winograd_int8_plan: at
+    most 1088). CPU tensors run the plain version; CUDA tensors launch
+    csrc/winograd_int8.cu."""
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
@@ -688,21 +771,37 @@ def conv3x3_bn_winograd_int8(x, u_q, s_u, scale, bias, relu: bool = True) -> tor
     if u_q.shape[0] != 16 or u_q.shape[1] != cin:
         raise ValueError(f"u_q {tuple(u_q.shape)} is not an F(2,3) filter for {cin} channels")
     cout = u_q.shape[2]
-    stash = wino_int8_stash(cout)
     if x.device.type == "cpu":
         out = conv3x3_bn_winograd_int8_plain(x, u_q, s_u, scale, bias, relu)
     else:
         _build.check_operands(scale, bias, cout, x, s_u)
         _check_shapes([("s_u", s_u, (16, cout))])
         _build.check_tensors(u_q, dtype=torch.int8, device=x.device)
-        out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
-        ptr, c = _build.ptr, _build.cint
-        _build.launch(
-            "winograd_int8", "winograd_int8_conv3x3_bn", (n, h, w, cin, cout, bool(relu)),
-            x.device, ptr(x), ptr(u_q), ptr(s_u), ptr(scale), ptr(bias), ptr(out),
-            c(n), c(h), c(w), c(cin), c(cout), c(stash), c(relu),
-        )
+        out = conv3x3_bn_winograd_int8_planned(
+            x, u_q, s_u, scale, bias, relu,
+            winograd_int8_plan(n, h, w, cin, cout, _build.sm_count(x.device)))
     return out[0] if squeeze else out
+
+
+def conv3x3_bn_winograd_int8_planned(x, u_q, s_u, scale, bias, relu: bool,
+                                     plan: WinogradInt8Plan) -> torch.Tensor:
+    """conv3x3_bn_winograd_int8's launch on CUDA tensors under an explicit
+    plan (the wrapper passes winograd_int8_plan's; tools/chip_split_sweep.py
+    times other grids). x: (N, H, W, Cin); operands as
+    conv3x3_bn_winograd_int8 checks them."""
+    n, h, w, cin = x.shape
+    cout = u_q.shape[2]
+    words = plan.workspace_words(cout)
+    ws = torch.empty(words, device=x.device, dtype=torch.float32)
+    out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
+    ptr, c = _build.ptr, _build.cint
+    _build.launch(
+        "winograd_int8", "winograd_int8_conv3x3_bn", (n, h, w, cin, cout, bool(relu)),
+        x.device, ptr(x), ptr(u_q), ptr(s_u), ptr(scale), ptr(bias), ptr(out),
+        ptr(ws), ctypes.c_longlong(words), c(n), c(h), c(w), c(cin), c(cout),
+        c(wino_int8_stash(cout)), c(relu), *map(c, plan.args()),
+    )
+    return out
 
 
 def resnet_stage_int8(x, qstacked: Dict, mid_algo: str = "auto") -> torch.Tensor:
