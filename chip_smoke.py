@@ -58,7 +58,8 @@ Phases, each of which must pass (exit 1 otherwise):
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
    14->7 transition at N=8; the stem at N=8 in both precisions; both basic
    stages at N=8 and at one block, the ResNet-18 run; the int8 Winograd at
-   N=8, 14x14x256 and 28x28x128; the pointwise head and conv5_x reduce
+   N=8, 14x14x256 and 28x28x128, and at Cin 1152 -> 128 and 2048 -> 256 on
+   14x14 (WIDE_WINOGRAD_INT8: K walked in spans); the pointwise head and conv5_x reduce
    at N=8; the int8 pointwise head at N=8; the f32 and int8 direct 3x3s at
    N=8, 7x7x512), on seeded inputs. Bound: max abs error <= 1e-4 *
    max(1, max|plain|); the int8 direct 3x3, stage, transition, pointwise,
@@ -68,11 +69,12 @@ Phases, each of which must pass (exit 1 otherwise):
    basic stage and Winograd held to 0 since their redesign on the tensor
    cores, 1e-3 before). One JSON line per shape:
    error; the K split of the split-K kernels ("splits": pointwise, direct,
-   direct_int8, pointwise_int8 and basic_stage_int8, from their wrappers'
+   direct_int8, pointwise_int8 and both basic stages, from their wrappers'
    plans, pointwise_int8 with its plan's "route", GEMV, one_pass or
    cooperative; the f32 transition's splits of its reduce, mid and expand;
    for the f32 Winograd its plan's Cin splits); the int8 Winograd's plan
-   (its items' "tile_blocks" and "col_blocks", its grid's "blocks");
+   (its items' "tile_blocks" and "col_blocks", its grid's "blocks", the
+   "chunk" of K an item stages at once);
    device times of the kernel, its plain version and the library call (20
    calls captured in a CUDA graph, the median of 20 replays between CUDA
    events, divided by 20; inputs stay in L2 between calls); "wrapper_ms",
@@ -85,9 +87,9 @@ Phases, each of which must pass (exit 1 otherwise):
    rate; the bf16 stem's products and the int8 stage's bf16-filter F(2,3)
    products (as two BF16 passes, the JAX kernel's hi/lo split) at the BF16
    rate; the tensor-core products of the pointwise kernel (P > 8), the
-   direct 3x3, the f32 Winograd, the f32 stage and the f32 transition
-   (their reduce, mid and expand) as three TF32 passes (their 3xTF32
-   split) at the TF32 rate; the
+   direct 3x3, the f32 Winograd, the f32 stage, the f32 transition (their
+   reduce, mid and expand) and the f32 basic stage (its 2B convs) as three
+   TF32 passes (their 3xTF32 split) at the TF32 rate; the
    pointwise GEMV's (P <= 8) and the other f32 GEMMs, Winograd transforms,
    epilogues (4 FLOPs an output, 5 with a residual) and int8 quantization
    (2 a quantized value) at the FP32 rate; the bf16-filter Winograd's
@@ -174,6 +176,10 @@ SOURCES = {
     "basic_stage_int8": ("winograd_tpu/kernels/basic_stage.py:202",
                          ["winograd_tpu/kernels/basic_stage.py:202 _basic_stage_int8_kernel"]),
 }
+# The int8 Winograd past one span of K (kernels/quantized.py::
+# WINO_INT8_CHUNK): nine 128-channel groups, and the stash over 2048
+# channels. Checked against the twin like every shape, counted in no image.
+WIDE_WINOGRAD_INT8 = [(1, 14, 14, 1152, 128, True), (1, 14, 14, 2048, 256, True)]
 # The twin's arithmetic (quantized once a row, exact int32 sums, epilogues
 # rounded as the twin rounds, the int8 Winograd's transforms in FP64 rounded
 # once): the kernel equals its twin. So does the stem at "bf16" (its shapes
@@ -497,7 +503,7 @@ def main() -> int:
         p = n * h * w
         return (lambda: bs.basic_stage_fused(x, stacked),
                 lambda: bs.basic_stage_fused_plain(x, stacked), lib,
-                {FP32_FLOPS: nb * 2 * 2 * p * 9 * c * c},
+                {TF32_FLOPS: nb * 3 * 2 * 2 * p * 9 * c * c, FP32_FLOPS: nb * (4 + 5) * p * c},
                 4 * (2 * p * c + nb * (2 * 9 * c * c + 4 * c)))
 
     # -- int8 cases ---------------------------------------------------------
@@ -814,7 +820,8 @@ def main() -> int:
         "stem": [(8, 224, 224, 3, 64, "f32"), (8, 224, 224, 3, 64, "bf16")],
         "basic_stage": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "basic_stage_int8": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
-        "winograd_int8": [(8, 14, 14, 256, 256, True), (8, 28, 28, 128, 128, True)],
+        "winograd_int8": [(8, 14, 14, 256, 256, True), (8, 28, 28, 128, 128, True),
+                          *WIDE_WINOGRAD_INT8],
         "pointwise": [(8, 2048, 1000, False), (392, 2048, 512, True)],
         "pointwise_int8": [(8, 2048, 1000, False)],
         "direct_int8": [(8, 7, 7, 512, 512, False)],
@@ -838,12 +845,13 @@ def main() -> int:
         "transition": lambda *shape: [s.splits for s in transition_plan(*shape, sms)[1:]],
         "basic_stage_int8": lambda n, h, w, c, nb: bs.basic_stage_int8_plan(
             n, h, w, c, sms).splits,
+        "basic_stage": lambda n, h, w, c, nb: bs.basic_stage_plan(n, h, w, c, sms).conv.splits,
     }
 
     def winograd_int8_cut(n, h, w, cin, cout, relu):
         plan = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
         return {"tile_blocks": plan.tile_blocks, "col_blocks": plan.col_blocks,
-                "blocks": plan.blocks}
+                "blocks": plan.blocks, "chunk": plan.chunk}
 
     plans_of = {
         "pointwise_int8": lambda p, k, n, relu: {

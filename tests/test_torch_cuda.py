@@ -9,7 +9,10 @@ all-zero image (every row's scale 1); the split-K pointwise kernel at the
 served small-P shapes, a ragged last split and one split, bit-identical
 from call to call, the split-K direct 3x3 at its served 7x7x512 shape,
 the int8 direct 3x3 and stage on the tensor cores held to exact equality
-with their twins (the stage at its served shapes too), and every int8
+with their twins (the stage at its served shapes too), the int8 Winograd
+at Cin past one span of K (1152 and 2048) and in spans at narrow widths,
+the f32 basic stage on the 3xTF32 tensor cores at its served shapes under
+any split, repeating to the bit, and every int8
 entry at channel counts that its wrapper pads; the f32 Winograd and stage
 on the tensor cores at their served shapes (N=1 and N=8, both mids, the
 F(4,3) check shape), their plans filling a wave of SMs and two calls equal
@@ -50,8 +53,8 @@ from winograd_tpu_torch.kernels.stage import (
 )
 from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_plain
 from winograd_tpu_torch.kernels.transition import (
-    fuse_transition_weights, transition_block_fused, transition_block_fused_plain,
-    transition_block_fused_planned, transition_plan,
+    TRANSITION_STEP, fuse_transition_weights, transition_block_fused,
+    transition_block_fused_plain, transition_block_fused_planned, transition_plan,
 )
 from winograd_tpu_torch.kernels.splitk import split_k
 from winograd_tpu_torch.kernels.winograd import (
@@ -477,9 +480,11 @@ def _basic_blocks(rng, nb, c):
 
 
 # (N, H=W, C, blocks): N=3, one block (ResNet-18's run), channels off 64 and
-# 128, conv5_x's 7x7x512 at two blocks (36 K splits), K splits with a ragged
-# last range; the first image all zero where N > 1 (every row's scale 1).
-BASIC_SHAPES = [(3, 7, 40, 1), (1, 7, 512, 2), (2, 5, 20, 3), (8, 7, 36, 2), (1, 9, 68, 1)]
+# 128, conv5_x's 7x7x512 at two blocks (29 K splits in the f32 plan), K
+# splits with a ragged last range, C = 6 (the f32 kernel's 4-byte copies);
+# the first image all zero where N > 1 (every row's scale 1).
+BASIC_SHAPES = [(3, 7, 40, 1), (1, 7, 512, 2), (2, 5, 20, 3), (8, 7, 36, 2), (1, 9, 68, 1),
+                (2, 5, 6, 2)]
 
 
 @pytest.mark.parametrize("n,hw,c,nb", BASIC_SHAPES)
@@ -490,6 +495,46 @@ def test_basic_stage_edges_and_batches(dev, n, hw, c, nb):
     if n > 1:
         x[0] = 0.0
     _agree(bs.basic_stage_fused(x, stacked), bs.basic_stage_fused_plain(x, stacked))
+
+
+def _basic_f32(rng, dev, n, hw, c, nb):
+    stacked = {k: v.to(dev) for k, v in bs.stack_basic_stage_params(_basic_blocks(rng, nb, c)).items()}
+    x = _r(rng, dev, n, hw, hw, c).abs()
+    if n > 1:
+        x[0] = 0.0
+    return x, stacked
+
+
+# The served f32 basic stage (N, H=W, C, blocks): ResNet-34's conv5_x run at
+# N=1 and N=8 and ResNet-18's one block, on the 3xTF32 tensor cores: within
+# the f32 bar of the twin, two calls equal to the bit, and within the bar
+# under every split the sweep may pick (one split too).
+@pytest.mark.parametrize("n,hw,c,nb", [(1, 7, 512, 2), (8, 7, 512, 2), (1, 7, 512, 1)])
+def test_basic_stage_served_shapes(dev, n, hw, c, nb):
+    x, stacked = _basic_f32(np.random.default_rng(n + nb + 7), dev, n, hw, c, nb)
+    ref = bs.basic_stage_fused_plain(x, stacked)
+    first = bs.basic_stage_fused(x, stacked)
+    _agree(first, ref)
+    assert torch.equal(first, bs.basic_stage_fused(x, stacked))
+    plan = bs.basic_stage_plan(n, hw, hw, c, _build.sm_count(dev))
+    for want in (1, 2, 8, 16, 64):
+        conv = split_k(9 * c, want, TRANSITION_STEP, TRANSITION_STEP)
+        _agree(bs.basic_stage_fused_planned(x, stacked, plan._replace(conv=conv)), ref)
+
+
+def test_basic_stage_entry_refuses_a_plan_it_does_not_take(dev):
+    """csrc/basic_stage.cu's entry refuses a grid larger than it holds
+    resident, a split off the tile's k step and one that leaves K
+    uncovered."""
+    x, stacked = _basic_f32(np.random.default_rng(5), dev, 1, 7, 64, 1)
+    plan = bs.basic_stage_plan(1, 7, 7, 64, _build.sm_count(dev))
+    assert plan.conv.splits > 1
+    _agree(bs.basic_stage_fused_planned(x, stacked, plan), bs.basic_stage_fused_plain(x, stacked))
+    for bad in (plan._replace(blocks=4 * plan.blocks),
+                plan._replace(conv=plan.conv._replace(chunk=plan.conv.chunk + 16)),
+                plan._replace(conv=plan.conv._replace(splits=1))):
+        with pytest.raises(RuntimeError):
+            bs.basic_stage_fused_planned(x, stacked, bad)
 
 
 def _basic_int8(rng, dev, n, hw, c, nb):
@@ -580,6 +625,41 @@ def test_winograd_int8_served_shapes(dev, n, h, w, cin, cout, relu):
     plan = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
     one = plan._replace(blocks=min(plan.items(), sms))
     _equal(q8.conv3x3_bn_winograd_int8_planned(x, u_q, s_u, s, b, relu, one), ref)
+
+
+# Cin past one span of K (WINO_INT8_CHUNK), 14x14 at N=1 and N=2: nine
+# 128-channel groups at Cout 128 (the group branch) and the stash at Cin
+# 2048 -> 256, both on the plan's spans: equal to the twin, two calls equal
+# to the bit.
+@pytest.mark.parametrize("n", [1, 2])
+@pytest.mark.parametrize("cin,cout", [(1152, 128), (2048, 256)])
+def test_winograd_int8_takes_any_cin(dev, n, cin, cout):
+    x, u_q, s_u, s, b = _winograd_int8(np.random.default_rng(cin + n), dev, n, 14, 14, cin, cout)
+    plan = q8.winograd_int8_plan(n, 14, 14, cin, cout, _build.sm_count(dev))
+    assert plan.chunk < plan.kp
+    ref = q8.conv3x3_bn_winograd_int8_plain(x, u_q, s_u, s, b, True)
+    first = q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, True)
+    _equal(first, ref)
+    assert torch.equal(first, q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, True))
+
+
+# Spans at narrow widths, through explicit plans of 128-channel spans: two
+# groups at Cout 128, the stash at Cout 256, one group of an odd Cin (200,
+# its last span 96 of the padded 224) with ReLU and without; equal to the
+# twin. A span off the scale group or past WINO_INT8_CHUNK is refused.
+@pytest.mark.parametrize("n,h,w,cin,cout", [(2, 9, 5, 256, 128), (1, 14, 14, 256, 256),
+                                            (3, 6, 5, 200, 72)])
+@pytest.mark.parametrize("relu", [True, False])
+def test_winograd_int8_spans_at_narrow_widths(dev, n, h, w, cin, cout, relu):
+    x, u_q, s_u, s, b = _winograd_int8(np.random.default_rng(cin + cout + relu), dev, n, h, w,
+                                       cin, cout)
+    plan = q8.winograd_int8_plan(n, h, w, cin, cout, _build.sm_count(dev))
+    spans = plan._replace(chunk=q8.WINO_INT8_GROUP)
+    _equal(q8.conv3x3_bn_winograd_int8_planned(x, u_q, s_u, s, b, relu, spans),
+           q8.conv3x3_bn_winograd_int8_plain(x, u_q, s_u, s, b, relu))
+    for bad in (plan._replace(chunk=96), plan._replace(chunk=2 * q8.WINO_INT8_CHUNK)):
+        with pytest.raises(RuntimeError):
+            q8.conv3x3_bn_winograd_int8_planned(x, u_q, s_u, s, b, relu, bad)
 
 
 def test_winograd_int8_entry_refuses_a_plan_it_does_not_take(dev):

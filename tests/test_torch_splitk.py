@@ -5,9 +5,10 @@ kernels/quantized.py::direct_int8_plan (csrc/direct_int8.cu),
 ::transition_int8_plan (csrc/transition_int8.cu) and ::pointwise_int8_plan
 (csrc/pointwise_int8.cu, which also picks its path),
 kernels/transition.py::transition_plan (csrc/transition.cu) and
-kernels/basic_stage.py::basic_stage_int8_plan (csrc/basic_stage_int8.cu);
-and kernels/quantized.py::winograd_int8_plan (csrc/winograd_int8.cu: its
-work items and grid). Every K index
+kernels/basic_stage.py::basic_stage_plan (csrc/basic_stage.cu) and
+::basic_stage_int8_plan (csrc/basic_stage_int8.cu); and
+kernels/quantized.py::winograd_int8_plan (csrc/winograd_int8.cu: its work
+items, the span of K an item stages, and its grid). Every K index
 lies in exactly one range, every range but the last is a multiple of the
 kernel's staging step, and tiles x splits reach about one wave of SMs
 where K allows, never more than the kernel's blocks in flight. The plans'
@@ -426,7 +427,8 @@ def test_winograd_int8_plan_fills_the_card(shape):
     assert plan.kp == cin and plan.tiles == n * -(-h // 2) * -(-w // 2)
     wave = q8.WINO_INT8_BLOCKS_PER_SM * H100_SMS
     assert plan.blocks == min(plan.items(), wave)
-    assert plan.args() == (plan.kp, q8.WINO_INT8_TILES, q8.WINO_INT8_COLS, plan.blocks)
+    assert plan.chunk == plan.kp                  # one span: the served path walks no spans
+    assert plan.args() == (plan.kp, q8.WINO_INT8_TILES, q8.WINO_INT8_COLS, plan.kp, plan.blocks)
 
 
 # Ragged Cin (not multiples of 32 or of 4) and Cout (below one column
@@ -449,19 +451,41 @@ def test_winograd_int8_plan_covers_ragged_shapes(n, h, w, cin, cout):
 
 def test_winograd_int8_workspace_and_shared_memory():
     """The workspace holds the grid barrier and M (16, T, Cout) in f32. A
-    block's shared memory (the C entry's Layout) decides its blocks an SM,
-    and a Cin past one block's shared memory is refused."""
+    block's shared memory (the C entry's Layout) holds one span of K and
+    decides its blocks an SM."""
     plan = q8.winograd_int8_plan(8, 14, 14, 256, 256)
     assert plan.workspace_words(256) == q8.WORKSPACE_ALIGN + 16 * 392 * 256
-    # V in f32, the quantized rows and columns (rows of Kp + 16 bytes), the
-    # scales, 16-byte aligned
+    # V in f32, the quantized rows and columns (rows of the span + 16
+    # bytes), the scales, 16-byte aligned
     rows = q8.WINO_INT8_TILES + q8.WINO_INT8_COLS
     assert q8.winograd_int8_smem(256, 1) == 16 * 256 * 4 + rows * 272 + 64
     assert q8.winograd_int8_smem(256, 2) == 16 * 256 * 4 + rows * 272 + 128
-    wide = q8.winograd_int8_plan(1, 14, 14, 1024, 256)       # one block an SM fits
-    assert wide.blocks == min(wide.items(), H100_SMS)
-    with pytest.raises(ValueError):
-        q8.winograd_int8_plan(1, 14, 14, 2048, 256)
+    assert plan.smem(256, 256) == q8.winograd_int8_smem(256, 1)
+    assert q8.winograd_int8_plan(1, 28, 28, 256, 128).smem(256, 128) == (
+        q8.winograd_int8_smem(256, 2))
+
+
+# Cin past one span (WINO_INT8_CHUNK): nine 128-channel groups at Cout 128,
+# the stash at Cin 2048, one group of an odd Cin, and the widest shape the
+# kernel took before it walked spans (Cin 1088, one block an SM then).
+@pytest.mark.parametrize("cin,cout,groups", [(1152, 128, 9), (2048, 256, 1), (1100, 64, 1),
+                                             (1088, 256, 1), (4096, 128, 32)])
+def test_winograd_int8_plan_walks_wide_cin_in_spans(cin, cout, groups):
+    """Past WINO_INT8_CHUNK the plan stages K in spans of WINO_INT8_CHUNK, a
+    multiple of the scale group: a block's shared memory stays under the
+    block limit whatever Cin is, two blocks an SM fit as they do at the
+    served widths, and no Cin is refused."""
+    assert q8.wino_int8_groups(cin, cout) == groups
+    plan = q8.winograd_int8_plan(1, 14, 14, cin, cout)
+    assert plan.kp == -(-cin // 32) * 32 and plan.chunk == q8.WINO_INT8_CHUNK < plan.kp
+    assert plan.chunk % q8.WINO_INT8_GROUP == 0
+    smem = plan.smem(cin, cout)
+    assert smem == q8.winograd_int8_smem(plan.chunk, 1 if groups == 1 else plan.chunk // 128)
+    assert smem <= q8.H100_SMEM_PER_BLOCK
+    assert 2 * (smem + q8.SMEM_RESERVED_PER_BLOCK) <= q8.H100_SMEM_PER_SM
+    assert plan.blocks == min(plan.items(), q8.WINO_INT8_BLOCKS_PER_SM * H100_SMS)
+    assert plan.args() == (plan.kp, q8.WINO_INT8_TILES, q8.WINO_INT8_COLS, plan.chunk,
+                           plan.blocks)
 
 
 def test_winograd_int8_plan_follows_the_sm_count():
@@ -500,6 +524,42 @@ def test_basic_stage_int8_plan_covers_k_on_ragged_shapes(n, hw, c):
 def test_basic_stage_int8_plan_follows_the_sm_count():
     small, large = (bs.basic_stage_int8_plan(1, 7, 7, 512, sms=sms) for sms in (66, H100_SMS))
     assert small.blocks == large.blocks // 2 and small.splits < large.splits
+
+
+# The served f32 basic stages (N, H, W, C) and their K split on 132 SMs: the
+# 4608-deep convs on 8 output tiles at N=1 split 29 ways (the f32
+# transition's N=1 14->7 mid, the same product), on 56 at N=8 9 (no item
+# walks more than 512 of K).
+SERVED_BASIC_STAGE = {(1, 7, 7, 512): 29, (8, 7, 7, 512): 9}
+
+
+@pytest.mark.parametrize("shape", sorted(SERVED_BASIC_STAGE))
+def test_basic_stage_plan_fills_the_card(shape):
+    n, h, w, c = shape
+    plan = bs.basic_stage_plan(*shape)
+    assert plan.conv.splits == SERVED_BASIC_STAGE[shape]
+    assert plan.args() == (plan.blocks, plan.conv.splits, plan.conv.chunk)
+    _covers_once(plan.conv, 9 * c, tr.TRANSITION_STEP)
+    wave = bs.BASIC_STAGE_BLOCKS_PER_SM * H100_SMS
+    tiles = -(-n * h * w // tr.TRANSITION_TILE) * -(-c // tr.TRANSITION_TILE)
+    assert plan.blocks == wave
+    assert tiles * plan.conv.splits <= wave or plan.conv.chunk <= tr.TRANSITION_MAX_WALK
+    assert 2 * tiles * plan.conv.splits >= wave
+
+
+@pytest.mark.parametrize("n,hw,c", [(3, 7, 40), (2, 5, 20), (8, 7, 36), (1, 9, 68), (1, 3, 4),
+                                    (2, 5, 6), (1, 7, 100)])
+def test_basic_stage_plan_covers_k_on_ragged_shapes(n, hw, c):
+    plan = bs.basic_stage_plan(n, hw, hw, c)
+    _covers_once(plan.conv, 9 * c, tr.TRANSITION_STEP)
+    assert plan.conv.splits <= tr.TRANSITION_MAX_SPLITS
+    assert plan.conv.splits == 1 or plan.conv.chunk >= tr.TRANSITION_MIN_CHUNK
+
+
+def test_basic_stage_plan_follows_the_sm_count():
+    small, large = (bs.basic_stage_plan(1, 7, 7, 512, sms=sms) for sms in (66, H100_SMS))
+    assert small.blocks == large.blocks // 2 and small.conv.splits < large.conv.splits
+    assert bs.basic_stage_plan(8, 7, 7, 512, sms=66).blocks == 2 * 66
 
 
 def _stub_launches(monkeypatch, sms):
@@ -593,6 +653,26 @@ def test_basic_stage_int8_wrapper_launches_the_plan(monkeypatch, sms, shape):
     assert ints == q_ints
 
 
+@pytest.mark.parametrize("sms", [H100_SMS, 66])
+@pytest.mark.parametrize("shape", sorted(SERVED_BASIC_STAGE))
+def test_basic_stage_wrapper_launches_the_plan(monkeypatch, sms, shape):
+    """basic_stage_fused hands csrc/basic_stage.cu basic_stage_plan's grid
+    and split, in the workspace query and in the launch alike."""
+    n, h, w, c = shape
+    calls = _stub_launches(monkeypatch, sms)
+    monkeypatch.setattr(bs, "_workspace_floats", lambda index, *dims: calls.append(
+        ("basic_stage_workspace", list(dims))) or 1)
+    e = lambda *shape: torch.empty(*shape, device="meta")  # noqa: E731
+    stacked = {k: e(2, 1, c) for k in bs.STACK_KEYS}
+    stacked["w9_a"] = stacked["w9_b"] = e(2, 9 * c, c)
+    bs.basic_stage_fused(e(n, h, w, c), stacked)
+    plan = bs.basic_stage_plan(*shape, sms)
+    [(query, q_ints), (entry, ints)] = calls
+    assert (query, entry) == ("basic_stage_workspace", "basic_stage")
+    assert q_ints == [n, h, w, c, *plan.args()]
+    assert ints == [n, h, w, c, 2, *plan.args()]
+
+
 CSRC = pathlib.Path(q8.__file__).resolve().parent.parent / "csrc"
 
 
@@ -627,6 +707,9 @@ def _constexpr(source: str, name: str) -> int:
     (q8.WINO_INT8_BLOCKS_PER_SM, "winograd_int8.cu", "kBlocksPerSm"),
     (q8.WINO_INT8_PAD, "winograd_int8.cu", "kPad"),
     (q8.DIRECT_INT8_BLOCKS_PER_SM, "basic_stage_int8.cu", "kBlocksPerSm"),
+    (q8.WINO_INT8_CHUNK, "winograd_int8.cu", "kChunk"),
+    (q8.WINO_INT8_GROUP, "winograd_int8.cu", "kGroup"),
+    (bs.BASIC_STAGE_BLOCKS_PER_SM, "basic_stage.cu", "kMaxBlocksPerSm"),
 ])
 def test_plans_match_the_kernels_geometry(value, source, name):
     assert value == _constexpr(source, name)
@@ -660,6 +743,25 @@ def test_transition_entry_runs_the_tf32_phases():
     assert src.count("sk::gemm_phase<kVec, true>(") == 3
     assert "__launch_bounds__(tc::kThreads, kMaxBlocksPerSm)" in src
     assert "tc::Im2colA<2>{" in src
+
+
+def test_basic_stage_runs_the_tf32_phases():
+    """The f32 basic stage's two convs a block are splitk_tf32.cuh's 3xTF32
+    phases over an implicit im2col, its grid capped at two blocks an SM;
+    gemm.cuh's FFMA tile and grid_sync.cuh's scalar phase lost their last
+    user and are gone."""
+    src = (CSRC / "basic_stage.cu").read_text()
+    assert '#include "splitk_tf32.cuh"' in src and '#include "gemm.cuh"' not in src
+    assert src.count("sk::gemm_phase<kVec, true>(") == 2
+    assert src.count("tc::Im2colA{") == 2
+    assert "__launch_bounds__(tc::kThreads, kMaxBlocksPerSm)" in src
+    assert "sk::phase_fits(" in src and "make_plan" in src and "grid_size" not in src
+    assert not (CSRC / "gemm.cuh").exists()
+    for gone in ("gemm_tile", "gemm_bn_tile", "kGemmSmemFloats", "Im2colCg", "PartialEpilogue",
+                 "kGemmThreads", "kMaxSplits"):
+        assert not any(gone in f.read_text() for f in CSRC.glob("*.c*")), gone
+    sync = (CSRC / "grid_sync.cuh").read_text()
+    assert "gemm_phase(" not in sync and "struct BnEpilogue" in sync
 
 
 def test_winograd_int8_runs_on_the_s8_tensor_cores():

@@ -70,6 +70,19 @@ def test_winograd_int8_matches_jax(n, h, w, cin, cout, relu):
     assert tq.wino_int8_stash(cout) == (cout > 128)
 
 
+def test_winograd_int8_matches_jax_at_wide_cin():
+    """Nine 128-channel groups (Cin 1152 at Cout 128), wider than the span of
+    K the card's kernel stages at once, on a 4x4 map."""
+    x, u, scale, bias = _case(1152, 1, 4, 4, 1152, 128)
+    u_q, s_u = tq.quantize_winograd_filter(u)
+    ref = jq.conv3x3_bn_winograd_int8_pallas(
+        *map(jnp.asarray, (x, u_q, s_u, scale, bias)), relu=True)
+    out = tq.conv3x3_bn_winograd_int8(*map(torch.from_numpy, (x, u_q, s_u, scale, bias)),
+                                      relu=True)
+    _close(out.numpy(), ref, INT8_RTOL)
+    assert tq.winograd_int8_plan(1, 4, 4, 1152, 128).chunk < 1152
+
+
 def test_winograd_int8_zero_input_and_ragged_cout():
     x, u, scale, bias = _case(5, 1, 4, 4, 16, 8)
     u_q, s_u = tq.quantize_winograd_filter(u)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct.cu,
 csrc/direct_int8.cu, csrc/transition_int8.cu, csrc/pointwise_int8.cu,
-csrc/transition.cu and csrc/basic_stage_int8.cu), of the f32 Winograd's
+csrc/transition.cu, csrc/basic_stage.cu and csrc/basic_stage_int8.cu), of the f32 Winograd's
 work-item cut (csrc/winograd.cu) and of the int8 Winograd's grid
 (csrc/winograd_int8.cu) on one CUDA card, and an A/B of their wrappers (and
 of the f32 and int8 stages', csrc/stage.cu and csrc/stage_int8.cu, and the
@@ -14,7 +14,7 @@ Run from the repository root on a machine with a CUDA card and nvcc. The
 shapes are each served shape of the kernels (the four served forwards of
 chip_smoke.py at N=1 and N=8, and the f32 Winograd's F(4,3) check shape).
 Every timed call is first held against its plain twin (pointwise, direct,
-winograd, stage, stem and transition within 1e-4 * max(1, max|plain|),
+winograd, stage, stem, transition and basic_stage within 1e-4 * max(1, max|plain|),
 transition_int8 within 1e-3 * max(1, max|plain|), the bound its kernels
 before the s8 mma.sync design met, direct_int8, stage_int8, pointwise_int8,
 basic_stage_int8 and winograd_int8 exactly). Device ms per
@@ -34,10 +34,11 @@ and under plans that change one phase's split (reduce, mid or expand) for
 1, 2, 4, ..., 32 wanted ranges; the int8 pointwise under its plan and on
 every other path that takes the shape (GEMV at P <= 8, one pass at a
 padded K <= 256, cooperative), the GEMV's and the cooperative form's K
-split for 1, 2, 4, ..., 32 wanted ranges; the int8 basic stage under its
-plan and under the K splits split_k gives for 1, 2, 4, ..., 64 wanted
-ranges (both convs share one split); the int8 Winograd under its plan and
-on a grid of one block an SM.
+split for 1, 2, 4, ..., 32 wanted ranges; the f32 and the int8 basic stage
+under their plans and under the K splits split_k gives for 1, 2, 4, ...,
+64 wanted ranges (both convs share one split); the int8 Winograd under its
+plan, on a grid of one block an SM, and in spans of 128 channels of K (the
+walk a Cin past WINO_INT8_CHUNK takes).
 
 --ab DIR times the public wrappers (kernels/pointwise.py::conv1x1_bn,
 kernels/direct.py::conv3x3_bn_direct, kernels/winograd.py::
@@ -45,7 +46,8 @@ conv3x3_bn_winograd, kernels/stage.py::resnet_stage_fused,
 kernels/stem.py::stem_fused, kernels/transition.py::transition_block_fused,
 kernels/quantized.py::conv3x3_bn_int8, ::resnet_stage_int8,
 ::transition_block_int8, ::conv1x1_bn_int8 and ::conv3x3_bn_winograd_int8,
-kernels/basic_stage.py::basic_stage_int8) of the checkout DIR (for example an
+kernels/basic_stage.py::basic_stage_fused and ::basic_stage_int8) of the
+checkout DIR (for example an
 unpacked `git archive` of another commit under build/) and of this one,
 each in a process of its own that imports that checkout's package and
 builds its kernels there, in turns DIR, this, this, DIR, on the same
@@ -53,7 +55,7 @@ seeded inputs ("--wrappers ROOT" is one such turn).
 
 --only takes kernel names (pointwise, direct, winograd, stage, direct_int8,
 stage_int8, stem, transition_int8, pointwise_int8, transition,
-winograd_int8, basic_stage_int8) and keeps those shapes alone.
+winograd_int8, basic_stage, basic_stage_int8) and keeps those shapes alone.
 """
 
 from __future__ import annotations
@@ -121,6 +123,7 @@ WINOGRAD_INT8 = [  # (N, H, W, Cin, Cout, relu): ResNet-34's int8 Winograds at N
 BASIC_STAGE_INT8 = [  # (N, H, W, C, blocks): ResNet-34's conv5_x run, and ResNet-18's
     (1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1),
 ]
+BASIC_STAGE = BASIC_STAGE_INT8  # the f32 tier's run at the same shapes
 A_B_ONLY = ("stage", "stage_int8", "stem")
 DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
     (1, 56, 56, 64, 64, True), (1, 7, 7, 512, 512, False), (8, 7, 7, 512, 512, False),
@@ -307,22 +310,32 @@ def _cases_all(dev):
         ref = q8.conv3x3_bn_winograd_int8_plain(x, u_q, s_u, s, b, relu)
         yield ("winograd_int8", (n, h, wd, cin, cout, relu), (x, u_q, s_u, s, b, relu), ref,
                lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
-    for n, h, wd, c, nb in BASIC_STAGE_INT8:
-        blocks = [{f"{k}_{leg}": v for leg in ("a", "b") for k, v in (
+    def basic_blocks(c, nb):
+        return [{f"{k}_{leg}": v for leg in ("a", "b") for k, v in (
             ("w9", direct_filter(((rng.random((c, c, 3, 3)) - 0.5) * 0.2).astype(np.float32))),
             ("s", (rng.random(c) * 0.5 + 0.25).astype(np.float32)),
             ("b", (rng.random(c) - 0.5).astype(np.float32)))} for _ in range(nb)]
-        qs = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(blocks).items()}
+
+    for n, h, wd, c, nb in BASIC_STAGE_INT8:
+        qs = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(basic_blocks(c, nb)).items()}
         x = rand(n, h, wd, c).abs()
         ref = bs.basic_stage_int8_plain(x, qs)
         yield ("basic_stage_int8", (n, h, wd, c, nb), (x, qs), ref,
                lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
+    for n, h, wd, c, nb in BASIC_STAGE:
+        stacked = bs.stack_basic_stage_params(basic_blocks(c, nb))
+        stacked = {k: v.to(dev) for k, v in stacked.items()}
+        x = rand(n, h, wd, c).abs()
+        ref = bs.basic_stage_fused_plain(x, stacked)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        yield ("basic_stage", (n, h, wd, c, nb), (x, stacked), ref,
+               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
 
 
 def wrappers(dev) -> bool:
     """One A/B turn: each shape's public wrapper of the imported checkout."""
     from winograd_tpu_torch.kernels import _build
-    from winograd_tpu_torch.kernels.basic_stage import basic_stage_int8
+    from winograd_tpu_torch.kernels.basic_stage import basic_stage_fused, basic_stage_int8
     from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct
     from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
     from winograd_tpu_torch.kernels.quantized import (
@@ -340,7 +353,7 @@ def wrappers(dev) -> bool:
             "stage_int8": resnet_stage_int8, "stem": stem_fused,
             "transition_int8": transition_block_int8, "transition": transition_block_fused,
             "pointwise_int8": conv1x1_bn_int8, "winograd_int8": conv3x3_bn_winograd_int8,
-            "basic_stage_int8": basic_stage_int8}
+            "basic_stage": basic_stage_fused, "basic_stage_int8": basic_stage_int8}
     ok = True
     for name, shape, args, _, agrees in cases(dev):
         fn = (lambda f=call[name], args=args: f(*args))
@@ -400,6 +413,9 @@ def sweep(dev) -> bool:
             continue
         if name == "basic_stage_int8":
             ok &= sweep_basic_stage_int8(shape, args, ref, agrees, sms)
+            continue
+        if name == "basic_stage":
+            ok &= sweep_basic_stage(shape, args, ref, agrees, sms)
             continue
         if name == "pointwise":
             p, k, n, _ = shape
@@ -527,7 +543,8 @@ def sweep_pointwise_int8(shape, args, ref, agrees, q8, sms) -> bool:
 
 
 def sweep_winograd_int8(shape, args, ref, agrees, q8, sms) -> bool:
-    """The int8 Winograd under its plan and on a grid of one block an SM."""
+    """The int8 Winograd under its plan, on a grid of one block an SM, and
+    in spans of WINO_INT8_GROUP channels of K."""
     n, h, w, cin, cout, _ = shape
     chosen = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
     plans = [chosen]
@@ -535,13 +552,15 @@ def sweep_winograd_int8(shape, args, ref, agrees, q8, sms) -> bool:
         plan = chosen._replace(blocks=min(chosen.items(), per_sm * sms))
         if plan not in plans:
             plans.append(plan)
+    if chosen.kp > q8.WINO_INT8_GROUP:
+        plans.append(chosen._replace(chunk=q8.WINO_INT8_GROUP))
     ok = True
     for plan in plans:
         fn = (lambda plan=plan: q8.conv3x3_bn_winograd_int8_planned(*args, plan))
         y = fn()
         ok &= agrees(y)
-        print(json.dumps({"kernel": "winograd_int8", "shape": shape,
-                          "items": plan.items(), "blocks": plan.blocks, "chosen": plan == chosen,
+        print(json.dumps({"kernel": "winograd_int8", "shape": shape, "items": plan.items(),
+                          "blocks": plan.blocks, "chunk": plan.chunk, "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
                           "ms": device_ms(fn)}), flush=True)
     return ok
@@ -566,6 +585,31 @@ def sweep_basic_stage_int8(shape, args, ref, agrees, sms) -> bool:
         ok &= agrees(y)
         print(json.dumps({"kernel": "basic_stage_int8", "shape": shape, "splits": splits,
                           "chunk": plan.chunk, "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
+def sweep_basic_stage(shape, args, ref, agrees, sms) -> bool:
+    """The f32 basic stage under its plan and under the K splits split_k
+    gives for WANTS."""
+    from winograd_tpu_torch.kernels import basic_stage as bs
+    from winograd_tpu_torch.kernels.splitk import split_k
+    from winograd_tpu_torch.kernels.transition import TRANSITION_STEP
+
+    chosen = bs.basic_stage_plan(*shape[:4], sms)
+    k = 9 * shape[3]
+    plans = {chosen.conv.splits: chosen}
+    for want in WANTS:
+        conv = split_k(k, want, TRANSITION_STEP, TRANSITION_STEP)
+        plans.setdefault(conv.splits, chosen._replace(conv=conv))
+    ok = True
+    for splits, plan in sorted(plans.items()):
+        fn = (lambda plan=plan: bs.basic_stage_fused_planned(*args, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": "basic_stage", "shape": shape, "splits": splits,
+                          "chunk": plan.conv.chunk, "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
                           "ms": device_ms(fn)}), flush=True)
     return ok

@@ -2,20 +2,23 @@
 """Where the persistent kernels' time goes, phase by phase, on one CUDA card.
 
     python3 tools/chip_stage_timeline.py [--root DIR]
-        [--kernel stage|stage_int8|transition_int8|transition|basic_stage_int8|winograd_int8|both]
+        [--kernel stage|stage_int8|transition_int8|transition|basic_stage|basic_stage_int8|
+                  winograd_int8|both]
         [--variant as_is,one_pass,no_mma]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 builds a copy of DIR's winograd_tpu_torch/csrc/stage.cu (the f32 stage),
 of its stage_int8.cu, of its transition_int8.cu, of its transition.cu (the
-f32 transition), of its basic_stage_int8.cu and of its winograd_int8.cu
+f32 transition), of its basic_stage.cu and basic_stage_int8.cu and of its
+winograd_int8.cu
 (default: this checkout's; DIR may be an unpacked `git archive` of another
 commit under build/) in which thread 0 of block 0 reads %globaltimer once
 before the first phase and again after every grid barrier of the kernel
 body (the barriers inside a phase of mma_int8.cuh or splitk_tf32.cuh,
 before its K-split sum or its Winograd inverse, are not stamped), and
 calls DIR's resnet_stage_fused, resnet_stage_int8, transition_block_int8,
-transition_block_fused, basic_stage_int8 and conv3x3_bn_winograd_int8
+transition_block_fused, basic_stage_fused, basic_stage_int8 and
+conv3x3_bn_winograd_int8
 wrappers on those libraries at the served shapes ("both" is the two
 stages). Each
 line gives the kernel's stamped span and the spans between stamps in
@@ -30,7 +33,10 @@ mid, h2's quantization with the projection rows' gather, and expand with
 projection (where that last phase splits K, its products and its sum of
 the slots apart: seven spans). The f32 transition's copy ends the same
 way: its spans are the reduce, the mid and the expand with the projection,
-each with its split sum. The int8 basic stage's copy gets a barrier and a
+each with its split sum. The f32 basic stage's copy gets a barrier and a
+stamp after each block's second conv: per block, the first conv with its
+split sum, the second with its split sum (and, before the next block, one
+barrier alone). The int8 basic stage's copy gets a barrier and a
 stamp after each block's last phase: per block, the quantize phase (block
 0's with the weight transposes), the first conv with its split sum, the
 second quantize, the second conv with its split sum (and, before the next
@@ -40,7 +46,7 @@ First, the grid barrier alone
 (grid_sync.cuh, 256 threads a block): its cost per crossing at one and two
 blocks an SM. The card's name and power limit come first.
 
---variant builds the f32 stage and the f32 transition (TF32_KERNELS) once
+--variant builds the f32 stage, transition and basic stage (TF32_KERNELS) once
 per named variant of their tensor-core tile (csrc/mma_tf32.cuh, edited in a
 copy of the sources) and stamps each: "as_is" the committed 3xTF32 tile;
 "one_pass" only the hi*hi pass of its three mma.sync passes (TF32 accuracy,
@@ -73,7 +79,8 @@ SHAPES = {  # (N, H, W, Cio, Cmid, blocks, mid): the served stages, and conv4_x 
 # (N, H, W, Cin, Cmid, Cout): the served transitions, and 14->7 at N=8.
 TRANSITION_SHAPES = [(1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024),
                      (1, 14, 14, 1024, 512, 2048), (8, 14, 14, 1024, 512, 2048)]
-# (N, H, W, C, blocks): ResNet-34's conv5_x run at N=1 and N=8, ResNet-18's.
+# (N, H, W, C, blocks): ResNet-34's conv5_x run at N=1 and N=8, ResNet-18's;
+# both basic stages.
 BASIC_STAGE_SHAPES = [(1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1)]
 # (N, H, W, Cin, Cout, relu): the served int8 Winograds at N=1 and N=8.
 WINOGRAD_INT8_SHAPES = [(1, 28, 28, 128, 128, True), (1, 14, 14, 256, 256, True),
@@ -91,6 +98,9 @@ LAYOUT = {
                         "  expand_and_project(a, P2, smem);\n"),
     "transition": ('#include "splitk_tf32.cuh"\n', "  sk::gemm_phase<kVec, true>(a.reduce,",
                    "BiasReluEpilogue{a.bep, a.out, a.Cout}, a.part, a.bar, smem);\n"),
+    "basic_stage": ('#include "splitk_tf32.cuh"\n',
+                    "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act",
+                    "act, a.out, c}, a.part,\n                               a.bar, smem);\n"),
     "basic_stage_int8": ('#include "mma_int8.cuh"\n',
                          "  // Every block's two weight matrices k-contiguous",
                          "act, a.out, c},\n                   a.part, a.bar, smem);\n"),
@@ -104,7 +114,7 @@ PASSES = {"lo_hi": "mma(acc[mi][ni], al[mi], bh[ni]);",
           "hi_lo": "mma(acc[mi][ni], ah[mi], bl[ni]);",
           "hi_hi": "mma(acc[mi][ni], ah[mi], bh[ni]);"}
 VARIANTS = {"as_is": (), "one_pass": ("lo_hi", "hi_lo"), "no_mma": ("lo_hi", "hi_lo", "hi_hi")}
-TF32_KERNELS = ("stage", "transition")  # the kernels on that tile, built once per variant
+TF32_KERNELS = ("stage", "transition", "basic_stage")  # on that tile, built once per variant
 STAMP = ("{ if (blockIdx.x == 0 && threadIdx.x == 0) { unsigned long long t; "
          "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); "
          "if (g_stamps < 1024) g_stamp[g_stamps++] = t; } }")
@@ -272,8 +282,9 @@ def transition_case(rng, dev, kernel, n, h, w, cin, cmid, cout):
     return torch.as_tensor(np.abs(rand(n, h, w, cin)), device=dev), params
 
 
-def basic_stage_case(rng, dev, n, h, w, c, nb):
-    """Seeded int8 basic-stage params and a ReLU'd input."""
+def basic_stage_case(rng, dev, kernel, n, h, w, c, nb):
+    """Seeded basic-stage params (quantized for the int8 stage) and a ReLU'd
+    input."""
     import torch
 
     from winograd_tpu_torch.kernels import basic_stage as bs
@@ -285,7 +296,11 @@ def basic_stage_case(rng, dev, n, h, w, c, nb):
     blocks = [{f"{k}_{leg}": v for leg in ("a", "b") for k, v in (
         ("w9", direct_filter(rand(c, c, 3, 3) * 0.2)), ("s", rand(c) + 0.5), ("b", rand(c)))}
         for _ in range(nb)]
-    params = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(blocks).items()}
+    if kernel == "basic_stage_int8":
+        params = bs.quantize_basic_stage_params(blocks)
+    else:
+        params = bs.stack_basic_stage_params(blocks)
+    params = {k: v.to(dev) for k, v in params.items()}
     return torch.as_tensor(np.abs(rand(n, h, w, c)), device=dev), params
 
 
@@ -311,10 +326,10 @@ def main() -> int:
                     help="the checkout whose kernel and wrapper are timed")
     ap.add_argument("--kernel",
                     choices=("stage", "stage_int8", "transition_int8", "transition",
-                             "basic_stage_int8", "winograd_int8", "both"),
+                             "basic_stage", "basic_stage_int8", "winograd_int8", "both"),
                     default="both")
     ap.add_argument("--variant", default="as_is", metavar="NAME,...",
-                    help="variants of the f32 stage's and transition's tile: "
+                    help="variants of the f32 stage's, transition's and basic stage's tile: "
                     + ", ".join(VARIANTS))
     args = ap.parse_args()
     variants = tuple(v for v in args.variant.split(",") if v)
@@ -351,6 +366,8 @@ def main() -> int:
                                     q8._workspace_words),
                 "transition": (tr.transition_block_fused, tr.transition_block_fused_plain,
                                tr._workspace_floats),
+                "basic_stage": (bs.basic_stage_fused, bs.basic_stage_fused_plain,
+                                bs._workspace_floats),
                 "basic_stage_int8": (bs.basic_stage_int8, bs.basic_stage_int8_plain,
                                      q8._workspace_words),
                 "winograd_int8": (q8.conv3x3_bn_winograd_int8,
@@ -368,9 +385,9 @@ def main() -> int:
         for n, h, w, cio, cmid, nb, mid in SHAPES.get(kernel, []):
             x, params = stage_case(rng, dev, kernel, n, h, w, cio, cmid, nb)
             cases.append(((n, h, w, cio, cmid, nb, mid), (x, params, mid), plain(x, params, mid)))
-        if kernel == "basic_stage_int8":
+        if kernel in ("basic_stage", "basic_stage_int8"):
             for shape in BASIC_STAGE_SHAPES:
-                operands = basic_stage_case(rng, dev, *shape)
+                operands = basic_stage_case(rng, dev, kernel, *shape)
                 cases.append((shape, operands, plain(*operands)))
         if kernel == "winograd_int8":
             for shape in WINOGRAD_INT8_SHAPES:
@@ -392,7 +409,7 @@ def main() -> int:
                     if lib.read_stamps(stamps, ctypes.byref(count)):
                         raise SystemExit("read_stamps failed")
                 err = (y - ref).abs().max().item()
-                if kernel not in ("stage", "transition"):
+                if kernel not in TF32_KERNELS:
                     agrees = bool(torch.equal(y, ref))
                 else:
                     agrees = err <= 1e-4 * max(1.0, ref.abs().max().item())

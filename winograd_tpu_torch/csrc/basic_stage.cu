@@ -11,33 +11,38 @@
 // (basic_stage_fused_pallas). On the served ResNet-34 path it runs
 // conv5_x's two identity blocks at 7x7x512 (ResNet-18: one).
 //
-// Bound on the H100: at N=1 and B=2, 4 convs of 2 * 49 * 4608 * 512 FLOPs,
-// 0.925 GFLOP, take 13.8 us at the 67 TFLOP/s FP32 rate; the f32 weights,
-// 2 * 2 * 9.4 MB read once, take 11.3 us at 3.35 TB/s: bound by operations,
-// near the ridge.
+// Bound on the H100: at N=1 and B=2 the 4 convs are 2 * 49 * 4608 * 512
+// FLOPs each, 0.925 GFLOP, 5.6 us as three TF32 passes at 495 TFLOP/s; the
+// f32 weights, 2 * 2 * 9.4 MB read once, take 11.3 us at 3.35 TB/s: bound
+// by bytes at N=1, by operations at N=8 (45 us against 11.8).
 //
 // Design: the TPU kernel keeps the activation in VMEM across both convs and
-// all blocks while Pallas streams each block's weights. Here it is the
-// persistent cooperative kernel of csrc/stage.cu: each conv is a phase
-// walked over all blocks of the grid on gemm.cuh's 64 x 64 FP32 FFMA tile,
-// with the im2col matrix gathered into shared memory as the tile is loaded
-// (grid_sync.cuh's Im2colCg), and a grid barrier between phases; h1 lives
-// in a device workspace that stays in L2. At N=1 the map has 49 rows
-// against a (4608, 512) weight, 8 output tiles for a grid of hundreds of
-// blocks, so each phase splits K into up to 36 ranges of 128 and adds the
-// partial sums in a fixed order after a barrier (deterministic, no
-// atomics): most blocks stream a slice of the weights instead of idling.
-// FP32 FFMA with FP32 sums (the JAX kernel's bf16x3 products are within
-// its 1e-4 bar of these).
+// all blocks while Pallas streams each block's weights. Here it is
+// csrc/stage.cu's persistent cooperative kernel of at most kMaxBlocksPerSm
+// 128-thread blocks an SM: each conv is one splitk_tf32.cuh::gemm_phase,
+// 64 x 64 3xTF32 mma.sync tiles on a 4-deep cp.async ring (72 KB of
+// dynamic shared memory) whose A operand is the implicit im2col of act or
+// h1 (mma_tf32.cuh's Im2colA, gathered by the tile's copies and never
+// materialised), with a grid barrier between convs; h1 lives in a device
+// workspace that stays in L2. At N=1 the map has 49 rows against a
+// (4608, 512) weight, 8 output tiles for a grid of 264 blocks, so each
+// conv splits K as the host's plan says (kernels/basic_stage.py::
+// basic_stage_plan) and adds the splits' partial sums in a fixed order
+// after a barrier (deterministic, no atomics): most blocks stream a slice
+// of the weights instead of idling. This entry checks the plan against the
+// geometry compiled here and refuses one that does not fit.
+
+#include <stdint.h>
 
 #include "common.cuh"
-#include "gemm.cuh"
-#include "grid_sync.cuh"
+#include "splitk_tf32.cuh"
 
 namespace {
 
-constexpr int kMaxSplits = 36;  // 4608 / 128: the 7x7x512 conv at N=1
-constexpr size_t kSmemBytes = sizeof(float) * wt::kGemmSmemFloats;
+namespace tc = wt::tf32x3;
+namespace sk = wt::splitk;
+
+constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
 
 struct BasicStageArgs {
   const float* x;
@@ -55,73 +60,105 @@ struct BasicStageArgs {
   wt::GemmPhase conv;
 };
 
-__global__ void __launch_bounds__(wt::kGemmThreads) basic_stage_kernel(BasicStageArgs a) {
+// kVec: C a multiple of 4, every operand 16-byte aligned.
+template <bool kVec>
+__global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm)
+    basic_stage_kernel(BasicStageArgs a) {
   extern __shared__ __align__(16) float smem[];
   const int c = a.C;
+  const int P = a.N * a.H * a.W;
   for (int blk = 0; blk < a.B; ++blk) {
     const float* act = blk == 0 ? a.x : a.out;
     const size_t bw = static_cast<size_t>(blk) * 9 * c * c;
     const size_t bc = static_cast<size_t>(blk) * c;
 
-    wt::gemm_phase(a.conv, wt::Im2colCg{act, a.H, a.W, c}, a.wa + bw,
-                   wt::BnEpilogue{a.sa + bc, a.ba + bc, a.h1, c, 1}, a.part, a.bar, smem);
+    sk::gemm_phase<kVec, true>(a.conv, tc::Im2colA{act, a.H, a.W, c, P}, a.wa + bw,
+                               wt::BnEpilogue{a.sa + bc, a.ba + bc, a.h1, c, 1}, a.part, a.bar,
+                               smem);
     wt::grid_sync(a.bar);
 
-    wt::gemm_phase(a.conv, wt::Im2colCg{a.h1, a.H, a.W, c}, a.wb + bw,
-                   wt::ResidualEpilogue{a.sb + bc, a.bb + bc, act, a.out, c}, a.part, a.bar,
-                   smem);
+    sk::gemm_phase<kVec, true>(a.conv, tc::Im2colA{a.h1, a.H, a.W, c, P}, a.wb + bw,
+                               wt::ResidualEpilogue{a.sb + bc, a.bb + bc, act, a.out, c}, a.part,
+                               a.bar, smem);
     if (blk + 1 < a.B) wt::grid_sync(a.bar);
   }
 }
 
-int grid_size() {
-  static int cache[64] = {0};
+template <bool kVec>
+const void* kernel_of() {
+  return reinterpret_cast<const void*>(&basic_stage_kernel<kVec>);
+}
+
+// Blocks of the instantiation that the current device holds resident at
+// once, at most kMaxBlocksPerSm an SM (the dynamic shared memory limit
+// raised once per device); 0 on error.
+int resident_blocks(bool vec) {
+  static int cache[64][2] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cache[dev] == 0)
-    cache[dev] = cooperative_grid(reinterpret_cast<const void*>(basic_stage_kernel), kSmemBytes);
-  return cache[dev];
+  if (cache[dev][vec] == 0) {
+    const void* kernel = vec ? kernel_of<true>() : kernel_of<false>();
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(tc::kSmemBytes)) != cudaSuccess)
+      return 0;
+    cache[dev][vec] = cooperative_grid(kernel, tc::kSmemBytes, tc::kThreads, kMaxBlocksPerSm);
+  }
+  return cache[dev][vec];
 }
 
 struct Plan {
-  int grid;
   wt::GemmPhase conv;
   size_t h1, part, total;  // workspace offsets and size, in floats
 };
 
-int make_plan(int N, int H, int W, int C, Plan* pl) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  pl->grid = grid_size();
-  if (pl->grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+// The conv's split (both convs of every block share it) and the
+// workspace's layout: the grid barrier's two counters, h1, then the
+// split's partial sums.
+int make_plan(int N, int H, int W, int C, int blocks, int splits, int chunk, Plan* pl) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int P = N * H * W;
-  pl->conv = plan_phase(P, 9 * C, C, pl->grid, wt::kBK, kMaxSplits);
+  pl->conv = wt::GemmPhase{P, 9 * C, C, splits, chunk};
+  if (!sk::phase_fits(pl->conv)) return static_cast<int>(cudaErrorInvalidValue);
   pl->h1 = kWorkspaceAlign;  // the barrier's two counters sit at the front
   pl->part = pl->h1 + workspace_round_up(static_cast<size_t>(P) * C);
   pl->total = pl->part + phase_partial_floats(pl->conv);
   return 0;
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-// Floats of workspace basic_stage needs for this shape on the current
-// device (into *floats); returns a CUDA error code.
-extern "C" int basic_stage_workspace(int N, int H, int W, int C, long long* floats) {
+// Floats of workspace basic_stage needs for this shape under the plan
+// (blocks, then the convs' splits and chunk), into *floats; returns a CUDA
+// error code.
+extern "C" int basic_stage_workspace(int N, int H, int W, int C, int blocks, int splits,
+                                     int chunk, long long* floats) {
   Plan pl;
-  const int err = make_plan(N, H, W, C, &pl);
+  const int err = make_plan(N, H, W, C, blocks, splits, chunk, &pl);
   if (err == 0) *floats = static_cast<long long>(pl.total);
   return err;
 }
 
+// The host's plan (kernels/basic_stage.py::basic_stage_plan): a cooperative
+// grid of `blocks` blocks, at most as many as the device holds resident
+// (kMaxBlocksPerSm an SM), and the convs' K split; ws: ws_floats floats
+// laid out as basic_stage_workspace says.
 extern "C" int basic_stage(const float* x, const float* wa, const float* sa, const float* ba,
                            const float* wb, const float* sb, const float* bb, float* out,
                            float* ws, long long ws_floats, int N, int H, int W, int C, int B,
-                           void* stream) {
+                           int blocks, int splits, int chunk, void* stream) {
   if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
   Plan pl;
-  const int err = make_plan(N, H, W, C, &pl);
+  const int err = make_plan(N, H, W, C, blocks, splits, chunk, &pl);
   if (err != 0) return err;
   if (ws_floats < static_cast<long long>(pl.total))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(wa) &&
+                   aligned16(wb) && aligned16(ws);
+  const int resident = resident_blocks(vec);
+  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto s = static_cast<cudaStream_t>(stream);
   unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
   cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
@@ -129,8 +166,8 @@ extern "C" int basic_stage(const float* x, const float* wa, const float* sa, con
   BasicStageArgs a{x, out, wa, sa, ba, wb, sb, bb, ws + pl.h1, ws + pl.part, bar,
                    N, H, W, C, B, pl.conv};
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(basic_stage_kernel),
-                                  dim3(pl.grid), dim3(wt::kGemmThreads), args, kSmemBytes, s);
+  e = cudaLaunchCooperativeKernel(vec ? kernel_of<true>() : kernel_of<false>(), dim3(blocks),
+                                  dim3(tc::kThreads), args, tc::kSmemBytes, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

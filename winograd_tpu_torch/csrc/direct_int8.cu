@@ -79,7 +79,7 @@ int resident_blocks(const void* kernel, int vec) {
   static int cache[64][2] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cache[dev][vec] == 0) cache[dev][vec] = cooperative_grid(kernel, 0);
+  if (cache[dev][vec] == 0) cache[dev][vec] = cooperative_grid(kernel, 0, s8::kThreads);
   return cache[dev][vec];
 }
 

@@ -45,8 +45,6 @@ constexpr int kStageBytes = (kBM + kBN) * kLd;
 constexpr int kSmemBytes = kStages * kStageBytes;
 constexpr int kKAlign = 32;  // K of the quantized operands is padded to this
 
-static_assert(kThreads == kGemmThreads, "the grid barrier's blocks are kGemmThreads wide");
-
 using Acc = int[2][2][4];
 
 __device__ __forceinline__ void mma(int (&d)[4], const unsigned (&a)[4], const unsigned (&b)[2]) {

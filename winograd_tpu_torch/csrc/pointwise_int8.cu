@@ -281,7 +281,8 @@ int resident_blocks() {
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cache[dev] == 0)
-    cache[dev] = cooperative_grid(reinterpret_cast<const void*>(pointwise_int8_cooperative), 0);
+    cache[dev] = cooperative_grid(reinterpret_cast<const void*>(pointwise_int8_cooperative), 0,
+                                  s8::kThreads);
   return cache[dev];
 }
 

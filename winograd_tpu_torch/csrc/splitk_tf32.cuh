@@ -204,7 +204,17 @@ __device__ __forceinline__ void gemm_phase(const GemmPhase& g, const ASrc& a,
   }
 }
 
-// Host side. True when a plan fits: K in `splits` ranges of `chunk`, the
+// Host side. True when a persistent kernel's phase of the host's plan fits:
+// K in `splits` ranges of `chunk`, the last one shorter, chunk a multiple
+// of the tile's k step when splits > 1.
+inline bool phase_fits(const GemmPhase& g) {
+  return g.P > 0 && g.K > 0 && g.N > 0 && g.splits > 0 && g.chunk > 0 &&
+         static_cast<long long>(g.chunk) * g.splits >= g.K &&
+         static_cast<long long>(g.chunk) * (g.splits - 1) < g.K &&
+         (g.splits == 1 || g.chunk % kSplitStep == 0);
+}
+
+// True when a per-layer kernel's plan fits: K in `splits` ranges of `chunk`, the
 // last one shorter, chunk a multiple of kSplitStep when splits > 1; past one
 // split, `tiles` counters from word 0 of ws and the splits x P x N partials
 // from word `part` (a multiple of 4), within ws_words.

@@ -169,7 +169,8 @@ int make_plan(int N, int H, int W, int Cio, int Cmid, int wino, wtc::Cut wcut, b
   if (pl->grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int P = N * H * W;
   pl->reduce = tf32_phase(P, Cio, Cmid, pl->grid);
-  pl->mid = wino ? split_k(P, 9 * Cmid, Cmid, 1) : tf32_phase(P, 9 * Cmid, Cmid, pl->grid);
+  pl->mid = wino ? split_k(P, 9 * Cmid, Cmid, 1, tc::kBK)
+               : tf32_phase(P, 9 * Cmid, Cmid, pl->grid);
   pl->expand = tf32_phase(P, Cmid, Cio, pl->grid);
   size_t part = phase_partial_floats(pl->reduce);
   if (phase_partial_floats(pl->expand) > part) part = phase_partial_floats(pl->expand);

@@ -278,6 +278,13 @@ int grid_size(int wino) {
 
 size_t round_k(int k) { return (k + s8::kKAlign - 1) / s8::kKAlign * s8::kKAlign; }
 
+// The K split of a GEMM phase: one with fewer output tiles than the grid
+// has blocks splits K so that about one item lands on each block.
+wt::GemmPhase plan_phase(int P, int K, int N, int grid) {
+  const int tiles = ((P + s8::kBM - 1) / s8::kBM) * ((N + s8::kBN - 1) / s8::kBN);
+  return split_k(P, K, N, grid / tiles, s8::kBK);
+}
+
 // 4-byte words holding `bytes` bytes, rounded up to the workspace's step.
 size_t words_of(size_t bytes) { return workspace_round_up((bytes + 3) / 4); }
 
@@ -298,10 +305,9 @@ int make_plan(int N, int H, int W, int Cio, int Cmid, int B, int wino, int group
   pl->kpr = static_cast<int>(round_k(Cio));
   pl->kpm = wino ? 0 : static_cast<int>(round_k(9 * Cmid));
   pl->kpe = static_cast<int>(round_k(Cmid));
-  pl->reduce = plan_phase(static_cast<int>(P), pl->kpr, Cmid, pl->grid, s8::kBK);
-  pl->mid = plan_phase(static_cast<int>(P), wino ? 1 : pl->kpm, Cmid, wino ? 0 : pl->grid,
-                       s8::kBK);
-  pl->expand = plan_phase(static_cast<int>(P), pl->kpe, Cio, groups > 1 ? 0 : pl->grid, s8::kBK);
+  pl->reduce = plan_phase(static_cast<int>(P), pl->kpr, Cmid, pl->grid);
+  pl->mid = plan_phase(static_cast<int>(P), wino ? 1 : pl->kpm, Cmid, wino ? 0 : pl->grid);
+  pl->expand = plan_phase(static_cast<int>(P), pl->kpe, Cio, groups > 1 ? 0 : pl->grid);
   size_t part = phase_partial_floats(pl->reduce);
   if (phase_partial_floats(pl->mid) > part) part = phase_partial_floats(pl->mid);
   if (phase_partial_floats(pl->expand) > part) part = phase_partial_floats(pl->expand);

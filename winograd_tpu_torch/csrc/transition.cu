@@ -138,15 +138,6 @@ int resident_blocks(bool vec) {
   return cache[dev][vec];
 }
 
-// One phase of the host's plan: K in `splits` ranges of `chunk`, the last
-// one shorter, chunk a multiple of the tile's k step when splits > 1.
-bool phase_fits(const wt::GemmPhase& g) {
-  return g.P > 0 && g.K > 0 && g.N > 0 && g.splits > 0 && g.chunk > 0 &&
-         static_cast<long long>(g.chunk) * g.splits >= g.K &&
-         static_cast<long long>(g.chunk) * (g.splits - 1) < g.K &&
-         (g.splits == 1 || g.chunk % sk::kSplitStep == 0);
-}
-
 struct Plan {
   wt::GemmPhase reduce, mid, expand;
   size_t h1, h2, part, total;  // workspace offsets and size, in floats
@@ -163,7 +154,7 @@ int make_plan(int N, int H, int W, int Cin, int Cmid, int Cout, int blocks, int 
   pl->reduce = wt::GemmPhase{P1, Cin, Cmid, rs, rc};
   pl->mid = wt::GemmPhase{P2, 9 * Cmid, Cmid, ms, mc};
   pl->expand = wt::GemmPhase{P2, Cmid + Cin, Cout, es, ec};
-  if (!phase_fits(pl->reduce) || !phase_fits(pl->mid) || !phase_fits(pl->expand))
+  if (!sk::phase_fits(pl->reduce) || !sk::phase_fits(pl->mid) || !sk::phase_fits(pl->expand))
     return static_cast<int>(cudaErrorInvalidValue);
   size_t part = phase_partial_floats(pl->reduce);
   if (phase_partial_floats(pl->mid) > part) part = phase_partial_floats(pl->mid);

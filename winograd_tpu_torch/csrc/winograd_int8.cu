@@ -28,7 +28,7 @@
 // Design: the 16 positions are 16 independent int8 GEMMs, (T, Cin) x (Cin,
 // Cout), and a row's scale needs only its own position's V. So a work item
 // is (a block of kTiles tiles, one position p, a block of kCols output
-// channels): it computes V[p] of its tiles over all of Cin straight from x
+// channels): it computes V[p] of its tiles over Cin straight from x
 // (the four pixels that position reads, with wt::sandwich's FP64 FMA chain
 // for that element, so no value can differ from the full transform's), once,
 // into shared memory; each warp reduces two rows' |V| (whole row or per
@@ -45,9 +45,12 @@
 // (once at Cout <= 128, twice at 256). Half as many columns an item read x
 // twice as often and ran 4-38% slower; a form in which a block owned its
 // tiles for all 16 positions, with M in shared memory and no barrier, ran
-// 1.6-9x slower (tools/chip_split_sweep.py, PERF.md). The host's plan
-// (kernels/quantized.py::winograd_int8_plan) sets the grid; this entry
-// checks it.
+// 1.6-9x slower (tools/chip_split_sweep.py, PERF.md). Shared memory holds
+// one span of K: at most kChunk channels of V, of the quantized rows and of
+// the weight columns (109 KB, so two blocks an SM fit at any Cin); a wider
+// Cin is walked in spans (position_item), the served widths (<= 256) in one.
+// The host's plan (kernels/quantized.py::winograd_int8_plan) sets the grid
+// and the span; this entry checks them.
 // The transforms and At run in FP64 and round once, the scale is an IEEE
 // division, the dequantization and BN round each multiply and add on its own
 // in the plain version's order, and the groups' parts are added in group
@@ -71,7 +74,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kFrags = kCols / 8 / kWarps;
 constexpr int kRows = kTiles / kWarps;  // rows a warp quantizes
 constexpr int kBlocksPerSm = 2;
-constexpr int kPad = 16;  // bytes past Kp in a quantized row: 32 distinct banks a fragment
+constexpr int kPad = 16;  // bytes past a span in a quantized row: 32 distinct banks a fragment
+constexpr int kChunk = 512;  // K an item stages at once, at most (a span)
+constexpr int kGroup = 128;  // input channels a row scale covers in the group branch
 constexpr int kBatch = 4;  // weight items a thread has in flight at once
 constexpr int kBatchV = kBatch * kTiles / (kCols / 4);  // and V items, in the same ratio
 
@@ -95,13 +100,14 @@ struct Args {
   bool xvec, uvec;    // x read as float4s; u_q's rows read as words
 };
 
-// Shared memory of an item, in bytes: V of its rows in f32, the rows
+// Shared memory of an item, in bytes, for spans of `chunk` of K holding
+// `groups` scale groups: V of its rows over a span in f32, the rows
 // quantized, the weight columns k-contiguous, the rows' scales.
 struct Layout {
   int ld, aq, bq, sc, bytes;
-  __host__ __device__ Layout(int Kp, int groups) {
-    ld = Kp + kPad;
-    aq = kTiles * Kp * 4;
+  __host__ __device__ Layout(int chunk, int groups) {
+    ld = chunk + kPad;
+    aq = kTiles * chunk * 4;
     bq = aq + kTiles * ld;
     sc = bq + kCols * ld;
     bytes = sc + (kTiles * groups * 4 + 15) / 16 * 16;
@@ -164,55 +170,44 @@ __device__ __forceinline__ float v_of(const BtRow& rp, const BtRow& cp, const fl
   return static_cast<float>(fma(cp.c[1], t[1], fma(cp.c[0], t[0], 0.0)));
 }
 
-// M[p] of the item's kTiles tiles from t0 and kCols output channels from
-// co0 through store(row, column, value), rows and columns relative to the
-// item (the caller skips none: store checks t < T and co < Cout).
-template <class Store>
-__device__ __forceinline__ void position_item(const Args& a, const Layout& L, int p, int t0,
-                                              int co0, int8_t* smem, const Store& store) {
-  float* vf = reinterpret_cast<float*>(smem);
-  int8_t* aq = smem + L.aq;
-  int8_t* bq = smem + L.bq;
-  float* sc = reinterpret_cast<float*>(smem + L.sc);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int q4 = a.Kp / 4;
-  __syncthreads();  // the previous item is done with shared memory
-  // The weight scales of the thread's output columns, in flight from here.
-  const int row0 = lane / 4, col0 = warp * 8 * kFrags + 2 * (lane % 4);
-  float su[kFrags][2];
-#pragma unroll
-  for (int f = 0; f < kFrags; ++f)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      su[f][e] = __ldg(a.su + p * a.Cout + min(co0 + col0 + 8 * f + e, a.Cout - 1));
+// The row scale of a row (or group) whose largest |V| is m: the stash's
+// (m, or 1 for an all-zero row) / 127, else scale_from_max.
+__device__ __forceinline__ float row_scale(const Args& a, float m) {
+  return a.stash ? (m == 0.f ? 1.f : m) / 127.f : wt::scale_from_max(m);
+}
 
-  // u_q[p]'s slice k-contiguous (items of four k by four columns) and V[p]
-  // of every (row, four channels), zero past T and Cin, in batches of
-  // kBatch weight items and kBatchV V items a thread: every
-  // weight word and pixel of a batch is requested before any is used, so a
-  // thread waits on memory once a batch (once an item at Kp <= 256).
-  const int8_t* up = a.uq + static_cast<size_t>(p) * a.Cin * a.Cout;
-  const BtRow rp(p / 4), cp(p % 4);
+// The span [c0, c0 + len) of K of the item: V[p] of every (row, four
+// channels) into vf (rows of len floats), zero past T and Cin, and, where
+// kWeights, u_q[p]'s slice k-contiguous into bq (items of four k by four
+// columns), in batches of kBatch weight items and kBatchV V items a thread:
+// every weight word and pixel of a batch is requested before any is used,
+// so a thread waits on memory once a batch (once an item at len <= 256).
+template <bool kWeights>
+__device__ __forceinline__ void stage_span(const Args& a, const Layout& L, const BtRow& rp,
+                                           const BtRow& cp, const int8_t* up, int t0, int co0,
+                                           int c0, int len, float* vf, int8_t* bq) {
+  const int q4 = len / 4;
   const int bitems = q4 * (kCols / 4), vitems = kTiles * q4;
-  for (int b0 = threadIdx.x, v0 = threadIdx.x; b0 < bitems;
+  // Both kinds run out in the same batch: vitems / bitems = kBatchV / kBatch.
+  for (int b0 = threadIdx.x, v0 = threadIdx.x; v0 < vitems;
        b0 += kBatch * kThreads, v0 += kBatchV * kThreads) {
     unsigned w[kBatch][4];
     float4 d4[kBatchV][2][2];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int i = b0 + u * kThreads;
-      if (i >= bitems) break;
+      if (!kWeights || i >= bitems) break;
       const int kq = i / (kCols / 4), nq = i % (kCols / 4);
       if (a.uvec)
-        s8::rows4<true>(up, a.Cin, a.Cout, 4 * kq, co0 + 4 * nq, w[u]);
+        s8::rows4<true>(up, a.Cin, a.Cout, c0 + 4 * kq, co0 + 4 * nq, w[u]);
       else
-        s8::rows4<false>(up, a.Cin, a.Cout, 4 * kq, co0 + 4 * nq, w[u]);
+        s8::rows4<false>(up, a.Cin, a.Cout, c0 + 4 * kq, co0 + 4 * nq, w[u]);
     }
 #pragma unroll
     for (int u = 0; u < kBatchV; ++u) {
       const int i = v0 + u * kThreads;
       if (i >= vitems) break;
-      const int r = i / q4, c = 4 * (i - r * q4);
+      const int r = i / q4, c = c0 + 4 * (i - r * q4);
       int n, y0, x0;
       tile_corner(a, t0 + r, n, y0, x0);
       const bool live = t0 + r < a.T && c < a.Cin;
@@ -226,7 +221,7 @@ __device__ __forceinline__ void position_item(const Args& a, const Layout& L, in
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int i = b0 + u * kThreads;
-      if (i >= bitems) break;
+      if (!kWeights || i >= bitems) break;
       const int kq = i / (kCols / 4), nq = i % (kCols / 4);
       unsigned cw[4];
       s8::transpose4(w[u], cw);
@@ -251,60 +246,138 @@ __device__ __forceinline__ void position_item(const Args& a, const Layout& L, in
       reinterpret_cast<float4*>(vf)[i] = make_float4(v[0], v[1], v[2], v[3]);
     }
   }
-  __syncthreads();
+}
 
-  // Each row's scale per group and its int8 values, a warp kRows rows side
-  // by side.
-  const int gq = a.groups == 1 ? q4 : a.cg / 4;  // float4s a group
+// M[p] of the item's kTiles tiles from t0 and kCols output channels from
+// co0 through store(row, column, value), rows and columns relative to the
+// item (the caller skips none: store checks t < T and co < Cout). With
+// kSpans the item walks Kp in spans of `span` (< Kp) holding `span_groups`
+// scale groups each, else all of Kp is one span (the served widths). Each
+// span's V and weight columns are staged, its rows quantized and
+// multiplied. A group of kGroup channels lies in one span, so the group
+// branch scales, multiplies and dequantizes each group within its span and
+// adds the groups' parts in group order across spans. A scale over the
+// whole row (the stash, or one group of Cin) needs max|V| over every span
+// before the first product: past one span the item first walks its spans
+// for the maxima alone, then again for the products (V computed twice, the
+// same FMA chain each time), and its one int32 sum runs on across spans.
+template <bool kSpans, class Store>
+__device__ __forceinline__ void position_item(const Args& a, const Layout& L, int span,
+                                              int span_groups, int p, int t0, int co0,
+                                              int8_t* smem, const Store& store) {
+  float* vf = reinterpret_cast<float*>(smem);
+  int8_t* aq = smem + L.aq;
+  int8_t* bq = smem + L.bq;
+  float* sc = reinterpret_cast<float*>(smem + L.sc);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool whole_row = a.stash || a.groups == 1;  // one scale over all of Cin
+  const int chunk = kSpans ? span : a.Kp;
+  const int gspan = kSpans ? span_groups : a.groups;
+  __syncthreads();  // the previous item is done with shared memory
+  // The weight scales of the thread's output columns, in flight from here.
+  const int row0 = lane / 4, col0 = warp * 8 * kFrags + 2 * (lane % 4);
+  float su[kFrags][2];
+#pragma unroll
+  for (int f = 0; f < kFrags; ++f)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      su[f][e] = __ldg(a.su + p * a.Cout + min(co0 + col0 + 8 * f + e, a.Cout - 1));
+
+  const int8_t* up = a.uq + static_cast<size_t>(p) * a.Cin * a.Cout;
+  const BtRow rp(p / 4), cp(p % 4);
+  // A warp's kRows rows side by side: V in f32 and quantized.
   const float4* row[kRows];
   unsigned* dst[kRows];
 #pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    row[rr] = reinterpret_cast<const float4*>(vf + (warp + rr * kWarps) * a.Kp);
+  for (int rr = 0; rr < kRows; ++rr)
     dst[rr] = reinterpret_cast<unsigned*>(aq + (warp + rr * kWarps) * L.ld);
-  }
-  for (int g = 0; g < a.groups; ++g) {
-    float m[kRows] = {};
-    for (int j = g * gq + lane; j < (g + 1) * gq; j += 32)
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) m[rr] = s8::abs_max4(m[rr], row[rr][j]);
-    float s[kRows];
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      m[rr] = wt::warp_max(m[rr]);
-      s[rr] = a.stash ? (m[rr] == 0.f ? 1.f : m[rr]) / 127.f : wt::scale_from_max(m[rr]);
-      if (lane == 0) sc[(warp + rr * kWarps) * a.groups + g] = s[rr];
-    }
-    for (int j = g * gq + lane; j < (g + 1) * gq; j += 32)
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) dst[rr][j] = s8::quantize4(row[rr][j], s[rr]);
-  }
-  __syncthreads();
 
-  // The warp's 16 x (8 kFrags) outputs, an int32 sum a group, dequantized
-  // and added in group order.
-  const int klen = a.groups == 1 ? a.Kp : a.cg;
-  float out[kFrags][4];
-  for (int g = 0; g < a.groups; ++g) {
-    int acc[kFrags][4] = {};
-    for (int ks = g * klen; ks < (g + 1) * klen; ks += 32) {
-      unsigned fa[4];
-      s8::frag_a(aq, L.ld, 0, ks, fa);
+  // Past one span, a whole-row scale from the maxima of every span.
+  float whole[kRows];
+  if (kSpans && whole_row) {
+    float m[kRows] = {};
+    for (int c0 = 0; c0 < a.Kp; c0 += chunk) {
+      const int len = min(chunk, a.Kp - c0);
+      if (c0 > 0) __syncthreads();  // the span before is reduced
+      stage_span<false>(a, L, rp, cp, up, t0, co0, c0, len, vf, bq);
+      __syncthreads();
+      for (int j = lane; j < len / 4; j += 32)
 #pragma unroll
-      for (int f = 0; f < kFrags; ++f) {
-        unsigned fb[2];
-        s8::frag_b(bq, L.ld, warp * 8 * kFrags + 8 * f, ks, fb);
-        s8::mma(acc[f], fa, fb);
-      }
+        for (int rr = 0; rr < kRows; ++rr)
+          m[rr] = s8::abs_max4(m[rr], reinterpret_cast<const float4*>(vf)[(warp + rr * kWarps) *
+                                                                           (len / 4) + j]);
     }
 #pragma unroll
-    for (int f = 0; f < kFrags; ++f)
+    for (int rr = 0; rr < kRows; ++rr) whole[rr] = row_scale(a, wt::warp_max(m[rr]));
+  }
+
+  float out[kFrags][4];
+  int acc[kFrags][4];
+  for (int c0 = 0; c0 < a.Kp; c0 += chunk) {
+    const int len = min(chunk, a.Kp - c0), q4 = len / 4;
+    if (c0 > 0 || kSpans && whole_row) __syncthreads();  // the last span is done with smem
+    stage_span<true>(a, L, rp, cp, up, t0, co0, c0, len, vf, bq);
+    __syncthreads();
+
+    // Each row's scale per group (or over the whole row) and its int8
+    // values.
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float part =
-            wt::dequant(acc[f][e], sc[(row0 + e / 2 * 8) * a.groups + g], su[f][e % 2]);
-        out[f][e] = g == 0 ? part : __fadd_rn(out[f][e], part);
+    for (int rr = 0; rr < kRows; ++rr)
+      row[rr] = reinterpret_cast<const float4*>(vf + (warp + rr * kWarps) * len);
+    const int gq = whole_row ? q4 : a.cg / 4;  // float4s a group
+    for (int g = 0; g * gq < q4; ++g) {
+      float s[kRows];
+      if (kSpans && whole_row) {
+#pragma unroll
+        for (int rr = 0; rr < kRows; ++rr) s[rr] = whole[rr];
+      } else {
+        float m[kRows] = {};
+        for (int j = g * gq + lane; j < (g + 1) * gq; j += 32)
+#pragma unroll
+          for (int rr = 0; rr < kRows; ++rr) m[rr] = s8::abs_max4(m[rr], row[rr][j]);
+#pragma unroll
+        for (int rr = 0; rr < kRows; ++rr) s[rr] = row_scale(a, wt::warp_max(m[rr]));
       }
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr)
+        if (lane == 0) sc[(warp + rr * kWarps) * gspan + g] = s[rr];
+      for (int j = g * gq + lane; j < (g + 1) * gq; j += 32)
+#pragma unroll
+        for (int rr = 0; rr < kRows; ++rr) dst[rr][j] = s8::quantize4(row[rr][j], s[rr]);
+    }
+    __syncthreads();
+
+    // The warp's 16 x (8 kFrags) outputs, an int32 sum a group (one over
+    // the whole row, across spans), dequantized and added in group order.
+    const int klen = whole_row ? len : a.cg;
+    for (int g = 0; g * klen < len; ++g) {
+      if (!whole_row || c0 == 0)
+#pragma unroll
+        for (int f = 0; f < kFrags; ++f)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[f][e] = 0;
+      for (int ks = g * klen; ks < (g + 1) * klen; ks += 32) {
+        unsigned fa[4];
+        s8::frag_a(aq, L.ld, 0, ks, fa);
+#pragma unroll
+        for (int f = 0; f < kFrags; ++f) {
+          unsigned fb[2];
+          s8::frag_b(bq, L.ld, warp * 8 * kFrags + 8 * f, ks, fb);
+          s8::mma(acc[f], fa, fb);
+        }
+      }
+      if (whole_row && c0 + len < a.Kp) continue;  // the row's sum runs on
+      const bool first = whole_row || c0 + g * klen == 0;
+#pragma unroll
+      for (int f = 0; f < kFrags; ++f)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float part =
+              wt::dequant(acc[f][e], sc[(row0 + e / 2 * 8) * gspan + g], su[f][e % 2]);
+          out[f][e] = first ? part : __fadd_rn(out[f][e], part);
+        }
+    }
+    if (!kSpans) break;
   }
 #pragma unroll
   for (int f = 0; f < kFrags; ++f)
@@ -336,14 +409,20 @@ __device__ __forceinline__ void inverse(const Args& a, int t, int co, const floa
     }
 }
 
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm) winograd_int8_kernel(Args a) {
+// chunk: the K a span stages (Kp itself without kSpans). It stays out of
+// Args: one more field there, before Kp, cost the one-span path 1-4% at
+// the served widths (tools/chip_split_sweep.py --ab, PERF.md).
+template <bool kSpans>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm) winograd_int8_kernel(Args a,
+                                                                               int chunk) {
   extern __shared__ __align__(16) int8_t smem[];
-  const Layout L(a.Kp, a.groups);
+  const int gspan = a.groups == 1 ? 1 : chunk / a.cg;
+  const Layout L = kSpans ? Layout(chunk, gspan) : Layout(a.Kp, a.groups);
   const int items = 16 * a.tile_blocks * a.col_blocks;
   for (int item = blockIdx.x; item < items; item += gridDim.x) {
     const int p = item % 16, tc = item / 16;
     const int t0 = tc / a.col_blocks * kTiles, co0 = tc % a.col_blocks * kCols;
-    position_item(a, L, p, t0, co0, smem, [&](int r, int c, float v) {
+    position_item<kSpans>(a, L, chunk, gspan, p, t0, co0, smem, [&](int r, int c, float v) {
       if (t0 + r < a.T && co0 + c < a.Cout)
         a.m[(static_cast<size_t>(p) * a.T + t0 + r) * a.Cout + co0 + c] = v;
     });
@@ -359,31 +438,35 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) winograd_int8_kernel(A
   }
 }
 
-const void* kernel() { return reinterpret_cast<const void*>(winograd_int8_kernel); }
+const void* kernel(bool spans) {
+  return spans ? reinterpret_cast<const void*>(winograd_int8_kernel<true>)
+               : reinterpret_cast<const void*>(winograd_int8_kernel<false>);
+}
 
 // The blocks of the cooperative grid that the current device holds
 // resident with `bytes` of dynamic shared memory, at most kBlocksPerSm an
-// SM, after letting the kernel take that much (the attribute only ever
-// grows, so a size allowed once stays allowed); 0 on error. Computed once
-// per device and size: the served layers alternate between two sizes.
-int resident_blocks(int bytes) {
+// SM, after letting the instantiation take that much (the attribute only
+// ever grows, so a size allowed once stays allowed); 0 on error. Computed
+// once per device, instantiation and size: the served layers alternate
+// between two sizes.
+int resident_blocks(bool spans, int bytes) {
   constexpr int kSizes = 8;
-  static int allowed[64] = {};
-  static int cache[64][kSizes][2] = {};  // [device][slot] = {bytes, blocks}
-  static int next[64] = {};
+  static int allowed[64][2] = {};
+  static int cache[64][2][kSizes][2] = {};  // [device][spans][slot] = {bytes, blocks}
+  static int next[64][2] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   for (int i = 0; i < kSizes; ++i)
-    if (cache[dev][i][0] == bytes) return cache[dev][i][1];
-  if (bytes > 48 * 1024 && bytes > allowed[dev]) {
-    if (cudaFuncSetAttribute(kernel(), cudaFuncAttributeMaxDynamicSharedMemorySize, bytes) !=
-        cudaSuccess)
+    if (cache[dev][spans][i][0] == bytes) return cache[dev][spans][i][1];
+  if (bytes > 48 * 1024 && bytes > allowed[dev][spans]) {
+    if (cudaFuncSetAttribute(kernel(spans), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes) != cudaSuccess)
       return 0;
-    allowed[dev] = bytes;
+    allowed[dev][spans] = bytes;
   }
-  const int blocks = cooperative_grid(kernel(), bytes, kThreads, kBlocksPerSm);
+  const int blocks = cooperative_grid(kernel(spans), bytes, kThreads, kBlocksPerSm);
   if (blocks > 0) {
-    int* slot = cache[dev][next[dev]++ % kSizes];
+    int* slot = cache[dev][spans][next[dev][spans]++ % kSizes];
     slot[0] = bytes;
     slot[1] = blocks;
   }
@@ -394,8 +477,10 @@ int resident_blocks(int bytes) {
 
 // The host's plan (kernels/quantized.py::winograd_int8_plan): Kp, Cin
 // padded to a multiple of s8::kKAlign; `tiles` and `cols`, an item's
-// Winograd tiles and output channels (kTiles, kCols); `blocks`, the
-// cooperative grid (at most what the device holds resident). stash = 1
+// Winograd tiles and output channels (kTiles, kCols); `chunk`, the K an
+// item stages at once (Kp itself, or past one span a multiple of kGroup,
+// at most kChunk: shared memory stops growing with Cin there); `blocks`,
+// the cooperative grid (at most what the device holds resident). stash = 1
 // takes the Cout > 128 branch (one scale per row over all of Cin, the JAX
 // kernel's quantized V stash), 0 the per-group branch. ws, ws_words 4-byte
 // words: the grid barrier at word 0 and M (16, T, Cout) in f32 from word
@@ -404,28 +489,31 @@ extern "C" int winograd_int8_conv3x3_bn(const float* x, const int8_t* uq, const 
                                         const float* scale, const float* bias, float* out,
                                         float* ws, long long ws_words, int N, int H, int W,
                                         int Cin, int Cout, int stash, int relu, int Kp, int tiles,
-                                        int cols, int blocks, void* stream) {
+                                        int cols, int chunk, int blocks, void* stream) {
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || tiles != kTiles || cols != kCols ||
-      Kp != (Cin + s8::kKAlign - 1) / s8::kKAlign * s8::kKAlign || blocks <= 0)
+      Kp != (Cin + s8::kKAlign - 1) / s8::kKAlign * s8::kKAlign || blocks <= 0 || chunk <= 0 ||
+      chunk > kChunk || chunk > Kp || chunk < Kp && chunk % kGroup != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int th = (H + 1) / 2, tw = (W + 1) / 2;
-  const int cg = Cin % 128 == 0 ? 128 : Cin;
+  const int cg = Cin % kGroup == 0 ? kGroup : Cin;
+  const int groups = stash ? 1 : Cin / cg;
   Args a{x, uq, su, scale, bias, out, ws + kWorkspaceAlign, reinterpret_cast<unsigned int*>(ws),
-         N, H, W, Cin, Cout, relu, stash, stash ? 1 : Cin / cg, cg, Kp, tw, th * tw, N * th * tw,
-         0, (Cout + kCols - 1) / kCols,
+         N, H, W, Cin, Cout, relu, stash, groups, cg, Kp, tw, th * tw, N * th * tw, 0,
+         (Cout + kCols - 1) / kCols,
          Cin % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0,
          Cout % 4 == 0 && reinterpret_cast<uintptr_t>(uq) % 4 == 0};
   a.tile_blocks = (a.T + kTiles - 1) / kTiles;
   if (ws_words < static_cast<long long>(kWorkspaceAlign) + 16LL * a.T * Cout)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int bytes = Layout(Kp, a.groups).bytes;
-  const int resident = resident_blocks(bytes);
+  const int bytes = Layout(chunk, groups == 1 ? 1 : chunk / cg).bytes;
+  const bool spans = chunk < Kp;
+  const int resident = resident_blocks(spans, bytes);
   if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto s = static_cast<cudaStream_t>(stream);
   cudaError_t e = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(kernel(), dim3(blocks), dim3(kThreads), args, bytes, s);
+  void* args[] = {&a, &chunk};
+  e = cudaLaunchCooperativeKernel(kernel(spans), dim3(blocks), dim3(kThreads), args, bytes, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

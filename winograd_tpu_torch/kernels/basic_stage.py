@@ -7,10 +7,11 @@ Each block is two stride-1 SAME 3x3 convs as im2col GEMMs,
 h1 = relu(conv_a(x) * s_a + b_a), out = relu(conv_b(h1) * s_b + b_b + x).
 The CUDA kernels are csrc/basic_stage.cu and csrc/basic_stage_int8.cu,
 persistent kernels whose conv phases run over all N*H*W rows one grid
-barrier apart (the int8 one on the int8 tensor cores, each im2col row
-quantized once, its grid and K split by basic_stage_int8_plan); the plain
-twins run the same chain block by block with the plain versions of the
-per-layer direct kernels. Parameters arrive stacked
+barrier apart (the f32 one on 3xTF32 tensor-core tiles over an implicit
+im2col, its grid and K split by basic_stage_plan; the int8 one on the int8
+tensor cores, each im2col row quantized once, its grid and K split by
+basic_stage_int8_plan); the plain twins run the same chain block by block
+with the plain versions of the per-layer direct kernels. Parameters arrive stacked
 per block: w9_a/w9_b (B, 9C, C), BN rows s_a/b_a/s_b/b_b (B, 1, C)
 (stack_basic_stage_params); at int8 w9_a_q/w9_b_q (B, 9C, C) int8 with
 weight scales w9_a_s/w9_b_s (B, 1, C) (quantize_basic_stage_params).
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import numpy as np
 import torch
@@ -31,7 +32,8 @@ from winograd_tpu_torch.kernels.quantized import (
     DirectInt8Plan, _numpy, _workspace_words, ceil4, conv3x3_bn_int8_plain, direct_int8_plan,
     pad_to, pad_windows, quantize_weights,
 )
-from winograd_tpu_torch.kernels.splitk import H100_SMS
+from winograd_tpu_torch.kernels.splitk import H100_SMS, Split
+from winograd_tpu_torch.kernels.transition import phase_split
 
 STACK_KEYS = ("w9_a", "s_a", "b_a", "w9_b", "s_b", "b_b")
 QSTACK_KEYS = ("w9_a_q", "w9_a_s", "s_a", "b_a", "w9_b_q", "w9_b_s", "s_b", "b_b")
@@ -100,6 +102,36 @@ def pad_basic_stage_int8(q: Dict, c: int) -> Dict:
     return q
 
 
+# The plan of a csrc/basic_stage.cu launch. The kernel's geometry is the f32
+# transition's (the same mma_tf32.cuh tile and split step; kernels/
+# transition.py), its grid at most BASIC_STAGE_BLOCKS_PER_SM blocks an SM
+# (basic_stage.cu's kMaxBlocksPerSm); its C entry checks every plan. The K
+# split is the transition's phase rule (transition.py::phase_split), whose
+# N=1 14->7 mid is this conv's product, (49, 4608) x (4608, 512); both
+# convs of every block share it (tools/chip_split_sweep.py timed the
+# others at the served shapes, PERF.md).
+BASIC_STAGE_BLOCKS_PER_SM = 2
+
+
+class BasicStagePlan(NamedTuple):
+    """How csrc/basic_stage.cu runs one stage: the cooperative grid's blocks
+    and the K split (K = 9 * C) of its convs."""
+
+    blocks: int
+    conv: Split
+
+    def args(self) -> tuple:
+        """The plan as the C entry takes it: blocks, splits, chunk."""
+        return (self.blocks,) + self.conv
+
+
+def basic_stage_plan(n: int, h: int, w: int, c: int, sms: int = H100_SMS) -> BasicStagePlan:
+    """The grid and K split of csrc/basic_stage.cu's convs at (n, h, w, c)
+    on a card with `sms` SMs."""
+    blocks = BASIC_STAGE_BLOCKS_PER_SM * sms
+    return BasicStagePlan(blocks, phase_split(n * h * w, 9 * c, c, blocks))
+
+
 def basic_stage_int8_plan(n: int, h: int, w: int, c: int, sms: int = H100_SMS) -> DirectInt8Plan:
     """The cooperative grid and the K split of csrc/basic_stage_int8.cu's
     convs at (n, h, w, c) on a card with `sms` SMs: each conv is the int8
@@ -118,11 +150,12 @@ def _check_stack(stacked: Dict, keys, nb: int, c: int) -> None:
 
 
 @functools.lru_cache(maxsize=None)
-def _workspace_floats(device_index: int, n, h, w, c) -> int:
+def _workspace_floats(device_index: int, n, h, w, c, *plan) -> int:
     lib = _build.library("basic_stage")
     floats = ctypes.c_longlong(0)
     with torch.cuda.device(device_index):
-        err = lib.basic_stage_workspace(*map(_build.cint, (n, h, w, c)), ctypes.byref(floats))
+        err = lib.basic_stage_workspace(*map(_build.cint, (n, h, w, c) + plan),
+                                        ctypes.byref(floats))
     _build.check_error(lib, "basic_stage_workspace", err)
     return floats.value
 
@@ -144,17 +177,28 @@ def basic_stage_fused(x, stacked: Dict) -> torch.Tensor:
     if x.device.type == "cpu":
         out = basic_stage_fused_plain(x, stacked)
     else:
-        ops = [x] + [stacked[k] for k in STACK_KEYS]
-        _build.check_tensors(*ops)
-        floats = _workspace_floats(x.device.index, n, h, w, c)
-        ws = torch.empty(floats, device=x.device, dtype=torch.float32)
-        out = torch.empty_like(x)
-        _build.launch(
-            "basic_stage", "basic_stage", (n, h, w, c, nb), x.device,
-            *map(_build.ptr, ops), _build.ptr(out), _build.ptr(ws), ctypes.c_longlong(floats),
-            *map(_build.cint, (n, h, w, c, nb)),
-        )
+        _build.check_tensors(x, *(stacked[k] for k in STACK_KEYS))
+        out = basic_stage_fused_planned(
+            x, stacked, basic_stage_plan(n, h, w, c, _build.sm_count(x.device)))
     return out[0] if squeeze else out
+
+
+def basic_stage_fused_planned(x, stacked: Dict, plan: BasicStagePlan) -> torch.Tensor:
+    """basic_stage_fused's launch on CUDA tensors under an explicit plan (the
+    wrapper passes basic_stage_plan's; tools/chip_split_sweep.py times
+    others). x: (N, H, W, C); operands as basic_stage_fused checks them."""
+    n, h, w, c = x.shape
+    nb = stacked["w9_a"].shape[0]
+    floats = _workspace_floats(x.device.index, n, h, w, c, *plan.args())
+    ws = torch.empty(floats, device=x.device, dtype=torch.float32)
+    out = torch.empty_like(x)
+    _build.launch(
+        "basic_stage", "basic_stage", (n, h, w, c, nb), x.device,
+        *(_build.ptr(t) for t in (x, *(stacked[k] for k in STACK_KEYS))),
+        _build.ptr(out), _build.ptr(ws), ctypes.c_longlong(floats),
+        *map(_build.cint, (n, h, w, c, nb) + plan.args()),
+    )
+    return out
 
 
 def basic_stage_int8(x, qstacked: Dict) -> torch.Tensor:

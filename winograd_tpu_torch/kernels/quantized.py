@@ -508,13 +508,17 @@ def pointwise_int8_plan(p: int, k: int, n: int, sms: int = H100_SMS,
 # from the source): a work item is WINO_INT8_TILES Winograd tiles by
 # WINO_INT8_COLS output channels at one position, the items are dealt to a
 # resident cooperative grid of at most WINO_INT8_BLOCKS_PER_SM blocks an SM,
-# and the padded Cin is a multiple of DIRECT_INT8_K_ALIGN. Each item's
-# shared memory (winograd_int8_smem) grows with the padded Cin; the grid
-# takes one block an SM where two do not fit.
+# and the padded Cin is a multiple of DIRECT_INT8_K_ALIGN. An item stages K
+# in spans of the plan's chunk: the padded Cin itself up to
+# WINO_INT8_CHUNK, past it spans of WINO_INT8_CHUNK (a multiple of the
+# scale group WINO_INT8_GROUP), so a block's shared memory
+# (winograd_int8_smem) stops growing with Cin and two blocks an SM fit at
+# any Cin.
 WINO_INT8_TILES = 16
 WINO_INT8_COLS = 128
 WINO_INT8_BLOCKS_PER_SM = 2
 WINO_INT8_PAD = 16
+WINO_INT8_CHUNK = 512
 H100_SMEM_PER_SM = 233472     # bytes of shared memory an SM holds (228 KB)
 H100_SMEM_PER_BLOCK = 232448  # the most one block may take (227 KB)
 SMEM_RESERVED_PER_BLOCK = 1024
@@ -526,21 +530,23 @@ def wino_int8_groups(cin: int, cout: int) -> int:
     return 1 if wino_int8_stash(cout) or cin % WINO_INT8_GROUP else cin // WINO_INT8_GROUP
 
 
-def winograd_int8_smem(kp: int, groups: int) -> int:
+def winograd_int8_smem(chunk: int, groups: int) -> int:
     """Bytes of shared memory a block of csrc/winograd_int8.cu takes (its
-    Layout): V of the item's rows in f32, the rows and weight columns
-    quantized (rows of kp + WINO_INT8_PAD bytes), the rows' scales."""
-    ld = kp + WINO_INT8_PAD
+    Layout) for spans of `chunk` of K holding `groups` scale groups: V of
+    the item's rows in f32, the rows and weight columns quantized (rows of
+    chunk + WINO_INT8_PAD bytes), the rows' scales."""
+    ld = chunk + WINO_INT8_PAD
     scales = -(-WINO_INT8_TILES * groups * 4 // 16) * 16
-    return WINO_INT8_TILES * kp * 4 + (WINO_INT8_TILES + WINO_INT8_COLS) * ld + scales
+    return WINO_INT8_TILES * chunk * 4 + (WINO_INT8_TILES + WINO_INT8_COLS) * ld + scales
 
 
 class WinogradInt8Plan(NamedTuple):
-    """How csrc/winograd_int8.cu runs one conv: the padded Cin, the map's
-    Winograd tiles, the items' tile and column blocks, and the cooperative
-    grid's blocks."""
+    """How csrc/winograd_int8.cu runs one conv: the padded Cin, the K an
+    item stages at once, the map's Winograd tiles, the items' tile and
+    column blocks, and the cooperative grid's blocks."""
 
     kp: int
+    chunk: int
     tiles: int
     tile_blocks: int
     col_blocks: int
@@ -555,29 +561,31 @@ class WinogradInt8Plan(NamedTuple):
         WORKSPACE_ALIGN."""
         return WORKSPACE_ALIGN + 16 * self.tiles * cout
 
+    def smem(self, cin: int, cout: int) -> int:
+        """Bytes of shared memory a block takes: a span's scale groups are
+        one where a scale covers the whole row, else chunk / WINO_INT8_GROUP."""
+        groups = wino_int8_groups(cin, cout)
+        return winograd_int8_smem(self.chunk, 1 if groups == 1 else self.chunk // WINO_INT8_GROUP)
+
     def args(self) -> tuple:
         """The plan as the C entry takes it: Kp, an item's tiles and
-        columns, blocks."""
-        return (self.kp, WINO_INT8_TILES, WINO_INT8_COLS, self.blocks)
+        columns, the chunk, blocks."""
+        return (self.kp, WINO_INT8_TILES, WINO_INT8_COLS, self.chunk, self.blocks)
 
 
 def winograd_int8_plan(n: int, h: int, w: int, cin: int, cout: int,
                        sms: int = H100_SMS) -> WinogradInt8Plan:
-    """The work items and grid of an (n, h, w, cin) -> cout int8 F(2,3) on a
-    card with `sms` SMs: one block an item, at most a resident wave of
-    WINO_INT8_BLOCKS_PER_SM blocks an SM (one where two blocks' shared
-    memory does not fit); a Cin past one block's shared memory is refused."""
+    """The work items, span and grid of an (n, h, w, cin) -> cout int8
+    F(2,3) on a card with `sms` SMs: one block an item, at most a resident
+    wave of WINO_INT8_BLOCKS_PER_SM blocks an SM (fewer where their shared
+    memory does not fit), K staged in spans of at most WINO_INT8_CHUNK."""
     kp = _round_up(cin, DIRECT_INT8_K_ALIGN)
-    smem = winograd_int8_smem(kp, wino_int8_groups(cin, cout))
-    if smem > H100_SMEM_PER_BLOCK:
-        raise ValueError(f"the int8 Winograd holds at most {H100_SMEM_PER_BLOCK} bytes a "
-                         f"block, not {smem} (Cin {cin})")
     tiles = n * -(-h // 2) * -(-w // 2)
     tile_blocks, col_blocks = -(-tiles // WINO_INT8_TILES), -(-cout // WINO_INT8_COLS)
+    plan = WinogradInt8Plan(kp, min(kp, WINO_INT8_CHUNK), tiles, tile_blocks, col_blocks, 0)
     per_sm = min(WINO_INT8_BLOCKS_PER_SM,
-                 H100_SMEM_PER_SM // (smem + SMEM_RESERVED_PER_BLOCK))
-    return WinogradInt8Plan(kp, tiles, tile_blocks, col_blocks,
-                            min(16 * tile_blocks * col_blocks, per_sm * sms))
+                 H100_SMEM_PER_SM // (plan.smem(cin, cout) + SMEM_RESERVED_PER_BLOCK))
+    return plan._replace(blocks=min(plan.items(), per_sm * sms))
 
 
 # The int8 kernels pack four k to a 32-bit word and take channel counts that
@@ -760,10 +768,9 @@ def conv3x3_bn_winograd_int8(x, u_q, s_u, scale, bias, relu: bool = True) -> tor
 
     x: (H, W, Cin) or (N, H, W, Cin) float32; u_q (16, Cin, Cout) int8 and
     s_u (16, Cout) from quantize_winograd_filter(transform_filter(w, m=2));
-    scale, bias: (Cout,). Cout above 128 must be a multiple of 128; on the
-    card Cin is bounded by a block's shared memory (winograd_int8_plan: at
-    most 1088). CPU tensors run the plain version; CUDA tensors launch
-    csrc/winograd_int8.cu."""
+    scale, bias: (Cout,). Cout above 128 must be a multiple of 128; any Cin
+    (past WINO_INT8_CHUNK the kernel walks it in spans). CPU tensors run
+    the plain version; CUDA tensors launch csrc/winograd_int8.cu."""
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]

@@ -103,23 +103,26 @@ class TransitionPlan(NamedTuple):
         return (self.blocks,) + self.reduce + self.mid + self.expand
 
 
+def phase_split(p: int, k: int, cols: int, blocks: int) -> Split:
+    """The K split of a (p, k) x (k, cols) GEMM phase of a persistent
+    3xTF32 kernel on a grid of `blocks` blocks, by the rule above (also
+    csrc/basic_stage.cu's, kernels/basic_stage.py::basic_stage_plan)."""
+    tiles = -(-p // TRANSITION_TILE) * -(-cols // TRANSITION_TILE)
+    want = blocks // tiles
+    if 2 * tiles < blocks:
+        want = max(want, -(-k // TRANSITION_MAX_WALK))
+    return split_k(k, min(want, TRANSITION_MAX_SPLITS), TRANSITION_STEP, TRANSITION_MIN_CHUNK)
+
+
 def transition_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int,
                     sms: int = H100_SMS) -> TransitionPlan:
     """The grid and K splits of an (n, h, w, cin) -> cmid -> cout transition
     on a card with `sms` SMs."""
     p1, p2 = n * h * w, n * -(-h // 2) * -(-w // 2)
     blocks = TRANSITION_BLOCKS_PER_SM * sms
-
-    def phase(p: int, k: int, cols: int) -> Split:
-        tiles = -(-p // TRANSITION_TILE) * -(-cols // TRANSITION_TILE)
-        want = blocks // tiles
-        if 2 * tiles < blocks:
-            want = max(want, -(-k // TRANSITION_MAX_WALK))
-        return split_k(k, min(want, TRANSITION_MAX_SPLITS), TRANSITION_STEP,
-                       TRANSITION_MIN_CHUNK)
-
-    return TransitionPlan(blocks, phase(p1, cin, cmid), phase(p2, 9 * cmid, cmid),
-                          phase(p2, cmid + cin, cout))
+    return TransitionPlan(blocks, phase_split(p1, cin, cmid, blocks),
+                          phase_split(p2, 9 * cmid, cmid, blocks),
+                          phase_split(p2, cmid + cin, cout, blocks))
 
 
 @functools.lru_cache(maxsize=None)
