@@ -25,6 +25,18 @@ Phases, each of which must pass (exit 1 otherwise):
    share, 1 - device busy time over the host clock of the profiled
    requests (an upper bound for unprofiled serving: the profiler adds host
    time).
+4a. serving_bf16w: ResNet50Engine(tier="bf16w") on the same weights (cast
+   to bf16 once) and images, 10 N=1 and 3 N=8 requests, counters zeroed
+   just before and read just after: each forward must launch the bf16w
+   instantiations, counted under their own names, stem_bf16w 1,
+   pointwise_bf16w 4, stage_bf16w 4 (conv5_x too) and transition_bf16w 3,
+   and the F(2,3) on bf16 filters ("winograd", its shape ending in "bf16")
+   1. Logits against phase 3's float64 golden within BF16W_RTOL_BACKBONE
+   (5e-3) * max(1, max|golden|); against the port's bf16w forward through
+   the plain versions on the CPU in float32 within 1e-4 * max(1,
+   max|ref|); each N=8 row against that image's N=1 logits within 1e-4 *
+   max(1, max|N=1 row|).
+4b. profile_bf16w: as phase 4, for the bf16w tier.
 5. serving_int8: ResNet50Engine(tier="int8") on the same weights and
    images, 10 N=1 and 3 N=8 requests, counters zeroed just before and read
    just after: each forward must launch stem 1 (at bf16), pointwise_int8 4,
@@ -51,7 +63,7 @@ Phases, each of which must pass (exit 1 otherwise):
    against N=1 within 1e-3.
 10. profile_basic_int8: as phase 4, for phase 9.
 11. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the first N=1 forward of phases 3, 5, 7 and 9 gave it
+   every shape the first N=1 forward of phases 3, 4a, 5, 7 and 9 gave it
    (recorded by shape in kernels/_build.py), and at shapes off the served
    N=1 lists (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and
    9; the conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
@@ -61,7 +73,9 @@ Phases, each of which must pass (exit 1 otherwise):
    N=8, 14x14x256 and 28x28x128, and at Cin 1152 -> 128 and 2048 -> 256 on
    14x14 (WIDE_WINOGRAD_INT8: K walked in spans); the pointwise head and conv5_x reduce
    at N=8; the int8 pointwise head at N=8; the f32 and int8 direct 3x3s at
-   N=8, 7x7x512), on seeded inputs. Bound: max abs error <= 1e-4 *
+   N=8, 7x7x512; the bf16w pointwise head, the conv4_x and conv5_x bf16w
+   stages, the 14->7 bf16w transition and the bf16w stem at N=8, the bf16w
+   block at modes 6 and 9), on seeded inputs. Bound: max abs error <= 1e-4 *
    max(1, max|plain|); the int8 direct 3x3, stage, transition, pointwise,
    basic stage and Winograd (their twins' arithmetic, exact int32 sums,
    the Winograd's transforms in FP64 rounded once) and the bf16 stem
@@ -89,21 +103,26 @@ Phases, each of which must pass (exit 1 otherwise):
    rate; the tensor-core products of the pointwise kernel (P > 8), the
    direct 3x3, the f32 Winograd, the f32 stage, the f32 transition (their
    reduce, mid and expand) and the f32 basic stage (its 2B convs) as three
-   TF32 passes (their 3xTF32 split) at the TF32 rate; the
+   TF32 passes (their 3xTF32 split) at the TF32 rate; the bf16w
+   instantiations' products (pointwise, GEMV included, stem, stage and
+   transition) as two BF16 passes (a_hi and a_lo) at the BF16 rate; the
    pointwise GEMV's (P <= 8) and the other f32 GEMMs, Winograd transforms,
    epilogues (4 FLOPs an output, 5 with a residual) and int8 quantization
    (2 a quantized value) at the FP32 rate; the bf16-filter Winograd's
    products as two BF16 passes too. Bytes: each input read once
-   (int8 weights 1 byte, bf16 filters 2), each output written once.
-   Library: torch.matmul / F.conv2d (f32; a basic stage its 2B convs), the
+   (int8 weights 1 byte, bf16 filters and weights 2), each output written
+   once. Library: torch.matmul / F.conv2d (f32; a basic stage its 2B convs;
+   a bf16w row the same call as its kernel's f32 row, on the f32 weights), the
    bf16-filter Winograd F.conv2d in bf16, and for the int8 kernels
    torch._int_mm on operands quantized (the 3x3s im2col'd, the int8
    Winograd's V per position) before the timed region, summed over the
    kernel's GEMMs, rows padded to 32 where P <= 16 (the call refuses fewer
    than 17), and torch.bmm in bf16 for the F(2,3) mid's products.
 12. a "kernels" JSON line (per-image sums over each path's shapes, both
-   models and tiers; the stem row sums its f32 and bf16 shapes, the
-   Winograd row its f32 and bf16-filter shapes), the card line, and last
+   models and all tiers; the stem row sums its f32 and bf16 shapes, the
+   Winograd row its f32 and bf16-filter shapes; the bf16w instantiations
+   are rows of their own, "<kernel>_bf16w", their source the kernel's
+   file), the card line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -127,6 +146,9 @@ ATOL = 1e-4
 INT8_CHAINED_RTOL = 1e-3
 EXPECTED_PER_FORWARD = {
     "stem": 1, "pointwise": 8, "winograd": 1, "stage": 3, "transition": 3, "direct": 2,
+}
+EXPECTED_PER_FORWARD_BF16W = {
+    "stem_bf16w": 1, "pointwise_bf16w": 4, "winograd": 1, "stage_bf16w": 4, "transition_bf16w": 3,
 }
 EXPECTED_PER_FORWARD_INT8 = {
     "stem": 1, "pointwise_int8": 4, "direct_int8": 1, "stage_int8": 4, "transition_int8": 3,
@@ -176,6 +198,9 @@ SOURCES = {
     "basic_stage_int8": ("winograd_tpu/kernels/basic_stage.py:202",
                          ["winograd_tpu/kernels/basic_stage.py:202 _basic_stage_int8_kernel"]),
 }
+# The bf16w instantiations replace the same TPU kernels at precision="bf16w".
+BF16W = ("pointwise", "stem", "stage", "transition")
+SOURCES.update({f"{name}_bf16w": SOURCES[name] for name in BF16W})
 # The int8 Winograd past one span of K (kernels/quantized.py::
 # WINO_INT8_CHUNK): nine 128-channel groups, and the stash over 2048
 # channels. Checked against the twin like every shape, counted in no image.
@@ -228,7 +253,9 @@ def main() -> int:
 
     import torch.nn.functional as F
 
-    from winograd_tpu_torch.config import INT8_RTOL_BACKBONE, ResNet34Config, ResNet50Config
+    from winograd_tpu_torch.config import (
+        BF16W_RTOL_BACKBONE, INT8_RTOL_BACKBONE, ResNet34Config, ResNet50Config,
+    )
     from winograd_tpu_torch.engine import ResNet50Engine, ResNetBasicEngine
     from winograd_tpu_torch.kernels import _build, transforms
     from winograd_tpu_torch.kernels import basic_stage as bs
@@ -252,7 +279,7 @@ def main() -> int:
         basicnet_forward, basicnet_forward_int8, basicnet_params, init_basicnet_arrays,
         quantize_basicnet,
     )
-    from winograd_tpu_torch.models.convert import params_from_jax, stem_filter_s2d
+    from winograd_tpu_torch.models.convert import cast_bf16w, params_from_jax, stem_filter_s2d
     from winograd_tpu_torch.models.resnet50 import (
         init_resnet50_arrays, init_resnet50_params, quantize_resnet50, resnet50_forward,
         resnet50_forward_int8,
@@ -347,6 +374,23 @@ def main() -> int:
                 lambda: torch.matmul(x, w),
                 pointwise_work(p, k, n), 4 * (p * k + k * n + p * n + 2 * n))
 
+    def bf16w(layer):
+        """A layer's weights in bfloat16 (the bf16w tier's storage)."""
+        return {k: v.to(torch.bfloat16) if k.startswith(("w", "u2")) else v
+                for k, v in layer.items()}
+
+    def pointwise_bf16w_case(rng, p, k, n, relu):
+        """Products as two BF16 passes (a_hi, a_lo), GEMV too; weights at 2
+        bytes; library: the f32 row's torch.matmul on the f32 weights."""
+        x, w = t(_rand(rng, p, k)), t(_rand(rng, k, n))
+        w16 = w.to(torch.bfloat16)
+        s, b = bn(rng, n)
+        return (lambda: conv1x1_bn(x, w16, s, b, relu),
+                lambda: conv1x1_bn_plain(x, w16, s, b, relu),
+                lambda: torch.matmul(x, w),
+                {BF16_FLOPS: 2 * 2 * p * k * n, FP32_FLOPS: 4 * p * n},
+                4 * (p * k + p * n + 2 * n) + 2 * k * n)
+
     def conv3x3_inputs(rng, n, h, w, cin, cout):
         x, wt = t(_rand(rng, n, h, w, cin)), _rand(rng, cout, cin, 3, 3)
         s, b = bn(rng, cout)
@@ -386,6 +430,9 @@ def main() -> int:
                 4 * (n * h * w * (cin + cout) + 9 * cin * cout + 2 * cout))
 
     def stem_case(rng, n, h, w, cin, c, precision):
+        """At "bf16w" w192 is bf16 (2 bytes), the products two BF16 passes
+        (the JAX kernel's hi/lo split of the image), the library the f32
+        row's cuDNN call."""
         x, w7 = t(_rand(rng, n, h, w, cin)), _rand(rng, c, cin, 7, 7)
         s, b = bn(rng, c)
         w192 = t(stem_filter_s2d(w7))
@@ -393,12 +440,17 @@ def main() -> int:
         x_lib = nchw(x).to(dt)
         w7_cl = t(w7).to(dt).contiguous(memory_format=torch.channels_last)
         ho, wo, po, qo = -(-h // 2), -(-w // 2), -(-h // 4), -(-w // 4)
-        rate = BF16_FLOPS if precision == "bf16" else FP32_FLOPS
+        products = 2 * n * ho * wo * 49 * cin * c
+        work, wbytes = {FP32_FLOPS: products}, 4
+        if precision == "bf16":
+            work = {BF16_FLOPS: products}
+        elif precision == "bf16w":
+            work, wbytes, w192 = {BF16_FLOPS: 2 * products}, 2, w192.to(torch.bfloat16)
         return (lambda: stem_fused(x, w192, s, b, precision),
                 lambda: stem_fused_plain(x, w192, s, b, precision),
                 lambda: F.max_pool2d(F.conv2d(x_lib, w7_cl, stride=2, padding=3), 3, 2, 1),
-                {rate: 2 * n * ho * wo * 49 * cin * c},
-                4 * (n * h * w * cin + 64 * cin * c + n * po * qo * c + 2 * c))
+                work, 4 * (n * h * w * cin + n * po * qo * c + 2 * c) + wbytes * 64 * cin * c)
+
 
     def conv3x3_filter(rng, cin, cout):
         w = _rand(rng, cout, cin, 3, 3)
@@ -416,11 +468,15 @@ def main() -> int:
                 b_expand=b3, w_mid=wm))
         return blocks
 
-    def stage_case(rng, n, h, w, cio, cmid, nb, mid):
+    def stage_case(rng, n, h, w, cio, cmid, nb, mid, bf16=False):
+        """bf16: the bf16w instantiation (bf16 weights at 2 bytes, products
+        as two BF16 passes; library the f32 row's calls)."""
         blocks = stage_blocks(rng, cio, cmid, nb)
         lib_w = [(b["w_reduce"], t(b.pop("w_mid")).contiguous(memory_format=torch.channels_last),
                   b["w_expand"]) for b in blocks]
         stacked = stack_stage_params(blocks)
+        if bf16:
+            stacked = bf16w(stacked)
         x = t(_rand(rng, n, h, w, cio))
 
         def lib():
@@ -440,9 +496,11 @@ def main() -> int:
             epilogues += nt * (fwd + inv) * cmid
         else:
             mid_products, mid_elems = 2 * p * 9 * cmid * cmid, 9 * cmid * cmid
-        work = {TF32_FLOPS: nb * 3 * (4 * p * cio * cmid + mid_products),
+        rate, passes, wbytes = (BF16_FLOPS, 2, 2) if bf16 else (TF32_FLOPS, 3, 4)
+        work = {rate: nb * passes * (4 * p * cio * cmid + mid_products),
                 FP32_FLOPS: nb * epilogues}
-        nbytes = 4 * (2 * p * cio + nb * (2 * cio * cmid + mid_elems + 4 * cmid + 2 * cio))
+        nbytes = (4 * (2 * p * cio + nb * (4 * cmid + 2 * cio))
+                  + wbytes * nb * (2 * cio * cmid + mid_elems))
         return (lambda: resnet_stage_fused(x, stacked, mid),
                 lambda: resnet_stage_fused_plain(x, stacked, mid), lib, work, nbytes)
 
@@ -454,26 +512,32 @@ def main() -> int:
                         w_expand=t(_rand(rng, cmid, cout)), s_expand=s3, b_expand=b3,
                         w_proj=t(_rand(rng, cin, cout)), s_proj=sp, b_proj=bp)
 
-    def transition_case(rng, n, h, w, cin, cmid, cout):
+    def transition_case(rng, n, h, w, cin, cmid, cout, bf16=False):
+        """bf16: the bf16w instantiation (bf16 weights at 2 bytes, products
+        as two BF16 passes; library the f32 row's calls)."""
         wm, params = transition_params(rng, cin, cmid, cout)
         wm_cl = t(wm).contiguous(memory_format=torch.channels_last)
         params["wep"], params["bep"] = fuse_transition_weights(params)
+        lib_params = params
+        if bf16:
+            params = bf16w(params)
         x = t(_rand(rng, n, h, w, cin))
 
         def lib():
-            y = torch.matmul(x, params["w_reduce"])
+            y = torch.matmul(x, lib_params["w_reduce"])
             y = F.conv2d(nchw(y), wm_cl, stride=2, padding=1).permute(0, 2, 3, 1)
-            return (torch.matmul(y, params["w_expand"])
-                    + torch.matmul(x[:, ::2, ::2, :], params["w_proj"]))
+            return (torch.matmul(y, lib_params["w_expand"])
+                    + torch.matmul(x[:, ::2, ::2, :], lib_params["w_proj"]))
 
         ho, wo = -(-h // 2), -(-w // 2)
         p1, p2 = n * h * w, n * ho * wo
         flops = 2 * (p1 * cin * cmid + p2 * (9 * cmid * cmid + (cmid + cin) * cout))
-        nbytes = 4 * (p1 * cin + p2 * cout + cin * cmid + 9 * cmid * cmid
-                      + (cmid + cin) * cout + 4 * cmid + cout)
+        rate, passes, wbytes = (BF16_FLOPS, 2, 2) if bf16 else (TF32_FLOPS, 3, 4)
+        nbytes = (4 * (p1 * cin + p2 * cout + 4 * cmid + cout)
+                  + wbytes * (cin * cmid + 9 * cmid * cmid + (cmid + cin) * cout))
         return (lambda: transition_block_fused(x, params),
                 lambda: transition_block_fused_plain(x, params), lib,
-                {TF32_FLOPS: 3 * flops, FP32_FLOPS: 4 * (p1 + p2) * cmid + 2 * p2 * cout},
+                {rate: passes * flops, FP32_FLOPS: 4 * (p1 + p2) * cmid + 2 * p2 * cout},
                 nbytes)
 
     def basic_blocks(rng, c, nb):
@@ -704,6 +768,41 @@ def main() -> int:
         }), flush=True)
         return launches, shapes
 
+    def serve_bf16w(phase, engine, expected, golden, ref_cpu, cfg):
+        """The bf16w tier's counted run and checks; returns (launches, shapes)."""
+        single, logits8, lat, batch_s, launches, shapes = serve(engine)
+        forwards = check_launches(expected, launches, shapes, phase)
+        check(set(shapes.get("stem_bf16w", {})) == {(1, cfg.img, cfg.img, 3, cfg.stem_c, "bf16w")},
+              f"{phase} stem shapes {dict(shapes.get('stem_bf16w', {}))}, want bf16w")
+        check(all(shape[-1] == "bf16" for shape in shapes.get("winograd", {})),
+              f"{phase} Winograd shapes {dict(shapes.get('winograd', {}))}, want bf16 filters")
+        got = single[0].cpu()
+        gold_tol = BF16W_RTOL_BACKBONE * max(1.0, float(np.abs(golden).max()))
+        gold_err = float(np.abs(got.double().numpy() - golden).max())
+        cpu_tol = ATOL * max(1.0, ref_cpu.abs().max().item())
+        cpu_err = (got - ref_cpu).abs().max().item()
+        check(got.shape == golden.shape and bool(torch.isfinite(got).all())
+              and gold_err <= gold_tol, f"{phase}: N=1 logits vs golden: {gold_err} > {gold_tol}")
+        check(cpu_err <= cpu_tol,
+              f"{phase}: N=1 logits vs the CPU plain bf16w forward: {cpu_err} > {cpu_tol}")
+        ref8 = torch.stack([single[i] for i in range(8)])
+        row_err = (logits8 - ref8).abs().amax(dim=-1)
+        row_tol = ATOL * ref8.abs().amax(dim=-1).clamp(min=1.0)
+        check(tuple(logits8.shape) == (8,) + golden.shape and bool(torch.isfinite(logits8).all())
+              and bool((row_err <= row_tol).all()),
+              f"{phase}: N=8 rows vs each image's N=1 logits: {row_err.tolist()} > {row_tol.tolist()}")
+        print(json.dumps({
+            "phase": phase, "n1_latency_ms_median": 1e3 * statistics.median(lat),
+            "n1_latency_ms": [1e3 * v for v in lat],
+            "n8_images_per_s": 8 / statistics.median(batch_s),
+            "golden_max_abs_err": gold_err, "golden_tol": gold_tol,
+            "cpu_bf16w_max_abs_err": cpu_err, "cpu_bf16w_tol": cpu_tol,
+            "n8_vs_n1_max_abs_err": float(row_err.max()),
+            "same_class_as_f32": int(got.argmax()) == int(np.argmax(golden)),
+            "launches": launches, "forwards": forwards,
+        }), flush=True)
+        return launches, shapes
+
     def serve_int8(phase, engine, expected, golden, ref_int8, cfg):
         """The int8 tier's counted run and checks; returns (launches, shapes)."""
         single8, logits88, lat8, batch8_s, launches8, shapes8 = serve(engine)
@@ -772,9 +871,18 @@ def main() -> int:
     profile_phase(engine, "profile")
     del engine
 
+    # -- the bf16w tier -----------------------------------------------------
+    engine16 = ResNet50Engine(params, tier="bf16w", device=dev)
+    cpu_params = params_from_jax(init_resnet50_arrays(cfg, seed=0), "cpu", torch.float32)
+    ref_bf16w = resnet50_forward(images[0], cast_bf16w(cpu_params), device="cpu",
+                                 precision="bf16w")
+    served.append(serve_bf16w("serving_bf16w", engine16, EXPECTED_PER_FORWARD_BF16W, golden,
+                              ref_bf16w, cfg))
+    profile_phase(engine16, "profile_bf16w")
+    del engine16
+
     # -- the int8 tier ------------------------------------------------------
     engine8 = ResNet50Engine(params, tier="int8", device=dev)
-    cpu_params = params_from_jax(init_resnet50_arrays(cfg, seed=0), "cpu", torch.float32)
     ref_int8 = resnet50_forward_int8(images[0], quantize_resnet50(cpu_params), device="cpu")
     served.append(serve_int8("serving_int8", engine8, EXPECTED_PER_FORWARD_INT8, golden,
                              ref_int8, cfg))
@@ -804,12 +912,17 @@ def main() -> int:
                  "transition": transition_case, "pointwise_int8": pointwise_int8_case,
                  "direct_int8": direct_int8_case, "stage_int8": stage_int8_case,
                  "transition_int8": transition_int8_case, "winograd_int8": winograd_int8_case,
-                 "basic_stage": basic_stage_case, "basic_stage_int8": basic_stage_int8_case}
+                 "basic_stage": basic_stage_case, "basic_stage_int8": basic_stage_int8_case,
+                 "pointwise_bf16w": pointwise_bf16w_case, "stem_bf16w": stem_case,
+                 "stage_bf16w": lambda rng, *shape: stage_case(rng, *shape, bf16=True),
+                 "transition_bf16w": lambda rng, *shape: transition_case(rng, *shape, bf16=True)}
     # Off the served N=1 lists: F(4,3) accuracy at the mode-0 shape; the
     # block at modes 6 and 9; the batched layouts' cases (rows 7, 9, 18 and
     # 20 of the TPU kernel table) at N=8; the conv5_x stage geometry, which
     # the f32 route runs per layer; the int8 block (row 16) at mode 6; the
-    # f32 and int8 direct 3x3s at N=8; the stem at N=8 in both precisions.
+    # f32 and int8 direct 3x3s at N=8; the stem at N=8 in every precision;
+    # the bf16w pointwise head, conv4_x and conv5_x stages and 14->7
+    # transition at N=8, and the bf16w block at modes 6 and 9.
     extra = {
         "winograd": [(1, 14, 14, 128, 128, 4, True)],
         "stage": [(1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2"),
@@ -826,6 +939,11 @@ def main() -> int:
         "pointwise_int8": [(8, 2048, 1000, False)],
         "direct_int8": [(8, 7, 7, 512, 512, False)],
         "direct": [(8, 7, 7, 512, 512, True)],
+        "pointwise_bf16w": [(8, 2048, 1000, False)],
+        "stem_bf16w": [(8, 224, 224, 3, 64, "bf16w")],
+        "stage_bf16w": [(8, 14, 14, 1024, 256, 5, "direct"), (8, 7, 7, 2048, 512, 2, "direct"),
+                        (1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2")],
+        "transition_bf16w": [(8, 14, 14, 1024, 512, 2048)],
     }
     sms = _build.sm_count(dev)
 
@@ -847,6 +965,8 @@ def main() -> int:
             n, h, w, c, sms).splits,
         "basic_stage": lambda n, h, w, c, nb: bs.basic_stage_plan(n, h, w, c, sms).conv.splits,
     }
+    splits_of["pointwise_bf16w"] = splits_of["pointwise"]
+    splits_of["transition_bf16w"] = splits_of["transition"]
 
     def winograd_int8_cut(n, h, w, cin, cout, relu):
         plan = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
@@ -914,7 +1034,8 @@ def main() -> int:
     for name, tot in totals.items():
         replaces, covers = SOURCES[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": f"winograd_tpu_torch/csrc/{name}.cu",
+            "name": name, "route": "cuda",
+            "source": f"winograd_tpu_torch/csrc/{name.removesuffix('_bf16w')}.cu",
             "replaces": replaces, "covers": covers, "launches": all_launches.get(name, 0),
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "wrapper_ms": tot["wrapper_ms"], "plain_ms": tot["plain_ms"],

@@ -21,7 +21,13 @@ multiples of 4 on the 4-byte path) and split Cin; the stem on the FP64
 tensor cores at its served shape (N=1 and N=8, both precisions, the bf16
 stem equal to its twin there and on the odd images), and the int8
 transition on s8 mma.sync equal to its twin and repeating to the bit at its
-served shapes, odd maps and padded channel counts. Needs an NVIDIA GPU and
+served shapes, odd maps and padded channel counts; the bf16w tier's
+instantiations (pointwise with the head's N, N off multiples of 8 and odd,
+K off multiples of 16, the GEMV at P <= 8 and the tiles just above; the stem
+on bf16 w192; the stage at one to five blocks, both mids, conv5_x at N=1 and
+8; the transition at its served shapes and ragged channels), each within
+the f32 bound of its twin and repeating to the bit, and each refusing an
+activation that is not float32. Needs an NVIDIA GPU and
 nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -871,3 +877,90 @@ def test_transition_int8_equals_its_twin(dev, n, h, w, cin, cmid, cout):
     first = q8.transition_block_int8(x, p)
     _equal(first, q8.transition_block_int8_plain(x, p))
     assert torch.equal(first, q8.transition_block_int8(x, p))
+
+
+# -- the bf16w tier: the bf16 instantiations against their plain twins ------
+BF16 = torch.bfloat16
+
+
+def _bf16w(layer):
+    """A layer's weights in bfloat16 (the bf16w tier's storage), BN as it is."""
+    return {k: v.to(BF16) if k.startswith(("w", "u2")) else v for k, v in layer.items()}
+
+
+# The head (N 1000) on the GEMV at P = 1 and 8 and on the MMA tiles just
+# above (P = 9); N off multiples of 8 and odd (the 2-byte B path); K off
+# multiples of 16; served 1x1s of the entry block at 56x56 and of conv5_x.
+@pytest.mark.parametrize("p,k,n", [
+    (1, 2048, 1000), (8, 2048, 1000), (9, 2048, 1000), (70, 130, 60), (5, 64, 33),
+    (65, 100, 33), (3, 70, 40), (65, 70, 40), (3136, 64, 256), (49, 2048, 512),
+])
+def test_pointwise_bf16w(dev, p, k, n):
+    rng = np.random.default_rng(p + k + n)
+    x, w = _r(rng, dev, p, k), _r(rng, dev, k, n).to(BF16)
+    s, b = _bn(rng, dev, n)
+    for relu in (False, True):
+        first = conv1x1_bn(x, w, s, b, relu)
+        _agree(first, conv1x1_bn_plain(x, w, s, b, relu))
+        assert torch.equal(first, conv1x1_bn(x, w, s, b, relu))
+
+
+@pytest.mark.parametrize("n,h,w,cin,c", [
+    (1, 224, 224, 3, 64), (8, 224, 224, 3, 64), (2, 30, 30, 3, 16), (1, 33, 31, 3, 64),
+])
+def test_stem_bf16w(dev, n, h, w, cin, c):
+    x, w192, s, b = _stem_case(np.random.default_rng(h * w + c + 3), dev, n, h, w, cin, c)
+    w192 = w192.to(BF16)
+    _agree(stem_fused(x, w192, s, b, "bf16w"), stem_fused_plain(x, w192, s, b, "bf16w"))
+
+
+# Ragged channels (Cmid off multiples of 8: element-wise B loads), one
+# block and two and three, both mids, the served conv2_x/conv3_x/conv4_x and
+# conv5_x (the bf16w gate fuses it) at N=1 and N=8.
+@pytest.mark.parametrize("n,hw,cio,cmid,nb,mid", [
+    (1, 7, 70, 20, 3, "direct"), (3, 9, 70, 20, 1, "winograd2"), (2, 9, 144, 300, 2, "direct"),
+    (1, 29, 72, 24, 2, "winograd2"), (1, 56, 256, 64, 2, "winograd2"),
+    (1, 28, 512, 128, 3, "winograd2"), (1, 14, 1024, 256, 5, "direct"),
+    (1, 14, 1024, 256, 1, "direct"), (1, 7, 2048, 512, 2, "direct"),
+    (8, 7, 2048, 512, 2, "direct"), (8, 14, 1024, 256, 5, "direct"),
+])
+def test_stage_bf16w(dev, n, hw, cio, cmid, nb, mid):
+    rng = np.random.default_rng(n * hw + cio + cmid + nb)
+    stacked = _bf16w(_stacked(rng, dev, nb, cio, cmid))
+    x = _r(rng, dev, n, hw, hw, cio)
+    first = resnet_stage_fused(x, stacked, mid)
+    _agree(first, resnet_stage_fused_plain(x, stacked, mid))
+    assert torch.equal(first, resnet_stage_fused(x, stacked, mid))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cmid,cout", [
+    (3, 15, 15, 70, 20, 130), (2, 9, 8, 256, 300, 70), (1, 56, 56, 256, 128, 512),
+    (1, 28, 28, 512, 256, 1024), (1, 14, 14, 1024, 512, 2048), (8, 14, 14, 1024, 512, 2048),
+])
+def test_transition_bf16w(dev, n, h, w, cin, cmid, cout):
+    rng = np.random.default_rng(h * w + cin + cout + 1)
+    p = _transition(rng, dev, cin, cmid, cout)
+    p["wep"], p["bep"] = fuse_transition_weights(p)
+    p = _bf16w(p)
+    x = _r(rng, dev, n, h, w, cin)
+    first = transition_block_fused(x, p)
+    _agree(first, transition_block_fused_plain(x, p))
+    assert torch.equal(first, transition_block_fused(x, p))
+
+
+def test_bf16w_refuses_an_activation_that_is_not_f32(dev):
+    """A bfloat16 weight takes a float32 activation, on every bf16w entry."""
+    rng = np.random.default_rng(5)
+    x = _r(rng, dev, 1, 7, 7, 16)
+    s, b = _bn(rng, dev, 8)
+    with pytest.raises(ValueError, match="float32 activation"):
+        conv1x1_bn(x.double(), _r(rng, dev, 16, 8).to(BF16), s, b, True)
+    with pytest.raises(ValueError, match="float32 activation"):
+        resnet_stage_fused(x.double(), _bf16w(_stacked(rng, dev, 1, 16, 8)))
+    p = _transition(rng, dev, 16, 8, 32)
+    p["wep"], p["bep"] = fuse_transition_weights(p)
+    with pytest.raises(ValueError, match="float32 activation"):
+        transition_block_fused(x.double(), _bf16w(p))
+    img, w192, s64, b64 = _stem_case(rng, dev, 1, 32, 32, 3, 16)
+    with pytest.raises(ValueError, match="float32 activation"):
+        stem_fused(img.double(), w192.to(BF16), s64, b64, "bf16w")

@@ -121,11 +121,15 @@ def test_bottleneck_block_routes_match_jax(algo):
 
 
 def test_engine_rejects_unported_options():
+    """The mesh partitions are not ported; every tier is (the bf16w tier's
+    tests are tests/test_torch_bf16w.py), and an unknown tier is refused."""
     cfg = _TinyR50("tiny_resnet50")
     params = init_resnet50_params(cfg, seed=0, device="cpu")
-    for kw in ({"tier": "bf16w"}, {"mesh": object()}, {"partition": "model"}):
+    for kw in ({"mesh": object()}, {"partition": "model"}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ResNet50Engine(params, device="cpu", **kw)
+    with pytest.raises(ValueError, match="tier"):
+        ResNet50Engine(params, device="cpu", tier="bf16")
 
 
 def test_full_width_config_matches_jax_package():

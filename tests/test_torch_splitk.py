@@ -571,8 +571,10 @@ def _stub_launches(monkeypatch, sms):
     monkeypatch.setattr(_build, "check_operands", lambda *t, **k: None)
     monkeypatch.setattr(_build, "sm_count", lambda device: sms)
     monkeypatch.setattr(_build, "ptr", lambda t: ctypes.c_void_p(0))
-    monkeypatch.setattr(_build, "launch", lambda name, entry, shape, device, *args: calls.append(
-        (entry, [a.value for a in args if isinstance(a, ctypes.c_int)])))
+
+    def launch(name, entry, shape, device, *args, counter=None):
+        calls.append((entry, [a.value for a in args if isinstance(a, ctypes.c_int)]))
+    monkeypatch.setattr(_build, "launch", launch)
 
     def workspace(*args):
         calls.append(("transition_block_workspace", list(args[1:])))

@@ -2,7 +2,7 @@
 
 A copy of the parts of winograd_tpu/config.py that the served paths need
 (ResNet50Config, BasicNetConfig, ResNet34Config, PARITY_ATOL,
-INT8_RTOL_BACKBONE, BN_EPS), kept here so the port imports nothing from the
+BF16W_RTOL, BF16W_RTOL_BACKBONE, INT8_RTOL_BACKBONE, BN_EPS), kept here so the port imports nothing from the
 JAX package.
 """
 
@@ -72,6 +72,13 @@ class ResNet34Config(BasicNetConfig):
 
 # f32 correctness bar: max abs error <= 1e-4 against the float64 golden.
 PARITY_ATOL = 1e-4
+# bf16w serving tier bars (bf16 weight storage, the f32 activation split
+# hi/lo): max abs error <= 5e-3 * max(1, max|golden|) against the f32
+# model's float64 golden, for one layer (BF16W_RTOL) and for whole
+# backbones and the classifier (BF16W_RTOL_BACKBONE); the offline bf16
+# rounding of the weights (~2^-9 relative) sets the error.
+BF16W_RTOL = 5e-3
+BF16W_RTOL_BACKBONE = 5e-3
 # int8 serving tier bar for whole backbones and the classifier: max abs
 # error <= 5e-2 * max(1, max|golden|) against the f32 model's float64
 # golden (8-bit quantization, compounded over the layers).

@@ -30,7 +30,8 @@
 // Shared by csrc/pointwise.cu and csrc/direct.cu (through splitk_tf32.cuh's
 // split-K kernel), csrc/stage.cu and csrc/transition.cu (splitk_tf32.cuh's
 // gemm_phase) and the Winograd products of wino_tf32.cuh (csrc/winograd.cu, csrc/stage.cu),
-// whose A is V = Bt d Bt^T read from the workspace its V phase wrote.
+// whose A is V = Bt d Bt^T read from the workspace its V phase wrote. The
+// bf16w tile (mma_bf16w.cuh) takes its A sources and A loader.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -115,9 +116,9 @@ __device__ __forceinline__ const float* a_source(const ASrc& a, int p, int k, in
   return k < k1 ? a.at(p, k) : nullptr;
 }
 
-// A[p0 .. p0+63, kb .. kb+31] into the stage's A rows; kCg: A was written
-// earlier in the launch (4-byte loads through L2 only).
-template <bool kVec, bool kCg, class ASrc>
+// A[p0 .. p0+63, kb .. kb+31] into the stage's A rows, kLd floats apart;
+// kCg: A was written earlier in the launch (4-byte loads through L2 only).
+template <bool kVec, bool kCg, class ASrc, int kLd = kLdA>
 __device__ __forceinline__ void load_a(float* sa, const ASrc& a, int p0, int kb, int k1) {
   const int tid = threadIdx.x;
   if (kVec) {
@@ -126,7 +127,7 @@ __device__ __forceinline__ void load_a(float* sa, const ASrc& a, int p0, int kb,
       const int idx = tid + i * kThreads;
       const int r = idx / (kBK / 4), c = idx % (kBK / 4) * 4;
       const float* src = a_source(a, p0 + r, kb + c, k1);
-      cp_async16(sa + r * kLdA + c, src ? src : a.base(), src != nullptr);
+      cp_async16(sa + r * kLd + c, src ? src : a.base(), src != nullptr);
     }
   } else {
 #pragma unroll 4
@@ -135,9 +136,9 @@ __device__ __forceinline__ void load_a(float* sa, const ASrc& a, int p0, int kb,
       const int r = idx / kBK, c = idx % kBK;
       const float* src = a_source(a, p0 + r, kb + c, k1);
       if (kCg)
-        sa[r * kLdA + c] = src ? __ldcg(src) : 0.f;
+        sa[r * kLd + c] = src ? __ldcg(src) : 0.f;
       else
-        cp_async4(sa + r * kLdA + c, src ? src : a.base(), src != nullptr);
+        cp_async4(sa + r * kLd + c, src ? src : a.base(), src != nullptr);
     }
   }
 }

@@ -26,8 +26,19 @@
 // Both add their K splits' partial sums as splitk_tf32.cuh does: in split
 // order, by the last block of a tile, so the same inputs give the same bits
 // on every call.
+//
+// The bf16w tier (pointwise_conv1x1_bn_bf16w: bf16 weights, the JAX
+// kernel at precision="bf16w") runs the same plan on the same two paths:
+// the MMA tiles are mma_bf16w.cuh's (the f32 activation split hi/lo, two
+// bf16 m16n8k16 passes), and the GEMV stages a_hi + a_lo (exact in f32),
+// reads four bf16 weights (8 bytes) a lane a row and adds both exact
+// products with one FMA. Its weight bytes, which bound the head, are half
+// the f32 tier's.
 
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "splitk_tf32.cuh"
@@ -37,6 +48,8 @@ namespace {
 namespace tc = wt::tf32x3;
 namespace sk = wt::splitk;
 using sk::Args;
+using sk::GemmArgs;
+using bf16 = __nv_bfloat16;
 
 constexpr int kGemvMaxP = 8;      // rows the GEMV's registers and shared arrays hold
 constexpr int kGemvCols = 128;    // columns a GEMV block owns
@@ -57,8 +70,46 @@ __device__ __forceinline__ float4 weights4(const Args& a, int k, int n) {
   return v;
 }
 
+__device__ __forceinline__ float bf16_bits(unsigned short u) {
+  return __uint_as_float(static_cast<unsigned>(u) << 16);
+}
+
+// The same of bf16 weights, widened exactly to f32; kVec: one 8-byte load.
 template <bool kVec>
-__global__ void __launch_bounds__(kGemvThreads) pointwise_gemv_kernel(Args a) {
+__device__ __forceinline__ float4 weights4(const GemmArgs<bf16>& a, int k, int n) {
+  const auto* row = reinterpret_cast<const unsigned short*>(a.w) + static_cast<size_t>(k) * a.N;
+  if (kVec) {
+    if (n >= a.N) return float4{};
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + n));
+    return make_float4(bf16_bits(u.x & 0xffffu), bf16_bits(u.x >> 16), bf16_bits(u.y & 0xffffu),
+                       bf16_bits(u.y >> 16));
+  }
+  float4 v;
+  v.x = n < a.N ? bf16_bits(__ldg(row + n)) : 0.f;
+  v.y = n + 1 < a.N ? bf16_bits(__ldg(row + n + 1)) : 0.f;
+  v.z = n + 2 < a.N ? bf16_bits(__ldg(row + n + 2)) : 0.f;
+  v.w = n + 3 < a.N ? bf16_bits(__ldg(row + n + 3)) : 0.f;
+  return v;
+}
+
+// An x value as the GEMV stages it: as it is, or for bf16 weights a_hi +
+// a_lo, its bf16 halves a_hi = bf16(x) and a_lo = bf16(x - a_hi) summed.
+// That sum has at most 17 significant bits, so it is exact in f32, and one
+// fmaf(a_hi + a_lo, w, acc) rounds acc + a_hi * w + a_lo * w once: the two
+// bf16w products, exact, in one FMA. The split is made once a value here,
+// not by each of the 32 lanes that read it.
+template <class BT>
+__device__ __forceinline__ float stage_x(float v) {
+  if constexpr (std::is_same_v<BT, bf16>) {
+    const float hi = __bfloat162float(__float2bfloat16_rn(v));
+    return hi + __bfloat162float(__float2bfloat16_rn(v - hi));
+  } else {
+    return v;
+  }
+}
+
+template <bool kVec, class BT>
+__global__ void __launch_bounds__(kGemvThreads) pointwise_gemv_kernel(GemmArgs<BT> a) {
   __shared__ float xs[kGemvMaxP][kGemvXChunk];
   __shared__ float red[kGemvWarps][kGemvMaxP][kGemvCols];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -77,7 +128,7 @@ __global__ void __launch_bounds__(kGemvThreads) pointwise_gemv_kernel(Args a) {
     __syncthreads();
     for (int i = threadIdx.x; i < a.P * kGemvXChunk; i += kGemvThreads) {
       const int p = i / kGemvXChunk, kk = i % kGemvXChunk;
-      xs[p][kk] = kk < len ? __ldg(a.x + static_cast<size_t>(p) * a.K + kc + kk) : 0.f;
+      xs[p][kk] = kk < len ? stage_x<BT>(__ldg(a.x + static_cast<size_t>(p) * a.K + kc + kk)) : 0.f;
     }
     __syncthreads();
 #pragma unroll 4
@@ -121,6 +172,40 @@ __global__ void __launch_bounds__(kGemvThreads) pointwise_gemv_kernel(Args a) {
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
+
+// Both entries: check the plan, bind the workspace, launch the plan's path.
+template <class BT>
+int conv1x1_bn(const float* x, const BT* w, const float* scale, const float* bias, float* out,
+               float* ws, long long ws_words, long long part, int P, int K, int N, int relu,
+               int gemv, int tile, int splits, int chunk, void* stream) {
+  constexpr bool kBf16 = std::is_same_v<BT, bf16>;
+  if (tile != (gemv ? kGemvCols : tc::kBM) || (gemv && P > kGemvMaxP))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_n = (N + tile - 1) / tile;
+  const int tiles = gemv ? tiles_n : (P + tile - 1) / tile * tiles_n;
+  if (!sk::plan_fits(P, K, N, tiles, splits, chunk, ws_words, part))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  GemmArgs<BT> a{x, w, scale, bias, out, nullptr, nullptr, P, K, N, relu, splits, chunk};
+  cudaError_t e = sk::bind_workspace(a, ws, part, tiles, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (gemv) {
+    const dim3 grid(tiles, splits);
+    if (N % 4 == 0 && (kBf16 ? aligned8(w) : aligned16(w)))
+      pointwise_gemv_kernel<true, BT><<<grid, kGemvThreads, 0, s>>>(a);
+    else
+      pointwise_gemv_kernel<false, BT><<<grid, kGemvThreads, 0, s>>>(a);
+    e = cudaGetLastError();
+  } else {
+    const tc::RowMajorA src{x, P, K};
+    if (K % 4 == 0 && N % (kBf16 ? 8 : 4) == 0 && aligned16(x) && aligned16(w) && aligned16(out))
+      e = sk::launch_mma<true>(a, src, tiles, s);
+    else
+      e = sk::launch_mma<false>(a, src, tiles, s);
+  }
+  return static_cast<int>(e);
+}
 
 }  // namespace
 
@@ -135,29 +220,16 @@ extern "C" int pointwise_conv1x1_bn(const float* x, const float* w, const float*
                                     const float* bias, float* out, float* ws, long long ws_words,
                                     long long part, int P, int K, int N, int relu, int gemv,
                                     int tile, int splits, int chunk, void* stream) {
-  if (tile != (gemv ? kGemvCols : tc::kBM) || (gemv && P > kGemvMaxP))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles_n = (N + tile - 1) / tile;
-  const int tiles = gemv ? tiles_n : (P + tile - 1) / tile * tiles_n;
-  if (!sk::plan_fits(P, K, N, tiles, splits, chunk, ws_words, part))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  Args a{x, w, scale, bias, out, nullptr, nullptr, P, K, N, relu, splits, chunk};
-  cudaError_t e = sk::bind_workspace(a, ws, part, tiles, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (gemv) {
-    const dim3 grid(tiles, splits);
-    if (N % 4 == 0 && aligned16(w))
-      pointwise_gemv_kernel<true><<<grid, kGemvThreads, 0, s>>>(a);
-    else
-      pointwise_gemv_kernel<false><<<grid, kGemvThreads, 0, s>>>(a);
-    e = cudaGetLastError();
-  } else {
-    const tc::RowMajorA src{x, P, K};
-    if (K % 4 == 0 && N % 4 == 0 && aligned16(x) && aligned16(w) && aligned16(out))
-      e = sk::launch_mma<true>(a, src, tiles, s);
-    else
-      e = sk::launch_mma<false>(a, src, tiles, s);
-  }
-  return static_cast<int>(e);
+  return conv1x1_bn(x, w, scale, bias, out, ws, ws_words, part, P, K, N, relu, gemv, tile, splits,
+                    chunk, stream);
+}
+
+// The bf16w tier: w (K, N) bf16, the rest as pointwise_conv1x1_bn.
+extern "C" int pointwise_conv1x1_bn_bf16w(const float* x, const bf16* w, const float* scale,
+                                          const float* bias, float* out, float* ws,
+                                          long long ws_words, long long part, int P, int K, int N,
+                                          int relu, int gemv, int tile, int splits, int chunk,
+                                          void* stream) {
+  return conv1x1_bn(x, w, scale, bias, out, ws, ws_words, part, P, K, N, relu, gemv, tile, splits,
+                    chunk, stream);
 }

@@ -14,7 +14,10 @@
 // can be captured in a CUDA graph.
 //
 // The MMA path (mma_kernel) multiplies 64 x 64 tiles of mma_tf32.cuh, with A
-// from any of its sources; pointwise.cu's GEMV reuses the reduction.
+// from any of its sources; pointwise.cu's GEMV reuses the reduction. Both
+// the kernel and gemm_phase take the weights' element type: f32 weights
+// run tf32x3's 3xTF32 tile, bf16 weights (the bf16w tier) mma_bf16w.cuh's
+// tile (wt::mma_tile), the plan and the reduction the same.
 //
 // gemm_phase is the same product as one phase of a persistent cooperative
 // kernel (csrc/stage.cu): its work items, (split, tile) pairs, are dealt to
@@ -25,6 +28,7 @@
 #include <cuda_runtime.h>
 
 #include "grid_sync.cuh"
+#include "mma_bf16w.cuh"
 #include "mma_tf32.cuh"
 
 namespace wt {
@@ -35,9 +39,12 @@ namespace tc = tf32x3;
 constexpr int kSplitStep = tc::kBK;  // every split but the last is a multiple of this
 static_assert(tc::kBM == tc::kBN, "the plans name one MMA tile width");
 
-struct Args {
+// One product's operands, plan and workspace; BT: the weights' element
+// type (float, or __nv_bfloat16 at bf16w).
+template <class BT>
+struct GemmArgs {
   const float* x;
-  const float* w;
+  const BT* w;
   const float* scale;
   const float* bias;
   float* out;
@@ -45,15 +52,18 @@ struct Args {
   float* part;             // splits x P x N
   int P, K, N, relu, splits, chunk;
 };
+using Args = GemmArgs<float>;
 
-__device__ __forceinline__ float bn(const Args& a, int n, float acc) {
+template <class A>
+__device__ __forceinline__ float bn(const A& a, int n, float acc) {
   const float y = acc * a.scale[n] + a.bias[n];
   return a.relu ? fmaxf(y, 0.f) : y;
 }
 
 // After this block wrote its partial sums: true for the last block of
 // `tile` to arrive, which then sees every other block's partials.
-__device__ __forceinline__ bool arrive_last(const Args& a, int tile) {
+template <class A>
+__device__ __forceinline__ bool arrive_last(const A& a, int tile) {
   __shared__ bool last;
   __threadfence();
   __syncthreads();
@@ -74,10 +84,12 @@ __device__ __forceinline__ void add(float4& s, const float4& v) {
   s.z += v.z;
   s.w += v.w;
 }
-__device__ __forceinline__ void store_bn(const Args& a, size_t at, int n, float v) {
+template <class A>
+__device__ __forceinline__ void store_bn(const A& a, size_t at, int n, float v) {
   a.out[at] = bn(a, n, v);
 }
-__device__ __forceinline__ void store_bn(const Args& a, size_t at, int n, const float4& v) {
+template <class A>
+__device__ __forceinline__ void store_bn(const A& a, size_t at, int n, const float4& v) {
   *reinterpret_cast<float4*>(a.out + at) =
       make_float4(bn(a, n, v.x), bn(a, n + 1, v.y), bn(a, n + 2, v.z), bn(a, n + 3, v.w));
 }
@@ -88,8 +100,8 @@ __device__ __forceinline__ void store_bn(const Args& a, size_t at, int n, const 
 // adjacent columns (T = float or float4). The loads of kUnroll splits for
 // all kPer positions are in flight together; each element still adds its
 // splits one by one in split order.
-template <class T, int kPer, int kUnroll, int kThreadsPerBlock>
-__device__ __forceinline__ void reduce_splits(const Args& a, int p0, int n0, int positions,
+template <class T, int kPer, int kUnroll, int kThreadsPerBlock, class A>
+__device__ __forceinline__ void reduce_splits(const A& a, int p0, int n0, int positions,
                                               int cols, int width) {
   const size_t pn = static_cast<size_t>(a.P) * a.N;
   for (int base = threadIdx.x; base < positions; base += kPer * kThreadsPerBlock) {
@@ -126,17 +138,17 @@ __device__ __forceinline__ void reduce_splits(const Args& a, int p0, int n0, int
 }
 
 // One block per (output tile, split): grid (tiles, splits). A from `src`
-// (an A source of mma_tf32.cuh), B = a.w; kVec: 16-byte copies, and N % 4
-// == 0 for the float4 reduction.
-template <bool kVec, class ASrc>
-__global__ void __launch_bounds__(tc::kThreads) mma_kernel(Args a, ASrc src) {
+// (an A source of mma_tf32.cuh), B = a.w; kVec: 16-byte copies (for bf16
+// weights N a multiple of 8), and N % 4 == 0 for the float4 reduction.
+template <bool kVec, class ASrc, class BT>
+__global__ void __launch_bounds__(tc::kThreads) mma_kernel(GemmArgs<BT> a, ASrc src) {
   extern __shared__ __align__(16) float smem[];
   const int tiles_n = (a.N + tc::kBN - 1) / tc::kBN;
   const int tile = blockIdx.x, split = blockIdx.y;
   const int p0 = tile / tiles_n * tc::kBM, n0 = tile % tiles_n * tc::kBN;
   const int k0 = split * a.chunk, k1 = min(a.K, k0 + a.chunk);
   tc::Acc acc;
-  tc::tile<kVec, false>(src, a.w, a.N, p0, n0, k0, k1, smem, acc);
+  mma_tile<kVec, false>(src, a.w, a.N, p0, n0, k0, k1, smem, acc);
 
   if (a.splits == 1) {
     tc::for_each_acc(acc, [&](int r, int c, float v) {
@@ -159,14 +171,15 @@ __global__ void __launch_bounds__(tc::kThreads) mma_kernel(Args a, ASrc src) {
 // C = A x B over the phase g (P, K, N, and K in g.splits ranges of g.chunk,
 // each a multiple of tc::kBK but the last), every output through
 // epi(p, n, acc); A from the source `a` (kCg: written earlier in the
-// launch), B (K, N) row-major; kVec: 16-byte copies (K and N multiples of 4,
-// operands 16-byte aligned). Past one split each item writes its partial
-// tile to part (splits x P x N) and, after a grid barrier, the blocks add
-// the splits in order 0, 1, ... and apply epi. smem: tc::kSmemBytes. The
-// caller places the barrier that ends the phase.
-template <bool kVec, bool kCg, class ASrc, class Epilogue>
+// launch), B (K, N) row-major, f32 or bf16 (mma_tile); kVec: 16-byte copies
+// (K and N multiples of 4, N of 8 for bf16 B, operands 16-byte aligned).
+// Past one split each item writes its partial tile to part (splits x P x
+// N) and, after a grid barrier, the blocks add the splits in order 0, 1,
+// ... and apply epi. smem: kTileSmemBytes<BT>. The caller places the
+// barrier that ends the phase.
+template <bool kVec, bool kCg, class ASrc, class BT, class Epilogue>
 __device__ __forceinline__ void gemm_phase(const GemmPhase& g, const ASrc& a,
-                                           const float* __restrict__ b, const Epilogue& epi,
+                                           const BT* __restrict__ b, const Epilogue& epi,
                                            float* part, unsigned int* bar, float* smem) {
   const int tiles_n = (g.N + tc::kBN - 1) / tc::kBN;
   const int tiles = (g.P + tc::kBM - 1) / tc::kBM * tiles_n;
@@ -175,7 +188,7 @@ __device__ __forceinline__ void gemm_phase(const GemmPhase& g, const ASrc& a,
     const int p0 = t / tiles_n * tc::kBM, n0 = t % tiles_n * tc::kBN;
     const int k0 = split * g.chunk, k1 = min(g.K, k0 + g.chunk);
     tc::Acc acc;
-    tc::tile<kVec, kCg>(a, b, g.N, p0, n0, k0, k1, smem, acc);
+    mma_tile<kVec, kCg>(a, b, g.N, p0, n0, k0, k1, smem, acc);
     float* sp = part + static_cast<size_t>(split) * g.P * g.N;
     tc::for_each_acc(acc, [&](int r, int c, float v) {
       const int p = p0 + r, n = n0 + c;
@@ -231,30 +244,33 @@ inline bool plan_fits(int P, int K, int N, int tiles, int splits, int chunk, lon
 
 // Points a.counters and a.part into ws (past one split) and zeroes the
 // counters on stream s.
-inline cudaError_t bind_workspace(Args& a, float* ws, long long part, int tiles, cudaStream_t s) {
+template <class BT>
+inline cudaError_t bind_workspace(GemmArgs<BT>& a, float* ws, long long part, int tiles,
+                                  cudaStream_t s) {
   if (a.splits == 1) return cudaSuccess;
   a.counters = reinterpret_cast<unsigned int*>(ws);
   a.part = ws + part;
   return cudaMemsetAsync(a.counters, 0, sizeof(unsigned int) * tiles, s);
 }
 
-// Launches mma_kernel<kVec, ASrc> on grid (tiles, splits), setting its
+// Launches mma_kernel<kVec, ASrc, BT> on grid (tiles, splits), setting its
 // dynamic shared memory limit once per device.
-template <bool kVec, class ASrc>
-cudaError_t launch_mma(const Args& a, const ASrc& src, int tiles, cudaStream_t s) {
+template <bool kVec, class ASrc, class BT>
+cudaError_t launch_mma(const GemmArgs<BT>& a, const ASrc& src, int tiles, cudaStream_t s) {
   static bool done[64] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
   if (!done[dev]) {
-    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(&mma_kernel<kVec, ASrc>),
+    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(&mma_kernel<kVec, ASrc, BT>),
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(tc::kSmemBytes));
+                             static_cast<int>(kTileSmemBytes<BT>));
     if (e != cudaSuccess) return e;
     done[dev] = true;
   }
-  mma_kernel<kVec, ASrc><<<dim3(tiles, a.splits), tc::kThreads, tc::kSmemBytes, s>>>(a, src);
+  mma_kernel<kVec, ASrc, BT>
+      <<<dim3(tiles, a.splits), tc::kThreads, kTileSmemBytes<BT>, s>>>(a, src);
   return cudaGetLastError();
 }
 

@@ -45,8 +45,20 @@
 // phases, each one item walk plus its split reduction (the Winograd mid
 // also its V phase), and four to seven grid barriers. One dynamic shared
 // buffer (the MMA ring, 72 KB) serves every phase.
+//
+// The bf16w tier (resnet_stage_bf16w: w_reduce, the mid's w9 or u2 and
+// w_expand in bf16, BN f32; the JAX kernel at precision="bf16w") is the
+// same kernel on mma_bf16w.cuh's tile (wt::mma_tile by the weights' type):
+// every GEMM phase and the F(2,3) mid's products split their f32 A hi/lo
+// into two bf16 m16n8k16 passes on the bf16 weights, half the weight bytes
+// (conv5_x streams 8.9 MB a block, not 17.8) and a third of the
+// tensor-core instructions; the V phase, the inverse and the epilogues
+// stay FP32. The ring takes 58 KB.
 
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "splitk_tf32.cuh"
@@ -61,16 +73,18 @@ namespace wtc = wt::winotc;
 constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
 constexpr int kMaxWalk = 512;       // K a GEMM item walks, at most
 
+// BT: the weights' element type, float or __nv_bfloat16 (bf16w).
+template <class BT>
 struct StageArgs {
   const float* x;
   float* out;
-  const float* wr;
+  const BT* wr;
   const float* s1;
   const float* b1;
-  const float* wm;  // (B, 9*Cmid, Cmid) direct or (B, 16, Cmid, Cmid) F(2,3)
+  const BT* wm;  // (B, 9*Cmid, Cmid) direct or (B, 16, Cmid, Cmid) F(2,3)
   const float* s2;
   const float* b2;
-  const float* we;
+  const BT* we;
   const float* s3;
   const float* b3;
   float* h1;
@@ -84,9 +98,10 @@ struct StageArgs {
   wtc::Cut wcut;
 };
 
-// kVec: Cio and Cmid multiples of 4, every operand 16-byte aligned.
-template <bool kVec>
-__global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm) stage_kernel(StageArgs a) {
+// kVec: Cio and Cmid multiples of 4 (of 8 for bf16 weights), every operand
+// 16-byte aligned.
+template <bool kVec, class BT>
+__global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm) stage_kernel(StageArgs<BT> a) {
   extern __shared__ __align__(16) float smem[];
   const int cio = a.Cio, cmid = a.Cmid;
   const int P = a.N * a.H * a.W;
@@ -116,24 +131,27 @@ __global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm) stage_kernel(St
   }
 }
 
-template <bool kVec>
-const void* kernel_of() {
-  return reinterpret_cast<const void*>(&stage_kernel<kVec>);
+template <class BT>
+const void* kernel_of(bool vec) {
+  return vec ? reinterpret_cast<const void*>(&stage_kernel<true, BT>)
+             : reinterpret_cast<const void*>(&stage_kernel<false, BT>);
 }
 
 // Blocks of the instantiation in the cooperative grid: what the current
 // device holds resident, at most kMaxBlocksPerSm an SM (the dynamic shared
 // memory limit raised once per device); 0 on error.
+template <class BT>
 int grid_size(bool vec) {
   static int cache[64][2] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cache[dev][vec] == 0) {
-    const void* kernel = vec ? kernel_of<true>() : kernel_of<false>();
+    const void* kernel = kernel_of<BT>(vec);
+    constexpr size_t smem = wt::kTileSmemBytes<BT>;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(tc::kSmemBytes)) != cudaSuccess)
+                             static_cast<int>(smem)) != cudaSuccess)
       return 0;
-    cache[dev][vec] = cooperative_grid(kernel, tc::kSmemBytes, tc::kThreads, kMaxBlocksPerSm);
+    cache[dev][vec] = cooperative_grid(kernel, smem, tc::kThreads, kMaxBlocksPerSm);
   }
   return cache[dev][vec];
 }
@@ -155,9 +173,10 @@ struct Plan {
   size_t h1, h2, v, part, total;  // workspace offsets and size, in floats
 };
 
-// vec: the kVec instantiation (the two have the same plan but may hold
-// different grids); wcut: the F(2,3) mid's cut (read when wino), which
-// must fit (wino_tf32.cuh::cut_fits).
+// vec: the kVec instantiation of the BT kernel (the instantiations have
+// the same plan but may hold different grids); wcut: the F(2,3) mid's cut
+// (read when wino), which must fit (wino_tf32.cuh::cut_fits).
+template <class BT>
 int make_plan(int N, int H, int W, int Cio, int Cmid, int wino, wtc::Cut wcut, bool vec,
               Plan* pl) {
   if (N <= 0 || H <= 0 || W <= 0 || Cio <= 0 || Cmid <= 0)
@@ -165,7 +184,7 @@ int make_plan(int N, int H, int W, int Cio, int Cmid, int wino, wtc::Cut wcut, b
   pl->wconv = wtc::make_conv<2>(N, H, W, Cmid, Cmid);
   pl->wcut = wcut;
   if (wino && !wtc::cut_fits(pl->wconv, wcut)) return static_cast<int>(cudaErrorInvalidValue);
-  pl->grid = grid_size(vec);
+  pl->grid = grid_size<BT>(vec);
   if (pl->grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int P = N * H * W;
   pl->reduce = tf32_phase(P, Cio, Cmid, pl->grid);
@@ -187,23 +206,60 @@ int make_plan(int N, int H, int W, int Cio, int Cmid, int wino, wtc::Cut wcut, b
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
-}  // namespace
-
-// Floats of workspace resnet_stage needs for this shape and F(2,3) cut
-// (wsplits Cin ranges of wchunk) on the current device (into *floats);
-// returns a CUDA error code. The two instantiations' plans differ at most
-// in their grid, so the larger workspace is given.
-extern "C" int resnet_stage_workspace(int N, int H, int W, int Cio, int Cmid, int wino,
-                                      int wsplits, int wchunk, long long* floats) {
+template <class BT>
+int workspace(int N, int H, int W, int Cio, int Cmid, int wino, int wsplits, int wchunk,
+              long long* floats) {
   long long most = 0;
   for (const bool vec : {true, false}) {
     Plan pl;
-    const int err = make_plan(N, H, W, Cio, Cmid, wino, wtc::Cut{wsplits, wchunk}, vec, &pl);
+    const int err = make_plan<BT>(N, H, W, Cio, Cmid, wino, wtc::Cut{wsplits, wchunk}, vec, &pl);
     if (err != 0) return err;
     if (static_cast<long long>(pl.total) > most) most = static_cast<long long>(pl.total);
   }
   *floats = most;
   return 0;
+}
+
+template <class BT>
+int stage(const float* x, const BT* wr, const float* s1, const float* b1, const BT* wm,
+          const float* s2, const float* b2, const BT* we, const float* s3, const float* b3,
+          float* out, float* ws, long long ws_floats, int N, int H, int W, int Cio, int Cmid,
+          int B, int wino, int wsplits, int wchunk, void* stream) {
+  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kVecChannels = std::is_same_v<BT, float> ? 4 : 8;
+  const bool vec = Cio % kVecChannels == 0 && Cmid % kVecChannels == 0 && aligned16(x) &&
+                   aligned16(out) && aligned16(wr) && aligned16(wm) && aligned16(we) &&
+                   aligned16(ws);
+  Plan pl;
+  const int err = make_plan<BT>(N, H, W, Cio, Cmid, wino, wtc::Cut{wsplits, wchunk}, vec, &pl);
+  if (err != 0) return err;
+  if (ws_floats < static_cast<long long>(pl.total))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto s = static_cast<cudaStream_t>(stream);
+  unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
+  cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  StageArgs<BT> a{x,  out, wr, s1, b1, wm, s2, b2, we, s3, b3,
+                  ws + pl.h1, ws + pl.h2, ws + pl.v, ws + pl.part, bar,
+                  N,  H,   W,  Cio, Cmid, B, wino, pl.reduce, pl.mid, pl.expand, pl.wconv, pl.wcut};
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(kernel_of<BT>(vec), dim3(pl.grid), dim3(tc::kThreads), args,
+                                  wt::kTileSmemBytes<BT>, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Floats of workspace resnet_stage (bf16w = 0) or resnet_stage_bf16w (1)
+// needs for this shape and F(2,3) cut (wsplits Cin ranges of wchunk) on
+// the current device (into *floats); returns a CUDA error code. A kernel's
+// two instantiations' plans differ at most in their grid, so the larger
+// workspace is given.
+extern "C" int resnet_stage_workspace(int N, int H, int W, int Cio, int Cmid, int wino,
+                                      int wsplits, int wchunk, int bf16w, long long* floats) {
+  return bf16w ? workspace<__nv_bfloat16>(N, H, W, Cio, Cmid, wino, wsplits, wchunk, floats)
+               : workspace<float>(N, H, W, Cio, Cmid, wino, wsplits, wchunk, floats);
 }
 
 extern "C" int resnet_stage(const float* x, const float* wr, const float* s1,
@@ -213,24 +269,17 @@ extern "C" int resnet_stage(const float* x, const float* wr, const float* s1,
                             long long ws_floats, int N, int H, int W, int Cio,
                             int Cmid, int B, int wino, int wsplits, int wchunk,
                             void* stream) {
-  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = Cio % 4 == 0 && Cmid % 4 == 0 && aligned16(x) && aligned16(out) &&
-                   aligned16(wr) && aligned16(wm) && aligned16(we) && aligned16(ws);
-  Plan pl;
-  const int err = make_plan(N, H, W, Cio, Cmid, wino, wtc::Cut{wsplits, wchunk}, vec, &pl);
-  if (err != 0) return err;
-  if (ws_floats < static_cast<long long>(pl.total))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
-  cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  StageArgs a{x,  out, wr, s1, b1, wm, s2, b2, we, s3, b3,
-              ws + pl.h1, ws + pl.h2, ws + pl.v, ws + pl.part, bar,
-              N,  H,   W,  Cio, Cmid, B, wino, pl.reduce, pl.mid, pl.expand, pl.wconv, pl.wcut};
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(vec ? kernel_of<true>() : kernel_of<false>(), dim3(pl.grid),
-                                  dim3(tc::kThreads), args, tc::kSmemBytes, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return stage(x, wr, s1, b1, wm, s2, b2, we, s3, b3, out, ws, ws_floats, N, H, W, Cio, Cmid, B,
+               wino, wsplits, wchunk, stream);
+}
+
+// The bf16w tier: wr, wm and we bf16, the rest as resnet_stage.
+extern "C" int resnet_stage_bf16w(const float* x, const __nv_bfloat16* wr, const float* s1,
+                                  const float* b1, const __nv_bfloat16* wm, const float* s2,
+                                  const float* b2, const __nv_bfloat16* we, const float* s3,
+                                  const float* b3, float* out, float* ws, long long ws_floats,
+                                  int N, int H, int W, int Cio, int Cmid, int B, int wino,
+                                  int wsplits, int wchunk, void* stream) {
+  return stage(x, wr, s1, b1, wm, s2, b2, we, s3, b3, out, ws, ws_floats, N, H, W, Cio, Cmid, B,
+               wino, wsplits, wchunk, stream);
 }

@@ -1,16 +1,20 @@
 // Fused ResNet stem: 7x7/2 conv (pad 3) + folded BN + ReLU + 3x3/2 maxpool
 // (pad 1 top/left, ceil-mode output), NHWC image -> pooled NHWC map, at
-// precision "f32" or "bf16". "bf16" is the int8 serving tier's stem: the
-// image and the weights are rounded to bf16 (round to nearest even) as they
-// are staged. At both precisions the products run on the FP64 tensor cores
-// (mma.sync m16n8k4 .f64): a product of two bf16 or of two f32 values is
+// precision "f32", "bf16" or "bf16w". "bf16" is the int8 serving tier's
+// stem: the image and the weights are rounded to bf16 (round to nearest
+// even) as they are staged. "bf16w" is the bf16w tier's: the image stays
+// f32 and w192 is bf16 in device memory (half its bytes). At every
+// precision the products run on the FP64 tensor cores (mma.sync m16n8k4
+// .f64): a product of two bf16, of two f32 or of an f32 and a bf16 value is
 // exact in FP64, the 49 * Cin products of a conv output are summed in FP64
 // and rounded to float once, then BN's multiply and add round separately.
 // At "bf16" the sum is then independent of its order, so the plain version
 // (a float64 matmul of the same bf16 values) matches the kernel to the bit,
 // which the int8 layers after the stem need (csrc/stage_int8.cu says why);
-// at "f32" the sum rounded once is within the f32 bar of the plain float32
-// matmul.
+// at "bf16w" the plain version is the same float64 matmul of the f32 image
+// and the bf16 weights (the JAX kernel's hi/lo split of the image differs
+// from exact products by ~2^-17 relative); at "f32" the sum rounded once is
+// within the f32 bar of the plain float32 matmul.
 //
 // Replaces: winograd_tpu/kernels/stem.py::_stem_kernel (stem_fused_pallas,
 // stem_fused_pallas_pre). The TPU kernel consumes a space-to-depth operand
@@ -77,6 +81,12 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// The precisions of the C entry, kernels/stem.py::PRECISIONS in order.
+constexpr int kF32 = 0, kBf16 = 1, kBf16w = 2;
+
 // d += a * b on one 16x8x4 fragment: a at (rows lane / 4 and lane / 4 + 8,
 // k lane % 4), b at (k lane % 4, column lane / 4), d at (rows lane / 4 and
 // lane / 4 + 8, columns 2 (lane % 4) and 2 (lane % 4) + 1).
@@ -116,9 +126,11 @@ __device__ __forceinline__ void stage(int count, const At& at, const Put& put) {
   }
 }
 
-template <bool kBf16>
+// kRound: round the image and the weights to bf16 as they are staged
+// ("bf16"); WT: w192's element type (__nv_bfloat16 at "bf16w").
+template <bool kRound, class WT>
 __global__ void __launch_bounds__(kThreads, 2) stem_kernel(
-    const float* __restrict__ x, const float* __restrict__ w192,
+    const float* __restrict__ x, const WT* __restrict__ w192,
     const float* __restrict__ scale, const float* __restrict__ bias,
     float* __restrict__ out, int H, int W, int Cin, int C) {
   extern __shared__ __align__(16) double smem[];
@@ -151,9 +163,9 @@ __global__ void __launch_bounds__(kThreads, 2) stem_kernel(
         const int r = rs / 7;
         const int s = rs % 7;
         const int row = (((r / 2) * 4 + s / 2) * 4 + (r % 2) * 2 + s % 2) * Cin + ci;
-        return w192[static_cast<size_t>(row) * C + c0 + j];
+        return widen(w192[static_cast<size_t>(row) * C + c0 + j]);
       },
-      [&](int idx, float v) { ws[idx / kCB * kLdB + idx % kCB] = kBf16 ? round_bf16(v) : v; });
+      [&](int idx, float v) { ws[idx / kCB * kLdB + idx % kCB] = kRound ? round_bf16(v) : v; });
   for (int k = tid; k < kp; k += kThreads) {
     const int rs = k / Cin;
     koff[k] = k < 49 * Cin ? ((rs / 7) * kIC + rs % 7) * Cin + k % Cin : 0;
@@ -172,7 +184,7 @@ __global__ void __launch_bounds__(kThreads, 2) stem_kernel(
         if (yy < 0 || yy >= H || xx < 0 || xx >= W) return 0.f;
         return x[(static_cast<size_t>(n * H + yy) * W + xx) * Cin + ci];
       },
-      [&](int idx, float v) { xs[idx] = kBf16 ? round_bf16(v) : v; });
+      [&](int idx, float v) { xs[idx] = kRound ? round_bf16(v) : v; });
   __syncthreads();
 
   const int warp = tid / 32, lane = tid % 32;
@@ -247,25 +259,44 @@ __global__ void __launch_bounds__(kThreads, 2) stem_kernel(
   }
 }
 
-}  // namespace
-
-extern "C" int stem_conv7x7_bn_relu_maxpool(const float* x, const float* w192,
-                                            const float* scale,
-                                            const float* bias, float* out,
-                                            int N, int H, int W, int Cin,
-                                            int C, int bf16, void* stream) {
+template <bool kRound, class WT>
+int launch(const float* x, const WT* w192, const float* scale, const float* bias, float* out,
+           int N, int H, int W, int Cin, int C, cudaStream_t stream) {
   const long long cblocks = (C + kCB - 1) / kCB;
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || C <= 0 || N * cblocks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(Cin);
-  const auto kernel = bf16 ? &stem_kernel<true> : &stem_kernel<false>;
+  const auto kernel = &stem_kernel<kRound, WT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int po = ((H + 1) / 2 + 1) / 2;
   const int qo = ((W + 1) / 2 + 1) / 2;
   const dim3 grid((qo + kPX - 1) / kPX, (po + kPY - 1) / kPY, static_cast<unsigned>(N * cblocks));
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      x, w192, scale, bias, out, H, W, Cin, C);
+  kernel<<<grid, kThreads, smem, stream>>>(x, w192, scale, bias, out, H, W, Cin, C);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// precision: kF32, kBf16 (w192 f32, rounded to bf16 as it is staged) or
+// kBf16w (w192 bf16 in device memory).
+extern "C" int stem_conv7x7_bn_relu_maxpool(const float* x, const void* w192,
+                                            const float* scale,
+                                            const float* bias, float* out,
+                                            int N, int H, int W, int Cin,
+                                            int C, int precision, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* wf = static_cast<const float*>(w192);
+  switch (precision) {
+    case kF32:
+      return launch<false>(x, wf, scale, bias, out, N, H, W, Cin, C, s);
+    case kBf16:
+      return launch<true>(x, wf, scale, bias, out, N, H, W, Cin, C, s);
+    case kBf16w:
+      return launch<false>(x, static_cast<const __nv_bfloat16*>(w192), scale, bias, out, N, H,
+                           W, Cin, C, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -37,8 +37,17 @@
 // host's plan (kernels/transition.py::transition_plan); this entry checks
 // it against the geometry compiled here, works out the workspace from it
 // and refuses a plan that does not fit.
+//
+// The bf16w tier (transition_block_bf16w: w_reduce, w9 and the fused wep
+// in bf16, BN and bep f32; the JAX kernel at precision="bf16w") is the same
+// kernel and plan on mma_bf16w.cuh's tile (wt::mma_tile by the weights'
+// type): the f32 A split hi/lo into two bf16 m16n8k16 passes, half the
+// weight bytes (12.6 MB for 14->7, not 25.3).
 
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "splitk_tf32.cuh"
@@ -50,15 +59,17 @@ namespace sk = wt::splitk;
 
 constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
 
+// BT: the weights' element type, float or __nv_bfloat16 (bf16w).
+template <class BT>
 struct TransitionArgs {
   const float* x;
-  const float* wr;
+  const BT* wr;
   const float* s1;
   const float* b1;
-  const float* w9;
+  const BT* w9;
   const float* s2;
   const float* b2;
-  const float* wep;
+  const BT* wep;
   const float* bep;
   float* out;
   float* h1;
@@ -98,10 +109,11 @@ struct BiasReluEpilogue {
   }
 };
 
-// kVec: Cin, Cmid and Cout multiples of 4, every operand 16-byte aligned.
-template <bool kVec>
+// kVec: Cin, Cmid and Cout multiples of 4 (of 8 for bf16 weights), every
+// operand 16-byte aligned.
+template <bool kVec, class BT>
 __global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm)
-    transition_kernel(TransitionArgs a) {
+    transition_kernel(TransitionArgs<BT> a) {
   extern __shared__ __align__(16) float smem[];
   const int ho = (a.H + 1) / 2, wo = (a.W + 1) / 2;
   const int P1 = a.N * a.H * a.W, P2 = a.N * ho * wo;
@@ -116,24 +128,27 @@ __global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm)
                              BiasReluEpilogue{a.bep, a.out, a.Cout}, a.part, a.bar, smem);
 }
 
-template <bool kVec>
-const void* kernel_of() {
-  return reinterpret_cast<const void*>(&transition_kernel<kVec>);
+template <class BT>
+const void* kernel_of(bool vec) {
+  return vec ? reinterpret_cast<const void*>(&transition_kernel<true, BT>)
+             : reinterpret_cast<const void*>(&transition_kernel<false, BT>);
 }
 
 // Blocks of the instantiation that the current device holds resident at
 // once, at most kMaxBlocksPerSm an SM (the dynamic shared memory limit
 // raised once per device); 0 on error.
+template <class BT>
 int resident_blocks(bool vec) {
   static int cache[64][2] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cache[dev][vec] == 0) {
-    const void* kernel = vec ? kernel_of<true>() : kernel_of<false>();
+    const void* kernel = kernel_of<BT>(vec);
+    constexpr size_t smem = wt::kTileSmemBytes<BT>;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(tc::kSmemBytes)) != cudaSuccess)
+                             static_cast<int>(smem)) != cudaSuccess)
       return 0;
-    cache[dev][vec] = cooperative_grid(kernel, tc::kSmemBytes, tc::kThreads, kMaxBlocksPerSm);
+    cache[dev][vec] = cooperative_grid(kernel, smem, tc::kThreads, kMaxBlocksPerSm);
   }
   return cache[dev][vec];
 }
@@ -168,6 +183,36 @@ int make_plan(int N, int H, int W, int Cin, int Cmid, int Cout, int blocks, int 
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <class BT>
+int transition(const float* x, const BT* wr, const float* s1, const float* b1, const BT* w9,
+               const float* s2, const float* b2, const BT* wep, const float* bep, float* out,
+               float* ws, long long ws_floats, int N, int H, int W, int Cin, int Cmid, int Cout,
+               int blocks, int rs, int rc, int ms, int mc, int es, int ec, void* stream) {
+  Plan pl;
+  const int err = make_plan(N, H, W, Cin, Cmid, Cout, blocks, rs, rc, ms, mc, es, ec, &pl);
+  if (err != 0) return err;
+  if (ws_floats < static_cast<long long>(pl.total))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kVecChannels = std::is_same_v<BT, float> ? 4 : 8;
+  const bool vec = Cin % 4 == 0 && Cmid % kVecChannels == 0 && Cout % kVecChannels == 0 &&
+                   aligned16(x) && aligned16(wr) && aligned16(w9) && aligned16(wep) &&
+                   aligned16(ws);
+  const int resident = resident_blocks<BT>(vec);
+  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto s = static_cast<cudaStream_t>(stream);
+  unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
+  cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  TransitionArgs<BT> a{x,  wr, s1, b1, w9, s2, b2, wep, bep, out,
+                       ws + pl.h1, ws + pl.h2, ws + pl.part, bar,
+                       N,  H,  W,  Cin, Cmid, Cout, pl.reduce, pl.mid, pl.expand};
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(kernel_of<BT>(vec), dim3(blocks), dim3(tc::kThreads), args,
+                                  wt::kTileSmemBytes<BT>, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Floats of workspace transition_block needs for this shape under the plan
@@ -192,25 +237,17 @@ extern "C" int transition_block(const float* x, const float* wr, const float* s1
                                 float* ws, long long ws_floats, int N, int H, int W, int Cin,
                                 int Cmid, int Cout, int blocks, int rs, int rc, int ms, int mc,
                                 int es, int ec, void* stream) {
-  Plan pl;
-  const int err = make_plan(N, H, W, Cin, Cmid, Cout, blocks, rs, rc, ms, mc, es, ec, &pl);
-  if (err != 0) return err;
-  if (ws_floats < static_cast<long long>(pl.total))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = Cin % 4 == 0 && Cmid % 4 == 0 && Cout % 4 == 0 && aligned16(x) &&
-                   aligned16(wr) && aligned16(w9) && aligned16(wep) && aligned16(ws);
-  const int resident = resident_blocks(vec);
-  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const auto s = static_cast<cudaStream_t>(stream);
-  unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
-  cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  TransitionArgs a{x,  wr, s1, b1, w9, s2, b2, wep, bep, out,
-                   ws + pl.h1, ws + pl.h2, ws + pl.part, bar,
-                   N,  H,  W,  Cin, Cmid, Cout, pl.reduce, pl.mid, pl.expand};
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(vec ? kernel_of<true>() : kernel_of<false>(), dim3(blocks),
-                                  dim3(tc::kThreads), args, tc::kSmemBytes, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return transition(x, wr, s1, b1, w9, s2, b2, wep, bep, out, ws, ws_floats, N, H, W, Cin, Cmid,
+                    Cout, blocks, rs, rc, ms, mc, es, ec, stream);
+}
+
+// The bf16w tier: wr, w9 and wep bf16, the rest as transition_block.
+extern "C" int transition_block_bf16w(const float* x, const __nv_bfloat16* wr, const float* s1,
+                                      const float* b1, const __nv_bfloat16* w9, const float* s2,
+                                      const float* b2, const __nv_bfloat16* wep, const float* bep,
+                                      float* out, float* ws, long long ws_floats, int N, int H,
+                                      int W, int Cin, int Cmid, int Cout, int blocks, int rs,
+                                      int rc, int ms, int mc, int es, int ec, void* stream) {
+  return transition(x, wr, s1, b1, w9, s2, b2, wep, bep, out, ws, ws_floats, N, H, W, Cin, Cmid,
+                    Cout, blocks, rs, rc, ms, mc, es, ec, stream);
 }

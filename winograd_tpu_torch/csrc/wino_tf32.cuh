@@ -7,7 +7,10 @@
 //   right and bottom edges when m does not divide the map.
 //
 // Shared by csrc/winograd.cu (the per-layer f32 Winograd, F(2,3) and F(4,3))
-// and csrc/stage.cu (the F(2,3) mid-layer of the f32 bottleneck stage).
+// and csrc/stage.cu (the F(2,3) mid-layer of the f32 bottleneck stage, and
+// of the bf16w stage, whose U is bf16: its products run mma_bf16w.cuh's
+// tile, V split hi/lo, through wt::mma_tile; the V phase and the inverse
+// stay FP32).
 //
 // Three steps, two grid barriers (grid_sync.cuh):
 // * V phase: the grid writes V = Bt d Bt^T once, one (tile, channel) a
@@ -34,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include "grid_sync.cuh"
+#include "mma_bf16w.cuh"
 #include "mma_tf32.cuh"
 #include "winograd.cuh"
 
@@ -94,10 +98,11 @@ __device__ __forceinline__ void transform(const Conv& cv, const float* x, float*
 }
 
 // One work item: position q of tile block tb and Cout block cb over Cin
-// range [k0, k1), A from V, partial M into part. kVec: Cout a multiple of
-// 4 and u 16-byte aligned (16-byte copies of U and V).
-template <int M, bool kVec>
-__device__ __forceinline__ void item(const Conv& cv, const float* v, const float* __restrict__ u,
+// range [k0, k1), A from V, partial M into part; U f32 or bf16 (UT).
+// kVec: Cout a multiple of 4 (of 8 for bf16 U) and u 16-byte aligned
+// (16-byte copies of U and V).
+template <int M, bool kVec, class UT>
+__device__ __forceinline__ void item(const Conv& cv, const float* v, const UT* __restrict__ u,
                                      float* part, int q, int split, int k0, int k1, int tb,
                                      int cb, float* smem) {
   constexpr int A2 = (M + 2) * (M + 2);
@@ -105,7 +110,7 @@ __device__ __forceinline__ void item(const Conv& cv, const float* v, const float
   const size_t tk = static_cast<size_t>(cv.T) * v_row(cv);
   const size_t tco = static_cast<size_t>(cv.T) * cv.Cout;
   tc::Acc acc;
-  tc::tile<kVec, true>(tc::RowMajorA{v + q * tk, cv.T, v_row(cv)},
+  mma_tile<kVec, true>(tc::RowMajorA{v + q * tk, cv.T, v_row(cv)},
                        u + static_cast<size_t>(q) * cv.C * cv.Cout, cv.Cout, p0, n0, k0, k1,
                        smem, acc);
   float* pq = part + (static_cast<size_t>(split) * A2 + q) * tco;
@@ -160,11 +165,11 @@ __host__ __device__ inline int items_of(const Conv& cv, int a2, const Cut& cut) 
 // out = BN(conv3x3(x, U)) (+ ReLU) through the V phase, the items and the
 // inverse, two grid barriers apart; U (a^2, C, Cout) row-major per
 // position; v holds a^2 * T * v_row floats, part cut.splits * a^2 * T *
-// Cout; smem: tc::kSmemBytes; kCg: x was written earlier in the launch. The
-// caller places the barrier that ends the phase.
-template <int M, bool kVec, bool kCg>
+// Cout; smem: kTileSmemBytes<UT>; kCg: x was written earlier in the
+// launch. The caller places the barrier that ends the phase.
+template <int M, bool kVec, bool kCg, class UT>
 __device__ __forceinline__ void phase(const Conv& cv, const Cut& cut, const float* x,
-                                      const float* __restrict__ u,
+                                      const UT* __restrict__ u,
                                       const float* __restrict__ scale,
                                       const float* __restrict__ bias, float* out, int relu,
                                       float* v, float* part, unsigned int* bar, float* smem) {

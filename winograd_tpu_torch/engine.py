@@ -1,14 +1,15 @@
 """Serving layer: the ResNet classifiers with their weights resident on a device.
 
-Port of winograd_tpu/engine.py::ResNet50Engine and ::ResNetBasicEngine
-(ResNet-18/34) at the f32 and int8 tiers on one device. The bf16w tier and
-the mesh partitions are not ported yet, nor the engines' from_torch and
-from_checkpoint constructors.
+Port of winograd_tpu/engine.py::ResNet50Engine (at the f32, bf16w and int8
+tiers) and ::ResNetBasicEngine (ResNet-18/34, at the f32 and int8 tiers) on
+one device. The basic family's bf16w tier and the mesh partitions are not
+ported yet, nor the engines' from_torch and from_checkpoint constructors.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import functools
+from typing import Callable, Dict
 
 import torch
 
@@ -20,25 +21,33 @@ from winograd_tpu_torch.models.basic import (
 )
 from winograd_tpu_torch.models.convert import params_to
 from winograd_tpu_torch.models.resnet50 import (
+    cast_bf16w,
     quantize_resnet50,
     resnet50_forward,
     resnet50_forward_int8,
 )
 
+TIERS = ("f32", "bf16w", "int8")
+
 
 class _ClassifierEngine:
-    """A classifier's weights resident on one device, served at the f32 or
-    the int8 tier. A subclass names its model's f32 forward, int8 forward
-    and quantizer."""
+    """A classifier's weights resident on one device, served at one tier. A
+    subclass names, per tier it serves, the forward and the conversion of
+    the f32 parameters into that tier's (none at f32), and what a tier it
+    does not serve is waiting for."""
 
-    _f32_forward = _int8_forward = _quantize = None
+    _forwards: Dict[str, Callable] = {}
+    _convert: Dict[str, Callable] = {}
+    _unported: Dict[str, str] = {}
 
     def __init__(self, params: Dict, tier: str = "f32", device="cuda",
                  mesh=None, partition: str = "data"):
-        if tier not in ("f32", "int8"):
+        if tier not in TIERS:
+            raise ValueError(f"unknown tier {tier!r}; choose from {TIERS}")
+        if tier not in self._forwards:
             raise NotImplementedError(
-                f"tier={tier!r} is not ported yet (ROADMAP.md, queue A item 5: "
-                "serving tiers); 'f32' and 'int8' are served"
+                f"tier={tier!r} of {type(self).__name__} is not ported yet "
+                f"({self._unported[tier]}); {sorted(self._forwards)} are served"
             )
         if mesh is not None or partition != "data":
             raise NotImplementedError(
@@ -47,10 +56,10 @@ class _ClassifierEngine:
             )
         self.tier = tier
         self.device = _build.require_device(device)
-        if tier == "int8":
-            params = type(self)._quantize(params)
+        if tier in self._convert:
+            params = self._convert[tier](params)
         self._params = params_to(params, self.device, torch.float32)
-        self._forward = type(self)._int8_forward if tier == "int8" else type(self)._f32_forward
+        self._forward = self._forwards[tier]
 
     def __call__(self, x) -> torch.Tensor:
         """x: (224, 224, 3) or (N, 224, 224, 3) image(s), array or tensor;
@@ -70,14 +79,17 @@ class ResNet50Engine(_ClassifierEngine):
 
     params: the port's f32 parameter dicts (models/resnet50.py::
     init_resnet50_params, or models/convert.py::params_from_jax); they are
-    copied to `device` once. tier "f32" serves them as they are; "int8"
+    copied to `device` once. tier "f32" serves them as they are; "bf16w"
+    casts them once here (models/convert.py::cast_bf16w: bfloat16 weights,
+    f32 BN) and serves resnet50_forward(precision="bf16w"); "int8"
     quantizes them once here (models/resnet50.py::quantize_resnet50) and
     serves resnet50_forward_int8. device defaults to "cuda" and must exist;
     the CPU runs the kernels' plain versions and only when asked for."""
 
-    _f32_forward = staticmethod(resnet50_forward)
-    _int8_forward = staticmethod(resnet50_forward_int8)
-    _quantize = staticmethod(quantize_resnet50)
+    _forwards = {"f32": resnet50_forward,
+                 "bf16w": functools.partial(resnet50_forward, precision="bf16w"),
+                 "int8": resnet50_forward_int8}
+    _convert = {"bf16w": cast_bf16w, "int8": quantize_resnet50}
 
 
 class ResNetBasicEngine(_ClassifierEngine):
@@ -89,8 +101,10 @@ class ResNetBasicEngine(_ClassifierEngine):
     `device` once. tier "f32" serves them as they are (basicnet_forward);
     "int8" quantizes them once here (models/basic.py::quantize_basicnet) and
     serves basicnet_forward_int8. device defaults to "cuda" and must exist;
-    the CPU runs the kernels' plain versions and only when asked for."""
+    the CPU runs the kernels' plain versions and only when asked for. The
+    bf16w tier raises NotImplementedError until its kernels are ported."""
 
-    _f32_forward = staticmethod(basicnet_forward)
-    _int8_forward = staticmethod(basicnet_forward_int8)
-    _quantize = staticmethod(quantize_basicnet)
+    _forwards = {"f32": basicnet_forward, "int8": basicnet_forward_int8}
+    _convert = {"int8": quantize_basicnet}
+    _unported = {"bf16w": "ROADMAP.md, queue A item 1: the ResNet-18/34 bf16w tier, "
+                          "direct.cu and basic_stage.cu at bf16w"}

@@ -37,7 +37,8 @@ NVCC_FLAGS = (
 )
 
 # Launches per kernel, counted by launch() once the kernel was accepted, and
-# per kernel the launches of each argument shape its wrapper reports.
+# per kernel the launches of each argument shape its wrapper reports. A
+# kernel's bf16w instantiation counts under its own name ("<kernel>_bf16w").
 LAUNCHES: collections.Counter = collections.Counter()
 LAUNCH_SHAPES: Dict[str, collections.Counter] = collections.defaultdict(collections.Counter)
 
@@ -113,7 +114,7 @@ def library(name: str) -> ctypes.CDLL:
 
 # The element types a kernel operand may have: float32 activations, BN and
 # scales; int8 quantized weights; bfloat16 filters (the int8 tier's F(2,3)
-# mid-layer).
+# mid-layer) and weights (the bf16w tier).
 OPERAND_DTYPES = (torch.float32, torch.int8, torch.bfloat16)
 
 
@@ -176,17 +177,26 @@ def check_error(lib: ctypes.CDLL, what: str, err: int) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
-def launch(name: str, entry: str, shape: tuple, device: torch.device, *args) -> None:
+def launch(name: str, entry: str, shape: tuple, device: torch.device, *args,
+           counter: str | None = None) -> None:
     """Call the C entry `entry` of library `name` with `device` current, on
     its current stream; raise if the launch was refused, else count it under
-    `name` and its argument `shape`."""
+    `counter` (default `name`) and its argument `shape`."""
     lib = library(name)
     with torch.cuda.device(device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
         err = getattr(lib, entry)(*args, stream)
     check_error(lib, f"{name}.{entry}", err)
-    LAUNCHES[name] += 1
-    LAUNCH_SHAPES[name][shape] += 1
+    counter = counter or name
+    LAUNCHES[counter] += 1
+    LAUNCH_SHAPES[counter][shape] += 1
+
+
+def check_bf16w(x: torch.Tensor) -> None:
+    """A bf16 weight takes a float32 activation (the bf16w tier splits it
+    into two bf16 halves); anything else is refused."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"bfloat16 weights take a float32 activation, got {x.dtype}")
 
 
 def require_device(device) -> torch.device:

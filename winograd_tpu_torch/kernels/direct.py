@@ -15,7 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from winograd_tpu_torch.kernels import _build
-from winograd_tpu_torch.kernels.pointwise import MMA_SPLIT_MIN_K, MMA_TILE, SPLIT_STEP, Plan
+from winograd_tpu_torch.kernels.pointwise import (
+    MMA_SPLIT_MIN_K, MMA_TILE, SPLIT_STEP, Plan, weight_matmul,
+)
 from winograd_tpu_torch.kernels.splitk import H100_SMS, split_k
 
 # The plan's rule for csrc/direct.cu (its geometry is the pointwise MMA
@@ -59,8 +61,10 @@ def im2col3x3(x: torch.Tensor) -> torch.Tensor:
 
 
 def conv3x3_bn_direct_plain(x, w9, scale, bias, relu: bool = True) -> torch.Tensor:
-    """im2col, then one matmul, BN (+ReLU). x: (N, H, W, Cin)."""
-    y = torch.matmul(im2col3x3(x), w9) * scale + bias
+    """im2col, then one matmul (weight_matmul: bf16w for a bfloat16 w9, the
+    plain arithmetic of the bf16w stage's direct mid), BN (+ReLU).
+    x: (N, H, W, Cin)."""
+    y = weight_matmul(im2col3x3(x), w9) * scale + bias
     return torch.relu(y) if relu else y
 
 

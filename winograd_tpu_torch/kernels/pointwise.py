@@ -3,6 +3,12 @@
 Port of winograd_tpu/kernels/pointwise.py::conv1x1_bn_pallas. The CUDA
 kernel is csrc/pointwise.cu: 3xTF32 tensor-core tiles, or a GEMV at a few
 rows, with K split over blocks by split_plan.
+
+A bfloat16 weight selects the bf16w tier (the JAX op at precision="bf16w"):
+the f32 activation is split into two bf16 halves and each is multiplied by
+the bf16 weight in f32 (split_dot_bf16w, the plain arithmetic, which the
+port's other plain GEMMs share through weight_matmul); on the card the same
+plan runs csrc/pointwise.cu's bf16w instantiation.
 """
 
 from __future__ import annotations
@@ -68,24 +74,52 @@ def split_plan(p: int, k: int, n: int, sms: int = H100_SMS) -> Plan:
     return Plan(gemv, tile, tiles, split.splits, split.chunk)
 
 
+def split_dot_bf16w(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w at the bf16w tier, in float32: a_hi = bf16(a) and a_lo =
+    bf16(a - a_hi) (round to nearest even), then a_hi @ w + a_lo @ w with
+    every product exact. The port of winograd_tpu/kernels/direct.py::
+    split_dot(a, w, "bf16w"). w: bfloat16; a: float32, else ValueError."""
+    if w.dtype != torch.bfloat16:
+        raise ValueError(f"split_dot_bf16w takes bfloat16 weights, got {w.dtype}")
+    if a.dtype != torch.float32:
+        raise ValueError(f"bfloat16 weights take a float32 activation, got {a.dtype}")
+    a_hi = a.to(torch.bfloat16).float()
+    a_lo = (a - a_hi).to(torch.bfloat16).float()
+    wf = w.float()
+    return torch.matmul(a_hi, wf) + torch.matmul(a_lo, wf)
+
+
+def weight_matmul(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """a @ w as the plain versions compute it: torch.matmul, or
+    split_dot_bf16w for a bfloat16 weight."""
+    return split_dot_bf16w(a, w) if w.dtype == torch.bfloat16 else torch.matmul(a, w)
+
+
 def conv1x1_bn_plain(x, w, scale, bias, relu: bool) -> torch.Tensor:
-    """(..., Cin) @ (Cin, Cout) * scale + bias (+ReLU), in x's dtype."""
-    y = torch.matmul(x, w) * scale + bias
+    """(..., Cin) @ (Cin, Cout) * scale + bias (+ReLU), in x's dtype
+    (weight_matmul: bf16w for a bfloat16 w)."""
+    y = weight_matmul(x, w) * scale + bias
     return torch.relu(y) if relu else y
 
 
 def conv1x1_bn(x, w, scale, bias, relu: bool) -> torch.Tensor:
     """Fused pointwise conv + BN (+ReLU).
 
-    x: (..., Cin); w: (Cin, Cout); scale, bias: (Cout,). Returns
-    x.shape[:-1] + (Cout,). CPU tensors run the plain version; CUDA tensors
-    launch csrc/pointwise.cu (contiguous float32 operands)."""
+    x: (..., Cin); w: (Cin, Cout), float32, or bfloat16 for the bf16w tier
+    (x float32); scale, bias: (Cout,). Returns x.shape[:-1] + (Cout,). CPU
+    tensors run the plain version; CUDA tensors launch csrc/pointwise.cu
+    (contiguous operands, float32 but for a bfloat16 w)."""
     cin, cout = w.shape
     if x.shape[-1] != cin:
         raise ValueError(f"x channels {x.shape[-1]} != weight Cin {cin}")
     if x.device.type == "cpu":
         return conv1x1_bn_plain(x, w, scale, bias, relu)
-    _build.check_operands(scale, bias, cout, x, w)
+    if w.dtype == torch.bfloat16:
+        _build.check_bf16w(x)
+        _build.check_tensors(w, dtype=torch.bfloat16, device=x.device)
+        _build.check_operands(scale, bias, cout, x)
+    else:
+        _build.check_operands(scale, bias, cout, x, w)
     p = x.numel() // cin
     return conv1x1_bn_planned(x, w, scale, bias, relu,
                               split_plan(p, cin, cout, _build.sm_count(x.device)))
@@ -93,19 +127,23 @@ def conv1x1_bn(x, w, scale, bias, relu: bool) -> torch.Tensor:
 
 def conv1x1_bn_planned(x, w, scale, bias, relu: bool, plan: Plan) -> torch.Tensor:
     """conv1x1_bn's launch on CUDA tensors under an explicit plan (the
-    wrapper passes split_plan's; tools/chip_split_sweep.py times others).
-    Operands as conv1x1_bn checks them."""
+    wrapper passes split_plan's; tools/chip_split_sweep.py times others);
+    a bfloat16 w launches the bf16w instantiation, counted as
+    "pointwise_bf16w". Operands as conv1x1_bn checks them."""
     cin, cout = w.shape
     p = x.numel() // cin
     words = plan.workspace_words(p, cout)
     ws = torch.empty(words, device=x.device, dtype=torch.float32) if words else None
     out = torch.empty(*x.shape[:-1], cout, device=x.device, dtype=torch.float32)
     c = _build.cint
+    bf16w = w.dtype == torch.bfloat16
     _build.launch(
-        "pointwise", "pointwise_conv1x1_bn", (p, cin, cout, bool(relu)), x.device,
+        "pointwise", "pointwise_conv1x1_bn_bf16w" if bf16w else "pointwise_conv1x1_bn",
+        (p, cin, cout, bool(relu)), x.device,
         _build.ptr(x), _build.ptr(w), _build.ptr(scale), _build.ptr(bias),
         _build.ptr(out), _build.ptr(ws) if ws is not None else ctypes.c_void_p(0),
         ctypes.c_longlong(words), ctypes.c_longlong(plan.counter_words()), c(p), c(cin),
         c(cout), c(relu), c(plan.gemv), c(plan.tile), c(plan.splits), c(plan.chunk),
+        counter="pointwise_bf16w" if bf16w else None,
     )
     return out

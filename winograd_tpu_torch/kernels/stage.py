@@ -6,6 +6,12 @@ csrc/stage.cu, a persistent kernel whose phases (reduce GEMM, 3x3, expand
 GEMM + residual + ReLU) run over all N*H*W rows, one grid barrier apart;
 the plain twin runs the same chain block by block with the plain versions
 of the per-layer kernels.
+
+bfloat16 weights (w_reduce, the mid's w9_mid or u2_mid, w_expand; BN stays
+float32) select the bf16w tier, the JAX kernel at precision="bf16w": the
+kernel's bf16w instantiation (every product on the f32 activation split
+into two bf16 halves, csrc/mma_bf16w.cuh), and in the plain twin
+pointwise.py::split_dot_bf16w's arithmetic.
 """
 
 from __future__ import annotations
@@ -33,10 +39,11 @@ STAGE_KEYS = (
 
 
 def stack_stage_params(blocks: List[Dict]) -> Dict[str, torch.Tensor]:
-    """Stack per-block params on a leading block axis (BN as (B, 1, C));
-    the F(2,3) filter u2_mid is stacked too when every block has it,
-    enabling the winograd2 mid-layer. A copy of the JAX package's
-    stack_stage_params, on tensors."""
+    """Stack per-block params on a leading block axis (BN as (B, 1, C)),
+    each in its own dtype (bfloat16 weights stay bfloat16); the F(2,3)
+    filter u2_mid is stacked too when every block has it, enabling the
+    winograd2 mid-layer. A copy of the JAX package's stack_stage_params, on
+    tensors."""
     keys = STAGE_KEYS + (("u2_mid",) if all("u2_mid" in p for p in blocks) else ())
     out = {}
     for key in keys:
@@ -79,13 +86,14 @@ def resnet_stage_fused_plain(x, stacked: Dict, mid_algo: str = "auto") -> torch.
 
 
 @functools.lru_cache(maxsize=None)
-def _workspace_floats(device_index: int, n, h, w, cio, cmid, wino, splits, chunk) -> int:
+def _workspace_floats(device_index: int, n, h, w, cio, cmid, wino, splits, chunk,
+                      bf16w: bool = False) -> int:
     lib = _build.library("stage")
     floats = ctypes.c_longlong(0)
     c = _build.cint
     with torch.cuda.device(device_index):
         err = lib.resnet_stage_workspace(
-            c(n), c(h), c(w), c(cio), c(cmid), c(wino), c(splits), c(chunk),
+            c(n), c(h), c(w), c(cio), c(cmid), c(wino), c(splits), c(chunk), c(bf16w),
             ctypes.byref(floats))
     _build.check_error(lib, "resnet_stage_workspace", err)
     return floats.value
@@ -99,8 +107,9 @@ def resnet_stage_fused(x, stacked: Dict, mid_algo: str = "auto",
     mid_algo: "winograd2" (F(2,3) on u2_mid), "direct" (w9_mid) or "auto"
     (resolve_mid_algo). resident is accepted for parity with the JAX
     package's weight-resident layout and changes nothing: the CUDA kernel
-    already reads each block's weights once for the whole batch. CPU
-    tensors run the plain version; CUDA tensors launch csrc/stage.cu."""
+    already reads each block's weights once for the whole batch. bfloat16
+    weights run the bf16w tier (module docstring; x float32). CPU tensors
+    run the plain version; CUDA tensors launch csrc/stage.cu."""
     del resident
     squeeze = x.dim() == 3
     if squeeze:
@@ -124,19 +133,29 @@ def resnet_stage_fused(x, stacked: Dict, mid_algo: str = "auto",
         if shape is not None and tuple(stacked[key].shape) != shape:
             raise ValueError(f"{key} {tuple(stacked[key].shape)}, want {shape}")
     ops = [x] + [stacked[k] for k in keys]
-    _build.check_tensors(*ops)
+    bf16w = stacked["w_reduce"].dtype == torch.bfloat16
+    if bf16w:
+        _build.check_bf16w(x)
+        weight_keys = ("w_reduce", mid_key, "w_expand")
+        _build.check_tensors(*(stacked[k] for k in weight_keys), dtype=torch.bfloat16,
+                             device=x.device)
+        _build.check_tensors(x, *(stacked[k] for k in keys if k not in weight_keys))
+    else:
+        _build.check_tensors(*ops)
     # The F(2,3) mid's Cin split: the per-layer Winograd's plan for Cmid
     # (the kernel's grid is as many blocks an SM as that plan's).
     cut = winograd_plan(n, h, w, cmid, cmid, 2, _build.sm_count(x.device))
     floats = _workspace_floats(x.device.index, n, h, w, cio, cmid, int(wino), cut.splits,
-                               cut.chunk)
+                               cut.chunk, bf16w=bf16w)
     ws = torch.empty(floats, device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     c = _build.cint
     _build.launch(
-        "stage", "resnet_stage", (n, h, w, cio, cmid, nb, mid_algo), x.device,
+        "stage", "resnet_stage_bf16w" if bf16w else "resnet_stage",
+        (n, h, w, cio, cmid, nb, mid_algo), x.device,
         *map(_build.ptr, ops), _build.ptr(out),
         _build.ptr(ws), ctypes.c_longlong(floats),
         c(n), c(h), c(w), c(cio), c(cmid), c(nb), c(wino), c(cut.splits), c(cut.chunk),
+        counter="stage_bf16w" if bf16w else None,
     )
     return out[0] if squeeze else out

@@ -7,6 +7,11 @@ tensor-core GEMM phases (reduce, the stride-2 3x3 on an implicit strided
 im2col, and one GEMM over the combined [h2 | x[::2, ::2]] rows with the
 expand and projection weights fused offline), each phase's K split by
 transition_plan; the plain twin runs the same three products in PyTorch.
+
+bfloat16 weights (w_reduce, w9_mid and the fused wep; BN and bep stay
+float32) select the bf16w tier, the JAX kernel at precision="bf16w": the
+kernel's bf16w instantiation (csrc/mma_bf16w.cuh's tile under the same
+plan), and in the plain twin pointwise.py::split_dot_bf16w's arithmetic.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from winograd_tpu_torch.kernels import _build
-from winograd_tpu_torch.kernels.pointwise import conv1x1_bn_plain
+from winograd_tpu_torch.kernels.pointwise import conv1x1_bn_plain, weight_matmul
 from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, split_k
 
 
@@ -28,10 +33,15 @@ def fuse_transition_weights(params: Dict):
     stack them: wep = [w_expand * s_expand; w_proj * s_proj] (Cmid + Cin,
     Cout), bep = b_expand + b_proj as (1, Cout), so that
     (h2 @ we) * s3 + b3 + (xs @ wp) * sp + bp == [h2 | xs] @ wep + bep.
-    A copy of the JAX package's fuse_transition_weights, on tensors."""
+    A copy of the JAX package's fuse_transition_weights, on tensors. wep
+    keeps the weights' dtype: bfloat16 weights are folded in float32 and
+    the fold rounded to bfloat16 once (the bf16w tier's cast_bf16w folds
+    the float32 weights first, as the JAX kernel does)."""
     cout = params["w_expand"].shape[1]
-    wep = torch.cat([params["w_expand"] * params["s_expand"][None, :],
-                     params["w_proj"] * params["s_proj"][None, :]], dim=0)
+    wdt = params["w_expand"].dtype
+    s3, sp = params["s_expand"][None, :], params["s_proj"][None, :]
+    wep = torch.cat([params["w_expand"].to(s3.dtype) * s3,
+                     params["w_proj"].to(sp.dtype) * sp], dim=0).to(wdt)
     bep = (params["b_expand"] + params["b_proj"]).reshape(1, cout)
     return wep.contiguous(), bep
 
@@ -62,7 +72,7 @@ def transition_block_fused_plain(x, params: Dict) -> torch.Tensor:
     h = conv1x1_bn_plain(x, params["w_reduce"], params["s_reduce"], params["b_reduce"], True)
     h = conv1x1_bn_plain(strided_im2col(h), params["w9_mid"], params["s_mid"], params["b_mid"], True)
     h2xs = torch.cat([h, x[:, ::2, ::2, :]], dim=-1)
-    return torch.relu(torch.matmul(h2xs, wep) + bep[0])
+    return torch.relu(weight_matmul(h2xs, wep) + bep[0])
 
 
 # The plan of a csrc/transition.cu launch. The kernel's geometry, which its
@@ -143,8 +153,9 @@ def transition_block_fused(x, params: Dict, resident=None) -> torch.Tensor:
     w_proj/s_proj/b_proj. Returns (..., ceil(H/2), ceil(W/2), Cout).
     resident is accepted for parity with the JAX package's tile-outer
     layout and changes nothing: the CUDA kernel already reads each weight
-    once for the whole batch. CPU tensors run the plain version; CUDA
-    tensors launch csrc/transition.cu."""
+    once for the whole batch. bfloat16 weights run the bf16w tier (module
+    docstring; x float32). CPU tensors run the plain version; CUDA tensors
+    launch csrc/transition.cu."""
     del resident
     squeeze = x.dim() == 3
     if squeeze:
@@ -162,8 +173,16 @@ def transition_block_fused(x, params: Dict, resident=None) -> torch.Tensor:
                      (bep, (1, cout))):
         if tuple(t.shape) != shape:
             raise ValueError(f"operand {tuple(t.shape)}, want {shape}")
-    _build.check_operands(params["s_reduce"], params["b_reduce"], cmid, x, params["w_reduce"])
-    _build.check_operands(params["s_mid"], params["b_mid"], cmid, x, params["w9_mid"], wep, bep)
+    if params["w_reduce"].dtype == torch.bfloat16:
+        _build.check_bf16w(x)
+        _build.check_tensors(params["w_reduce"], params["w9_mid"], wep, dtype=torch.bfloat16,
+                             device=x.device)
+        _build.check_operands(params["s_reduce"], params["b_reduce"], cmid, x)
+        _build.check_operands(params["s_mid"], params["b_mid"], cmid, x, bep)
+    else:
+        _build.check_operands(params["s_reduce"], params["b_reduce"], cmid, x, params["w_reduce"])
+        _build.check_operands(params["s_mid"], params["b_mid"], cmid, x, params["w9_mid"], wep,
+                              bep)
     out = transition_block_fused_planned(
         x, params["w_reduce"], params["s_reduce"], params["b_reduce"], params["w9_mid"],
         params["s_mid"], params["b_mid"], wep, bep,
@@ -175,18 +194,22 @@ def transition_block_fused_planned(x, wr, s1, b1, w9, s2, b2, wep, bep,
                                    plan: TransitionPlan) -> torch.Tensor:
     """transition_block_fused's launch on CUDA tensors under an explicit plan
     (the wrapper passes transition_plan's; tools/chip_split_sweep.py times
-    others). x: (N, H, W, Cin); operands as transition_block_fused checks
-    them."""
+    others); bfloat16 weights launch the bf16w instantiation, counted as
+    "transition_bf16w". x: (N, H, W, Cin); operands as
+    transition_block_fused checks them."""
     n, h, w, cin = x.shape
     cmid, cout = wr.shape[1], wep.shape[1]
     floats = _workspace_floats(x.device.index, n, h, w, cin, cmid, cout, *plan.args())
     ws = torch.empty(floats, device=x.device, dtype=torch.float32)
     out = torch.empty(n, -(-h // 2), -(-w // 2), cout, device=x.device, dtype=torch.float32)
     p, c = _build.ptr, _build.cint
+    bf16w = wr.dtype == torch.bfloat16
     _build.launch(
-        "transition", "transition_block", (n, h, w, cin, cmid, cout), x.device,
+        "transition", "transition_block_bf16w" if bf16w else "transition_block",
+        (n, h, w, cin, cmid, cout), x.device,
         p(x), p(wr), p(s1), p(b1), p(w9), p(s2), p(b2), p(wep), p(bep),
         p(out), p(ws), ctypes.c_longlong(floats),
         c(n), c(h), c(w), c(cin), c(cmid), c(cout), *map(c, plan.args()),
+        counter="transition_bf16w" if bf16w else None,
     )
     return out

@@ -8,11 +8,13 @@ winograd_plan; the plain
 twin does the same Winograd algebra on u with this package's transform
 matrices.
 
-A bfloat16 u (F(2,3) only) is the int8 tier's bf16-weight 3x3, the JAX
-package's conv3x3_bn_winograd_pallas(precision="bf16w"): the kernel runs its
-algebra in FP64 and rounds each output once, and its plain twin
+A bfloat16 u (F(2,3) only) is the bf16-weight 3x3 of the int8 tier and of
+the bf16w tier's entry block, the JAX package's
+conv3x3_bn_winograd_pallas(precision="bf16w"): the kernel runs its algebra
+in FP64 and rounds each output once, and its plain twin
 (winograd2_mid_plain) does the algebra in float64, so the two agree to the
-bit, as the int8 layer it feeds needs.
+bit, as the int8 layer it feeds needs (the JAX kernel's hi/lo split of V is
+within ~2^-17 of that).
 """
 
 from __future__ import annotations
@@ -112,9 +114,28 @@ def winograd_matrices(m: int, dtype: torch.dtype, device: torch.device):
             torch.as_tensor(at, dtype=dtype, device=device))
 
 
+def _position_products(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """M[q] = V[q] U[q] at every tile position q; v: (n, th, tw, a^2, cin).
+    A bfloat16 u takes the bf16w tier's products (pointwise.py::
+    split_dot_bf16w's arithmetic on a float32 V): V split into bf16 hi and
+    lo halves, each multiplied by u in float32."""
+    if u.dtype != torch.bfloat16:
+        return torch.einsum("nyxpc,pco->nyxpo", v, u)
+    if v.dtype != torch.float32:
+        raise ValueError(f"bfloat16 weights take a float32 activation, got {v.dtype}")
+    v_hi = v.to(torch.bfloat16).float()
+    v_lo = (v - v_hi).to(torch.bfloat16).float()
+    uf = u.float()
+    return (torch.einsum("nyxpc,pco->nyxpo", v_hi, uf)
+            + torch.einsum("nyxpc,pco->nyxpo", v_lo, uf))
+
+
 def conv3x3_bn_winograd_plain(x, u, scale, bias, relu: bool = True) -> torch.Tensor:
     """The Winograd algorithm in plain PyTorch: tiles, Bt d Bt^T, per-position
-    products with u, At M At^T, crop, BN (+ReLU). x: (N, H, W, Cin)."""
+    products with u, At M At^T, crop, BN (+ReLU). x: (N, H, W, Cin). A
+    bfloat16 u at F(2,3) runs the bf16w products (_position_products), the
+    arithmetic of the bf16w stage's F(2,3) mid (kernels/stage.py); the
+    per-layer op on a bfloat16 u is winograd2_mid_plain's."""
     m = tile_size(u)
     a = m + 2
     n, h, w, cin = x.shape
@@ -125,7 +146,7 @@ def conv3x3_bn_winograd_plain(x, u, scale, bias, relu: bool = True) -> torch.Ten
     xp = F.pad(x, (0, 0, 1, m * tw + 1 - w, 1, m * th + 1 - h))
     d = xp.unfold(1, a, m).unfold(2, a, m)              # (n, th, tw, cin, a, a)
     v = torch.einsum("ik,nyxckl,jl->nyxijc", bt, d, bt)  # Bt d Bt^T
-    mm = torch.einsum("nyxpc,pco->nyxpo", v.reshape(n, th, tw, a * a, cin), u)
+    mm = _position_products(v.reshape(n, th, tw, a * a, cin), u)
     mm = mm.reshape(n, th, tw, a, a, cout)
     y = torch.einsum("pi,nyxijo,qj->nypxqo", at, mm, at)  # At M At^T
     y = y.reshape(n, th * m, tw * m, cout)[:, :h, :w]

@@ -18,6 +18,10 @@ same from the port's own f32 parameters): int8 weights stay torch.int8,
 the bf16 F(2,3) filters torch.bfloat16, and each stage's blocks arrive
 stacked once.
 
+cast_bf16w turns the port's f32 ResNet-50 parameters into the bf16w tier's:
+every weight bfloat16, every BN scale and bias float32, and each stage that
+the bf16w gate fuses stacked once.
+
 basicnet_params_from_jax and qbasicnet_params_from_jax do the same for the
 basic family (ResNet-18/34, winograd_tpu/models/basic.py::basicnet_params
 and ::quantize_basicnet): a stage that carries the stacked "fused" artifact
@@ -103,6 +107,43 @@ def _stage(tree: Dict, np_dtype, device, dtype) -> Dict:
         "blocks": blocks,
         "stacked": stacked,
     }
+
+
+def _is_weight(key: str) -> bool:
+    """A GEMM or filter weight (w_*, w9_*, u2_*, w192_stem, w_fc, the fused
+    wep), as opposed to a BN scale or bias (s_*, b_*, bep)."""
+    return key.startswith(("w_", "w9_", "u2_", "w192_")) or key == "wep"
+
+
+def _bf16w_layer(layer: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    return {k: v.to(torch.bfloat16).contiguous() if _is_weight(k) else v
+            for k, v in layer.items()}
+
+
+def cast_bf16w(params: Dict) -> Dict:
+    """The port's f32 ResNet-50 parameters -> the bf16w tier's, for
+    resnet50_forward(precision="bf16w"): every weight rounded to bfloat16
+    (torch's round to nearest even, the JAX package's
+    jnp.asarray(w).astype(jnp.bfloat16) to the bit; the transitions' wep
+    folded in float32 first, as the JAX kernel folds), BN scales and biases
+    float32. Each stage that stage_algo's bf16w gate fuses, conv5_x and
+    single-block stages included, gets its blocks stacked once, the blocks'
+    tensors as views."""
+    stages = []
+    for st in params["stages"]:
+        blocks = [_bf16w_layer({k: b[k] for k in BLOCK_KEYS}) for b in st["blocks"]]
+        stacked = None
+        if stage_algo(blocks, "bf16w") == "fused_stage":
+            stacked = stack_stage_params(blocks)
+            blocks = _block_views(stacked)
+        transition = st.get("transition")
+        stages.append({
+            "transition": None if transition is None else _bf16w_layer(transition),
+            "blocks": blocks,
+            "stacked": stacked,
+        })
+    return {"stem": _bf16w_layer(params["stem"]), "proj": _bf16w_layer(params["proj"]),
+            "stages": stages, "head": _bf16w_layer(params["head"])}
 
 
 def stages_from_jax(stages: List[Dict], device="cuda", dtype=torch.float32) -> List[Dict]:

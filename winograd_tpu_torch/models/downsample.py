@@ -9,6 +9,10 @@ b_proj, with the 3x3 filter as w9_mid, and the fused wep/bep
 (models/convert.py). The projection block (conv2_x's entry) runs per layer,
 its 3x3 Winograd F(2,3) on u2_mid, as in the JAX package.
 
+At precision "bf16w" (bfloat16 weights, models/convert.py::cast_bf16w) the
+same routes run the kernels' bf16w instantiations, every identity run as one
+stage kernel launch (models/resnet.py::stage_algo's bf16w gate).
+
 At the int8 tier (quantize_backbone, resnet50_stages_int8) every
 transition is one int8 transition kernel launch and every identity run one
 int8 stage kernel launch (kernels/quantized.py), with no weight gate.
@@ -29,7 +33,7 @@ from winograd_tpu_torch.kernels.quantized import (
 )
 from winograd_tpu_torch.kernels.transition import strided_im2col, transition_block_fused
 from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
-from winograd_tpu_torch.models.resnet import resnet_stage
+from winograd_tpu_torch.models.resnet import check_precision, resnet_stage
 
 
 def conv3x3_s2_bn_relu(x, w9, scale, bias, relu: bool = True) -> torch.Tensor:
@@ -38,10 +42,14 @@ def conv3x3_s2_bn_relu(x, w9, scale, bias, relu: bool = True) -> torch.Tensor:
     return conv1x1_bn(strided_im2col(x), w9, scale, bias, relu=relu)
 
 
-def projection_bottleneck_block(x: torch.Tensor, params: Dict) -> torch.Tensor:
+def projection_bottleneck_block(x: torch.Tensor, params: Dict,
+                                precision: str = "f32") -> torch.Tensor:
     """Stride-1 projection bottleneck (conv2_x's entry): 1x1 reduce -> F(2,3)
-    3x3 -> 1x1 expand, plus a 1x1 projection shortcut; add, ReLU."""
+    3x3 -> 1x1 expand, plus a 1x1 projection shortcut; add, ReLU. At
+    "bf16w" the 1x1s run the pointwise kernel's bf16w instantiation and the
+    3x3 the F(2,3) on bf16 filters (kernels/winograd.py)."""
     p = params
+    check_precision(precision, p["w_reduce"], p["u2_mid"], p["w_expand"], p["w_proj"])
     h = conv1x1_bn(x, p["w_reduce"], p["s_reduce"], p["b_reduce"], relu=True)
     h = conv3x3_bn_winograd(h, p["u2_mid"], p["s_mid"], p["b_mid"], relu=True)
     h = conv1x1_bn(h, p["w_expand"], p["s_expand"], p["b_expand"], relu=False)
@@ -66,13 +74,15 @@ def downsample_bottleneck_block(x: torch.Tensor, params: Dict, algo: str = "fuse
     return torch.relu(h + skip)
 
 
-def resnet50_stages(x: torch.Tensor, stages: List[Dict]) -> torch.Tensor:
+def resnet50_stages(x: torch.Tensor, stages: List[Dict], precision: str = "f32") -> torch.Tensor:
     """Each stage: its optional stride-2 "transition", then its identity
-    "blocks" (with their "stacked" params where the stage runs fused)."""
+    "blocks" (with their "stacked" params where the stage runs fused), at
+    `precision` ("f32" or "bf16w")."""
     for stage in stages:
         if stage.get("transition") is not None:
+            check_precision(precision, stage["transition"]["w_reduce"])
             x = downsample_bottleneck_block(x, stage["transition"])
-        x = resnet_stage(x, stage["blocks"], stacked=stage.get("stacked"))
+        x = resnet_stage(x, stage["blocks"], stacked=stage.get("stacked"), precision=precision)
     return x
 
 

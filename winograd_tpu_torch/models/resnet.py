@@ -10,6 +10,11 @@ expand, then the skip add and ReLU. Block params: w_reduce (Cio, Cmid),
 s_reduce, b_reduce, u2_mid (16, Cmid, Cmid) and w9_mid (9*Cmid, Cmid)
 layouts of the 3x3 filter, s_mid, b_mid, w_expand (Cmid, Cio), s_expand,
 b_expand.
+
+At precision "bf16w" (bfloat16 weights) a stage takes the JAX package's
+bf16w gate: every uniform stage whose 2-byte weights pass a looser budget
+runs as one stage kernel launch, single-block stages and conv5_x included,
+and a stage that would run per block raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,9 +34,14 @@ from winograd_tpu_torch.kernels.stage import (
 from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
 
 __all__ = [
-    "BLOCK_FUSED_MAX_WEIGHT_BYTES", "STAGE_FUSED_MAX_WEIGHT_BYTES", "WINOGRAD_MIN_PIXELS",
-    "block_algo", "bottleneck_block", "conv3x3_mid", "resnet_stage", "stage_algo",
+    "BF16W_STAGE_FUSED_MAX_WEIGHT_BYTES", "BLOCK_FUSED_MAX_WEIGHT_BYTES",
+    "PRECISIONS", "STAGE_FUSED_MAX_WEIGHT_BYTES", "WINOGRAD_MIN_PIXELS", "block_algo",
+    "bottleneck_block", "check_precision", "conv3x3_mid", "resnet_stage", "stage_algo",
 ]
+
+# The model functions' precisions: the f32 tier, and the bf16w tier, whose
+# weights are bfloat16 (models/convert.py::cast_bf16w).
+PRECISIONS = ("f32", "bf16w")
 
 # A block runs as one fused launch when its f32 weights take at most this
 # many bytes (conv5_x's 17.8 MB do not). The JAX package's rule
@@ -45,6 +55,23 @@ BLOCK_FUSED_MAX_WEIGHT_BYTES = 8 * 2**20
 # resnet_stage_pallas, a double-buffered VMEM budget on the TPU); not
 # re-derived on the H100.
 STAGE_FUSED_MAX_WEIGHT_BYTES = 10 * 2**20
+
+# At bf16w a uniform stage of any number of blocks runs as one fused launch
+# when two blocks' bf16 weights take at most this many bytes (conv5_x's
+# 17.8 MB do). The JAX package's rule (models/resnet.py resnet_stage_pallas,
+# the bf16 tier's looser VMEM cap on the TPU); not re-derived on the H100.
+BF16W_STAGE_FUSED_MAX_WEIGHT_BYTES = 40 * 2**20
+
+
+def check_precision(precision: str, *weights: torch.Tensor) -> None:
+    """Raise unless `precision` is one of PRECISIONS and the weights are in
+    its storage: bfloat16 at "bf16w" and only there."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; choose from {PRECISIONS}")
+    for w in weights:
+        if (w.dtype == torch.bfloat16) != (precision == "bf16w"):
+            raise ValueError(f"{w.dtype} weights at precision {precision!r}; the bf16w tier "
+                             "serves bfloat16 weights (models/convert.py::cast_bf16w)")
 
 
 def _weight_elems(params: Dict) -> int:
@@ -60,18 +87,23 @@ def block_algo(params: Dict) -> str:
     return "fused" if 4 * _weight_elems(params) <= BLOCK_FUSED_MAX_WEIGHT_BYTES else "direct"
 
 
-def stage_algo(blocks: List[Dict]) -> str:
+def stage_algo(blocks: List[Dict], precision: str = "f32") -> str:
     """The route resnet_stage's "auto" takes: "fused_stage" for more than
-    one block of one geometry, all with w9_mid, within the stage gate;
-    else "per_block"."""
+    one block (at "bf16w" one or more) of one geometry, all with w9_mid,
+    within the precision's stage gate; else "per_block"."""
+    bf16w = precision == "bf16w"
     uniform = (
-        len(blocks) > 1
+        (len(blocks) > 1 or bf16w)
         and all("w9_mid" in p for p in blocks)
         and len({tuple(p["w_reduce"].shape) for p in blocks}) == 1
     )
-    if uniform and 4 * 2 * _weight_elems(blocks[0]) <= STAGE_FUSED_MAX_WEIGHT_BYTES:
-        return "fused_stage"
-    return "per_block"
+    if not uniform:
+        return "per_block"
+    if bf16w:
+        fits = 2 * 2 * _weight_elems(blocks[0]) <= BF16W_STAGE_FUSED_MAX_WEIGHT_BYTES
+    else:
+        fits = 4 * 2 * _weight_elems(blocks[0]) <= STAGE_FUSED_MAX_WEIGHT_BYTES
+    return "fused_stage" if fits else "per_block"
 
 
 def conv3x3_mid(h: torch.Tensor, params: Dict) -> torch.Tensor:
@@ -107,15 +139,23 @@ def bottleneck_block(x: torch.Tensor, params: Dict, algo3x3: str = "auto") -> to
 
 
 def resnet_stage(x: torch.Tensor, blocks: List[Dict], algo: str = "auto",
-                 stacked: Optional[Dict] = None) -> torch.Tensor:
+                 stacked: Optional[Dict] = None, precision: str = "f32") -> torch.Tensor:
     """A run of identity bottleneck blocks.
 
     algo: "fused_stage" (one stage kernel launch, kernels/stage.py),
-    "per_block" (bottleneck_block each), or "auto" (stage_algo). stacked:
-    the blocks' params from stack_stage_params, made once at conversion
-    (models/convert.py); stacked here when absent."""
+    "per_block" (bottleneck_block each), or "auto" (stage_algo at
+    `precision`). stacked: the blocks' params from stack_stage_params, made
+    once at conversion (models/convert.py); stacked here when absent.
+    precision "bf16w" (bfloat16 weights) needs the fused stage and raises
+    where the route is per_block, as the JAX package does."""
+    check_precision(precision, *(p["w_reduce"] for p in blocks))
     if algo == "auto":
-        algo = stage_algo(blocks)
+        algo = stage_algo(blocks, precision)
+    if precision == "bf16w" and algo != "fused_stage":
+        raise ValueError(
+            "precision='bf16w' requires the fused stage kernel, but this stage resolved to "
+            f"{algo} (non-uniform block geometries, a missing w9_mid, or weights past "
+            "BF16W_STAGE_FUSED_MAX_WEIGHT_BYTES); serve it at f32 or make the stage uniform")
     if algo == "fused_stage":
         return resnet_stage_fused(x, stacked if stacked is not None else stack_stage_params(blocks))
     if algo != "per_block":

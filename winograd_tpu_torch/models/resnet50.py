@@ -8,6 +8,14 @@ conv3_x, conv4_x, one launch each); the transition kernel 3; conv5_x's two
 identity blocks, whose weights fail the fused gates (models/resnet.py), per
 layer: pointwise 4 and direct 2; the head pointwise 1. 18 launches in all.
 
+resnet50_forward(precision="bf16w") is the bf16w serving tier,
+resnet50_forward_pallas(precision="bf16w"), on parameters from
+convert.py::cast_bf16w (bfloat16 weights, f32 BN): the kernels' bf16w
+instantiations, with the bf16w stage gate fusing every identity run. Per
+forward: the stem at bf16w 1; the projection block pointwise 3 and the
+F(2,3) on bf16 filters 1; the transition kernel 3; the stage kernel 4
+(conv5_x too); the head pointwise 1. 13 launches in all.
+
 resnet50_forward_int8 is the port of resnet50_forward_int8, the int8
 serving tier, on parameters from quantize_resnet50: the stem at bf16 (1
 launch); the projection block per layer, int8 pointwise 3 and int8 direct 1
@@ -33,16 +41,17 @@ from winograd_tpu_torch.kernels.quantized import (
     quantize_weights,
 )
 from winograd_tpu_torch.kernels.stem import stem_fused
-from winograd_tpu_torch.models.convert import params_from_jax, stem_filter_s2d
+from winograd_tpu_torch.models.convert import cast_bf16w, params_from_jax, stem_filter_s2d
 from winograd_tpu_torch.models.downsample import (
     projection_bottleneck_block,
     quantize_backbone,
     resnet50_stages,
     resnet50_stages_int8,
 )
+from winograd_tpu_torch.models.resnet import check_precision
 
 __all__ = [
-    "head", "head_int8", "init_resnet50_arrays", "init_resnet50_params",
+    "cast_bf16w", "head", "head_int8", "init_resnet50_arrays", "init_resnet50_params",
     "projection_block_int8", "quantize_resnet50", "resnet50_forward",
     "resnet50_forward_int8", "stem", "stem_filter_s2d",
 ]
@@ -50,15 +59,16 @@ __all__ = [
 
 def stem(x: torch.Tensor, params: Dict, precision: str = "f32") -> torch.Tensor:
     """7x7/2 conv + BN + ReLU + 3x3/2 maxpool; keys w192_stem, s_stem, b_stem;
-    precision "f32" or "bf16" (the int8 tier's)."""
+    precision "f32", "bf16w" (bfloat16 w192) or "bf16" (the int8 tier's)."""
     return stem_fused(x, params["w192_stem"], params["s_stem"], params["b_stem"], precision)
 
 
-def head(x: torch.Tensor, params: Dict) -> torch.Tensor:
+def head(x: torch.Tensor, params: Dict, precision: str = "f32") -> torch.Tensor:
     """Global avgpool + FC through the pointwise kernel with scale 1; keys
-    w_fc (C, classes), b_fc (classes,)."""
+    w_fc (C, classes), bfloat16 at "bf16w", and b_fc (classes,)."""
     w_fc = params["w_fc"]
-    ones = torch.ones(w_fc.shape[1], dtype=w_fc.dtype, device=w_fc.device)
+    check_precision(precision, w_fc)
+    ones = torch.ones(w_fc.shape[1], dtype=params["b_fc"].dtype, device=w_fc.device)
     return conv1x1_bn(x.mean(dim=(-3, -2)), w_fc, ones, params["b_fc"], relu=False)
 
 
@@ -67,16 +77,17 @@ def _images(x, dtype, device):
     return (x[None], True) if x.dim() == 3 else (x, False)
 
 
-def resnet50_forward(x, params: Dict, device="cuda") -> torch.Tensor:
+def resnet50_forward(x, params: Dict, device="cuda", precision: str = "f32") -> torch.Tensor:
     """Logits of image(s) x, (H, W, 3) or (N, H, W, 3), in the dtype of the
-    params, which must live on `device`. CUDA runs the kernels; the CPU
-    (only on request) runs their plain versions."""
+    params' BN (float32 at "bf16w"), which must live on `device`. precision
+    "f32", or "bf16w" on parameters from cast_bf16w. CUDA runs the kernels;
+    the CPU (only on request) runs their plain versions."""
     device = _build.require_device(device)
-    x, squeeze = _images(x, params["head"]["w_fc"].dtype, device)
-    h = stem(x, params["stem"])
-    h = projection_bottleneck_block(h, params["proj"])
-    h = resnet50_stages(h, params["stages"])
-    logits = head(h, params["head"])
+    x, squeeze = _images(x, params["head"]["b_fc"].dtype, device)
+    h = stem(x, params["stem"], precision)
+    h = projection_bottleneck_block(h, params["proj"], precision)
+    h = resnet50_stages(h, params["stages"], precision)
+    logits = head(h, params["head"], precision)
     return logits[0] if squeeze else logits
 
 
