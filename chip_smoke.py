@@ -29,9 +29,10 @@ Phases, each of which must pass (exit 1 otherwise):
    to bf16 once) and images, 10 N=1 and 3 N=8 requests, counters zeroed
    just before and read just after: each forward must launch the bf16w
    instantiations, counted under their own names, stem_bf16w 1,
-   pointwise_bf16w 4, stage_bf16w 4 (conv5_x too) and transition_bf16w 3,
-   and the F(2,3) on bf16 filters ("winograd", its shape ending in "bf16")
-   1. Logits against phase 3's float64 golden within BF16W_RTOL_BACKBONE
+   pointwise_bf16w 4, stage_bf16w 4 (conv5_x too), transition_bf16w 3 and
+   winograd_bf16w 1 (the entry block's F(2,3) on the bf16 tensor cores,
+   every shape of it at m = 2). Logits against phase 3's float64 golden
+   within BF16W_RTOL_BACKBONE
    (5e-3) * max(1, max|golden|); against the port's bf16w forward through
    the plain versions on the CPU in float32 within 1e-4 * max(1,
    max|ref|); each N=8 row against that image's N=1 logits within 1e-4 *
@@ -54,6 +55,15 @@ Phases, each of which must pass (exit 1 otherwise):
    CPU in float64 within 1e-4 * max(1, max|golden|), N=8 rows against N=1
    within the same bound.
 8. profile_basic: as phase 4, for phase 7.
+8a. serving_basic_bf16w: ResNetBasicEngine(tier="bf16w") on phase 7's
+   weights (cast to bf16 once) and images, 10 N=1 and 3 N=8 requests,
+   counters zeroed just before and read just after: each forward must
+   launch stem_bf16w 1, winograd_bf16w 24, pointwise_bf16w 7, direct_bf16w
+   1 and basic_stage_bf16w 1 times. Logits as phase 4a's bars: phase 7's
+   float64 golden within 5e-3 * max(1, max|golden|), the port's bf16w
+   forward through the plain versions on the CPU within 1e-4 * max(1,
+   max|ref|), each N=8 row against its N=1 logits within 1e-4.
+8b. profile_basic_bf16w: as phase 4, for phase 8a.
 9. serving_basic_int8: ResNetBasicEngine(tier="int8") on the same weights
    and images: each forward must launch stem 1 (at bf16), Winograd 6 (on
    bf16 filters), winograd_int8 18, pointwise_int8 7, direct_int8 1 and
@@ -63,7 +73,7 @@ Phases, each of which must pass (exit 1 otherwise):
    against N=1 within 1e-3.
 10. profile_basic_int8: as phase 4, for phase 9.
 11. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the first N=1 forward of phases 3, 4a, 5, 7 and 9 gave it
+   every shape the first N=1 forward of phases 3, 4a, 5, 7, 8a and 9 gave it
    (recorded by shape in kernels/_build.py), and at shapes off the served
    N=1 lists (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and
    9; the conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
@@ -75,11 +85,14 @@ Phases, each of which must pass (exit 1 otherwise):
    at N=8; the int8 pointwise head at N=8; the f32 and int8 direct 3x3s at
    N=8, 7x7x512; the bf16w pointwise head, the conv4_x and conv5_x bf16w
    stages, the 14->7 bf16w transition and the bf16w stem at N=8, the bf16w
-   block at modes 6 and 9), on seeded inputs. Bound: max abs error <= 1e-4 *
+   block at modes 6 and 9, the bf16w Winograd at 56x56x64, the bf16w direct
+   3x3 at 7x7x512 and the bf16w basic stage at 7x7x512 at N=8), on seeded
+   inputs. Bound: max abs error <= 1e-4 *
    max(1, max|plain|); the int8 direct 3x3, stage, transition, pointwise,
    basic stage and Winograd (their twins' arithmetic, exact int32 sums,
-   the Winograd's transforms in FP64 rounded once) and the bf16 stem
-   (exact FP64 sums of bf16 products) 0: equal to their twins (the int8
+   the Winograd's transforms in FP64 rounded once), the bf16 stem and the
+   int8 tier's bf16-filter Winograd (exact FP64 sums of bf16 products) 0:
+   equal to their twins (the int8
    basic stage and Winograd held to 0 since their redesign on the tensor
    cores, 1e-3 before). One JSON line per shape:
    error; the K split of the split-K kernels ("splits": pointwise, direct,
@@ -104,8 +117,9 @@ Phases, each of which must pass (exit 1 otherwise):
    direct 3x3, the f32 Winograd, the f32 stage, the f32 transition (their
    reduce, mid and expand) and the f32 basic stage (its 2B convs) as three
    TF32 passes (their 3xTF32 split) at the TF32 rate; the bf16w
-   instantiations' products (pointwise, GEMV included, stem, stage and
-   transition) as two BF16 passes (a_hi and a_lo) at the BF16 rate; the
+   instantiations' products (pointwise, GEMV included, stem, stage,
+   transition, Winograd, direct and basic stage) as two BF16 passes (a_hi
+   and a_lo) at the BF16 rate; the
    pointwise GEMV's (P <= 8) and the other f32 GEMMs, Winograd transforms,
    epilogues (4 FLOPs an output, 5 with a residual) and int8 quantization
    (2 a quantized value) at the FP32 rate; the bf16-filter Winograd's
@@ -148,13 +162,18 @@ EXPECTED_PER_FORWARD = {
     "stem": 1, "pointwise": 8, "winograd": 1, "stage": 3, "transition": 3, "direct": 2,
 }
 EXPECTED_PER_FORWARD_BF16W = {
-    "stem_bf16w": 1, "pointwise_bf16w": 4, "winograd": 1, "stage_bf16w": 4, "transition_bf16w": 3,
+    "stem_bf16w": 1, "pointwise_bf16w": 4, "winograd_bf16w": 1, "stage_bf16w": 4,
+    "transition_bf16w": 3,
 }
 EXPECTED_PER_FORWARD_INT8 = {
     "stem": 1, "pointwise_int8": 4, "direct_int8": 1, "stage_int8": 4, "transition_int8": 3,
 }
 EXPECTED_PER_FORWARD_BASIC = {
     "stem": 1, "winograd": 24, "pointwise": 7, "direct": 1, "basic_stage": 1,
+}
+EXPECTED_PER_FORWARD_BASIC_BF16W = {
+    "stem_bf16w": 1, "winograd_bf16w": 24, "pointwise_bf16w": 7, "direct_bf16w": 1,
+    "basic_stage_bf16w": 1,
 }
 EXPECTED_PER_FORWARD_BASIC_INT8 = {
     "stem": 1, "winograd": 6, "winograd_int8": 18, "pointwise_int8": 7, "direct_int8": 1,
@@ -199,7 +218,7 @@ SOURCES = {
                          ["winograd_tpu/kernels/basic_stage.py:202 _basic_stage_int8_kernel"]),
 }
 # The bf16w instantiations replace the same TPU kernels at precision="bf16w".
-BF16W = ("pointwise", "stem", "stage", "transition")
+BF16W = ("pointwise", "stem", "stage", "transition", "winograd", "direct", "basic_stage")
 SOURCES.update({f"{name}_bf16w": SOURCES[name] for name in BF16W})
 # The int8 Winograd past one span of K (kernels/quantized.py::
 # WINO_INT8_CHUNK): nine 128-channel groups, and the stash over 2048
@@ -207,8 +226,9 @@ SOURCES.update({f"{name}_bf16w": SOURCES[name] for name in BF16W})
 WIDE_WINOGRAD_INT8 = [(1, 14, 14, 1152, 128, True), (1, 14, 14, 2048, 256, True)]
 # The twin's arithmetic (quantized once a row, exact int32 sums, epilogues
 # rounded as the twin rounds, the int8 Winograd's transforms in FP64 rounded
-# once): the kernel equals its twin. So does the stem at "bf16" (its shapes
-# end in the precision): exact FP64 sums of bf16 products, rounded once.
+# once): the kernel equals its twin. So do the stem and the Winograd at
+# "bf16" (their shapes end in the precision): exact FP64 sums of bf16
+# products, rounded once.
 EXACT = ("direct_int8", "stage_int8", "transition_int8", "pointwise_int8", "basic_stage_int8",
          "winograd_int8")
 
@@ -276,8 +296,8 @@ def main() -> int:
         conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain, winograd_plan,
     )
     from winograd_tpu_torch.models.basic import (
-        basicnet_forward, basicnet_forward_int8, basicnet_params, init_basicnet_arrays,
-        quantize_basicnet,
+        basicnet_forward, basicnet_forward_int8, basicnet_params, cast_basicnet_bf16w,
+        init_basicnet_arrays, quantize_basicnet,
     )
     from winograd_tpu_torch.models.convert import cast_bf16w, params_from_jax, stem_filter_s2d
     from winograd_tpu_torch.models.resnet50 import (
@@ -399,7 +419,9 @@ def main() -> int:
 
     def winograd_case(rng, n, h, w, cin, cout, m, relu, filt="f32"):
         """filt "bf16": the bf16-filter F(2,3) (its products as two BF16
-        passes, the JAX kernel's hi/lo split; library F.conv2d in bf16)."""
+        passes, the JAX kernel's hi/lo split; library F.conv2d in bf16);
+        "bf16w": the bf16w instantiation (products as two BF16 passes, u at
+        2 bytes; library the f32 row's call)."""
         x, wt, s, b, lib = conv3x3_inputs(rng, n, h, w, cin, cout)
         u = t(transforms.transform_filter(wt, m=m))
         a2, nt = (m + 2) ** 2, n * (-(-h // m)) * (-(-w // m))
@@ -409,10 +431,17 @@ def main() -> int:
             u = u.to(torch.bfloat16)
             x16 = nchw(x).to(torch.bfloat16)
             w16 = t(wt).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-            return (lambda: conv3x3_bn_winograd(x, u, s, b, relu),
+            return (lambda: conv3x3_bn_winograd(x, u, s, b, relu, "bf16"),
                     lambda: winograd2_mid_plain(x, u, s, b, relu),
                     lambda: F.conv2d(x16, w16, padding=1),
                     {BF16_FLOPS: 2 * products, FP32_FLOPS: transforms_flops},
+                    4 * n * h * w * (cin + cout) + 2 * a2 * cin * cout + 8 * cout)
+        if filt == "bf16w":
+            u = u.to(torch.bfloat16)
+            return (lambda: conv3x3_bn_winograd(x, u, s, b, relu, "bf16w"),
+                    lambda: conv3x3_bn_winograd_plain(x, u, s, b, relu), lib,
+                    {BF16_FLOPS: 2 * products,
+                     FP32_FLOPS: transforms_flops + 4 * n * h * w * cout},
                     4 * n * h * w * (cin + cout) + 2 * a2 * cin * cout + 8 * cout)
         return (lambda: conv3x3_bn_winograd(x, u, s, b, relu),
                 lambda: conv3x3_bn_winograd_plain(x, u, s, b, relu),
@@ -420,14 +449,19 @@ def main() -> int:
                       FP32_FLOPS: transforms_flops + 4 * n * h * w * cout},
                 4 * (n * h * w * (cin + cout) + a2 * cin * cout + 2 * cout))
 
-    def direct_case(rng, n, h, w, cin, cout, relu):
+    def direct_case(rng, n, h, w, cin, cout, relu, bf16=False):
+        """bf16: the bf16w instantiation (w9 at 2 bytes, products as two BF16
+        passes; library the f32 row's call)."""
         x, wt, s, b, lib = conv3x3_inputs(rng, n, h, w, cin, cout)
         w9 = t(direct_filter(wt))
         p = n * h * w
+        rate, passes, wbytes = (BF16_FLOPS, 2, 2) if bf16 else (TF32_FLOPS, 3, 4)
+        if bf16:
+            w9 = w9.to(torch.bfloat16)
         return (lambda: conv3x3_bn_direct(x, w9, s, b, relu),
                 lambda: conv3x3_bn_direct_plain(x, w9, s, b, relu),
-                lib, {TF32_FLOPS: 3 * 2 * p * 9 * cin * cout, FP32_FLOPS: 4 * p * cout},
-                4 * (n * h * w * (cin + cout) + 9 * cin * cout + 2 * cout))
+                lib, {rate: passes * 2 * p * 9 * cin * cout, FP32_FLOPS: 4 * p * cout},
+                4 * (n * h * w * (cin + cout) + 2 * cout) + wbytes * 9 * cin * cout)
 
     def stem_case(rng, n, h, w, cin, c, precision):
         """At "bf16w" w192 is bf16 (2 bytes), the products two BF16 passes
@@ -551,9 +585,13 @@ def main() -> int:
             blocks.append(blk)
         return blocks
 
-    def basic_stage_case(rng, n, h, w, c, nb):
+    def basic_stage_case(rng, n, h, w, c, nb, bf16=False):
+        """bf16: the bf16w instantiation (w9_a, w9_b at 2 bytes, products as
+        two BF16 passes; library the f32 row's calls)."""
         blocks = basic_blocks(rng, c, nb)
         stacked = {k: v.to(dev) for k, v in bs.stack_basic_stage_params(blocks).items()}
+        if bf16:
+            stacked = bf16w(stacked)
         lib_w = [t(blk[f"w_{leg}"]).contiguous(memory_format=torch.channels_last)
                  for blk in blocks for leg in ("a", "b")]
         x = t(_rand(rng, n, h, w, c))
@@ -565,10 +603,11 @@ def main() -> int:
             return y
 
         p = n * h * w
+        rate, passes, wbytes = (BF16_FLOPS, 2, 2) if bf16 else (TF32_FLOPS, 3, 4)
         return (lambda: bs.basic_stage_fused(x, stacked),
                 lambda: bs.basic_stage_fused_plain(x, stacked), lib,
-                {TF32_FLOPS: nb * 3 * 2 * 2 * p * 9 * c * c, FP32_FLOPS: nb * (4 + 5) * p * c},
-                4 * (2 * p * c + nb * (2 * 9 * c * c + 4 * c)))
+                {rate: nb * passes * 2 * 2 * p * 9 * c * c, FP32_FLOPS: nb * (4 + 5) * p * c},
+                4 * (2 * p * c + nb * 4 * c) + wbytes * nb * 2 * 9 * c * c)
 
     # -- int8 cases ---------------------------------------------------------
     def qrows(a):
@@ -774,8 +813,8 @@ def main() -> int:
         forwards = check_launches(expected, launches, shapes, phase)
         check(set(shapes.get("stem_bf16w", {})) == {(1, cfg.img, cfg.img, 3, cfg.stem_c, "bf16w")},
               f"{phase} stem shapes {dict(shapes.get('stem_bf16w', {}))}, want bf16w")
-        check(all(shape[-1] == "bf16" for shape in shapes.get("winograd", {})),
-              f"{phase} Winograd shapes {dict(shapes.get('winograd', {}))}, want bf16 filters")
+        check(all(shape[5] == 2 for shape in shapes.get("winograd_bf16w", {})),
+              f"{phase} Winograd shapes {dict(shapes.get('winograd_bf16w', {}))}, want F(2,3)")
         got = single[0].cpu()
         gold_tol = BF16W_RTOL_BACKBONE * max(1.0, float(np.abs(golden).max()))
         gold_err = float(np.abs(got.double().numpy() - golden).max())
@@ -889,7 +928,7 @@ def main() -> int:
     profile_phase(engine8, "profile_int8")
     del engine8, params, cpu_params
 
-    # -- the basic family: ResNet-34 at both tiers -------------------------
+    # -- the basic family: ResNet-34 at every tier --------------------------
     cfg34 = ResNet34Config("resnet34")
     case34 = init_basicnet_arrays(cfg34, seed=0)
     golden34 = basicnet_forward(images[0], basicnet_params(case34, cfg34, "cpu", torch.float64),
@@ -899,6 +938,13 @@ def main() -> int:
     profile_phase(engine, "profile_basic")
     del engine
     cpu34 = basicnet_params(case34, cfg34, "cpu")
+    ref34_bf16w = basicnet_forward(images[0], cast_basicnet_bf16w(cpu34), device="cpu",
+                                   precision="bf16w")
+    engine16 = ResNetBasicEngine(cpu34, tier="bf16w", device=dev)
+    served.append(serve_bf16w("serving_basic_bf16w", engine16, EXPECTED_PER_FORWARD_BASIC_BF16W,
+                              golden34, ref34_bf16w, cfg34))
+    profile_phase(engine16, "profile_basic_bf16w")
+    del engine16
     ref34_int8 = basicnet_forward_int8(images[0], quantize_basicnet(cpu34), device="cpu")
     engine8 = ResNetBasicEngine(cpu34, tier="int8", device=dev)
     served.append(serve_int8("serving_basic_int8", engine8, EXPECTED_PER_FORWARD_BASIC_INT8,
@@ -915,14 +961,18 @@ def main() -> int:
                  "basic_stage": basic_stage_case, "basic_stage_int8": basic_stage_int8_case,
                  "pointwise_bf16w": pointwise_bf16w_case, "stem_bf16w": stem_case,
                  "stage_bf16w": lambda rng, *shape: stage_case(rng, *shape, bf16=True),
-                 "transition_bf16w": lambda rng, *shape: transition_case(rng, *shape, bf16=True)}
+                 "transition_bf16w": lambda rng, *shape: transition_case(rng, *shape, bf16=True),
+                 "winograd_bf16w": lambda rng, *shape: winograd_case(rng, *shape, filt="bf16w"),
+                 "direct_bf16w": lambda rng, *shape: direct_case(rng, *shape, bf16=True),
+                 "basic_stage_bf16w": lambda rng, *shape: basic_stage_case(rng, *shape, bf16=True)}
     # Off the served N=1 lists: F(4,3) accuracy at the mode-0 shape; the
     # block at modes 6 and 9; the batched layouts' cases (rows 7, 9, 18 and
     # 20 of the TPU kernel table) at N=8; the conv5_x stage geometry, which
     # the f32 route runs per layer; the int8 block (row 16) at mode 6; the
     # f32 and int8 direct 3x3s at N=8; the stem at N=8 in every precision;
     # the bf16w pointwise head, conv4_x and conv5_x stages and 14->7
-    # transition at N=8, and the bf16w block at modes 6 and 9.
+    # transition at N=8, the bf16w block at modes 6 and 9; the bf16w
+    # Winograd, direct 3x3 and basic stage of ResNet-34 at N=8.
     extra = {
         "winograd": [(1, 14, 14, 128, 128, 4, True)],
         "stage": [(1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2"),
@@ -944,6 +994,9 @@ def main() -> int:
         "stage_bf16w": [(8, 14, 14, 1024, 256, 5, "direct"), (8, 7, 7, 2048, 512, 2, "direct"),
                         (1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2")],
         "transition_bf16w": [(8, 14, 14, 1024, 512, 2048)],
+        "winograd_bf16w": [(8, 56, 56, 64, 64, 2, True)],
+        "direct_bf16w": [(8, 7, 7, 512, 512, False)],
+        "basic_stage_bf16w": [(8, 7, 7, 512, 2)],
     }
     sms = _build.sm_count(dev)
 
@@ -965,8 +1018,8 @@ def main() -> int:
             n, h, w, c, sms).splits,
         "basic_stage": lambda n, h, w, c, nb: bs.basic_stage_plan(n, h, w, c, sms).conv.splits,
     }
-    splits_of["pointwise_bf16w"] = splits_of["pointwise"]
-    splits_of["transition_bf16w"] = splits_of["transition"]
+    for name in ("pointwise", "transition", "winograd", "direct", "basic_stage"):
+        splits_of[f"{name}_bf16w"] = splits_of[name]
 
     def winograd_int8_cut(n, h, w, cin, cout, relu):
         plan = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
@@ -994,7 +1047,7 @@ def main() -> int:
         for shape in list(counter) + extra.get(name, []):
             n_img = counter.get(shape, 0)
             kern, plain, lib, work, nbytes = make_case[name](rng, *shape)
-            exact = name in EXACT or name == "stem" and shape[-1] == "bf16"
+            exact = name in EXACT or name in ("stem", "winograd") and shape[-1] == "bf16"
             rtol = 0.0 if exact else ATOL
             got, ref = kern(), plain()
             torch.cuda.synchronize()

@@ -34,7 +34,7 @@ from winograd_tpu_torch.config import (
 from winograd_tpu_torch.engine import ResNetBasicEngine
 from winograd_tpu_torch.models import basic as tb
 from winograd_tpu_torch.models.convert import (
-    basicnet_params_from_jax, params_to, qbasicnet_params_from_jax,
+    basicnet_params_from_jax, cast_basicnet_bf16w, params_to, qbasicnet_params_from_jax,
 )
 from winograd_tpu_torch.ops import torch_ops
 
@@ -157,7 +157,7 @@ def test_engine_serves_both_tiers_on_request(tiny):
     assert f32.classify(np.stack([x, x])).tolist() == [int(out.argmax())] * 2
     int8 = ResNetBasicEngine(tiny["params"], tier="int8", device="cpu")
     assert _err(int8(x).numpy(), tiny["case"]["golden"]) < INT8_RTOL_BACKBONE
-    for kw in ({"tier": "bf16w"}, {"mesh": object()}, {"partition": "model"}):
+    for kw in ({"mesh": object()}, {"partition": "model"}):
         with pytest.raises(NotImplementedError):
             ResNetBasicEngine(tiny["params"], device="cpu", **kw)
     if not torch.cuda.is_available():
@@ -203,6 +203,10 @@ ROUTES = {
                            "pointwise_int8": 7, "direct_int8": 1, "basic_stage_int8": 1},
     ("resnet18", "int8"): {"stem_bf16": 1, "winograd_bf16": 4, "winograd_int8": 6,
                            "pointwise_int8": 7, "direct_int8": 1, "basic_stage_int8": 1},
+    ("resnet34", "bf16w"): {"stem_bf16w": 1, "winograd_bf16w": 24, "pointwise_bf16w": 7,
+                            "direct_bf16w": 1, "basic_stage_bf16w": 1},
+    ("resnet18", "bf16w"): {"stem_bf16w": 1, "winograd_bf16w": 10, "pointwise_bf16w": 7,
+                            "direct_bf16w": 1, "basic_stage_bf16w": 1},
 }
 
 
@@ -248,9 +252,17 @@ def _stub_routes(monkeypatch, taken):
     import winograd_tpu.kernels.quantized as jq
     import winograd_tpu.models.resnet50 as jr50
 
+    def bf16w(args, kwargs):
+        """The bf16w tier's call: the JAX package names its precision, the
+        port passes bfloat16 weights (or names it)."""
+        values = list(args) + list(kwargs.values())
+        values += [v for a in values if isinstance(a, dict) for v in a.values()]
+        return any(isinstance(v, str) and v == "bf16w"
+                   or isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16 for v in values)
+
     def rec(name, out_shape, zeros):
         def stub(x, *args, **kwargs):
-            taken[name] += 1
+            taken[f"{name}_bf16w" if bf16w(args, kwargs) else name] += 1
             return zeros(out_shape(x, *args, **kwargs))
         return stub
 
@@ -272,14 +284,26 @@ def _stub_routes(monkeypatch, taken):
     tz, jz = torch.zeros, jnp.zeros
 
     def wino(zeros):
+        """The port names the precision of a bfloat16 u ("bf16w" or the int8
+        tier's "bf16"); the JAX package passes a bfloat16 u at the int8 tier
+        and an f32 u at bf16w, both at precision="bf16w"."""
         def stub(x, u, *args, **kwargs):
-            taken[bf16_or("winograd")(u)] += 1
+            precision = kwargs.get("precision", args[3] if len(args) > 3 else None)
+            if zeros is tz:
+                name = {"bf16w": "winograd_bf16w", "bf16": "winograd_bf16"}.get(precision,
+                                                                                 "winograd")
+            else:
+                name = bf16_or("winograd")(u)
+                if name == "winograd" and precision == "bf16w":
+                    name = "winograd_bf16w"
+            taken[name] += 1
             return zeros(tuple(x.shape[:-1]) + (u.shape[-1],))
         return stub
 
     def stem(zeros):
         def stub(x, p, precision=None, *a, **k):
-            taken["stem_bf16" if precision in ("bf16", "int8") else "stem"] += 1
+            taken[{"bf16": "stem_bf16", "int8": "stem_bf16",
+                   "bf16w": "stem_bf16w"}.get(precision, "stem")] += 1
             return zeros(stem_shape(x, p))
         return stub
 
@@ -325,12 +349,15 @@ def test_route_choice_matches_jax_gates_at_full_width(monkeypatch, model, tier):
     x = np.zeros((1, cfg.img, cfg.img, 3), np.float32)
     if tier == "f32":
         tb.basicnet_forward(x, ours, device="cpu")
+    elif tier == "bf16w":
+        tb.basicnet_forward(x, cast_basicnet_bf16w(ours), device="cpu", precision="bf16w")
     else:
         tb.basicnet_forward_int8(x, tb.quantize_basicnet(ours), device="cpu")
     port = dict(taken)
     taken.clear()
-    if tier == "f32":
-        jb.basicnet_forward_pallas(jnp.asarray(x), theirs)
-    else:
+    if tier == "int8":
         jb.basicnet_forward_int8(jnp.asarray(x), jb.quantize_basicnet(theirs))
+    else:
+        jb.basicnet_forward_pallas(jnp.asarray(x), theirs,
+                                   precision="bf16w" if tier == "bf16w" else None)
     assert port == dict(taken) == ROUTES[(model, tier)]

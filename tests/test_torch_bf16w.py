@@ -1,10 +1,11 @@
 """The port's bf16w serving tier against winograd_tpu at precision="bf16w",
 at narrow widths: the plain split_dot, each kernel module with a bf16w
 instantiation (pointwise, stem, stage with a Winograd and a direct mid,
-transition), the entry block's F(2,3) on bf16 filters, the whole tiny
-ResNet-50 forward, the bf16 cast of the weights, the stage route and the
-engine. JAX runs in Pallas interpret mode; the port runs its plain twins in
-float32 on the CPU. Inputs are made from a seed with numpy.
+transition, the Winograd F(2,3), the direct 3x3, the basic stage), the
+whole tiny ResNet-50 and basic-family forwards, the bf16 casts of the
+weights, the stage route, the Winograd wrapper's precisions and the
+engines. JAX runs in Pallas interpret mode; the port runs its plain twins
+in float32 on the CPU. Inputs are made from a seed with numpy.
 
 Bounds: one module within 1e-5 * max(1, max|jax|) of the JAX op (the same
 bf16 weights and hi/lo split; the sums' order and, for the stem and the
@@ -22,13 +23,17 @@ import numpy as np
 import pytest
 import torch
 
+from winograd_tpu.config import BasicNetConfig as JaxBasicNetConfig
 from winograd_tpu.config import BlockConfig
 from winograd_tpu.config import ResNet50Config as JaxResNet50Config
 from winograd_tpu.config import TransitionConfig
 from winograd_tpu.datagen.generate import (
     _block_params_random, _transition_params_random, block_params_list, make_block_case,
 )
-from winograd_tpu.kernels.direct import split_dot
+from winograd_tpu.datagen.generate import make_basicnet_case
+from winograd_tpu.kernels.basic_stage import basic_stage_fused_pallas
+from winograd_tpu.kernels.basic_stage import stack_basic_stage_params as jax_basic_stack
+from winograd_tpu.kernels.direct import conv3x3_bn_direct_pallas, split_dot
 from winograd_tpu.kernels.pointwise import conv1x1_bn_pallas
 from winograd_tpu.kernels.stage import resnet_stage_fused_pallas
 from winograd_tpu.kernels.stage import stack_stage_params as jax_stack
@@ -36,13 +41,21 @@ from winograd_tpu.kernels.stem import stem_fused_pallas
 from winograd_tpu.kernels.transition import fuse_transition_weights as jax_fuse
 from winograd_tpu.kernels.transition import transition_block_fused_pallas
 from winograd_tpu.kernels.winograd import conv3x3_bn_winograd_pallas
+from winograd_tpu.models import basic as jb
 from winograd_tpu.models.resnet50 import init_resnet50_params as jax_init
 from winograd_tpu.models.resnet50 import resnet50_forward_pallas
 from winograd_tpu_torch.config import BF16W_RTOL, BF16W_RTOL_BACKBONE
 from winograd_tpu_torch.engine import ResNet50Engine, ResNetBasicEngine
 from winograd_tpu_torch.kernels import _build, transforms
+from winograd_tpu_torch.kernels import basic_stage as basic_stage_module
 from winograd_tpu_torch.kernels import stage as stage_module
 from winograd_tpu_torch.kernels import transition as transition_module
+from winograd_tpu_torch.kernels.basic_stage import (
+    basic_stage_fused, basic_stage_fused_plain, stack_basic_stage_params,
+)
+from winograd_tpu_torch.kernels.direct import (
+    conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter,
+)
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain, split_dot_bf16w
 from winograd_tpu_torch.kernels.splitk import H100_SMS
 from winograd_tpu_torch.kernels.stage import (
@@ -52,9 +65,14 @@ from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_plain
 from winograd_tpu_torch.kernels.transition import (
     fuse_transition_weights, transition_block_fused, transition_block_fused_plain,
 )
-from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd, conv3x3_bn_winograd_plain
+from winograd_tpu_torch.kernels.winograd import (
+    conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain,
+)
+from winograd_tpu_torch.models import basic as tb
 from winograd_tpu_torch.models import resnet
-from winograd_tpu_torch.models.convert import cast_bf16w, params_from_jax
+from winograd_tpu_torch.models.convert import (
+    cast_basicnet_bf16w, cast_bf16w, params_from_jax,
+)
 from winograd_tpu_torch.models.resnet50 import resnet50_forward
 
 MODULE_RTOL = 1e-5
@@ -149,18 +167,108 @@ def test_stem_matches_jax():
 
 
 def test_entry_winograd_on_bf16_filters_matches_jax():
-    """The entry block's F(2,3) at bf16w is the F(2,3) on bf16 filters
-    (kernels/winograd.py's FP64 route, csrc/winograd.cu on the card)."""
+    """The entry block's F(2,3) at bf16w runs the Winograd wrapper's "bf16w"
+    precision (the bf16w products, csrc/winograd.cu's bf16w entry on the
+    card)."""
     rng = np.random.default_rng(5)
     x = np.abs(_rand(rng, 1, 10, 12, 16))
     u = transforms.transform_filter(_rand(rng, 24, 16, 3, 3), m=2)
     s, b = _bn(rng, 24)
     ref = conv3x3_bn_winograd_pallas(jnp.asarray(x), jnp.asarray(u).astype(jnp.bfloat16),
                                      jnp.asarray(s), jnp.asarray(b), precision="bf16w")
-    out = conv3x3_bn_winograd(_t(x), _t(u, BF16), _t(s), _t(b))
+    out = conv3x3_bn_winograd(_t(x), _t(u, BF16), _t(s), _t(b), precision="bf16w")
     _close(out.numpy(), ref, MODULE_RTOL)
     gold = conv3x3_bn_winograd_plain(*(_t(a).double() for a in (x, u, s, b)))
     _close(out.numpy(), gold.numpy(), BF16W_RTOL)
+
+
+@pytest.mark.parametrize("n,h,w,c,relu", [
+    (2, 9, 7, 16, True),
+    (1, 32, 32, 64, False),             # JAX's lane-packed 64-channel kernel
+    (1, 6, 10, 72, True),
+])
+def test_winograd_matches_jax(n, h, w, c, relu):
+    rng = np.random.default_rng(h * w + c)
+    x = _rand(rng, n, h, w, c)
+    u = transforms.transform_filter(_rand(rng, c, c, 3, 3), m=2)
+    s, b = _bn(rng, c)
+    ref = conv3x3_bn_winograd_pallas(jnp.asarray(x), jnp.asarray(u).astype(jnp.bfloat16),
+                                     jnp.asarray(s), jnp.asarray(b), relu=relu,
+                                     precision="bf16w")
+    out = conv3x3_bn_winograd(_t(x), _t(u, BF16), _t(s), _t(b), relu, "bf16w")
+    _close(out.numpy(), ref, MODULE_RTOL)
+    gold = conv3x3_bn_winograd_plain(*(_t(a).double() for a in (x, u, s, b)), relu)
+    _close(out.numpy(), gold.numpy(), BF16W_RTOL)
+
+
+def test_winograd_precisions_and_refusals():
+    """precision names the arithmetic of a bfloat16 u: "bf16" stays the int8
+    tier's float64 algebra (winograd2_mid_plain) to the bit, "bf16w" the
+    bf16w products; any other pairing of u and precision is refused."""
+    rng = np.random.default_rng(6)
+    x = _t(_rand(rng, 1, 6, 6, 8))
+    u = _t(transforms.transform_filter(_rand(rng, 12, 8, 3, 3), m=2))
+    u16 = u.to(BF16)
+    s, b = (_t(a) for a in _bn(rng, 12))
+    exact = conv3x3_bn_winograd(x, u16, s, b, precision="bf16")
+    assert torch.equal(exact, winograd2_mid_plain(x, u16, s, b))
+    assert torch.equal(conv3x3_bn_winograd(x, u16, s, b, precision="bf16w"),
+                       conv3x3_bn_winograd_plain(x, u16, s, b))
+    assert torch.equal(conv3x3_bn_winograd(x, u, s, b), conv3x3_bn_winograd_plain(x, u, s, b))
+    for uu, precision in ((u16, "f32"), (u, "bf16"), (u, "bf16w")):
+        with pytest.raises(ValueError, match="precision"):
+            conv3x3_bn_winograd(x, uu, s, b, precision=precision)
+    with pytest.raises(ValueError, match="unknown"):
+        conv3x3_bn_winograd(x, u16, s, b, precision="int8")
+    u4 = _t(transforms.transform_filter(_rand(rng, 12, 8, 3, 3), m=4)).to(BF16)
+    with pytest.raises(ValueError, match="F\\(2,3\\)"):
+        conv3x3_bn_winograd(x, u4, s, b, precision="bf16w")
+    with pytest.raises(ValueError, match="float32 activation"):
+        conv3x3_bn_winograd(x.double(), u16, s, b, precision="bf16w")
+
+
+@pytest.mark.parametrize("n,hw,cin,cout,relu", [(2, 7, 24, 40, True), (1, 5, 20, 12, False)])
+def test_direct_matches_jax(n, hw, cin, cout, relu):
+    rng = np.random.default_rng(hw + cin + cout)
+    x = _rand(rng, n, hw, hw, cin)
+    w9 = direct_filter(_rand(rng, cout, cin, 3, 3))
+    s, b = _bn(rng, cout)
+    ref = conv3x3_bn_direct_pallas(jnp.asarray(x), jnp.asarray(w9).astype(jnp.bfloat16),
+                                   jnp.asarray(s), jnp.asarray(b), relu=relu, precision="bf16w")
+    out = conv3x3_bn_direct(_t(x), _t(w9, BF16), _t(s), _t(b), relu)
+    _close(out.numpy(), ref, MODULE_RTOL)
+    gold = conv3x3_bn_direct_plain(*(_t(a).double() for a in (x, w9, s, b)), relu)
+    _close(out.numpy(), gold.numpy(), BF16W_RTOL)
+    with pytest.raises(ValueError, match="float32 activation"):
+        conv3x3_bn_direct(_t(x).double(), _t(w9, BF16), _t(s), _t(b), relu)
+
+
+def _basic_blocks(rng, c, nb):
+    blocks = []
+    for _ in range(nb):
+        blk = {}
+        for leg in ("a", "b"):
+            blk[f"w9_{leg}"] = direct_filter(_rand(rng, c, c, 3, 3))
+            blk[f"s_{leg}"], blk[f"b_{leg}"] = _bn(rng, c)
+        blocks.append(blk)
+    return blocks
+
+
+@pytest.mark.parametrize("nb", [1, 2])
+def test_basic_stage_matches_jax(nb):
+    rng = np.random.default_rng(10 + nb)
+    blocks = _basic_blocks(rng, 24, nb)
+    x = np.abs(_rand(rng, 2, 5, 6, 24))
+    ref = basic_stage_fused_pallas(jnp.asarray(x), jax_basic_stack(blocks), precision="bf16w")
+    stacked = stack_basic_stage_params([{k: _t(v) for k, v in blk.items()} for blk in blocks])
+    stacked16 = _bf16w(stacked)
+    assert stacked16["w9_a"].dtype == BF16 and stacked16["s_a"].dtype == torch.float32
+    out = basic_stage_fused(_t(x), stacked16)
+    _close(out.numpy(), ref, MODULE_RTOL)
+    gold = basic_stage_fused_plain(_t(x).double(), {k: v.double() for k, v in stacked.items()})
+    _close(out.numpy(), gold.numpy(), BF16W_RTOL)
+    with pytest.raises(ValueError, match="float32 activation"):
+        basic_stage_fused(_t(x).double(), stacked16)
 
 
 def _stage_case(cio, cmid, hw, nb, seed):
@@ -224,6 +332,74 @@ def test_tiny_resnet50_forward_matches_jax():
                          precision="bf16w")
 
 
+@dataclasses.dataclass(frozen=True)
+class _TinyBasic(JaxBasicNetConfig):
+    """tests/test_torch_basicnet.py's _TinyRoutes: 96x96 images -> 24x24
+    after the stem; stage 0 (16 channels) F(2,3), stage 1 (72, entry to
+    12x12) F(2,3), stage 2 (80, entry to 6x6) the entry's b-leg direct and
+    two identity blocks in one basic-stage launch (fused from
+    BASIC_MIN_CHANNELS)."""
+
+    stages = ((16, 24, 1), (72, 12, 2), (80, 6, 3))
+    img: int = 96
+    stem_c: int = 16
+    num_classes: int = 16
+
+
+BASIC_MIN_CHANNELS = 76
+
+
+@pytest.fixture(scope="module")
+def tiny_basic():
+    cfg = _TinyBasic("tiny_basic_bf16w")
+    case = make_basicnet_case(cfg, seed=5)
+    jparams = jb.attach_fused_stage_artifacts(jb.basicnet_params(case, cfg), BASIC_MIN_CHANNELS)
+    params = tb.attach_fused_stage_artifacts(tb.basicnet_params(case, cfg, device="cpu"),
+                                             BASIC_MIN_CHANNELS)
+    return cfg, case, jparams, params
+
+
+def test_tiny_basicnet_forward_matches_jax(tiny_basic):
+    _, case, jparams, params = tiny_basic
+    ref = jb.basicnet_forward_pallas(jnp.asarray(case["x"]), jparams, precision="bf16w")
+    p16 = cast_basicnet_bf16w(params)
+    assert [st.get("fused") is not None for st in p16["stages"]] == [False, False, True]
+    out = tb.basicnet_forward(case["x"], p16, device="cpu", precision="bf16w")
+    _close(out.numpy(), ref, FORWARD_RTOL)
+    _close(out.numpy(), case["golden"], BF16W_RTOL_BACKBONE)
+    with pytest.raises(ValueError, match="bf16w"):               # f32 weights at bf16w
+        tb.basicnet_forward(case["x"], params, device="cpu", precision="bf16w")
+    with pytest.raises(ValueError, match="bf16w"):               # bf16 weights at f32
+        tb.basicnet_forward(case["x"], p16, device="cpu")
+
+
+def test_cast_basicnet_bf16w_rounds_as_jax_astype(tiny_basic):
+    _, _, jparams, params = tiny_basic
+    p16 = cast_basicnet_bf16w(params)
+    for name in ("stem", "head"):
+        for k, v in p16[name].items():
+            if k in ("w192_stem", "w_fc"):
+                np.testing.assert_array_equal(_bits(v), _jax_bits(jparams[name][k]), err_msg=k)
+            want = BF16 if k in ("w192_stem", "w_fc") else torch.float32
+            assert v.dtype == want, k
+    for ours, theirs in zip(p16["stages"], jparams["stages"]):
+        for blk, jblk in zip([ours["entry"]] + ours["blocks"], [theirs["entry"]] + theirs["blocks"]):
+            if blk is None:
+                continue
+            for k, v in blk.items():
+                if k.startswith(("w_", "w9_", "u2_")):
+                    np.testing.assert_array_equal(_bits(v), _jax_bits(jblk[k]), err_msg=k)
+                else:
+                    assert v.dtype == torch.float32, k
+    fused = p16["stages"][2]["fused"]
+    jfused = jax_basic_stack(jparams["stages"][2]["blocks"])
+    for k in ("w9_a", "w9_b"):
+        np.testing.assert_array_equal(_bits(fused[k]), _jax_bits(jfused[k]))
+        assert p16["stages"][2]["blocks"][1][k].data_ptr() == fused[k][1].data_ptr()
+    assert fused["s_a"].dtype == torch.float32
+    assert params["head"]["w_fc"].dtype == torch.float32          # the caller's stay f32
+
+
 def test_cast_bf16w_rounds_as_jax_astype():
     cfg = _TinyR50("tiny_resnet50")
     tree = jax_init(cfg, seed=7)
@@ -274,7 +450,10 @@ def test_bf16w_stage_raises_where_the_route_is_per_block():
         resnet.resnet_stage(torch.zeros(1, 4, 4, 16), blocks, precision="f32")
 
 
-def test_engine_serves_bf16w_and_basic_engine_refuses_it():
+def test_engine_serves_bf16w_and_basic_engine_refuses_it(tiny_basic):
+    """Both engines serve bf16w: ResNet50Engine and ResNetBasicEngine cast
+    the caller's f32 weights once and serve the bf16w forward (the name is
+    from when the basic engine refused the tier)."""
     cfg = _TinyR50("tiny_resnet50")
     tree = jax_init(cfg, seed=3)
     params = params_from_jax(tree, device="cpu")
@@ -289,10 +468,19 @@ def test_engine_serves_bf16w_and_basic_engine_refuses_it():
     x = (np.random.default_rng(1).random((cfg.img, cfg.img, 3)) - 0.5).astype(np.float32)
     want = resnet50_forward(x, cast_bf16w(params), device="cpu", precision="bf16w")
     np.testing.assert_array_equal(engine(x).numpy(), want.numpy())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ResNetBasicEngine({}, tier="bf16w", device="cpu")
     with pytest.raises(ValueError, match="tier"):
         ResNet50Engine(params, tier="fp8", device="cpu")
+    _, case, _, basic = tiny_basic
+    engine = ResNetBasicEngine(basic, tier="bf16w", device="cpu")
+    p = engine._params
+    assert p["stem"]["w192_stem"].dtype == BF16 and p["head"]["w_fc"].dtype == BF16
+    assert p["stages"][2]["fused"]["w9_a"].dtype == BF16
+    assert p["stages"][2]["fused"]["s_b"].dtype == torch.float32
+    want = tb.basicnet_forward(case["x"], cast_basicnet_bf16w(basic), device="cpu",
+                               precision="bf16w")
+    np.testing.assert_array_equal(engine(case["x"]).numpy(), want.numpy())
+    with pytest.raises(ValueError, match="tier"):
+        ResNetBasicEngine(basic, tier="fp8", device="cpu")
 
 
 def test_bf16w_wrappers_launch_the_bf16w_entries_under_the_f32_plans(monkeypatch):
@@ -306,6 +494,7 @@ def test_bf16w_wrappers_launch_the_bf16w_entries_under_the_f32_plans(monkeypatch
     monkeypatch.setattr(_build, "ptr", lambda t: ctypes.c_void_p(0))
     monkeypatch.setattr(stage_module, "_workspace_floats", lambda *a, **k: 1)
     monkeypatch.setattr(transition_module, "_workspace_floats", lambda *a, **k: 1)
+    monkeypatch.setattr(basic_stage_module, "_workspace_floats", lambda *a, **k: 1)
 
     def launch(name, entry, shape, device, *args, counter=None):
         calls.append((entry, counter, [a.value for a in args if isinstance(a, ctypes.c_int)]))
@@ -327,9 +516,16 @@ def test_bf16w_wrappers_launch_the_bf16w_entries_under_the_f32_plans(monkeypatch
         "transition": lambda p: transition_block_fused(e(1, 14, 14, 1024), p),
         "stem": lambda p: stem_fused(e(1, 224, 224, 3), p["w192"], e(64), e(64),
                                      "bf16w" if p["w192"].dtype == BF16 else "f32"),
+        "winograd": lambda p: conv3x3_bn_winograd(e(1, 28, 28, 128), p["u2"], e(128), e(128),
+                                                  True, "bf16w" if p["u2"].dtype == BF16 else "f32"),
+        "direct": lambda p: conv3x3_bn_direct(e(1, 7, 7, 512), p["w9"], e(512), e(512), True),
+        "basic_stage": lambda p: basic_stage_fused(e(1, 7, 7, 512), p),
     }
+    basic = dict(w9_a=e(2, 9 * 512, 512), w9_b=e(2, 9 * 512, 512),
+                 **{k: e(2, 1, 512) for k in ("s_a", "b_a", "s_b", "b_b")})
     params = {"pointwise": {"w": e(2048, 1000)}, "stage": stage, "transition": trans,
-              "stem": {"w192": e(192, 64)}}
+              "stem": {"w192": e(192, 64)}, "winograd": {"u2": e(16, 128, 128)},
+              "direct": {"w9": e(9 * 512, 512)}, "basic_stage": basic}
     for kernel, run in runs.items():
         calls.clear()
         run(params[kernel])

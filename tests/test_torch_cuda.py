@@ -25,9 +25,12 @@ served shapes, odd maps and padded channel counts; the bf16w tier's
 instantiations (pointwise with the head's N, N off multiples of 8 and odd,
 K off multiples of 16, the GEMV at P <= 8 and the tiles just above; the stem
 on bf16 w192; the stage at one to five blocks, both mids, conv5_x at N=1 and
-8; the transition at its served shapes and ragged channels), each within
-the f32 bound of its twin and repeating to the bit, and each refusing an
-activation that is not float32. Needs an NVIDIA GPU and
+8; the transition at its served shapes and ragged channels; the Winograd
+F(2,3), the direct 3x3 and the basic stage at their served ResNet-34 shapes
+at N=1 and N=8, ragged Cout and Cin), each within the f32 bound of its twin
+and repeating to the bit, and each refusing an activation that is not
+float32; the int8 tier's F(2,3) on bf16 filters (FP64) equal to its twin.
+Needs an NVIDIA GPU and
 nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -683,6 +686,8 @@ def test_winograd_int8_entry_refuses_a_plan_it_does_not_take(dev):
 @pytest.mark.parametrize("n,h,w,cin,cout", [(3, 7, 9, 13, 70), (1, 56, 56, 64, 64), (2, 6, 6, 20, 33)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_winograd_bf16_filter_edges(dev, n, h, w, cin, cout, relu):
+    """The int8 tier's F(2,3) on bf16 filters (precision "bf16", the FP64
+    route) equals its float64 twin to the bit."""
     rng = np.random.default_rng(h * w + cin + cout + 2 * relu)
     x = _r(rng, dev, n, h, w, cin)
     wt = (rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)
@@ -690,7 +695,7 @@ def test_winograd_bf16_filter_edges(dev, n, h, w, cin, cout, relu):
     s, b = _bn(rng, dev, cout)
     from winograd_tpu_torch.kernels.winograd import winograd2_mid_plain
 
-    _agree(conv3x3_bn_winograd(x, u, s, b, relu), winograd2_mid_plain(x, u, s, b, relu))
+    _equal(conv3x3_bn_winograd(x, u, s, b, relu, "bf16"), winograd2_mid_plain(x, u, s, b, relu))
 
 
 def test_basic_wrappers_reject_what_the_kernels_do_not_take(dev):
@@ -711,7 +716,7 @@ def test_basic_wrappers_reject_what_the_kernels_do_not_take(dev):
                                     sb[:64], sb[:64])                   # filter not int8
     u4 = torch.zeros(36, 8, 4, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):
-        conv3x3_bn_winograd(x, u4, sb[:4], sb[:4])                      # bf16 at F(4,3)
+        conv3x3_bn_winograd(x, u4, sb[:4], sb[:4], precision="bf16")    # bf16 at F(4,3)
 
 
 # --- the split-K pointwise and int8 direct kernels ---------------------------
@@ -948,6 +953,60 @@ def test_transition_bf16w(dev, n, h, w, cin, cmid, cout):
     assert torch.equal(first, transition_block_fused(x, p))
 
 
+# The served ResNet-34 3x3s at N=1 and N=8 (F(2,3) split Cin at 28x28x128
+# and 14x14x256), Cout off multiples of 8 (60, 70, 130: the element-wise U
+# loads), Cin 3 and 70, maps the tile does not divide.
+@pytest.mark.parametrize("n,h,w,cin,cout", [
+    (1, 56, 56, 64, 64), (8, 56, 56, 64, 64), (1, 28, 28, 128, 128), (8, 28, 28, 128, 128),
+    (1, 14, 14, 256, 256), (8, 14, 14, 256, 256), (2, 9, 7, 70, 60), (1, 15, 13, 3, 70),
+    (3, 10, 10, 64, 130), (1, 12, 12, 256, 64),
+])
+def test_winograd_bf16w(dev, n, h, w, cin, cout):
+    rng = np.random.default_rng(h * w + cin + cout + 4)
+    x = _r(rng, dev, n, h, w, cin)
+    wt = (rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)
+    u = torch.as_tensor(transforms.transform_filter(wt, m=2), device=dev).to(BF16)
+    s, b = _bn(rng, dev, cout)
+    for relu in (True, False):
+        first = conv3x3_bn_winograd(x, u, s, b, relu, "bf16w")
+        _agree(first, conv3x3_bn_winograd_plain(x, u, s, b, relu))
+        assert torch.equal(first, conv3x3_bn_winograd(x, u, s, b, relu, "bf16w"))
+
+
+# The served conv5_x entry b-leg at N=1 and N=8, Cout 60, 70 and 130, Cin 3
+# and 70 (the 4-byte im2col copies), K split with a ragged last range.
+@pytest.mark.parametrize("n,hw,cin,cout", [
+    (1, 7, 512, 512), (8, 7, 512, 512), (2, 9, 70, 60), (1, 7, 3, 70), (3, 6, 64, 130),
+    (1, 14, 256, 256),
+])
+def test_direct_bf16w(dev, n, hw, cin, cout):
+    rng = np.random.default_rng(hw + cin + cout + 5)
+    x = _r(rng, dev, n, hw, hw, cin)
+    w9 = torch.as_tensor(direct_filter((rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)),
+                         device=dev).to(BF16)
+    s, b = _bn(rng, dev, cout)
+    for relu in (True, False):
+        first = conv3x3_bn_direct(x, w9, s, b, relu)
+        _agree(first, conv3x3_bn_direct_plain(x, w9, s, b, relu))
+        assert torch.equal(first, conv3x3_bn_direct(x, w9, s, b, relu))
+
+
+# conv5_x's run at N=1 and N=8 (ResNet-34: two blocks; ResNet-18: one),
+# channels off multiples of 8 (70, 130: element-wise B loads), C = 3.
+@pytest.mark.parametrize("n,hw,c,nb", [
+    (1, 7, 512, 2), (8, 7, 512, 2), (1, 7, 512, 1), (3, 6, 70, 2), (2, 5, 130, 1),
+    (1, 6, 3, 2),
+])
+def test_basic_stage_bf16w(dev, n, hw, c, nb):
+    rng = np.random.default_rng(n * hw + c + nb + 6)
+    stacked = {k: v.to(dev) for k, v in bs.stack_basic_stage_params(_basic_blocks(rng, nb, c)).items()}
+    stacked = _bf16w(stacked)
+    x = _r(rng, dev, n, hw, hw, c)
+    first = bs.basic_stage_fused(x, stacked)
+    _agree(first, bs.basic_stage_fused_plain(x, stacked))
+    assert torch.equal(first, bs.basic_stage_fused(x, stacked))
+
+
 def test_bf16w_refuses_an_activation_that_is_not_f32(dev):
     """A bfloat16 weight takes a float32 activation, on every bf16w entry."""
     rng = np.random.default_rng(5)
@@ -964,3 +1023,12 @@ def test_bf16w_refuses_an_activation_that_is_not_f32(dev):
     img, w192, s64, b64 = _stem_case(rng, dev, 1, 32, 32, 3, 16)
     with pytest.raises(ValueError, match="float32 activation"):
         stem_fused(img.double(), w192.to(BF16), s64, b64, "bf16w")
+    u = _r(rng, dev, 16, 16, 8).to(BF16)
+    with pytest.raises(ValueError, match="float32 activation"):
+        conv3x3_bn_winograd(x.double(), u, s, b, True, "bf16w")
+    with pytest.raises(ValueError, match="float32 activation"):
+        conv3x3_bn_direct(x.double(), _r(rng, dev, 9 * 16, 8).to(BF16), s, b)
+    basic = _bf16w({k: v.to(dev) for k, v in
+                    bs.stack_basic_stage_params(_basic_blocks(rng, 1, 16)).items()})
+    with pytest.raises(ValueError, match="float32 activation"):
+        bs.basic_stage_fused(x.double(), basic)

@@ -101,9 +101,10 @@ def test_winograd_bf16_filter_matches_jax_bf16w(n, h, w, cin, cout, relu):
     ref = conv3x3_bn_winograd_pallas(jnp.asarray(x), u_bf16, jnp.asarray(scale),
                                      jnp.asarray(bias), relu=relu, precision="bf16w")
     out = conv3x3_bn_winograd(torch.from_numpy(x), torch.from_numpy(u).to(torch.bfloat16),
-                              torch.from_numpy(scale), torch.from_numpy(bias), relu=relu)
+                              torch.from_numpy(scale), torch.from_numpy(bias), relu=relu,
+                              precision="bf16")
     _close(out.numpy(), ref, ATOL)
     with pytest.raises(ValueError, match="F\\(2,3\\)"):
         u4 = transforms.transform_filter(np.zeros((cout, cin, 3, 3), np.float32), m=4)
         conv3x3_bn_winograd(torch.from_numpy(x), torch.from_numpy(u4).to(torch.bfloat16),
-                            torch.from_numpy(scale), torch.from_numpy(bias))
+                            torch.from_numpy(scale), torch.from_numpy(bias), precision="bf16")

@@ -15,10 +15,11 @@ CUDA C++ for sm_90a (csrc/) and bound with ctypes (kernels/_build.py):
   launch.
 
 The bf16w serving tier (engine tier "bf16w", models/resnet50.py::
-resnet50_forward(precision="bf16w")) runs bf16w instantiations of the
-pointwise, stem, stage and transition kernels on bfloat16 weights
-(csrc/mma_bf16w.cuh: the f32 activation split into two bf16 halves on the
-tensor cores), with the entry block's F(2,3) on bf16 filters.
+resnet50_forward(precision="bf16w"), models/basic.py::
+basicnet_forward(precision="bf16w")) runs bf16w instantiations of the
+pointwise, Winograd, direct, stem, stage, transition and basic-stage
+kernels on bfloat16 weights (csrc/mma_bf16w.cuh: the f32 activation split
+into two bf16 halves on the tensor cores).
 The int8 serving tier of the same classifier (engine tier "int8",
 models/resnet50.py::resnet50_forward_int8) runs the stem at bf16 and
 kernels/quantized.py: int8 pointwise and direct 3x3 kernels, and the int8

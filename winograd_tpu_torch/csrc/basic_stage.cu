@@ -31,8 +31,18 @@
 // after a barrier (deterministic, no atomics): most blocks stream a slice
 // of the weights instead of idling. This entry checks the plan against the
 // geometry compiled here and refuses one that does not fit.
+//
+// The bf16w tier (basic_stage_bf16w: w9_a and w9_b bf16, BN f32; the JAX
+// kernel at precision="bf16w") is the same kernel and plan on
+// mma_bf16w.cuh's tile (wt::mma_tile by the weights' type): both convs
+// split their implicit im2col hi/lo into two bf16 m16n8k16 passes on the
+// bf16 weights, half the weight bytes (4.7 MB a conv at 7x7x512, not 9.4)
+// and a third of the tensor-core instructions. The ring takes 58 KB.
 
+#include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "splitk_tf32.cuh"
@@ -44,13 +54,15 @@ namespace sk = wt::splitk;
 
 constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
 
+// BT: the weights' element type, float or __nv_bfloat16 (bf16w).
+template <class BT>
 struct BasicStageArgs {
   const float* x;
   float* out;
-  const float* wa;  // (B, 9*C, C)
+  const BT* wa;  // (B, 9*C, C)
   const float* sa;  // (B, 1, C)
   const float* ba;
-  const float* wb;
+  const BT* wb;
   const float* sb;
   const float* bb;
   float* h1;
@@ -60,10 +72,11 @@ struct BasicStageArgs {
   wt::GemmPhase conv;
 };
 
-// kVec: C a multiple of 4, every operand 16-byte aligned.
-template <bool kVec>
+// kVec: C a multiple of 4 (of 8 for bf16 weights), every operand 16-byte
+// aligned.
+template <bool kVec, class BT>
 __global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm)
-    basic_stage_kernel(BasicStageArgs a) {
+    basic_stage_kernel(BasicStageArgs<BT> a) {
   extern __shared__ __align__(16) float smem[];
   const int c = a.C;
   const int P = a.N * a.H * a.W;
@@ -84,24 +97,27 @@ __global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm)
   }
 }
 
-template <bool kVec>
-const void* kernel_of() {
-  return reinterpret_cast<const void*>(&basic_stage_kernel<kVec>);
+template <class BT>
+const void* kernel_of(bool vec) {
+  return vec ? reinterpret_cast<const void*>(&basic_stage_kernel<true, BT>)
+             : reinterpret_cast<const void*>(&basic_stage_kernel<false, BT>);
 }
 
 // Blocks of the instantiation that the current device holds resident at
 // once, at most kMaxBlocksPerSm an SM (the dynamic shared memory limit
 // raised once per device); 0 on error.
+template <class BT>
 int resident_blocks(bool vec) {
   static int cache[64][2] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cache[dev][vec] == 0) {
-    const void* kernel = vec ? kernel_of<true>() : kernel_of<false>();
+    const void* kernel = kernel_of<BT>(vec);
+    constexpr size_t smem = wt::kTileSmemBytes<BT>;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(tc::kSmemBytes)) != cudaSuccess)
+                             static_cast<int>(smem)) != cudaSuccess)
       return 0;
-    cache[dev][vec] = cooperative_grid(kernel, tc::kSmemBytes, tc::kThreads, kMaxBlocksPerSm);
+    cache[dev][vec] = cooperative_grid(kernel, smem, tc::kThreads, kMaxBlocksPerSm);
   }
   return cache[dev][vec];
 }
@@ -128,11 +144,39 @@ int make_plan(int N, int H, int W, int C, int blocks, int splits, int chunk, Pla
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+template <class BT>
+int stage(const float* x, const BT* wa, const float* sa, const float* ba, const BT* wb,
+          const float* sb, const float* bb, float* out, float* ws, long long ws_floats, int N,
+          int H, int W, int C, int B, int blocks, int splits, int chunk, void* stream) {
+  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  Plan pl;
+  const int err = make_plan(N, H, W, C, blocks, splits, chunk, &pl);
+  if (err != 0) return err;
+  if (ws_floats < static_cast<long long>(pl.total))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kVecChannels = std::is_same_v<BT, float> ? 4 : 8;
+  const bool vec = C % kVecChannels == 0 && aligned16(x) && aligned16(out) && aligned16(wa) &&
+                   aligned16(wb) && aligned16(ws);
+  const int resident = resident_blocks<BT>(vec);
+  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const auto s = static_cast<cudaStream_t>(stream);
+  unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
+  cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  BasicStageArgs<BT> a{x, out, wa, sa, ba, wb, sb, bb, ws + pl.h1, ws + pl.part, bar,
+                       N, H, W, C, B, pl.conv};
+  void* args[] = {&a};
+  e = cudaLaunchCooperativeKernel(kernel_of<BT>(vec), dim3(blocks), dim3(tc::kThreads), args,
+                                  wt::kTileSmemBytes<BT>, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// Floats of workspace basic_stage needs for this shape under the plan
-// (blocks, then the convs' splits and chunk), into *floats; returns a CUDA
-// error code.
+// Floats of workspace basic_stage and basic_stage_bf16w need for this shape
+// under the plan (blocks, then the convs' splits and chunk), into *floats;
+// returns a CUDA error code.
 extern "C" int basic_stage_workspace(int N, int H, int W, int C, int blocks, int splits,
                                      int chunk, long long* floats) {
   Plan pl;
@@ -149,25 +193,17 @@ extern "C" int basic_stage(const float* x, const float* wa, const float* sa, con
                            const float* wb, const float* sb, const float* bb, float* out,
                            float* ws, long long ws_floats, int N, int H, int W, int C, int B,
                            int blocks, int splits, int chunk, void* stream) {
-  if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  Plan pl;
-  const int err = make_plan(N, H, W, C, blocks, splits, chunk, &pl);
-  if (err != 0) return err;
-  if (ws_floats < static_cast<long long>(pl.total))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = C % 4 == 0 && aligned16(x) && aligned16(out) && aligned16(wa) &&
-                   aligned16(wb) && aligned16(ws);
-  const int resident = resident_blocks(vec);
-  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const auto s = static_cast<cudaStream_t>(stream);
-  unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
-  cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  BasicStageArgs a{x, out, wa, sa, ba, wb, sb, bb, ws + pl.h1, ws + pl.part, bar,
-                   N, H, W, C, B, pl.conv};
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(vec ? kernel_of<true>() : kernel_of<false>(), dim3(blocks),
-                                  dim3(tc::kThreads), args, tc::kSmemBytes, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  return stage(x, wa, sa, ba, wb, sb, bb, out, ws, ws_floats, N, H, W, C, B, blocks, splits,
+               chunk, stream);
+}
+
+// The bf16w tier: wa and wb bf16, the rest (plan and workspace) as
+// basic_stage.
+extern "C" int basic_stage_bf16w(const float* x, const __nv_bfloat16* wa, const float* sa,
+                                 const float* ba, const __nv_bfloat16* wb, const float* sb,
+                                 const float* bb, float* out, float* ws, long long ws_floats,
+                                 int N, int H, int W, int C, int B, int blocks, int splits,
+                                 int chunk, void* stream) {
+  return stage(x, wa, sa, ba, wb, sb, bb, out, ws, ws_floats, N, H, W, C, B, blocks, splits,
+               chunk, stream);
 }

@@ -6,11 +6,11 @@
 //   Y = At M At^T, then y = Y * scale + bias (+ ReLU), stored clipped at the
 //   right and bottom edges when m does not divide the map.
 //
-// Shared by csrc/winograd.cu (the per-layer f32 Winograd, F(2,3) and F(4,3))
-// and csrc/stage.cu (the F(2,3) mid-layer of the f32 bottleneck stage, and
-// of the bf16w stage, whose U is bf16: its products run mma_bf16w.cuh's
-// tile, V split hi/lo, through wt::mma_tile; the V phase and the inverse
-// stay FP32).
+// Shared by csrc/winograd.cu (the per-layer Winograd: f32, F(2,3) and
+// F(4,3), and the bf16w F(2,3)) and csrc/stage.cu (the F(2,3) mid-layer of
+// the f32 and the bf16w bottleneck stage). A bf16 U (the bf16w tier) runs
+// its products on mma_bf16w.cuh's tile, V split hi/lo, through
+// wt::mma_tile; the V phase and the inverse stay FP32.
 //
 // Three steps, two grid barriers (grid_sync.cuh):
 // * V phase: the grid writes V = Bt d Bt^T once, one (tile, channel) a

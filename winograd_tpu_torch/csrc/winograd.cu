@@ -36,16 +36,27 @@
 // entry checks the plan against the geometry compiled here and refuses a
 // grid larger than the card holds resident.
 //
-// winograd_conv3x3_bn_bf16 is the F(2,3) tile body of winograd.cuh on a
-// bf16 filter in FP64 (the int8 tier's stride-1 3x3 at 64 channels, the
-// JAX package's conv3x3_bn_winograd_pallas(precision="bf16w") at 56x56x64
-// on the basic family's int8 route), one block of 8 x 16 threads per 8
-// tiles x 32 output channels with every position on chip, as before: its
-// arithmetic must match a float64 plain version to the bit.
+// winograd_conv3x3_bn_bf16w is the bf16w tier's F(2,3) (the JAX package's
+// conv3x3_bn_winograd_pallas(precision="bf16w"): ResNet-18/34's identity
+// 3x3s and ResNet-50's projection 3x3 at bf16w): the same cooperative
+// launch and plan on a bf16 U, its products on mma_bf16w.cuh's tile (V
+// split hi/lo into two bf16 m16n8k16 passes, wt::mma_tile by U's type),
+// the V phase and the inverse FP32. U streams at half the f32 bytes, and
+// a k16 step is two tensor-core instructions where 3xTF32 takes six.
+//
+// winograd_conv3x3_bn_bf16 is the int8 tier's exact bf16-filter 3x3: the
+// F(2,3) tile body of winograd.cuh on a bf16 filter in FP64, which computes
+// JAX's bf16w op exactly (the JAX kernel's hi/lo split of V is within
+// ~2^-17 of it), one block of 8 x 16 threads per 8 tiles x 32 output
+// channels with every position on chip, as before: its arithmetic must
+// match a float64 plain version to the bit, as the int8 layer it feeds
+// needs.
 
 #include <cuda_bf16.h>
 
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 #include "winograd.cuh"
@@ -86,10 +97,11 @@ int launch(const float* x, const TU* u, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The f32 route on the tensor cores.
+// The tensor-core route, f32 (3xTF32) or bf16w; UT: U's element type.
+template <class UT>
 struct TcArgs {
   const float* x;
-  const float* u;
+  const UT* u;
   const float* scale;
   const float* bias;
   float* out;
@@ -101,44 +113,77 @@ struct TcArgs {
   int relu;
 };
 
-template <int M, bool kVec>
-__global__ void __launch_bounds__(tc::kThreads) winograd_tc_kernel(TcArgs a) {
+template <int M, bool kVec, class UT>
+__global__ void __launch_bounds__(tc::kThreads) winograd_tc_kernel(TcArgs<UT> a) {
   extern __shared__ __align__(16) float smem[];
   wtc::phase<M, kVec, false>(a.cv, a.cut, a.x, a.u, a.scale, a.bias, a.out, a.relu, a.v,
                              a.part, a.bar, smem);
 }
 
 // Blocks of the instantiation that the current device holds resident (its
-// dynamic shared memory limit raised once per device); 0 on error.
-template <int M, bool kVec>
+// dynamic shared memory limit, the ring of U's tile, raised once per
+// device); 0 on error.
+template <int M, bool kVec, class UT>
 int resident_blocks() {
   static int cache[64] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cache[dev] == 0) {
-    const void* kernel = reinterpret_cast<const void*>(&winograd_tc_kernel<M, kVec>);
+    const void* kernel = reinterpret_cast<const void*>(&winograd_tc_kernel<M, kVec, UT>);
+    constexpr size_t smem = wt::kTileSmemBytes<UT>;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(tc::kSmemBytes)) != cudaSuccess)
+                             static_cast<int>(smem)) != cudaSuccess)
       return 0;
-    cache[dev] = cooperative_grid(kernel, tc::kSmemBytes, tc::kThreads);
+    cache[dev] = cooperative_grid(kernel, smem, tc::kThreads);
   }
   return cache[dev];
 }
 
-template <int M, bool kVec>
-int launch_tc(TcArgs& a, int blocks, cudaStream_t s) {
-  const int resident = resident_blocks<M, kVec>();
+template <int M, bool kVec, class UT>
+int launch_tc(TcArgs<UT>& a, int blocks, cudaStream_t s) {
+  const int resident = resident_blocks<M, kVec, UT>();
   if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaError_t e = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&winograd_tc_kernel<M, kVec>),
-                                  dim3(blocks), dim3(tc::kThreads), args, tc::kSmemBytes, s);
+  e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(&winograd_tc_kernel<M, kVec, UT>), dim3(blocks),
+      dim3(tc::kThreads), args, wt::kTileSmemBytes<UT>, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+template <class UT>
+int conv_tc(const float* x, const UT* u, const float* scale, const float* bias, float* out,
+            float* ws, long long ws_words, long long v, long long part, int N, int H, int W,
+            int Cin, int Cout, int m, int relu, int tile, int blocks, int splits, int chunk,
+            void* stream) {
+  constexpr bool kBf16 = std::is_same_v<UT, __nv_bfloat16>;
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || (m != 2 && (kBf16 || m != 4)) ||
+      tile != tc::kBM || blocks <= 0 || ws == nullptr || !aligned16(ws))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int a2 = (m + 2) * (m + 2);
+  const wtc::Conv cv = m == 2 ? wtc::make_conv<2>(N, H, W, Cin, Cout)
+                              : wtc::make_conv<4>(N, H, W, Cin, Cout);
+  const wtc::Cut cut{splits, chunk};
+  if (!wtc::cut_fits(cv, cut) || v < 2 || v % 4 != 0 || part % 4 != 0 ||
+      part < v + static_cast<long long>(wtc::v_floats(cv, a2)) ||
+      ws_words < part + static_cast<long long>(wtc::part_floats(cv, a2, cut)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TcArgs<UT> a{x,   u,        scale, bias, out, ws + v, ws + part,
+               reinterpret_cast<unsigned int*>(ws), cv, cut, relu};
+  const auto s = static_cast<cudaStream_t>(stream);
+  // 16-byte copies of U: Cout a multiple of 4 floats or 8 bf16 values.
+  const bool vec = Cout % (kBf16 ? 8 : 4) == 0 && aligned16(u);
+  if constexpr (kBf16) {
+    return vec ? launch_tc<2, true>(a, blocks, s) : launch_tc<2, false>(a, blocks, s);
+  } else {
+    if (m == 2) return vec ? launch_tc<2, true>(a, blocks, s) : launch_tc<2, false>(a, blocks, s);
+    return vec ? launch_tc<4, true>(a, blocks, s) : launch_tc<4, false>(a, blocks, s);
+  }
+}
 
 }  // namespace
 
@@ -155,23 +200,20 @@ extern "C" int winograd_conv3x3_bn(const float* x, const float* u, const float* 
                                    long long v, long long part, int N, int H, int W, int Cin,
                                    int Cout, int m, int relu, int tile, int blocks, int splits,
                                    int chunk, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || (m != 2 && m != 4) ||
-      tile != tc::kBM || blocks <= 0 || ws == nullptr || !aligned16(ws))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int a2 = (m + 2) * (m + 2);
-  const wtc::Conv cv = m == 2 ? wtc::make_conv<2>(N, H, W, Cin, Cout)
-                              : wtc::make_conv<4>(N, H, W, Cin, Cout);
-  const wtc::Cut cut{splits, chunk};
-  if (!wtc::cut_fits(cv, cut) || v < 2 || v % 4 != 0 || part % 4 != 0 ||
-      part < v + static_cast<long long>(wtc::v_floats(cv, a2)) ||
-      ws_words < part + static_cast<long long>(wtc::part_floats(cv, a2, cut)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  TcArgs a{x,   u,        scale, bias, out, ws + v, ws + part,
-           reinterpret_cast<unsigned int*>(ws), cv, cut, relu};
-  const auto s = static_cast<cudaStream_t>(stream);
-  const bool vec = Cout % 4 == 0 && aligned16(u);
-  if (m == 2) return vec ? launch_tc<2, true>(a, blocks, s) : launch_tc<2, false>(a, blocks, s);
-  return vec ? launch_tc<4, true>(a, blocks, s) : launch_tc<4, false>(a, blocks, s);
+  return conv_tc(x, u, scale, bias, out, ws, ws_words, v, part, N, H, W, Cin, Cout, m, relu, tile,
+                 blocks, splits, chunk, stream);
+}
+
+// The bf16w tier: u (16, Cin, Cout) bf16, m = 2 only, the rest (plan and
+// workspace) as winograd_conv3x3_bn.
+extern "C" int winograd_conv3x3_bn_bf16w(const float* x, const __nv_bfloat16* u,
+                                         const float* scale, const float* bias, float* out,
+                                         float* ws, long long ws_words, long long v,
+                                         long long part, int N, int H, int W, int Cin, int Cout,
+                                         int m, int relu, int tile, int blocks, int splits,
+                                         int chunk, void* stream) {
+  return conv_tc(x, u, scale, bias, out, ws, ws_words, v, part, N, H, W, Cin, Cout, m, relu, tile,
+                 blocks, splits, chunk, stream);
 }
 
 // F(2,3) on a bf16 filter (the int8 tier's bf16-weight 3x3): the filter is

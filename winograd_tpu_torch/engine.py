@@ -1,9 +1,9 @@
 """Serving layer: the ResNet classifiers with their weights resident on a device.
 
-Port of winograd_tpu/engine.py::ResNet50Engine (at the f32, bf16w and int8
-tiers) and ::ResNetBasicEngine (ResNet-18/34, at the f32 and int8 tiers) on
-one device. The basic family's bf16w tier and the mesh partitions are not
-ported yet, nor the engines' from_torch and from_checkpoint constructors.
+Port of winograd_tpu/engine.py::ResNet50Engine and ::ResNetBasicEngine
+(ResNet-18/34), each at the f32, bf16w and int8 tiers, on one device. The
+mesh partitions are not ported yet, nor the engines' from_torch and
+from_checkpoint constructors.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.models.basic import (
     basicnet_forward,
     basicnet_forward_int8,
+    cast_basicnet_bf16w,
     quantize_basicnet,
 )
 from winograd_tpu_torch.models.convert import params_to
@@ -32,23 +33,16 @@ TIERS = ("f32", "bf16w", "int8")
 
 class _ClassifierEngine:
     """A classifier's weights resident on one device, served at one tier. A
-    subclass names, per tier it serves, the forward and the conversion of
-    the f32 parameters into that tier's (none at f32), and what a tier it
-    does not serve is waiting for."""
+    subclass names, per tier, the forward and the conversion of the f32
+    parameters into that tier's (none at f32)."""
 
     _forwards: Dict[str, Callable] = {}
     _convert: Dict[str, Callable] = {}
-    _unported: Dict[str, str] = {}
 
     def __init__(self, params: Dict, tier: str = "f32", device="cuda",
                  mesh=None, partition: str = "data"):
         if tier not in TIERS:
             raise ValueError(f"unknown tier {tier!r}; choose from {TIERS}")
-        if tier not in self._forwards:
-            raise NotImplementedError(
-                f"tier={tier!r} of {type(self).__name__} is not ported yet "
-                f"({self._unported[tier]}); {sorted(self._forwards)} are served"
-            )
         if mesh is not None or partition != "data":
             raise NotImplementedError(
                 "mesh and partition are not ported yet (ROADMAP.md, queue A "
@@ -99,12 +93,14 @@ class ResNetBasicEngine(_ClassifierEngine):
     params: the port's f32 parameters (models/basic.py::basicnet_params,
     or models/convert.py::basicnet_params_from_jax); they are copied to
     `device` once. tier "f32" serves them as they are (basicnet_forward);
-    "int8" quantizes them once here (models/basic.py::quantize_basicnet) and
-    serves basicnet_forward_int8. device defaults to "cuda" and must exist;
-    the CPU runs the kernels' plain versions and only when asked for. The
-    bf16w tier raises NotImplementedError until its kernels are ported."""
+    "bf16w" casts them once here (models/convert.py::cast_basicnet_bf16w:
+    bfloat16 weights, f32 BN) and serves basicnet_forward(precision=
+    "bf16w"); "int8" quantizes them once here (models/basic.py::
+    quantize_basicnet) and serves basicnet_forward_int8. device defaults to
+    "cuda" and must exist; the CPU runs the kernels' plain versions and only
+    when asked for."""
 
-    _forwards = {"f32": basicnet_forward, "int8": basicnet_forward_int8}
-    _convert = {"int8": quantize_basicnet}
-    _unported = {"bf16w": "ROADMAP.md, queue A item 1: the ResNet-18/34 bf16w tier, "
-                          "direct.cu and basic_stage.cu at bf16w"}
+    _forwards = {"f32": basicnet_forward,
+                 "bf16w": functools.partial(basicnet_forward, precision="bf16w"),
+                 "int8": basicnet_forward_int8}
+    _convert = {"bf16w": cast_basicnet_bf16w, "int8": quantize_basicnet}

@@ -1,5 +1,5 @@
 """A run of identity basic blocks (ResNet-18/34) over all images in one launch,
-at f32 and at the int8 tier.
+at f32, at bf16w and at the int8 tier.
 
 Port of winograd_tpu/kernels/basic_stage.py: basic_stage_fused_pallas
 (_basic_stage_kernel) and basic_stage_int8_pallas (_basic_stage_int8_kernel).
@@ -15,6 +15,12 @@ with the plain versions of the per-layer direct kernels. Parameters arrive stack
 per block: w9_a/w9_b (B, 9C, C), BN rows s_a/b_a/s_b/b_b (B, 1, C)
 (stack_basic_stage_params); at int8 w9_a_q/w9_b_q (B, 9C, C) int8 with
 weight scales w9_a_s/w9_b_s (B, 1, C) (quantize_basic_stage_params).
+
+A bfloat16 stack (w9_a, w9_b bfloat16, BN float32; models/convert.py::
+cast_basicnet_bf16w) selects the bf16w tier (the JAX kernel at
+precision="bf16w"): the same plan runs csrc/basic_stage.cu's bf16w
+instantiation, each im2col row split into two bf16 halves on the bf16
+weights; the plain twin runs the direct 3x3's bf16w plain arithmetic.
 """
 
 from __future__ import annotations
@@ -69,7 +75,8 @@ def quantize_basic_stage_params(blocks: List[Dict]) -> Dict[str, torch.Tensor]:
 
 
 def basic_stage_fused_plain(x, stacked: Dict) -> torch.Tensor:
-    """The f32 run block by block in plain PyTorch. x: (N, H, W, C)."""
+    """The run block by block in plain PyTorch (the bf16w arithmetic on
+    bfloat16 weights, conv3x3_bn_direct_plain's). x: (N, H, W, C)."""
     s = stacked
     for b in range(s["w9_a"].shape[0]):
         h = conv3x3_bn_direct_plain(x, s["w9_a"][b], s["s_a"][b, 0], s["b_a"][b, 0], True)
@@ -168,16 +175,24 @@ def basic_stage_fused(x, stacked: Dict) -> torch.Tensor:
     """B identity basic blocks in one launch.
 
     x: (H, W, C) or (N, H, W, C) float32; stacked from
-    stack_basic_stage_params. CPU tensors run the plain version; CUDA
-    tensors launch csrc/basic_stage.cu."""
+    stack_basic_stage_params, its w9_a and w9_b float32, or bfloat16 for the
+    bf16w tier. CPU tensors run the plain version; CUDA tensors launch
+    csrc/basic_stage.cu, counted as "basic_stage_bf16w" on bfloat16
+    weights."""
     x, squeeze = _images(x)
     n, h, w, c = x.shape
     nb = stacked["w9_a"].shape[0]
     _check_stack(stacked, STACK_KEYS, nb, c)
+    bf16w = stacked["w9_a"].dtype == torch.bfloat16
+    if bf16w:
+        _build.check_bf16w(x)
     if x.device.type == "cpu":
         out = basic_stage_fused_plain(x, stacked)
     else:
-        _build.check_tensors(x, *(stacked[k] for k in STACK_KEYS))
+        weights = ("w9_a", "w9_b")
+        _build.check_tensors(x, *(stacked[k] for k in STACK_KEYS if k not in weights))
+        _build.check_tensors(*(stacked[k] for k in weights),
+                             dtype=torch.bfloat16 if bf16w else torch.float32, device=x.device)
         out = basic_stage_fused_planned(
             x, stacked, basic_stage_plan(n, h, w, c, _build.sm_count(x.device)))
     return out[0] if squeeze else out
@@ -186,17 +201,21 @@ def basic_stage_fused(x, stacked: Dict) -> torch.Tensor:
 def basic_stage_fused_planned(x, stacked: Dict, plan: BasicStagePlan) -> torch.Tensor:
     """basic_stage_fused's launch on CUDA tensors under an explicit plan (the
     wrapper passes basic_stage_plan's; tools/chip_split_sweep.py times
-    others). x: (N, H, W, C); operands as basic_stage_fused checks them."""
+    others); bfloat16 weights launch the bf16w instantiation, counted as
+    "basic_stage_bf16w". x: (N, H, W, C); operands as basic_stage_fused
+    checks them."""
     n, h, w, c = x.shape
     nb = stacked["w9_a"].shape[0]
     floats = _workspace_floats(x.device.index, n, h, w, c, *plan.args())
     ws = torch.empty(floats, device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
+    bf16w = stacked["w9_a"].dtype == torch.bfloat16
     _build.launch(
-        "basic_stage", "basic_stage", (n, h, w, c, nb), x.device,
-        *(_build.ptr(t) for t in (x, *(stacked[k] for k in STACK_KEYS))),
+        "basic_stage", "basic_stage_bf16w" if bf16w else "basic_stage", (n, h, w, c, nb),
+        x.device, *(_build.ptr(t) for t in (x, *(stacked[k] for k in STACK_KEYS))),
         _build.ptr(out), _build.ptr(ws), ctypes.c_longlong(floats),
         *map(_build.cint, (n, h, w, c, nb) + plan.args()),
+        counter="basic_stage_bf16w" if bf16w else None,
     )
     return out
 

@@ -4,6 +4,11 @@ Port of winograd_tpu/kernels/direct.py::conv3x3_bn_direct_pallas. The CUDA
 kernel is csrc/direct.cu: the pointwise kernel's split-K 3xTF32 tiles with
 A an implicit im2col, K split over blocks by direct_plan; the plain twin
 builds the im2col matrix and multiplies.
+
+A bfloat16 w9 selects the bf16w tier (the JAX op at precision="bf16w"):
+the same plan runs csrc/direct.cu's bf16w instantiation, the f32 im2col
+split into two bf16 halves, each multiplied by the bf16 weights in f32
+(pointwise.py::split_dot_bf16w, the plain twin's arithmetic).
 """
 
 from __future__ import annotations
@@ -71,20 +76,27 @@ def conv3x3_bn_direct_plain(x, w9, scale, bias, relu: bool = True) -> torch.Tens
 def conv3x3_bn_direct(x, w9, scale, bias, relu: bool = True) -> torch.Tensor:
     """Fused 3x3 conv + BN (+ReLU), direct implicit GEMM.
 
-    x: (H, W, Cin) or (N, H, W, Cin); w9: (9*Cin, Cout) from direct_filter;
-    scale, bias: (Cout,). CPU tensors run the plain version; CUDA tensors
-    launch csrc/direct.cu."""
+    x: (H, W, Cin) or (N, H, W, Cin); w9: (9*Cin, Cout) from direct_filter,
+    float32, or bfloat16 for the bf16w tier (x float32); scale, bias:
+    (Cout,). CPU tensors run the plain version; CUDA tensors launch
+    csrc/direct.cu (contiguous operands, float32 but for a bfloat16 w9)."""
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
     n, h, w, cin = x.shape
     if w9.shape[0] != 9 * cin:
         raise ValueError(f"w9 {tuple(w9.shape)} does not take {cin} input channels")
+    if w9.dtype == torch.bfloat16:
+        _build.check_bf16w(x)
     if x.device.type == "cpu":
         out = conv3x3_bn_direct_plain(x, w9, scale, bias, relu)
     else:
         cout = w9.shape[1]
-        _build.check_operands(scale, bias, cout, x, w9)
+        if w9.dtype == torch.bfloat16:
+            _build.check_tensors(w9, dtype=torch.bfloat16, device=x.device)
+            _build.check_operands(scale, bias, cout, x)
+        else:
+            _build.check_operands(scale, bias, cout, x, w9)
         out = conv3x3_bn_direct_planned(
             x, w9, scale, bias, relu, direct_plan(n, h, w, cin, cout, _build.sm_count(x.device)))
     return out[0] if squeeze else out
@@ -92,19 +104,24 @@ def conv3x3_bn_direct(x, w9, scale, bias, relu: bool = True) -> torch.Tensor:
 
 def conv3x3_bn_direct_planned(x, w9, scale, bias, relu: bool, plan: Plan) -> torch.Tensor:
     """conv3x3_bn_direct's launch on CUDA tensors under an explicit plan (the
-    wrapper passes direct_plan's; tools/chip_split_sweep.py times others).
-    x: (N, H, W, Cin); operands as conv3x3_bn_direct checks them."""
+    wrapper passes direct_plan's; tools/chip_split_sweep.py times others);
+    a bfloat16 w9 launches the bf16w instantiation, counted as
+    "direct_bf16w". x: (N, H, W, Cin); operands as conv3x3_bn_direct checks
+    them."""
     n, h, w, cin = x.shape
     cout = w9.shape[1]
     words = plan.workspace_words(n * h * w, cout)
     ws = torch.empty(words, device=x.device, dtype=torch.float32) if words else None
     out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
     c = _build.cint
+    bf16w = w9.dtype == torch.bfloat16
     _build.launch(
-        "direct", "direct_conv3x3_bn", (n, h, w, cin, cout, bool(relu)), x.device,
+        "direct", "direct_conv3x3_bn_bf16w" if bf16w else "direct_conv3x3_bn",
+        (n, h, w, cin, cout, bool(relu)), x.device,
         _build.ptr(x), _build.ptr(w9), _build.ptr(scale), _build.ptr(bias), _build.ptr(out),
         _build.ptr(ws) if ws is not None else ctypes.c_void_p(0), ctypes.c_longlong(words),
         ctypes.c_longlong(plan.counter_words()), c(n), c(h), c(w), c(cin), c(cout), c(relu),
         c(plan.tile), c(plan.splits), c(plan.chunk),
+        counter="direct_bf16w" if bf16w else None,
     )
     return out

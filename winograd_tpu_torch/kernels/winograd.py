@@ -8,13 +8,20 @@ winograd_plan; the plain
 twin does the same Winograd algebra on u with this package's transform
 matrices.
 
-A bfloat16 u (F(2,3) only) is the bf16-weight 3x3 of the int8 tier and of
-the bf16w tier's entry block, the JAX package's
-conv3x3_bn_winograd_pallas(precision="bf16w"): the kernel runs its algebra
-in FP64 and rounds each output once, and its plain twin
-(winograd2_mid_plain) does the algebra in float64, so the two agree to the
-bit, as the int8 layer it feeds needs (the JAX kernel's hi/lo split of V is
-within ~2^-17 of that).
+The wrapper's precision, as the stem's (kernels/stem.py), names the
+arithmetic of an F(2,3) on a bfloat16 u:
+
+* "bf16w", the bf16w tier's 3x3 (the JAX package's
+  conv3x3_bn_winograd_pallas(precision="bf16w"): ResNet-18/34's stride-1
+  3x3s and ResNet-50's entry-block 3x3 at bf16w): the f32 route's launch
+  and plan with the products on the bf16 tensor cores, V split into bf16
+  hi and lo halves (csrc/winograd.cu's bf16w entry); its plain twin is
+  conv3x3_bn_winograd_plain on the bf16 u (_position_products).
+* "bf16", the int8 tier's exact bf16-filter 3x3: the kernel runs its algebra
+  in FP64 and rounds each output once, and its plain twin
+  (winograd2_mid_plain) does the algebra in float64, so the two agree to
+  the bit, as the int8 layer it feeds needs (the JAX kernel's hi/lo split
+  of V is within ~2^-17 of that).
 """
 
 from __future__ import annotations
@@ -134,8 +141,9 @@ def conv3x3_bn_winograd_plain(x, u, scale, bias, relu: bool = True) -> torch.Ten
     """The Winograd algorithm in plain PyTorch: tiles, Bt d Bt^T, per-position
     products with u, At M At^T, crop, BN (+ReLU). x: (N, H, W, Cin). A
     bfloat16 u at F(2,3) runs the bf16w products (_position_products), the
-    arithmetic of the bf16w stage's F(2,3) mid (kernels/stage.py); the
-    per-layer op on a bfloat16 u is winograd2_mid_plain's."""
+    arithmetic of conv3x3_bn_winograd at "bf16w" and of the bf16w stage's
+    F(2,3) mid (kernels/stage.py); at "bf16" the op is
+    winograd2_mid_plain's."""
     m = tile_size(u)
     a = m + 2
     n, h, w, cin = x.shape
@@ -165,14 +173,27 @@ def winograd2_mid_plain(h, u2_bf16, scale, bias, relu: bool = True) -> torch.Ten
     return torch.relu(y) if relu else y
 
 
-def conv3x3_bn_winograd(x, u, scale, bias, relu: bool = True) -> torch.Tensor:
+# The wrapper's precisions: f32 u, and the two arithmetics of a bfloat16 u.
+PRECISIONS = ("f32", "bf16", "bf16w")
+
+
+def conv3x3_bn_winograd(x, u, scale, bias, relu: bool = True,
+                        precision: str = "f32") -> torch.Tensor:
     """Fused 3x3 conv + BN (+ReLU) via Winograd F(m,3).
 
-    x: (H, W, Cin) or (N, H, W, Cin); u: (a^2, Cin, Cout) from
+    x: (H, W, Cin) or (N, H, W, Cin) float32; u: (a^2, Cin, Cout) from
     transforms.transform_filter, m inferred from a^2 (36 -> F(4,3),
-    16 -> F(2,3)), float32, or bfloat16 at F(2,3) (the FP64 route of the
-    module docstring); scale, bias: (Cout,). CPU tensors run the plain
-    version; CUDA tensors launch csrc/winograd.cu."""
+    16 -> F(2,3)); scale, bias: (Cout,). precision (PRECISIONS): "f32" on a
+    float32 u; "bf16w" or "bf16" (the module docstring) on a bfloat16 u at
+    F(2,3); any other pairing is a ValueError. CPU tensors run the plain
+    version; CUDA tensors launch csrc/winograd.cu, counted as
+    "winograd_bf16w" at "bf16w"."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown Winograd precision {precision!r}; choose from {PRECISIONS}")
+    bf16 = u.dtype == torch.bfloat16
+    if bf16 != (precision != "f32"):
+        raise ValueError(f"u {u.dtype} at precision {precision!r}: a bfloat16 u takes "
+                         "precision 'bf16' or 'bf16w', a float32 u 'f32'")
     squeeze = x.dim() == 3
     if squeeze:
         x = x[None]
@@ -180,19 +201,20 @@ def conv3x3_bn_winograd(x, u, scale, bias, relu: bool = True) -> torch.Tensor:
     if u.shape[1] != cin:
         raise ValueError(f"u {tuple(u.shape)} does not take {cin} input channels")
     m = tile_size(u)
-    bf16 = u.dtype == torch.bfloat16
     if bf16 and m != 2:
         raise ValueError("a bfloat16 filter takes F(2,3) only (u of 16 positions)")
+    if precision == "bf16w":
+        _build.check_bf16w(x)
     if x.device.type == "cpu":
-        plain = winograd2_mid_plain if bf16 else conv3x3_bn_winograd_plain
+        plain = winograd2_mid_plain if precision == "bf16" else conv3x3_bn_winograd_plain
         out = plain(x, u, scale, bias, relu)
     else:
         cout = u.shape[2]
         _build.check_operands(scale, bias, cout, x)
-        _build.check_tensors(u, dtype=u.dtype if bf16 else torch.float32, device=x.device)
+        _build.check_tensors(u, dtype=torch.bfloat16 if bf16 else torch.float32, device=x.device)
         out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
-        c, ptr = _build.cint, _build.ptr
-        if bf16:
+        if precision == "bf16":
+            c, ptr = _build.cint, _build.ptr
             _build.launch(
                 "winograd", "winograd_conv3x3_bn_bf16", (n, h, w, cin, cout, m, bool(relu), "bf16"),
                 x.device, ptr(x), ptr(u), ptr(scale), ptr(bias), ptr(out),
@@ -206,10 +228,11 @@ def conv3x3_bn_winograd(x, u, scale, bias, relu: bool = True) -> torch.Tensor:
 
 def conv3x3_bn_winograd_planned(x, u, scale, bias, relu: bool, plan: WinogradPlan,
                                 out=None) -> torch.Tensor:
-    """conv3x3_bn_winograd's f32 launch on CUDA tensors under an explicit plan
-    (the wrapper passes winograd_plan's; tools/chip_split_sweep.py times
-    others). x: (N, H, W, Cin), u float32; operands as conv3x3_bn_winograd
-    checks them."""
+    """conv3x3_bn_winograd's tensor-core launch on CUDA tensors under an
+    explicit plan (the wrapper passes winograd_plan's; tools/
+    chip_split_sweep.py times others). x: (N, H, W, Cin); u float32, or
+    bfloat16 for the bf16w entry, counted as "winograd_bf16w"; operands as
+    conv3x3_bn_winograd checks them."""
     n, h, w, cin = x.shape
     m, cout = tile_size(u), u.shape[2]
     at = plan.workspace(winograd_tiles(n, h, w, m), cin, cout, (m + 2) ** 2)
@@ -217,11 +240,14 @@ def conv3x3_bn_winograd_planned(x, u, scale, bias, relu: bool, plan: WinogradPla
     if out is None:
         out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
     c, ptr = _build.cint, _build.ptr
+    bf16w = u.dtype == torch.bfloat16
     _build.launch(
-        "winograd", "winograd_conv3x3_bn", (n, h, w, cin, cout, m, bool(relu)), x.device,
+        "winograd", "winograd_conv3x3_bn_bf16w" if bf16w else "winograd_conv3x3_bn",
+        (n, h, w, cin, cout, m, bool(relu)), x.device,
         ptr(x), ptr(u), ptr(scale), ptr(bias), ptr(out), ptr(ws), ctypes.c_longlong(at.words),
         ctypes.c_longlong(at.v), ctypes.c_longlong(at.part), c(n), c(h), c(w), c(cin), c(cout),
         c(m), c(relu),
         c(WINOGRAD_TILE), c(plan.blocks), c(plan.splits), c(plan.chunk),
+        counter="winograd_bf16w" if bf16w else None,
     )
     return out

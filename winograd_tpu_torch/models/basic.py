@@ -1,5 +1,5 @@
 """The basic-block ResNet family (ResNet-18/34): stem, stages, head, at the
-f32 and the int8 tier.
+f32, the bf16w and the int8 tier.
 
 Port of winograd_tpu/models/basic.py (basicnet_forward_pallas,
 basicnet_forward_int8 and their parts) on the JAX package's routes, whose
@@ -19,6 +19,14 @@ At full-width ResNet-34 an f32 forward launches the stem 1, Winograd 24,
 pointwise 7 (three entries' strided convs and projections, the head),
 direct 1 (conv5_x's entry b-leg at 7x7) and basic_stage 1 (conv5_x's two
 identity blocks) times.
+
+basicnet_forward(precision="bf16w") is the bf16w tier,
+basicnet_forward_pallas(precision="bf16w"), on parameters from
+convert.py::cast_basicnet_bf16w (bfloat16 weights, f32 BN): the same
+routes through the kernels' bf16w instantiations, each F(2,3) on the
+bf16 tensor cores (kernels/winograd.py's "bf16w"). At full-width ResNet-34:
+stem_bf16w 1, winograd_bf16w 24, pointwise_bf16w 7, direct_bf16w 1 and
+basic_stage_bf16w 1 (ResNet-18: winograd_bf16w 10).
 
 The int8 tier (quantize_basicnet, basicnet_forward_int8) runs the stem at
 bf16 and routes each stride-1 3x3 above SMALL_MAP_PIXELS by its width: up
@@ -57,14 +65,17 @@ from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
 from winograd_tpu_torch.models.convert import (
     basic_block_views,
     basicnet_params_from_jax,
+    cast_basicnet_bf16w,
     stem_filter_s2d,
 )
+from winograd_tpu_torch.models.resnet import check_precision
 from winograd_tpu_torch.models.resnet50 import _bn, _images, _rand, head, head_int8, stem
 
 __all__ = [
     "FUSED_STAGE_MIN_CHANNELS", "INT8_BF16_MAX_COUT", "SMALL_MAP_PIXELS",
     "attach_fused_stage_artifacts", "basic_block", "basic_block_int8", "basicnet_forward",
-    "basicnet_forward_int8", "basicnet_params", "basicnet_stages", "downsample_basic_block",
+    "basicnet_forward_int8", "basicnet_params", "basicnet_stages", "cast_basicnet_bf16w",
+    "downsample_basic_block",
     "downsample_basic_block_int8", "fused_stage_eligible", "init_basicnet_arrays",
     "quantize_basicnet",
 ]
@@ -90,30 +101,35 @@ def _small_map(x: torch.Tensor) -> bool:
     return x.shape[-3] * x.shape[-2] <= SMALL_MAP_PIXELS
 
 
-def _conv3x3(x, p: Dict, leg: str, relu: bool) -> torch.Tensor:
+def _conv3x3(x, p: Dict, leg: str, relu: bool, precision: str = "f32") -> torch.Tensor:
     """Stride-1 3x3 + BN (+ReLU): F(2,3) on u2_<leg>, or direct on w9_<leg>
-    where the map is small and the block has it (or u2_<leg> is absent)."""
+    where the map is small and the block has it (or u2_<leg> is absent); at
+    `precision` ("f32", or "bf16w" on bfloat16 filters)."""
     if f"u2_{leg}" in p and not (_small_map(x) and f"w9_{leg}" in p):
-        return conv3x3_bn_winograd(x, p[f"u2_{leg}"], p[f"s_{leg}"], p[f"b_{leg}"], relu)
-    return conv3x3_bn_direct(x, p[f"w9_{leg}"], p[f"s_{leg}"], p[f"b_{leg}"], relu)
+        return conv3x3_bn_winograd(x, p[f"u2_{leg}"], p[f"s_{leg}"], p[f"b_{leg}"], relu,
+                                   precision)
+    w9 = p[f"w9_{leg}"]
+    check_precision(precision, w9)
+    return conv3x3_bn_direct(x, w9, p[f"s_{leg}"], p[f"b_{leg}"], relu)
 
 
-def basic_block(x: torch.Tensor, params: Dict) -> torch.Tensor:
+def basic_block(x: torch.Tensor, params: Dict, precision: str = "f32") -> torch.Tensor:
     """Identity basic block: 3x3 + BN + ReLU -> 3x3 + BN -> add skip -> ReLU.
     x: (N, H, W, C)."""
-    h = _conv3x3(x, params, "a", True)
-    h = _conv3x3(h, params, "b", False)
+    h = _conv3x3(x, params, "a", True, precision)
+    h = _conv3x3(h, params, "b", False, precision)
     return torch.relu(h + x)
 
 
-def downsample_basic_block(x: torch.Tensor, params: Dict) -> torch.Tensor:
+def downsample_basic_block(x: torch.Tensor, params: Dict, precision: str = "f32") -> torch.Tensor:
     """Stride-2 entry basic block: stride-2 3x3 (+BN+ReLU) -> 3x3 (+BN), a
     stride-2 1x1 projection shortcut (+BN); add -> ReLU. w9_a is the
     (9*Cin, Cout) layout of the strided conv; w_proj (Cin, Cout), s_proj,
     b_proj."""
     p = params
+    check_precision(precision, p["w9_a"], p["w_proj"])
     h = conv1x1_bn(strided_im2col(x), p["w9_a"], p["s_a"], p["b_a"], relu=True)
-    h = _conv3x3(h, p, "b", False)
+    h = _conv3x3(h, p, "b", False, precision)
     skip = conv1x1_bn(x[:, ::2, ::2, :].contiguous(), p["w_proj"], p["s_proj"], p["b_proj"],
                       relu=False)
     return torch.relu(h + skip)
@@ -144,30 +160,36 @@ def attach_fused_stage_artifacts(params: Dict,
     return params
 
 
-def basicnet_stages(x: torch.Tensor, stages: List[Dict]) -> torch.Tensor:
+def basicnet_stages(x: torch.Tensor, stages: List[Dict], precision: str = "f32") -> torch.Tensor:
     """Each stage: its optional stride-2 "entry" block, then its identity
     "blocks", in one basic-stage launch when the stage carries "fused" and
-    the map is small."""
+    the map is small; at `precision` ("f32", or "bf16w" on bfloat16
+    weights)."""
     for st in stages:
         if st.get("entry") is not None:
-            x = downsample_basic_block(x, st["entry"])
+            x = downsample_basic_block(x, st["entry"], precision)
         if st.get("fused") is not None and _small_map(x):
+            check_precision(precision, st["fused"]["w9_a"], st["fused"]["w9_b"])
             x = basic_stage_fused(x, st["fused"])
         else:
             for b in st["blocks"]:
-                x = basic_block(x, b)
+                x = basic_block(x, b, precision)
     return x
 
 
-def basicnet_forward(x, params: Dict, device="cuda") -> torch.Tensor:
-    """Logits of image(s) x, (H, W, 3) or (N, H, W, 3), in the dtype of the
-    params, which must live on `device`. CUDA runs the kernels; the CPU
-    (only on request) runs their plain versions."""
+def basicnet_forward(x, params: Dict, device="cuda", precision: str = "f32") -> torch.Tensor:
+    """Logits of image(s) x, (H, W, 3) or (N, H, W, 3), on params that live
+    on `device`. precision "f32": in the dtype of the params; "bf16w": the
+    bf16w tier on parameters from cast_basicnet_bf16w (bfloat16 weights,
+    float32 activations and BN), a ValueError on any other weights. CUDA
+    runs the kernels; the CPU (only on request) runs their plain
+    versions."""
     device = _build.require_device(device)
-    x, squeeze = _images(x, params["head"]["w_fc"].dtype, device)
-    h = stem(x, params["stem"])
-    h = basicnet_stages(h, params["stages"])
-    logits = head(h, params["head"])
+    dtype = torch.float32 if precision == "bf16w" else params["head"]["w_fc"].dtype
+    x, squeeze = _images(x, dtype, device)
+    h = stem(x, params["stem"], precision)
+    h = basicnet_stages(h, params["stages"], precision)
+    logits = head(h, params["head"], precision)
     return logits[0] if squeeze else logits
 
 
@@ -230,7 +252,8 @@ def _conv3x3_int8(x, p: Dict, leg: str, relu: bool) -> torch.Tensor:
     """The int8 tier's stride-1 3x3, routed by map size and width."""
     if not _small_map(x):
         if p[f"s_{leg}"].shape[0] <= INT8_BF16_MAX_COUT and f"u2_{leg}_bf16" in p:
-            return conv3x3_bn_winograd(x, p[f"u2_{leg}_bf16"], p[f"s_{leg}"], p[f"b_{leg}"], relu)
+            return conv3x3_bn_winograd(x, p[f"u2_{leg}_bf16"], p[f"s_{leg}"], p[f"b_{leg}"], relu,
+                                       "bf16")
         if f"u2_{leg}_q" in p:
             return conv3x3_bn_winograd_int8(x, p[f"u2_{leg}_q"], p[f"u2_{leg}_s"],
                                             p[f"s_{leg}"], p[f"b_{leg}"], relu)

@@ -22,6 +22,8 @@ cast_bf16w turns the port's f32 ResNet-50 parameters into the bf16w tier's:
 every weight bfloat16, every BN scale and bias float32, and each stage that
 the bf16w gate fuses stacked once.
 
+cast_basicnet_bf16w does the same for the basic family's f32 parameters.
+
 basicnet_params_from_jax and qbasicnet_params_from_jax do the same for the
 basic family (ResNet-18/34, winograd_tpu/models/basic.py::basicnet_params
 and ::quantize_basicnet): a stage that carries the stacked "fused" artifact
@@ -144,6 +146,27 @@ def cast_bf16w(params: Dict) -> Dict:
         })
     return {"stem": _bf16w_layer(params["stem"]), "proj": _bf16w_layer(params["proj"]),
             "stages": stages, "head": _bf16w_layer(params["head"])}
+
+
+def cast_basicnet_bf16w(params: Dict) -> Dict:
+    """The port's f32 basic-family parameters (ResNet-18/34, models/basic.py::
+    basicnet_params) -> the bf16w tier's, for basicnet_forward(precision=
+    "bf16w"): every w_*, w9_*, u2_*, w192_stem and w_fc rounded to bfloat16
+    (torch's round to nearest even, the JAX package's astype(jnp.bfloat16)
+    to the bit), BN scales and biases float32. A stage with the "fused"
+    artifact gets it stacked once in bfloat16 (stack_basic_stage_params),
+    its blocks' tensors of the stack's keys as views."""
+    stages = []
+    for st in params["stages"]:
+        entry = st.get("entry")
+        out = {"entry": None if entry is None else _bf16w_layer(entry),
+               "blocks": [_bf16w_layer(b) for b in st["blocks"]]}
+        if st.get("fused") is not None:
+            out["fused"] = stack_basic_stage_params(out["blocks"])
+            out["blocks"] = basic_block_views(out["fused"], out["blocks"])
+        stages.append(out)
+    return {"stem": _bf16w_layer(params["stem"]), "stages": stages,
+            "head": _bf16w_layer(params["head"])}
 
 
 def stages_from_jax(stages: List[Dict], device="cuda", dtype=torch.float32) -> List[Dict]:

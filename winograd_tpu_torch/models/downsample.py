@@ -47,11 +47,12 @@ def projection_bottleneck_block(x: torch.Tensor, params: Dict,
     """Stride-1 projection bottleneck (conv2_x's entry): 1x1 reduce -> F(2,3)
     3x3 -> 1x1 expand, plus a 1x1 projection shortcut; add, ReLU. At
     "bf16w" the 1x1s run the pointwise kernel's bf16w instantiation and the
-    3x3 the F(2,3) on bf16 filters (kernels/winograd.py)."""
+    3x3 the Winograd's (kernels/winograd.py's "bf16w")."""
     p = params
     check_precision(precision, p["w_reduce"], p["u2_mid"], p["w_expand"], p["w_proj"])
     h = conv1x1_bn(x, p["w_reduce"], p["s_reduce"], p["b_reduce"], relu=True)
-    h = conv3x3_bn_winograd(h, p["u2_mid"], p["s_mid"], p["b_mid"], relu=True)
+    h = conv3x3_bn_winograd(h, p["u2_mid"], p["s_mid"], p["b_mid"], relu=True,
+                            precision=precision)
     h = conv1x1_bn(h, p["w_expand"], p["s_expand"], p["b_expand"], relu=False)
     skip = conv1x1_bn(x, p["w_proj"], p["s_proj"], p["b_proj"], relu=False)
     return torch.relu(h + skip)

@@ -13,7 +13,7 @@ resnet50_forward_pallas(precision="bf16w"), on parameters from
 convert.py::cast_bf16w (bfloat16 weights, f32 BN): the kernels' bf16w
 instantiations, with the bf16w stage gate fusing every identity run. Per
 forward: the stem at bf16w 1; the projection block pointwise 3 and the
-F(2,3) on bf16 filters 1; the transition kernel 3; the stage kernel 4
+Winograd F(2,3) at bf16w 1; the transition kernel 3; the stage kernel 4
 (conv5_x too); the head pointwise 1. 13 launches in all.
 
 resnet50_forward_int8 is the port of resnet50_forward_int8, the int8
