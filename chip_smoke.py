@@ -104,7 +104,9 @@ Phases, each of which must pass (exit 1 otherwise):
    "chunk" of K an item stages at once);
    device times of the kernel, its plain version and the library call (20
    calls captured in a CUDA graph, the median of 20 replays between CUDA
-   events, divided by 20; inputs stay in L2 between calls); "wrapper_ms",
+   events, divided by 20: winograd_tpu_torch/utils/timing.py::bench_graph,
+   which the benchmark CLI times with too; inputs stay in L2 between
+   calls); "wrapper_ms",
    one eager wrapper call
    between CUDA events, host path included (median of 20 after 2
    warm-ups); and the bound: the larger of the operations' time and the
@@ -132,6 +134,16 @@ Phases, each of which must pass (exit 1 otherwise):
    Winograd's V per position) before the timed region, summed over the
    kernel's GEMMs, rows padded to 32 where P <= 16 (the call refuses fewer
    than 17), and torch.bmm in bf16 for the F(2,3) mid's products.
+11a. bench: the benchmark CLI (python -m winograd_tpu_torch.bench) through
+   its run_case, strict, at the reference's protocol (100 iterations, 2
+   warm-ups), for modes 0-6, 9, 11 and 22 (BENCH_MODES): the seeded case
+   and its float64 golden (datagen), the in-house kernels, the cuDNN
+   baseline with TF32 off, and the direct, F(4,3), int8 and bf16w columns
+   where the mode has them. One JSON line per mode: its device times
+   (bench_graph), host mean and chained times, max errors, tier errors,
+   parity_ok and the launches by kernel of the run (counters zeroed just
+   before it). A breach, TF32 on, or a path of the mode with no device time
+   fails the run.
 12. a "kernels" JSON line (per-image sums over each path's shapes, both
    models and all tiers; the stem row sums its f32 and bf16 shapes, the
    Winograd row its f32 and bf16-filter shapes; the bf16w instantiations
@@ -224,6 +236,9 @@ SOURCES.update({f"{name}_bf16w": SOURCES[name] for name in BF16W})
 # WINO_INT8_CHUNK): nine 128-channel groups, and the stash over 2048
 # channels. Checked against the twin like every shape, counted in no image.
 WIDE_WINOGRAD_INT8 = [(1, 14, 14, 1152, 128, True), (1, 14, 14, 2048, 256, True)]
+# The benchmark CLI's modes run in the bench phase: the reference's six
+# layer cases, a block at two geometries, a transition and the stem.
+BENCH_MODES = (0, 1, 2, 3, 4, 5, 6, 9, 11, 22)
 # The twin's arithmetic (quantized once a row, exact int32 sums, epilogues
 # rounded as the twin rounds, the int8 Winograd's transforms in FP64 rounded
 # once): the kernel equals its twin. So do the stem and the Winograd at
@@ -276,6 +291,7 @@ def main() -> int:
     from winograd_tpu_torch.config import (
         BF16W_RTOL_BACKBONE, INT8_RTOL_BACKBONE, ResNet34Config, ResNet50Config,
     )
+    from winograd_tpu_torch.bench.cli import run_case
     from winograd_tpu_torch.engine import ResNet50Engine, ResNetBasicEngine
     from winograd_tpu_torch.kernels import _build, transforms
     from winograd_tpu_torch.kernels import basic_stage as bs
@@ -300,10 +316,12 @@ def main() -> int:
         init_basicnet_arrays, quantize_basicnet,
     )
     from winograd_tpu_torch.models.convert import cast_bf16w, params_from_jax, stem_filter_s2d
+    from winograd_tpu_torch.utils.checker import ParityError
     from winograd_tpu_torch.models.resnet50 import (
         init_resnet50_arrays, init_resnet50_params, quantize_resnet50, resnet50_forward,
         resnet50_forward_int8,
     )
+    from winograd_tpu_torch.utils.timing import bench_graph
 
     dev = torch.device("cuda", 0)
     failures = []
@@ -343,29 +361,10 @@ def main() -> int:
         torch.cuda.synchronize()
         return statistics.median(a.elapsed_time(b) for a, b in pairs)
 
-    def device_ms(fn, calls=20, reps=20, warmup=2):
-        """Device time per call: `calls` calls captured in one CUDA graph,
-        the median of `reps` replays between two events, over `calls`."""
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            for _ in range(warmup):
-                fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(calls):
-                fn()
-        graph.replay()
-        pairs = []
-        for _ in range(reps):
-            a, b = events()
-            a.record()
-            graph.replay()
-            b.record()
-            pairs.append((a, b))
-        torch.cuda.synchronize()
-        return statistics.median(a.elapsed_time(b) for a, b in pairs) / calls
+    def device_ms(fn):
+        """Device time per call: 20 calls captured in one CUDA graph, the
+        median of 20 replays between two events, over 20 (bench_graph)."""
+        return bench_graph(fn) / 1e3
 
     def bound(work, nbytes):
         """work: operations by peak rate ({rate: count}). Returns the
@@ -1082,6 +1081,28 @@ def main() -> int:
                 tot[key] += n_img * v
         tot["library_ok"] = lib_ok
         totals[name] = tot
+
+    # -- the benchmark CLI's modes on the card -------------------------------
+    for mode in BENCH_MODES:
+        _build.reset_counts()
+        try:
+            row = run_case(mode)
+        except (ParityError, RuntimeError) as e:
+            check(False, f"bench mode {mode}: {type(e).__name__}: {e}")
+            continue
+        launches = dict(_build.LAUNCHES)
+        has = {"cuda": True, "cudnn": True, "int8": True, "bf16w": True,
+               "direct": row["max_error_direct"] is not None,
+               "winograd_f43": row["max_error_winograd_f43"] is not None}
+        untimed = [p for p, on in has.items() if on and row[f"{p}_device_us"] is None]
+        check(row["parity_ok"] and not row["tf32"] and not untimed,
+              f"bench mode {mode}: parity_ok {row['parity_ok']}, tf32 {row['tf32']}, "
+              f"paths with no device time {untimed}")
+        print(json.dumps({"phase": "bench", **{
+            k: v for k, v in row.items()
+            if k in ("mode", "name", "parity_ok", "tf32") or k.endswith(
+                ("_device_us", "_mean_us", "_chained_us", "_rel_error"))
+            or k.startswith("max_error_")}, "launches": launches}), flush=True)
 
     kernels = []
     for name, tot in totals.items():

@@ -1032,3 +1032,44 @@ def test_bf16w_refuses_an_activation_that_is_not_f32(dev):
                     bs.stack_basic_stage_params(_basic_blocks(rng, 1, 16)).items()})
     with pytest.raises(ValueError, match="float32 activation"):
         bs.basic_stage_fused(x.double(), basic)
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4, 5])
+def test_bench_run_case_is_strict_and_in_parity(dev, mode):
+    """The benchmark CLI's layer modes on the card: every path within its
+    bar of the float64 golden (strict: a breach raises), TF32 off, and a
+    device time from graph replays for every path the mode has."""
+    from winograd_tpu_torch.bench.cli import run_case
+
+    r = run_case(mode, iterations=5, warmup=1)
+    assert r["parity_ok"] and r["tf32"] is False and r["backend"] == "cuda"
+    assert r["max_error_cudnn"] <= 1e-4
+    for path in ("cuda", "cudnn", "int8", "bf16w") + (("direct", "winograd_f43")
+                                                     if mode < 2 else ()):
+        assert r[f"{path}_device_us"] > 0, path
+
+
+def test_bench_graph_agrees_with_eager_event_timing(dev):
+    """bench_graph's device time per call is within 20% of 20 eager calls
+    back to back between two CUDA events, for a kernel long enough (about a
+    millisecond) that the host's launch time hides behind it."""
+    from winograd_tpu_torch.utils.timing import bench_graph
+
+    rng = np.random.default_rng(6)
+    x, w = _r(rng, dev, 25088, 1024), _r(rng, dev, 1024, 1024)
+    s, b = _bn(rng, dev, 1024)
+
+    def call():
+        return conv1x1_bn(x, w, s, b, True)
+
+    graph_us = bench_graph(call)
+    for _ in range(3):
+        call()
+    a, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(20):
+        call()
+    e.record()
+    torch.cuda.synchronize()
+    eager_us = 1e3 * a.elapsed_time(e) / 20
+    assert abs(graph_us - eager_us) <= 0.2 * eager_us, (graph_us, eager_us)

@@ -69,6 +69,12 @@ def test_entry_points_refuse_cpu_unless_asked():
         ResNet50Engine({})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resnet50_forward(torch.zeros(32, 32, 3), {"head": {"w_fc": torch.zeros(1, 1)}})
+    from winograd_tpu_torch.bench.cli import main, run_case
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_case(0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["0"])
 
 
 def test_kernel_wrappers_reject_non_cpu_non_cuda_tensors():

@@ -27,6 +27,13 @@ stage and transition kernels, on the int8 tensor cores (csrc/mma_int8.cuh).
 The basic-block family (ResNet-18/34, models/basic.py) adds the f32 and
 int8 basic stages (kernels/basic_stage.py) and the int8 Winograd F(2,3).
 
+The benchmark CLI (python -m winograd_tpu_torch.bench, bench/cli.py) runs
+the JAX package's benchmark modes on the card: seeded cases and float64
+goldens (datagen/, ops/reference.py, config.py's CASES), the kernels beside
+the cuDNN baseline (baseline/cudnn.py), the reference's timing protocol and
+CUDA-graph device times (utils/timing.py), each path checked against the
+golden (utils/checker.py).
+
 Every kernel wrapper runs its plain PyTorch version for tensors on the CPU
 (the tests) and launches the kernel for CUDA tensors; there is no fallback
 between the two. The package imports neither jax nor winograd_tpu; the JAX

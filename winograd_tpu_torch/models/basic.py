@@ -43,14 +43,20 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from winograd_tpu_torch.kernels import _build, transforms
+from winograd_tpu_torch.datagen.generate import (
+    _basic_block_params_random,
+    _basic_entry_params_random,
+    _bn_params,
+    _rand,
+)
+from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.basic_stage import (
     basic_stage_fused,
     basic_stage_int8,
     quantize_basic_stage_params,
     stack_basic_stage_params,
 )
-from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct, direct_filter
+from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
 from winograd_tpu_torch.kernels.quantized import (
     _numpy,
@@ -66,14 +72,16 @@ from winograd_tpu_torch.models.convert import (
     basic_block_views,
     basicnet_params_from_jax,
     cast_basicnet_bf16w,
+    stem_filter,
     stem_filter_s2d,
 )
 from winograd_tpu_torch.models.resnet import check_precision
-from winograd_tpu_torch.models.resnet50 import _bn, _images, _rand, head, head_int8, stem
+from winograd_tpu_torch.models.resnet50 import _images, head, head_int8, stem
 
 __all__ = [
     "FUSED_STAGE_MIN_CHANNELS", "INT8_BF16_MAX_COUT", "SMALL_MAP_PIXELS",
-    "attach_fused_stage_artifacts", "basic_block", "basic_block_int8", "basicnet_forward",
+    "attach_fused_stage_artifacts", "basic_block", "basic_block_int8", "basicnet_arrays",
+    "basicnet_forward",
     "basicnet_forward_int8", "basicnet_params", "basicnet_stages", "cast_basicnet_bf16w",
     "downsample_basic_block",
     "downsample_basic_block_int8", "fused_stage_eligible", "init_basicnet_arrays",
@@ -302,35 +310,6 @@ def basicnet_forward_int8(x, qparams: Dict, device="cuda") -> torch.Tensor:
 # --- seeded parameters ----------------------------------------------------------
 
 
-def stem_filter(w7: np.ndarray) -> np.ndarray:
-    """(Cout, Cin, 7, 7) OIHW -> (49*Cin, Cout) im2col layout, row
-    (7r + s) * Cin + c (the JAX package's stem_filter; the port's stem runs
-    stem_filter_s2d's layout)."""
-    cout, cin = w7.shape[0], w7.shape[1]
-    return np.transpose(np.asarray(w7), (2, 3, 1, 0)).reshape(49 * cin, cout)
-
-
-def _basic_block_arrays(rng, c: int, bn_scale: float) -> Dict[str, np.ndarray]:
-    out = {}
-    for leg in ("a", "b"):
-        w = _rand(rng, c, c, 3, 3)
-        s, b = _bn(rng, c, bn_scale)
-        out.update({f"w_{leg}": w, f"u2_{leg}": transforms.transform_filter(w, m=2),
-                    f"w9_{leg}": direct_filter(w), f"s_{leg}": s, f"b_{leg}": b})
-    return out
-
-
-def _basic_entry_arrays(rng, cin: int, cout: int, bn_scale: float) -> Dict[str, np.ndarray]:
-    w_a = _rand(rng, cout, cin, 3, 3)
-    s_a, b_a = _bn(rng, cout, bn_scale)
-    w_b = _rand(rng, cout, cout, 3, 3)
-    s_b, b_b = _bn(rng, cout, bn_scale)
-    s_p, b_p = _bn(rng, cout, bn_scale)
-    return dict(w_a=w_a, w9_a=direct_filter(w_a), s_a=s_a, b_a=b_a,
-                w_b=w_b, u2_b=transforms.transform_filter(w_b, m=2), w9_b=direct_filter(w_b),
-                s_b=s_b, b_b=b_b, w_proj=_rand(rng, cin, cout), s_proj=s_p, b_proj=b_p)
-
-
 def init_basicnet_arrays(cfg, seed: int = 0) -> Dict[str, np.ndarray]:
     """The seeded image "x" and every parameter of the basic-family model as
     one flat dict of numpy arrays, the same draws, in the same order, under
@@ -343,17 +322,17 @@ def init_basicnet_arrays(cfg, seed: int = 0) -> Dict[str, np.ndarray]:
     shape = (cfg.img, cfg.img, 3) if cfg.batch == 1 else (cfg.batch, cfg.img, cfg.img, 3)
     case = {"x": _rand(rng, *shape)}
     w7 = _rand(rng, cfg.stem_c, 3, 7, 7)
-    s_stem, b_stem = _bn(rng, cfg.stem_c, 0.5)
+    bn_stem = _bn_params(rng, cfg.stem_c, scale=0.5)
     case.update(stem_w7=w7, stem_w49=stem_filter(w7), stem_w192=stem_filter_s2d(w7),
-                stem_scale=s_stem, stem_bias=b_stem)
+                stem_scale=bn_stem["scale"], stem_bias=bn_stem["bias"])
     prev = cfg.stem_c
     for si, (c, _hw, blocks) in enumerate(cfg.stages):
         if prev != c:
-            e = _basic_entry_arrays(rng, prev, c, 0.5)
+            e = _basic_entry_params_random(rng, prev, c, bn_scale=0.5)
             case.update({f"t{si}_{k}": v for k, v in e.items()})
             blocks -= 1
         for bi in range(blocks):
-            b = _basic_block_arrays(rng, c, 0.5)
+            b = _basic_block_params_random(rng, c, bn_scale=0.5)
             case.update({f"s{si}_b{bi}_{k}": v for k, v in b.items()})
         prev = c
     c_last = cfg.stages[-1][0]
@@ -362,15 +341,12 @@ def init_basicnet_arrays(cfg, seed: int = 0) -> Dict[str, np.ndarray]:
     return case
 
 
-def basicnet_params(case: Dict[str, np.ndarray], cfg, device="cuda",
-                    dtype=torch.float32) -> Dict:
-    """The nested forward parameters {"stem", "stages", "head"} from a flat
-    case dict (init_basicnet_arrays, or the JAX package's
-    make_basicnet_case), on `device` in `dtype`, with the fused artifacts
-    attached (attach_fused_stage_artifacts). The port of the JAX package's
-    basicnet_params."""
-    device = _build.require_device(device)
-
+def basicnet_arrays(case: Dict[str, np.ndarray], cfg) -> Dict:
+    """The nested parameter tree {"stem", "stages", "head"}, numpy arrays
+    with the raw filters, from a flat case dict (init_basicnet_arrays, or
+    datagen's make_basicnet_case): the JAX package's basicnet_params before
+    its fused artifacts. The cuDNN baseline (baseline/cudnn.py) runs it as
+    it is."""
     def sub(prefix):
         return {k[len(prefix):]: v for k, v in case.items() if k.startswith(prefix)}
 
@@ -381,11 +357,22 @@ def basicnet_params(case: Dict[str, np.ndarray], cfg, device="cuda",
             blocks.append(sub(f"s{si}_b{bi}_"))
             bi += 1
         stages.append({"entry": sub(f"t{si}_") or None, "blocks": blocks})
-    tree = {
+    return {
         "stem": {"w49_stem": case["stem_w49"], "w7_stem": case["stem_w7"],
                  "w192_stem": case.get("stem_w192", stem_filter_s2d(case["stem_w7"])),
                  "s_stem": case["stem_scale"], "b_stem": case["stem_bias"]},
         "stages": stages,
         "head": {"w_fc": case["head_wfc"], "b_fc": case["head_bfc"]},
     }
-    return attach_fused_stage_artifacts(basicnet_params_from_jax(tree, device, dtype))
+
+
+def basicnet_params(case: Dict[str, np.ndarray], cfg, device="cuda",
+                    dtype=torch.float32) -> Dict:
+    """The nested forward parameters {"stem", "stages", "head"} from a flat
+    case dict (init_basicnet_arrays, or datagen's make_basicnet_case), on
+    `device` in `dtype`, with the fused artifacts attached
+    (attach_fused_stage_artifacts). The port of the JAX package's
+    basicnet_params."""
+    device = _build.require_device(device)
+    return attach_fused_stage_artifacts(
+        basicnet_params_from_jax(basicnet_arrays(case, cfg), device, dtype))

@@ -20,7 +20,9 @@ stacked once.
 
 cast_bf16w turns the port's f32 ResNet-50 parameters into the bf16w tier's:
 every weight bfloat16, every BN scale and bias float32, and each stage that
-the bf16w gate fuses stacked once.
+the bf16w gate fuses stacked once (cast_stages_bf16w casts stages alone,
+cast_layer_bf16w one layer; stages_from_jax and transition_from_jax convert
+the JAX package's stages and transitions alone).
 
 cast_basicnet_bf16w does the same for the basic family's f32 parameters.
 
@@ -71,6 +73,14 @@ def stem_filter_s2d(w7: np.ndarray, dtype=np.float32) -> np.ndarray:
     return out
 
 
+def stem_filter(w7: np.ndarray) -> np.ndarray:
+    """(Cout, Cin, 7, 7) OIHW -> (49*Cin, Cout) im2col layout, row
+    (7r + s) * Cin + c (the JAX package's stem_filter; the port's stem runs
+    stem_filter_s2d's layout)."""
+    cout, cin = w7.shape[0], w7.shape[1]
+    return np.transpose(np.asarray(w7), (2, 3, 1, 0)).reshape(49 * cin, cout)
+
+
 def _layer(tree: Dict, keys, np_dtype, device, dtype) -> Dict[str, torch.Tensor]:
     arrays = dict(tree)
     if "w_mid" in arrays:
@@ -97,6 +107,14 @@ def _block_views(stacked: Dict[str, torch.Tensor]) -> List[Dict[str, torch.Tenso
     ]
 
 
+def transition_from_jax(tree: Dict, device="cuda", dtype=torch.float32) -> Dict[str, torch.Tensor]:
+    """One transition block of the JAX package (numpy arrays, raw w_mid or
+    w9_mid) -> the port's transition parameters on `device`, with the fused
+    wep/bep."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return _transition(tree, np_dtype, device, dtype)
+
+
 def _stage(tree: Dict, np_dtype, device, dtype) -> Dict:
     blocks = [_layer(b, BLOCK_KEYS, np_dtype, device, dtype) for b in tree["blocks"]]
     stacked = None
@@ -117,35 +135,46 @@ def _is_weight(key: str) -> bool:
     return key.startswith(("w_", "w9_", "u2_", "w192_")) or key == "wep"
 
 
-def _bf16w_layer(layer: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def cast_layer_bf16w(layer: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """One layer's (or block's) parameters at the bf16w tier: each weight
+    (_is_weight) bfloat16, the rest as it is."""
     return {k: v.to(torch.bfloat16).contiguous() if _is_weight(k) else v
             for k, v in layer.items()}
 
 
-def cast_bf16w(params: Dict) -> Dict:
-    """The port's f32 ResNet-50 parameters -> the bf16w tier's, for
-    resnet50_forward(precision="bf16w"): every weight rounded to bfloat16
-    (torch's round to nearest even, the JAX package's
-    jnp.asarray(w).astype(jnp.bfloat16) to the bit; the transitions' wep
-    folded in float32 first, as the JAX kernel folds), BN scales and biases
-    float32. Each stage that stage_algo's bf16w gate fuses, conv5_x and
-    single-block stages included, gets its blocks stacked once, the blocks'
-    tensors as views."""
-    stages = []
-    for st in params["stages"]:
-        blocks = [_bf16w_layer({k: b[k] for k in BLOCK_KEYS}) for b in st["blocks"]]
+def cast_stages_bf16w(stages: List[Dict]) -> List[Dict]:
+    """The port's f32 bottleneck stages (stages_from_jax) -> the bf16w tier's,
+    for models/downsample.py::resnet50_stages(precision="bf16w"): every
+    weight rounded to bfloat16 (torch's round to nearest even, the JAX
+    package's jnp.asarray(w).astype(jnp.bfloat16) to the bit; the
+    transitions' wep folded in float32 first, as the JAX kernel folds), BN
+    scales and biases float32. Each stage that stage_algo's bf16w gate
+    fuses, conv5_x and single-block stages included, gets its blocks
+    stacked once, the blocks' tensors as views."""
+    out = []
+    for st in stages:
+        blocks = [cast_layer_bf16w({k: b[k] for k in BLOCK_KEYS}) for b in st["blocks"]]
         stacked = None
         if stage_algo(blocks, "bf16w") == "fused_stage":
             stacked = stack_stage_params(blocks)
             blocks = _block_views(stacked)
         transition = st.get("transition")
-        stages.append({
-            "transition": None if transition is None else _bf16w_layer(transition),
+        out.append({
+            "transition": None if transition is None else cast_layer_bf16w(transition),
             "blocks": blocks,
             "stacked": stacked,
         })
-    return {"stem": _bf16w_layer(params["stem"]), "proj": _bf16w_layer(params["proj"]),
-            "stages": stages, "head": _bf16w_layer(params["head"])}
+    return out
+
+
+def cast_bf16w(params: Dict) -> Dict:
+    """The port's f32 ResNet-50 parameters -> the bf16w tier's, for
+    resnet50_forward(precision="bf16w"): the stem, the projection block and
+    the head as cast_layer_bf16w casts a layer, the stages as
+    cast_stages_bf16w casts them."""
+    return {"stem": cast_layer_bf16w(params["stem"]), "proj": cast_layer_bf16w(params["proj"]),
+            "stages": cast_stages_bf16w(params["stages"]),
+            "head": cast_layer_bf16w(params["head"])}
 
 
 def cast_basicnet_bf16w(params: Dict) -> Dict:
@@ -159,14 +188,14 @@ def cast_basicnet_bf16w(params: Dict) -> Dict:
     stages = []
     for st in params["stages"]:
         entry = st.get("entry")
-        out = {"entry": None if entry is None else _bf16w_layer(entry),
-               "blocks": [_bf16w_layer(b) for b in st["blocks"]]}
+        out = {"entry": None if entry is None else cast_layer_bf16w(entry),
+               "blocks": [cast_layer_bf16w(b) for b in st["blocks"]]}
         if st.get("fused") is not None:
             out["fused"] = stack_basic_stage_params(out["blocks"])
             out["blocks"] = basic_block_views(out["fused"], out["blocks"])
         stages.append(out)
-    return {"stem": _bf16w_layer(params["stem"]), "stages": stages,
-            "head": _bf16w_layer(params["head"])}
+    return {"stem": cast_layer_bf16w(params["stem"]), "stages": stages,
+            "head": cast_layer_bf16w(params["head"])}
 
 
 def stages_from_jax(stages: List[Dict], device="cuda", dtype=torch.float32) -> List[Dict]:

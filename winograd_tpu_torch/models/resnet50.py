@@ -31,8 +31,15 @@ from typing import Dict
 import numpy as np
 import torch
 
-from winograd_tpu_torch.config import BN_EPS
-from winograd_tpu_torch.kernels import _build, transforms
+from winograd_tpu_torch.config import TransitionConfig
+from winograd_tpu_torch.datagen.generate import (
+    _block_params_random,
+    _bn_params,
+    _rand,
+    _transition_params_random,
+    backbone_stages,
+)
+from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
 from winograd_tpu_torch.kernels.quantized import (
     conv1x1_bn_int8,
@@ -40,8 +47,12 @@ from winograd_tpu_torch.kernels.quantized import (
     quantize_transition_params,
     quantize_weights,
 )
-from winograd_tpu_torch.kernels.stem import stem_fused
-from winograd_tpu_torch.models.convert import cast_bf16w, params_from_jax, stem_filter_s2d
+from winograd_tpu_torch.kernels.stem import stem_fused, stem_s2d_cols
+from winograd_tpu_torch.models.convert import (
+    cast_bf16w,
+    params_from_jax,
+    stem_filter_s2d,
+)
 from winograd_tpu_torch.models.downsample import (
     projection_bottleneck_block,
     quantize_backbone,
@@ -49,18 +60,32 @@ from winograd_tpu_torch.models.downsample import (
     resnet50_stages_int8,
 )
 from winograd_tpu_torch.models.resnet import check_precision
+from winograd_tpu_torch.ops.torch_ops import maxpool3x3_s2
 
 __all__ = [
     "cast_bf16w", "head", "head_int8", "init_resnet50_arrays", "init_resnet50_params",
-    "projection_block_int8", "quantize_resnet50", "resnet50_forward",
-    "resnet50_forward_int8", "stem", "stem_filter_s2d",
+    "projection_block_int8", "quantize_resnet50", "resnet50_arrays", "resnet50_forward",
+    "resnet50_forward_int8", "resnet50_params", "stem", "stem_filter_s2d",
 ]
 
 
-def stem(x: torch.Tensor, params: Dict, precision: str = "f32") -> torch.Tensor:
-    """7x7/2 conv + BN + ReLU + 3x3/2 maxpool; keys w192_stem, s_stem, b_stem;
-    precision "f32", "bf16w" (bfloat16 w192) or "bf16" (the int8 tier's)."""
-    return stem_fused(x, params["w192_stem"], params["s_stem"], params["b_stem"], precision)
+def stem(x: torch.Tensor, params: Dict, precision: str = "f32",
+         algo: str = "fused") -> torch.Tensor:
+    """7x7/2 conv + BN + ReLU + 3x3/2 maxpool; keys w192_stem, s_stem, b_stem.
+    algo "fused" (the served route): the stem kernel at precision "f32",
+    "bf16w" (bfloat16 w192) or "bf16" (the int8 tier's). algo "s2d" (the
+    JAX package's stem_pallas(algo="s2d"), f32 only): the space-to-depth
+    patch matrix (kernels/stem.py::stem_s2d_cols) through the pointwise
+    kernel, then the maxpool."""
+    if algo == "fused":
+        return stem_fused(x, params["w192_stem"], params["s_stem"], params["b_stem"], precision)
+    if algo != "s2d" or precision != "f32":
+        raise ValueError(f"unknown stem route algo={algo!r} at precision {precision!r}")
+    squeeze = x.dim() == 3
+    cols = stem_s2d_cols(x[None] if squeeze else x)
+    h = maxpool3x3_s2(conv1x1_bn(cols, params["w192_stem"], params["s_stem"], params["b_stem"],
+                                 relu=True))
+    return h[0] if squeeze else h
 
 
 def head(x: torch.Tensor, params: Dict, precision: str = "f32") -> torch.Tensor:
@@ -143,69 +168,34 @@ def resnet50_forward_int8(x, qparams: Dict, device="cuda") -> torch.Tensor:
     return logits[0] if squeeze else logits
 
 
-# Random parameters: the same numpy draws, in the same order, as
-# winograd_tpu/datagen/generate.py's _rand / _bn_params / _*_params_random,
-# so one seed gives both packages the same network.
-
-
-def _rand(rng, *shape, scale: float = 1.0) -> np.ndarray:
-    return ((rng.random(shape) - 0.5) * scale).astype(np.float32)
-
-
-def _bn(rng, channels: int, scale: float):
-    gamma = _rand(rng, channels, scale=scale)
-    beta = _rand(rng, channels, scale=scale)
-    mean = _rand(rng, channels, scale=scale)
-    var = (rng.random(channels) * 3 + 5).astype(np.float32)
-    return transforms.fold_batchnorm(gamma, beta, mean, var, eps=BN_EPS)
-
-
-def _transition(rng, c_in, c_mid, c_out, bn_scale) -> Dict[str, np.ndarray]:
-    w_mid = _rand(rng, c_mid, c_mid, 3, 3)
-    (s1, b1), (s2, b2), (s3, b3), (sp, bp) = (
-        _bn(rng, c, bn_scale) for c in (c_mid, c_mid, c_out, c_out)
-    )
-    return dict(
-        w_reduce=_rand(rng, c_in, c_mid), s_reduce=s1, b_reduce=b1,
-        w_mid=w_mid, s_mid=s2, b_mid=b2,
-        w_expand=_rand(rng, c_mid, c_out), s_expand=s3, b_expand=b3,
-        w_proj=_rand(rng, c_in, c_out), s_proj=sp, b_proj=bp,
-    )
-
-
-def _block(rng, c_io, c_mid, bn_scale) -> Dict[str, np.ndarray]:
-    w_mid = _rand(rng, c_mid, c_mid, 3, 3)
-    (s1, b1), (s2, b2), (s3, b3) = (_bn(rng, c, bn_scale) for c in (c_mid, c_mid, c_io))
-    return dict(
-        w_reduce=_rand(rng, c_io, c_mid), s_reduce=s1, b_reduce=b1,
-        w_mid=w_mid, s_mid=s2, b_mid=b2,
-        w_expand=_rand(rng, c_mid, c_io), s_expand=s3, b_expand=b3,
-    )
-
-
 def init_resnet50_arrays(cfg, seed: int = 0) -> Dict:
     """Random full-model parameters as numpy arrays in the JAX package's
-    tree structure, with raw filters (w7_stem, w_mid); params_from_jax
-    derives the kernels' layouts from them."""
+    tree structure (its init_resnet50_params): datagen's draws, in the order
+    of make_resnet50_case's after its image, without the goldens; raw
+    filters (w7_stem, w_mid), from which params_from_jax derives the
+    kernels' layouts."""
     rng = np.random.default_rng(seed)
     w7 = _rand(rng, cfg.stem_c, 3, 7, 7)
-    s_stem, b_stem = _bn(rng, cfg.stem_c, 0.5)
-    c_io0, c_mid0 = cfg.stages[0][0], cfg.stages[0][1]
-    proj = _transition(rng, cfg.stem_c, c_mid0, c_io0, 0.5)
+    bn_stem = _bn_params(rng, cfg.stem_c, scale=0.5)
+    c_io0, c_mid0, hw0, _ = cfg.stages[0]
+    proj = _transition_params_random(
+        rng, TransitionConfig("p0", cfg.stem_c, c_mid0, c_io0, hw=hw0), bn_scale=0.5)
     stages = []
     prev = None
-    for c_io, c_mid, _hw, blocks in cfg.stages:
+    for c_io, c_mid, hw, blocks in cfg.stages:
         transition = None
         if prev is not None:
-            transition = _transition(rng, prev, c_mid, c_io, 0.5)
+            transition = _transition_params_random(
+                rng, TransitionConfig("t", prev, c_mid, c_io, hw=2 * hw), bn_scale=0.5)
         stages.append({
             "transition": transition,
-            "blocks": [_block(rng, c_io, c_mid, 0.5) for _ in range(blocks)],
+            "blocks": [_block_params_random(rng, c_io, c_mid, bn_scale=0.5)
+                       for _ in range(blocks)],
         })
         prev = c_io
     c_last = cfg.stages[-1][0]
     return {
-        "stem": {"w7_stem": w7, "s_stem": s_stem, "b_stem": b_stem},
+        "stem": {"w7_stem": w7, "s_stem": bn_stem["scale"], "b_stem": bn_stem["bias"]},
         "proj": proj,
         "stages": stages,
         "head": {
@@ -213,6 +203,42 @@ def init_resnet50_arrays(cfg, seed: int = 0) -> Dict:
             "b_fc": _rand(rng, cfg.num_classes),
         },
     }
+
+
+PROJ_KEYS = (
+    "w_reduce", "s_reduce", "b_reduce", "w_mid", "u2_mid", "w9_mid",
+    "s_mid", "b_mid", "w_expand", "s_expand", "b_expand",
+    "w_proj", "s_proj", "b_proj",
+)
+
+
+def resnet50_arrays(case: Dict[str, np.ndarray], cfg) -> Dict:
+    """The nested parameter tree {"stem", "proj", "stages", "head"}, numpy
+    arrays with the raw filters, from a flat make_resnet50_case dict
+    (datagen/generate.py): the JAX package's resnet50_params. The cuDNN
+    baseline (baseline/cudnn.py) runs it as it is; resnet50_params derives
+    the kernels' layouts from it."""
+    return {
+        "stem": {
+            "w49_stem": case["stem_w49"],
+            "w7_stem": case["stem_w7"],
+            "w192_stem": case.get("stem_w192", stem_filter_s2d(case["stem_w7"])),
+            "s_stem": case["stem_scale"],
+            "b_stem": case["stem_bias"],
+        },
+        "proj": {k: case[f"p0_{k}"] for k in PROJ_KEYS if f"p0_{k}" in case},
+        "stages": backbone_stages(cfg, case),
+        "head": {"w_fc": case["head_wfc"], "b_fc": case["head_bfc"]},
+    }
+
+
+def resnet50_params(case: Dict[str, np.ndarray], cfg, device="cuda",
+                    dtype=torch.float32) -> Dict:
+    """The port's forward parameters on `device` from a flat
+    make_resnet50_case dict: the twin of the JAX package's resnet50_params,
+    every kernel layout built by this package's transforms."""
+    device = _build.require_device(device)
+    return params_from_jax(resnet50_arrays(case, cfg), device, dtype)
 
 
 def init_resnet50_params(cfg, seed: int = 0, device="cuda", dtype=torch.float32) -> Dict:

@@ -1,1 +1,2 @@
-"""Plain PyTorch operators (the vendor-baseline role)."""
+"""Plain PyTorch operators (the vendor-baseline role) and the float64 numpy
+golden models (reference.py)."""

@@ -1,9 +1,10 @@
 """Plain PyTorch operators on F.conv2d / matmul, NHWC at every function.
 
 Port of the parts of winograd_tpu/ops/jnp_ops.py that the served ResNet-50
-and ResNet-18/34 paths need. This is the vendor-baseline role (cuDNN and cuBLAS on the card,
-with TF32 left to the caller's backend flags); the served path does not
-call it, except for maxpool3x3_s2, which the stem's plain twin uses.
+and ResNet-18/34 paths need. This is the vendor-baseline role (cuDNN and cuBLAS on the card;
+baseline/cudnn.py runs these with TF32 off); the served path does not
+call it, except for maxpool3x3_s2, which the stem's plain twin and the
+stem's s2d route use.
 """
 
 from __future__ import annotations
