@@ -12,22 +12,45 @@ Phases, each of which must pass (exit 1 otherwise):
    limit as nvidia-smi reports them.
 2. build: compiles csrc/*.cu with nvcc for sm_90a, one process per source.
 3. serving (f32 tier): ResNet50Engine with seeded full-width weights
-   answers 10 N=1 requests and 3 N=8 requests on the JAX package's fused
-   route. The launch counters are zeroed just before and read just after;
-   each forward must launch stem 1, pointwise 8, Winograd 1, stage 3,
-   transition 3 and direct 2 times. One image's logits must agree with the
-   same model through the plain versions on the CPU in float64 (the
-   golden) within 1e-4 * max(1, max|golden|); every row of the N=8 logits
-   must agree with that image's N=1 logits within the same bound.
+   answers 1 + 10 N=1 requests and 3 N=8 requests on the JAX package's
+   fused route, each through the CUDA graph the engine captured for its
+   shape (engine.py). The counting rule of every served run (phases 3-10
+   and the serving_pre runs): counters zeroed just before; the first N=1
+   request must launch each kernel exactly its count in one forward times
+   engine.CAPTURE_PASSES (the warm-up and the capture; per forward: stem 1,
+   pointwise 8, Winograd 1, stage 3, transition 3 and direct 2), the 10 N=1
+   requests after it nothing more, the first N=8 request exactly that
+   count again, the last two nothing: a replay runs no wrapper; and each
+   of the 14 requests must add one to the engine's count of graph replays
+   (engine.replays, printed as "replays"). One
+   image's logits must agree with the same model through the plain
+   versions on the CPU in float64 (the golden) within 1e-4 * max(1,
+   max|golden|); every row of the N=8 logits must agree with that image's
+   N=1 logits within the same bound. The line gives the replayed N=1
+   latency (median of 10, host clock to a synchronize), N=8 images/s (the
+   median of the 2 requests after the capturing one) and, beside them, the
+   tier's model forward (models/resnet50.py, models/basic.py) called
+   eagerly on its own device copy of the tier's parameters and the same
+   numpy images (no graph: N=1 median of 10, N=8 of 3), and the phase's
+   peak device memory.
+3a. serving_pre (and serving_pre_bf16w, serving_pre_basic,
+   serving_pre_basic_bf16w after phases 4a, 7 and 8a): the prepared-input
+   contract on the same engine. prepare_input builds each image's stem
+   operand on the host, then serve_pre answers a counted run as phase 3's
+   (the stem counted as its prepared-input entry, stem_pre or
+   stem_pre_bf16w); its logits must equal the raw-image route's of phase 3
+   (4a, 7, 8a) to the bit, N=1 and N=8 (the entry stages the same patch in
+   the same K order).
+3c. throughput: engine.throughput(8) of every engine and tier, one line each.
 4. profile (f32): torch.profiler over 5 N=1 and 3 N=8 requests served as in
-   phase 3, each ended by a synchronize (after the launch counts were
-   read): device time by kernel name per request, and the device's idle
-   share, 1 - device busy time over the host clock of the profiled
-   requests (an upper bound for unprofiled serving: the profiler adds host
-   time).
+   phase 3 (graph replays), each ended by a synchronize: device time by
+   kernel name per request, and the device's idle share, 1 - device busy
+   time over the host clock of the profiled requests (an upper bound for
+   unprofiled serving: the profiler adds host time). Where the trace of the
+   replays holds no kernel, the names and busy time come from the tier's
+   eager forwards (as in phase 3), and the line says so ("kernels_from").
 4a. serving_bf16w: ResNet50Engine(tier="bf16w") on the same weights (cast
-   to bf16 once) and images, 10 N=1 and 3 N=8 requests, counters zeroed
-   just before and read just after: each forward must launch the bf16w
+   to bf16 once) and images, counted as phase 3: each forward must launch the bf16w
    instantiations, counted under their own names, stem_bf16w 1,
    pointwise_bf16w 4, stage_bf16w 4 (conv5_x too), transition_bf16w 3 and
    winograd_bf16w 1 (the entry block's F(2,3) on the bf16 tensor cores,
@@ -39,42 +62,55 @@ Phases, each of which must pass (exit 1 otherwise):
    max(1, max|N=1 row|).
 4b. profile_bf16w: as phase 4, for the bf16w tier.
 5. serving_int8: ResNet50Engine(tier="int8") on the same weights and
-   images, 10 N=1 and 3 N=8 requests, counters zeroed just before and read
-   just after: each forward must launch stem 1 (at bf16), pointwise_int8 4,
+   images, counted as phase 3: each forward must launch stem 1 (at bf16), pointwise_int8 4,
    direct_int8 1, stage_int8 4 and transition_int8 3 times. Logits against
    the f32 golden of phase 3 within INT8_RTOL_BACKBONE (5e-2) *
    max(1, max|golden|); against the port's int8 forward through the plain
    versions on the CPU in float32 within 1e-3 * max(1, max|ref|); each N=8
    row against that image's N=1 logits within the same 1e-3 bound.
+   serve_pre must refuse the int8 tier (ValueError).
 6. profile_int8: as phase 4, for the int8 tier.
 7. serving_basic: ResNetBasicEngine with seeded full-width ResNet-34
-   weights (bench mode 24), 10 N=1 and 3 N=8 requests on the same images,
-   counters zeroed just before and read just after: each forward must
+   weights (bench mode 24) on the same images, counted as phase 3: each
+   forward must
    launch stem 1, Winograd 24, pointwise 7, direct 1 and basic_stage 1
    times; logits against the same model through the plain versions on the
    CPU in float64 within 1e-4 * max(1, max|golden|), N=8 rows against N=1
    within the same bound.
 8. profile_basic: as phase 4, for phase 7.
 8a. serving_basic_bf16w: ResNetBasicEngine(tier="bf16w") on phase 7's
-   weights (cast to bf16 once) and images, 10 N=1 and 3 N=8 requests,
-   counters zeroed just before and read just after: each forward must
-   launch stem_bf16w 1, winograd_bf16w 24, pointwise_bf16w 7, direct_bf16w
+   weights (cast to bf16 once) and images, counted as phase 3: each forward
+   must launch stem_bf16w 1, winograd_bf16w 24, pointwise_bf16w 7, direct_bf16w
    1 and basic_stage_bf16w 1 times. Logits as phase 4a's bars: phase 7's
    float64 golden within 5e-3 * max(1, max|golden|), the port's bf16w
    forward through the plain versions on the CPU within 1e-4 * max(1,
    max|ref|), each N=8 row against its N=1 logits within 1e-4.
 8b. profile_basic_bf16w: as phase 4, for phase 8a.
 9. serving_basic_int8: ResNetBasicEngine(tier="int8") on the same weights
-   and images: each forward must launch stem 1 (at bf16), Winograd 6 (on
+   and images, counted as phase 3: each forward must launch stem 1 (at
+   bf16), Winograd 6 (on
    bf16 filters), winograd_int8 18, pointwise_int8 7, direct_int8 1 and
    basic_stage_int8 1 times; logits against phase 7's golden within 5e-2 *
    max(1, max|golden|), against the port's int8 forward through the plain
    versions on the CPU in float32 within 1e-3 * max(1, max|ref|), N=8 rows
-   against N=1 within 1e-3.
+   against N=1 within 1e-3; serve_pre refused.
 10. profile_basic_int8: as phase 4, for phase 9.
+10a. import_torch: full-width ResNet-50 and ResNet-34 with torchvision's
+   names (models/import_torch.py::build_torch_reference_resnet: layers
+   3-4-6-3, stem 64, planes 64/128/256/512, 1000 classes, seeded weights
+   and BN statistics); each state dict through engine_from_torch at every
+   tier, two images' logits against the module's own eval forward on the
+   card (cuDNN and cuBLAS, TF32 off): f32 within 1e-4, bf16w within 5e-3,
+   int8 within 5e-2, each times max(1, max|ref|).
+10b. checkpoint: models/checkpoint.py::save_model of the trainable set
+   (models/train.py::trainable_*_params) of phase 3's and phase 7's
+   weights into a temporary file under build/, then from_checkpoint; one
+   image's logits within 1e-4 * max(1, max|ref|) of the engine's on the
+   full parameters (phases 3 and 7).
 11. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the first N=1 forward of phases 3, 4a, 5, 7, 8a and 9 gave it
-   (recorded by shape in kernels/_build.py), and at shapes off the served
+   every shape the first request of phases 3, 4a, 5, 7, 8a and 9 gave it
+   (recorded by shape in kernels/_build.py; the stem's prepared-input entry
+   at the shapes of the serving_pre runs), and at shapes off the served
    N=1 lists (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and
    9; the conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
@@ -86,7 +122,8 @@ Phases, each of which must pass (exit 1 otherwise):
    N=8, 7x7x512; the bf16w pointwise head, the conv4_x and conv5_x bf16w
    stages, the 14->7 bf16w transition and the bf16w stem at N=8, the bf16w
    block at modes 6 and 9, the bf16w Winograd at 56x56x64, the bf16w direct
-   3x3 at 7x7x512 and the bf16w basic stage at 7x7x512 at N=8), on seeded
+   3x3 at 7x7x512 and the bf16w basic stage at 7x7x512 at N=8; the stem's
+   prepared-input entry at N=8 at "f32" and "bf16w"), on seeded
    inputs. Bound: max abs error <= 1e-4 *
    max(1, max|plain|); the int8 direct 3x3, stage, transition, pointwise,
    basic stage and Winograd (their twins' arithmetic, exact int32 sums,
@@ -133,13 +170,16 @@ Phases, each of which must pass (exit 1 otherwise):
    torch._int_mm on operands quantized (the 3x3s im2col'd, the int8
    Winograd's V per position) before the timed region, summed over the
    kernel's GEMMs, rows padded to 32 where P <= 16 (the call refuses fewer
-   than 17), and torch.bmm in bf16 for the F(2,3) mid's products.
+   than 17), and torch.bmm in bf16 for the F(2,3) mid's products; the
+   prepared-input stem's library is cuDNN's conv with the folded BN, ReLU
+   and the maxpool, in f32.
 11a. bench: the benchmark CLI (python -m winograd_tpu_torch.bench) through
    its run_case, strict, at the reference's protocol (100 iterations, 2
-   warm-ups), for modes 0-6, 9, 11 and 22 (BENCH_MODES): the seeded case
-   and its float64 golden (datagen), the in-house kernels, the cuDNN
-   baseline with TF32 off, and the direct, F(4,3), int8 and bf16w columns
-   where the mode has them. One JSON line per mode: its device times
+   warm-ups), for modes 0-6, 9, 11, 16 and 22-24 (BENCH_MODES): the seeded
+   case and its float64 golden (datagen), the in-house kernels, the cuDNN
+   baseline with TF32 off, and the direct, F(4,3), int8, bf16w and pre
+   (the prepared-input route, modes 16 and 22-24) columns where the mode
+   has them. One JSON line per mode: its device times
    (bench_graph), host mean and chained times, max errors, tier errors,
    parity_ok and the launches by kernel of the run (counters zeroed just
    before it). A breach, TF32 on, or a path of the mode with no device time
@@ -147,8 +187,10 @@ Phases, each of which must pass (exit 1 otherwise):
 12. a "kernels" JSON line (per-image sums over each path's shapes, both
    models and all tiers; the stem row sums its f32 and bf16 shapes, the
    Winograd row its f32 and bf16-filter shapes; the bf16w instantiations
-   are rows of their own, "<kernel>_bf16w", their source the kernel's
-   file), the card line, and last
+   and the stem's prepared-input entry are rows of their own,
+   "<kernel>_bf16w", "stem_pre", their source the kernel's file;
+   "launches" the wrappers' launches in the counted runs, the warm-up and
+   capture passes; a replay launches no wrapper), the card line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -156,9 +198,12 @@ from __future__ import annotations
 
 import collections
 import json
+import os
+import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -229,16 +274,26 @@ SOURCES = {
     "basic_stage_int8": ("winograd_tpu/kernels/basic_stage.py:202",
                          ["winograd_tpu/kernels/basic_stage.py:202 _basic_stage_int8_kernel"]),
 }
+# The stem's prepared-input entry (csrc/stem.cu's second C entry) replaces
+# the TPU kernel as the JAX package's prepared-input contract calls it.
+SOURCES["stem_pre"] = ("winograd_tpu/kernels/stem.py:59",
+                       ["winograd_tpu/kernels/stem.py:59 _stem_kernel (its pallas_call at "
+                        "stem.py:225, in stem_fused_pallas_pre, stem.py:186)"])
 # The bf16w instantiations replace the same TPU kernels at precision="bf16w".
-BF16W = ("pointwise", "stem", "stage", "transition", "winograd", "direct", "basic_stage")
+BF16W = ("pointwise", "stem", "stem_pre", "stage", "transition", "winograd", "direct",
+         "basic_stage")
 SOURCES.update({f"{name}_bf16w": SOURCES[name] for name in BF16W})
+# A row's source file where it is not csrc/<row without _bf16w>.cu.
+SOURCE_FILES = {"stem_pre": "stem", "stem_pre_bf16w": "stem"}
 # The int8 Winograd past one span of K (kernels/quantized.py::
 # WINO_INT8_CHUNK): nine 128-channel groups, and the stash over 2048
 # channels. Checked against the twin like every shape, counted in no image.
 WIDE_WINOGRAD_INT8 = [(1, 14, 14, 1152, 128, True), (1, 14, 14, 2048, 256, True)]
 # The benchmark CLI's modes run in the bench phase: the reference's six
-# layer cases, a block at two geometries, a transition and the stem.
-BENCH_MODES = (0, 1, 2, 3, 4, 5, 6, 9, 11, 22)
+# layer cases, a block at two geometries, a transition, the stem and the
+# three classifiers at N=1 (the last four with the prepared-input route).
+BENCH_MODES = (0, 1, 2, 3, 4, 5, 6, 9, 11, 16, 22, 23, 24)
+PRE_MODES = (16, 22, 23, 24)
 # The twin's arithmetic (quantized once a row, exact int32 sums, epilogues
 # rounded as the twin rounds, the int8 Winograd's transforms in FP64 rounded
 # once): the kernel equals its twin. So do the stem and the Winograd at
@@ -292,7 +347,9 @@ def main() -> int:
         BF16W_RTOL_BACKBONE, INT8_RTOL_BACKBONE, ResNet34Config, ResNet50Config,
     )
     from winograd_tpu_torch.bench.cli import run_case
-    from winograd_tpu_torch.engine import ResNet50Engine, ResNetBasicEngine
+    from winograd_tpu_torch.engine import (
+        CAPTURE_PASSES, ResNet50Engine, ResNetBasicEngine, engine_from_torch,
+    )
     from winograd_tpu_torch.kernels import _build, transforms
     from winograd_tpu_torch.kernels import basic_stage as bs
     from winograd_tpu_torch.kernels import quantized as q8
@@ -303,7 +360,9 @@ def main() -> int:
     from winograd_tpu_torch.kernels.stage import (
         resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params,
     )
-    from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_plain
+    from winograd_tpu_torch.kernels.stem import (
+        stem_fused, stem_fused_plain, stem_fused_pre, stem_fused_pre_plain, stem_prepare_input,
+    )
     from winograd_tpu_torch.kernels.transition import (
         fuse_transition_weights, strided_im2col, transition_block_fused,
         transition_block_fused_plain, transition_plan,
@@ -312,10 +371,17 @@ def main() -> int:
         conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain, winograd_plan,
     )
     from winograd_tpu_torch.models.basic import (
-        basicnet_forward, basicnet_forward_int8, basicnet_params, cast_basicnet_bf16w,
-        init_basicnet_arrays, quantize_basicnet,
+        basicnet_arrays, basicnet_forward, basicnet_forward_int8, basicnet_params,
+        cast_basicnet_bf16w, init_basicnet_arrays, quantize_basicnet,
     )
-    from winograd_tpu_torch.models.convert import cast_bf16w, params_from_jax, stem_filter_s2d
+    from winograd_tpu_torch.models.checkpoint import save_model
+    from winograd_tpu_torch.models.import_torch import build_torch_reference_resnet
+    from winograd_tpu_torch.models.train import (
+        trainable_basicnet_params, trainable_resnet50_params,
+    )
+    from winograd_tpu_torch.models.convert import (
+        cast_bf16w, params_from_jax, params_to, stem_filter_s2d,
+    )
     from winograd_tpu_torch.utils.checker import ParityError
     from winograd_tpu_torch.models.resnet50 import (
         init_resnet50_arrays, init_resnet50_params, quantize_resnet50, resnet50_forward,
@@ -484,6 +550,31 @@ def main() -> int:
                 lambda: F.max_pool2d(F.conv2d(x_lib, w7_cl, stride=2, padding=3), 3, 2, 1),
                 work, 4 * (n * h * w * cin + n * po * qo * c + 2 * c) + wbytes * 64 * cin * c)
 
+    def stem_pre_case(rng, n, h, w, cin, c, precision):
+        """The stem's prepared-input entry on the operand stem_prepare_input
+        builds on the host before the timed region (read once: (h + 6) x
+        (w + 6) x C4 floats an image); work as stem_case's; library: cuDNN's
+        conv, the folded BN, ReLU and the maxpool in f32."""
+        x_np, w7 = _rand(rng, n, h, w, cin), _rand(rng, c, cin, 7, 7)
+        s, b = bn(rng, c)
+        xb = stem_prepare_input(x_np, precision).to(dev)
+        w192 = t(stem_filter_s2d(w7))
+        x_lib = nchw(t(x_np))
+        w7_cl = t(w7).contiguous(memory_format=torch.channels_last)
+        s4, b4 = s.view(1, -1, 1, 1), b.view(1, -1, 1, 1)
+        po, qo = -(-h // 4), -(-w // 4)
+        products = 2 * n * -(-h // 2) * -(-w // 2) * 49 * cin * c
+        work, wbytes = {FP32_FLOPS: products}, 4
+        if precision == "bf16w":
+            work, wbytes, w192 = {BF16_FLOPS: 2 * products}, 2, w192.to(torch.bfloat16)
+
+        def lib():
+            y = F.conv2d(x_lib, w7_cl, stride=2, padding=3)
+            return F.max_pool2d(torch.relu(y * s4 + b4), 3, 2, 1)
+
+        return (lambda: stem_fused_pre(xb, w192, s, b, h, w, precision),
+                lambda: stem_fused_pre_plain(xb, w192, s, b, h, w, precision), lib,
+                work, 4 * (xb.numel() + n * po * qo * c + 2 * c) + wbytes * 64 * cin * c)
 
     def conv3x3_filter(rng, cin, cout):
         w = _rand(rng, cout, cin, 3, 3)
@@ -746,47 +837,117 @@ def main() -> int:
     rng = np.random.default_rng(1)
     images = _rand(rng, 8, cfg.img, cfg.img, 3)
     n_single, n_batch = 10, 3
+    requests = 1 + n_single + n_batch
 
-    def serve(engine):
-        """The counted run of one tier: counters zeroed, one N=1 forward
-        whose launches by shape are kept, n_single N=1 and n_batch N=8
-        requests, counters read. Returns (N=1 logits by image, N=8 logits,
-        N=1 seconds, N=8 seconds, launches, first forward's shapes)."""
-        _build.reset_counts()
-        single = {0: engine(images[0])}
+    def sync():
         torch.cuda.synchronize()
+
+    def phase_start():
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak_mib():
+        return torch.cuda.max_memory_allocated() / 2**20
+
+    def counted(engine, first, single_fn, batch_fn):
+        """A counted run (phase 3's rule): counters zeroed; the first N=1
+        request (its wrapper launches: the warm-up and capture passes, by
+        shape, kept); n_single N=1 requests, which must add nothing; n_batch
+        N=8 requests, the first of which captures N=8. Every request must be
+        served by a graph replay (the engine's count). Returns (N=1 logits
+        by image, N=8 logits, N=1 seconds, N=8 seconds, counts after the
+        first request, the N=1 requests, the first N=8 request and all, the
+        first request's shapes, the replays of the run)."""
+        replays0 = engine.replays
+        _build.reset_counts()
+        single = {0: first()}
+        sync()
+        counts = [dict(_build.LAUNCHES)]
         shapes = {name: collections.Counter(c) for name, c in _build.LAUNCH_SHAPES.items()}
         lat = []
         for i in range(n_single):
             t0 = time.perf_counter()
-            logits = engine(images[i % 8])
-            torch.cuda.synchronize()
+            logits = single_fn(i % 8)
+            sync()
             lat.append(time.perf_counter() - t0)
             single.setdefault(i % 8, logits)
+        counts.append(dict(_build.LAUNCHES))
         batch_s = []
-        for _ in range(n_batch):
+        for j in range(n_batch):
             t0 = time.perf_counter()
-            logits8 = engine(images)
-            torch.cuda.synchronize()
+            logits8 = batch_fn()
+            sync()
             batch_s.append(time.perf_counter() - t0)
-        return single, logits8, lat, batch_s, dict(_build.LAUNCHES), shapes
+            if j == 0:
+                counts.append(dict(_build.LAUNCHES))
+        counts.append(dict(_build.LAUNCHES))
+        replays = engine.replays - replays0
+        check(replays == requests, f"{requests} requests served by {replays} graph replays")
+        return single, logits8, lat, batch_s, counts, shapes, replays
 
-    def check_launches(expected, launches, shapes, tier):
-        forwards = 1 + n_single + n_batch
+    def serve(engine):
+        return counted(engine, lambda: engine(images[0]), lambda i: engine(images[i]),
+                       lambda: engine(images))
+
+    def check_launches(expected, counts, shapes, tier):
+        """Each kernel launches its count in one forward CAPTURE_PASSES times
+        at the first N=1 request and again at the first N=8 request, and at
+        no other request: a replay runs no wrapper."""
+        first, after_single, after_batch1, final = counts
         for name, per in expected.items():
-            check(launches.get(name, 0) == per * forwards,
-                  f"{tier} {name}: {launches.get(name, 0)} launches in {forwards} forwards, "
-                  f"want {per} each")
-            check(sum(shapes.get(name, {}).values()) == per,
-                  f"{tier} {name}: first forward launched {dict(shapes.get(name, {}))}, want {per}")
-        extra = set(launches) - set(expected)
+            want = per * CAPTURE_PASSES
+            got = (first.get(name, 0), after_single.get(name, 0), after_batch1.get(name, 0),
+                   final.get(name, 0))
+            check(got == (want, want, 2 * want, 2 * want),
+                  f"{tier} {name}: launches after the first N=1, the N=1 replays, the first "
+                  f"N=8 and all requests {got}, want {(want, want, 2 * want, 2 * want)}")
+            check(sum(shapes.get(name, {}).values()) == want,
+                  f"{tier} {name}: first request launched {dict(shapes.get(name, {}))}, want "
+                  f"{per} a forward x {CAPTURE_PASSES}")
+        extra = set(final) - set(expected)
         check(not extra, f"{tier}: kernels off the path launched: {sorted(extra)}")
-        return forwards
+        return final
 
-    def serve_f32(phase, engine, expected, golden):
-        """The f32 tier's counted run and checks; returns (launches, shapes)."""
-        single, logits8, lat, batch_s, launches, shapes = serve(engine)
-        forwards = check_launches(expected, launches, shapes, phase)
+    def eager_forward(forward, tier_params, **kw):
+        """The tier's model forward (models/resnet50.py, models/basic.py) on
+        its own device copy of the tier's parameters, called with no graph:
+        the forward the engine captures."""
+        p = params_to(tier_params, dev, torch.float32)
+        return lambda x: forward(x, p, dev, **kw)
+
+    def eager_ms(eager, n, reps):
+        """The tier's forward called eagerly (no graph) on the numpy images,
+        as a request arrives, host clock to a synchronize, median of `reps`
+        after one warm call."""
+        with torch.inference_mode():
+            eager(images[:n])
+            sync()
+            times = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                eager(images[:n])
+                sync()
+                times.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(times)
+
+    def timing(lat, batch_s, eager):
+        """The served (replayed) figures beside the same tier's eager ones;
+        N=8 images/s from the requests after the capturing one."""
+        n1_eager = eager_ms(eager, 1, n_single)
+        n8_eager = eager_ms(eager, 8, n_batch)
+        return {"n1_latency_ms_median": 1e3 * statistics.median(lat),
+                "n1_latency_ms": [1e3 * v for v in lat],
+                "n8_images_per_s": 8 / statistics.median(batch_s[1:]),
+                "n1_eager_latency_ms": n1_eager, "n8_eager_images_per_s": 8e3 / n8_eager}
+
+    def served_record(phase, single, logits8, counts, shapes):
+        return {"phase": phase, "single": single, "logits8": logits8, "launches": counts[-1],
+                "shapes": shapes}
+
+    def serve_f32(phase, engine, eager, expected, golden):
+        """The f32 tier's counted run and checks."""
+        phase_start()
+        single, logits8, lat, batch_s, counts, shapes, replays = serve(engine)
+        launches = check_launches(expected, counts, shapes, phase)
         got = single[0].double().cpu().numpy()
         tol = ATOL * max(1.0, float(np.abs(golden).max()))
         err = float(np.abs(got - golden).max())
@@ -797,19 +958,19 @@ def main() -> int:
         check(tuple(logits8.shape) == (8,) + golden.shape and bool(torch.isfinite(logits8).all())
               and err8 <= tol, f"{phase}: N=8 logits vs each image's N=1 logits: {err8}")
         print(json.dumps({
-            "phase": phase, "n1_latency_ms_median": 1e3 * statistics.median(lat),
-            "n1_latency_ms": [1e3 * v for v in lat],
-            "n8_images_per_s": 8 / statistics.median(batch_s),
+            "phase": phase, **timing(lat, batch_s, eager),
             "golden_max_abs_err": err, "golden_tol": tol,
             "golden_max_abs": float(np.abs(golden).max()),
-            "n8_vs_n1_max_abs_err": err8, "launches": launches, "forwards": forwards,
+            "n8_vs_n1_max_abs_err": err8, "launches": launches, "requests": requests,
+            "replays": replays, "peak_mib": peak_mib(),
         }), flush=True)
-        return launches, shapes
+        return served_record(phase, single, logits8, counts, shapes)
 
-    def serve_bf16w(phase, engine, expected, golden, ref_cpu, cfg):
-        """The bf16w tier's counted run and checks; returns (launches, shapes)."""
-        single, logits8, lat, batch_s, launches, shapes = serve(engine)
-        forwards = check_launches(expected, launches, shapes, phase)
+    def serve_bf16w(phase, engine, eager, expected, golden, ref_cpu, cfg):
+        """The bf16w tier's counted run and checks."""
+        phase_start()
+        single, logits8, lat, batch_s, counts, shapes, replays = serve(engine)
+        launches = check_launches(expected, counts, shapes, phase)
         check(set(shapes.get("stem_bf16w", {})) == {(1, cfg.img, cfg.img, 3, cfg.stem_c, "bf16w")},
               f"{phase} stem shapes {dict(shapes.get('stem_bf16w', {}))}, want bf16w")
         check(all(shape[5] == 2 for shape in shapes.get("winograd_bf16w", {})),
@@ -830,21 +991,21 @@ def main() -> int:
               and bool((row_err <= row_tol).all()),
               f"{phase}: N=8 rows vs each image's N=1 logits: {row_err.tolist()} > {row_tol.tolist()}")
         print(json.dumps({
-            "phase": phase, "n1_latency_ms_median": 1e3 * statistics.median(lat),
-            "n1_latency_ms": [1e3 * v for v in lat],
-            "n8_images_per_s": 8 / statistics.median(batch_s),
+            "phase": phase, **timing(lat, batch_s, eager),
             "golden_max_abs_err": gold_err, "golden_tol": gold_tol,
             "cpu_bf16w_max_abs_err": cpu_err, "cpu_bf16w_tol": cpu_tol,
             "n8_vs_n1_max_abs_err": float(row_err.max()),
             "same_class_as_f32": int(got.argmax()) == int(np.argmax(golden)),
-            "launches": launches, "forwards": forwards,
+            "launches": launches, "requests": requests, "replays": replays,
+            "peak_mib": peak_mib(),
         }), flush=True)
-        return launches, shapes
+        return served_record(phase, single, logits8, counts, shapes)
 
-    def serve_int8(phase, engine, expected, golden, ref_int8, cfg):
-        """The int8 tier's counted run and checks; returns (launches, shapes)."""
-        single8, logits88, lat8, batch8_s, launches8, shapes8 = serve(engine)
-        forwards = check_launches(expected, launches8, shapes8, phase)
+    def serve_int8(phase, engine, eager, expected, golden, ref_int8, cfg):
+        """The int8 tier's counted run and checks; serve_pre must refuse."""
+        phase_start()
+        single8, logits88, lat8, batch8_s, counts, shapes8, replays = serve(engine)
+        launches8 = check_launches(expected, counts, shapes8, phase)
         check(set(shapes8.get("stem", {})) == {(1, cfg.img, cfg.img, 3, cfg.stem_c, "bf16")},
               f"{phase} stem shapes {dict(shapes8.get('stem', {}))}, want bf16")
         check(all(shape[-1] == "bf16" for shape in shapes8.get("winograd", {})),
@@ -863,93 +1024,226 @@ def main() -> int:
         tol88 = INT8_CHAINED_RTOL * max(1.0, ref88.abs().max().item())
         check(tuple(logits88.shape) == (8,) + golden.shape and bool(torch.isfinite(logits88).all())
               and err88 <= tol88, f"{phase}: N=8 logits vs each image's N=1 logits: {err88} > {tol88}")
+        try:
+            engine.serve_pre(engine.prepare_input(images[0]))
+            check(False, f"{phase}: serve_pre served the int8 tier")
+        except ValueError:
+            pass
         print(json.dumps({
-            "phase": phase, "n1_latency_ms_median": 1e3 * statistics.median(lat8),
-            "n1_latency_ms": [1e3 * v for v in lat8],
-            "n8_images_per_s": 8 / statistics.median(batch8_s),
+            "phase": phase, **timing(lat8, batch8_s, eager),
             "golden_max_abs_err": gold_err, "golden_tol": gold_tol,
             "cpu_int8_max_abs_err": cpu_err, "cpu_int8_tol": cpu_tol,
             "n8_vs_n1_max_abs_err": err88, "n8_vs_n1_tol": tol88,
             "same_class_as_f32": int(got8.argmax()) == int(np.argmax(golden)),
-            "launches": launches8, "forwards": forwards,
+            "serve_pre_refused": True, "launches": launches8, "requests": requests,
+            "replays": replays,
+            "peak_mib": peak_mib(),
         }), flush=True)
-        return launches8, shapes8
+        return served_record(phase, single8, logits88, counts, shapes8)
+
+    def serve_pre_phase(phase, engine, expected, record):
+        """The prepared-input contract at the engine's tier: prepare_input on
+        the host, then a counted run of serve_pre as phase 3's (the stem's
+        launches counted as its prepared-input entry); the logits equal the
+        raw-image route's of the same engine to the bit, N=1 and N=8."""
+        phase_start()
+        pre_expected = {{"stem": "stem_pre", "stem_bf16w": "stem_pre_bf16w"}.get(k, k): v
+                        for k, v in expected.items()}
+        t0 = time.perf_counter()
+        xb = [engine.prepare_input(images[i]) for i in range(8)]
+        prepare_ms = 1e3 * (time.perf_counter() - t0) / 8
+        xb8 = engine.prepare_input(images)
+        single, logits8, lat, batch_s, counts, shapes, replays = counted(
+            engine, lambda: engine.serve_pre(xb[0]), lambda i: engine.serve_pre(xb[i]),
+            lambda: engine.serve_pre(xb8))
+        launches = check_launches(pre_expected, counts, shapes, phase)
+        diffs = [float((single[i][0] - record["single"][i]).abs().max()) for i in range(8)]
+        diff8 = float((logits8 - record["logits8"]).abs().max())
+        check(all(torch.equal(single[i][0], record["single"][i]) for i in range(8))
+              and torch.equal(logits8, record["logits8"]),
+              f"{phase}: serve_pre logits differ from engine(x): N=1 {diffs}, N=8 {diff8}")
+        print(json.dumps({
+            "phase": phase, "n1_latency_ms_median": 1e3 * statistics.median(lat),
+            "n1_latency_ms": [1e3 * v for v in lat],
+            "n8_images_per_s": 8 / statistics.median(batch_s[1:]),
+            "prepare_input_ms_per_image": prepare_ms,
+            "n1_max_abs_diff_vs_raw": max(diffs), "n8_max_abs_diff_vs_raw": diff8,
+            "launches": launches, "requests": requests, "replays": replays,
+            "peak_mib": peak_mib(),
+        }), flush=True)
+        return served_record(phase, single, logits8, counts, shapes)
+
+    def throughput_line(model, engine):
+        stats = engine.throughput(8)
+        print(json.dumps({"phase": "throughput", "model": model, "tier": engine.tier,
+                          **stats}), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
-    def profile_phase(engine, phase):
+    def profile_phase(engine, eager, phase):
+        """torch.profiler over served requests (graph replays). Where the
+        trace holds no kernel of a replay, the names and busy time come from
+        eager forwards of the same tier, said so in the line."""
         for n, reps in ((1, 5), (8, 3)):
             engine(images[:n])
-            torch.cuda.synchronize()
+            sync()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
                 for _ in range(reps):
                     engine(images[:n])
-                    torch.cuda.synchronize()
+                    sync()
                 window_ms = 1e3 * (time.perf_counter() - t0) / reps
-            by_name = collections.defaultdict(float)
-            for e in prof.key_averages():
-                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
-                    by_name[_kernel_name(e.key)] += e.device_time_total / reps / 1e3
+            source = "replays"
+
+            def by_kernel(p):
+                out = collections.defaultdict(float)
+                for e in p.key_averages():
+                    if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
+                        out[_kernel_name(e.key)] += e.device_time_total / reps / 1e3
+                return out
+
+            by_name = by_kernel(prof)
+            if not any(not k.startswith(("Memcpy", "Memset")) for k in by_name):
+                source = "eager forwards (no kernel of a replay in the trace)"
+                x = torch.as_tensor(images[:n], device=dev)
+                with torch.inference_mode(), profile(
+                        activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        eager(x)
+                        sync()
+                by_name = by_kernel(prof)
             busy = sum(by_name.values())
             check(0 < busy <= window_ms, f"{phase} N={n}: device busy {busy} ms of {window_ms} ms")
             print(json.dumps({
                 "phase": phase, "n": n, "device_busy_ms": busy, "request_ms": window_ms,
-                "idle_share": 1 - busy / window_ms,
+                "idle_share": 1 - busy / window_ms, "kernels_from": source,
                 "device_ms_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
             }), flush=True)
 
-    served = []  # (launches, first forward's shapes) of each counted run
+    served = []  # each counted run's record (launches, first request's shapes, logits)
     golden = resnet50_forward(
         images[0], params_from_jax(init_resnet50_arrays(cfg, seed=0), "cpu", torch.float64),
         device="cpu",
     ).numpy()
     engine = ResNet50Engine(params, device=dev)
-    served.append(serve_f32("serving", engine, EXPECTED_PER_FORWARD, golden))
-    profile_phase(engine, "profile")
-    del engine
+    eager = eager_forward(resnet50_forward, params)
+    r50 = serve_f32("serving", engine, eager, EXPECTED_PER_FORWARD, golden)
+    served.append(r50)
+    served.append(serve_pre_phase("serving_pre", engine, EXPECTED_PER_FORWARD, r50))
+    throughput_line("resnet50", engine)
+    profile_phase(engine, eager, "profile")
+    del engine, eager
 
     # -- the bf16w tier -----------------------------------------------------
     engine16 = ResNet50Engine(params, tier="bf16w", device=dev)
     cpu_params = params_from_jax(init_resnet50_arrays(cfg, seed=0), "cpu", torch.float32)
     ref_bf16w = resnet50_forward(images[0], cast_bf16w(cpu_params), device="cpu",
                                  precision="bf16w")
-    served.append(serve_bf16w("serving_bf16w", engine16, EXPECTED_PER_FORWARD_BF16W, golden,
-                              ref_bf16w, cfg))
-    profile_phase(engine16, "profile_bf16w")
-    del engine16
+    eager = eager_forward(resnet50_forward, cast_bf16w(params), precision="bf16w")
+    rec = serve_bf16w("serving_bf16w", engine16, eager, EXPECTED_PER_FORWARD_BF16W, golden,
+                      ref_bf16w, cfg)
+    served.append(rec)
+    served.append(serve_pre_phase("serving_pre_bf16w", engine16, EXPECTED_PER_FORWARD_BF16W, rec))
+    throughput_line("resnet50", engine16)
+    profile_phase(engine16, eager, "profile_bf16w")
+    del engine16, eager
 
     # -- the int8 tier ------------------------------------------------------
     engine8 = ResNet50Engine(params, tier="int8", device=dev)
     ref_int8 = resnet50_forward_int8(images[0], quantize_resnet50(cpu_params), device="cpu")
-    served.append(serve_int8("serving_int8", engine8, EXPECTED_PER_FORWARD_INT8, golden,
+    eager = eager_forward(resnet50_forward_int8, quantize_resnet50(params))
+    served.append(serve_int8("serving_int8", engine8, eager, EXPECTED_PER_FORWARD_INT8, golden,
                              ref_int8, cfg))
-    profile_phase(engine8, "profile_int8")
-    del engine8, params, cpu_params
+    throughput_line("resnet50", engine8)
+    profile_phase(engine8, eager, "profile_int8")
+    del engine8, eager, params, cpu_params
 
     # -- the basic family: ResNet-34 at every tier --------------------------
     cfg34 = ResNet34Config("resnet34")
     case34 = init_basicnet_arrays(cfg34, seed=0)
     golden34 = basicnet_forward(images[0], basicnet_params(case34, cfg34, "cpu", torch.float64),
                                 device="cpu").numpy()
-    engine = ResNetBasicEngine(basicnet_params(case34, cfg34, dev), device=dev)
-    served.append(serve_f32("serving_basic", engine, EXPECTED_PER_FORWARD_BASIC, golden34))
-    profile_phase(engine, "profile_basic")
-    del engine
+    params34 = basicnet_params(case34, cfg34, dev)
+    engine, eager = ResNetBasicEngine(params34, device=dev), eager_forward(basicnet_forward, params34)
+    r34 = serve_f32("serving_basic", engine, eager, EXPECTED_PER_FORWARD_BASIC, golden34)
+    served.append(r34)
+    served.append(serve_pre_phase("serving_pre_basic", engine, EXPECTED_PER_FORWARD_BASIC, r34))
+    throughput_line("resnet34", engine)
+    profile_phase(engine, eager, "profile_basic")
+    del engine, eager, params34
     cpu34 = basicnet_params(case34, cfg34, "cpu")
     ref34_bf16w = basicnet_forward(images[0], cast_basicnet_bf16w(cpu34), device="cpu",
                                    precision="bf16w")
     engine16 = ResNetBasicEngine(cpu34, tier="bf16w", device=dev)
-    served.append(serve_bf16w("serving_basic_bf16w", engine16, EXPECTED_PER_FORWARD_BASIC_BF16W,
-                              golden34, ref34_bf16w, cfg34))
-    profile_phase(engine16, "profile_basic_bf16w")
-    del engine16
+    eager = eager_forward(basicnet_forward, cast_basicnet_bf16w(cpu34), precision="bf16w")
+    rec = serve_bf16w("serving_basic_bf16w", engine16, eager, EXPECTED_PER_FORWARD_BASIC_BF16W,
+                      golden34, ref34_bf16w, cfg34)
+    served.append(rec)
+    served.append(serve_pre_phase("serving_pre_basic_bf16w", engine16,
+                                  EXPECTED_PER_FORWARD_BASIC_BF16W, rec))
+    throughput_line("resnet34", engine16)
+    profile_phase(engine16, eager, "profile_basic_bf16w")
+    del engine16, eager
     ref34_int8 = basicnet_forward_int8(images[0], quantize_basicnet(cpu34), device="cpu")
     engine8 = ResNetBasicEngine(cpu34, tier="int8", device=dev)
-    served.append(serve_int8("serving_basic_int8", engine8, EXPECTED_PER_FORWARD_BASIC_INT8,
+    eager = eager_forward(basicnet_forward_int8, quantize_basicnet(cpu34))
+    served.append(serve_int8("serving_basic_int8", engine8, eager, EXPECTED_PER_FORWARD_BASIC_INT8,
                              golden34, ref34_int8, cfg34))
-    profile_phase(engine8, "profile_basic_int8")
-    del engine8, cpu34
+    throughput_line("resnet34", engine8)
+    profile_phase(engine8, eager, "profile_basic_int8")
+    del engine8, eager, cpu34
+
+    # -- torchvision-format weights: both families at every tier ------------
+    phase_start()
+    x2 = torch.as_tensor(images[:2], device=dev)
+    for model_name, kw in (("resnet50", {}), ("resnet34", {"block": "basic"})):
+        module = build_torch_reference_resnet(layers=(3, 4, 6, 3), stem_c=64,
+                                              planes=(64, 128, 256, 512), classes=1000, seed=0,
+                                              **kw)
+        sd = module.state_dict()
+        with torch.no_grad():
+            ref = module.to(dev)(x2.permute(0, 3, 1, 2).contiguous()).double()
+        del module
+        scale = max(1.0, ref.abs().max().item())
+        for tier, rtol in (("f32", ATOL), ("bf16w", BF16W_RTOL_BACKBONE),
+                           ("int8", INT8_RTOL_BACKBONE)):
+            imported = engine_from_torch(sd, tier=tier, device=dev)
+            err = (imported(images[:2]).double() - ref).abs().max().item()
+            check(err <= rtol * scale,
+                  f"import_torch {model_name} {tier}: {err} > {rtol * scale} against the module")
+            print(json.dumps({"phase": "import_torch", "model": model_name, "tier": tier,
+                              "engine": type(imported).__name__, "max_abs_err": err,
+                              "tol": rtol * scale, "ref_max_abs": scale,
+                              "peak_mib": peak_mib()}), flush=True)
+            del imported
+
+    # -- a checkpoint of the trainable set, served --------------------------
+    phase_start()
+    ckpt_dir = pathlib.Path(__file__).resolve().parent / "build"
+    ckpt_dir.mkdir(exist_ok=True)
+    trained = {
+        "resnet50": (ResNet50Engine,
+                     trainable_resnet50_params(init_resnet50_arrays(cfg, seed=0)), r50),
+        "resnet34": (ResNetBasicEngine,
+                     trainable_basicnet_params(basicnet_arrays(case34, cfg34)), r34),
+    }
+    with tempfile.TemporaryDirectory(dir=ckpt_dir) as tmp:
+        for model_name, (engine_cls, tree, record) in trained.items():
+            path = str(pathlib.Path(tmp) / f"{model_name}.npz")
+            t0 = time.perf_counter()
+            save_model(path, tree, extra={"step": np.asarray(0)})
+            loaded = engine_cls.from_checkpoint(path, device=dev)
+            build_s = time.perf_counter() - t0
+            want = record["single"][0]
+            err = (loaded(images[0]) - want).abs().max().item()
+            tol = ATOL * max(1.0, want.abs().max().item())
+            check(err <= tol, f"checkpoint {model_name}: {err} > {tol} against the engine on the "
+                  "full parameters")
+            print(json.dumps({"phase": "checkpoint", "model": model_name, "max_abs_err": err,
+                              "tol": tol, "save_and_load_s": build_s,
+                              "file_mib": os.path.getsize(path) / 2**20,
+                              "peak_mib": peak_mib()}), flush=True)
+            del loaded
 
     # -- kernels against their plain versions ------------------------------
     make_case = {"pointwise": pointwise_case, "winograd": winograd_case,
@@ -963,7 +1257,8 @@ def main() -> int:
                  "transition_bf16w": lambda rng, *shape: transition_case(rng, *shape, bf16=True),
                  "winograd_bf16w": lambda rng, *shape: winograd_case(rng, *shape, filt="bf16w"),
                  "direct_bf16w": lambda rng, *shape: direct_case(rng, *shape, bf16=True),
-                 "basic_stage_bf16w": lambda rng, *shape: basic_stage_case(rng, *shape, bf16=True)}
+                 "basic_stage_bf16w": lambda rng, *shape: basic_stage_case(rng, *shape, bf16=True),
+                 "stem_pre": stem_pre_case, "stem_pre_bf16w": stem_pre_case}
     # Off the served N=1 lists: F(4,3) accuracy at the mode-0 shape; the
     # block at modes 6 and 9; the batched layouts' cases (rows 7, 9, 18 and
     # 20 of the TPU kernel table) at N=8; the conv5_x stage geometry, which
@@ -996,6 +1291,8 @@ def main() -> int:
         "winograd_bf16w": [(8, 56, 56, 64, 64, 2, True)],
         "direct_bf16w": [(8, 7, 7, 512, 512, False)],
         "basic_stage_bf16w": [(8, 7, 7, 512, 2)],
+        "stem_pre": [(8, 224, 224, 3, 64, "f32")],
+        "stem_pre_bf16w": [(8, 224, 224, 3, 64, "bf16w")],
     }
     sms = _build.sm_count(dev)
 
@@ -1030,12 +1327,18 @@ def main() -> int:
             "route": q8.pointwise_int8_plan(p, k, n, sms).path},
         "winograd_int8": winograd_int8_cut,
     }
+    # Launches: the wrappers' (the warm-up and capture passes of each shape)
+    # in every counted run. A prepared-input run adds its stem's shapes to
+    # the per-image sums, its other kernels being the raw route's.
     all_launches = collections.Counter()
     per_image = collections.defaultdict(collections.Counter)
-    for launches, shapes in served:
-        all_launches.update(launches)
-        for name, counter in shapes.items():
-            per_image[name].update(counter)
+    for rec in served:
+        all_launches.update(rec["launches"])
+        pre = rec["phase"].startswith("serving_pre")
+        for name, counter in rec["shapes"].items():
+            if pre and not name.startswith("stem_pre"):
+                continue
+            per_image[name].update({shape: c // CAPTURE_PASSES for shape, c in counter.items()})
     totals = {}
     rng = np.random.default_rng(0)
     for name in make_case:
@@ -1093,7 +1396,8 @@ def main() -> int:
         launches = dict(_build.LAUNCHES)
         has = {"cuda": True, "cudnn": True, "int8": True, "bf16w": True,
                "direct": row["max_error_direct"] is not None,
-               "winograd_f43": row["max_error_winograd_f43"] is not None}
+               "winograd_f43": row["max_error_winograd_f43"] is not None,
+               "pre": mode in PRE_MODES}
         untimed = [p for p, on in has.items() if on and row[f"{p}_device_us"] is None]
         check(row["parity_ok"] and not row["tf32"] and not untimed,
               f"bench mode {mode}: parity_ok {row['parity_ok']}, tf32 {row['tf32']}, "
@@ -1109,7 +1413,8 @@ def main() -> int:
         replaces, covers = SOURCES[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"winograd_tpu_torch/csrc/{name.removesuffix('_bf16w')}.cu",
+            "source": "winograd_tpu_torch/csrc/"
+                      f"{SOURCE_FILES.get(name, name).removesuffix('_bf16w')}.cu",
             "replaces": replaces, "covers": covers, "launches": all_launches.get(name, 0),
             "max_abs_err": tot["max_abs_err"], "ms": tot["ms"],
             "wrapper_ms": tot["wrapper_ms"], "plain_ms": tot["plain_ms"],

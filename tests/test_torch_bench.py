@@ -106,6 +106,27 @@ def test_run_case_parity_at_tiny_models(name):
     assert r["bf16w_rel_error"] < config.BF16W_RTOL_BACKBONE
 
 
+@pytest.mark.parametrize("name", ["resnet50", "basic", "backbone_b2", "stem"])
+def test_pre_route_is_parity_checked_on_the_cpu(name, capsys):
+    """The classifiers and the stem (mode 22) also serve the prepared-input
+    route, checked against the golden at the f32 bar; on the CPU it has no
+    device time. A backbone has no such route."""
+    if name == "stem":
+        r = run_case(22, iterations=2, warmup=1, device="cpu")
+        label = config.CASES[22].name
+    else:
+        config.CASES[990] = TINY[name]
+        try:
+            r = run_case(990, iterations=2, warmup=1, device="cpu")
+        finally:
+            del config.CASES[990]
+        label = TINY[name].name
+    assert r["parity_ok"] and r["pre_device_us"] is None
+    checked = [line for line in capsys.readouterr().err.splitlines() if f"[{label}/pre]" in line]
+    assert len(checked) == (0 if name == "backbone_b2" else 1), checked
+    assert all("max_error=" in line for line in checked), checked
+
+
 def _renamed(key: str) -> str:
     return key.replace("pallas", "cuda").replace("xla", "cudnn")
 

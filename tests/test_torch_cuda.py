@@ -46,10 +46,14 @@ repeating to the bit), the padded int8 entries and the bf16 stem (exact
 FP64 sums), 0.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from winograd_tpu_torch.config import BasicNetConfig, ResNet50Config
+from winograd_tpu_torch.engine import ResNet50Engine, ResNetBasicEngine
 from winograd_tpu_torch.kernels import _build, transforms
 from winograd_tpu_torch.kernels.direct import (
     conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter, direct_plan,
@@ -60,7 +64,9 @@ from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain, s
 from winograd_tpu_torch.kernels.stage import (
     resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params,
 )
-from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_plain
+from winograd_tpu_torch.kernels.stem import (
+    stem_fused, stem_fused_plain, stem_fused_pre, stem_fused_pre_plain, stem_prepare_input,
+)
 from winograd_tpu_torch.kernels.transition import (
     TRANSITION_STEP, fuse_transition_weights, transition_block_fused,
     transition_block_fused_plain, transition_block_fused_planned, transition_plan,
@@ -70,7 +76,9 @@ from winograd_tpu_torch.kernels.winograd import (
     WINOGRAD_STEP, conv3x3_bn_winograd, conv3x3_bn_winograd_plain, conv3x3_bn_winograd_planned,
     winograd_plan, winograd_tiles,
 )
+from winograd_tpu_torch.models.basic import basicnet_params, init_basicnet_arrays
 from winograd_tpu_torch.models.convert import stem_filter_s2d
+from winograd_tpu_torch.models.resnet50 import init_resnet50_params
 
 pytestmark = pytest.mark.cuda
 
@@ -1073,3 +1081,143 @@ def test_bench_graph_agrees_with_eager_event_timing(dev):
     torch.cuda.synchronize()
     eager_us = 1e3 * a.elapsed_time(e) / 20
     assert abs(graph_us - eager_us) <= 0.2 * eager_us, (graph_us, eager_us)
+
+
+# --- the stem's prepared-input entry -----------------------------------------
+
+
+@pytest.mark.parametrize("n,h,w,cin,c", [(1, 224, 224, 3, 64), (8, 224, 224, 3, 64),
+                                         (2, 30, 30, 3, 16), (1, 33, 31, 5, 24)])
+@pytest.mark.parametrize("precision", ["f32", "bf16w", "bf16"])
+def test_stem_pre_entry(dev, n, h, w, cin, c, precision):
+    """csrc/stem.cu's prepared-input entry: within the f32 bound of its plain
+    version (equal to it at "bf16", exact FP64 sums of bf16 products), and
+    equal to the raw-image entry on the same image to the bit (the same
+    staged patch, the same K order)."""
+    x, w192, s, b = _stem_case(np.random.default_rng(h * w + c + n), dev, n, h, w, cin, c)
+    if precision == "bf16w":
+        w192 = w192.to(BF16)
+    xb = stem_prepare_input(x.cpu(), precision).to(dev)
+    out = stem_fused_pre(xb, w192, s, b, h, w, precision)
+    ref = stem_fused_pre_plain(xb, w192, s, b, h, w, precision)
+    if precision == "bf16":
+        _equal(out, ref)
+    else:
+        _agree(out, ref)
+    assert torch.equal(out, stem_fused(x, w192, s, b, precision))
+
+
+# --- the serving engines' CUDA graphs ------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _TinyR50(ResNet50Config):
+    stages = ((64, 16, 8, 1), (128, 32, 4, 1))
+    img: int = 32
+    stem_c: int = 16
+    num_classes: int = 24
+
+
+@dataclasses.dataclass(frozen=True)
+class _TinyBasic(BasicNetConfig):
+    stages = ((16, 8, 1), (32, 4, 2))
+    img: int = 32
+    stem_c: int = 16
+    num_classes: int = 16
+
+
+def _tiny_engine(dev, family, tier="f32"):
+    if family == "resnet50":
+        cfg = _TinyR50("tiny_r50")
+        return ResNet50Engine(init_resnet50_params(cfg, seed=3, device="cpu"), tier=tier,
+                              device=dev), cfg
+    cfg = _TinyBasic("tiny_basic")
+    params = basicnet_params(init_basicnet_arrays(cfg, seed=3), cfg, "cpu")
+    return ResNetBasicEngine(params, tier=tier, device=dev), cfg
+
+
+def _tiny_images(seed, n, img=32):
+    return (np.random.default_rng(seed).random((n, img, img, 3)) - 0.5).astype(np.float32)
+
+
+@pytest.mark.parametrize("family", ["resnet50", "basic"])
+@pytest.mark.parametrize("tier", ["f32", "bf16w", "int8"])
+def test_engine_replay_equals_the_eager_forward(dev, family, tier):
+    """A graph replay computes what the tier's forward computes eagerly, to
+    the bit, at N=1 and N=2; a single image is served as N=1."""
+    engine, cfg = _tiny_engine(dev, family, tier)
+    for n in (1, 2):
+        x = _tiny_images(n, n)
+        eager = engine._forward(torch.as_tensor(x, device=dev), engine._params, dev)
+        for _ in range(2):  # the capturing request, then a replay alone
+            assert torch.equal(engine(x), eager)
+    single = engine(x[0])
+    assert tuple(single.shape) == (cfg.num_classes,) and torch.equal(single, engine(x[:1])[0])
+
+
+@pytest.mark.parametrize("family", ["resnet50", "basic"])
+def test_engine_serve_pre_equals_the_raw_route(dev, family):
+    engine, cfg = _tiny_engine(dev, family)
+    x = _tiny_images(9, 2)
+    xb = engine.prepare_input(x)
+    assert xb.device.type == "cpu"
+    assert torch.equal(engine.serve_pre(xb, img=cfg.img), engine(x))
+    assert torch.equal(engine.serve_pre(engine.prepare_input(x[0]), img=cfg.img)[0], engine(x[0]))
+
+
+def test_engine_result_survives_later_requests(dev):
+    """engine(x) returns a tensor of its own: the next request's replay
+    overwrites the graph's output buffer, not the result handed out."""
+    engine, _ = _tiny_engine(dev, "resnet50")
+    a, b = _tiny_images(1, 1), _tiny_images(2, 1)
+    first = engine(a)
+    kept = first.clone()
+    second = engine(b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept) and not torch.equal(first, second)
+    assert torch.equal(engine(a), kept)
+
+
+def test_engine_captures_each_shape_once_and_replays_count_nothing(dev):
+    engine, _ = _tiny_engine(dev, "resnet50")
+    from winograd_tpu_torch.engine import CAPTURE_PASSES
+
+    _build.reset_counts()
+    engine(_tiny_images(1, 1))
+    first = dict(_build.LAUNCHES)
+    per_forward = {k: v // CAPTURE_PASSES for k, v in first.items()}
+    assert first and all(v == CAPTURE_PASSES * per_forward[k] for k, v in first.items())
+    assert len(engine._graphs) == 1
+    engine(_tiny_images(2, 1))
+    engine(torch.as_tensor(_tiny_images(3, 1), device=dev))  # a device tensor, same graph
+    assert dict(_build.LAUNCHES) == first and len(engine._graphs) == 1
+    engine(_tiny_images(4, 3))  # a new batch shape: a new graph
+    assert len(engine._graphs) == 2
+    assert dict(_build.LAUNCHES) == {k: 2 * v for k, v in first.items()}
+    engine(_tiny_images(5, 3))
+    assert dict(_build.LAUNCHES) == {k: 2 * v for k, v in first.items()}
+    assert engine.replays == 5  # every request, the capturing ones too, a replay
+
+
+def test_engine_capture_failure_raises_and_never_serves_eagerly(dev):
+    """A forward that cannot be captured (here one that reads a value on the
+    host) raises, naming the request, at every request: no eager serving."""
+    engine, _ = _tiny_engine(dev, "resnet50")
+    forward = engine._forward
+
+    def host_synced(x, params, device):
+        out = forward(x, params, device)
+        out.sum().item()
+        return out
+
+    stream = torch.cuda.current_stream()
+    engine._forward = host_synced
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match=r"cannot be captured in a CUDA graph"):
+            engine(_tiny_images(1, 1))
+        assert torch.cuda.current_stream() == stream
+    assert not engine._graphs
+    # Later requests capture into a fresh pool.
+    engine._forward = forward
+    x = _tiny_images(1, 1)
+    assert torch.equal(engine(x), forward(torch.as_tensor(x, device=dev), engine._params, dev))

@@ -75,6 +75,28 @@ def test_entry_points_refuse_cpu_unless_asked():
         run_case(0)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["0"])
+    from winograd_tpu_torch.engine import (
+        BackboneEngine, BottleneckEngine, ResNetBasicEngine, engine_from_torch,
+    )
+    from winograd_tpu_torch.models.basic import basicnet_forward_pre
+    from winograd_tpu_torch.models.resnet50 import resnet50_forward_pre
+
+    # Every constructor refuses before it reads its file or builds anything.
+    refused = [
+        lambda: BottleneckEngine([]), lambda: BackboneEngine([]),
+        lambda: BottleneckEngine.from_checkpoint("missing.npz"),
+        lambda: resnet50_forward_pre(torch.zeros(1, 38, 38, 4), {}),
+        lambda: basicnet_forward_pre(torch.zeros(1, 38, 38, 4), {}),
+        lambda: engine_from_torch("missing.pth"),
+    ]
+    for cls in (ResNet50Engine, ResNetBasicEngine):
+        refused += [lambda cls=cls: cls.from_case({}, None),
+                    lambda cls=cls: cls.from_checkpoint("missing.npz"),
+                    lambda cls=cls: cls.from_torch("missing.pth"),
+                    lambda cls=cls: cls.from_torch({})]
+    for call in refused:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
 
 
 def test_kernel_wrappers_reject_non_cpu_non_cuda_tensors():

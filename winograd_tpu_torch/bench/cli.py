@@ -15,9 +15,11 @@ kernels; on the CPU their plain versions) and the vendor baseline
 ("cudnn": baseline/cudnn.py, TF32 off), and where the JAX package has them
 the other in-house columns: "direct" and "winograd_f43" (modes 0/1; the
 stem's space-to-depth route on mode 22), "int8" and "bf16w" (the serving
-tiers). Each is checked against the golden: f32 paths at max abs error <=
-PARITY_ATOL, int8 and bf16w at their relative bars. A breach raises
-ParityError and the CLI exits nonzero.
+tiers), and "pre" (the classifiers and the stem: the f32 forward from the
+operand kernels/stem.py::stem_prepare_input builds on the host, made once
+before timing). Each is checked against the golden: f32 paths, "pre"
+included, at max abs error <= PARITY_ATOL, int8 and bf16w at their
+relative bars. A breach raises ParityError and the CLI exits nonzero.
 
 Timing follows the reference's protocol (100 iterations, 2 warm-ups,
 utils/timing.py::bench_loop): mean and min on the host clock with a
@@ -120,10 +122,13 @@ def card(index: int):
 
 
 def _paths(cfg, case: Dict[str, np.ndarray], dev: torch.device):
-    """The mode's input (batched: unbatched cases run at N=1) and its paths,
+    """The mode's input (batched: unbatched cases run at N=1), its paths,
     name -> function of the input: "cuda" and "cudnn" always; "direct",
     "winograd_f43", "int8" and "bf16w" where the JAX package's CLI has
-    them."""
+    them; and the prepared-input route (prepared operand on the device,
+    function of it) where the JAX package's CLI has a "pre" column, else
+    None."""
+    from winograd_tpu_torch.kernels.stem import stem_prepare_input
     from winograd_tpu_torch.models.convert import (
         cast_layer_bf16w,
         cast_stages_bf16w,
@@ -141,11 +146,13 @@ def _paths(cfg, case: Dict[str, np.ndarray], dev: torch.device):
     x = t(case["x"])
     if x.dim() == 3:
         x = x[None]
+    img_h, img_w = x.shape[1], x.shape[2]
     paths: Dict[str, Callable] = {}
+    pre_fn = None
     if isinstance(cfg, BasicNetConfig):
         from winograd_tpu_torch.models.basic import (
-            basicnet_arrays, basicnet_forward, basicnet_forward_int8, basicnet_params,
-            cast_basicnet_bf16w, quantize_basicnet,
+            basicnet_arrays, basicnet_forward, basicnet_forward_int8, basicnet_forward_pre,
+            basicnet_params, cast_basicnet_bf16w, quantize_basicnet,
         )
 
         params = basicnet_params(case, cfg, dev)
@@ -156,10 +163,11 @@ def _paths(cfg, case: Dict[str, np.ndarray], dev: torch.device):
         paths["cudnn"] = lambda x_: baseline.basicnet_forward_cudnn(x_, ref)
         paths["int8"] = lambda x_: basicnet_forward_int8(x_, qparams, dev)
         paths["bf16w"] = lambda x_: basicnet_forward(x_, params16, dev, precision="bf16w")
+        pre_fn = lambda xb: basicnet_forward_pre(xb, params, dev, h=img_h, w=img_w)  # noqa: E731
     elif isinstance(cfg, ResNet50Config):
         from winograd_tpu_torch.models.resnet50 import (
             cast_bf16w, quantize_resnet50, resnet50_arrays, resnet50_forward,
-            resnet50_forward_int8, resnet50_params,
+            resnet50_forward_int8, resnet50_forward_pre, resnet50_params,
         )
 
         params = resnet50_params(case, cfg, dev)
@@ -170,6 +178,7 @@ def _paths(cfg, case: Dict[str, np.ndarray], dev: torch.device):
         paths["cudnn"] = lambda x_: baseline.resnet50_forward_cudnn(x_, ref)
         paths["int8"] = lambda x_: resnet50_forward_int8(x_, qparams, dev)
         paths["bf16w"] = lambda x_: resnet50_forward(x_, params16, dev, precision="bf16w")
+        pre_fn = lambda xb: resnet50_forward_pre(xb, params, dev, h=img_h, w=img_w)  # noqa: E731
     elif isinstance(cfg, (BackboneConfig, BlockConfig)):
         from winograd_tpu_torch.datagen.generate import backbone_stages, block_params_list
         from winograd_tpu_torch.models.downsample import (
@@ -205,7 +214,7 @@ def _paths(cfg, case: Dict[str, np.ndarray], dev: torch.device):
         paths["int8"] = lambda x_: transition_block_int8(x_, qparams)
         paths["bf16w"] = lambda x_: downsample_bottleneck_block(x_, params16)
     elif isinstance(cfg, StemConfig):
-        from winograd_tpu_torch.models.resnet50 import stem
+        from winograd_tpu_torch.models.resnet50 import stem, stem_pre
 
         params = {"w192_stem": t(case["stem_w192"]), "s_stem": t(case["stem_scale"]),
                   "b_stem": t(case["stem_bias"])}
@@ -219,6 +228,7 @@ def _paths(cfg, case: Dict[str, np.ndarray], dev: torch.device):
         paths["direct"] = lambda x_: stem(x_, params, algo="s2d")
         paths["int8"] = lambda x_: stem(x_, params, precision="bf16")
         paths["bf16w"] = lambda x_: stem(x_, params16, precision="bf16w")
+        pre_fn = lambda xb: stem_pre(xb, params, h=img_h, w=img_w)  # noqa: E731
     elif cfg.kind == "winograd3x3":
         from winograd_tpu_torch.kernels import transforms
         from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct, direct_filter
@@ -257,7 +267,8 @@ def _paths(cfg, case: Dict[str, np.ndarray], dev: torch.device):
         paths["cudnn"] = lambda x_: baseline.conv1x1_bn(x_, w, s, b, relu)
         paths["int8"] = lambda x_: conv1x1_bn_int8(x_, wq, sw, s, b, relu)
         paths["bf16w"] = lambda x_: conv1x1_bn(x_, w16, s, b, relu)
-    return x, paths
+    pre = None if pre_fn is None else (stem_prepare_input(x).to(dev), pre_fn)
+    return x, paths, pre
 
 
 def _profile(profile_dir: str, mode: int, x: torch.Tensor, paths: Dict[str, Callable]) -> None:
@@ -307,11 +318,14 @@ def run_case(
         case = make_case(mode, seed=seed)
     golden = case["golden"]
     with baseline.full_float32(), torch.inference_mode():
-        x, paths = _paths(cfg, case, dev)
+        x, paths, pre = _paths(cfg, case, dev)
         tf32 = baseline.tf32_enabled()
         # Parity first: every path against the independent golden.
         checks = {name: _check(f"{cfg.name}/{name}", paths[name](x), golden, strict)
                   for name in ("cuda", "cudnn", "direct", "winograd_f43") if name in paths}
+        if pre is not None:
+            x_pre, pre_fn = pre
+            checks["pre"] = _check(f"{cfg.name}/pre", pre_fn(x_pre), golden, strict)
         # The reduced-precision tiers hard-fail on their own bars; composed
         # backbones and whole models compound per-layer error.
         is_backbone = isinstance(cfg, (BackboneConfig, BasicNetConfig))
@@ -327,6 +341,8 @@ def run_case(
                                   iterations, warmup)
                  for name in ("cuda", "cudnn")}
         device_us = {name: bench_graph(fn, x) for name, fn in paths.items()}
+        if pre is not None:
+            device_us["pre"] = bench_graph(pre_fn, x_pre)
     for name, us in device_us.items():
         if name in loops:
             loops[name].device_us = us
@@ -377,7 +393,7 @@ def run_case(
         "cudnn_device_us": r_cudnn.device_us,
         "direct_device_us": device_us.get("direct"),
         "winograd_f43_device_us": device_us.get("winograd_f43"),
-        "pre_device_us": None,  # the prepared-input contract waits for ROADMAP.md A2
+        "pre_device_us": device_us.get("pre"),
         "int8_device_us": device_us["int8"],
         "int8_rel_error": rel["int8"],
         "bf16w_device_us": device_us["bf16w"],

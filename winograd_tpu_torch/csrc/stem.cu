@@ -19,9 +19,18 @@
 // Replaces: winograd_tpu/kernels/stem.py::_stem_kernel (stem_fused_pallas,
 // stem_fused_pallas_pre). The TPU kernel consumes a space-to-depth operand
 // built outside it, a relayout that exists for the TPU's 128-lane tiling;
-// this kernel reads the raw image and takes the same w192 weight operand
-// (rows ordered (a, b, u, v, c), tap (r, s) = (2a+u, 2b+v), see
-// models/resnet50.py::stem_filter_s2d), mapping each tap to its row itself.
+// this kernel takes the same w192 weight operand (rows ordered (a, b, u, v,
+// c), tap (r, s) = (2a+u, 2b+v), see models/resnet50.py::stem_filter_s2d),
+// mapping each tap to its row itself, and reads its image in one of two
+// forms. stem_conv7x7_bn_relu_maxpool reads the raw NHWC image, masking
+// each load at the borders. stem_pre_conv7x7_bn_relu_maxpool (the prepared-
+// input contract, stem_fused_pallas_pre's counterpart) reads the operand
+// kernels/stem.py::stem_prepare_input builds on the host: the image
+// zero-padded by 3 on every side and its channels zero-padded to a multiple
+// of 4, (N, H + 6, W + 6, C4). Each pixel is then C4 / 4 aligned 16-byte
+// loads with one bounds check a pixel (the tiles' halos pass the padded
+// image only at its borders), and no division by Cin. The staged patch is
+// the same as the raw route's, so the two entries agree to the bit.
 //
 // Bound on the H100: at 224x224x3 -> 112x112x64 the conv is 236 MFLOP on
 // 0.6 MB of image and 0.8 MB of pooled output: bound by operations, 3.5 us
@@ -109,16 +118,18 @@ __host__ __device__ __forceinline__ size_t smem_bytes(int Cin) {
 
 // Stages `count` values into shared memory with kBatch loads in flight a
 // thread (a block's first touch of its operands is latency bound): at(idx)
-// reads value idx, put(idx, v) stores it.
+// reads value idx (a float, or a float4 of the prepared operand), put(idx,
+// v) stores it.
 template <class At, class Put>
 __device__ __forceinline__ void stage(int count, const At& at, const Put& put) {
+  using V = decltype(at(0));
   constexpr int kBatch = 4;
   for (int base = threadIdx.x; base < count; base += kBatch * kThreads) {
-    float v[kBatch];
+    V v[kBatch];
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       const int idx = base + u * kThreads;
-      v[u] = idx < count ? at(idx) : 0.f;
+      v[u] = idx < count ? at(idx) : V{};
     }
 #pragma unroll
     for (int u = 0; u < kBatch; ++u)
@@ -127,8 +138,10 @@ __device__ __forceinline__ void stage(int count, const At& at, const Put& put) {
 }
 
 // kRound: round the image and the weights to bf16 as they are staged
-// ("bf16"); WT: w192's element type (__nv_bfloat16 at "bf16w").
-template <bool kRound, class WT>
+// ("bf16"); kPre: x is the prepared operand (N, H + 6, W + 6, C4), else the
+// raw image (N, H, W, Cin); WT: w192's element type (__nv_bfloat16 at
+// "bf16w").
+template <bool kRound, bool kPre, class WT>
 __global__ void __launch_bounds__(kThreads, 2) stem_kernel(
     const float* __restrict__ x, const WT* __restrict__ w192,
     const float* __restrict__ scale, const float* __restrict__ bias,
@@ -174,17 +187,41 @@ __global__ void __launch_bounds__(kThreads, 2) stem_kernel(
   // conv row is 2*py0 - 1.
   const int iy0 = 4 * py0 - 5;
   const int ix0 = 4 * px0 - 5;
-  stage(
-      kIR * kIC * Cin,
-      [&](int idx) {
-        const int ci = idx % Cin;
-        const int t = idx / Cin;
-        const int yy = iy0 + t / kIC;
-        const int xx = ix0 + t % kIC;
-        if (yy < 0 || yy >= H || xx < 0 || xx >= W) return 0.f;
-        return x[(static_cast<size_t>(n * H + yy) * W + xx) * Cin + ci];
-      },
-      [&](int idx, float v) { xs[idx] = kRound ? round_bf16(v) : v; });
+  if constexpr (kPre) {
+    // Padded row iy0 + 3 + t / kIC, column ix0 + 3 + t % kIC; item idx is
+    // the 4-channel group idx % g4 of patch pixel t = idx / g4.
+    const int hp = H + 6, wp = W + 6, c4 = (Cin + 3) / 4 * 4, g4 = c4 / 4;
+    stage(
+        kIR * kIC * g4,
+        [&](int idx) {
+          const int t = idx / g4;
+          const int yy = iy0 + 3 + t / kIC;
+          const int xx = ix0 + 3 + t % kIC;
+          if (yy < 0 || yy >= hp || xx < 0 || xx >= wp) return make_float4(0.f, 0.f, 0.f, 0.f);
+          return __ldg(reinterpret_cast<const float4*>(
+              x + (static_cast<size_t>(n * hp + yy) * wp + xx) * c4 + 4 * (idx % g4)));
+        },
+        [&](int idx, float4 v) {
+          const int t = idx / g4;
+          const int c0 = 4 * (idx % g4);
+          const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (c0 + j < Cin) xs[t * Cin + c0 + j] = kRound ? round_bf16(e[j]) : e[j];
+        });
+  } else {
+    stage(
+        kIR * kIC * Cin,
+        [&](int idx) {
+          const int ci = idx % Cin;
+          const int t = idx / Cin;
+          const int yy = iy0 + t / kIC;
+          const int xx = ix0 + t % kIC;
+          if (yy < 0 || yy >= H || xx < 0 || xx >= W) return 0.f;
+          return x[(static_cast<size_t>(n * H + yy) * W + xx) * Cin + ci];
+        },
+        [&](int idx, float v) { xs[idx] = kRound ? round_bf16(v) : v; });
+  }
   __syncthreads();
 
   const int warp = tid / 32, lane = tid % 32;
@@ -259,14 +296,14 @@ __global__ void __launch_bounds__(kThreads, 2) stem_kernel(
   }
 }
 
-template <bool kRound, class WT>
+template <bool kRound, bool kPre, class WT>
 int launch(const float* x, const WT* w192, const float* scale, const float* bias, float* out,
            int N, int H, int W, int Cin, int C, cudaStream_t stream) {
   const long long cblocks = (C + kCB - 1) / kCB;
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || C <= 0 || N * cblocks > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(Cin);
-  const auto kernel = &stem_kernel<kRound, WT>;
+  const auto kernel = &stem_kernel<kRound, kPre, WT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -277,26 +314,43 @@ int launch(const float* x, const WT* w192, const float* scale, const float* bias
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
 // precision: kF32, kBf16 (w192 f32, rounded to bf16 as it is staged) or
 // kBf16w (w192 bf16 in device memory).
+template <bool kPre>
+int dispatch(const float* x, const void* w192, const float* scale, const float* bias,
+             float* out, int N, int H, int W, int Cin, int C, int precision, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* wf = static_cast<const float*>(w192);
+  switch (precision) {
+    case kF32:
+      return launch<false, kPre>(x, wf, scale, bias, out, N, H, W, Cin, C, s);
+    case kBf16:
+      return launch<true, kPre>(x, wf, scale, bias, out, N, H, W, Cin, C, s);
+    case kBf16w:
+      return launch<false, kPre>(x, static_cast<const __nv_bfloat16*>(w192), scale, bias, out,
+                                 N, H, W, Cin, C, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// x: the raw image (N, H, W, Cin).
 extern "C" int stem_conv7x7_bn_relu_maxpool(const float* x, const void* w192,
                                             const float* scale,
                                             const float* bias, float* out,
                                             int N, int H, int W, int Cin,
                                             int C, int precision, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  const auto* wf = static_cast<const float*>(w192);
-  switch (precision) {
-    case kF32:
-      return launch<false>(x, wf, scale, bias, out, N, H, W, Cin, C, s);
-    case kBf16:
-      return launch<true>(x, wf, scale, bias, out, N, H, W, Cin, C, s);
-    case kBf16w:
-      return launch<false>(x, static_cast<const __nv_bfloat16*>(w192), scale, bias, out, N, H,
-                           W, Cin, C, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(x, w192, scale, bias, out, N, H, W, Cin, C, precision, stream);
+}
+
+// xb: the prepared operand (N, H + 6, W + 6, C4) of an H x W image with Cin
+// channels, C4 = Cin rounded up to a multiple of 4 (kernels/stem.py::
+// stem_prepare_input), 16-byte aligned.
+extern "C" int stem_pre_conv7x7_bn_relu_maxpool(const float* xb, const void* w192,
+                                                const float* scale, const float* bias,
+                                                float* out, int N, int H, int W, int Cin,
+                                                int C, int precision, void* stream) {
+  return dispatch<true>(xb, w192, scale, bias, out, N, H, W, Cin, C, precision, stream);
 }

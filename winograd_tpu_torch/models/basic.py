@@ -34,6 +34,11 @@ to INT8_BF16_MAX_COUT output channels F(2,3) on the bf16 filter u2_*_bf16,
 above it the int8 Winograd on u2_*_q; on small maps the int8 direct 3x3.
 At full-width ResNet-34: stem (bf16) 1, Winograd (bf16 filter) 6,
 winograd_int8 18, pointwise_int8 7, direct_int8 1, basic_stage_int8 1.
+
+basicnet_forward_pre (the JAX package's basicnet_forward_pre) serves the
+prepared-input contract at "f32" or "bf16w": the stem on the operand
+kernels/stem.py::stem_prepare_input built on the host (models/resnet50.py::
+stem_pre), then basicnet_forward's stages and head.
 """
 
 from __future__ import annotations
@@ -76,14 +81,15 @@ from winograd_tpu_torch.models.convert import (
     stem_filter_s2d,
 )
 from winograd_tpu_torch.models.resnet import check_precision
-from winograd_tpu_torch.models.resnet50 import _images, head, head_int8, stem
+from winograd_tpu_torch.models.resnet50 import (
+    _images, _prepared, head, head_int8, stem, stem_pre,
+)
 
 __all__ = [
     "FUSED_STAGE_MIN_CHANNELS", "INT8_BF16_MAX_COUT", "SMALL_MAP_PIXELS",
     "attach_fused_stage_artifacts", "basic_block", "basic_block_int8", "basicnet_arrays",
-    "basicnet_forward",
-    "basicnet_forward_int8", "basicnet_params", "basicnet_stages", "cast_basicnet_bf16w",
-    "downsample_basic_block",
+    "basicnet_forward", "basicnet_forward_int8", "basicnet_forward_pre", "basicnet_params",
+    "basicnet_stages", "cast_basicnet_bf16w", "downsample_basic_block",
     "downsample_basic_block_int8", "fused_stage_eligible", "init_basicnet_arrays",
     "quantize_basicnet",
 ]
@@ -199,6 +205,18 @@ def basicnet_forward(x, params: Dict, device="cuda", precision: str = "f32") -> 
     h = basicnet_stages(h, params["stages"], precision)
     logits = head(h, params["head"], precision)
     return logits[0] if squeeze else logits
+
+
+def basicnet_forward_pre(xb, params: Dict, device="cuda", precision: str = "f32",
+                         h: int = 224, w: int = 224) -> torch.Tensor:
+    """(N, num_classes) logits from the prepared operand xb (kernels/stem.py::
+    stem_prepare_input of N h x w images, float32) on params that live on
+    `device`, at `precision` ("f32", or "bf16w" on parameters from
+    cast_basicnet_bf16w)."""
+    device = _build.require_device(device)
+    hh = stem_pre(_prepared(xb, device), params["stem"], precision, h, w)
+    hh = basicnet_stages(hh, params["stages"], precision)
+    return head(hh, params["head"], precision)
 
 
 # --- the int8 tier ------------------------------------------------------------

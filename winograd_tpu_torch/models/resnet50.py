@@ -22,7 +22,12 @@ launch); the projection block per layer, int8 pointwise 3 and int8 direct 1
 (the add and ReLU are PyTorch ops); the int8 transition kernel 3; the int8
 stage kernel 4 (F(2,3) on bf16 filters at conv2_x and conv3_x, the int8
 direct mid at conv4_x and conv5_x); the head int8 pointwise 1. 13 launches
-in all."""
+in all.
+
+resnet50_forward_pre (the JAX package's resnet50_forward_pre) serves the
+prepared-input contract: the stem reads the operand kernels/stem.py::
+stem_prepare_input built on the host (stem_pre, counted as "stem_pre" or
+"stem_pre_bf16w"), the rest is resnet50_forward's, at "f32" or "bf16w"."""
 
 from __future__ import annotations
 
@@ -47,7 +52,7 @@ from winograd_tpu_torch.kernels.quantized import (
     quantize_transition_params,
     quantize_weights,
 )
-from winograd_tpu_torch.kernels.stem import stem_fused, stem_s2d_cols
+from winograd_tpu_torch.kernels.stem import stem_fused, stem_fused_pre, stem_s2d_cols
 from winograd_tpu_torch.models.convert import (
     cast_bf16w,
     params_from_jax,
@@ -65,7 +70,8 @@ from winograd_tpu_torch.ops.torch_ops import maxpool3x3_s2
 __all__ = [
     "cast_bf16w", "head", "head_int8", "init_resnet50_arrays", "init_resnet50_params",
     "projection_block_int8", "quantize_resnet50", "resnet50_arrays", "resnet50_forward",
-    "resnet50_forward_int8", "resnet50_params", "stem", "stem_filter_s2d",
+    "resnet50_forward_int8", "resnet50_forward_pre", "resnet50_params", "stem",
+    "stem_filter_s2d", "stem_pre",
 ]
 
 
@@ -86,6 +92,15 @@ def stem(x: torch.Tensor, params: Dict, precision: str = "f32",
     h = maxpool3x3_s2(conv1x1_bn(cols, params["w192_stem"], params["s_stem"], params["b_stem"],
                                  relu=True))
     return h[0] if squeeze else h
+
+
+def stem_pre(xb: torch.Tensor, params: Dict, precision: str = "f32", h: int = 224,
+             w: int = 224) -> torch.Tensor:
+    """The stem on a prepared operand (kernels/stem.py::stem_prepare_input)
+    of an h x w image, at precision "f32", "bf16w" or "bf16"; keys as
+    stem's. Equal to stem(x, params, precision) to the bit."""
+    return stem_fused_pre(xb, params["w192_stem"], params["s_stem"], params["b_stem"], h, w,
+                          precision)
 
 
 def head(x: torch.Tensor, params: Dict, precision: str = "f32") -> torch.Tensor:
@@ -114,6 +129,23 @@ def resnet50_forward(x, params: Dict, device="cuda", precision: str = "f32") -> 
     h = resnet50_stages(h, params["stages"], precision)
     logits = head(h, params["head"], precision)
     return logits[0] if squeeze else logits
+
+
+def _prepared(xb, device) -> torch.Tensor:
+    return torch.as_tensor(xb, dtype=torch.float32, device=device).contiguous()
+
+
+def resnet50_forward_pre(xb, params: Dict, device="cuda", precision: str = "f32",
+                         h: int = 224, w: int = 224) -> torch.Tensor:
+    """(N, num_classes) logits from the prepared operand xb (kernels/stem.py::
+    stem_prepare_input of N h x w images, float32) on params that live on
+    `device`: stem_pre, then resnet50_forward's layers at `precision`
+    ("f32", or "bf16w" on parameters from cast_bf16w)."""
+    device = _build.require_device(device)
+    hh = stem_pre(_prepared(xb, device), params["stem"], precision, h, w)
+    hh = projection_bottleneck_block(hh, params["proj"], precision)
+    hh = resnet50_stages(hh, params["stages"], precision)
+    return head(hh, params["head"], precision)
 
 
 def quantize_resnet50(params: Dict) -> Dict:

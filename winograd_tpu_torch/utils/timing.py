@@ -9,7 +9,8 @@ jax.block_until_ready in the JAX package), and a chained measurement,
 dispatch. bench_graph gives the device time per call: the calls captured
 in one CUDA graph and replayed between CUDA events, so no host time is in
 it. It takes the place of the JAX package's bench_scan, whose two-length
-slope cancelled the dispatch floor of a remote TPU.
+slope cancelled the dispatch floor of a remote TPU. capture_graph is the one
+capture both bench_graph and the serving engines (engine.py) go through.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from __future__ import annotations
 import dataclasses
 import statistics
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import torch
 
@@ -106,6 +107,47 @@ def bench_loop(
     )
 
 
+# Graphs whose capture failed. PyTorch's allocator keeps an entry that
+# refers to such a graph, so it is kept alive; its pool stays recording and
+# is not captured into again.
+_FAILED_GRAPHS: List[torch.cuda.CUDAGraph] = []
+
+
+def capture_graph(
+    fn: Callable,
+    warmup: int = 1,
+    calls: int = 1,
+    pool=None,
+    what: str = "the path",
+) -> Tuple[torch.cuda.CUDAGraph, object]:
+    """fn() captured `calls` times into one CUDA graph, in the memory pool
+    `pool` (a private one when None), after `warmup` eager calls on a side
+    stream: those build the kernels' libraries and host plans, so nothing is
+    built or loaded inside the capture. Returns the graph and the last
+    captured call's output. A capture that fails (a host synchronize, a copy
+    from pageable host memory) raises a RuntimeError naming `what` and the
+    reason, after restoring the current stream; the caller must not capture
+    into `pool` again."""
+    stream = torch.cuda.current_stream()
+    side = torch.cuda.Stream()
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            fn()
+    stream.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, pool=pool):
+            for _ in range(calls):
+                out = fn()
+    except RuntimeError as e:
+        # A failed capture leaves the capture stream current.
+        torch.cuda.set_stream(stream)
+        _FAILED_GRAPHS.append(graph)
+        raise RuntimeError(f"{what} cannot be captured in a CUDA graph: {e}") from e
+    return graph, out
+
+
 def bench_graph(
     fn: Callable,
     x: Optional[torch.Tensor] = None,
@@ -113,28 +155,16 @@ def bench_graph(
     replays: int = 20,
 ) -> Optional[float]:
     """Device microseconds per call of fn(x) (of fn() without x): the
-    protocol's BENCH_WARMUP eager calls on a side stream, then `calls` calls
-    captured in one CUDA graph, the median of `replays` replays between two
-    CUDA events, divided by `calls`. The inputs stay in L2 between calls where they fit. None
-    when x lies on the CPU. A path that cannot be captured (a host
-    synchronize inside it, a copy from pageable host memory) raises with
-    the capture's reason: it is never timed eagerly instead."""
+    protocol's BENCH_WARMUP eager calls, then `calls` calls captured in one
+    CUDA graph (capture_graph), the median of `replays` replays between two
+    CUDA events, divided by `calls`. The inputs stay in L2 between calls
+    where they fit. None when x lies on the CPU. A path that cannot be
+    captured raises with the capture's reason: it is never timed eagerly
+    instead."""
     if x is not None and not x.is_cuda:
         return None
     thunk = fn if x is None else (lambda: fn(x))
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(BENCH_WARMUP):
-            thunk()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            for _ in range(calls):
-                thunk()
-    except RuntimeError as e:
-        raise RuntimeError(f"bench_graph: the path cannot be captured in a CUDA graph: {e}") from e
+    graph, _ = capture_graph(thunk, warmup=BENCH_WARMUP, calls=calls, what="bench_graph: the path")
     graph.replay()
     pairs = []
     for _ in range(replays):
