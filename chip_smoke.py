@@ -107,10 +107,41 @@ Phases, each of which must pass (exit 1 otherwise):
    weights into a temporary file under build/, then from_checkpoint; one
    image's logits within 1e-4 * max(1, max|ref|) of the engine's on the
    full parameters (phases 3 and 7).
+10c. training and training_bf16w: full-width ResNet-50 (bench mode 19's
+   configuration) and ResNet-18 (mode 25's), seeded, their trainable sets
+   (raw filters, folded BN), one N=1 train step each at f32 and at bf16w
+   through models/resnet50.py::resnet50_forward_train and
+   models/basic.py::basicnet_forward_train (kernels/vjp.py): the loss
+   sum(out^2), its gradients with respect to every leaf, and the step
+   scalar, the loss plus every leaf's squared norm (bench/cli.py::
+   train_step). Counted as a served run (counters zeroed just before the
+   step, read just after): the launches of one step must equal
+   EXPECTED_TRAIN_STEP (forward and backward; derived from the code and
+   listed there). Held to the same f32 step through the plain versions on
+   the CPU in float64: the f32 scalar within TRAIN_RTOL (1e-3) relative and
+   every f32 gradient leaf within 1e-3 * max(1, max|ref|); the bf16w scalar
+   within BF16W_TRAIN_GRAD_RTOL (2e-2) of the float64 f32 scalar (its
+   worst leaf is printed, not held: bf16 weights move single leaves by
+   more). The line gives the step's device time replayed from a CUDA graph
+   (bench_graph, as the CLI times) and eager (one step between CUDA
+   events, median of 10), at f32 the cuDNN autograd step's (baseline/
+   cudnn.py's forward on the same weights, TF32 off) both ways, for
+   ResNet-50 one SGD step of models/train.py::make_resnet50_train_step
+   (forward, backward, momentum update on a copy of the weights: its loss
+   within 2 * 1e-4 (f32) or 2 * 5e-3 (bf16w) * max(1, max|logits|) of
+   the cross-entropy of the cuDNN forward's logits) replayed and eager,
+   the phase's peak device memory, and an eager step under torch.profiler
+   (device ms by kernel name, the number of device kernels).
 11. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the first request of phases 3, 4a, 5, 7, 8a and 9 gave it
-   (recorded by shape in kernels/_build.py; the stem's prepared-input entry
-   at the shapes of the serving_pre runs), and at shapes off the served
+   every shape the first request of phases 3, 4a, 5, 7, 8a and 9 and the
+   counted step of each training phase gave it (recorded by shape in
+   kernels/_build.py; the stem's prepared-input entry at the shapes of the
+   serving_pre runs; the training's shapes include the 3x3 data gradients
+   through the F(2,3) Winograd at 56x56x64, 28x28x128 and 14x14x256 and the
+   direct 3x3 at 7x7x512, the f32 stage over conv5_x's two blocks and at
+   one block for conv3_x and conv4_x, and the pointwise kernel on the
+   stem's patch columns (12544 x 192 x 64) and the transitions' strided
+   im2col columns (K = 9 Cmid)), and at shapes off the served
    N=1 lists (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and
    9; the conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
@@ -175,7 +206,10 @@ Phases, each of which must pass (exit 1 otherwise):
    and the maxpool, in f32.
 11a. bench: the benchmark CLI (python -m winograd_tpu_torch.bench) through
    its run_case, strict, at the reference's protocol (100 iterations, 2
-   warm-ups), for modes 0-6, 9, 11, 16 and 22-24 (BENCH_MODES): the seeded
+   warm-ups), for modes 0-6, 9, 11, 16, 17, 19 and 22-25 (BENCH_MODES; 17,
+   19 and 25 the training steps, no int8 column, their
+   train_grad_rel_error and train_bf16w_grad_rel_error within their
+   bars): the seeded
    case and its float64 golden (datagen), the in-house kernels, the cuDNN
    baseline with TF32 off, and the direct, F(4,3), int8, bf16w and pre
    (the prepared-input route, modes 16 and 22-24) columns where the mode
@@ -185,12 +219,14 @@ Phases, each of which must pass (exit 1 otherwise):
    before it). A breach, TF32 on, or a path of the mode with no device time
    fails the run.
 12. a "kernels" JSON line (per-image sums over each path's shapes, both
-   models and all tiers; the stem row sums its f32 and bf16 shapes, the
+   models and all tiers, and per-step sums over the training phases'
+   shapes; the stem row sums its f32 and bf16 shapes, the
    Winograd row its f32 and bf16-filter shapes; the bf16w instantiations
    and the stem's prepared-input entry are rows of their own,
    "<kernel>_bf16w", "stem_pre", their source the kernel's file;
    "launches" the wrappers' launches in the counted runs, the warm-up and
-   capture passes; a replay launches no wrapper), the card line, and last
+   capture passes, and in the training phases' counted steps; a replay
+   launches no wrapper), the card line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -236,6 +272,35 @@ EXPECTED_PER_FORWARD_BASIC_INT8 = {
     "stem": 1, "winograd": 6, "winograd_int8": 18, "pointwise_int8": 7, "direct_int8": 1,
     "basic_stage_int8": 1,
 }
+# One N=1 train step (the training phases), forward and backward: at f32 the
+# forward's stem 1, pointwise 4, Winograd 1, stage 10 and transition 3
+# (ResNet-50), stem 1, Winograd 10, pointwise 7, direct 1 and basic_stage 1
+# (ResNet-18); the backward's rematerialized per-layer forwards and the
+# 3x3s' data gradients (models/*, kernels/vjp.py): ResNet-50 pointwise 40
+# (each block's reduce and expand, the transitions' four 1x1s, the
+# projection's three, the stem's patch GEMM), Winograd 22 (the F(2,3) mid
+# and its data gradient of conv2_x, conv3_x and conv4_x blocks and the
+# projection) and direct 4 (conv5_x's mids and their data gradients);
+# ResNet-18 Winograd 10 and direct 5 (data gradients; the basic stage's two
+# convs rematerialized) and pointwise 1 (the stem). At bf16w the forward's
+# launches move to the bf16w instantiations; the backward is f32.
+_R50_BWD = {"pointwise": 40, "winograd": 22, "direct": 4}
+_R18_BWD = {"winograd": 10, "direct": 5, "pointwise": 1}
+EXPECTED_TRAIN_STEP = {
+    ("resnet50", None): {"stem": 1, "pointwise": 44, "winograd": 23, "stage": 10,
+                         "transition": 3, "direct": 4},
+    ("resnet50", "bf16w"): {"stem_bf16w": 1, "pointwise_bf16w": 4, "winograd_bf16w": 1,
+                            "stage_bf16w": 10, "transition_bf16w": 3, **_R50_BWD},
+    ("resnet18", None): {"stem": 1, "winograd": 20, "pointwise": 8, "direct": 6,
+                         "basic_stage": 1},
+    ("resnet18", "bf16w"): {"stem_bf16w": 1, "winograd_bf16w": 10, "pointwise_bf16w": 7,
+                            "direct_bf16w": 1, "basic_stage_bf16w": 1, **_R18_BWD},
+}
+# The f32 train step's scalar and every gradient leaf against the float64
+# step through the plain versions: within TRAIN_RTOL * max(1, max|ref|)
+# (the leaves) and relative (the scalar); the bf16w step's scalar within
+# config.BF16W_TRAIN_GRAD_RTOL of the same float64 f32 step.
+TRAIN_RTOL = 1e-3
 SOURCES = {
     "pointwise": ("winograd_tpu/kernels/pointwise.py:67",
                   ["winograd_tpu/kernels/pointwise.py:67 _matmul_bn_kernel"]),
@@ -292,8 +357,9 @@ WIDE_WINOGRAD_INT8 = [(1, 14, 14, 1152, 128, True), (1, 14, 14, 2048, 256, True)
 # The benchmark CLI's modes run in the bench phase: the reference's six
 # layer cases, a block at two geometries, a transition, the stem and the
 # three classifiers at N=1 (the last four with the prepared-input route).
-BENCH_MODES = (0, 1, 2, 3, 4, 5, 6, 9, 11, 16, 22, 23, 24)
+BENCH_MODES = (0, 1, 2, 3, 4, 5, 6, 9, 11, 16, 17, 19, 22, 23, 24, 25)
 PRE_MODES = (16, 22, 23, 24)
+TRAIN_MODES = (17, 19, 25)
 # The twin's arithmetic (quantized once a row, exact int32 sums, epilogues
 # rounded as the twin rounds, the int8 Winograd's transforms in FP64 rounded
 # once): the kernel equals its twin. So do the stem and the Winograd at
@@ -343,10 +409,12 @@ def main() -> int:
 
     import torch.nn.functional as F
 
+    from winograd_tpu_torch.baseline import cudnn as baseline
     from winograd_tpu_torch.config import (
-        BF16W_RTOL_BACKBONE, INT8_RTOL_BACKBONE, ResNet34Config, ResNet50Config,
+        BF16W_RTOL_BACKBONE, BF16W_TRAIN_GRAD_RTOL, CASES, INT8_RTOL_BACKBONE, ResNet34Config,
+        ResNet50Config,
     )
-    from winograd_tpu_torch.bench.cli import run_case
+    from winograd_tpu_torch.bench.cli import run_case, train_step, train_step_scalar
     from winograd_tpu_torch.engine import (
         CAPTURE_PASSES, ResNet50Engine, ResNetBasicEngine, engine_from_torch,
     )
@@ -371,13 +439,13 @@ def main() -> int:
         conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain, winograd_plan,
     )
     from winograd_tpu_torch.models.basic import (
-        basicnet_arrays, basicnet_forward, basicnet_forward_int8, basicnet_params,
-        cast_basicnet_bf16w, init_basicnet_arrays, quantize_basicnet,
+        basicnet_arrays, basicnet_forward, basicnet_forward_int8, basicnet_forward_train,
+        basicnet_params, cast_basicnet_bf16w, init_basicnet_arrays, quantize_basicnet,
     )
     from winograd_tpu_torch.models.checkpoint import save_model
     from winograd_tpu_torch.models.import_torch import build_torch_reference_resnet
     from winograd_tpu_torch.models.train import (
-        trainable_basicnet_params, trainable_resnet50_params,
+        make_resnet50_train_step, trainable_basicnet_params, trainable_resnet50_params,
     )
     from winograd_tpu_torch.models.convert import (
         cast_bf16w, params_from_jax, params_to, stem_filter_s2d,
@@ -385,9 +453,10 @@ def main() -> int:
     from winograd_tpu_torch.utils.checker import ParityError
     from winograd_tpu_torch.models.resnet50 import (
         init_resnet50_arrays, init_resnet50_params, quantize_resnet50, resnet50_forward,
-        resnet50_forward_int8,
+        resnet50_forward_int8, resnet50_forward_train,
     )
     from winograd_tpu_torch.utils.timing import bench_graph
+    from winograd_tpu_torch.utils.tree import tree_map
 
     dev = torch.device("cuda", 0)
     failures = []
@@ -1080,6 +1149,16 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile
 
+    def by_kernel(prof, reps=1):
+        """A profile's device ms by kernel name, per rep, and its number of
+        device kernels."""
+        out, kernels = collections.defaultdict(float), 0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
+                out[_kernel_name(e.key)] += e.device_time_total / reps / 1e3
+                kernels += e.count
+        return out, kernels
+
     def profile_phase(engine, eager, phase):
         """torch.profiler over served requests (graph replays). Where the
         trace holds no kernel of a replay, the names and busy time come from
@@ -1095,14 +1174,7 @@ def main() -> int:
                 window_ms = 1e3 * (time.perf_counter() - t0) / reps
             source = "replays"
 
-            def by_kernel(p):
-                out = collections.defaultdict(float)
-                for e in p.key_averages():
-                    if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0:
-                        out[_kernel_name(e.key)] += e.device_time_total / reps / 1e3
-                return out
-
-            by_name = by_kernel(prof)
+            by_name, _ = by_kernel(prof, reps)
             if not any(not k.startswith(("Memcpy", "Memset")) for k in by_name):
                 source = "eager forwards (no kernel of a replay in the trace)"
                 x = torch.as_tensor(images[:n], device=dev)
@@ -1111,7 +1183,7 @@ def main() -> int:
                     for _ in range(reps):
                         eager(x)
                         sync()
-                by_name = by_kernel(prof)
+                by_name, _ = by_kernel(prof, reps)
             busy = sum(by_name.values())
             check(0 < busy <= window_ms, f"{phase} N={n}: device busy {busy} ms of {window_ms} ms")
             print(json.dumps({
@@ -1245,6 +1317,110 @@ def main() -> int:
                               "peak_mib": peak_mib()}), flush=True)
             del loaded
 
+    # -- training: one N=1 step of full-width ResNet-50 and ResNet-18 -------
+    # Bench mode 19's and 25's configurations, seeded; the trainable sets
+    # (raw filters, folded BN).
+    cfg19, cfg25 = CASES[19], CASES[25]
+    trainees = {
+        "resnet50": (resnet50_forward_train, baseline.resnet50_forward_cudnn,
+                     trainable_resnet50_params(init_resnet50_arrays(cfg19, seed=0))),
+        "resnet18": (basicnet_forward_train, baseline.basicnet_forward_cudnn,
+                     trainable_basicnet_params(basicnet_arrays(init_basicnet_arrays(cfg25, seed=0),
+                                                               cfg25))),
+    }
+
+    def cpu_step(model):
+        """The f32 step through the plain versions on the CPU in float64: the
+        scalar and the gradient leaves."""
+        forward, _, tree = trainees[model]
+        t0 = time.perf_counter()
+        scalar, grads = train_step(lambda x_, p: forward(x_, p, None, "cpu"),
+                                   baseline.tensors(tree, "cpu", torch.float64))(
+            torch.as_tensor(images[:1], dtype=torch.float64))
+        return scalar.item(), grads, time.perf_counter() - t0
+
+    def training_phase(model, precision, golden):
+        """One N=1 train step on the card, counted (counters zeroed just
+        before, the launches pinned to EXPECTED_TRAIN_STEP), held to the
+        float64 CPU step; then its device time replayed from a CUDA graph
+        and eager, the cuDNN autograd step's (at f32) and, for ResNet-50, the
+        SGD step's (make_resnet50_train_step: forward, backward, update)."""
+        phase = "training" if precision is None else "training_bf16w"
+        forward, cudnn_forward, tree = trainees[model]
+        phase_start()
+        params = baseline.tensors(tree, dev)
+        fwd = lambda x_, p: forward(x_, p, precision, dev)  # noqa: E731
+        x1 = torch.as_tensor(images[:1], device=dev)
+        _build.reset_counts()
+        scalar, grads = train_step(fwd, params)(x1)
+        sync()
+        launches = dict(_build.LAUNCHES)
+        shapes = {name: collections.Counter(c) for name, c in _build.LAUNCH_SHAPES.items()}
+        expected = EXPECTED_TRAIN_STEP[(model, precision)]
+        check(launches == expected, f"{phase} {model}: launches {launches}, want {expected}")
+        g_scalar, g_grads, golden_s = golden
+        scalar = scalar.item()
+        rel = abs(scalar - g_scalar) / max(abs(g_scalar), 1.0)
+        bar = TRAIN_RTOL if precision is None else BF16W_TRAIN_GRAD_RTOL
+        check(bool(np.isfinite(scalar)) and rel < bar,
+              f"{phase} {model}: step scalar {scalar} vs float64 {g_scalar}: {rel} >= {bar}")
+        leaf_err = [(g.cpu().double() - r).abs().max().item() / max(1.0, r.abs().max().item())
+                    for g, r in zip(grads, g_grads)]
+        finite = all(bool(torch.isfinite(g).all()) for g in grads)
+        check(len(grads) == len(g_grads) and finite, f"{phase} {model}: gradient leaves")
+        if precision is None:
+            check(max(leaf_err) <= TRAIN_RTOL,
+                  f"{phase} {model}: worst gradient leaf {max(leaf_err)} > {TRAIN_RTOL}")
+        step = train_step_scalar(fwd, params)
+        line = {"phase": phase, "model": model, "step_scalar": scalar,
+                "golden_step_scalar": g_scalar, "scalar_rel_err": rel, "scalar_bar": bar,
+                "worst_leaf_err": max(leaf_err), "leaves": len(grads),
+                "leaf_bar": TRAIN_RTOL if precision is None else None,
+                "golden_cpu_s": golden_s, "launches": launches,
+                "step_replayed_ms": device_ms(lambda: step(x1)),
+                "step_eager_ms": wrapper_ms(lambda: step(x1), reps=10)}
+        if precision is None:
+            cudnn_step = train_step_scalar(cudnn_forward, params)
+            line["cudnn_step_replayed_ms"] = device_ms(lambda: cudnn_step(x1))
+            line["cudnn_step_eager_ms"] = wrapper_ms(lambda: cudnn_step(x1), reps=10)
+        if model == "resnet50":
+            sgd = make_resnet50_train_step(lr=1e-2, precision=precision)
+            trained_p = baseline.tensors(tree, dev)
+            mom = tree_map(torch.zeros_like, trained_p)
+            labels = torch.zeros(1, dtype=torch.long, device=dev)
+            _, _, loss = sgd(trained_p, mom, x1, labels)
+            with torch.no_grad():
+                ref_logits = cudnn_forward(x1, params)
+                want = torch.nn.functional.cross_entropy(ref_logits, labels)
+            # A cross-entropy moves at most twice as far as the logits do.
+            loss_err = abs(loss.item() - want.item())
+            loss_tol = (2 * (ATOL if precision is None else BF16W_RTOL_BACKBONE)
+                        * max(1.0, ref_logits.abs().max().item()))
+            check(loss_err <= loss_tol, f"{phase} {model}: SGD step loss {loss.item()} vs the "
+                  f"cuDNN forward's cross-entropy {want.item()}")
+            line.update(sgd_loss=loss.item(), sgd_loss_err=loss_err, sgd_loss_tol=loss_tol,
+                        sgd_step_replayed_ms=device_ms(lambda: sgd(trained_p, mom, x1, labels)[2]),
+                        sgd_step_eager_ms=wrapper_ms(lambda: sgd(trained_p, mom, x1, labels),
+                                                     reps=10))
+        line["peak_mib"] = peak_mib()
+        # Where an eager step's device time goes, by kernel name.
+        step(x1)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(x1)
+            sync()
+        by_name, kernels = by_kernel(prof)
+        line.update(eager_device_busy_ms=sum(by_name.values()), eager_device_kernels=kernels,
+                    device_ms_by_kernel=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:12]))
+        print(json.dumps(line), flush=True)
+        return {"phase": phase, "launches": launches, "shapes": shapes, "per_step": True}
+
+    for model in trainees:
+        golden = cpu_step(model)
+        for precision in (None, "bf16w"):
+            served.append(training_phase(model, precision, golden))
+        del golden
+
     # -- kernels against their plain versions ------------------------------
     make_case = {"pointwise": pointwise_case, "winograd": winograd_case,
                  "direct": direct_case, "stem": stem_case, "stage": stage_case,
@@ -1335,10 +1511,11 @@ def main() -> int:
     for rec in served:
         all_launches.update(rec["launches"])
         pre = rec["phase"].startswith("serving_pre")
+        passes = 1 if rec.get("per_step") else CAPTURE_PASSES
         for name, counter in rec["shapes"].items():
             if pre and not name.startswith("stem_pre"):
                 continue
-            per_image[name].update({shape: c // CAPTURE_PASSES for shape, c in counter.items()})
+            per_image[name].update({shape: c // passes for shape, c in counter.items()})
     totals = {}
     rng = np.random.default_rng(0)
     for name in make_case:
@@ -1346,7 +1523,7 @@ def main() -> int:
         tot = collections.defaultdict(float)
         tot["max_abs_err"] = 0.0
         lib_ok = True
-        for shape in list(counter) + extra.get(name, []):
+        for shape in dict.fromkeys(list(counter) + extra.get(name, [])):
             n_img = counter.get(shape, 0)
             kern, plain, lib, work, nbytes = make_case[name](rng, *shape)
             exact = name in EXACT or name in ("stem", "winograd") and shape[-1] == "bf16"
@@ -1394,7 +1571,7 @@ def main() -> int:
             check(False, f"bench mode {mode}: {type(e).__name__}: {e}")
             continue
         launches = dict(_build.LAUNCHES)
-        has = {"cuda": True, "cudnn": True, "int8": True, "bf16w": True,
+        has = {"cuda": True, "cudnn": True, "int8": mode not in TRAIN_MODES, "bf16w": True,
                "direct": row["max_error_direct"] is not None,
                "winograd_f43": row["max_error_winograd_f43"] is not None,
                "pre": mode in PRE_MODES}

@@ -1,7 +1,8 @@
 """The port's benchmark surface against the JAX package's, on the CPU: the
 case table, FLOP counts, protocol and bars; run_case's parity on the layer
-modes, the stem and tiny model configs at every tier; mode 2's row against
-the JAX CLI's; the hard failure on a breach; the unported modes; the
+modes, the stem and tiny model configs at every tier, the training modes'
+branches at tiny configs; mode 2's row against the JAX CLI's; the hard
+failure on a breach; the unported modes; the
 protocol of bench_loop and bench_graph; the CLI's flags. On the CPU every
 kernel runs as its plain version and no device time is given."""
 
@@ -173,8 +174,54 @@ def test_no_strict_reports_a_breach_without_raising(monkeypatch):
     assert not r["parity_ok"] and r["max_error_cuda"] > 0.5
 
 
-@pytest.mark.parametrize("mode,item", [(17, "A7"), (19, "A7"), (25, "A7"), (20, "A6"),
-                                       (21, "A6"), (27, "A6"), (28, "A6")])
+@dataclasses.dataclass(frozen=True)
+class _TinyTrainBackbone(config.TrainConfig):
+    stages = ((32, 8, 8, 1), (64, 16, 4, 1))
+
+
+@dataclasses.dataclass(frozen=True)
+class _TinyTrainR50(config.FullTrainConfig):
+    stages = ((32, 16, 8, 1), (64, 16, 4, 1))
+    img: int = 32
+    stem_c: int = 16
+    num_classes: int = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class _TinyTrainBasic(config.BasicTrainConfig):
+    stages = ((16, 16, 2), (32, 8, 2))
+    img: int = 32
+    stem_c: int = 16
+    num_classes: int = 16
+
+
+TINY_TRAIN = {17: _TinyTrainBackbone("tiny_backbone_trainstep"),
+              19: _TinyTrainR50("tiny_r50_trainstep"),
+              25: _TinyTrainBasic("tiny_basic_trainstep")}
+
+
+@pytest.mark.parametrize("mode", sorted(TINY_TRAIN))
+def test_train_modes_on_the_cpu(mode):
+    """Modes 17, 19 and 25's branches at a tiny config of the same class: the
+    train forwards within the f32 bar of the golden, the bf16w forward
+    within its tier's, the step scalar within 1e-3 of the cuDNN autograd
+    step's and the bf16w step's within BF16W_TRAIN_GRAD_RTOL; no int8
+    column, no device time."""
+    config.CASES[990] = TINY_TRAIN[mode]
+    try:
+        r = run_case(990, iterations=2, warmup=1, device="cpu")
+    finally:
+        del config.CASES[990]
+    assert r["parity_ok"]
+    assert r["max_error_cuda"] <= config.PARITY_ATOL and r["max_error_cudnn"] <= config.PARITY_ATOL
+    assert r["train_grad_rel_error"] < 1e-3
+    assert r["train_bf16w_grad_rel_error"] < config.BF16W_TRAIN_GRAD_RTOL
+    assert r["bf16w_rel_error"] < config.BF16W_RTOL_BACKBONE
+    assert r["int8_rel_error"] is None and r["int8_device_us"] is None
+    assert r["cuda_device_us"] is None and r["cuda_mean_us"] > 0
+
+
+@pytest.mark.parametrize("mode,item", [(20, "A6"), (21, "A6"), (27, "A6"), (28, "A6")])
 def test_unported_modes_exit_2_naming_their_roadmap_item(mode, item, capsys):
     with pytest.raises(SystemExit) as exc:
         main([str(mode), "--device", "cpu"])

@@ -29,8 +29,11 @@ on bf16 w192; the stage at one to five blocks, both mids, conv5_x at N=1 and
 F(2,3), the direct 3x3 and the basic stage at their served ResNet-34 shapes
 at N=1 and N=8, ragged Cout and Cin), each within the f32 bound of its twin
 and repeating to the bit, and each refusing an activation that is not
-float32; the int8 tier's F(2,3) on bf16 filters (FP64) equal to its twin.
-Needs an NVIDIA GPU and
+float32; the int8 tier's F(2,3) on bf16 filters (FP64) equal to its twin;
+the training Functions of kernels/vjp.py (each per-layer Function and
+composite, f32 and bf16w) against the same Function on the CPU, output and
+every gradient, and one SGD step replayed from a CUDA graph against the
+same step run eagerly. Needs an NVIDIA GPU and
 nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -1221,3 +1224,130 @@ def test_engine_capture_failure_raises_and_never_serves_eagerly(dev):
     engine._forward = forward
     x = _tiny_images(1, 1)
     assert torch.equal(engine(x), forward(torch.as_tensor(x, device=dev), engine._params, dev))
+
+
+# --- training: kernels/vjp.py on the card ---------------------------------------
+
+
+def _rand_block(rng, cio, cmid, cout=None, proj=False):
+    """A bottleneck's trainable parameters (raw w_mid), numpy."""
+    cout = cout or cio
+    f = lambda *shape: (rng.random(shape) - 0.5).astype(np.float32)  # noqa: E731
+    bn = lambda c: (0.8 + 0.4 * rng.random(c)).astype(np.float32)  # noqa: E731
+    p = {"w_reduce": f(cio, cmid), "s_reduce": bn(cmid), "b_reduce": f(cmid),
+         "w_mid": f(cmid, cmid, 3, 3), "s_mid": bn(cmid), "b_mid": f(cmid),
+         "w_expand": f(cmid, cout), "s_expand": bn(cout), "b_expand": f(cout)}
+    if proj:
+        p.update(w_proj=f(cio, cout), s_proj=bn(cout), b_proj=f(cout))
+    return p
+
+
+def _train_case(name, rng):
+    """(function(x, tree), x, tree) of a training Function, numpy inputs."""
+    from winograd_tpu_torch.kernels import vjp
+
+    f = lambda *shape: (rng.random(shape) - 0.5).astype(np.float32)  # noqa: E731
+    bn = lambda c: (0.8 + 0.4 * rng.random(c)).astype(np.float32)  # noqa: E731
+    prec = "bf16w" if name.endswith("_bf16w") else None
+    base = name.removesuffix("_bf16w")
+    if base in ("pointwise", "winograd2", "winograd4", "direct"):
+        shape = (2, 14, 14, 64) if base == "pointwise" else (1, 14, 14, 64)
+        w = f(64, 32) if base == "pointwise" else f(32, 64, 3, 3)
+        tree = {"w": w, "s": bn(32), "b": f(32)}
+        fn = {"pointwise": lambda x, p: vjp.conv1x1_bn_train(x, p["w"], p["s"], p["b"], True,
+                                                             prec),
+              "winograd2": lambda x, p: vjp.conv3x3_bn_winograd_train(x, p["w"], p["s"], p["b"],
+                                                                      True, 2, prec),
+              "winograd4": lambda x, p: vjp.conv3x3_bn_winograd_train(x, p["w"], p["s"], p["b"],
+                                                                      False, 4),
+              "direct": lambda x, p: vjp.conv3x3_bn_direct_train(x, p["w"], p["s"], p["b"], True,
+                                                                 prec)}[base]
+        return fn, f(*shape), tree
+    if base == "stem":
+        return (lambda x, p: vjp.stem_train_fused(x, p, prec), f(1, 40, 40, 3),
+                {"w7_stem": f(16, 3, 7, 7), "s_stem": bn(16), "b_stem": f(16)})
+    if base == "block":
+        return (lambda x, p: vjp.bottleneck_block_train_fused(x, p, prec), f(1, 28, 28, 64),
+                _rand_block(rng, 64, 32))
+    if base == "transition":
+        return (lambda x, p: vjp.transition_block_train_fused(x, p, prec), f(1, 14, 14, 64),
+                _rand_block(rng, 64, 32, 128, proj=True))
+    if base == "projection":
+        return (lambda x, p: vjp.projection_block_train_fused(x, p, prec), f(1, 28, 28, 32),
+                _rand_block(rng, 32, 16, 64, proj=True))
+    if base in ("stage28", "stage7"):
+        hw = 28 if base == "stage28" else 7
+        return (lambda x, p: vjp.resnet_stage_train_streamed(x, p, prec), f(1, hw, hw, 64),
+                [_rand_block(rng, 64, 32) for _ in range(2)])
+    blocks = [{f"{k}_{leg}": v for leg in ("a", "b")
+               for k, v in (("w", f(64, 64, 3, 3)), ("s", bn(64)), ("b", f(64)))}
+              for _ in range(2)]
+    return (lambda x, p: vjp.basic_stage_train_streamed(x, p, prec), f(1, 7, 7, 64), blocks)
+
+
+def _train_grads(fn, x, tree, device):
+    """fn's output and the gradients of sum(out^2) with respect to x and every
+    leaf of tree, on `device`."""
+    from winograd_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    xt = torch.as_tensor(x, device=device).requires_grad_()
+    tt = tree_map(lambda a: torch.as_tensor(a, device=device).requires_grad_(), tree)
+    out = fn(xt, tt)
+    return [out.detach()] + list(torch.autograd.grad((out * out).sum(), [xt, *tree_leaves(tt)]))
+
+
+TRAIN_CASES = ["pointwise", "winograd2", "winograd4", "direct", "stem", "block", "transition",
+               "projection", "stage28", "stage7", "basic_stage", "pointwise_bf16w",
+               "winograd2_bf16w", "direct_bf16w", "stem_bf16w", "block_bf16w",
+               "transition_bf16w", "stage7_bf16w", "basic_stage_bf16w"]
+
+
+@pytest.mark.parametrize("name", TRAIN_CASES)
+def test_train_function_agrees_with_its_plain_version(dev, name):
+    """Each training Function (its forward the kernel, its 3x3 data gradient
+    a kernel launch) against the same Function on the CPU (the plain
+    versions, the same float32 arithmetic; at bf16w the plain bf16w
+    products): the output and every gradient within 1e-4 * max(1, max|ref|),
+    launching kernels and only kernels of the right family."""
+    fn, x, tree = _train_case(name, np.random.default_rng(len(name)))
+    _build.reset_counts()
+    got = _train_grads(fn, x, tree, dev)
+    launched = set(_build.LAUNCHES)
+    want = _train_grads(fn, x, tree, "cpu")
+    assert launched and len(got) == len(want)
+    assert name.endswith("_bf16w") == any(k.endswith("_bf16w") for k in launched)
+    for g, r in zip(got, want):
+        _agree(g.cpu(), r)
+
+
+def test_train_step_replays_as_it_runs_eagerly(dev):
+    """One SGD step (models/train.py) captured in a CUDA graph and replayed
+    from the same starting weights updates them as an eager step does."""
+    from winograd_tpu_torch.models.resnet50 import init_resnet50_arrays
+    from winograd_tpu_torch.models.train import (
+        make_resnet50_train_step, trainable_resnet50_params,
+    )
+    from winograd_tpu_torch.utils.timing import capture_graph
+    from winograd_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    tree = trainable_resnet50_params(init_resnet50_arrays(_TinyR50("tiny_r50"), seed=3))
+    start = tree_map(lambda a: torch.as_tensor(a, device=dev), tree)
+    x = torch.as_tensor(_tiny_images(7, 2), device=dev)
+    labels = torch.tensor([1, 5], device=dev)
+    step = make_resnet50_train_step(lr=1e-2)
+
+    eager_p = tree_map(torch.clone, start)
+    eager_m = tree_map(torch.zeros_like, start)
+    _, _, eager_loss = step(eager_p, eager_m, x, labels)
+
+    p = tree_map(torch.clone, start)
+    m = tree_map(torch.zeros_like, start)
+    graph, loss = capture_graph(lambda: step(p, m, x, labels)[2], what="the train step")
+    with torch.no_grad():
+        for a, b in zip(tree_leaves(p) + tree_leaves(m),
+                        tree_leaves(start) + [torch.zeros_like(t) for t in tree_leaves(start)]):
+            a.copy_(b)
+    graph.replay()
+    _agree(loss, eager_loss)
+    for a, b in zip(tree_leaves(p) + tree_leaves(m), tree_leaves(eager_p) + tree_leaves(eager_m)):
+        _agree(a, b)

@@ -26,14 +26,28 @@ utils/timing.py::bench_loop): mean and min on the host clock with a
 synchronize per call, chained over back-to-back calls; device time per call
 (`*_device_us`) from calls captured in one CUDA graph and replayed between
 CUDA events (bench_graph). MFU is nominal FLOPs over device time over the
-H100's dense BF16 peak, given on an H100 only. The training modes (17, 19,
-25) and the depth and batch-32 modes (20, 21, 27, 28) are not ported: asked
-for, the CLI exits 2 naming the ROADMAP.md item that ports them.
+H100's dense BF16 peak, given on an H100 only. The depth and batch-32 modes
+(20, 21, 27, 28) are not ported: asked for, the CLI exits 2 naming the
+ROADMAP.md item that ports them.
+
+The training modes (17: the 13-block backbone, 19: the ResNet-50
+classifier, 25: ResNet-18) check the train forwards (kernels/vjp.py
+through models/*::*_train; the cuDNN forward on the same raw weights) and
+the bf16w train forward against the golden, then compute one step scalar
+per path, the loss sum(out^2) plus every gradient leaf's squared norm:
+"cuda" through the port's kernels, "cudnn" through baseline/cudnn.py's
+forward differentiated by autograd with TF32 off, "bf16w" through the
+bf16w forward. train_grad_rel_error (cuda against cudnn) must stay below
+TRAIN_GRAD_RTOL, train_bf16w_grad_rel_error below BF16W_TRAIN_GRAD_RTOL.
+Every timing field of these modes times that whole step (forward,
+backward, the norms), as the JAX package's CLI does; they have no int8
+column.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -51,6 +65,7 @@ from winograd_tpu_torch.config import (
     BENCH_WARMUP,
     BF16W_RTOL,
     BF16W_RTOL_BACKBONE,
+    BF16W_TRAIN_GRAD_RTOL,
     CASES,
     H100_PEAK_FLOPS,
     INT8_RTOL,
@@ -58,9 +73,12 @@ from winograd_tpu_torch.config import (
     PARITY_ATOL,
     BackboneConfig,
     BasicNetConfig,
+    BasicTrainConfig,
     BlockConfig,
+    FullTrainConfig,
     ResNet50Config,
     StemConfig,
+    TrainConfig,
     TransitionConfig,
     case_flops,
 )
@@ -68,14 +86,18 @@ from winograd_tpu_torch.datagen.generate import make_case
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.utils.checker import ParityError, output_checker
 from winograd_tpu_torch.utils.timing import bench_graph, bench_loop
+from winograd_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 # Modes of the JAX package that the port does not run yet, by the ROADMAP.md
 # item that ports them.
 UNPORTED = {
-    17: "A7 (training)", 19: "A7 (training)", 25: "A7 (training)",
     20: "A6 (depth and batch)", 21: "A6 (depth and batch)",
     27: "A6 (depth and batch)", 28: "A6 (depth and batch)",
 }
+TRAIN_CONFIGS = (TrainConfig, FullTrainConfig, BasicTrainConfig)
+# The f32 train step's scalar against the cuDNN autograd step's, relative
+# (the JAX package's CLI's gate).
+TRAIN_GRAD_RTOL = 1e-3
 PORTED = tuple(m for m in sorted(CASES) if m not in UNPORTED)
 
 
@@ -271,6 +293,92 @@ def _paths(cfg, case: Dict[str, np.ndarray], dev: torch.device):
     return x, paths, pre
 
 
+def _train_forwards(cfg, case: Dict[str, np.ndarray], dev: torch.device):
+    """A training mode's input (batched), its trainable parameters (raw
+    filters, folded BN) as tensors on dev, and its forwards (x, params) ->
+    output: "cuda" the port's train forward, "cudnn" baseline/cudnn.py's on
+    the same weights, "bf16w" the port's at the bf16w tier."""
+    from winograd_tpu_torch.models.train import (
+        trainable_basicnet_params, trainable_resnet50_params,
+    )
+
+    if isinstance(cfg, BasicTrainConfig):
+        from winograd_tpu_torch.models.basic import basicnet_arrays, basicnet_forward_train
+
+        tree = trainable_basicnet_params(basicnet_arrays(case, cfg))
+        train, ref = basicnet_forward_train, baseline.basicnet_forward_cudnn
+    elif isinstance(cfg, FullTrainConfig):
+        from winograd_tpu_torch.models.resnet50 import resnet50_arrays, resnet50_forward_train
+
+        tree = trainable_resnet50_params(resnet50_arrays(case, cfg))
+        train, ref = resnet50_forward_train, baseline.resnet50_forward_cudnn
+    else:
+        from winograd_tpu_torch.datagen.generate import backbone_stages
+        from winograd_tpu_torch.models.downsample import resnet50_stages_train
+
+        def raw(d):
+            return {k: v for k, v in d.items() if k not in ("u_mid", "u2_mid", "w9_mid")}
+
+        tree = [{"transition": None if st["transition"] is None else raw(st["transition"]),
+                 "blocks": [raw(b) for b in st["blocks"]]}
+                for st in backbone_stages(cfg, case)]
+        train, ref = resnet50_stages_train, baseline.bottleneck_stages
+    x = torch.as_tensor(np.asarray(case["x"]), dtype=torch.float32, device=dev)
+    forwards = {"cuda": lambda x_, p: train(x_, p, None, dev), "cudnn": ref,
+                "bf16w": lambda x_, p: train(x_, p, "bf16w", dev)}
+    return x[None] if x.dim() == 3 else x, baseline.tensors(tree, dev), forwards
+
+
+def train_step(forward: Callable, params) -> Callable:
+    """x -> (the train-step scalar, the gradient leaves) of forward(x,
+    params): the loss sum(out^2), its gradients with respect to every leaf
+    of params (tree_leaves' order), and the scalar, the loss plus every
+    gradient leaf's squared norm, a 0-d tensor (the JAX package's CLI's
+    protocol: every gradient stays live)."""
+    leaves = tree_leaves(params)
+
+    def step(x):
+        with torch.enable_grad():
+            ps = [p.detach().requires_grad_() for p in leaves]
+            out = forward(x, tree_unflatten(params, ps))
+            loss = (out * out).sum()
+            grads = torch.autograd.grad(loss, ps)
+        norms = torch.stack([torch.vdot(g.reshape(-1), g.reshape(-1)) for g in grads])
+        return loss.detach() + norms.sum(), grads
+
+    return step
+
+
+def train_step_scalar(forward: Callable, params) -> Callable:
+    """x -> train_step's scalar alone."""
+    step = train_step(forward, params)
+    return lambda x: step(x)[0]
+
+
+def _train_checks(cfg, case, dev, golden, strict, extras):
+    """A training mode's parity (module docstring): the forwards against the
+    golden, the step scalars' agreement into extras. Returns the input,
+    the steps by path, the f32 checks, the bf16w tier's error and its
+    bar."""
+    x, params, forwards = _train_forwards(cfg, case, dev)
+    checks = {name: _check(f"{cfg.name}/{name}", forwards[name](x, params), golden, strict)
+              for name in ("cuda", "cudnn")}
+    bar = BF16W_RTOL_BACKBONE if isinstance(cfg, (BackboneConfig, BasicNetConfig)) else BF16W_RTOL
+    rel = {"bf16w": _check_tier(f"{cfg.name}/bf16w", forwards["bf16w"](x, params), golden,
+                                bar, strict)}
+    steps = {name: train_step_scalar(fwd, params) for name, fwd in forwards.items()}
+    scalars = {name: float(step(x)) for name, step in steps.items()}
+    ref = max(abs(scalars["cudnn"]), 1.0)
+    for key, name, tol in (("train_grad_rel_error", "cuda", TRAIN_GRAD_RTOL),
+                           ("train_bf16w_grad_rel_error", "bf16w", BF16W_TRAIN_GRAD_RTOL)):
+        err = abs(scalars[name] - scalars["cudnn"]) / ref
+        print(f"  [{cfg.name}/{key}] {err:.3e} (bar {tol:g})", file=sys.stderr)
+        if strict and not err < tol:
+            raise ParityError(f"{cfg.name}: {name} train-step scalar breach: {err}")
+        extras[key] = err
+    return x, steps, checks, rel, {"bf16w": bar}
+
+
 def _profile(profile_dir: str, mode: int, x: torch.Tensor, paths: Dict[str, Callable]) -> None:
     """One call of each path under torch.profiler (CUDA activity on the
     card), written as a Chrome trace to profile_dir/mode<m>.json."""
@@ -317,22 +425,30 @@ def run_case(
     else:
         case = make_case(mode, seed=seed)
     golden = case["golden"]
-    with baseline.full_float32(), torch.inference_mode():
-        x, paths, pre = _paths(cfg, case, dev)
+    train = isinstance(cfg, TRAIN_CONFIGS)
+    extras: Dict = {}
+    # A training mode differentiates its paths, so it runs outside inference mode.
+    with baseline.full_float32(), (contextlib.nullcontext() if train else torch.inference_mode()):
         tf32 = baseline.tf32_enabled()
-        # Parity first: every path against the independent golden.
-        checks = {name: _check(f"{cfg.name}/{name}", paths[name](x), golden, strict)
-                  for name in ("cuda", "cudnn", "direct", "winograd_f43") if name in paths}
-        if pre is not None:
-            x_pre, pre_fn = pre
-            checks["pre"] = _check(f"{cfg.name}/pre", pre_fn(x_pre), golden, strict)
-        # The reduced-precision tiers hard-fail on their own bars; composed
-        # backbones and whole models compound per-layer error.
-        is_backbone = isinstance(cfg, (BackboneConfig, BasicNetConfig))
-        tols = {"int8": INT8_RTOL_BACKBONE if is_backbone else INT8_RTOL,
-                "bf16w": BF16W_RTOL_BACKBONE if is_backbone else BF16W_RTOL}
-        rel = {tier: _check_tier(f"{cfg.name}/{tier}", paths[tier](x), golden, tol, strict)
-               for tier, tol in tols.items()}
+        if train:
+            # Each path is its whole train step; parity on the forwards.
+            x, paths, checks, rel, tols = _train_checks(cfg, case, dev, golden, strict, extras)
+            pre = None
+        else:
+            x, paths, pre = _paths(cfg, case, dev)
+            # Parity first: every path against the independent golden.
+            checks = {name: _check(f"{cfg.name}/{name}", paths[name](x), golden, strict)
+                      for name in ("cuda", "cudnn", "direct", "winograd_f43") if name in paths}
+            if pre is not None:
+                x_pre, pre_fn = pre
+                checks["pre"] = _check(f"{cfg.name}/pre", pre_fn(x_pre), golden, strict)
+            # The reduced-precision tiers hard-fail on their own bars; composed
+            # backbones and whole models compound per-layer error.
+            is_backbone = isinstance(cfg, (BackboneConfig, BasicNetConfig))
+            tols = {"int8": INT8_RTOL_BACKBONE if is_backbone else INT8_RTOL,
+                    "bf16w": BF16W_RTOL_BACKBONE if is_backbone else BF16W_RTOL}
+            rel = {tier: _check_tier(f"{cfg.name}/{tier}", paths[tier](x), golden, tol, strict)
+                   for tier, tol in tols.items()}
 
         if profile_dir is not None:
             _profile(profile_dir, mode, x, paths)
@@ -374,6 +490,7 @@ def run_case(
 
     r_cuda, r_cudnn = loops["cuda"], loops["cudnn"]
     return {
+        **extras,
         "mode": mode,
         "name": cfg.name,
         "backend": dev.type,
@@ -394,12 +511,12 @@ def run_case(
         "direct_device_us": device_us.get("direct"),
         "winograd_f43_device_us": device_us.get("winograd_f43"),
         "pre_device_us": device_us.get("pre"),
-        "int8_device_us": device_us["int8"],
-        "int8_rel_error": rel["int8"],
+        "int8_device_us": device_us.get("int8"),
+        "int8_rel_error": rel.get("int8"),
         "bf16w_device_us": device_us["bf16w"],
         "bf16w_rel_error": rel["bf16w"],
         "throughput_im_s": _im_s(r_cuda.device_us),
-        "throughput_int8_im_s": _im_s(device_us["int8"]),
+        "throughput_int8_im_s": _im_s(device_us.get("int8")),
         "iterations": r_cuda.iterations,
         "max_error_cuda": _max_error("cuda"),
         "max_error_cudnn": _max_error("cudnn"),
@@ -408,6 +525,8 @@ def run_case(
         "parity_ok": (
             all(c.ok() for c in checks.values())
             and all(rel[tier] < tol for tier, tol in tols.items())
+            and extras.get("train_grad_rel_error", 0.0) < TRAIN_GRAD_RTOL
+            and extras.get("train_bf16w_grad_rel_error", 0.0) < BF16W_TRAIN_GRAD_RTOL
         ),
     }
 

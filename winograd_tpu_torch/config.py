@@ -171,8 +171,7 @@ CASES[16] = ResNet50Config("resnet50_full")
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig(BackboneConfig):
-    """One fwd+bwd training step over the 13-block backbone (not ported:
-    ROADMAP.md queue A item 7)."""
+    """One fwd+bwd training step over the 13-block backbone."""
 
 
 CASES[17] = TrainConfig("resnet50_backbone_13_trainstep")
@@ -181,8 +180,7 @@ CASES[18] = ResNet50Config("resnet50_full_b8", batch=8)
 
 @dataclasses.dataclass(frozen=True)
 class FullTrainConfig(ResNet50Config):
-    """One fwd+bwd training step over the complete classifier (not ported:
-    ROADMAP.md queue A item 7)."""
+    """One fwd+bwd training step over the complete classifier."""
 
 
 CASES[19] = FullTrainConfig("resnet50_full_trainstep")
@@ -273,8 +271,7 @@ class ResNet34Config(BasicNetConfig):
 
 @dataclasses.dataclass(frozen=True)
 class BasicTrainConfig(BasicNetConfig):
-    """One fwd+bwd ResNet-18 training step (not ported: ROADMAP.md queue A
-    item 7)."""
+    """One fwd+bwd ResNet-18 training step."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -408,3 +405,11 @@ BF16W_RTOL = 5e-3
 BF16W_RTOL_BACKBONE = 5e-3
 INT8_RTOL = 5e-2
 INT8_RTOL_BACKBONE = 5e-2
+
+# The bf16w training tier (f32 master weights, the bf16w kernels as the
+# forward, an f32 backward): the bound on its train-step scalar (loss +
+# every grad leaf's squared norm) against the f32 step's, relative. The
+# forward's bf16 weight rounding (~2^-9) reaches the loss and every
+# gradient, so the bound keeps a margin over the f32 step's 1e-3, scaled by
+# the forward tier's error (the JAX package's constant).
+BF16W_TRAIN_GRAD_RTOL = 2e-2

@@ -35,6 +35,10 @@ above it the int8 Winograd on u2_*_q; on small maps the int8 direct 3x3.
 At full-width ResNet-34: stem (bf16) 1, Winograd (bf16 filter) 6,
 winograd_int8 18, pointwise_int8 7, direct_int8 1, basic_stage_int8 1.
 
+basicnet_forward_train (the JAX package's basicnet_forward_train) is the
+same network differentiable on its trainable parameters (kernels/vjp.py),
+on the same routes and gates.
+
 basicnet_forward_pre (the JAX package's basicnet_forward_pre) serves the
 prepared-input contract at "f32" or "bf16w": the stem on the operand
 kernels/stem.py::stem_prepare_input built on the host (models/resnet50.py::
@@ -54,7 +58,7 @@ from winograd_tpu_torch.datagen.generate import (
     _bn_params,
     _rand,
 )
-from winograd_tpu_torch.kernels import _build
+from winograd_tpu_torch.kernels import _build, vjp
 from winograd_tpu_torch.kernels.basic_stage import (
     basic_stage_fused,
     basic_stage_int8,
@@ -80,15 +84,16 @@ from winograd_tpu_torch.models.convert import (
     stem_filter,
     stem_filter_s2d,
 )
-from winograd_tpu_torch.models.resnet import check_precision
+from winograd_tpu_torch.models.resnet import check_precision, train_input
 from winograd_tpu_torch.models.resnet50 import (
-    _images, _prepared, head, head_int8, stem, stem_pre,
+    _images, _prepared, head, head_int8, head_train, stem, stem_pre,
 )
 
 __all__ = [
     "FUSED_STAGE_MIN_CHANNELS", "INT8_BF16_MAX_COUT", "SMALL_MAP_PIXELS",
     "attach_fused_stage_artifacts", "basic_block", "basic_block_int8", "basicnet_arrays",
-    "basicnet_forward", "basicnet_forward_int8", "basicnet_forward_pre", "basicnet_params",
+    "basicnet_forward", "basicnet_forward_int8", "basicnet_forward_pre",
+    "basicnet_forward_train", "basicnet_params",
     "basicnet_stages", "cast_basicnet_bf16w", "downsample_basic_block",
     "downsample_basic_block_int8", "fused_stage_eligible", "init_basicnet_arrays",
     "quantize_basicnet",
@@ -149,14 +154,17 @@ def downsample_basic_block(x: torch.Tensor, params: Dict, precision: str = "f32"
     return torch.relu(h + skip)
 
 
-def fused_stage_eligible(blocks: List[Dict], min_channels: int = FUSED_STAGE_MIN_CHANNELS) -> bool:
+def fused_stage_eligible(blocks: List[Dict], min_channels: int = FUSED_STAGE_MIN_CHANNELS,
+                         wkey: str = "w9_a") -> bool:
     """True when a stage's identity blocks qualify for the basic-stage
-    kernel: all with w9_a and w9_b, of one shape, at least min_channels
-    wide."""
-    if not blocks or not all("w9_a" in b and "w9_b" in b for b in blocks):
+    kernel: all with both filters of wkey's layout, of one shape, at least
+    min_channels wide. wkey "w9_a" reads serving blocks ((9C, C), output
+    channels last), "w_a" trainable ones (raw OIHW, output channels first)."""
+    if not blocks or not all(wkey in b and wkey.replace("_a", "_b") in b for b in blocks):
         return False
-    return (blocks[0]["w9_a"].shape[-1] >= min_channels
-            and len({tuple(b["w9_a"].shape) for b in blocks}) == 1)
+    w = blocks[0][wkey]
+    channels = w.shape[-1] if w.ndim == 2 else w.shape[0]
+    return channels >= min_channels and len({tuple(b[wkey].shape) for b in blocks}) == 1
 
 
 def attach_fused_stage_artifacts(params: Dict,
@@ -217,6 +225,54 @@ def basicnet_forward_pre(xb, params: Dict, device="cuda", precision: str = "f32"
     hh = stem_pre(_prepared(xb, device), params["stem"], precision, h, w)
     hh = basicnet_stages(hh, params["stages"], precision)
     return head(hh, params["head"], precision)
+
+
+# --- training -------------------------------------------------------------------
+
+
+def basicnet_forward_train(x, params: Dict, precision=None, device="cuda", *,
+                           fused_min_channels: int = FUSED_STAGE_MIN_CHANNELS) -> torch.Tensor:
+    """Differentiable logits of image(s) x, (H, W, 3) or (N, H, W, 3), on the
+    trainable parameters (raw w_a, w_b OIHW and folded BN; the entry's w_a
+    the strided 3x3, w_proj (Cin, Cout)) that live on `device`, through
+    kernels/vjp.py: the stem kernel; each stride-1 3x3 direct on maps of at
+    most SMALL_MAP_PIXELS, F(2,3) Winograd elsewhere; an entry's strided
+    3x3 as a strided im2col through the pointwise Function on
+    direct_filter_t(w_a), its projection a subsample through it; an
+    identity run on a small map that fused_stage_eligible passes (at
+    fused_min_channels, the width serving's attach_fused_stage_artifacts
+    was given) through the basic-stage kernel forward; the head FC. The
+    JAX package's basicnet_forward_train, its gates kept. At full-width
+    ResNet-18, per f32 forward: stem 1, Winograd 10, pointwise 7, direct 1,
+    basic_stage 1. precision None or "bf16w"."""
+    x = train_input(x, params["head"]["b_fc"], device)
+    squeeze = x.dim() == 3
+    h = vjp.stem_train_fused(x[None] if squeeze else x, params["stem"], precision)
+
+    def conv3x3(x_, w, s, b, relu):
+        if _small_map(x_):
+            return vjp.conv3x3_bn_direct_train(x_, w, s, b, relu, precision)
+        return vjp.conv3x3_bn_winograd_train(x_, w, s, b, relu, 2, precision)
+
+    for st in params["stages"]:
+        e = st.get("entry")
+        if e is not None:
+            g = vjp.conv1x1_bn_train(strided_im2col(h), vjp.direct_filter_t(e["w_a"]), e["s_a"],
+                                     e["b_a"], True, precision)
+            g = conv3x3(g, e["w_b"], e["s_b"], e["b_b"], False)
+            skip = vjp.conv1x1_bn_train(h[:, ::2, ::2, :], e["w_proj"], e["s_proj"], e["b_proj"],
+                                        False, precision)
+            h = torch.relu(g + skip)
+        blocks = st["blocks"]
+        if _small_map(h) and fused_stage_eligible(blocks, fused_min_channels, wkey="w_a"):
+            h = vjp.basic_stage_train_streamed(h, blocks, precision)
+        else:
+            for b in blocks:
+                g = conv3x3(h, b["w_a"], b["s_a"], b["b_a"], True)
+                g = conv3x3(g, b["w_b"], b["s_b"], b["b_b"], False)
+                h = torch.relu(g + h)
+    logits = head_train(h, params["head"], precision)
+    return logits[0] if squeeze else logits
 
 
 # --- the int8 tier ------------------------------------------------------------

@@ -13,6 +13,14 @@ At precision "bf16w" (bfloat16 weights, models/convert.py::cast_bf16w) the
 same routes run the kernels' bf16w instantiations, every identity run as one
 stage kernel launch (models/resnet.py::stage_algo's bf16w gate).
 
+resnet50_stages_train (the JAX package's resnet50_stages_train) is the
+trunk differentiable on the raw trainable parameters through
+kernels/vjp.py: each transition through the transition kernel forward, each
+identity run of maps wider than 28 or of io width 2048 and up (conv2_x,
+conv5_x) through one stage kernel forward, every other block through the
+stage kernel at one block. The gate is the JAX package's, a TPU VMEM rule
+kept as it is.
+
 At the int8 tier (quantize_backbone, resnet50_stages_int8) every
 transition is one int8 transition kernel launch and every identity run one
 int8 stage kernel launch (kernels/quantized.py), with no weight gate.
@@ -24,6 +32,7 @@ from typing import Dict, List
 
 import torch
 
+from winograd_tpu_torch.kernels import vjp
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
 from winograd_tpu_torch.kernels.quantized import (
     quantize_stage_params,
@@ -33,7 +42,7 @@ from winograd_tpu_torch.kernels.quantized import (
 )
 from winograd_tpu_torch.kernels.transition import strided_im2col, transition_block_fused
 from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
-from winograd_tpu_torch.models.resnet import check_precision, resnet_stage
+from winograd_tpu_torch.models.resnet import check_precision, resnet_stage, train_input
 
 
 def conv3x3_s2_bn_relu(x, w9, scale, bias, relu: bool = True) -> torch.Tensor:
@@ -84,6 +93,30 @@ def resnet50_stages(x: torch.Tensor, stages: List[Dict], precision: str = "f32")
             check_precision(precision, stage["transition"]["w_reduce"])
             x = downsample_bottleneck_block(x, stage["transition"])
         x = resnet_stage(x, stage["blocks"], stacked=stage.get("stacked"), precision=precision)
+    return x
+
+
+def resnet50_stages_train(x, stages: List[Dict], precision=None, device="cuda") -> torch.Tensor:
+    """The trunk differentiable on the raw trainable parameters: each
+    stage's optional "transition" (raw w_mid) through
+    kernels/vjp.py::transition_block_train_fused; its identity "blocks"
+    through one resnet_stage_train_streamed where the map is wider than 28
+    or the io width is 2048 or more, else each through
+    bottleneck_block_train_fused. precision None or "bf16w"."""
+    for stage in stages:
+        if stage.get("transition") is not None:
+            x = vjp.transition_block_train_fused(
+                train_input(x, stage["transition"]["s_reduce"], device), stage["transition"],
+                precision)
+        blocks = stage["blocks"]
+        if not blocks:
+            continue
+        x = train_input(x, blocks[0]["s_reduce"], device)
+        if x.shape[-2] > 28 or blocks[0]["w_reduce"].shape[0] >= 2048:
+            x = vjp.resnet_stage_train_streamed(x, blocks, precision)
+        else:
+            for b in blocks:
+                x = vjp.bottleneck_block_train_fused(x, b, precision)
     return x
 
 

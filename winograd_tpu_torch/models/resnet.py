@@ -15,6 +15,10 @@ At precision "bf16w" (bfloat16 weights) a stage takes the JAX package's
 bf16w gate: every uniform stage whose 2-byte weights pass a looser budget
 runs as one stage kernel launch, single-block stages and conv5_x included,
 and a stage that would run per block raises, as in the JAX package.
+
+bottleneck_block_train is the port of bottleneck_block_train: the block
+differentiable on its raw trainable parameters (w_mid OIHW, no offline
+layouts) through kernels/vjp.py.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from winograd_tpu_torch.kernels import _build, vjp
 from winograd_tpu_torch.kernels.block import bottleneck_block_fused
 from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
@@ -36,7 +41,8 @@ from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
 __all__ = [
     "BF16W_STAGE_FUSED_MAX_WEIGHT_BYTES", "BLOCK_FUSED_MAX_WEIGHT_BYTES",
     "PRECISIONS", "STAGE_FUSED_MAX_WEIGHT_BYTES", "WINOGRAD_MIN_PIXELS", "block_algo",
-    "bottleneck_block", "check_precision", "conv3x3_mid", "resnet_stage", "stage_algo",
+    "bottleneck_block", "bottleneck_block_train", "check_precision", "conv3x3_mid",
+    "resnet_stage", "stage_algo", "train_input",
 ]
 
 # The model functions' precisions: the f32 tier, and the bf16w tier, whose
@@ -163,3 +169,34 @@ def resnet_stage(x: torch.Tensor, blocks: List[Dict], algo: str = "auto",
     for params in blocks:
         x = bottleneck_block(x, params)
     return x
+
+
+def train_input(x, like: torch.Tensor, device="cuda") -> torch.Tensor:
+    """A train forward's input on `device` (CUDA by default, which must
+    exist; the CPU only on request), in the dtype of the parameter `like`.
+    A tensor keeps its autograd history through the conversion."""
+    return torch.as_tensor(x, dtype=like.dtype, device=_build.require_device(device))
+
+
+def bottleneck_block_train(x, params: Dict, algo3x3: str = "fused", precision=None,
+                           device="cuda") -> torch.Tensor:
+    """Differentiable identity bottleneck on the raw trainable parameters
+    (w_reduce, w_mid (Cmid, Cmid, 3, 3), w_expand and their BN pairs).
+
+    algo3x3 "fused" (the default): the block kernel forward
+    (kernels/vjp.py::bottleneck_block_train_fused), the forward serving
+    runs; "winograd": three per-layer Functions, the 3x3 at F(4,3), at the
+    f32 tier only (the bf16w Winograd runs F(2,3)). precision None or
+    "bf16w" (kernels/vjp.py)."""
+    x = train_input(x, params["s_reduce"], device)
+    if algo3x3 == "fused":
+        return vjp.bottleneck_block_train_fused(x, params, precision)
+    if algo3x3 != "winograd":
+        raise ValueError(f"unknown algo3x3 {algo3x3!r}")
+    if precision is not None:
+        raise ValueError("algo3x3='winograd' runs F(4,3) at the f32 tier only")
+    p = params
+    h = vjp.conv1x1_bn_train(x, p["w_reduce"], p["s_reduce"], p["b_reduce"], True)
+    h = vjp.conv3x3_bn_winograd_train(h, p["w_mid"], p["s_mid"], p["b_mid"], True, 4)
+    h = vjp.conv1x1_bn_train(h, p["w_expand"], p["s_expand"], p["b_expand"], False)
+    return torch.relu(h + x)

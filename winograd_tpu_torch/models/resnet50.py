@@ -24,6 +24,17 @@ stage kernel 4 (F(2,3) on bf16 filters at conv2_x and conv3_x, the int8
 direct mid at conv4_x and conv5_x); the head int8 pointwise 1. 13 launches
 in all.
 
+resnet50_forward_train (the JAX package's resnet50_forward_train) is the
+classifier differentiable on its trainable parameters (stem {w7_stem,
+s_stem, b_stem}, the projection and stages with raw w_mid, head {w_fc,
+b_fc}) through kernels/vjp.py: the stem kernel, the projection block's
+serving composition, models/downsample.py::resnet50_stages_train and the
+head FC. Per f32 forward at full width: the stem 1, pointwise 4 (the
+projection block's three 1x1s, the head), Winograd 1, stage 10 (conv2_x
+and conv5_x one launch each, every conv3_x and conv4_x block one) and
+transition 3: 19 launches; at "bf16w" the same counts under the bf16w
+instantiations' names.
+
 resnet50_forward_pre (the JAX package's resnet50_forward_pre) serves the
 prepared-input contract: the stem reads the operand kernels/stem.py::
 stem_prepare_input built on the host (stem_pre, counted as "stem_pre" or
@@ -44,7 +55,7 @@ from winograd_tpu_torch.datagen.generate import (
     _transition_params_random,
     backbone_stages,
 )
-from winograd_tpu_torch.kernels import _build
+from winograd_tpu_torch.kernels import _build, vjp
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn
 from winograd_tpu_torch.kernels.quantized import (
     conv1x1_bn_int8,
@@ -63,15 +74,16 @@ from winograd_tpu_torch.models.downsample import (
     quantize_backbone,
     resnet50_stages,
     resnet50_stages_int8,
+    resnet50_stages_train,
 )
-from winograd_tpu_torch.models.resnet import check_precision
+from winograd_tpu_torch.models.resnet import check_precision, train_input
 from winograd_tpu_torch.ops.torch_ops import maxpool3x3_s2
 
 __all__ = [
     "cast_bf16w", "head", "head_int8", "init_resnet50_arrays", "init_resnet50_params",
     "projection_block_int8", "quantize_resnet50", "resnet50_arrays", "resnet50_forward",
-    "resnet50_forward_int8", "resnet50_forward_pre", "resnet50_params", "stem",
-    "stem_filter_s2d", "stem_pre",
+    "resnet50_forward_int8", "resnet50_forward_pre", "resnet50_forward_train",
+    "resnet50_params", "stem", "stem_filter_s2d", "stem_pre",
 ]
 
 
@@ -110,6 +122,28 @@ def head(x: torch.Tensor, params: Dict, precision: str = "f32") -> torch.Tensor:
     check_precision(precision, w_fc)
     ones = torch.ones(w_fc.shape[1], dtype=params["b_fc"].dtype, device=w_fc.device)
     return conv1x1_bn(x.mean(dim=(-3, -2)), w_fc, ones, params["b_fc"], relu=False)
+
+
+def head_train(x: torch.Tensor, params: Dict, precision=None) -> torch.Tensor:
+    """Global avgpool + FC, differentiable: kernels/vjp.py::conv1x1_bn_train
+    with scale 1 on the float32 w_fc (a bf16 copy in the forward at
+    "bf16w")."""
+    ones = torch.ones(params["w_fc"].shape[1], dtype=params["b_fc"].dtype, device=x.device)
+    return vjp.conv1x1_bn_train(x.mean(dim=(-3, -2)), params["w_fc"], ones, params["b_fc"],
+                                False, precision)
+
+
+def resnet50_forward_train(x, params: Dict, precision=None, device="cuda") -> torch.Tensor:
+    """Differentiable logits of image(s) x, (H, W, 3) or (N, H, W, 3), on the
+    trainable parameters (module docstring), which live on `device` and
+    whose BN dtype x is cast to. precision None (f32) or "bf16w" (the
+    forward on bf16 copies of the f32 weights; the backward f32). CUDA runs
+    the kernels; the CPU (only on request) runs their plain versions."""
+    x = train_input(x, params["head"]["b_fc"], device)
+    h = vjp.stem_train_fused(x, params["stem"], precision)
+    h = vjp.projection_block_train_fused(h, params["proj"], precision)
+    h = resnet50_stages_train(h, params["stages"], precision, device)
+    return head_train(h, params["head"], precision)
 
 
 def _images(x, dtype, device):

@@ -1,16 +1,31 @@
-"""The trainable parameter sets of the classifiers.
+"""Training the classifier: its loss, its SGD step, its trainable set.
 
-From winograd_tpu/models/train.py: trainable_resnet50_params and
-trainable_basicnet_params, the dict strips that define what a trained
-checkpoint holds (raw OIHW filters and folded BN, without the serving
-layouts that models/checkpoint.py::prepare_*_serving derives). Leaves pass
-through as they are (numpy arrays or tensors). The training steps are not
-ported yet (ROADMAP.md A7).
+Port of winograd_tpu/models/train.py. resnet50_loss is the mean softmax
+cross-entropy of models/resnet50.py::resnet50_forward_train, whose every
+conv runs the serving kernels forward (kernels/vjp.py).
+make_resnet50_train_step is SGD with momentum over the whole parameter
+tree, m = beta * m + g, p = p - lr * m, with forward and backward inside
+baseline/cudnn.py::full_float32() (the backward's matmuls full float32,
+never TF32). Unlike the JAX package's pure step, it updates params and
+momentum in place, so a CUDA graph of the step can be replayed on the same
+tensors and no second copy of the weights is held.
+
+trainable_resnet50_params and trainable_basicnet_params are the dict strips
+that define what a trained checkpoint holds (raw OIHW filters and folded
+BN, without the serving layouts models/checkpoint.py::prepare_*_serving
+derives); leaves pass through as they are (numpy arrays or tensors). So
+train, save_model, ResNet50Engine.from_checkpoint is one pipeline
+(examples/train_and_deploy_torch.py).
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Callable, Dict
+
+import torch
+
+from winograd_tpu_torch.baseline.cudnn import full_float32
+from winograd_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
 _RESNET50_SERVING_KEYS = ("u_mid", "u2_mid", "w9_mid", "w49_stem", "w192_stem", "wep", "bep")
 _BASICNET_SERVING_KEYS = ("u2_a", "u2_b", "w9_a", "w9_b", "w49_stem", "w192_stem")
@@ -18,6 +33,49 @@ _BASICNET_SERVING_KEYS = ("u2_a", "u2_b", "w9_a", "w9_b", "w49_stem", "w192_stem
 
 def _keep(d: Dict, drop) -> Dict:
     return {k: v for k, v in d.items() if k not in drop}
+
+
+def resnet50_loss(params: Dict, x, labels, precision=None, device="cuda") -> torch.Tensor:
+    """Mean softmax cross-entropy of resnet50_forward_train's logits. x: (N,
+    H, W, 3) or (H, W, 3); labels: integer class ids, (N,) or a scalar.
+    precision None or "bf16w" (kernels/vjp.py)."""
+    from winograd_tpu_torch.models.resnet50 import resnet50_forward_train
+
+    logits = torch.atleast_2d(resnet50_forward_train(x, params, precision, device))
+    logp = torch.log_softmax(logits, dim=-1)
+    labels = torch.as_tensor(labels, device=logp.device).reshape(-1, 1).long()
+    return -logp.gather(-1, labels).mean()
+
+
+def make_resnet50_train_step(lr: float = 1e-2, beta: float = 0.9, mesh=None,
+                             precision=None) -> Callable:
+    """SGD with momentum over the whole classifier: step(params, momentum, x,
+    labels) -> (params, momentum, loss), params and momentum (start it at
+    utils/tree.py::tree_map(torch.zeros_like, params)) updated in place and
+    returned, loss a 0-d tensor. The forward and backward run on the
+    params' device. precision "bf16w" trains through the bf16w kernels
+    (f32 master weights; grads within config.BF16W_TRAIN_GRAD_RTOL of the
+    f32 step). mesh (the JAX package's data-parallel step) is not ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh is not ported yet (ROADMAP.md, queue A item 10: parallelism); "
+            "the step trains on one device")
+
+    def step(params, momentum, x, labels):
+        leaves = tree_leaves(params)
+        with full_float32(), torch.enable_grad():
+            ps = [p.detach().requires_grad_() for p in leaves]
+            loss = resnet50_loss(tree_unflatten(params, ps), x, labels, precision,
+                                 leaves[0].device)
+            grads = torch.autograd.grad(loss, ps)
+        with torch.no_grad():
+            ms = tree_leaves(momentum)
+            torch._foreach_mul_(ms, beta)
+            torch._foreach_add_(ms, grads)
+            torch._foreach_add_(leaves, ms, alpha=-lr)
+        return params, momentum, loss.detach()
+
+    return step
 
 
 def trainable_resnet50_params(full: Dict) -> Dict:
