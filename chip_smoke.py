@@ -11,6 +11,10 @@ Phases, each of which must pass (exit 1 otherwise):
    yardsticks compute in full float32. Prints the card's name and power
    limit as nvidia-smi reports them.
 2. build: compiles csrc/*.cu with nvcc for sm_90a, one process per source.
+2a. native: the native host library (utils/native.py, native/winotpu.cpp,
+   built by g++ under build/) must load and serve a blob write, a threaded
+   read and the shift-aware checker, each counted in native.CALLS; the line
+   says where it lives and what it served.
 3. serving (f32 tier): ResNet50Engine with seeded full-width weights
    answers 1 + 10 N=1 requests and 3 N=8 requests on the JAX package's
    fused route, each through the CUDA graph the engine captured for its
@@ -42,6 +46,16 @@ Phases, each of which must pass (exit 1 otherwise):
    (4a, 7, 8a) to the bit, N=1 and N=8 (the entry stages the same patch in
    the same K order).
 3c. throughput: engine.throughput(8) of every engine and tier, one line each.
+3d. batch32 (after the profile phase of each tier of phases 3-10, on the
+   same engine): one N=32 request from numpy images, counted as phase 3's
+   (counters zeroed just before): it must launch each kernel its count in
+   one forward times CAPTURE_PASSES, its three replays nothing, and each of
+   the four requests must be a graph replay; every row of the N=32 logits
+   within the N=8 bars of that image's N=1 logits (1e-4 at f32 and bf16w,
+   1e-3 at int8, times max(1, max|N=1 row|)). The line gives the replayed
+   N=32 latency (median of 3), engine.throughput(32) and the peak device
+   memory. The batch runs whole (the JAX package's chunks of 8 are a TPU
+   compile workaround).
 4. profile (f32): torch.profiler over 5 N=1 and 3 N=8 requests served as in
    phase 3 (graph replays), each ended by a synchronize: device time by
    kernel name per request, and the device's idle share, 1 - device busy
@@ -102,11 +116,26 @@ Phases, each of which must pass (exit 1 otherwise):
    tier, two images' logits against the module's own eval forward on the
    card (cuDNN and cuBLAS, TF32 off): f32 within 1e-4, bf16w within 5e-3,
    int8 within 5e-2, each times max(1, max|ref|).
+10d. depth: full-width ResNet-101 (layers 3-4-23-3) and ResNet-152
+   (3-8-36-3) from build_torch_reference_resnet, seeded as phase 10a's,
+   through engine_from_torch at every tier, counted as phase 3's N=1 run:
+   one forward must launch ResNet-50's kernels of the tier
+   (EXPECTED_PER_FORWARD, _BF16W, _INT8: the deeper conv3_x and conv4_x
+   runs stay one stage launch each, of 3 and 22 or 7 and 35 blocks), the 10
+   replays nothing; two images' logits against the module's own eval
+   forward on the card (TF32 off) within 1e-4 (f32), 5e-3 (bf16w) and
+   5e-2 (int8), times max(1, max|ref|). The line gives the replayed N=1
+   latency (median of 10), throughput(8), the device busy time of an N=1
+   replay (torch.profiler over 5) and the peak device memory.
 10b. checkpoint: models/checkpoint.py::save_model of the trainable set
    (models/train.py::trainable_*_params) of phase 3's and phase 7's
    weights into a temporary file under build/, then from_checkpoint; one
    image's logits within 1e-4 * max(1, max|ref|) of the engine's on the
-   full parameters (phases 3 and 7).
+   full parameters (phases 3 and 7); then the same trees as tensors on the
+   card through models/checkpoint.py::save_checkpoint_dir (wait=False,
+   then wait_until_finished) and load_checkpoint_dir (like the tree, onto
+   the card): read back bit for bit, and from_checkpoint of the directory
+   within the same bound (checkpoint_dir lines).
 10c. training and training_bf16w: full-width ResNet-50 (bench mode 19's
    configuration) and ResNet-18 (mode 25's), seeded, their trainable sets
    (raw filters, folded BN), one N=1 train step each at f32 and at bf16w
@@ -133,8 +162,9 @@ Phases, each of which must pass (exit 1 otherwise):
    the phase's peak device memory, and an eager step under torch.profiler
    (device ms by kernel name, the number of device kernels).
 11. kernels: each kernel against its plain PyTorch version on the card, at
-   every shape the first request of phases 3, 4a, 5, 7, 8a and 9 and the
-   counted step of each training phase gave it (recorded by shape in
+   every shape the first request of phases 3, 4a, 5, 7, 8a, 9, 3d (N=32)
+   and 10d (ResNet-101 and ResNet-152: the stage at 22 and 35 blocks) and
+   the counted step of each training phase gave it (recorded by shape in
    kernels/_build.py; the stem's prepared-input entry at the shapes of the
    serving_pre runs; the training's shapes include the 3x3 data gradients
    through the F(2,3) Winograd at 56x56x64, 28x28x128 and 14x14x256 and the
@@ -218,10 +248,11 @@ Phases, each of which must pass (exit 1 otherwise):
    parity_ok and the launches by kernel of the run (counters zeroed just
    before it). A breach, TF32 on, or a path of the mode with no device time
    fails the run.
-12. a "kernels" JSON line (per-image sums over each path's shapes, both
-   models and all tiers, and per-step sums over the training phases'
-   shapes; the stem row sums its f32 and bf16 shapes, the
-   Winograd row its f32 and bf16-filter shapes; the bf16w instantiations
+12. a "kernels" JSON line (sums over the shapes of one forward of each
+   counted run, both models and all tiers, ResNet-101 and ResNet-152 and
+   the N=32 requests, and per-step sums over the training phases' shapes;
+   the stem row sums its f32 and bf16 shapes, the Winograd row its f32 and
+   bf16-filter shapes; the bf16w instantiations
    and the stem's prepared-input entry are rows of their own,
    "<kernel>_bf16w", "stem_pre", their source the kernel's file;
    "launches" the wrappers' launches in the counted runs, the warm-up and
@@ -442,7 +473,9 @@ def main() -> int:
         basicnet_arrays, basicnet_forward, basicnet_forward_int8, basicnet_forward_train,
         basicnet_params, cast_basicnet_bf16w, init_basicnet_arrays, quantize_basicnet,
     )
-    from winograd_tpu_torch.models.checkpoint import save_model
+    from winograd_tpu_torch.models.checkpoint import (
+        load_checkpoint_dir, save_checkpoint_dir, save_model,
+    )
     from winograd_tpu_torch.models.import_torch import build_torch_reference_resnet
     from winograd_tpu_torch.models.train import (
         make_resnet50_train_step, trainable_basicnet_params, trainable_resnet50_params,
@@ -455,8 +488,11 @@ def main() -> int:
         init_resnet50_arrays, init_resnet50_params, quantize_resnet50, resnet50_forward,
         resnet50_forward_int8, resnet50_forward_train,
     )
+    from winograd_tpu_torch.utils import checker as host_checker
+    from winograd_tpu_torch.utils import io as host_io
+    from winograd_tpu_torch.utils import native
     from winograd_tpu_torch.utils.timing import bench_graph
-    from winograd_tpu_torch.utils.tree import tree_map
+    from winograd_tpu_torch.utils.tree import tree_leaves, tree_map
 
     dev = torch.device("cuda", 0)
     failures = []
@@ -468,6 +504,26 @@ def main() -> int:
 
     build_s = _build.build_all()
     print(json.dumps({"phase": "build", "seconds": build_s}), flush=True)
+
+    # -- the native host library (utils/native.py) ---------------------------
+    build_dir = pathlib.Path(__file__).resolve().parent / "build"
+    build_dir.mkdir(exist_ok=True)
+    native.CALLS.clear()
+    blob = _rand(np.random.default_rng(5), 14, 14, 128)
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = os.path.join(tmp, "blob.bin")
+        host_io.save_parameter(path, blob)
+        back = host_io.get_parameters({path: blob.size})[path]
+    res = host_checker.output_checker(np.pad(blob, ((1, 1), (1, 1), (0, 0))), blob, 14, 128,
+                                      shift=1)
+    served_native = dict(native.CALLS)
+    check(native.available() and served_native == {
+        "wt_write_f32": 1, "wt_read_many_f32": 1, "wt_output_checker": 1},
+        f"native host library: loaded {native.available()}, served {served_native}")
+    check(np.array_equal(back, blob.ravel()) and res.error_count == 0 and res.max_error == 0.0,
+          f"native host library: read back or checked wrong ({res})")
+    print(json.dumps({"phase": "native", "library": str(native.library_path()),
+                      "available": native.available(), "served": served_native}), flush=True)
 
     def t(a):
         return torch.as_tensor(a, device=dev)
@@ -1192,6 +1248,107 @@ def main() -> int:
                 "device_ms_by_kernel": dict(sorted(by_name.items(), key=lambda kv: -kv[1])),
             }), flush=True)
 
+    images32 = _rand(np.random.default_rng(2), 32, cfg.img, cfg.img, 3)
+
+    def batch32_phase(model, engine, expected):
+        """A counted run of N=32 requests from numpy images (phase batch32):
+        counters zeroed; the first request must launch one forward's
+        kernels CAPTURE_PASSES times, the three replays after it nothing;
+        every row within the N=8 bar of that image's N=1 logits (1e-4; int8
+        1e-3, each times max(1, max|N=1 row|)). The line gives the replayed
+        N=32 latency, throughput(32) and the phase's peak device memory."""
+        phase_start()
+        replays0 = engine.replays
+        _build.reset_counts()
+        logits32 = engine(images32)
+        sync()
+        first = dict(_build.LAUNCHES)
+        shapes = {name: collections.Counter(c) for name, c in _build.LAUNCH_SHAPES.items()}
+        lat = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine(images32)
+            sync()
+            lat.append(time.perf_counter() - t0)
+        final = dict(_build.LAUNCHES)
+        replays = engine.replays - replays0
+        what = f"batch32 {model} {engine.tier}"
+        want = {name: per * CAPTURE_PASSES for name, per in expected.items()}
+        check(first == want and final == want,
+              f"{what}: launches at the first N=32 request {first}, after its replays {final}, "
+              f"want {want} then nothing")
+        check(replays == 4, f"{what}: 4 requests served by {replays} graph replays")
+        rows = torch.stack([engine(images32[i]) for i in range(32)])
+        tol = INT8_CHAINED_RTOL if engine.tier == "int8" else ATOL
+        row_err = ((logits32 - rows).abs().amax(dim=1)
+                   / rows.abs().amax(dim=1).clamp(min=1.0)).max().item()
+        finite = bool(torch.isfinite(logits32).all())
+        check(finite and logits32.shape == rows.shape and row_err <= tol,
+              f"{what}: N=32 rows vs each image's N=1 logits: {row_err} > {tol} (finite={finite})")
+        stats = engine.throughput(32)
+        print(json.dumps({
+            "phase": "batch32", "model": model, "tier": engine.tier,
+            "n32_latency_ms_median": 1e3 * statistics.median(lat),
+            "n32_latency_ms": [1e3 * v for v in lat],
+            "throughput_32_images_per_s": stats["images_per_sec"], "row_err": row_err,
+            "row_tol": tol, "launches": final, "replays": replays, "peak_mib": peak_mib(),
+        }), flush=True)
+        return {"phase": "batch32", "launches": final, "shapes": shapes}
+
+    def depth_phase(model, sd, tier, tol, ref, expected):
+        """A deep classifier (phase depth) through engine_from_torch at one
+        tier, counted: counters zeroed; the first N=1 request must launch
+        ResNet-50's kernels of the tier (expected) CAPTURE_PASSES times, the
+        n_single replays after it nothing; then two images' logits within
+        tol of the module's own forward (ref). The line gives the replayed
+        N=1 latency, throughput(8), the device busy time of an N=1 replay
+        (torch.profiler over 5) and the phase's peak device memory."""
+        phase_start()
+        engine = engine_from_torch(sd, tier=tier, device=dev)
+        replays0 = engine.replays
+        _build.reset_counts()
+        engine(images[0])
+        sync()
+        first = dict(_build.LAUNCHES)
+        shapes = {name: collections.Counter(c) for name, c in _build.LAUNCH_SHAPES.items()}
+        lat = []
+        for i in range(n_single):
+            t0 = time.perf_counter()
+            engine(images[i % 8])
+            sync()
+            lat.append(time.perf_counter() - t0)
+        final = dict(_build.LAUNCHES)
+        replays = engine.replays - replays0
+        what = f"depth {model} {tier}"
+        want = {name: per * CAPTURE_PASSES for name, per in expected.items()}
+        check(first == want and final == want,
+              f"{what}: launches at the first N=1 request {first}, after its replays {final}, "
+              f"want {want} then nothing")
+        check(replays == 1 + n_single, f"{what}: {1 + n_single} requests served by {replays} "
+              "graph replays")
+        out = engine(images[:2]).double()
+        err = (out - ref).abs().max().item()
+        check(bool(torch.isfinite(out).all()) and err <= tol,
+              f"{what}: {err} > {tol} against the module's own forward")
+        stats = engine.throughput(8)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                engine(images[0])
+                sync()
+        by_name, _ = by_kernel(prof, 5)
+        busy = sum(by_name.values())
+        check(busy > 0, f"{what}: no kernel of an N=1 replay in the profiler's trace")
+        print(json.dumps({
+            "phase": "depth", "model": model, "tier": tier, "engine": type(engine).__name__,
+            "launches_per_forward": {k: v // CAPTURE_PASSES for k, v in final.items()},
+            "stage_blocks": sorted({shape[5] for name, c in shapes.items()
+                                    if name.startswith("stage") for shape in c}),
+            "max_abs_err": err, "tol": tol, "n1_latency_ms_median": 1e3 * statistics.median(lat),
+            "throughput_8_images_per_s": stats["images_per_sec"], "n1_device_busy_ms": busy,
+            "replays": replays, "peak_mib": peak_mib(),
+        }), flush=True)
+        return {"phase": "depth", "launches": final, "shapes": shapes}
+
     served = []  # each counted run's record (launches, first request's shapes, logits)
     golden = resnet50_forward(
         images[0], params_from_jax(init_resnet50_arrays(cfg, seed=0), "cpu", torch.float64),
@@ -1204,6 +1361,7 @@ def main() -> int:
     served.append(serve_pre_phase("serving_pre", engine, EXPECTED_PER_FORWARD, r50))
     throughput_line("resnet50", engine)
     profile_phase(engine, eager, "profile")
+    served.append(batch32_phase("resnet50", engine, EXPECTED_PER_FORWARD))
     del engine, eager
 
     # -- the bf16w tier -----------------------------------------------------
@@ -1218,6 +1376,7 @@ def main() -> int:
     served.append(serve_pre_phase("serving_pre_bf16w", engine16, EXPECTED_PER_FORWARD_BF16W, rec))
     throughput_line("resnet50", engine16)
     profile_phase(engine16, eager, "profile_bf16w")
+    served.append(batch32_phase("resnet50", engine16, EXPECTED_PER_FORWARD_BF16W))
     del engine16, eager
 
     # -- the int8 tier ------------------------------------------------------
@@ -1228,6 +1387,7 @@ def main() -> int:
                              ref_int8, cfg))
     throughput_line("resnet50", engine8)
     profile_phase(engine8, eager, "profile_int8")
+    served.append(batch32_phase("resnet50", engine8, EXPECTED_PER_FORWARD_INT8))
     del engine8, eager, params, cpu_params
 
     # -- the basic family: ResNet-34 at every tier --------------------------
@@ -1242,6 +1402,7 @@ def main() -> int:
     served.append(serve_pre_phase("serving_pre_basic", engine, EXPECTED_PER_FORWARD_BASIC, r34))
     throughput_line("resnet34", engine)
     profile_phase(engine, eager, "profile_basic")
+    served.append(batch32_phase("resnet34", engine, EXPECTED_PER_FORWARD_BASIC))
     del engine, eager, params34
     cpu34 = basicnet_params(case34, cfg34, "cpu")
     ref34_bf16w = basicnet_forward(images[0], cast_basicnet_bf16w(cpu34), device="cpu",
@@ -1255,6 +1416,7 @@ def main() -> int:
                                   EXPECTED_PER_FORWARD_BASIC_BF16W, rec))
     throughput_line("resnet34", engine16)
     profile_phase(engine16, eager, "profile_basic_bf16w")
+    served.append(batch32_phase("resnet34", engine16, EXPECTED_PER_FORWARD_BASIC_BF16W))
     del engine16, eager
     ref34_int8 = basicnet_forward_int8(images[0], quantize_basicnet(cpu34), device="cpu")
     engine8 = ResNetBasicEngine(cpu34, tier="int8", device=dev)
@@ -1263,6 +1425,7 @@ def main() -> int:
                              golden34, ref34_int8, cfg34))
     throughput_line("resnet34", engine8)
     profile_phase(engine8, eager, "profile_basic_int8")
+    served.append(batch32_phase("resnet34", engine8, EXPECTED_PER_FORWARD_BASIC_INT8))
     del engine8, eager, cpu34
 
     # -- torchvision-format weights: both families at every tier ------------
@@ -1289,17 +1452,29 @@ def main() -> int:
                               "peak_mib": peak_mib()}), flush=True)
             del imported
 
+    # -- depth: ResNet-101 and ResNet-152 from torchvision-format weights ---
+    for model_name, layers in (("resnet101", (3, 4, 23, 3)), ("resnet152", (3, 8, 36, 3))):
+        module = build_torch_reference_resnet(layers=layers, stem_c=64,
+                                              planes=(64, 128, 256, 512), classes=1000, seed=0)
+        sd = module.state_dict()
+        with torch.no_grad():
+            ref = module.to(dev)(x2.permute(0, 3, 1, 2).contiguous()).double()
+        del module
+        scale = max(1.0, ref.abs().max().item())
+        for tier, rtol, expected in (("f32", ATOL, EXPECTED_PER_FORWARD),
+                                     ("bf16w", BF16W_RTOL_BACKBONE, EXPECTED_PER_FORWARD_BF16W),
+                                     ("int8", INT8_RTOL_BACKBONE, EXPECTED_PER_FORWARD_INT8)):
+            served.append(depth_phase(model_name, sd, tier, rtol * scale, ref, expected))
+
     # -- a checkpoint of the trainable set, served --------------------------
     phase_start()
-    ckpt_dir = pathlib.Path(__file__).resolve().parent / "build"
-    ckpt_dir.mkdir(exist_ok=True)
     trained = {
         "resnet50": (ResNet50Engine,
                      trainable_resnet50_params(init_resnet50_arrays(cfg, seed=0)), r50),
         "resnet34": (ResNetBasicEngine,
                      trainable_basicnet_params(basicnet_arrays(case34, cfg34)), r34),
     }
-    with tempfile.TemporaryDirectory(dir=ckpt_dir) as tmp:
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         for model_name, (engine_cls, tree, record) in trained.items():
             path = str(pathlib.Path(tmp) / f"{model_name}.npz")
             t0 = time.perf_counter()
@@ -1316,6 +1491,26 @@ def main() -> int:
                               "file_mib": os.path.getsize(path) / 2**20,
                               "peak_mib": peak_mib()}), flush=True)
             del loaded
+            # The checkpoint directory, written in the background from the
+            # card's tensors, loaded back onto the card like the tree, served.
+            directory = pathlib.Path(tmp) / f"{model_name}_dir"
+            on_card = tree_map(lambda a: torch.as_tensor(a, device=dev), tree)
+            t0 = time.perf_counter()
+            handle = save_checkpoint_dir(directory, on_card, wait=False)
+            handle.wait_until_finished()
+            save_s = time.perf_counter() - t0
+            back = load_checkpoint_dir(directory, like=on_card, device=dev)
+            same = all(torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(on_card)))
+            check(same, f"checkpoint_dir {model_name}: the tree read back differs")
+            loaded = engine_cls.from_checkpoint(str(directory), device=dev)
+            err_dir = (loaded(images[0]) - want).abs().max().item()
+            check(err_dir <= tol, f"checkpoint_dir {model_name}: {err_dir} > {tol} against the "
+                  "engine on the full parameters")
+            print(json.dumps({"phase": "checkpoint_dir", "model": model_name,
+                              "max_abs_err": err_dir, "tol": tol, "bit_equal": same,
+                              "save_s": save_s, "files": len(os.listdir(directory)),
+                              "peak_mib": peak_mib()}), flush=True)
+            del loaded, back, on_card
 
     # -- training: one N=1 step of full-width ResNet-50 and ResNet-18 -------
     # Bench mode 19's and 25's configurations, seeded; the trainable sets

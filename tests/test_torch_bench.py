@@ -221,14 +221,49 @@ def test_train_modes_on_the_cpu(mode):
     assert r["cuda_device_us"] is None and r["cuda_mean_us"] > 0
 
 
-@pytest.mark.parametrize("mode,item", [(20, "A6"), (21, "A6"), (27, "A6"), (28, "A6")])
-def test_unported_modes_exit_2_naming_their_roadmap_item(mode, item, capsys):
+# Modes 20, 21, 27 and 28 at narrow widths: each mode's own config class,
+# depth (conv3_x and conv4_x blocks) and batch, on a 32x32 image.
+_NARROW_R50 = ((32, 8, 8, 2), (64, 16, 4, 3), (128, 16, 2, 5), (256, 32, 1, 2))
+
+
+def _narrow(mode):
+    cfg = config.CASES[mode]
+    if isinstance(cfg, config.BasicNetConfig):
+        stages = tuple((16 * 2 ** i, 8 // 2 ** i, st[-1]) for i, st in enumerate(cfg.stages))
+    else:
+        stages = tuple((*narrow[:3], st[-1]) for narrow, st in zip(_NARROW_R50, cfg.stages))
+
+    @dataclasses.dataclass(frozen=True)
+    class _Narrow(type(cfg)):
+        pass
+
+    _Narrow.stages = stages
+    return _Narrow(cfg.name, img=32, stem_c=16, num_classes=16)
+
+
+@pytest.mark.parametrize("mode", [20, 21, 27, 28])
+def test_depth_and_batch_modes_run_at_a_narrow_width(monkeypatch, mode):
+    """The modes that were refused before the port ran them: run_case at the
+    mode's own depth and batch, narrow widths (the CASES entry cut here, not
+    in config.py), every path parity_ok; the batch runs whole."""
+    narrow = _narrow(mode)
+    assert [st[-1] for st in narrow.stages] == [st[-1] for st in config.CASES[mode].stages]
+    assert narrow.batch == config.CASES[mode].batch
+    monkeypatch.setitem(config.CASES, mode, narrow)
+    r = run_case(mode, iterations=2, warmup=1, device="cpu")
+    assert r["parity_ok"] and r["mode"] == mode and r["name"] == narrow.name
+    assert r["max_error_cuda"] <= config.PARITY_ATOL and r["max_error_cudnn"] <= config.PARITY_ATOL
+    assert r["int8_rel_error"] < config.INT8_RTOL_BACKBONE
+    assert r["bf16w_rel_error"] < config.BF16W_RTOL_BACKBONE
+
+
+def test_every_mode_of_the_case_table_is_offered(capsys):
+    """No mode of CASES is refused: the parser takes each, and 'all' runs
+    them all (here, modes past the last exit through an unknown mode)."""
     with pytest.raises(SystemExit) as exc:
-        main([str(mode), "--device", "cpu"])
+        main([str(max(config.CASES) + 1), "--device", "cpu"])
     assert exc.value.code == 2
-    assert f"ROADMAP.md {item}" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match=item):
-        run_case(mode, device="cpu")
+    assert str(sorted(config.CASES)) in capsys.readouterr().err
 
 
 def test_bench_loop_protocol():
@@ -274,3 +309,65 @@ def test_cli_json_output_and_data_dir(tmp_path):
     assert row["mode"] == 3 and row["parity_ok"] and row["bench_seed"] == 0
     assert row["seconds"] > 0 and row["launches"] == {}  # the plain versions launch nothing
     assert (tmp_path / "prof" / "mode3.json").stat().st_size > 0
+
+
+def _fake_run_case(ran, fail=()):
+    """A stand-in for run_case that records the modes it ran and fails the
+    modes in `fail` (KeyboardInterrupt: the sweep is interrupted there)."""
+    def fake(mode, *args, **kwargs):
+        if mode in fail:
+            raise KeyboardInterrupt
+        ran.append(mode)
+        return {"mode": mode, "name": config.CASES[mode].name, "parity_ok": True,
+                "cuda_device_us": None, "cuda_mean_us": 1.0, "cudnn_device_us": None,
+                "cudnn_mean_us": 1.0, "max_error_cuda": 0.0}
+    return fake
+
+
+def _rows(path):
+    with open(path) as f:
+        return {r["mode"]: r for r in json.load(f)}
+
+
+def test_resume_finishes_an_interrupted_sweep_without_rerunning(monkeypatch, tmp_path):
+    """An 'all' sweep interrupted at mode 10 leaves modes 0-9 in the file,
+    written after each mode; the restarted sweep runs only the rest."""
+    path = str(tmp_path / "sweep.json")
+    ran = []
+    monkeypatch.setattr(cli, "run_case", _fake_run_case(ran, fail=(10,)))
+    with pytest.raises(KeyboardInterrupt):
+        main(["all", "--device", "cpu", "--resume", path])
+    assert ran == list(range(10)) and sorted(_rows(path)) == ran
+    done = list(ran)
+    ran.clear()
+    monkeypatch.setattr(cli, "run_case", _fake_run_case(ran))
+    assert main(["all", "--device", "cpu", "--resume", path]) == 0
+    assert ran == [m for m in sorted(config.CASES) if m not in done]
+    assert sorted(_rows(path)) == sorted(config.CASES)
+
+
+def test_resume_reruns_unusable_rows_and_keeps_other_modes(monkeypatch, tmp_path, capsys):
+    """A recorded row stands for its mode only with parity_ok, the same
+    iterations and the same seed; a narrower call keeps every other mode's
+    row; a mode that fails stays missing and fails the sweep."""
+    path = tmp_path / "sweep.json"
+    base = {"parity_ok": True, "bench_iterations": 100, "bench_seed": 0, "name": "recorded"}
+    path.write_text(json.dumps([
+        {**base, "mode": 2}, {**base, "mode": 3, "parity_ok": False},
+        {**base, "mode": 4, "bench_iterations": 5}, {**base, "mode": 5, "bench_seed": 1},
+        {**base, "mode": 9}]))
+    ran = []
+    monkeypatch.setattr(cli, "run_case", _fake_run_case(ran))
+    for mode in (2, 3, 4, 5):
+        assert main([str(mode), "--device", "cpu", "--resume", str(path), "--json"]) == 0
+        (row,) = json.loads(capsys.readouterr().out)
+        assert (row["name"] == "recorded") == (mode == 2), row
+    assert ran == [3, 4, 5]
+    rows = _rows(path)
+    assert sorted(rows) == [2, 3, 4, 5, 9] and rows[9]["name"] == "recorded"
+    assert all(rows[m]["bench_iterations"] == 100 and rows[m]["parity_ok"] for m in (3, 4, 5))
+    monkeypatch.setattr(cli, "run_case", lambda *a, **k: (_ for _ in ()).throw(
+        ParityError("breach")))
+    assert main(["6", "--device", "cpu", "--resume", str(path)]) == 1
+    assert "SWEEP INCOMPLETE: missing modes [6]" in capsys.readouterr().err
+    assert 6 not in _rows(path) and not (tmp_path / "sweep.json.tmp").exists()

@@ -33,7 +33,9 @@ float32; the int8 tier's F(2,3) on bf16 filters (FP64) equal to its twin;
 the training Functions of kernels/vjp.py (each per-layer Function and
 composite, f32 and bf16w) against the same Function on the CPU, output and
 every gradient, and one SGD step replayed from a CUDA graph against the
-same step run eagerly. Needs an NVIDIA GPU and
+same step run eagerly; the stage at ResNet-152's depths (35 and 7 blocks)
+and every kernel family at the N=32 shapes of ResNet-50 and ResNet-18/34,
+at every tier. Needs an NVIDIA GPU and
 nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -71,13 +73,13 @@ from winograd_tpu_torch.kernels.stem import (
     stem_fused, stem_fused_plain, stem_fused_pre, stem_fused_pre_plain, stem_prepare_input,
 )
 from winograd_tpu_torch.kernels.transition import (
-    TRANSITION_STEP, fuse_transition_weights, transition_block_fused,
+    TRANSITION_MAX_SUM, TRANSITION_STEP, fuse_transition_weights, transition_block_fused,
     transition_block_fused_plain, transition_block_fused_planned, transition_plan,
 )
 from winograd_tpu_torch.kernels.splitk import split_k
 from winograd_tpu_torch.kernels.winograd import (
     WINOGRAD_STEP, conv3x3_bn_winograd, conv3x3_bn_winograd_plain, conv3x3_bn_winograd_planned,
-    winograd_plan, winograd_tiles,
+    winograd2_mid_plain, winograd_plan, winograd_tiles,
 )
 from winograd_tpu_torch.models.basic import basicnet_params, init_basicnet_arrays
 from winograd_tpu_torch.models.convert import stem_filter_s2d
@@ -704,8 +706,6 @@ def test_winograd_bf16_filter_edges(dev, n, h, w, cin, cout, relu):
     wt = (rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)
     u = torch.as_tensor(transforms.transform_filter(wt, m=2), device=dev).to(torch.bfloat16)
     s, b = _bn(rng, dev, cout)
-    from winograd_tpu_torch.kernels.winograd import winograd2_mid_plain
-
     _equal(conv3x3_bn_winograd(x, u, s, b, relu, "bf16"), winograd2_mid_plain(x, u, s, b, relu))
 
 
@@ -1351,3 +1351,197 @@ def test_train_step_replays_as_it_runs_eagerly(dev):
     _agree(loss, eager_loss)
     for a, b in zip(tree_leaves(p) + tree_leaves(m), tree_leaves(eager_p) + tree_leaves(eager_m)):
         _agree(a, b)
+
+
+# -- depth and batch: ResNet-152's longest runs and every family at N=32 ----
+# The stage kernel's persistent launch at ResNet-152's conv4_x (35 identity
+# blocks, the direct mid) and conv3_x (7 blocks, F(2,3) mid), at every tier.
+@pytest.mark.parametrize("n,hw,cio,cmid,nb,mid", [
+    (1, 14, 1024, 256, 35, "direct"), (1, 28, 512, 128, 7, "winograd2"),
+])
+@pytest.mark.parametrize("tier", ["f32", "bf16w", "int8"])
+def test_stage_at_resnet152_depth(dev, n, hw, cio, cmid, nb, mid, tier):
+    rng = np.random.default_rng(nb + cmid)
+    x = _r(rng, dev, n, hw, hw, cio).abs()
+    if tier == "int8":
+        q = _qstacked(rng, dev, nb, cio, cmid)
+        _equal(q8.resnet_stage_int8(x, q, mid), q8.resnet_stage_int8_plain(x, q, mid))
+        return
+    stacked = _stacked(rng, dev, nb, cio, cmid)
+    if tier == "bf16w":
+        stacked = _bf16w(stacked)
+    _agree(resnet_stage_fused(x, stacked, mid), resnet_stage_fused_plain(x, stacked, mid))
+
+
+# Every kernel family at the N=32 shapes of ResNet-50 and ResNet-18/34
+# (bench modes 27 and 28): the stem, the entry block's 1x1s and F(2,3) at
+# 56x56, each stage's widest run, the transitions, the conv5_x 3x3 and the
+# head; against the plain versions at the f32 bar, the int8 kernels and the
+# "bf16" routes equal to theirs.
+N32 = 32
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16w", "bf16"])
+def test_stem_at_n32(dev, precision):
+    rng = np.random.default_rng(32)
+    x = _r(rng, dev, N32, 224, 224, 3)
+    w192 = torch.as_tensor(stem_filter_s2d((rng.random((64, 3, 7, 7)) - 0.5).astype(np.float32)),
+                           device=dev)
+    if precision == "bf16w":
+        w192 = w192.to(BF16)
+    s, b = _bn(rng, dev, 64)
+    check = _equal if precision == "bf16" else _agree
+    check(stem_fused(x, w192, s, b, precision), stem_fused_plain(x, w192, s, b, precision))
+    if precision != "bf16":
+        xb = stem_prepare_input(x.cpu(), precision).to(dev)
+        _agree(stem_fused_pre(xb, w192, s, b, 224, 224, precision),
+               stem_fused_pre_plain(xb, w192, s, b, 224, 224, precision))
+
+
+@pytest.mark.parametrize("p,k,n", [(N32 * 56 * 56, 64, 256), (N32 * 56 * 56, 256, 64),
+                                   (N32 * 7 * 7, 2048, 512), (N32, 2048, 1000)])
+@pytest.mark.parametrize("tier", ["f32", "bf16w", "int8"])
+def test_pointwise_at_n32(dev, p, k, n, tier):
+    rng = np.random.default_rng(p + k + n)
+    x = _r(rng, dev, p, k).abs()
+    s, b = _bn(rng, dev, n)
+    if tier == "int8":
+        w_q, s_w = _q(rng, dev, k, n)
+        _equal(q8.conv1x1_bn_int8(x, w_q, s_w, s, b, True),
+               q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, True))
+        return
+    w = _r(rng, dev, k, n)
+    if tier == "bf16w":
+        w = w.to(BF16)
+    _agree(conv1x1_bn(x, w, s, b, True), conv1x1_bn_plain(x, w, s, b, True))
+
+
+@pytest.mark.parametrize("hw,c", [(56, 64), (28, 128), (14, 256)])
+@pytest.mark.parametrize("precision", ["f32", "bf16w", "bf16", "int8"])
+def test_winograd_at_n32(dev, hw, c, precision):
+    rng = np.random.default_rng(hw + c)
+    x = _r(rng, dev, N32, hw, hw, c).abs()
+    w = (rng.random((c, c, 3, 3)) - 0.5).astype(np.float32)
+    s, b = _bn(rng, dev, c)
+    u2 = transforms.transform_filter(w, m=2)
+    if precision == "int8":
+        uq, su = q8.quantize_winograd_filter(u2)
+        uq, su = torch.as_tensor(uq, device=dev), torch.as_tensor(su, device=dev)
+        _equal(q8.conv3x3_bn_winograd_int8(x, uq, su, s, b),
+               q8.conv3x3_bn_winograd_int8_plain(x, uq, su, s, b))
+        return
+    u = torch.as_tensor(u2, device=dev)
+    if precision == "f32":
+        _agree(conv3x3_bn_winograd(x, u, s, b), conv3x3_bn_winograd_plain(x, u, s, b))
+    elif precision == "bf16w":
+        u = u.to(BF16)
+        _agree(conv3x3_bn_winograd(x, u, s, b, True, "bf16w"),
+               conv3x3_bn_winograd_plain(x, u, s, b))
+    else:
+        u = u.to(BF16)
+        _equal(conv3x3_bn_winograd(x, u, s, b, True, "bf16"), winograd2_mid_plain(x, u, s, b))
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16w", "int8"])
+def test_direct_at_n32(dev, tier):
+    rng = np.random.default_rng(7)
+    x = _r(rng, dev, N32, 7, 7, 512).abs()
+    s, b = _bn(rng, dev, 512)
+    if tier == "int8":
+        w9_q, s_w9 = _q(rng, dev, 9 * 512, 512)
+        _equal(q8.conv3x3_bn_int8(x, w9_q, s_w9, s, b), q8.conv3x3_bn_int8_plain(x, w9_q, s_w9, s, b))
+        return
+    w9 = torch.as_tensor(direct_filter((rng.random((512, 512, 3, 3)) - 0.5).astype(np.float32)),
+                         device=dev)
+    if tier == "bf16w":
+        w9 = w9.to(BF16)
+    _agree(conv3x3_bn_direct(x, w9, s, b), conv3x3_bn_direct_plain(x, w9, s, b))
+
+
+@pytest.mark.parametrize("hw,cio,cmid,nb,mid", [
+    (56, 256, 64, 2, "winograd2"), (28, 512, 128, 3, "winograd2"), (14, 1024, 256, 5, "direct"),
+    (7, 2048, 512, 2, "direct"),
+])
+@pytest.mark.parametrize("tier", ["f32", "bf16w", "int8"])
+def test_stage_at_n32(dev, hw, cio, cmid, nb, mid, tier):
+    rng = np.random.default_rng(hw + nb)
+    x = _r(rng, dev, N32, hw, hw, cio).abs()
+    if tier == "int8":
+        q = _qstacked(rng, dev, nb, cio, cmid)
+        _equal(q8.resnet_stage_int8(x, q, mid), q8.resnet_stage_int8_plain(x, q, mid))
+        return
+    stacked = _stacked(rng, dev, nb, cio, cmid)
+    if tier == "bf16w":
+        stacked = _bf16w(stacked)
+    _agree(resnet_stage_fused(x, stacked, mid), resnet_stage_fused_plain(x, stacked, mid))
+
+
+@pytest.mark.parametrize("hw,cin,cmid,cout", [(56, 256, 128, 512), (28, 512, 256, 1024),
+                                              (14, 1024, 512, 2048)])
+@pytest.mark.parametrize("tier", ["f32", "bf16w", "int8"])
+def test_transition_at_n32(dev, hw, cin, cmid, cout, tier):
+    rng = np.random.default_rng(hw + cin)
+    x = _r(rng, dev, N32, hw, hw, cin).abs()
+    if tier == "int8":
+        p = _qtransition(rng, dev, cin, cmid, cout)
+        _equal(q8.transition_block_int8(x, p), q8.transition_block_int8_plain(x, p))
+        return
+    p = _transition(rng, dev, cin, cmid, cout)
+    if tier == "bf16w":
+        p["wep"], p["bep"] = fuse_transition_weights(p)
+        p = _bf16w(p)
+    _agree(transition_block_fused(x, p), transition_block_fused_plain(x, p))
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16w", "int8"])
+def test_basic_stage_at_n32(dev, tier):
+    rng = np.random.default_rng(512)
+    if tier == "int8":
+        x, q = _basic_int8(rng, dev, N32, 7, 512, 2)
+        _equal(bs.basic_stage_int8(x, q), bs.basic_stage_int8_plain(x, q))
+        return
+    x, stacked = _basic_f32(rng, dev, N32, 7, 512, 2)
+    if tier == "bf16w":
+        stacked = _bf16w(stacked)
+    _agree(bs.basic_stage_fused(x, stacked), bs.basic_stage_fused_plain(x, stacked))
+
+
+def _full_scale_basic(rng, dev, nb, c):
+    """Basic blocks with full-scale weights (uniform in +-0.5, as
+    chip_smoke.py draws them) and BN folded from gamma, beta, mean in +-0.5
+    and var in [5, 8): sums of 4608 terms that reach |out| ~ 20."""
+    blocks = []
+    for _ in range(nb):
+        b = {}
+        for leg in ("a", "b"):
+            b[f"w9_{leg}"] = direct_filter((rng.random((c, c, 3, 3)) - 0.5).astype(np.float32))
+            g, beta, mean = ((rng.random(c) - 0.5).astype(np.float32) for _ in range(3))
+            var = (rng.random(c) * 3 + 5).astype(np.float32)
+            b[f"s_{leg}"], b[f"b_{leg}"] = transforms.fold_batchnorm(g, beta, mean, var)
+        blocks.append(b)
+    return {k: v.to(dev) for k, v in bs.stack_basic_stage_params(blocks).items()}
+
+
+# The f32 basic stage and transition at N=32, where their tiles fill the grid
+# and the plan once left K=4608 in one range: the 3xTF32 tiles' f32 sums
+# drift with the length of a walk, so no item sums more than
+# TRANSITION_MAX_SUM of K (1.8e-3 against a bar of 1.76e-3 unsplit, on
+# chip_smoke.py's full-scale data).
+@pytest.mark.parametrize("bf16w", [False, True])
+def test_long_sums_split_and_stay_within_the_bar_at_n32(dev, bf16w):
+    rng = np.random.default_rng(2032)
+    stacked = _full_scale_basic(rng, dev, 2, 512)
+    if bf16w:
+        stacked = _bf16w(stacked)
+    x = _r(rng, dev, N32, 7, 7, 512)
+    assert bs.basic_stage_plan(N32, 7, 7, 512, _build.sm_count(dev)).conv.chunk <= \
+        TRANSITION_MAX_SUM
+    _agree(bs.basic_stage_fused(x, stacked), bs.basic_stage_fused_plain(x, stacked))
+    p = _transition(rng, dev, 1024, 512, 2048)
+    if bf16w:
+        p["wep"], p["bep"] = fuse_transition_weights(p)
+        p = _bf16w(p)
+    x = _r(rng, dev, N32, 14, 14, 1024)
+    plan = transition_plan(N32, 14, 14, 1024, 512, 2048, _build.sm_count(dev))
+    assert all(s.chunk <= TRANSITION_MAX_SUM for s in (plan.reduce, plan.mid, plan.expand))
+    _agree(transition_block_fused(x, p), transition_block_fused_plain(x, p))

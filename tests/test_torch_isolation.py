@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of winograd_tpu_torch loads
-neither jax nor winograd_tpu, chip_smoke.py has no import statement of
-either, and the port's entry points refuse to run on the CPU unless the
-caller asks for it."""
+neither jax nor winograd_tpu, chip_smoke.py and the port's examples have no
+import statement of either, and the port's entry points refuse to run on
+the CPU unless the caller asks for it."""
 
 import ast
 import pathlib
@@ -38,17 +38,32 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert bad.strip() == "[]", res.stdout
 
 
-def test_chip_smoke_imports_no_jax_and_no_jax_package():
-    """chip_smoke.py imports inside main(), so importing it proves nothing:
-    every import statement of its source is checked instead."""
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _imported_modules(script):
+    """Every module an import statement of `script` names."""
+    tree = ast.parse((ROOT / script).read_text())
     modules = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             modules += [alias.name for alias in node.names]
         elif isinstance(node, ast.ImportFrom):
-            assert node.level == 0, "chip_smoke.py runs from the repository root"
+            assert node.level == 0, f"{script} runs from the repository root"
             modules.append(node.module)
+    return modules
+
+
+def test_chip_smoke_imports_no_jax_and_no_jax_package():
+    """chip_smoke.py imports inside main(), so importing it proves nothing:
+    every import statement of its source is checked instead."""
+    modules = _imported_modules("chip_smoke.py")
+    tops = {m.split(".")[0] for m in modules}
+    assert "winograd_tpu_torch" in tops and "torch" in tops, modules
+    assert not tops & {"jax", "jaxlib", "winograd_tpu"}, modules
+
+
+@pytest.mark.parametrize("script", ["examples/train_and_deploy_torch.py",
+                                    "examples/serve_torch_checkpoint_torch.py"])
+def test_examples_import_no_jax_and_no_jax_package(script):
+    modules = _imported_modules(script)
     tops = {m.split(".")[0] for m in modules}
     assert "winograd_tpu_torch" in tops and "torch" in tops, modules
     assert not tops & {"jax", "jaxlib", "winograd_tpu"}, modules
@@ -79,6 +94,7 @@ def test_entry_points_refuse_cpu_unless_asked():
         BackboneEngine, BottleneckEngine, ResNetBasicEngine, engine_from_torch,
     )
     from winograd_tpu_torch.models.basic import basicnet_forward_pre
+    from winograd_tpu_torch.models.checkpoint import load_checkpoint_dir
     from winograd_tpu_torch.models.resnet50 import resnet50_forward_pre
 
     # Every constructor refuses before it reads its file or builds anything.
@@ -88,6 +104,8 @@ def test_entry_points_refuse_cpu_unless_asked():
         lambda: resnet50_forward_pre(torch.zeros(1, 38, 38, 4), {}),
         lambda: basicnet_forward_pre(torch.zeros(1, 38, 38, 4), {}),
         lambda: engine_from_torch("missing.pth"),
+        lambda: load_checkpoint_dir("missing"),
+        lambda: main(["--smoke"]),
     ]
     for cls in (ResNet50Engine, ResNetBasicEngine):
         refused += [lambda cls=cls: cls.from_case({}, None),

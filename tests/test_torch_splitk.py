@@ -403,6 +403,23 @@ def test_transition_plan_on_ragged_shapes(shape):
         _covers_once(split, k, tr.TRANSITION_STEP)
 
 
+# At N=32 the tiles fill the grid and ask for no split; the sum cap still
+# cuts every K longer than TRANSITION_MAX_SUM (the conv4->5 mid, 4608, in
+# 3 ranges; the conv3->4 mid, 2304, in 2), which the N<=8 plans above never
+# reach.
+@pytest.mark.parametrize("shape,splits", [
+    ((32, 56, 56, 256, 128, 512), (1, 1, 1)), ((32, 28, 28, 512, 256, 1024), (1, 2, 1)),
+    ((32, 14, 14, 1024, 512, 2048), (1, 3, 1)),
+])
+def test_transition_plan_caps_every_sum_at_n32(shape, splits):
+    plan = tr.transition_plan(*shape)
+    phases = (plan.reduce, plan.mid, plan.expand)
+    assert tuple(s.splits for s in phases) == splits
+    for split, (_, k, _) in zip(phases, _transition_f32_phases(*shape)):
+        _covers_once(split, k, tr.TRANSITION_STEP)
+        assert split.chunk <= tr.TRANSITION_MAX_SUM
+
+
 def test_transition_plan_follows_the_sm_count():
     shape = (1, 14, 14, 1024, 512, 2048)
     small, large = tr.transition_plan(*shape, sms=66), tr.transition_plan(*shape)
@@ -554,6 +571,14 @@ def test_basic_stage_plan_covers_k_on_ragged_shapes(n, hw, c):
     _covers_once(plan.conv, 9 * c, tr.TRANSITION_STEP)
     assert plan.conv.splits <= tr.TRANSITION_MAX_SPLITS
     assert plan.conv.splits == 1 or plan.conv.chunk >= tr.TRANSITION_MIN_CHUNK
+
+
+def test_basic_stage_plan_caps_the_sum_at_n32():
+    """At N=32 the 4608-deep convs fill the grid with tiles; the sum cap
+    still splits them in 3 (tests above: the N<=8 plans it leaves alone)."""
+    plan = bs.basic_stage_plan(32, 7, 7, 512)
+    _covers_once(plan.conv, 9 * 512, tr.TRANSITION_STEP)
+    assert plan.conv.splits == 3 and plan.conv.chunk <= tr.TRANSITION_MAX_SUM
 
 
 def test_basic_stage_plan_follows_the_sm_count():

@@ -2,22 +2,25 @@
 
     python -m winograd_tpu_torch.bench <mode|all> [--iterations N] [--warmup N]
         [--seed S] [--json] [--no-strict] [--data-dir D] [--profile DIR]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--resume FILE]
+    python -m winograd_tpu_torch.bench --smoke [--device cuda|cpu]
 
 The twin of winograd_tpu/bench/cli.py (`python -m winograd_tpu.bench`).
 One mode is one case of config.py's CASES, made from its seed by
 datagen/generate.py with a float64 golden (ops/reference.py). Modes 0-5
 are the reference CLI's layer cases; 6-12 blocks, stages and transitions;
 13-15 backbones and the trunk; 16 and 18 the ResNet-50 classifier at N=1
-and N=8; 22 the stem; 23, 24 and 26 ResNet-18, ResNet-34 and ResNet-18 at
-N=8. Every mode runs the port's in-house path ("cuda": the hand-written
-kernels; on the CPU their plain versions) and the vendor baseline
-("cudnn": baseline/cudnn.py, TF32 off), and where the JAX package has them
-the other in-house columns: "direct" and "winograd_f43" (modes 0/1; the
-stem's space-to-depth route on mode 22), "int8" and "bf16w" (the serving
-tiers), and "pre" (the classifiers and the stem: the f32 forward from the
-operand kernels/stem.py::stem_prepare_input builds on the host, made once
-before timing). Each is checked against the golden: f32 paths, "pre"
+and N=8; 20 and 21 ResNet-101 and ResNet-152; 22 the stem; 23, 24 and 26
+ResNet-18, ResNet-34 and ResNet-18 at N=8; 27 and 28 ResNet-50 and
+ResNet-18 at N=32, each run as one batch (the JAX package's chunks of 8
+are a TPU compile workaround). Every mode runs the port's in-house path
+("cuda": the hand-written kernels; on the CPU their plain versions) and
+the vendor baseline ("cudnn": baseline/cudnn.py, TF32 off), and where the
+JAX package has them the other in-house columns: "direct" and
+"winograd_f43" (modes 0/1; the stem's space-to-depth route on mode 22),
+"int8" and "bf16w" (the serving tiers), and "pre" (the classifiers and the
+stem: the f32 forward from the operand kernels/stem.py::stem_prepare_input
+builds on the host, made once before timing). Each is checked against the golden: f32 paths, "pre"
 included, at max abs error <= PARITY_ATOL, int8 and bf16w at their
 relative bars. A breach raises ParityError and the CLI exits nonzero.
 
@@ -26,9 +29,23 @@ utils/timing.py::bench_loop): mean and min on the host clock with a
 synchronize per call, chained over back-to-back calls; device time per call
 (`*_device_us`) from calls captured in one CUDA graph and replayed between
 CUDA events (bench_graph). MFU is nominal FLOPs over device time over the
-H100's dense BF16 peak, given on an H100 only. The depth and batch-32 modes
-(20, 21, 27, 28) are not ported: asked for, the CLI exits 2 naming the
-ROADMAP.md item that ports them.
+H100's dense BF16 peak, given on an H100 only. main adds to each row the
+mode's seconds, its kernel launches by name, whether the native host
+library (utils/native.py) loaded and the calls it served in the run's host
+IO and checks ("native_library", "native_calls"), the process's peak
+resident memory so far ("peak_host_mib") and the mode's peak device
+allocations ("peak_device_mib").
+
+--resume FILE keeps a sweep's rows in FILE, rewritten atomically after
+every mode; on a restart a recorded row is reused when it has parity_ok and
+the same iterations and seed, and every other requested mode runs again. A
+row of a mode this call did not ask for is kept. A mode that fails stays
+missing, and SWEEP INCOMPLETE fails the call (the JAX package's protocol).
+
+--smoke (run_smoke) calls every kernel family once, untimed, at the JAX
+package's smoke geometries, holds each output finite and within its
+family's bar of the kernel's plain version on the same device, and exits
+nonzero naming each family that failed.
 
 The training modes (17: the 13-block backbone, 19: the ResNet-50
 classifier, 25: ResNet-18) check the train forwards (kernels/vjp.py
@@ -51,6 +68,7 @@ import contextlib
 import functools
 import json
 import os
+import resource
 import subprocess
 import sys
 import time
@@ -84,21 +102,15 @@ from winograd_tpu_torch.config import (
 )
 from winograd_tpu_torch.datagen.generate import make_case
 from winograd_tpu_torch.kernels import _build
+from winograd_tpu_torch.utils import native
 from winograd_tpu_torch.utils.checker import ParityError, output_checker
 from winograd_tpu_torch.utils.timing import bench_graph, bench_loop
 from winograd_tpu_torch.utils.tree import tree_leaves, tree_unflatten
 
-# Modes of the JAX package that the port does not run yet, by the ROADMAP.md
-# item that ports them.
-UNPORTED = {
-    20: "A6 (depth and batch)", 21: "A6 (depth and batch)",
-    27: "A6 (depth and batch)", 28: "A6 (depth and batch)",
-}
 TRAIN_CONFIGS = (TrainConfig, FullTrainConfig, BasicTrainConfig)
 # The f32 train step's scalar against the cuDNN autograd step's, relative
 # (the JAX package's CLI's gate).
 TRAIN_GRAD_RTOL = 1e-3
-PORTED = tuple(m for m in sorted(CASES) if m not in UNPORTED)
 
 
 def _check(name: str, out: torch.Tensor, golden: np.ndarray, strict: bool):
@@ -414,9 +426,6 @@ def run_case(
     (datagen's load_case); otherwise they are made in memory from the seed.
     """
     dev = _build.require_device(device)
-    if mode in UNPORTED:
-        raise NotImplementedError(
-            f"mode {mode} ({CASES[mode].name}) is not ported yet: ROADMAP.md {UNPORTED[mode]}")
     cfg = CASES[mode]
     if data_dir is not None:
         from winograd_tpu_torch.datagen.generate import load_case
@@ -531,10 +540,254 @@ def run_case(
     }
 
 
+def run_smoke(device="cuda") -> int:
+    """One untimed call of every kernel family at the JAX package's smoke
+    geometries (winograd_tpu/bench/cli.py::run_smoke: the mode-0 3x3 and
+    mode-2 1x1, the mode-6 block, a two-block conv4_x stage, the mode-9
+    28x28 F(2,3) block, the conv4->5 transition, the stem and head at 224,
+    the block and transition train VJPs) plus the basic stage (two blocks at
+    7x7x512), each at f32 and, where the family has the tier, bf16w and
+    int8 (the int8 tier's FP64 F(2,3) on bf16 filters among them). Every
+    output must be finite and within its family's bar of the kernel's plain
+    version on the same device: 1e-4 * max(1, max|plain|) at f32 and bf16w,
+    equality where the kernel computes the twin's arithmetic exactly (the
+    int8 kernels, the bf16 stem and the FP64 F(2,3)); the train VJPs'
+    input gradients against the same Function on CPU copies (the plain
+    versions) at 1e-4. On the card it builds every kernel library first.
+    Returns 1 naming each family that failed, else 0, after a line with the
+    run's seconds."""
+    from winograd_tpu_torch.config import BlockConfig, TransitionConfig
+    from winograd_tpu_torch.datagen import generate as gen
+    from winograd_tpu_torch.kernels import basic_stage as bs
+    from winograd_tpu_torch.kernels import quantized as q8
+    from winograd_tpu_torch.kernels.block import (
+        bottleneck_block_fused, bottleneck_block_fused_plain,
+    )
+    from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct, conv3x3_bn_direct_plain
+    from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain
+    from winograd_tpu_torch.kernels.stage import (
+        resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params,
+    )
+    from winograd_tpu_torch.kernels.stem import (
+        stem_fused, stem_fused_plain, stem_fused_pre, stem_fused_pre_plain, stem_prepare_input,
+    )
+    from winograd_tpu_torch.kernels.transition import (
+        transition_block_fused, transition_block_fused_plain,
+    )
+    from winograd_tpu_torch.kernels.vjp import (
+        bottleneck_block_train_fused, transition_block_train_fused,
+    )
+    from winograd_tpu_torch.kernels.winograd import (
+        conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain,
+    )
+    from winograd_tpu_torch.models.convert import (
+        cast_layer_bf16w, stages_from_jax, stem_filter_s2d, transition_from_jax,
+    )
+
+    dev = _build.require_device(device)
+    t0 = time.perf_counter()
+    if dev.type == "cuda":
+        # Every kernel library at once, one nvcc each.
+        print(f"  [smoke] build: {_build.build_all():.1f} s", file=sys.stderr)
+    failures = []
+
+    def t(a, dtype=torch.float32, on=dev):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=on).contiguous()
+
+    def check(name, kernel, plain, exact=False):
+        try:
+            out = kernel()
+            ref = plain()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            out, ref = out.detach().float().cpu(), ref.detach().float().cpu()
+            finite = bool(torch.isfinite(out).all())
+            err = (out - ref).abs().max().item()
+            tol = 0.0 if exact else PARITY_ATOL * max(1.0, ref.abs().max().item())
+            ok = finite and out.shape == ref.shape and err <= tol
+            what = f"max abs err {err:.3e} (bar {tol:.3e}){'' if finite else ', NON-FINITE'}"
+        except Exception as e:  # noqa: BLE001 - report every family
+            ok, what = False, f"{type(e).__name__}: {e}"
+        print(f"  [smoke] {name}: {'ok' if ok else 'FAIL'} {what}", file=sys.stderr)
+        if not ok:
+            failures.append(name)
+
+    def bf16(a):
+        return a.to(torch.bfloat16)
+
+    with baseline.full_float32(), torch.inference_mode():
+        # Layer kernels at the mode-0 and mode-2 geometries, every tier.
+        c0 = make_case(0)
+        x0, s0, b0 = t(c0["x"])[None], t(c0["scale"]), t(c0["bias"])
+        u2, u4, w9 = t(c0["u2"]), t(c0["u"]), t(c0["w9"])
+        check("winograd_f23", lambda: conv3x3_bn_winograd(x0, u2, s0, b0),
+              lambda: conv3x3_bn_winograd_plain(x0, u2, s0, b0))
+        check("winograd_f43", lambda: conv3x3_bn_winograd(x0, u4, s0, b0),
+              lambda: conv3x3_bn_winograd_plain(x0, u4, s0, b0))
+        check("winograd_f23_bf16w", lambda: conv3x3_bn_winograd(x0, bf16(u2), s0, b0, True,
+                                                                "bf16w"),
+              lambda: conv3x3_bn_winograd_plain(x0, bf16(u2), s0, b0))
+        check("winograd_f23_bf16", lambda: conv3x3_bn_winograd(x0, bf16(u2), s0, b0, True,
+                                                               "bf16"),
+              lambda: winograd2_mid_plain(x0, bf16(u2), s0, b0), exact=True)
+        uq_np, su_np = q8.quantize_winograd_filter(c0["u2"])
+        uq, su = t(uq_np, torch.int8), t(su_np)
+        check("winograd_int8", lambda: q8.conv3x3_bn_winograd_int8(x0, uq, su, s0, b0),
+              lambda: q8.conv3x3_bn_winograd_int8_plain(x0, uq, su, s0, b0), exact=True)
+        check("direct3x3", lambda: conv3x3_bn_direct(x0, w9, s0, b0),
+              lambda: conv3x3_bn_direct_plain(x0, w9, s0, b0))
+        check("direct3x3_bf16w", lambda: conv3x3_bn_direct(x0, bf16(w9), s0, b0),
+              lambda: conv3x3_bn_direct_plain(x0, bf16(w9), s0, b0))
+        w9q_np, sw9_np = q8.quantize_weights(c0["w9"])
+        w9q, sw9 = t(w9q_np, torch.int8), t(sw9_np)
+        check("direct3x3_int8", lambda: q8.conv3x3_bn_int8(x0, w9q, sw9, s0, b0),
+              lambda: q8.conv3x3_bn_int8_plain(x0, w9q, sw9, s0, b0), exact=True)
+        c2 = make_case(2)
+        x2, w2, s2, b2 = t(c2["x"])[None], t(c2["w"]), t(c2["scale"]), t(c2["bias"])
+        check("pointwise", lambda: conv1x1_bn(x2, w2, s2, b2, True),
+              lambda: conv1x1_bn_plain(x2, w2, s2, b2, True))
+        check("pointwise_bf16w", lambda: conv1x1_bn(x2, bf16(w2), s2, b2, True),
+              lambda: conv1x1_bn_plain(x2, bf16(w2), s2, b2, True))
+        wq2_np, sw2_np = q8.quantize_weights(c2["w"])
+        wq2, sw2 = t(wq2_np, torch.int8), t(sw2_np)
+        check("pointwise_int8", lambda: q8.conv1x1_bn_int8(x2, wq2, sw2, s2, b2, True),
+              lambda: q8.conv1x1_bn_int8_plain(x2, wq2, sw2, s2, b2, True), exact=True)
+
+        # The persistent kernels at the composed geometries.
+        c6 = make_case(6)
+        p6_np = gen.block_params_list(CASES[6], c6)
+        p6 = stages_from_jax([{"transition": None, "blocks": p6_np}], dev)[0]["blocks"][0]
+        x6 = t(c6["x"])[None]
+        check("block", lambda: bottleneck_block_fused(x6, p6),
+              lambda: bottleneck_block_fused_plain(x6, p6))
+        stage_cfg = BlockConfig("smoke_stage", c_io=1024, c_mid=256, hw=14, blocks=2)
+        cs = gen.make_block_case(stage_cfg, seed=1)
+        blocks = stages_from_jax([{"transition": None,
+                                   "blocks": gen.block_params_list(stage_cfg, cs)}], dev)[0]
+        stacked = stack_stage_params(blocks["blocks"])
+        xs = t(cs["x"])[None]
+        check("stage", lambda: resnet_stage_fused(xs, stacked),
+              lambda: resnet_stage_fused_plain(xs, stacked))
+        stacked16 = stack_stage_params([cast_layer_bf16w(b) for b in blocks["blocks"]])
+        check("stage_bf16w", lambda: resnet_stage_fused(xs, stacked16),
+              lambda: resnet_stage_fused_plain(xs, stacked16))
+        qs = q8.quantize_stage_params(blocks["blocks"])
+        qs = {k: v.to(dev) for k, v in qs.items()}
+        check("stage_int8", lambda: q8.resnet_stage_int8(xs, qs),
+              lambda: q8.resnet_stage_int8_plain(xs, qs), exact=True)
+        c9 = make_case(9)
+        b9 = stages_from_jax([{"transition": None,
+                               "blocks": gen.block_params_list(CASES[9], c9)}], dev)[0]
+        stacked9 = stack_stage_params(b9["blocks"])
+        x9 = t(c9["x"])[None]
+        check("stage_winograd2_28", lambda: resnet_stage_fused(x9, stacked9),
+              lambda: resnet_stage_fused_plain(x9, stacked9))
+        c12 = make_case(12)
+        p12 = transition_from_jax(gen.transition_params(c12), dev)
+        x12 = t(c12["x"])[None]
+        check("transition", lambda: transition_block_fused(x12, p12),
+              lambda: transition_block_fused_plain(x12, p12))
+        p12w = cast_layer_bf16w(p12)
+        check("transition_bf16w", lambda: transition_block_fused(x12, p12w),
+              lambda: transition_block_fused_plain(x12, p12w))
+        q12 = {k: v.to(dev) for k, v in q8.quantize_transition_params(p12).items()}
+        check("transition_int8", lambda: q8.transition_block_int8(x12, q12),
+              lambda: q8.transition_block_int8_plain(x12, q12), exact=True)
+        rng = np.random.default_rng(4)
+        basic = [gen._basic_block_params_random(rng, 512, bn_scale=0.5) for _ in range(2)]
+        xb = t(gen._rand(rng, 1, 7, 7, 512))
+        sb = {k: v.to(dev) for k, v in bs.stack_basic_stage_params(
+            [{k: t(v) for k, v in b.items()} for b in basic]).items()}
+        check("basic_stage", lambda: bs.basic_stage_fused(xb, sb),
+              lambda: bs.basic_stage_fused_plain(xb, sb))
+        sb16 = {k: bf16(v) if k.startswith("w9_") else v for k, v in sb.items()}
+        check("basic_stage_bf16w", lambda: bs.basic_stage_fused(xb, sb16),
+              lambda: bs.basic_stage_fused_plain(xb, sb16))
+        qb = {k: v.to(dev) for k, v in bs.quantize_basic_stage_params(basic).items()}
+        check("basic_stage_int8", lambda: bs.basic_stage_int8(xb, qb),
+              lambda: bs.basic_stage_int8_plain(xb, qb), exact=True)
+
+        # Stem (raw image and prepared operand) and head, the mode-16
+        # additions.
+        rng = np.random.default_rng(3)
+        ximg = t(gen._rand(rng, 1, 224, 224, 3))
+        bns = gen._bn_params(rng, 64)
+        w192 = t(stem_filter_s2d(gen._rand(rng, 64, 3, 7, 7)))
+        ss, sbias = t(bns["scale"]), t(bns["bias"])
+        for precision, w, exact in (("f32", w192, False), ("bf16w", bf16(w192), False),
+                                    ("bf16", w192, True)):
+            suffix = {"f32": "", "bf16w": "_bf16w", "bf16": "_int8"}[precision]
+            check(f"stem{suffix}", lambda: stem_fused(ximg, w, ss, sbias, precision),
+                  lambda: stem_fused_plain(ximg, w, ss, sbias, precision), exact=exact)
+            if precision != "bf16":
+                xpre = stem_prepare_input(ximg.cpu(), precision).to(dev)
+                check(f"stem_pre{suffix}",
+                      lambda: stem_fused_pre(xpre, w, ss, sbias, 224, 224, precision),
+                      lambda: stem_fused_pre_plain(xpre, w, ss, sbias, 224, 224, precision))
+        xh = t(gen._rand(rng, 1, 2048))
+        w_fc, b_fc = t(gen._rand(rng, 2048, 1000, scale=0.06)), t(gen._rand(rng, 1000))
+        ones = torch.ones(1000, device=dev)
+        check("head", lambda: conv1x1_bn(xh, w_fc, ones, b_fc, False),
+              lambda: conv1x1_bn_plain(xh, w_fc, ones, b_fc, False))
+
+    # Training VJPs (forward and backward through the serving kernels): the
+    # input gradient of sum(out^2), against the same Function on CPU copies.
+    def grad_x(fn, x, params, on):
+        params = {k: v.to(on) for k, v in params.items()}
+        with torch.enable_grad():
+            xg = x.to(on).clone().requires_grad_()
+            out = fn(xg, params)
+            (g,) = torch.autograd.grad((out * out).sum(), xg)
+        return g
+
+    def raw(params):
+        keys = ("w_reduce", "s_reduce", "b_reduce", "w_mid", "s_mid", "b_mid", "w_expand",
+                "s_expand", "b_expand", "w_proj", "s_proj", "b_proj")
+        return {k: t(params[k], on="cpu") for k in keys if k in params}
+
+    cpu = torch.device("cpu")
+    with baseline.full_float32():
+        p6r = raw(p6_np[0])
+        check("block_train_vjp",
+              lambda: grad_x(bottleneck_block_train_fused, x6, p6r, dev),
+              lambda: grad_x(bottleneck_block_train_fused, x6, p6r, cpu))
+        tcfg = TransitionConfig("smoke_t", 512, 256, 1024, hw=28)
+        ct = gen.make_transition_case(tcfg, seed=2)
+        ptr_ = raw(gen.transition_params(ct))
+        xt = t(ct["x"])[None]
+        check("transition_train_vjp",
+              lambda: grad_x(transition_block_train_fused, xt, ptr_, dev),
+              lambda: grad_x(transition_block_train_fused, xt, ptr_, cpu))
+
+    seconds = time.perf_counter() - t0
+    if failures:
+        print(f"SMOKE FAILURES: {failures} ({seconds:.1f} s)", file=sys.stderr)
+        return 1
+    print("smoke: every kernel family ran finite and within its bar of its plain version "
+          f"({seconds:.1f} s with the build)", file=sys.stderr)
+    return 0
+
+
+def _read_resume(path: str) -> Dict[int, Dict]:
+    """The rows of a --resume file by mode; none when it does not exist."""
+    if not os.path.exists(path):
+        return {}
+    with open(path) as f:
+        return {r["mode"]: r for r in json.load(f)}
+
+
+def _write_resume(path: str, by_mode: Dict[int, Dict]) -> None:
+    """Every row by mode into path, atomically (a temporary file renamed)."""
+    tmp = f"{path}.tmp"
+    with open(tmp, "w") as f:
+        json.dump([by_mode[m] for m in sorted(by_mode)], f)
+    os.replace(tmp, path)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="winograd_tpu_torch benchmark harness")
     ap.add_argument("mode", nargs="?", default="all",
-                    help=f"case {', '.join(map(str, PORTED))} or 'all' (reference modes: 0-5)")
+                    help=f"case {min(CASES)}-{max(CASES)} or 'all' (reference modes: 0-5)")
     ap.add_argument("--iterations", type=int, default=BENCH_ITERATIONS)
     ap.add_argument("--warmup", type=int, default=BENCH_WARMUP)
     ap.add_argument("--seed", type=int, default=0)
@@ -550,27 +803,48 @@ def main(argv=None) -> int:
                          "per case to DIR")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) runs the kernels; cpu their plain versions")
+    ap.add_argument("--smoke", action="store_true",
+                    help="call every kernel family once, untimed, against its plain version "
+                         "(run_smoke); exits nonzero naming the families that failed")
+    ap.add_argument("--resume", default=None, metavar="FILE",
+                    help="keep the sweep's rows in FILE, rewritten after every mode; on a "
+                         "restart skip the modes recorded there with parity_ok under the same "
+                         "iterations and seed")
     args = ap.parse_args(argv)
+    if args.smoke:
+        return run_smoke(args.device)
 
     if args.mode == "all":
-        modes = list(PORTED)
+        modes = sorted(CASES)
     else:
         try:
             modes = [int(args.mode)]
         except ValueError:
             ap.error(f"mode must be an integer or 'all', got {args.mode!r}")
         if modes[0] not in CASES:
-            ap.error(f"unknown mode {modes[0]}; valid modes: {list(PORTED)}")
-        if modes[0] in UNPORTED:
-            ap.error(f"mode {modes[0]} ({CASES[modes[0]].name}) is not ported yet: "
-                     f"ROADMAP.md {UNPORTED[modes[0]]}")
+            ap.error(f"unknown mode {modes[0]}; valid modes: {sorted(CASES)}")
     _build.require_device(args.device)
 
-    by_mode = {}
+    requested = list(modes)
+    # by_mode holds every row of the --resume file, so that a narrower call
+    # keeps the other modes' rows; a recorded row stands for this call's
+    # mode only when it passed parity under the same iterations and seed.
+    by_mode = _read_resume(args.resume) if args.resume else {}
+    usable = [m for m in modes if by_mode.get(m, {}).get("parity_ok")
+              and by_mode[m].get("bench_iterations") == args.iterations
+              and by_mode[m].get("bench_seed") == args.seed]
+    if usable:
+        print(f"resume: skipping recorded modes {usable}", file=sys.stderr)
     failed = False
     for m in modes:
+        if m in usable:
+            continue
         print(f"=== mode {m}: {CASES[m].name} ===", file=sys.stderr)
         _build.reset_counts()
+        native.CALLS.clear()
+        on_card = torch.device(args.device).type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         try:
             row = run_case(m, args.iterations, args.warmup, args.seed,
@@ -579,10 +853,20 @@ def main(argv=None) -> int:
             row["bench_seed"] = args.seed
             row["bench_iterations"] = args.iterations
             # The mode's whole run (golden, checks, timing) on the host clock,
-            # and the kernel launches it made, every path's counted.
+            # the kernel launches it made, every path's counted, and the
+            # calls the native host library served.
             row["seconds"] = time.perf_counter() - t0
             row["launches"] = dict(_build.LAUNCHES)
+            row["native_library"] = native.available()
+            row["native_calls"] = dict(native.CALLS)
+            # Peak memory: the process's resident set so far (Linux
+            # ru_maxrss, KiB) and the mode's device allocations.
+            row["peak_host_mib"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+            row["peak_device_mib"] = (torch.cuda.max_memory_allocated() / 2**20
+                                      if on_card else None)
             by_mode[m] = row
+            if args.resume:
+                _write_resume(args.resume, by_mode)
         except ParityError as e:
             print(f"  PARITY FAILURE: {e}", file=sys.stderr)
             failed = True
@@ -593,8 +877,8 @@ def main(argv=None) -> int:
             print(f"  RUNTIME FAILURE: {e}", file=sys.stderr)
             failed = True
     # A sweep must hold every mode it was asked for.
-    results = [by_mode[m] for m in modes if m in by_mode]
-    missing = [m for m in modes if m not in by_mode]
+    results = [by_mode[m] for m in requested if m in by_mode]
+    missing = [m for m in requested if m not in by_mode]
     if missing:
         print(f"SWEEP INCOMPLETE: missing modes {missing}", file=sys.stderr)
         failed = True

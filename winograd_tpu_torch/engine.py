@@ -355,12 +355,16 @@ class _ClassifierEngine(_Engine):
 
     @classmethod
     def from_checkpoint(cls, path: str, **kw):
-        """The deployment end of the training pipeline: a models/
-        checkpoint.py::save_model checkpoint of trained parameters (raw
-        filters, folded BN), through the offline preprocessing
-        (prepare_*_serving), served."""
+        """The deployment end of the training pipeline: a checkpoint of
+        trained parameters (raw filters, folded BN), through the offline
+        preprocessing (prepare_*_serving), served. path: a models/
+        checkpoint.py::save_model file, or a save_checkpoint_dir directory
+        (the JAX package's orbax directory's twin)."""
         device = _build.require_device(kw.get("device", "cuda"))
-        trained, _ = checkpoint.load_model(path)
+        if os.path.isdir(path):
+            trained = checkpoint.load_checkpoint_dir(path, device="cpu")
+        else:
+            trained, _ = checkpoint.load_model(path)
         return cls(cls._serving_params(trained, device), **kw)
 
     @classmethod
@@ -373,9 +377,13 @@ class _ClassifierEngine(_Engine):
 
 
 class ResNet50Engine(_ClassifierEngine):
-    """Serves the complete ResNet-50 classifier (224x224x3 image in, 1000
-    logits out; ResNet-101/152 from torchvision weights too) through the
-    port's kernels.
+    """Serves the complete bottleneck classifier (224x224x3 image in, 1000
+    logits out) through the port's kernels: ResNet-50, and ResNet-101 and
+    ResNet-152 (from torchvision-format weights, from_torch), each forward
+    launching ResNet-50's kernels (the deeper conv3_x and conv4_x runs stay
+    one stage launch each; chip_smoke.py's depth phase serves both at every
+    tier). Any batch runs whole, as one graph a shape (N=32 in chip_smoke.py's
+    batch32 phase).
 
     params: the port's f32 parameter dicts (models/resnet50.py::
     init_resnet50_params, or models/convert.py::params_from_jax); they are

@@ -83,16 +83,21 @@ def transition_block_fused_plain(x, params: Dict) -> torch.Tensor:
 # (transition.cu's kMaxBlocksPerSm). The plan's own rule: each phase splits
 # K until tiles x splits reach about one item a block; a phase whose tiles
 # fill less than half the grid splits further, until no item walks more
-# than TRANSITION_MAX_WALK of K (a walk is latency bound); at most
-# TRANSITION_MAX_SPLITS ranges, each at least TRANSITION_MIN_CHUNK long.
-# tools/chip_split_sweep.py timed one phase's split at a time at the served
-# shapes (PERF.md): the walk cap pays where the tiles are few (the N=8 14->7
-# mid) and costs where they fill the grid (its reduce and expand), and 29
-# ranges beat 16 for the N=1 14->7 mid.
+# than TRANSITION_MAX_WALK of K (a walk is latency bound); and whatever the
+# tiles, no item sums more than TRANSITION_MAX_SUM of K (the tensor cores'
+# f32 accumulation drifts with a walk's length: unsplit at N=32, the basic
+# stage's (1568, 4608) x (4608, 512) convs came 1.8e-3 from their plain twin
+# against a bar of 1.76e-3, 1.9e-4 at N=8 in ranges of 512; PERF.md, fault
+# C2); at most TRANSITION_MAX_SPLITS ranges, each at least
+# TRANSITION_MIN_CHUNK long. tools/chip_split_sweep.py timed one phase's
+# split at a time at the served shapes (PERF.md): the walk cap pays where
+# the tiles are few (the N=8 14->7 mid) and costs where they fill the grid
+# (its reduce and expand), and 29 ranges beat 16 for the N=1 14->7 mid.
 TRANSITION_TILE = 64
 TRANSITION_STEP = 32
 TRANSITION_BLOCKS_PER_SM = 2
 TRANSITION_MAX_WALK = 512
+TRANSITION_MAX_SUM = 2048
 TRANSITION_MAX_SPLITS = 32
 TRANSITION_MIN_CHUNK = 128
 
@@ -118,7 +123,7 @@ def phase_split(p: int, k: int, cols: int, blocks: int) -> Split:
     3xTF32 kernel on a grid of `blocks` blocks, by the rule above (also
     csrc/basic_stage.cu's, kernels/basic_stage.py::basic_stage_plan)."""
     tiles = -(-p // TRANSITION_TILE) * -(-cols // TRANSITION_TILE)
-    want = blocks // tiles
+    want = max(blocks // tiles, -(-k // TRANSITION_MAX_SUM))
     if 2 * tiles < blocks:
         want = max(want, -(-k // TRANSITION_MAX_WALK))
     return split_k(k, min(want, TRANSITION_MAX_SPLITS), TRANSITION_STEP, TRANSITION_MIN_CHUNK)

@@ -21,15 +21,21 @@ tree (models/convert.py::params_from_jax and ::basicnet_params_from_jax
 turn it into the port's tensors). export_artifacts writes a trained
 bottleneck block as the reference's raw float32 blobs.
 
-The JAX package's orbax backend (save_model_orbax, load_model_orbax) is not
-ported (ROADMAP.md A4).
+save_checkpoint_dir / load_checkpoint_dir are the twin of the JAX
+package's orbax backend (save_model_orbax, load_model_orbax) with no orbax:
+a checkpoint directory of one raw file per array and an index of the tree
+(index.json), written on a background thread into a temporary directory
+beside the target and renamed into place once it is whole.
 """
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, Optional, Tuple
+import shutil
+import tempfile
+import threading
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -112,6 +118,168 @@ def load_model(path: str) -> Tuple[object, Dict]:
         return [dec(v) for v in node]
 
     return dec(structure["tree"]), dec(structure["extra"])
+
+
+INDEX = "index.json"
+
+
+def _leaf_bytes(v) -> Tuple[np.ndarray, str]:
+    """A leaf's host copy and its dtype's name: tensors leave the device,
+    bfloat16 travels as its 16-bit pattern."""
+    if isinstance(v, torch.Tensor):
+        t = v.detach().cpu().contiguous()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().copy(), "bfloat16"
+        return t.numpy().copy(), str(t.dtype).removeprefix("torch.")
+    a = np.array(v)
+    return a, a.dtype.name
+
+
+def _write_leaf(directory: str, name: str, data: np.ndarray) -> None:
+    data.tofile(os.path.join(directory, name))
+
+
+class CheckpointWrite:
+    """A save_checkpoint_dir in progress on its background thread."""
+
+    def __init__(self, path: str, write) -> None:
+        self.path = path
+        self._error: Optional[BaseException] = None
+        self._thread = threading.Thread(target=self._run, args=(write,),
+                                        name=f"checkpoint {path}", daemon=True)
+        self._thread.start()
+
+    def _run(self, write) -> None:
+        try:
+            write()
+        except BaseException as e:  # noqa: BLE001 - handed to wait_until_finished
+            self._error = e
+
+    def wait_until_finished(self) -> None:
+        """Block until the directory is in place; re-raise the writer's
+        exception if it failed (the target is then absent)."""
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+
+
+def save_checkpoint_dir(path: str, tree, *, wait: bool = True) -> Optional[CheckpointWrite]:
+    """Save a nested parameter tree (dicts, lists and None leaves; leaves
+    numpy arrays, tensors on any device or scalars) as a checkpoint
+    directory: one raw file per array and INDEX, the tree with each leaf's
+    file, dtype and shape. The twin of the JAX package's
+    models/checkpoint.py::save_model_orbax (orbax's StandardCheckpointer),
+    with no orbax.
+
+    The leaves are copied to the host here, so the caller may go on
+    changing them; the files are written on a background thread into a
+    temporary directory beside `path`, which is renamed to `path` when it
+    is whole (a crash never leaves a partial checkpoint at `path`). wait
+    True blocks until then and returns None; wait False returns the
+    CheckpointWrite, whose wait_until_finished() blocks and re-raises the
+    writer's exception. `path` must not exist."""
+    path = os.path.abspath(os.fspath(path))
+    if os.path.exists(path):
+        raise FileExistsError(f"checkpoint directory {path} exists")
+    leaves: List[Tuple[str, np.ndarray]] = []
+
+    def enc(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            return {k: enc(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [enc(v) for v in node]
+        data, dtype = _leaf_bytes(node)
+        name = f"{len(leaves)}.bin"
+        leaves.append((name, data))
+        return {"__leaf__": name, "dtype": dtype, "shape": list(data.shape)}
+
+    index = json.dumps({"tree": enc(tree)})
+    parent = os.path.dirname(path)
+    os.makedirs(parent, exist_ok=True)
+
+    def write() -> None:
+        tmp = tempfile.mkdtemp(prefix=f".{os.path.basename(path)}.tmp-", dir=parent)
+        try:
+            for name, data in leaves:
+                _write_leaf(tmp, name, data)
+            with open(os.path.join(tmp, INDEX), "w") as f:
+                f.write(index)
+            os.rename(tmp, path)
+        except BaseException:
+            shutil.rmtree(tmp, ignore_errors=True)
+            raise
+
+    handle = CheckpointWrite(path, write)
+    if wait:
+        handle.wait_until_finished()
+        return None
+    return handle
+
+
+def _leaf_spec(v) -> Tuple[Tuple[int, ...], str]:
+    if isinstance(v, torch.Tensor):
+        return tuple(v.shape), str(v.dtype).removeprefix("torch.")
+    a = np.asarray(v)
+    return a.shape, a.dtype.name
+
+
+def load_checkpoint_dir(path: str, like=None, device="cuda", mesh=None):
+    """Restore a save_checkpoint_dir directory as a tree of tensors on
+    `device` (CUDA by default, which must exist; the CPU on request). With
+    `like` (a tree of the same structure: arrays or tensors), the structure,
+    every leaf's shape and its dtype must match, else ValueError. The twin
+    of the JAX package's models/checkpoint.py::load_model_orbax. A mesh is
+    not ported yet (ROADMAP.md A10): passing one raises."""
+    from winograd_tpu_torch.kernels import _build
+
+    if mesh is not None:
+        raise NotImplementedError("a mesh is not ported yet (ROADMAP.md, queue A item 10: "
+                                  "parallelism); restore onto one device")
+    device = _build.require_device(device)
+    path = os.fspath(path)
+    with open(os.path.join(path, INDEX)) as f:
+        tree = json.load(f)["tree"]
+
+    def dec(node, ref, where):
+        if like is not None:
+            kind = (None if ref is None else dict if isinstance(ref, dict)
+                    else list if isinstance(ref, (list, tuple)) else "leaf")
+            got = (None if node is None else "leaf" if "__leaf__" in node
+                   else dict if isinstance(node, dict) else list)
+            if kind != got:
+                raise ValueError(f"checkpoint {path}: {where or 'the root'} is {got}, "
+                                 f"the like tree's is {kind}")
+        if node is None:
+            return None
+        if isinstance(node, list):
+            if like is not None and len(node) != len(ref):
+                raise ValueError(f"checkpoint {path}: {where} has {len(node)} entries, the "
+                                 f"like tree's {len(ref)}")
+            return [dec(v, None if like is None else ref[i], f"{where}/{i}")
+                    for i, v in enumerate(node)]
+        if "__leaf__" not in node:
+            if like is not None and set(node) != set(ref):
+                raise ValueError(f"checkpoint {path}: {where or 'the root'} has keys "
+                                 f"{sorted(node)}, the like tree's {sorted(ref)}")
+            return {k: dec(v, None if like is None else ref[k], f"{where}/{k}")
+                    for k, v in node.items()}
+        shape, dtype = tuple(node["shape"]), node["dtype"]
+        if like is not None and _leaf_spec(ref) != (shape, dtype):
+            raise ValueError(f"checkpoint {path}: {where} is {dtype} {shape}, the like "
+                             f"tree's {_leaf_spec(ref)[1]} {_leaf_spec(ref)[0]}")
+        stored = np.int16 if dtype == "bfloat16" else np.dtype(dtype)
+        data = np.fromfile(os.path.join(path, node["__leaf__"]), dtype=stored)
+        if data.size != int(np.prod(shape)):
+            raise ValueError(f"checkpoint {path}: {where} holds {data.size} values, "
+                             f"want {shape}")
+        t = torch.from_numpy(data.reshape(shape))
+        if dtype == "bfloat16":
+            t = t.view(torch.bfloat16)
+        return t.to(device)
+
+    return dec(tree, like, "")
 
 
 def _with_stem_layouts(stem: Dict) -> Dict:

@@ -1,5 +1,6 @@
 """Host utility layer: blob IO, timing, differential checking (copies of
-winograd_tpu/utils/{io,timing,checker}.py, on numpy and PyTorch)."""
+winograd_tpu/utils/{io,timing,checker,native}.py, on numpy, PyTorch and the
+port's native host library, native/winotpu.cpp)."""
 
 from winograd_tpu_torch.utils.checker import CheckResult, ParityError, output_checker
 from winograd_tpu_torch.utils.io import get_parameter, save_parameter, transpose

@@ -23,11 +23,17 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from winograd_tpu_torch.config import BENCH_ITERATIONS, BENCH_WARMUP
+from winograd_tpu_torch.utils import native
 
 
 def get_time_microseconds64() -> int:
-    """Microsecond wall clock (CLOCK_REALTIME)."""
-    return time.time_ns() // 1000
+    """Microsecond wall clock (CLOCK_REALTIME): the native host library's
+    wt_time_us where it loads (utils/native.py), else time.time_ns."""
+    lib = native.load()
+    if lib is None:
+        return time.time_ns() // 1000
+    native.CALLS["wt_time_us"] += 1
+    return int(lib.wt_time_us())
 
 
 class Timer:
