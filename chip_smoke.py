@@ -248,6 +248,39 @@ Phases, each of which must pass (exit 1 otherwise):
    parity_ok and the launches by kernel of the run (counters zeroed just
    before it). A breach, TF32 on, or a path of the mode with no device time
    fails the run.
+11b. parallel: one world of PARALLEL_RANKS (4) processes sharing the card
+   (parallel/mesh.py::spawn_world: the spawn start method, a FileStore,
+   gloo, PARALLEL_TIMEOUT_S on every collective; a rank that raises fails
+   the phase), each rank running _parallel_rank: ResNet-50 and ResNet-34,
+   seeded as phases 3 and 7, at every tier under partition "data" (a 4 x 1
+   mesh: the batch cut over the ranks), "model" (2 x 2: every block's
+   weights cut over two ranks, parallel/tensor_parallel.py) and "pipe"
+   (four ranks, microbatch 1: parallel/pipeline.py), on phase 3's first
+   four images (N=4), each engine served eagerly (no graph under a mesh;
+   replays must stay 0). Each forward's launches, counted on each rank
+   (counters zeroed just before, read just after) must equal the pinned
+   counts: under "data" the single-device forward's
+   (EXPECTED_PER_FORWARD*), under "model" EXPECTED_TP, under "pipe" four
+   microbatches of the rank's EXPECTED_PIPE. The logits, whole on every
+   rank, against the single-device engine (rank 0's, broadcast) within
+   1e-4 * max(1, max|ref|) at f32 and bf16w and 1e-3 at int8; bf16w and
+   int8 under "model" are their own arithmetic (every 3x3 direct on the
+   bf16 or int8 weights of the filter, each rank's shard quantized apart),
+   held instead to the same TP forward through the plain versions on a
+   CPU twin of the mesh (1e-4, 1e-3) and to the float64 golden of image 0
+   (rank 1's; 5e-3, 5e-2). One "parallel" line each, with the eager ms a
+   request (median of 3, host clock to a synchronize), the launches, the
+   peak device MiB and the MiB of weights each rank holds, by rank. Then
+   the data-parallel train step (models/train.py::make_resnet50_train_step
+   on the 4 x 1 mesh, one image a rank) against the single-device step on
+   all four (rank 0): the loss relative and every gradient leaf (the
+   momentum after one step) within TRAIN_RTOL (1e-3) * max(1, max|ref|),
+   each rank's launches EXPECTED_TRAIN_STEP's; the line gives the first
+   step's ms (fresh processes: one-time set-up in it) and the second's
+   ("parallel_train" line); and
+   rank 0 serves ResNet-50 f32 through one-rank NCCL meshes under each
+   partition, against its single-device logits within 1e-4 (the
+   collectives' NCCL path; "parallel" lines with "backend": "nccl").
 12. a "kernels" JSON line (sums over the shapes of one forward of each
    counted run, both models and all tiers, ResNet-101 and ResNet-152 and
    the N=32 requests, and per-step sums over the training phases' shapes;
@@ -256,8 +289,9 @@ Phases, each of which must pass (exit 1 otherwise):
    and the stem's prepared-input entry are rows of their own,
    "<kernel>_bf16w", "stem_pre", their source the kernel's file;
    "launches" the wrappers' launches in the counted runs, the warm-up and
-   capture passes, and in the training phases' counted steps; a replay
-   launches no wrapper), the card line, and last
+   capture passes, in the training phases' counted steps, and every rank's
+   in phase 11b's counted forwards and train step; a replay launches no
+   wrapper), the card line, and last
    {"ok": true, "device": {...}}.
 """
 
@@ -302,6 +336,59 @@ EXPECTED_PER_FORWARD_BASIC_BF16W = {
 EXPECTED_PER_FORWARD_BASIC_INT8 = {
     "stem": 1, "winograd": 6, "winograd_int8": 18, "pointwise_int8": 7, "direct_int8": 1,
     "basic_stage_int8": 1,
+}
+# The parallel phase's launches on each rank of one forward (counted on the
+# CPU by tests/test_torch_parallel_launches.py). Under "data" a rank runs
+# the single-device forward on its shard (EXPECTED_PER_FORWARD*). Under
+# "model" (parallel/tensor_parallel.py) every rank launches the stem once,
+# each bottleneck its reduce and expand (pointwise), its 3x3 (direct at
+# stride 1, pointwise on a strided im2col at stride 2) and its projection
+# (pointwise), the head once; each basic block its two 3x3s (direct; an
+# entry's strided conv a and projection pointwise); the tier's
+# instantiations at bf16w and int8. Under "pipe" (parallel/pipeline.py, four
+# ranks) each rank its group of the FLOP-balanced partition.
+EXPECTED_TP = {
+    ("resnet50", "f32"): {"stem": 1, "pointwise": 40, "direct": 13},
+    ("resnet50", "bf16w"): {"stem_bf16w": 1, "pointwise_bf16w": 40, "direct_bf16w": 13},
+    ("resnet50", "int8"): {"stem": 1, "pointwise_int8": 40, "direct_int8": 13},
+    ("resnet34", "f32"): {"stem": 1, "pointwise": 7, "direct": 29},
+    ("resnet34", "bf16w"): {"stem_bf16w": 1, "pointwise_bf16w": 7, "direct_bf16w": 29},
+    ("resnet34", "int8"): {"stem": 1, "pointwise_int8": 7, "direct_int8": 29},
+}
+EXPECTED_PER_FORWARD_TABLES = {
+    ("resnet50", "f32"): EXPECTED_PER_FORWARD, ("resnet50", "bf16w"): EXPECTED_PER_FORWARD_BF16W,
+    ("resnet50", "int8"): EXPECTED_PER_FORWARD_INT8,
+    ("resnet34", "f32"): EXPECTED_PER_FORWARD_BASIC,
+    ("resnet34", "bf16w"): EXPECTED_PER_FORWARD_BASIC_BF16W,
+    ("resnet34", "int8"): EXPECTED_PER_FORWARD_BASIC_INT8,
+}
+EXPECTED_PIPE = {
+    ("resnet50", "f32"): [
+        {"stem": 1, "pointwise": 3, "winograd": 1, "stage": 1, "transition": 1},
+        {"stage": 1, "transition": 1}, {"stage": 1},
+        {"stage": 1, "transition": 1, "pointwise": 5, "direct": 2}],
+    ("resnet50", "bf16w"): [
+        {"stem_bf16w": 1, "pointwise_bf16w": 3, "winograd_bf16w": 1, "stage_bf16w": 1,
+         "transition_bf16w": 1},
+        {"stage_bf16w": 1, "transition_bf16w": 1}, {"stage_bf16w": 1},
+        {"stage_bf16w": 2, "transition_bf16w": 1, "pointwise_bf16w": 1}],
+    ("resnet50", "int8"): [
+        {"stem": 1, "pointwise_int8": 3, "direct_int8": 1, "stage_int8": 1,
+         "transition_int8": 1},
+        {"stage_int8": 1, "transition_int8": 1}, {"stage_int8": 1},
+        {"stage_int8": 2, "transition_int8": 1, "pointwise_int8": 1}],
+    ("resnet34", "f32"): [
+        {"stem": 1, "winograd": 7, "pointwise": 2}, {"winograd": 7, "pointwise": 2},
+        {"winograd": 8}, {"winograd": 2, "pointwise": 3, "direct": 1, "basic_stage": 1}],
+    ("resnet34", "bf16w"): [
+        {"stem_bf16w": 1, "winograd_bf16w": 7, "pointwise_bf16w": 2},
+        {"winograd_bf16w": 7, "pointwise_bf16w": 2}, {"winograd_bf16w": 8},
+        {"winograd_bf16w": 2, "pointwise_bf16w": 3, "direct_bf16w": 1,
+         "basic_stage_bf16w": 1}],
+    ("resnet34", "int8"): [
+        {"stem": 1, "winograd": 6, "pointwise_int8": 2, "winograd_int8": 1},
+        {"winograd_int8": 7, "pointwise_int8": 2}, {"winograd_int8": 8},
+        {"winograd_int8": 2, "pointwise_int8": 3, "direct_int8": 1, "basic_stage_int8": 1}],
 }
 # One N=1 train step (the training phases), forward and backward: at f32 the
 # forward's stem 1, pointwise 4, Winograd 1, stage 10 and transition 3
@@ -423,6 +510,191 @@ def _kernel_name(key):
         return "pytorch_ops"
     key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
     return key.split("(")[0].split("<")[0].strip()
+
+
+# The parallel phase: one world of PARALLEL_RANKS gloo ranks on the one
+# card, each partition's mesh, and the collectives' timeout (seconds).
+PARALLEL_RANKS = 4
+PARALLEL_MESHES = {"data": (4, 1), "model": (2, 2), "pipe": (4,)}
+PARALLEL_TIMEOUT_S = 600.0
+
+
+def _parallel_rank(rank: int, world: int, images: np.ndarray) -> dict:
+    """One rank of the parallel phase (phase 11b of the docstring): every
+    partition of both classifiers at every tier, the data-parallel train
+    step and the one-rank NCCL meshes, checked here; returns the rank's
+    lines' numbers and the checks that failed. images: (4, 224, 224, 3)."""
+    import torch
+
+    from winograd_tpu_torch.config import (
+        BF16W_RTOL_BACKBONE, INT8_RTOL_BACKBONE, TIERS, ResNet34Config, ResNet50Config,
+    )
+    from winograd_tpu_torch.engine import ResNet50Engine, ResNetBasicEngine
+    from winograd_tpu_torch.kernels import _build
+    from winograd_tpu_torch.models.basic import (
+        basicnet_forward, basicnet_params, init_basicnet_arrays,
+    )
+    from winograd_tpu_torch.models.convert import params_from_jax
+    from winograd_tpu_torch.models.resnet50 import init_resnet50_arrays, resnet50_forward
+    from winograd_tpu_torch.models.train import (
+        make_resnet50_train_step, trainable_resnet50_params,
+    )
+    from winograd_tpu_torch.parallel import (
+        make_basicnet_tp_fn, make_mesh, make_pipe_mesh, make_resnet50_tp_fn,
+    )
+    from winograd_tpu_torch.parallel.mesh import broadcast
+    from winograd_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    meshes = {"data": make_mesh(4, 1, device=dev), "model": make_mesh(4, 2, device=dev),
+              "pipe": make_pipe_mesh(4, device=dev)}
+    nccl = {"data": make_mesh(1, 1, device=dev, backend="nccl"),
+            "model": make_mesh(1, 1, device=dev, backend="nccl"),
+            "pipe": make_pipe_mesh(1, device=dev, backend="nccl")}
+    every = meshes["data"]   # all ranks on its "data" axis
+    cpu_model = meshes["model"].to("cpu")
+    failures, lines, nccl_lines = [], [], []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(f"rank {rank}: {what}")
+
+    def from_rank(src, fn, shape, dtype=torch.float32):
+        """fn() on rank src, on every rank."""
+        out = fn().to(dev, dtype) if rank == src else torch.empty(shape, dtype=dtype, device=dev)
+        return broadcast(out, every, "data", src)
+
+    def err(out, ref):
+        return ((out.double() - ref.double()).abs().max().item(),
+                max(1.0, ref.abs().max().item()))
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    cfg50, cfg34 = ResNet50Config(), ResNet34Config("resnet34")
+    case34 = init_basicnet_arrays(cfg34, seed=0)
+    models = {
+        "resnet50": (ResNet50Engine, make_resnet50_tp_fn,
+                     lambda dt: params_from_jax(init_resnet50_arrays(cfg50, seed=0), "cpu", dt),
+                     resnet50_forward),
+        "resnet34": (ResNetBasicEngine, make_basicnet_tp_fn,
+                     lambda dt: basicnet_params(case34, cfg34, "cpu", dt), basicnet_forward),
+    }
+    n, classes = images.shape[0], 1000
+    for model, (engine_cls, tp_fn, params_of, forward) in models.items():
+        params = params_of(torch.float32)
+        # The float64 golden of image 0 on rank 1 while rank 0 serves the
+        # single-device references.
+        golden = from_rank(1, lambda: forward(images[0], params_of(torch.float64), device="cpu"),
+                           (classes,), torch.float64)
+        refs = {tier: from_rank(0, lambda tier=tier: engine_cls(params, tier=tier, device=dev)(
+            images), (n, classes)) for tier in TIERS}
+        for tier in TIERS:
+            ref = refs[tier]
+            # Under "model" the reduced tiers are their own arithmetic (module
+            # docstring, 11b): held to the same TP forward through the plain
+            # versions on the CPU, the same ranks.
+            plain = None if tier == "f32" else tp_fn(cpu_model, params, tier)(images)
+            for partition, mesh in meshes.items():
+                sync()
+                torch.cuda.reset_peak_memory_stats(dev)
+                held = torch.cuda.memory_allocated(dev)
+                engine = engine_cls(params, tier=tier, device=dev, mesh=mesh, partition=partition)
+                weights_mib = (torch.cuda.memory_allocated(dev) - held) / 2**20
+                _build.reset_counts()
+                out = engine(images)
+                launches = dict(_build.LAUNCHES)
+                lat = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    engine(images)
+                    sync()
+                    lat.append(time.perf_counter() - t0)
+                if partition == "data":
+                    expected = EXPECTED_PER_FORWARD_TABLES[(model, tier)]
+                elif partition == "model":
+                    expected = EXPECTED_TP[(model, tier)]
+                else:  # each of the n microbatches through the rank's group
+                    expected = {k: n * v for k, v in EXPECTED_PIPE[(model, tier)][rank].items()}
+                what = f"parallel {model} {tier} {partition}"
+                check(launches == expected, f"{what}: launches {launches}, want {expected}")
+                check(bool(torch.isfinite(out).all()) and tuple(out.shape) == (n, classes),
+                      f"{what}: logits not finite or of shape {tuple(out.shape)}")
+                line = {"model": model, "tier": tier, "partition": partition,
+                        "eager_ms": 1e3 * statistics.median(lat), "launches": launches,
+                        "peak_device_mib": torch.cuda.max_memory_allocated(dev) / 2**20,
+                        "weights_mib": weights_mib, "replays": engine.replays}
+                if plain is not None and partition == "model":
+                    g_rtol, p_rtol = {"bf16w": (BF16W_RTOL_BACKBONE, ATOL),
+                                      "int8": (INT8_RTOL_BACKBONE, INT8_CHAINED_RTOL)}[tier]
+                    e_g, scale_g = err(out[0], golden)
+                    e_p, scale_p = err(out.cpu(), plain)
+                    check(e_g <= g_rtol * scale_g,
+                          f"{what}: {e_g} from the golden > {g_rtol} * {scale_g}")
+                    check(e_p <= p_rtol * scale_p,
+                          f"{what}: {e_p} from the plain TP forward > {p_rtol} * {scale_p}")
+                    e, scale = err(out, ref)
+                    line.update(golden_err=e_g, golden_tol=g_rtol * scale_g, plain_err=e_p,
+                                plain_tol=p_rtol * scale_p, one_device_err=e)
+                else:
+                    rtol = INT8_CHAINED_RTOL if tier == "int8" else ATOL
+                    e, scale = err(out, ref)
+                    check(e <= rtol * scale, f"{what}: {e} from one device > {rtol} * {scale}")
+                    line.update(max_abs_err=e, tol=rtol * scale)
+                check(engine.replays == 0, f"{what}: {engine.replays} graph replays under a mesh")
+                lines.append(line)
+                del engine, out
+        if model == "resnet50" and rank == 0:
+            for partition, mesh in nccl.items():
+                out = engine_cls(params, device=dev, mesh=mesh, partition=partition)(images)
+                e, scale = err(out, refs["f32"])
+                check(e <= ATOL * scale, f"parallel nccl {partition}: {e} > {ATOL} * {scale}")
+                nccl_lines.append({"model": model, "tier": "f32", "partition": partition,
+                                   "max_abs_err": e, "tol": ATOL * scale})
+        del params, refs
+
+    # The data-parallel train step against the single-device step on the
+    # whole batch (rank 0), from the same seeded trainable set.
+    tree = trainable_resnet50_params(init_resnet50_arrays(cfg50, seed=0))
+    labels = np.random.default_rng(2).integers(0, 1000, n)
+
+    def steps(mesh, count):
+        """count steps from zero momentum: the first's loss, its gradients
+        (the momentum after it), its launches, and each step's seconds."""
+        params = tree_map(lambda a: torch.tensor(np.asarray(a), device=dev), tree)
+        momentum = tree_map(torch.zeros_like, params)
+        step = make_resnet50_train_step(lr=1e-2, beta=0.9, mesh=mesh)
+        seconds = []
+        for i in range(count):
+            _build.reset_counts()
+            t0 = time.perf_counter()
+            _, momentum, loss = step(params, momentum, images, labels)
+            sync()
+            seconds.append(time.perf_counter() - t0)
+            if i == 0:
+                first = loss, tree_map(torch.clone, momentum), dict(_build.LAUNCHES)
+        return (*first, seconds)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    loss, grads, launches, seconds = steps(every, 2)
+    train = {"launches": launches, "first_step_ms": 1e3 * seconds[0],
+             "step_ms": 1e3 * seconds[1], "loss": loss.item(),
+             "peak_device_mib": torch.cuda.max_memory_allocated(dev) / 2**20}
+    check(launches == EXPECTED_TRAIN_STEP[("resnet50", None)],
+          f"parallel train: launches {launches}, want {EXPECTED_TRAIN_STEP[('resnet50', None)]}")
+    if rank == 0:
+        want_loss, want_grads, _, _ = steps(None, 1)
+        rel = abs(loss.item() - want_loss.item()) / max(1.0, abs(want_loss.item()))
+        leaf = max(err(g, r)[0] / err(g, r)[1]
+                   for g, r in zip(tree_leaves(grads), tree_leaves(want_grads)))
+        check(rel <= TRAIN_RTOL and leaf <= TRAIN_RTOL,
+              f"parallel train: loss {rel}, worst gradient leaf {leaf} > {TRAIN_RTOL}")
+        train.update(single_loss=want_loss.item(), loss_rel_err=rel, worst_leaf_err=leaf)
+    return {"lines": lines, "nccl": nccl_lines, "train": train, "failures": failures}
 
 
 def main() -> int:
@@ -1779,6 +2051,46 @@ def main() -> int:
             if k in ("mode", "name", "parity_ok", "tf32") or k.endswith(
                 ("_device_us", "_mean_us", "_chained_us", "_rel_error"))
             or k.startswith("max_error_")}, "launches": launches}), flush=True)
+
+    # -- parallel: every partition in one world of four ranks on the card ---
+    from torch.multiprocessing import ProcessRaisedException
+
+    from winograd_tpu_torch.parallel import spawn_world
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    try:
+        ranks = spawn_world(_parallel_rank, PARALLEL_RANKS, (images[:4],),
+                            timeout=PARALLEL_TIMEOUT_S)
+    except ProcessRaisedException as e:
+        check(False, f"parallel: a rank failed: {e}")
+        ranks = []
+    for r in ranks:
+        for what in r["failures"]:
+            check(False, what)
+    per_rank_keys = ("eager_ms", "launches", "peak_device_mib", "weights_mib")
+    for lines in zip(*(r["lines"] for r in ranks)):
+        for line in lines:
+            all_launches.update(line["launches"])
+        print(json.dumps({
+            "phase": "parallel", "ranks": len(lines), "backend": "gloo",
+            "mesh": PARALLEL_MESHES[lines[0]["partition"]],
+            **{k: v for k, v in lines[0].items() if k not in per_rank_keys},
+            **{f"{k}_by_rank": [line[k] for line in lines] for k in per_rank_keys}}), flush=True)
+    for line in ranks[0]["nccl"] if ranks else []:
+        print(json.dumps({"phase": "parallel", "ranks": 1, "backend": "nccl", "mesh": [1],
+                          **line}), flush=True)
+    if ranks:
+        for r in ranks:
+            all_launches.update(r["train"]["launches"])
+        print(json.dumps({"phase": "parallel_train", "model": "resnet50", "ranks": len(ranks),
+                          "mesh": PARALLEL_MESHES["data"], "n": 4, **ranks[0]["train"],
+                          "step_ms_by_rank": [r["train"]["step_ms"] for r in ranks],
+                          "first_step_ms_by_rank": [r["train"]["first_step_ms"] for r in ranks],
+                          "peak_device_mib_by_rank": [r["train"]["peak_device_mib"]
+                                                      for r in ranks]}), flush=True)
+    print(json.dumps({"phase": "parallel_world", "seconds": time.perf_counter() - t0}),
+          flush=True)
 
     kernels = []
     for name, tot in totals.items():

@@ -37,6 +37,8 @@ from winograd_tpu_torch.models.convert import (
     basicnet_params_from_jax, cast_basicnet_bf16w, params_to, qbasicnet_params_from_jax,
 )
 from winograd_tpu_torch.ops import torch_ops
+from winograd_tpu_torch.parallel import make_mesh, make_pipe_mesh
+from torch_parallel_ranks import one_rank_world
 
 CHAINED_RTOL = 1e-3
 F32_RTOL = 2 ** -23  # the float64 golden model rounds its output to float32
@@ -149,7 +151,7 @@ def test_params_match_jax_tensor_for_tensor_and_are_stored_once(tiny):
         assert st["blocks"][0]["s_a"].shape == (80,)
 
 
-def test_engine_serves_both_tiers_on_request(tiny):
+def test_engine_serves_both_tiers_on_request(tiny, tmp_path):
     x = tiny["case"]["x"]
     f32 = ResNetBasicEngine(tiny["params"], device="cpu")
     out = f32(x)
@@ -157,9 +159,21 @@ def test_engine_serves_both_tiers_on_request(tiny):
     assert f32.classify(np.stack([x, x])).tolist() == [int(out.argmax())] * 2
     int8 = ResNetBasicEngine(tiny["params"], tier="int8", device="cpu")
     assert _err(int8(x).numpy(), tiny["case"]["golden"]) < INT8_RTOL_BACKBONE
-    for kw in ({"mesh": object()}, {"partition": "model"}):
-        with pytest.raises(NotImplementedError):
-            ResNetBasicEngine(tiny["params"], device="cpu", **kw)
+    with pytest.raises(TypeError, match="Mesh"):
+        ResNetBasicEngine(tiny["params"], device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="needs a mesh"):
+        ResNetBasicEngine(tiny["params"], device="cpu", partition="model")
+    # Under a mesh (one rank in this process; larger ones in
+    # tests/test_torch_parallel_classifier.py, tests/test_torch_pipeline.py):
+    # the partitions serve the single-device logits, eagerly.
+    with one_rank_world(tmp_path):
+        for partition, mesh in (("data", make_mesh(1, 1, device="cpu")),
+                                ("model", make_mesh(1, 1, device="cpu")),
+                                ("pipe", make_pipe_mesh(1, device="cpu"))):
+            engine = ResNetBasicEngine(tiny["params"], device="cpu", mesh=mesh,
+                                       partition=partition)
+            assert _err(engine(x[None]).numpy()[0], out.numpy()) <= PARITY_ATOL, partition
+            assert engine.replays == 0
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             ResNetBasicEngine(tiny["params"])

@@ -26,6 +26,8 @@ from winograd_tpu_torch.models import checkpoint as tck
 from winograd_tpu_torch.models import train as ttrain
 from winograd_tpu_torch.models.resnet50 import init_resnet50_arrays
 from winograd_tpu_torch.utils.tree import tree_leaves, tree_map
+from winograd_tpu_torch.parallel import make_mesh
+from torch_parallel_ranks import one_rank_world
 
 from test_torch_checkpoint import _TinyR50
 
@@ -102,8 +104,13 @@ def test_like_refuses_another_structure_shape_or_dtype(tmp_path, tree):
     for like in wrong:
         with pytest.raises(ValueError, match="like tree"):
             tck.load_checkpoint_dir(path, like=like, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="Mesh"):
         tck.load_checkpoint_dir(path, device="cpu", mesh=object())
+    # Under a mesh (one rank in this process) every rank restores the whole
+    # tree onto its own device, the mesh's.
+    with one_rank_world(tmp_path / "world"):
+        mesh = make_mesh(1, 1, device="cpu")
+        assert _same(tck.load_checkpoint_dir(path, like=tree, device="cpu", mesh=mesh), tree)
 
 
 def test_engine_serves_the_directory_as_the_save_model_file(tmp_path):

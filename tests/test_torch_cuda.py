@@ -35,7 +35,14 @@ composite, f32 and bf16w) against the same Function on the CPU, output and
 every gradient, and one SGD step replayed from a CUDA graph against the
 same step run eagerly; the stage at ResNet-152's depths (35 and 7 blocks)
 and every kernel family at the N=32 shapes of ResNet-50 and ResNet-18/34,
-at every tier. Needs an NVIDIA GPU and
+at every tier; and a world of two gloo ranks sharing the card
+(tests/torch_parallel_ranks.py::cuda_world) serving the narrow classifiers
+under the parallel partitions "model", "pipe" and "data" at every tier
+against the single-device engines (f32 and bf16w 1e-4, int8 1e-3 times
+max(1, max|ref|); bf16w and int8 under "model", their own arithmetic (every
+3x3 direct on bf16 or int8 weights of the filter, each rank's shard
+quantized apart), within 1e-4 and 1e-3 of their own plain versions on the
+CPU and 5e-3 and 5e-2 of the f32 engine). Needs an NVIDIA GPU and
 nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -1545,3 +1552,39 @@ def test_long_sums_split_and_stay_within_the_bar_at_n32(dev, bf16w):
     plan = transition_plan(N32, 14, 14, 1024, 512, 2048, _build.sm_count(dev))
     assert all(s.chunk <= TRANSITION_MAX_SUM for s in (plan.reduce, plan.mid, plan.expand))
     _agree(transition_block_fused(x, p), transition_block_fused_plain(x, p))
+
+
+# --- parallel partitions: two gloo ranks on one card -----------------------------------
+
+
+def test_two_rank_world_serves_every_partition_on_one_card(dev):
+    from torch_parallel_ranks import cuda_world
+    from winograd_tpu_torch.models.basic import init_basicnet_arrays, basicnet_arrays
+    from winograd_tpu_torch.models.resnet50 import init_resnet50_arrays
+    from winograd_tpu_torch.parallel import spawn_world
+
+    _build.build_all()  # once here, not in each rank
+    cfg50, cfg34 = _TinyR50("tiny_r50"), _TinyBasic("tiny_basic")
+    inp = {"r50": init_resnet50_arrays(cfg50, seed=3),
+           "basic": basicnet_arrays(init_basicnet_arrays(cfg34, seed=3), cfg34),
+           "x": _tiny_images(7, 2)}
+    ranks = spawn_world(cuda_world, 2, (inp,), timeout=300)
+    res = ranks[0]
+    for family in ("r50", "basic"):
+        for tier in ("f32", "bf16w", "int8"):
+            ref = res[f"{family}_single_{tier}"]
+            scale = max(1.0, ref.abs().max().item())
+            for partition in ("model", "pipe", "data"):
+                got = res[f"{family}_{partition}_{tier}"]
+                assert torch.equal(got, ranks[1][f"{family}_{partition}_{tier}"])
+                if tier != "f32" and partition == "model":
+                    plain = res[f"{family}_model_{tier}_plain"]
+                    p_rtol, f_rtol = (1e-4, 5e-3) if tier == "bf16w" else (1e-3, 5e-2)
+                    assert (got - plain).abs().max().item() <= p_rtol * max(
+                        1.0, plain.abs().max().item())
+                    f32 = res[f"{family}_single_f32"]
+                    assert (got - f32).abs().max().item() <= f_rtol * max(
+                        1.0, f32.abs().max().item())
+                    continue
+                bound = (1e-3 if tier == "int8" else 1e-4) * scale
+                assert (got - ref).abs().max().item() <= bound, (family, partition, tier)

@@ -42,6 +42,8 @@ from winograd_tpu_torch.config import BF16W_RTOL_BACKBONE, INT8_RTOL_BACKBONE, P
 from winograd_tpu_torch.models.convert import stages_from_jax
 from winograd_tpu_torch.models.resnet import bottleneck_block
 from winograd_tpu_torch.models.resnet50 import init_resnet50_params
+from winograd_tpu_torch.parallel import make_mesh
+from torch_parallel_ranks import one_rank_world
 
 
 @dataclasses.dataclass(frozen=True)
@@ -173,10 +175,20 @@ def test_resnet50_engine_folds_a_missing_transition_stream():
                            teng.ResNet50Engine(params, tier=tier, device="cpu")(x))
 
 
-def test_engines_refuse_mesh_and_unknown_tiers():
+def test_engines_refuse_mesh_and_unknown_tiers(tmp_path):
+    """An unknown tier and a mesh that is not a parallel.Mesh are refused; a
+    mesh (here a one-rank world in this process) serves what one device
+    serves, eagerly (tests/test_torch_parallel.py holds larger meshes)."""
     blocks = [init_bottleneck_params(2, c_io=64, c_mid=16)]
-    for kw in ({"mesh": object()}, {"tier": "fp8"}):
-        with pytest.raises((NotImplementedError, ValueError)):
-            teng.BottleneckEngine(blocks, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="A10|item 10"):
+    with pytest.raises(ValueError, match="tier"):
+        teng.BottleneckEngine(blocks, device="cpu", tier="fp8")
+    with pytest.raises(TypeError, match="Mesh"):
+        teng.BottleneckEngine(blocks, device="cpu", mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
         teng.BackboneEngine([], device="cpu", mesh=object())
+    x = np.random.default_rng(3).standard_normal((2, 14, 14, 64)).astype(np.float32)
+    with one_rank_world(tmp_path):
+        mesh = make_mesh(1, 1, device="cpu")
+        engine = teng.BottleneckEngine(blocks, device="cpu", mesh=mesh)
+        assert torch.equal(engine(x), teng.BottleneckEngine(blocks, device="cpu")(x))
+        assert engine.mesh is mesh and engine.replays == 0

@@ -1,5 +1,6 @@
 """The port stands alone: importing every module of winograd_tpu_torch loads
-neither jax nor winograd_tpu, chip_smoke.py and the port's examples have no
+neither jax nor winograd_tpu (parallel/ and the parallel tests' rank
+functions included), chip_smoke.py and the port's examples have no
 import statement of either, and the port's entry points refuse to run on
 the CPU unless the caller asks for it."""
 
@@ -36,6 +37,30 @@ def test_port_imports_no_jax_and_no_jax_package():
     count, bad = res.stdout.split(" ", 1)
     assert int(count) >= 15, res.stdout
     assert bad.strip() == "[]", res.stdout
+
+
+_PARALLEL_PROBE = """
+import importlib, sys
+sys.path.insert(0, "tests")
+for name in ("winograd_tpu_torch.parallel", "winograd_tpu_torch.parallel.mesh",
+             "winograd_tpu_torch.parallel.data_parallel",
+             "winograd_tpu_torch.parallel.tensor_parallel",
+             "winograd_tpu_torch.parallel.pipeline", "torch_parallel_ranks"):
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "winograd_tpu")))
+"""
+
+
+def test_parallel_package_and_its_test_ranks_import_no_jax():
+    """parallel/ (the ranks of a world import it) and the rank functions of
+    the parallel tests, which spawned ranks import by name, load neither
+    jax nor winograd_tpu."""
+    res = subprocess.run(
+        [sys.executable, "-c", _PARALLEL_PROBE], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "[]", res.stdout
 
 
 def _imported_modules(script):

@@ -28,6 +28,8 @@ from winograd_tpu_torch.models.resnet50 import (
     init_resnet50_params,
     resnet50_forward,
 )
+from winograd_tpu_torch.parallel import make_mesh, make_pipe_mesh
+from torch_parallel_ranks import one_rank_world
 
 
 @dataclasses.dataclass(frozen=True)
@@ -120,16 +122,37 @@ def test_bottleneck_block_routes_match_jax(algo):
     assert _close(resnet.bottleneck_block(torch.from_numpy(x), params, algo3x3=algo).numpy(), ref)
 
 
-def test_engine_rejects_unported_options():
-    """The mesh partitions are not ported; every tier is (the bf16w tier's
-    tests are tests/test_torch_bf16w.py), and an unknown tier is refused."""
+def test_engine_rejects_unported_options(tmp_path):
+    """Every tier is served (the bf16w tier's tests are
+    tests/test_torch_bf16w.py) and an unknown tier is refused; a mesh that
+    is not a parallel.Mesh, an unknown partition and a partition without a
+    mesh are refused; under a mesh (here one rank in this process; larger
+    meshes in tests/test_torch_parallel_classifier.py and
+    tests/test_torch_pipeline.py) the "model" and "pipe" partitions serve
+    the single-device logits within 1e-4 * max(1, max|ref|), eagerly."""
     cfg = _TinyR50("tiny_resnet50")
     params = init_resnet50_params(cfg, seed=0, device="cpu")
-    for kw in ({"mesh": object()}, {"partition": "model"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ResNet50Engine(params, device="cpu", **kw)
+    with pytest.raises(TypeError, match="Mesh"):
+        ResNet50Engine(params, device="cpu", mesh=object())
+    for partition in ("model", "pipes"):
+        with pytest.raises(ValueError, match="partition"):
+            ResNet50Engine(params, device="cpu", partition=partition)
     with pytest.raises(ValueError, match="tier"):
         ResNet50Engine(params, device="cpu", tier="bf16")
+    x = _images(4, 2, cfg.img)
+    want = ResNet50Engine(params, device="cpu")(x).numpy()
+    with one_rank_world(tmp_path):
+        model = ResNet50Engine(params, device="cpu", mesh=make_mesh(1, 1, device="cpu"),
+                               partition="model")
+        pipe = ResNet50Engine(params, device="cpu", mesh=make_pipe_mesh(1, device="cpu"),
+                              partition="pipe")
+        for engine in (model, pipe):
+            assert _close(engine(x).numpy(), want)
+            assert engine.replays == 0
+        with pytest.raises(ValueError, match="axes"):
+            ResNet50Engine(params, device="cpu", mesh=model.mesh, partition="pipe")
+        with pytest.raises(ValueError, match="one device"):
+            model.serve_pre(model.prepare_input(x), img=cfg.img)
 
 
 def test_full_width_config_matches_jax_package():

@@ -31,6 +31,8 @@ from winograd_tpu_torch.models.train import (
     make_resnet50_train_step, resnet50_loss, trainable_resnet50_params,
 )
 from winograd_tpu_torch.utils.tree import tree_leaves, tree_map
+from winograd_tpu_torch.parallel import make_mesh
+from torch_parallel_ranks import one_rank_world
 
 AUTODIFF_RTOL = 5e-4
 SGD_RTOL = 1e-4
@@ -172,9 +174,25 @@ def test_two_sgd_steps_match_the_same_update_over_jax_grads():
                                                                                    rel=1e-6)
 
 
-def test_the_step_refuses_a_mesh_and_the_default_device_needs_a_card():
-    with pytest.raises(NotImplementedError, match="item 10"):
+def test_the_step_refuses_a_mesh_and_the_default_device_needs_a_card(tmp_path):
+    """A mesh that is not a parallel.Mesh is refused; with a mesh (one rank
+    in this process; larger ones in tests/test_torch_parallel.py and
+    tests/test_torch_cuda.py) the step is data-parallel and equals the
+    single-device step, loss and every leaf within 1e-6 relative."""
+    with pytest.raises(TypeError, match="Mesh"):
         make_resnet50_train_step(mesh=object())
+    tree, x1 = _r50()
+    x = np.stack([x1, np.random.default_rng(3).random(x1.shape, np.float32) - 0.5])
+    labels = np.arange(2) % _Tiny.num_classes
+    single, momentum = _tensors(tree), tree_map(torch.zeros_like, _tensors(tree))
+    _, _, want = make_resnet50_train_step()(single, momentum, x, labels)
+    with one_rank_world(tmp_path):
+        params, momentum = _tensors(tree), tree_map(torch.zeros_like, _tensors(tree))
+        step = make_resnet50_train_step(mesh=make_mesh(1, 1, device="cpu"))
+        _, _, loss = step(params, momentum, x, labels)
+    assert loss.item() == pytest.approx(want.item(), rel=1e-6)
+    for p, r in zip(tree_leaves(params), tree_leaves(single)):
+        assert torch.allclose(p, r, rtol=1e-6, atol=1e-7)
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present, so the default device is valid")
     tree, x = _r50()

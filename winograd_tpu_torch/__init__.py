@@ -34,6 +34,13 @@ the cuDNN baseline (baseline/cudnn.py), the reference's timing protocol and
 CUDA-graph device times (utils/timing.py), each path checked against the
 golden (utils/checker.py).
 
+parallel/ runs the JAX package's parallel schemes on torch.distributed,
+one process a rank: meshes and their collectives (parallel/mesh.py),
+data parallelism and the data-parallel train step (data_parallel.py),
+Megatron tensor parallelism on the kernels above (tensor_parallel.py) and
+FLOP-balanced GPipe pipelines (pipeline.py); the engines' `mesh` and
+`partition` serve through them.
+
 Every kernel wrapper runs its plain PyTorch version for tensors on the CPU
 (the tests) and launches the kernel for CUDA tensors; there is no fallback
 between the two. The package imports neither jax nor winograd_tpu; the JAX

@@ -390,6 +390,9 @@ def case_config(mode: int):
 BENCH_ITERATIONS = 100
 BENCH_WARMUP = 2
 
+# The serving tiers: f32, bf16 weight storage (bf16w), int8 weights.
+TIERS = ("f32", "bf16w", "int8")
+
 # f32 correctness bar: max abs error <= 1e-4 against the float64 golden,
 # with no allowance for a fraction of elements.
 PARITY_ATOL = 1e-4

@@ -8,8 +8,20 @@ and int8 tiers; the classifiers' prepare_input / serve_pre (the
 prepared-input contract: the host builds the stem's operand, the card reads
 it, kernels/stem.py), throughput, the from_case, from_checkpoint
 (models/checkpoint.py) and from_torch (models/import_torch.py) constructors,
-and engine_from_torch. The mesh partitions are not ported yet (ROADMAP.md
-A10): asked for, they raise NotImplementedError.
+and engine_from_torch.
+
+Under a mesh (parallel/mesh.py; one process a rank, each rank calling the
+engine with the whole request and getting the whole result back, as a JAX
+caller passes one global array) the classifiers serve partition "data"
+(the batch cut over the mesh's "data" axis, the weights whole on every
+rank, the ranks' logits gathered), "model" (every block's weights cut over
+"model": parallel/tensor_parallel.py's make_resnet50_tp_fn and
+make_basicnet_tp_fn) or "pipe" (the FLOP-balanced GPipe schedule over a
+("pipe",) mesh: parallel/pipeline.py), at every tier; BottleneckEngine and
+BackboneEngine cut the batch over "data". A collective on a gloo group is
+host code that no CUDA graph can hold, so under a mesh an engine serves
+eagerly, on the card too, and `replays` stays 0 (capturing the segments
+between the collectives is later work).
 
 Compiled once per shape, as the JAX engines jit their forward: on a CUDA
 device the first request of an input shape runs the forward once eagerly on
@@ -26,7 +38,7 @@ no faster at N=1 and 1-9% faster at N=8 (bench/staging.py, PERF.md section
 5), so a caller serving batches from the host may stage its own and pass a
 device tensor. A capture that fails
 raises, naming the shape and the reason, and later captures go to a fresh
-pool: the engine never serves eagerly on the card. The first request of a
+pool: without a mesh the engine never serves eagerly on the card. The first request of a
 shape therefore launches each kernel CAPTURE_PASSES times its count in one
 forward; a replay runs no wrapper and counts nothing
 (kernels/_build.py::LAUNCHES), and adds one to the engine's `replays`. On
@@ -43,6 +55,7 @@ from typing import Callable, Dict, NamedTuple, Optional
 
 import torch
 
+from winograd_tpu_torch.config import TIERS
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.quantized import quantize_stage_params, resnet_stage_int8
 from winograd_tpu_torch.kernels.stem import stem_prepare_input
@@ -77,9 +90,16 @@ from winograd_tpu_torch.models.resnet50 import (
     resnet50_forward_pre,
     resnet50_params,
 )
+from winograd_tpu_torch.parallel.data_parallel import batch_parallel
+from winograd_tpu_torch.parallel.mesh import resolve_device
+from winograd_tpu_torch.parallel.pipeline import (
+    pipelined_basicnet_inference,
+    pipelined_resnet50_inference,
+)
+from winograd_tpu_torch.parallel.tensor_parallel import make_basicnet_tp_fn, make_resnet50_tp_fn
 from winograd_tpu_torch.utils.timing import capture_graph
 
-TIERS = ("f32", "bf16w", "int8")
+PARTITIONS = ("data", "model", "pipe")
 
 # Forwards that run through the kernel wrappers when a shape is first
 # served: one eager warm-up, one capture.
@@ -106,16 +126,31 @@ class _Engine:
     def _init_serving(self, tier: str, device, mesh=None, partition: str = "data") -> None:
         if tier not in TIERS:
             raise ValueError(f"unknown tier {tier!r}; choose from {TIERS}")
-        if mesh is not None or partition != "data":
-            raise NotImplementedError(
-                "mesh and partition are not ported yet (ROADMAP.md, queue A "
-                "item 10: parallelism); the engine serves one device"
-            )
+        if partition not in PARTITIONS:
+            raise ValueError(f"unknown partition {partition!r}; choose from {PARTITIONS}")
+        self.device = resolve_device(mesh, device)
+        if mesh is None and partition != "data":
+            raise ValueError(f"partition {partition!r} needs a mesh")
+        if mesh is not None:
+            axes = ("pipe",) if partition == "pipe" else ("data", "model")
+            if mesh.axis_names != axes:
+                raise ValueError(f"partition {partition!r} takes a mesh of axes {axes}, got "
+                                 f"{mesh.axis_names}")
         self.tier = tier
-        self.device = _build.require_device(device)
+        self.mesh = mesh
+        self.partition = partition
         self._graphs: Dict[tuple, _Graph] = {}
         self._pool = None
         self.replays = 0  # requests served by a graph replay
+
+    def _over_data(self, fn: Callable) -> Callable:
+        """fn on this rank's batch shard over the mesh's "data" axis, the
+        whole result gathered (parallel/data_parallel.py::batch_parallel);
+        fn itself without a mesh."""
+        if self.mesh is None:
+            return fn
+        mesh = self.mesh
+        return lambda xs: batch_parallel(mesh, fn, xs)
 
     def _capture(self, key: tuple, fn: Callable, x: torch.Tensor) -> _Graph:
         static_in = torch.empty(x.shape, dtype=torch.float32, device=self.device)
@@ -134,8 +169,8 @@ class _Engine:
 
     def _run(self, key: tuple, fn: Callable, x: torch.Tensor) -> torch.Tensor:
         """fn(x) through the graph of `key`, captured at its first request;
-        on the CPU, eagerly. x: float32, batched."""
-        if self.device.type == "cpu":
+        on the CPU or under a mesh, eagerly. x: float32, batched."""
+        if self.device.type == "cpu" or self.mesh is not None:
             with torch.inference_mode():
                 return fn(x.to(self.device))
         with torch.inference_mode(), torch.cuda.device(self.device):
@@ -193,7 +228,9 @@ class BottleneckEngine(_Engine):
     bottleneck_block(algo3x3); "bf16w": bfloat16 weights, one bf16w stage
     kernel launch (models/convert.py::cast_stages_bf16w); "int8": quantized
     once here (kernels/quantized.py::quantize_stage_params), one int8 stage
-    kernel launch."""
+    kernel launch. With a mesh (a ("data", "model") one), the batch is cut
+    over "data" and each rank runs the blocks on its shard, the weights
+    whole on every rank."""
 
     def __init__(self, params_list, mesh=None, algo3x3: str = "auto", tier: str = "f32",
                  device="cuda"):
@@ -233,8 +270,10 @@ class BottleneckEngine(_Engine):
         return cls([params], **kw)
 
     def __call__(self, x) -> torch.Tensor:
-        """Run the blocks. x: (H, W, Cio) or (N, H, W, Cio)."""
-        return self._serve(x, lambda xs: self._forward(xs.contiguous(), self._params))
+        """Run the blocks. x: (H, W, Cio) or (N, H, W, Cio); under a mesh N
+        divides by the "data" axis."""
+        return self._serve(x, self._over_data(
+            lambda xs: self._forward(xs.contiguous(), self._params)))
 
     def throughput(self, batch: int, c_io: Optional[int] = None, iters: int = 20,
                    hw: int = 14) -> Dict:
@@ -261,7 +300,8 @@ class BackboneEngine(_Engine):
     kernels' layouts, each transition's fused wep/bep and each fused stage's
     stack are built once here (models/convert.py::stages_from_jax), then
     cast to bf16 (cast_stages_bf16w) or quantized (quantize_backbone) by
-    tier."""
+    tier. With a mesh (a ("data", "model") one), the batch is cut over
+    "data", the weights whole on every rank."""
 
     def __init__(self, stages, tier: str = "f32", mesh=None, device="cuda"):
         self._init_serving(tier, device, mesh)
@@ -277,8 +317,10 @@ class BackboneEngine(_Engine):
         self._forward = forward
 
     def __call__(self, x) -> torch.Tensor:
-        """x: (H, W, C_in) or (N, H, W, C_in) at the first stage's shape."""
-        return self._serve(x, lambda xs: self._forward(xs.contiguous(), self._params))
+        """x: (H, W, C_in) or (N, H, W, C_in) at the first stage's shape
+        (under a mesh, N divides by the "data" axis)."""
+        return self._serve(x, self._over_data(
+            lambda xs: self._forward(xs.contiguous(), self._params)))
 
     def throughput(self, batch: int, hw: int, c_in: int, iters: int = 20) -> Dict:
         return _throughput(self, batch, c_in, iters, hw)
@@ -291,24 +333,45 @@ def _state_dict(sd_or_path):
 
 
 class _ClassifierEngine(_Engine):
-    """A classifier's weights resident on one device, served at one tier. A
-    subclass names, per tier, the forward from images and the one from the
-    prepared operand (f32 and bf16w only), the conversion of the f32
-    parameters into the tier's (none at f32), and how parameters are built
-    from a datagen case, a trained tree and a torchvision state dict."""
+    """A classifier's weights resident on one device, served at one tier, or
+    under a mesh in one of PARTITIONS. A subclass names, per tier, the
+    forward from images and the one from the prepared operand (f32 and
+    bf16w only), the conversion of the f32 parameters into the tier's (none
+    at f32), the make_*_tp_fn of its tensor-parallel forward and its pipelined
+    forward, and how parameters are built from a datagen case, a trained
+    tree and a torchvision state dict."""
 
     _forwards: Dict[str, Callable] = {}
     _forwards_pre: Dict[str, Callable] = {}
     _convert: Dict[str, Callable] = {}
+    _parallel: Dict[str, Callable] = {}
 
     def __init__(self, params: Dict, tier: str = "f32", device="cuda",
-                 mesh=None, partition: str = "data"):
+                 mesh=None, partition: str = "data", microbatch: int = 1):
+        """partition (with a mesh, module docstring): "data", "model" (the
+        f32 params cut, cast or quantized once by the tensor-parallel
+        make_*_tp_fn) or "pipe" (microbatch images a pipeline step; the
+        batch a multiple of it)."""
         self._init_serving(tier, device, mesh, partition)
+        self._microbatch = microbatch
+        self._forward = self._forwards[tier]
+        if partition == "model":
+            self._params = None
+            self._tp_forward = self._parallel["model"](mesh, params, tier)
+            return
         params = self._prepare(params)
         if tier in self._convert:
             params = self._convert[tier](params)
         self._params = params_to(params, self.device, torch.float32)
-        self._forward = self._forwards[tier]
+
+    def _request(self, xs: torch.Tensor) -> torch.Tensor:
+        """The logits of the batch xs under the engine's partition."""
+        if self.partition == "model":
+            return self._tp_forward(xs)
+        if self.partition == "pipe":
+            return self._parallel["pipe"](self.mesh, self._params, xs, self._microbatch,
+                                          self.tier)
+        return self._over_data(lambda x_l: self._forward(x_l, self._params, self.device))(xs)
 
     def _prepare(self, params: Dict) -> Dict:
         return params
@@ -317,7 +380,7 @@ class _ClassifierEngine(_Engine):
         """x: (224, 224, 3) or (N, 224, 224, 3) image(s), array or tensor;
         returns (num_classes,) / (N, num_classes) logits on the engine's
         device. A single image runs as N=1."""
-        return self._serve(x, lambda xs: self._forward(xs, self._params, self.device))
+        return self._serve(x, self._request)
 
     def classify(self, x) -> torch.Tensor:
         """Argmax class id(s) for image(s) x."""
@@ -333,7 +396,11 @@ class _ClassifierEngine(_Engine):
     def serve_pre(self, xb, img: int = 224) -> torch.Tensor:
         """(N, num_classes) logits from a prepared operand (prepare_input)
         of N img x img images, each shape captured once like __call__. The
-        f32 and bf16w tiers only; the int8 tier serves the raw image."""
+        f32 and bf16w tiers on one device only; the int8 tier and a mesh
+        serve the raw image, as in the JAX package."""
+        if self.mesh is not None:
+            raise ValueError("serve_pre serves one device; under a mesh serve the raw image "
+                             "(engine(x))")
         if self.tier not in self._forwards_pre:
             raise ValueError(f"serve_pre serves the f32 and bf16w tiers, not {self.tier!r}; "
                              "the int8 tier takes the raw image (engine(x))")
@@ -401,6 +468,7 @@ class ResNet50Engine(_ClassifierEngine):
     _forwards_pre = {"f32": resnet50_forward_pre,
                      "bf16w": functools.partial(resnet50_forward_pre, precision="bf16w")}
     _convert = {"bf16w": cast_bf16w, "int8": quantize_resnet50}
+    _parallel = {"model": make_resnet50_tp_fn, "pipe": pipelined_resnet50_inference}
 
     def _prepare(self, params: Dict) -> Dict:
         if self.tier == "int8":
@@ -442,6 +510,7 @@ class ResNetBasicEngine(_ClassifierEngine):
     _forwards_pre = {"f32": basicnet_forward_pre,
                      "bf16w": functools.partial(basicnet_forward_pre, precision="bf16w")}
     _convert = {"bf16w": cast_basicnet_bf16w, "int8": quantize_basicnet}
+    _parallel = {"model": make_basicnet_tp_fn, "pipe": pipelined_basicnet_inference}
 
     @classmethod
     def _params_from_case(cls, case, cfg, device) -> Dict:

@@ -230,14 +230,13 @@ def load_checkpoint_dir(path: str, like=None, device="cuda", mesh=None):
     `device` (CUDA by default, which must exist; the CPU on request). With
     `like` (a tree of the same structure: arrays or tensors), the structure,
     every leaf's shape and its dtype must match, else ValueError. The twin
-    of the JAX package's models/checkpoint.py::load_model_orbax. A mesh is
-    not ported yet (ROADMAP.md A10): passing one raises."""
-    from winograd_tpu_torch.kernels import _build
+    of the JAX package's models/checkpoint.py::load_model_orbax. With a
+    mesh (parallel/mesh.py) every rank restores the whole tree onto its own
+    device, the mesh's, which `device` must name: the leaves replicated
+    over the mesh, as load_model_orbax(mesh=) places them."""
+    from winograd_tpu_torch.parallel.mesh import resolve_device
 
-    if mesh is not None:
-        raise NotImplementedError("a mesh is not ported yet (ROADMAP.md, queue A item 10: "
-                                  "parallelism); restore onto one device")
-    device = _build.require_device(device)
+    device = resolve_device(mesh, device)
     path = os.fspath(path)
     with open(os.path.join(path, INDEX)) as f:
         tree = json.load(f)["tree"]

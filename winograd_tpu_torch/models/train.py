@@ -8,7 +8,8 @@ tree, m = beta * m + g, p = p - lr * m, with forward and backward inside
 baseline/cudnn.py::full_float32() (the backward's matmuls full float32,
 never TF32). Unlike the JAX package's pure step, it updates params and
 momentum in place, so a CUDA graph of the step can be replayed on the same
-tensors and no second copy of the weights is held.
+tensors and no second copy of the weights is held. With a mesh the step is
+data-parallel (parallel/data_parallel.py).
 
 trainable_resnet50_params and trainable_basicnet_params are the dict strips
 that define what a trained checkpoint holds (raw OIHW filters and folded
@@ -55,25 +56,35 @@ def make_resnet50_train_step(lr: float = 1e-2, beta: float = 0.9, mesh=None,
     returned, loss a 0-d tensor. The forward and backward run on the
     params' device. precision "bf16w" trains through the bf16w kernels
     (f32 master weights; grads within config.BF16W_TRAIN_GRAD_RTOL of the
-    f32 step). mesh (the JAX package's data-parallel step) is not ported."""
+    f32 step).
+
+    With a mesh (parallel/mesh.py, a ("data", "model") one) the step is
+    data-parallel, the JAX package's: every rank passes the whole batch,
+    trains on its shard over "data" (the ranks of a "model" row compute the
+    same shard) on the mesh's device, and the gradients and the loss are
+    averaged over "data" (pmean) before the update: the single-device step
+    on the whole batch, the loss being a mean over it. Params and momentum
+    live on the mesh's device; the collectives are host code, so this step
+    is not captured in a CUDA graph."""
+    from winograd_tpu_torch.parallel.data_parallel import average_over_data, sgd_update
+    from winograd_tpu_torch.parallel.mesh import check_mesh, local_shard
+
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet (ROADMAP.md, queue A item 10: parallelism); "
-            "the step trains on one device")
+        check_mesh(mesh)
 
     def step(params, momentum, x, labels):
         leaves = tree_leaves(params)
+        if mesh is not None:
+            x = local_shard(torch.as_tensor(x, dtype=torch.float32), ("data",), mesh)
+            labels = local_shard(torch.as_tensor(labels).reshape(-1), ("data",), mesh)
         with full_float32(), torch.enable_grad():
             ps = [p.detach().requires_grad_() for p in leaves]
             loss = resnet50_loss(tree_unflatten(params, ps), x, labels, precision,
                                  leaves[0].device)
             grads = torch.autograd.grad(loss, ps)
-        with torch.no_grad():
-            ms = tree_leaves(momentum)
-            torch._foreach_mul_(ms, beta)
-            torch._foreach_add_(ms, grads)
-            torch._foreach_add_(leaves, ms, alpha=-lr)
-        return params, momentum, loss.detach()
+        loss, grads = average_over_data(mesh, loss.detach(), grads)
+        sgd_update(leaves, tree_leaves(momentum), grads, lr, beta)
+        return params, momentum, loss
 
     return step
 
