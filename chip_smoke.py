@@ -277,10 +277,20 @@ Phases, each of which must pass (exit 1 otherwise):
    momentum after one step) within TRAIN_RTOL (1e-3) * max(1, max|ref|),
    each rank's launches EXPECTED_TRAIN_STEP's; the line gives the first
    step's ms (fresh processes: one-time set-up in it) and the second's
-   ("parallel_train" line); and
+   ("parallel_train" line);
    rank 0 serves ResNet-50 f32 through one-rank NCCL meshes under each
    partition, against its single-device logits within 1e-4 (the
-   collectives' NCCL path; "parallel" lines with "backend": "nccl").
+   collectives' NCCL path; "parallel" lines with "backend": "nccl"); and
+   the channel-sharded block step (parallel/data_parallel.py::
+   make_train_step on the plain operators, the 2 x 2 mesh: each rank holds
+   half of w_reduce, w_expand, s_expand and b_expand and the rest whole,
+   shard_train_state) on the mode-6 block (14x14, Cio 1024, Cmid 256, N=4,
+   seeded), two steps, TF32 off: its losses and its params gathered by
+   gather_train_state against the one-device step on rank 0 within
+   BLOCK_TRAIN_RTOL (1e-5) relative, every rank's share of each leaf
+   BLOCK_TRAIN_FRACTION's ("parallel_block_train" line: the eager ms of
+   the second step, the MiB of params and momentum a rank holds, the
+   errors).
 12. a "kernels" JSON line (sums over the shapes of one forward of each
    counted run, both models and all tiers, ResNet-101 and ResNet-152 and
    the N=32 requests, and per-step sums over the training phases' shapes;
@@ -517,6 +527,15 @@ def _kernel_name(key):
 PARALLEL_RANKS = 4
 PARALLEL_MESHES = {"data": (4, 1), "model": (2, 2), "pipe": (4,)}
 PARALLEL_TIMEOUT_S = 600.0
+# The channel-sharded block step: the mode-6 block (14x14, Cio 1024, Cmid
+# 256), two steps; the share of each leaf a rank holds on the 2 x 2 mesh;
+# its bar against the one-device step (the data-parallel step's in
+# tests/test_torch_parallel.py).
+BLOCK_TRAIN_CIO, BLOCK_TRAIN_CMID, BLOCK_TRAIN_STEPS = 1024, 256, 2
+BLOCK_TRAIN_FRACTION = {"w_reduce": 0.5, "w_expand": 0.5, "s_expand": 0.5, "b_expand": 0.5,
+                        "w_mid": 1.0, "s_reduce": 1.0, "b_reduce": 1.0, "s_mid": 1.0,
+                        "b_mid": 1.0}
+BLOCK_TRAIN_RTOL = 1e-5
 
 
 def _parallel_rank(rank: int, world: int, images: np.ndarray) -> dict:
@@ -694,7 +713,72 @@ def _parallel_rank(rank: int, world: int, images: np.ndarray) -> dict:
         check(rel <= TRAIN_RTOL and leaf <= TRAIN_RTOL,
               f"parallel train: loss {rel}, worst gradient leaf {leaf} > {TRAIN_RTOL}")
         train.update(single_loss=want_loss.item(), loss_rel_err=rel, worst_leaf_err=leaf)
-    return {"lines": lines, "nccl": nccl_lines, "train": train, "failures": failures}
+
+    block, block_failures = _parallel_block_train(rank, meshes["model"], n)
+    failures += [f"rank {rank}: {what}" for what in block_failures]
+    return {"lines": lines, "nccl": nccl_lines, "train": train, "block_train": block,
+            "failures": failures}
+
+
+def _parallel_block_train(rank: int, mesh, n: int):
+    """The channel-sharded block step of the parallel phase (11b of the
+    docstring; parallel/data_parallel.py, the plain operators on `mesh`, a
+    2 x 2 mesh) on the mode-6 block at N=n against the one-device step on
+    rank 0, from the same seeded state, on the mesh's device. Returns the
+    rank's numbers and the checks that failed."""
+    import torch
+
+    from winograd_tpu_torch.parallel import (
+        gather_train_state, init_train_state, make_train_step, shard_train_state,
+    )
+
+    dev, failures = mesh.device, []
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    whole, _ = init_train_state(6, BLOCK_TRAIN_CIO, BLOCK_TRAIN_CMID, device=dev)
+    rng = np.random.default_rng(6)
+    x, target = (rng.standard_normal((n, 14, 14, BLOCK_TRAIN_CIO)).astype(np.float32)
+                 for _ in range(2))
+
+    def steps(on):
+        params = {k: v.clone() for k, v in whole.items()}
+        momentum = {k: torch.zeros_like(v) for k, v in params.items()}
+        if on is not None:
+            params, momentum = shard_train_state(on, params, momentum)
+        held = sum(t.numel() for t in (*params.values(), *momentum.values())) * 4 / 2**20
+        step = make_train_step(on, lr=1e-2)
+        losses, seconds = [], []
+        for _ in range(BLOCK_TRAIN_STEPS):
+            t0 = time.perf_counter()
+            _, _, loss = step(params, momentum, x, target)
+            sync()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(loss.item())
+        return params, losses, seconds, held
+
+    shards, losses, seconds, held = steps(mesh)
+    fraction = {k: shards[k].numel() / whole[k].numel() for k in shards}
+    block = {"step_ms": 1e3 * seconds[-1], "first_step_ms": 1e3 * seconds[0],
+             "mib_held": held, "losses": losses, "shard_fraction": fraction}
+    for k, want in BLOCK_TRAIN_FRACTION.items():
+        if fraction[k] != want:
+            failures.append(f"parallel block train: {k} holds {fraction[k]} of the whole, "
+                            f"want {want}")
+    gathered = gather_train_state(mesh, shards)
+    if rank == 0:
+        params, want_losses, single_s, single_held = steps(None)
+        loss_err = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(losses, want_losses))
+        leaf_err = max((gathered[k].double() - params[k].double()).abs().max().item()
+                       / max(1.0, params[k].abs().max().item()) for k in params)
+        if not (loss_err <= BLOCK_TRAIN_RTOL and leaf_err <= BLOCK_TRAIN_RTOL):
+            failures.append(f"parallel block train: losses {loss_err}, worst leaf {leaf_err} "
+                            f"from one device > {BLOCK_TRAIN_RTOL}")
+        block.update(single_losses=want_losses, single_step_ms=1e3 * single_s[-1],
+                     single_mib_held=single_held, loss_rel_err=loss_err, worst_leaf_err=leaf_err)
+    return block, failures
 
 
 def main() -> int:
@@ -2089,6 +2173,14 @@ def main() -> int:
                           "first_step_ms_by_rank": [r["train"]["first_step_ms"] for r in ranks],
                           "peak_device_mib_by_rank": [r["train"]["peak_device_mib"]
                                                       for r in ranks]}), flush=True)
+    if ranks:
+        print(json.dumps({"phase": "parallel_block_train", "ranks": len(ranks),
+                          "mesh": PARALLEL_MESHES["model"], "n": 4, "hw": 14,
+                          "c_io": BLOCK_TRAIN_CIO, "c_mid": BLOCK_TRAIN_CMID,
+                          **ranks[0]["block_train"],
+                          "step_ms_by_rank": [r["block_train"]["step_ms"] for r in ranks],
+                          "mib_held_by_rank": [r["block_train"]["mib_held"] for r in ranks]}),
+              flush=True)
     print(json.dumps({"phase": "parallel_world", "seconds": time.perf_counter() - t0}),
           flush=True)
 

@@ -42,8 +42,9 @@ against the single-device engines (f32 and bf16w 1e-4, int8 1e-3 times
 max(1, max|ref|); bf16w and int8 under "model", their own arithmetic (every
 3x3 direct on bf16 or int8 weights of the filter, each rank's shard
 quantized apart), within 1e-4 and 1e-3 of their own plain versions on the
-CPU and 5e-3 and 5e-2 of the f32 engine). Needs an NVIDIA GPU and
-nvcc; skipped elsewhere. Run on the card with
+CPU and 5e-3 and 5e-2 of the f32 engine); and utils/debug.py::nan_checks
+naming the counter a NaN-producing launch went under, and refusing a graph
+capture. Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -1588,3 +1589,39 @@ def test_two_rank_world_serves_every_partition_on_one_card(dev):
                     continue
                 bound = (1e-3 if tier == "int8" else 1e-4) * scale
                 assert (got - ref).abs().max().item() <= bound, (family, partition, tier)
+
+
+@pytest.mark.parametrize("bf16w", [False, True])
+def test_nan_checks_name_the_kernel_that_launched(dev, bf16w):
+    """utils/debug.py::nan_checks on the card: a clean call passes, a NaN
+    input raises naming the counter the launch went under. No ReLU: the
+    kernels' fused ReLU (fmaxf) maps a NaN to 0, where torch.relu keeps it."""
+    from winograd_tpu_torch.utils.debug import nan_checks
+
+    rng = np.random.default_rng(40)
+    x = _r(rng, dev, 2, 7, 7, 64)
+    w = _r(rng, dev, 64, 96)
+    s, b = _bn(rng, dev, 96)
+    if bf16w:
+        w = w.bfloat16()
+    with nan_checks():
+        conv1x1_bn(x, w, s, b, False)
+        x[1, 3, 3, 5] = float("nan")
+        counter = "pointwise_bf16w" if bf16w else "pointwise"
+        with pytest.raises(FloatingPointError, match=rf"^{counter}: .*\(2, 7, 7, 64\)"):
+            conv1x1_bn(x, w, s, b, False)
+
+
+def test_nan_checks_refuse_graph_capture(dev):
+    from winograd_tpu_torch.utils.debug import nan_checks
+
+    x = torch.ones(8, device=dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = x * 2
+        with pytest.raises(RuntimeError, match="capture"):
+            with nan_checks():
+                pass
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, x * 2) and not _build.NAN_CHECKS

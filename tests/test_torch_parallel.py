@@ -6,8 +6,10 @@ parallel_world, started once for the module by spawn_world) runs, with the
 kernels' plain versions: the meshes (2 x 2, 1 x 4, 4 x 1), the block under
 block_shardings' layout (sharded_block_inference), the port's block on
 batch shards (sharded_block_inference_fused), the data-parallel train step
-(the plain operators and the port's block kernel's VJPs) beside the
-single-device step, the TP 1x1 reduce and expand, the row-parallel 3x3,
+(the plain operators and the port's block kernel's VJPs; on the 2 x 2 mesh
+the plain step is channel-sharded, its state cut by shard_train_state and
+gathered by gather_train_state) beside the single-device step, the TP 1x1
+reduce and expand, the row-parallel 3x3,
 the TP block (model axis 2 and 4) and stage, and BackboneEngine and
 BottleneckEngine under a mesh at every tier. The same seeded numpy inputs
 go through the JAX package's counterparts on the conftest's eight virtual
@@ -197,6 +199,24 @@ def test_data_parallel_train_step_matches_jax_and_one_device(world, jax_refs):
             assert _err(res["params"][k], want["params"][k]) <= ATOL, (key, k)
             assert _err(res["params"][k], single["params"][k]) <= 1e-5, (key, k)
     assert want["losses"][1] < want["losses"][0]
+
+
+def test_channel_sharded_train_step_holds_its_shards(world):
+    """On the 2 x 2 mesh a rank holds 1/2 of w_reduce, w_expand, s_expand and
+    b_expand and the whole of the rest, and the replicated leaves' gradients
+    are equal on the two ranks of a "model" row (ranks 0 and 1)."""
+    from torch_parallel_ranks import REPLICATED_TRAIN_KEYS
+
+    _, specs = block_shardings()
+    for r in world:
+        fraction = r["train_shards"]["fraction"]
+        assert set(fraction) == set(TRAIN_KEYS)
+        for k in TRAIN_KEYS:
+            assert fraction[k] == (0.5 if "model" in specs[k] else 1.0), k
+    row = [world[0]["train_shards"]["first_grads"], world[1]["train_shards"]["first_grads"]]
+    for k in REPLICATED_TRAIN_KEYS:
+        assert torch.equal(row[0][k], row[1][k]), k
+        assert row[0][k].abs().max() > 0, k
 
 
 def test_tp_layers_match_jax(world, jax_refs):

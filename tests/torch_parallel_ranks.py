@@ -35,12 +35,15 @@ from winograd_tpu_torch.models.resnet import bottleneck_block
 from winograd_tpu_torch.models.resnet50 import cast_bf16w, quantize_resnet50
 from winograd_tpu_torch.parallel import (
     basicnet_forward_tp, bottleneck_block_tp, conv1x1_bn_tp_expand, conv1x1_bn_tp_reduce,
-    conv3x3_bn_tp_direct, make_mesh, make_pipe_mesh, make_train_step,
+    conv3x3_bn_tp_direct, gather_train_state, make_mesh, make_pipe_mesh, make_train_step,
     pipelined_basicnet_inference, pipelined_resnet50_inference, pipelined_stage_inference,
     resnet50_forward_tp, resnet_stage_tp, sharded_block_inference,
-    sharded_block_inference_fused, spawn_world,
+    shard_train_state, sharded_block_inference_fused, spawn_world,
 )
 from winograd_tpu_torch.parallel.mesh import axis_index
+
+# The leaves block_shardings() keeps whole on every rank of a "model" row.
+REPLICATED_TRAIN_KEYS = ("s_reduce", "b_reduce", "w_mid", "s_mid", "b_mid")
 
 # Seconds a collective may wait before the world fails (spawn_world's
 # timeout): a world's cases take seconds; the margin is for a loaded host.
@@ -111,15 +114,27 @@ def parallel_world(rank: int, world: int, inp: dict) -> dict:
         m22, {k: torch.from_numpy(v) for k, v in fused.items()}, xf)
     out["sharded_block_fused_41"] = sharded_block_inference_fused(
         m41, {k: torch.from_numpy(v) for k, v in fused.items()}, xf)
+    # "train" is the channel-sharded step (the plain step on a "model" axis
+    # of 2): it takes and updates the rank's shards, gathered back whole.
     for name, mesh, use_kernels in (("train", m22, False), ("train41", m41, False),
                                     ("train_kernels", m22, True), ("train_single", None, False)):
         params = {k: torch.tensor(v) for k, v in inp["train_params"].items()}
         momentum = {k: torch.zeros_like(v) for k, v in params.items()}
+        whole = {k: v.numel() for k, v in params.items()}
+        if name == "train":
+            params, momentum = shard_train_state(mesh, params, momentum)
         step = make_train_step(mesh, lr=1e-2, use_kernels=use_kernels)
         losses = []
-        for _ in range(2):
+        for i in range(2):
             params, momentum, loss = step(params, momentum, inp["train_x"], inp["train_t"])
             losses.append(loss)
+            if name == "train" and i == 0:
+                # From zero momentum, the momentum is the first step's gradients.
+                out["train_shards"] = {
+                    "first_grads": {k: momentum[k].clone() for k in REPLICATED_TRAIN_KEYS},
+                    "fraction": {k: params[k].numel() / whole[k] for k in params}}
+        if name == "train":
+            params = gather_train_state(mesh, params)
         out[name] = {"losses": torch.stack(losses), "params": params}
     r = inp["reduce"]
     out["tp_reduce"] = conv1x1_bn_tp_reduce(m22, r["x"], r["w"], r["s"], r["b"], relu=True)

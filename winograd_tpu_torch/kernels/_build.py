@@ -18,6 +18,7 @@ import collections
 import ctypes
 import functools
 import hashlib
+import inspect
 import os
 import pathlib
 import shutil
@@ -190,6 +191,72 @@ def launch(name: str, entry: str, shape: tuple, device: torch.device, *args,
     counter = counter or name
     LAUNCHES[counter] += 1
     LAUNCH_SHAPES[counter][shape] += 1
+
+
+# Set by utils/debug.py::nan_checks: while true, every public kernel wrapper
+# checks its output for non-finite values after the call (checked below).
+NAN_CHECKS = False
+
+
+def _bf16w_call(fn, args, kwargs) -> bool:
+    """Whether a call of a wrapper with a bf16w instantiation runs it, by
+    the wrappers' rule: at precision "bf16w" where the wrapper takes a
+    precision ("bf16", the stem's and the F(2,3)'s bf16 inputs, runs the
+    f32 entry's counter), else on a bfloat16 weight (or one of a params
+    dict's)."""
+    bound = inspect.signature(fn).bind(*args, **kwargs)
+    bound.apply_defaults()
+    if "precision" in bound.arguments:
+        return bound.arguments["precision"] == "bf16w"
+
+    def bf16(v):
+        if isinstance(v, dict):
+            return any(bf16(u) for u in v.values())
+        return isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16
+
+    return any(bf16(v) for v in bound.arguments.values())
+
+
+def checked(counter: str, bf16w_counter: str | None = None):
+    """Decorator of a public kernel wrapper whose launches count under
+    `counter` (and under `bf16w_counter` at bf16w, where it has that
+    instantiation). Under NAN_CHECKS the output is checked after the call,
+    and the first non-finite one raises FloatingPointError naming the
+    counter of the kernel that produced it and the argument's shape: on a
+    CUDA tensor the counter the call launched under, on a CPU tensor the one
+    its plain version stands for. The check synchronizes, so it refuses to
+    run while a CUDA graph is captured."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            if not NAN_CHECKS:
+                return fn(*args, **kwargs)
+            if capturing():
+                raise RuntimeError("nan_checks cannot check a kernel's output while a CUDA "
+                                   "graph is captured (the check synchronizes)")
+            before = collections.Counter(LAUNCHES)
+            out = fn(*args, **kwargs)
+            bad = int((~torch.isfinite(out)).sum())
+            if bad:
+                launched = [k for k in LAUNCHES if LAUNCHES[k] != before[k]]
+                if launched:
+                    name = launched[-1]
+                elif bf16w_counter and _bf16w_call(fn, args, kwargs):
+                    name = bf16w_counter
+                else:
+                    name = counter
+                x = (args or tuple(kwargs.values()))[0]
+                raise FloatingPointError(
+                    f"{name}: {bad} non-finite value(s) in the output {tuple(out.shape)} of "
+                    f"{fn.__name__} on an argument of shape {tuple(x.shape)}")
+            return out
+        return call
+    return wrap
+
+
+def capturing() -> bool:
+    """Whether this thread's current CUDA stream is capturing a graph."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
 def check_bf16w(x: torch.Tensor) -> None:

@@ -171,6 +171,7 @@ def _images(x):
     return (x[None], True) if x.dim() == 3 else (x, False)
 
 
+@_build.checked("basic_stage", "basic_stage_bf16w")
 def basic_stage_fused(x, stacked: Dict) -> torch.Tensor:
     """B identity basic blocks in one launch.
 
@@ -220,6 +221,7 @@ def basic_stage_fused_planned(x, stacked: Dict, plan: BasicStagePlan) -> torch.T
     return out
 
 
+@_build.checked("basic_stage_int8")
 def basic_stage_int8(x, qstacked: Dict) -> torch.Tensor:
     """B int8 identity basic blocks in one launch.
 

@@ -73,6 +73,7 @@ def conv3x3_bn_direct_plain(x, w9, scale, bias, relu: bool = True) -> torch.Tens
     return torch.relu(y) if relu else y
 
 
+@_build.checked("direct", "direct_bf16w")
 def conv3x3_bn_direct(x, w9, scale, bias, relu: bool = True) -> torch.Tensor:
     """Fused 3x3 conv + BN (+ReLU), direct implicit GEMM.
 

@@ -102,6 +102,7 @@ def conv1x1_bn_plain(x, w, scale, bias, relu: bool) -> torch.Tensor:
     return torch.relu(y) if relu else y
 
 
+@_build.checked("pointwise", "pointwise_bf16w")
 def conv1x1_bn(x, w, scale, bias, relu: bool) -> torch.Tensor:
     """Fused pointwise conv + BN (+ReLU).
 

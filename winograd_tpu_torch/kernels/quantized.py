@@ -668,6 +668,7 @@ def _workspace_words(name: str, entry: str, device_index: int, *dims) -> int:
     return words.value
 
 
+@_build.checked("pointwise_int8")
 def conv1x1_bn_int8(x, w_q, s_w, scale, bias, relu: bool) -> torch.Tensor:
     """Int8 pointwise conv + BN (+ReLU).
 
@@ -713,6 +714,7 @@ def conv1x1_bn_int8_planned(x, w_q, s_w, scale, bias, relu: bool,
     return out
 
 
+@_build.checked("direct_int8")
 def conv3x3_bn_int8(x, w9_q, s_w9, scale, bias, relu: bool = True) -> torch.Tensor:
     """Int8 3x3 conv (pad 1, stride 1) + BN (+ReLU), per-im2col-row scales.
 
@@ -763,6 +765,7 @@ def conv3x3_bn_int8_planned(x, w9_q, s_w9, scale, bias, relu: bool,
     return out
 
 
+@_build.checked("winograd_int8")
 def conv3x3_bn_winograd_int8(x, u_q, s_u, scale, bias, relu: bool = True) -> torch.Tensor:
     """Int8 3x3 conv (pad 1, stride 1) + BN (+ReLU) by Winograd F(2,3).
 
@@ -811,6 +814,7 @@ def conv3x3_bn_winograd_int8_planned(x, u_q, s_u, scale, bias, relu: bool,
     return out
 
 
+@_build.checked("stage_int8")
 def resnet_stage_int8(x, qstacked: Dict, mid_algo: str = "auto") -> torch.Tensor:
     """B int8 identity bottleneck blocks in one launch.
 
@@ -883,6 +887,7 @@ def _stage_int8_launch(x, q: Dict, mid_algo: str, groups: int) -> torch.Tensor:
     return out
 
 
+@_build.checked("transition_int8")
 def transition_block_int8(x, qparams: Dict) -> torch.Tensor:
     """Int8 stride-2 transition block in one launch. x: (H, W, Cin) or
     (N, H, W, Cin) float32; qparams from quantize_transition_params.

@@ -99,6 +99,7 @@ def _workspace_floats(device_index: int, n, h, w, cio, cmid, wino, splits, chunk
     return floats.value
 
 
+@_build.checked("stage", "stage_bf16w")
 def resnet_stage_fused(x, stacked: Dict, mid_algo: str = "auto",
                        resident=None) -> torch.Tensor:
     """B identity bottleneck blocks in one launch.

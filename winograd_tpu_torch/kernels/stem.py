@@ -69,6 +69,7 @@ def stem_fused_plain(x, w192, scale, bias, precision: str = "f32") -> torch.Tens
     return maxpool3x3_s2(y)
 
 
+@_build.checked("stem", "stem_bf16w")
 def stem_fused(x, w192, scale, bias, precision: str = "f32") -> torch.Tensor:
     """Whole stem, (H, W, Cin) or (N, H, W, Cin) -> (..., ceil(H/4),
     ceil(W/4), C).
@@ -152,6 +153,7 @@ def stem_fused_pre_plain(xb, w192, scale, bias, h: int, w: int,
     return stem_fused_plain(x, w192, scale, bias, precision)
 
 
+@_build.checked("stem_pre", "stem_pre_bf16w")
 def stem_fused_pre(xb, w192, scale, bias, h: int, w: int,
                    precision: str = "f32") -> torch.Tensor:
     """The stem on a prepared operand (stem_prepare_input) of an h x w

@@ -151,6 +151,7 @@ def _workspace_floats(device_index: int, n, h, w, cin, cmid, cout, *plan) -> int
     return floats.value
 
 
+@_build.checked("transition", "transition_bf16w")
 def transition_block_fused(x, params: Dict, resident=None) -> torch.Tensor:
     """One-launch stride-2 transition block. x: (H, W, Cin) or
     (N, H, W, Cin); params w_reduce/s_reduce/b_reduce, w9_mid/s_mid/b_mid

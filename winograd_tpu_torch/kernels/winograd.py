@@ -177,6 +177,7 @@ def winograd2_mid_plain(h, u2_bf16, scale, bias, relu: bool = True) -> torch.Ten
 PRECISIONS = ("f32", "bf16", "bf16w")
 
 
+@_build.checked("winograd", "winograd_bf16w")
 def conv3x3_bn_winograd(x, u, scale, bias, relu: bool = True,
                         precision: str = "f32") -> torch.Tensor:
     """Fused 3x3 conv + BN (+ReLU) via Winograd F(m,3).

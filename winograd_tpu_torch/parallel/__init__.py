@@ -5,8 +5,10 @@ the port's kernels. Port of winograd_tpu/parallel/ under the port's names
 (mesh.py::spawn_world starts a world of them)."""
 
 from winograd_tpu_torch.parallel.data_parallel import (
+    gather_train_state,
     init_train_state,
     make_train_step,
+    shard_train_state,
     sharded_block_inference,
     sharded_block_inference_fused,
 )
@@ -41,6 +43,8 @@ __all__ = [
     "sharded_block_inference_fused",
     "make_train_step",
     "init_train_state",
+    "shard_train_state",
+    "gather_train_state",
     "conv1x1_bn_tp_reduce",
     "conv1x1_bn_tp_expand",
     "conv3x3_bn_tp_direct",

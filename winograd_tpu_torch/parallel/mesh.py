@@ -23,7 +23,11 @@ psum (and pmean) is all_reduce, all_gather is JAX's tiled all_gather (the
 ranks' blocks concatenated along one dimension), axis_index is the rank's
 coordinate, and ppermute, which the pipeline uses to hand activations to
 the next stage, is send and recv between neighbours; broadcast plays the
-part of the pipeline's final psum. On a gloo group (one card shared by
+part of the pipeline's final psum. reduce_from_axis and copy_to_axis are
+psum written as torch.autograd.Functions, the two halves of the psums XLA
+inserts into the channel-sharded train step: a sum of partial products
+forward (its gradient passed back as it is), and the entry of a replicated
+tensor into cut work (its partial gradients summed backward). On a gloo group (one card shared by
 several ranks: NCCL refuses two ranks on one GPU) a CUDA tensor is staged
 through a host copy for every collective: gloo's point-to-point and gather
 operations take CPU tensors only, and one rule for all of them is easier to
@@ -50,9 +54,9 @@ from winograd_tpu_torch.kernels import _build
 
 __all__ = [
     "Mesh", "all_gather", "axis_index", "block_shardings", "broadcast", "check_mesh",
-    "local_shard",
-    "make_mesh", "make_pipe_mesh", "pmean", "psum", "recv", "resolve_device", "send",
-    "spawn_world",
+    "copy_to_axis", "local_shard",
+    "make_mesh", "make_pipe_mesh", "pmean", "psum", "recv", "reduce_from_axis",
+    "resolve_device", "send", "spawn_world",
 ]
 
 
@@ -205,6 +209,47 @@ def psum(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
 def pmean(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The mean of x over the ranks of `axis` (lax.pmean)."""
     return psum(x, mesh, axis) / mesh.shape[axis]
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """psum forward, identity backward (reduce_from_axis)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _CopyTo(torch.autograd.Function):
+    """Identity forward, psum backward (copy_to_axis)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.clone(), ctx.mesh, ctx.axis), None, None
+
+
+def reduce_from_axis(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over `axis` of the ranks' partial x (a product over a cut
+    contraction), differentiable: the sum is the same on every rank of the
+    axis, and so is its gradient, which passes back unchanged (the psum XLA
+    inserts for a contraction over a sharded dimension)."""
+    return _ReduceFrom.apply(x, mesh, axis)
+
+
+def copy_to_axis(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """x, the same on every rank of `axis`, entering work cut over the axis:
+    the identity, whose backward sums the ranks' partial gradients over the
+    axis, so the gradient of x is whole and the same on every rank (the
+    psum XLA inserts in the transpose of a replicated operand)."""
+    return _CopyTo.apply(x, mesh, axis)
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = -1) -> torch.Tensor:

@@ -1,7 +1,8 @@
-"""Host utility layer: blob IO, timing, differential checking (copies of
-winograd_tpu/utils/{io,timing,checker,native}.py, on numpy, PyTorch and the
-port's native host library, native/winotpu.cpp)."""
+"""Host utility layer: blob IO, timing, differential checking, debugging
+(copies of winograd_tpu/utils/{io,timing,checker,native,debug}.py, on numpy,
+PyTorch and the port's native host library, native/winotpu.cpp)."""
 
+from winograd_tpu_torch.utils import debug
 from winograd_tpu_torch.utils.checker import CheckResult, ParityError, output_checker
 from winograd_tpu_torch.utils.io import get_parameter, save_parameter, transpose
 from winograd_tpu_torch.utils.timing import (
@@ -13,6 +14,7 @@ from winograd_tpu_torch.utils.timing import (
 )
 
 __all__ = [
+    "debug",
     "get_parameter",
     "save_parameter",
     "transpose",
