@@ -197,7 +197,8 @@ Phases, each of which must pass (exit 1 otherwise):
    direct_int8, pointwise_int8 and both basic stages, from their wrappers'
    plans, pointwise_int8 with its plan's "route", GEMV, one_pass or
    cooperative; the f32 transition's splits of its reduce, mid and expand;
-   for the f32 Winograd its plan's Cin splits); the int8 Winograd's plan
+   for the f32 Winograd its plan's Cin splits; for the f32 and bf16w stage
+   its plan's splits of its reduce, direct mid and expand); the int8 Winograd's plan
    (its items' "tile_blocks" and "col_blocks", its grid's "blocks", the
    "chunk" of K an item stages at once);
    device times of the kernel, its plain version and the library call (20
@@ -813,7 +814,7 @@ def main() -> int:
     )
     from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain, split_plan
     from winograd_tpu_torch.kernels.stage import (
-        resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params,
+        resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params, stage_plan,
     )
     from winograd_tpu_torch.kernels.stem import (
         stem_fused, stem_fused_plain, stem_fused_pre, stem_fused_pre_plain, stem_prepare_input,
@@ -2040,8 +2041,10 @@ def main() -> int:
         "basic_stage_int8": lambda n, h, w, c, nb: bs.basic_stage_int8_plan(
             n, h, w, c, sms).splits,
         "basic_stage": lambda n, h, w, c, nb: bs.basic_stage_plan(n, h, w, c, sms).conv.splits,
+        "stage": lambda n, h, w, cio, cmid, nb, mid: [
+            sp.splits for sp in stage_plan(n, h, w, cio, cmid, sms)[1:]],
     }
-    for name in ("pointwise", "transition", "winograd", "direct", "basic_stage"):
+    for name in ("pointwise", "transition", "winograd", "direct", "basic_stage", "stage"):
         splits_of[f"{name}_bf16w"] = splits_of[name]
 
     def winograd_int8_cut(n, h, w, cin, cout, relu):

@@ -42,9 +42,15 @@ against the single-device engines (f32 and bf16w 1e-4, int8 1e-3 times
 max(1, max|ref|); bf16w and int8 under "model", their own arithmetic (every
 3x3 direct on bf16 or int8 weights of the filter, each rank's shard
 quantized apart), within 1e-4 and 1e-3 of their own plain versions on the
-CPU and 5e-3 and 5e-2 of the f32 engine); and utils/debug.py::nan_checks
-naming the counter a NaN-producing launch went under, and refusing a graph
-capture. Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on the card with
+CPU and 5e-3 and 5e-2 of the f32 engine); utils/debug.py::nan_checks
+naming the counter a NaN-producing launch went under (with and without the
+fused ReLU), and refusing a graph capture; the wgmma tiles of the pointwise
+MMA path (K split across a thread-block cluster) and the stage's GEMM
+phases at every pointwise and stage shape a full-width ResNet-50 N=1
+forward launches, both tiers, off the TMA route (unaligned channels, P off
+64), repeating to the bit and captured in a CUDA graph; and a NaN through
+the fused ReLU and max-pool of pointwise, stage, stem and Winograd, kept
+where the plain versions keep it. Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -1591,11 +1597,12 @@ def test_two_rank_world_serves_every_partition_on_one_card(dev):
                 assert (got - ref).abs().max().item() <= bound, (family, partition, tier)
 
 
+@pytest.mark.parametrize("relu", [False, True])
 @pytest.mark.parametrize("bf16w", [False, True])
-def test_nan_checks_name_the_kernel_that_launched(dev, bf16w):
+def test_nan_checks_name_the_kernel_that_launched(dev, bf16w, relu):
     """utils/debug.py::nan_checks on the card: a clean call passes, a NaN
-    input raises naming the counter the launch went under. No ReLU: the
-    kernels' fused ReLU (fmaxf) maps a NaN to 0, where torch.relu keeps it."""
+    input raises naming the counter the launch went under, with the fused
+    ReLU too (it keeps a NaN, as jnp.maximum and torch.relu do)."""
     from winograd_tpu_torch.utils.debug import nan_checks
 
     rng = np.random.default_rng(40)
@@ -1605,11 +1612,11 @@ def test_nan_checks_name_the_kernel_that_launched(dev, bf16w):
     if bf16w:
         w = w.bfloat16()
     with nan_checks():
-        conv1x1_bn(x, w, s, b, False)
+        conv1x1_bn(x, w, s, b, relu)
         x[1, 3, 3, 5] = float("nan")
         counter = "pointwise_bf16w" if bf16w else "pointwise"
         with pytest.raises(FloatingPointError, match=rf"^{counter}: .*\(2, 7, 7, 64\)"):
-            conv1x1_bn(x, w, s, b, False)
+            conv1x1_bn(x, w, s, b, relu)
 
 
 def test_nan_checks_refuse_graph_capture(dev):
@@ -1625,3 +1632,157 @@ def test_nan_checks_refuse_graph_capture(dev):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(y, x * 2) and not _build.NAN_CHECKS
+
+
+# --- the wgmma tiles: pointwise.cu's MMA path and stage.cu's GEMM phases ----
+
+def _served_shapes(dev, tier):
+    """The pointwise and stage launch shapes of a full-width ResNet-50 N=1
+    forward at the tier (kernels/_build.py::LAUNCH_SHAPES), eagerly."""
+    from winograd_tpu_torch.config import ResNet50Config
+
+    engine = ResNet50Engine(init_resnet50_params(ResNet50Config(), seed=5, device="cpu"),
+                            tier=tier, device=dev)
+    x = torch.as_tensor(_tiny_images(6, 1, img=224), device=dev)
+    _build.reset_counts()
+    engine._forward(x, engine._params, dev)
+    torch.cuda.synchronize()
+    suffix = "_bf16w" if tier == "bf16w" else ""
+    shapes = {name: sorted(_build.LAUNCH_SHAPES[name + suffix], key=str)
+              for name in ("pointwise", "stage")}
+    assert shapes["pointwise"] and shapes["stage"]
+    return shapes
+
+
+@pytest.mark.parametrize("tier", ["f32", "bf16w"])
+def test_wgmma_kernels_at_every_served_launch_shape(dev, tier):
+    """Each pointwise and stage shape the served N=1 forward launches, on
+    fresh seeded operands, within the f32 bar of the plain version at both
+    tiers, and equal to the bit on a second call."""
+    shapes = _served_shapes(dev, tier)
+    rng = np.random.default_rng(7)
+    for p, k, n, relu in shapes["pointwise"]:
+        x, w = _r(rng, dev, p, k), _r(rng, dev, k, n)
+        s, b = _bn(rng, dev, n)
+        if tier == "bf16w":
+            w = w.to(BF16)
+        first = conv1x1_bn(x, w, s, b, relu)
+        _agree(first, conv1x1_bn_plain(x, w, s, b, relu))
+        assert torch.equal(first, conv1x1_bn(x, w, s, b, relu))
+    for n, h, w, cio, cmid, nb, mid in shapes["stage"]:
+        stacked = _stacked(rng, dev, nb, cio, cmid)
+        if tier == "bf16w":
+            stacked = _bf16w(stacked)
+        x = _r(rng, dev, n, h, w, cio)
+        first = resnet_stage_fused(x, stacked, mid)
+        _agree(first, resnet_stage_fused_plain(x, stacked, mid))
+        assert torch.equal(first, resnet_stage_fused(x, stacked, mid))
+
+
+# Shapes off the TMA route (Cin or Cout not a multiple of 4, of 8 for bf16
+# weights: element loads into the same ring) and P off multiples of 64, with
+# and without a K split (the pointwise splits one cluster); the last is
+# bf16-only unaligned (Cout a multiple of 4, not 8).
+@pytest.mark.parametrize("bf16w", [False, True])
+@pytest.mark.parametrize("p,k,n", [(100, 1030, 70), (65, 258, 33), (130, 515, 12),
+                                   (77, 2052, 36)])
+def test_pointwise_wgmma_unaligned(dev, bf16w, p, k, n):
+    plan = split_plan(p, k, n, _build.sm_count(dev))
+    assert not plan.gemv and plan.splits > 1
+    rng = np.random.default_rng(p * k + n)
+    x, w = _r(rng, dev, p, k), _r(rng, dev, k, n)
+    s, b = _bn(rng, dev, n)
+    if bf16w:
+        w = w.to(BF16)
+    first = conv1x1_bn(x, w, s, b, True)
+    _agree(first, conv1x1_bn_plain(x, w, s, b, True))
+    assert torch.equal(first, conv1x1_bn(x, w, s, b, True))
+
+
+@pytest.mark.parametrize("bf16w", [False, True])
+@pytest.mark.parametrize("n,hw,cio,cmid,nb", [(2, 9, 70, 20, 2), (1, 7, 300, 36, 2),
+                                              (3, 5, 132, 300, 1)])
+def test_stage_wgmma_unaligned(dev, bf16w, n, hw, cio, cmid, nb):
+    rng = np.random.default_rng(n * hw + cio + cmid)
+    stacked = _stacked(rng, dev, nb, cio, cmid)
+    if bf16w:
+        stacked = _bf16w(stacked)
+    x = _r(rng, dev, n, hw, hw, cio)
+    first = resnet_stage_fused(x, stacked, "direct")
+    _agree(first, resnet_stage_fused_plain(x, stacked, "direct"))
+    assert torch.equal(first, resnet_stage_fused(x, stacked, "direct"))
+
+
+@pytest.mark.parametrize("bf16w", [False, True])
+def test_wgmma_kernels_capture_and_replay(dev, bf16w):
+    """Both kernels captured in one CUDA graph (the pointwise on a K split
+    across a cluster, the stage on split phases) replay on new inputs as
+    they run eagerly, to the bit."""
+    rng = np.random.default_rng(11)
+    w = _r(rng, dev, 2048, 512)
+    s, b = _bn(rng, dev, 512)
+    stacked = _stacked(rng, dev, 2, 1024, 256)
+    if bf16w:
+        w, stacked = w.to(BF16), _bf16w(stacked)
+    xp, xs = _r(rng, dev, 49, 2048), _r(rng, dev, 1, 14, 14, 1024)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        conv1x1_bn(xp, w, s, b, True)
+        resnet_stage_fused(xs, stacked, "direct")
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        yp = conv1x1_bn(xp, w, s, b, True)
+        ys = resnet_stage_fused(xs, stacked, "direct")
+    for seed in (12, 13):
+        r2 = np.random.default_rng(seed)
+        xp.copy_(_r(r2, dev, 49, 2048))
+        xs.copy_(_r(r2, dev, 1, 14, 14, 1024))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(yp, conv1x1_bn(xp, w, s, b, True))
+        assert torch.equal(ys, resnet_stage_fused(xs, stacked, "direct"))
+        _agree(ys, resnet_stage_fused_plain(xs, stacked, "direct"))
+
+
+def _same_nans(out, ref):
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    assert nan.any() and torch.equal(torch.isnan(out), nan)
+    ok = ~nan
+    assert (out[ok] - ref[ok]).abs().max().item() <= 1e-4 * max(1.0, ref[ok].abs().max().item())
+
+
+@pytest.mark.parametrize("bf16w", [False, True])
+def test_fused_relu_and_max_pool_keep_a_nan(dev, bf16w):
+    """One NaN in the input of the pointwise (both paths), the stage (both
+    mids), the stem and the Winograd: each kernel's output has NaN exactly
+    where its plain version has (the ReLU and the max-pool keep it, as
+    jnp.maximum does), and agrees elsewhere."""
+    rng = np.random.default_rng(21)
+    for p in (3, 98):
+        x, w = _r(rng, dev, p, 256), _r(rng, dev, 256, 96)
+        s, b = _bn(rng, dev, 96)
+        w = w.to(BF16) if bf16w else w
+        x[p // 2, 5] = float("nan")
+        _same_nans(conv1x1_bn(x, w, s, b, True), conv1x1_bn_plain(x, w, s, b, True))
+    for mid, hw in (("direct", 14), ("winograd2", 28)):
+        stacked = _stacked(rng, dev, 2, 256, 64)
+        stacked = _bf16w(stacked) if bf16w else stacked
+        x = _r(rng, dev, 1, hw, hw, 256)
+        x[0, 3, 4, 7] = float("nan")
+        _same_nans(resnet_stage_fused(x, stacked, mid), resnet_stage_fused_plain(x, stacked, mid))
+    x, w192, s, b = _stem_case(rng, dev, 1, 64, 64, 3, 64)
+    x[0, 20, 31, 1] = float("nan")
+    precision = "bf16w" if bf16w else "f32"
+    w192 = w192.to(BF16) if bf16w else w192
+    _same_nans(stem_fused(x, w192, s, b, precision), stem_fused_plain(x, w192, s, b, precision))
+    u = torch.as_tensor(transforms.transform_filter(
+        (rng.random((64, 64, 3, 3)) - 0.5).astype(np.float32), m=2), device=dev)
+    u = u.to(BF16) if bf16w else u
+    s, b = _bn(rng, dev, 64)
+    x = _r(rng, dev, 1, 28, 28, 64)
+    x[0, 9, 14, 3] = float("nan")
+    _same_nans(conv3x3_bn_winograd(x, u, s, b, True, precision),
+               conv3x3_bn_winograd_plain(x, u, s, b, True))

@@ -62,13 +62,14 @@ def test_split_k_covers_every_k_once(step, min_chunk):
 
 
 # The served products of csrc/pointwise.cu (P, K, N) and the split each
-# takes on 132 SMs: the heads at N=1 and N=8 and the P = 49 rows split
-# furthest; the large-P 1x1s and K = 128 keep one range.
+# takes on 132 SMs: the heads at N=1 and N=8 (the GEMV, about a block an
+# SM) and the MMA tiles toward two blocks an SM, at most one cluster
+# (CLUSTER_MAX) a tile; the 196 tiles of 3136 x 256 keep one range.
 SERVED_POINTWISE = {
     (1, 2048, 1000): 16, (8, 2048, 1000): 16, (1, 512, 1000): 8,
-    (49, 2048, 512): 16, (49, 512, 2048): 4, (49, 2304, 512): 15, (49, 256, 512): 4,
-    (196, 1152, 256): 8, (196, 128, 256): 1, (392, 2048, 512): 2, (784, 576, 128): 5,
-    (784, 64, 128): 1, (3136, 64, 64): 1, (3136, 64, 256): 1,
+    (49, 2048, 512): 8, (49, 512, 2048): 8, (49, 2304, 512): 8, (49, 256, 512): 8,
+    (196, 1152, 256): 8, (196, 128, 256): 4, (392, 2048, 512): 4, (784, 576, 128): 6,
+    (784, 64, 128): 2, (3136, 64, 64): 2, (3136, 64, 256): 1,
 }
 
 
@@ -81,15 +82,39 @@ def test_pointwise_plan_fills_the_card(shape):
     assert plan.gemv == (p <= pw.GEMV_MAX_ROWS)
     if plan.gemv:
         assert plan.tiles == -(-n // pw.GEMV_COLS)
+        wave, min_chunk = H100_SMS, pw.MIN_CHUNK
     else:
         assert plan.tiles == -(-p // pw.MMA_TILE) * -(-n // pw.MMA_TILE)
-    wave = H100_SMS
+        wave, min_chunk = pw.MMA_BLOCKS_PER_SM * H100_SMS, pw.SPLIT_STEP
     assert plan.tiles * plan.splits <= max(wave, plan.tiles)
     if plan.splits == 1:   # K too short to split, or the tiles fill half a wave
-        assert (k < 2 * pw.MIN_CHUNK or 2 * plan.tiles > wave
-                or not plan.gemv and k < pw.MMA_SPLIT_MIN_K)
-    else:                  # about one wave, or K cut to the shortest ranges
-        assert 2 * plan.tiles * plan.splits >= wave or plan.chunk == pw.MIN_CHUNK
+        assert k < 2 * min_chunk or 2 * plan.tiles > wave
+    else:                  # about one wave, K cut to the shortest ranges, or one cluster
+        assert (2 * plan.tiles * plan.splits >= wave or plan.chunk == min_chunk
+                or not plan.gemv and plan.splits == pw.CLUSTER_MAX)
+    if not plan.gemv:      # the splits of a tile are one cluster: no workspace
+        assert plan.splits <= pw.CLUSTER_MAX
+        assert pw.pointwise_workspace_words(plan, p, n) == 0
+
+
+@pytest.mark.parametrize("sms", [H100_SMS, 66, 264])
+@pytest.mark.parametrize("p", [9, 49, 64, 65, 196, 392, 1000])
+@pytest.mark.parametrize("k", [256, 300, 1024, 2304, 4608])
+def test_pointwise_mma_plan_fits_one_cluster(p, k, sms):
+    """On the MMA path (P above GEMV_MAX_ROWS) a tile's K splits are the
+    blocks of one thread-block cluster: at most CLUSTER_MAX, covering K
+    once, every range but the last a multiple of the tile's stage, no
+    workspace; the GEMV keeps splitting past it."""
+    for n in (33, 512, 1000):
+        plan = pw.split_plan(p, k, n, sms)
+        assert not plan.gemv and 1 <= plan.splits <= pw.CLUSTER_MAX
+        _covers_once(plan, k, pw.SPLIT_STEP)
+        assert plan.splits == 1 or plan.chunk % pw.SPLIT_STEP == 0
+        assert pw.pointwise_workspace_words(plan, p, n) == 0
+        if plan.tiles * pw.CLUSTER_MAX <= sms and k >= pw.CLUSTER_MAX * pw.MIN_CHUNK:
+            assert plan.splits == pw.CLUSTER_MAX   # few tiles: a whole cluster each
+    gemv = pw.split_plan(1, k, 1000, sms)
+    assert gemv.gemv and pw.pointwise_workspace_words(gemv, 1, 1000) == gemv.workspace_words(1, 1000)
 
 
 @pytest.mark.parametrize("p,k,n", [(1, 7, 5), (65, 130, 70), (129, 4608, 33), (9, 300, 17),
@@ -106,9 +131,13 @@ def test_pointwise_plan_and_workspace_on_ragged_shapes(p, k, n):
 
 
 def test_pointwise_plan_follows_the_sm_count():
-    small = pw.split_plan(49, 2048, 512, sms=66)
-    assert pw.split_plan(196, 128, 256).splits == 1              # below MMA_SPLIT_MIN_K
-    assert small.splits == 8 and pw.split_plan(49, 2048, 512, sms=132).splits == 16
+    small = pw.split_plan(1, 2048, 1000, sms=66)
+    assert small.splits == 8 and pw.split_plan(1, 2048, 1000, sms=132).splits == 16
+    assert pw.split_plan(392, 2048, 512, sms=66).splits == 2     # 56 tiles: 132 // 56
+    assert pw.split_plan(392, 2048, 512, sms=132).splits == 4
+    assert pw.split_plan(196, 1152, 256, sms=16).splits == 2     # 16 tiles: 32 // 16
+    assert pw.split_plan(49, 2048, 512, sms=66).splits == pw.CLUSTER_MAX  # the cluster's cap
+    assert pw.split_plan(49, 2048, 512, sms=132).splits == pw.CLUSTER_MAX
 
 
 # The served f32 3x3 of csrc/direct.cu (N, H, W, Cin, Cout), 7x7x512 at N=1
@@ -712,6 +741,10 @@ def _constexpr(source: str, name: str) -> int:
 @pytest.mark.parametrize("value,source,name", [
     (pw.GEMV_MAX_ROWS, "pointwise.cu", "kGemvMaxP"),
     (pw.GEMV_COLS, "pointwise.cu", "kGemvCols"),
+    (pw.CLUSTER_MAX, "pointwise.cu", "kClusterMax"),
+    (pw.MMA_TILE, "wgmma_tile.cuh", "kBM"),
+    (pw.MMA_TILE, "wgmma_tile.cuh", "kBN"),
+    (pw.SPLIT_STEP, "wgmma_tile.cuh", "kBK"),
     (pw.MMA_TILE, "mma_tf32.cuh", "kBM"),
     (pw.SPLIT_STEP, "mma_tf32.cuh", "kBK"),
     (q8.DIRECT_INT8_K_ALIGN, "mma_int8.cuh", "kKAlign"),

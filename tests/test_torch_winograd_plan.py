@@ -158,7 +158,8 @@ def test_winograd_wrapper_launches_the_plan(monkeypatch, sms, n, h, w, cin, cout
 def test_stage_wrapper_passes_the_winograd_plan(monkeypatch, sms, n, hw, cio, cmid, mid):
     """resnet_stage_fused hands csrc/stage.cu's F(2,3) mid the per-layer
     Winograd's Cin split for Cmid (the kernel checks it fits and plans no
-    cut of its own), in the workspace query and in the launch alike."""
+    cut of its own), in the workspace query and in the launch alike, and
+    after it stage.py::stage_plan's grid (and its phases, in the query)."""
     calls = _stub_launches(monkeypatch, sms)
     e = lambda *shape: torch.empty(*shape, device="meta")  # noqa: E731
     stacked = dict(w_reduce=e(2, cio, cmid), s_reduce=e(2, 1, cmid), b_reduce=e(2, 1, cmid),
@@ -169,5 +170,7 @@ def test_stage_wrapper_passes_the_winograd_plan(monkeypatch, sms, n, hw, cio, cm
     plan = wg.winograd_plan(n, hw, hw, cmid, cmid, 2, sms)
     [(query, q_ints), (entry, ints)] = calls
     assert (query, entry) == ("resnet_stage_workspace", "resnet_stage")
-    assert q_ints == [n, hw, hw, cio, cmid, int(mid == "winograd2"), plan.splits, plan.chunk]
-    assert ints[-3:] == [int(mid == "winograd2"), plan.splits, plan.chunk]
+    sp = stage.stage_plan(n, hw, hw, cio, cmid, sms)
+    assert q_ints == [n, hw, hw, cio, cmid, int(mid == "winograd2"), plan.splits, plan.chunk,
+                      sp.grid, sp.phases()]
+    assert ints[-4:] == [int(mid == "winograd2"), plan.splits, plan.chunk, sp.grid]

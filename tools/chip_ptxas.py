@@ -1,0 +1,78 @@
+#!/usr/bin/env python3
+"""What the compiler made of the port's kernels: registers, spills and
+shared memory of every kernel instantiation, and the tensor-core
+instructions in each library's SASS.
+
+    python3 tools/chip_ptxas.py [NAME,...]      # default: every csrc/*.cu
+
+Run from the repository root on a machine with nvcc (the CUDA toolkit's
+cuobjdump beside it); no card is needed. Each csrc/<NAME>.cu is compiled
+with kernels/_build.py's flags plus -Xptxas -v into a scratch library under
+build/ptxas/, all at once; then one JSON line per kernel entry
+({"library", "kernel", "registers", "spill_stores", "spill_loads",
+"stack", "smem"}) and one per library counting its SASS instructions by
+opcode family ("HGMMA": wgmma, "HMMA" and "DMMA": mma.sync, "UTMALDG": TMA
+loads).
+"""
+
+from __future__ import annotations
+
+import json
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+OPCODES = ("HGMMA", "HMMA", "IMMA", "DMMA", "UTMALDG", "UBLKCP")
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT))
+    from winograd_tpu_torch.kernels import _build
+
+    names = sys.argv[1].split(",") if len(sys.argv) > 1 else list(_build.KERNELS)
+    nvcc = _build._nvcc()
+    out = ROOT / "build" / "ptxas"
+    out.mkdir(parents=True, exist_ok=True)
+    links = [f"-L{d}" for d in _build._stub_dirs(nvcc)] + list(_build.LINK_FLAGS)
+    procs = {name: subprocess.Popen(
+        [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / f"lib{name}.so"),
+         str(_build.CSRC / f"{name}.cu"), *links],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in names}
+    ok = True
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            print(f"nvcc failed for {name}.cu:\n{log}", file=sys.stderr)
+            ok = False
+            continue
+        kernel = None
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                kernel, stack, stores, loads = m.group(1), 0, 0, 0
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+            if m and kernel:
+                stack, stores, loads = map(int, m.groups())
+                continue
+            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            if m and kernel:
+                print(json.dumps({"library": name, "kernel": kernel,
+                                  "registers": int(m.group(1)), "spill_stores": stores,
+                                  "spill_loads": loads, "stack": stack,
+                                  "smem": int(m.group(2))}), flush=True)
+                kernel = None
+        cuobjdump = pathlib.Path(nvcc).with_name("cuobjdump")
+        sass = subprocess.run([str(cuobjdump), "-sass", str(out / f"lib{name}.so")],
+                              capture_output=True, text=True).stdout
+        counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in OPCODES}
+        hgmma = sorted({m.group(0) for m in re.finditer(r"HGMMA\.[A-Za-z0-9.]+", sass)})
+        print(json.dumps({"library": name, "sass": counts, "hgmma_forms": hgmma}), flush=True)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -2,10 +2,12 @@
 """K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct.cu,
 csrc/direct_int8.cu, csrc/transition_int8.cu, csrc/pointwise_int8.cu,
 csrc/transition.cu, csrc/basic_stage.cu and csrc/basic_stage_int8.cu), of the f32 Winograd's
-work-item cut (csrc/winograd.cu) and of the int8 Winograd's grid
-(csrc/winograd_int8.cu) on one CUDA card, and an A/B of their wrappers (and
-of the f32 and int8 stages', csrc/stage.cu and csrc/stage_int8.cu, and the
-stem's, csrc/stem.cu) against another checkout.
+work-item cut (csrc/winograd.cu), of the f32 and bf16w stage's plan
+(csrc/stage.cu) and of the int8 Winograd's grid (csrc/winograd_int8.cu) on
+one CUDA card, and an A/B of their wrappers (and of the int8 stage's,
+csrc/stage_int8.cu, and the stem's, csrc/stem.cu) against another checkout.
+pointwise and stage run at f32 and, as pointwise_bf16w and stage_bf16w, on
+bf16 weights.
 
     python3 tools/chip_split_sweep.py [--only NAME,...]    # the sweep
     python3 tools/chip_split_sweep.py --ab DIR [--only ...] # the A/B against DIR
@@ -24,7 +26,9 @@ come first, then one JSON line per shape and candidate.
 
 The sweep times each shape under the K split its wrapper's plan picks
 ("chosen") and under the splits that kernels/splitk.py::split_k gives for
-1, 2, 4, ..., 32 wanted ranges; the f32 Winograd under its plan and under
+1, 2, 4, ..., 32 wanted ranges (at most pointwise.py::CLUSTER_MAX on the
+pointwise MMA path); the stage under its plan, under stage.py::stage_plan's
+rule at each walk cap of STAGE_WALKS, and on a grid of one block an SM; the f32 Winograd under its plan and under
 the Cin splits that split_k gives for 1, 2, 3, 4 and 8 wanted ranges of at
 least 32; the int8 transition under its plan and under plans that change
 one of its phases: the reduce's or the mid's split for 1, 2, 4, ..., 32
@@ -53,9 +57,10 @@ each in a process of its own that imports that checkout's package and
 builds its kernels there, in turns DIR, this, this, DIR, on the same
 seeded inputs ("--wrappers ROOT" is one such turn).
 
---only takes kernel names (pointwise, direct, winograd, stage, direct_int8,
-stage_int8, stem, transition_int8, pointwise_int8, transition,
-winograd_int8, basic_stage, basic_stage_int8) and keeps those shapes alone.
+--only takes kernel names (pointwise, pointwise_bf16w, direct, winograd,
+stage, stage_bf16w, direct_int8, stage_int8, stem, transition_int8,
+pointwise_int8, transition, winograd_int8, basic_stage, basic_stage_int8)
+and keeps those shapes alone.
 """
 
 from __future__ import annotations
@@ -85,11 +90,19 @@ WINOGRAD = [  # (N, H, W, Cin, Cout, m, relu)
     (1, 14, 14, 128, 128, 4, True), (8, 56, 56, 64, 64, 2, True), (8, 28, 28, 128, 128, 2, True),
     (8, 14, 14, 256, 256, 2, True),
 ]
-STAGE = [  # (N, H, W, Cio, Cmid, blocks, mid): A/B only (its plan is the kernel's)
+STAGE = [  # (N, H, W, Cio, Cmid, blocks, mid)
     (1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
     (1, 14, 14, 1024, 256, 5, "direct"), (8, 14, 14, 1024, 256, 5, "direct"),
     (1, 28, 28, 512, 128, 1, "winograd2"), (1, 14, 14, 1024, 256, 1, "direct"),
+    (32, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
+    (8, 7, 7, 2048, 512, 2, "direct"),
 ]
+# The bf16w instantiations of pointwise and stage, at these shapes of theirs
+# (bf16 weights, kernel names "pointwise_bf16w" and "stage_bf16w").
+POINTWISE_BF16W = POINTWISE
+STAGE_BF16W = [s for s in STAGE if s[-1] == "direct" or s[0] == 1]
+# The candidate walk caps of stage.py::stage_plan (one for every phase, or none).
+STAGE_WALKS = (256, 512, 1024, 2048, 1 << 20)
 STAGE_INT8 = [  # (N, H, W, Cio, Cmid, blocks, mid): A/B only (its plan is the kernel's)
     (1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
     (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
@@ -124,7 +137,7 @@ BASIC_STAGE_INT8 = [  # (N, H, W, C, blocks): ResNet-34's conv5_x run, and ResNe
     (1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1),
 ]
 BASIC_STAGE = BASIC_STAGE_INT8  # the f32 tier's run at the same shapes
-A_B_ONLY = ("stage", "stage_int8", "stem")
+A_B_ONLY = ("stage_int8", "stem")
 DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
     (1, 56, 56, 64, 64, True), (1, 7, 7, 512, 512, False), (8, 7, 7, 512, 512, False),
     (8, 56, 56, 64, 64, True),
@@ -193,12 +206,16 @@ def _cases_all(dev):
     def rand(*shape):
         return t((rng.random(shape) - 0.5).astype(np.float32))
 
-    for p, k, n, relu in POINTWISE:
-        x, w, s, b = rand(p, k), rand(k, n), t((rng.random(n) * 0.5).astype(np.float32)), rand(n)
-        ref = pw.conv1x1_bn_plain(x, w, s, b, relu)
-        tol = 1e-4 * max(1.0, ref.abs().max().item())
-        yield ("pointwise", (p, k, n, relu), (x, w, s, b, relu), ref,
-               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for name, shapes in (("pointwise", POINTWISE), ("pointwise_bf16w", POINTWISE_BF16W)):
+        for p, k, n, relu in shapes:
+            x, w, s, b = (rand(p, k), rand(k, n), t((rng.random(n) * 0.5).astype(np.float32)),
+                          rand(n))
+            if name == "pointwise_bf16w":
+                w = w.bfloat16()
+            ref = pw.conv1x1_bn_plain(x, w, s, b, relu)
+            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            yield (name, (p, k, n, relu), (x, w, s, b, relu), ref,
+                   lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
     for n, h, wd, cin, cout, relu in DIRECT:
         x = rand(n, h, wd, cin)
         w9 = t(direct_filter((rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)))
@@ -216,7 +233,9 @@ def _cases_all(dev):
         tol = 1e-4 * max(1.0, ref.abs().max().item())
         yield ("winograd", (n, h, wd, cin, cout, m, relu), (x, u, s, b, relu), ref,
                lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
-    for n, h, wd, cio, cmid, nb, mid in STAGE:
+    for name, n, h, wd, cio, cmid, nb, mid in (
+            [("stage", *shape) for shape in STAGE]
+            + [("stage_bf16w", *shape) for shape in STAGE_BF16W]):
         blocks = []
         for _ in range(nb):
             wm = (rng.random((cmid, cmid, 3, 3)) - 0.5).astype(np.float32)
@@ -227,10 +246,13 @@ def _cases_all(dev):
                 b_mid=rand(cmid), w_expand=rand(cmid, cio),
                 s_expand=t((rng.random(cio) * 0.5).astype(np.float32)), b_expand=rand(cio)))
         stacked = stack_stage_params(blocks)
+        if name == "stage_bf16w":
+            for key in ("w_reduce", "u2_mid", "w9_mid", "w_expand"):
+                stacked[key] = stacked[key].bfloat16()
         x = rand(n, h, wd, cio)
         ref = resnet_stage_fused_plain(x, stacked, mid)
         tol = 1e-4 * max(1.0, ref.abs().max().item())
-        yield ("stage", (n, h, wd, cio, cmid, nb, mid), (x, stacked, mid), ref,
+        yield (name, (n, h, wd, cio, cmid, nb, mid), (x, stacked, mid), ref,
                lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
     for n, h, wd, cio, cmid, nb, mid in STAGE_INT8:
         blocks = []
@@ -350,6 +372,7 @@ def wrappers(dev) -> bool:
     _build.build_all()
     call = {"pointwise": conv1x1_bn, "direct": conv3x3_bn_direct, "winograd": conv3x3_bn_winograd,
             "stage": resnet_stage_fused, "direct_int8": conv3x3_bn_int8,
+            "pointwise_bf16w": conv1x1_bn, "stage_bf16w": resnet_stage_fused,
             "stage_int8": resnet_stage_int8, "stem": stem_fused,
             "transition_int8": transition_block_int8, "transition": transition_block_fused,
             "pointwise_int8": conv1x1_bn_int8, "winograd_int8": conv3x3_bn_winograd_int8,
@@ -417,10 +440,16 @@ def sweep(dev) -> bool:
         if name == "basic_stage":
             ok &= sweep_basic_stage(shape, args, ref, agrees, sms)
             continue
-        if name == "pointwise":
+        if name.startswith("stage"):
+            ok &= sweep_stage(name, shape, args, ref, agrees, sms)
+            continue
+        cap = 1 << 30
+        if name.startswith("pointwise"):
             p, k, n, _ = shape
             chosen = pw.split_plan(p, k, n, sms)
             kp, step, run = k, pw.SPLIT_STEP, pw.conv1x1_bn_planned
+            if not chosen.gemv:   # the MMA path's splits of a tile are one cluster
+                cap = pw.CLUSTER_MAX
         elif name == "direct":
             chosen = dr.direct_plan(*shape[:5], sms)
             kp, step, run = 9 * shape[3], pw.SPLIT_STEP, dr.conv3x3_bn_direct_planned
@@ -429,7 +458,7 @@ def sweep(dev) -> bool:
             kp, step, run = chosen.kp, q8.DIRECT_INT8_STEP, q8.conv3x3_bn_int8_planned
         plans = {chosen.splits: chosen}
         for want in WANTS:
-            sp = split_k(kp, want, step, step)
+            sp = split_k(kp, min(want, cap), step, step)
             plans.setdefault(sp.splits, chosen._replace(splits=sp.splits, chunk=sp.chunk))
         for splits, plan in sorted(plans.items()):
             fn = (lambda run=run, plan=plan: run(*args, plan))
@@ -611,6 +640,35 @@ def sweep_basic_stage(shape, args, ref, agrees, sms) -> bool:
         print(json.dumps({"kernel": "basic_stage", "shape": shape, "splits": splits,
                           "chunk": plan.conv.chunk, "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
+def sweep_stage(name, shape, args, ref, agrees, sms) -> bool:
+    """The f32 or bf16w stage under its plan and under stage_plan's rule at
+    each of STAGE_WALKS, and at one block an SM."""
+    from winograd_tpu_torch.kernels import stage as st
+
+    n, h, w, cio, cmid = shape[:5]
+    chosen = st.stage_plan(n, h, w, cio, cmid, sms)
+    plans = {("chosen", chosen.grid): chosen}
+    for walk in STAGE_WALKS:
+        plans.setdefault((walk, chosen.grid), st.stage_plan(n, h, w, cio, cmid, sms, walk, walk))
+    one = st.stage_plan(n, h, w, cio, cmid, sms // st.STAGE_BLOCKS_PER_SM)  # one block an SM
+    plans.setdefault(("one_per_sm", one.grid), one)
+    ok, seen = True, []
+    for (label, _), plan in plans.items():
+        if plan in seen:
+            continue
+        seen.append(plan)
+        fn = (lambda plan=plan: st.resnet_stage_fused_planned(*args, plan))
+        y = fn()
+        good = agrees(y)
+        ok &= good
+        print(json.dumps({"kernel": name, "shape": shape, "walk": label, "grid": plan.grid,
+                          "phases": plan.phases(), "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "max_abs_ref": ref.abs().max().item(), "agrees": good,
                           "ms": device_ms(fn)}), flush=True)
     return ok
 

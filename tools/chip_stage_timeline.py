@@ -47,9 +47,10 @@ First, the grid barrier alone
 blocks an SM. The card's name and power limit come first.
 
 --variant builds the f32 stage, transition and basic stage (TF32_KERNELS) once
-per named variant of their tensor-core tile (csrc/mma_tf32.cuh, edited in a
-copy of the sources) and stamps each: "as_is" the committed 3xTF32 tile;
-"one_pass" only the hi*hi pass of its three mma.sync passes (TF32 accuracy,
+per named variant of their tensor-core tiles (csrc/mma_tf32.cuh and the
+stage's GEMM phases' csrc/wgmma_tile.cuh, edited in a copy of the sources)
+and stamps each: "as_is" the committed 3xTF32 tiles;
+"one_pass" only the hi*hi pass of their three passes (TF32 accuracy,
 so its lines report the error but do not fail); "no_mma" none of them (the
 cp.async ring, the fragment splits the compiler keeps, the epilogues and
 barriers alone; its output is not the kernel's). What a phase loses
@@ -108,11 +109,15 @@ LAYOUT = {
                       "  const int items = 16 * a.tile_blocks * a.col_blocks;",
                       "static_cast<int>(i % a.Cout), mp);\n  }\n"),
 }
-# The tile's three passes in csrc/mma_tf32.cuh::mma_stage, and the passes
-# each --variant keeps out.
-PASSES = {"lo_hi": "mma(acc[mi][ni], al[mi], bh[ni]);",
-          "hi_lo": "mma(acc[mi][ni], ah[mi], bl[ni]);",
-          "hi_hi": "mma(acc[mi][ni], ah[mi], bh[ni]);"}
+# The tiles' three passes, in csrc/mma_tf32.cuh::mma_stage and in
+# csrc/wgmma_tile.cuh's f32 mma_stage (the stage's GEMM phases), and the
+# passes each --variant keeps out.
+PASSES = {"mma_tf32.cuh": {"lo_hi": "mma(acc[mi][ni], al[mi], bh[ni]);",
+                           "hi_lo": "mma(acc[mi][ni], ah[mi], bl[ni]);",
+                           "hi_hi": "mma(acc[mi][ni], ah[mi], bh[ni]);"},
+          "wgmma_tile.cuh": {"lo_hi": "wgmma_tf32(part, al[j], bh, j > 0);",
+                             "hi_lo": "wgmma_tf32(part, ah[j], bl, 1);",
+                             "hi_hi": "wgmma_tf32(part, ah[j], bh, 1);"}}
 VARIANTS = {"as_is": (), "one_pass": ("lo_hi", "hi_lo"), "no_mma": ("lo_hi", "hi_lo", "hi_hi")}
 TF32_KERNELS = ("stage", "transition", "basic_stage")  # on that tile, built once per variant
 STAMP = ("{ if (blockIdx.x == 0 && threadIdx.x == 0) { unsigned long long t; "
@@ -166,12 +171,15 @@ def variant_sources(csrc: pathlib.Path, out: pathlib.Path, variant: str) -> path
     dst = out / variant
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(csrc, dst)
-    tile = (dst / "mma_tf32.cuh").read_text()
-    for name in VARIANTS[variant]:
-        if tile.count(PASSES[name]) != 1:
-            raise SystemExit(f"mma_tf32.cuh does not have the {name} pass this tool edits")
-        tile = tile.replace(PASSES[name], "(void)0;")
-    (dst / "mma_tf32.cuh").write_text(tile)
+    for header, passes in PASSES.items():
+        if not (dst / header).exists():
+            continue
+        tile = (dst / header).read_text()
+        for name in VARIANTS[variant]:
+            if tile.count(passes[name]) != 1:
+                raise SystemExit(f"{header} does not have the {name} pass this tool edits")
+            tile = tile.replace(passes[name], "(void)0;")
+        (dst / header).write_text(tile)
     return dst
 
 
@@ -194,8 +202,12 @@ def build(root: pathlib.Path, out: pathlib.Path, kernels, variants=("as_is",)):
             name = f"{kernel}_stamped:{variant}" if tf32 else f"{kernel}_stamped"
             jobs[name] = (src / f"{kernel}_stamped.cu", src if tf32 else csrc)
     lib_of = {name: out / f"lib{name.replace(':', '_')}.so" for name in jobs}
-    procs = [subprocess.Popen([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(inc), "-o",
-                               str(lib_of[name]), str(src)],
+    nvcc = _build._nvcc()
+    # libcuda (the TMA tensor maps) where the checkout links it.
+    stubs = getattr(_build, "_stub_dirs", lambda _: [])(nvcc)
+    links = [f"-L{d}" for d in stubs] + list(getattr(_build, "LINK_FLAGS", ()))
+    procs = [subprocess.Popen([nvcc, *_build.NVCC_FLAGS, "-I", str(inc), "-o",
+                               str(lib_of[name]), str(src), *links],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for name, (src, inc) in jobs.items()]
     for proc in procs:

@@ -68,7 +68,7 @@ struct Int8BnEpilogue {
   int relu;
   __device__ __forceinline__ void operator()(int p, int n, int acc, float sx) const {
     float y = bn_rn(dequant(acc, sx, sw[n]), scale[n], bias[n]);
-    if (relu) y = fmaxf(y, 0.f);
+    if (relu) y = wt::relu(y);
     out[static_cast<size_t>(p) * N + n] = y;
   }
 };
@@ -85,7 +85,7 @@ struct ResidualInt8Epilogue {
   int N;
   __device__ __forceinline__ void store(int p, int n, float deq) const {
     const size_t i = static_cast<size_t>(p) * N + n;
-    out[i] = fmaxf(__fadd_rn(bn_rn(deq, scale[n], bias[n]), __ldcg(res + i)), 0.f);
+    out[i] = wt::relu(__fadd_rn(bn_rn(deq, scale[n], bias[n]), __ldcg(res + i)));
   }
   __device__ __forceinline__ void operator()(int p, int n, int acc, float sx) const {
     store(p, n, dequant(acc, sx, sw[n]));

@@ -21,6 +21,8 @@
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace wt {
 
 __device__ __forceinline__ void grid_sync(unsigned int* bar) {
@@ -54,7 +56,7 @@ struct BnEpilogue {
   int relu;
   __device__ __forceinline__ void operator()(int p, int n, float acc) const {
     float y = acc * scale[n] + bias[n];
-    if (relu) y = fmaxf(y, 0.f);
+    if (relu) y = wt::relu(y);
     out[static_cast<size_t>(p) * N + n] = y;
   }
 };
@@ -69,7 +71,7 @@ struct ResidualEpilogue {
   int N;
   __device__ __forceinline__ void operator()(int p, int n, float acc) const {
     const size_t i = static_cast<size_t>(p) * N + n;
-    out[i] = fmaxf(acc * scale[n] + bias[n] + __ldcg(res + i), 0.f);
+    out[i] = wt::relu(acc * scale[n] + bias[n] + __ldcg(res + i));
   }
 };
 

@@ -27,11 +27,12 @@
 // kernel's activation, behind a grid barrier) takes 4-byte __ldcg loads
 // stored to shared memory instead.
 //
-// Shared by csrc/pointwise.cu and csrc/direct.cu (through splitk_tf32.cuh's
-// split-K kernel), csrc/stage.cu and csrc/transition.cu (splitk_tf32.cuh's
+// Shared by csrc/direct.cu (through splitk_tf32.cuh's split-K kernel),
+// csrc/transition.cu and csrc/basic_stage.cu (splitk_tf32.cuh's
 // gemm_phase) and the Winograd products of wino_tf32.cuh (csrc/winograd.cu, csrc/stage.cu),
 // whose A is V = Bt d Bt^T read from the workspace its V phase wrote. The
-// bf16w tile (mma_bf16w.cuh) takes its A sources and A loader.
+// bf16w tile (mma_bf16w.cuh) and the wgmma tile (wgmma_tile.cuh) take its A
+// sources and A loader.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -1,6 +1,6 @@
 // Split-K f32 products with a folded BN (+ ReLU) epilogue, for the per-layer
-// kernels whose output tiles are fewer than the card's SMs (csrc/pointwise.cu,
-// csrc/direct.cu): out[P, N] = BN(A[P, K] x w[K, N]).
+// kernels whose output tiles are fewer than the card's SMs (csrc/direct.cu,
+// and csrc/pointwise.cu's GEMV): out[P, N] = BN(A[P, K] x w[K, N]).
 //
 // K is cut into `splits` ranges of `chunk` by the host's plan, one block per
 // (tile, split). With one split the block applies the epilogue itself. With
@@ -20,13 +20,15 @@
 // tile (wt::mma_tile), the plan and the reduction the same.
 //
 // gemm_phase is the same product as one phase of a persistent cooperative
-// kernel (csrc/stage.cu): its work items, (split, tile) pairs, are dealt to
+// kernel (csrc/transition.cu, basic_stage.cu): its work items, (split,
+// tile) pairs, are dealt to
 // the grid's blocks, and the splits' partial sums are added in split order
 // behind a grid barrier (grid_sync.cuh) by all blocks, each element once.
 #pragma once
 
 #include <cuda_runtime.h>
 
+#include "common.cuh"
 #include "grid_sync.cuh"
 #include "mma_bf16w.cuh"
 #include "mma_tf32.cuh"
@@ -57,7 +59,7 @@ using Args = GemmArgs<float>;
 template <class A>
 __device__ __forceinline__ float bn(const A& a, int n, float acc) {
   const float y = acc * a.scale[n] + a.bias[n];
-  return a.relu ? fmaxf(y, 0.f) : y;
+  return a.relu ? wt::relu(y) : y;
 }
 
 // After this block wrote its partial sums: true for the last block of

@@ -26,34 +26,46 @@
 //
 // Design: the TPU keeps the activation in VMEM across blocks; an SM's 228 KB
 // cannot hold it (conv2_x is 3.2 MB per image), so the Hopper counterpart is
-// a persistent cooperative kernel whose grid is what the card holds
-// resident (at most kMaxBlocksPerSm 128-thread blocks an SM). Each phase
-// deals its work items to all blocks, and a grid barrier (grid_sync.cuh)
-// separates phases and blocks; h1 and h2 live in a device workspace that
-// fits the 50 MB L2 (12.8 MB at N=8 conv2_x). The GEMM phases (reduce, the
-// direct mid on an implicit im2col of h1, expand with its residual) are
-// splitk_tf32.cuh's gemm_phase: 64 x 64 3xTF32 mma.sync tiles on a 4-deep
-// cp.async ring (mma_tf32.cuh), K split over blocks where a phase has
-// fewer tiles than the grid has blocks or an item would walk more than
-// kMaxWalk of K, the splits added in order behind a grid barrier
-// (deterministic). The F(2,3) mid is wino_tf32.cuh's phase, the per-layer
-// Winograd's: V written once, then items of one position, Cin range and
-// 64 x 64 block of tiles and channels on the same tiles, then the grid
-// applies At M At^T and BN, two barriers apart; its Cin split is the
-// host's (kernels/winograd.py::winograd_plan for Cmid, passed in by
-// kernels/stage.py), whose grid of two blocks an SM is kMaxBlocksPerSm's. So a block is three
-// phases, each one item walk plus its split reduction (the Winograd mid
-// also its V phase), and four to seven grid barriers. One dynamic shared
-// buffer (the MMA ring, 72 KB) serves every phase.
+// a persistent cooperative kernel whose grid is the host's plan (at most
+// kMaxBlocksPerSm 128-thread blocks an SM, and no more than the card holds
+// resident). Each phase deals its work items to all blocks, and a grid
+// barrier (grid_sync.cuh) separates phases and blocks; h1 and h2 live in a
+// device workspace that fits the 50 MB L2 (12.8 MB at N=8 conv2_x). The
+// GEMM phases (reduce, the direct mid on an implicit im2col of h1, expand
+// with its residual) run wgmma_tile.cuh's 64 x 64 tiles: one warpgroup's
+// wgmma.mma_async in 3xTF32, the weight tiles by TMA onto mbarriers, A by
+// cp.async, a 4-deep ring. A phase splits K over items where it has fewer
+// tiles than the grid has blocks or an item would walk a long K, and the
+// splits are added in order behind a grid barrier (deterministic). The
+// grid and every phase's split are the host's plan
+// (kernels/stage.py::stage_plan), checked here against the geometry.
+//
+// The weights do not depend on the activations, so a block issues the TMA
+// loads of its first item's weight tiles for the next phase before it
+// waits at the barrier that ends a phase; the ring's cold fill then
+// overlaps the wait. Why the split sums go through device memory and not a
+// thread-block cluster (as csrc/pointwise.cu's do): a launch has one
+// cluster shape, the three phases want different splits (and the F(2,3)
+// mid none), and an item of the persistent walk is not the rank of a
+// fixed cluster; the grid barrier is already there.
+//
+// The F(2,3) mid (conv2_x, conv3_x) is wino_tf32.cuh's phase, the
+// per-layer Winograd's, still on mma_tf32.cuh's mma.sync tiles: V written
+// once, then items of one position, Cin range and 64 x 64 block of tiles
+// and channels, then the grid applies At M At^T and BN, two barriers
+// apart; its Cin split is the host's (kernels/winograd.py::winograd_plan
+// for Cmid, passed in by kernels/stage.py). So a block is three phases,
+// each one item walk plus its split reduction (the Winograd mid also its
+// V phase), and four to seven grid barriers. One dynamic shared buffer
+// (the wgmma ring and split tiles, 85 KB at f32) serves every phase.
 //
 // The bf16w tier (resnet_stage_bf16w: w_reduce, the mid's w9 or u2 and
 // w_expand in bf16, BN f32; the JAX kernel at precision="bf16w") is the
-// same kernel on mma_bf16w.cuh's tile (wt::mma_tile by the weights' type):
-// every GEMM phase and the F(2,3) mid's products split their f32 A hi/lo
-// into two bf16 m16n8k16 passes on the bf16 weights, half the weight bytes
-// (conv5_x streams 8.9 MB a block, not 17.8) and a third of the
-// tensor-core instructions; the V phase, the inverse and the epilogues
-// stay FP32. The ring takes 58 KB.
+// same kernel on the bf16 tiles: every GEMM phase splits its f32 A hi/lo
+// into two bf16 wgmma passes on the bf16 weights (read straight from the
+// TMA's swizzled boxes), the F(2,3) mid's products into two bf16 mma.sync
+// passes (mma_bf16w.cuh), half the weight bytes (conv5_x streams 8.9 MB a
+// block, not 17.8); the V phase, the inverse and the epilogues stay FP32.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -61,21 +73,26 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "grid_sync.cuh"
 #include "splitk_tf32.cuh"
+#include "wgmma_tile.cuh"
 #include "wino_tf32.cuh"
 
 namespace {
 
 namespace tc = wt::tf32x3;
 namespace sk = wt::splitk;
+namespace wg = wt::wg;
 namespace wtc = wt::winotc;
 
 constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
-constexpr int kMaxWalk = 512;       // K a GEMM item walks, at most
+static_assert(sk::kSplitStep == wg::kBK, "a phase's splits are whole stages of the wgmma tile");
 
-// BT: the weights' element type, float or __nv_bfloat16 (bf16w).
+// BT: the weights' element type, float or __nv_bfloat16 (bf16w). The maps
+// (kVec): w_reduce, the direct mid's w9 and w_expand as (N, K, blocks).
 template <class BT>
 struct StageArgs {
+  CUtensorMap map_r, map_m, map_e;
   const float* x;
   float* out;
   const BT* wr;
@@ -98,35 +115,123 @@ struct StageArgs {
   wtc::Cut wcut;
 };
 
-// kVec: Cio and Cmid multiples of 4 (of 8 for bf16 weights), every operand
-// 16-byte aligned.
+// An item of a phase: its split's K range and its output tile's corner.
+struct Item {
+  int split, p0, n0, k0, k1;
+};
+
+__device__ __forceinline__ Item item_of(const wt::GemmPhase& g, int item) {
+  const int tiles_n = (g.N + wg::kBN - 1) / wg::kBN;
+  const int tiles = (g.P + wg::kBM - 1) / wg::kBM * tiles_n;
+  const int split = item / tiles, t = item - split * tiles;
+  const int k0 = split * g.chunk;
+  return Item{split, t / tiles_n * wg::kBM, t % tiles_n * wg::kBN, k0, min(g.K, k0 + g.chunk)};
+}
+
+__device__ __forceinline__ int items_of(const wt::GemmPhase& g) {
+  return (g.P + wg::kBM - 1) / wg::kBM * ((g.N + wg::kBN - 1) / wg::kBN) * g.splits;
+}
+
+// This block's items of the product C = A x B of phase g: each output
+// through epi(p, n, acc) at one split, else its partial tile into part
+// (splits x P x N). `prefetched`: the first item's weight loads are in
+// flight (prefetch_phase); cleared.
+template <bool kVec, class ASrc, class BT, class Epilogue>
+__device__ __forceinline__ void phase_items(const wt::GemmPhase& g, const ASrc& a,
+                                            const wg::Weights<BT>& b, const Epilogue& epi,
+                                            float* part, wg::Ring& ring, bool& prefetched) {
+  for (int item = blockIdx.x; item < items_of(g); item += gridDim.x) {
+    const Item it = item_of(g, item);
+    wg::Acc acc;
+    wg::tile<kVec, true>(a, b, it.p0, it.n0, it.k0, it.k1, ring, prefetched, acc);
+    prefetched = false;
+    float* sp = part + static_cast<size_t>(it.split) * g.P * g.N;
+    wg::for_each_acc(acc, [&](int r, int c, float v) {
+      const int p = it.p0 + r, n = it.n0 + c;
+      if (p >= g.P || n >= g.N) return;
+      if (g.splits == 1)
+        epi(p, n, v);
+      else
+        sp[static_cast<size_t>(p) * g.N + n] = v;
+    });
+  }
+}
+
+// Issues the weight loads of this block's first item of phase g into the
+// idle ring; true when it did (the TMA route and an item to run).
 template <bool kVec, class BT>
-__global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm) stage_kernel(StageArgs<BT> a) {
+__device__ __forceinline__ bool prefetch_phase(const wt::GemmPhase& g, const wg::Weights<BT>& b,
+                                               const wg::Ring& ring) {
+  if (!kVec || static_cast<int>(blockIdx.x) >= items_of(g)) return false;
+  const Item it = item_of(g, blockIdx.x);
+  wg::prefetch<true>(ring, b, it.n0, it.k0, it.k1);
+  return true;
+}
+
+// Past one split: after a grid barrier, the blocks add the splits' partial
+// sums in split order 0, 1, ... and apply epi, each element once. The
+// caller places the barrier that ends the phase.
+template <class Epilogue>
+__device__ __forceinline__ void reduce_phase(const wt::GemmPhase& g, const Epilogue& epi,
+                                             const float* part, unsigned int* bar) {
+  if (g.splits == 1) return;
+  wt::grid_sync(bar);
+  const size_t pn = static_cast<size_t>(g.P) * g.N;
+  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < pn;
+       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
+    float s = __ldcg(part + i);
+    for (int k = 1; k < g.splits; k += 8) {  // eight splits' loads in flight
+      float v[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) v[u] = k + u < g.splits ? __ldcg(part + (k + u) * pn + i) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 8; ++u)
+        if (k + u < g.splits) s += v[u];
+    }
+    epi(static_cast<int>(i / g.N), static_cast<int>(i % g.N), s);
+  }
+}
+
+// kVec: Cio and Cmid multiples of 4 (of 8 for bf16 weights), every operand
+// 16-byte aligned (the TMA maps and 16-byte A copies).
+template <bool kVec, class BT>
+__global__ void __launch_bounds__(wg::kThreads, kMaxBlocksPerSm)
+    stage_kernel(const __grid_constant__ StageArgs<BT> a) {
   extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t bars[wg::kStages];
+  wg::Ring ring = wg::make_ring(smem, bars);
   const int cio = a.Cio, cmid = a.Cmid;
   const int P = a.N * a.H * a.W;
+  bool pre = false;
   for (int blk = 0; blk < a.B; ++blk) {
     const float* act = blk == 0 ? a.x : a.out;
     const size_t bm = static_cast<size_t>(blk) * cmid, bo = static_cast<size_t>(blk) * cio;
+    const wg::Weights<BT> wr{&a.map_r, a.wr + bm * cio, cmid, cio, blk};
+    const wg::Weights<BT> wm{&a.map_m, a.wm + bm * 9 * cmid, cmid, 9 * cmid, blk};
+    const wg::Weights<BT> we{&a.map_e, a.we + bm * cio, cio, cmid, blk};
 
-    sk::gemm_phase<kVec, true>(a.reduce, tc::RowMajorA{act, P, cio}, a.wr + bm * cio,
-                               wt::BnEpilogue{a.s1 + bm, a.b1 + bm, a.h1, cmid, 1}, a.part,
-                               a.bar, smem);
+    const wt::BnEpilogue e1{a.s1 + bm, a.b1 + bm, a.h1, cmid, 1};
+    phase_items<kVec>(a.reduce, tc::RowMajorA{act, P, cio}, wr, e1, a.part, ring, pre);
+    if (!a.wino) pre = prefetch_phase<kVec>(a.mid, wm, ring);
+    reduce_phase(a.reduce, e1, a.part, a.bar);
     wt::grid_sync(a.bar);
 
+    const wt::BnEpilogue e2{a.s2 + bm, a.b2 + bm, a.h2, cmid, 1};
     if (a.wino)
       wtc::phase<2, kVec, true>(a.wconv, a.wcut, a.h1, a.wm + bm * 16 * cmid, a.s2 + bm,
                                 a.b2 + bm, a.h2, 1, a.v, a.part, a.bar, smem);
     else
-      sk::gemm_phase<kVec, true>(a.mid, tc::Im2colA{a.h1, a.H, a.W, cmid, P},
-                                 a.wm + bm * 9 * cmid,
-                                 wt::BnEpilogue{a.s2 + bm, a.b2 + bm, a.h2, cmid, 1}, a.part,
-                                 a.bar, smem);
+      phase_items<kVec>(a.mid, tc::Im2colA{a.h1, a.H, a.W, cmid, P}, wm, e2, a.part, ring, pre);
+    pre = prefetch_phase<kVec>(a.expand, we, ring);
+    if (!a.wino) reduce_phase(a.mid, e2, a.part, a.bar);
     wt::grid_sync(a.bar);
 
-    sk::gemm_phase<kVec, true>(
-        a.expand, tc::RowMajorA{a.h2, P, cmid}, a.we + bm * cio,
-        wt::ResidualEpilogue{a.s3 + bo, a.b3 + bo, act, a.out, cio}, a.part, a.bar, smem);
+    const wt::ResidualEpilogue e3{a.s3 + bo, a.b3 + bo, act, a.out, cio};
+    phase_items<kVec>(a.expand, tc::RowMajorA{a.h2, P, cmid}, we, e3, a.part, ring, pre);
+    if (blk + 1 < a.B)
+      pre = prefetch_phase<kVec>(
+          a.reduce, wg::Weights<BT>{&a.map_r, a.wr + (bm + cmid) * cio, cmid, cio, blk + 1}, ring);
+    reduce_phase(a.expand, e3, a.part, a.bar);
     if (blk + 1 < a.B) wt::grid_sync(a.bar);
   }
 }
@@ -137,32 +242,28 @@ const void* kernel_of(bool vec) {
              : reinterpret_cast<const void*>(&stage_kernel<false, BT>);
 }
 
-// Blocks of the instantiation in the cooperative grid: what the current
-// device holds resident, at most kMaxBlocksPerSm an SM (the dynamic shared
-// memory limit raised once per device); 0 on error.
+// Dynamic shared memory: the wgmma ring or the F(2,3) mid's mma.sync ring,
+// whichever is larger.
 template <class BT>
-int grid_size(bool vec) {
+constexpr size_t kSmem =
+    wg::kSmemBytes<BT> > wt::kTileSmemBytes<BT> ? wg::kSmemBytes<BT> : wt::kTileSmemBytes<BT>;
+
+// Blocks of the instantiation the current device holds resident, at most
+// kMaxBlocksPerSm an SM (the dynamic shared memory limit raised once per
+// device); 0 on error.
+template <class BT>
+int resident_blocks(bool vec) {
   static int cache[64][2] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cache[dev][vec] == 0) {
     const void* kernel = kernel_of<BT>(vec);
-    constexpr size_t smem = wt::kTileSmemBytes<BT>;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem)) != cudaSuccess)
+                             static_cast<int>(kSmem<BT>)) != cudaSuccess)
       return 0;
-    cache[dev][vec] = cooperative_grid(kernel, smem, tc::kThreads, kMaxBlocksPerSm);
+    cache[dev][vec] = cooperative_grid(kernel, kSmem<BT>, wg::kThreads, kMaxBlocksPerSm);
   }
   return cache[dev][vec];
-}
-
-// The K split of a GEMM phase: about one item a block, and K cut further
-// until no item walks more than kMaxWalk of it (an item's walk is latency
-// bound, so items beyond one a block still pay; kernels/direct.py's rule).
-wt::GemmPhase tf32_phase(int P, int K, int N, int grid) {
-  const int tiles = ((P + tc::kBM - 1) / tc::kBM) * ((N + tc::kBN - 1) / tc::kBN);
-  const int walk = (K + kMaxWalk - 1) / kMaxWalk;
-  return split_k(P, K, N, grid / tiles > walk ? grid / tiles : walk, tc::kBK);
 }
 
 struct Plan {
@@ -173,24 +274,24 @@ struct Plan {
   size_t h1, h2, v, part, total;  // workspace offsets and size, in floats
 };
 
-// vec: the kVec instantiation of the BT kernel (the instantiations have
-// the same plan but may hold different grids); wcut: the F(2,3) mid's cut
-// (read when wino), which must fit (wino_tf32.cuh::cut_fits).
-template <class BT>
-int make_plan(int N, int H, int W, int Cio, int Cmid, int wino, wtc::Cut wcut, bool vec,
-              Plan* pl) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cio <= 0 || Cmid <= 0)
+// The host's plan: `grid` blocks; phases[0..5] the (splits, chunk) of the
+// reduce, the direct mid (read when !wino) and the expand; wcut the F(2,3)
+// mid's cut (read when wino), which must fit (wino_tf32.cuh::cut_fits).
+int make_plan(int N, int H, int W, int Cio, int Cmid, int wino, wtc::Cut wcut, int grid,
+              const int* phases, Plan* pl) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cio <= 0 || Cmid <= 0 || grid <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   pl->wconv = wtc::make_conv<2>(N, H, W, Cmid, Cmid);
   pl->wcut = wcut;
   if (wino && !wtc::cut_fits(pl->wconv, wcut)) return static_cast<int>(cudaErrorInvalidValue);
-  pl->grid = grid_size<BT>(vec);
-  if (pl->grid <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  pl->grid = grid;
   const int P = N * H * W;
-  pl->reduce = tf32_phase(P, Cio, Cmid, pl->grid);
-  pl->mid = wino ? split_k(P, 9 * Cmid, Cmid, 1, tc::kBK)
-               : tf32_phase(P, 9 * Cmid, Cmid, pl->grid);
-  pl->expand = tf32_phase(P, Cmid, Cio, pl->grid);
+  pl->reduce = wt::GemmPhase{P, Cio, Cmid, phases[0], phases[1]};
+  pl->mid = wino ? wt::GemmPhase{P, 9 * Cmid, Cmid, 1, 9 * Cmid}
+                 : wt::GemmPhase{P, 9 * Cmid, Cmid, phases[2], phases[3]};
+  pl->expand = wt::GemmPhase{P, Cmid, Cio, phases[4], phases[5]};
+  if (!sk::phase_fits(pl->reduce) || !sk::phase_fits(pl->mid) || !sk::phase_fits(pl->expand))
+    return static_cast<int>(cudaErrorInvalidValue);
   size_t part = phase_partial_floats(pl->reduce);
   if (phase_partial_floats(pl->expand) > part) part = phase_partial_floats(pl->expand);
   const size_t mid = wino ? wtc::part_floats(pl->wconv, 16, pl->wcut)
@@ -207,59 +308,88 @@ int make_plan(int N, int H, int W, int Cio, int Cmid, int wino, wtc::Cut wcut, b
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 template <class BT>
-int workspace(int N, int H, int W, int Cio, int Cmid, int wino, int wsplits, int wchunk,
-              long long* floats) {
-  long long most = 0;
-  for (const bool vec : {true, false}) {
-    Plan pl;
-    const int err = make_plan<BT>(N, H, W, Cio, Cmid, wino, wtc::Cut{wsplits, wchunk}, vec, &pl);
-    if (err != 0) return err;
-    if (static_cast<long long>(pl.total) > most) most = static_cast<long long>(pl.total);
-  }
-  *floats = most;
-  return 0;
-}
-
-template <class BT>
 int stage(const float* x, const BT* wr, const float* s1, const float* b1, const BT* wm,
           const float* s2, const float* b2, const BT* we, const float* s3, const float* b3,
           float* out, float* ws, long long ws_floats, int N, int H, int W, int Cio, int Cmid,
-          int B, int wino, int wsplits, int wchunk, void* stream) {
+          int B, int wino, int wsplits, int wchunk, int grid, const int* phases,
+          void* stream) {
   if (B <= 0) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kVecChannels = std::is_same_v<BT, float> ? 4 : 8;
   const bool vec = Cio % kVecChannels == 0 && Cmid % kVecChannels == 0 && aligned16(x) &&
                    aligned16(out) && aligned16(wr) && aligned16(wm) && aligned16(we) &&
                    aligned16(ws);
   Plan pl;
-  const int err = make_plan<BT>(N, H, W, Cio, Cmid, wino, wtc::Cut{wsplits, wchunk}, vec, &pl);
+  int err = make_plan(N, H, W, Cio, Cmid, wino, wtc::Cut{wsplits, wchunk}, grid, phases, &pl);
   if (err != 0) return err;
-  if (ws_floats < static_cast<long long>(pl.total))
+  const int resident = resident_blocks<BT>(vec);
+  if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (grid > resident || ws_floats < static_cast<long long>(pl.total))
     return static_cast<int>(cudaErrorInvalidValue);
+  StageArgs<BT> a{};
+  if (vec) {
+    cudaError_t e = wg::encode_weights(&a.map_r, wr, B, Cio, Cmid);
+    if (e == cudaSuccess && !wino) e = wg::encode_weights(&a.map_m, wm, B, 9 * Cmid, Cmid);
+    if (e == cudaSuccess) e = wg::encode_weights(&a.map_e, we, B, Cmid, Cio);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const auto s = static_cast<cudaStream_t>(stream);
   unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
   cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  StageArgs<BT> a{x,  out, wr, s1, b1, wm, s2, b2, we, s3, b3,
-                  ws + pl.h1, ws + pl.h2, ws + pl.v, ws + pl.part, bar,
-                  N,  H,   W,  Cio, Cmid, B, wino, pl.reduce, pl.mid, pl.expand, pl.wconv, pl.wcut};
+  a.x = x;
+  a.out = out;
+  a.wr = wr;
+  a.s1 = s1;
+  a.b1 = b1;
+  a.wm = wm;
+  a.s2 = s2;
+  a.b2 = b2;
+  a.we = we;
+  a.s3 = s3;
+  a.b3 = b3;
+  a.h1 = ws + pl.h1;
+  a.h2 = ws + pl.h2;
+  a.v = ws + pl.v;
+  a.part = ws + pl.part;
+  a.bar = bar;
+  a.N = N;
+  a.H = H;
+  a.W = W;
+  a.Cio = Cio;
+  a.Cmid = Cmid;
+  a.B = B;
+  a.wino = wino;
+  a.reduce = pl.reduce;
+  a.mid = pl.mid;
+  a.expand = pl.expand;
+  a.wconv = pl.wconv;
+  a.wcut = pl.wcut;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(kernel_of<BT>(vec), dim3(pl.grid), dim3(tc::kThreads), args,
-                                  wt::kTileSmemBytes<BT>, s);
+  e = cudaLaunchCooperativeKernel(kernel_of<BT>(vec), dim3(pl.grid), dim3(wg::kThreads), args,
+                                  kSmem<BT>, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Floats of workspace resnet_stage (bf16w = 0) or resnet_stage_bf16w (1)
-// needs for this shape and F(2,3) cut (wsplits Cin ranges of wchunk) on
-// the current device (into *floats); returns a CUDA error code. A kernel's
-// two instantiations' plans differ at most in their grid, so the larger
-// workspace is given.
+// Blocks an SM the kernel's cooperative grid takes at most (the host's plan,
+// kernels/stage.py::STAGE_BLOCKS_PER_SM, checks against it).
+extern "C" int resnet_stage_blocks_per_sm() { return kMaxBlocksPerSm; }
+
+// Floats of workspace resnet_stage (and resnet_stage_bf16w) needs for this
+// shape, F(2,3) cut (wsplits Cin ranges of wchunk) and plan (grid blocks,
+// phases[0..5] the reduce's, the direct mid's and the expand's splits and
+// chunk), into *floats; returns a CUDA error code.
 extern "C" int resnet_stage_workspace(int N, int H, int W, int Cio, int Cmid, int wino,
-                                      int wsplits, int wchunk, int bf16w, long long* floats) {
-  return bf16w ? workspace<__nv_bfloat16>(N, H, W, Cio, Cmid, wino, wsplits, wchunk, floats)
-               : workspace<float>(N, H, W, Cio, Cmid, wino, wsplits, wchunk, floats);
+                                      int wsplits, int wchunk, int grid, const int* phases,
+                                      long long* floats) {
+  Plan pl;
+  const int err =
+      make_plan(N, H, W, Cio, Cmid, wino, wtc::Cut{wsplits, wchunk}, grid, phases, &pl);
+  if (err != 0) return err;
+  *floats = static_cast<long long>(pl.total);
+  return 0;
 }
 
 extern "C" int resnet_stage(const float* x, const float* wr, const float* s1,
@@ -267,10 +397,10 @@ extern "C" int resnet_stage(const float* x, const float* wr, const float* s1,
                             const float* b2, const float* we, const float* s3,
                             const float* b3, float* out, float* ws,
                             long long ws_floats, int N, int H, int W, int Cio,
-                            int Cmid, int B, int wino, int wsplits, int wchunk,
-                            void* stream) {
+                            int Cmid, int B, int wino, int wsplits, int wchunk, int grid,
+                            const int* phases, void* stream) {
   return stage(x, wr, s1, b1, wm, s2, b2, we, s3, b3, out, ws, ws_floats, N, H, W, Cio, Cmid, B,
-               wino, wsplits, wchunk, stream);
+               wino, wsplits, wchunk, grid, phases, stream);
 }
 
 // The bf16w tier: wr, wm and we bf16, the rest as resnet_stage.
@@ -279,7 +409,8 @@ extern "C" int resnet_stage_bf16w(const float* x, const __nv_bfloat16* wr, const
                                   const float* b2, const __nv_bfloat16* we, const float* s3,
                                   const float* b3, float* out, float* ws, long long ws_floats,
                                   int N, int H, int W, int Cio, int Cmid, int B, int wino,
-                                  int wsplits, int wchunk, void* stream) {
+                                  int wsplits, int wchunk, int grid, const int* phases,
+                                  void* stream) {
   return stage(x, wr, s1, b1, wm, s2, b2, we, s3, b3, out, ws, ws_floats, N, H, W, Cio, Cmid, B,
-               wino, wsplits, wchunk, stream);
+               wino, wsplits, wchunk, grid, phases, stream);
 }

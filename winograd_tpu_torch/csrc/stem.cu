@@ -272,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, 2) stem_kernel(
           const float conv = static_cast<float>(acc[i][j][2 * h + e]);
           cs[m * kLdC + c] =
               live && c0 + c < C
-                  ? fmaxf(__fadd_rn(__fmul_rn(conv, scale[c0 + c]), bias[c0 + c]), 0.f)
+                  ? wt::relu(__fadd_rn(__fmul_rn(conv, scale[c0 + c]), bias[c0 + c]))
                   : 0.f;
         }
     }
@@ -291,7 +291,7 @@ __global__ void __launch_bounds__(kThreads, 2) stem_kernel(
     for (int dr = 0; dr < 3; ++dr)
 #pragma unroll
       for (int dc = 0; dc < 3; ++dc)
-        mx = fmaxf(mx, cs[((2 * ly + dr) * kCC + 2 * lx + dc) * kLdC + c]);
+        mx = wt::max_nan(mx, cs[((2 * ly + dr) * kCC + 2 * lx + dc) * kLdC + c]);
     out[(static_cast<size_t>(n * po + py) * qo + px) * C + c0 + c] = mx;
   }
 }

@@ -105,7 +105,7 @@ struct BiasReluEpilogue {
   float* out;
   int N;
   __device__ __forceinline__ void operator()(int p, int n, float acc) const {
-    out[static_cast<size_t>(p) * N + n] = fmaxf(acc + bias[n], 0.f);
+    out[static_cast<size_t>(p) * N + n] = wt::relu(acc + bias[n]);
   }
 };
 

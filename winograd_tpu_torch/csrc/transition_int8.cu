@@ -109,7 +109,7 @@ __device__ __forceinline__ void dual_epilogue(const TransitionInt8Args& a, int p
                                               int a1, float sh, int a2, float sxs) {
   const float h3 = wt::bn_rn(wt::dequant(a1, sh, a.swe[n]), a.s3[n], a.b3[n]);
   const float sk = wt::bn_rn(wt::dequant(a2, sxs, a.swp[n]), a.sp[n], a.bp[n]);
-  a.out[static_cast<size_t>(p) * a.Cout + n] = fmaxf(__fadd_rn(h3, sk), 0.f);
+  a.out[static_cast<size_t>(p) * a.Cout + n] = wt::relu(__fadd_rn(h3, sk));
 }
 
 // Phase 4's gather: x[:, ::2, ::2]'s quantized rows and scales from x's.

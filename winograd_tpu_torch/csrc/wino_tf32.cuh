@@ -152,7 +152,7 @@ __device__ __forceinline__ void inverse(const Conv& cv, int splits, const float*
       for (int oj = 0; oj < M; ++oj)
         if (oy0 + oi < cv.H && ox0 + oj < cv.W) {
           float val = y[oi][oj] * s + b;
-          if (relu) val = fmaxf(val, 0.f);
+          if (relu) val = wt::relu(val);
           out[(static_cast<size_t>(n * cv.H + oy0 + oi) * cv.W + ox0 + oj) * cv.Cout + co] = val;
         }
   }

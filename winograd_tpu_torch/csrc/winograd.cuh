@@ -38,6 +38,8 @@
 
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace wt {
 
 constexpr int kWinoTX = 16;  // output-channel groups per item
@@ -239,7 +241,7 @@ __device__ __forceinline__ void wino_tile(
         const int ox = ox0 + oj;
         if (oy < H && ox < W) {
           float val = __fadd_rn(__fmul_rn(static_cast<float>(y[oi][oj]), s), b);
-          if (relu) val = fmaxf(val, 0.f);
+          if (relu) val = wt::relu(val);
           out[(static_cast<size_t>(n * H + oy) * W + ox) * Cout + co] = val;
         }
       }

@@ -403,7 +403,7 @@ __device__ __forceinline__ void inverse(const Args& a, int t, int co, const floa
       const int oy = oy0 + oi, ox = ox0 + oj;
       if (oy < a.H && ox < a.W) {
         float val = wt::bn_rn(static_cast<float>(y[oi][oj]), s, b);
-        if (a.relu) val = fmaxf(val, 0.f);
+        if (a.relu) val = wt::relu(val);
         a.out[(static_cast<size_t>(n * a.H + oy) * a.W + ox) * a.Cout + co] = val;
       }
     }

@@ -36,6 +36,11 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# Every library links libcuda (libcuda.so.1, loaded by PyTorch already):
+# csrc/wgmma_tile.cuh encodes its TMA tensor maps through its
+# cuTensorMapEncodeTiled. The toolkit's stub libcuda.so stands in for it at
+# link time.
+LINK_FLAGS = ("-lcuda",)
 
 # Launches per kernel, counted by launch() once the kernel was accepted, and
 # per kernel the launches of each argument shape its wrapper reports. A
@@ -56,8 +61,16 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _stub_dirs(nvcc: str) -> list:
+    """The toolkit's directories of link-time stubs (libcuda.so) that
+    exist, next to nvcc's."""
+    root = pathlib.Path(nvcc).resolve().parent.parent
+    dirs = (root / "lib64" / "stubs", root / "targets" / "x86_64-linux" / "lib" / "stubs")
+    return [str(d) for d in dirs if d.is_dir()]
+
+
 def _library_path(name: str) -> pathlib.Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
@@ -73,7 +86,9 @@ def _start_build(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+    nvcc = _nvcc()
+    stubs = [f"-L{d}" for d in _stub_dirs(nvcc)]
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu"), *stubs, *LINK_FLAGS]
     proc = subprocess.Popen(
         cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )

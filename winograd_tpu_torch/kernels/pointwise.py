@@ -1,8 +1,9 @@
 """Fused 1x1 conv + folded BN (+ReLU): the pointwise kernel and its plain twin.
 
 Port of winograd_tpu/kernels/pointwise.py::conv1x1_bn_pallas. The CUDA
-kernel is csrc/pointwise.cu: 3xTF32 tensor-core tiles, or a GEMV at a few
-rows, with K split over blocks by split_plan.
+kernel is csrc/pointwise.cu: 3xTF32 wgmma tiles (csrc/wgmma_tile.cuh), the
+K splits of a tile one thread-block cluster, or a GEMV at a few rows, with
+K split over blocks by split_plan.
 
 A bfloat16 weight selects the bf16w tier (the JAX op at precision="bf16w"):
 the f32 activation is split into two bf16 halves and each is multiplied by
@@ -22,16 +23,20 @@ from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.splitk import H100_SMS, split_k
 
 # The plan of a csrc/pointwise.cu launch. The kernel's geometry, which its
-# C entry checks every plan against (kGemvMaxP, kGemvCols, tc::kBM,
-# kSplitStep; tests/test_torch_splitk.py reads them from the sources): rows
+# C entry checks every plan against (kGemvMaxP, kGemvCols, wg::kBM, wg::kBK,
+# kClusterMax; tests/test_torch_splitk.py reads them from the sources): rows
 # at or below GEMV_MAX_ROWS take the GEMV (blocks of GEMV_COLS columns);
-# above, MMA_TILE x MMA_TILE tiles. The plan's own rule: K is split until
-# tiles x splits reach about one block an SM, in multiples of SPLIT_STEP
-# (the MMA tile's cp.async stage) at least MIN_CHUNK long, and not below
-# MMA_SPLIT_MIN_K, where a split costs more (workspace, counter, reduction)
-# than it saves; the tile counters' room is rounded up to COUNTER_WORDS.
-# The split rule was tuned on the served shapes by tools/chip_split_sweep.py
-# (PERF.md).
+# above, MMA_TILE x MMA_TILE tiles. The GEMV's rule: K is split until
+# tiles x splits reach about one block an SM, in multiples of SPLIT_STEP at
+# least MIN_CHUNK long; its splits meet in a workspace, its tile counters'
+# room rounded up to COUNTER_WORDS. The MMA path's rule: K is split until
+# tiles x splits reach about MMA_BLOCKS_PER_SM blocks an SM (two of its
+# blocks fit an SM), in ranges of at least SPLIT_STEP (the tile's stage),
+# at most CLUSTER_MAX, since the splits of a tile are the blocks of one
+# portable cluster and meet in its shared memory (no workspace). Both rules
+# were tuned on the served shapes by tools/chip_split_sweep.py (PERF.md).
+# MMA_SPLIT_MIN_K is csrc/direct.cu's rule (kernels/direct.py), which still
+# splits on the mma.sync tile through device memory.
 GEMV_MAX_ROWS = 8
 GEMV_COLS = 128
 MMA_TILE = 64
@@ -39,6 +44,8 @@ SPLIT_STEP = 32
 MMA_SPLIT_MIN_K = 256
 MIN_CHUNK = 64
 COUNTER_WORDS = 64
+CLUSTER_MAX = 8
+MMA_BLOCKS_PER_SM = 2
 
 
 class Plan(NamedTuple):
@@ -56,21 +63,34 @@ class Plan(NamedTuple):
         return 0 if self.splits == 1 else -(-self.tiles // COUNTER_WORDS) * COUNTER_WORDS
 
     def workspace_words(self, p: int, n: int) -> int:
-        """4-byte words of workspace: the tile counters, then splits x P x N
-        partial sums; none at one split."""
+        """4-byte words of workspace where the splits meet in device memory
+        (the GEMV, csrc/direct.cu): the tile counters, then splits x P x N
+        partial sums; none at one split. csrc/pointwise.cu's MMA path takes
+        none (pointwise_workspace_words)."""
         return 0 if self.splits == 1 else self.counter_words() + self.splits * p * n
+
+
+def pointwise_workspace_words(plan: Plan, p: int, n: int) -> int:
+    """The workspace a csrc/pointwise.cu launch of `plan` takes: the GEMV's
+    (Plan.workspace_words); none on the MMA path, whose splits of a tile are
+    one cluster and meet in its shared memory."""
+    return plan.workspace_words(p, n) if plan.gemv else 0
 
 
 def split_plan(p: int, k: int, n: int, sms: int = H100_SMS) -> Plan:
     """The path, the output tiles and the K split of a (p, k) x (k, n)
-    product on a card with `sms` SMs."""
+    product on a card with `sms` SMs (at most CLUSTER_MAX splits on the MMA
+    path)."""
     gemv = p <= GEMV_MAX_ROWS
     if gemv:
         tile, tiles = GEMV_COLS, -(-n // GEMV_COLS)
     else:
         tile, tiles = MMA_TILE, -(-p // MMA_TILE) * -(-n // MMA_TILE)
-    want = sms // tiles if gemv or k >= MMA_SPLIT_MIN_K else 1
-    split = split_k(k, want, SPLIT_STEP, MIN_CHUNK)
+    if gemv:
+        split = split_k(k, sms // tiles, SPLIT_STEP, MIN_CHUNK)
+    else:
+        split = split_k(k, min(MMA_BLOCKS_PER_SM * sms // tiles, CLUSTER_MAX), SPLIT_STEP,
+                        SPLIT_STEP)
     return Plan(gemv, tile, tiles, split.splits, split.chunk)
 
 
@@ -133,7 +153,7 @@ def conv1x1_bn_planned(x, w, scale, bias, relu: bool, plan: Plan) -> torch.Tenso
     "pointwise_bf16w". Operands as conv1x1_bn checks them."""
     cin, cout = w.shape
     p = x.numel() // cin
-    words = plan.workspace_words(p, cout)
+    words = pointwise_workspace_words(plan, p, cout)
     ws = torch.empty(words, device=x.device, dtype=torch.float32) if words else None
     out = torch.empty(*x.shape[:-1], cout, device=x.device, dtype=torch.float32)
     c = _build.cint
@@ -143,7 +163,8 @@ def conv1x1_bn_planned(x, w, scale, bias, relu: bool, plan: Plan) -> torch.Tenso
         (p, cin, cout, bool(relu)), x.device,
         _build.ptr(x), _build.ptr(w), _build.ptr(scale), _build.ptr(bias),
         _build.ptr(out), _build.ptr(ws) if ws is not None else ctypes.c_void_p(0),
-        ctypes.c_longlong(words), ctypes.c_longlong(plan.counter_words()), c(p), c(cin),
+        ctypes.c_longlong(words), ctypes.c_longlong(plan.counter_words() if words else 0),
+        c(p), c(cin),
         c(cout), c(relu), c(plan.gemv), c(plan.tile), c(plan.splits), c(plan.chunk),
         counter="pointwise_bf16w" if bf16w else None,
     )

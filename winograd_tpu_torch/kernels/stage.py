@@ -3,9 +3,10 @@
 Port of winograd_tpu/kernels/stage.py::resnet_stage_fused_pallas (both its
 kernels, _stage_kernel and _stage_kernel_resident). The CUDA kernel is
 csrc/stage.cu, a persistent kernel whose phases (reduce GEMM, 3x3, expand
-GEMM + residual + ReLU) run over all N*H*W rows, one grid barrier apart;
-the plain twin runs the same chain block by block with the plain versions
-of the per-layer kernels.
+GEMM + residual + ReLU) run over all N*H*W rows, one grid barrier apart,
+its GEMM phases on csrc/wgmma_tile.cuh's tiles; its grid and every GEMM
+phase's K split are stage_plan's. The plain twin runs the same chain block
+by block with the plain versions of the per-layer kernels.
 
 bfloat16 weights (w_reduce, the mid's w9_mid or u2_mid, w_expand; BN stays
 float32) select the bf16w tier, the JAX kernel at precision="bf16w": the
@@ -18,13 +19,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List
+from typing import Dict, List, NamedTuple
 
 import torch
 
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.direct import conv3x3_bn_direct_plain
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn_plain
+from winograd_tpu_torch.kernels.splitk import H100_SMS, Split
 from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd_plain, winograd_plan
 
 # Stride-1 3x3s on maps of at least this many pixels run Winograd F(2,3);
@@ -85,16 +87,81 @@ def resnet_stage_fused_plain(x, stacked: Dict, mid_algo: str = "auto") -> torch.
     return x
 
 
+# The plan of a csrc/stage.cu launch. The kernel's geometry, which its C
+# entry checks every plan against (kMaxBlocksPerSm, wg::kBM, wg::kBN, wg::kBK;
+# tests/test_torch_stage_plan.py reads them from the sources):
+# a cooperative grid of at most STAGE_BLOCKS_PER_SM blocks an SM, 64 x 64
+# output tiles, K splits each a multiple of STAGE_STEP but the last. The
+# plan's own rule, per GEMM phase: about one work item (tile, split) a
+# block, and K cut further until no item walks more than STAGE_MAX_WALK of
+# it while the phase's tiles leave blocks idle, or STAGE_FULL_WALK once they
+# fill the grid; at least STAGE_MIN_CHUNK of K a split and at most
+# STAGE_MAX_SPLITS splits (their partial sums cross device memory behind a
+# grid barrier). Re-derived for the wgmma tile by tools/chip_split_sweep.py
+# at N = 1, 8 and 32 (PERF.md).
+STAGE_BLOCKS_PER_SM = 2
+STAGE_TILE = 64
+STAGE_STEP = 32
+STAGE_MIN_CHUNK = 128
+STAGE_MAX_SPLITS = 16
+STAGE_MAX_WALK = 512
+STAGE_FULL_WALK = 2048
+
+
+class StagePlan(NamedTuple):
+    """How csrc/stage.cu runs one stage: its grid and the K split of each
+    GEMM phase (the mid's is unused under the F(2,3) mid, which takes the
+    per-layer Winograd's Cin cut)."""
+
+    grid: int
+    reduce: Split
+    mid: Split
+    expand: Split
+
+    def phases(self) -> tuple:
+        """The six integers the C entry takes: each phase's splits, chunk."""
+        return (*self.reduce, *self.mid, *self.expand)
+
+
+def stage_phase(p: int, k: int, n: int, grid: int, max_walk: int = STAGE_MAX_WALK,
+                full_walk: int = STAGE_FULL_WALK) -> Split:
+    """The K split of a (p, k) x (k, n) GEMM phase on a grid of `grid`
+    blocks: about one item a block, no item walking more than max_walk of K
+    (full_walk once the tiles fill the grid), splits at least
+    STAGE_MIN_CHUNK long and a multiple of STAGE_STEP but the last, at most
+    STAGE_MAX_SPLITS."""
+    tiles = -(-p // STAGE_TILE) * -(-n // STAGE_TILE)
+    walk = max_walk if tiles < grid else full_walk
+    want = max(grid // tiles, -(-k // walk))
+    splits = min(want, k // STAGE_MIN_CHUNK, STAGE_MAX_SPLITS)
+    if splits < 2:
+        return Split(1, k)
+    chunk = -(-k // splits)
+    chunk = -(-chunk // STAGE_STEP) * STAGE_STEP
+    return Split(-(-k // chunk), chunk)
+
+
+def stage_plan(n: int, h: int, w: int, cio: int, cmid: int, sms: int = H100_SMS,
+               max_walk: int = STAGE_MAX_WALK, full_walk: int = STAGE_FULL_WALK) -> StagePlan:
+    """The grid and the reduce, direct-mid and expand splits of a stage over
+    (n, h, w, cio) with cmid bottleneck channels on a card with `sms` SMs."""
+    grid = STAGE_BLOCKS_PER_SM * sms
+    p = n * h * w
+    return StagePlan(grid, stage_phase(p, cio, cmid, grid, max_walk, full_walk),
+                     stage_phase(p, 9 * cmid, cmid, grid, max_walk, full_walk),
+                     stage_phase(p, cmid, cio, grid, max_walk, full_walk))
+
+
 @functools.lru_cache(maxsize=None)
-def _workspace_floats(device_index: int, n, h, w, cio, cmid, wino, splits, chunk,
-                      bf16w: bool = False) -> int:
+def _workspace_floats(device_index: int, n, h, w, cio, cmid, wino, splits, chunk, grid,
+                      phases: tuple) -> int:
     lib = _build.library("stage")
     floats = ctypes.c_longlong(0)
     c = _build.cint
     with torch.cuda.device(device_index):
         err = lib.resnet_stage_workspace(
-            c(n), c(h), c(w), c(cio), c(cmid), c(wino), c(splits), c(chunk), c(bf16w),
-            ctypes.byref(floats))
+            c(n), c(h), c(w), c(cio), c(cmid), c(wino), c(splits), c(chunk), c(grid),
+            (ctypes.c_int * 6)(*phases), ctypes.byref(floats))
     _build.check_error(lib, "resnet_stage_workspace", err)
     return floats.value
 
@@ -143,20 +210,42 @@ def resnet_stage_fused(x, stacked: Dict, mid_algo: str = "auto",
         _build.check_tensors(x, *(stacked[k] for k in keys if k not in weight_keys))
     else:
         _build.check_tensors(*ops)
+    out = _launch(x, ops, wino, bf16w,
+                  stage_plan(n, h, w, cio, cmid, _build.sm_count(x.device)))
+    return out[0] if squeeze else out
+
+
+def resnet_stage_fused_planned(x, stacked: Dict, mid_algo: str, plan: StagePlan):
+    """resnet_stage_fused's launch on CUDA tensors (N, H, W, Cio) under an
+    explicit plan (the wrapper passes stage_plan's; tools/chip_split_sweep.py
+    times others); mid_algo "direct" or "winograd2", operands as the wrapper
+    checks them."""
+    wino = resolve_mid_algo(mid_algo, stacked, x.shape[1], x.shape[2]) == "winograd2"
+    keys = ("w_reduce", "s_reduce", "b_reduce", "u2_mid" if wino else "w9_mid", "s_mid",
+            "b_mid", "w_expand", "s_expand", "b_expand")
+    return _launch(x, [x] + [stacked[k] for k in keys], wino,
+                   stacked["w_reduce"].dtype == torch.bfloat16, plan)
+
+
+def _launch(x, ops, wino: bool, bf16w: bool, plan: StagePlan):
+    n, h, w, cio = x.shape
+    nb, _, cmid = ops[1].shape
     # The F(2,3) mid's Cin split: the per-layer Winograd's plan for Cmid
     # (the kernel's grid is as many blocks an SM as that plan's).
     cut = winograd_plan(n, h, w, cmid, cmid, 2, _build.sm_count(x.device))
+    phases = plan.phases()
     floats = _workspace_floats(x.device.index, n, h, w, cio, cmid, int(wino), cut.splits,
-                               cut.chunk, bf16w=bf16w)
+                               cut.chunk, plan.grid, phases)
     ws = torch.empty(floats, device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     c = _build.cint
     _build.launch(
         "stage", "resnet_stage_bf16w" if bf16w else "resnet_stage",
-        (n, h, w, cio, cmid, nb, mid_algo), x.device,
+        (n, h, w, cio, cmid, nb, "winograd2" if wino else "direct"), x.device,
         *map(_build.ptr, ops), _build.ptr(out),
         _build.ptr(ws), ctypes.c_longlong(floats),
         c(n), c(h), c(w), c(cio), c(cmid), c(nb), c(wino), c(cut.splits), c(cut.chunk),
+        c(plan.grid), (ctypes.c_int * 6)(*phases),
         counter="stage_bf16w" if bf16w else None,
     )
-    return out[0] if squeeze else out
+    return out

@@ -121,6 +121,25 @@ def winograd_matrices(m: int, dtype: torch.dtype, device: torch.device):
             torch.as_tensor(at, dtype=dtype, device=device))
 
 
+def _apply_const(mat, t: torch.Tensor, dim: int) -> torch.Tensor:
+    """out[p] = sum_q mat[p][q] * t[q] along `dim`, in q order over mat's
+    nonzero entries only (+-1 as adds and subtracts): a zero coefficient
+    never meets a value, so a NaN reaches just the outputs that read it, as
+    in the JAX kernels' constant-matrix transforms (winograd_tpu/kernels/
+    winograd.py::_apply_const_matrix) and csrc's sandwich."""
+    rows = []
+    for coeffs in mat:
+        acc = None
+        for q, c in enumerate(coeffs):
+            if c == 0.0:
+                continue
+            term = t.select(dim, q)
+            term = term if c == 1.0 else -term if c == -1.0 else term * c
+            acc = term if acc is None else acc + term
+        rows.append(acc)
+    return torch.stack(rows, dim=dim)
+
+
 def _position_products(v: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """M[q] = V[q] U[q] at every tile position q; v: (n, th, tw, a^2, cin).
     A bfloat16 u takes the bf16w tier's products (pointwise.py::
@@ -149,14 +168,16 @@ def conv3x3_bn_winograd_plain(x, u, scale, bias, relu: bool = True) -> torch.Ten
     n, h, w, cin = x.shape
     cout = u.shape[2]
     th, tw = -(-h // m), -(-w // m)
-    bt, at = winograd_matrices(m, x.dtype, x.device)
+    bt, _, at = (mat.tolist() for mat in transforms.matrices(m))
     # Zero pad 1 on the left/top, and on the right/bottom up to m*t + 2.
     xp = F.pad(x, (0, 0, 1, m * tw + 1 - w, 1, m * th + 1 - h))
     d = xp.unfold(1, a, m).unfold(2, a, m)              # (n, th, tw, cin, a, a)
-    v = torch.einsum("ik,nyxckl,jl->nyxijc", bt, d, bt)  # Bt d Bt^T
+    v = _apply_const(bt, _apply_const(bt, d, -2), -1)   # Bt d Bt^T: (n, th, tw, cin, a, a)
+    v = v.permute(0, 1, 2, 4, 5, 3)
     mm = _position_products(v.reshape(n, th, tw, a * a, cin), u)
     mm = mm.reshape(n, th, tw, a, a, cout)
-    y = torch.einsum("pi,nyxijo,qj->nypxqo", at, mm, at)  # At M At^T
+    y = _apply_const(at, _apply_const(at, mm, 3), 4)     # At M At^T: (n, th, tw, m, m, cout)
+    y = y.permute(0, 1, 3, 2, 4, 5)
     y = y.reshape(n, th * m, tw * m, cout)[:, :h, :w]
     y = y * scale + bias
     return torch.relu(y) if relu else y
