@@ -296,7 +296,9 @@ Phases, each of which must pass (exit 1 otherwise):
    counted run, both models and all tiers, ResNet-101 and ResNet-152 and
    the N=32 requests, and per-step sums over the training phases' shapes;
    the stem row sums its f32 and bf16 shapes, the Winograd row its f32 and
-   bf16-filter shapes; the bf16w instantiations
+   bf16-filter shapes, and its "routes" each apart: "tensor_cores" the f32
+   shapes, "fp64" the int8 tier's bf16-filter ones (their launches an
+   image, ms, plain, library and bound ms); the bf16w instantiations
    and the stem's prepared-input entry are rows of their own,
    "<kernel>_bf16w", "stem_pre", their source the kernel's file;
    "launches" the wrappers' launches in the counted runs, the warm-up and
@@ -2043,6 +2045,9 @@ def main() -> int:
         "basic_stage": lambda n, h, w, c, nb: bs.basic_stage_plan(n, h, w, c, sms).conv.splits,
         "stage": lambda n, h, w, cio, cmid, nb, mid: [
             sp.splits for sp in stage_plan(n, h, w, cio, cmid, sms)[1:]],
+        "stage_int8": lambda n, h, w, cio, cmid, nb, mid: [
+            sp.splits for sp in q8.stage_int8_plan(
+                n, h, w, cio, cmid, mid, q8.expand_groups(cmid, mid), sms)[1:]],
     }
     for name in ("pointwise", "transition", "winograd", "direct", "basic_stage", "stage"):
         splits_of[f"{name}_bf16w"] = splits_of[name]
@@ -2071,6 +2076,9 @@ def main() -> int:
                 continue
             per_image[name].update({shape: c // passes for shape, c in counter.items()})
     totals = {}
+    # The Winograd's two routes, summed apart as well: the tensor cores
+    # (f32 and bf16w shapes) and the int8 tier's FP64 route ("bf16").
+    routes = collections.defaultdict(lambda: collections.defaultdict(float))
     rng = np.random.default_rng(0)
     for name in make_case:
         counter = per_image.get(name, collections.Counter())
@@ -2113,6 +2121,10 @@ def main() -> int:
                            ("library_ms", lib_ms or 0.0), ("ops_ms", ops_ms),
                            ("bytes_ms", bytes_ms), ("bound_ms", max(ops_ms, bytes_ms))):
                 tot[key] += n_img * v
+                if name == "winograd":
+                    routes["fp64" if shape[-1] == "bf16" else "tensor_cores"][key] += n_img * v
+            if name == "winograd":
+                routes["fp64" if shape[-1] == "bf16" else "tensor_cores"]["per_image"] += n_img
         tot["library_ok"] = lib_ok
         totals[name] = tot
 
@@ -2200,6 +2212,9 @@ def main() -> int:
             "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
             "library_ms": tot["library_ms"] if tot["library_ok"] else None,
+            **({"routes": {r: {k: v[k] for k in ("per_image", "ms", "plain_ms", "library_ms",
+                                                 "bound_ms")} for r, v in routes.items()}}
+               if name == "winograd" else {}),
         })
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -431,6 +431,40 @@ def test_stage_int8_equals_its_twin(dev, n, hw, cio, cmid, nb, mid):
     _equal(q8.resnet_stage_int8(x, stacked, mid), q8.resnet_stage_int8_plain(x, stacked, mid))
 
 
+# The served int8 stages at N=8 and N=32 too, every one of the four: the
+# s8 wgmma phases, each quantizing its rows from the maxima its producers
+# published, held to the bit.
+@pytest.mark.parametrize("n", [8, 32])
+@pytest.mark.parametrize("hw,cio,cmid,nb,mid", [
+    (56, 256, 64, 2, "winograd2"), (28, 512, 128, 3, "winograd2"),
+    (14, 1024, 256, 5, "direct"), (7, 2048, 512, 2, "direct"),
+])
+def test_stage_int8_served_shapes_in_batches(dev, n, hw, cio, cmid, nb, mid):
+    rng = np.random.default_rng(n + hw + cmid)
+    stacked = _qstacked(rng, dev, nb, cio, cmid)
+    x = _r(rng, dev, n, hw, hw, cio).abs()
+    _equal(q8.resnet_stage_int8(x, stacked, mid), q8.resnet_stage_int8_plain(x, stacked, mid))
+
+
+@pytest.mark.parametrize("mid,hw,cmid", [("direct", 14, 64), ("winograd2", 28, 64),
+                                         ("winograd2", 14, 256)])
+def test_stage_int8_keeps_a_nan_through_its_folded_quantize(dev, mid, hw, cmid):
+    """A NaN in x: the row maxima its producers publish (atomicMax on the
+    bits of |v|) carry it, so each row it reaches gets a NaN scale, as
+    torch.amax gives the plain version: NaN exactly where the plain
+    version has NaN (the grouped expand's groups too), equal elsewhere."""
+    rng = np.random.default_rng(hw + cmid)
+    stacked = _qstacked(rng, dev, 2, 256, cmid)
+    x = _r(rng, dev, 1, hw, hw, 256).abs()
+    x[0, 3, 4, 7] = float("nan")
+    out = q8.resnet_stage_int8(x, stacked, mid)
+    ref = q8.resnet_stage_int8_plain(x, stacked, mid)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    assert nan.any() and not nan.all() and torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], ref[~nan])
+
+
 # Every int8 entry at channel counts off the kernels' four-k words, which
 # the wrappers pad with zero channels: equal to the twins on the unpadded
 # operands.
@@ -805,7 +839,8 @@ def test_direct_int8_equals_its_twin(dev, n, h, w, cin, cout, relu):
 # and repeats to the bit.
 @pytest.mark.parametrize("n,h,w,cin,cout,m", [
     (1, 56, 56, 64, 64, 2), (1, 28, 28, 128, 128, 2), (1, 14, 14, 256, 256, 2),
-    (1, 14, 14, 128, 128, 4), (8, 56, 56, 64, 64, 2), (8, 14, 14, 256, 256, 2),
+    (1, 14, 14, 128, 128, 4), (8, 56, 56, 64, 64, 2), (8, 28, 28, 128, 128, 2),
+    (8, 14, 14, 256, 256, 2),
 ])
 def test_winograd_served_shapes(dev, n, h, w, cin, cout, m):
     rng = np.random.default_rng(n * h + cin + m)
@@ -976,6 +1011,28 @@ def test_transition_bf16w(dev, n, h, w, cin, cmid, cout):
     first = transition_block_fused(x, p)
     _agree(first, transition_block_fused_plain(x, p))
     assert torch.equal(first, transition_block_fused(x, p))
+
+
+# Both tensor-core routes of the Winograd (3xTF32 and bf16w wgmma) at the
+# served shapes at N=1 and N=8 against a float64 golden of the same
+# algebra (on the bf16-rounded U at bf16w): each stays under a tenth of the
+# 1e-4 bar, as the wgmma tiles' per-stage FP32 sums keep the drift down.
+@pytest.mark.parametrize("precision", ["f32", "bf16w"])
+@pytest.mark.parametrize("n", [1, 8])
+@pytest.mark.parametrize("hw,c", [(56, 64), (28, 128), (14, 256)])
+def test_winograd_tiles_drift_under_a_tenth_of_the_bar(dev, precision, n, hw, c):
+    rng = np.random.default_rng(hw + c + n)
+    x = _r(rng, dev, n, hw, hw, c)
+    wt = (rng.random((c, c, 3, 3)) - 0.5).astype(np.float32)
+    u = torch.as_tensor(transforms.transform_filter(wt, m=2), device=dev)
+    s, b = _bn(rng, dev, c)
+    if precision == "bf16w":
+        u = u.to(BF16)
+    out = conv3x3_bn_winograd(x, u, s, b, True, precision)
+    golden = conv3x3_bn_winograd_plain(x.double(), u.double(), s.double(), b.double())
+    torch.cuda.synchronize()
+    bar = 1e-4 * max(1.0, golden.abs().max().item())
+    assert (out.double() - golden).abs().max().item() <= 0.1 * bar
 
 
 # The served ResNet-34 3x3s at N=1 and N=8 (F(2,3) split Cin at 28x28x128

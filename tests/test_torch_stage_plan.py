@@ -121,13 +121,17 @@ def test_stage_runs_its_gemm_phases_on_the_wgmma_tile():
     """stage.cu's reduce, direct mid and expand are wgmma_tile.cuh's tiles
     (wgmma, TMA weight loads), its split step the tile's stage, the next
     phase's weights issued before the barrier; the F(2,3) mid stays on
-    wino_tf32.cuh; pointwise.cu's MMA path is the same tile, its splits one
-    cluster, with no memset before its launch."""
+    wino_tf32.cuh, its products on the same wgmma tile, the u2 filters by
+    TMA; pointwise.cu's MMA path is the same tile, its splits one cluster,
+    with no memset before its launch."""
     src = (CSRC / "stage.cu").read_text()
     assert '#include "wgmma_tile.cuh"' in src and "sk::gemm_phase" not in src
     assert "sk::kSplitStep == wg::kBK" in src and src.count("sk::phase_fits(") == 3
     assert src.count("phase_items<kVec>(") == 3 and src.count("prefetch_phase<kVec>(") == 3
     assert "wtc::phase<2, kVec, true>(" in src
+    assert "encode_weights(&a.map_u, wm, 16 * B, Cmid, Cmid)" in src
+    wino = (CSRC / "wino_tf32.cuh").read_text()
+    assert "wg::tile<kVec, true>(" in wino and "mma_tile<" not in wino
     tile = (CSRC / "wgmma_tile.cuh").read_text()
     for ptx in ("wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32",
                 "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16",

@@ -105,6 +105,9 @@ def _constexpr(source: str, name: str) -> int:
     (wg.WINOGRAD_TILE, "mma_tf32.cuh", "kBM"),
     (wg.WINOGRAD_TILE, "mma_tf32.cuh", "kBN"),
     (wg.WINOGRAD_STEP, "mma_tf32.cuh", "kBK"),
+    (wg.WINOGRAD_TILE, "wgmma_tile.cuh", "kBM"),
+    (wg.WINOGRAD_TILE, "wgmma_tile.cuh", "kBN"),
+    (wg.WINOGRAD_STEP, "wgmma_tile.cuh", "kBK"),
     (wg.WINOGRAD_BLOCKS_PER_SM, "stage.cu", "kMaxBlocksPerSm"),
 ])
 def test_winograd_plan_matches_the_kernels_geometry(value, source, name):

@@ -11,8 +11,8 @@ with kernels/_build.py's flags plus -Xptxas -v into a scratch library under
 build/ptxas/, all at once; then one JSON line per kernel entry
 ({"library", "kernel", "registers", "spill_stores", "spill_loads",
 "stack", "smem"}) and one per library counting its SASS instructions by
-opcode family ("HGMMA": wgmma, "HMMA" and "DMMA": mma.sync, "UTMALDG": TMA
-loads).
+opcode family ("HGMMA": floating-point wgmma, "IGMMA": integer wgmma, "HMMA",
+"IMMA" and "DMMA": mma.sync, "UTMALDG": TMA loads).
 """
 
 from __future__ import annotations
@@ -24,7 +24,7 @@ import subprocess
 import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-OPCODES = ("HGMMA", "HMMA", "IMMA", "DMMA", "UTMALDG", "UBLKCP")
+OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "DMMA", "UTMALDG", "UBLKCP")
 
 
 def main() -> int:
@@ -69,7 +69,7 @@ def main() -> int:
         sass = subprocess.run([str(cuobjdump), "-sass", str(out / f"lib{name}.so")],
                               capture_output=True, text=True).stdout
         counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in OPCODES}
-        hgmma = sorted({m.group(0) for m in re.finditer(r"HGMMA\.[A-Za-z0-9.]+", sass)})
+        hgmma = sorted({m.group(0) for m in re.finditer(r"[HI]GMMA\.[A-Za-z0-9.]+", sass)})
         print(json.dumps({"library": name, "sass": counts, "hgmma_forms": hgmma}), flush=True)
     return 0 if ok else 1
 

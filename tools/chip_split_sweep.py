@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
 """K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct.cu,
 csrc/direct_int8.cu, csrc/transition_int8.cu, csrc/pointwise_int8.cu,
-csrc/transition.cu, csrc/basic_stage.cu and csrc/basic_stage_int8.cu), of the f32 Winograd's
-work-item cut (csrc/winograd.cu), of the f32 and bf16w stage's plan
-(csrc/stage.cu) and of the int8 Winograd's grid (csrc/winograd_int8.cu) on
-one CUDA card, and an A/B of their wrappers (and of the int8 stage's,
-csrc/stage_int8.cu, and the stem's, csrc/stem.cu) against another checkout.
-pointwise and stage run at f32 and, as pointwise_bf16w and stage_bf16w, on
-bf16 weights.
+csrc/transition.cu, csrc/basic_stage.cu and csrc/basic_stage_int8.cu), of the f32 and bf16w
+Winograd's work-item cut (csrc/winograd.cu), of the f32 and bf16w stage's plan
+(csrc/stage.cu), of the int8 stage's (csrc/stage_int8.cu) and of the int8
+Winograd's grid (csrc/winograd_int8.cu) on one CUDA card, and an A/B of
+their wrappers (and of the stem's, csrc/stem.cu) against another checkout.
+pointwise, winograd and stage run at f32 and, as pointwise_bf16w,
+winograd_bf16w (F(2,3)) and stage_bf16w, on bf16 weights.
 
     python3 tools/chip_split_sweep.py [--only NAME,...]    # the sweep
     python3 tools/chip_split_sweep.py --ab DIR [--only ...] # the A/B against DIR
@@ -28,7 +28,9 @@ The sweep times each shape under the K split its wrapper's plan picks
 ("chosen") and under the splits that kernels/splitk.py::split_k gives for
 1, 2, 4, ..., 32 wanted ranges (at most pointwise.py::CLUSTER_MAX on the
 pointwise MMA path); the stage under its plan, under stage.py::stage_plan's
-rule at each walk cap of STAGE_WALKS, and on a grid of one block an SM; the f32 Winograd under its plan and under
+rule at each walk cap of STAGE_WALKS, and on a grid of one block an SM; the
+int8 stage under its plan and under quantized.py::stage_int8_plan's walk
+caps (STAGE_INT8_WALKS); the f32 and bf16w Winograd under its plan and under
 the Cin splits that split_k gives for 1, 2, 3, 4 and 8 wanted ranges of at
 least 32; the int8 transition under its plan and under plans that change
 one of its phases: the reduce's or the mid's split for 1, 2, 4, ..., 32
@@ -58,7 +60,7 @@ builds its kernels there, in turns DIR, this, this, DIR, on the same
 seeded inputs ("--wrappers ROOT" is one such turn).
 
 --only takes kernel names (pointwise, pointwise_bf16w, direct, winograd,
-stage, stage_bf16w, direct_int8, stage_int8, stem, transition_int8,
+winograd_bf16w, stage, stage_bf16w, direct_int8, stage_int8, stem, transition_int8,
 pointwise_int8, transition, winograd_int8, basic_stage, basic_stage_int8)
 and keeps those shapes alone.
 """
@@ -97,16 +99,18 @@ STAGE = [  # (N, H, W, Cio, Cmid, blocks, mid)
     (32, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
     (8, 7, 7, 2048, 512, 2, "direct"),
 ]
-# The bf16w instantiations of pointwise and stage, at these shapes of theirs
-# (bf16 weights, kernel names "pointwise_bf16w" and "stage_bf16w").
+# The bf16w instantiations of pointwise, Winograd and stage, at these shapes
+# of theirs (bf16 weights, kernel names "pointwise_bf16w", "winograd_bf16w"
+# (F(2,3) only) and "stage_bf16w").
 POINTWISE_BF16W = POINTWISE
+WINOGRAD_BF16W = [s for s in WINOGRAD if s[5] == 2]
 STAGE_BF16W = [s for s in STAGE if s[-1] == "direct" or s[0] == 1]
 # The candidate walk caps of stage.py::stage_plan (one for every phase, or none).
 STAGE_WALKS = (256, 512, 1024, 2048, 1 << 20)
-STAGE_INT8 = [  # (N, H, W, Cio, Cmid, blocks, mid): A/B only (its plan is the kernel's)
+STAGE_INT8 = [  # (N, H, W, Cio, Cmid, blocks, mid)
     (1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
     (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
-    (8, 14, 14, 1024, 256, 5, "direct"),
+    (8, 14, 14, 1024, 256, 5, "direct"), (32, 14, 14, 1024, 256, 5, "direct"),
 ]
 STEM = [  # (N, H, W, Cin, C, precision): A/B only (its grid is the kernel's)
     (1, 224, 224, 3, 64, "f32"), (1, 224, 224, 3, 64, "bf16"), (8, 224, 224, 3, 64, "f32"),
@@ -137,7 +141,10 @@ BASIC_STAGE_INT8 = [  # (N, H, W, C, blocks): ResNet-34's conv5_x run, and ResNe
     (1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1),
 ]
 BASIC_STAGE = BASIC_STAGE_INT8  # the f32 tier's run at the same shapes
-A_B_ONLY = ("stage_int8", "stem")
+A_B_ONLY = ("stem",)
+# The candidate walk caps of quantized.py::stage_int8_plan (one for every
+# phase; 0 is its rule of about one item a block).
+STAGE_INT8_WALKS = (0, 128, 256, 512, 1024, 1 << 20)
 DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
     (1, 56, 56, 64, 64, True), (1, 7, 7, 512, 512, False), (8, 7, 7, 512, 512, False),
     (8, 56, 56, 64, 64, True),
@@ -232,6 +239,15 @@ def _cases_all(dev):
         ref = conv3x3_bn_winograd_plain(x, u, s, b, relu)
         tol = 1e-4 * max(1.0, ref.abs().max().item())
         yield ("winograd", (n, h, wd, cin, cout, m, relu), (x, u, s, b, relu), ref,
+               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for n, h, wd, cin, cout, m, relu in WINOGRAD_BF16W:
+        x = rand(n, h, wd, cin)
+        u = t(transforms.transform_filter((rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32),
+                                          m=m)).bfloat16()
+        s, b = t((rng.random(cout) * 0.5).astype(np.float32)), rand(cout)
+        ref = conv3x3_bn_winograd_plain(x, u, s, b, relu)
+        tol = 1e-4 * max(1.0, ref.abs().max().item())
+        yield ("winograd_bf16w", (n, h, wd, cin, cout, m, relu), (x, u, s, b, relu, "bf16w"), ref,
                lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
     for name, n, h, wd, cio, cmid, nb, mid in (
             [("stage", *shape) for shape in STAGE]
@@ -371,6 +387,7 @@ def wrappers(dev) -> bool:
 
     _build.build_all()
     call = {"pointwise": conv1x1_bn, "direct": conv3x3_bn_direct, "winograd": conv3x3_bn_winograd,
+            "winograd_bf16w": conv3x3_bn_winograd,
             "stage": resnet_stage_fused, "direct_int8": conv3x3_bn_int8,
             "pointwise_bf16w": conv1x1_bn, "stage_bf16w": resnet_stage_fused,
             "stage_int8": resnet_stage_int8, "stem": stem_fused,
@@ -419,8 +436,8 @@ def sweep(dev) -> bool:
     for name, shape, args, ref, agrees in cases(dev):
         if name in A_B_ONLY:
             continue
-        if name == "winograd":
-            ok &= sweep_winograd(shape, args, ref, agrees, wg, split_k, sms)
+        if name in ("winograd", "winograd_bf16w"):
+            ok &= sweep_winograd(name, shape, args[:5], ref, agrees, wg, split_k, sms)
             continue
         if name == "transition_int8":
             ok &= sweep_transition_int8(shape, args, ref, agrees, q8, sms)
@@ -439,6 +456,9 @@ def sweep(dev) -> bool:
             continue
         if name == "basic_stage":
             ok &= sweep_basic_stage(shape, args, ref, agrees, sms)
+            continue
+        if name == "stage_int8":
+            ok &= sweep_stage_int8(shape, args, ref, agrees, q8, sms)
             continue
         if name.startswith("stage"):
             ok &= sweep_stage(name, shape, args, ref, agrees, sms)
@@ -673,9 +693,30 @@ def sweep_stage(name, shape, args, ref, agrees, sms) -> bool:
     return ok
 
 
-def sweep_winograd(shape, args, ref, agrees, wg, split_k, sms) -> bool:
-    """The f32 Winograd under its plan and under other Cin splits of its
-    work items."""
+def sweep_stage_int8(shape, args, ref, agrees, q8, sms) -> bool:
+    """The int8 stage under its plan and under stage_int8_plan's walk caps
+    (STAGE_INT8_WALKS)."""
+    n, h, w, cio, cmid, _, mid = shape
+    groups = q8.expand_groups(cmid, mid)
+    chosen = q8.stage_int8_plan(n, h, w, cio, cmid, mid, groups, sms)
+    plans = {}
+    for walk in STAGE_INT8_WALKS:
+        plans.setdefault(q8.stage_int8_plan(n, h, w, cio, cmid, mid, groups, sms, walk), walk)
+    ok = True
+    for plan, walk in plans.items():
+        fn = (lambda plan=plan: q8.resnet_stage_int8_planned(*args, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": "stage_int8", "shape": shape, "walk": walk,
+                          "phases": plan.phases(), "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
+def sweep_winograd(name, shape, args, ref, agrees, wg, split_k, sms) -> bool:
+    """The f32 or bf16w Winograd under its plan and under other Cin splits
+    of its work items."""
     n, h, w, cin, cout, m, _ = shape
     a2 = (m + 2) ** 2
     chosen = wg.winograd_plan(n, h, w, cin, cout, m, sms)
@@ -691,7 +732,7 @@ def sweep_winograd(shape, args, ref, agrees, wg, split_k, sms) -> bool:
         fn = (lambda plan=plan: wg.conv3x3_bn_winograd_planned(*args, plan))
         y = fn()
         ok &= agrees(y)
-        print(json.dumps({"kernel": "winograd", "shape": shape, "splits": plan.splits, "chunk": plan.chunk,
+        print(json.dumps({"kernel": name, "shape": shape, "splits": plan.splits, "chunk": plan.chunk,
                           "items": plan.items(tiles, cout, a2), "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
                           "ms": device_ms(fn)}), flush=True)

@@ -3,7 +3,7 @@
 
     python3 tools/chip_stage_timeline.py [--root DIR]
         [--kernel stage|stage_int8|transition_int8|transition|basic_stage|basic_stage_int8|
-                  winograd_int8|both]
+                  winograd_int8|winograd|both]
         [--variant as_is,one_pass,no_mma]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
@@ -25,8 +25,10 @@ line gives the kernel's stamped span and the spans between stamps in
 microseconds: a phase's span is its slowest block's work plus the barrier.
 The f32 stage's spans are, per block, reduce, mid, expand (the last
 block's expand is not stamped: the kernel ends there); the int8 stage's
-are the weight transpose with block 0's first quantize, then per block the
-phases between its barriers. The int8 transition's copy ends in one more
+are its first phase (the weight transposes, x's row maxima), then per
+block the reduce, the mid and the expand, each with its split sum (its
+quantization folded into the phase before; the last block's expand is not
+stamped). The int8 transition's copy ends in one more
 barrier and stamp, so its spans are all six phases: the weight transposes
 with x's quantization, the reduce, the strided im2col's quantization, the
 mid, h2's quantization with the projection rows' gather, and expand with
@@ -41,7 +43,9 @@ stamp after each block's last phase: per block, the quantize phase (block
 0's with the weight transposes), the first conv with its split sum, the
 second quantize, the second conv with its split sum (and, before the next
 block, one barrier alone). The int8 Winograd's copy ends the same way:
-the position items, then the inverse.
+the position items, then the inverse. The f32 Winograd's (--kernel
+winograd: csrc/winograd.cu with a stamped copy of csrc/wino_tf32.cuh, at
+f32 and bf16w) spans are its V phase, its position items and its inverse.
 First, the grid barrier alone
 (grid_sync.cuh, 256 threads a block): its cost per crossing at one and two
 blocks an SM. The card's name and power limit come first.
@@ -86,15 +90,21 @@ BASIC_STAGE_SHAPES = [(1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1)]
 # (N, H, W, Cin, Cout, relu): the served int8 Winograds at N=1 and N=8.
 WINOGRAD_INT8_SHAPES = [(1, 28, 28, 128, 128, True), (1, 14, 14, 256, 256, True),
                         (8, 28, 28, 128, 128, True), (8, 14, 14, 256, 256, True)]
+# (N, H, W, Cin, Cout, precision): the served f32 and bf16w Winograds at N=1
+# and N=8 (ResNet-34's identity 3x3s, ResNet-50's projection 3x3).
+WINOGRAD_SHAPES = [(n, hw, hw, c, c, precision) for precision in ("f32", "bf16w")
+                   for n in (1, 8) for hw, c in ((56, 64), (28, 128), (14, 256))]
 # Per kernel source: the last include, after which the stamp buffer goes,
-# the head of the phases, before which the first stamp goes, and the
+# the head of the phases, before which the first stamp goes (or a tuple of
+# heads, the first one the source has: another commit's layout), and the
 # kernel's last statement, after which a barrier and a stamp go (None: not
 # stamped).
 LAYOUT = {
     "stage": ('#include "wino_tf32.cuh"\n',
               "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act", None),
     "stage_int8": ('#include "winograd.cuh"\n',
-                   "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act", None),
+                   ("  // The first phase: every block's weights",  # since the s8 wgmma phases
+                    "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act"), None),
     "transition_int8": ('#include "mma_int8.cuh"\n', "  // 0. The four weight matrices",
                         "  expand_and_project(a, P2, smem);\n"),
     "transition": ('#include "splitk_tf32.cuh"\n', "  sk::gemm_phase<kVec, true>(a.reduce,",
@@ -108,7 +118,14 @@ LAYOUT = {
     "winograd_int8": ('#include "winograd.cuh"\n',
                       "  const int items = 16 * a.tile_blocks * a.col_blocks;",
                       "static_cast<int>(i % a.Cout), mp);\n  }\n"),
+    "winograd": ('#include "wino_tf32.cuh"\n', "  wtc::phase<M, kVec, false>(", None),
 }
+# The f32 Winograd's barriers are in csrc/wino_tf32.cuh's phase: the tool
+# stamps a copy of that header beside the stamped winograd.cu (which its
+# quoted include finds first), after each of the phase's two barriers and
+# after one more barrier at its end.
+WINO_TF32_BARRIER = "  grid_sync(bar);\n"
+WINO_TF32_LAST = "  inverse<M>(cv, cut.splits, part, scale, bias, out, relu);\n"
 # The tiles' three passes, in csrc/mma_tf32.cuh::mma_stage and in
 # csrc/wgmma_tile.cuh's f32 mma_stage (the stage's GEMM phases), and the
 # passes each --variant keeps out.
@@ -154,15 +171,30 @@ def stamped_source(src: str, kernel: str) -> str:
     grid barrier of the kernel body (and a barrier and a stamp after its
     last statement, where LAYOUT names one), and a C entry that reads the
     stamps."""
-    include, head, last = LAYOUT[kernel]
-    if include not in src or head not in src or last is not None and src.count(last) != 1:
+    include, heads, last = LAYOUT[kernel]
+    head = next((h for h in (heads if isinstance(heads, tuple) else (heads,)) if h in src), None)
+    if include not in src or head is None or last is not None and src.count(last) != 1:
         raise SystemExit(f"{kernel}.cu does not have the layout this tool stamps")
     src = src.replace("wt::grid_sync(a.bar);", "{ wt::grid_sync(a.bar); STAMP }")
     if last is not None:
         src = src.replace(last, last + "  { wt::grid_sync(a.bar); STAMP }\n")
-    src = src.replace(include, include + "__device__ unsigned long long g_stamp[1024];\n"
-                      "__device__ int g_stamps;\n#define STAMP " + STAMP + "\n", 1)
+    if kernel != "winograd":  # its stamped wino_tf32.cuh declares the buffer
+        src = src.replace(include, include + "__device__ unsigned long long g_stamp[1024];\n"
+                          "__device__ int g_stamps;\n#define STAMP " + STAMP + "\n", 1)
     return src.replace(head, "  STAMP\n" + head, 1) + READ_STAMPS
+
+
+def stamped_wino_tf32(src: str) -> str:
+    """csrc/wino_tf32.cuh with the stamp buffer declared after its includes,
+    a stamp after each grid barrier of its phase, and a barrier and a stamp
+    after the phase's inverse."""
+    include = '#include "winograd.cuh"\n'
+    if src.count(WINO_TF32_BARRIER) != 2 or src.count(WINO_TF32_LAST) != 1 or include not in src:
+        raise SystemExit("wino_tf32.cuh does not have the layout this tool stamps")
+    src = src.replace(WINO_TF32_BARRIER, "  { grid_sync(bar); STAMP }\n")
+    src = src.replace(WINO_TF32_LAST, WINO_TF32_LAST + "  { grid_sync(bar); STAMP }\n")
+    return src.replace(include, include + "__device__ unsigned long long g_stamp[1024];\n"
+                       "__device__ int g_stamps;\n#define STAMP " + STAMP + "\n", 1)
 
 
 def variant_sources(csrc: pathlib.Path, out: pathlib.Path, variant: str) -> pathlib.Path:
@@ -195,6 +227,9 @@ def build(root: pathlib.Path, out: pathlib.Path, kernels, variants=("as_is",)):
     jobs = {"barrier": (out / "barrier.cu", csrc)}  # name -> (source, include dir)
     for kernel in kernels:
         stamped = stamped_source((csrc / f"{kernel}.cu").read_text(), kernel)
+        if kernel == "winograd":
+            (out / "wino_tf32.cuh").write_text(stamped_wino_tf32(
+                (csrc / "wino_tf32.cuh").read_text()))
         tf32 = kernel in TF32_KERNELS
         for variant in (variants if tf32 else ("as_is",)):
             src = variant_sources(csrc, out, variant) if tf32 else out
@@ -332,13 +367,30 @@ def winograd_int8_case(rng, dev, n, h, w, cin, cout, relu):
             relu)
 
 
+def winograd_case(rng, dev, n, h, w, cin, cout, precision):
+    """Seeded f32 Winograd operands (u bf16 at "bf16w") and an input."""
+    import torch
+
+    from winograd_tpu_torch.kernels import transforms
+
+    def rand(*shape):
+        return (rng.random(shape) - 0.5).astype(np.float32)
+
+    t = (lambda a: torch.as_tensor(a, device=dev))  # noqa: E731
+    u = t(transforms.transform_filter(rand(cout, cin, 3, 3), m=2))
+    if precision == "bf16w":
+        u = u.bfloat16()
+    return t(rand(n, h, w, cin)), u, t(rand(cout) + 0.5), t(rand(cout)), True, precision
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", type=pathlib.Path, default=ROOT,
                     help="the checkout whose kernel and wrapper are timed")
     ap.add_argument("--kernel",
                     choices=("stage", "stage_int8", "transition_int8", "transition",
-                             "basic_stage", "basic_stage_int8", "winograd_int8", "both"),
+                             "basic_stage", "basic_stage_int8", "winograd_int8", "winograd",
+                             "both"),
                     default="both")
     ap.add_argument("--variant", default="as_is", metavar="NAME,...",
                     help="variants of the f32 stage's, transition's and basic stage's tile: "
@@ -359,6 +411,7 @@ def main() -> int:
     from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels import stage as st
     from winograd_tpu_torch.kernels import transition as tr
+    from winograd_tpu_torch.kernels import winograd as wn
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
@@ -383,7 +436,8 @@ def main() -> int:
                 "basic_stage_int8": (bs.basic_stage_int8, bs.basic_stage_int8_plain,
                                      q8._workspace_words),
                 "winograd_int8": (q8.conv3x3_bn_winograd_int8,
-                                  q8.conv3x3_bn_winograd_int8_plain, None)}
+                                  q8.conv3x3_bn_winograd_int8_plain, None),
+                "winograd": (wn.conv3x3_bn_winograd, wn.conv3x3_bn_winograd_plain, None)}
     rng = np.random.default_rng(0)
     stamps, count = (ctypes.c_ulonglong * 1024)(), ctypes.c_int(0)
     ok = True
@@ -405,6 +459,10 @@ def main() -> int:
             for shape in WINOGRAD_INT8_SHAPES:
                 operands = winograd_int8_case(rng, dev, *shape)
                 cases.append((shape, operands, plain(*operands)))
+        if kernel == "winograd":
+            for shape in WINOGRAD_SHAPES:
+                operands = winograd_case(rng, dev, *shape)
+                cases.append((shape, operands, plain(*operands[:5])))
         tf32 = kernel in TF32_KERNELS
         for variant in (variants if tf32 else ("as_is",)):
             lib = libs[f"{kernel}_stamped:{variant}" if tf32 else f"{kernel}_stamped"]
@@ -421,7 +479,7 @@ def main() -> int:
                     if lib.read_stamps(stamps, ctypes.byref(count)):
                         raise SystemExit("read_stamps failed")
                 err = (y - ref).abs().max().item()
-                if kernel not in TF32_KERNELS:
+                if kernel not in TF32_KERNELS and kernel != "winograd":
                     agrees = bool(torch.equal(y, ref))
                 else:
                     agrees = err <= 1e-4 * max(1.0, ref.abs().max().item())

@@ -29,9 +29,9 @@
 //
 // Shared by csrc/direct.cu (through splitk_tf32.cuh's split-K kernel),
 // csrc/transition.cu and csrc/basic_stage.cu (splitk_tf32.cuh's
-// gemm_phase) and the Winograd products of wino_tf32.cuh (csrc/winograd.cu, csrc/stage.cu),
-// whose A is V = Bt d Bt^T read from the workspace its V phase wrote. The
-// bf16w tile (mma_bf16w.cuh) and the wgmma tile (wgmma_tile.cuh) take its A
+// gemm_phase). The bf16w tile (mma_bf16w.cuh) and the wgmma tile
+// (wgmma_tile.cuh, also the Winograd products of wino_tf32.cuh, whose A is
+// V = Bt d Bt^T read from the workspace its V phase wrote) take its A
 // sources and A loader.
 #pragma once
 

@@ -50,7 +50,8 @@
 // fixed cluster; the grid barrier is already there.
 //
 // The F(2,3) mid (conv2_x, conv3_x) is wino_tf32.cuh's phase, the
-// per-layer Winograd's, still on mma_tf32.cuh's mma.sync tiles: V written
+// per-layer Winograd's, on the same wgmma tiles (its filters by TMA, the
+// (16 B, Cmid, Cmid) u2 stack's map): V written
 // once, then items of one position, Cin range and 64 x 64 block of tiles
 // and channels, then the grid applies At M At^T and BN, two barriers
 // apart; its Cin split is the host's (kernels/winograd.py::winograd_plan
@@ -63,9 +64,9 @@
 // w_expand in bf16, BN f32; the JAX kernel at precision="bf16w") is the
 // same kernel on the bf16 tiles: every GEMM phase splits its f32 A hi/lo
 // into two bf16 wgmma passes on the bf16 weights (read straight from the
-// TMA's swizzled boxes), the F(2,3) mid's products into two bf16 mma.sync
-// passes (mma_bf16w.cuh), half the weight bytes (conv5_x streams 8.9 MB a
-// block, not 17.8); the V phase, the inverse and the epilogues stay FP32.
+// TMA's swizzled boxes), the F(2,3) mid's products the same way, half the
+// weight bytes (conv5_x streams 8.9 MB a block, not 17.8); the V phase, the
+// inverse and the epilogues stay FP32.
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -89,10 +90,11 @@ constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at 
 static_assert(sk::kSplitStep == wg::kBK, "a phase's splits are whole stages of the wgmma tile");
 
 // BT: the weights' element type, float or __nv_bfloat16 (bf16w). The maps
-// (kVec): w_reduce, the direct mid's w9 and w_expand as (N, K, blocks).
+// (kVec): w_reduce, the direct mid's w9 and w_expand as (N, K, blocks), and
+// the F(2,3) mid's u2 as (Cmid, Cmid, 16 * blocks).
 template <class BT>
 struct StageArgs {
-  CUtensorMap map_r, map_m, map_e;
+  CUtensorMap map_r, map_m, map_e, map_u;
   const float* x;
   float* out;
   const BT* wr;
@@ -219,7 +221,8 @@ __global__ void __launch_bounds__(wg::kThreads, kMaxBlocksPerSm)
     const wt::BnEpilogue e2{a.s2 + bm, a.b2 + bm, a.h2, cmid, 1};
     if (a.wino)
       wtc::phase<2, kVec, true>(a.wconv, a.wcut, a.h1, a.wm + bm * 16 * cmid, a.s2 + bm,
-                                a.b2 + bm, a.h2, 1, a.v, a.part, a.bar, smem);
+                                a.b2 + bm, a.h2, 1, a.v, a.part, a.bar,
+                                wtc::Tc{&a.map_u, blk * 16, &ring});
     else
       phase_items<kVec>(a.mid, tc::Im2colA{a.h1, a.H, a.W, cmid, P}, wm, e2, a.part, ring, pre);
     pre = prefetch_phase<kVec>(a.expand, we, ring);
@@ -242,11 +245,9 @@ const void* kernel_of(bool vec) {
              : reinterpret_cast<const void*>(&stage_kernel<false, BT>);
 }
 
-// Dynamic shared memory: the wgmma ring or the F(2,3) mid's mma.sync ring,
-// whichever is larger.
+// Dynamic shared memory: the wgmma ring, every phase's.
 template <class BT>
-constexpr size_t kSmem =
-    wg::kSmemBytes<BT> > wt::kTileSmemBytes<BT> ? wg::kSmemBytes<BT> : wt::kTileSmemBytes<BT>;
+constexpr size_t kSmem = wg::kSmemBytes<BT>;
 
 // Blocks of the instantiation the current device holds resident, at most
 // kMaxBlocksPerSm an SM (the dynamic shared memory limit raised once per
@@ -329,6 +330,7 @@ int stage(const float* x, const BT* wr, const float* s1, const float* b1, const 
   if (vec) {
     cudaError_t e = wg::encode_weights(&a.map_r, wr, B, Cio, Cmid);
     if (e == cudaSuccess && !wino) e = wg::encode_weights(&a.map_m, wm, B, 9 * Cmid, Cmid);
+    if (e == cudaSuccess && wino) e = wg::encode_weights(&a.map_u, wm, 16 * B, Cmid, Cmid);
     if (e == cudaSuccess) e = wg::encode_weights(&a.map_e, we, B, Cmid, Cio);
     if (e != cudaSuccess) return static_cast<int>(e);
   }

@@ -1,6 +1,6 @@
 // Winograd F(m,3), m = 2 or 4: a 3x3 conv (stride 1, pad 1) + folded BN
-// (+ ReLU) with its products on the tensor cores (mma_tf32.cuh's 3xTF32
-// tiles), as one phase of a persistent cooperative kernel:
+// (+ ReLU) with its products on the tensor cores (wgmma_tile.cuh's tiles),
+// as one phase of a persistent cooperative kernel:
 //   V[q] = (Bt d Bt^T)[q] for each of the a^2 = (m+2)^2 tile positions q,
 //   M[q] = V[q] U[q], a (tiles x Cin) x (Cin x Cout) product per position,
 //   Y = At M At^T, then y = Y * scale + bias (+ ReLU), stored clipped at the
@@ -8,9 +8,12 @@
 //
 // Shared by csrc/winograd.cu (the per-layer Winograd: f32, F(2,3) and
 // F(4,3), and the bf16w F(2,3)) and csrc/stage.cu (the F(2,3) mid-layer of
-// the f32 and the bf16w bottleneck stage). A bf16 U (the bf16w tier) runs
-// its products on mma_bf16w.cuh's tile, V split hi/lo, through
-// wt::mma_tile; the V phase and the inverse stay FP32.
+// the f32 and the bf16w bottleneck stage). The products are wgmma_tile.cuh's
+// tile, one warpgroup's m64n64k8 3xTF32 (f32 U) or m64n64k16 bf16 (bf16 U,
+// V split hi/lo), each stage's products added in FP32, U[q] by TMA as boxes
+// of the filters' tensor map (element loads where the map cannot describe
+// them), V by cp.async (the stage's mid took 0.4-2.9% less time on it than
+// on mma.sync tiles, PERF.md). The V phase and the inverse stay FP32.
 //
 // Three steps, two grid barriers (grid_sync.cuh):
 // * V phase: the grid writes V = Bt d Bt^T once, one (tile, channel) a
@@ -20,7 +23,7 @@
 // * Products: work items (position, Cin split, tile block, Cout block)
 //   dealt to the grid's blocks. A tile block is the MMA tile's 64 rows
 //   (Winograd tiles), a Cout block its 64 columns, a split a Cin range of
-//   `chunk`. Each product is mma_tf32.cuh's tile with A = V[q] (row-major,
+//   `chunk`. Each product is one tile (above) with A = V[q] (row-major,
 //   by cp.async.cg: V was written in the launch) and B = U[q]; the item
 //   writes its partial M[q] (64 x 64 floats) to part[(split * a^2 + q),
 //   tile, cout]. The host's plan picks splits and chunk so that the items
@@ -37,8 +40,8 @@
 #include <cuda_runtime.h>
 
 #include "grid_sync.cuh"
-#include "mma_bf16w.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma_tile.cuh"
 #include "winograd.cuh"
 
 namespace wt {
@@ -97,24 +100,34 @@ __device__ __forceinline__ void transform(const Conv& cv, const float* x, float*
   }
 }
 
+// The products' U: its tensor map (the (blocks, C, Cout) filters as (Cout,
+// C, blocks), wgmma_tile.cuh::encode_weights) and the block of this conv's
+// position 0; the ring over the kernel's dynamic shared memory.
+struct Tc {
+  const CUtensorMap* map;
+  int blk0;
+  wg::Ring* ring;
+};
+
 // One work item: position q of tile block tb and Cout block cb over Cin
 // range [k0, k1), A from V, partial M into part; U f32 or bf16 (UT).
 // kVec: Cout a multiple of 4 (of 8 for bf16 U) and u 16-byte aligned
-// (16-byte copies of U and V).
+// (TMA loads of U, 16-byte copies of V).
 template <int M, bool kVec, class UT>
 __device__ __forceinline__ void item(const Conv& cv, const float* v, const UT* __restrict__ u,
                                      float* part, int q, int split, int k0, int k1, int tb,
-                                     int cb, float* smem) {
+                                     int cb, const Tc& tcu) {
   constexpr int A2 = (M + 2) * (M + 2);
   const int p0 = tb * tc::kBM, n0 = cb * tc::kBN;
   const size_t tk = static_cast<size_t>(cv.T) * v_row(cv);
   const size_t tco = static_cast<size_t>(cv.T) * cv.Cout;
-  tc::Acc acc;
-  mma_tile<kVec, true>(tc::RowMajorA{v + q * tk, cv.T, v_row(cv)},
-                       u + static_cast<size_t>(q) * cv.C * cv.Cout, cv.Cout, p0, n0, k0, k1,
-                       smem, acc);
   float* pq = part + (static_cast<size_t>(split) * A2 + q) * tco;
-  tc::for_each_acc(acc, [&](int r, int c, float val) {
+  wg::Acc acc;
+  wg::tile<kVec, true>(tc::RowMajorA{v + q * tk, cv.T, v_row(cv)},
+                       wg::Weights<UT>{tcu.map, u + static_cast<size_t>(q) * cv.C * cv.Cout,
+                                       cv.Cout, cv.C, tcu.blk0 + q},
+                       p0, n0, k0, k1, *tcu.ring, false, acc);
+  wg::for_each_acc(acc, [&](int r, int c, float val) {
     const int t = p0 + r, co = n0 + c;
     if (t < cv.T && co < cv.Cout) pq[static_cast<size_t>(t) * cv.Cout + co] = val;
   });
@@ -165,14 +178,15 @@ __host__ __device__ inline int items_of(const Conv& cv, int a2, const Cut& cut) 
 // out = BN(conv3x3(x, U)) (+ ReLU) through the V phase, the items and the
 // inverse, two grid barriers apart; U (a^2, C, Cout) row-major per
 // position; v holds a^2 * T * v_row floats, part cut.splits * a^2 * T *
-// Cout; smem: kTileSmemBytes<UT>; kCg: x was written earlier in the
-// launch. The caller places the barrier that ends the phase.
+// Cout; tcu's ring over wg::kSmemBytes<UT> of shared memory; kCg: x was
+// written earlier in the launch. The caller places the barrier that ends
+// the phase.
 template <int M, bool kVec, bool kCg, class UT>
 __device__ __forceinline__ void phase(const Conv& cv, const Cut& cut, const float* x,
                                       const UT* __restrict__ u,
                                       const float* __restrict__ scale,
                                       const float* __restrict__ bias, float* out, int relu,
-                                      float* v, float* part, unsigned int* bar, float* smem) {
+                                      float* v, float* part, unsigned int* bar, const Tc& tcu) {
   constexpr int A2 = (M + 2) * (M + 2);
   transform<M, kCg>(cv, x, v);
   grid_sync(bar);
@@ -186,7 +200,7 @@ __device__ __forceinline__ void phase(const Conv& cv, const Cut& cut, const floa
     rest /= tbs;
     const int split = rest % cut.splits, q = rest / cut.splits;
     const int k0 = split * cut.chunk, k1 = min(cv.C, k0 + cut.chunk);
-    item<M, kVec>(cv, v, u, part, q, split, k0, k1, tb, cb, smem);
+    item<M, kVec>(cv, v, u, part, q, split, k0, k1, tb, cb, tcu);
   }
   grid_sync(bar);
   inverse<M>(cv, cut.splits, part, scale, bias, out, relu);

@@ -26,23 +26,28 @@
 // The grid writes V once to the workspace; after a grid barrier, work items
 // (position, Cin split, tile block, Cout block), cut by the host's plan
 // (kernels/winograd.py::winograd_plan: Cin split until the items reach the
-// grid's blocks, at 28x28x128 and 14x14x256),
-// multiply V[q] by U[q] on the 3xTF32 MMA tiles (mma_tf32.cuh, both
-// operands by 16-byte cp.async) and write their partial M; after a second
-// barrier the grid adds each position's splits in split order and applies
-// At M At^T and BN, so calls repeat to the bit. V and M take 3.2 MB each at
-// N=1 56x56x64 and 26 MB each at N=8, more than half the 50 MB L2 together:
-// there M is written while V is read, and part of both goes to HBM. This
-// entry checks the plan against the geometry compiled here and refuses a
-// grid larger than the card holds resident.
+// grid's blocks, at 28x28x128 and 14x14x256), multiply V[q] by U[q] on
+// wgmma_tile.cuh's tile (one warpgroup's wgmma m64n64k8 in 3xTF32, each
+// 32-deep stage's products added in FP32; U[q] by TMA as boxes of the
+// (16, Cin, Cout) filter's tensor map, block q, onto mbarriers; V by
+// cp.async.cg, since V was written in the launch) and write their partial
+// M; after a second barrier the grid adds each position's splits in split
+// order and applies At M At^T and BN, so calls repeat to the bit. V and M
+// take 3.2 MB each at N=1 56x56x64 and 26 MB each at N=8, more than half
+// the 50 MB L2 together: there M is written while V is read, and part of
+// both goes to HBM. At N=1 the launch's time is its three phases (~16 us),
+// not the products; the tile moves the N=8 items. This entry checks the
+// plan against the geometry compiled here and refuses a grid larger than
+// the card holds resident.
 //
 // winograd_conv3x3_bn_bf16w is the bf16w tier's F(2,3) (the JAX package's
 // conv3x3_bn_winograd_pallas(precision="bf16w"): ResNet-18/34's identity
 // 3x3s and ResNet-50's projection 3x3 at bf16w): the same cooperative
-// launch and plan on a bf16 U, its products on mma_bf16w.cuh's tile (V
-// split hi/lo into two bf16 m16n8k16 passes, wt::mma_tile by U's type),
-// the V phase and the inverse FP32. U streams at half the f32 bytes, and
-// a k16 step is two tensor-core instructions where 3xTF32 takes six.
+// launch and plan on a bf16 U, its products on the tile's bf16 wgmma
+// m64n64k16 (V split hi/lo into two passes, U read straight from TMA's
+// 128-byte-swizzled boxes), the V phase and the inverse FP32. U streams
+// at half the f32 bytes, and a k16 step is two tensor-core instructions
+// where 3xTF32 takes six.
 //
 // winograd_conv3x3_bn_bf16 is the int8 tier's exact bf16-filter 3x3: the
 // F(2,3) tile body of winograd.cuh on a bf16 filter in FP64, which computes
@@ -65,6 +70,7 @@
 namespace {
 
 namespace tc = wt::tf32x3;
+namespace wg = wt::wg;
 namespace wtc = wt::winotc;
 
 constexpr int kTT = 8;  // tiles per block of the FP64 route (threadIdx.y)
@@ -97,9 +103,11 @@ int launch(const float* x, const TU* u, const float* scale,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor-core route, f32 (3xTF32) or bf16w; UT: U's element type.
+// The tensor-core route, f32 (3xTF32) or bf16w; UT: U's element type; map:
+// U as (Cout, Cin, a^2) for the TMA loads (kVec).
 template <class UT>
 struct TcArgs {
+  CUtensorMap map;
   const float* x;
   const UT* u;
   const float* scale;
@@ -114,14 +122,17 @@ struct TcArgs {
 };
 
 template <int M, bool kVec, class UT>
-__global__ void __launch_bounds__(tc::kThreads) winograd_tc_kernel(TcArgs<UT> a) {
+__global__ void __launch_bounds__(wg::kThreads) winograd_tc_kernel(
+    const __grid_constant__ TcArgs<UT> a) {
   extern __shared__ __align__(16) float smem[];
-  wtc::phase<M, kVec, false>(a.cv, a.cut, a.x, a.u, a.scale, a.bias, a.out, a.relu, a.v,
-                             a.part, a.bar, smem);
+  __shared__ __align__(8) uint64_t bars[wg::kStages];
+  wg::Ring ring = wg::make_ring(smem, bars);
+  wtc::phase<M, kVec, false>(a.cv, a.cut, a.x, a.u, a.scale, a.bias, a.out, a.relu, a.v, a.part,
+                             a.bar, wtc::Tc{&a.map, 0, &ring});
 }
 
 // Blocks of the instantiation that the current device holds resident (its
-// dynamic shared memory limit, the ring of U's tile, raised once per
+// dynamic shared memory limit, the wgmma tile's ring, raised once per
 // device); 0 on error.
 template <int M, bool kVec, class UT>
 int resident_blocks() {
@@ -130,11 +141,11 @@ int resident_blocks() {
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cache[dev] == 0) {
     const void* kernel = reinterpret_cast<const void*>(&winograd_tc_kernel<M, kVec, UT>);
-    constexpr size_t smem = wt::kTileSmemBytes<UT>;
+    constexpr size_t smem = wg::kSmemBytes<UT>;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem)) != cudaSuccess)
       return 0;
-    cache[dev] = cooperative_grid(kernel, smem, tc::kThreads);
+    cache[dev] = cooperative_grid(kernel, smem, wg::kThreads);
   }
   return cache[dev];
 }
@@ -148,7 +159,7 @@ int launch_tc(TcArgs<UT>& a, int blocks, cudaStream_t s) {
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(&winograd_tc_kernel<M, kVec, UT>), dim3(blocks),
-      dim3(tc::kThreads), args, wt::kTileSmemBytes<UT>, s);
+      dim3(wg::kThreads), args, wg::kSmemBytes<UT>, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -162,7 +173,7 @@ int conv_tc(const float* x, const UT* u, const float* scale, const float* bias, 
             void* stream) {
   constexpr bool kBf16 = std::is_same_v<UT, __nv_bfloat16>;
   if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || (m != 2 && (kBf16 || m != 4)) ||
-      tile != tc::kBM || blocks <= 0 || ws == nullptr || !aligned16(ws))
+      tile != wg::kBM || blocks <= 0 || ws == nullptr || !aligned16(ws))
     return static_cast<int>(cudaErrorInvalidValue);
   const int a2 = (m + 2) * (m + 2);
   const wtc::Conv cv = m == 2 ? wtc::make_conv<2>(N, H, W, Cin, Cout)
@@ -172,11 +183,26 @@ int conv_tc(const float* x, const UT* u, const float* scale, const float* bias, 
       part < v + static_cast<long long>(wtc::v_floats(cv, a2)) ||
       ws_words < part + static_cast<long long>(wtc::part_floats(cv, a2, cut)))
     return static_cast<int>(cudaErrorInvalidValue);
-  TcArgs<UT> a{x,   u,        scale, bias, out, ws + v, ws + part,
-               reinterpret_cast<unsigned int*>(ws), cv, cut, relu};
+  TcArgs<UT> a{};
+  a.x = x;
+  a.u = u;
+  a.scale = scale;
+  a.bias = bias;
+  a.out = out;
+  a.v = ws + v;
+  a.part = ws + part;
+  a.bar = reinterpret_cast<unsigned int*>(ws);
+  a.cv = cv;
+  a.cut = cut;
+  a.relu = relu;
   const auto s = static_cast<cudaStream_t>(stream);
-  // 16-byte copies of U: Cout a multiple of 4 floats or 8 bf16 values.
+  // TMA loads (and 16-byte copies) of U: Cout a multiple of 4 floats or 8
+  // bf16 values.
   const bool vec = Cout % (kBf16 ? 8 : 4) == 0 && aligned16(u);
+  if (vec) {
+    const cudaError_t e = wg::encode_weights(&a.map, u, a2, Cin, Cout);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   if constexpr (kBf16) {
     return vec ? launch_tc<2, true>(a, blocks, s) : launch_tc<2, false>(a, blocks, s);
   } else {

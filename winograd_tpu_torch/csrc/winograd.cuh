@@ -127,15 +127,25 @@ struct PlainLoad {
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
 
+// wino_tile's default observer of its outputs: none.
+struct NoRowMax {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ void operator()(int, int, unsigned) const {}
+};
+
 // Tiles t0 .. t0 + TT - 1 (row-major over N x ceil(H/M) x ceil(W/M)) and
 // output channels co0 .. co0 + COB - 1 (COB = kWinoTX * CPT), by threads
 // 0 .. TT * kWinoTX - 1; smem holds wino_smem_bytes<M, TT, TA, CPT>().
-template <int M, int TT, class Load, class TU, class TA, int CPT>
+// An observer with kOn (the int8 stage's) is called once per output pixel
+// by the pixel's thread tx = 0 as obs(pixel, co0, m), m the bits of the
+// largest |value| the item stored at that pixel (as an unsigned int, a
+// NaN above every number); the arithmetic is the same either way.
+template <int M, int TT, class Load, class TU, class TA, int CPT, class Obs = NoRowMax>
 __device__ __forceinline__ void wino_tile(
     const Load& ld, const float* x, const TU* __restrict__ u,
     const float* __restrict__ scale, const float* __restrict__ bias,
     float* out, int N, int H, int W, int Cin, int Cout, int relu, int t0,
-    int co0, int tid, float* smem) {
+    int co0, int tid, float* smem, const Obs& obs = Obs{}) {
   static_assert(std::is_same<TA, double>::value && CPT == 2, "the FP64 routes' tile");
   constexpr int A = M + 2;
   constexpr int A2 = A * A;
@@ -217,11 +227,17 @@ __device__ __forceinline__ void wino_tile(
   }
 
   const int g = t0 + ty;
-  if (g >= nt) return;
+  if (!Obs::kOn && g >= nt) return;
+  const bool live = g < nt;  // the observer's lanes all reach its shuffles
   const int n = g / (th * tw);
   const int r = g - n * th * tw;
   const int oy0 = (r / tw) * M;
   const int ox0 = (r % tw) * M;
+  unsigned amax[M][M];
+#pragma unroll
+  for (int oi = 0; oi < M; ++oi)
+#pragma unroll
+    for (int oj = 0; oj < M; ++oj) amax[oi][oj] = 0u;
 #pragma unroll
   for (int j = 0; j < CPT; ++j) {
     const int co = co0 + tx * CPT + j;
@@ -239,11 +255,24 @@ __device__ __forceinline__ void wino_tile(
       for (int oj = 0; oj < M; ++oj) {
         const int oy = oy0 + oi;
         const int ox = ox0 + oj;
-        if (oy < H && ox < W) {
+        if (live && oy < H && ox < W) {
           float val = __fadd_rn(__fmul_rn(static_cast<float>(y[oi][oj]), s), b);
           if (relu) val = wt::relu(val);
           out[(static_cast<size_t>(n * H + oy) * W + ox) * Cout + co] = val;
+          if (Obs::kOn) amax[oi][oj] = max(amax[oi][oj], __float_as_uint(val) & 0x7fffffffu);
         }
+      }
+  }
+  if constexpr (Obs::kOn) {
+#pragma unroll
+    for (int oi = 0; oi < M; ++oi)
+#pragma unroll
+      for (int oj = 0; oj < M; ++oj) {
+        unsigned m = amax[oi][oj];
+#pragma unroll
+        for (int o = 1; o < kWinoTX; o <<= 1) m = max(m, __shfl_xor_sync(0xffffffffu, m, o));
+        const int oy = oy0 + oi, ox = ox0 + oj;
+        if (tx == 0 && live && oy < H && ox < W) obs((n * H + oy) * W + ox, co0, m);
       }
   }
 }

@@ -11,8 +11,9 @@ for a 1x1, an im2col row over all 9*C gathered values (zero padding
 included) for a 3x3.
 
 Kernels (CUDA C++ for sm_90a, csrc/*_int8.cu on csrc/gemm_int8.cuh's
-arithmetic and csrc/mma_int8.cuh's s8 mma.sync; every one takes any
-channel count, see pad_to):
+arithmetic and csrc/mma_int8.cuh's s8 mma.sync, the stage on
+csrc/wgmma_s8.cuh's s8 wgmma; every one takes any channel count, see
+pad_to):
 
 * conv1x1_bn_int8 -> csrc/pointwise_int8.cu (_quant_matmul_kernel): a
   GEMV at a few rows, else the product on the int8 tensor cores, rows
@@ -22,11 +23,13 @@ channel count, see pad_to):
   row-banded twin) on csrc/mma_int8.cuh: rows quantized once, the product
   on the int8 tensor cores with K split by direct_int8_plan;
 * resnet_stage_int8 -> csrc/stage_int8.cu (_stage_int8_kernel, its
-  resident twin, and _block_int8_kernel at one block) on csrc/mma_int8.cuh
-  as conv3x3_bn_int8; the mid-layer is the int8 direct 3x3 or, on maps of
-  28x28 and up, F(2,3) on bf16 filters;
+  resident twin, and _block_int8_kernel at one block) on s8 wgmma tiles
+  that quantize their rows as they stage them, each row's scale from the
+  maxima its producers published (the folded quantization, below); the
+  mid-layer is the int8 direct 3x3 or, on maps of 28x28 and up, F(2,3) on
+  bf16 filters; the grid and splits by stage_int8_plan;
 * transition_block_int8 -> csrc/transition_int8.cu (_transition_int8_kernel
-  and its resident twin) on csrc/mma_int8.cuh as resnet_stage_int8: every
+  and its resident twin) on csrc/mma_int8.cuh: every
   row quantized once, the grid and the phases' K splits by
   transition_int8_plan;
 * conv3x3_bn_winograd_int8 -> csrc/winograd_int8.cu (_winograd_int8_kernel):
@@ -150,6 +153,57 @@ def quantize_rows(x: torch.Tensor):
     the int8 values (in x's dtype) and s_x (..., 1)."""
     m = x.abs().amax(dim=-1, keepdim=True)
     s = m / torch.full_like(m, 127.0)  # true division: a scalar divisor becomes * (1/127)
+    s = torch.where(s == 0, torch.ones_like(s), s)
+    return torch.clamp(torch.round(x / s), -127, 127), s
+
+
+# The folded quantization of csrc/stage_int8.cu, in plain PyTorch: a row's
+# scale comes from a maximum that its producers published in pieces (each
+# tile's epilogue folds max |y| over the values it stored of a row into one
+# word, by atomicMax on the bits of |y|), not from one pass over the row.
+# The bits of |v| as an integer order as |v| does, with a NaN above every
+# number, so the folded maximum is torch.amax's, NaN and inf included.
+
+
+def abs_bits(x: torch.Tensor) -> torch.Tensor:
+    """The float32 bits of |x| as int64: what a producer publishes."""
+    return x.float().contiguous().view(torch.int32).to(torch.int64) & 0x7FFFFFFF
+
+
+def max_of_bits(bits: torch.Tensor) -> torch.Tensor:
+    """The float32 value of a published maximum."""
+    return bits.to(torch.int32).view(torch.float32)
+
+
+def row_max_in_pieces(x: torch.Tensor, piece: int) -> torch.Tensor:
+    """The row maxima of x (..., K) as bits, folded from pieces of `piece`
+    columns (the tiles of the producing GEMM), each piece's maximum taken
+    first."""
+    parts = [abs_bits(x[..., c:c + piece]).amax(dim=-1) for c in range(0, x.shape[-1], piece)]
+    return torch.stack(parts, dim=-1).amax(dim=-1)
+
+
+def im2col_row_max(pixel_max: torch.Tensor) -> torch.Tensor:
+    """The maxima of the pad-1 3x3 im2col rows of an (N, H, W, C) map from
+    its pixels' maxima (N, H, W) as bits: the max of the nine pixels', 0
+    for a tap outside the map (the zero padding)."""
+    n, h, w = pixel_max.shape
+    padded = F.pad(pixel_max, (1, 1, 1, 1))
+    taps = [padded[:, r:r + h, s:s + w] for r in range(3) for s in range(3)]
+    return torch.stack(taps, dim=-1).amax(dim=-1).reshape(n * h * w)
+
+
+def group_row_max(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """The maxima of x (..., K) per row and group of K / groups channels as
+    bits (..., groups): the grouped expand's scales."""
+    return abs_bits(x.reshape(*x.shape[:-1], groups, -1)).amax(dim=-1)
+
+
+def quantize_with_max(x: torch.Tensor, max_bits: torch.Tensor):
+    """quantize_rows' arithmetic on a published row maximum (bits, x's
+    leading shape): (q, s) with s = m / 127 (1 where 0) by true division."""
+    m = max_of_bits(max_bits)[..., None].to(x.dtype)
+    s = m / torch.full_like(m, 127.0)
     s = torch.where(s == 0, torch.ones_like(s), s)
     return torch.clamp(torch.round(x / s), -127, 127), s
 
@@ -599,6 +653,96 @@ def winograd_int8_plan(n: int, h: int, w: int, cin: int, cout: int,
 # (every served width) are passed through untouched.
 
 
+# The plan of a csrc/stage_int8.cu launch. The kernel's geometry, which its
+# C entry checks every plan against (tests/test_torch_stage_int8_plan.py
+# reads them from the sources): a cooperative grid of at most
+# STAGE_INT8_BLOCKS_PER_SM blocks an SM (kMaxBlocksPerSm), each of
+# STAGE_INT8_WARPGROUPS warpgroups walking work items of its own (64 x 64
+# output tiles, csrc/wgmma_s8.cuh's kBM, kBN), K padded to
+# STAGE_INT8_K_ALIGN, K splits each a multiple of STAGE_INT8_STEP (the
+# tile's stage, kBK) but the last, at most STAGE_INT8_MAX_SPLITS
+# (kSplitCap). The plan's own rule, per GEMM phase: split K only where the
+# phase's tiles are fewer than 1 / STAGE_INT8_FEW_TILES of the warpgroups,
+# and then into walks of at most STAGE_INT8_WALK (a split's partial sums
+# cost a grid barrier and a pass over device memory, more than the
+# parallelism buys elsewhere: tools/chip_split_sweep.py, PERF.md); the
+# winograd2 route's grouped expand does not split.
+STAGE_INT8_FEW_TILES = 8
+STAGE_INT8_WALK = 512
+STAGE_INT8_WARPGROUPS = 2
+STAGE_INT8_TILE_M = 64
+STAGE_INT8_TILE_N = 64
+STAGE_INT8_STEP = 128
+STAGE_INT8_K_ALIGN = 32
+STAGE_INT8_MAX_SPLITS = 16
+STAGE_INT8_BLOCKS_PER_SM = 1
+
+
+class StageInt8Plan(NamedTuple):
+    """How csrc/stage_int8.cu runs one stage: its grid and each GEMM
+    phase's K split over its padded K (the mid's (1, 0) on the winograd2
+    route, whose FP64 mid is no GEMM)."""
+
+    grid: int
+    reduce: Split
+    mid: Split
+    expand: Split
+
+    def phases(self) -> tuple:
+        """The six integers the C entry takes: each phase's splits, chunk."""
+        return (*self.reduce, *self.mid, *self.expand)
+
+
+def stage_int8_phase(p: int, k: int, n: int, grid: int, max_walk: int = 0) -> Split:
+    """The K split of a (p, k) x (k, n) int8 GEMM phase on a grid of `grid`
+    blocks, over k padded to STAGE_INT8_K_ALIGN: the plan's rule (max_walk
+    0) or no item walking more than max_walk of K, splits a multiple of
+    STAGE_INT8_STEP but the last, at most STAGE_INT8_MAX_SPLITS."""
+    kp = _round_up(k, STAGE_INT8_K_ALIGN)
+    tiles = -(-p // STAGE_INT8_TILE_M) * -(-n // STAGE_INT8_TILE_N)
+    if not max_walk:
+        few = tiles * STAGE_INT8_FEW_TILES < grid * STAGE_INT8_WARPGROUPS
+        max_walk = STAGE_INT8_WALK if few else kp
+    want = -(-kp // max_walk)
+    splits = min(want, kp // STAGE_INT8_STEP, STAGE_INT8_MAX_SPLITS)
+    if splits < 2:
+        return Split(1, kp)
+    chunk = _round_up(-(-kp // splits), STAGE_INT8_STEP)
+    return Split(-(-kp // chunk), chunk)
+
+
+def stage_int8_plan(n: int, h: int, w: int, cio: int, cmid: int, mid_algo: str, groups: int,
+                    sms: int = H100_SMS, max_walk: int = 0) -> StageInt8Plan:
+    """The grid and the reduce, direct-mid and expand splits of an int8
+    stage over (n, h, w, cio) with cmid bottleneck channels (multiples of
+    4), mid_algo "direct" or "winograd2" and the expand's quantization
+    groups, on a card with `sms` SMs (max_walk: stage_int8_phase's, for
+    every phase)."""
+    wino = mid_algo == "winograd2"
+    grid = STAGE_INT8_BLOCKS_PER_SM * sms
+    p = n * h * w
+    mid = Split(1, 0) if wino else stage_int8_phase(p, 9 * cmid, cmid, grid, max_walk)
+    expand = (stage_int8_phase(p, cmid, cio, grid, max_walk) if groups == 1
+              else Split(1, _round_up(cmid, STAGE_INT8_K_ALIGN)))
+    return StageInt8Plan(grid, stage_int8_phase(p, cio, cmid, grid, max_walk), mid, expand)
+
+
+@functools.lru_cache(maxsize=None)
+def _stage_int8_workspace(device_index: int, n, h, w, cio, cmid, nb, wino, groups, grid,
+                          phases: tuple) -> int:
+    """4-byte words of workspace csrc/stage_int8.cu needs for this shape and
+    plan on the device."""
+    lib = _build.library("stage_int8")
+    words = ctypes.c_longlong(0)
+    c = _build.cint
+    with torch.cuda.device(device_index):
+        err = lib.resnet_stage_int8_workspace(
+            c(n), c(h), c(w), c(cio), c(cmid), c(nb), c(wino), c(groups), c(grid),
+            (ctypes.c_int * 6)(*phases), ctypes.byref(words))
+    _build.check_error(lib, "resnet_stage_int8_workspace", err)
+    return words.value
+
+
 def ceil4(c: int) -> int:
     return -(-c // 4) * 4
 
@@ -849,8 +993,20 @@ def resnet_stage_int8(x, qstacked: Dict, mid_algo: str = "auto") -> torch.Tensor
     return out[0] if squeeze else out
 
 
-def _stage_int8_launch(x, q: Dict, mid_algo: str, groups: int) -> torch.Tensor:
-    """resnet_stage_int8's launch on CUDA tensors; channels multiples of 4."""
+def resnet_stage_int8_planned(x, qstacked: Dict, mid_algo: str,
+                              plan: StageInt8Plan) -> torch.Tensor:
+    """resnet_stage_int8's launch on CUDA tensors (N, H, W, Cio), channels
+    multiples of 4, under an explicit plan (the wrapper passes
+    stage_int8_plan's; tools/chip_split_sweep.py times others); mid_algo
+    "direct" or "winograd2"."""
+    cmid = qstacked["w_reduce_q"].shape[2]
+    return _stage_int8_launch(x, qstacked, mid_algo, expand_groups(cmid, mid_algo), plan)
+
+
+def _stage_int8_launch(x, q: Dict, mid_algo: str, groups: int,
+                       plan: StageInt8Plan = None) -> torch.Tensor:
+    """resnet_stage_int8's launch on CUDA tensors; channels multiples of 4;
+    plan: stage_int8_plan's when None."""
     n, h, w, cio = x.shape
     nb, _, cmid = q["w_reduce_q"].shape
     wino = mid_algo == "winograd2"
@@ -871,8 +1027,11 @@ def _stage_int8_launch(x, q: Dict, mid_algo: str, groups: int) -> torch.Tensor:
     _build.check_tensors(q[mid_key], dtype=mid_dtype, device=x.device)
     if x.data_ptr() % 16:
         x = x.clone()  # the kernel reads rows as float4s
-    words = _workspace_words("stage_int8", "resnet_stage_int8", x.device.index,
-                             n, h, w, cio, cmid, nb, int(wino), groups)
+    if plan is None:
+        plan = stage_int8_plan(n, h, w, cio, cmid, mid_algo, groups, _build.sm_count(x.device))
+    phases = plan.phases()
+    words = _stage_int8_workspace(x.device.index, n, h, w, cio, cmid, nb, int(wino), groups,
+                                  plan.grid, phases)
     ws = torch.empty(words, device=x.device, dtype=torch.float32)
     out = torch.empty_like(x)
     ptr, c = _build.ptr, _build.cint
@@ -882,7 +1041,8 @@ def _stage_int8_launch(x, q: Dict, mid_algo: str, groups: int) -> torch.Tensor:
         ptr(q["b_reduce"]), ptr(q[mid_key]), ptr(q["w9_mid_s"]), ptr(q["s_mid"]),
         ptr(q["b_mid"]), ptr(q["w_expand_q"]), ptr(q["w_expand_s"]), ptr(q["s_expand"]),
         ptr(q["b_expand"]), ptr(out), ptr(ws), ctypes.c_longlong(words),
-        c(n), c(h), c(w), c(cio), c(cmid), c(nb), c(wino), c(groups),
+        c(n), c(h), c(w), c(cio), c(cmid), c(nb), c(wino), c(groups), c(plan.grid),
+        (ctypes.c_int * 6)(*phases),
     )
     return out
 
