@@ -184,7 +184,8 @@ Phases, each of which must pass (exit 1 otherwise):
    stages, the 14->7 bf16w transition and the bf16w stem at N=8, the bf16w
    block at modes 6 and 9, the bf16w Winograd at 56x56x64, the bf16w direct
    3x3 at 7x7x512 and the bf16w basic stage at 7x7x512 at N=8; the stem's
-   prepared-input entry at N=8 at "f32" and "bf16w"), on seeded
+   prepared-input entry at N=8 at "f32" and "bf16w"; the int8 tiers' bf16-filter
+   Winograd (the FP64 tile) at N=8 and N=32, 56x56x64), on seeded
    inputs. Bound: max abs error <= 1e-4 *
    max(1, max|plain|); the int8 direct 3x3, stage, transition, pointwise,
    basic stage and Winograd (their twins' arithmetic, exact int32 sums,
@@ -209,12 +210,14 @@ Phases, each of which must pass (exit 1 otherwise):
    one eager wrapper call
    between CUDA events, host path included (median of 20 after 2
    warm-ups); and the bound: the larger of the operations' time and the
-   bytes' time (H100 SXM data sheet: 67 TFLOP/s FP32 outside the tensor
-   cores, 495 TFLOP/s TF32, 989 TFLOP/s BF16 and 1979 TOPS INT8 dense on
-   the tensor cores, 3.35 TB/s HBM). Operations: int8 MACs x 2 at the INT8
-   rate; the bf16 stem's products and the int8 stage's bf16-filter F(2,3)
-   products (as two BF16 passes, the JAX kernel's hi/lo split) at the BF16
-   rate; the tensor-core products of the pointwise kernel (P > 8), the
+   bytes' time (H100 SXM data sheet: 67 TFLOP/s FP32 and 34 TFLOP/s FP64
+   outside the tensor cores, 67 TFLOP/s FP64, 495 TFLOP/s TF32, 989
+   TFLOP/s BF16 and 1979 TOPS INT8 dense on the tensor cores, 3.35 TB/s
+   HBM). Operations: int8 MACs x 2 at the INT8 rate; the bf16 stem's
+   products at the BF16 rate; the FP64 F(2,3) tile's products (the int8
+   tiers' bf16-filter Winograd and the int8 stage's winograd2 mid) at the
+   FP64 tensor cores' rate and its transforms at the FP64 rate outside
+   them; the tensor-core products of the pointwise kernel (P > 8), the
    direct 3x3, the f32 Winograd, the f32 stage, the f32 transition (their
    reduce, mid and expand) and the f32 basic stage (its 2B convs) as three
    TF32 passes (their 3xTF32 split) at the TF32 rate; the bf16w
@@ -223,12 +226,13 @@ Phases, each of which must pass (exit 1 otherwise):
    and a_lo) at the BF16 rate; the
    pointwise GEMV's (P <= 8) and the other f32 GEMMs, Winograd transforms,
    epilogues (4 FLOPs an output, 5 with a residual) and int8 quantization
-   (2 a quantized value) at the FP32 rate; the bf16-filter Winograd's
-   products as two BF16 passes too. Bytes: each input read once
+   (2 a quantized value) at the FP32 rate. Bytes: each input read once
    (int8 weights 1 byte, bf16 filters and weights 2), each output written
    once. Library: torch.matmul / F.conv2d (f32; a basic stage its 2B convs;
    a bf16w row the same call as its kernel's f32 row, on the f32 weights), the
-   bf16-filter Winograd F.conv2d in bf16, and for the int8 kernels
+   bf16-filter Winograd F.conv2d in f32 on the widened bf16 filter, TF32
+   off (the same function; F.conv2d in bf16 beside it, library_bf16_ms),
+   and for the int8 kernels
    torch._int_mm on operands quantized (the 3x3s im2col'd, the int8
    Winograd's V per position) before the timed region, summed over the
    kernel's GEMMs, rows padded to 32 where P <= 16 (the call refuses fewer
@@ -298,7 +302,8 @@ Phases, each of which must pass (exit 1 otherwise):
    the stem row sums its f32 and bf16 shapes, the Winograd row its f32 and
    bf16-filter shapes, and its "routes" each apart: "tensor_cores" the f32
    shapes, "fp64" the int8 tier's bf16-filter ones (their launches an
-   image, ms, plain, library and bound ms); the bf16w instantiations
+   image, ms, plain, library and bound ms, and for "fp64" the bf16
+   F.conv2d's library_bf16_ms); the bf16w instantiations
    and the stem's prepared-input entry are rows of their own,
    "<kernel>_bf16w", "stem_pre", their source the kernel's file;
    "launches" the wrappers' launches in the counted runs, the warm-up and
@@ -323,6 +328,9 @@ import time
 import numpy as np
 
 FP32_FLOPS = 67e12   # H100 SXM, FP32 outside the tensor cores, dense
+FP64_CORE_FLOPS = 34e12  # FP64 outside the tensor cores
+FP64_FLOPS = 67e12   # FP64 tensor cores, dense; FP32's rate too, so a work
+                     # dict ({rate: count}) adds the two counts under one key
 TF32_FLOPS = 495e12  # tensor cores, dense
 BF16_FLOPS = 989e12  # tensor cores, dense
 INT8_OPS = 1979e12   # tensor cores, dense
@@ -826,7 +834,8 @@ def main() -> int:
         transition_block_fused_plain, transition_plan,
     )
     from winograd_tpu_torch.kernels.winograd import (
-        conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain, winograd_plan,
+        conv3x3_bn_winograd, conv3x3_bn_winograd_plain, winograd2_mid_plain, winograd_fp64_plan,
+        winograd_plan,
     )
     from winograd_tpu_torch.models.basic import (
         basicnet_arrays, basicnet_forward, basicnet_forward_int8, basicnet_forward_train,
@@ -967,10 +976,12 @@ def main() -> int:
         return x, wt, s, b, lambda: F.conv2d(nchw(x), w_cl, padding=1)
 
     def winograd_case(rng, n, h, w, cin, cout, m, relu, filt="f32"):
-        """filt "bf16": the bf16-filter F(2,3) (its products as two BF16
-        passes, the JAX kernel's hi/lo split; library F.conv2d in bf16);
-        "bf16w": the bf16w instantiation (products as two BF16 passes, u at
-        2 bytes; library the f32 row's call)."""
+        """filt "bf16": the bf16-filter F(2,3) on the FP64 tile (its products
+        at the FP64 tensor cores' rate, its transforms at the FP64 rate;
+        library F.conv2d in f32 on the widened bf16 filter, the same
+        function, with F.conv2d in bf16 beside it); "bf16w": the bf16w
+        instantiation (products as two BF16 passes, u at 2 bytes; library
+        the f32 row's call)."""
         x, wt, s, b, lib = conv3x3_inputs(rng, n, h, w, cin, cout)
         u = t(transforms.transform_filter(wt, m=m))
         a2, nt = (m + 2) ** 2, n * (-(-h // m)) * (-(-w // m))
@@ -980,11 +991,14 @@ def main() -> int:
             u = u.to(torch.bfloat16)
             x16 = nchw(x).to(torch.bfloat16)
             w16 = t(wt).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            w32 = w16.float().contiguous(memory_format=torch.channels_last)
             return (lambda: conv3x3_bn_winograd(x, u, s, b, relu, "bf16"),
                     lambda: winograd2_mid_plain(x, u, s, b, relu),
-                    lambda: F.conv2d(x16, w16, padding=1),
-                    {BF16_FLOPS: 2 * products, FP32_FLOPS: transforms_flops},
-                    4 * n * h * w * (cin + cout) + 2 * a2 * cin * cout + 8 * cout)
+                    lambda: F.conv2d(nchw(x), w32, padding=1),
+                    {FP64_FLOPS: products + 4 * n * h * w * cout,  # + the FP32 epilogue
+                     FP64_CORE_FLOPS: transforms_flops},
+                    4 * n * h * w * (cin + cout) + 2 * a2 * cin * cout + 8 * cout,
+                    {"library_bf16_ms": lambda: F.conv2d(x16, w16, padding=1)})
         if filt == "bf16w":
             u = u.to(torch.bfloat16)
             return (lambda: conv3x3_bn_winograd(x, u, s, b, relu, "bf16w"),
@@ -1252,8 +1266,8 @@ def main() -> int:
         if mid == "winograd2":
             nt = n * (-(-h // 2)) * (-(-w // 2))
             fwd, inv = _winograd_transform_flops(2)
-            work[BF16_FLOPS] = nb * 2 * (2 * 16 * nt * cmid * cmid)
-            work[FP32_FLOPS] += nb * nt * (fwd + inv) * cmid
+            work[FP64_FLOPS] = work.get(FP64_FLOPS, 0) + nb * 2 * 16 * nt * cmid * cmid
+            work[FP64_CORE_FLOPS] = nb * nt * (fwd + inv) * cmid
             v = t(_rand(rng, 16, nt, cmid)).to(torch.bfloat16)
             u = qs["u2_mid_bf16"]
 
@@ -1996,9 +2010,11 @@ def main() -> int:
     # f32 and int8 direct 3x3s at N=8; the stem at N=8 in every precision;
     # the bf16w pointwise head, conv4_x and conv5_x stages and 14->7
     # transition at N=8, the bf16w block at modes 6 and 9; the bf16w
-    # Winograd, direct 3x3 and basic stage of ResNet-34 at N=8.
+    # Winograd, direct 3x3 and basic stage of ResNet-34 at N=8; the int8
+    # tiers' bf16-filter Winograd (the FP64 tile) at N=8 and N=32.
     extra = {
-        "winograd": [(1, 14, 14, 128, 128, 4, True)],
+        "winograd": [(1, 14, 14, 128, 128, 4, True), (8, 56, 56, 64, 64, 2, True, "bf16"),
+                     (32, 56, 56, 64, 64, 2, True, "bf16")],
         "stage": [(1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2"),
                   (8, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct")],
         "transition": [(8, 14, 14, 1024, 512, 2048)],
@@ -2057,10 +2073,18 @@ def main() -> int:
         return {"tile_blocks": plan.tile_blocks, "col_blocks": plan.col_blocks,
                 "blocks": plan.blocks, "chunk": plan.chunk}
 
+    def winograd_fp64_cut(n, h, w, cin, cout, m, relu, filt="f32"):
+        """The FP64 tile's item shape and grid (the bf16-filter shapes)."""
+        if filt != "bf16":
+            return {}
+        plan = winograd_fp64_plan(n, h, w, cout, sms)
+        return {"cols": plan.cols, "blocks": plan.blocks}
+
     plans_of = {
         "pointwise_int8": lambda p, k, n, relu: {
             "route": q8.pointwise_int8_plan(p, k, n, sms).path},
         "winograd_int8": winograd_int8_cut,
+        "winograd": winograd_fp64_cut,
     }
     # Launches: the wrappers' (the warm-up and capture passes of each shape)
     # in every counted run. A prepared-input run adds its stem's shapes to
@@ -2087,7 +2111,8 @@ def main() -> int:
         lib_ok = True
         for shape in dict.fromkeys(list(counter) + extra.get(name, [])):
             n_img = counter.get(shape, 0)
-            kern, plain, lib, work, nbytes = make_case[name](rng, *shape)
+            kern, plain, lib, work, nbytes, *more = make_case[name](rng, *shape)
+            beside = more[0] if more else {}   # other library calls, timed beside
             exact = name in EXACT or name in ("stem", "winograd") and shape[-1] == "bf16"
             rtol = 0.0 if exact else ATOL
             got, ref = kern(), plain()
@@ -2104,6 +2129,7 @@ def main() -> int:
                 print(json.dumps({"kernel": name, "shape": shape, "library_error": str(e)[:300]}))
                 lib_ms, lib_ok = None, False
             ms, plain_ms = device_ms(kern), device_ms(plain)
+            beside_ms = {key: device_ms(fn) for key, fn in beside.items()}
             host_ms = wrapper_ms(kern)
             ops_ms, bytes_ms = bound(work, nbytes)
             splits = {"splits": splits_of[name](*shape)} if name in splits_of else {}
@@ -2112,7 +2138,7 @@ def main() -> int:
             print(json.dumps({
                 "kernel": name, "shape": shape, "per_image": n_img, **splits,
                 "max_abs_err": err, "tol": tol, "ms": ms, "wrapper_ms": host_ms, "plain_ms": plain_ms,
-                "library_ms": lib_ms, "bound_ms": max(ops_ms, bytes_ms),
+                "library_ms": lib_ms, **beside_ms, "bound_ms": max(ops_ms, bytes_ms),
                 "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
                 "gops_s": sum(work.values()) / ms / 1e6,
             }), flush=True)
@@ -2124,7 +2150,10 @@ def main() -> int:
                 if name == "winograd":
                     routes["fp64" if shape[-1] == "bf16" else "tensor_cores"][key] += n_img * v
             if name == "winograd":
-                routes["fp64" if shape[-1] == "bf16" else "tensor_cores"]["per_image"] += n_img
+                route = routes["fp64" if shape[-1] == "bf16" else "tensor_cores"]
+                route["per_image"] += n_img
+                for key, v in beside_ms.items():
+                    route[key] += n_img * v
         tot["library_ok"] = lib_ok
         totals[name] = tot
 
@@ -2213,7 +2242,9 @@ def main() -> int:
             "bound_by": "operations" if tot["ops_ms"] >= tot["bytes_ms"] else "bytes",
             "library_ms": tot["library_ms"] if tot["library_ok"] else None,
             **({"routes": {r: {k: v[k] for k in ("per_image", "ms", "plain_ms", "library_ms",
-                                                 "bound_ms")} for r, v in routes.items()}}
+                                                 "bound_ms", *(["library_bf16_ms"] if r == "fp64"
+                                                               else []))}
+                           for r, v in routes.items()}}
                if name == "winograd" else {}),
         })
     print(json.dumps({"kernels": kernels}))

@@ -29,7 +29,10 @@ on bf16 w192; the stage at one to five blocks, both mids, conv5_x at N=1 and
 F(2,3), the direct 3x3 and the basic stage at their served ResNet-34 shapes
 at N=1 and N=8, ragged Cout and Cin), each within the f32 bound of its twin
 and repeating to the bit, and each refusing an activation that is not
-float32; the int8 tier's F(2,3) on bf16 filters (FP64) equal to its twin;
+float32; the int8 tier's F(2,3) on bf16 filters (the FP64 tile on the FP64
+tensor cores) equal to its twin, at N=1, 8 and 32 under every Cout block
+of its items, repeating to the bit, keeping a NaN, refusing a plan off its
+geometry, and as the int8 stage's winograd2 mid under every item shape;
 the training Functions of kernels/vjp.py (each per-layer Function and
 composite, f32 and bf16w) against the same Function on the CPU, output and
 every gradient, and one SGD step replayed from a CUDA graph against the
@@ -90,10 +93,11 @@ from winograd_tpu_torch.kernels.transition import (
     TRANSITION_MAX_SUM, TRANSITION_STEP, fuse_transition_weights, transition_block_fused,
     transition_block_fused_plain, transition_block_fused_planned, transition_plan,
 )
-from winograd_tpu_torch.kernels.splitk import split_k
+from winograd_tpu_torch.kernels.splitk import Split, split_k
 from winograd_tpu_torch.kernels.winograd import (
-    WINOGRAD_STEP, conv3x3_bn_winograd, conv3x3_bn_winograd_plain, conv3x3_bn_winograd_planned,
-    winograd2_mid_plain, winograd_plan, winograd_tiles,
+    WINOGRAD_FP64_COLS, WINOGRAD_STEP, conv3x3_bn_winograd, conv3x3_bn_winograd_fp64_planned,
+    conv3x3_bn_winograd_plain, conv3x3_bn_winograd_planned, winograd2_mid_plain,
+    winograd_fp64_items, winograd_fp64_plan, winograd_plan, winograd_tiles,
 )
 from winograd_tpu_torch.models.basic import basicnet_params, init_basicnet_arrays
 from winograd_tpu_torch.models.convert import stem_filter_s2d
@@ -446,6 +450,27 @@ def test_stage_int8_served_shapes_in_batches(dev, n, hw, cio, cmid, nb, mid):
     _equal(q8.resnet_stage_int8(x, stacked, mid), q8.resnet_stage_int8_plain(x, stacked, mid))
 
 
+# The winograd2 route's FP64 mid under every Cout block of its items
+# (the plan's mid phase, (1, cols)), at conv2_x and conv3_x and at a Cmid
+# off a multiple of 8 (U by element loads), held to the bit; the entry
+# refuses a mid phase it does not take.
+@pytest.mark.parametrize("n,hw,cio,cmid,nb", [(1, 56, 256, 64, 2), (1, 28, 512, 128, 3),
+                                              (2, 9, 144, 20, 2)])
+def test_stage_int8_winograd2_under_every_fp64_item_shape(dev, n, hw, cio, cmid, nb):
+    rng = np.random.default_rng(n + hw + cmid + 5)
+    stacked = _qstacked(rng, dev, nb, cio, cmid)
+    x = _r(rng, dev, n, hw, hw, cio).abs()
+    ref = q8.resnet_stage_int8_plain(x, stacked, "winograd2")
+    chosen = q8.stage_int8_plan(n, hw, hw, cio, cmid, "winograd2",
+                                q8.expand_groups(cmid, "winograd2"), _build.sm_count(dev))
+    for cols in WINOGRAD_FP64_COLS:
+        plan = chosen._replace(mid=Split(1, cols))
+        _equal(q8.resnet_stage_int8_planned(x, stacked, "winograd2", plan), ref)
+    for mid in (Split(1, 24), Split(2, 16), Split(1, 0)):
+        with pytest.raises(RuntimeError):
+            q8.resnet_stage_int8_planned(x, stacked, "winograd2", chosen._replace(mid=mid))
+
+
 @pytest.mark.parametrize("mid,hw,cmid", [("direct", 14, 64), ("winograd2", 28, 64),
                                          ("winograd2", 14, 256)])
 def test_stage_int8_keeps_a_nan_through_its_folded_quantize(dev, mid, hw, cmid):
@@ -755,6 +780,68 @@ def test_winograd_bf16_filter_edges(dev, n, h, w, cin, cout, relu):
     u = torch.as_tensor(transforms.transform_filter(wt, m=2), device=dev).to(torch.bfloat16)
     s, b = _bn(rng, dev, cout)
     _equal(conv3x3_bn_winograd(x, u, s, b, relu, "bf16"), winograd2_mid_plain(x, u, s, b, relu))
+
+
+def _bf16_filter_case(rng, dev, n, h, w, cin, cout):
+    x = _r(rng, dev, n, h, w, cin)
+    wt = (rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)
+    u = torch.as_tensor(transforms.transform_filter(wt, m=2), device=dev).to(torch.bfloat16)
+    return (x, u, *_bn(rng, dev, cout))
+
+
+# The FP64 F(2,3) tile (csrc/winograd.cuh::wino_f64_tile on the FP64 tensor
+# cores) at its served shape, ResNet-18/34 int8's conv2_x, at N=1, 8 and 32:
+# under its plan, under every Cout block the kernels take, on a grid of one
+# block an SM (each block walking several items), and again under its plan,
+# equal to its twin and to itself to the bit.
+@pytest.mark.parametrize("n", [1, 8, 32])
+def test_winograd_bf16_filter_served_batches(dev, n):
+    x, u, s, b = _bf16_filter_case(np.random.default_rng(n + 56), dev, n, 56, 56, 64, 64)
+    ref = winograd2_mid_plain(x, u, s, b)
+    out = conv3x3_bn_winograd(x, u, s, b, True, "bf16")
+    _equal(out, ref)
+    sms = _build.sm_count(dev)
+    for cols in WINOGRAD_FP64_COLS:
+        items = winograd_fp64_items(n, 56, 56, 64, cols)
+        for blocks in (items, min(items, sms)):
+            plan = winograd_fp64_plan(n, 56, 56, 64, sms)._replace(cols=cols, blocks=blocks)
+            _equal(conv3x3_bn_winograd_fp64_planned(x, u, s, b, True, plan), ref)
+    again = conv3x3_bn_winograd(x, u, s, b, True, "bf16")
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("relu", [True, False])
+def test_winograd_bf16_filter_keeps_a_nan(dev, relu):
+    """A NaN in the input reaches exactly the outputs whose tiles read it,
+    through the FP64 MMAs and the NaN-keeping ReLU, as in the twin."""
+    x, u, s, b = _bf16_filter_case(np.random.default_rng(3), dev, 1, 14, 14, 64, 40)
+    x[0, 5, 6, 7] = float("nan")
+    out, ref = conv3x3_bn_winograd(x, u, s, b, relu, "bf16"), winograd2_mid_plain(x, u, s, b, relu)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    assert nan.any() and torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], ref[~nan])
+
+
+def test_winograd_bf16_filter_entry_refuses_a_plan_it_does_not_take(dev):
+    """csrc/winograd.cu's FP64 entry takes only the Cout blocks it was
+    compiled for, 1 to `items` blocks, and a filter it can copy in 16-byte
+    pieces (Cout a multiple of 8, 16-byte aligned), which the wrapper makes
+    of any other."""
+    n, h, w, cin, cout = 1, 14, 14, 64, 64
+    x, u, s, b = _bf16_filter_case(np.random.default_rng(7), dev, n, h, w, cin, cout)
+    plan = winograd_fp64_plan(n, h, w, cout, _build.sm_count(dev))
+    for bad in (plan._replace(cols=24), plan._replace(cols=64), plan._replace(blocks=0),
+                plan._replace(blocks=plan.blocks + 1)):
+        with pytest.raises(RuntimeError):
+            conv3x3_bn_winograd_fp64_planned(x, u, s, b, True, bad)
+    shifted = torch.empty(u.numel() + 1, dtype=u.dtype, device=dev)[1:].view_as(u).copy_(u)
+    u60 = u[..., :60].contiguous()
+    for uu, ss, bb in ((shifted, s, b), (u60, s[:60], b[:60])):
+        with pytest.raises(RuntimeError):
+            conv3x3_bn_winograd_fp64_planned(x, uu, ss, bb, True, plan)
+        _equal(conv3x3_bn_winograd(x, uu, ss, bb, True, "bf16"), winograd2_mid_plain(x, uu, ss, bb))
 
 
 def test_basic_wrappers_reject_what_the_kernels_do_not_take(dev):

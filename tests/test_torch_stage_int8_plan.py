@@ -15,6 +15,7 @@ import torch
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels import quantized as q8
 from winograd_tpu_torch.kernels.splitk import H100_SMS
+from winograd_tpu_torch.kernels.winograd import winograd_fp64_plan
 
 CSRC = pathlib.Path(q8.__file__).resolve().parent.parent / "csrc"
 
@@ -53,8 +54,8 @@ def test_stage_int8_plan_covers_k_at_the_served_stages(n, hw, cio, cmid, mid):
     assert plan.grid == q8.STAGE_INT8_BLOCKS_PER_SM * H100_SMS
     p = n * hw * hw
     _check_phase(plan.reduce, p, cio, cmid, plan.grid)
-    if mid == "winograd2":
-        assert plan.mid == (1, 0)
+    if mid == "winograd2":   # the FP64 mid's items: (1, their Cout block)
+        assert plan.mid == (1, winograd_fp64_plan(n, hw, hw, cmid, plan.grid).cols)
     else:
         _check_phase(plan.mid, p, 9 * cmid, cmid, plan.grid)
     _check_phase(plan.expand, p, cmid, cio, plan.grid)

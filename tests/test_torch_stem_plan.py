@@ -60,5 +60,9 @@ def test_two_blocks_fit_an_sm(cin):
 
 
 def test_products_run_on_the_fp64_tensor_cores():
-    assert "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64" in SOURCE
+    """The stem's dmma is the shared FP64 MMA header's m16n8k4."""
+    header = (pathlib.Path(__file__).resolve().parent.parent / "winograd_tpu_torch" / "csrc"
+              / "mma_f64.cuh").read_text()
+    assert '#include "mma_f64.cuh"' in SOURCE and "using wt::dmma;" in SOURCE
+    assert "mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64" in header
     assert "fmaf(" not in SOURCE and "fma(" not in SOURCE

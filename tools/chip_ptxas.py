@@ -3,20 +3,25 @@
 shared memory of every kernel instantiation, and the tensor-core
 instructions in each library's SASS.
 
-    python3 tools/chip_ptxas.py [NAME,...]      # default: every csrc/*.cu
+    python3 tools/chip_ptxas.py [NAME,...] [--root DIR]   # default: every csrc/*.cu
 
 Run from the repository root on a machine with nvcc (the CUDA toolkit's
 cuobjdump beside it); no card is needed. Each csrc/<NAME>.cu is compiled
 with kernels/_build.py's flags plus -Xptxas -v into a scratch library under
-build/ptxas/, all at once; then one JSON line per kernel entry
+build/ptxas/, all at once (--root DIR: DIR's winograd_tpu_torch/csrc, for
+example a copy that tools/chip_fp64_tile.py edited); then one JSON line per kernel entry
 ({"library", "kernel", "registers", "spill_stores", "spill_loads",
-"stack", "smem"}) and one per library counting its SASS instructions by
-opcode family ("HGMMA": floating-point wgmma, "IGMMA": integer wgmma, "HMMA",
+"stack", "smem"}; smem the static shared memory, 0 where a kernel has
+none), one per device function compiled apart (__noinline__: {"library",
+"function", "spill_stores", "spill_loads", "stack"}, its registers the
+kernel's) and one per library counting its SASS instructions by opcode
+family ("HGMMA": floating-point wgmma, "IGMMA": integer wgmma, "HMMA",
 "IMMA" and "DMMA": mma.sync, "UTMALDG": TMA loads).
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import pathlib
 import re
@@ -28,17 +33,22 @@ OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "DMMA", "UTMALDG", "UBLKCP")
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("names", nargs="?", default="")
+    ap.add_argument("--root", type=pathlib.Path, default=ROOT)
+    args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     from winograd_tpu_torch.kernels import _build
 
-    names = sys.argv[1].split(",") if len(sys.argv) > 1 else list(_build.KERNELS)
+    csrc = args.root.resolve() / "winograd_tpu_torch" / "csrc"
+    names = args.names.split(",") if args.names else list(_build.KERNELS)
     nvcc = _build._nvcc()
     out = ROOT / "build" / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
     links = [f"-L{d}" for d in _build._stub_dirs(nvcc)] + list(_build.LINK_FLAGS)
     procs = {name: subprocess.Popen(
         [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out / f"lib{name}.so"),
-         str(_build.CSRC / f"{name}.cu"), *links],
+         str(csrc / f"{name}.cu"), *links],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for name in names}
     ok = True
     for name, proc in procs.items():
@@ -47,24 +57,34 @@ def main() -> int:
             print(f"nvcc failed for {name}.cu:\n{log}", file=sys.stderr)
             ok = False
             continue
-        kernel = None
+        kernel, props, fn = None, {}, None
         for line in log.splitlines():
             m = re.search(r"Compiling entry function '([^']+)'", line)
             if m:
-                kernel, stack, stores, loads = m.group(1), 0, 0, 0
+                kernel = m.group(1)
+                continue
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = m.group(1)
                 continue
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                           r"(\d+) bytes spill loads", line)
-            if m and kernel:
-                stack, stores, loads = map(int, m.groups())
+            if m and fn:
+                props[fn] = tuple(map(int, m.groups()))
+                fn = None
                 continue
-            m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+            m = re.search(r"Used (\d+) registers", line)
             if m and kernel:
+                smem = re.search(r"(\d+) bytes smem", line)
+                stack, stores, loads = props.pop(kernel, (0, 0, 0))
                 print(json.dumps({"library": name, "kernel": kernel,
                                   "registers": int(m.group(1)), "spill_stores": stores,
                                   "spill_loads": loads, "stack": stack,
-                                  "smem": int(m.group(2))}), flush=True)
+                                  "smem": int(smem.group(1)) if smem else 0}), flush=True)
                 kernel = None
+        for fn, (stack, stores, loads) in props.items():   # functions called, not inlined
+            print(json.dumps({"library": name, "function": fn, "spill_stores": stores,
+                              "spill_loads": loads, "stack": stack}), flush=True)
         cuobjdump = pathlib.Path(nvcc).with_name("cuobjdump")
         sass = subprocess.run([str(cuobjdump), "-sass", str(out / f"lib{name}.so")],
                               capture_output=True, text=True).stdout

@@ -2,7 +2,9 @@
 """K-split sweep of the split-K kernels (csrc/pointwise.cu, csrc/direct.cu,
 csrc/direct_int8.cu, csrc/transition_int8.cu, csrc/pointwise_int8.cu,
 csrc/transition.cu, csrc/basic_stage.cu and csrc/basic_stage_int8.cu), of the f32 and bf16w
-Winograd's work-item cut (csrc/winograd.cu), of the f32 and bf16w stage's plan
+Winograd's work-item cut (csrc/winograd.cu), of the int8 tiers' FP64 F(2,3)
+tile's item shape (winograd_bf16: csrc/winograd.cu's winograd_conv3x3_bn_bf16),
+of the f32 and bf16w stage's plan
 (csrc/stage.cu), of the int8 stage's (csrc/stage_int8.cu) and of the int8
 Winograd's grid (csrc/winograd_int8.cu) on one CUDA card, and an A/B of
 their wrappers (and of the stem's, csrc/stem.cu) against another checkout.
@@ -19,7 +21,7 @@ Every timed call is first held against its plain twin (pointwise, direct,
 winograd, stage, stem, transition and basic_stage within 1e-4 * max(1, max|plain|),
 transition_int8 within 1e-3 * max(1, max|plain|), the bound its kernels
 before the s8 mma.sync design met, direct_int8, stage_int8, pointwise_int8,
-basic_stage_int8 and winograd_int8 exactly). Device ms per
+basic_stage_int8, winograd_int8 and winograd_bf16 exactly). Device ms per
 call: 20 calls in one CUDA graph, the median of 20 replays between CUDA
 events, inputs in L2. The card's name and power limit
 come first, then one JSON line per shape and candidate.
@@ -32,7 +34,10 @@ rule at each walk cap of STAGE_WALKS, and on a grid of one block an SM; the
 int8 stage under its plan and under quantized.py::stage_int8_plan's walk
 caps (STAGE_INT8_WALKS); the f32 and bf16w Winograd under its plan and under
 the Cin splits that split_k gives for 1, 2, 3, 4 and 8 wanted ranges of at
-least 32; the int8 transition under its plan and under plans that change
+least 32; the FP64 F(2,3) tile (winograd_bf16, and the int8 stage's
+winograd2 mid) under its plan and under every Cout block of its items
+(winograd.py::WINOGRAD_FP64_COLS), the bf16-filter 3x3 also on grids of
+one and two blocks an SM; the int8 transition under its plan and under plans that change
 one of its phases: the reduce's or the mid's split for 1, 2, 4, ..., 32
 wanted ranges, or the last phase's expand and projection splits for 1, 2
 and 4 by 1, 2, 4 and 8 wanted ranges; the f32 transition under its plan
@@ -48,7 +53,7 @@ walk a Cin past WINO_INT8_CHUNK takes).
 
 --ab DIR times the public wrappers (kernels/pointwise.py::conv1x1_bn,
 kernels/direct.py::conv3x3_bn_direct, kernels/winograd.py::
-conv3x3_bn_winograd, kernels/stage.py::resnet_stage_fused,
+conv3x3_bn_winograd (at f32, bf16w and bf16), kernels/stage.py::resnet_stage_fused,
 kernels/stem.py::stem_fused, kernels/transition.py::transition_block_fused,
 kernels/quantized.py::conv3x3_bn_int8, ::resnet_stage_int8,
 ::transition_block_int8, ::conv1x1_bn_int8 and ::conv3x3_bn_winograd_int8,
@@ -60,9 +65,9 @@ builds its kernels there, in turns DIR, this, this, DIR, on the same
 seeded inputs ("--wrappers ROOT" is one such turn).
 
 --only takes kernel names (pointwise, pointwise_bf16w, direct, winograd,
-winograd_bf16w, stage, stage_bf16w, direct_int8, stage_int8, stem, transition_int8,
-pointwise_int8, transition, winograd_int8, basic_stage, basic_stage_int8)
-and keeps those shapes alone.
+winograd_bf16w, winograd_bf16, stage, stage_bf16w, direct_int8, stage_int8, stem,
+transition_int8, pointwise_int8, transition, winograd_int8, basic_stage,
+basic_stage_int8) and keeps those shapes alone.
 """
 
 from __future__ import annotations
@@ -104,6 +109,9 @@ STAGE = [  # (N, H, W, Cio, Cmid, blocks, mid)
 # (F(2,3) only) and "stage_bf16w").
 POINTWISE_BF16W = POINTWISE
 WINOGRAD_BF16W = [s for s in WINOGRAD if s[5] == 2]
+# The int8 tiers' F(2,3) on bf16 filters (the FP64 tile): ResNet-18/34's
+# conv2_x at N = 1, 8 and 32, (N, H, W, Cin, Cout, relu).
+WINOGRAD_BF16 = [(n, 56, 56, 64, 64, True) for n in (1, 8, 32)]
 STAGE_BF16W = [s for s in STAGE if s[-1] == "direct" or s[0] == 1]
 # The candidate walk caps of stage.py::stage_plan (one for every phase, or none).
 STAGE_WALKS = (256, 512, 1024, 2048, 1 << 20)
@@ -111,6 +119,8 @@ STAGE_INT8 = [  # (N, H, W, Cio, Cmid, blocks, mid)
     (1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
     (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
     (8, 14, 14, 1024, 256, 5, "direct"), (32, 14, 14, 1024, 256, 5, "direct"),
+    (8, 56, 56, 256, 64, 2, "winograd2"), (8, 28, 28, 512, 128, 3, "winograd2"),
+    (32, 56, 56, 256, 64, 2, "winograd2"), (32, 28, 28, 512, 128, 3, "winograd2"),
 ]
 STEM = [  # (N, H, W, Cin, C, precision): A/B only (its grid is the kernel's)
     (1, 224, 224, 3, 64, "f32"), (1, 224, 224, 3, 64, "bf16"), (8, 224, 224, 3, 64, "f32"),
@@ -202,7 +212,7 @@ def _cases_all(dev):
     from winograd_tpu_torch.kernels.transition import (
         fuse_transition_weights, transition_block_fused_plain,
     )
-    from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd_plain
+    from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd_plain, winograd2_mid_plain
     from winograd_tpu_torch.models.convert import stem_filter_s2d
 
     rng = np.random.default_rng(0)
@@ -249,6 +259,14 @@ def _cases_all(dev):
         tol = 1e-4 * max(1.0, ref.abs().max().item())
         yield ("winograd_bf16w", (n, h, wd, cin, cout, m, relu), (x, u, s, b, relu, "bf16w"), ref,
                lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for n, h, wd, cin, cout, relu in WINOGRAD_BF16:
+        x = rand(n, h, wd, cin)
+        u = t(transforms.transform_filter((rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32),
+                                          m=2)).bfloat16()
+        s, b = t((rng.random(cout) * 0.5).astype(np.float32)), rand(cout)
+        ref = winograd2_mid_plain(x, u, s, b, relu)
+        yield ("winograd_bf16", (n, h, wd, cin, cout, relu), (x, u, s, b, relu, "bf16"), ref,
+               lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
     for name, n, h, wd, cio, cmid, nb, mid in (
             [("stage", *shape) for shape in STAGE]
             + [("stage_bf16w", *shape) for shape in STAGE_BF16W]):
@@ -387,7 +405,7 @@ def wrappers(dev) -> bool:
 
     _build.build_all()
     call = {"pointwise": conv1x1_bn, "direct": conv3x3_bn_direct, "winograd": conv3x3_bn_winograd,
-            "winograd_bf16w": conv3x3_bn_winograd,
+            "winograd_bf16w": conv3x3_bn_winograd, "winograd_bf16": conv3x3_bn_winograd,
             "stage": resnet_stage_fused, "direct_int8": conv3x3_bn_int8,
             "pointwise_bf16w": conv1x1_bn, "stage_bf16w": resnet_stage_fused,
             "stage_int8": resnet_stage_int8, "stem": stem_fused,
@@ -397,8 +415,10 @@ def wrappers(dev) -> bool:
     ok = True
     for name, shape, args, _, agrees in cases(dev):
         fn = (lambda f=call[name], args=args: f(*args))
-        ok &= agrees(fn())
-        print(json.dumps({"kernel": name, "shape": shape, "ms": device_ms(fn)}), flush=True)
+        good = agrees(fn())
+        ok &= good
+        print(json.dumps({"kernel": name, "shape": shape, "agrees": good, "ms": device_ms(fn)}),
+              flush=True)
     return ok
 
 
@@ -438,6 +458,9 @@ def sweep(dev) -> bool:
             continue
         if name in ("winograd", "winograd_bf16w"):
             ok &= sweep_winograd(name, shape, args[:5], ref, agrees, wg, split_k, sms)
+            continue
+        if name == "winograd_bf16":
+            ok &= sweep_winograd_fp64(shape, args[:5], ref, agrees, wg, sms)
             continue
         if name == "transition_int8":
             ok &= sweep_transition_int8(shape, args, ref, agrees, q8, sms)
@@ -702,6 +725,11 @@ def sweep_stage_int8(shape, args, ref, agrees, q8, sms) -> bool:
     plans = {}
     for walk in STAGE_INT8_WALKS:
         plans.setdefault(q8.stage_int8_plan(n, h, w, cio, cmid, mid, groups, sms, walk), walk)
+    if mid == "winograd2":   # the FP64 mid's Cout blocks
+        from winograd_tpu_torch.kernels.winograd import WINOGRAD_FP64_COLS
+
+        for cols in WINOGRAD_FP64_COLS:
+            plans.setdefault(chosen._replace(mid=chosen.mid._replace(chunk=cols)), 0)
     ok = True
     for plan, walk in plans.items():
         fn = (lambda plan=plan: q8.resnet_stage_int8_planned(*args, plan))
@@ -735,6 +763,32 @@ def sweep_winograd(name, shape, args, ref, agrees, wg, split_k, sms) -> bool:
         print(json.dumps({"kernel": name, "shape": shape, "splits": plan.splits, "chunk": plan.chunk,
                           "items": plan.items(tiles, cout, a2), "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
+def sweep_winograd_fp64(shape, args, ref, agrees, wg, sms) -> bool:
+    """The int8 tiers' FP64 F(2,3) tile under its plan and under every Cout
+    block of its items, each on a grid of one block an item, one block an
+    SM and two."""
+    n, h, w, _, cout, _ = shape
+    chosen = wg.winograd_fp64_plan(n, h, w, cout, sms)
+    plans = [chosen]
+    for cols in wg.WINOGRAD_FP64_COLS:
+        items = wg.winograd_fp64_items(n, h, w, cout, cols)
+        for blocks in (items, sms, 2 * sms):
+            plan = wg.WinogradFp64Plan(cols, min(items, blocks))
+            if plan not in plans:
+                plans.append(plan)
+    ok = True
+    for plan in plans:
+        fn = (lambda plan=plan: wg.conv3x3_bn_winograd_fp64_planned(*args, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": "winograd_bf16", "shape": shape, "cols": plan.cols,
+                          "blocks": plan.blocks,
+                          "items": wg.winograd_fp64_items(n, h, w, cout, plan.cols),
+                          "chosen": plan == chosen, "max_abs_err": (y - ref).abs().max().item(),
                           "ms": device_ms(fn)}), flush=True)
     return ok
 

@@ -74,12 +74,13 @@ import sys
 import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-SHAPES = {  # (N, H, W, Cio, Cmid, blocks, mid): the served stages, and conv4_x at N=8
+SHAPES = {  # (N, H, W, Cio, Cmid, blocks, mid): the served stages, conv4_x at N=8
+    # (and the int8 conv2_x at N=8)
     "stage": [(1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
               (1, 14, 14, 1024, 256, 5, "direct"), (8, 14, 14, 1024, 256, 5, "direct")],
     "stage_int8": [(1, 56, 56, 256, 64, 2, "winograd2"), (1, 28, 28, 512, 128, 3, "winograd2"),
                    (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
-                   (8, 14, 14, 1024, 256, 5, "direct")],
+                   (8, 14, 14, 1024, 256, 5, "direct"), (8, 56, 56, 256, 64, 2, "winograd2")],
 }
 # (N, H, W, Cin, Cmid, Cout): the served transitions, and 14->7 at N=8.
 TRANSITION_SHAPES = [(1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024),

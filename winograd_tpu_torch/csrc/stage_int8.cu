@@ -81,7 +81,7 @@
 //   dequantized and added in f32 in group order.
 // Every f32 epilogue rounds its multiply and its add separately
 // (__fmul_rn, __fadd_rn), in the plain version's order. The F(2,3) mid is
-// winograd.cuh's tile body on the bf16 filter (widened as it is staged)
+// winograd.cuh's FP64 tile on the bf16 filter (widened as it is loaded)
 // with FP64 transforms, products and sums, each output rounded to float
 // once. Both choices make the kernel agree with its plain version to the
 // bit: in a chain of int8 layers a last-bit difference moves a value across
@@ -90,9 +90,15 @@
 // epilogues and an FP32 mid, a five-block stage at 14x14x1024 differed
 // from its plain version by 1% of its largest output). The JAX kernel
 // multiplies V's bf16 hi and lo halves with f32 sums: within 2^-17 of a
-// product of this. The two mids are two instantiations of the kernel, so
-// the direct one does not carry the FP64 mid's registers; each runs one
-// block of two warpgroups an SM.
+// product of this. The mids are instantiations of the kernel, the direct
+// one and one for each Cout block of the FP64 mid's items, so none carries
+// another's registers; each runs one block of two warpgroups an SM. The
+// F(2,3) mid's products run on the FP64 tensor cores
+// (winograd.cuh::wino_f64_tile: items of 16 tiles x the plan's Cout block,
+// 8, 16 or 32 channels, dealt over the grid, the block's eight warps two
+// tile positions each; the plan narrows the block only where the items
+// fall short of half the grid: kernels/winograd.py::winograd_fp64_plan,
+// passed as the mid's phase).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -107,18 +113,15 @@ namespace {
 namespace q8 = wt::wgs8;
 namespace s8 = wt::s8mma;
 
-constexpr int kWinoTiles = 16;  // Winograd tiles per item (256 threads)
-constexpr int kWinoCPT = 2;     // output channels per thread (FP64 accumulators)
-constexpr int kWinoCOB = wt::kWinoTX * kWinoCPT;
-constexpr size_t kWinoBytes = wt::wino_smem_bytes<2, kWinoTiles, double, kWinoCPT>();
+constexpr size_t kWinoBytes = wt::F64Smem<32>::kBytes;  // the widest FP64 item's
 // Blocks an SM: one, on both routes (the winograd2 route's FP64 mid wants
 // more than half an SM's registers, and two blocks an SM spilled the
 // direct route's first form).
 constexpr int kMaxBlocksPerSm = 1;
 constexpr int kSplitCap = 16;
 constexpr int kKAlign = 32;         // K of aq and of the k-contiguous weights is padded to this
-static_assert(q8::kThreads == kWinoTiles * wt::kWinoTX, "one block runs both tiles");
-static_assert(q8::kBK % kWinoCOB == 0, "an F(2,3) item's channels lie in one group of the expand");
+static_assert(q8::kThreads == wt::kF64Threads, "one block runs both tiles");
+static_assert(q8::kBK % 32 == 0, "an F(2,3) item's channels lie in one group of the expand");
 
 constexpr size_t kSmem = kWinoBytes > q8::kSmemBytes ? kWinoBytes : q8::kSmemBytes;
 
@@ -539,27 +542,31 @@ __device__ void grouped_expand(const StageInt8Args& a, const q8::Weights& w, con
 }
 
 // h2 = relu(F(2,3)(h1, u2) * s2 + b2) over the whole map, one block's mid
-// of the winograd2 route, h2's row maxima (per group) into mx2. Not
-// inlined: compiled apart from the tensor-core phases, the FP64 tile keeps
-// the schedule it had in the dp4a kernel (inlined, it ran 40% slower;
-// tools/chip_stage_timeline.py, PERF.md).
-__device__ __noinline__ void winograd2_mid(const float* h1, const __nv_bfloat16* u2,
-                                           const float* s2, const float* b2, float* h2, int N,
-                                           int H, int W, int cmid, int groups, unsigned* mx2,
-                                           float* smem) {
-  const int th = (H + 1) / 2, tw = (W + 1) / 2;
-  const int cgroups = (cmid + kWinoCOB - 1) / kWinoCOB;
-  const int items = ((N * th * tw + kWinoTiles - 1) / kWinoTiles) * cgroups;
+// of the winograd2 route, h2's row maxima (per group) into mx2: items of 16
+// tiles x CB channels dealt over the grid, U by 16-byte copies (the host
+// pads Cmid to a multiple of 8 and aligns u2). Inlined into the kernel of
+// its CB alone: called instead, at CB 32 both spilled, and one call for
+// every CB spilled the kernel (tools/chip_ptxas.py); inlined or called ran
+// alike at N=1 and N=8 (tools/chip_fp64_tile.py, PERF.md).
+template <int CB>
+__device__ __forceinline__ void winograd2_mid(const float* h1, const __nv_bfloat16* u2,
+                                              const float* s2, const float* b2, float* h2, int N,
+                                              int H, int W, int cmid, int groups, unsigned* mx2,
+                                              float* smem) {
+  const int cgroups = (cmid + CB - 1) / CB;
+  const int items = wt::f64_tile_groups(N, H, W) * cgroups;
   const MidRowMax obs{mx2, groups, cmid / groups};
   for (int item = blockIdx.x; item < items; item += gridDim.x)
-    wt::wino_tile<2, kWinoTiles, wt::CgLoad, __nv_bfloat16, double, kWinoCPT>(
-        wt::CgLoad{}, h1, u2, s2, b2, h2, N, H, W, cmid, cmid, 1,
-        (item / cgroups) * kWinoTiles, (item % cgroups) * kWinoCOB, threadIdx.x, smem, obs);
+    wt::wino_f64_tile<CB>(wt::CgLoad{}, h1, u2, s2, b2, h2, N, H, W, cmid, cmid, 1,
+                          item / cgroups * wt::kF64Tiles, item % cgroups * CB, smem, obs);
 }
 
-template <bool kWino>
+// kCols 0: the direct mid's instantiation; 8, 16 or 32: the winograd2
+// mid's, on FP64 items of that many output channels.
+template <int kCols>
 __global__ void __launch_bounds__(q8::kThreads, kMaxBlocksPerSm)
     stage_int8_kernel(const __grid_constant__ StageInt8Args a) {
+  constexpr bool kWino = kCols != 0;
   extern __shared__ __align__(16) float smem[];
   __shared__ __align__(8) uint64_t bars[q8::kWarpgroups * q8::kStages];
   q8::Ring ring = q8::make_ring(smem, bars);
@@ -623,8 +630,8 @@ __global__ void __launch_bounds__(q8::kThreads, kMaxBlocksPerSm)
     wt::grid_sync(a.bar);
 
     if constexpr (kWino) {
-      winograd2_mid(a.h1, a.u2 + bm * 16 * cmid, a.s2 + bm, a.b2 + bm, a.h2, a.N, a.H, a.W, cmid,
-                    a.groups, a.mx2, smem);
+      winograd2_mid<kCols>(a.h1, a.u2 + bm * 16 * cmid, a.s2 + bm, a.b2 + bm, a.h2, a.N, a.H,
+                           a.W, cmid, a.groups, a.mx2, smem);
       wt::wg::fence_proxy_async();  // its shared-memory writes before the next TMA writes
     } else {
       gemm_phase(a.mid, Im2colSrc{a.h1, a.H, a.W, cmid, a.mx1}, a.kpm,
@@ -646,26 +653,31 @@ __global__ void __launch_bounds__(q8::kThreads, kMaxBlocksPerSm)
   }
 }
 
-template <bool kWino>
-const void* kernel_of() {
-  return reinterpret_cast<const void*>(stage_int8_kernel<kWino>);
+// The instantiation of the plan's mid: its FP64 items' Cout block, 0 for
+// the direct mid.
+const void* kernel_of(int cols) {
+  if (cols == 8) return reinterpret_cast<const void*>(stage_int8_kernel<8>);
+  if (cols == 16) return reinterpret_cast<const void*>(stage_int8_kernel<16>);
+  if (cols == 32) return reinterpret_cast<const void*>(stage_int8_kernel<32>);
+  return reinterpret_cast<const void*>(stage_int8_kernel<0>);
 }
 
-// Blocks of the route's kernel the current device holds resident, at most
-// kMaxBlocksPerSm an SM (its dynamic shared memory limit raised once per
-// device); 0 on error.
-int resident_blocks(int wino) {
-  static int cache[64][2] = {};
+// Blocks of the plan's kernel (kernel_of(cols)) the current device holds
+// resident, at most kMaxBlocksPerSm an SM (its dynamic shared memory limit
+// raised once per device); 0 on error.
+int resident_blocks(int cols) {
+  static int cache[64][4] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cache[dev][wino] == 0) {
-    const void* kernel = wino ? kernel_of<true>() : kernel_of<false>();
+  const int k = cols == 0 ? 0 : cols == 8 ? 1 : cols == 16 ? 2 : 3;
+  if (cache[dev][k] == 0) {
+    const void* kernel = kernel_of(cols);
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(kSmem)) != cudaSuccess)
       return 0;
-    cache[dev][wino] = cooperative_grid(kernel, kSmem, q8::kThreads, kMaxBlocksPerSm);
+    cache[dev][k] = cooperative_grid(kernel, kSmem, q8::kThreads, kMaxBlocksPerSm);
   }
-  return cache[dev][wino];
+  return cache[dev][k];
 }
 
 size_t round_k(int k) { return (k + kKAlign - 1) / kKAlign * kKAlign; }
@@ -683,7 +695,7 @@ bool phase_fits(const wt::GemmPhase& g) {
 size_t words_of(size_t bytes) { return workspace_round_up((bytes + 3) / 4); }
 
 struct Plan {
-  int grid, kpr, kpm, kpe, row_blocks;
+  int grid, kpr, kpm, kpe, row_blocks, wcols;
   wt::GemmPhase reduce, mid, expand;
   // workspace offsets and size, in words (the barrier and the row blocks'
   // counters first: one memset zeroes both)
@@ -691,14 +703,14 @@ struct Plan {
 };
 
 // The host's plan (kernels/quantized.py::stage_int8_plan): `grid` blocks;
-// phases[0..5] the (splits, chunk) of the reduce, the direct mid (read
-// when !wino) and the expand (one split when groups > 1), each over its
-// padded K.
+// phases[0..5] the (splits, chunk) of the reduce, the mid and the expand
+// (one split when groups > 1), each over its padded K; the winograd2
+// route's mid is (1, the FP64 items' Cout block: 8, 16 or 32).
 int make_plan(int N, int H, int W, int Cio, int Cmid, int B, int wino, int groups, int grid,
               const int* phases, Plan* pl) {
   if (N <= 0 || H <= 0 || W <= 0 || Cio <= 0 || Cmid <= 0 || B <= 0 || Cio % 4 != 0 ||
       Cmid % 4 != 0 || groups <= 0 || Cmid % groups != 0 || grid <= 0 ||
-      (groups > 1 && (!wino || Cmid / groups != q8::kBK)))
+      (groups > 1 && (!wino || Cmid / groups != q8::kBK)) || (wino && Cmid % 8 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t P = static_cast<size_t>(N) * H * W;
   pl->grid = grid;
@@ -709,6 +721,9 @@ int make_plan(int N, int H, int W, int Cio, int Cmid, int B, int wino, int group
   pl->reduce = wt::GemmPhase{p, pl->kpr, Cmid, phases[0], phases[1]};
   pl->mid = wino ? wt::GemmPhase{p, 0, Cmid, 1, 0}
                  : wt::GemmPhase{p, pl->kpm, Cmid, phases[2], phases[3]};
+  pl->wcols = wino ? phases[3] : 0;
+  if (wino && (phases[2] != 1 || (pl->wcols != 8 && pl->wcols != 16 && pl->wcols != 32)))
+    return static_cast<int>(cudaErrorInvalidValue);
   pl->expand = wt::GemmPhase{p, pl->kpe, Cio, phases[4], phases[5]};
   if (!phase_fits(pl->reduce) || !phase_fits(pl->mid) || !phase_fits(pl->expand) ||
       (groups > 1 && pl->expand.splits != 1))
@@ -752,9 +767,10 @@ extern "C" int resnet_stage_int8_workspace(int N, int H, int W, int Cio, int Cmi
   return err;
 }
 
-// wm is the int8 w9_mid stack (wino = 0) or the bf16 u2_mid stack (wino = 1);
-// sw9 is read only by the direct mid. Cio and Cmid multiples of 4 (the
-// wrapper pads other counts with zero channels); groups: the expand's
+// wm is the int8 w9_mid stack (wino = 0) or the bf16 u2_mid stack (wino = 1,
+// 16-byte aligned); sw9 is read only by the direct mid. Cio and Cmid
+// multiples of 4, Cmid of 8 on winograd2 (the wrapper pads other counts
+// with zero channels); groups: the expand's
 // quantization groups, 1 or (winograd2 only) Cmid / 128; x, out and ws
 // 16-byte aligned; grid and phases the host's plan, refused where it does
 // not fit the geometry or the card.
@@ -769,11 +785,12 @@ extern "C" int resnet_stage_int8(const float* x, const int8_t* wr, const float* 
   Plan pl;
   const int err = make_plan(N, H, W, Cio, Cmid, B, wino, groups, grid, phases, &pl);
   if (err != 0) return err;
-  const int resident = resident_blocks(wino);
+  const int resident = resident_blocks(pl.wcols);
   if (resident <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   if (grid > resident || ws_words < static_cast<long long>(pl.total) ||
       reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(ws) % 16 != 0)
+      reinterpret_cast<uintptr_t>(ws) % 16 != 0 ||
+      (wino && reinterpret_cast<uintptr_t>(wm) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   StageInt8Args a{};
   a.btr = reinterpret_cast<int8_t*>(ws + pl.btr);
@@ -828,7 +845,7 @@ extern "C" int resnet_stage_int8(const float* x, const int8_t* wr, const float* 
   a.mid = pl.mid;
   a.expand = pl.expand;
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(wino ? kernel_of<true>() : kernel_of<false>(), dim3(pl.grid),
+  e = cudaLaunchCooperativeKernel(kernel_of(pl.wcols), dim3(pl.grid),
                                   dim3(q8::kThreads), args, kSmem, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());

@@ -65,6 +65,7 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "mma_f64.cuh"
 
 namespace {
 
@@ -96,15 +97,8 @@ __device__ __forceinline__ float widen(__nv_bfloat16 v) { return __bfloat162floa
 // The precisions of the C entry, kernels/stem.py::PRECISIONS in order.
 constexpr int kF32 = 0, kBf16 = 1, kBf16w = 2;
 
-// d += a * b on one 16x8x4 fragment: a at (rows lane / 4 and lane / 4 + 8,
-// k lane % 4), b at (k lane % 4, column lane / 4), d at (rows lane / 4 and
-// lane / 4 + 8, columns 2 (lane % 4) and 2 (lane % 4) + 1).
-__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[2], double b) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
-      "{%0,%1,%2,%3};\n"
-      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
-      : "d"(a[0]), "d"(a[1]), "d"(b));
-}
+// d += a * b on one 16x8x4 fragment (mma_f64.cuh's m16n8k4).
+using wt::dmma;
 
 // K (49 * Cin) padded to the MMA depth.
 __host__ __device__ __forceinline__ int padded_k(int Cin) { return (49 * Cin + 3) / 4 * 4; }

@@ -19,8 +19,8 @@
 // 28x28x128) take about as long at 3.35 TB/s. But the products are small:
 // 49 to 784 tiles (1 to 13 blocks of 64 rows) x 64 to 256 output channels,
 // a handful of MMA tiles per position; a kernel that gives a block all
-// positions of its tiles (as the TPU kernel and this file's FP64 route do)
-// fills 7 to 98 of the 132 SMs and walks all of Cin for 16 positions alone.
+// positions of 64 tiles and all of Cout (as the TPU kernel does) fills 7
+// to 98 of the 132 SMs and walks all of Cin for 16 positions alone.
 //
 // Design (the f32 route): one cooperative launch of wino_tf32.cuh's phase.
 // The grid writes V once to the workspace; after a grid barrier, work items
@@ -49,13 +49,18 @@
 // at half the f32 bytes, and a k16 step is two tensor-core instructions
 // where 3xTF32 takes six.
 //
-// winograd_conv3x3_bn_bf16 is the int8 tier's exact bf16-filter 3x3: the
-// F(2,3) tile body of winograd.cuh on a bf16 filter in FP64, which computes
-// JAX's bf16w op exactly (the JAX kernel's hi/lo split of V is within
-// ~2^-17 of it), one block of 8 x 16 threads per 8 tiles x 32 output
-// channels with every position on chip, as before: its arithmetic must
-// match a float64 plain version to the bit, as the int8 layer it feeds
-// needs.
+// winograd_conv3x3_bn_bf16 is the int8 tier's exact bf16-filter 3x3:
+// winograd.cuh's FP64 F(2,3) tile on a bf16 filter, which computes JAX's
+// bf16w op exactly (the JAX kernel's hi/lo split of V is within ~2^-17 of
+// it), its products on the FP64 tensor cores (mma.sync .f64), its
+// arithmetic equal to a float64 plain version to the bit, as the int8
+// layer it feeds needs. Bound on the H100: the 16 products of (tiles x Cin
+// x Cout) are 103 MFLOP at N=1 56x56x64, 1.5 us at the FP64 tensor cores'
+// 67 TFLOP/s; the map, U and the output take 0.5 us at 3.35 TB/s. Its
+// launch walks the host's plan (kernels/winograd.py::winograd_fp64_plan):
+// items of 16 tiles x `cols` output channels, the Cout block narrowed
+// until the items fill the card at N=1, on a grid of `blocks` blocks of
+// 256 threads; the entry refuses a plan off the geometry compiled here.
 
 #include <cuda_bf16.h>
 
@@ -73,33 +78,39 @@ namespace tc = wt::tf32x3;
 namespace wg = wt::wg;
 namespace wtc = wt::winotc;
 
-constexpr int kTT = 8;  // tiles per block of the FP64 route (threadIdx.y)
-
-// The FP64 route: TU the filter's element type; TA and CPT winograd.cuh's
-// arithmetic type and output channels per thread.
-template <int M, class TU, class TA, int CPT>
-__global__ void __launch_bounds__(kTT * wt::kWinoTX) winograd_kernel(
-    const float* __restrict__ x, const TU* __restrict__ u,
+// The FP64 route: items of wt::kF64Tiles tiles x CB output channels
+// (the plan's cols), dealt over the grid.
+template <int CB>
+__global__ void __launch_bounds__(wt::kF64Threads, 1) winograd_f64_kernel(
+    const float* __restrict__ x, const __nv_bfloat16* __restrict__ u,
     const float* __restrict__ scale, const float* __restrict__ bias,
-    float* __restrict__ out, int N, int H, int W, int Cin, int Cout,
-    int relu) {
-  __shared__ __align__(16) unsigned char smem[wt::wino_smem_bytes<M, kTT, TA, CPT>()];
-  wt::wino_tile<M, kTT, wt::PlainLoad, TU, TA, CPT>(
-      wt::PlainLoad{}, x, u, scale, bias, out, N, H, W, Cin, Cout, relu, blockIdx.x * kTT,
-      blockIdx.y * wt::kWinoTX * CPT, threadIdx.y * wt::kWinoTX + threadIdx.x,
-      reinterpret_cast<float*>(smem));
+    float* __restrict__ out, int N, int H, int W, int Cin, int Cout, int relu) {
+  extern __shared__ __align__(16) float smem[];
+  const int cgroups = (Cout + CB - 1) / CB;
+  const int items = wt::f64_tile_groups(N, H, W) * cgroups;
+  for (int item = blockIdx.x; item < items; item += gridDim.x)
+    wt::wino_f64_tile<CB>(wt::PlainLoad{}, x, u, scale, bias, out, N, H, W, Cin, Cout, relu,
+                          item / cgroups * wt::kF64Tiles, item % cgroups * CB, smem);
 }
 
-template <int M, class TU, class TA, int CPT>
-int launch(const float* x, const TU* u, const float* scale,
-           const float* bias, float* out, int N, int H, int W, int Cin,
-           int Cout, int relu, cudaStream_t stream) {
-  constexpr int COB = wt::kWinoTX * CPT;
-  const int nt = N * ((H + M - 1) / M) * ((W + M - 1) / M);
-  const dim3 grid((nt + kTT - 1) / kTT, (Cout + COB - 1) / COB);
-  const dim3 block(wt::kWinoTX, kTT);
-  winograd_kernel<M, TU, TA, CPT><<<grid, block, 0, stream>>>(x, u, scale, bias, out, N,
-                                                              H, W, Cin, Cout, relu);
+template <int CB>
+int launch_f64(const float* x, const __nv_bfloat16* u, const float* scale, const float* bias,
+               float* out, int N, int H, int W, int Cin, int Cout, int relu, int blocks,
+               cudaStream_t stream) {
+  static bool raised[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64)
+    return static_cast<int>(cudaErrorInvalidDevice);
+  constexpr int kBytes = wt::F64Smem<CB>::kBytes;
+  if (!raised[dev]) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(reinterpret_cast<const void*>(&winograd_f64_kernel<CB>),
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    raised[dev] = true;
+  }
+  winograd_f64_kernel<CB><<<blocks, wt::kF64Threads, kBytes, stream>>>(x, u, scale, bias, out, N,
+                                                                        H, W, Cin, Cout, relu);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -242,17 +253,27 @@ extern "C" int winograd_conv3x3_bn_bf16w(const float* x, const __nv_bfloat16* u,
                  blocks, splits, chunk, stream);
 }
 
-// F(2,3) on a bf16 filter (the int8 tier's bf16-weight 3x3): the filter is
-// widened to float as it is staged, and the transforms, products and sums
-// run in FP64, each output rounded to float once before a BN whose multiply
-// and add round separately (winograd.cuh), so the result matches a float64
-// plain version to the bit. It feeds the next layer's int8 quantizations.
+// F(2,3) on a bf16 filter (the int8 tier's bf16-weight 3x3): winograd.cuh's
+// FP64 tile (transforms, products and sums in FP64, each output rounded to
+// float once before a BN whose multiply and add round separately), so the
+// result matches a float64 plain version to the bit. It feeds the next
+// layer's int8 quantizations. u 16-byte aligned and Cout a multiple of 8
+// (the wrapper pads it with zero channels); the host's plan
+// (kernels/winograd.py::winograd_fp64_plan): items of 16 tiles x `cols`
+// output channels (8, 16 or 32), on `blocks` blocks (at most the items).
 extern "C" int winograd_conv3x3_bn_bf16(const float* x, const __nv_bfloat16* u,
                                         const float* scale, const float* bias, float* out,
                                         int N, int H, int W, int Cin, int Cout, int relu,
-                                        void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0)
+                                        int cols, int blocks, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cout % 8 != 0 || !aligned16(u) ||
+      blocks <= 0 ||
+      (cols != 8 && cols != 16 && cols != 32) ||
+      static_cast<long long>(N) * ((H + 1) / 2) * ((W + 1) / 2) >= (1LL << 31) ||
+      blocks > static_cast<long long>(wt::f64_tile_groups(N, H, W)) * ((Cout + cols - 1) / cols))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch<2, __nv_bfloat16, double, 2>(x, u, scale, bias, out, N, H, W, Cin, Cout, relu,
-                                             static_cast<cudaStream_t>(stream));
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (cols == 8) return launch_f64<8>(x, u, scale, bias, out, N, H, W, Cin, Cout, relu, blocks, s);
+  if (cols == 16)
+    return launch_f64<16>(x, u, scale, bias, out, N, H, W, Cin, Cout, relu, blocks, s);
+  return launch_f64<32>(x, u, scale, bias, out, N, H, W, Cin, Cout, relu, blocks, s);
 }

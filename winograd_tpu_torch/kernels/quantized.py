@@ -68,7 +68,9 @@ from winograd_tpu_torch.kernels.pointwise import COUNTER_WORDS
 from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, split_k
 from winograd_tpu_torch.kernels.stage import WINOGRAD_MIN_PIXELS
 from winograd_tpu_torch.kernels.transition import strided_im2col
-from winograd_tpu_torch.kernels.winograd import winograd2_mid_plain, winograd_matrices
+from winograd_tpu_torch.kernels.winograd import (
+    winograd2_mid_plain, winograd_fp64_plan, winograd_matrices,
+)
 
 BN_KEYS = ("s_reduce", "b_reduce", "s_mid", "b_mid", "s_expand", "b_expand")
 PROJ_BN_KEYS = ("s_proj", "b_proj")
@@ -680,8 +682,9 @@ STAGE_INT8_BLOCKS_PER_SM = 1
 
 class StageInt8Plan(NamedTuple):
     """How csrc/stage_int8.cu runs one stage: its grid and each GEMM
-    phase's K split over its padded K (the mid's (1, 0) on the winograd2
-    route, whose FP64 mid is no GEMM)."""
+    phase's K split over its padded K; on the winograd2 route, whose FP64
+    mid is no GEMM, the mid is (1, its items' Cout block,
+    winograd.py::winograd_fp64_plan's cols)."""
 
     grid: int
     reduce: Split
@@ -721,7 +724,8 @@ def stage_int8_plan(n: int, h: int, w: int, cio: int, cmid: int, mid_algo: str, 
     wino = mid_algo == "winograd2"
     grid = STAGE_INT8_BLOCKS_PER_SM * sms
     p = n * h * w
-    mid = Split(1, 0) if wino else stage_int8_phase(p, 9 * cmid, cmid, grid, max_walk)
+    mid = (Split(1, winograd_fp64_plan(n, h, w, cmid, grid).cols) if wino
+           else stage_int8_phase(p, 9 * cmid, cmid, grid, max_walk))
     expand = (stage_int8_phase(p, cmid, cio, grid, max_walk) if groups == 1
               else Split(1, _round_up(cmid, STAGE_INT8_K_ALIGN)))
     return StageInt8Plan(grid, stage_int8_phase(p, cio, cmid, grid, max_walk), mid, expand)
@@ -1006,10 +1010,17 @@ def resnet_stage_int8_planned(x, qstacked: Dict, mid_algo: str,
 def _stage_int8_launch(x, q: Dict, mid_algo: str, groups: int,
                        plan: StageInt8Plan = None) -> torch.Tensor:
     """resnet_stage_int8's launch on CUDA tensors; channels multiples of 4;
-    plan: stage_int8_plan's when None."""
+    plan: stage_int8_plan's when None. The winograd2 mid copies its filter
+    in 16-byte pieces: Cmid is padded to a multiple of 8 with zero channels
+    and an unaligned u2_mid_bf16 copied."""
     n, h, w, cio = x.shape
     nb, _, cmid = q["w_reduce_q"].shape
     wino = mid_algo == "winograd2"
+    if wino and cmid % 8:
+        cmid = -(-cmid // 8) * 8
+        q = pad_stage_int8(q, cio, cmid)
+    if wino and q["u2_mid_bf16"].data_ptr() % 16:
+        q = dict(q, u2_mid_bf16=q["u2_mid_bf16"].clone())
     mid_key, mid_shape, mid_dtype = (
         ("u2_mid_bf16", (nb, 16, cmid, cmid), torch.bfloat16) if wino
         else ("w9_mid_q", (nb, 9 * cmid, cmid), torch.int8))

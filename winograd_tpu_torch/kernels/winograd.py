@@ -18,7 +18,8 @@ arithmetic of an F(2,3) on a bfloat16 u:
   hi and lo halves (csrc/winograd.cu's bf16w entry); its plain twin is
   conv3x3_bn_winograd_plain on the bf16 u (_position_products).
 * "bf16", the int8 tier's exact bf16-filter 3x3: the kernel runs its algebra
-  in FP64 and rounds each output once, and its plain twin
+  in FP64, its products on the FP64 tensor cores in items cut by
+  winograd_fp64_plan, and rounds each output once, and its plain twin
   (winograd2_mid_plain) does the algebra in float64, so the two agree to
   the bit, as the int8 layer it feeds needs (the JAX kernel's hi/lo split
   of V is within ~2^-17 of that).
@@ -88,6 +89,53 @@ class WinogradPlan(NamedTuple):
 
 def winograd_tiles(n: int, h: int, w: int, m: int) -> int:
     return n * -(-h // m) * -(-w // m)
+
+
+# The plan of the FP64 F(2,3) tile (csrc/winograd.cuh::wino_f64_tile), which
+# runs the int8 tier's bf16-filter 3x3 (csrc/winograd.cu's
+# winograd_conv3x3_bn_bf16) and the int8 stage's winograd2 mid
+# (csrc/stage_int8.cu). Its geometry, which the C entries check every plan
+# against (tests/test_torch_winograd_fp64.py reads it from the sources): an
+# item is WINOGRAD_FP64_TILES tiles (the FP64 MMA fragment's 16 rows) x
+# `cols` output channels, cols one of WINOGRAD_FP64_COLS. The plan's own
+# rule: the widest Cout block (no wider than Cout rounded up to 8) whose
+# items reach WINOGRAD_FP64_MIN_SHARE of the card's SMs, else the
+# narrowest; the bf16-filter 3x3's grid one block an SM at most, each
+# walking its items. Tuned on the served shapes by tools/chip_split_sweep.py
+# (PERF.md): an SM's FP64 tensor cores take two narrow items as long as one
+# twice as wide, so items past one an SM buy nothing at N=1, and wider items
+# transform each input tile fewer times (at 56x56x64, 98 items of 32
+# channels beat 196 of 16 by 5-14%; at 28x28x128, 104 of 16 beat 52 of 32
+# and 208 of 8 by 13-20%).
+WINOGRAD_FP64_TILES = 16
+WINOGRAD_FP64_COLS = (32, 16, 8)
+WINOGRAD_FP64_MIN_SHARE = 0.5
+
+
+class WinogradFp64Plan(NamedTuple):
+    """How the FP64 F(2,3) tile cuts a conv: items of WINOGRAD_FP64_TILES
+    tiles x `cols` output channels, on a grid of `blocks` blocks."""
+
+    cols: int
+    blocks: int
+
+
+def winograd_fp64_items(n: int, h: int, w: int, cout: int, cols: int) -> int:
+    """Items of the FP64 tile: groups of 16 F(2,3) tiles x Cout blocks."""
+    return -(-winograd_tiles(n, h, w, 2) // WINOGRAD_FP64_TILES) * -(-cout // cols)
+
+
+@functools.lru_cache(maxsize=None)
+def winograd_fp64_plan(n: int, h: int, w: int, cout: int,
+                       sms: int = H100_SMS) -> WinogradFp64Plan:
+    """The item shape and grid of an (n, h, w) -> cout FP64 F(2,3) conv on a
+    card with `sms` SMs."""
+    widest = -(-cout // 8) * 8
+    fits = [c for c in WINOGRAD_FP64_COLS if c <= widest]
+    cols = next((c for c in fits
+                 if winograd_fp64_items(n, h, w, cout, c) >= WINOGRAD_FP64_MIN_SHARE * sms),
+                WINOGRAD_FP64_COLS[-1])
+    return WinogradFp64Plan(cols, min(winograd_fp64_items(n, h, w, cout, cols), sms))
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,18 +282,28 @@ def conv3x3_bn_winograd(x, u, scale, bias, relu: bool = True,
         cout = u.shape[2]
         _build.check_operands(scale, bias, cout, x)
         _build.check_tensors(u, dtype=torch.bfloat16 if bf16 else torch.float32, device=x.device)
-        out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
         if precision == "bf16":
-            c, ptr = _build.cint, _build.ptr
-            _build.launch(
-                "winograd", "winograd_conv3x3_bn_bf16", (n, h, w, cin, cout, m, bool(relu), "bf16"),
-                x.device, ptr(x), ptr(u), ptr(scale), ptr(bias), ptr(out),
-                c(n), c(h), c(w), c(cin), c(cout), c(relu),
-            )
+            out = _winograd_fp64(x, u, scale, bias, relu)
         else:
+            out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
             plan = winograd_plan(n, h, w, cin, cout, m, _build.sm_count(x.device))
             out = conv3x3_bn_winograd_planned(x, u, scale, bias, relu, plan, out)
     return out[0] if squeeze else out
+
+
+def _winograd_fp64(x, u, scale, bias, relu: bool) -> torch.Tensor:
+    """The "bf16" launch under winograd_fp64_plan's plan. The FP64 tile
+    copies its filter in 16-byte pieces: a Cout off a multiple of 8 is
+    padded with zero channels (sliced off the output), an unaligned u
+    copied."""
+    n, h, w, _ = x.shape
+    cout = u.shape[2]
+    c8 = -(-cout // 8) * 8
+    if c8 != cout or u.data_ptr() % 16:
+        u, scale, bias = (F.pad(t, (0, c8 - cout)) for t in (u, scale, bias))
+    plan = winograd_fp64_plan(n, h, w, c8, _build.sm_count(x.device))
+    out = conv3x3_bn_winograd_fp64_planned(x, u, scale, bias, relu, plan)
+    return out if c8 == cout else out[..., :cout].contiguous()
 
 
 def conv3x3_bn_winograd_planned(x, u, scale, bias, relu: bool, plan: WinogradPlan,
@@ -271,5 +329,24 @@ def conv3x3_bn_winograd_planned(x, u, scale, bias, relu: bool, plan: WinogradPla
         c(m), c(relu),
         c(WINOGRAD_TILE), c(plan.blocks), c(plan.splits), c(plan.chunk),
         counter="winograd_bf16w" if bf16w else None,
+    )
+    return out
+
+
+def conv3x3_bn_winograd_fp64_planned(x, u, scale, bias, relu: bool,
+                                     plan: WinogradFp64Plan) -> torch.Tensor:
+    """conv3x3_bn_winograd's "bf16" launch (the FP64 tile) on CUDA tensors
+    under an explicit plan (the wrapper passes winograd_fp64_plan's; tools/
+    chip_split_sweep.py times others). x: (N, H, W, Cin); u (16, Cin, Cout)
+    bfloat16, Cout a multiple of 8, 16-byte aligned (else the C entry
+    refuses it); operands as conv3x3_bn_winograd checks them."""
+    n, h, w, cin = x.shape
+    cout = u.shape[2]
+    out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
+    c, ptr = _build.cint, _build.ptr
+    _build.launch(
+        "winograd", "winograd_conv3x3_bn_bf16", (n, h, w, cin, cout, 2, bool(relu), "bf16"),
+        x.device, ptr(x), ptr(u), ptr(scale), ptr(bias), ptr(out),
+        c(n), c(h), c(w), c(cin), c(cout), c(relu), c(plan.cols), c(plan.blocks),
     )
     return out
