@@ -173,15 +173,17 @@ Phases, each of which must pass (exit 1 otherwise):
    stem's patch columns (12544 x 192 x 64) and the transitions' strided
    im2col columns (K = 9 Cmid)), and at shapes off the served
    N=1 lists (Winograd F(4,3) at 14x14x128; the block at bench modes 6 and
-   9; the conv4_x stage and the 14->7 transition at N=8; the conv5_x stage
+   9; the conv4_x stage; the three transitions at N=8 and N=32, f32 and
+   bf16w (TRANSITION_BATCHES); the conv5_x stage
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
    14->7 transition at N=8; the stem at N=8 in both precisions; both basic
    stages at N=8 and at one block, the ResNet-18 run; the int8 Winograd at
    N=8, 14x14x256 and 28x28x128, and at Cin 1152 -> 128 and 2048 -> 256 on
-   14x14 (WIDE_WINOGRAD_INT8: K walked in spans); the pointwise head and conv5_x reduce
+   14x14 (WIDE_WINOGRAD_INT8: K walked in spans), and both at N=32; the
+   pointwise head and conv5_x reduce
    at N=8; the int8 pointwise head at N=8; the f32 and int8 direct 3x3s at
    N=8, 7x7x512; the bf16w pointwise head, the conv4_x and conv5_x bf16w
-   stages, the 14->7 bf16w transition and the bf16w stem at N=8, the bf16w
+   stages and the bf16w stem at N=8, the bf16w
    block at modes 6 and 9, the bf16w Winograd at 56x56x64, the bf16w direct
    3x3 at 7x7x512 and the bf16w basic stage at 7x7x512 at N=8; the stem's
    prepared-input entry at N=8 at "f32" and "bf16w"; the int8 tiers' bf16-filter
@@ -493,6 +495,10 @@ SOURCE_FILES = {"stem_pre": "stem", "stem_pre_bf16w": "stem"}
 # WINO_INT8_CHUNK): nine 128-channel groups, and the stash over 2048
 # channels. Checked against the twin like every shape, counted in no image.
 WIDE_WINOGRAD_INT8 = [(1, 14, 14, 1152, 128, True), (1, 14, 14, 2048, 256, True)]
+# ResNet-50's three transitions at N=8 and N=32 (f32 and bf16w): their
+# times, bounds and library calls beside the served N=1 shapes'.
+TRANSITION_BATCHES = [(n, hw, hw, cin, cin // 2, 2 * cin) for n in (8, 32)
+                      for hw, cin in ((56, 256), (28, 512), (14, 1024))]
 # The benchmark CLI's modes run in the bench phase: the reference's six
 # layer cases, a block at two geometries, a transition, the stem and the
 # three classifiers at N=1 (the last four with the prepared-input route).
@@ -2008,22 +2014,24 @@ def main() -> int:
     # 20 of the TPU kernel table) at N=8; the conv5_x stage geometry, which
     # the f32 route runs per layer; the int8 block (row 16) at mode 6; the
     # f32 and int8 direct 3x3s at N=8; the stem at N=8 in every precision;
-    # the bf16w pointwise head, conv4_x and conv5_x stages and 14->7
-    # transition at N=8, the bf16w block at modes 6 and 9; the bf16w
-    # Winograd, direct 3x3 and basic stage of ResNet-34 at N=8; the int8
-    # tiers' bf16-filter Winograd (the FP64 tile) at N=8 and N=32.
+    # the bf16w pointwise head, conv4_x and conv5_x stages at N=8, the
+    # bf16w block at modes 6 and 9; the bf16w Winograd, direct 3x3 and
+    # basic stage of ResNet-34 at N=8; the int8 tiers' bf16-filter Winograd
+    # (the FP64 tile) at N=8 and N=32; the three transitions at both tiers
+    # and the int8 Winograd at N=8 and N=32.
     extra = {
         "winograd": [(1, 14, 14, 128, 128, 4, True), (8, 56, 56, 64, 64, 2, True, "bf16"),
                      (32, 56, 56, 64, 64, 2, True, "bf16")],
         "stage": [(1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2"),
                   (8, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct")],
-        "transition": [(8, 14, 14, 1024, 512, 2048)],
+        "transition": TRANSITION_BATCHES,
         "stage_int8": [(8, 14, 14, 1024, 256, 5, "direct"), (1, 14, 14, 1024, 256, 1, "direct")],
         "transition_int8": [(8, 14, 14, 1024, 512, 2048)],
         "stem": [(8, 224, 224, 3, 64, "f32"), (8, 224, 224, 3, 64, "bf16")],
         "basic_stage": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "basic_stage_int8": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "winograd_int8": [(8, 14, 14, 256, 256, True), (8, 28, 28, 128, 128, True),
+                          (32, 14, 14, 256, 256, True), (32, 28, 28, 128, 128, True),
                           *WIDE_WINOGRAD_INT8],
         "pointwise": [(8, 2048, 1000, False), (392, 2048, 512, True)],
         "pointwise_int8": [(8, 2048, 1000, False)],
@@ -2033,7 +2041,7 @@ def main() -> int:
         "stem_bf16w": [(8, 224, 224, 3, 64, "bf16w")],
         "stage_bf16w": [(8, 14, 14, 1024, 256, 5, "direct"), (8, 7, 7, 2048, 512, 2, "direct"),
                         (1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2")],
-        "transition_bf16w": [(8, 14, 14, 1024, 512, 2048)],
+        "transition_bf16w": TRANSITION_BATCHES,
         "winograd_bf16w": [(8, 56, 56, 64, 64, 2, True)],
         "direct_bf16w": [(8, 7, 7, 512, 512, False)],
         "basic_stage_bf16w": [(8, 7, 7, 512, 2)],
@@ -2070,7 +2078,8 @@ def main() -> int:
 
     def winograd_int8_cut(n, h, w, cin, cout, relu):
         plan = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
-        return {"tile_blocks": plan.tile_blocks, "col_blocks": plan.col_blocks,
+        return {"item_tiles": plan.item_tiles, "cols": plan.cols,
+                "tile_blocks": plan.tile_blocks, "col_blocks": plan.col_blocks,
                 "blocks": plan.blocks, "chunk": plan.chunk}
 
     def winograd_fp64_cut(n, h, w, cin, cout, m, relu, filt="f32"):

@@ -53,7 +53,12 @@ phases at every pointwise and stage shape a full-width ResNet-50 N=1
 forward launches, both tiers, off the TMA route (unaligned channels, P off
 64), repeating to the bit and captured in a CUDA graph; and a NaN through
 the fused ReLU and max-pool of pointwise, stage, stem and Winograd, kept
-where the plain versions keep it. Needs an NVIDIA GPU and nvcc; skipped elsewhere. Run on the card with
+where the plain versions keep it; the int8 Winograd on s8 wgmma (its items
+thread-block clusters) equal to its twin at N=1, 8 and 32 under every item
+shape, keeping a NaN in both branches, refusing a plan off its geometry;
+the f32 and bf16w transitions on the wgmma phases within their bars at
+N=1, 8 and 32 under every candidate split. Needs an NVIDIA GPU and nvcc;
+skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -283,6 +288,35 @@ def test_stage_and_transition_reject_what_the_kernels_do_not_take(dev):
         transition_block_fused(x.double(), {k: v.double() for k, v in p.items()})
     with pytest.raises(ValueError):
         transition_block_fused(x, dict(p, w9_mid=p["w9_mid"][:-1].contiguous()))
+
+
+# The served transitions at N=1, 8 and 32, f32 and bf16w, on the wgmma
+# phases under the plan and under plans that change one phase's K split
+# (split_k's ranges for 1, 4 and 32 wanted, whole stages of the tile):
+# within the f32 bar of the plain version.
+@pytest.mark.parametrize("n", [1, 8, 32])
+@pytest.mark.parametrize("h,cin", [(56, 256), (28, 512), (14, 1024)])
+@pytest.mark.parametrize("precision", ["f32", "bf16w"])
+def test_transition_under_every_candidate_split(dev, n, h, cin, precision):
+    cmid, cout = cin // 2, 2 * cin
+    rng = np.random.default_rng(n + h + cin)
+    p = _transition(rng, dev, cin, cmid, cout)
+    wep, bep = fuse_transition_weights(p)
+    wr, w9 = p["w_reduce"], p["w9_mid"]
+    if precision == "bf16w":
+        wr, w9, wep = wr.bfloat16(), w9.bfloat16(), wep.bfloat16()
+        p = dict(p, w_reduce=wr, w9_mid=w9, wep=wep, bep=bep)
+    x = _r(rng, dev, n, h, h, cin)
+    ref = transition_block_fused_plain(x, p)
+    args = (x, wr, p["s_reduce"], p["b_reduce"], w9, p["s_mid"], p["b_mid"], wep, bep)
+    chosen = transition_plan(n, h, h, cin, cmid, cout, _build.sm_count(dev))
+    plans = {chosen}
+    for phase, k in (("reduce", cin), ("mid", 9 * cmid), ("expand", cmid + cin)):
+        for want in (1, 4, 32):
+            plans.add(chosen._replace(**{phase: split_k(k, want, TRANSITION_STEP,
+                                                        TRANSITION_STEP)}))
+    for plan in plans:
+        _agree(transition_block_fused_planned(*args, plan), ref)
 
 
 def test_transition_entry_refuses_a_plan_it_does_not_take(dev):
@@ -703,11 +737,13 @@ def _winograd_int8(rng, dev, n, h, w, cin, cout):
 
 
 # The served int8 Winograds (N, H, W, Cin, Cout): ResNet-34's 28x28x128 (one
-# output tile) and 14x14x256 (the stash) at N=1 and N=8, both legs (ReLU or
-# not), on the plan's grid and on one block an SM: equal to the twin, two
-# calls equal to the bit.
+# output tile) and 14x14x256 (the stash) at N=1, 8 and 32, both legs (ReLU
+# or not), on the plan's items and under every other item shape the kernel
+# takes (WINO_INT8_ITEMS): equal to the twin, two calls
+# equal to the bit.
 @pytest.mark.parametrize("n,h,w,cin,cout", [(1, 28, 28, 128, 128), (1, 14, 14, 256, 256),
-                                            (8, 28, 28, 128, 128), (8, 14, 14, 256, 256)])
+                                            (8, 28, 28, 128, 128), (8, 14, 14, 256, 256),
+                                            (32, 28, 28, 128, 128), (32, 14, 14, 256, 256)])
 @pytest.mark.parametrize("relu", [True, False])
 def test_winograd_int8_served_shapes(dev, n, h, w, cin, cout, relu):
     x, u_q, s_u, s, b = _winograd_int8(np.random.default_rng(h + cin + relu), dev, n, h, w,
@@ -716,10 +752,29 @@ def test_winograd_int8_served_shapes(dev, n, h, w, cin, cout, relu):
     first = q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, relu)
     _equal(first, ref)
     assert torch.equal(first, q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, relu))
-    sms = _build.sm_count(dev)
-    plan = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
-    one = plan._replace(blocks=min(plan.items(), sms))
-    _equal(q8.conv3x3_bn_winograd_int8_planned(x, u_q, s_u, s, b, relu, one), ref)
+    for tiles, cols in q8.WINO_INT8_ITEMS:
+        plan = q8.winograd_int8_item(n, h, w, cin, cout, tiles, cols)
+        if plan is not None:
+            _equal(q8.conv3x3_bn_winograd_int8_planned(x, u_q, s_u, s, b, relu, plan), ref)
+
+
+# A NaN in x is kept: its rows' max |V| is NaN (max.NaN, as torch.amax), so
+# those rows' scale and every channel of their M are, in the group branch
+# (Cout 128, two groups) and in the stash. The transforms skip zero
+# coefficients, in the kernel as in the plain version (and the JAX kernel:
+# tests/test_torch_nan.py), so the NaN positions are the plain version's
+# and every other output equals it to the bit.
+@pytest.mark.parametrize("cin,cout", [(256, 128), (256, 256)])
+def test_winograd_int8_keeps_a_nan(dev, cin, cout):
+    x, u_q, s_u, s, b = _winograd_int8(np.random.default_rng(cin + cout), dev, 1, 14, 14, cin,
+                                       cout)
+    x[0, 5, 6, 7] = float("nan")
+    ref = q8.conv3x3_bn_winograd_int8_plain(x, u_q, s_u, s, b, True)
+    out = q8.conv3x3_bn_winograd_int8(x, u_q, s_u, s, b, True)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    assert nan.any() and not nan.all() and torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], ref[~nan])
 
 
 # Cin past one span of K (WINO_INT8_CHUNK), 14x14 at N=1 and N=2: nine
@@ -758,13 +813,17 @@ def test_winograd_int8_spans_at_narrow_widths(dev, n, h, w, cin, cout, relu):
 
 
 def test_winograd_int8_entry_refuses_a_plan_it_does_not_take(dev):
-    """csrc/winograd_int8.cu's entry refuses a grid larger than it holds
-    resident and a padded Cin off the MMA's depth."""
+    """csrc/winograd_int8.cu's entry refuses a grid that is not a cluster an
+    item, a padded Cin off the MMA's depth, an item shape it was not
+    compiled for, and 256-channel items outside the stash."""
     n, h, w, cin, cout = 1, 14, 14, 64, 64
     x, u_q, s_u, s, b = _winograd_int8(np.random.default_rng(6), dev, n, h, w, cin, cout)
     plan = q8.winograd_int8_plan(n, h, w, cin, cout, _build.sm_count(dev))
-    for bad in (plan._replace(blocks=8 * _build.sm_count(dev)), plan._replace(kp=plan.kp + 32),
-                plan._replace(kp=plan.kp - 32)):
+    for bad in (plan._replace(blocks=plan.blocks + q8.WINO_INT8_CLUSTER),
+                plan._replace(blocks=plan.blocks - 1), plan._replace(kp=plan.kp + 32),
+                plan._replace(kp=plan.kp - 32), plan._replace(item_tiles=24),
+                plan._replace(item_tiles=32), plan._replace(cols=64),
+                plan._replace(cols=256)):
         with pytest.raises(RuntimeError):
             q8.conv3x3_bn_winograd_int8_planned(x, u_q, s_u, s, b, True, bad)
 

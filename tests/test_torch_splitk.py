@@ -456,12 +456,12 @@ def test_transition_plan_follows_the_sm_count():
     assert small.reduce.splits < large.reduce.splits and small.expand.splits < large.expand.splits
 
 
-# The served int8 Winograds (N, H, W, Cin, Cout) and the cooperative form's
-# items: 16 positions x tile blocks of 16 x column blocks of 128; at N=1
-# every item has a block of the 264-block grid to itself.
+# The served int8 Winograds (N, H, W, Cin, Cout) and the cluster form's
+# items (tile blocks x column blocks, one cluster of WINO_INT8_CLUSTER
+# blocks each): (tiles an item, channels an item, items).
 SERVED_WINOGRAD_INT8 = {
-    (1, 28, 28, 128, 128): 208, (1, 14, 14, 256, 256): 128, (8, 28, 28, 128, 128): 1568,
-    (8, 14, 14, 256, 256): 800,
+    (1, 28, 28, 128, 128): (8, 128, 25), (1, 14, 14, 256, 256): (8, 128, 14),
+    (8, 28, 28, 128, 128): (16, 128, 98), (8, 14, 14, 256, 256): (32, 256, 13),
 }
 
 
@@ -469,12 +469,11 @@ SERVED_WINOGRAD_INT8 = {
 def test_winograd_int8_plan_fills_the_card(shape):
     n, h, w, cin, cout = shape
     plan = q8.winograd_int8_plan(*shape)
-    assert plan.items() == SERVED_WINOGRAD_INT8[shape]
+    assert (plan.item_tiles, plan.cols, plan.items()) == SERVED_WINOGRAD_INT8[shape]
     assert plan.kp == cin and plan.tiles == n * -(-h // 2) * -(-w // 2)
-    wave = q8.WINO_INT8_BLOCKS_PER_SM * H100_SMS
-    assert plan.blocks == min(plan.items(), wave)
+    assert plan.blocks == q8.WINO_INT8_CLUSTER * plan.items()
     assert plan.chunk == plan.kp                  # one span: the served path walks no spans
-    assert plan.args() == (plan.kp, q8.WINO_INT8_TILES, q8.WINO_INT8_COLS, plan.kp, plan.blocks)
+    assert plan.args() == (plan.kp, plan.item_tiles, plan.cols, plan.kp, plan.blocks)
 
 
 # Ragged Cin (not multiples of 32 or of 4) and Cout (below one column
@@ -487,59 +486,59 @@ def test_winograd_int8_plan_covers_ragged_shapes(n, h, w, cin, cout):
     plan = q8.winograd_int8_plan(n, h, w, cin, cout)
     assert plan.tiles == tiles
     assert plan.kp % q8.DIRECT_INT8_K_ALIGN == 0 and cin <= plan.kp < cin + 32
+    assert (plan.item_tiles, plan.cols) in q8.WINO_INT8_ITEMS and plan.cols == 128  # no stash
     # every tile and output channel lies in one item's blocks
-    assert (plan.tile_blocks - 1) * q8.WINO_INT8_TILES < tiles <= (
-        plan.tile_blocks * q8.WINO_INT8_TILES)
-    assert (plan.col_blocks - 1) * q8.WINO_INT8_COLS < cout <= plan.col_blocks * q8.WINO_INT8_COLS
-    assert 1 <= plan.blocks == min(plan.items(), q8.WINO_INT8_BLOCKS_PER_SM * H100_SMS)
+    assert (plan.tile_blocks - 1) * plan.item_tiles < tiles <= plan.tile_blocks * plan.item_tiles
+    assert (plan.col_blocks - 1) * plan.cols < cout <= plan.col_blocks * plan.cols
+    assert plan.blocks == q8.WINO_INT8_CLUSTER * plan.tile_blocks * plan.col_blocks
     assert q8.wino_int8_groups(256, 128) == 2 and q8.wino_int8_groups(72, 96) == 1
 
 
 def test_winograd_int8_workspace_and_shared_memory():
-    """The workspace holds the grid barrier and M (16, T, Cout) in f32. A
-    block's shared memory (the C entry's Layout) holds one span of K and
-    decides its blocks an SM."""
-    plan = q8.winograd_int8_plan(8, 14, 14, 256, 256)
-    assert plan.workspace_words(256) == q8.WORKSPACE_ALIGN + 16 * 392 * 256
-    # V in f32, the quantized rows and columns (rows of the span + 16
-    # bytes), the scales, 16-byte aligned
-    rows = q8.WINO_INT8_TILES + q8.WINO_INT8_COLS
-    assert q8.winograd_int8_smem(256, 1) == 16 * 256 * 4 + rows * 272 + 64
-    assert q8.winograd_int8_smem(256, 2) == 16 * 256 * 4 + rows * 272 + 128
-    assert plan.smem(256, 256) == q8.winograd_int8_smem(256, 1)
+    """The cluster form takes no workspace: M stays in the cluster's shared
+    memory. A block's shared memory (the C entry's Layout) holds, for each
+    of its two positions, the two weight slots, the quantized rows, V or M
+    and the scales, and decides its blocks an SM."""
+    plan = q8.winograd_int8_item(8, 14, 14, 256, 256, 32, 256)
+    assert not hasattr(plan, "workspace_words")
+    # 32 tiles x 256 channels, K 256 in one span, one scale a row: slots
+    # 2 x 256 x 128, rows 2 x 32 x 128, V 32 x 256 x 4 (M 32 x 260 x 4 is
+    # larger), scales 32 x 4; each warpgroup's part 1024-aligned
+    wgp = -(-(2 * 256 * 128 + 2 * 32 * 128 + 32 * 260 * 4 + 32 * 4) // 1024) * 1024
+    assert q8.winograd_int8_smem(32, 256, 256, 1) == 1024 + 2 * wgp
+    assert plan.smem(256, 256) == q8.winograd_int8_smem(32, 256, 256, 1)
     assert q8.winograd_int8_plan(1, 28, 28, 256, 128).smem(256, 128) == (
-        q8.winograd_int8_smem(256, 2))
+        q8.winograd_int8_smem(8, 128, 256, 2))
 
 
 # Cin past one span (WINO_INT8_CHUNK): nine 128-channel groups at Cout 128,
 # the stash at Cin 2048, one group of an odd Cin, and the widest shape the
-# kernel took before it walked spans (Cin 1088, one block an SM then).
+# kernel took before it walked spans (Cin 1088).
 @pytest.mark.parametrize("cin,cout,groups", [(1152, 128, 9), (2048, 256, 1), (1100, 64, 1),
                                              (1088, 256, 1), (4096, 128, 32)])
 def test_winograd_int8_plan_walks_wide_cin_in_spans(cin, cout, groups):
-    """Past WINO_INT8_CHUNK the plan stages K in spans of WINO_INT8_CHUNK, a
-    multiple of the scale group: a block's shared memory stays under the
-    block limit whatever Cin is, two blocks an SM fit as they do at the
-    served widths, and no Cin is refused."""
+    """Past WINO_INT8_CHUNK the plan stages K in spans of at most
+    WINO_INT8_CHUNK, a multiple of the scale group: a block's shared memory
+    stays under the block limit whatever Cin is, and no Cin is refused."""
     assert q8.wino_int8_groups(cin, cout) == groups
     plan = q8.winograd_int8_plan(1, 14, 14, cin, cout)
-    assert plan.kp == -(-cin // 32) * 32 and plan.chunk == q8.WINO_INT8_CHUNK < plan.kp
+    assert plan.kp == -(-cin // 32) * 32 and plan.chunk <= q8.WINO_INT8_CHUNK < plan.kp
     assert plan.chunk % q8.WINO_INT8_GROUP == 0
     smem = plan.smem(cin, cout)
-    assert smem == q8.winograd_int8_smem(plan.chunk, 1 if groups == 1 else plan.chunk // 128)
+    assert smem == q8.winograd_int8_smem(plan.item_tiles, plan.cols, plan.chunk,
+                                         1 if groups == 1 else plan.chunk // 128)
     assert smem <= q8.H100_SMEM_PER_BLOCK
-    assert 2 * (smem + q8.SMEM_RESERVED_PER_BLOCK) <= q8.H100_SMEM_PER_SM
-    assert plan.blocks == min(plan.items(), q8.WINO_INT8_BLOCKS_PER_SM * H100_SMS)
-    assert plan.args() == (plan.kp, q8.WINO_INT8_TILES, q8.WINO_INT8_COLS, plan.chunk,
-                           plan.blocks)
+    assert plan.blocks == q8.WINO_INT8_CLUSTER * plan.items()
+    assert plan.args() == (plan.kp, plan.item_tiles, plan.cols, plan.chunk, plan.blocks)
 
 
 def test_winograd_int8_plan_follows_the_sm_count():
-    small, large = (q8.winograd_int8_plan(8, 28, 28, 128, 128, sms=sms) for sms in (66, H100_SMS))
-    assert small.blocks == 2 * 66 and large.blocks == 2 * H100_SMS
-    assert small.items() == large.items()
+    """Half the SMs want half the items: the plan keeps the larger items
+    longer."""
+    small, large = (q8.winograd_int8_plan(1, 28, 28, 128, 128, sms=sms) for sms in (66, H100_SMS))
+    assert small.items() >= 66 // q8.WINO_INT8_CLUSTER and small.item_tiles > large.item_tiles
     few = q8.winograd_int8_plan(1, 6, 6, 64, 64, sms=H100_SMS)
-    assert few.blocks == few.items() == 16 * 1 * 1                # never more blocks than items
+    assert few.items() == 2 and few.item_tiles == 8   # the most items, the fewest tiles an item
 
 
 # The served int8 basic stages (N, H, W, C) and their K split on 132 SMs:
@@ -687,6 +686,7 @@ def test_winograd_int8_wrapper_launches_the_plan(monkeypatch, sms, shape):
     assert entry == "winograd_int8_conv3x3_bn"
     assert ints[:7] == [n, h, w, cin, cout, int(cout > 128), 1]
     assert ints[7:] == list(q8.winograd_int8_plan(*shape, sms).args())
+    assert len(ints) == 12            # no workspace: the cluster form has none
 
 
 @pytest.mark.parametrize("sms", [H100_SMS, 66])
@@ -758,14 +758,14 @@ def _constexpr(source: str, name: str) -> int:
     (q8.POINTWISE_INT8_PATHS.index("gemv"), "pointwise_int8.cu", "kGemv"),
     (q8.POINTWISE_INT8_PATHS.index("one_pass"), "pointwise_int8.cu", "kOnePass"),
     (q8.POINTWISE_INT8_PATHS.index("cooperative"), "pointwise_int8.cu", "kCooperative"),
-    (tr.TRANSITION_TILE, "mma_tf32.cuh", "kBM"),
-    (tr.TRANSITION_TILE, "mma_tf32.cuh", "kBN"),
-    (tr.TRANSITION_STEP, "mma_tf32.cuh", "kBK"),
+    (tr.TRANSITION_TILE, "wgmma_tile.cuh", "kBM"),
+    (tr.TRANSITION_TILE, "wgmma_tile.cuh", "kBN"),
+    (tr.TRANSITION_STEP, "wgmma_tile.cuh", "kBK"),
     (tr.TRANSITION_BLOCKS_PER_SM, "transition.cu", "kMaxBlocksPerSm"),
-    (q8.WINO_INT8_TILES, "winograd_int8.cu", "kTiles"),
-    (q8.WINO_INT8_COLS, "winograd_int8.cu", "kCols"),
-    (q8.WINO_INT8_BLOCKS_PER_SM, "winograd_int8.cu", "kBlocksPerSm"),
-    (q8.WINO_INT8_PAD, "winograd_int8.cu", "kPad"),
+    (q8.WINO_INT8_CLUSTER, "winograd_int8.cu", "kCluster"),
+    (q8.WINO_INT8_STEP, "winograd_int8.cu", "kBK"),
+    (q8.H100_SMEM_PER_BLOCK, "winograd_int8.cu", "kMaxSmem"),
+    (2, "winograd_int8.cu", "kWarpgroups"),
     (q8.DIRECT_INT8_BLOCKS_PER_SM, "basic_stage_int8.cu", "kBlocksPerSm"),
     (q8.WINO_INT8_CHUNK, "winograd_int8.cu", "kChunk"),
     (q8.WINO_INT8_GROUP, "winograd_int8.cu", "kGroup"),
@@ -796,13 +796,14 @@ def test_pointwise_int8_entry_checks_the_int8_geometry():
 
 
 def test_transition_entry_runs_the_tf32_phases():
-    """The f32 transition's three GEMMs are splitk_tf32.cuh's 3xTF32 phases,
-    its grid capped at two blocks an SM; it no longer includes gemm.cuh."""
+    """The f32 transition's three GEMMs are wgmma_phase.cuh's phases on the
+    wgmma tile (3xTF32 wgmma, weights by TMA), its grid capped at two blocks
+    an SM; splitk_tf32.cuh's gemm_phase is no longer its."""
     src = (CSRC / "transition.cu").read_text()
-    assert '#include "splitk_tf32.cuh"' in src and '#include "gemm.cuh"' not in src
-    assert src.count("sk::gemm_phase<kVec, true>(") == 3
-    assert "__launch_bounds__(tc::kThreads, kMaxBlocksPerSm)" in src
-    assert "tc::Im2colA<2>{" in src
+    assert '#include "wgmma_phase.cuh"' in src and '#include "gemm.cuh"' not in src
+    assert src.count("ph::phase_items<kVec>(") == 3 and "gemm_phase" not in src
+    assert "__launch_bounds__(wg::kThreads, kMaxBlocksPerSm)" in src
+    assert "tc::Im2colA<2>{" in src and src.count("wg::encode_weights(") == 3
 
 
 def test_basic_stage_runs_the_tf32_phases():
@@ -825,13 +826,16 @@ def test_basic_stage_runs_the_tf32_phases():
 
 
 def test_winograd_int8_runs_on_the_s8_tensor_cores():
-    """The int8 Winograd multiplies on s8 mma.sync (mma_int8.cuh's
-    fragments), with no __dp4a left, and runs the inverse after one grid
-    barrier of its one cooperative launch."""
+    """The int8 Winograd multiplies on s8 wgmma.mma_async (no mma.sync
+    m16n8k32 and no __dp4a left) and runs the inverse behind a cluster
+    barrier of its one launch: no grid barrier, no cooperative launch, no
+    memset."""
     src = (CSRC / "winograd_int8.cu").read_text()
-    assert '#include "mma_int8.cuh"' in src and "__dp4a" not in src
-    assert "s8::mma(" in src and "s8::frag_a(" in src and "s8::frag_b(" in src
-    assert src.count("wt::grid_sync(") == 1 and "cudaLaunchCooperativeKernel" in src
+    assert "wgmma.mma_async.sync.aligned.m64n" in src and ".s32.s8.s8" in src
+    assert "__dp4a" not in src and "s8::mma(" not in src and "s8::frag_a(" not in src
+    assert "grid_sync(" not in src and "cudaLaunchCooperativeKernel" not in src
+    assert "cudaMemsetAsync" not in src and "cudaLaunchAttributeClusterDimension" in src
+    assert src.count("cluster_sync();") == 2
 
 
 def test_basic_stage_int8_runs_the_mma_int8_phases():

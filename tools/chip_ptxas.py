@@ -16,7 +16,11 @@ none), one per device function compiled apart (__noinline__: {"library",
 "function", "spill_stores", "spill_loads", "stack"}, its registers the
 kernel's) and one per library counting its SASS instructions by opcode
 family ("HGMMA": floating-point wgmma, "IGMMA": integer wgmma, "HMMA",
-"IMMA" and "DMMA": mma.sync, "UTMALDG": TMA loads).
+"IMMA" and "DMMA": mma.sync, "UTMALDG": TMA loads). For the libraries whose
+products are all wgmma (WGMMA_ONLY: libwinograd_int8 and libstage_int8 on
+s8 wgmma, libtransition and libstage on 3xTF32 and bf16 wgmma) one more
+line says whether the SASS holds that wgmma and no mma.sync; the exit code
+is 1 where it does not.
 """
 
 from __future__ import annotations
@@ -30,6 +34,10 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "DMMA", "UTMALDG", "UBLKCP")
+# The libraries whose products must be wgmma and no mma.sync: (the wgmma
+# opcode the SASS must hold, the mma.sync opcode it must not).
+WGMMA_ONLY = {"winograd_int8": ("IGMMA", "IMMA"), "transition": ("HGMMA", "HMMA"),
+              "stage": ("HGMMA", "HMMA"), "stage_int8": ("IGMMA", "IMMA")}
 
 
 def main() -> int:
@@ -91,6 +99,12 @@ def main() -> int:
         counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in OPCODES}
         hgmma = sorted({m.group(0) for m in re.finditer(r"[HI]GMMA\.[A-Za-z0-9.]+", sass)})
         print(json.dumps({"library": name, "sass": counts, "hgmma_forms": hgmma}), flush=True)
+        if name in WGMMA_ONLY:
+            want, not_want = WGMMA_ONLY[name]
+            good = counts[want] > 0 and counts[not_want] == 0
+            ok &= good
+            print(json.dumps({"library": name, "wgmma_only": good, want: counts[want],
+                              not_want: counts[not_want]}), flush=True)
     return 0 if ok else 1
 
 

@@ -8,8 +8,8 @@ of the f32 and bf16w stage's plan
 (csrc/stage.cu), of the int8 stage's (csrc/stage_int8.cu) and of the int8
 Winograd's grid (csrc/winograd_int8.cu) on one CUDA card, and an A/B of
 their wrappers (and of the stem's, csrc/stem.cu) against another checkout.
-pointwise, winograd and stage run at f32 and, as pointwise_bf16w,
-winograd_bf16w (F(2,3)) and stage_bf16w, on bf16 weights.
+pointwise, winograd, stage and transition run at f32 and, as pointwise_bf16w,
+winograd_bf16w (F(2,3)), stage_bf16w and transition_bf16w, on bf16 weights.
 
     python3 tools/chip_split_sweep.py [--only NAME,...]    # the sweep
     python3 tools/chip_split_sweep.py --ab DIR [--only ...] # the A/B against DIR
@@ -48,8 +48,9 @@ padded K <= 256, cooperative), the GEMV's and the cooperative form's K
 split for 1, 2, 4, ..., 32 wanted ranges; the f32 and the int8 basic stage
 under their plans and under the K splits split_k gives for 1, 2, 4, ...,
 64 wanted ranges (both convs share one split); the int8 Winograd under its
-plan, on a grid of one block an SM, and in spans of 128 channels of K (the
-walk a Cin past WINO_INT8_CHUNK takes).
+plan, under every item shape its kernel takes (8 x 128, 16 x 128 or 32 x
+256 tiles by channels), and in spans of 128 channels of K (the walk a Cin
+past WINO_INT8_CHUNK takes).
 
 --ab DIR times the public wrappers (kernels/pointwise.py::conv1x1_bn,
 kernels/direct.py::conv3x3_bn_direct, kernels/winograd.py::
@@ -66,8 +67,8 @@ seeded inputs ("--wrappers ROOT" is one such turn).
 
 --only takes kernel names (pointwise, pointwise_bf16w, direct, winograd,
 winograd_bf16w, winograd_bf16, stage, stage_bf16w, direct_int8, stage_int8, stem,
-transition_int8, pointwise_int8, transition, winograd_int8, basic_stage,
-basic_stage_int8) and keeps those shapes alone.
+transition_int8, pointwise_int8, transition, transition_bf16w, winograd_int8,
+basic_stage, basic_stage_int8) and keeps those shapes alone.
 """
 
 from __future__ import annotations
@@ -130,10 +131,11 @@ TRANSITION_INT8 = [  # (N, H, W, Cin, Cmid, Cout): A/B only
     (1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024), (1, 14, 14, 1024, 512, 2048),
     (8, 14, 14, 1024, 512, 2048),
 ]
-TRANSITION = [  # (N, H, W, Cin, Cmid, Cout)
-    (1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024), (1, 14, 14, 1024, 512, 2048),
-    (8, 14, 14, 1024, 512, 2048),
+TRANSITION = [  # (N, H, W, Cin, Cmid, Cout): ResNet-50's three at N = 1, 8 and 32
+    (n, hw, hw, cin, cin // 2, 2 * cin) for n in (1, 8, 32)
+    for hw, cin in ((56, 256), (28, 512), (14, 1024))
 ]
+TRANSITION_BF16W = TRANSITION  # the bf16w instantiation ("transition_bf16w") at the same shapes
 POINTWISE_INT8 = [  # (P, K, N, relu): the served int8 1x1s at N=1 and N=8
     (1, 2048, 1000, False), (8, 2048, 1000, False), (1, 512, 1000, False), (8, 512, 1000, False),
     (3136, 64, 64, True), (3136, 64, 256, False), (25088, 64, 64, True),
@@ -143,9 +145,8 @@ POINTWISE_INT8 = [  # (P, K, N, relu): the served int8 1x1s at N=1 and N=8
     (49, 2304, 512, True), (6272, 576, 128, True), (1568, 1152, 256, True),
     (392, 2304, 512, True),
 ]
-WINOGRAD_INT8 = [  # (N, H, W, Cin, Cout, relu): ResNet-34's int8 Winograds at N=1 and N=8
-    (1, 28, 28, 128, 128, True), (1, 14, 14, 256, 256, True), (8, 28, 28, 128, 128, True),
-    (8, 14, 14, 256, 256, True),
+WINOGRAD_INT8 = [  # (N, H, W, Cin, Cout, relu): ResNet-34's int8 Winograds at N = 1, 8, 32
+    (n, hw, hw, c, c, True) for n in (1, 8, 32) for hw, c in ((28, 128), (14, 256))
 ]
 BASIC_STAGE_INT8 = [  # (N, H, W, C, blocks): ResNet-34's conv5_x run, and ResNet-18's
     (1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1),
@@ -335,7 +336,9 @@ def _cases_all(dev):
         tol = 1e-3 * max(1.0, ref.abs().max().item())
         yield ("transition_int8", (n, h, wd, cin, cmid, cout), (x, qp), ref,
                lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
-    for n, h, wd, cin, cmid, cout in TRANSITION:
+    for name, n, h, wd, cin, cmid, cout in (
+            [("transition", *shape) for shape in TRANSITION]
+            + [("transition_bf16w", *shape) for shape in TRANSITION_BF16W]):
         wm = (rng.random((cmid, cmid, 3, 3)) - 0.5).astype(np.float32)
         params = dict(
             w_reduce=rand(cin, cmid), s_reduce=t((rng.random(cmid) * 0.5).astype(np.float32)),
@@ -345,10 +348,12 @@ def _cases_all(dev):
             b_expand=rand(cout), w_proj=rand(cin, cout),
             s_proj=t((rng.random(cout) * 0.5).astype(np.float32)), b_proj=rand(cout))
         params["wep"], params["bep"] = fuse_transition_weights(params)  # as the models store it
+        if name == "transition_bf16w":  # the f32 fold rounded once, as cast_bf16w does
+            params.update({k: params[k].bfloat16() for k in ("w_reduce", "w9_mid", "wep")})
         x = rand(n, h, wd, cin)
         ref = transition_block_fused_plain(x, params)
         tol = 1e-4 * max(1.0, ref.abs().max().item())
-        yield ("transition", (n, h, wd, cin, cmid, cout), (x, params), ref,
+        yield (name, (n, h, wd, cin, cmid, cout), (x, params), ref,
                lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
     for p, k, n, relu in POINTWISE_INT8:
         x = rand(p, k).abs() if relu else rand(p, k)
@@ -410,6 +415,7 @@ def wrappers(dev) -> bool:
             "pointwise_bf16w": conv1x1_bn, "stage_bf16w": resnet_stage_fused,
             "stage_int8": resnet_stage_int8, "stem": stem_fused,
             "transition_int8": transition_block_int8, "transition": transition_block_fused,
+            "transition_bf16w": transition_block_fused,
             "pointwise_int8": conv1x1_bn_int8, "winograd_int8": conv3x3_bn_winograd_int8,
             "basic_stage": basic_stage_fused, "basic_stage_int8": basic_stage_int8}
     ok = True
@@ -465,8 +471,8 @@ def sweep(dev) -> bool:
         if name == "transition_int8":
             ok &= sweep_transition_int8(shape, args, ref, agrees, q8, sms)
             continue
-        if name == "transition":
-            ok &= sweep_transition(shape, args, ref, agrees, sms)
+        if name in ("transition", "transition_bf16w"):
+            ok &= sweep_transition(name, shape, args, ref, agrees, sms)
             continue
         if name == "pointwise_int8":
             ok &= sweep_pointwise_int8(shape, args, ref, agrees, q8, sms)
@@ -549,9 +555,9 @@ def sweep_transition_int8(shape, args, ref, agrees, q8, sms) -> bool:
     return ok
 
 
-def sweep_transition(shape, args, ref, agrees, sms) -> bool:
-    """The f32 transition under its plan and under plans that change one
-    phase's K split."""
+def sweep_transition(name, shape, args, ref, agrees, sms) -> bool:
+    """The f32 or bf16w transition under its plan and under plans that
+    change one phase's K split."""
     from winograd_tpu_torch.kernels import transition as tr
     from winograd_tpu_torch.kernels.splitk import split_k
 
@@ -574,7 +580,7 @@ def sweep_transition(shape, args, ref, agrees, sms) -> bool:
         fn = (lambda plan=plan: tr.transition_block_fused_planned(*operands, plan))
         y = fn()
         ok &= agrees(y)
-        print(json.dumps({"kernel": "transition", "shape": shape, "varied": varied,
+        print(json.dumps({"kernel": name, "shape": shape, "varied": varied,
                           "plan": plan.args(), "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
                           "ms": device_ms(fn)}), flush=True)
@@ -615,14 +621,15 @@ def sweep_pointwise_int8(shape, args, ref, agrees, q8, sms) -> bool:
 
 
 def sweep_winograd_int8(shape, args, ref, agrees, q8, sms) -> bool:
-    """The int8 Winograd under its plan, on a grid of one block an SM, and
-    in spans of WINO_INT8_GROUP channels of K."""
+    """The int8 Winograd under its plan, under every other item shape the
+    kernel takes (WINO_INT8_ITEMS: tiles by channels), and in
+    spans of WINO_INT8_GROUP channels of K."""
     n, h, w, cin, cout, _ = shape
     chosen = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
     plans = [chosen]
-    for per_sm in range(1, q8.WINO_INT8_BLOCKS_PER_SM):
-        plan = chosen._replace(blocks=min(chosen.items(), per_sm * sms))
-        if plan not in plans:
+    for tiles, cols in q8.WINO_INT8_ITEMS:
+        plan = q8.winograd_int8_item(n, h, w, cin, cout, tiles, cols)
+        if plan is not None and plan not in plans:
             plans.append(plan)
     if chosen.kp > q8.WINO_INT8_GROUP:
         plans.append(chosen._replace(chunk=q8.WINO_INT8_GROUP))
@@ -632,6 +639,7 @@ def sweep_winograd_int8(shape, args, ref, agrees, q8, sms) -> bool:
         y = fn()
         ok &= agrees(y)
         print(json.dumps({"kernel": "winograd_int8", "shape": shape, "items": plan.items(),
+                          "item_tiles": plan.item_tiles, "cols": plan.cols,
                           "blocks": plan.blocks, "chunk": plan.chunk, "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
                           "ms": device_ms(fn)}), flush=True)

@@ -2,14 +2,15 @@
 """Where the persistent kernels' time goes, phase by phase, on one CUDA card.
 
     python3 tools/chip_stage_timeline.py [--root DIR]
-        [--kernel stage|stage_int8|transition_int8|transition|basic_stage|basic_stage_int8|
-                  winograd_int8|winograd|both]
+        [--kernel stage|stage_int8|transition_int8|transition|transition_bf16w|basic_stage|
+                  basic_stage_int8|winograd_int8|winograd|both]
         [--variant as_is,one_pass,no_mma]
 
 Run from the repository root on a machine with a CUDA card and nvcc. It
 builds a copy of DIR's winograd_tpu_torch/csrc/stage.cu (the f32 stage),
 of its stage_int8.cu, of its transition_int8.cu, of its transition.cu (the
-f32 transition), of its basic_stage.cu and basic_stage_int8.cu and of its
+f32 transition, and its bf16w instantiation for --kernel transition_bf16w,
+bf16 weights), of its basic_stage.cu and basic_stage_int8.cu and of its
 winograd_int8.cu
 (default: this checkout's; DIR may be an unpacked `git archive` of another
 commit under build/) in which thread 0 of block 0 reads %globaltimer once
@@ -22,7 +23,8 @@ conv3x3_bn_winograd_int8
 wrappers on those libraries at the served shapes ("both" is the two
 stages). Each
 line gives the kernel's stamped span and the spans between stamps in
-microseconds: a phase's span is its slowest block's work plus the barrier.
+microseconds (a phase's span is its slowest block's work plus the barrier)
+and the wrapper's device time a call replayed from a CUDA graph (graph_us).
 The f32 stage's spans are, per block, reduce, mid, expand (the last
 block's expand is not stamped: the kernel ends there); the int8 stage's
 are its first phase (the weight transposes, x's row maxima), then per
@@ -42,8 +44,13 @@ barrier alone). The int8 basic stage's copy gets a barrier and a
 stamp after each block's last phase: per block, the quantize phase (block
 0's with the weight transposes), the first conv with its split sum, the
 second quantize, the second conv with its split sum (and, before the next
-block, one barrier alone). The int8 Winograd's copy ends the same way:
-the position items, then the inverse. The f32 Winograd's (--kernel
+block, one barrier alone). The int8 Winograd's copy in its grid-barrier
+layout (before its items became thread-block clusters) ends the same way:
+the position items, then the inverse; in its cluster layout every block's
+thread 0 stamps its start, V and the first weights staged, the rows
+quantized, the products, M stored, the cluster barrier and its end, and the
+line gives the launch's span (first start to last end) and, over the
+blocks, the median and the largest of each step (microseconds). The f32 Winograd's (--kernel
 winograd: csrc/winograd.cu with a stamped copy of csrc/wino_tf32.cuh, at
 f32 and bf16w) spans are its V phase, its position items and its inverse.
 First, the grid barrier alone
@@ -82,9 +89,9 @@ SHAPES = {  # (N, H, W, Cio, Cmid, blocks, mid): the served stages, conv4_x at N
                    (1, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct"),
                    (8, 14, 14, 1024, 256, 5, "direct"), (8, 56, 56, 256, 64, 2, "winograd2")],
 }
-# (N, H, W, Cin, Cmid, Cout): the served transitions, and 14->7 at N=8.
-TRANSITION_SHAPES = [(1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024),
-                     (1, 14, 14, 1024, 512, 2048), (8, 14, 14, 1024, 512, 2048)]
+# (N, H, W, Cin, Cmid, Cout): the served transitions at N=1 and N=8.
+TRANSITION_SHAPES = [(n, hw, hw, cin, cin // 2, 2 * cin) for n in (1, 8)
+                     for hw, cin in ((56, 256), (28, 512), (14, 1024))]
 # (N, H, W, C, blocks): ResNet-34's conv5_x run at N=1 and N=8, ResNet-18's;
 # both basic stages.
 BASIC_STAGE_SHAPES = [(1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1)]
@@ -108,8 +115,11 @@ LAYOUT = {
                     "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act"), None),
     "transition_int8": ('#include "mma_int8.cuh"\n', "  // 0. The four weight matrices",
                         "  expand_and_project(a, P2, smem);\n"),
-    "transition": ('#include "splitk_tf32.cuh"\n', "  sk::gemm_phase<kVec, true>(a.reduce,",
-                   "BiasReluEpilogue{a.bep, a.out, a.Cout}, a.part, a.bar, smem);\n"),
+    "transition": ('#include "splitk_tf32.cuh"\n',
+                   ("  ph::phase_items<kVec>(a.reduce,",  # since the wgmma phases
+                    "  sk::gemm_phase<kVec, true>(a.reduce,"),
+                   ("  ph::reduce_phase(a.expand, e3, a.part, a.bar);\n",
+                    "BiasReluEpilogue{a.bep, a.out, a.Cout}, a.part, a.bar, smem);\n")),
     "basic_stage": ('#include "splitk_tf32.cuh"\n',
                     "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act",
                     "act, a.out, c}, a.part,\n                               a.bar, smem);\n"),
@@ -138,6 +148,9 @@ PASSES = {"mma_tf32.cuh": {"lo_hi": "mma(acc[mi][ni], al[mi], bh[ni]);",
                              "hi_hi": "wgmma_tf32(part, ah[j], bh, 1);"}}
 VARIANTS = {"as_is": (), "one_pass": ("lo_hi", "hi_lo"), "no_mma": ("lo_hi", "hi_lo", "hi_hi")}
 TF32_KERNELS = ("stage", "transition", "basic_stage")  # on that tile, built once per variant
+# A kernel timed through another's source: the bf16w transition is
+# transition.cu's bf16w instantiation (its bf16 wgmma tiles), as_is only.
+SOURCE = {"transition_bf16w": "transition"}
 STAMP = ("{ if (blockIdx.x == 0 && threadIdx.x == 0) { unsigned long long t; "
          "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); "
          "if (g_stamps < 1024) g_stamp[g_stamps++] = t; } }")
@@ -167,14 +180,93 @@ extern "C" int read_stamps(unsigned long long* host, int* n) {
 '''
 
 
+# The int8 Winograd since its items became thread-block clusters has no
+# grid barrier: thread 0 of every block (its first warpgroup's position)
+# stamps its start, the span's V staged with the first weights, the rows
+# quantized, the products, the end of its items (M stored), the cluster
+# barrier before the inverse and its end, each block into slots of its own
+# (WINO_INT8_STAMPS a block; past one span the last span's).
+WINO_INT8_CLUSTER = "  cluster_sync();  // every position's M is in the cluster's shared memory\n"
+WINO_INT8_HEAD = "  const unsigned rank = cluster_rank();\n"
+WINO_INT8_LAST = "  cluster_sync();  // no block leaves while another reads its M\n"
+WINO_INT8_STAGED = "    store_weights<kMB>(slots, wr);\n    wg_sync();\n"
+WINO_INT8_QUANTIZED = "    wg::fence_proxy_async();\n    wg_sync();\n\n    for (int st = 0;"
+WINO_INT8_PRODUCTS = "    if (!kSpans) break;\n  }\n"
+WINO_INT8_STEPS = ("v_and_weights", "quantize", "products", "m_store", "cluster_wait", "inverse")
+WINO_INT8_STAMPS = len(WINO_INT8_STEPS) + 1
+BLOCK_STAMP = ("{ if (threadIdx.x == 0 && blockIdx.x < 2048) { unsigned long long t; "
+               "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); "
+               "g_stamp[blockIdx.x * 7 + (N_)] = t; atomicMax(&g_stamps, "
+               "(int)(blockIdx.x * 7 + (N_) + 1)); } }")
+
+
+def stamped_clusters(src: str) -> str:
+    """The cluster form of csrc/winograd_int8.cu with a stamp of every
+    block's thread 0 at its start, after the span's V and first weights are
+    staged, after the rows are quantized, after the products, after its
+    positions' items (before the cluster barrier), after the cluster
+    barrier, and at its end."""
+    include = '#include "winograd.cuh"\n'
+    marks = (include, WINO_INT8_CLUSTER, WINO_INT8_HEAD, WINO_INT8_LAST, WINO_INT8_STAGED,
+             WINO_INT8_QUANTIZED, WINO_INT8_PRODUCTS)
+    if any(src.count(x) != 1 for x in marks):
+        raise SystemExit("winograd_int8.cu does not have the layout this tool stamps")
+    stamp = lambda i: "  " + BLOCK_STAMP.replace("N_", str(i)) + "\n"  # noqa: E731
+    src = src.replace(WINO_INT8_HEAD, stamp(0) + WINO_INT8_HEAD)
+    src = src.replace(WINO_INT8_STAGED, WINO_INT8_STAGED + stamp(1))
+    src = src.replace(WINO_INT8_QUANTIZED, WINO_INT8_QUANTIZED.replace(
+        "\n\n    for", "\n" + stamp(2) + "\n    for"))
+    src = src.replace(WINO_INT8_PRODUCTS, stamp(3) + WINO_INT8_PRODUCTS)
+    src = src.replace(WINO_INT8_CLUSTER, stamp(4) + WINO_INT8_CLUSTER + stamp(5))
+    src = src.replace(WINO_INT8_LAST, WINO_INT8_LAST + stamp(6))
+    return src.replace(include, include + "__device__ unsigned long long g_stamp[16384];\n"
+                       "__device__ int g_stamps;\n", 1) + READ_BLOCK_STAMPS
+
+
+READ_BLOCK_STAMPS = r'''
+extern "C" int read_stamps(unsigned long long* host, int* n) {
+  cudaError_t e = cudaMemcpyFromSymbol(n, g_stamps, sizeof(int));
+  if (e == cudaSuccess && *n > 16384) *n = 16384;
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(host, g_stamp, sizeof(unsigned long long) * *n);
+  const int zero = 0;
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_stamps, &zero, sizeof(int));
+  return static_cast<int>(e);
+}
+'''
+
+
+def block_spans(ts) -> dict:
+    """The cluster form's stamps (WINO_INT8_STAMPS a block) as the launch's
+    span (the first block's start to the last block's end) and, over the
+    blocks, the median and the largest of each of WINO_INT8_STEPS
+    (microseconds)."""
+    import statistics
+
+    blocks = [ts[i:i + WINO_INT8_STAMPS] for i in range(0, len(ts), WINO_INT8_STAMPS)]
+    blocks = [b for b in blocks if len(b) == WINO_INT8_STAMPS and all(b)]
+    steps = {name: [(b[i + 1] - b[i]) / 1e3 for b in blocks]
+             for i, name in enumerate(WINO_INT8_STEPS)}
+    return {"stamped_us": (max(b[-1] for b in blocks) - min(b[0] for b in blocks)) / 1e3,
+            "blocks": len(blocks),
+            **{f"{k}_us": [round(statistics.median(v), 2), round(max(v), 2)]
+               for k, v in steps.items()}}
+
+
 def stamped_source(src: str, kernel: str) -> str:
     """The kernel's source with a stamp before its phases and after every
     grid barrier of the kernel body (and a barrier and a stamp after its
     last statement, where LAYOUT names one), and a C entry that reads the
-    stamps."""
-    include, heads, last = LAYOUT[kernel]
-    head = next((h for h in (heads if isinstance(heads, tuple) else (heads,)) if h in src), None)
-    if include not in src or head is None or last is not None and src.count(last) != 1:
+    stamps; the int8 Winograd's cluster form stamps every block
+    (stamped_clusters)."""
+    if kernel == "winograd_int8" and WINO_INT8_CLUSTER in src:
+        return stamped_clusters(src)
+    include, heads, lasts = LAYOUT[kernel]
+    # A body's head and last statement; where a source has more than one
+    # body (the transition's two tile forms) each present one is stamped.
+    heads = [h for h in (heads if isinstance(heads, tuple) else (heads,)) if h in src]
+    last = next((x for x in (lasts if isinstance(lasts, tuple) else (lasts,))
+                 if x is not None and x in src), None)
+    if include not in src or not heads or lasts is not None and last is None:
         raise SystemExit(f"{kernel}.cu does not have the layout this tool stamps")
     src = src.replace("wt::grid_sync(a.bar);", "{ wt::grid_sync(a.bar); STAMP }")
     if last is not None:
@@ -182,7 +274,9 @@ def stamped_source(src: str, kernel: str) -> str:
     if kernel != "winograd":  # its stamped wino_tf32.cuh declares the buffer
         src = src.replace(include, include + "__device__ unsigned long long g_stamp[1024];\n"
                           "__device__ int g_stamps;\n#define STAMP " + STAMP + "\n", 1)
-    return src.replace(head, "  STAMP\n" + head, 1) + READ_STAMPS
+    for head in heads:
+        src = src.replace(head, "  STAMP\n" + head)
+    return src + READ_STAMPS
 
 
 def stamped_wino_tf32(src: str) -> str:
@@ -227,7 +321,8 @@ def build(root: pathlib.Path, out: pathlib.Path, kernels, variants=("as_is",)):
     (out / "barrier.cu").write_text(BARRIER_BENCH)
     jobs = {"barrier": (out / "barrier.cu", csrc)}  # name -> (source, include dir)
     for kernel in kernels:
-        stamped = stamped_source((csrc / f"{kernel}.cu").read_text(), kernel)
+        source = SOURCE.get(kernel, kernel)
+        stamped = stamped_source((csrc / f"{source}.cu").read_text(), source)
         if kernel == "winograd":
             (out / "wino_tf32.cuh").write_text(stamped_wino_tf32(
                 (csrc / "wino_tf32.cuh").read_text()))
@@ -327,6 +422,11 @@ def transition_case(rng, dev, kernel, n, h, w, cin, cmid, cout):
         params = {k: v.to(dev) for k, v in q8.quantize_transition_params(params).items()}
     else:
         params = {k: torch.as_tensor(v, device=dev) for k, v in params.items()}
+    if kernel == "transition_bf16w":  # the f32 fold rounded to bf16 once, as cast_bf16w does
+        from winograd_tpu_torch.kernels.transition import fuse_transition_weights
+
+        params["wep"], params["bep"] = fuse_transition_weights(params)
+        params.update({k: params[k].bfloat16() for k in ("w_reduce", "w9_mid", "wep")})
     return torch.as_tensor(np.abs(rand(n, h, w, cin)), device=dev), params
 
 
@@ -390,6 +490,7 @@ def main() -> int:
                     help="the checkout whose kernel and wrapper are timed")
     ap.add_argument("--kernel",
                     choices=("stage", "stage_int8", "transition_int8", "transition",
+                             "transition_bf16w",
                              "basic_stage", "basic_stage_int8", "winograd_int8", "winograd",
                              "both"),
                     default="both")
@@ -413,6 +514,7 @@ def main() -> int:
     from winograd_tpu_torch.kernels import stage as st
     from winograd_tpu_torch.kernels import transition as tr
     from winograd_tpu_torch.kernels import winograd as wn
+    from winograd_tpu_torch.utils.timing import bench_graph
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip(), flush=True)
@@ -432,6 +534,8 @@ def main() -> int:
                                     q8._workspace_words),
                 "transition": (tr.transition_block_fused, tr.transition_block_fused_plain,
                                tr._workspace_floats),
+                "transition_bf16w": (tr.transition_block_fused,
+                                     tr.transition_block_fused_plain, tr._workspace_floats),
                 "basic_stage": (bs.basic_stage_fused, bs.basic_stage_fused_plain,
                                 bs._workspace_floats),
                 "basic_stage_int8": (bs.basic_stage_int8, bs.basic_stage_int8_plain,
@@ -440,12 +544,15 @@ def main() -> int:
                                   q8.conv3x3_bn_winograd_int8_plain, None),
                 "winograd": (wn.conv3x3_bn_winograd, wn.conv3x3_bn_winograd_plain, None)}
     rng = np.random.default_rng(0)
-    stamps, count = (ctypes.c_ulonglong * 1024)(), ctypes.c_int(0)
+    stamps, count = (ctypes.c_ulonglong * 16384)(), ctypes.c_int(0)
+    csrc = root / "winograd_tpu_torch" / "csrc"
+    per_block = {k: k == "winograd_int8" and WINO_INT8_CLUSTER in (csrc / f"{k}.cu").read_text()
+                 for k in kernels}
     ok = True
     for kernel in kernels:
         call, plain, workspace = wrappers[kernel]
         cases = []  # (shape, the wrapper's operands, the twin's output)
-        if kernel in ("transition_int8", "transition"):
+        if kernel in ("transition_int8", "transition", "transition_bf16w"):
             for shape in TRANSITION_SHAPES:
                 x, params = transition_case(rng, dev, kernel, *shape)
                 cases.append((shape, (x, params), plain(x, params)))
@@ -467,7 +574,7 @@ def main() -> int:
         tf32 = kernel in TF32_KERNELS
         for variant in (variants if tf32 else ("as_is",)):
             lib = libs[f"{kernel}_stamped:{variant}" if tf32 else f"{kernel}_stamped"]
-            _build._LIBS[kernel] = lib  # the wrapper launches the stamped library
+            _build._LIBS[SOURCE.get(kernel, kernel)] = lib  # the wrapper launches it
             if workspace is not None:
                 workspace.cache_clear()
             for shape, operands, ref in cases:
@@ -480,17 +587,25 @@ def main() -> int:
                     if lib.read_stamps(stamps, ctypes.byref(count)):
                         raise SystemExit("read_stamps failed")
                 err = (y - ref).abs().max().item()
-                if kernel not in TF32_KERNELS and kernel != "winograd":
+                if kernel not in TF32_KERNELS and kernel not in ("winograd", "transition_bf16w"):
                     agrees = bool(torch.equal(y, ref))
                 else:
                     agrees = err <= 1e-4 * max(1.0, ref.abs().max().item())
                 if variant == "as_is":
                     ok &= agrees
                 ts = [stamps[i] for i in range(count.value)]
+                # 20 calls in one CUDA graph, the median of 20 replays: its
+                # difference from the stamped span is what a launch costs
+                # outside the kernel body (the graph's launch, a barrier's
+                # memset, the first block's start, the last one's end).
+                replayed = bench_graph(lambda: call(*operands))
+                if per_block[kernel]:
+                    spans = block_spans(ts)
+                else:
+                    spans = {"stamped_us": (ts[-1] - ts[0]) / 1e3,
+                             "spans_us": [round((b - a) / 1e3, 2) for a, b in zip(ts, ts[1:])]}
                 print(json.dumps({"kernel": kernel, "variant": variant, "shape": list(shape),
-                                  "root": str(root), "stamped_us": (ts[-1] - ts[0]) / 1e3,
-                                  "spans_us": [round((b - a) / 1e3, 2)
-                                               for a, b in zip(ts, ts[1:])],
+                                  "root": str(root), "graph_us": replayed, **spans,
                                   "max_abs_err": err, "agrees_with_twin": agrees}), flush=True)
     return 0 if ok else 1
 

@@ -34,7 +34,7 @@
 // wt::mma_tile picks the tile by the element type of B (float: 3xTF32,
 // __nv_bfloat16: this one) and wt::kTileSmemBytes<BT> its ring's bytes, so
 // splitk_tf32.cuh's split-K kernel and gemm_phase run either tier
-// (csrc/direct.cu, transition.cu, basic_stage.cu).
+// (csrc/direct.cu, basic_stage.cu).
 #pragma once
 
 #include <cuda_bf16.h>

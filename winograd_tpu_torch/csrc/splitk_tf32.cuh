@@ -20,7 +20,7 @@
 // tile (wt::mma_tile), the plan and the reduction the same.
 //
 // gemm_phase is the same product as one phase of a persistent cooperative
-// kernel (csrc/transition.cu, basic_stage.cu): its work items, (split,
+// kernel (csrc/basic_stage.cu): its work items, (split,
 // tile) pairs, are dealt to
 // the grid's blocks, and the splits' partial sums are added in split order
 // behind a grid barrier (grid_sync.cuh) by all blocks, each element once.

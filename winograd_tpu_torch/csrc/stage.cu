@@ -32,7 +32,8 @@
 // barrier (grid_sync.cuh) separates phases and blocks; h1 and h2 live in a
 // device workspace that fits the 50 MB L2 (12.8 MB at N=8 conv2_x). The
 // GEMM phases (reduce, the direct mid on an implicit im2col of h1, expand
-// with its residual) run wgmma_tile.cuh's 64 x 64 tiles: one warpgroup's
+// with its residual) are wgmma_phase.cuh's, shared with csrc/transition.cu,
+// on wgmma_tile.cuh's 64 x 64 tiles: one warpgroup's
 // wgmma.mma_async in 3xTF32, the weight tiles by TMA onto mbarriers, A by
 // cp.async, a 4-deep ring. A phase splits K over items where it has fewer
 // tiles than the grid has blocks or an item would walk a long K, and the
@@ -76,6 +77,7 @@
 #include "common.cuh"
 #include "grid_sync.cuh"
 #include "splitk_tf32.cuh"
+#include "wgmma_phase.cuh"
 #include "wgmma_tile.cuh"
 #include "wino_tf32.cuh"
 
@@ -85,6 +87,7 @@ namespace tc = wt::tf32x3;
 namespace sk = wt::splitk;
 namespace wg = wt::wg;
 namespace wtc = wt::winotc;
+namespace ph = wt::wgphase;
 
 constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
 static_assert(sk::kSplitStep == wg::kBK, "a phase's splits are whole stages of the wgmma tile");
@@ -117,83 +120,6 @@ struct StageArgs {
   wtc::Cut wcut;
 };
 
-// An item of a phase: its split's K range and its output tile's corner.
-struct Item {
-  int split, p0, n0, k0, k1;
-};
-
-__device__ __forceinline__ Item item_of(const wt::GemmPhase& g, int item) {
-  const int tiles_n = (g.N + wg::kBN - 1) / wg::kBN;
-  const int tiles = (g.P + wg::kBM - 1) / wg::kBM * tiles_n;
-  const int split = item / tiles, t = item - split * tiles;
-  const int k0 = split * g.chunk;
-  return Item{split, t / tiles_n * wg::kBM, t % tiles_n * wg::kBN, k0, min(g.K, k0 + g.chunk)};
-}
-
-__device__ __forceinline__ int items_of(const wt::GemmPhase& g) {
-  return (g.P + wg::kBM - 1) / wg::kBM * ((g.N + wg::kBN - 1) / wg::kBN) * g.splits;
-}
-
-// This block's items of the product C = A x B of phase g: each output
-// through epi(p, n, acc) at one split, else its partial tile into part
-// (splits x P x N). `prefetched`: the first item's weight loads are in
-// flight (prefetch_phase); cleared.
-template <bool kVec, class ASrc, class BT, class Epilogue>
-__device__ __forceinline__ void phase_items(const wt::GemmPhase& g, const ASrc& a,
-                                            const wg::Weights<BT>& b, const Epilogue& epi,
-                                            float* part, wg::Ring& ring, bool& prefetched) {
-  for (int item = blockIdx.x; item < items_of(g); item += gridDim.x) {
-    const Item it = item_of(g, item);
-    wg::Acc acc;
-    wg::tile<kVec, true>(a, b, it.p0, it.n0, it.k0, it.k1, ring, prefetched, acc);
-    prefetched = false;
-    float* sp = part + static_cast<size_t>(it.split) * g.P * g.N;
-    wg::for_each_acc(acc, [&](int r, int c, float v) {
-      const int p = it.p0 + r, n = it.n0 + c;
-      if (p >= g.P || n >= g.N) return;
-      if (g.splits == 1)
-        epi(p, n, v);
-      else
-        sp[static_cast<size_t>(p) * g.N + n] = v;
-    });
-  }
-}
-
-// Issues the weight loads of this block's first item of phase g into the
-// idle ring; true when it did (the TMA route and an item to run).
-template <bool kVec, class BT>
-__device__ __forceinline__ bool prefetch_phase(const wt::GemmPhase& g, const wg::Weights<BT>& b,
-                                               const wg::Ring& ring) {
-  if (!kVec || static_cast<int>(blockIdx.x) >= items_of(g)) return false;
-  const Item it = item_of(g, blockIdx.x);
-  wg::prefetch<true>(ring, b, it.n0, it.k0, it.k1);
-  return true;
-}
-
-// Past one split: after a grid barrier, the blocks add the splits' partial
-// sums in split order 0, 1, ... and apply epi, each element once. The
-// caller places the barrier that ends the phase.
-template <class Epilogue>
-__device__ __forceinline__ void reduce_phase(const wt::GemmPhase& g, const Epilogue& epi,
-                                             const float* part, unsigned int* bar) {
-  if (g.splits == 1) return;
-  wt::grid_sync(bar);
-  const size_t pn = static_cast<size_t>(g.P) * g.N;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < pn;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float s = __ldcg(part + i);
-    for (int k = 1; k < g.splits; k += 8) {  // eight splits' loads in flight
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) v[u] = k + u < g.splits ? __ldcg(part + (k + u) * pn + i) : 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (k + u < g.splits) s += v[u];
-    }
-    epi(static_cast<int>(i / g.N), static_cast<int>(i % g.N), s);
-  }
-}
-
 // kVec: Cio and Cmid multiples of 4 (of 8 for bf16 weights), every operand
 // 16-byte aligned (the TMA maps and 16-byte A copies).
 template <bool kVec, class BT>
@@ -213,9 +139,9 @@ __global__ void __launch_bounds__(wg::kThreads, kMaxBlocksPerSm)
     const wg::Weights<BT> we{&a.map_e, a.we + bm * cio, cio, cmid, blk};
 
     const wt::BnEpilogue e1{a.s1 + bm, a.b1 + bm, a.h1, cmid, 1};
-    phase_items<kVec>(a.reduce, tc::RowMajorA{act, P, cio}, wr, e1, a.part, ring, pre);
-    if (!a.wino) pre = prefetch_phase<kVec>(a.mid, wm, ring);
-    reduce_phase(a.reduce, e1, a.part, a.bar);
+    ph::phase_items<kVec>(a.reduce, tc::RowMajorA{act, P, cio}, wr, e1, a.part, ring, pre);
+    if (!a.wino) pre = ph::prefetch_phase<kVec>(a.mid, wm, ring);
+    ph::reduce_phase(a.reduce, e1, a.part, a.bar);
     wt::grid_sync(a.bar);
 
     const wt::BnEpilogue e2{a.s2 + bm, a.b2 + bm, a.h2, cmid, 1};
@@ -224,17 +150,18 @@ __global__ void __launch_bounds__(wg::kThreads, kMaxBlocksPerSm)
                                 a.b2 + bm, a.h2, 1, a.v, a.part, a.bar,
                                 wtc::Tc{&a.map_u, blk * 16, &ring});
     else
-      phase_items<kVec>(a.mid, tc::Im2colA{a.h1, a.H, a.W, cmid, P}, wm, e2, a.part, ring, pre);
-    pre = prefetch_phase<kVec>(a.expand, we, ring);
-    if (!a.wino) reduce_phase(a.mid, e2, a.part, a.bar);
+      ph::phase_items<kVec>(a.mid, tc::Im2colA{a.h1, a.H, a.W, cmid, P}, wm, e2, a.part, ring,
+                            pre);
+    pre = ph::prefetch_phase<kVec>(a.expand, we, ring);
+    if (!a.wino) ph::reduce_phase(a.mid, e2, a.part, a.bar);
     wt::grid_sync(a.bar);
 
     const wt::ResidualEpilogue e3{a.s3 + bo, a.b3 + bo, act, a.out, cio};
-    phase_items<kVec>(a.expand, tc::RowMajorA{a.h2, P, cmid}, we, e3, a.part, ring, pre);
+    ph::phase_items<kVec>(a.expand, tc::RowMajorA{a.h2, P, cmid}, we, e3, a.part, ring, pre);
     if (blk + 1 < a.B)
-      pre = prefetch_phase<kVec>(
+      pre = ph::prefetch_phase<kVec>(
           a.reduce, wg::Weights<BT>{&a.map_r, a.wr + (bm + cmid) * cio, cmid, cio, blk + 1}, ring);
-    reduce_phase(a.expand, e3, a.part, a.bar);
+    ph::reduce_phase(a.expand, e3, a.part, a.bar);
     if (blk + 1 < a.B) wt::grid_sync(a.bar);
   }
 }

@@ -24,25 +24,30 @@
 //
 // Design: csrc/stage.cu's, a persistent cooperative kernel of at most
 // kMaxBlocksPerSm 128-thread blocks an SM whose three GEMM phases are
-// splitk_tf32.cuh's gemm_phase (64 x 64 3xTF32 mma.sync tiles on a 4-deep
-// cp.async ring, 72 KB of dynamic shared memory), separated by grid
-// barriers; h1 and h2 live in a device workspace that fits the L2. The A
-// operands are gathered by the tile's cp.async copies and never
+// wgmma_phase.cuh's (shared with the stage) on wgmma_tile.cuh's 64 x 64
+// tiles: one warpgroup's wgmma.mma_async in 3xTF32 (each stage's products
+// added in FP32), the weight tiles by TMA onto mbarriers, A by cp.async, a
+// 4-deep ring (85 KB of dynamic shared memory at f32), the phases separated
+// by grid barriers; h1 and h2 live in a device workspace that fits the L2.
+// The A operands are gathered by the tile's cp.async copies and never
 // materialised: the reduce reads x's rows (RowMajorA), the mid the strided
 // im2col of h1 (mma_tf32.cuh's Im2colA at stride 2), the expand the rows
-// of [h2 | x[:, ::2, ::2]] (ConcatSkipA). Where a phase has fewer tiles
-// than the grid has blocks, or an item would walk a long K, it splits K
-// and adds the splits in a fixed order behind a grid barrier, so the result
-// does not depend on timing. The grid and each phase's split are the
-// host's plan (kernels/transition.py::transition_plan); this entry checks
-// it against the geometry compiled here, works out the workspace from it
-// and refuses a plan that does not fit.
+// of [h2 | x[:, ::2, ::2]] (ConcatSkipA). The weights do not depend on the
+// activations, so a block issues the TMA loads of its first item of the
+// next phase before it waits at the barrier that ends a phase. Where a
+// phase has fewer tiles than the grid has blocks, or an item would walk a
+// long K, it splits K and adds the splits in a fixed order behind a grid
+// barrier, so the result does not depend on timing. The grid and each
+// phase's split are the host's plan (kernels/transition.py::
+// transition_plan); this entry checks it against the geometry compiled
+// here, works out the workspace from it and refuses a plan that does not
+// fit.
 //
 // The bf16w tier (transition_block_bf16w: w_reduce, w9 and the fused wep
 // in bf16, BN and bep f32; the JAX kernel at precision="bf16w") is the same
-// kernel and plan on mma_bf16w.cuh's tile (wt::mma_tile by the weights'
-// type): the f32 A split hi/lo into two bf16 m16n8k16 passes, half the
-// weight bytes (12.6 MB for 14->7, not 25.3).
+// kernel and plan on the bf16 tiles: the f32 A split hi/lo into two bf16
+// wgmma m64n64k16 passes on the weights read straight from TMA's swizzled
+// boxes, half the weight bytes (12.6 MB for 14->7, not 25.3).
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -51,17 +56,24 @@
 
 #include "common.cuh"
 #include "splitk_tf32.cuh"
+#include "wgmma_tile.cuh"
+#include "wgmma_phase.cuh"
 
 namespace {
 
 namespace tc = wt::tf32x3;
 namespace sk = wt::splitk;
+namespace wg = wt::wg;
+namespace ph = wt::wgphase;
 
 constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
+static_assert(sk::kSplitStep == wg::kBK, "a phase's splits are whole stages of the wgmma tile");
 
-// BT: the weights' element type, float or __nv_bfloat16 (bf16w).
+// BT: the weights' element type, float or __nv_bfloat16 (bf16w). The maps
+// (kVec): w_reduce, w9 and wep as (N, K, 1) for the TMA loads.
 template <class BT>
 struct TransitionArgs {
+  CUtensorMap map_r, map_m, map_e;
   const float* x;
   const BT* wr;
   const float* s1;
@@ -110,22 +122,34 @@ struct BiasReluEpilogue {
 };
 
 // kVec: Cin, Cmid and Cout multiples of 4 (of 8 for bf16 weights), every
-// operand 16-byte aligned.
+// operand 16-byte aligned (the TMA maps and 16-byte A copies).
 template <bool kVec, class BT>
-__global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm)
-    transition_kernel(TransitionArgs<BT> a) {
+__global__ void __launch_bounds__(wg::kThreads, kMaxBlocksPerSm)
+    transition_kernel(const __grid_constant__ TransitionArgs<BT> a) {
   extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t bars[2 * wg::kStages];
+  wg::Ring ring = wg::make_ring(smem, bars);
   const int ho = (a.H + 1) / 2, wo = (a.W + 1) / 2;
   const int P1 = a.N * a.H * a.W, P2 = a.N * ho * wo;
-  sk::gemm_phase<kVec, true>(a.reduce, tc::RowMajorA{a.x, P1, a.Cin}, a.wr,
-                             wt::BnEpilogue{a.s1, a.b1, a.h1, a.Cmid, 1}, a.part, a.bar, smem);
+  const wg::Weights<BT> wr{&a.map_r, a.wr, a.Cmid, a.Cin, 0};
+  const wg::Weights<BT> wm{&a.map_m, a.w9, a.Cmid, 9 * a.Cmid, 0};
+  const wg::Weights<BT> we{&a.map_e, a.wep, a.Cout, a.Cmid + a.Cin, 0};
+  bool pre = false;
+  const wt::BnEpilogue e1{a.s1, a.b1, a.h1, a.Cmid, 1};
+  ph::phase_items<kVec>(a.reduce, tc::RowMajorA{a.x, P1, a.Cin}, wr, e1, a.part, ring, pre);
+  pre = ph::prefetch_phase<kVec>(a.mid, wm, ring);
+  ph::reduce_phase(a.reduce, e1, a.part, a.bar);
   wt::grid_sync(a.bar);
-  sk::gemm_phase<kVec, true>(a.mid, tc::Im2colA<2>{a.h1, a.H, a.W, a.Cmid, P2}, a.w9,
-                             wt::BnEpilogue{a.s2, a.b2, a.h2, a.Cmid, 1}, a.part, a.bar, smem);
+  const wt::BnEpilogue e2{a.s2, a.b2, a.h2, a.Cmid, 1};
+  ph::phase_items<kVec>(a.mid, tc::Im2colA<2>{a.h1, a.H, a.W, a.Cmid, P2}, wm, e2, a.part, ring,
+                        pre);
+  pre = ph::prefetch_phase<kVec>(a.expand, we, ring);
+  ph::reduce_phase(a.mid, e2, a.part, a.bar);
   wt::grid_sync(a.bar);
-  sk::gemm_phase<kVec, true>(a.expand,
-                             ConcatSkipA{a.h2, a.x, a.H, a.W, a.Cin, a.Cmid, ho, wo, P2}, a.wep,
-                             BiasReluEpilogue{a.bep, a.out, a.Cout}, a.part, a.bar, smem);
+  const BiasReluEpilogue e3{a.bep, a.out, a.Cout};
+  ph::phase_items<kVec>(a.expand, ConcatSkipA{a.h2, a.x, a.H, a.W, a.Cin, a.Cmid, ho, wo, P2},
+                        we, e3, a.part, ring, pre);
+  ph::reduce_phase(a.expand, e3, a.part, a.bar);
 }
 
 template <class BT>
@@ -144,11 +168,10 @@ int resident_blocks(bool vec) {
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cache[dev][vec] == 0) {
     const void* kernel = kernel_of<BT>(vec);
-    constexpr size_t smem = wt::kTileSmemBytes<BT>;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem)) != cudaSuccess)
+                             static_cast<int>(wg::kSmemBytes<BT>)) != cudaSuccess)
       return 0;
-    cache[dev][vec] = cooperative_grid(kernel, smem, tc::kThreads, kMaxBlocksPerSm);
+    cache[dev][vec] = cooperative_grid(kernel, wg::kSmemBytes<BT>, wg::kThreads, kMaxBlocksPerSm);
   }
   return cache[dev][vec];
 }
@@ -201,14 +224,20 @@ int transition(const float* x, const BT* wr, const float* s1, const float* b1, c
   if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
   const auto s = static_cast<cudaStream_t>(stream);
   unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
+  TransitionArgs<BT> a{{}, {}, {}, x, wr, s1, b1, w9, s2, b2, wep, bep, out,
+                       ws + pl.h1, ws + pl.h2, ws + pl.part, bar, N, H, W, Cin, Cmid, Cout,
+                       pl.reduce, pl.mid, pl.expand};
+  if (vec) {
+    cudaError_t e = wg::encode_weights(&a.map_r, wr, 1, Cin, Cmid);
+    if (e == cudaSuccess) e = wg::encode_weights(&a.map_m, w9, 1, 9 * Cmid, Cmid);
+    if (e == cudaSuccess) e = wg::encode_weights(&a.map_e, wep, 1, Cmid + Cin, Cout);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  TransitionArgs<BT> a{x,  wr, s1, b1, w9, s2, b2, wep, bep, out,
-                       ws + pl.h1, ws + pl.h2, ws + pl.part, bar,
-                       N,  H,  W,  Cin, Cmid, Cout, pl.reduce, pl.mid, pl.expand};
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(kernel_of<BT>(vec), dim3(blocks), dim3(tc::kThreads), args,
-                                  wt::kTileSmemBytes<BT>, s);
+  e = cudaLaunchCooperativeKernel(kernel_of<BT>(vec), dim3(blocks), dim3(wg::kThreads), args,
+                                  wg::kSmemBytes<BT>, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

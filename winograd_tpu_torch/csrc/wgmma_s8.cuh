@@ -5,8 +5,9 @@
 // Aq a row-major (P, Kp) int8 matrix of activation rows quantized per row
 // (gemm_int8.cuh's arithmetic) earlier in the launch, Bt the k-contiguous
 // (N, Kp) int8 weights. Used by csrc/stage_int8.cu (its reduce, direct mid
-// and expand); the other int8 kernels stay on mma_int8.cuh's mma.sync
-// tiles.
+// and expand); csrc/winograd_int8.cu issues s8 wgmma on operands it stages
+// itself (its weights byte-permuted K-major, no TMA); the other int8
+// kernels stay on mma_int8.cuh's mma.sync tiles.
 //
 // Operands. s8 wgmma reads both operands K-major from shared memory, with
 // the 128-byte swizzle here: a row holds 128 k as 128 bytes, its 16-byte

@@ -6,12 +6,12 @@
 // sources (RowMajorA, Im2colA<kStride>).
 //
 // Shared by csrc/pointwise.cu (its MMA path, split K reduced inside a
-// thread-block cluster), csrc/stage.cu (its GEMM phases: reduce, the
-// im2col direct mid, expand) and csrc/winograd.cu (its per-position
+// thread-block cluster), csrc/stage.cu and csrc/transition.cu (their GEMM
+// phases, through wgmma_phase.cuh) and csrc/winograd.cu (its per-position
 // products, through wino_tf32.cuh). csrc/wgmma_s8.cuh, the int8 stage's
-// s8 tile, reuses its mbarrier, TMA and descriptor wrappers. The other
-// tensor-core kernels stay on mma_tf32.cuh's and mma_bf16w.cuh's mma.sync
-// tiles.
+// s8 tile, and csrc/winograd_int8.cu reuse its mbarrier, TMA and
+// descriptor wrappers. The other tensor-core kernels stay on
+// mma_tf32.cuh's and mma_bf16w.cuh's mma.sync tiles.
 //
 // Arithmetic, the same as the mma.sync tiles':
 // * f32: 3xTF32. Every operand x is split as hi = tf32(x) (cvt.rna) and

@@ -35,9 +35,10 @@ pad_to):
 * conv3x3_bn_winograd_int8 -> csrc/winograd_int8.cu (_winograd_int8_kernel):
   F(2,3) with V quantized per row (a 4x4 tile at one of its 16 positions)
   and per-position filter scales (quantize_winograd_filter); work items of
-  16 tiles x one position x 128 output channels, V transformed and
-  quantized once an item, the products on the int8 tensor cores, the
-  inverse after a grid barrier, the grid by winograd_int8_plan.
+  8 x 128, 16 x 128 or 32 x 256 tiles by output channels over all 16 positions, one
+  thread-block cluster each (a position a warpgroup: V transformed and
+  quantized once, the products on s8 wgmma), the inverse from the
+  cluster's shared memory, the item shape and grid by winograd_int8_plan.
 
 The plain twins compute the integer product as a float64 matmul of the int8
 values (exact: every |sum| < 2^53) and cast it as int32 -> float32 would;
@@ -62,14 +63,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from winograd_tpu_torch.kernels import _build
+from winograd_tpu_torch.kernels import _build, transforms
 from winograd_tpu_torch.kernels.direct import im2col3x3
 from winograd_tpu_torch.kernels.pointwise import COUNTER_WORDS
 from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, split_k
 from winograd_tpu_torch.kernels.stage import WINOGRAD_MIN_PIXELS
 from winograd_tpu_torch.kernels.transition import strided_im2col
 from winograd_tpu_torch.kernels.winograd import (
-    winograd2_mid_plain, winograd_fp64_plan, winograd_matrices,
+    _apply_const, winograd2_mid_plain, winograd_fp64_plan,
 )
 
 BN_KEYS = ("s_reduce", "b_reduce", "s_mid", "b_mid", "s_expand", "b_expand")
@@ -253,18 +254,21 @@ def wino_int8_stash(cout: int) -> bool:
 
 def conv3x3_bn_winograd_int8_plain(x, u_q, s_u, scale, bias, relu: bool = True) -> torch.Tensor:
     """The int8 F(2,3) in plain PyTorch. V = Bt d Bt^T and At M At^T in
-    float64, each rounded to x's dtype once; V quantized per (tile,
-    position) row, per WINO_INT8_GROUP channels with the groups' dequantized
-    products added in order, or over all of Cin with one int32 sum
-    (wino_int8_stash: scale max|V| / 127, 1 / 127 for a zero row); the
+    float64 over the matrices' nonzero entries only (winograd.py::
+    _apply_const: a NaN in x reaches just the rows and outputs that read
+    it, as in the JAX kernel), each rounded to x's dtype once; V quantized
+    per (tile, position) row, per WINO_INT8_GROUP channels with the groups'
+    dequantized products added in order, or over all of Cin with one int32
+    sum (wino_int8_stash: scale max|V| / 127, 1 / 127 for a zero row); the
     product dequantized by (s_v * s_u). x: (N, H, W, Cin)."""
     n, h, w, cin = x.shape
     cout = u_q.shape[2]
     th, tw = -(-h // 2), -(-w // 2)
-    bt, at = winograd_matrices(2, torch.float64, x.device)
+    bt, _, at = (mat.tolist() for mat in transforms.matrices(2))
     xp = F.pad(x.double(), (0, 0, 1, 2 * tw + 1 - w, 1, 2 * th + 1 - h))
     d = xp.unfold(1, 4, 2).unfold(2, 4, 2)                 # (n, th, tw, cin, 4, 4)
-    v = torch.einsum("ik,nyxckl,jl->nyxijc", bt, d, bt).reshape(-1, 16, cin).to(x.dtype)
+    v = _apply_const(bt, _apply_const(bt, d, -2), -1)      # (n, th, tw, cin, 4, 4)
+    v = v.permute(0, 1, 2, 4, 5, 3).reshape(-1, 16, cin).to(x.dtype)
     uq, su = u_q.double(), s_u.to(x.dtype)
     if wino_int8_stash(cout):
         m = v.abs().amax(dim=-1, keepdim=True)
@@ -278,8 +282,9 @@ def conv3x3_bn_winograd_int8_plain(x, u_q, s_u, scale, bias, relu: bool = True) 
             q, s = quantize_rows(v[..., g:g + cg])
             part = torch.einsum("tpc,pco->tpo", q.double(), uq[:, g:g + cg]).to(x.dtype) * (s * su)
             mm = part if mm is None else mm + part
-    y = torch.einsum("pi,tijo,qj->tpqo", at, mm.double().reshape(-1, 4, 4, cout), at)
-    y = y.to(x.dtype).reshape(n, th, tw, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
+    mm = mm.double().reshape(-1, 4, 4, cout)
+    y = _apply_const(at, _apply_const(at, mm, 1), 2).to(x.dtype)  # At M At^T: (t, 2, 2, cout)
+    y = y.reshape(n, th, tw, 2, 2, cout).permute(0, 1, 3, 2, 4, 5)
     y = y.reshape(n, 2 * th, 2 * tw, cout)[:, :h, :w]
     return _bn_relu(y, scale, bias, relu)
 
@@ -561,19 +566,29 @@ def pointwise_int8_plan(p: int, k: int, n: int, sms: int = H100_SMS,
 
 # The plan of a csrc/winograd_int8.cu launch. The kernel's geometry, which
 # its C entry checks every plan against (tests/test_torch_splitk.py reads it
-# from the source): a work item is WINO_INT8_TILES Winograd tiles by
-# WINO_INT8_COLS output channels at one position, the items are dealt to a
-# resident cooperative grid of at most WINO_INT8_BLOCKS_PER_SM blocks an SM,
-# and the padded Cin is a multiple of DIRECT_INT8_K_ALIGN. An item stages K
-# in spans of the plan's chunk: the padded Cin itself up to
-# WINO_INT8_CHUNK, past it spans of WINO_INT8_CHUNK (a multiple of the
-# scale group WINO_INT8_GROUP), so a block's shared memory
-# (winograd_int8_smem) stops growing with Cin and two blocks an SM fit at
-# any Cin.
-WINO_INT8_TILES = 16
-WINO_INT8_COLS = 128
-WINO_INT8_BLOCKS_PER_SM = 2
-WINO_INT8_PAD = 16
+# from the source): a work item is a block of Winograd tiles (s8 wgmma's N)
+# by output channels (two or four m64 A tiles; 256 only in the stash), one
+# of WINO_INT8_ITEMS, over all 16 positions, run by one cluster
+# of WINO_INT8_CLUSTER blocks (two positions a block, one a warpgroup), one
+# item a cluster: the grid is WINO_INT8_CLUSTER blocks an item. The padded
+# Cin is a multiple of DIRECT_INT8_K_ALIGN and is multiplied in stages of
+# WINO_INT8_STEP (one scale group). An item stages K in spans of the plan's
+# chunk: the padded Cin itself up to WINO_INT8_CHUNK, past it spans of a
+# multiple of the scale group WINO_INT8_GROUP, so a block's shared memory
+# (winograd_int8_smem) stays within H100_SMEM_PER_BLOCK at any Cin. A block
+# of 128-channel items of at most WINO_INT8_TWO_BLOCK_TILES tiles in one span
+# is held to 128 registers a thread (csrc/winograd_int8.cu's kMinBlocks), so
+# two fit an SM where their shared memory does; every other item takes one.
+# The plan's own rule: of the items whose grid fills WINO_INT8_FILL of the
+# blocks the card holds at once, the one with the most work an SM (wider
+# channel blocks first: V is transformed once an item; then tiles times
+# blocks an SM), else the most items with the fewest tiles
+# (tools/chip_split_sweep.py times every item shape: PERF.md).
+WINO_INT8_ITEMS = ((8, 128), (16, 128), (32, 256))  # (tiles, channels) an item
+WINO_INT8_TWO_BLOCK_TILES = 16
+WINO_INT8_FILL = 0.75
+WINO_INT8_CLUSTER = 8
+WINO_INT8_STEP = 128
 WINO_INT8_CHUNK = 512
 H100_SMEM_PER_SM = 233472     # bytes of shared memory an SM holds (228 KB)
 H100_SMEM_PER_BLOCK = 232448  # the most one block may take (227 KB)
@@ -586,62 +601,93 @@ def wino_int8_groups(cin: int, cout: int) -> int:
     return 1 if wino_int8_stash(cout) or cin % WINO_INT8_GROUP else cin // WINO_INT8_GROUP
 
 
-def winograd_int8_smem(chunk: int, groups: int) -> int:
-    """Bytes of shared memory a block of csrc/winograd_int8.cu takes (its
-    Layout) for spans of `chunk` of K holding `groups` scale groups: V of
-    the item's rows in f32, the rows and weight columns quantized (rows of
-    chunk + WINO_INT8_PAD bytes), the rows' scales."""
-    ld = chunk + WINO_INT8_PAD
-    scales = -(-WINO_INT8_TILES * groups * 4 // 16) * 16
-    return WINO_INT8_TILES * chunk * 4 + (WINO_INT8_TILES + WINO_INT8_COLS) * ld + scales
+def winograd_int8_smem(tiles: int, cols: int, chunk: int, groups: int) -> int:
+    """Bytes of dynamic shared memory a block of csrc/winograd_int8.cu takes
+    (its Layout) for items of `tiles` tiles and `cols` channels and spans of
+    `chunk` of K holding `groups` scale groups: per warpgroup, 1024-aligned,
+    two weight slots (cols x WINO_INT8_STEP bytes), the quantized rows, V in
+    f32 or M (rows of cols + 4 floats), the rows' scales; two warpgroups and
+    1024 bytes to align them."""
+    vq = 2 * cols * WINO_INT8_STEP
+    vf = vq + -(-chunk // WINO_INT8_STEP) * tiles * WINO_INT8_STEP
+    sc = vf + _round_up(max(tiles * chunk, tiles * (cols + 4)) * 4, 16)
+    return 1024 + 2 * _round_up(sc + tiles * groups * 4, 1024)
 
 
 class WinogradInt8Plan(NamedTuple):
     """How csrc/winograd_int8.cu runs one conv: the padded Cin, the K an
-    item stages at once, the map's Winograd tiles, the items' tile and
-    column blocks, and the cooperative grid's blocks."""
+    item stages at once, the map's Winograd tiles, an item's tiles and
+    output channels, the items' tile and column blocks, and the grid's
+    blocks (WINO_INT8_CLUSTER an item)."""
 
     kp: int
     chunk: int
     tiles: int
+    item_tiles: int
+    cols: int
     tile_blocks: int
     col_blocks: int
     blocks: int
 
     def items(self) -> int:
-        """Work items: 16 positions x tile blocks x column blocks."""
-        return 16 * self.tile_blocks * self.col_blocks
-
-    def workspace_words(self, cout: int) -> int:
-        """The grid barrier and M (16, tiles, cout) in f32 from word
-        WORKSPACE_ALIGN."""
-        return WORKSPACE_ALIGN + 16 * self.tiles * cout
+        """Work items (clusters): tile blocks x column blocks."""
+        return self.tile_blocks * self.col_blocks
 
     def smem(self, cin: int, cout: int) -> int:
         """Bytes of shared memory a block takes: a span's scale groups are
         one where a scale covers the whole row, else chunk / WINO_INT8_GROUP."""
         groups = wino_int8_groups(cin, cout)
-        return winograd_int8_smem(self.chunk, 1 if groups == 1 else self.chunk // WINO_INT8_GROUP)
+        return winograd_int8_smem(self.item_tiles, self.cols, self.chunk,
+                                  1 if groups == 1 else self.chunk // WINO_INT8_GROUP)
 
     def args(self) -> tuple:
         """The plan as the C entry takes it: Kp, an item's tiles and
         columns, the chunk, blocks."""
-        return (self.kp, WINO_INT8_TILES, WINO_INT8_COLS, self.chunk, self.blocks)
+        return (self.kp, self.item_tiles, self.cols, self.chunk, self.blocks)
+
+    def blocks_per_sm(self, cin: int, cout: int) -> int:
+        """Blocks an SM holds at once: two where the kernel holds the item
+        to 128 registers a thread and two blocks' shared memory fit, else
+        one."""
+        regs = 2 if (self.cols == 128 and self.item_tiles <= WINO_INT8_TWO_BLOCK_TILES
+                     and self.chunk == self.kp) else 1
+        return min(regs, H100_SMEM_PER_SM // (self.smem(cin, cout) + SMEM_RESERVED_PER_BLOCK))
+
+
+def winograd_int8_item(n: int, h: int, w: int, cin: int, cout: int, item_tiles: int,
+                       cols: int) -> WinogradInt8Plan | None:
+    """The plan for items of `item_tiles` tiles by `cols` channels: K in one
+    span where it fits the block's shared memory, else in the widest spans
+    of whole scale groups that do; None where the kernel has no such item
+    (not one of WINO_INT8_ITEMS, or cols above 128 outside the stash) or
+    no span fits."""
+    if (item_tiles, cols) not in WINO_INT8_ITEMS or (
+            cols > WINO_INT8_TILE_CO and not wino_int8_stash(cout)):
+        return None
+    kp = _round_up(cin, DIRECT_INT8_K_ALIGN)
+    tiles = n * -(-h // 2) * -(-w // 2)
+    tile_blocks, col_blocks = -(-tiles // item_tiles), -(-cout // cols)
+    spans = [kp] if kp <= WINO_INT8_CHUNK else []
+    spans += [c for c in range(WINO_INT8_CHUNK, 0, -WINO_INT8_GROUP) if c < kp]
+    for chunk in spans:
+        plan = WinogradInt8Plan(kp, chunk, tiles, item_tiles, cols, tile_blocks, col_blocks,
+                                WINO_INT8_CLUSTER * tile_blocks * col_blocks)
+        if plan.smem(cin, cout) <= H100_SMEM_PER_BLOCK:
+            return plan
+    return None
 
 
 def winograd_int8_plan(n: int, h: int, w: int, cin: int, cout: int,
                        sms: int = H100_SMS) -> WinogradInt8Plan:
-    """The work items, span and grid of an (n, h, w, cin) -> cout int8
-    F(2,3) on a card with `sms` SMs: one block an item, at most a resident
-    wave of WINO_INT8_BLOCKS_PER_SM blocks an SM (fewer where their shared
-    memory does not fit), K staged in spans of at most WINO_INT8_CHUNK."""
-    kp = _round_up(cin, DIRECT_INT8_K_ALIGN)
-    tiles = n * -(-h // 2) * -(-w // 2)
-    tile_blocks, col_blocks = -(-tiles // WINO_INT8_TILES), -(-cout // WINO_INT8_COLS)
-    plan = WinogradInt8Plan(kp, min(kp, WINO_INT8_CHUNK), tiles, tile_blocks, col_blocks, 0)
-    per_sm = min(WINO_INT8_BLOCKS_PER_SM,
-                 H100_SMEM_PER_SM // (plan.smem(cin, cout) + SMEM_RESERVED_PER_BLOCK))
-    return plan._replace(blocks=min(plan.items(), per_sm * sms))
+    """The item shape, span and grid of an (n, h, w, cin) -> cout int8 F(2,3)
+    on a card with `sms` SMs, by the rule above."""
+    plans = [plan for tiles, cols in WINO_INT8_ITEMS
+             if (plan := winograd_int8_item(n, h, w, cin, cout, tiles, cols)) is not None]
+    per_sm = {plan: plan.blocks_per_sm(cin, cout) for plan in plans}
+    full = [plan for plan in plans if plan.blocks >= WINO_INT8_FILL * sms * per_sm[plan]]
+    if full:
+        return max(full, key=lambda p: (p.cols, p.item_tiles * per_sm[p], per_sm[p]))
+    return max(plans, key=lambda p: (p.items(), -p.item_tiles))
 
 
 # The int8 kernels pack four k to a 32-bit word and take channel counts that
@@ -949,15 +995,13 @@ def conv3x3_bn_winograd_int8_planned(x, u_q, s_u, scale, bias, relu: bool,
     conv3x3_bn_winograd_int8 checks them."""
     n, h, w, cin = x.shape
     cout = u_q.shape[2]
-    words = plan.workspace_words(cout)
-    ws = torch.empty(words, device=x.device, dtype=torch.float32)
     out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
     ptr, c = _build.ptr, _build.cint
     _build.launch(
         "winograd_int8", "winograd_int8_conv3x3_bn", (n, h, w, cin, cout, bool(relu)),
         x.device, ptr(x), ptr(u_q), ptr(s_u), ptr(scale), ptr(bias), ptr(out),
-        ptr(ws), ctypes.c_longlong(words), c(n), c(h), c(w), c(cin), c(cout),
-        c(wino_int8_stash(cout)), c(relu), *map(c, plan.args()),
+        c(n), c(h), c(w), c(cin), c(cout), c(wino_int8_stash(cout)), c(relu),
+        *map(c, plan.args()),
     )
     return out
 

@@ -2,16 +2,18 @@
 
 Port of winograd_tpu/kernels/transition.py::transition_block_fused_pallas
 (both its kernels, _transition_kernel and _transition_kernel_resident). The
-CUDA kernel is csrc/transition.cu: a cooperative launch of three 3xTF32
-tensor-core GEMM phases (reduce, the stride-2 3x3 on an implicit strided
-im2col, and one GEMM over the combined [h2 | x[::2, ::2]] rows with the
-expand and projection weights fused offline), each phase's K split by
+CUDA kernel is csrc/transition.cu: a cooperative launch of three GEMM
+phases on the wgmma tiles (csrc/wgmma_phase.cuh, shared with the stage:
+3xTF32 wgmma, weights by TMA): the reduce, the stride-2 3x3 on an implicit
+strided im2col, and one GEMM over the combined [h2 | x[::2, ::2]] rows with
+the expand and projection weights fused offline, each phase's K split by
 transition_plan; the plain twin runs the same three products in PyTorch.
 
 bfloat16 weights (w_reduce, w9_mid and the fused wep; BN and bep stay
 float32) select the bf16w tier, the JAX kernel at precision="bf16w": the
-kernel's bf16w instantiation (csrc/mma_bf16w.cuh's tile under the same
-plan), and in the plain twin pointwise.py::split_dot_bf16w's arithmetic.
+kernel's bf16w instantiation (bf16 wgmma on the weights' TMA boxes, the
+activation split into two bf16 halves, under the same plan), and in the
+plain twin pointwise.py::split_dot_bf16w's arithmetic.
 """
 
 from __future__ import annotations
@@ -76,9 +78,10 @@ def transition_block_fused_plain(x, params: Dict) -> torch.Tensor:
 
 
 # The plan of a csrc/transition.cu launch. The kernel's geometry, which its
-# C entry checks every plan against (tests/test_torch_splitk.py reads it
-# from the sources): TRANSITION_TILE x TRANSITION_TILE output tiles
-# (mma_tf32.cuh's kBM), splits in multiples of TRANSITION_STEP (its kBK), a
+# C entry checks every plan against (tests/test_torch_splitk.py and
+# tests/test_torch_transition_plan.py read it from the sources):
+# TRANSITION_TILE x TRANSITION_TILE output tiles (wgmma_tile.cuh's kBM, kBN),
+# splits in multiples of TRANSITION_STEP (its kBK, a stage of the tile), a
 # cooperative grid of at most TRANSITION_BLOCKS_PER_SM blocks an SM
 # (transition.cu's kMaxBlocksPerSm). The plan's own rule: each phase splits
 # K until tiles x splits reach about one item a block; a phase whose tiles
