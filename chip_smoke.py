@@ -199,7 +199,8 @@ Phases, each of which must pass (exit 1 otherwise):
    error; the K split of the split-K kernels ("splits": pointwise, direct,
    direct_int8, pointwise_int8 and both basic stages, from their wrappers'
    plans, pointwise_int8 with its plan's "route", GEMV, one_pass or
-   cooperative; the f32 transition's splits of its reduce, mid and expand;
+   cluster; the int8 transition's splits of its reduce, mid, expand and
+   projection; the f32 transition's splits of its reduce, mid and expand;
    for the f32 Winograd its plan's Cin splits; for the f32 and bf16w stage
    its plan's splits of its reduce, direct mid and expand); the int8 Winograd's plan
    (its items' "tile_blocks" and "col_blocks", its grid's "blocks", the
@@ -2026,7 +2027,7 @@ def main() -> int:
                   (8, 14, 14, 1024, 256, 5, "direct"), (1, 7, 7, 2048, 512, 2, "direct")],
         "transition": TRANSITION_BATCHES,
         "stage_int8": [(8, 14, 14, 1024, 256, 5, "direct"), (1, 14, 14, 1024, 256, 1, "direct")],
-        "transition_int8": [(8, 14, 14, 1024, 512, 2048)],
+        "transition_int8": TRANSITION_BATCHES,
         "stem": [(8, 224, 224, 3, 64, "f32"), (8, 224, 224, 3, 64, "bf16")],
         "basic_stage": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "basic_stage_int8": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
@@ -2034,7 +2035,9 @@ def main() -> int:
                           (32, 14, 14, 256, 256, True), (32, 28, 28, 128, 128, True),
                           *WIDE_WINOGRAD_INT8],
         "pointwise": [(8, 2048, 1000, False), (392, 2048, 512, True)],
-        "pointwise_int8": [(8, 2048, 1000, False)],
+        "pointwise_int8": [(8, 2048, 1000, False), (32, 2048, 1000, False),
+                           (6272, 576, 128, True), (392, 2304, 512, True),
+                           (25088, 576, 128, True), (1568, 2304, 512, True)],
         "direct_int8": [(8, 7, 7, 512, 512, False)],
         "direct": [(8, 7, 7, 512, 512, True)],
         "pointwise_bf16w": [(8, 2048, 1000, False)],
@@ -2063,6 +2066,8 @@ def main() -> int:
             n, h, w, cin, cout, sms).splits,
         "winograd": winograd_cut,
         "pointwise_int8": lambda p, k, n, relu: q8.pointwise_int8_plan(p, k, n, sms).splits,
+        "transition_int8": lambda *shape: [
+            s.splits for s in q8.transition_int8_plan(*shape, sms)[4:]],
         "transition": lambda *shape: [s.splits for s in transition_plan(*shape, sms)[1:]],
         "basic_stage_int8": lambda n, h, w, c, nb: bs.basic_stage_int8_plan(
             n, h, w, c, sms).splits,

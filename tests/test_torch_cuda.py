@@ -391,21 +391,67 @@ def test_pointwise_int8_served_shapes(dev, p, k, n, relu):
 
 def test_pointwise_int8_entry_refuses_a_plan_it_does_not_take(dev):
     """csrc/pointwise_int8.cu's entry refuses a GEMV past its rows, a one-pass
-    K past its shared memory, a cooperative grid larger than it holds
-    resident, and a split that leaves K uncovered."""
+    K past its shared memory, a cluster grid that is not its tiles x splits,
+    a cluster past the portable size or with a split off the wgmma k step,
+    and a split that leaves K uncovered."""
     rng = np.random.default_rng(4)
     w_q, s_w = _q(rng, dev, 512, 64)
     s, b = _bn(rng, dev, 64)
     sms = _build.sm_count(dev)
-    gemv = q8.pointwise_int8_plan(8, 512, 64, sms)
-    coop = q8.pointwise_int8_plan(100, 512, 64, sms)
-    one = q8.pointwise_int8_plan(100, 256, 64, sms)
+    gemv = q8.pointwise_int8_plan(8, 512, 64, sms, "gemv")
+    clus = q8.pointwise_int8_plan(100, 512, 64, sms)
+    one = q8.pointwise_int8_plan(100, 256, 64, sms, "one_pass")
     for p, k, bad in ((9, 512, gemv), (100, 512, one._replace(kp=512, chunk=512)),
-                      (100, 512, coop._replace(blocks=4 * coop.blocks)),
-                      (100, 512, coop._replace(splits=1)), (8, 512, gemv._replace(chunk=32))):
+                      (100, 512, clus._replace(blocks=4 * clus.blocks)),
+                      (100, 512, clus._replace(splits=16, chunk=32, blocks=2 * 16)),
+                      (100, 512, clus._replace(splits=2, chunk=272, blocks=2 * 2)),
+                      (100, 512, clus._replace(splits=1)), (8, 512, gemv._replace(chunk=32))):
         x = _r(rng, dev, p, k)
         with pytest.raises(RuntimeError):
             q8.conv1x1_bn_int8_planned(x, w_q[:k].contiguous(), s_w, s, b, True, bad)
+
+
+# The served int8 1x1s at N=1, 8 and 32 on the cluster path under every
+# candidate split (1 to 8 blocks a cluster), and the GEMV's heads on it too:
+# equal to the twin.
+@pytest.mark.parametrize("p,k,n,relu", [
+    (3136, 64, 64, True), (784, 576, 128, True), (196, 1152, 256, True), (49, 2304, 512, True),
+    (49, 256, 512, False), (6272, 576, 128, True), (392, 2304, 512, True),
+    (25088, 1152, 256, True), (1568, 2304, 512, True), (32, 2048, 1000, False),
+    (8, 2048, 1000, False), (1, 512, 1000, False),
+])
+def test_pointwise_int8_cluster_under_every_split(dev, p, k, n, relu):
+    rng = np.random.default_rng(p + k + n + 7)
+    x = _r(rng, dev, p, k).abs() if relu else _r(rng, dev, p, k)
+    w_q, s_w = _q(rng, dev, k, n)
+    s, b = _bn(rng, dev, n)
+    ref = q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, relu)
+    sms = _build.sm_count(dev)
+    for want in (1, 2, 3, 4, 8):
+        plan = q8.pointwise_int8_plan(p, k, n, sms, "cluster", want)
+        _equal(q8.conv1x1_bn_int8_planned(x, w_q, s_w, s, b, relu, plan), ref)
+
+
+@pytest.mark.parametrize("path", ["gemv", "one_pass", "cluster"])
+def test_pointwise_int8_keeps_a_nan(dev, path):
+    """A NaN in a row gives that row a NaN scale on every path, as the plain
+    version's torch.amax does, whichever K range (cluster block) holds it;
+    an inf the same."""
+    rng = np.random.default_rng(11)
+    p, k, n = (6, 256, 70) if path == "gemv" else (100, 256, 70)
+    x = _r(rng, dev, p, k)
+    x[1, 200] = float("nan")
+    x[3, 7] = float("inf")
+    w_q, s_w = _q(rng, dev, k, n)
+    s, b = _bn(rng, dev, n)
+    ref = q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, False)
+    for want in ((1, 4) if path == "cluster" else (0,)):
+        plan = q8.pointwise_int8_plan(p, k, n, _build.sm_count(dev), path, want)
+        out = q8.conv1x1_bn_int8_planned(x, w_q, s_w, s, b, False, plan)
+        torch.cuda.synchronize()
+        nan = torch.isnan(ref)
+        assert nan[1].all() and nan[3].all() and not nan[0].any()
+        assert torch.equal(torch.isnan(out), nan) and torch.equal(out[~nan], ref[~nan])
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", [(2, 5, 7, 4, 70), (8, 7, 7, 16, 24), (1, 9, 9, 12, 65)])
@@ -1088,6 +1134,66 @@ def test_transition_int8_equals_its_twin(dev, n, h, w, cin, cmid, cout):
     first = q8.transition_block_int8(x, p)
     _equal(first, q8.transition_block_int8_plain(x, p))
     assert torch.equal(first, q8.transition_block_int8(x, p))
+
+
+# The served transitions at N=8 and N=32, odd maps, and Cin / Cmid of 13,
+# 1024 and 2048, each under its plan, under every phase split to walks of
+# 128 to 1024 (transition_int8_plan's max_walk), and on copies of its
+# weights (their k-contiguous copies made anew, kept ones reused): equal to
+# the twin.
+@pytest.mark.parametrize("n,h,w,cin,cmid,cout", [
+    (8, 56, 56, 256, 128, 512), (8, 28, 28, 512, 256, 1024), (32, 14, 14, 1024, 512, 2048),
+    (32, 28, 28, 512, 256, 1024), (1, 13, 11, 13, 13, 40), (2, 7, 9, 2048, 13, 64),
+    (1, 15, 13, 64, 1024, 96), (1, 7, 7, 1024, 2048, 128),
+])
+def test_transition_int8_under_every_plan(dev, n, h, w, cin, cmid, cout):
+    rng = np.random.default_rng(h * w + cin + cmid + cout + 3)
+    p = _qtransition(rng, dev, cin, cmid, cout)
+    x = _r(rng, dev, n, h, w, cin).abs()
+    ref = q8.transition_block_int8_plain(x, p)
+    _equal(q8.transition_block_int8(x, p), ref)
+    _equal(q8.transition_block_int8(x, p), ref)                   # the kept copies
+    _equal(q8.transition_block_int8(x, {k: v.clone() for k, v in p.items()}), ref)
+    if cin % 4 or cmid % 4:
+        return
+    sms = _build.sm_count(dev)
+    for walk in (128, 256, 512, 1024):
+        plan = q8.transition_int8_plan(n, h, w, cin, cmid, cout, sms, walk)
+        _equal(q8.transition_block_int8_planned(x, p, plan), ref)
+
+
+def test_transition_int8_keeps_a_nan(dev):
+    """A NaN in x lands where the plain version puts it: its row's reduce
+    output, every strided im2col row that reads that pixel, and so on, at
+    one split and past it."""
+    rng = np.random.default_rng(21)
+    p = _qtransition(rng, dev, 64, 32, 128)
+    x = _r(rng, dev, 2, 14, 14, 64).abs()
+    x[1, 6, 6, 5] = float("nan")
+    ref = q8.transition_block_int8_plain(x, p)
+    nan = torch.isnan(ref)
+    assert nan.any() and not nan.all()
+    sms = _build.sm_count(dev)
+    for plan in (q8.transition_int8_plan(2, 14, 14, 64, 32, 128, sms),
+                 q8.transition_int8_plan(2, 14, 14, 64, 32, 128, sms, 128)):
+        out = q8.transition_block_int8_planned(x, p, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(torch.isnan(out), nan) and torch.equal(out[~nan], ref[~nan])
+
+
+def test_transition_int8_entry_refuses_a_plan_it_does_not_take(dev):
+    """csrc/transition_int8.cu's entry refuses a grid larger than it holds
+    resident, a split off the tile's 128-byte stage, one past its cap, and
+    one range that is not the whole K."""
+    rng = np.random.default_rng(5)
+    p = _qtransition(rng, dev, 256, 64, 128)
+    x = _r(rng, dev, 1, 14, 14, 256).abs()
+    plan = q8.transition_int8_plan(1, 14, 14, 256, 64, 128, _build.sm_count(dev), 128)
+    for bad in (plan._replace(blocks=8 * plan.blocks),
+                plan._replace(mid=Split(2, 320)), plan._replace(mid=Split(18, 32)),
+                plan._replace(reduce=Split(1, 128)), plan._replace(proj=Split(3, 64))):
+        with pytest.raises(RuntimeError):
+            q8.transition_block_int8_planned(x, p, bad)
 
 
 # -- the bf16w tier: the bf16 instantiations against their plain twins ------

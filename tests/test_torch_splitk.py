@@ -236,19 +236,25 @@ def test_direct_int8_workspace_holds_every_part():
 
 
 # The served int8 transitions (N, H, W, Cin, Cmid, Cout) and the splits of
-# their reduce, mid, expand and projection on 132 SMs: at N=1 the phases
-# split K towards a wave in ranges of at least 256; at N=8 the 14->7 reduce
-# and last phase have a tile for most blocks and keep one range each.
+# their reduce, mid, expand and projection on 132 SMs (one block of two
+# warpgroups an SM): a phase splits K into walks of at most STAGE_INT8_WALK
+# only where its tiles are fewer than an eighth of the warpgroups, so at
+# N=1 the mids split (and 14->7's reduce and projection), past it none.
 SERVED_TRANSITION_INT8 = {
-    (1, 56, 56, 256, 128, 512): (1, 5, 1, 1), (1, 28, 28, 512, 256, 1024): (2, 9, 1, 2),
-    (1, 14, 14, 1024, 512, 2048): (4, 18, 2, 4), (8, 14, 14, 1024, 512, 2048): (1, 4, 1, 1),
+    (1, 56, 56, 256, 128, 512): (1, 3, 1, 1),
+    (1, 28, 28, 512, 256, 1024): (1, 5, 1, 1),
+    (1, 14, 14, 1024, 512, 2048): (2, 9, 1, 2),
+    (8, 56, 56, 256, 128, 512): (1, 1, 1, 1),
+    (8, 28, 28, 512, 256, 1024): (1, 1, 1, 1),
+    (8, 14, 14, 1024, 512, 2048): (1, 1, 1, 1),
+    (32, 14, 14, 1024, 512, 2048): (1, 1, 1, 1),
 }
 
 
 def _transition_tiles(n, h, w, cin, cmid, cout):
     """Output tiles of the reduce, the mid and the last phase."""
     p1, p2 = n * h * w, n * -(-h // 2) * -(-w // 2)
-    tile = q8.DIRECT_INT8_TILE
+    tile = q8.STAGE_INT8_TILE_M
     return (-(-p1 // tile) * -(-cmid // tile), -(-p2 // tile) * -(-cmid // tile),
             -(-p2 // tile) * -(-cout // tile))
 
@@ -258,17 +264,17 @@ def test_transition_int8_plan_fills_the_card(shape):
     plan = q8.transition_int8_plan(*shape)
     phases = (plan.reduce, plan.mid, plan.expand, plan.proj)
     assert tuple(s.splits for s in phases) == SERVED_TRANSITION_INT8[shape]
-    for split, kp in zip(phases, (plan.kpr, plan.kpm, plan.kpe, plan.kpr)):
-        _covers_once(split, kp, q8.DIRECT_INT8_STEP)
-        assert split.splits == 1 or split.chunk >= q8.TRANSITION_INT8_MIN_CHUNK
-    wave = q8.DIRECT_INT8_BLOCKS_PER_SM * H100_SMS
-    assert plan.blocks == wave
+    grid = q8.TRANSITION_INT8_BLOCKS_PER_SM * H100_SMS
+    assert plan.blocks == grid
     reduce, mid, last = _transition_tiles(*shape)
-    assert reduce * plan.reduce.splits <= max(wave, reduce)
-    assert mid * plan.mid.splits <= max(wave, mid)
-    slots = plan.expand.splits + plan.proj.splits
-    assert slots == 2 or last * slots <= wave   # one item a tile, or a wave of slots
-    assert plan.args() == (wave,) + plan.reduce + plan.mid + plan.expand + plan.proj
+    for split, kp, tiles in zip(phases, (plan.kpr, plan.kpm, plan.kpe, plan.kpr),
+                                (reduce, mid, last, last)):
+        _covers_once(split, kp, q8.STAGE_INT8_STEP)
+        assert split.splits <= q8.TRANSITION_INT8_MAX_SPLITS
+        few = tiles * q8.STAGE_INT8_FEW_TILES < grid * q8.STAGE_INT8_WARPGROUPS
+        assert split.splits == 1 or few and split.chunk <= q8.STAGE_INT8_WALK
+        assert not few or split.chunk <= q8.STAGE_INT8_WALK or kp < 2 * q8.STAGE_INT8_STEP
+    assert plan.args() == (grid,) + plan.reduce + plan.mid + plan.expand + plan.proj
 
 
 @pytest.mark.parametrize("shape", [(3, 15, 15, 68, 20, 130), (2, 9, 8, 256, 300, 70),
@@ -277,49 +283,60 @@ def test_transition_int8_plan_on_ragged_shapes(shape):
     n, h, w, cin, cmid, cout = shape
     plan = q8.transition_int8_plan(*shape)
     for kp, k in ((plan.kpr, cin), (plan.kpm, 9 * cmid), (plan.kpe, cmid)):
-        assert kp % q8.DIRECT_INT8_K_ALIGN == 0 and k <= kp < k + q8.DIRECT_INT8_K_ALIGN
+        assert kp % q8.TRANSITION_INT8_K_ALIGN == 0 and k <= kp < k + q8.TRANSITION_INT8_K_ALIGN
     for split, kp in zip((plan.reduce, plan.mid, plan.expand, plan.proj),
                          (plan.kpr, plan.kpm, plan.kpe, plan.kpr)):
-        _covers_once(split, kp, q8.DIRECT_INT8_STEP)
-    last = _transition_tiles(*shape)[2]
-    slots = plan.expand.splits + plan.proj.splits
-    assert slots == 2 or last * slots <= plan.blocks
+        _covers_once(split, kp, q8.STAGE_INT8_STEP)
+    for walk in (128, 256, 1024):
+        forced = q8.transition_int8_plan(*shape, max_walk=walk)
+        for split, kp in zip((forced.reduce, forced.mid, forced.expand, forced.proj),
+                             (plan.kpr, plan.kpm, plan.kpe, plan.kpr)):
+            _covers_once(split, kp, q8.STAGE_INT8_STEP)
+            capped = -(-kp // walk) > min(q8.TRANSITION_INT8_MAX_SPLITS, kp // q8.STAGE_INT8_STEP)
+            assert split.splits == 1 or split.chunk <= max(walk, q8.STAGE_INT8_STEP) or capped
 
 
 def test_transition_int8_plan_follows_the_sm_count():
     shape = (1, 14, 14, 1024, 512, 2048)
     small, large = q8.transition_int8_plan(*shape, sms=66), q8.transition_int8_plan(*shape)
     assert small.blocks == large.blocks // 2
-    assert small.mid.splits < large.mid.splits and small.reduce.splits <= large.reduce.splits
+    assert small.reduce.splits < large.reduce.splits and small.mid.splits <= large.mid.splits
 
 
-# The served products of csrc/pointwise_int8.cu (P, K, N) at N=1 and N=8
-# and the path and split each takes on 132 SMs: the heads on the GEMV, the
-# K <= 256 1x1s in one pass a tile, the strided b-legs (K 576-2304) on the
-# cooperative grid, split towards a wave of its 264 blocks.
+# The served products of csrc/pointwise_int8.cu (P, K, N) at N=1, 8 and 32
+# and the (path, tile width, split) each takes on 132 SMs: the head at N=1
+# (one row, K 2048) on the GEMV; the one pass where its K fits over many rows (the
+# K = 64 1x1s of ResNet-50's conv2_x entry block, and past N=1 more); every
+# other product on the cluster path, 128 columns wide where those tiles
+# fill the card, its K split towards two blocks an SM, at most a portable
+# cluster (8).
 SERVED_POINTWISE_INT8 = {
-    (1, 2048, 1000): ("gemv", 16), (8, 2048, 1000): ("gemv", 16),
-    (1, 512, 1000): ("gemv", 8), (8, 512, 1000): ("gemv", 8),
-    (3136, 64, 64): ("one_pass", 1), (3136, 64, 256): ("one_pass", 1),
-    (25088, 64, 64): ("one_pass", 1), (25088, 64, 256): ("one_pass", 1),
-    (784, 64, 128): ("one_pass", 1), (196, 128, 256): ("one_pass", 1),
-    (49, 256, 512): ("one_pass", 1), (6272, 64, 128): ("one_pass", 1),
-    (1568, 128, 256): ("one_pass", 1), (392, 256, 512): ("one_pass", 1),
-    (784, 576, 128): ("cooperative", 5), (196, 1152, 256): ("cooperative", 9),
-    (49, 2304, 512): ("cooperative", 18), (6272, 576, 128): ("cooperative", 1),
-    (1568, 1152, 256): ("cooperative", 2), (392, 2304, 512): ("cooperative", 4),
+    (1, 2048, 1000): ("gemv", 128, 16), (8, 2048, 1000): ("cluster", 64, 8),
+    (1, 512, 1000): ("cluster", 64, 8), (8, 512, 1000): ("cluster", 64, 8),
+    (32, 2048, 1000): ("cluster", 64, 8), (32, 512, 1000): ("cluster", 64, 8),
+    (3136, 64, 64): ("one_pass", 64, 1), (3136, 64, 256): ("one_pass", 64, 1),
+    (25088, 64, 64): ("one_pass", 64, 1), (25088, 64, 256): ("cluster", 128, 1),
+    (784, 64, 128): ("cluster", 64, 2), (196, 128, 256): ("cluster", 64, 4),
+    (49, 256, 512): ("cluster", 64, 8), (6272, 64, 128): ("one_pass", 64, 1),
+    (1568, 128, 256): ("one_pass", 64, 1), (392, 256, 512): ("cluster", 128, 8),
+    (784, 576, 128): ("cluster", 128, 6), (196, 1152, 256): ("cluster", 64, 8),
+    (49, 2304, 512): ("cluster", 64, 8), (6272, 576, 128): ("cluster", 128, 2),
+    (1568, 1152, 256): ("cluster", 128, 5), (392, 2304, 512): ("cluster", 128, 8),
+    (100352, 64, 64): ("one_pass", 64, 1), (100352, 64, 256): ("cluster", 128, 1),
+    (25088, 64, 128): ("one_pass", 64, 1), (6272, 128, 256): ("cluster", 128, 1),
+    (1568, 256, 512): ("one_pass", 64, 1),
 }
 
 
 def _pointwise_int8_step(plan) -> int:
-    return q8.POINTWISE_INT8_GEMV_STEP if plan.path == "gemv" else q8.DIRECT_INT8_STEP
+    return q8.POINTWISE_INT8_GEMV_STEP if plan.path == "gemv" else q8.POINTWISE_INT8_CLUSTER_STEP
 
 
 @pytest.mark.parametrize("shape", sorted(SERVED_POINTWISE_INT8))
 def test_pointwise_int8_plan_fills_the_card(shape):
     p, k, n = shape
     plan = q8.pointwise_int8_plan(p, k, n)
-    assert (plan.path, plan.splits) == SERVED_POINTWISE_INT8[shape]
+    assert (plan.path, plan.tile, plan.splits) == SERVED_POINTWISE_INT8[shape]
     _covers_once(plan, plan.kp, _pointwise_int8_step(plan))
     if plan.path == "gemv":
         assert plan.kp == k and plan.tile == q8.POINTWISE_INT8_GEMV_COLS
@@ -327,17 +344,20 @@ def test_pointwise_int8_plan_fills_the_card(shape):
         assert plan.blocks <= H100_SMS                       # one block an SM at most
         assert 2 * plan.blocks >= H100_SMS or plan.chunk == q8.POINTWISE_INT8_GEMV_MIN_CHUNK
         return
-    assert plan.kp == -(-k // 32) * 32 and plan.tile == q8.DIRECT_INT8_TILE
-    assert plan.tiles == -(-p // 64) * -(-n // 64)
+    assert plan.kp == -(-k // 32) * 32
+    assert plan.tiles == -(-p // 64) * -(-n // plan.tile) and plan.blocks == plan.tiles * plan.splits
     if plan.path == "one_pass":                              # a tile a block, K unsplit
-        assert plan.kp <= q8.POINTWISE_INT8_ONE_PASS_MAX_K
-        assert plan.blocks == plan.tiles and plan.splits == 1
+        assert plan.kp <= q8.POINTWISE_INT8_ONE_PASS_MAX_K and plan.tile == q8.POINTWISE_INT8_TILE
+        assert p >= q8.POINTWISE_INT8_ONE_PASS_ROWS and plan.splits == 1
+        assert n <= 128 or p <= q8.POINTWISE_INT8_ONE_PASS_WIDE_ROWS
         return
-    wave = q8.DIRECT_INT8_BLOCKS_PER_SM * H100_SMS
-    assert plan.kp > q8.POINTWISE_INT8_ONE_PASS_MAX_K and plan.blocks == wave
-    assert plan.tiles * plan.splits <= max(wave, plan.tiles)
-    assert (plan.splits == 1 or 2 * plan.tiles * plan.splits >= wave
-            or plan.chunk == q8.DIRECT_INT8_MIN_CHUNK)   # a wave, or the shortest ranges
+    assert plan.path == "cluster" and plan.tile in q8.POINTWISE_INT8_CLUSTER_COLS
+    assert plan.splits <= q8.POINTWISE_INT8_CLUSTER_MAX
+    wave = q8.POINTWISE_INT8_CLUSTER_BLOCKS_PER_SM * H100_SMS
+    assert plan.blocks <= max(wave, plan.tiles)             # two blocks an SM, or one split
+    want = min(wave // plan.tiles, q8.POINTWISE_INT8_CLUSTER_MAX)   # towards that wave
+    assert plan[5:] == split_k(plan.kp, want, q8.POINTWISE_INT8_CLUSTER_STEP,
+                               q8.POINTWISE_INT8_CLUSTER_MIN_CHUNK)
 
 
 @pytest.mark.parametrize("p,k,n", [(1, 8, 5), (65, 132, 70), (129, 4608, 33), (7, 300, 70),
@@ -353,35 +373,45 @@ def test_pointwise_int8_plan_covers_k_on_ragged_shapes(p, k, n):
         assert plan.path == path and plan.kp >= k
         assert plan.kp == k if path == "gemv" else plan.kp % q8.DIRECT_INT8_K_ALIGN == 0
         _covers_once(plan, plan.kp, _pointwise_int8_step(plan))
+        if path == "cluster":
+            for want in (1, 2, 3, 5, 8):
+                forced = q8.pointwise_int8_plan(p, k, n, path=path, want=want)
+                _covers_once(forced, forced.kp, q8.POINTWISE_INT8_CLUSTER_STEP)
+                assert forced.splits <= min(want, q8.POINTWISE_INT8_CLUSTER_MAX)
+                assert forced.blocks == forced.tiles * forced.splits
     with pytest.raises(ValueError):
         q8.pointwise_int8_plan(p, k, n, path="dp4a")
 
 
 def test_pointwise_int8_workspace_holds_every_part():
-    coop = q8.pointwise_int8_plan(49, 2304, 512)
-    p, n = 49, 512
-    at = coop.workspace(p, n)
-    # barrier, scales, quantized rows, transposed weights, int32 partials
-    assert 2 <= at.sx and at.sx + p <= at.aq and at.aq + p * coop.kp // 4 <= at.bt
-    assert at.bt + n * coop.kp // 4 <= at.part and at.part + coop.splits * p * n == at.words
-    assert all(v % 4 == 0 for v in (at.aq, at.bt, at.part))
-    gemv = q8.pointwise_int8_plan(8, 2048, 1000)
+    gemv = q8.pointwise_int8_plan(8, 2048, 1000, path="gemv")
     at = gemv.workspace(8, 1000)
     # a counter per column tile, then the int32 partials
     assert gemv.tiles <= at.part and at.part % 4 == 0 and at.words == at.part + gemv.splits * 8000
+    # the cluster path keeps its partials and maxima in the cluster's shared memory
+    for shape in ((784, 576, 128), (49, 2304, 512), (32, 2048, 1000)):
+        plan = q8.pointwise_int8_plan(*shape)
+        assert plan.path == "cluster" and plan.splits > 1
+        assert plan.workspace(shape[0], shape[2]).words == 0
     assert q8.pointwise_int8_plan(3136, 64, 256).workspace(3136, 256).words == 0
     one = q8.pointwise_int8_plan(2, 64, 1000, path="gemv")
     assert one.splits == 1 and one.workspace(2, 1000).words == 0
 
 
 def test_pointwise_int8_plan_takes_the_gemv_at_few_rows_and_follows_the_sm_count():
+    """The GEMV takes a lone row over a long K (the N=1 head); two rows or
+    more, or a short K, take the cluster path; the GEMV still takes any
+    P <= 8 when forced."""
+    assert q8.pointwise_int8_plan(1, 2048, 1000).path == "gemv"
+    assert q8.pointwise_int8_plan(1, q8.POINTWISE_INT8_GEMV_MIN_K, 1000).path == "gemv"
+    assert q8.pointwise_int8_plan(1, q8.POINTWISE_INT8_GEMV_MIN_K - 4, 1000).path == "cluster"
+    for p in range(2, q8.POINTWISE_INT8_GEMV_MAX_ROWS + 2):
+        assert q8.pointwise_int8_plan(p, 2048, 1000).path == "cluster"
     for p in range(1, q8.POINTWISE_INT8_GEMV_MAX_ROWS + 1):
-        assert q8.pointwise_int8_plan(p, 2048, 1000).path == "gemv"
-    assert q8.pointwise_int8_plan(q8.POINTWISE_INT8_GEMV_MAX_ROWS + 1, 2048, 1000).path \
-        == "cooperative"
+        assert q8.pointwise_int8_plan(p, 512, 1000, path="gemv").path == "gemv"
     small, large = (q8.pointwise_int8_plan(1, 2048, 1000, sms=sms) for sms in (66, H100_SMS))
     assert small.splits == 8 and large.splits == 16 and small.blocks <= 66
-    small, large = (q8.pointwise_int8_plan(49, 2304, 512, sms=sms) for sms in (66, H100_SMS))
+    small, large = (q8.pointwise_int8_plan(392, 2304, 512, sms=sms) for sms in (66, H100_SMS))
     assert small.blocks == large.blocks // 2 and small.splits < large.splits
 
 
@@ -750,14 +780,20 @@ def _constexpr(source: str, name: str) -> int:
     (q8.DIRECT_INT8_K_ALIGN, "mma_int8.cuh", "kKAlign"),
     (q8.DIRECT_INT8_TILE, "mma_int8.cuh", "kBM"),
     (q8.DIRECT_INT8_STEP, "mma_int8.cuh", "kBK"),
-    (q8.DIRECT_INT8_BLOCKS_PER_SM, "transition_int8.cu", "kBlocksPerSm"),
+    (q8.TRANSITION_INT8_BLOCKS_PER_SM, "transition_int8.cu", "kBlocksPerSm"),
+    (q8.TRANSITION_INT8_MAX_SPLITS, "transition_int8.cu", "kSplitCap"),
+    (q8.TRANSITION_INT8_K_ALIGN, "transition_int8.cu", "kKAlign"),
     (q8.POINTWISE_INT8_GEMV_MAX_ROWS, "pointwise_int8.cu", "kGemvMaxP"),
     (q8.POINTWISE_INT8_GEMV_COLS, "pointwise_int8.cu", "kGemvCols"),
     (q8.POINTWISE_INT8_GEMV_STEP, "pointwise_int8.cu", "kGemvStep"),
     (q8.POINTWISE_INT8_ONE_PASS_MAX_K, "pointwise_int8.cu", "kOnePassMaxK"),
+    (q8.POINTWISE_INT8_CLUSTER_MAX, "pointwise_int8.cu", "kClusterMax"),
+    (q8.POINTWISE_INT8_CLUSTER_STEP, "pointwise_int8.cu", "kClusterStep"),
+    (q8.POINTWISE_INT8_TILE, "wgmma_s8.cuh", "kBM"),
+    (q8.POINTWISE_INT8_TILE, "wgmma_s8.cuh", "kBN"),
     (q8.POINTWISE_INT8_PATHS.index("gemv"), "pointwise_int8.cu", "kGemv"),
     (q8.POINTWISE_INT8_PATHS.index("one_pass"), "pointwise_int8.cu", "kOnePass"),
-    (q8.POINTWISE_INT8_PATHS.index("cooperative"), "pointwise_int8.cu", "kCooperative"),
+    (q8.POINTWISE_INT8_PATHS.index("cluster"), "pointwise_int8.cu", "kCluster"),
     (tr.TRANSITION_TILE, "wgmma_tile.cuh", "kBM"),
     (tr.TRANSITION_TILE, "wgmma_tile.cuh", "kBN"),
     (tr.TRANSITION_STEP, "wgmma_tile.cuh", "kBK"),
@@ -776,23 +812,31 @@ def test_plans_match_the_kernels_geometry(value, source, name):
 
 
 def test_transition_int8_entry_checks_the_int8_geometry():
-    """The transition's C entry refuses a K split off the s8 tile's stage and
-    a grid larger than its blocks an SM hold."""
+    """The transition's C entry refuses a K split off the s8 wgmma tile's
+    stage and a grid larger than its blocks an SM hold; its phases are the
+    folded s8 wgmma phases (no mma_int8.cuh, no weight transpose and no
+    quantize phase in the launch)."""
     src = (CSRC / "transition_int8.cu").read_text()
-    assert "constexpr int kSplitStep = s8::kBK;" in src
-    assert "__launch_bounds__(s8::kThreads, kBlocksPerSm)" in src
-    assert '#include "gemm_int8.cuh"' not in src
+    assert "g.chunk % q8::kBK == 0" in src and "g.splits <= kSplitCap" in src
+    assert "__launch_bounds__(q8::kThreads, kBlocksPerSm)" in src
+    assert "blocks > resident" in src and "cudaLaunchCooperativeKernel" in src
+    assert '#include "gemm_int8.cuh"' not in src and '#include "mma_int8.cuh"' not in src
+    assert '#include "wgmma_s8_phase.cuh"' in src and src.count("ph::gemm_phase(") == 2
+    assert "Transpose" not in src and "quantize_rows_phase" not in src
 
 
 def test_pointwise_int8_entry_checks_the_int8_geometry():
-    """The int8 pointwise multiplies on mma_int8.cuh's s8 tile (the one pass
-    through its warp tile, the cooperative form through its phases), splits
-    the cooperative K on the tile's stage, and no longer uses gemm_int8.cuh's
-    __dp4a tile."""
+    """The int8 pointwise's P > 8 products are s8 wgmma tiles whose K splits
+    are one thread-block cluster (no cooperative launch, grid barrier or
+    workspace), split on the wgmma k step; the one pass keeps mma_int8.cuh's
+    warp tile; gemm_int8.cuh's __dp4a tile is not included."""
     src = (CSRC / "pointwise_int8.cu").read_text()
     assert '#include "mma_int8.cuh"' in src and '#include "gemm_int8.cuh"' not in src
-    assert "constexpr int kSplitStep = s8::kBK;" in src
-    assert "s8::mma_k32(" in src and "s8::gemm_phase(" in src
+    assert '#include "wgmma_s8.cuh"' in src and '#include "cluster.cuh"' in src
+    assert "q8::wgmma_s8(" in src and "cudaLaunchAttributeClusterDimension" in src
+    assert "chunk % kClusterStep != 0" in src and "splits > kClusterMax" in src
+    assert "cudaLaunchCooperativeKernel" not in src and "grid_sync" not in src
+    assert "s8::mma_k32(" in src and "s8::gemm_phase(" not in src
 
 
 def test_transition_entry_runs_the_tf32_phases():

@@ -121,9 +121,12 @@ def test_stage_int8_runs_on_the_s8_wgmma_tile():
     on their row block's counter: no quantize phase is left, and the FP64
     F(2,3) mid publishes h2's maxima through winograd.cuh's observer."""
     src = (CSRC / "stage_int8.cu").read_text()
-    assert '#include "wgmma_s8.cuh"' in src
-    assert "quantize_rows_phase" not in src and "s8::gemm_phase" not in src
-    assert src.count("quantize_share(") == 3 and src.count("ready(cnt, it.rb, ") == 2
+    assert '#include "wgmma_s8.cuh"' in src and '#include "wgmma_s8_phase.cuh"' in src
+    # the folded phases, shared with csrc/transition_int8.cu since its s8 wgmma form
+    phase = (CSRC / "wgmma_s8_phase.cuh").read_text()
+    both = src + phase
+    assert "quantize_rows_phase" not in both and "s8::gemm_phase" not in both
+    assert both.count("quantize_share(") == 3 and both.count("ready(cnt, it.rb, ") == 2
     assert src.count("gemm_phase(a.") == 3 and "grouped_expand(a," in src
     assert src.count("q8::encode_kmajor(") == 3 and "MidRowMax" in src
     tile = (CSRC / "wgmma_s8.cuh").read_text()

@@ -141,7 +141,10 @@ def test_stage_runs_its_gemm_phases_on_the_wgmma_tile():
     mma = pw[pw.index("struct MmaArgs"):pw.index("// Both entries")]
     assert "wg::tile<kVec, false, kPipe<BT>>(" in mma
     assert "cudaLaunchAttributeClusterDimension" in mma
-    assert "mapa.shared::cluster" in mma and "barrier.cluster.arrive" in mma
+    assert "cluster_sync();" in mma and "load_rank(" in mma  # csrc/cluster.cuh's
+    cluster = (CSRC / "cluster.cuh").read_text()
+    assert "mapa.shared::cluster" in cluster and "barrier.cluster.arrive" in cluster
+    assert '#include "cluster.cuh"' in pw and "mapa.shared::cluster" not in pw
     assert "cudaMemsetAsync" not in mma and "bind_workspace" not in mma
 
 

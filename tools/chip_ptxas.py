@@ -17,10 +17,12 @@ none), one per device function compiled apart (__noinline__: {"library",
 kernel's) and one per library counting its SASS instructions by opcode
 family ("HGMMA": floating-point wgmma, "IGMMA": integer wgmma, "HMMA",
 "IMMA" and "DMMA": mma.sync, "UTMALDG": TMA loads). For the libraries whose
-products are all wgmma (WGMMA_ONLY: libwinograd_int8 and libstage_int8 on
-s8 wgmma, libtransition and libstage on 3xTF32 and bf16 wgmma) one more
-line says whether the SASS holds that wgmma and no mma.sync; the exit code
-is 1 where it does not.
+products are wgmma (WGMMA_ONLY: libwinograd_int8, libstage_int8,
+libtransition_int8 and libpointwise_int8 on s8 wgmma, libtransition and
+libstage on 3xTF32 and bf16 wgmma) one more line says whether the SASS
+holds that wgmma and no mma.sync (libpointwise_int8 keeps its one-pass
+form's mma.sync: only its wgmma is checked); the exit code is 1 where it
+does not.
 """
 
 from __future__ import annotations
@@ -34,10 +36,11 @@ import sys
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "DMMA", "UTMALDG", "UBLKCP")
-# The libraries whose products must be wgmma and no mma.sync: (the wgmma
-# opcode the SASS must hold, the mma.sync opcode it must not).
+# The libraries whose products must be wgmma: (the wgmma opcode the SASS
+# must hold, the mma.sync opcode it must not, or None).
 WGMMA_ONLY = {"winograd_int8": ("IGMMA", "IMMA"), "transition": ("HGMMA", "HMMA"),
-              "stage": ("HGMMA", "HMMA"), "stage_int8": ("IGMMA", "IMMA")}
+              "stage": ("HGMMA", "HMMA"), "stage_int8": ("IGMMA", "IMMA"),
+              "transition_int8": ("IGMMA", "IMMA"), "pointwise_int8": ("IGMMA", None)}
 
 
 def main() -> int:
@@ -101,10 +104,10 @@ def main() -> int:
         print(json.dumps({"library": name, "sass": counts, "hgmma_forms": hgmma}), flush=True)
         if name in WGMMA_ONLY:
             want, not_want = WGMMA_ONLY[name]
-            good = counts[want] > 0 and counts[not_want] == 0
+            good = counts[want] > 0 and (not_want is None or counts[not_want] == 0)
             ok &= good
             print(json.dumps({"library": name, "wgmma_only": good, want: counts[want],
-                              not_want: counts[not_want]}), flush=True)
+                              **({not_want: counts[not_want]} if not_want else {})}), flush=True)
     return 0 if ok else 1
 
 

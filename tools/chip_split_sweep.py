@@ -16,12 +16,12 @@ winograd_bf16w (F(2,3)), stage_bf16w and transition_bf16w, on bf16 weights.
 
 Run from the repository root on a machine with a CUDA card and nvcc. The
 shapes are each served shape of the kernels (the four served forwards of
-chip_smoke.py at N=1 and N=8, and the f32 Winograd's F(4,3) check shape).
-Every timed call is first held against its plain twin (pointwise, direct,
-winograd, stage, stem, transition and basic_stage within 1e-4 * max(1, max|plain|),
-transition_int8 within 1e-3 * max(1, max|plain|), the bound its kernels
-before the s8 mma.sync design met, direct_int8, stage_int8, pointwise_int8,
-basic_stage_int8, winograd_int8 and winograd_bf16 exactly). Device ms per
+chip_smoke.py at N=1 and N=8, the int8 transition and pointwise at N=32 too,
+and the f32 Winograd's F(4,3) check shape). Every timed call is first held
+against its plain twin (pointwise, direct, winograd, stage, stem,
+transition and basic_stage within 1e-4 * max(1, max|plain|), direct_int8,
+stage_int8, transition_int8, pointwise_int8, basic_stage_int8,
+winograd_int8 and winograd_bf16 exactly). Device ms per
 call: 20 calls in one CUDA graph, the median of 20 replays between CUDA
 events, inputs in L2. The card's name and power limit
 come first, then one JSON line per shape and candidate.
@@ -37,15 +37,16 @@ the Cin splits that split_k gives for 1, 2, 3, 4 and 8 wanted ranges of at
 least 32; the FP64 F(2,3) tile (winograd_bf16, and the int8 stage's
 winograd2 mid) under its plan and under every Cout block of its items
 (winograd.py::WINOGRAD_FP64_COLS), the bf16-filter 3x3 also on grids of
-one and two blocks an SM; the int8 transition under its plan and under plans that change
-one of its phases: the reduce's or the mid's split for 1, 2, 4, ..., 32
-wanted ranges, or the last phase's expand and projection splits for 1, 2
-and 4 by 1, 2, 4 and 8 wanted ranges; the f32 transition under its plan
+one and two blocks an SM; the int8 transition under its plan, under the walk caps
+TRANSITION_INT8_WALKS for every phase, and under plans that change one of
+its phases to such a walk: the reduce's, the mid's, or the last phase's
+expand and projection together; the f32 transition under its plan
 and under plans that change one phase's split (reduce, mid or expand) for
 1, 2, 4, ..., 32 wanted ranges; the int8 pointwise under its plan and on
 every other path that takes the shape (GEMV at P <= 8, one pass at a
-padded K <= 256, cooperative), the GEMV's and the cooperative form's K
-split for 1, 2, 4, ..., 32 wanted ranges; the f32 and the int8 basic stage
+padded K <= 256, the cluster path at any P, its tiles 64 and 128 columns
+wide), the GEMV's and the cluster path's K split for 1, 2, 4, ..., 64
+wanted ranges (the cluster's at most 8); the f32 and the int8 basic stage
 under their plans and under the K splits split_k gives for 1, 2, 4, ...,
 64 wanted ranges (both convs share one split); the int8 Winograd under its
 plan, under every item shape its kernel takes (8 x 128, 16 x 128 or 32 x
@@ -127,23 +128,21 @@ STEM = [  # (N, H, W, Cin, C, precision): A/B only (its grid is the kernel's)
     (1, 224, 224, 3, 64, "f32"), (1, 224, 224, 3, 64, "bf16"), (8, 224, 224, 3, 64, "f32"),
     (8, 224, 224, 3, 64, "bf16"),
 ]
-TRANSITION_INT8 = [  # (N, H, W, Cin, Cmid, Cout): A/B only
-    (1, 56, 56, 256, 128, 512), (1, 28, 28, 512, 256, 1024), (1, 14, 14, 1024, 512, 2048),
-    (8, 14, 14, 1024, 512, 2048),
+TRANSITION_INT8 = [  # (N, H, W, Cin, Cmid, Cout): ResNet-50's three at N = 1, 8 and 32
+    (n, hw, hw, cin, cin // 2, 2 * cin) for n in (1, 8, 32)
+    for hw, cin in ((56, 256), (28, 512), (14, 1024))
 ]
 TRANSITION = [  # (N, H, W, Cin, Cmid, Cout): ResNet-50's three at N = 1, 8 and 32
     (n, hw, hw, cin, cin // 2, 2 * cin) for n in (1, 8, 32)
     for hw, cin in ((56, 256), (28, 512), (14, 1024))
 ]
 TRANSITION_BF16W = TRANSITION  # the bf16w instantiation ("transition_bf16w") at the same shapes
-POINTWISE_INT8 = [  # (P, K, N, relu): the served int8 1x1s at N=1 and N=8
-    (1, 2048, 1000, False), (8, 2048, 1000, False), (1, 512, 1000, False), (8, 512, 1000, False),
-    (3136, 64, 64, True), (3136, 64, 256, False), (25088, 64, 64, True),
-    (25088, 64, 256, False), (784, 64, 128, False), (196, 128, 256, False),
-    (49, 256, 512, False), (6272, 64, 128, False), (1568, 128, 256, False),
-    (392, 256, 512, False), (784, 576, 128, True), (196, 1152, 256, True),
-    (49, 2304, 512, True), (6272, 576, 128, True), (1568, 1152, 256, True),
-    (392, 2304, 512, True),
+POINTWISE_INT8 = [  # (P, K, N, relu): the served int8 1x1s at N = 1, 8 and 32
+    (n, k, 1000, False) for n in (1, 8, 32) for k in (2048, 512)] + [
+    (n * p, k, c, relu) for n in (1, 8, 32) for p, k, c, relu in (
+        (3136, 64, 64, True), (3136, 64, 256, False), (784, 64, 128, False),
+        (196, 128, 256, False), (49, 256, 512, False), (784, 576, 128, True),
+        (196, 1152, 256, True), (49, 2304, 512, True))
 ]
 WINOGRAD_INT8 = [  # (N, H, W, Cin, Cout, relu): ResNet-34's int8 Winograds at N = 1, 8, 32
     (n, hw, hw, c, c, True) for n in (1, 8, 32) for hw, c in ((28, 128), (14, 256))
@@ -156,6 +155,8 @@ A_B_ONLY = ("stem",)
 # The candidate walk caps of quantized.py::stage_int8_plan (one for every
 # phase; 0 is its rule of about one item a block).
 STAGE_INT8_WALKS = (0, 128, 256, 512, 1024, 1 << 20)
+# The candidate walk caps of quantized.py::transition_int8_plan (0: its rule).
+TRANSITION_INT8_WALKS = (0, 128, 256, 512, 1024, 1 << 20)
 DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
     (1, 56, 56, 64, 64, True), (1, 7, 7, 512, 512, False), (8, 7, 7, 512, 512, False),
     (8, 56, 56, 64, 64, True),
@@ -333,9 +334,8 @@ def _cases_all(dev):
             s_proj=(rng.random(cout) * 0.5).astype(np.float32), b_proj=rand(cout).cpu())).items()}
         x = rand(n, h, wd, cin).abs()
         ref = q8.transition_block_int8_plain(x, qp)
-        tol = 1e-3 * max(1.0, ref.abs().max().item())
         yield ("transition_int8", (n, h, wd, cin, cmid, cout), (x, qp), ref,
-               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+               lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
     for name, n, h, wd, cin, cmid, cout in (
             [("transition", *shape) for shape in TRANSITION]
             + [("transition_bf16w", *shape) for shape in TRANSITION_BF16W]):
@@ -522,23 +522,19 @@ def sweep(dev) -> bool:
 
 
 def sweep_transition_int8(shape, args, ref, agrees, q8, sms) -> bool:
-    """The int8 transition under its plan and under plans that change one
-    phase's K split."""
-    from winograd_tpu_torch.kernels.splitk import split_k
-
+    """The int8 transition under its plan, under transition_int8_plan's walk
+    caps for every phase (TRANSITION_INT8_WALKS), and under plans that change
+    one phase's walk: the reduce's, the mid's, or the last phase's
+    (its expand and projection together)."""
+    n, h, w, cin, cmid, cout = shape
     chosen = q8.transition_int8_plan(*shape, sms)
-
-    def split(k, want):
-        return split_k(k, want, q8.DIRECT_INT8_STEP, q8.DIRECT_INT8_MIN_CHUNK)
-
+    walk = {m: q8.transition_int8_plan(*shape, sms, m) for m in TRANSITION_INT8_WALKS if m}
     plans = {("chosen",): chosen}
-    for want in WANTS:
-        plans.setdefault(("reduce", want), chosen._replace(reduce=split(chosen.kpr, want)))
-        plans.setdefault(("mid", want), chosen._replace(mid=split(chosen.kpm, want)))
-    for we in (1, 2, 4):
-        for wp in (1, 2, 4, 8):
-            plans.setdefault(("last", we, wp), chosen._replace(
-                expand=split(chosen.kpe, we), proj=split(chosen.kpr, wp)))
+    for m, forced in walk.items():
+        plans.setdefault(("all", m), forced)
+        plans.setdefault(("reduce", m), chosen._replace(reduce=forced.reduce))
+        plans.setdefault(("mid", m), chosen._replace(mid=forced.mid))
+        plans.setdefault(("last", m), chosen._replace(expand=forced.expand, proj=forced.proj))
     ok, seen = True, set()
     for varied, plan in plans.items():
         if plan.args() in seen and varied != ("chosen",):
@@ -589,23 +585,18 @@ def sweep_transition(name, shape, args, ref, agrees, sms) -> bool:
 
 def sweep_pointwise_int8(shape, args, ref, agrees, q8, sms) -> bool:
     """The int8 pointwise under its plan, and on every path that takes the
-    shape at the K splits split_k gives for WANTS."""
-    from winograd_tpu_torch.kernels.splitk import split_k
-
+    shape: the GEMV and the cluster path at the K splits split_k gives for
+    WANTS (the cluster's at most a portable cluster), the one pass."""
     p, k, n, _ = shape
     chosen = q8.pointwise_int8_plan(p, k, n, sms)
     plans = [chosen]
     for path in q8.POINTWISE_INT8_PATHS:
-        try:
-            base = q8.pointwise_int8_plan(p, k, n, sms, path)
-        except ValueError:
-            continue
-        step = q8.POINTWISE_INT8_GEMV_STEP if path == "gemv" else q8.DIRECT_INT8_STEP
-        for want in (1,) if path == "one_pass" else WANTS:
-            sp = split_k(base.kp, want, step, step)
-            plan = base._replace(splits=sp.splits, chunk=sp.chunk)
-            if path == "gemv":
-                plan = plan._replace(blocks=plan.tiles * sp.splits)
+        widths = q8.POINTWISE_INT8_CLUSTER_COLS if path == "cluster" else (0,)
+        for want, cols in ((w, c) for c in widths for w in ((0,) if path == "one_pass" else WANTS)):
+            try:
+                plan = q8.pointwise_int8_plan(p, k, n, sms, path, want, cols)
+            except ValueError:
+                break
             if plan not in plans:
                 plans.append(plan)
     ok = True
@@ -614,7 +605,8 @@ def sweep_pointwise_int8(shape, args, ref, agrees, q8, sms) -> bool:
         y = fn()
         ok &= agrees(y)
         print(json.dumps({"kernel": "pointwise_int8", "shape": shape, "path": plan.path,
-                          "splits": plan.splits, "chunk": plan.chunk, "chosen": plan == chosen,
+                          "tile": plan.tile, "splits": plan.splits, "chunk": plan.chunk,
+                          "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
                           "ms": device_ms(fn)}), flush=True)
     return ok

@@ -30,7 +30,15 @@ block's expand is not stamped: the kernel ends there); the int8 stage's
 are its first phase (the weight transposes, x's row maxima), then per
 block the reduce, the mid and the expand, each with its split sum (its
 quantization folded into the phase before; the last block's expand is not
-stamped). The int8 transition's copy ends in one more
+stamped). The int8 transition's copy, since its s8 wgmma phases, stamps
+every block (thread 0, a slot per event): its start, then for the reduce
+and the mid its share of the rows quantized, its first item's products and
+its items done, each grid barrier passed, the last phase's share quantized
+and first products, and its end; the line gives, over the blocks, the
+median and the largest of each step (TRANSITION_INT8_STEPS), and the eager
+milliseconds its wrapper spends at a weight's first launch making the
+weights' k-contiguous copies (kmajor_first_ms). In its
+mma.sync layout (--root an older checkout) its copy ends in one more
 barrier and stamp, so its spans are all six phases: the weight transposes
 with x's quantization, the reduce, the strided im2col's quantization, the
 mid, h2's quantization with the projection rows' gather, and expand with
@@ -57,15 +65,16 @@ First, the grid barrier alone
 (grid_sync.cuh, 256 threads a block): its cost per crossing at one and two
 blocks an SM. The card's name and power limit come first.
 
---variant builds the f32 stage, transition and basic stage (TF32_KERNELS) once
-per named variant of their tensor-core tiles (csrc/mma_tf32.cuh and the
-stage's GEMM phases' csrc/wgmma_tile.cuh, edited in a copy of the sources)
-and stamps each: "as_is" the committed 3xTF32 tiles;
-"one_pass" only the hi*hi pass of their three passes (TF32 accuracy,
-so its lines report the error but do not fail); "no_mma" none of them (the
-cp.async ring, the fragment splits the compiler keeps, the epilogues and
-barriers alone; its output is not the kernel's). What a phase loses
-between the variants is what its products cost.
+--variant builds the f32 stage, transition and basic stage (TF32_KERNELS) and
+the int8 transition once per named variant of their tensor-core tiles
+(csrc/mma_tf32.cuh, the stage's GEMM phases' csrc/wgmma_tile.cuh and the int8
+phases' csrc/wgmma_s8.cuh, edited in a copy of the sources) and stamps each:
+"as_is" the committed tiles; "one_pass" only the hi*hi pass of the 3xTF32
+tiles' three passes (TF32 accuracy, so its lines report the error but do not
+fail; the int8 transition as_is); "no_mma" none of their products (the
+rings, the fragment splits the compiler keeps, the epilogues and barriers
+alone; its output is not the kernel's). What a phase loses between the
+variants is what its products cost.
 """
 
 from __future__ import annotations
@@ -113,8 +122,11 @@ LAYOUT = {
     "stage_int8": ('#include "winograd.cuh"\n',
                    ("  // The first phase: every block's weights",  # since the s8 wgmma phases
                     "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act"), None),
-    "transition_int8": ('#include "mma_int8.cuh"\n', "  // 0. The four weight matrices",
-                        "  expand_and_project(a, P2, smem);\n"),
+    "transition_int8": (('#include "wgmma_s8_phase.cuh"\n',  # since the s8 wgmma phases
+                         '#include "mma_int8.cuh"\n'),
+                        ("  // 1. The reduce, on x's rows", "  // 0. The four weight matrices"),
+                        ("  expand_and_project(a, we, wp, ring, scratch);\n",
+                         "  expand_and_project(a, P2, smem);\n")),
     "transition": ('#include "splitk_tf32.cuh"\n',
                    ("  ph::phase_items<kVec>(a.reduce,",  # since the wgmma phases
                     "  sk::gemm_phase<kVec, true>(a.reduce,"),
@@ -145,9 +157,15 @@ PASSES = {"mma_tf32.cuh": {"lo_hi": "mma(acc[mi][ni], al[mi], bh[ni]);",
                            "hi_hi": "mma(acc[mi][ni], ah[mi], bh[ni]);"},
           "wgmma_tile.cuh": {"lo_hi": "wgmma_tf32(part, al[j], bh, j > 0);",
                              "hi_lo": "wgmma_tf32(part, ah[j], bl, 1);",
-                             "hi_hi": "wgmma_tf32(part, ah[j], bh, 1);"}}
-VARIANTS = {"as_is": (), "one_pass": ("lo_hi", "hi_lo"), "no_mma": ("lo_hi", "hi_lo", "hi_hi")}
+                             "hi_hi": "wgmma_tf32(part, ah[j], bh, 1);"},
+          "wgmma_s8.cuh": {"s8": "wgmma_s8(acc, wg::desc128(sa + 32 * j, 16, 1024), "
+                                 "wg::desc128(sb + 32 * j, 16, 1024),\n             add || j > 0);"}}
+VARIANTS = {"as_is": (), "one_pass": ("lo_hi", "hi_lo"),
+            "no_mma": ("lo_hi", "hi_lo", "hi_hi", "s8")}
 TF32_KERNELS = ("stage", "transition", "basic_stage")  # on that tile, built once per variant
+# The kernels built once per variant: the TF32 ones, and the int8
+# transition ("no_mma" takes its s8 wgmma products out, "one_pass" is as_is).
+VARIANT_KERNELS = TF32_KERNELS + ("transition_int8",)
 # A kernel timed through another's source: the bf16w transition is
 # transition.cu's bf16w instantiation (its bf16 wgmma tiles), as_is only.
 SOURCE = {"transition_bf16w": "transition"}
@@ -235,6 +253,119 @@ extern "C" int read_stamps(unsigned long long* host, int* n) {
 '''
 
 
+# The int8 transition since its s8 wgmma phases: thread 0 of every block
+# stamps, each into a slot of its own (TR8_SLOTS a block), its start, each
+# GEMM phase's share quantized, its first item's products and its items
+# done (in a stamped copy of csrc/wgmma_s8_phase.cuh beside the stamped
+# source, which its quoted include finds first; the kernel sets the slot
+# base of each gemm_phase call), each grid barrier of the kernel body
+# passed, the last phase's share quantized and its first item's products
+# (of warpgroup 0: a block whose first warpgroup has no item leaves that
+# slot empty), and its end.
+TR8_PHASES = '#include "wgmma_s8_phase.cuh"\n'
+TR8_HEAD = "  // 1. The reduce, on x's rows"
+TR8_REDUCE = "  ph::gemm_phase(a.reduce,"
+TR8_MID = "  ph::gemm_phase(a.mid,"
+TR8_BARRIER = "  wt::grid_sync(a.bar);\n"
+TR8_DUAL_QUANTIZED = "                     cnt, scratch);\n"
+TR8_PAIR = "true, ap, ae, [&] { ph::ready(cnt, it.rb, P); });\n"
+TR8_LAST = "  expand_and_project(a, we, wp, ring, scratch);\n"
+PHASE_QUANTIZED = "  quantize_share(a, g.P, g.K, cg, aq, sx, cnt, scratch);\n"
+PHASE_TILE = "    wgs8::tile<false>(aq, g.P, g.K, w, it.p0, it.n0, it.k0, it.k1, ring, true, acc, NoFin{});\n"
+PHASE_ITEMS = "  if (g.splits == 1) return;\n  wt::grid_sync(bar);\n"
+TR8_SLOTS = 16
+# (step, from slot, to slot): the slots are 0 start; 1, 2, 3 the reduce's
+# share quantized, first products, items done; 4 the first barrier; 5, 6, 7
+# the mid's; 8 the second barrier; 9, 10 the last phase's share quantized
+# and first products; 11 the end.
+TRANSITION_INT8_STEPS = (
+    ("reduce_quantize", 0, 1), ("reduce_first_products", 1, 2), ("reduce_items", 1, 3),
+    ("barrier_1", 3, 4), ("mid_quantize", 4, 5), ("mid_first_products", 5, 6),
+    ("mid_items", 5, 7), ("barrier_2", 7, 8), ("last_quantize", 8, 9),
+    ("last_first_products", 9, 10), ("last_items", 9, 11))
+STAMP_AT = ("{ if (threadIdx.x == 0 && blockIdx.x < 2048) { unsigned long long t; "
+            "asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(t)); "
+            "g_stamp[blockIdx.x * 16 + (K_)] = t; "
+            "atomicMax(&g_stamps, (int)(blockIdx.x * 16 + 16)); } }")
+
+
+def stamped_transition_int8(src: str, phases: str) -> tuple:
+    """The s8 wgmma form of csrc/transition_int8.cu and a copy of
+    csrc/wgmma_s8_phase.cuh, both stamped into TR8_SLOTS slots a block."""
+    at = lambda k: STAMP_AT.replace("K_", str(k))  # noqa: E731
+    marks = (TR8_HEAD, TR8_REDUCE, TR8_MID, TR8_DUAL_QUANTIZED, TR8_PAIR, TR8_LAST)
+    if any(src.count(x) != 1 for x in marks) or src.count(TR8_BARRIER) < 2 or any(
+            phases.count(x) != 1 for x in (PHASE_QUANTIZED, PHASE_TILE, PHASE_ITEMS)):
+        raise SystemExit("transition_int8.cu does not have the layout this tool stamps")
+    head, body = src.split(TR8_HEAD)
+    first, second, rest = body.split(TR8_BARRIER, 2)  # the kernel body's two barriers
+    body = (first + TR8_BARRIER + "  " + at(4) + "\n" + second + TR8_BARRIER + "  " + at(8)
+            + "\n" + rest)
+    src = head + "  " + at(0) + "\n" + TR8_HEAD + body
+    src = src.replace(TR8_REDUCE, "  if (threadIdx.x == 0) g_base[blockIdx.x] = 1;\n" + TR8_REDUCE)
+    src = src.replace(TR8_MID, "  if (threadIdx.x == 0) g_base[blockIdx.x] = 5;\n" + TR8_MID)
+    src = src.replace(TR8_DUAL_QUANTIZED, TR8_DUAL_QUANTIZED + "  " + at(9) + "\n")
+    src = src.replace(TR8_PAIR, TR8_PAIR + "      if (item == first) " + at(10) + "\n")
+    src = src.replace(TR8_LAST, TR8_LAST + "  " + at(11) + "\n")
+    base = "g_base[blockIdx.x < 2048 ? blockIdx.x : 0]"
+    phases = phases.replace(PHASE_QUANTIZED, PHASE_QUANTIZED + "  " + at(base) + "\n")
+    phases = phases.replace(PHASE_TILE, PHASE_TILE + "    if (item == first) " + at(base + " + 1") + "\n")
+    phases = phases.replace(PHASE_ITEMS, "  " + at(base + " + 2") + "\n" + PHASE_ITEMS)
+    decl = ("__device__ unsigned long long g_stamp[2048 * 16];\n__device__ int g_stamps;\n"
+            "__device__ int g_base[2048];\n")
+    phases = phases.replace('#include "wgmma_s8.cuh"\n', '#include "wgmma_s8.cuh"\n' + decl, 1)
+    return src + READ_SLOT_STAMPS, phases
+
+
+READ_SLOT_STAMPS = r"""
+extern "C" int read_stamps(unsigned long long* host, int* n) {
+  cudaError_t e = cudaMemcpyFromSymbol(n, g_stamps, sizeof(int));
+  if (e == cudaSuccess && *n > 16384) *n = 16384;
+  if (e == cudaSuccess) e = cudaMemcpyFromSymbol(host, g_stamp, sizeof(unsigned long long) * *n);
+  static unsigned long long none[2048 * 16] = {};
+  const int zero = 0;
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_stamps, &zero, sizeof(int));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_stamp, none, sizeof(none));
+  return static_cast<int>(e);
+}
+"""
+
+
+def slot_spans(ts) -> dict:
+    """The s8 wgmma transition's stamps (TR8_SLOTS slots a block): the
+    launch's span and, over the blocks that stamped both ends of a step,
+    the median and the largest of each of TRANSITION_INT8_STEPS
+    (microseconds)."""
+    import statistics
+
+    blocks = [ts[i:i + TR8_SLOTS] for i in range(0, len(ts), TR8_SLOTS)]
+    blocks = [b for b in blocks if len(b) == TR8_SLOTS and b[0] and b[11]]
+    out = {"stamped_us": (max(b[11] for b in blocks) - min(b[0] for b in blocks)) / 1e3,
+           "blocks": len(blocks)}
+    for name, i, j in TRANSITION_INT8_STEPS:
+        v = [(b[j] - b[i]) / 1e3 for b in blocks if b[i] and b[j]]
+        if v:
+            out[f"{name}_us"] = [round(statistics.median(v), 2), round(max(v), 2), len(v)]
+    return out
+
+
+def kmajor_first_ms(q8, params) -> float:
+    """The eager cost of the int8 transition's weight copies at a weight's
+    first launch (kernels/quantized.py::transition_int8_kmajor on copies of
+    the weights, none made yet): host milliseconds, synchronized; a replayed
+    forward makes none."""
+    import time
+
+    import torch
+
+    fresh = {k: v.clone() for k, v in params.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    q8.transition_int8_kmajor(fresh)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0)
+
+
 def block_spans(ts) -> dict:
     """The cluster form's stamps (WINO_INT8_STAMPS a block) as the launch's
     span (the first block's start to the last block's end) and, over the
@@ -260,13 +391,16 @@ def stamped_source(src: str, kernel: str) -> str:
     (stamped_clusters)."""
     if kernel == "winograd_int8" and WINO_INT8_CLUSTER in src:
         return stamped_clusters(src)
-    include, heads, lasts = LAYOUT[kernel]
+    includes, heads, lasts = LAYOUT[kernel]
+    # The first include the source has (another commit's layout: a tuple).
+    include = next((i for i in (includes if isinstance(includes, tuple) else (includes,))
+                    if i in src), None)
     # A body's head and last statement; where a source has more than one
     # body (the transition's two tile forms) each present one is stamped.
     heads = [h for h in (heads if isinstance(heads, tuple) else (heads,)) if h in src]
     last = next((x for x in (lasts if isinstance(lasts, tuple) else (lasts,))
                  if x is not None and x in src), None)
-    if include not in src or not heads or lasts is not None and last is None:
+    if include is None or not heads or lasts is not None and last is None:
         raise SystemExit(f"{kernel}.cu does not have the layout this tool stamps")
     src = src.replace("wt::grid_sync(a.bar);", "{ wt::grid_sync(a.bar); STAMP }")
     if last is not None:
@@ -303,6 +437,8 @@ def variant_sources(csrc: pathlib.Path, out: pathlib.Path, variant: str) -> path
             continue
         tile = (dst / header).read_text()
         for name in VARIANTS[variant]:
+            if name not in passes:
+                continue
             if tile.count(passes[name]) != 1:
                 raise SystemExit(f"{header} does not have the {name} pass this tool edits")
             tile = tile.replace(passes[name], "(void)0;")
@@ -322,14 +458,22 @@ def build(root: pathlib.Path, out: pathlib.Path, kernels, variants=("as_is",)):
     jobs = {"barrier": (out / "barrier.cu", csrc)}  # name -> (source, include dir)
     for kernel in kernels:
         source = SOURCE.get(kernel, kernel)
-        stamped = stamped_source((csrc / f"{source}.cu").read_text(), source)
+        text = (csrc / f"{source}.cu").read_text()
+        phases = None  # a stamped header copy beside the stamped source
+        if kernel == "transition_int8" and TR8_PHASES in text:
+            stamped, phases = stamped_transition_int8(
+                text, (csrc / "wgmma_s8_phase.cuh").read_text())
+        else:
+            stamped = stamped_source(text, source)
         if kernel == "winograd":
             (out / "wino_tf32.cuh").write_text(stamped_wino_tf32(
                 (csrc / "wino_tf32.cuh").read_text()))
-        tf32 = kernel in TF32_KERNELS
+        tf32 = kernel in VARIANT_KERNELS
         for variant in (variants if tf32 else ("as_is",)):
             src = variant_sources(csrc, out, variant) if tf32 else out
             (src / f"{kernel}_stamped.cu").write_text(stamped)
+            if phases is not None:
+                (src / "wgmma_s8_phase.cuh").write_text(phases)
             name = f"{kernel}_stamped:{variant}" if tf32 else f"{kernel}_stamped"
             jobs[name] = (src / f"{kernel}_stamped.cu", src if tf32 else csrc)
     lib_of = {name: out / f"lib{name.replace(':', '_')}.so" for name in jobs}
@@ -548,6 +692,8 @@ def main() -> int:
     csrc = root / "winograd_tpu_torch" / "csrc"
     per_block = {k: k == "winograd_int8" and WINO_INT8_CLUSTER in (csrc / f"{k}.cu").read_text()
                  for k in kernels}
+    per_slot = {k: k == "transition_int8" and TR8_PHASES in (csrc / f"{k}.cu").read_text()
+                for k in kernels}
     ok = True
     for kernel in kernels:
         call, plain, workspace = wrappers[kernel]
@@ -571,7 +717,7 @@ def main() -> int:
             for shape in WINOGRAD_SHAPES:
                 operands = winograd_case(rng, dev, *shape)
                 cases.append((shape, operands, plain(*operands[:5])))
-        tf32 = kernel in TF32_KERNELS
+        tf32 = kernel in VARIANT_KERNELS
         for variant in (variants if tf32 else ("as_is",)):
             lib = libs[f"{kernel}_stamped:{variant}" if tf32 else f"{kernel}_stamped"]
             _build._LIBS[SOURCE.get(kernel, kernel)] = lib  # the wrapper launches it
@@ -599,7 +745,10 @@ def main() -> int:
                 # outside the kernel body (the graph's launch, a barrier's
                 # memset, the first block's start, the last one's end).
                 replayed = bench_graph(lambda: call(*operands))
-                if per_block[kernel]:
+                if per_slot[kernel]:
+                    spans = {**slot_spans(ts), "kmajor_first_ms": kmajor_first_ms(
+                        q8, operands[1])}
+                elif per_block[kernel]:
                     spans = block_spans(ts)
                 else:
                     spans = {"stamped_us": (ts[-1] - ts[0]) / 1e3,

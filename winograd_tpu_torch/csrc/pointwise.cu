@@ -49,6 +49,7 @@
 
 #include <type_traits>
 
+#include "cluster.cuh"
 #include "common.cuh"
 #include "splitk_tf32.cuh"
 #include "wgmma_tile.cuh"
@@ -200,20 +201,8 @@ struct MmaArgs {
   int P, K, N, relu, splits, chunk;
 };
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// The float at shared address `addr` of the cluster's block `rank`.
-__device__ __forceinline__ float load_rank(unsigned addr, unsigned rank) {
-  unsigned remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
-  return v;
-}
+using wt::cluster_sync;
+using wt::load_rank;
 
 template <class BT>
 __device__ __forceinline__ float bn(const MmaArgs<BT>& a, int n, float acc) {

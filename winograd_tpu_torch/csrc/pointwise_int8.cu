@@ -20,43 +20,63 @@
 // int8 weights once: 0.6 us). Their output tiles number 8 to 196, so one
 // block walking a tile's whole K alone leaves most SMs idle.
 //
-// Design, three paths (the host's plan, kernels/quantized.py::
-// pointwise_int8_plan, picks one; this entry checks the plan against the
-// geometry compiled here and refuses one that does not fit):
-// * GEMV (P <= kGemvMaxP, the head): a block owns kGemvCols columns and a
-//   K range. It finds its rows' scales over all of K (P <= 8 rows), then
+// Design (the host's plan, kernels/quantized.py::pointwise_int8_plan, picks
+// the path, the tile and the K split; this entry checks the plan against
+// the geometry compiled here and refuses one that does not fit):
+// * GEMV (P <= kGemvMaxP; the plan gives it the N=1 head): a block owns
+//   kGemvCols columns and a K range. It finds its rows' scales over all of
+//   K (P <= 8 rows), then
 //   quantizes the rows over its K range once into shared memory; each warp
 //   reads four weight rows of its 128 columns at a time, coalesced along N,
 //   turns them k-contiguous in registers (byte permutes) and multiplies by
 //   __dp4a into int32. The warps' sums meet in shared memory; with several
 //   K ranges the last block of a column tile adds the int32 partial sums
 //   (exact in any order) and applies the epilogue once.
-// * One pass (Kp <= kOnePassMaxK, the 1x1s of K 64-256): one block a
-//   64 x 64 output tile, no barrier: it quantizes its 64 rows once into
-//   shared memory (a warp's eight rows' loads in flight together), writes
-//   its 64 weight columns k-contiguous beside them, and multiplies on
-//   mma.sync.m16n8k32 s8 (mma_int8.cuh's warp tile). A row band is
-//   quantized once per column tile (1 to 4 times on the served shapes).
-// * Cooperative (longer K, the strided b-legs): direct_int8.cu's phases on
-//   mma_int8.cuh. The grid quantizes every row once into a (P, Kp) int8
-//   workspace and writes the weights k-contiguous (N, Kp) beside it; a grid
-//   barrier; then 64 x 64 mma.sync tiles on cp.async stages with K split so
-//   that tiles x splits reach about one wave of blocks; the int32 splits
-//   are added after a second barrier and the epilogue runs once an element.
+// * Cluster (any P; the strided b-legs and most 1x1s): a block of two
+//   warpgroups on a 64-row tile of the plan's 64 or 128 columns (64 a
+//   warpgroup, both on one A), s8 wgmma m64n64k32 (wgmma_s8.cuh's
+//   instruction and 128-byte swizzle); a tile's K splits are the blocks of
+//   one thread-block cluster (cluster dims (1, splits, 1), at most
+//   kClusterMax, the portable size; one K range is a cluster of one). Each
+//   thread owns a quarter of one row: the block takes its 64 rows' max |x|
+//   over its own K range (no atomics), and the cluster exchanges these
+//   through distributed shared memory into each row's whole maximum (a max
+//   is exact in any order). Each block then quantizes its K range once, in
+//   spans of kSpan k held in shared memory as wgmma's K-major A, beside its
+//   columns' weights staged K-major (16 k rows of four columns a thread,
+//   byte-permuted into the swizzled rows as csrc/winograd_int8.cu stages
+//   u_q: no k-contiguous copy, no TMA map; a warp's loads whole 32-byte
+//   sectors, its stores conflict-free), and multiplies. Past one split each
+//   block leaves its int32 partial tile in its shared memory and, after a
+//   cluster barrier, block r adds rows r * 64 / splits .. of every block's
+//   partial (exact in any order) and applies the epilogue once an element.
+//   No grid barrier, no memset, no workspace, no cooperative launch: what
+//   the mma.sync cooperative form (a quantize phase, two grid barriers,
+//   int32 partials through device memory) paid at every launch.
+// * One pass (Kp <= kOnePassMaxK): one block a 64 x 64 output tile on
+//   mma_int8.cuh's s8 mma.sync warp tile, its 64 rows quantized once into
+//   shared memory and its 64 weight columns written k-contiguous beside
+//   them, no barrier. Kept where the sweep finds it faster: K of one short
+//   walk over many rows (tools/chip_split_sweep.py, PERF.md).
 
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "common.cuh"
 #include "mma_int8.cuh"
+#include "wgmma_s8.cuh"
+#include "wgmma_s8_phase.cuh"
 
 namespace {
 
 namespace s8 = wt::s8mma;
+namespace q8 = wt::wgs8;
+namespace wg = wt::wg;
 
 // The plan's paths, as the host numbers them.
 constexpr int kGemv = 0;
 constexpr int kOnePass = 1;
-constexpr int kCooperative = 2;
+constexpr int kCluster = 2;
 
 constexpr int kGemvMaxP = 8;      // rows the GEMV's registers and shared arrays hold
 constexpr int kGemvCols = 128;    // columns a GEMV block owns: four a lane
@@ -66,7 +86,8 @@ constexpr int kGemvStep = 32;     // a GEMV split is a multiple of this: one 4-k
 constexpr int kGemvXChunk = 1024;  // k of x quantized into shared memory at a time
 constexpr int kOnePassMaxK = 256;  // Kp of the rows the one-pass form holds in shared memory
 constexpr int kOnePassLd = kOnePassMaxK + 16;  // bytes a shared row: 32 distinct banks a fragment
-constexpr int kSplitStep = s8::kBK;  // the cooperative form's split is a multiple of this
+constexpr int kClusterMax = 8;      // K splits of a cluster tile: one portable cluster
+constexpr int kClusterStep = 32;    // a cluster split is a multiple of this: one wgmma k step
 
 static_assert(kGemvStep == 4 * kGemvWarps, "a GEMV step is one 4-k group a warp");
 static_assert(kGemvXChunk % kGemvStep == 0, "x chunks hold whole GEMV steps");
@@ -79,13 +100,17 @@ struct Args {
   const float* scale;
   const float* bias;
   float* out;
-  unsigned int* bar;  // the cooperative grid's barrier, or the GEMV's tile counters
-  float* sx;          // cooperative: P row scales
-  int8_t* aq;         // cooperative: (P, Kp) quantized rows
-  int8_t* bt;         // cooperative: (N, Kp) weights, k-contiguous
-  int* part;          // int32 partial sums of the K splits
+  unsigned int* bar;  // the GEMV's tile counters
+  int* part;          // the GEMV's int32 partial sums of the K splits
   int P, K, N, relu, Kp, splits, chunk;
 };
+
+// The max of |v| over a float4 as bits (wgmma_s8.cuh::abs_bits): a NaN
+// above every number, so a row with a NaN gets a NaN scale, as torch.amax
+// gives the plain version (fmaxf would drop it).
+__device__ __forceinline__ unsigned abs_bits4(const float4& v) {
+  return max(max(q8::abs_bits(v.x), q8::abs_bits(v.y)), max(q8::abs_bits(v.z), q8::abs_bits(v.w)));
+}
 
 __device__ __forceinline__ wt::Int8BnEpilogue epilogue(const Args& a) {
   return wt::Int8BnEpilogue{a.sw, a.scale, a.bias, a.out, a.N, a.relu};
@@ -106,10 +131,10 @@ __global__ void __launch_bounds__(kGemvThreads) pointwise_int8_gemv(Args a) {
 
   if (warp < a.P) {  // row `warp`'s scale over all of K
     const float4* row = reinterpret_cast<const float4*>(a.x + static_cast<size_t>(warp) * a.K);
-    float m = 0.f;
-    for (int j = lane; j < a.K / 4; j += 32) m = s8::abs_max4(m, __ldg(row + j));
-    m = wt::warp_max(m);
-    if (lane == 0) sx[warp] = wt::scale_from_max(m);
+    unsigned m = 0u;
+    for (int j = lane; j < a.K / 4; j += 32) m = max(m, abs_bits4(__ldg(row + j)));
+    m = __reduce_max_sync(0xffffffffu, m);
+    if (lane == 0) sx[warp] = q8::scale_of_bits(m);
   }
   int acc[kGemvMaxP][4];
 #pragma unroll
@@ -222,10 +247,10 @@ __global__ void __launch_bounds__(s8::kThreads) pointwise_int8_one_pass(Args a) 
 #pragma unroll
   for (int i = 0; i < kRowsPerWarp; ++i) {
     const int r = warp + i * (s8::kThreads / 32);
-    float m = 0.f;
+    unsigned m = 0u;
 #pragma unroll
-    for (int f = 0; f < kRowF4; ++f) m = s8::abs_max4(m, v[i][f]);
-    const float s = wt::scale_from_max(wt::warp_max(m));
+    for (int f = 0; f < kRowF4; ++f) m = max(m, abs_bits4(v[i][f]));
+    const float s = q8::scale_of_bits(__reduce_max_sync(0xffffffffu, m));
     unsigned* dst = reinterpret_cast<unsigned*>(sa + r * kOnePassLd);
 #pragma unroll
     for (int f = 0; f < kRowF4; ++f) {
@@ -262,28 +287,237 @@ __global__ void __launch_bounds__(s8::kThreads) pointwise_int8_one_pass(Args a) 
   });
 }
 
-// --- cooperative: longer K ------------------------------------------------
+// --- cluster: the K splits of a tile one thread-block cluster --------------
 
-__global__ void __launch_bounds__(s8::kThreads) pointwise_int8_cooperative(Args a) {
-  __shared__ __align__(16) int8_t smem[s8::kSmemBytes];
-  __shared__ float red[s8::kThreads / 32];
-  s8::quantize_rows_phase(s8::RowsCg4{a.x, a.K}, a.P, a.K, a.Kp, a.aq, a.sx, red);
-  s8::transpose_phase(a.wq, a.K, a.N, a.Kp, a.bt);
-  wt::grid_sync(a.bar);
-  s8::gemm_phase(a.aq, a.bt, a.sx, a.P, a.N, a.Kp, a.splits, a.chunk, epilogue(a), a.part,
-                 a.bar, smem);
+// A cluster block: two warpgroups on a 64 x kCols output tile (kCols 64:
+// the first warpgroup's 64 columns; 128: 64 each), sharing A. Thread t
+// owns row t / 4 of A and the float4s 4 i + t % 4 of each 16-k step of it;
+// unit (k group, column group) of a weight stage as unit_of gives it.
+constexpr int kCThreads = 2 * q8::kWgThreads;
+constexpr int kSpan = 256;                  // k of A and B a block stages at once
+constexpr int kSpanStages = kSpan / q8::kBK;
+constexpr int kStageF4 = q8::kBK / 16;      // float4s of its row a thread stages a stage
+constexpr int kLdRed = 2 * q8::kBN + 4;     // ints a row of a partial tile in shared memory
+// A span of A (64 x kSpan) and of B (128 columns x kSpan), aligned to the
+// swizzle's 1024-byte atom; the partial tile reuses it.
+constexpr size_t kClusterSmem =
+    1024 + static_cast<size_t>(kSpanStages) * (q8::kABytes + 2 * q8::kBBytes);
+static_assert(q8::kBM * kLdRed * 4 + 1024 <= kClusterSmem, "a partial tile fits the span");
+static_assert(kCThreads / 4 == q8::kBM, "four threads a row of A");
+
+// The weights of one stage of kb into the B slots (the tile's columns as
+// rows, K-major, 128-byte swizzle, 64 columns a warpgroup's slot): unit u
+// (u < kCols / 4 * 8) is the 16 k from kb + 16 j of columns n0 + 4 c .. +3
+// (unit_of). A warp takes eight column groups of four k groups, so each of
+// its row loads is four 32-byte sectors and each 16-byte store phase hits
+// eight distinct chunks.
+template <int kCols>
+__device__ __forceinline__ int2 unit_of(int u) {
+  constexpr int kWarpsAcross = kCols / 4 / 8;  // warps side by side along the columns
+  const int lane = u % 32, warp = u / 32;
+  return make_int2(lane % 8 + 8 * (warp % kWarpsAcross), lane / 8 + 4 * (warp / kWarpsAcross));
 }
 
-// Blocks of the cooperative kernel the current device holds resident at
-// once (a cooperative grid may not be larger); 0 on error.
-int resident_blocks() {
-  static int cache[64] = {};
+template <bool kVec, int kCols>
+__device__ __forceinline__ void load_unit(const Args& a, int n0, int kb, int u,
+                                          unsigned (&r)[4][4]) {
+  const int2 cj = unit_of<kCols>(u);
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    s8::rows4<kVec>(a.wq, a.K, a.N, kb + 16 * cj.y + 4 * q, n0 + 4 * cj.x, r[q]);
+}
+
+template <int kCols>
+__device__ __forceinline__ void store_unit(int u, const unsigned (&r)[4][4], int8_t* slot) {
+  const int2 cj = unit_of<kCols>(u);
+  const int c = cj.x, j = cj.y;
+  unsigned w[4][4];  // [column][word of 4 k]
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    unsigned cw[4];
+    s8::transpose4(r[q], cw);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) w[e][q] = cw[e];
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const int col = 4 * c + e, o = col % q8::kBN;
+    *reinterpret_cast<uint4*>(slot + col / q8::kBN * q8::kBBytes + o * q8::kBK +
+                              ((j ^ (o & 7)) << 4)) =
+        make_uint4(w[e][0], w[e][1], w[e][2], w[e][3]);
+  }
+}
+
+// x's float4 of row p at k (zero past P and K).
+__device__ __forceinline__ float4 load_x(const Args& a, int p, int k) {
+  return p < a.P && k < a.K
+             ? __ldg(reinterpret_cast<const float4*>(a.x + static_cast<size_t>(p) * a.K + k))
+             : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// One block per (output tile, split), grid (tiles, splits), the splits of a
+// tile one cluster (a block's rank is its split). kVec: N % 4 == 0 and the
+// weights 4-byte aligned; kCols: the tile's columns, 64 or 128.
+template <bool kVec, int kCols>
+__global__ void __launch_bounds__(kCThreads, 2) pointwise_int8_cluster(Args a) {
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  __shared__ unsigned rmax[q8::kBM];
+  __shared__ float sc[q8::kBM], rc[q8::kBM];
+  int8_t* sa = reinterpret_cast<int8_t*>(dsmem) + ((1024 - (wt::smem_addr(dsmem) & 1023)) & 1023);
+  int8_t* sb = sa + kSpanStages * q8::kABytes;  // stage st's slots at st * 2 * kBBytes
+  const int tiles_n = (a.N + kCols - 1) / kCols;
+  const int p0 = blockIdx.x / tiles_n * q8::kBM, n0 = blockIdx.x % tiles_n * kCols;
+  const int split = blockIdx.y;
+  const int k0 = split * a.chunk, k1 = min(a.Kp, k0 + a.chunk);
+  const int t = threadIdx.x, row = t / 4, p = p0 + row;
+  constexpr int kUnits = kCols / 4 * (q8::kBK / 16);  // weight units a stage
+
+  // Pass 1: the max |x| of this thread's row over the block's K range,
+  // eight loads in flight, then its four threads' maximum.
+  unsigned m = 0u;
+  for (int kb = k0 + 4 * (t % 4); kb < k1; kb += 16 * 8) {
+    float4 v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      v[i] = kb + 16 * i < k1 ? load_x(a, p, kb + 16 * i) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) m = max(m, abs_bits4(v[i]));
+  }
+  m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  if (t % 4 == 0) rmax[row] = m;
+  // Each row's whole maximum from the cluster's blocks, then its scale.
+  if (a.splits > 1)
+    wt::cluster_sync();
+  else
+    __syncthreads();
+  if (t < q8::kBM) {
+    unsigned mm = rmax[t];
+    const unsigned at = wt::smem_addr(rmax + t);
+    for (int q = 0; q < a.splits; ++q) mm = max(mm, wt::load_rank_u32(at, q));
+    sc[t] = q8::scale_of_bits(mm);
+    rc[t] = 1.f / sc[t];
+  }
+  __syncthreads();
+
+  // Pass 2, a span at a time: the weights and the rows (read again)
+  // staged into the span's slots, then the products.
+  const int wgi = q8::wg_index();
+  const bool mma = wgi * q8::kBN < kCols;  // the warpgroup has columns
+  const float s = sc[row], rs = rc[row];
+  q8::Acc acc;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0;
+  for (int s0 = k0; s0 < k1; s0 += kSpan) {
+    const int s1 = min(k1, s0 + kSpan);
+    // A stage at a time: its weights' loads, its rows' loads, the weights
+    // stored, the rows quantized (the loads of each in flight together,
+    // a stage's registers live at a time).
+#pragma unroll
+    for (int st = 0; st < kSpanStages; ++st) {
+      const int kb = s0 + st * q8::kBK;
+      if (kb >= s1) break;
+      unsigned w[4][4];
+      if (t < kUnits) load_unit<kVec, kCols>(a, n0, kb, t, w);
+      float4 v[kStageF4];
+#pragma unroll
+      for (int i = 0; i < kStageF4; ++i) {
+        const int k = kb + 4 * (t % 4) + 16 * i;
+        v[i] = k < s1 ? load_x(a, p, k) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      if (t < kUnits) store_unit<kCols>(t, w, sb + st * 2 * q8::kBBytes);
+#pragma unroll
+      for (int i = 0; i < kStageF4; ++i) {
+        const int kk = 4 * (t % 4) + 16 * i;  // k within the stage
+        if (kb + kk >= s1) break;
+        const int j = kk / 16;
+        *reinterpret_cast<unsigned*>(sa + st * q8::kABytes + row * q8::kBK +
+                                     ((j ^ (row & 7)) << 4) + kk % 16) =
+            wt::s8phase::quantize4_fast(v[i], s, rs);
+      }
+    }
+    wg::fence_proxy_async();  // the generic stores before wgmma reads them
+    __syncthreads();
+    if (mma) {
+      wg::wgmma_fence();
+      for (int kk = 0; kk < s1 - s0; kk += 32) {
+        const int st = kk / q8::kBK, off = kk % q8::kBK;
+        const int8_t* b = sb + st * 2 * q8::kBBytes + wgi * q8::kBBytes + off;
+        q8::wgmma_s8(acc, wg::desc128(sa + st * q8::kABytes + off, 16, 1024),
+                     wg::desc128(b, 16, 1024), 1);
+      }
+      wg::wgmma_commit();
+      wg::wgmma_wait_all();
+      q8::fence_acc(acc);
+    }
+    __syncthreads();  // every product read the span before the next is staged
+  }
+
+  const wt::Int8BnEpilogue epi = epilogue(a);
+  const int nw = n0 + wgi * q8::kBN;  // the warpgroup's first column
+  if (a.splits == 1) {
+    if (mma)
+      q8::for_each_acc([&](int r, int c, int i) {
+        if (p0 + r < a.P && nw + c < a.N) epi(p0 + r, nw + c, acc[i], sc[r]);
+      });
+    return;
+  }
+  // The span is idle: it holds this block's partial tile for the cluster.
+  int* red = reinterpret_cast<int*>(sa);
+  wg::fence_proxy_async();  // the products' reads of the span before these writes
+  if (mma)
+    q8::for_each_acc([&](int r, int c, int i) { red[r * kLdRed + wgi * q8::kBN + c] = acc[i]; });
+  wt::cluster_sync();
+  const int rows = (q8::kBM + a.splits - 1) / a.splits;
+  const int r0 = split * rows, r1 = min(q8::kBM, r0 + rows);
+  const unsigned base = wt::smem_addr(red);
+  for (int i = t; i < (r1 - r0) * kCols; i += kCThreads) {
+    const int r = r0 + i / kCols, c = i % kCols;
+    if (p0 + r >= a.P || n0 + c >= a.N) continue;
+    const unsigned at = base + 4u * (r * kLdRed + c);
+    int v[kClusterMax];
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q)
+      v[q] = q < a.splits ? static_cast<int>(wt::load_rank_u32(at, q)) : 0;
+    int sum = 0;
+#pragma unroll
+    for (int q = 0; q < kClusterMax; ++q) sum += v[q];
+    epi(p0 + r, n0 + c, sum, sc[r]);
+  }
+  wt::cluster_sync();  // no block leaves while another reads its partial or its maxima
+}
+
+// Launches pointwise_int8_cluster<kVec, kCols> on grid (tiles, splits) in
+// clusters of (1, splits, 1), setting its dynamic shared memory limit once
+// per device.
+template <bool kVec, int kCols>
+cudaError_t launch_cluster(const Args& a, int tiles, cudaStream_t s) {
+  static bool done[64] = {};
   int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cache[dev] == 0)
-    cache[dev] = cooperative_grid(reinterpret_cast<const void*>(pointwise_int8_cooperative), 0,
-                                  s8::kThreads);
-  return cache[dev];
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(pointwise_int8_cluster<kVec, kCols>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kClusterSmem));
+    if (e != cudaSuccess) return e;
+    done[dev] = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles, a.splits);
+  cfg.blockDim = dim3(kCThreads);
+  cfg.dynamicSmemBytes = kClusterSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = a.splits;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, pointwise_int8_cluster<kVec, kCols>, a);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 bool vec_weights(const int8_t* wq, int N) {
@@ -293,22 +527,19 @@ bool vec_weights(const int8_t* wq, int N) {
 }  // namespace
 
 // The host's plan (kernels/quantized.py::pointwise_int8_plan): `path` (0
-// GEMV, 1 one pass, 2 cooperative); Kp, K padded to a multiple of
-// s8::kKAlign (K itself for the GEMV); `tile` the output tiles' width
-// (kGemvCols, else s8::kBM); `blocks` the grid (the GEMV's column tiles x
-// splits, the one pass's tiles, the cooperative grid, at most what the
-// device holds resident); Kp in `splits` ranges of `chunk`, the last one
-// shorter. ws, ws_words 4-byte words (may be null where the plan needs
-// none): for the GEMV past one split, a counter per column tile from word 0
-// and the splits x P x N int32 partial sums from word `part`; for the
-// cooperative form, the grid barrier at word 0, then the P row scales at
-// `sx`, the (P, Kp) quantized rows at `aq`, the (N, Kp) transposed weights
-// at `bt` and, past one split, the partial sums at `part`. x must be
-// 16-byte aligned and K a multiple of 4 (the wrapper pads Cin).
+// GEMV, 1 one pass, 2 cluster); Kp, K padded to a multiple of s8::kKAlign
+// (K itself for the GEMV); `tile` the output tiles' width (kGemvCols, else
+// q8::kBM); `blocks` the grid (the GEMV's column tiles x splits, the one
+// pass's tiles, the cluster path's tiles x splits); Kp in `splits` ranges
+// of `chunk`, the last one shorter (a cluster split a multiple of
+// kClusterStep, at most kClusterMax). ws, ws_words 4-byte words (may be
+// null where the plan needs none): for the GEMV past one split, a counter
+// per column tile from word 0 and the splits x P x N int32 partial sums
+// from word `part`; no other path takes a workspace. x must be 16-byte
+// aligned and K a multiple of 4 (the wrapper pads Cin).
 extern "C" int pointwise_int8_conv1x1_bn(const float* x, const int8_t* wq, const float* sw,
                                          const float* scale, const float* bias, float* out,
-                                         float* ws, long long ws_words, long long sx,
-                                         long long aq, long long bt, long long part, int P,
+                                         float* ws, long long ws_words, long long part, int P,
                                          int K, int N, int relu, int path, int Kp, int tile,
                                          int blocks, int splits, int chunk, void* stream) {
   const auto invalid = static_cast<int>(cudaErrorInvalidValue);
@@ -318,8 +549,7 @@ extern "C" int pointwise_int8_conv1x1_bn(const float* x, const int8_t* wq, const
       static_cast<long long>(chunk) * (splits - 1) >= Kp)
     return invalid;
   const auto s = static_cast<cudaStream_t>(stream);
-  Args a{x, wq, sw, scale, bias, out, nullptr, nullptr, nullptr, nullptr, nullptr,
-         P, K, N, relu, Kp, splits, chunk};
+  Args a{x, wq, sw, scale, bias, out, nullptr, nullptr, P, K, N, relu, Kp, splits, chunk};
   const int tiles_mma = (P + s8::kBM - 1) / s8::kBM * ((N + s8::kBN - 1) / s8::kBN);
   const bool vec = vec_weights(wq, N);
   cudaError_t e = cudaSuccess;
@@ -348,27 +578,19 @@ extern "C" int pointwise_int8_conv1x1_bn(const float* x, const int8_t* wq, const
       pointwise_int8_one_pass<true><<<blocks, s8::kThreads, 0, s>>>(a);
     else
       pointwise_int8_one_pass<false><<<blocks, s8::kThreads, 0, s>>>(a);
-  } else if (path == kCooperative) {
-    if (tile != s8::kBM || Kp % s8::kKAlign != 0 || (splits > 1 && chunk % kSplitStep != 0) ||
-        sx < 2 || aq < sx + P || bt < aq + static_cast<long long>(P) * Kp / 4 ||
-        part < bt + static_cast<long long>(N) * (Kp / 4) || aq % 4 != 0 || bt % 4 != 0 ||
-        part % 4 != 0 ||
-        ws_words < part + (splits > 1 ? static_cast<long long>(splits) * P * N : 0))
+  } else if (path == kCluster) {
+    const int tiles = (P + q8::kBM - 1) / q8::kBM * ((N + tile - 1) / tile);
+    if ((tile != q8::kBN && tile != 2 * q8::kBN) || Kp % s8::kKAlign != 0 ||
+        Kp >= K + s8::kKAlign || splits > kClusterMax ||
+        (splits > 1 && chunk % kClusterStep != 0) || blocks != tiles * splits)
       return invalid;
-    const int resident = resident_blocks();
-    if (resident <= 0 || blocks > resident)
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-    a.bar = reinterpret_cast<unsigned int*>(ws);
-    a.sx = ws + sx;
-    a.aq = reinterpret_cast<int8_t*>(ws + aq);
-    a.bt = reinterpret_cast<int8_t*>(ws + bt);
-    a.part = reinterpret_cast<int*>(ws + part);
-    e = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), s);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    void* args[] = {&a};
-    e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(pointwise_int8_cooperative),
-                                    dim3(blocks), dim3(s8::kThreads), args, 0, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    if (tile == q8::kBN)
+      e = vec ? launch_cluster<true, q8::kBN>(a, tiles, s)
+              : launch_cluster<false, q8::kBN>(a, tiles, s);
+    else
+      e = vec ? launch_cluster<true, 2 * q8::kBN>(a, tiles, s)
+              : launch_cluster<false, 2 * q8::kBN>(a, tiles, s);
+    return static_cast<int>(e);
   } else {
     return invalid;
   }

@@ -39,7 +39,9 @@
 // activation rows by cp.async. A row's scale needs the max over the whole
 // row, which many blocks produce; so every producing epilogue publishes its
 // rows' max |v| (one atomicMax of the bits a row and tile, wgmma_s8.cuh::
-// publish_row_max), and the consuming phase quantizes its rows itself:
+// publish_row_max), and the consuming phase quantizes its rows itself
+// (the phases' machinery is csrc/wgmma_s8_phase.cuh, shared with
+// csrc/transition_int8.cu):
 // * the reduce writes h1 and h1's row maxima (mx1), the mid writes h2 and
 //   mx2 (per row, or per row and group of 128 channels for the winograd2
 //   route's grouped expand: the FP64 F(2,3)'s observer, winograd.cuh), and
@@ -64,7 +66,7 @@
 // columns of output (1.1-3.2x the mma.sync parent's time), and quantizing
 // a row block's share in each of its items put the quantization's latency
 // in every item (tools/chip_stage_timeline.py, PERF.md). The quantization
-// divides only where it can change the result (quantize_fast).
+// divides only where it can change the result (quantize4_fast).
 // A phase whose tiles are few splits K over items (kernels/quantized.py::
 // stage_int8_plan, checked here against the geometry); its exact int32
 // partial sums are added after a grid barrier,
@@ -106,12 +108,14 @@
 #include "common.cuh"
 #include "mma_int8.cuh"
 #include "wgmma_s8.cuh"
+#include "wgmma_s8_phase.cuh"
 #include "winograd.cuh"
 
 namespace {
 
 namespace q8 = wt::wgs8;
 namespace s8 = wt::s8mma;
+using namespace wt::s8phase;
 
 constexpr size_t kWinoBytes = wt::F64Smem<32>::kBytes;  // the widest FP64 item's
 // Blocks an SM: one, on both routes (the winograd2 route's FP64 mid wants
@@ -159,204 +163,7 @@ struct StageInt8Args {
   wt::GemmPhase reduce, mid, expand;
 };
 
-// ---- the rows a GEMM quantizes -----------------------------------------------
-
-// Rows of a row-major (P, ld) float matrix written earlier in the launch,
-// k < K; the scale of group g from the row maxima mx[p * mx_stride + g].
-struct RowsSrc {
-  const float* x;
-  int ld, K;
-  const unsigned* mx;
-  int mx_stride;
-  __device__ __forceinline__ float scale(int p, int g) const {
-    return q8::scale_of_bits(__ldcg(mx + static_cast<size_t>(p) * mx_stride + g));
-  }
-  __device__ __forceinline__ int2 yx(int) const { return make_int2(0, 0); }
-  __device__ __forceinline__ float4 load(int p, int2, int k) const {
-    return k < K ? __ldcg(reinterpret_cast<const float4*>(x + static_cast<size_t>(p) * ld + k))
-                 : make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-};
-
-// The pad-1 3x3 im2col rows of an (N, H, W, C) map written earlier in the
-// launch, k = (3r + s) * C + c < 9C; a row's maximum is the max of its nine
-// pixels' (zero for a tap outside the map, as the zero padding gives).
-struct Im2colSrc {
-  const float* x;
-  int H, W, C;
-  const unsigned* mx;  // per pixel
-  __device__ __forceinline__ int2 yx(int p) const {
-    const int q = p % (H * W);
-    return make_int2(q / W, q % W);
-  }
-  __device__ __forceinline__ float scale(int p, int) const {
-    const int2 c = yx(p);
-    unsigned m = 0u;
-#pragma unroll
-    for (int rs = 0; rs < 9; ++rs) {
-      const int dy = rs / 3 - 1, dx = rs % 3 - 1;
-      if (c.x + dy >= 0 && c.x + dy < H && c.y + dx >= 0 && c.y + dx < W)
-        m = max(m, __ldcg(mx + p + dy * W + dx));
-    }
-    return q8::scale_of_bits(m);
-  }
-  __device__ __forceinline__ float4 load(int p, int2 c, int k) const {
-    const int rs = k / C, dy = rs / 3 - 1, dx = rs % 3 - 1;
-    if (rs >= 9 || c.x + dy < 0 || c.x + dy >= H || c.y + dx < 0 || c.y + dx >= W)
-      return make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* src = x + static_cast<size_t>(p + dy * W + dx) * C + (k - rs * C);
-    return __ldcg(reinterpret_cast<const float4*>(src));
-  }
-};
-
-// The IEEE division's quantize, called apart (a branch the warps rarely
-// take, not a division predicated into every value).
-__device__ __noinline__ int quantize_exact(float v, float s) { return wt::quantize(v, s); }
-
-// gemm_int8.cuh's quantize(v, s) = clamp(rint(v / s), -127, 127), with the
-// IEEE division only where it can matter: y = v * r (r = 1 / s) is within
-// 3e-5 of v / s when |v| is at most the row's max (|v / s| <= ~127), so
-// where y lies more than 2^-12 from every half-integer both round to the
-// same integer; nearer one, or where y is not finite, the division decides.
-__device__ __forceinline__ int quantize_fast(float v, float s, float r) {
-  const float y = __fmul_rn(v, r), t = rintf(y);
-  if (!(fabsf(fabsf(y - t) - 0.5f) >= 0x1p-12f)) return quantize_exact(v, s);
-  return min(127, max(-127, static_cast<int>(t)));
-}
-
-// Rows [pb, pe) of `a`, k in [k0, k1) (multiples of 4, the range one group
-// or whole groups of cg), quantized (gemm_int8.cuh's arithmetic) into aq
-// (row stride Kp), each row's scale of its first group into sx. The rows'
-// scales, their reciprocals and their map coordinates go to shared memory
-// first (scratch: the first ring's first A region, whose kABytes the
-// prefetched B boxes leave alone); then tpr threads a row walk its
-// float4s, kLoads a thread in flight.
-template <class Src>
-__device__ __forceinline__ void quantize_rows(const Src& a, int pb, int pe, int k0, int k1, int Kp,
-                                              int cg, int8_t* aq, float* sx, float* scratch) {
-  constexpr int kLoads = 8;
-  const int rows = pe - pb, ng = (k1 - k0 + cg - 1) / cg, g0 = k0 / cg;
-  if (rows <= 0) return;
-  float* sc = scratch;                                         // rows x ng scales
-  float* rc = scratch + rows * ng;                             // their reciprocals
-  int2* yx = reinterpret_cast<int2*>(scratch + (2 * rows * ng + 1) / 2 * 2);  // rows' (y, x)
-  for (int e = threadIdx.x; e < rows * ng; e += q8::kThreads) {
-    const int r = e / ng, g = e - r * ng;
-    sc[e] = a.scale(pb + r, g0 + g);
-    rc[e] = 1.f / sc[e];
-    if (g == 0) sx[pb + r] = sc[e];
-  }
-  for (int r = threadIdx.x; r < rows; r += q8::kThreads) yx[r] = a.yx(pb + r);
-  __syncthreads();
-  const int kq = (k1 - k0) / 4;
-  const int tpr = kq < q8::kThreads ? kq : q8::kThreads;  // threads a row
-  const int rstep = q8::kThreads / tpr, c0 = threadIdx.x % tpr;
-  int r = threadIdx.x / tpr, c = c0;
-  if (threadIdx.x >= rstep * tpr) return;
-  while (r < rows) {
-    float4 v[kLoads];
-    int rr[kLoads], cc[kLoads];
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      rr[u] = r;
-      cc[u] = c;
-      v[u] = r < rows ? a.load(pb + r, yx[r], k0 + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
-      c += tpr;
-      if (c >= kq) {
-        c = c0;
-        r += rstep;
-      }
-    }
-#pragma unroll
-    for (int u = 0; u < kLoads; ++u) {
-      if (rr[u] >= rows) break;
-      const int k = k0 + 4 * cc[u], i = rr[u] * ng + (k - k0) / cg;
-      const float s = sc[i], rs = rc[i];
-      const int q0 = quantize_fast(v[u].x, s, rs), q1 = quantize_fast(v[u].y, s, rs);
-      const int q2 = quantize_fast(v[u].z, s, rs), q3 = quantize_fast(v[u].w, s, rs);
-      *reinterpret_cast<unsigned*>(aq + static_cast<size_t>(pb + rr[u]) * Kp + k) =
-          static_cast<unsigned>(wt::pack4(q0, q1, q2, q3));
-    }
-  }
-}
-
-// This block's share of a phase's rows, [pb, pe), quantized over all Kp by
-// quantize_rows in pieces, then one arrival on the
-// counter of each 64-row block (kBM) the share touches. Every thread's writes
-// before it are seen after ready() in any block (grid_sync.cuh's fences).
-template <class Src>
-__device__ __forceinline__ void quantize_share(const Src& a, int P, int Kp, int cg, int8_t* aq,
-                                               float* sx, unsigned* cnt, float* scratch) {
-  const int rows = (P + gridDim.x - 1) / gridDim.x;
-  const int pb = blockIdx.x * rows, pe = min(P, pb + rows);
-  // Pieces whose scales and coordinates fit the ring's first A region.
-  const int ng = (Kp + cg - 1) / cg;
-  const int piece = min(q8::kBM, (q8::kABytes / 4 - 16) / (2 * ng + 2));
-  for (int b = pb; b < pe; b += piece) {
-    quantize_rows(a, b, min(pe, b + piece), 0, Kp, Kp, cg, aq, sx, scratch);
-    __syncthreads();  // the scratch is rewritten by the next piece
-  }
-  if (pb < pe && threadIdx.x == 0) {
-    __threadfence();
-    for (int rb = pb / q8::kBM; rb <= (pe - 1) / q8::kBM; ++rb) atomicAdd(cnt + rb, 1u);
-  }
-}
-
-// Waits, in the calling warpgroup, until every block whose share touches
-// row block rb has arrived.
-__device__ __forceinline__ void ready(const unsigned* cnt, int rb, int P) {
-  if (q8::wg_thread() == 0) {
-    const int rows = (P + gridDim.x - 1) / gridDim.x;
-    const int first = rb * q8::kBM / rows, last = (min(P, (rb + 1) * q8::kBM) - 1) / rows;
-    const volatile unsigned* c = cnt + rb;
-    while (*c < static_cast<unsigned>(last - first + 1)) __nanosleep(32);
-    __threadfence();
-  }
-  q8::wg_sync();
-}
-
-// ---- epilogues -----------------------------------------------------------------
-
-// relu(float(acc) * (sx * sw[n]) * scale[n] + bias[n]) into out[p, n] (row
-// stride N); returns it.
-struct BnEpi {
-  const float* __restrict__ sw;
-  const float* __restrict__ scale;
-  const float* __restrict__ bias;
-  float* out;
-  int N;
-  __device__ __forceinline__ float operator()(int p, int n, int acc, float sx) const {
-    const float y = wt::relu(wt::bn_rn(wt::dequant(acc, sx, sw[n]), scale[n], bias[n]));
-    out[static_cast<size_t>(p) * N + n] = y;
-    return y;
-  }
-};
-
-// The expand's: out[p, n] = relu(deq * scale[n] + bias[n] + res[p, n]), deq
-// the dequantized product, each multiply and add rounded on its own; res
-// may be out (each element is read only by the thread that overwrites it);
-// returns it.
-struct ResEpi {
-  const float* __restrict__ sw;
-  const float* __restrict__ scale;
-  const float* __restrict__ bias;
-  const float* res;
-  float* out;
-  int N;
-  __device__ __forceinline__ float store(int p, int n, float deq) const {
-    const size_t i = static_cast<size_t>(p) * N + n;
-    const float y = wt::relu(__fadd_rn(wt::bn_rn(deq, scale[n], bias[n]), __ldcg(res + i)));
-    out[i] = y;
-    return y;
-  }
-  __device__ __forceinline__ float operator()(int p, int n, int acc, float sx) const {
-    return store(p, n, wt::dequant(acc, sx, sw[n]));
-  }
-};
-
-struct NoFin {
-  __device__ __forceinline__ void operator()(int, q8::Acc&) const {}
-};
+// ---- the winograd2 route -----------------------------------------------------
 
 // h2's row maxima from the FP64 F(2,3) mid: one per pixel and group of cg
 // channels (an item's channels lie in one group).
@@ -368,129 +175,6 @@ struct MidRowMax {
     if (m != 0u) atomicMax(mx + static_cast<size_t>(pixel) * groups + co0 / cg, m);
   }
 };
-
-// v[i] = 0 for i < n, over the grid.
-__device__ __forceinline__ void zero(unsigned* v, size_t n) {
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x)
-    v[i] = 0u;
-}
-
-// The thread's two accumulator rows of the tile (h = 0, 1), relative to
-// its corner, and f(row, h) over them, then each row's maximum m published.
-template <class F>
-__device__ __forceinline__ void for_each_row(int p0, int P, unsigned* mx, const F& f) {
-  const int warp = threadIdx.x / 32 % 4, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int p = p0 + warp * 16 + lane / 4 + 8 * h;
-    q8::publish_row_max(p < P ? f(p, h) : 0u, mx, p, P);
-  }
-}
-
-// One split's tile through epi: each row's outputs, and max |y| into mx.
-template <class Epi>
-__device__ __forceinline__ void tile_epilogue(const q8::Acc& acc, int P, int N, int p0, int n0,
-                                              const float* sx, const Epi& epi, unsigned* mx) {
-  for_each_row(p0, P, mx, [&](int p, int h) {
-    const float s = __ldcg(sx + p);
-    unsigned m = 0u;
-#pragma unroll
-    for (int j = 0; j < q8::kBN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int n = n0 + 8 * j + threadIdx.x % 4 * 2 + e;
-        if (n < N) m = max(m, q8::abs_bits(epi(p, n, acc[4 * j + 2 * h + e], s)));
-      }
-    return m;
-  });
-}
-
-// An item of a phase with `tiles_n` column tiles: its split, row block,
-// its tile's corner and its K range.
-struct Item {
-  int split, rb, p0, n0, k0, k1;
-};
-
-__device__ __forceinline__ Item item_of(const wt::GemmPhase& g, int item, int tiles_n) {
-  const int tiles = (g.P + q8::kBM - 1) / q8::kBM * tiles_n;
-  const int split = item / tiles, t = item - split * tiles;
-  const int rb = t / tiles_n, k0 = split * g.chunk;
-  return Item{split, rb, rb * q8::kBM, t % tiles_n * q8::kBN, k0, min(g.K, k0 + g.chunk)};
-}
-
-// This block's items of the product of phase g, each warpgroup walking its
-// own. First the block quantizes its share of the phase's rows from `a`
-// (group width cg; scratch: the first ring's first A region) into aq; then
-// each item waits for its row block's quantized rows (no grid barrier: the
-// row block's counter) and multiplies them by the
-// k-contiguous weights w; each output through epi and its row maxima into
-// mx, at one split; past one, the items' int32 partial tiles into part
-// (splits x P x N), then after a grid barrier the blocks add the splits and
-// run epi once per element (a warp whose 32 elements lie in one row
-// publishes one maximum). cnt: the phase's zeroed row-block counters. The
-// caller places the barrier that ends the phase.
-template <class Src, class Epi>
-__device__ __forceinline__ void gemm_phase(const wt::GemmPhase& g, const Src& a, int cg,
-                                           const q8::Weights& w, const Epi& epi, unsigned* mx,
-                                           int8_t* aq, float* sx, unsigned* cnt, int* part,
-                                           unsigned int* bar, q8::Ring& ring, float* scratch) {
-  const int tiles_n = (g.N + q8::kBN - 1) / q8::kBN;
-  const int rbs = (g.P + q8::kBM - 1) / q8::kBM;
-  const int items = rbs * tiles_n * g.splits;
-  const int first = blockIdx.x * q8::kWarpgroups + q8::wg_index();  // the warpgroup's items
-  if (first < items) {
-    const Item it = item_of(g, first, tiles_n);
-    q8::prefetch_b(ring, w, it.n0, it.k0, it.k1);  // the first item's weights meanwhile
-  }
-  quantize_share(a, g.P, g.K, cg, aq, sx, cnt, scratch);
-  for (int item = first; item < items; item += gridDim.x * q8::kWarpgroups) {
-    const Item it = item_of(g, item, tiles_n);
-    if (item != first) q8::prefetch_b(ring, w, it.n0, it.k0, it.k1);
-    ready(cnt, it.rb, g.P);
-    q8::Acc acc;
-    q8::tile<false>(aq, g.P, g.K, w, it.p0, it.n0, it.k0, it.k1, ring, true, acc, NoFin{});
-    if (g.splits == 1) {
-      tile_epilogue(acc, g.P, g.N, it.p0, it.n0, sx, epi, mx);
-      continue;
-    }
-    int* sp = part + static_cast<size_t>(it.split) * g.P * g.N;
-    q8::for_each_acc([&](int r, int c, int i) {
-      const int p = it.p0 + r, n = it.n0 + c;
-      if (p < g.P && n < g.N) sp[static_cast<size_t>(p) * g.N + n] = acc[i];
-    });
-  }
-  if (g.splits == 1) return;
-  wt::grid_sync(bar);
-  const size_t pn = static_cast<size_t>(g.P) * g.N;
-  const size_t stride = static_cast<size_t>(gridDim.x) * blockDim.x;
-  const size_t end = (pn + 31) / 32 * 32;  // whole warps, for the row reduction
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < end;
-       i += stride) {
-    const bool live = i < pn;
-    const int p = live ? static_cast<int>(i / g.N) : -1;
-    unsigned m = 0u;
-    if (live) {
-      int s = 0;
-      for (int k0 = 0; k0 < g.splits; k0 += 8) {  // eight splits' loads in flight
-        int v[8];
-#pragma unroll
-        for (int u = 0; u < 8; ++u)
-          v[u] = k0 + u < g.splits ? __ldcg(part + (k0 + u) * pn + i) : 0;
-#pragma unroll
-        for (int u = 0; u < 8; ++u) s += v[u];
-      }
-      m = q8::abs_bits(epi(p, static_cast<int>(i % g.N), s, __ldcg(sx + p)));
-    }
-    const int p_first = __shfl_sync(0xffffffffu, p, 0);
-    if (__all_sync(0xffffffffu, p == p_first)) {
-      m = __reduce_max_sync(0xffffffffu, m);
-      if (threadIdx.x % 32 == 0 && p_first >= 0 && m != 0u) atomicMax(mx + p_first, m);
-    } else if (live && m != 0u) {
-      atomicMax(mx + p, m);
-    }
-  }
-}
 
 // The expand with h2 quantized per group of 128 channels (scales from
 // mx2[p * groups + g]): each tile adds the groups' dequantized products in
@@ -634,7 +318,7 @@ __global__ void __launch_bounds__(q8::kThreads, kMaxBlocksPerSm)
                            a.W, cmid, a.groups, a.mx2, smem);
       wt::wg::fence_proxy_async();  // its shared-memory writes before the next TMA writes
     } else {
-      gemm_phase(a.mid, Im2colSrc{a.h1, a.H, a.W, cmid, a.mx1}, a.kpm,
+      gemm_phase(a.mid, Im2colSrc<1>{a.h1, a.H, a.W, cmid, a.mx1}, a.kpm,
                  q8::Weights{&a.map_m, blk},
                  BnEpi{a.sw9 + bm, a.s2 + bm, a.b2 + bm, a.h2, cmid}, a.mx2, a.aq, a.sx,
                  cnt + a.row_blocks, a.part, a.bar, ring, scratch);

@@ -3,11 +3,13 @@
 // warpgroups a block each on a tile and a ring of its own:
 //   acc = Aq[p0 .. p0+63, k0:k1] x Bt[n0 .. n0+63, k0:k1]^T,
 // Aq a row-major (P, Kp) int8 matrix of activation rows quantized per row
-// (gemm_int8.cuh's arithmetic) earlier in the launch, Bt the k-contiguous
-// (N, Kp) int8 weights. Used by csrc/stage_int8.cu (its reduce, direct mid
-// and expand); csrc/winograd_int8.cu issues s8 wgmma on operands it stages
-// itself (its weights byte-permuted K-major, no TMA); the other int8
-// kernels stay on mma_int8.cuh's mma.sync tiles.
+// (gemm_int8.cuh's arithmetic) earlier in the launch (or any rows of such
+// a matrix: tile_rows), Bt the k-contiguous (N, Kp) int8 weights. Used by
+// csrc/stage_int8.cu and csrc/transition_int8.cu (their GEMM phases,
+// through wgmma_s8_phase.cuh); csrc/winograd_int8.cu and
+// csrc/pointwise_int8.cu issue s8 wgmma on operands they stage themselves
+// (weights byte-permuted K-major, no TMA); the other int8 kernels stay on
+// mma_int8.cuh's mma.sync tiles.
 //
 // Operands. s8 wgmma reads both operands K-major from shared memory, with
 // the 128-byte swizzle here: a row holds 128 k as 128 bytes, its 16-byte
@@ -158,9 +160,20 @@ __device__ __forceinline__ void load_b(const Ring& r, int s, const Weights& w, i
   }
 }
 
-// Stage kb of the tile into slot s: Aq's rows p0 .. p0+63 (four 16-byte
-// copies a thread) and, with_b, B's box.
-__device__ __forceinline__ void load_stage(const Ring& r, int s, const int8_t* aq, int P, int Kp,
+// A's rows: row p of a row-major (P, Kp) int8 matrix aq.
+struct RowsA {
+  const int8_t* aq;
+  int Kp;
+  __device__ __forceinline__ const int8_t* row(int p) const {
+    return aq + static_cast<size_t>(p) * Kp;
+  }
+};
+
+// Stage kb of the tile into slot s: A's rows p0 .. p0+63 (a.row(p), four
+// 16-byte copies a thread; a.aq stands in for the source of a copy that
+// zero-fills) and, with_b, B's box.
+template <class ARows>
+__device__ __forceinline__ void load_stage(const Ring& r, int s, const ARows& a, int P, int Kp,
                                            const Weights& w, int p0, int n0, int kb,
                                            bool with_b) {
   char* sa = r.base + s * kSlotBytes;
@@ -169,8 +182,7 @@ __device__ __forceinline__ void load_stage(const Ring& r, int s, const int8_t* a
     const int idx = wg_thread() + i * kWgThreads;
     const int row = idx / 8, j = idx % 8, k = kb + 16 * j;
     const bool ok = p0 + row < P && k < Kp;
-    cp_async16(sa + row * kBK + ((j ^ (row & 7)) << 4),
-               ok ? aq + static_cast<size_t>(p0 + row) * Kp + k : aq, ok);
+    cp_async16(sa + row * kBK + ((j ^ (row & 7)) << 4), ok ? a.row(p0 + row) + k : a.aq, ok);
   }
   if (with_b) load_b(r, s, w, n0, kb);
 }
@@ -202,17 +214,17 @@ __device__ __forceinline__ void mma_stage(const Ring& r, int s, Acc& acc, bool a
   fence_acc(acc);
 }
 
-// acc = Aq[p0.., k0:k1] x Bt[n0.., k0:k1]^T for the warpgroup's tile (Aq
-// (P, Kp) int8, written before; `prefetched`: prefetch_b issued its first B
-// boxes). kGroups: each stage is one quantization group of kBK channels
-// (k0 = 0), whose int32 products fin(stage, acc) takes after the stage (acc
-// restarts each stage); else acc sums the whole range. Every thread of the
-// warpgroup calls it; it ends with every load consumed, a warpgroup
-// barrier and the ring idle.
-template <bool kGroups, class Fin>
-__device__ __forceinline__ void tile(const int8_t* aq, int P, int Kp, const Weights& w, int p0,
-                                     int n0, int k0, int k1, Ring& r, bool prefetched, Acc& acc,
-                                     const Fin& fin) {
+// acc = A[p0.., k0:k1] x Bt[n0.., k0:k1]^T for the warpgroup's tile (A's
+// rows a.row(p) of Kp int8 each, written before; `prefetched`: prefetch_b
+// issued its first B boxes). kGroups: each stage is one quantization group
+// of kBK channels (k0 = 0), whose int32 products fin(stage, acc) takes
+// after the stage (acc restarts each stage); else acc sums the whole
+// range. Every thread of the warpgroup calls it; it ends with every load
+// consumed, a warpgroup barrier and the ring idle.
+template <bool kGroups, class ARows, class Fin>
+__device__ __forceinline__ void tile_rows(const ARows& a, int P, int Kp, const Weights& w, int p0,
+                                          int n0, int k0, int k1, Ring& r, bool prefetched,
+                                          Acc& acc, const Fin& fin) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0;
   const int steps = (k1 - k0 + kBK - 1) / kBK;
@@ -220,7 +232,7 @@ __device__ __forceinline__ void tile(const int8_t* aq, int P, int Kp, const Weig
   wg_sync();  // earlier generic writes to the ring before this tile's copies
 #pragma unroll
   for (int s = 0; s < kAhead; ++s) {
-    if (s < steps) load_stage(r, s, aq, P, Kp, w, p0, n0, k0 + s * kBK, !prefetched);
+    if (s < steps) load_stage(r, s, a, P, Kp, w, p0, n0, k0 + s * kBK, !prefetched);
     cp_async_commit();
   }
   for (int it = 0; it < steps; ++it) {
@@ -231,10 +243,80 @@ __device__ __forceinline__ void tile(const int8_t* aq, int P, int Kp, const Weig
     wg::fence_proxy_async();
     wg_sync();  // stage it landed for all; slot (it - 1)'s products are done
     const int next = it + kAhead;
-    if (next < steps) load_stage(r, next % kStages, aq, P, Kp, w, p0, n0, k0 + next * kBK, true);
+    if (next < steps) load_stage(r, next % kStages, a, P, Kp, w, p0, n0, k0 + next * kBK, true);
     cp_async_commit();
     mma_stage(r, s, acc, !kGroups && it > 0);
     if (kGroups) fin(it, acc);
+  }
+  cp_async_wait<0>();
+  wg_sync();
+}
+
+// tile_rows on the rows of a row-major (P, Kp) int8 matrix aq.
+template <bool kGroups, class Fin>
+__device__ __forceinline__ void tile(const int8_t* aq, int P, int Kp, const Weights& w, int p0,
+                                     int n0, int k0, int k1, Ring& r, bool prefetched, Acc& acc,
+                                     const Fin& fin) {
+  tile_rows<kGroups>(RowsA{aq, Kp}, P, Kp, w, p0, n0, k0, k1, r, prefetched, acc, fin);
+}
+
+// The B boxes of the first kAhead stages of tile_pair's walk (the first
+// product's s1 stages, then the second's) into the warpgroup's idle ring.
+__device__ __forceinline__ void prefetch_pair(const Ring& r, const Weights& w1, int K1,
+                                              const Weights& w2, int K2, int n0) {
+  wg::fence_proxy_async();
+  wg_sync();  // the previous tile's readers of the ring are done
+  const int s1 = (K1 + kBK - 1) / kBK, steps = s1 + (K2 + kBK - 1) / kBK;
+  for (int s = 0; s < kAhead && s < steps; ++s)
+    load_b(r, s, s < s1 ? w1 : w2, n0, s < s1 ? s * kBK : (s - s1) * kBK);
+}
+
+// Two products of one output tile in one walk of the ring: acc1 = A1[p0..,
+// 0:K1] x Bt1[n0.., 0:K1]^T, then acc2 = A2[p0.., 0:K2] x Bt2[n0..,
+// 0:K2]^T, the second's stages loaded while the first's are multiplied.
+// wait2() runs once in the warpgroup before the first of A2's rows is
+// loaded (its rows may be written by other blocks: ready()).
+// prefetched: prefetch_pair issued the first B boxes. Ends as tile() does.
+template <class A1, class A2, class Wait>
+__device__ __forceinline__ void tile_pair(const A1& a1, int K1, const Weights& w1, const A2& a2,
+                                          int K2, const Weights& w2, int P, int p0, int n0,
+                                          Ring& r, bool prefetched, Acc& acc1, Acc& acc2,
+                                          const Wait& wait2) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc1[i] = acc2[i] = 0;
+  const int s1 = (K1 + kBK - 1) / kBK, steps = s1 + (K2 + kBK - 1) / kBK;
+  bool waited = false;
+  const auto load = [&](int g, bool with_b) {
+    if (g < s1) {
+      load_stage(r, g % kStages, a1, P, K1, w1, p0, n0, g * kBK, with_b);
+      return;
+    }
+    if (!waited) {
+      wait2();
+      waited = true;
+    }
+    load_stage(r, g % kStages, a2, P, K2, w2, p0, n0, (g - s1) * kBK, with_b);
+  };
+  wg::fence_proxy_async();
+  wg_sync();  // earlier generic writes to the ring before this tile's copies
+#pragma unroll
+  for (int s = 0; s < kAhead; ++s) {
+    if (s < steps) load(s, !prefetched);
+    cp_async_commit();
+  }
+  for (int it = 0; it < steps; ++it) {
+    const int s = it % kStages;
+    cp_async_wait<kAhead - 1>();
+    wg::mbar_wait(r.bars + s, (r.parity >> s) & 1u);
+    r.parity ^= 1u << s;
+    wg::fence_proxy_async();
+    wg_sync();  // stage it landed for all; slot (it - 1)'s products are done
+    if (it + kAhead < steps) load(it + kAhead, true);
+    cp_async_commit();
+    if (it < s1)
+      mma_stage(r, s, acc1, it > 0);
+    else
+      mma_stage(r, s, acc2, it > s1);
   }
   cp_async_wait<0>();
   wg_sync();

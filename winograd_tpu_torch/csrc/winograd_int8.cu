@@ -74,6 +74,7 @@
 
 #include <stdint.h>
 
+#include "cluster.cuh"
 #include "common.cuh"
 #include "mma_int8.cuh"
 #include "wgmma_tile.cuh"
@@ -184,26 +185,9 @@ __device__ __forceinline__ void wg_sync() {
                : "memory");
 }
 
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile(
-      "barrier.cluster.arrive.release.aligned;\n"
-      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// The float at shared address `addr` of the cluster's block `rank`.
-__device__ __forceinline__ float load_rank(unsigned addr, unsigned rank) {
-  unsigned remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(addr), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(remote) : "memory");
-  return v;
-}
+using wt::cluster_rank;
+using wt::cluster_sync;
+using wt::load_rank;
 
 // ---- the arithmetic ------------------------------------------------------------
 

@@ -16,9 +16,11 @@ csrc/wgmma_s8.cuh's s8 wgmma; every one takes any channel count, see
 pad_to):
 
 * conv1x1_bn_int8 -> csrc/pointwise_int8.cu (_quant_matmul_kernel): a
-  GEMV at a few rows, else the product on the int8 tensor cores, rows
-  quantized in one pass a block (short K) or once by a cooperative grid
-  with K split (longer K), the path and split by pointwise_int8_plan;
+  GEMV at a few rows, else s8 wgmma tiles whose K splits are the blocks of
+  one thread-block cluster (each row's scale from the maxima its blocks
+  exchange through distributed shared memory, the int32 partials added
+  there too), or one pass a tile on s8 mma.sync, the path and split by
+  pointwise_int8_plan;
 * conv3x3_bn_int8 -> csrc/direct_int8.cu (_direct_int8_kernel and its
   row-banded twin) on csrc/mma_int8.cuh: rows quantized once, the product
   on the int8 tensor cores with K split by direct_int8_plan;
@@ -29,9 +31,11 @@ pad_to):
   mid-layer is the int8 direct 3x3 or, on maps of 28x28 and up, F(2,3) on
   bf16 filters; the grid and splits by stage_int8_plan;
 * transition_block_int8 -> csrc/transition_int8.cu (_transition_int8_kernel
-  and its resident twin) on csrc/mma_int8.cuh: every
-  row quantized once, the grid and the phases' K splits by
-  transition_int8_plan;
+  and its resident twin): the int8 stage's folded phases on s8 wgmma (x's
+  rows quantized by the reduce's blocks, the mid's and the expand's rows
+  from published maxima, the projection reading x's quantized rows), the
+  weights' k-contiguous copies made once (transition_int8_kmajor), the
+  grid and the phases' K splits by transition_int8_plan;
 * conv3x3_bn_winograd_int8 -> csrc/winograd_int8.cu (_winograd_int8_kernel):
   F(2,3) with V quantized per row (a 4x4 tile at one of its 16 positions)
   and per-position filter scales (quantize_winograd_filter); work items of
@@ -137,6 +141,43 @@ def quantize_transition_params(params: Dict) -> Dict[str, torch.Tensor]:
                      BN_KEYS + PROJ_BN_KEYS)
 
 
+# The int8 transition's weights as its s8 wgmma tiles read them: s8 wgmma
+# takes both operands K-major and TMA cannot transpose bytes, so the kernel
+# reads a k-contiguous copy (N, Kp) of each (K, N) matrix w_q, zero past K,
+# Kp = K padded to TRANSITION_INT8_K_ALIGN. The copy is made at a weight's
+# first launch (a plain transpose, before it) and kept on the weight tensor
+# itself for as long as it lives: a served forward's first, eager call
+# makes them, its captured graph replays none of it.
+TRANSITION_INT8_WEIGHTS = ("w_reduce", "w9_mid", "w_expand", "w_proj")
+
+
+def kmajor_int8(w_q: torch.Tensor, align: int) -> torch.Tensor:
+    """(K, N) int8 -> (N, Kp) int8, k-contiguous, zero past K, Kp = K padded
+    to a multiple of `align`."""
+    k, n = w_q.shape
+    out = torch.zeros(n, _round_up(k, align), dtype=torch.int8, device=w_q.device)
+    out[:, :k] = w_q.t()
+    return out
+
+
+def transition_int8_kmajor(q: Dict) -> Dict[str, torch.Tensor]:
+    """The k-contiguous copies of a quantized transition's four weight
+    matrices, f"{name}_kt": made at a weight's first call and kept on it
+    (as its attribute _kmajor_int8, with the _version it was made at: a
+    weight changed in place is copied anew; an inference tensor, which
+    keeps no version, is copied once)."""
+    out = {}
+    for name in TRANSITION_INT8_WEIGHTS:
+        w_q = q[f"{name}_q"]
+        version = None if w_q.is_inference() else w_q._version
+        kept = getattr(w_q, "_kmajor_int8", None)
+        if kept is None or kept[0] != version:
+            kept = (version, kmajor_int8(w_q, TRANSITION_INT8_K_ALIGN))
+            w_q._kmajor_int8 = kept
+        out[f"{name}_kt"] = kept[1]
+    return out
+
+
 def quantize_winograd_filter(u):
     """Per-position per-output-channel symmetric int8 quantization of the
     F(2,3) filter u (a2, Cin, Cout): (u_q int8 (a2, Cin, Cout), s_u float32
@@ -194,6 +235,19 @@ def im2col_row_max(pixel_max: torch.Tensor) -> torch.Tensor:
     padded = F.pad(pixel_max, (1, 1, 1, 1))
     taps = [padded[:, r:r + h, s:s + w] for r in range(3) for s in range(3)]
     return torch.stack(taps, dim=-1).amax(dim=-1).reshape(n * h * w)
+
+
+def strided_im2col_row_max(pixel_max: torch.Tensor) -> torch.Tensor:
+    """The maxima of the stride-2 3x3 im2col rows of an (N, H, W, C) map
+    (transition.py::strided_im2col's: output (oy, ox) takes the taps (2 oy +
+    r - 1, 2 ox + s - 1)) from its pixels' maxima (N, H, W) as bits: the max
+    of the nine taps', 0 for a tap outside the map (the zero padding). The
+    int8 transition's mid scales its rows so (csrc/transition_int8.cu)."""
+    n, h, w = pixel_max.shape
+    ho, wo = -(-h // 2), -(-w // 2)
+    padded = F.pad(pixel_max, (1, 1 + 2 * wo - w, 1, 1 + 2 * ho - h))
+    taps = [padded[:, r:r + 2 * ho:2, s:s + 2 * wo:2] for r in range(3) for s in range(3)]
+    return torch.stack(taps, dim=-1).amax(dim=-1).reshape(n * ho * wo)
 
 
 def group_row_max(x: torch.Tensor, groups: int) -> torch.Tensor:
@@ -430,6 +484,24 @@ def direct_int8_plan(n: int, h: int, w: int, cin: int, cout: int,
     return DirectInt8Plan(kp, tiles, blocks, split.splits, split.chunk)
 
 
+# The plan of a csrc/transition_int8.cu launch. The kernel's geometry, which
+# its C entry checks every plan against (tests/test_torch_transition_int8_plan.py
+# reads it from the sources): a cooperative grid of at most
+# TRANSITION_INT8_BLOCKS_PER_SM blocks an SM, each of STAGE_INT8_WARPGROUPS
+# warpgroups walking work items of its own (wgmma_s8.cuh's 64 x 64 tiles),
+# K padded to TRANSITION_INT8_K_ALIGN, K splits each a whole number of
+# STAGE_INT8_STEP (the tile's stage) but the last, at most
+# TRANSITION_INT8_MAX_SPLITS. The plan's own rule is stage_int8_plan's, per
+# phase: split K only where the phase's tiles are fewer than
+# 1 / STAGE_INT8_FEW_TILES of the warpgroups, and then into walks of at
+# most STAGE_INT8_WALK (a split costs a grid barrier and a pass of int32
+# partials through device memory); the last phase splits its expand and its
+# projection each that way, or neither (one item a tile then runs both).
+TRANSITION_INT8_BLOCKS_PER_SM = 1
+TRANSITION_INT8_K_ALIGN = 32
+TRANSITION_INT8_MAX_SPLITS = 16
+
+
 class TransitionInt8Plan(NamedTuple):
     """How csrc/transition_int8.cu runs one transition: the padded K of its
     operands (kpr: Cin, the reduce's and the projection's; kpm: 9 * Cmid,
@@ -452,38 +524,40 @@ class TransitionInt8Plan(NamedTuple):
         return (self.blocks,) + self.reduce + self.mid + self.expand + self.proj
 
 
-# The int8 transition's splits are at least this long: each split of one
-# of its five products costs a partial-sum pass and a grid barrier, and
-# tools/chip_split_sweep.py found 128-long ones slower at the served N=1
-# shapes (PERF.md).
-TRANSITION_INT8_MIN_CHUNK = 256
+def transition_int8_phase(kp: int, tiles: int, grid: int, max_walk: int = 0) -> Split:
+    """The K split of a transition phase of `tiles` output tiles over its
+    padded K kp on a grid of `grid` blocks: one range where the tiles give
+    the warpgroups enough items (max_walk 0, the plan's rule), else walks of
+    at most STAGE_INT8_WALK (or max_walk), each a whole number of
+    STAGE_INT8_STEP but the last, at most TRANSITION_INT8_MAX_SPLITS."""
+    if not max_walk:
+        few = tiles * STAGE_INT8_FEW_TILES < grid * STAGE_INT8_WARPGROUPS
+        max_walk = STAGE_INT8_WALK if few else kp
+    splits = min(-(-kp // max_walk), kp // STAGE_INT8_STEP, TRANSITION_INT8_MAX_SPLITS)
+    if splits < 2:
+        return Split(1, kp)
+    chunk = _round_up(-(-kp // splits), STAGE_INT8_STEP)
+    return Split(-(-kp // chunk), chunk)
 
 
 def transition_int8_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int,
-                         sms: int = H100_SMS) -> TransitionInt8Plan:
+                         sms: int = H100_SMS, max_walk: int = 0) -> TransitionInt8Plan:
     """The grid and K splits of an (n, h, w, cin) -> cmid -> cout int8
-    transition on a card with `sms` SMs: csrc/mma_int8.cuh's geometry as in
-    direct_int8_plan, DIRECT_INT8_BLOCKS_PER_SM blocks an SM, splits at
-    least TRANSITION_INT8_MIN_CHUNK long. The reduce and the mid split K
-    until tiles x splits reach about one item a block. The last phase
-    shares the blocks left per output tile between its two products in
-    proportion to their K; with one range each, a block runs both products
-    of a tile and needs no partial sums."""
+    transition (cin, cmid multiples of 4) on a card with `sms` SMs
+    (max_walk: transition_int8_phase's, for every phase)."""
     p1, p2 = n * h * w, n * -(-h // 2) * -(-w // 2)
-    kpr, kpm, kpe = (_round_up(k, DIRECT_INT8_K_ALIGN) for k in (cin, 9 * cmid, cmid))
-    blocks = DIRECT_INT8_BLOCKS_PER_SM * sms
+    kpr, kpm, kpe = (_round_up(k, TRANSITION_INT8_K_ALIGN) for k in (cin, 9 * cmid, cmid))
+    grid = TRANSITION_INT8_BLOCKS_PER_SM * sms
 
     def tiles(p: int, cols: int) -> int:
-        return -(-p // DIRECT_INT8_TILE) * -(-cols // DIRECT_INT8_TILE)
+        return -(-p // STAGE_INT8_TILE_M) * -(-cols // STAGE_INT8_TILE_N)
 
-    def split(k: int, want: int) -> Split:
-        return split_k(k, want, DIRECT_INT8_STEP, TRANSITION_INT8_MIN_CHUNK)
-
-    slots = blocks // tiles(p2, cout)
-    expand = split(kpe, min(round(slots * kpe / (kpe + kpr)), slots - 1))
+    last = tiles(p2, cout)
     return TransitionInt8Plan(
-        kpr, kpm, kpe, blocks, split(kpr, blocks // tiles(p1, cmid)),
-        split(kpm, blocks // tiles(p2, cmid)), expand, split(kpr, slots - expand.splits))
+        kpr, kpm, kpe, grid, transition_int8_phase(kpr, tiles(p1, cmid), grid, max_walk),
+        transition_int8_phase(kpm, tiles(p2, cmid), grid, max_walk),
+        transition_int8_phase(kpe, last, grid, max_walk),
+        transition_int8_phase(kpr, last, grid, max_walk))
 
 
 # The plan of a csrc/pointwise_int8.cu launch. The kernel's geometry, which
@@ -492,19 +566,48 @@ def transition_int8_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int,
 # take the GEMV (blocks of POINTWISE_INT8_GEMV_COLS columns, splits in
 # multiples of POINTWISE_INT8_GEMV_STEP); a padded K of at most
 # POINTWISE_INT8_ONE_PASS_MAX_K may take the one-pass form (one block a
-# 64 x 64 tile); any shape the cooperative form, on the direct_int8 plan's
-# geometry. The plan's own rule: the GEMV at P <= 8, its K split until its
-# column tiles x splits reach about one block an SM, in ranges at least
-# POINTWISE_INT8_GEMV_MIN_CHUNK long; else the one-pass form where the
-# padded K fits it, and the cooperative form for longer K, split as
-# direct_int8_plan splits (the routes were timed against each other at the
-# served shapes by tools/chip_split_sweep.py, PERF.md).
+# 64 x 64 tile on s8 mma.sync); any shape the cluster form (s8 wgmma tiles
+# of 64 rows by POINTWISE_INT8_CLUSTER_COLS columns, K padded to
+# DIRECT_INT8_K_ALIGN, a tile's K splits the blocks of one cluster: at most
+# POINTWISE_INT8_CLUSTER_MAX, each a multiple of POINTWISE_INT8_CLUSTER_STEP
+# but the last). The plan's own rule, from the paths, widths and splits
+# timed against each other at the served shapes (tools/chip_split_sweep.py,
+# PERF.md): the GEMV for a lone row over a long K (P = 1, K at least
+# POINTWISE_INT8_GEMV_MIN_K: the head at N=1; every other head ran faster on
+# the cluster path), its K split until its column tiles x splits reach
+# about one block an SM, in ranges at least POINTWISE_INT8_GEMV_MIN_CHUNK
+# long; the one pass where its K fits and the
+# rows are many (at least POINTWISE_INT8_ONE_PASS_ROWS: its tiles then
+# fill the card without a split), unless N passes 128 over more than
+# POINTWISE_INT8_ONE_PASS_WIDE_ROWS rows (there its 64-column tiles read x
+# four times or more, the cluster path's 128-column tiles half as often);
+# else the cluster path, 128 columns wide where those tiles times their
+# most splits reach half the SMs (else 64), its K split until tiles x
+# splits reach about POINTWISE_INT8_CLUSTER_BLOCKS_PER_SM blocks an SM.
 POINTWISE_INT8_GEMV_MAX_ROWS = 8
 POINTWISE_INT8_GEMV_COLS = 128
 POINTWISE_INT8_GEMV_STEP = 32
 POINTWISE_INT8_GEMV_MIN_CHUNK = 64
+POINTWISE_INT8_GEMV_MIN_K = 1024
 POINTWISE_INT8_ONE_PASS_MAX_K = 256
-POINTWISE_INT8_PATHS = ("gemv", "one_pass", "cooperative")  # the C entry's numbering
+POINTWISE_INT8_TILE = 64
+POINTWISE_INT8_CLUSTER_COLS = (64, 128)
+POINTWISE_INT8_CLUSTER_MAX = 8
+POINTWISE_INT8_CLUSTER_STEP = 32
+POINTWISE_INT8_CLUSTER_MIN_CHUNK = 32
+POINTWISE_INT8_CLUSTER_BLOCKS_PER_SM = 2
+POINTWISE_INT8_ONE_PASS_ROWS = 1024
+POINTWISE_INT8_ONE_PASS_WIDE_ROWS = 4096
+POINTWISE_INT8_PATHS = ("gemv", "one_pass", "cluster")  # the C entry's numbering
+
+
+class PointwiseInt8Workspace(NamedTuple):
+    """Where the GEMV's parts lie in csrc/pointwise_int8.cu's workspace, in
+    4-byte words: its column tiles' counters at 0, the int32 partial sums
+    at `part`; `words` in all (0: no workspace)."""
+
+    part: int
+    words: int
 
 
 class PointwiseInt8Plan(NamedTuple):
@@ -520,17 +623,14 @@ class PointwiseInt8Plan(NamedTuple):
     splits: int
     chunk: int
 
-    def workspace(self, p: int, n: int) -> DirectInt8Workspace:
-        """The cooperative form's layout (_mma_int8_workspace); for the GEMV
-        past one split, its column tiles' counters from word 0 (room rounded
-        up to COUNTER_WORDS) and the int32 partial sums at `part`; nothing
-        else."""
-        if self.path == "cooperative":
-            return _mma_int8_workspace(p, self.kp, n, self.splits)
+    def workspace(self, p: int, n: int) -> PointwiseInt8Workspace:
+        """The GEMV's past one split: its column tiles' counters from word 0
+        (room rounded up to COUNTER_WORDS) and the int32 partial sums at
+        `part`; nothing else."""
         if self.path == "gemv" and self.splits > 1:
             part = _round_up(self.tiles, COUNTER_WORDS)
-            return DirectInt8Workspace(0, 0, 0, part, part + self.splits * p * n)
-        return DirectInt8Workspace(0, 0, 0, 0, 0)
+            return PointwiseInt8Workspace(part, part + self.splits * p * n)
+        return PointwiseInt8Workspace(0, 0)
 
     def args(self) -> tuple:
         """The plan as the C entry takes it: path, Kp, tile, blocks, splits,
@@ -540,28 +640,44 @@ class PointwiseInt8Plan(NamedTuple):
 
 
 def pointwise_int8_plan(p: int, k: int, n: int, sms: int = H100_SMS,
-                        path: str | None = None) -> PointwiseInt8Plan:
+                        path: str | None = None, want: int = 0,
+                        cols: int = 0) -> PointwiseInt8Plan:
     """The path, grid and K split of a (p, k) x (k, n) int8 product (k a
     multiple of 4) on a card with `sms` SMs; `path` forces a path that
-    takes the shape (tools/chip_split_sweep.py times the others)."""
+    takes the shape, `want` a number of K ranges (split_k's: the GEMV's
+    and the cluster's) and `cols` the cluster tiles' width
+    (tools/chip_split_sweep.py times the others)."""
     kp = _round_up(k, DIRECT_INT8_K_ALIGN)
     if path is None:
-        path = ("gemv" if p <= POINTWISE_INT8_GEMV_MAX_ROWS
-                else "one_pass" if kp <= POINTWISE_INT8_ONE_PASS_MAX_K else "cooperative")
+        one_pass = (kp <= POINTWISE_INT8_ONE_PASS_MAX_K and p >= POINTWISE_INT8_ONE_PASS_ROWS
+                    and (n <= 2 * POINTWISE_INT8_TILE or p <= POINTWISE_INT8_ONE_PASS_WIDE_ROWS))
+        path = ("gemv" if p == 1 and k >= POINTWISE_INT8_GEMV_MIN_K
+                else "one_pass" if one_pass else "cluster")
     if (path not in POINTWISE_INT8_PATHS or path == "gemv" and p > POINTWISE_INT8_GEMV_MAX_ROWS
             or path == "one_pass" and kp > POINTWISE_INT8_ONE_PASS_MAX_K):
         raise ValueError(f"path {path!r} does not take a ({p}, {k}) x ({k}, {n}) product")
     if path == "gemv":
         tiles = -(-n // POINTWISE_INT8_GEMV_COLS)
-        split = split_k(k, sms // tiles, POINTWISE_INT8_GEMV_STEP, POINTWISE_INT8_GEMV_MIN_CHUNK)
+        split = split_k(k, want or sms // tiles, POINTWISE_INT8_GEMV_STEP,
+                        POINTWISE_INT8_GEMV_MIN_CHUNK)
         return PointwiseInt8Plan(path, k, POINTWISE_INT8_GEMV_COLS, tiles, tiles * split.splits,
                                  split.splits, split.chunk)
-    tiles = -(-p // DIRECT_INT8_TILE) * -(-n // DIRECT_INT8_TILE)
     if path == "one_pass":
-        return PointwiseInt8Plan(path, kp, DIRECT_INT8_TILE, tiles, tiles, 1, kp)
-    blocks = DIRECT_INT8_BLOCKS_PER_SM * sms
-    split = split_k(kp, blocks // tiles, DIRECT_INT8_STEP, DIRECT_INT8_MIN_CHUNK)
-    return PointwiseInt8Plan(path, kp, DIRECT_INT8_TILE, tiles, blocks, split.splits, split.chunk)
+        tiles = -(-p // POINTWISE_INT8_TILE) * -(-n // POINTWISE_INT8_TILE)
+        return PointwiseInt8Plan(path, kp, POINTWISE_INT8_TILE, tiles, tiles, 1, kp)
+    narrow, wide = POINTWISE_INT8_CLUSTER_COLS
+    if not cols:
+        wide_tiles = -(-p // POINTWISE_INT8_TILE) * -(-n // wide)
+        most = min(POINTWISE_INT8_CLUSTER_MAX, max(1, kp // POINTWISE_INT8_CLUSTER_MIN_CHUNK))
+        cols = wide if 2 * wide_tiles * most >= sms else narrow
+    if cols not in POINTWISE_INT8_CLUSTER_COLS:
+        raise ValueError(f"cluster tiles are {POINTWISE_INT8_CLUSTER_COLS} columns wide, not {cols}")
+    tiles = -(-p // POINTWISE_INT8_TILE) * -(-n // cols)
+    want = want or POINTWISE_INT8_CLUSTER_BLOCKS_PER_SM * sms // tiles
+    split = split_k(kp, min(want, POINTWISE_INT8_CLUSTER_MAX), POINTWISE_INT8_CLUSTER_STEP,
+                    POINTWISE_INT8_CLUSTER_MIN_CHUNK)
+    return PointwiseInt8Plan(path, kp, cols, tiles, tiles * split.splits, split.splits,
+                             split.chunk)
 
 
 # The plan of a csrc/winograd_int8.cu launch. The kernel's geometry, which
@@ -902,8 +1018,8 @@ def conv1x1_bn_int8_planned(x, w_q, s_w, scale, bias, relu: bool,
     _build.launch(
         "pointwise_int8", "pointwise_int8_conv1x1_bn", (p, cin, cout, bool(relu)), x.device,
         ptr(x), ptr(w_q), ptr(s_w), ptr(scale), ptr(bias), ptr(out),
-        ptr(ws) if ws is not None else ctypes.c_void_p(0), ll(at.words), ll(at.sx), ll(at.aq),
-        ll(at.bt), ll(at.part), c(p), c(cin), c(cout), c(relu), *map(c, plan.args()),
+        ptr(ws) if ws is not None else ctypes.c_void_p(0), ll(at.words), ll(at.part),
+        c(p), c(cin), c(cout), c(relu), *map(c, plan.args()),
     )
     return out
 
@@ -1148,11 +1264,14 @@ def transition_block_int8_planned(x, q: Dict, plan: TransitionInt8Plan) -> torch
     """transition_block_int8's launch on CUDA tensors under an explicit plan
     (the wrapper passes transition_int8_plan's; tools/chip_split_sweep.py
     times others). x: (N, H, W, Cin); Cin and Cmid multiples of 4; operands
-    as transition_block_int8 checks them."""
+    as transition_block_int8 checks them. The kernel reads the weights'
+    k-contiguous copies (transition_int8_kmajor: made at a weight's first
+    launch, kept after)."""
     n, h, w, cin = x.shape
     cmid, cout = q["w_expand_q"].shape
     if x.data_ptr() % 16:
         x = x.clone()  # the kernel reads rows as float4s
+    kt = transition_int8_kmajor(q)  # fresh allocations: 16-byte aligned, as TMA needs
     words = _workspace_words("transition_int8", "transition_block_int8", x.device.index,
                              n, h, w, cin, cmid, cout, *plan.args())
     ws = torch.empty(words, device=x.device, dtype=torch.float32)
@@ -1160,11 +1279,11 @@ def transition_block_int8_planned(x, q: Dict, plan: TransitionInt8Plan) -> torch
     ptr, c = _build.ptr, _build.cint
     _build.launch(
         "transition_int8", "transition_block_int8", (n, h, w, cin, cmid, cout), x.device,
-        ptr(x), *(ptr(q[k]) for k in (
-            "w_reduce_q", "w_reduce_s", "s_reduce", "b_reduce",
-            "w9_mid_q", "w9_mid_s", "s_mid", "b_mid",
-            "w_expand_q", "w_expand_s", "s_expand", "b_expand",
-            "w_proj_q", "w_proj_s", "s_proj", "b_proj")),
+        ptr(x), *(ptr(kt[k] if k.endswith("_kt") else q[k]) for k in (
+            "w_reduce_kt", "w_reduce_s", "s_reduce", "b_reduce",
+            "w9_mid_kt", "w9_mid_s", "s_mid", "b_mid",
+            "w_expand_kt", "w_expand_s", "s_expand", "b_expand",
+            "w_proj_kt", "w_proj_s", "s_proj", "b_proj")),
         ptr(out), ptr(ws), ctypes.c_longlong(words),
         c(n), c(h), c(w), c(cin), c(cmid), c(cout), *map(c, plan.args()),
     )
