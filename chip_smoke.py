@@ -177,7 +177,7 @@ Phases, each of which must pass (exit 1 otherwise):
    bf16w (TRANSITION_BATCHES); the conv5_x stage
    geometry; the int8 stage at N=8 and at one block (mode 6); the int8
    14->7 transition at N=8; the stem at N=8 in both precisions; both basic
-   stages at N=8 and at one block, the ResNet-18 run; the int8 Winograd at
+   stages at N=8 and N=32 and at one block, the ResNet-18 run; the int8 Winograd at
    N=8, 14x14x256 and 28x28x128, and at Cin 1152 -> 128 and 2048 -> 256 on
    14x14 (WIDE_WINOGRAD_INT8: K walked in spans), and both at N=32; the
    pointwise head and conv5_x reduce
@@ -185,7 +185,7 @@ Phases, each of which must pass (exit 1 otherwise):
    N=8, 7x7x512; the bf16w pointwise head, the conv4_x and conv5_x bf16w
    stages and the bf16w stem at N=8, the bf16w
    block at modes 6 and 9, the bf16w Winograd at 56x56x64, the bf16w direct
-   3x3 at 7x7x512 and the bf16w basic stage at 7x7x512 at N=8; the stem's
+   3x3 at 7x7x512 and the bf16w basic stage at 7x7x512 at N=8 and N=32; the stem's
    prepared-input entry at N=8 at "f32" and "bf16w"; the int8 tiers' bf16-filter
    Winograd (the FP64 tile) at N=8 and N=32, 56x56x64), on seeded
    inputs. Bound: max abs error <= 1e-4 *
@@ -231,7 +231,8 @@ Phases, each of which must pass (exit 1 otherwise):
    epilogues (4 FLOPs an output, 5 with a residual) and int8 quantization
    (2 a quantized value) at the FP32 rate. Bytes: each input read once
    (int8 weights 1 byte, bf16 filters and weights 2), each output written
-   once. Library: torch.matmul / F.conv2d (f32; a basic stage its 2B convs;
+   once. Library: torch.matmul / F.conv2d (f32; a basic stage its 2B convs
+   with the folded BN, the ReLUs and the residual;
    a bf16w row the same call as its kernel's f32 row, on the f32 weights), the
    bf16-filter Winograd F.conv2d in f32 on the widened bf16 filter, TF32
    off (the same function; F.conv2d in bf16 beside it, library_bf16_ms),
@@ -1182,19 +1183,22 @@ def main() -> int:
 
     def basic_stage_case(rng, n, h, w, c, nb, bf16=False):
         """bf16: the bf16w instantiation (w9_a, w9_b at 2 bytes, products as
-        two BF16 passes; library the f32 row's calls)."""
+        two BF16 passes; library the f32 row's calls). Library: cuDNN's four
+        convs (TF32 off) with the folded BN, the ReLUs and the residual."""
         blocks = basic_blocks(rng, c, nb)
         stacked = {k: v.to(dev) for k, v in bs.stack_basic_stage_params(blocks).items()}
         if bf16:
             stacked = bf16w(stacked)
-        lib_w = [t(blk[f"w_{leg}"]).contiguous(memory_format=torch.channels_last)
-                 for blk in blocks for leg in ("a", "b")]
+        lib_w = [[(t(blk[f"w_{leg}"]).contiguous(memory_format=torch.channels_last),
+                   t(blk[f"s_{leg}"]).reshape(1, c, 1, 1), t(blk[f"b_{leg}"]).reshape(1, c, 1, 1))
+                  for leg in ("a", "b")] for blk in blocks]
         x = t(_rand(rng, n, h, w, c))
 
         def lib():
             y = nchw(x)
-            for wc in lib_w:
-                y = F.conv2d(y, wc, padding=1)
+            for (wa, sa, ba), (wb, sb, bb) in lib_w:
+                h1 = torch.relu(F.conv2d(y, wa, padding=1) * sa + ba)
+                y = torch.relu(F.conv2d(h1, wb, padding=1) * sb + bb + y)
             return y
 
         p = n * h * w
@@ -2018,8 +2022,8 @@ def main() -> int:
     # the bf16w pointwise head, conv4_x and conv5_x stages at N=8, the
     # bf16w block at modes 6 and 9; the bf16w Winograd, direct 3x3 and
     # basic stage of ResNet-34 at N=8; the int8 tiers' bf16-filter Winograd
-    # (the FP64 tile) at N=8 and N=32; the three transitions at both tiers
-    # and the int8 Winograd at N=8 and N=32.
+    # (the FP64 tile) at N=8 and N=32; the three transitions at both tiers,
+    # the int8 Winograd and the basic stage at every tier at N=8 and N=32.
     extra = {
         "winograd": [(1, 14, 14, 128, 128, 4, True), (8, 56, 56, 64, 64, 2, True, "bf16"),
                      (32, 56, 56, 64, 64, 2, True, "bf16")],
@@ -2029,8 +2033,8 @@ def main() -> int:
         "stage_int8": [(8, 14, 14, 1024, 256, 5, "direct"), (1, 14, 14, 1024, 256, 1, "direct")],
         "transition_int8": TRANSITION_BATCHES,
         "stem": [(8, 224, 224, 3, 64, "f32"), (8, 224, 224, 3, 64, "bf16")],
-        "basic_stage": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
-        "basic_stage_int8": [(8, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
+        "basic_stage": [(8, 7, 7, 512, 2), (32, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
+        "basic_stage_int8": [(8, 7, 7, 512, 2), (32, 7, 7, 512, 2), (1, 7, 7, 512, 1)],
         "winograd_int8": [(8, 14, 14, 256, 256, True), (8, 28, 28, 128, 128, True),
                           (32, 14, 14, 256, 256, True), (32, 28, 28, 128, 128, True),
                           *WIDE_WINOGRAD_INT8],
@@ -2047,7 +2051,7 @@ def main() -> int:
         "transition_bf16w": TRANSITION_BATCHES,
         "winograd_bf16w": [(8, 56, 56, 64, 64, 2, True)],
         "direct_bf16w": [(8, 7, 7, 512, 512, False)],
-        "basic_stage_bf16w": [(8, 7, 7, 512, 2)],
+        "basic_stage_bf16w": [(8, 7, 7, 512, 2), (32, 7, 7, 512, 2)],
         "stem_pre": [(8, 224, 224, 3, 64, "f32")],
         "stem_pre_bf16w": [(8, 224, 224, 3, 64, "bf16w")],
     }

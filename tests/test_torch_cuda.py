@@ -57,7 +57,10 @@ where the plain versions keep it; the int8 Winograd on s8 wgmma (its items
 thread-block clusters) equal to its twin at N=1, 8 and 32 under every item
 shape, keeping a NaN in both branches, refusing a plan off its geometry;
 the f32 and bf16w transitions on the wgmma phases within their bars at
-N=1, 8 and 32 under every candidate split. Needs an NVIDIA GPU and nvcc;
+N=1, 8 and 32 under every candidate split; the f32 and bf16w basic stage on
+the same phases at N=32 under every candidate split (the unsplit 4608-long
+walk too), the int8 basic stage on the folded s8 wgmma phases equal to its
+twin at N=1, 8 and 32 under every candidate split, and both keeping a NaN. Needs an NVIDIA GPU and nvcc;
 skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -681,10 +684,11 @@ def _basic_f32(rng, dev, n, hw, c, nb):
 
 
 # The served f32 basic stage (N, H=W, C, blocks): ResNet-34's conv5_x run at
-# N=1 and N=8 and ResNet-18's one block, on the 3xTF32 tensor cores: within
-# the f32 bar of the twin, two calls equal to the bit, and within the bar
-# under every split the sweep may pick (one split too).
-@pytest.mark.parametrize("n,hw,c,nb", [(1, 7, 512, 2), (8, 7, 512, 2), (1, 7, 512, 1)])
+# N=1, 8 and 32 and ResNet-18's one block, on the 3xTF32 wgmma tiles:
+# within the f32 bar of the twin, two calls equal to the bit, and within the
+# bar under every split the sweep may pick (one split too).
+@pytest.mark.parametrize("n,hw,c,nb", [(1, 7, 512, 2), (8, 7, 512, 2), (1, 7, 512, 1),
+                                       (32, 7, 512, 2)])
 def test_basic_stage_served_shapes(dev, n, hw, c, nb):
     x, stacked = _basic_f32(np.random.default_rng(n + nb + 7), dev, n, hw, c, nb)
     ref = bs.basic_stage_fused_plain(x, stacked)
@@ -695,6 +699,38 @@ def test_basic_stage_served_shapes(dev, n, hw, c, nb):
     for want in (1, 2, 8, 16, 64):
         conv = split_k(9 * c, want, TRANSITION_STEP, TRANSITION_STEP)
         _agree(bs.basic_stage_fused_planned(x, stacked, plan._replace(conv=conv)), ref)
+
+
+# The 3xTF32 walk at N=32, 7x7x512 (fault C2: an unsplit K = 4608 walk on
+# the mma.sync tiles read 1.81e-3 against a bar of 1.76e-3): every candidate
+# split, the unsplit walk included, at f32 and bf16w, within the bar.
+@pytest.mark.parametrize("bf16", [False, True])
+def test_basic_stage_every_split_at_n32(dev, bf16):
+    x, stacked = _basic_f32(np.random.default_rng(32 + bf16), dev, 32, 7, 512, 2)
+    if bf16:
+        stacked = _bf16w(stacked)
+    ref = bs.basic_stage_fused_plain(x, stacked)
+    plan = bs.basic_stage_plan(32, 7, 7, 512, _build.sm_count(dev))
+    for want in (1, 2, 3, 4, 8, 16, 32):
+        conv = split_k(9 * 512, want, TRANSITION_STEP, TRANSITION_STEP)
+        _agree(bs.basic_stage_fused_planned(x, stacked, plan._replace(conv=conv)), ref)
+
+
+# A NaN in x: each conv's products carry it to the outputs whose windows
+# reach it (two blocks: a 9x9 patch of the second image), the ReLU keeps
+# it, as in the plain version; every other output within the bar.
+@pytest.mark.parametrize("bf16", [False, True])
+def test_basic_stage_keeps_a_nan(dev, bf16):
+    x, stacked = _basic_f32(np.random.default_rng(9), dev, 2, 7, 64, 2)
+    if bf16:
+        stacked = _bf16w(stacked)
+    x[1, 3, 2, 5] = float("nan")
+    ref = bs.basic_stage_fused_plain(x, stacked)
+    out = bs.basic_stage_fused(x, stacked)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    assert nan.any() and not nan.all() and torch.equal(torch.isnan(out), nan)
+    assert (out[~nan] - ref[~nan]).abs().max().item() <= 1e-4 * max(1.0, ref[~nan].abs().max().item())
 
 
 def test_basic_stage_entry_refuses_a_plan_it_does_not_take(dev):
@@ -727,17 +763,41 @@ def test_basic_stage_int8_edges_and_batches(dev, n, hw, c, nb):
 
 
 # The served int8 basic stage (N, H=W, C, blocks): ResNet-34's conv5_x run at
-# N=1 and N=8 and ResNet-18's one block, under the plan's split and unsplit:
-# equal to the twin, and two calls equal to the bit.
-@pytest.mark.parametrize("n,hw,c,nb", [(1, 7, 512, 2), (8, 7, 512, 2), (1, 7, 512, 1)])
+# N=1, 8 and 32 and ResNet-18's one block, under the plan's split and under
+# every candidate split of the sweep, unsplit too: equal to the twin, and
+# two calls equal to the bit; the weights' k-contiguous copies made by the
+# first call and kept.
+@pytest.mark.parametrize("n,hw,c,nb", [(1, 7, 512, 2), (8, 7, 512, 2), (1, 7, 512, 1),
+                                       (32, 7, 512, 2)])
 def test_basic_stage_int8_served_shapes(dev, n, hw, c, nb):
     x, q = _basic_int8(np.random.default_rng(n + nb), dev, n, hw, c, nb)
     ref = bs.basic_stage_int8_plain(x, q)
     first = bs.basic_stage_int8(x, q)
     _equal(first, ref)
+    kept = q["w9_a_q"]._kmajor_int8[1]
     assert torch.equal(first, bs.basic_stage_int8(x, q))
+    assert q["w9_a_q"]._kmajor_int8[1] is kept
     plan = bs.basic_stage_int8_plan(n, hw, hw, c, _build.sm_count(dev))
     _equal(bs.basic_stage_int8_planned(x, q, plan._replace(splits=1, chunk=plan.kp)), ref)
+    for want in (2, 4, 8, 16):
+        sp = split_k(plan.kp, want, q8.STAGE_INT8_STEP, q8.STAGE_INT8_STEP)
+        _equal(bs.basic_stage_int8_planned(x, q, plan._replace(splits=sp.splits,
+                                                               chunk=sp.chunk)), ref)
+
+
+def test_basic_stage_int8_keeps_a_nan(dev):
+    """A NaN in x: block 0's self-scaled im2col rows and the pixel maxima
+    the epilogues publish (atomicMax on the bits of |v|) carry it, so each
+    row it reaches gets a NaN scale, as torch.amax gives the plain version:
+    NaN exactly where the plain version has NaN, equal elsewhere."""
+    x, q = _basic_int8(np.random.default_rng(11), dev, 2, 7, 64, 2)
+    x[1, 3, 2, 5] = float("nan")
+    ref = bs.basic_stage_int8_plain(x, q)
+    out = bs.basic_stage_int8(x, q)
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    assert nan.any() and not nan.all() and torch.equal(torch.isnan(out), nan)
+    assert torch.equal(out[~nan], ref[~nan])
 
 
 def test_basic_stage_int8_entry_refuses_a_plan_it_does_not_take(dev):

@@ -6,7 +6,8 @@ kernels/quantized.py::direct_int8_plan (csrc/direct_int8.cu),
 (csrc/pointwise_int8.cu, which also picks its path),
 kernels/transition.py::transition_plan (csrc/transition.cu) and
 kernels/basic_stage.py::basic_stage_plan (csrc/basic_stage.cu) and
-::basic_stage_int8_plan (csrc/basic_stage_int8.cu); and
+::basic_stage_int8_plan (csrc/basic_stage_int8.cu; its own tests are in
+tests/test_torch_basic_stage_plan.py); and
 kernels/quantized.py::winograd_int8_plan (csrc/winograd_int8.cu: its work
 items, the span of K an item stages, and its grid). Every K index
 lies in exactly one range, every range but the last is a multiple of the
@@ -572,8 +573,10 @@ def test_winograd_int8_plan_follows_the_sm_count():
 
 
 # The served int8 basic stages (N, H, W, C) and their K split on 132 SMs:
-# 4608-deep convs on 8 output tiles at N=1 split 24 ways, on 56 at N=8 4.
-SERVED_BASIC_STAGE_INT8 = {(1, 7, 7, 512): 24, (8, 7, 7, 512): 4}
+# the 4608-deep convs on 8 output tiles at N=1 split into 12 ranges of 384
+# (16 wanted: at most BASIC_STAGE_INT8_MAX_SPLITS), on 56 at N=8 into 4
+# (224 items for 264 warpgroups), on 200 at N=32 not at all.
+SERVED_BASIC_STAGE_INT8 = {(1, 7, 7, 512): 12, (8, 7, 7, 512): 4, (32, 7, 7, 512): 1}
 
 
 @pytest.mark.parametrize("shape", sorted(SERVED_BASIC_STAGE_INT8))
@@ -581,23 +584,30 @@ def test_basic_stage_int8_plan_fills_the_card(shape):
     n, h, w, c = shape
     plan = bs.basic_stage_int8_plan(*shape)
     assert plan.splits == SERVED_BASIC_STAGE_INT8[shape]
-    assert plan.kp == 9 * c and plan.tiles == -(-n * h * w // 64) * -(-c // 64)
-    _covers_once(plan, plan.kp, q8.DIRECT_INT8_STEP)
-    wave = q8.DIRECT_INT8_BLOCKS_PER_SM * H100_SMS
-    assert plan.blocks == wave
-    assert plan.tiles * plan.splits <= wave and 2 * plan.tiles * plan.splits >= wave
+    assert plan.kp == 9 * c and plan.args() == (plan.blocks, plan.splits, plan.chunk)
+    _covers_once(plan, plan.kp, q8.STAGE_INT8_STEP)
+    assert plan.blocks == bs.BASIC_STAGE_INT8_BLOCKS_PER_SM * H100_SMS
+    tiles = -(-n * h * w // q8.STAGE_INT8_TILE_M) * -(-c // q8.STAGE_INT8_TILE_N)
+    warpgroups = q8.STAGE_INT8_WARPGROUPS * plan.blocks
+    assert tiles * plan.splits <= warpgroups               # one item a warpgroup, at most
+    # and no chunk a stage shorter keeps to that and to the cap
+    more = -(-plan.kp // (plan.chunk - q8.STAGE_INT8_STEP))
+    assert more > bs.BASIC_STAGE_INT8_MAX_SPLITS or tiles * more > warpgroups
 
 
 @pytest.mark.parametrize("n,hw,c", [(3, 7, 40), (2, 5, 20), (8, 7, 36), (1, 9, 68), (1, 3, 4)])
 def test_basic_stage_int8_plan_covers_k_on_ragged_shapes(n, hw, c):
     plan = bs.basic_stage_int8_plan(n, hw, hw, c)
-    assert plan.kp % q8.DIRECT_INT8_K_ALIGN == 0 and 9 * c <= plan.kp < 9 * c + 32
-    _covers_once(plan, plan.kp, q8.DIRECT_INT8_STEP)
-    assert plan.splits == 1 or plan.chunk >= q8.DIRECT_INT8_MIN_CHUNK
+    assert plan.kp % bs.BASIC_STAGE_INT8_K_ALIGN == 0 and 9 * c <= plan.kp < 9 * c + 32
+    _covers_once(plan, plan.kp, q8.STAGE_INT8_STEP)
+    assert plan.splits <= bs.BASIC_STAGE_INT8_MAX_SPLITS
+    assert plan.splits > 1 or plan.chunk == plan.kp    # the C entry takes one range as all of K
 
 
 def test_basic_stage_int8_plan_follows_the_sm_count():
-    small, large = (bs.basic_stage_int8_plan(1, 7, 7, 512, sms=sms) for sms in (66, H100_SMS))
+    """At N=4 (32 tiles) a card of 132 SMs has warpgroups to spare for a
+    split, one of 66 has not; the grid is one block an SM either way."""
+    small, large = (bs.basic_stage_int8_plan(4, 7, 7, 512, sms=sms) for sms in (66, H100_SMS))
     assert small.blocks == large.blocks // 2 and small.splits < large.splits
 
 
@@ -802,7 +812,7 @@ def _constexpr(source: str, name: str) -> int:
     (q8.WINO_INT8_STEP, "winograd_int8.cu", "kBK"),
     (q8.H100_SMEM_PER_BLOCK, "winograd_int8.cu", "kMaxSmem"),
     (2, "winograd_int8.cu", "kWarpgroups"),
-    (q8.DIRECT_INT8_BLOCKS_PER_SM, "basic_stage_int8.cu", "kBlocksPerSm"),
+    (bs.BASIC_STAGE_INT8_BLOCKS_PER_SM, "basic_stage_int8.cu", "kBlocksPerSm"),
     (q8.WINO_INT8_CHUNK, "winograd_int8.cu", "kChunk"),
     (q8.WINO_INT8_GROUP, "winograd_int8.cu", "kGroup"),
     (bs.BASIC_STAGE_BLOCKS_PER_SM, "basic_stage.cu", "kMaxBlocksPerSm"),
@@ -851,15 +861,16 @@ def test_transition_entry_runs_the_tf32_phases():
 
 
 def test_basic_stage_runs_the_tf32_phases():
-    """The f32 basic stage's two convs a block are splitk_tf32.cuh's 3xTF32
-    phases over an implicit im2col, its grid capped at two blocks an SM;
-    gemm.cuh's FFMA tile and grid_sync.cuh's scalar phase lost their last
-    user and are gone."""
+    """The f32 basic stage's two convs a block are wgmma_phase.cuh's 3xTF32
+    wgmma phases over an implicit im2col (weights by TMA), its grid capped
+    at two blocks an SM; splitk_tf32.cuh's gemm_phase lost its last user and
+    is gone, as are gemm.cuh's FFMA tile and grid_sync.cuh's scalar phase."""
     src = (CSRC / "basic_stage.cu").read_text()
-    assert '#include "splitk_tf32.cuh"' in src and '#include "gemm.cuh"' not in src
-    assert src.count("sk::gemm_phase<kVec, true>(") == 2
-    assert src.count("tc::Im2colA{") == 2
-    assert "__launch_bounds__(tc::kThreads, kMaxBlocksPerSm)" in src
+    assert '#include "wgmma_phase.cuh"' in src and '#include "gemm.cuh"' not in src
+    assert src.count("ph::phase_items<kVec>(") == 2 and "gemm_phase" not in src
+    assert src.count("tc::Im2colA{") == 2 and src.count("wg::encode_weights(") == 2
+    assert "__launch_bounds__(wg::kThreads, kMaxBlocksPerSm)" in src
+    assert "gemm_phase(" not in (CSRC / "splitk_tf32.cuh").read_text()
     assert "sk::phase_fits(" in src and "make_plan" in src and "grid_size" not in src
     assert not (CSRC / "gemm.cuh").exists()
     for gone in ("gemm_tile", "gemm_bn_tile", "kGemmSmemFloats", "Im2colCg", "PartialEpilogue",
@@ -883,12 +894,14 @@ def test_winograd_int8_runs_on_the_s8_tensor_cores():
 
 
 def test_basic_stage_int8_runs_the_mma_int8_phases():
-    """The int8 basic stage runs mma_int8.cuh's quantize, transpose and GEMM
-    phases, its split on the s8 tile's stage; gemm_int8.cuh's __dp4a tile
-    has no user left and is gone."""
+    """The int8 basic stage left mma_int8.cuh's quantize, transpose and
+    GEMM phases for wgmma_s8_phase.cuh's folded s8 wgmma phases (no
+    transpose, no quantize phase), its split on the s8 wgmma tile's stage;
+    gemm_int8.cuh's __dp4a tile has no user left and is gone."""
     src = (CSRC / "basic_stage_int8.cu").read_text()
-    assert src.count("s8::quantize_rows_phase(") == 2 and src.count("s8::gemm_phase(") == 2
-    assert "s8::Transpose{" in src and "constexpr int kSplitStep = s8::kBK;" in src
+    assert '#include "mma_int8.cuh"' not in src and '#include "wgmma_s8_phase.cuh"' in src
+    assert src.count("ph::gemm_phase(") == 3 and "quantize_rows_phase" not in src
+    assert "Transpose" not in src and "chunk % q8::kBK == 0" in src
     gemm = (CSRC / "gemm_int8.cuh").read_text()
     assert "__dp4a" not in gemm
     for gone in ("row_scales_phase", "int8_tile", "int8_gemm_phase", "kInt8SmemBytes", "kBK8"):

@@ -8,15 +8,17 @@ of the f32 and bf16w stage's plan
 (csrc/stage.cu), of the int8 stage's (csrc/stage_int8.cu) and of the int8
 Winograd's grid (csrc/winograd_int8.cu) on one CUDA card, and an A/B of
 their wrappers (and of the stem's, csrc/stem.cu) against another checkout.
-pointwise, winograd, stage and transition run at f32 and, as pointwise_bf16w,
-winograd_bf16w (F(2,3)), stage_bf16w and transition_bf16w, on bf16 weights.
+pointwise, winograd, stage, transition and basic_stage run at f32 and, as
+pointwise_bf16w, winograd_bf16w (F(2,3)), stage_bf16w, transition_bf16w and
+basic_stage_bf16w, on bf16 weights.
 
     python3 tools/chip_split_sweep.py [--only NAME,...]    # the sweep
     python3 tools/chip_split_sweep.py --ab DIR [--only ...] # the A/B against DIR
 
 Run from the repository root on a machine with a CUDA card and nvcc. The
 shapes are each served shape of the kernels (the four served forwards of
-chip_smoke.py at N=1 and N=8, the int8 transition and pointwise at N=32 too,
+chip_smoke.py at N=1 and N=8, the int8 transition and pointwise and the basic
+stages at N=32 too,
 and the f32 Winograd's F(4,3) check shape). Every timed call is first held
 against its plain twin (pointwise, direct, winograd, stage, stem,
 transition and basic_stage within 1e-4 * max(1, max|plain|), direct_int8,
@@ -46,9 +48,10 @@ and under plans that change one phase's split (reduce, mid or expand) for
 every other path that takes the shape (GEMV at P <= 8, one pass at a
 padded K <= 256, the cluster path at any P, its tiles 64 and 128 columns
 wide), the GEMV's and the cluster path's K split for 1, 2, 4, ..., 64
-wanted ranges (the cluster's at most 8); the f32 and the int8 basic stage
-under their plans and under the K splits split_k gives for 1, 2, 4, ...,
-64 wanted ranges (both convs share one split); the int8 Winograd under its
+wanted ranges (the cluster's at most 8); the f32, bf16w and int8 basic
+stage under their plans and under the K splits split_k gives for 1, 2, 4,
+..., 64 wanted ranges (the int8 one's at most 16; both convs share one
+split); the int8 Winograd under its
 plan, under every item shape its kernel takes (8 x 128, 16 x 128 or 32 x
 256 tiles by channels), and in spans of 128 channels of K (the walk a Cin
 past WINO_INT8_CHUNK takes).
@@ -69,7 +72,7 @@ seeded inputs ("--wrappers ROOT" is one such turn).
 --only takes kernel names (pointwise, pointwise_bf16w, direct, winograd,
 winograd_bf16w, winograd_bf16, stage, stage_bf16w, direct_int8, stage_int8, stem,
 transition_int8, pointwise_int8, transition, transition_bf16w, winograd_int8,
-basic_stage, basic_stage_int8) and keeps those shapes alone.
+basic_stage, basic_stage_bf16w, basic_stage_int8) and keeps those shapes alone.
 """
 
 from __future__ import annotations
@@ -147,10 +150,11 @@ POINTWISE_INT8 = [  # (P, K, N, relu): the served int8 1x1s at N = 1, 8 and 32
 WINOGRAD_INT8 = [  # (N, H, W, Cin, Cout, relu): ResNet-34's int8 Winograds at N = 1, 8, 32
     (n, hw, hw, c, c, True) for n in (1, 8, 32) for hw, c in ((28, 128), (14, 256))
 ]
-BASIC_STAGE_INT8 = [  # (N, H, W, C, blocks): ResNet-34's conv5_x run, and ResNet-18's
-    (1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1),
+BASIC_STAGE_INT8 = [  # (N, H, W, C, blocks): ResNet-34's conv5_x run at N = 1, 8, 32, ResNet-18's
+    (1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (32, 7, 7, 512, 2), (1, 7, 7, 512, 1),
 ]
 BASIC_STAGE = BASIC_STAGE_INT8  # the f32 tier's run at the same shapes
+BASIC_STAGE_BF16W = BASIC_STAGE  # the bf16w instantiation ("basic_stage_bf16w") at the same shapes
 A_B_ONLY = ("stem",)
 # The candidate walk caps of quantized.py::stage_int8_plan (one for every
 # phase; 0 is its rule of about one item a block).
@@ -383,13 +387,16 @@ def _cases_all(dev):
         ref = bs.basic_stage_int8_plain(x, qs)
         yield ("basic_stage_int8", (n, h, wd, c, nb), (x, qs), ref,
                lambda y, ref=ref: (y - ref).abs().max().item() == 0.0)
-    for n, h, wd, c, nb in BASIC_STAGE:
+    for name, n, h, wd, c, nb in ([("basic_stage", *shape) for shape in BASIC_STAGE]
+                                  + [("basic_stage_bf16w", *shape) for shape in BASIC_STAGE_BF16W]):
         stacked = bs.stack_basic_stage_params(basic_blocks(c, nb))
         stacked = {k: v.to(dev) for k, v in stacked.items()}
+        if name == "basic_stage_bf16w":
+            stacked.update({k: stacked[k].bfloat16() for k in ("w9_a", "w9_b")})
         x = rand(n, h, wd, c).abs()
         ref = bs.basic_stage_fused_plain(x, stacked)
         tol = 1e-4 * max(1.0, ref.abs().max().item())
-        yield ("basic_stage", (n, h, wd, c, nb), (x, stacked), ref,
+        yield (name, (n, h, wd, c, nb), (x, stacked), ref,
                lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
 
 
@@ -417,7 +424,8 @@ def wrappers(dev) -> bool:
             "transition_int8": transition_block_int8, "transition": transition_block_fused,
             "transition_bf16w": transition_block_fused,
             "pointwise_int8": conv1x1_bn_int8, "winograd_int8": conv3x3_bn_winograd_int8,
-            "basic_stage": basic_stage_fused, "basic_stage_int8": basic_stage_int8}
+            "basic_stage": basic_stage_fused, "basic_stage_bf16w": basic_stage_fused,
+            "basic_stage_int8": basic_stage_int8}
     ok = True
     for name, shape, args, _, agrees in cases(dev):
         fn = (lambda f=call[name], args=args: f(*args))
@@ -483,8 +491,8 @@ def sweep(dev) -> bool:
         if name == "basic_stage_int8":
             ok &= sweep_basic_stage_int8(shape, args, ref, agrees, sms)
             continue
-        if name == "basic_stage":
-            ok &= sweep_basic_stage(shape, args, ref, agrees, sms)
+        if name in ("basic_stage", "basic_stage_bf16w"):
+            ok &= sweep_basic_stage(name, shape, args, ref, agrees, sms)
             continue
         if name == "stage_int8":
             ok &= sweep_stage_int8(shape, args, ref, agrees, q8, sms)
@@ -640,7 +648,8 @@ def sweep_winograd_int8(shape, args, ref, agrees, q8, sms) -> bool:
 
 def sweep_basic_stage_int8(shape, args, ref, agrees, sms) -> bool:
     """The int8 basic stage under its plan and under the K splits split_k
-    gives for WANTS."""
+    gives for WANTS (whole stages of the s8 wgmma tile, at most
+    BASIC_STAGE_INT8_MAX_SPLITS)."""
     from winograd_tpu_torch.kernels import basic_stage as bs
     from winograd_tpu_torch.kernels import quantized as q8
     from winograd_tpu_torch.kernels.splitk import split_k
@@ -648,7 +657,8 @@ def sweep_basic_stage_int8(shape, args, ref, agrees, sms) -> bool:
     chosen = bs.basic_stage_int8_plan(*shape[:4], sms)
     plans = {chosen.splits: chosen}
     for want in WANTS:
-        sp = split_k(chosen.kp, want, q8.DIRECT_INT8_STEP, q8.DIRECT_INT8_STEP)
+        sp = split_k(chosen.kp, min(want, bs.BASIC_STAGE_INT8_MAX_SPLITS), q8.STAGE_INT8_STEP,
+                     q8.STAGE_INT8_STEP)
         plans.setdefault(sp.splits, chosen._replace(splits=sp.splits, chunk=sp.chunk))
     ok = True
     for splits, plan in sorted(plans.items()):
@@ -662,9 +672,9 @@ def sweep_basic_stage_int8(shape, args, ref, agrees, sms) -> bool:
     return ok
 
 
-def sweep_basic_stage(shape, args, ref, agrees, sms) -> bool:
-    """The f32 basic stage under its plan and under the K splits split_k
-    gives for WANTS."""
+def sweep_basic_stage(name, shape, args, ref, agrees, sms) -> bool:
+    """The f32 or bf16w basic stage under its plan and under the K splits
+    split_k gives for WANTS."""
     from winograd_tpu_torch.kernels import basic_stage as bs
     from winograd_tpu_torch.kernels.splitk import split_k
     from winograd_tpu_torch.kernels.transition import TRANSITION_STEP
@@ -680,9 +690,10 @@ def sweep_basic_stage(shape, args, ref, agrees, sms) -> bool:
         fn = (lambda plan=plan: bs.basic_stage_fused_planned(*args, plan))
         y = fn()
         ok &= agrees(y)
-        print(json.dumps({"kernel": "basic_stage", "shape": shape, "splits": splits,
+        print(json.dumps({"kernel": name, "shape": shape, "splits": splits,
                           "chunk": plan.conv.chunk, "chosen": plan == chosen,
                           "max_abs_err": (y - ref).abs().max().item(),
+                          "bar": 1e-4 * max(1.0, ref.abs().max().item()),
                           "ms": device_ms(fn)}), flush=True)
     return ok
 

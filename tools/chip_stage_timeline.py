@@ -48,11 +48,14 @@ way: its spans are the reduce, the mid and the expand with the projection,
 each with its split sum. The f32 basic stage's copy gets a barrier and a
 stamp after each block's second conv: per block, the first conv with its
 split sum, the second with its split sum (and, before the next block, one
-barrier alone). The int8 basic stage's copy gets a barrier and a
-stamp after each block's last phase: per block, the quantize phase (block
-0's with the weight transposes), the first conv with its split sum, the
-second quantize, the second conv with its split sum (and, before the next
-block, one barrier alone). The int8 Winograd's copy in its grid-barrier
+barrier alone). The int8 basic stage's copy, since its folded s8 wgmma
+phases, x's pixel maxima first, then the same: per block, the first conv
+(its rows quantized from the published maxima, its products and its split
+sum), the second, and before the next block one barrier alone; in its mma.sync
+layout (--root an older checkout) per block the quantize phase (block 0's
+with the weight transposes), the first conv with its split sum, the second
+quantize, the second conv with its split sum (and, before the next block,
+one barrier alone). The int8 Winograd's copy in its grid-barrier
 layout (before its items became thread-block clusters) ends the same way:
 the position items, then the inverse; in its cluster layout every block's
 thread 0 stamps its start, V and the first weights staged, the rows
@@ -101,9 +104,9 @@ SHAPES = {  # (N, H, W, Cio, Cmid, blocks, mid): the served stages, conv4_x at N
 # (N, H, W, Cin, Cmid, Cout): the served transitions at N=1 and N=8.
 TRANSITION_SHAPES = [(n, hw, hw, cin, cin // 2, 2 * cin) for n in (1, 8)
                      for hw, cin in ((56, 256), (28, 512), (14, 1024))]
-# (N, H, W, C, blocks): ResNet-34's conv5_x run at N=1 and N=8, ResNet-18's;
+# (N, H, W, C, blocks): ResNet-34's conv5_x run at N=1, 8 and 32, ResNet-18's;
 # both basic stages.
-BASIC_STAGE_SHAPES = [(1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (1, 7, 7, 512, 1)]
+BASIC_STAGE_SHAPES = [(1, 7, 7, 512, 2), (8, 7, 7, 512, 2), (32, 7, 7, 512, 2), (1, 7, 7, 512, 1)]
 # (N, H, W, Cin, Cout, relu): the served int8 Winograds at N=1 and N=8.
 WINOGRAD_INT8_SHAPES = [(1, 28, 28, 128, 128, True), (1, 14, 14, 256, 256, True),
                         (8, 28, 28, 128, 128, True), (8, 14, 14, 256, 256, True)]
@@ -132,12 +135,17 @@ LAYOUT = {
                     "  sk::gemm_phase<kVec, true>(a.reduce,"),
                    ("  ph::reduce_phase(a.expand, e3, a.part, a.bar);\n",
                     "BiasReluEpilogue{a.bep, a.out, a.Cout}, a.part, a.bar, smem);\n")),
-    "basic_stage": ('#include "splitk_tf32.cuh"\n',
+    "basic_stage": (('#include "wgmma_tile.cuh"\n',  # since the wgmma phases
+                     '#include "splitk_tf32.cuh"\n'),
                     "  for (int blk = 0; blk < a.B; ++blk) {\n    const float* act",
-                    "act, a.out, c}, a.part,\n                               a.bar, smem);\n"),
-    "basic_stage_int8": ('#include "mma_int8.cuh"\n',
-                         "  // Every block's two weight matrices k-contiguous",
-                         "act, a.out, c},\n                   a.part, a.bar, smem);\n"),
+                    ("    ph::reduce_phase(a.conv, e2, a.part, a.bar);\n",
+                     "act, a.out, c}, a.part,\n                               a.bar, smem);\n")),
+    "basic_stage_int8": (('#include "wgmma_s8_phase.cuh"\n',  # since the s8 wgmma phases
+                          '#include "mma_int8.cuh"\n'),
+                         ("  // x's pixel maxima, the first conv's",
+                          "  // Every block's two weight matrices k-contiguous"),
+                         ("                   a.bar, ring, scratch, true);\n",
+                          "act, a.out, c},\n                   a.part, a.bar, smem);\n")),
     "winograd_int8": ('#include "winograd.cuh"\n',
                       "  const int items = 16 * a.tile_blocks * a.col_blocks;",
                       "static_cast<int>(i % a.Cout), mp);\n  }\n"),

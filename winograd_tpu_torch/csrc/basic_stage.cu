@@ -19,25 +19,31 @@
 // Design: the TPU kernel keeps the activation in VMEM across both convs and
 // all blocks while Pallas streams each block's weights. Here it is
 // csrc/stage.cu's persistent cooperative kernel of at most kMaxBlocksPerSm
-// 128-thread blocks an SM: each conv is one splitk_tf32.cuh::gemm_phase,
-// 64 x 64 3xTF32 mma.sync tiles on a 4-deep cp.async ring (72 KB of
-// dynamic shared memory) whose A operand is the implicit im2col of act or
-// h1 (mma_tf32.cuh's Im2colA, gathered by the tile's copies and never
-// materialised), with a grid barrier between convs; h1 lives in a device
-// workspace that stays in L2. At N=1 the map has 49 rows against a
-// (4608, 512) weight, 8 output tiles for a grid of 264 blocks, so each
+// 128-thread blocks an SM, and each conv is one of its GEMM phases
+// (wgmma_phase.cuh, shared with the stage and csrc/transition.cu: the
+// stage's direct mid is this conv at 14x14): wgmma_tile.cuh's 64 x 64
+// tiles, one warpgroup's wgmma.mma_async in 3xTF32 (each stage's products
+// added in FP32), the weight tiles by TMA onto mbarriers from the stacked
+// (B, 9C, C) weights' tensor map, and A the implicit im2col of act or h1
+// (mma_tf32.cuh's Im2colA, gathered by the tile's cp.async copies and
+// never materialised), a 4-deep ring (85 KB of dynamic shared memory at
+// f32), with a grid barrier between convs; h1 lives in a device workspace
+// that stays in L2. The weights do not depend on the activations, so a
+// block issues the TMA loads of its first item of the next conv before it
+// waits at the barrier that ends a conv. At N=1 the map has 49 rows against
+// a (4608, 512) weight, 8 output tiles for a grid of 264 blocks, so each
 // conv splits K as the host's plan says (kernels/basic_stage.py::
-// basic_stage_plan) and adds the splits' partial sums in a fixed order
-// after a barrier (deterministic, no atomics): most blocks stream a slice
-// of the weights instead of idling. This entry checks the plan against the
-// geometry compiled here and refuses one that does not fit.
+// basic_stage_plan, in whole stages of the tile) and adds the splits'
+// partial sums in a fixed order after a barrier (deterministic, no
+// atomics): most blocks stream a slice of the weights instead of idling.
+// This entry checks the plan against the geometry compiled here and
+// refuses one that does not fit.
 //
 // The bf16w tier (basic_stage_bf16w: w9_a and w9_b bf16, BN f32; the JAX
-// kernel at precision="bf16w") is the same kernel and plan on
-// mma_bf16w.cuh's tile (wt::mma_tile by the weights' type): both convs
-// split their implicit im2col hi/lo into two bf16 m16n8k16 passes on the
-// bf16 weights, half the weight bytes (4.7 MB a conv at 7x7x512, not 9.4)
-// and a third of the tensor-core instructions. The ring takes 58 KB.
+// kernel at precision="bf16w") is the same kernel and plan on the bf16
+// tiles: the f32 im2col split hi/lo into two bf16 wgmma m64n64k16 passes
+// on the weights read straight from TMA's swizzled boxes, half the weight
+// bytes (4.7 MB a conv at 7x7x512, not 9.4).
 
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -46,17 +52,24 @@
 
 #include "common.cuh"
 #include "splitk_tf32.cuh"
+#include "wgmma_phase.cuh"
+#include "wgmma_tile.cuh"
 
 namespace {
 
 namespace tc = wt::tf32x3;
 namespace sk = wt::splitk;
+namespace wg = wt::wg;
+namespace ph = wt::wgphase;
 
 constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
+static_assert(sk::kSplitStep == wg::kBK, "a conv's splits are whole stages of the wgmma tile");
 
-// BT: the weights' element type, float or __nv_bfloat16 (bf16w).
+// BT: the weights' element type, float or __nv_bfloat16 (bf16w). The maps
+// (kVec): w9_a and w9_b as (C, 9C, B) for the TMA loads.
 template <class BT>
 struct BasicStageArgs {
+  CUtensorMap map_a, map_b;
   const float* x;
   float* out;
   const BT* wa;  // (B, 9*C, C)
@@ -73,26 +86,35 @@ struct BasicStageArgs {
 };
 
 // kVec: C a multiple of 4 (of 8 for bf16 weights), every operand 16-byte
-// aligned.
+// aligned (the TMA maps and 16-byte A copies).
 template <bool kVec, class BT>
-__global__ void __launch_bounds__(tc::kThreads, kMaxBlocksPerSm)
-    basic_stage_kernel(BasicStageArgs<BT> a) {
+__global__ void __launch_bounds__(wg::kThreads, kMaxBlocksPerSm)
+    basic_stage_kernel(const __grid_constant__ BasicStageArgs<BT> a) {
   extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t bars[wg::kStages];
+  wg::Ring ring = wg::make_ring(smem, bars);
   const int c = a.C;
   const int P = a.N * a.H * a.W;
+  const size_t per = static_cast<size_t>(9) * c * c;  // a block's weights
+  bool pre = false;
   for (int blk = 0; blk < a.B; ++blk) {
     const float* act = blk == 0 ? a.x : a.out;
-    const size_t bw = static_cast<size_t>(blk) * 9 * c * c;
     const size_t bc = static_cast<size_t>(blk) * c;
+    const wg::Weights<BT> wa{&a.map_a, a.wa + blk * per, c, 9 * c, blk};
+    const wg::Weights<BT> wb{&a.map_b, a.wb + blk * per, c, 9 * c, blk};
 
-    sk::gemm_phase<kVec, true>(a.conv, tc::Im2colA{act, a.H, a.W, c, P}, a.wa + bw,
-                               wt::BnEpilogue{a.sa + bc, a.ba + bc, a.h1, c, 1}, a.part, a.bar,
-                               smem);
+    const wt::BnEpilogue e1{a.sa + bc, a.ba + bc, a.h1, c, 1};
+    ph::phase_items<kVec>(a.conv, tc::Im2colA{act, a.H, a.W, c, P}, wa, e1, a.part, ring, pre);
+    pre = ph::prefetch_phase<kVec>(a.conv, wb, ring);
+    ph::reduce_phase(a.conv, e1, a.part, a.bar);
     wt::grid_sync(a.bar);
 
-    sk::gemm_phase<kVec, true>(a.conv, tc::Im2colA{a.h1, a.H, a.W, c, P}, a.wb + bw,
-                               wt::ResidualEpilogue{a.sb + bc, a.bb + bc, act, a.out, c}, a.part,
-                               a.bar, smem);
+    const wt::ResidualEpilogue e2{a.sb + bc, a.bb + bc, act, a.out, c};
+    ph::phase_items<kVec>(a.conv, tc::Im2colA{a.h1, a.H, a.W, c, P}, wb, e2, a.part, ring, pre);
+    if (blk + 1 < a.B)
+      pre = ph::prefetch_phase<kVec>(
+          a.conv, wg::Weights<BT>{&a.map_a, a.wa + (blk + 1) * per, c, 9 * c, blk + 1}, ring);
+    ph::reduce_phase(a.conv, e2, a.part, a.bar);
     if (blk + 1 < a.B) wt::grid_sync(a.bar);
   }
 }
@@ -113,11 +135,10 @@ int resident_blocks(bool vec) {
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
   if (cache[dev][vec] == 0) {
     const void* kernel = kernel_of<BT>(vec);
-    constexpr size_t smem = wt::kTileSmemBytes<BT>;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem)) != cudaSuccess)
+                             static_cast<int>(wg::kSmemBytes<BT>)) != cudaSuccess)
       return 0;
-    cache[dev][vec] = cooperative_grid(kernel, smem, tc::kThreads, kMaxBlocksPerSm);
+    cache[dev][vec] = cooperative_grid(kernel, wg::kSmemBytes<BT>, wg::kThreads, kMaxBlocksPerSm);
   }
   return cache[dev][vec];
 }
@@ -159,15 +180,19 @@ int stage(const float* x, const BT* wa, const float* sa, const float* ba, const 
                    aligned16(wb) && aligned16(ws);
   const int resident = resident_blocks<BT>(vec);
   if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
+  BasicStageArgs<BT> a{{}, {}, x, out, wa, sa, ba, wb, sb, bb, ws + pl.h1, ws + pl.part,
+                       reinterpret_cast<unsigned int*>(ws), N, H, W, C, B, pl.conv};
+  if (vec) {
+    cudaError_t e = wg::encode_weights(&a.map_a, wa, B, 9 * C, C);
+    if (e == cudaSuccess) e = wg::encode_weights(&a.map_b, wb, B, 9 * C, C);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const auto s = static_cast<cudaStream_t>(stream);
-  unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
-  cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
+  cudaError_t e = cudaMemsetAsync(a.bar, 0, 2 * sizeof(unsigned int), s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  BasicStageArgs<BT> a{x, out, wa, sa, ba, wb, sb, bb, ws + pl.h1, ws + pl.part, bar,
-                       N, H, W, C, B, pl.conv};
   void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(kernel_of<BT>(vec), dim3(blocks), dim3(tc::kThreads), args,
-                                  wt::kTileSmemBytes<BT>, s);
+  e = cudaLaunchCooperativeKernel(kernel_of<BT>(vec), dim3(blocks), dim3(wg::kThreads), args,
+                                  wg::kSmemBytes<BT>, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

@@ -18,179 +18,275 @@
 // int8 weights, 4 * 2.4 MB read once, take 2.8 us at 3.35 TB/s: bound by
 // bytes.
 //
-// Design: csrc/stage_int8.cu's direct-mid phases on mma_int8.cuh, in one
-// cooperative launch. A row's scale needs its whole 9 * C window, written
-// by many blocks in the phase before, so each conv is a quantize phase
-// (quantize_rows_phase over Im2colRows: every im2col row's scale and int8
-// values once, zero padding included, into a (P, Kp) int8 matrix), a grid
-// barrier, and a gemm_phase: 64 x 64 s8 mma.sync tiles, K split over exact
-// int32 partial sums where the tiles are fewer than the blocks (24 ranges
-// at N=1, 4 at N=8: the host's plan, kernels/basic_stage.py::
-// basic_stage_int8_plan, picks the split and this entry checks it), added
-// after a barrier, then the epilogue once per element, as acc * (s_x *
-// s_w) * s + b (+ act), each multiply and add rounded on its own in the
-// plain version's order, so the two agree to the bit. The 2B weight
-// matrices are written k-contiguous (C, Kp) once a launch, beside block 0's
-// first quantize phase (9.4 MB at conv5_x's two blocks, L2-resident).
+// Design: csrc/transition_int8.cu's folded phases (wgmma_s8_phase.cuh, the
+// int8 stage's) in one cooperative launch: each conv is one gemm_phase on
+// wgmma_s8.cuh's s8 wgmma m64n64k32 tiles, two warpgroups a block each on
+// items of its own, the weights by TMA from k-contiguous (B, C, Kp) copies
+// made once per weight tensor, at its first launch (kernels/
+// basic_stage.py::basic_stage_int8_kmajor; s8 wgmma reads both operands
+// K-major and TMA cannot transpose bytes), so no phase of the launch
+// transposes weights and no phase only quantizes. A row's scale needs the
+// max over its whole 9 * C window, written by many blocks in the phase
+// before; so each producing epilogue publishes its pixels' max |v| (one
+// atomicMax of the bits a row and tile) and the conv after it quantizes
+// its own rows:
+// * each conv's blocks quantize a share of its im2col rows into aq (a
+//   row's scale the max of its nine pixels' published maxima, zero for a
+//   tap outside the map, as the padding gives: wgmma_s8_phase.cuh::
+//   Im2colSrc<1>), and each item waits only for its own row block's
+//   counter;
+// * the first conv's epilogue writes h1 and publishes h1's pixel maxima;
+//   the second's writes out in place and publishes out's, which the next
+//   block's first conv reads (the last block's are not published);
+// * x has no producer in the launch: a first phase takes its pixel maxima,
+//   a warp a pixel, while the first conv's first weight boxes land, one
+//   grid barrier before block 0 (a block's share of x's im2col rows taking
+//   their maxima itself, as XRowsSrc does for the transition's rows, ran
+//   10 us longer at N=1: a row a block, a warp a row);
+// * the maxima are kept per block (2 x B x P words) and the row blocks'
+//   counters per conv and block, all zeroed by the launch's one memset
+//   with the grid barrier: no phase zeroes any.
+// A conv whose tiles are few splits K over items (kernels/basic_stage.py::
+// basic_stage_int8_plan, in whole stages of the s8 tile; checked here
+// against the geometry), its exact int32 partial sums added after a grid
+// barrier, where the epilogue runs once per element. The next conv's first
+// weight boxes are issued before each grid barrier. Grid barriers: one a
+// conv (x's maxima's included), plus one for each conv that splits K.
+// Int32 sums are exact and every f32 epilogue rounds each multiply and add
+// on its own, in the plain version's order, so the kernel equals
+// kernels/basic_stage.py::basic_stage_int8_plain to the bit.
 
+#include <cuda.h>
 #include <stdint.h>
 
 #include "common.cuh"
-#include "mma_int8.cuh"
+#include "wgmma_s8.cuh"
+#include "wgmma_s8_phase.cuh"
 
 namespace {
 
-namespace s8 = wt::s8mma;
+namespace q8 = wt::wgs8;
+namespace ph = wt::s8phase;
 
-constexpr int kBlocksPerSm = 2;
-constexpr int kSplitStep = s8::kBK;  // a split but the last is a multiple of this
+constexpr int kBlocksPerSm = 1;
+constexpr int kSplitCap = 16;
+constexpr int kKAlign = 32;  // K of the quantized rows and the k-contiguous weights padded to this
 
-struct Args {
+struct BasicStageInt8Args {
+  CUtensorMap map_a, map_b;  // the k-contiguous (B, C, Kp) weights
   const float* x;
   float* out;
-  const int8_t* wa;  // (B, 9*C, C) int8
   const float* swa;  // (B, 1, C) weight scales
   const float* sa;   // (B, 1, C) folded BN
   const float* ba;
-  const int8_t* wb;
   const float* swb;
   const float* sb;
   const float* bb;
   float* h1;
-  float* sx;    // row scales, P
-  int8_t* aq;   // quantized im2col rows, (P, Kp)
-  int8_t* bta;  // (B, C, Kp) first convs' weights, k-contiguous
-  int8_t* btb;  // (B, C, Kp) second convs'
-  int* part;
+  float* sx;      // a conv's row scales, P
+  unsigned* mx1;  // h1's pixel maxima, B x P (block by block)
+  unsigned* mxa;  // act's pixel maxima, B x P: x's, then out's after each block
+  unsigned* cnt;  // the row blocks' counters: B blocks x 2 convs x row_blocks
+  int8_t* aq;     // a conv's quantized im2col rows, (P, Kp)
+  int* part;      // int32 partial sums
   unsigned int* bar;
-  int N, H, W, C, B, Kp, splits, chunk;
+  int N, H, W, C, B, Kp, row_blocks;
+  wt::GemmPhase conv;
 };
 
-__global__ void __launch_bounds__(s8::kThreads, kBlocksPerSm) basic_stage_int8_kernel(Args a) {
-  __shared__ __align__(16) int8_t smem[s8::kSmemBytes];
-  __shared__ float red[s8::kThreads / 32];
-  const int c = a.C, k = 9 * c;
-  const int P = a.N * a.H * a.W;
-
-  // Every block's two weight matrices k-contiguous, for the whole launch.
-  {
-    const auto transpose = [&](int m) {  // m = 2 * block + leg
-      const size_t in = static_cast<size_t>(m / 2) * k * c;
-      const size_t to = static_cast<size_t>(m / 2) * c * a.Kp;
-      return m % 2 ? s8::Transpose{a.wb + in, k, c, a.Kp, a.btb + to}
-                   : s8::Transpose{a.wa + in, k, c, a.Kp, a.bta + to};
-    };
-    const long long per = transpose(0).items();
-    for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-         i < per * 2 * a.B; i += static_cast<long long>(gridDim.x) * blockDim.x)
-      transpose(static_cast<int>(i / per)).item(i % per);
-  }
-  for (int blk = 0; blk < a.B; ++blk) {
-    const float* act = blk == 0 ? a.x : a.out;
-    const size_t bw = static_cast<size_t>(blk) * c * a.Kp, bc = static_cast<size_t>(blk) * c;
-
-    if (blk > 0) wt::grid_sync(a.bar);
-    s8::quantize_rows_phase(s8::Im2colRows<true, true>{act, a.H, a.W, c / 4}, P, k, a.Kp, a.aq,
-                            a.sx, red);
-    wt::grid_sync(a.bar);
-    s8::gemm_phase(a.aq, a.bta + bw, a.sx, P, c, a.Kp, a.splits, a.chunk,
-                   wt::Int8BnEpilogue{a.swa + bc, a.sa + bc, a.ba + bc, a.h1, c, 1}, a.part,
-                   a.bar, smem);
-    wt::grid_sync(a.bar);
-
-    s8::quantize_rows_phase(s8::Im2colRows<true, true>{a.h1, a.H, a.W, c / 4}, P, k, a.Kp, a.aq,
-                            a.sx, red);
-    wt::grid_sync(a.bar);
-    s8::gemm_phase(a.aq, a.btb + bw, a.sx, P, c, a.Kp, a.splits, a.chunk,
-                   wt::ResidualInt8Epilogue{a.swb + bc, a.sb + bc, a.bb + bc, act, a.out, c},
-                   a.part, a.bar, smem);
+// The max |v| of each of x's P pixels (rows of C floats) as bits into
+// mx[p], a warp a pixel over the grid (XRowsSrc's row maxima).
+__device__ __forceinline__ void pixel_max(const float* x, int P, int C, unsigned* mx) {
+  const int warps = gridDim.x * (q8::kThreads / 32);
+  const ph::XRowsSrc rows{x, C, C};
+  for (int p = blockIdx.x * (q8::kThreads / 32) + threadIdx.x / 32; p < P; p += warps) {
+    unsigned m[1];
+    rows.row_max<1>(p, 0, 1, m);
+    if (threadIdx.x % 32 == 0) mx[p] = m[0];
   }
 }
 
-// Blocks of the kernel in the cooperative grid: what the current device
-// holds resident, at most kBlocksPerSm an SM; 0 on error.
+__global__ void __launch_bounds__(q8::kThreads, kBlocksPerSm)
+    basic_stage_int8_kernel(const __grid_constant__ BasicStageInt8Args a) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ __align__(8) uint64_t bars[q8::kWarpgroups * q8::kStages];
+  q8::Ring ring = q8::make_ring(smem, bars);
+  float* scratch = reinterpret_cast<float*>(ring.base - q8::wg_index() * q8::kRingBytes);
+  const int c = a.C;
+  const size_t P = static_cast<size_t>(a.N) * a.H * a.W;
+
+  // x's pixel maxima, the first conv's first weight boxes meanwhile.
+  ph::prefetch_phase(a.conv, q8::Weights{&a.map_a, 0}, ring);
+  pixel_max(a.x, static_cast<int>(P), c, a.mxa);
+  wt::grid_sync(a.bar);
+
+  // Block by block: the first conv on act's im2col rows, then the second
+  // on h1's, its residual act.
+  for (int blk = 0; blk < a.B; ++blk) {
+    const float* act = blk == 0 ? a.x : a.out;
+    const size_t bc = static_cast<size_t>(blk) * c;
+    unsigned* cnt = a.cnt + static_cast<size_t>(blk) * 2 * a.row_blocks;
+    unsigned* mx1 = a.mx1 + blk * P;
+    unsigned* mxa = a.mxa + blk * P;
+    const q8::Weights wa{&a.map_a, blk}, wb{&a.map_b, blk};
+
+    // x is never written in the launch: block 0 reads it through L1.
+    const ph::BnEpi e1{a.swa + bc, a.sa + bc, a.ba + bc, a.h1, c};
+    if (blk == 0)
+      ph::gemm_phase(a.conv, ph::Im2colSrc<1, true>{a.x, a.H, a.W, c, mxa}, a.Kp, wa, e1, mx1,
+                     a.aq, a.sx, cnt, a.part, a.bar, ring, scratch, true);
+    else
+      ph::gemm_phase(a.conv, ph::Im2colSrc<1>{a.out, a.H, a.W, c, mxa}, a.Kp, wa, e1, mx1, a.aq,
+                     a.sx, cnt, a.part, a.bar, ring, scratch, true);
+    ph::prefetch_phase(a.conv, wb, ring);
+    wt::grid_sync(a.bar);
+
+    const ph::ResEpi e2{a.swb + bc, a.sb + bc, a.bb + bc, act, a.out, c};
+    ph::gemm_phase(a.conv, ph::Im2colSrc<1>{a.h1, a.H, a.W, c, mx1}, a.Kp, wb, e2,
+                   blk + 1 < a.B ? mxa + P : nullptr, a.aq, a.sx, cnt + a.row_blocks, a.part,
+                   a.bar, ring, scratch, true);
+    if (blk + 1 < a.B) {
+      ph::prefetch_phase(a.conv, q8::Weights{&a.map_a, blk + 1}, ring);
+      wt::grid_sync(a.bar);
+    }
+  }
+}
+
+// Blocks of the kernel the current device holds resident at once (a
+// cooperative grid may not be larger), at most kBlocksPerSm an SM (its
+// dynamic shared memory limit raised once per device); 0 on error.
 int resident_blocks() {
-  static int cache[64] = {0};
+  static int cache[64] = {};
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cache[dev] == 0)
-    cache[dev] = cooperative_grid(reinterpret_cast<const void*>(basic_stage_int8_kernel), 0,
-                                  s8::kThreads, kBlocksPerSm);
+  if (cache[dev] == 0) {
+    const void* kernel = reinterpret_cast<const void*>(basic_stage_int8_kernel);
+    if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(q8::kSmemBytes)) != cudaSuccess)
+      return 0;
+    cache[dev] = cooperative_grid(kernel, q8::kSmemBytes, q8::kThreads, kBlocksPerSm);
+  }
   return cache[dev];
 }
 
 // 4-byte words holding `bytes` bytes, rounded up to the workspace's step.
 size_t words_of(size_t bytes) { return workspace_round_up((bytes + 3) / 4); }
 
-struct Plan {
-  int Kp;
-  size_t h1, sx, aq, bta, btb, part, total;  // workspace offsets and size, in words
+struct Layout {
+  int Kp, row_blocks;
+  wt::GemmPhase conv;
+  // workspace offsets and size, in 4-byte words (the barrier, the counters
+  // and the pixel maxima first: one memset of `zeroed` words zeroes them)
+  size_t cnt, mx1, mxa, zeroed, h1, sx, aq, part, total;
 };
 
-// The workspace of the host's plan (grid `blocks`, Kp in `splits` ranges of
-// `chunk`), after checking it against the kernel's geometry.
-int make_plan(int N, int H, int W, int C, int B, int blocks, int splits, int chunk, Plan* pl) {
-  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || B <= 0 || C % 4 != 0 || blocks <= 0 ||
-      splits <= 0 || chunk <= 0)
+// The workspace of the host's plan (K = 9 * C padded to kKAlign in `splits`
+// ranges of `chunk`, each but the last a whole number of the tile's kBK-byte
+// stages): the grid barrier's two counters at word 0, the row blocks'
+// counters, h1's and act's pixel maxima, then h1, the row scales, the
+// quantized rows and the int32 partial sums; an error if the shape or the
+// plan does not fit.
+int make_layout(int N, int H, int W, int C, int B, int splits, int chunk, Layout* l) {
+  if (N <= 0 || H <= 0 || W <= 0 || C <= 0 || B <= 0 || C % 4 != 0 || H >= (1 << 15) ||
+      W >= (1 << 15))
     return static_cast<int>(cudaErrorInvalidValue);
+  l->Kp = (9 * C + kKAlign - 1) / kKAlign * kKAlign;
   const size_t P = static_cast<size_t>(N) * H * W;
-  pl->Kp = (9 * C + s8::kKAlign - 1) / s8::kKAlign * s8::kKAlign;
-  if (static_cast<long long>(chunk) * splits < pl->Kp ||
-      static_cast<long long>(chunk) * (splits - 1) >= pl->Kp ||
-      (splits > 1 && chunk % kSplitStep != 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int resident = resident_blocks();
-  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const size_t wt_bytes = static_cast<size_t>(B) * C * pl->Kp;
-  pl->h1 = kWorkspaceAlign;  // the barrier's two counters sit at the front
-  pl->sx = pl->h1 + workspace_round_up(P * C);
-  pl->aq = pl->sx + workspace_round_up(P);
-  pl->bta = pl->aq + words_of(P * pl->Kp);
-  pl->btb = pl->bta + words_of(wt_bytes);
-  pl->part = pl->btb + words_of(wt_bytes);
-  pl->total = pl->part + (splits > 1 ? static_cast<size_t>(splits) * P * C : 0);
+  l->conv = wt::GemmPhase{static_cast<int>(P), l->Kp, C, splits, chunk};
+  const bool fits =
+      splits == 1 ? chunk == l->Kp
+                  : splits > 1 && splits <= kSplitCap && chunk % q8::kBK == 0 &&
+                        static_cast<long long>(chunk) * splits >= l->Kp &&
+                        static_cast<long long>(chunk) * (splits - 1) < l->Kp;
+  if (!fits) return static_cast<int>(cudaErrorInvalidValue);
+  l->row_blocks = static_cast<int>((P + q8::kBM - 1) / q8::kBM);
+  l->cnt = 2;
+  l->mx1 = l->cnt + static_cast<size_t>(2) * B * l->row_blocks;
+  l->mxa = l->mx1 + B * P;
+  l->zeroed = l->mxa + B * P;
+  l->h1 = workspace_round_up(l->zeroed);
+  l->sx = l->h1 + workspace_round_up(P * C);
+  l->aq = l->sx + workspace_round_up(P);
+  l->part = l->aq + words_of(P * l->Kp);
+  l->total = l->part + phase_partial_floats(l->conv);
   return 0;
 }
 
 }  // namespace
 
+// Blocks an SM the cooperative grid takes at most (the host's plan,
+// kernels/basic_stage.py::BASIC_STAGE_INT8_BLOCKS_PER_SM, checks against
+// it).
+extern "C" int basic_stage_int8_blocks_per_sm() { return kBlocksPerSm; }
+
 // 4-byte words of workspace basic_stage_int8 needs for this shape and plan
-// on the current device (into *words); returns a CUDA error code.
+// (into *words); returns a CUDA error code.
 extern "C" int basic_stage_int8_workspace(int N, int H, int W, int C, int B, int blocks,
                                           int splits, int chunk, long long* words) {
-  Plan pl;
-  const int err = make_plan(N, H, W, C, B, blocks, splits, chunk, &pl);
-  if (err == 0) *words = static_cast<long long>(pl.total);
+  Layout l;
+  const int err = blocks > 0 ? make_layout(N, H, W, C, B, splits, chunk, &l)
+                             : static_cast<int>(cudaErrorInvalidValue);
+  if (err == 0) *words = static_cast<long long>(l.total);
   return err;
 }
 
 // The host's plan (kernels/basic_stage.py::basic_stage_int8_plan): the
 // cooperative grid's `blocks` (at most what the device holds resident) and
-// the K split of both convs, Kp = 9 * C padded to a multiple of s8::kKAlign
-// in `splits` ranges of `chunk`. C a multiple of 4 (the wrapper pads other
-// counts with zero channels); x and out 16-byte aligned.
-extern "C" int basic_stage_int8(const float* x, const int8_t* wa, const float* swa,
-                                const float* sa, const float* ba, const int8_t* wb,
+// the K split of both convs, Kp = 9 * C padded to kKAlign in `splits` ranges
+// of `chunk`. wa_t, wb_t: the k-contiguous int8 weights, (B, C, Kp), zero
+// past 9 * C, 16-byte aligned. C a multiple of 4 (the wrapper pads other
+// counts with zero channels); x and out 16-byte aligned; ws at least
+// basic_stage_int8_workspace's words, 16-byte aligned.
+extern "C" int basic_stage_int8(const float* x, const int8_t* wa_t, const float* swa,
+                                const float* sa, const float* ba, const int8_t* wb_t,
                                 const float* swb, const float* sb, const float* bb, float* out,
                                 float* ws, long long ws_words, int N, int H, int W, int C, int B,
                                 int blocks, int splits, int chunk, void* stream) {
-  Plan pl;
-  const int err = make_plan(N, H, W, C, B, blocks, splits, chunk, &pl);
+  Layout l;
+  const int err = make_layout(N, H, W, C, B, splits, chunk, &l);
   if (err != 0) return err;
-  if (ws_words < static_cast<long long>(pl.total) ||
-      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)
+  const auto aligned = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  if (blocks <= 0 || ws_words < static_cast<long long>(l.total) || !aligned(x) ||
+      !aligned(out) || !aligned(ws) || !aligned(wa_t) || !aligned(wb_t))
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto s = static_cast<cudaStream_t>(stream);
-  unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
-  cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
+  const int resident = resident_blocks();
+  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
+  BasicStageInt8Args a{};
+  cudaError_t e = q8::encode_kmajor(&a.map_a, wa_t, B, C, l.Kp);
+  if (e == cudaSuccess) e = q8::encode_kmajor(&a.map_b, wb_t, B, C, l.Kp);
   if (e != cudaSuccess) return static_cast<int>(e);
-  Args a{x, out, wa, swa, sa, ba, wb, swb, sb, bb, ws + pl.h1, ws + pl.sx,
-         reinterpret_cast<int8_t*>(ws + pl.aq), reinterpret_cast<int8_t*>(ws + pl.bta),
-         reinterpret_cast<int8_t*>(ws + pl.btb), reinterpret_cast<int*>(ws + pl.part), bar,
-         N, H, W, C, B, pl.Kp, splits, chunk};
+  const auto s = static_cast<cudaStream_t>(stream);
+  // The barrier, the row blocks' counters and the pixel maxima in one memset.
+  e = cudaMemsetAsync(ws, 0, l.zeroed * 4, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const auto u32 = [&](size_t at) { return reinterpret_cast<unsigned*>(ws + at); };
+  a.x = x;
+  a.out = out;
+  a.swa = swa;
+  a.sa = sa;
+  a.ba = ba;
+  a.swb = swb;
+  a.sb = sb;
+  a.bb = bb;
+  a.h1 = ws + l.h1;
+  a.sx = ws + l.sx;
+  a.mx1 = u32(l.mx1);
+  a.mxa = u32(l.mxa);
+  a.cnt = u32(l.cnt);
+  a.aq = reinterpret_cast<int8_t*>(ws + l.aq);
+  a.part = reinterpret_cast<int*>(ws + l.part);
+  a.bar = u32(0);
+  a.N = N;
+  a.H = H;
+  a.W = W;
+  a.C = C;
+  a.B = B;
+  a.Kp = l.Kp;
+  a.row_blocks = l.row_blocks;
+  a.conv = l.conv;
   void* args[] = {&a};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(basic_stage_int8_kernel),
-                                  dim3(blocks), dim3(s8::kThreads), args, 0, s);
+                                  dim3(blocks), dim3(q8::kThreads), args, q8::kSmemBytes, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

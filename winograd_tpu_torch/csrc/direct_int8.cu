@@ -64,7 +64,7 @@ __global__ void __launch_bounds__(s8::kThreads) direct_int8_kernel(Args a) {
   __shared__ __align__(16) int8_t smem[s8::kSmemBytes];
   __shared__ float red[s8::kThreads / 32];
   const int P = a.N * a.H * a.W, K = 9 * a.Cin;
-  s8::quantize_rows_phase(s8::Im2colRows<kVec, false>{a.x, a.H, a.W, a.Cin / 4}, P, K, a.Kp,
+  s8::quantize_rows_phase(s8::Im2colRows<kVec>{a.x, a.H, a.W, a.Cin / 4}, P, K, a.Kp,
                           a.aq, a.sx, red);
   s8::transpose_phase(a.w9q, K, a.Cout, a.Kp, a.bt);
   wt::grid_sync(a.bar);

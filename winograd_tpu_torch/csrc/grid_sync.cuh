@@ -1,7 +1,7 @@
 // What the persistent cooperative kernels share: a grid-wide barrier, a
 // loader and epilogues that read data produced earlier in the same launch,
 // the shape and K split of a GEMM phase that walks its output tiles (and K
-// splits) over all blocks (splitk_tf32.cuh's and mma_int8.cuh's
+// splits) over all blocks (wgmma_phase.cuh's phases and mma_int8.cuh's
 // gemm_phase), and the host side's workspace and grid helpers.
 //
 // The kernels are launched with cudaLaunchCooperativeKernel, which refuses a

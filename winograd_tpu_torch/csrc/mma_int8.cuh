@@ -10,7 +10,7 @@
 // done:
 // * quantize_rows_phase: each row's scale and int8 values are computed once,
 //   by a group of 1-8 warps that walks the row in float4s through a loader
-//   (RowsCg4, Im2colRows), and stored as a (P, Kp) int8 matrix (Kp = K
+//   (Im2colRows: csrc/direct_int8.cu's), and stored as a (P, Kp) int8 matrix (Kp = K
 //   rounded up to kKAlign, zero past K) with the scales beside it.
 // * transpose_phase: mma.sync's B operand is k-contiguous per column, the
 //   weights are (K, N) n-contiguous; each launch writes them once as an
@@ -120,43 +120,22 @@ __device__ __forceinline__ float abs_max4(float m, float4 v) {
   return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
 }
 
-// Four floats from src: one 16-byte load where kVec (src 16-byte aligned),
-// else four; through L2 only where kCg (data written earlier in the launch,
-// see grid_sync.cuh), else the read-only path.
-template <bool kVec, bool kCg>
+// Four floats from src through the read-only path: one 16-byte load where
+// kVec (src 16-byte aligned), else four.
+template <bool kVec>
 __device__ __forceinline__ float4 load4(const float* src) {
-  if (kVec) {
-    const float4* p = reinterpret_cast<const float4*>(src);
-    return kCg ? __ldcg(p) : __ldg(p);
-  }
-  if (kCg) return make_float4(__ldcg(src), __ldcg(src + 1), __ldcg(src + 2), __ldcg(src + 3));
+  if (kVec) return __ldg(reinterpret_cast<const float4*>(src));
   return make_float4(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3));
 }
 
-// Loaders for quantize_rows_phase.
-//
-// The rows of a row-major (P, ld) float matrix, ld % 4 == 0, 16-byte
-// aligned, written earlier in the launch.
-struct RowsCg4 {
-  const float* x;
-  int ld;
-  using Row = const float*;
-  using Walk = const float*;
-  __device__ __forceinline__ Row row(int p) const { return x + static_cast<size_t>(p) * ld; }
-  __device__ __forceinline__ Walk walk(Row r, int j) const { return r + 4 * j; }
-  __device__ __forceinline__ void next(Row, Walk& it, int step) const { it += 4 * step; }
-  __device__ __forceinline__ float4 load(Walk it) const { return load4<true, true>(it); }
-};
-
-// The pad-1 3x3 im2col rows of an (N, H, W, 4 * C4) map at stride kStride,
-// four channels at a time: row p = (n, oy, ox) of the (N, ceil(H / kStride),
-// ceil(W / kStride)) output takes the taps (kStride oy + r - 1, kStride ox +
-// s - 1), zero outside the map (stride 2 is the transition's SAME 3x3). kVec:
-// x is 16-byte aligned; kCg: x was written earlier in the launch. A walk
-// over a row's float4s goes window by window (rs = 3r + s): it holds the
-// float4 c4 within the window and the window's source pixel, worked out
-// when the walk enters the window (null where the window leaves the map).
-template <bool kVec, bool kCg, int kStride = 1>
+// The loader for quantize_rows_phase: the pad-1 stride-1 3x3 im2col rows of
+// the launch's input, an (N, H, W, 4 * C4) map, four channels at a time:
+// row p = (n, y, x) takes the taps (y + r - 1, x + s - 1), zero outside
+// the map. kVec: x is 16-byte aligned. A walk over a row's float4s goes
+// window by window (rs = 3r + s): it holds the float4 c4 within the window
+// and the window's source pixel, worked out when the walk enters the
+// window (null where the window leaves the map).
+template <bool kVec>
 struct Im2colRows {
   const float* x;
   int H, W, C4;
@@ -168,10 +147,9 @@ struct Im2colRows {
     int rs, c4;
   };
   __device__ __forceinline__ Row row(int p) const {
-    const int ho = (H + kStride - 1) / kStride, wo = (W + kStride - 1) / kStride;
-    const int hw = ho * wo;
+    const int hw = H * W;
     const int n = p / hw, q = p - n * hw;
-    return Row{n, q / wo * kStride, q % wo * kStride};
+    return Row{n, q / W, q % W};
   }
   __device__ __forceinline__ const float* window(const Row& r, int rs) const {
     if (rs >= 9) return nullptr;
@@ -195,7 +173,7 @@ struct Im2colRows {
   }
   __device__ __forceinline__ float4 load(const Walk& it) const {
     if (it.px == nullptr) return make_float4(0.f, 0.f, 0.f, 0.f);
-    return load4<kVec, kCg>(it.px + 4 * it.c4);
+    return load4<kVec>(it.px + 4 * it.c4);
   }
 };
 

@@ -27,12 +27,10 @@
 // kernel's activation, behind a grid barrier) takes 4-byte __ldcg loads
 // stored to shared memory instead.
 //
-// Shared by csrc/direct.cu (through splitk_tf32.cuh's split-K kernel) and
-// csrc/basic_stage.cu (splitk_tf32.cuh's gemm_phase). The bf16w tile
-// (mma_bf16w.cuh) and the wgmma tile
-// (wgmma_tile.cuh, also the Winograd products of wino_tf32.cuh, whose A is
-// V = Bt d Bt^T read from the workspace its V phase wrote) take its A
-// sources and A loader.
+// Used by csrc/direct.cu (through splitk_tf32.cuh's split-K kernel). The
+// bf16w tile (mma_bf16w.cuh) and the wgmma tile (wgmma_tile.cuh, also the
+// Winograd products of wino_tf32.cuh, whose A is V = Bt d Bt^T read from
+// the workspace its V phase wrote) take its A sources and A loader.
 #pragma once
 
 #include <cuda_runtime.h>

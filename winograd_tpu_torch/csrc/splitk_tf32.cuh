@@ -14,16 +14,14 @@
 // can be captured in a CUDA graph.
 //
 // The MMA path (mma_kernel) multiplies 64 x 64 tiles of mma_tf32.cuh, with A
-// from any of its sources; pointwise.cu's GEMV reuses the reduction. Both
-// the kernel and gemm_phase take the weights' element type: f32 weights
-// run tf32x3's 3xTF32 tile, bf16 weights (the bf16w tier) mma_bf16w.cuh's
-// tile (wt::mma_tile), the plan and the reduction the same.
+// from any of its sources; pointwise.cu's GEMV reuses the reduction. The
+// kernel takes the weights' element type: f32 weights run tf32x3's 3xTF32
+// tile, bf16 weights (the bf16w tier) mma_bf16w.cuh's tile (wt::mma_tile),
+// the plan and the reduction the same.
 //
-// gemm_phase is the same product as one phase of a persistent cooperative
-// kernel (csrc/basic_stage.cu): its work items, (split,
-// tile) pairs, are dealt to
-// the grid's blocks, and the splits' partial sums are added in split order
-// behind a grid barrier (grid_sync.cuh) by all blocks, each element once.
+// The persistent kernels' GEMM phases (csrc/stage.cu, transition.cu,
+// basic_stage.cu) run on wgmma_phase.cuh; they take the host-side check of
+// a phase's plan (phase_fits) and its split step (kSplitStep) from here.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -168,55 +166,6 @@ __global__ void __launch_bounds__(tc::kThreads) mma_kernel(GemmArgs<BT> a, ASrc 
     reduce_splits<float4, 8, 1, tc::kThreads>(a, p0, n0, tc::kBM * tc::kBN / 4, tc::kBN / 4, 4);
   else
     reduce_splits<float, 8, 1, tc::kThreads>(a, p0, n0, tc::kBM * tc::kBN, tc::kBN, 1);
-}
-
-// C = A x B over the phase g (P, K, N, and K in g.splits ranges of g.chunk,
-// each a multiple of tc::kBK but the last), every output through
-// epi(p, n, acc); A from the source `a` (kCg: written earlier in the
-// launch), B (K, N) row-major, f32 or bf16 (mma_tile); kVec: 16-byte copies
-// (K and N multiples of 4, N of 8 for bf16 B, operands 16-byte aligned).
-// Past one split each item writes its partial tile to part (splits x P x
-// N) and, after a grid barrier, the blocks add the splits in order 0, 1,
-// ... and apply epi. smem: kTileSmemBytes<BT>. The caller places the
-// barrier that ends the phase.
-template <bool kVec, bool kCg, class ASrc, class BT, class Epilogue>
-__device__ __forceinline__ void gemm_phase(const GemmPhase& g, const ASrc& a,
-                                           const BT* __restrict__ b, const Epilogue& epi,
-                                           float* part, unsigned int* bar, float* smem) {
-  const int tiles_n = (g.N + tc::kBN - 1) / tc::kBN;
-  const int tiles = (g.P + tc::kBM - 1) / tc::kBM * tiles_n;
-  for (int item = blockIdx.x; item < tiles * g.splits; item += gridDim.x) {
-    const int split = item / tiles, t = item - split * tiles;
-    const int p0 = t / tiles_n * tc::kBM, n0 = t % tiles_n * tc::kBN;
-    const int k0 = split * g.chunk, k1 = min(g.K, k0 + g.chunk);
-    tc::Acc acc;
-    mma_tile<kVec, kCg>(a, b, g.N, p0, n0, k0, k1, smem, acc);
-    float* sp = part + static_cast<size_t>(split) * g.P * g.N;
-    tc::for_each_acc(acc, [&](int r, int c, float v) {
-      const int p = p0 + r, n = n0 + c;
-      if (p >= g.P || n >= g.N) return;
-      if (g.splits == 1)
-        epi(p, n, v);
-      else
-        sp[static_cast<size_t>(p) * g.N + n] = v;
-    });
-  }
-  if (g.splits == 1) return;
-  grid_sync(bar);
-  const size_t pn = static_cast<size_t>(g.P) * g.N;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < pn;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float s = __ldcg(part + i);
-    for (int k = 1; k < g.splits; k += 8) {  // eight splits' loads in flight
-      float v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) v[u] = k + u < g.splits ? __ldcg(part + (k + u) * pn + i) : 0.f;
-#pragma unroll
-      for (int u = 0; u < 8; ++u)
-        if (k + u < g.splits) s += v[u];
-    }
-    epi(static_cast<int>(i / g.N), static_cast<int>(i % g.N), s);
-  }
 }
 
 // Host side. True when a persistent kernel's phase of the host's plan fits:

@@ -10,12 +10,12 @@
 // the weights do not depend on the activations, so the ring's cold fill
 // overlaps the wait.
 //
-// Shared by csrc/stage.cu (its reduce, direct mid and expand) and
-// csrc/transition.cu (its reduce, strided mid and expand with the
-// projection). The phase's plan (wt::GemmPhase: P, K, N and K in `splits`
-// ranges of `chunk`, each a whole number of the tile's kBK stages but the
-// last) comes from the host and is checked there (splitk_tf32.cuh::
-// phase_fits).
+// Shared by csrc/stage.cu (its reduce, direct mid and expand),
+// csrc/basic_stage.cu (its two 3x3 convs a block) and csrc/transition.cu
+// (its reduce, strided mid and expand with the projection). The phase's
+// plan (wt::GemmPhase: P, K, N and K in `splits` ranges of `chunk`, each a
+// whole number of the tile's kBK stages but the last) comes from the host
+// and is checked there (splitk_tf32.cuh::phase_fits).
 #pragma once
 
 #include <cuda_runtime.h>

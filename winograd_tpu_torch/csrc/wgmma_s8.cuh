@@ -5,11 +5,11 @@
 // Aq a row-major (P, Kp) int8 matrix of activation rows quantized per row
 // (gemm_int8.cuh's arithmetic) earlier in the launch (or any rows of such
 // a matrix: tile_rows), Bt the k-contiguous (N, Kp) int8 weights. Used by
-// csrc/stage_int8.cu and csrc/transition_int8.cu (their GEMM phases,
-// through wgmma_s8_phase.cuh); csrc/winograd_int8.cu and
-// csrc/pointwise_int8.cu issue s8 wgmma on operands they stage themselves
-// (weights byte-permuted K-major, no TMA); the other int8 kernels stay on
-// mma_int8.cuh's mma.sync tiles.
+// csrc/stage_int8.cu, csrc/transition_int8.cu and csrc/basic_stage_int8.cu
+// (their GEMM phases, through wgmma_s8_phase.cuh); csrc/winograd_int8.cu
+// and csrc/pointwise_int8.cu issue s8 wgmma on operands they stage
+// themselves (weights byte-permuted K-major, no TMA); the other int8
+// kernels stay on mma_int8.cuh's mma.sync tiles.
 //
 // Operands. s8 wgmma reads both operands K-major from shared memory, with
 // the 128-byte swizzle here: a row holds 128 k as 128 bytes, its 16-byte

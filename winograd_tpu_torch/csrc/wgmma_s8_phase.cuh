@@ -1,7 +1,8 @@
 // The folded int8 GEMM phases of the persistent s8 wgmma kernels
-// (csrc/stage_int8.cu, csrc/transition_int8.cu): a phase's rows are
-// quantized from row maxima its producers published, each block a share of
-// them, and each work item waits only for its own row block's counter.
+// (csrc/stage_int8.cu, csrc/transition_int8.cu, csrc/basic_stage_int8.cu):
+// a phase's rows are quantized from row maxima its producers published,
+// each block a share of them, and each work item waits only for its own
+// row block's counter.
 //
 // A row's scale needs the max over the whole row, which many blocks of the
 // phase before produce; so every producing epilogue publishes its rows'
@@ -451,7 +452,8 @@ __device__ __forceinline__ void prefetch_phase(const wt::GemmPhase& g, const wgs
 // mx, at one split; past one, the items' int32 partial tiles into part
 // (splits x P x N), then after a grid barrier the blocks add the splits and
 // run epi once per element (a warp whose 32 elements lie in one row
-// publishes one maximum). cnt: the phase's zeroed row-block counters.
+// publishes one maximum; mx null: none published). cnt: the phase's zeroed
+// row-block counters.
 // prefetched: prefetch_phase issued the first item's weights (before the
 // barrier ahead of the phase); else they are issued here, to land during
 // the quantization. The caller places the barrier that ends the phase.
@@ -508,8 +510,9 @@ __device__ __forceinline__ void gemm_phase(const wt::GemmPhase& g, const Src& a,
     const int p_first = __shfl_sync(0xffffffffu, p, 0);
     if (__all_sync(0xffffffffu, p == p_first)) {
       m = __reduce_max_sync(0xffffffffu, m);
-      if (threadIdx.x % 32 == 0 && p_first >= 0 && m != 0u) atomicMax(mx + p_first, m);
-    } else if (live && m != 0u) {
+      if (threadIdx.x % 32 == 0 && p_first >= 0 && m != 0u && mx != nullptr)
+        atomicMax(mx + p_first, m);
+    } else if (live && m != 0u && mx != nullptr) {
       atomicMax(mx + p, m);
     }
   }

@@ -6,9 +6,9 @@
 // sources (RowMajorA, Im2colA<kStride>).
 //
 // Shared by csrc/pointwise.cu (its MMA path, split K reduced inside a
-// thread-block cluster), csrc/stage.cu and csrc/transition.cu (their GEMM
-// phases, through wgmma_phase.cuh) and csrc/winograd.cu (its per-position
-// products, through wino_tf32.cuh). csrc/wgmma_s8.cuh, the int8 stage's
+// thread-block cluster), csrc/stage.cu, csrc/transition.cu and
+// csrc/basic_stage.cu (their GEMM phases, through wgmma_phase.cuh) and
+// csrc/winograd.cu (its per-position products, through wino_tf32.cuh). csrc/wgmma_s8.cuh, the int8 stage's
 // s8 tile, and csrc/winograd_int8.cu reuse its mbarrier, TMA and
 // descriptor wrappers. The other tensor-core kernels stay on
 // mma_tf32.cuh's and mma_bf16w.cuh's mma.sync tiles.

@@ -141,41 +141,45 @@ def quantize_transition_params(params: Dict) -> Dict[str, torch.Tensor]:
                      BN_KEYS + PROJ_BN_KEYS)
 
 
-# The int8 transition's weights as its s8 wgmma tiles read them: s8 wgmma
-# takes both operands K-major and TMA cannot transpose bytes, so the kernel
-# reads a k-contiguous copy (N, Kp) of each (K, N) matrix w_q, zero past K,
-# Kp = K padded to TRANSITION_INT8_K_ALIGN. The copy is made at a weight's
-# first launch (a plain transpose, before it) and kept on the weight tensor
-# itself for as long as it lives: a served forward's first, eager call
-# makes them, its captured graph replays none of it.
+# The int8 transition's and basic stage's weights as their s8 wgmma tiles
+# read them: s8 wgmma takes both operands K-major and TMA cannot transpose
+# bytes, so the kernels read a k-contiguous copy (..., N, Kp) of each
+# (..., K, N) matrix w_q, zero past K, Kp = K padded to the kernel's
+# alignment. The copy is made at a weight's first launch (a plain
+# transpose, before it) and kept on the weight tensor itself for as long as
+# it lives: a served forward's first, eager call makes them, its captured
+# graph replays none of it.
 TRANSITION_INT8_WEIGHTS = ("w_reduce", "w9_mid", "w_expand", "w_proj")
 
 
 def kmajor_int8(w_q: torch.Tensor, align: int) -> torch.Tensor:
-    """(K, N) int8 -> (N, Kp) int8, k-contiguous, zero past K, Kp = K padded
-    to a multiple of `align`."""
-    k, n = w_q.shape
-    out = torch.zeros(n, _round_up(k, align), dtype=torch.int8, device=w_q.device)
-    out[:, :k] = w_q.t()
+    """(..., K, N) int8 -> (..., N, Kp) int8, k-contiguous, zero past K, Kp =
+    K padded to a multiple of `align`."""
+    *lead, k, n = w_q.shape
+    out = torch.zeros(*lead, n, _round_up(k, align), dtype=torch.int8, device=w_q.device)
+    out[..., :k] = w_q.transpose(-1, -2)
     return out
+
+
+def kmajor_kept(w_q: torch.Tensor, align: int, prepare=None) -> torch.Tensor:
+    """kmajor_int8 of w_q (of prepare(w_q) where given, e.g. a padding),
+    made at the weight's first call and kept on it (as its attribute
+    _kmajor_int8, with the _version it was made at: a weight changed in
+    place is copied anew; an inference tensor, which keeps no version, is
+    copied once)."""
+    version = None if w_q.is_inference() else w_q._version
+    kept = getattr(w_q, "_kmajor_int8", None)
+    if kept is None or kept[0] != version:
+        kept = (version, kmajor_int8(w_q if prepare is None else prepare(w_q), align))
+        w_q._kmajor_int8 = kept
+    return kept[1]
 
 
 def transition_int8_kmajor(q: Dict) -> Dict[str, torch.Tensor]:
     """The k-contiguous copies of a quantized transition's four weight
-    matrices, f"{name}_kt": made at a weight's first call and kept on it
-    (as its attribute _kmajor_int8, with the _version it was made at: a
-    weight changed in place is copied anew; an inference tensor, which
-    keeps no version, is copied once)."""
-    out = {}
-    for name in TRANSITION_INT8_WEIGHTS:
-        w_q = q[f"{name}_q"]
-        version = None if w_q.is_inference() else w_q._version
-        kept = getattr(w_q, "_kmajor_int8", None)
-        if kept is None or kept[0] != version:
-            kept = (version, kmajor_int8(w_q, TRANSITION_INT8_K_ALIGN))
-            w_q._kmajor_int8 = kept
-        out[f"{name}_kt"] = kept[1]
-    return out
+    matrices, f"{name}_kt", each kept on its weight (kmajor_kept)."""
+    return {f"{name}_kt": kmajor_kept(q[f"{name}_q"], TRANSITION_INT8_K_ALIGN)
+            for name in TRANSITION_INT8_WEIGHTS}
 
 
 def quantize_winograd_filter(u):
