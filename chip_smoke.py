@@ -182,10 +182,10 @@ Phases, each of which must pass (exit 1 otherwise):
    14x14 (WIDE_WINOGRAD_INT8: K walked in spans), and both at N=32; the
    pointwise head and conv5_x reduce
    at N=8; the int8 pointwise head at N=8; the f32 and int8 direct 3x3s at
-   N=8, 7x7x512; the bf16w pointwise head, the conv4_x and conv5_x bf16w
+   N=8 and N=32, 7x7x512 (the int8 one at 56x56x64 too); the bf16w pointwise head, the conv4_x and conv5_x bf16w
    stages and the bf16w stem at N=8, the bf16w
    block at modes 6 and 9, the bf16w Winograd at 56x56x64, the bf16w direct
-   3x3 at 7x7x512 and the bf16w basic stage at 7x7x512 at N=8 and N=32; the stem's
+   3x3 and basic stage at 7x7x512 at N=8 and N=32; the stem's
    prepared-input entry at N=8 at "f32" and "bf16w"; the int8 tiers' bf16-filter
    Winograd (the FP64 tile) at N=8 and N=32, 56x56x64), on seeded
    inputs. Bound: max abs error <= 1e-4 *
@@ -199,7 +199,7 @@ Phases, each of which must pass (exit 1 otherwise):
    error; the K split of the split-K kernels ("splits": pointwise, direct,
    direct_int8, pointwise_int8 and both basic stages, from their wrappers'
    plans, pointwise_int8 with its plan's "route", GEMV, one_pass or
-   cluster; the int8 transition's splits of its reduce, mid, expand and
+   cluster, direct_int8 with its cluster tiles' "cols"; the int8 transition's splits of its reduce, mid, expand and
    projection; the f32 transition's splits of its reduce, mid and expand;
    for the f32 Winograd its plan's Cin splits; for the f32 and bf16w stage
    its plan's splits of its reduce, direct mid and expand); the int8 Winograd's plan
@@ -2018,7 +2018,8 @@ def main() -> int:
     # block at modes 6 and 9; the batched layouts' cases (rows 7, 9, 18 and
     # 20 of the TPU kernel table) at N=8; the conv5_x stage geometry, which
     # the f32 route runs per layer; the int8 block (row 16) at mode 6; the
-    # f32 and int8 direct 3x3s at N=8; the stem at N=8 in every precision;
+    # f32, bf16w and int8 direct 3x3s at N=8 and N=32 (the int8 one at
+    # 56x56x64 too); the stem at N=8 in every precision;
     # the bf16w pointwise head, conv4_x and conv5_x stages at N=8, the
     # bf16w block at modes 6 and 9; the bf16w Winograd, direct 3x3 and
     # basic stage of ResNet-34 at N=8; the int8 tiers' bf16-filter Winograd
@@ -2042,15 +2043,16 @@ def main() -> int:
         "pointwise_int8": [(8, 2048, 1000, False), (32, 2048, 1000, False),
                            (6272, 576, 128, True), (392, 2304, 512, True),
                            (25088, 576, 128, True), (1568, 2304, 512, True)],
-        "direct_int8": [(8, 7, 7, 512, 512, False)],
-        "direct": [(8, 7, 7, 512, 512, True)],
+        "direct_int8": [(8, 7, 7, 512, 512, False), (32, 7, 7, 512, 512, False),
+                        (8, 56, 56, 64, 64, True), (32, 56, 56, 64, 64, True)],
+        "direct": [(8, 7, 7, 512, 512, True), (32, 7, 7, 512, 512, True)],
         "pointwise_bf16w": [(8, 2048, 1000, False)],
         "stem_bf16w": [(8, 224, 224, 3, 64, "bf16w")],
         "stage_bf16w": [(8, 14, 14, 1024, 256, 5, "direct"), (8, 7, 7, 2048, 512, 2, "direct"),
                         (1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2")],
         "transition_bf16w": TRANSITION_BATCHES,
         "winograd_bf16w": [(8, 56, 56, 64, 64, 2, True)],
-        "direct_bf16w": [(8, 7, 7, 512, 512, False)],
+        "direct_bf16w": [(8, 7, 7, 512, 512, False), (32, 7, 7, 512, 512, False)],
         "basic_stage_bf16w": [(8, 7, 7, 512, 2), (32, 7, 7, 512, 2)],
         "stem_pre": [(8, 224, 224, 3, 64, "f32")],
         "stem_pre_bf16w": [(8, 224, 224, 3, 64, "bf16w")],
@@ -2101,6 +2103,8 @@ def main() -> int:
     plans_of = {
         "pointwise_int8": lambda p, k, n, relu: {
             "route": q8.pointwise_int8_plan(p, k, n, sms).path},
+        "direct_int8": lambda n, h, w, cin, cout, relu: {
+            "cols": q8.direct_int8_plan(n, h, w, cin, cout, sms).tile},
         "winograd_int8": winograd_int8_cut,
         "winograd": winograd_fp64_cut,
     }

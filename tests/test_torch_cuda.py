@@ -86,7 +86,8 @@ from winograd_tpu_torch.config import BasicNetConfig, ResNet50Config
 from winograd_tpu_torch.engine import ResNet50Engine, ResNetBasicEngine
 from winograd_tpu_torch.kernels import _build, transforms
 from winograd_tpu_torch.kernels.direct import (
-    conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter, direct_plan,
+    conv3x3_bn_direct, conv3x3_bn_direct_plain, conv3x3_bn_direct_planned, direct_filter,
+    direct_plan,
 )
 from winograd_tpu_torch.kernels import basic_stage as bs
 from winograd_tpu_torch.kernels import quantized as q8
@@ -1063,11 +1064,15 @@ def test_pointwise_split_k_repeats_to_the_bit(dev, p, k, n):
     assert torch.equal(first, again)
 
 
-# (N, H, W, Cin, Cout): ResNet-34's int8 entry b-leg (K split ~16 ways),
-# ResNet-50's int8 projection 3x3 (49 row tiles), and K = 36 (Cin 4,
-# zero-padded to the MMA's 32-byte depth) with an all-zero image.
+# (N, H, W, Cin, Cout): ResNet-34's int8 entry b-leg at N = 1, 8 and 32 (K
+# split 8, 8 and 2 ways), ResNet-50's int8 projection 3x3 (49 row tiles), K =
+# 36 (Cin 4, zero-padded to the MMA's 32-byte depth) with an all-zero image,
+# the "model" partition's shards (Cin or Cout 16 at 56x56x64) and Cin off
+# multiples of 4 (the wrapper's padded route).
 @pytest.mark.parametrize("n,h,w,cin,cout,relu", [
     (1, 7, 7, 512, 512, False), (1, 56, 56, 64, 64, True), (2, 5, 7, 4, 70, True),
+    (8, 7, 7, 512, 512, True), (32, 7, 7, 512, 512, False), (1, 56, 56, 16, 64, True),
+    (1, 56, 56, 64, 16, True), (2, 5, 7, 13, 70, True), (3, 9, 6, 3, 33, False),
 ])
 def test_direct_int8_equals_its_twin(dev, n, h, w, cin, cout, relu):
     rng = np.random.default_rng(h * w + cin + cout)
@@ -1081,6 +1086,100 @@ def test_direct_int8_equals_its_twin(dev, n, h, w, cin, cout, relu):
     torch.cuda.synchronize()
     assert out.shape == ref.shape and torch.isfinite(out).all()
     assert (out - ref).abs().max().item() == 0.0
+
+
+def test_direct_entries_refuse_a_plan_they_do_not_take(dev):
+    """csrc/direct.cu and csrc/direct_int8.cu refuse a tile width off theirs,
+    more splits than a cluster holds, a split off the tile's stage, a split
+    that leaves K uncovered, a grid that is not tiles x splits and a padded
+    K past its alignment."""
+    rng = np.random.default_rng(6)
+    x = _r(rng, dev, 1, 7, 7, 64)
+    w9 = torch.as_tensor(direct_filter((rng.random((64, 64, 3, 3)) - 0.5).astype(np.float32)),
+                         device=dev)
+    s, b = _bn(rng, dev, 64)
+    sms = _build.sm_count(dev)
+    plan = direct_plan(1, 7, 7, 64, 64, sms)
+    for bad in (plan._replace(tile=128), plan._replace(splits=18, chunk=32),
+                plan._replace(splits=2, chunk=300), plan._replace(splits=1, chunk=288)):
+        with pytest.raises(RuntimeError):
+            conv3x3_bn_direct_planned(x, w9, s, b, True, bad)
+    w9_q, s_w9 = _q(rng, dev, 9 * 64, 64)
+    p8 = q8.direct_int8_plan(1, 7, 7, 64, 64, sms)
+    for bad in (p8._replace(tile=256), p8._replace(splits=18, chunk=32, blocks=18 * p8.tiles),
+                p8._replace(splits=2, chunk=300, blocks=2 * p8.tiles),
+                p8._replace(splits=1, chunk=288, blocks=p8.tiles),
+                p8._replace(blocks=2 * p8.blocks), p8._replace(kp=608, chunk=608, splits=1,
+                                                               blocks=p8.tiles)):
+        with pytest.raises(RuntimeError):
+            q8.conv3x3_bn_int8_planned(x, w9_q, s_w9, s, b, True, bad)
+
+
+# The int8 direct 3x3 under every split of its cluster (1-16; past 8 a
+# non-portable cluster) and both tile widths at the served b-leg, and on the
+# 56x56x64 map: equal to the twin.
+@pytest.mark.parametrize("n,hw,c", [(1, 7, 512), (8, 7, 512), (1, 56, 64)])
+def test_direct_int8_under_every_split(dev, n, hw, c):
+    rng = np.random.default_rng(n + hw + c)
+    x = _r(rng, dev, n, hw, hw, c)
+    w9_q, s_w9 = _q(rng, dev, 9 * c, c)
+    s, b = _bn(rng, dev, c)
+    ref = q8.conv3x3_bn_int8_plain(x, w9_q, s_w9, s, b, True)
+    sms = _build.sm_count(dev)
+    seen = set()
+    for cols in q8.POINTWISE_INT8_CLUSTER_COLS:
+        for want in range(1, q8.DIRECT_INT8_CLUSTER_MAX + 1):
+            plan = q8.direct_int8_plan(n, hw, hw, c, c, sms, want, cols)
+            if plan in seen:
+                continue
+            seen.add(plan)
+            _equal(q8.conv3x3_bn_int8_planned(x, w9_q, s_w9, s, b, True, plan), ref)
+    assert len(seen) >= 8
+
+
+# A NaN in x: the nine im2col rows that gather it get a NaN scale and NaN
+# outputs, where the plain version puts them; every other output is equal.
+@pytest.mark.parametrize("n,hw,c", [(2, 7, 512), (1, 9, 16)])
+def test_direct_int8_keeps_a_nan(dev, n, hw, c):
+    rng = np.random.default_rng(hw + c + 3)
+    x = _r(rng, dev, n, hw, hw, c)
+    x[0, 3, 4, 5] = float("nan")
+    w9_q, s_w9 = _q(rng, dev, 9 * c, c)
+    s, b = _bn(rng, dev, c)
+    for relu in (True, False):
+        out = q8.conv3x3_bn_int8(x, w9_q, s_w9, s, b, relu)
+        ref = q8.conv3x3_bn_int8_plain(x, w9_q, s_w9, s, b, relu)
+        torch.cuda.synchronize()
+        nan = torch.isnan(ref)
+        assert nan[0, 2:5, 3:6].all() and nan.sum().item() == 9 * c
+        assert torch.equal(torch.isnan(out), nan) and torch.equal(out[~nan], ref[~nan])
+
+
+# The f32 and bf16w direct 3x3 at the served 7x7x512 under every split of
+# its cluster, 1 (the unsplit 4608-long walk) to 8 and 16 (a non-portable
+# cluster), at N = 1, 8 and 32: within the bar of the plain version, and
+# each plan repeats to the bit.
+@pytest.mark.parametrize("n", [1, 8, 32])
+@pytest.mark.parametrize("bf16w", [False, True])
+def test_direct_under_every_split(dev, n, bf16w):
+    rng = np.random.default_rng(n + 40 * bf16w)
+    x = _r(rng, dev, n, 7, 7, 512)
+    w9 = torch.as_tensor(direct_filter((rng.random((512, 512, 3, 3)) - 0.5).astype(np.float32)),
+                         device=dev)
+    if bf16w:
+        w9 = w9.to(torch.bfloat16)
+    s, b = _bn(rng, dev, 512)
+    ref = conv3x3_bn_direct_plain(x, w9, s, b, True)
+    chosen = direct_plan(n, 7, 7, 512, 512, _build.sm_count(dev))
+    splits = set()
+    for want in (*range(1, 9), 16):
+        sp = split_k(9 * 512, want, 32, 32)
+        plan = chosen._replace(splits=sp.splits, chunk=sp.chunk)
+        first = conv3x3_bn_direct_planned(x, w9, s, b, True, plan)
+        _agree(first, ref)
+        assert torch.equal(first, conv3x3_bn_direct_planned(x, w9, s, b, True, plan))
+        splits.add(sp.splits)
+    assert splits == {*range(1, 9), 16}
 
 
 # --- the f32 Winograd and stage on the tensor cores -------------------------

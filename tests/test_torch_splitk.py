@@ -1,7 +1,8 @@
 """The K-split plans of the port's redesigned GEMM kernels (plain Python, no
 card needed): kernels/splitk.py::split_k, kernels/pointwise.py::split_plan
-(csrc/pointwise.cu), kernels/direct.py::direct_plan (csrc/direct.cu) and
-kernels/quantized.py::direct_int8_plan (csrc/direct_int8.cu),
+(csrc/pointwise.cu), kernels/direct.py::direct_plan (csrc/direct.cu, the pointwise MMA path's
+rule) and kernels/quantized.py::direct_int8_plan (csrc/direct_int8.cu, the
+int8 pointwise's cluster rule; more in tests/test_torch_direct_plan.py),
 ::transition_int8_plan (csrc/transition_int8.cu) and ::pointwise_int8_plan
 (csrc/pointwise_int8.cu, which also picks its path),
 kernels/transition.py::transition_plan (csrc/transition.cu) and
@@ -141,10 +142,15 @@ def test_pointwise_plan_follows_the_sm_count():
     assert pw.split_plan(49, 2048, 512, sms=132).splits == pw.CLUSTER_MAX
 
 
-# The served f32 3x3 of csrc/direct.cu (N, H, W, Cin, Cout), 7x7x512 at N=1
-# and N=8, and its split on 132 SMs: 16 ways at N=1 (8 tiles fill one wave),
-# 9 at N=8 (56 tiles; no block walks more than DIRECT_MAX_CHUNK of K).
-SERVED_DIRECT = {(1, 7, 7, 512, 512): 16, (8, 7, 7, 512, 512): 9}
+# The served f32 3x3 of csrc/direct.cu (N, H, W, Cin, Cout), 7x7x512 at N=1,
+# 8 and 32, and its split on 132 SMs: 16 ways at N=1 (8 tiles fill the card
+# at DIRECT_CLUSTER_MAX, a non-portable cluster), 8 at N=8 and N=32 (no block
+# walks more than DIRECT_MAX_CHUNK of K).
+SERVED_DIRECT = {(1, 7, 7, 512, 512): 16, (8, 7, 7, 512, 512): 8, (32, 7, 7, 512, 512): 8}
+
+
+def _pow2(v: int) -> bool:
+    return v > 0 and v & (v - 1) == 0
 
 
 @pytest.mark.parametrize("shape", sorted(SERVED_DIRECT))
@@ -154,44 +160,52 @@ def test_direct_plan_fills_the_card(shape):
     assert plan.splits == SERVED_DIRECT[shape]
     assert not plan.gemv and plan.tile == pw.MMA_TILE
     _covers_once(plan, 9 * cin, pw.SPLIT_STEP)
-    assert dr.DIRECT_MIN_CHUNK <= plan.chunk <= dr.DIRECT_MAX_CHUNK
     assert plan.tiles == -(-n * h * w // pw.MMA_TILE) * -(-cout // pw.MMA_TILE)
-    assert plan.tiles * plan.splits >= 0.9 * H100_SMS            # a wave, or more
-    if plan.tiles * plan.splits > H100_SMS:                        # more only to cap the walk
-        assert plan.chunk == dr.DIRECT_MAX_CHUNK
+    assert _pow2(plan.splits) and plan.splits <= dr.DIRECT_CLUSTER_MAX   # one cluster
+    assert plan.chunk <= dr.DIRECT_MAX_CHUNK                           # the walk's cap
+    wave = pw.MMA_BLOCKS_PER_SM * H100_SMS
+    assert 2 * plan.tiles * plan.splits >= min(wave, plan.tiles * dr.DIRECT_CLUSTER_MAX)
     assert dr.direct_plan(n, h, w, cin, cout, sms=66).splits <= plan.splits
+    assert pw.pointwise_workspace_words(plan, n * h * w, cout) == 0  # the splits meet in the cluster
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", [(2, 5, 7, 3, 70), (1, 9, 9, 13, 65),
                                             (1, 14, 14, 256, 256), (3, 6, 6, 100, 33)])
 def test_direct_plan_and_workspace_on_ragged_shapes(n, h, w, cin, cout):
+    """The pointwise MMA path's tiles and split step whatever P (never the
+    GEMV), a power of two of splits, and no workspace: the splits meet in
+    the cluster."""
     plan = dr.direct_plan(n, h, w, cin, cout)
     k, p = 9 * cin, n * h * w
     _covers_once(plan, k, pw.SPLIT_STEP)
-    words = plan.workspace_words(p, cout)
-    if k < pw.MMA_SPLIT_MIN_K:
-        assert plan.splits == 1 and words == 0
-    if plan.splits > 1:
-        counters = words - plan.splits * p * cout
-        assert counters >= plan.tiles and counters % pw.COUNTER_WORDS == 0
+    assert not plan.gemv and plan.tile == pw.MMA_TILE
+    assert _pow2(plan.splits) and plan.splits <= dr.DIRECT_CLUSTER_MAX
+    assert pw.pointwise_workspace_words(plan, p, cout) == 0
 
 
 def test_direct_entry_checks_the_pointwise_geometry():
-    """csrc/direct.cu runs splitk_tf32.cuh's MMA tiles, whose width and split
-    step are mma_tf32.cuh's (checked against the plans above), and refuses
-    a plan of another tile width."""
+    """csrc/direct.cu launches wgmma_cluster.cuh's cluster GEMM, which
+    pointwise.cu's MMA path also runs, on the stride-1 implicit im2col; its
+    tile width and split step are wgmma_tile.cuh's (checked against the
+    plans above), and it refuses a plan of another tile width."""
     src = (CSRC / "direct.cu").read_text()
-    assert '#include "splitk_tf32.cuh"' in src and "tile != tc::kBM" in src
-    assert "constexpr int kSplitStep = tc::kBK;" in (CSRC / "splitk_tf32.cuh").read_text()
+    assert '#include "wgmma_cluster.cuh"' in src and "tile != wt::wg::kBM" in src
+    assert "wgc::run<wgc::kClusterMax>(a, tc::Im2colA<1>{" in src
+    assert "wgc::run<wgc::kClusterPortable>(a, tc::RowMajorA{" in (CSRC / "pointwise.cu").read_text()
+    header = (CSRC / "wgmma_cluster.cuh").read_text()
+    assert "chunk % wg::kBK == 0" in header and "splits <= kMax" in header
+    assert "cudaFuncAttributeNonPortableClusterSizeAllowed" in header
 
 
 # The served int8 3x3s of csrc/direct_int8.cu (N, H, W, Cin, Cout) and
-# their splits on 132 SMs (a grid of two blocks an SM): ResNet-34's 7x7x512
-# b-leg 24 ways at N=1 and 4 at N=8, ResNet-50's 56x56x64 (49 row tiles) 5
-# ways at N=1 and none at N=8 (392 tiles).
+# their splits on 132 SMs under the int8 pointwise's cluster rule at up to
+# DIRECT_INT8_CLUSTER_MAX splits, a power of two: ResNet-34's 7x7x512 b-leg
+# 16 ways at N=1 (8 tiles 64 wide), 8 at N=8 (28 tiles 128 wide) and 2 at
+# N=32, ResNet-50's 56x56x64 (49 row tiles 64 wide) 4 ways at N=1 and none
+# at N=8 (392 tiles).
 SERVED_DIRECT_INT8 = {
-    (1, 7, 7, 512, 512): 24, (8, 7, 7, 512, 512): 4, (1, 56, 56, 64, 64): 5,
-    (8, 56, 56, 64, 64): 1,
+    (1, 7, 7, 512, 512): 16, (8, 7, 7, 512, 512): 8, (32, 7, 7, 512, 512): 2,
+    (1, 56, 56, 64, 64): 4, (8, 56, 56, 64, 64): 1,
 }
 
 
@@ -200,40 +214,27 @@ def test_direct_int8_plan_fills_the_card(shape):
     n, h, w, cin, cout = shape
     plan = q8.direct_int8_plan(n, h, w, cin, cout)
     assert plan.splits == SERVED_DIRECT_INT8[shape]
+    rule = q8.pointwise_int8_plan(n * h * w, 9 * cin, cout, path="cluster",
+                                  cap=q8.DIRECT_INT8_CLUSTER_MAX)
+    assert (plan.path, plan.kp, plan.tile, plan.tiles) == (rule.path, rule.kp, rule.tile, rule.tiles)
     assert plan.kp == 9 * cin                     # 9 * Cin is already a multiple of 32
-    _covers_once(plan, plan.kp, q8.DIRECT_INT8_STEP)
-    assert plan.tiles == -(-n * h * w // 64) * -(-cout // 64)
-    wave = q8.DIRECT_INT8_BLOCKS_PER_SM * H100_SMS
-    assert plan.tiles * plan.splits <= max(wave, plan.tiles)
-    if plan.splits > 1:
-        assert 2 * plan.tiles * plan.splits >= wave
+    _covers_once(plan, plan.kp, q8.POINTWISE_INT8_CLUSTER_STEP)
+    assert plan.tiles == -(-n * h * w // 64) * -(-cout // plan.tile)
+    assert plan.blocks == plan.tiles * plan.splits
+    assert _pow2(plan.splits) and plan.splits <= q8.DIRECT_INT8_CLUSTER_MAX
+    wave = q8.POINTWISE_INT8_CLUSTER_BLOCKS_PER_SM * H100_SMS
+    assert plan.blocks <= max(wave, plan.tiles)
+    assert plan.tile == (64 if cout <= 64 else plan.tile)   # no idle warpgroup at narrow N
+    assert 2 * plan.blocks >= min(wave, plan.tiles * q8.DIRECT_INT8_CLUSTER_MAX)
 
 
 @pytest.mark.parametrize("cin,kp", [(4, 64), (12, 128), (16, 160), (20, 192), (64, 576)])
 def test_direct_int8_pads_k_to_the_mma_depth(cin, kp):
     plan = q8.direct_int8_plan(2, 5, 7, cin, 70)
     assert plan.kp == kp and plan.kp % q8.DIRECT_INT8_K_ALIGN == 0 and plan.kp >= 9 * cin
-    _covers_once(plan, plan.kp, q8.DIRECT_INT8_STEP)
-
-
-def test_direct_int8_workspace_holds_every_part():
-    plan = q8.direct_int8_plan(1, 7, 7, 512, 512)
-    p, cout = 49, 512
-    words = plan.workspace_words(p, cout)
-    # barrier, scales, quantized rows, transposed weights, int32 partials
-    least = 2 + p + p * plan.kp // 4 + cout * plan.kp // 4 + plan.splits * p * cout
-    assert least <= words <= least + 4 * q8.WORKSPACE_ALIGN
-    at = plan.workspace(p, cout)
-    # the parts in order, each past the one before, at the 16-byte steps the
-    # kernel's vector copies need (what csrc/direct_int8.cu's entry checks)
-    assert 2 <= at.sx and at.sx + p <= at.aq and at.aq + p * plan.kp // 4 <= at.bt
-    assert at.bt + cout * plan.kp // 4 <= at.part
-    assert at.part + plan.splits * p * cout == at.words == words
-    assert all(v % 4 == 0 for v in (at.aq, at.bt, at.part))
-    one = q8.direct_int8_plan(2, 5, 7, 4, 70)
-    assert one.splits == 1
-    least = 2 + 70 + 2 * 70 * one.kp // 4                # no partial sums at one split
-    assert least <= one.workspace_words(70, 70) <= least + 4 * q8.WORKSPACE_ALIGN
+    assert plan.kp < 9 * cin + q8.DIRECT_INT8_K_ALIGN
+    _covers_once(plan, plan.kp, q8.POINTWISE_INT8_CLUSTER_STEP)
+    assert plan.workspace(70, 70).words == 0      # the cluster path takes no workspace
 
 
 # The served int8 transitions (N, H, W, Cin, Cmid, Cout) and the splits of
@@ -781,15 +782,15 @@ def _constexpr(source: str, name: str) -> int:
 @pytest.mark.parametrize("value,source,name", [
     (pw.GEMV_MAX_ROWS, "pointwise.cu", "kGemvMaxP"),
     (pw.GEMV_COLS, "pointwise.cu", "kGemvCols"),
-    (pw.CLUSTER_MAX, "pointwise.cu", "kClusterMax"),
+    (pw.CLUSTER_MAX, "wgmma_cluster.cuh", "kClusterPortable"),
+    (dr.DIRECT_CLUSTER_MAX, "wgmma_cluster.cuh", "kClusterMax"),
     (pw.MMA_TILE, "wgmma_tile.cuh", "kBM"),
     (pw.MMA_TILE, "wgmma_tile.cuh", "kBN"),
     (pw.SPLIT_STEP, "wgmma_tile.cuh", "kBK"),
     (pw.MMA_TILE, "mma_tf32.cuh", "kBM"),
     (pw.SPLIT_STEP, "mma_tf32.cuh", "kBK"),
     (q8.DIRECT_INT8_K_ALIGN, "mma_int8.cuh", "kKAlign"),
-    (q8.DIRECT_INT8_TILE, "mma_int8.cuh", "kBM"),
-    (q8.DIRECT_INT8_STEP, "mma_int8.cuh", "kBK"),
+    (q8.POINTWISE_INT8_TILE, "mma_int8.cuh", "kBM"),
     (q8.TRANSITION_INT8_BLOCKS_PER_SM, "transition_int8.cu", "kBlocksPerSm"),
     (q8.TRANSITION_INT8_MAX_SPLITS, "transition_int8.cu", "kSplitCap"),
     (q8.TRANSITION_INT8_K_ALIGN, "transition_int8.cu", "kKAlign"),
@@ -797,8 +798,9 @@ def _constexpr(source: str, name: str) -> int:
     (q8.POINTWISE_INT8_GEMV_COLS, "pointwise_int8.cu", "kGemvCols"),
     (q8.POINTWISE_INT8_GEMV_STEP, "pointwise_int8.cu", "kGemvStep"),
     (q8.POINTWISE_INT8_ONE_PASS_MAX_K, "pointwise_int8.cu", "kOnePassMaxK"),
-    (q8.POINTWISE_INT8_CLUSTER_MAX, "pointwise_int8.cu", "kClusterMax"),
-    (q8.POINTWISE_INT8_CLUSTER_STEP, "pointwise_int8.cu", "kClusterStep"),
+    (q8.POINTWISE_INT8_CLUSTER_MAX, "wgmma_s8_cluster.cuh", "kClusterPortable"),
+    (q8.DIRECT_INT8_CLUSTER_MAX, "wgmma_s8_cluster.cuh", "kClusterMax"),
+    (q8.POINTWISE_INT8_CLUSTER_STEP, "wgmma_s8_cluster.cuh", "kClusterStep"),
     (q8.POINTWISE_INT8_TILE, "wgmma_s8.cuh", "kBM"),
     (q8.POINTWISE_INT8_TILE, "wgmma_s8.cuh", "kBN"),
     (q8.POINTWISE_INT8_PATHS.index("gemv"), "pointwise_int8.cu", "kGemv"),
@@ -836,16 +838,20 @@ def test_transition_int8_entry_checks_the_int8_geometry():
 
 
 def test_pointwise_int8_entry_checks_the_int8_geometry():
-    """The int8 pointwise's P > 8 products are s8 wgmma tiles whose K splits
-    are one thread-block cluster (no cooperative launch, grid barrier or
-    workspace), split on the wgmma k step; the one pass keeps mma_int8.cuh's
-    warp tile; gemm_int8.cuh's __dp4a tile is not included."""
+    """The int8 pointwise's P > 8 products are wgmma_s8_cluster.cuh's s8
+    wgmma tiles whose K splits are one thread-block cluster (no cooperative
+    launch, grid barrier or workspace), split on the wgmma k step; the one
+    pass keeps mma_int8.cuh's warp tile; gemm_int8.cuh's __dp4a tile is not
+    included."""
     src = (CSRC / "pointwise_int8.cu").read_text()
+    header = (CSRC / "wgmma_s8_cluster.cuh").read_text()
     assert '#include "mma_int8.cuh"' in src and '#include "gemm_int8.cuh"' not in src
-    assert '#include "wgmma_s8.cuh"' in src and '#include "cluster.cuh"' in src
-    assert "q8::wgmma_s8(" in src and "cudaLaunchAttributeClusterDimension" in src
-    assert "chunk % kClusterStep != 0" in src and "splits > kClusterMax" in src
-    assert "cudaLaunchCooperativeKernel" not in src and "grid_sync" not in src
+    assert '#include "wgmma_s8_cluster.cuh"' in src and '#include "cluster.cuh"' in header
+    assert "q8::wgmma_s8(" in header and "cudaLaunchAttributeClusterDimension" in header
+    assert "chunk % kClusterStep != 0" in header and "splits > kMax" in header
+    assert "sc::run<sc::kClusterPortable>(" in src and "sc::XRows{x, P, K}" in src
+    for text in (src, header):
+        assert "cudaLaunchCooperativeKernel" not in text and "grid_sync" not in text
     assert "s8::mma_k32(" in src and "s8::gemm_phase(" not in src
 
 

@@ -134,7 +134,7 @@ def test_stage_int8_runs_on_the_s8_wgmma_tile():
                 "CU_TENSOR_MAP_SWIZZLE_128B", "wg::tma_load("):
         assert ptx in tile
     mma = (CSRC / "mma_int8.cuh").read_text()
-    assert "quantize_rows_phase" in mma  # its other users keep it
+    assert "quantize_rows_phase" not in mma  # its last user, the int8 direct, left it
 
 
 def test_stage_int8_wrapper_launches_the_plan(monkeypatch):

@@ -122,8 +122,8 @@ def test_stage_runs_its_gemm_phases_on_the_wgmma_tile():
     (wgmma, TMA weight loads), its split step the tile's stage, the next
     phase's weights issued before the barrier; the F(2,3) mid stays on
     wino_tf32.cuh, its products on the same wgmma tile, the u2 filters by
-    TMA; pointwise.cu's MMA path is the same tile, its splits one cluster,
-    with no memset before its launch."""
+    TMA; pointwise.cu's MMA path (wgmma_cluster.cuh) is the same tile, its
+    splits one cluster, with no memset before its launch."""
     src = (CSRC / "stage.cu").read_text()
     assert '#include "wgmma_tile.cuh"' in src and "sk::gemm_phase" not in src
     assert "sk::kSplitStep == wg::kBK" in src and src.count("sk::phase_fits(") == 3
@@ -138,13 +138,15 @@ def test_stage_runs_its_gemm_phases_on_the_wgmma_tile():
                 "cp.async.bulk.tensor.3d", "mbarrier.try_wait.parity"):
         assert ptx in tile
     pw = (CSRC / "pointwise.cu").read_text()
-    mma = pw[pw.index("struct MmaArgs"):pw.index("// Both entries")]
+    # the MMA path, in wgmma_cluster.cuh since csrc/direct.cu runs it too
+    mma = (CSRC / "wgmma_cluster.cuh").read_text()
+    assert '#include "wgmma_cluster.cuh"' in pw and "wgc::run<" in pw
     assert "wg::tile<kVec, false, kPipe<BT>>(" in mma
     assert "cudaLaunchAttributeClusterDimension" in mma
     assert "cluster_sync();" in mma and "load_rank(" in mma  # csrc/cluster.cuh's
     cluster = (CSRC / "cluster.cuh").read_text()
     assert "mapa.shared::cluster" in cluster and "barrier.cluster.arrive" in cluster
-    assert '#include "cluster.cuh"' in pw and "mapa.shared::cluster" not in pw
+    assert '#include "cluster.cuh"' in mma and "mapa.shared::cluster" not in mma + pw
     assert "cudaMemsetAsync" not in mma and "bind_workspace" not in mma
 
 

@@ -18,9 +18,11 @@ kernel's) and one per library counting its SASS instructions by opcode
 family ("HGMMA": floating-point wgmma, "IGMMA": integer wgmma, "HMMA",
 "IMMA" and "DMMA": mma.sync, "UTMALDG": TMA loads). For the libraries whose
 products are wgmma (WGMMA_ONLY: libwinograd_int8, libstage_int8,
-libtransition_int8, libbasic_stage_int8 and libpointwise_int8 on s8 wgmma,
-libtransition, libstage and libbasic_stage on 3xTF32 and bf16 wgmma) one
-more line says whether the SASS
+libtransition_int8, libbasic_stage_int8, libdirect_int8 and libpointwise_int8
+on s8 wgmma, the last two through csrc/wgmma_s8_cluster.cuh; libtransition,
+libstage, libbasic_stage, libdirect and libpointwise on 3xTF32 and bf16
+wgmma, the last two through csrc/wgmma_cluster.cuh) one more line says
+whether the SASS
 holds that wgmma and no mma.sync (libpointwise_int8 keeps its one-pass
 form's mma.sync: only its wgmma is checked); the exit code is 1 where it
 does not.
@@ -42,7 +44,9 @@ OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA", "DMMA", "UTMALDG", "UBLKCP")
 WGMMA_ONLY = {"winograd_int8": ("IGMMA", "IMMA"), "transition": ("HGMMA", "HMMA"),
               "stage": ("HGMMA", "HMMA"), "stage_int8": ("IGMMA", "IMMA"),
               "transition_int8": ("IGMMA", "IMMA"), "pointwise_int8": ("IGMMA", None),
-              "basic_stage": ("HGMMA", "HMMA"), "basic_stage_int8": ("IGMMA", "IMMA")}
+              "basic_stage": ("HGMMA", "HMMA"), "basic_stage_int8": ("IGMMA", "IMMA"),
+              "direct": ("HGMMA", "HMMA"), "direct_int8": ("IGMMA", "IMMA"),
+              "pointwise": ("HGMMA", "HMMA")}
 
 
 def main() -> int:

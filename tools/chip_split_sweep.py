@@ -8,17 +8,17 @@ of the f32 and bf16w stage's plan
 (csrc/stage.cu), of the int8 stage's (csrc/stage_int8.cu) and of the int8
 Winograd's grid (csrc/winograd_int8.cu) on one CUDA card, and an A/B of
 their wrappers (and of the stem's, csrc/stem.cu) against another checkout.
-pointwise, winograd, stage, transition and basic_stage run at f32 and, as
-pointwise_bf16w, winograd_bf16w (F(2,3)), stage_bf16w, transition_bf16w and
-basic_stage_bf16w, on bf16 weights.
+pointwise, direct, winograd, stage, transition and basic_stage run at f32
+and, as pointwise_bf16w, direct_bf16w, winograd_bf16w (F(2,3)), stage_bf16w,
+transition_bf16w and basic_stage_bf16w, on bf16 weights.
 
     python3 tools/chip_split_sweep.py [--only NAME,...]    # the sweep
     python3 tools/chip_split_sweep.py --ab DIR [--only ...] # the A/B against DIR
 
 Run from the repository root on a machine with a CUDA card and nvcc. The
 shapes are each served shape of the kernels (the four served forwards of
-chip_smoke.py at N=1 and N=8, the int8 transition and pointwise and the basic
-stages at N=32 too,
+chip_smoke.py at N=1 and N=8, the int8 transition and pointwise, the basic
+stages and the three direct 3x3s at N=32 too,
 and the f32 Winograd's F(4,3) check shape). Every timed call is first held
 against its plain twin (pointwise, direct, winograd, stage, stem,
 transition and basic_stage within 1e-4 * max(1, max|plain|), direct_int8,
@@ -31,7 +31,11 @@ come first, then one JSON line per shape and candidate.
 The sweep times each shape under the K split its wrapper's plan picks
 ("chosen") and under the splits that kernels/splitk.py::split_k gives for
 1, 2, 4, ..., 32 wanted ranges (at most pointwise.py::CLUSTER_MAX on the
-pointwise MMA path); the stage under its plan, under stage.py::stage_plan's
+pointwise MMA path; the direct 3x3, whose splits are one cluster, under
+every split 1-16 (past 8 a non-portable cluster); its lines give the bar, 1e-4 * max(1, max|plain|), beside the error); the int8
+direct 3x3 under its plan and the int8 pointwise's cluster rule at both
+tile widths (64, 128) and the K splits split_k gives for 1, 2, 4, ..., 64
+wanted ranges (at most 16); the stage under its plan, under stage.py::stage_plan's
 rule at each walk cap of STAGE_WALKS, and on a grid of one block an SM; the
 int8 stage under its plan and under quantized.py::stage_int8_plan's walk
 caps (STAGE_INT8_WALKS); the f32 and bf16w Winograd under its plan and under
@@ -69,7 +73,7 @@ each in a process of its own that imports that checkout's package and
 builds its kernels there, in turns DIR, this, this, DIR, on the same
 seeded inputs ("--wrappers ROOT" is one such turn).
 
---only takes kernel names (pointwise, pointwise_bf16w, direct, winograd,
+--only takes kernel names (pointwise, pointwise_bf16w, direct, direct_bf16w, winograd,
 winograd_bf16w, winograd_bf16, stage, stage_bf16w, direct_int8, stage_int8, stem,
 transition_int8, pointwise_int8, transition, transition_bf16w, winograd_int8,
 basic_stage, basic_stage_bf16w, basic_stage_int8) and keeps those shapes alone.
@@ -95,8 +99,11 @@ POINTWISE = [  # (P, K, N, relu)
     (784, 576, 128, True), (784, 64, 128, False), (3136, 64, 64, True), (3136, 64, 256, False),
 ]
 DIRECT = [  # (N, H, W, Cin, Cout, relu)
-    (1, 7, 7, 512, 512, True), (8, 7, 7, 512, 512, True),
+    (1, 7, 7, 512, 512, True), (8, 7, 7, 512, 512, True), (32, 7, 7, 512, 512, True),
 ]
+# The bf16w direct 3x3 (ResNet-34's conv5_x entry b-leg at bf16w), at these
+# shapes of the f32 one (bf16 weights, kernel name "direct_bf16w").
+DIRECT_BF16W = DIRECT
 WINOGRAD = [  # (N, H, W, Cin, Cout, m, relu)
     (1, 56, 56, 64, 64, 2, True), (1, 28, 28, 128, 128, 2, True), (1, 14, 14, 256, 256, 2, True),
     (1, 14, 14, 128, 128, 4, True), (8, 56, 56, 64, 64, 2, True), (8, 28, 28, 128, 128, 2, True),
@@ -163,7 +170,7 @@ STAGE_INT8_WALKS = (0, 128, 256, 512, 1024, 1 << 20)
 TRANSITION_INT8_WALKS = (0, 128, 256, 512, 1024, 1 << 20)
 DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
     (1, 56, 56, 64, 64, True), (1, 7, 7, 512, 512, False), (8, 7, 7, 512, 512, False),
-    (8, 56, 56, 64, 64, True),
+    (8, 56, 56, 64, 64, True), (32, 7, 7, 512, 512, False), (32, 56, 56, 64, 64, True),
 ]
 WANTS = (1, 2, 4, 8, 16, 32, 64)
 
@@ -239,14 +246,17 @@ def _cases_all(dev):
             tol = 1e-4 * max(1.0, ref.abs().max().item())
             yield (name, (p, k, n, relu), (x, w, s, b, relu), ref,
                    lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
-    for n, h, wd, cin, cout, relu in DIRECT:
-        x = rand(n, h, wd, cin)
-        w9 = t(direct_filter((rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)))
-        s, b = t((rng.random(cout) * 0.5).astype(np.float32)), rand(cout)
-        ref = conv3x3_bn_direct_plain(x, w9, s, b, relu)
-        tol = 1e-4 * max(1.0, ref.abs().max().item())
-        yield ("direct", (n, h, wd, cin, cout, relu), (x, w9, s, b, relu), ref,
-               lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
+    for name, shapes in (("direct", DIRECT), ("direct_bf16w", DIRECT_BF16W)):
+        for n, h, wd, cin, cout, relu in shapes:
+            x = rand(n, h, wd, cin)
+            w9 = t(direct_filter((rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32)))
+            if name == "direct_bf16w":
+                w9 = w9.bfloat16()
+            s, b = t((rng.random(cout) * 0.5).astype(np.float32)), rand(cout)
+            ref = conv3x3_bn_direct_plain(x, w9, s, b, relu)
+            tol = 1e-4 * max(1.0, ref.abs().max().item())
+            yield (name, (n, h, wd, cin, cout, relu), (x, w9, s, b, relu), ref,
+                   lambda y, ref=ref, tol=tol: (y - ref).abs().max().item() <= tol)
     for n, h, wd, cin, cout, m, relu in WINOGRAD:
         x = rand(n, h, wd, cin)
         u = t(transforms.transform_filter((rng.random((cout, cin, 3, 3)) - 0.5).astype(np.float32),
@@ -416,7 +426,8 @@ def wrappers(dev) -> bool:
     from winograd_tpu_torch.kernels.winograd import conv3x3_bn_winograd
 
     _build.build_all()
-    call = {"pointwise": conv1x1_bn, "direct": conv3x3_bn_direct, "winograd": conv3x3_bn_winograd,
+    call = {"pointwise": conv1x1_bn, "direct": conv3x3_bn_direct,
+            "direct_bf16w": conv3x3_bn_direct, "winograd": conv3x3_bn_winograd,
             "winograd_bf16w": conv3x3_bn_winograd, "winograd_bf16": conv3x3_bn_winograd,
             "stage": resnet_stage_fused, "direct_int8": conv3x3_bn_int8,
             "pointwise_bf16w": conv1x1_bn, "stage_bf16w": resnet_stage_fused,
@@ -485,6 +496,9 @@ def sweep(dev) -> bool:
         if name == "pointwise_int8":
             ok &= sweep_pointwise_int8(shape, args, ref, agrees, q8, sms)
             continue
+        if name == "direct_int8":
+            ok &= sweep_direct_int8(shape, args, ref, agrees, q8, sms)
+            continue
         if name == "winograd_int8":
             ok &= sweep_winograd_int8(shape, args, ref, agrees, q8, sms)
             continue
@@ -507,14 +521,12 @@ def sweep(dev) -> bool:
             kp, step, run = k, pw.SPLIT_STEP, pw.conv1x1_bn_planned
             if not chosen.gemv:   # the MMA path's splits of a tile are one cluster
                 cap = pw.CLUSTER_MAX
-        elif name == "direct":
+        else:   # direct, direct_bf16w: the splits of a tile are one cluster
             chosen = dr.direct_plan(*shape[:5], sms)
             kp, step, run = 9 * shape[3], pw.SPLIT_STEP, dr.conv3x3_bn_direct_planned
-        else:
-            chosen = q8.direct_int8_plan(*shape[:5], sms)
-            kp, step, run = chosen.kp, q8.DIRECT_INT8_STEP, q8.conv3x3_bn_int8_planned
+            cap = dr.DIRECT_CLUSTER_MAX
         plans = {chosen.splits: chosen}
-        for want in WANTS:
+        for want in (range(1, cap + 1) if name.startswith("direct") else WANTS):
             sp = split_k(kp, min(want, cap), step, step)
             plans.setdefault(sp.splits, chosen._replace(splits=sp.splits, chunk=sp.chunk))
         for splits, plan in sorted(plans.items()):
@@ -524,8 +536,33 @@ def sweep(dev) -> bool:
             print(json.dumps({"kernel": name, "shape": shape, "splits": splits,
                               "chunk": plan.chunk, "chosen": plan == chosen,
                               "max_abs_err": (y - ref).abs().max().item(),
+                              "bar": 1e-4 * max(1.0, ref.abs().max().item()),
                               "ms": device_ms(fn)}), flush=True)
     torch.cuda.synchronize()
+    return ok
+
+
+def sweep_direct_int8(shape, args, ref, agrees, q8, sms) -> bool:
+    """The int8 direct 3x3 under its plan and under the int8 pointwise's
+    cluster rule at every tile width (64, 128) and the K splits split_k
+    gives for WANTS (at most DIRECT_INT8_CLUSTER_MAX)."""
+    n, h, w, cin, cout, _ = shape
+    chosen = q8.direct_int8_plan(n, h, w, cin, cout, sms)
+    plans = [chosen]
+    for cols in q8.POINTWISE_INT8_CLUSTER_COLS:
+        for want in WANTS:
+            plan = q8.direct_int8_plan(n, h, w, cin, cout, sms, want, cols)
+            if plan not in plans:
+                plans.append(plan)
+    ok = True
+    for plan in plans:
+        fn = (lambda plan=plan: q8.conv3x3_bn_int8_planned(*args, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": "direct_int8", "shape": shape, "tile": plan.tile,
+                          "splits": plan.splits, "chunk": plan.chunk, "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "ms": device_ms(fn)}), flush=True)
     return ok
 
 

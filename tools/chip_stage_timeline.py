@@ -70,8 +70,8 @@ blocks an SM. The card's name and power limit come first.
 
 --variant builds the f32 stage, transition and basic stage (TF32_KERNELS) and
 the int8 transition once per named variant of their tensor-core tiles
-(csrc/mma_tf32.cuh, the stage's GEMM phases' csrc/wgmma_tile.cuh and the int8
-phases' csrc/wgmma_s8.cuh, edited in a copy of the sources) and stamps each:
+(the GEMM phases' csrc/wgmma_tile.cuh and the int8 phases' csrc/wgmma_s8.cuh,
+edited in a copy of the sources) and stamps each:
 "as_is" the committed tiles; "one_pass" only the hi*hi pass of the 3xTF32
 tiles' three passes (TF32 accuracy, so its lines report the error but do not
 fail; the int8 transition as_is); "no_mma" none of their products (the
@@ -157,13 +157,9 @@ LAYOUT = {
 # after one more barrier at its end.
 WINO_TF32_BARRIER = "  grid_sync(bar);\n"
 WINO_TF32_LAST = "  inverse<M>(cv, cut.splits, part, scale, bias, out, relu);\n"
-# The tiles' three passes, in csrc/mma_tf32.cuh::mma_stage and in
-# csrc/wgmma_tile.cuh's f32 mma_stage (the stage's GEMM phases), and the
-# passes each --variant keeps out.
-PASSES = {"mma_tf32.cuh": {"lo_hi": "mma(acc[mi][ni], al[mi], bh[ni]);",
-                           "hi_lo": "mma(acc[mi][ni], ah[mi], bl[ni]);",
-                           "hi_hi": "mma(acc[mi][ni], ah[mi], bh[ni]);"},
-          "wgmma_tile.cuh": {"lo_hi": "wgmma_tf32(part, al[j], bh, j > 0);",
+# The tiles' three passes, in csrc/wgmma_tile.cuh's f32 mma_stage (the GEMM
+# phases), the s8 tile's products, and the passes each --variant keeps out.
+PASSES = {"wgmma_tile.cuh": {"lo_hi": "wgmma_tf32(part, al[j], bh, j > 0);",
                              "hi_lo": "wgmma_tf32(part, ah[j], bl, 1);",
                              "hi_hi": "wgmma_tf32(part, ah[j], bh, 1);"},
           "wgmma_s8.cuh": {"s8": "wgmma_s8(acc, wg::desc128(sa + 32 * j, 16, 1024), "

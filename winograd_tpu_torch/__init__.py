@@ -18,12 +18,12 @@ The bf16w serving tier (engine tier "bf16w", models/resnet50.py::
 resnet50_forward(precision="bf16w"), models/basic.py::
 basicnet_forward(precision="bf16w")) runs bf16w instantiations of the
 pointwise, Winograd, direct, stem, stage, transition and basic-stage
-kernels on bfloat16 weights (csrc/mma_bf16w.cuh: the f32 activation split
-into two bf16 halves on the tensor cores).
+kernels on bfloat16 weights (csrc/wgmma_tile.cuh's bf16 wgmma tile: the f32
+activation split into two bf16 halves on the tensor cores).
 The int8 serving tier of the same classifier (engine tier "int8",
 models/resnet50.py::resnet50_forward_int8) runs the stem at bf16 and
 kernels/quantized.py: int8 pointwise and direct 3x3 kernels, and the int8
-stage and transition kernels, on the int8 tensor cores (csrc/mma_int8.cuh).
+stage and transition kernels, on the int8 tensor cores (s8 wgmma).
 The basic-block family (ResNet-18/34, models/basic.py) adds the f32 and
 int8 basic stages (kernels/basic_stage.py) and the int8 Winograd F(2,3).
 

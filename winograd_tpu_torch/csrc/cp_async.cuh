@@ -1,5 +1,6 @@
 // Asynchronous global -> shared copies (cp.async, sm_80 and up) for the
-// multi-stage shared-memory rings of mma_tf32.cuh and mma_int8.cuh.
+// multi-stage shared-memory rings of the wgmma tiles (A through
+// mma_tf32.cuh's loader) and the FP64 F(2,3) tile.
 //
 // A copy whose `valid` is false reads nothing and zero-fills its shared
 // bytes (src-size 0), so ragged tile edges need no second code path; the

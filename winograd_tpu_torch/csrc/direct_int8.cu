@@ -17,114 +17,47 @@
 // 8 output tiles of 64 x 64: a tile a block leaves 124 of 132 SMs idle, and
 // each block's walk over K = 4608 is the time.
 //
-// Design: one cooperative launch of three phases on mma_int8.cuh.
-// 1. Each im2col row's scale is computed once, by a group of warps reading
-//    the row window by window, Cin contiguous, in float4s (a window's source
-//    pixel is worked out when a thread's walk enters it, not per load);
-//    the row is then quantized once into a (P, Kp) int8 workspace matrix
-//    (Kp = K rounded up to 32, zero-padded). The same phase writes the weights k-contiguous,
-//    (Cout, Kp), for the tensor cores' B operand. Grid barrier.
-// 2. mma.sync s8 x s8 -> s32 on 64 x 64 tiles with cp.async stages, K split
-//    so that tiles x splits reach about one wave of SMs; int32 partials to
-//    the workspace. Grid barrier.
-// 3. The splits' partials are added (exact in any order) and the
-//    Int8BnEpilogue applied once per element: dequant and BN each rounded
-//    in the plain twin's order, so kernel and twin agree to the bit.
-// With one split, phase 2 applies the epilogue and phase 3 is skipped. The
-// grid, the K split and the workspace's layout are the host's plan
-// (kernels/quantized.py::direct_int8_plan); this entry checks it against
-// the geometry compiled here and refuses one that does not fit.
+// Design: one launch of wgmma_s8_cluster.cuh's s8 wgmma GEMM (csrc/
+// pointwise_int8.cu's cluster path) on the im2col rows (XIm2col: a
+// thread's load names the source pixel of its k, or zero where the window
+// leaves the map; the im2col matrix is never written). The K splits of a
+// 64 x 64 or 64 x 128 output tile are the blocks of one thread-block
+// cluster: each block takes its rows' max |a| over its K range, the cluster
+// exchanges them into each row's maximum over all of 9 * Cin (the plain
+// version's scale, a NaN in a window included), and each block quantizes
+// its range once and multiplies it against the weights (K, Cout) as they
+// are stored, byte-permuted into wgmma's K-major operand as they are
+// staged. The int32 partials meet in the cluster's shared memory and the
+// Int8BnEpilogue is applied once per element, each multiply and add rounded
+// in the plain version's order, so kernel and plain version agree to the
+// bit. No cooperative grid, no grid barrier, no quantize phase, no weight
+// transpose and no workspace. The tile width and the K split are the host's
+// plan (kernels/quantized.py::direct_int8_plan, the int8 pointwise's
+// cluster rule); this entry checks it against the geometry compiled here.
+
+#include <stdint.h>
 
 #include "common.cuh"
-#include "mma_int8.cuh"
+#include "wgmma_s8_cluster.cuh"
 
-namespace {
+namespace sc = wt::s8cluster;
 
-namespace s8 = wt::s8mma;
-
-constexpr int kSplitStep = s8::kBK;
-
-struct Args {
-  const float* x;
-  const int8_t* w9q;  // (K, Cout)
-  const float* sw;
-  const float* scale;
-  const float* bias;
-  float* out;
-  unsigned int* bar;
-  float* sx;    // P row scales
-  int8_t* aq;   // (P, Kp) quantized im2col rows
-  int8_t* bt;   // (Cout, Kp) weights, k-contiguous
-  int* part;    // splits x P x Cout int32 partial sums
-  int N, H, W, Cin, Cout, relu, Kp, splits, chunk;
-};
-
-template <bool kVec>
-__global__ void __launch_bounds__(s8::kThreads) direct_int8_kernel(Args a) {
-  __shared__ __align__(16) int8_t smem[s8::kSmemBytes];
-  __shared__ float red[s8::kThreads / 32];
-  const int P = a.N * a.H * a.W, K = 9 * a.Cin;
-  s8::quantize_rows_phase(s8::Im2colRows<kVec>{a.x, a.H, a.W, a.Cin / 4}, P, K, a.Kp,
-                          a.aq, a.sx, red);
-  s8::transpose_phase(a.w9q, K, a.Cout, a.Kp, a.bt);
-  wt::grid_sync(a.bar);
-  s8::gemm_phase(a.aq, a.bt, a.sx, P, a.Cout, a.Kp, a.splits, a.chunk,
-                 wt::Int8BnEpilogue{a.sw, a.scale, a.bias, a.out, a.Cout, a.relu}, a.part,
-                 a.bar, smem);
-}
-
-// Blocks of the kernel the current device holds resident at once (a
-// cooperative grid may not be larger); 0 on error.
-int resident_blocks(const void* kernel, int vec) {
-  static int cache[64][2] = {};
-  int dev = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
-  if (cache[dev][vec] == 0) cache[dev][vec] = cooperative_grid(kernel, 0, s8::kThreads);
-  return cache[dev][vec];
-}
-
-}  // namespace
-
-// The host's plan (kernels/quantized.py::direct_int8_plan): Kp, K = 9 * Cin
-// padded to a multiple of s8::kKAlign; `tile` the output tiles' width, which
-// must be s8::kBM; a cooperative grid of `blocks` blocks, at most as many
-// as the device holds resident; Kp in `splits` ranges of `chunk`, the last
-// one shorter, chunk a multiple of kSplitStep when splits > 1. ws, ws_words
-// 4-byte words: the grid barrier's two counters at word 0, then the P row
-// scales at word sx, the (P, Kp) quantized rows at aq, the (Cout, Kp)
-// transposed weights at bt and, past one split, the splits x P x Cout int32
-// partial sums at part, in this order; aq, bt and part multiples of 4.
+// The host's plan: Kp, K = 9 * Cin padded to a multiple of 32 (the s8
+// wgmma k step); `tile` the output tiles' width, 64 or 128; `blocks` the
+// grid, tiles x splits; Kp in `splits` ranges of `chunk`, the last one
+// shorter, chunk a multiple of sc::kClusterStep when splits > 1, at most
+// sc::kClusterMax splits. x must be 16-byte aligned and Cin a multiple of 4
+// (the wrapper pads Cin).
 extern "C" int direct_int8_conv3x3_bn(const float* x, const int8_t* w9q, const float* sw,
-                                      const float* scale, const float* bias, float* out,
-                                      float* ws, long long ws_words, long long sx, long long aq,
-                                      long long bt, long long part, int N, int H, int W,
-                                      int Cin, int Cout, int relu, int Kp, int tile, int blocks,
-                                      int splits, int chunk, void* stream) {
-  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cout <= 0 || Cin % 4 != 0 || splits <= 0 ||
-      chunk <= 0 || blocks <= 0 || tile != s8::kBM || Kp < 9 * Cin || Kp % s8::kKAlign != 0 ||
-      static_cast<long long>(chunk) * splits < Kp ||
-      static_cast<long long>(chunk) * (splits - 1) >= Kp ||
-      (splits > 1 && chunk % kSplitStep != 0))
+                                      const float* scale, const float* bias, float* out, int N,
+                                      int H, int W, int Cin, int Cout, int relu, int Kp, int tile,
+                                      int blocks, int splits, int chunk, void* stream) {
+  if (N <= 0 || H <= 0 || W <= 0 || Cin <= 0 || Cin % 4 != 0 ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long P = static_cast<long long>(N) * H * W;
-  if (sx < 2 || aq < sx + P || bt < aq + P * Kp / 4 || part < bt + Cout * (Kp / 4LL) ||
-      aq % 4 != 0 || bt % 4 != 0 || part % 4 != 0 ||
-      ws_words < part + (splits > 1 ? splits * P * Cout : 0))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const void* kernel = vec ? reinterpret_cast<const void*>(direct_int8_kernel<true>)
-                           : reinterpret_cast<const void*>(direct_int8_kernel<false>);
-  const int resident = resident_blocks(kernel, vec);
-  if (resident <= 0 || blocks > resident) return static_cast<int>(cudaErrorInvalidConfiguration);
-  const auto s = static_cast<cudaStream_t>(stream);
-  unsigned int* bar = reinterpret_cast<unsigned int*>(ws);
-  cudaError_t e = cudaMemsetAsync(bar, 0, 2 * sizeof(unsigned int), s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  Args a{x, w9q, sw, scale, bias, out, bar,
-         ws + sx, reinterpret_cast<int8_t*>(ws + aq), reinterpret_cast<int8_t*>(ws + bt),
-         reinterpret_cast<int*>(ws + part), N, H, W, Cin, Cout, relu, Kp, splits, chunk};
-  void* args[] = {&a};
-  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(s8::kThreads), args, 0, s);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaGetLastError());
+  const int P = N * H * W;
+  const sc::Args a{w9q, sw, scale, bias, out, P, 9 * Cin, Cout, relu, Kp, splits, chunk};
+  const cudaError_t e = sc::run<sc::kClusterMax>(a, sc::XIm2col{x, H, W, Cin, P}, tile, blocks,
+                                                 static_cast<cudaStream_t>(stream));
+  return static_cast<int>(e);
 }

@@ -14,7 +14,7 @@
 // on its own (dequant, bn_rn: no FMA contraction), in the order of the plain
 // version (kernels/quantized.py), so the two agree to the bit.
 //
-// The int8 kernels multiply on the tensor cores (csrc/mma_int8.cuh); this
+// The int8 kernels multiply on the int8 tensor cores (s8 wgmma); this
 // header holds what they share of that arithmetic: the row scale, the
 // quantization, the packing, the dequantization and the epilogues.
 #pragma once

@@ -1,8 +1,8 @@
 // What the persistent cooperative kernels share: a grid-wide barrier, a
 // loader and epilogues that read data produced earlier in the same launch,
 // the shape and K split of a GEMM phase that walks its output tiles (and K
-// splits) over all blocks (wgmma_phase.cuh's phases and mma_int8.cuh's
-// gemm_phase), and the host side's workspace and grid helpers.
+// splits) over all blocks (wgmma_phase.cuh's and wgmma_s8_phase.cuh's
+// phases), and the host side's workspace and grid helpers.
 //
 // The kernels are launched with cudaLaunchCooperativeKernel, which refuses a
 // grid that the card cannot hold resident at once, so every block reaches

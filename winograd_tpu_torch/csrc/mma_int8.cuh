@@ -1,35 +1,24 @@
-// The int8 tier's GEMM on the int8 tensor cores, in the phases of a
-// persistent cooperative kernel: quantize the activation rows once, lay the
-// weights out k-contiguous, then multiply with split K and add the splits.
+// The int8 tier's mma.sync pieces, on the int8 tensor cores: the s8
+// m16n8k32 warp tile of csrc/pointwise_int8.cu's one pass (64 x 64 tiles, 8
+// warps of 32 x 16 outputs, each k step of 32 one
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32 per 16 x 8 fragment, operands in
+// shared memory rows of `ld` bytes), and the byte work the int8 kernels
+// share: quantizing four values into a word, reading four weight rows of
+// four columns (rows4) and turning them k-contiguous (transpose4: the
+// layout of __dp4a's and mma.sync's B, and of the cluster kernels' K-major
+// wgmma operand), and the weight transpose items of csrc/stage_int8.cu's
+// first phase (Transpose).
 //
 // The arithmetic is gemm_int8.cuh's (per-row scale s = max|row| / 127 by
 // IEEE division, 1 for a zero row; q = clamp(rint(a / s), -127, 127); the
 // product summed exactly in int32; the epilogue's multiplies and adds
 // rounded one by one), so a kernel built on it agrees with the plain twins
-// of kernels/quantized.py to the bit. What differs is where the work is
-// done:
-// * quantize_rows_phase: each row's scale and int8 values are computed once,
-//   by a group of 1-8 warps that walks the row in float4s through a loader
-//   (Im2colRows: csrc/direct_int8.cu's), and stored as a (P, Kp) int8 matrix (Kp = K
-//   rounded up to kKAlign, zero past K) with the scales beside it.
-// * transpose_phase: mma.sync's B operand is k-contiguous per column, the
-//   weights are (K, N) n-contiguous; each launch writes them once as an
-//   (N, Kp) int8 matrix, zero past K (2.4 MB at 7x7x512, L2-resident for
-//   the product that follows).
-// * gemm_phase: 64 x 64 tiles, 8 warps of 32 x 16 outputs, each k step of
-//   32 one mma.sync.m16n8k32.row.col.s32.s8.s8.s32 per 16 x 8 fragment; A
-//   and B arrive by 16-byte cp.async copies in a kStages-deep ring of
-//   kBK-byte stages (rows padded to kLd bytes: a warp's fragment loads hit
-//   32 distinct banks). Work items are (split, tile) pairs dealt to the
-//   blocks; with several splits each item writes int32 partial sums and,
-//   after a grid barrier, the blocks add them (exact in any order) and
-//   apply the epilogue once per element.
+// of kernels/quantized.py to the bit.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "cp_async.cuh"
 #include "gemm_int8.cuh"
 
 namespace wt {
@@ -37,12 +26,7 @@ namespace s8mma {
 
 constexpr int kBM = 64;
 constexpr int kBN = 64;
-constexpr int kBK = 64;      // bytes of k per stage: two mma k steps
-constexpr int kStages = 4;
 constexpr int kThreads = 256;
-constexpr int kLd = kBK + 16;
-constexpr int kStageBytes = (kBM + kBN) * kLd;
-constexpr int kSmemBytes = kStages * kStageBytes;
 constexpr int kKAlign = 32;  // K of the quantized operands is padded to this
 
 using Acc = int[2][2][4];
@@ -116,126 +100,6 @@ __device__ __forceinline__ void frag_b(const int8_t* sb, int ld, int n0, int ks,
   b[1] = ld32(c + 16);
 }
 
-__device__ __forceinline__ float abs_max4(float m, float4 v) {
-  return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
-}
-
-// Four floats from src through the read-only path: one 16-byte load where
-// kVec (src 16-byte aligned), else four.
-template <bool kVec>
-__device__ __forceinline__ float4 load4(const float* src) {
-  if (kVec) return __ldg(reinterpret_cast<const float4*>(src));
-  return make_float4(__ldg(src), __ldg(src + 1), __ldg(src + 2), __ldg(src + 3));
-}
-
-// The loader for quantize_rows_phase: the pad-1 stride-1 3x3 im2col rows of
-// the launch's input, an (N, H, W, 4 * C4) map, four channels at a time:
-// row p = (n, y, x) takes the taps (y + r - 1, x + s - 1), zero outside
-// the map. kVec: x is 16-byte aligned. A walk over a row's float4s goes
-// window by window (rs = 3r + s): it holds the float4 c4 within the window
-// and the window's source pixel, worked out when the walk enters the
-// window (null where the window leaves the map).
-template <bool kVec>
-struct Im2colRows {
-  const float* x;
-  int H, W, C4;
-  struct Row {
-    int n, y, x;
-  };
-  struct Walk {
-    const float* px;
-    int rs, c4;
-  };
-  __device__ __forceinline__ Row row(int p) const {
-    const int hw = H * W;
-    const int n = p / hw, q = p - n * hw;
-    return Row{n, q / W, q % W};
-  }
-  __device__ __forceinline__ const float* window(const Row& r, int rs) const {
-    if (rs >= 9) return nullptr;
-    const int y = r.y + rs / 3 - 1, xx = r.x + rs % 3 - 1;
-    if (y < 0 || y >= H || xx < 0 || xx >= W) return nullptr;
-    return x + (static_cast<size_t>(r.n * H + y) * W + xx) * (4 * C4);
-  }
-  // The walk at float4 j of the row (one division a walk).
-  __device__ __forceinline__ Walk walk(const Row& r, int j) const {
-    const int rs = j / C4;
-    return Walk{window(r, rs), rs, j - rs * C4};
-  }
-  __device__ __forceinline__ void next(const Row& r, Walk& it, int step) const {
-    it.c4 += step;
-    if (it.c4 < C4) return;
-    do {
-      it.c4 -= C4;
-      ++it.rs;
-    } while (it.c4 >= C4);
-    it.px = window(r, it.rs);
-  }
-  __device__ __forceinline__ float4 load(const Walk& it) const {
-    if (it.px == nullptr) return make_float4(0.f, 0.f, 0.f, 0.f);
-    return load4<kVec>(it.px + 4 * it.c4);
-  }
-};
-
-// Quantize rows p < P of a (P, K) float matrix, K % 4 == 0, read through
-// `a` (a.row(p) once per row; a.walk(row, j) a walk at float4 j, k = 4j;
-// a.load(walk) its four values; a.next(row, walk, step) on by `step`
-// float4s), into aq (P, Kp) int8 (zero for K <= k < Kp) and their scales
-// into sx[p]. Rows are dealt to groups of warps across the grid, enough
-// warps a row that a lane holds at most kRowVecs float4s of it; a lane
-// issues its loads together and keeps the values in registers for the
-// quantizing pass (a row longer than 8 warps' registers reloads the rest).
-// `red`: kThreads / 32 floats of shared memory. The caller places the
-// barrier.
-constexpr int kRowVecs = 8;
-
-template <class Loader>
-__device__ __forceinline__ void quantize_rows_phase(const Loader& a, int P, int K, int Kp,
-                                                    int8_t* aq, float* sx, float* red) {
-  const int k4 = K / 4, kp4 = Kp / 4;
-  int wpr = 1;  // warps a row
-  while (wpr < kThreads / 32 && k4 > kRowVecs * 32 * wpr) wpr *= 2;
-  const int rows = kThreads / 32 / wpr;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int first = warp / wpr * wpr, gi = (warp - first) * 32 + lane, gn = 32 * wpr;
-  for (int base = blockIdx.x * rows; base < P; base += gridDim.x * rows) {
-    const int p = base + warp / wpr;
-    float4 v[kRowVecs];
-    float m = 0.f;
-    if (p < P) {
-      const auto row = a.row(p);
-      auto it = a.walk(row, gi);
-#pragma unroll
-      for (int i = 0; i < kRowVecs; ++i, a.next(row, it, gn))
-        v[i] = gi + i * gn < k4 ? a.load(it) : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-      for (int i = 0; i < kRowVecs; ++i) m = abs_max4(m, v[i]);
-      for (int j = gi + kRowVecs * gn; j < k4; j += gn, a.next(row, it, gn))
-        m = abs_max4(m, a.load(it));
-    }
-    m = warp_max(m);
-    if (lane == 0) red[warp] = m;
-    __syncthreads();
-    for (int w = first; w < first + wpr; ++w) m = fmaxf(m, red[w]);
-    const float s = scale_from_max(m);
-    if (p < P) {
-      unsigned* dst = reinterpret_cast<unsigned*>(aq + static_cast<size_t>(p) * Kp);
-#pragma unroll
-      for (int i = 0; i < kRowVecs; ++i)
-        if (gi + i * gn < k4) dst[gi + i * gn] = quantize4(v[i], s);
-      if (gi + kRowVecs * gn < k4) {
-        const auto row = a.row(p);
-        auto it = a.walk(row, gi + kRowVecs * gn);
-        for (int j = gi + kRowVecs * gn; j < k4; j += gn, a.next(row, it, gn))
-          dst[j] = quantize4(a.load(it), s);
-      }
-      for (int j = k4 + gi; j < kp4; j += gn) dst[j] = 0u;
-      if (gi == 0) sx[p] = s;
-    }
-    __syncthreads();  // red is reused by the next rows
-  }
-}
-
 // The transpose of (K, N) int8 weights b into bt (N, Kp), k-contiguous, zero
 // for K <= k < Kp, cut into items of sixteen k: of four columns each, one
 // 4-byte load a k, where N % 4 == 0 and b is 4-byte aligned (vec), else of
@@ -284,30 +148,6 @@ struct Transpose {
   }
 };
 
-// Every item of one transpose, dealt to the whole grid. The caller places
-// the barrier.
-__device__ __forceinline__ void transpose_phase(const int8_t* __restrict__ b, int K, int N,
-                                                int Kp, int8_t* bt) {
-  const Transpose t{b, K, N, Kp, bt};
-  const long long items = t.items();
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < items;
-       i += static_cast<long long>(gridDim.x) * blockDim.x)
-    t.item(i);
-}
-
-// One stage: aq[p0 .. p0+63, kb .. kb+63] and bt[n0 .. n0+63, kb .. kb+63],
-// one 16-byte copy of each a thread.
-__device__ __forceinline__ void load_stage(int8_t* sa, int8_t* sb, const int8_t* aq,
-                                           const int8_t* bt, int P, int N, int Kp, int p0,
-                                           int n0, int kb, int k1) {
-  const int r = threadIdx.x / 4, c = threadIdx.x % 4 * 16;
-  const int k = kb + c;
-  bool ok = p0 + r < P && k < k1;
-  cp_async16(sa + r * kLd + c, ok ? aq + static_cast<size_t>(p0 + r) * Kp + k : aq, ok);
-  ok = n0 + r < N && k < k1;
-  cp_async16(sb + r * kLd + c, ok ? bt + static_cast<size_t>(n0 + r) * Kp + k : bt, ok);
-}
-
 // The warp (wm, wn) multiplies its 32 x 16 outputs over the 32 k from byte
 // ks of the rows of sa and sb (shared memory, rows of ld bytes).
 __device__ __forceinline__ void mma_k32(const int8_t* sa, const int8_t* sb, int ld, int ks,
@@ -321,52 +161,6 @@ __device__ __forceinline__ void mma_k32(const int8_t* sa, const int8_t* sb, int 
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
     for (int ni = 0; ni < 2; ++ni) mma(acc[mi][ni], a[mi], b[ni]);
-}
-
-// One ring stage (kBK bytes of k, rows of kLd bytes).
-__device__ __forceinline__ void mma_stage(const int8_t* sa, const int8_t* sb, Acc& acc, int wm,
-                                          int wn) {
-#pragma unroll
-  for (int ks = 0; ks < kBK; ks += 32) mma_k32(sa, sb, kLd, ks, acc, wm, wn);
-}
-
-// acc = aq[p0.., k0:k1] x bt[n0.., k0:k1]^T for the 64 x 64 tile; smem:
-// kSmemBytes, 16-byte aligned. Ends with every copy landed and a
-// __syncthreads, so the caller may reuse the ring.
-__device__ __forceinline__ void tile(const int8_t* aq, const int8_t* bt, int P, int N, int Kp,
-                                     int p0, int n0, int k0, int k1, int8_t* smem, Acc& acc) {
-  const int warp = threadIdx.x / 32;
-  const int wm = warp / 4, wn = warp % 4;
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 2; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0;
-
-  const int steps = (k1 - k0 + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < steps) {
-      int8_t* st = smem + s * kStageBytes;
-      load_stage(st, st + kBM * kLd, aq, bt, P, N, Kp, p0, n0, k0 + s * kBK, k1);
-    }
-    cp_async_commit();
-  }
-  for (int it = 0; it < steps; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage `it` landed for all; slot (it - 1) is free
-    const int next = it + kStages - 1;
-    if (next < steps) {
-      int8_t* st = smem + (next % kStages) * kStageBytes;
-      load_stage(st, st + kBM * kLd, aq, bt, P, N, Kp, p0, n0, k0 + next * kBK, k1);
-    }
-    cp_async_commit();
-    const int8_t* st = smem + (it % kStages) * kStageBytes;
-    mma_stage(st, st + kBM * kLd, acc, wm, wn);
-  }
-  cp_async_wait<0>();
-  __syncthreads();
 }
 
 // The row and column, relative to the tile's corner, of this thread's
@@ -387,53 +181,6 @@ __device__ __forceinline__ void for_each_acc(const Acc& acc, const F& f) {
     for (int ni = 0; ni < 2; ++ni)
 #pragma unroll
       for (int e = 0; e < 4; ++e) f(acc_row(mi, e), acc_col(ni, e), acc[mi][ni][e]);
-}
-
-// C = aq x bt^T over the whole phase, every output through
-// epi(p, n, acc, sx[p]); aq, bt and sx were written before a barrier. K
-// (Kp bytes) in `splits` ranges of `chunk` (a multiple of kBK when
-// splits > 1); with several, int32 partial sums go to part (splits x P x
-// N), and after a barrier the blocks add them and apply the epilogue. The
-// caller places the barrier that ends the phase.
-template <class Epilogue>
-__device__ __forceinline__ void gemm_phase(const int8_t* aq, const int8_t* bt, const float* sx,
-                                           int P, int N, int Kp, int splits, int chunk,
-                                           const Epilogue& epi, int* part, unsigned int* bar,
-                                           int8_t* smem) {
-  const int tiles_n = (N + kBN - 1) / kBN;
-  const int tiles = (P + kBM - 1) / kBM * tiles_n;
-  for (int item = blockIdx.x; item < tiles * splits; item += gridDim.x) {
-    const int split = item / tiles, t = item - split * tiles;
-    const int p0 = t / tiles_n * kBM, n0 = t % tiles_n * kBN;
-    const int k0 = split * chunk, k1 = min(Kp, k0 + chunk);
-    Acc acc;
-    tile(aq, bt, P, N, Kp, p0, n0, k0, k1, smem, acc);
-    int* sp = splits == 1 ? nullptr : part + static_cast<size_t>(split) * P * N;
-    for_each_acc(acc, [&](int r, int c, int v) {
-      const int p = p0 + r, n = n0 + c;
-      if (p >= P || n >= N) return;
-      if (splits == 1)
-        epi(p, n, v, __ldcg(sx + p));
-      else
-        sp[static_cast<size_t>(p) * N + n] = v;
-    });
-  }
-  if (splits == 1) return;
-  grid_sync(bar);
-  const size_t pn = static_cast<size_t>(P) * N;
-  for (size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < pn;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    int s = 0;
-    for (int k0 = 0; k0 < splits; k0 += 8) {  // eight splits' loads in flight
-      int v[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) v[u] = k0 + u < splits ? __ldcg(part + (k0 + u) * pn + i) : 0;
-#pragma unroll
-      for (int u = 0; u < 8; ++u) s += v[u];
-    }
-    const int p = static_cast<int>(i / N);
-    epi(p, static_cast<int>(i % N), s, __ldcg(sx + p));
-  }
 }
 
 }  // namespace s8mma

@@ -16,16 +16,18 @@
 // Design, two paths (the host's plan, kernels/pointwise.py::split_plan,
 // picks one by P and the K split; this entry checks the plan against the
 // geometry compiled here and refuses one that does not fit):
-// * MMA (P > 8): 64 x 64 tiles of wgmma_tile.cuh (wgmma on one warpgroup,
-//   3xTF32, FP32-level error; the weight tiles by TMA onto mbarriers, A by
-//   cp.async, a 4-deep ring), with K split until tiles x splits reach about
-//   one wave of SMs, at most kClusterMax ways. The K splits of one output
-//   tile are the blocks of one thread-block cluster (cluster dims (1,
-//   splits, 1)): each leaves its partial tile in its shared memory, and
-//   after a cluster barrier block r adds rows r * 64 / splits .. of every
-//   block's partial through distributed shared memory, in rank order 0, 1,
-//   ..., and applies BN and ReLU. No partial reaches device memory, no
-//   counter, no memset before the launch.
+// * MMA (P > 8): wgmma_cluster.cuh's one-launch GEMM (shared with
+//   csrc/direct.cu) on A = x row-major: 64 x 64 tiles of wgmma_tile.cuh
+//   (wgmma on one warpgroup, 3xTF32, FP32-level error; the weight tiles by
+//   TMA onto mbarriers, A by cp.async, a 4-deep ring), with K split until
+//   tiles x splits reach about one wave of SMs, at most 8 ways (a portable
+//   cluster).
+//   The K splits of one output tile are the blocks of one thread-block
+//   cluster (cluster dims (1, splits, 1)): each leaves its partial tile in
+//   its shared memory, and after a cluster barrier block r adds rows
+//   r * 64 / splits .. of every block's partial through distributed shared
+//   memory, in rank order 0, 1, ..., and applies BN and ReLU. No partial
+//   reaches device memory, no counter, no memset before the launch.
 // * GEMV (P <= kGemvMaxP): the block owns 128 columns and a K range; each
 //   warp streams whole 512-byte rows of w with 16-byte loads, the rows of x
 //   sit in shared memory, and the warps' sums meet in shared memory in
@@ -49,9 +51,9 @@
 
 #include <type_traits>
 
-#include "cluster.cuh"
 #include "common.cuh"
 #include "splitk_tf32.cuh"
+#include "wgmma_cluster.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -59,6 +61,7 @@ namespace {
 namespace tc = wt::tf32x3;
 namespace sk = wt::splitk;
 namespace wg = wt::wg;
+namespace wgc = wt::wgc;
 using sk::Args;
 using sk::GemmArgs;
 using bf16 = __nv_bfloat16;
@@ -68,12 +71,6 @@ constexpr int kGemvCols = 128;    // columns a GEMV block owns
 constexpr int kGemvThreads = 256;
 constexpr int kGemvWarps = kGemvThreads / 32;
 constexpr int kGemvXChunk = 256;
-constexpr int kClusterMax = 8;    // K splits of an MMA tile: the blocks of one portable cluster
-constexpr int kLdRed = wg::kBN + 8;  // floats a row of a partial tile in shared memory
-// The f32 tiles overlap a stage's products with the next stage's split
-// (wgmma_tile.cuh, kPipe); the bf16 products read their slot, so they wait.
-template <class BT>
-constexpr bool kPipe = std::is_same_v<BT, float>;
 
 // Four adjacent weights of row k from column n on (zero past N).
 template <bool kVec>
@@ -189,105 +186,7 @@ __global__ void __launch_bounds__(kGemvThreads) pointwise_gemv_kernel(GemmArgs<B
       a, 0, n0, a.P * kGemvCols, kGemvCols, 1);
 }
 
-// The MMA path's operands and plan; map: w as a (N, K, 1) tensor map (kVec).
-template <class BT>
-struct MmaArgs {
-  CUtensorMap map;
-  const float* x;
-  const BT* w;
-  const float* scale;
-  const float* bias;
-  float* out;
-  int P, K, N, relu, splits, chunk;
-};
-
-using wt::cluster_sync;
-using wt::load_rank;
-
-template <class BT>
-__device__ __forceinline__ float bn(const MmaArgs<BT>& a, int n, float acc) {
-  const float y = acc * a.scale[n] + a.bias[n];
-  return a.relu ? wt::relu(y) : y;
-}
-
-// One block per (output tile, split), grid (tiles, splits), the splits of a
-// tile one cluster. kVec: the TMA weight loads and 16-byte A copies (K a
-// multiple of 4, N of 4 (8 for bf16), operands 16-byte aligned).
-template <bool kVec, class BT>
-__global__ void __launch_bounds__(wg::kThreads) mma_kernel(const __grid_constant__ MmaArgs<BT> a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ __align__(8) uint64_t bars[wg::kStages];
-  wg::Ring ring = wg::make_ring(smem, bars);
-  const int tiles_n = (a.N + wg::kBN - 1) / wg::kBN;
-  const int tile = blockIdx.x, split = blockIdx.y;
-  const int p0 = tile / tiles_n * wg::kBM, n0 = tile % tiles_n * wg::kBN;
-  const int k0 = split * a.chunk, k1 = min(a.K, k0 + a.chunk);
-  wg::Acc acc;
-  wg::tile<kVec, false, kPipe<BT>>(tc::RowMajorA{a.x, a.P, a.K},
-                                   wg::Weights<BT>{&a.map, a.w, a.N, a.K, 0}, p0, n0, k0, k1,
-                                   ring, false, acc);
-  if (a.splits == 1) {
-    wg::for_each_acc(acc, [&](int r, int c, float v) {
-      if (p0 + r < a.P && n0 + c < a.N)
-        a.out[static_cast<size_t>(p0 + r) * a.N + n0 + c] = bn(a, n0 + c, v);
-    });
-    return;
-  }
-  // The ring is idle: it holds this block's partial tile for the cluster.
-  float* red = reinterpret_cast<float*>(ring.base);
-  wg::for_each_acc(acc, [&](int r, int c, float v) { red[r * kLdRed + c] = v; });
-  cluster_sync();
-  const int rows = (wg::kBM + a.splits - 1) / a.splits;
-  const int r0 = split * rows, r1 = min(wg::kBM, r0 + rows);
-  const unsigned base = wt::smem_addr(red);
-  for (int i = threadIdx.x; i < (r1 - r0) * wg::kBN; i += wg::kThreads) {
-    const int r = r0 + i / wg::kBN, c = i % wg::kBN;
-    if (p0 + r >= a.P || n0 + c >= a.N) continue;
-    const unsigned at = base + 4u * (r * kLdRed + c);
-    float v[kClusterMax];
-#pragma unroll
-    for (int q = 0; q < kClusterMax; ++q) v[q] = q < a.splits ? load_rank(at, q) : 0.f;
-    float s = v[0];
-#pragma unroll
-    for (int q = 1; q < kClusterMax; ++q)
-      if (q < a.splits) s += v[q];
-    a.out[static_cast<size_t>(p0 + r) * a.N + n0 + c] = bn(a, n0 + c, s);
-  }
-  cluster_sync();  // no block leaves while another reads its partial
-}
-
-// Launches mma_kernel<kVec, BT> on grid (tiles, splits) in clusters of
-// (1, splits, 1), setting its dynamic shared memory limit once per device.
-template <bool kVec, class BT>
-cudaError_t launch_mma(const MmaArgs<BT>& a, int tiles, cudaStream_t s) {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    e = cudaFuncSetAttribute(mma_kernel<kVec, BT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(wg::kSmemBytes<BT, kPipe<BT>>));
-    if (e != cudaSuccess) return e;
-    done[dev] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles, a.splits);
-  cfg.blockDim = dim3(wg::kThreads);
-  cfg.dynamicSmemBytes = wg::kSmemBytes<BT, kPipe<BT>>;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = a.splits;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, mma_kernel<kVec, BT>, a);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+using wgc::aligned16;
 bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
 
 // Both entries: check the plan, bind the GEMV's workspace or encode the
@@ -318,30 +217,9 @@ int conv1x1_bn(const float* x, const BT* w, const float* scale, const float* bia
   } else {
     // K in `splits` ranges of `chunk` (the last shorter, each but the last
     // a multiple of the tile's stage), the splits of a tile one cluster.
-    if (P <= 0 || K <= 0 || N <= 0 || splits <= 0 || splits > kClusterMax || chunk <= 0 ||
-        static_cast<long long>(chunk) * splits < K ||
-        static_cast<long long>(chunk) * (splits - 1) >= K ||
-        (splits > 1 && chunk % wg::kBK != 0))
-      return static_cast<int>(cudaErrorInvalidValue);
-    MmaArgs<BT> a{};
-    a.x = x;
-    a.w = w;
-    a.scale = scale;
-    a.bias = bias;
-    a.out = out;
-    a.P = P;
-    a.K = K;
-    a.N = N;
-    a.relu = relu;
-    a.splits = splits;
-    a.chunk = chunk;
-    if (K % 4 == 0 && N % (kBf16 ? 8 : 4) == 0 && aligned16(x) && aligned16(w) &&
-        aligned16(out)) {
-      e = wg::encode_weights(&a.map, w, 1, K, N);
-      if (e == cudaSuccess) e = launch_mma<true>(a, tiles, s);
-    } else {
-      e = launch_mma<false>(a, tiles, s);
-    }
+    wgc::Args<BT> a{{}, w, scale, bias, out, P, K, N, relu, splits, chunk};
+    e = wgc::run<wgc::kClusterPortable>(a, tc::RowMajorA{x, P, K}, K % 4 == 0 && aligned16(x),
+                                        s);
   }
   return static_cast<int>(e);
 }
@@ -353,7 +231,7 @@ int conv1x1_bn(const float* x, const BT* w, const float* scale, const float* bia
 // (kGemvCols for the GEMV, 64 for the MMA tiles; the GEMV takes at most
 // kGemvMaxP rows); K in `splits` ranges of `chunk`, the last one shorter,
 // chunk a multiple of the 32-deep stage when splits > 1, at most
-// kClusterMax splits on the MMA path. ws: the GEMV's, past one split (may
+// wgc::kClusterPortable splits on the MMA path. ws: the GEMV's, past one split (may
 // be null otherwise): one counter per output tile from word 0, the splits x
 // P x N partial sums from word `part` (a multiple of 4), ws_words words in
 // all; the MMA path takes none.

@@ -32,27 +32,15 @@
 //   __dp4a into int32. The warps' sums meet in shared memory; with several
 //   K ranges the last block of a column tile adds the int32 partial sums
 //   (exact in any order) and applies the epilogue once.
-// * Cluster (any P; the strided b-legs and most 1x1s): a block of two
-//   warpgroups on a 64-row tile of the plan's 64 or 128 columns (64 a
-//   warpgroup, both on one A), s8 wgmma m64n64k32 (wgmma_s8.cuh's
-//   instruction and 128-byte swizzle); a tile's K splits are the blocks of
-//   one thread-block cluster (cluster dims (1, splits, 1), at most
-//   kClusterMax, the portable size; one K range is a cluster of one). Each
-//   thread owns a quarter of one row: the block takes its 64 rows' max |x|
-//   over its own K range (no atomics), and the cluster exchanges these
-//   through distributed shared memory into each row's whole maximum (a max
-//   is exact in any order). Each block then quantizes its K range once, in
-//   spans of kSpan k held in shared memory as wgmma's K-major A, beside its
-//   columns' weights staged K-major (16 k rows of four columns a thread,
-//   byte-permuted into the swizzled rows as csrc/winograd_int8.cu stages
-//   u_q: no k-contiguous copy, no TMA map; a warp's loads whole 32-byte
-//   sectors, its stores conflict-free), and multiplies. Past one split each
-//   block leaves its int32 partial tile in its shared memory and, after a
-//   cluster barrier, block r adds rows r * 64 / splits .. of every block's
-//   partial (exact in any order) and applies the epilogue once an element.
-//   No grid barrier, no memset, no workspace, no cooperative launch: what
-//   the mma.sync cooperative form (a quantize phase, two grid barriers,
-//   int32 partials through device memory) paid at every launch.
+// * Cluster (any P; the strided b-legs and most 1x1s): wgmma_s8_cluster.cuh's
+//   one-launch s8 wgmma GEMM (shared with csrc/direct_int8.cu) on x's rows
+//   (XRows): a block of two warpgroups on a 64-row tile of the plan's 64 or
+//   128 columns, a tile's K splits the blocks of one thread-block cluster
+//   (at most kClusterMax) that exchange their rows' maxima and add their
+//   int32 partials through distributed shared memory. No grid barrier, no
+//   memset, no workspace, no cooperative launch: what the mma.sync
+//   cooperative form (a quantize phase, two grid barriers, int32 partials
+//   through device memory) paid at every launch.
 // * One pass (Kp <= kOnePassMaxK): one block a 64 x 64 output tile on
 //   mma_int8.cuh's s8 mma.sync warp tile, its 64 rows quantized once into
 //   shared memory and its 64 weight columns written k-contiguous beside
@@ -61,17 +49,19 @@
 
 #include <stdint.h>
 
-#include "cluster.cuh"
 #include "common.cuh"
 #include "mma_int8.cuh"
 #include "wgmma_s8.cuh"
-#include "wgmma_s8_phase.cuh"
+#include "wgmma_s8_cluster.cuh"
 
 namespace {
 
 namespace s8 = wt::s8mma;
 namespace q8 = wt::wgs8;
-namespace wg = wt::wg;
+namespace sc = wt::s8cluster;
+// The max |v| over a float4 as bits: a NaN above every number, so a row
+// with a NaN gets a NaN scale, as torch.amax gives the plain version.
+using sc::abs_bits4;
 
 // The plan's paths, as the host numbers them.
 constexpr int kGemv = 0;
@@ -86,8 +76,6 @@ constexpr int kGemvStep = 32;     // a GEMV split is a multiple of this: one 4-k
 constexpr int kGemvXChunk = 1024;  // k of x quantized into shared memory at a time
 constexpr int kOnePassMaxK = 256;  // Kp of the rows the one-pass form holds in shared memory
 constexpr int kOnePassLd = kOnePassMaxK + 16;  // bytes a shared row: 32 distinct banks a fragment
-constexpr int kClusterMax = 8;      // K splits of a cluster tile: one portable cluster
-constexpr int kClusterStep = 32;    // a cluster split is a multiple of this: one wgmma k step
 
 static_assert(kGemvStep == 4 * kGemvWarps, "a GEMV step is one 4-k group a warp");
 static_assert(kGemvXChunk % kGemvStep == 0, "x chunks hold whole GEMV steps");
@@ -104,13 +92,6 @@ struct Args {
   int* part;          // the GEMV's int32 partial sums of the K splits
   int P, K, N, relu, Kp, splits, chunk;
 };
-
-// The max of |v| over a float4 as bits (wgmma_s8.cuh::abs_bits): a NaN
-// above every number, so a row with a NaN gets a NaN scale, as torch.amax
-// gives the plain version (fmaxf would drop it).
-__device__ __forceinline__ unsigned abs_bits4(const float4& v) {
-  return max(max(q8::abs_bits(v.x), q8::abs_bits(v.y)), max(q8::abs_bits(v.z), q8::abs_bits(v.w)));
-}
 
 __device__ __forceinline__ wt::Int8BnEpilogue epilogue(const Args& a) {
   return wt::Int8BnEpilogue{a.sw, a.scale, a.bias, a.out, a.N, a.relu};
@@ -287,239 +268,6 @@ __global__ void __launch_bounds__(s8::kThreads) pointwise_int8_one_pass(Args a) 
   });
 }
 
-// --- cluster: the K splits of a tile one thread-block cluster --------------
-
-// A cluster block: two warpgroups on a 64 x kCols output tile (kCols 64:
-// the first warpgroup's 64 columns; 128: 64 each), sharing A. Thread t
-// owns row t / 4 of A and the float4s 4 i + t % 4 of each 16-k step of it;
-// unit (k group, column group) of a weight stage as unit_of gives it.
-constexpr int kCThreads = 2 * q8::kWgThreads;
-constexpr int kSpan = 256;                  // k of A and B a block stages at once
-constexpr int kSpanStages = kSpan / q8::kBK;
-constexpr int kStageF4 = q8::kBK / 16;      // float4s of its row a thread stages a stage
-constexpr int kLdRed = 2 * q8::kBN + 4;     // ints a row of a partial tile in shared memory
-// A span of A (64 x kSpan) and of B (128 columns x kSpan), aligned to the
-// swizzle's 1024-byte atom; the partial tile reuses it.
-constexpr size_t kClusterSmem =
-    1024 + static_cast<size_t>(kSpanStages) * (q8::kABytes + 2 * q8::kBBytes);
-static_assert(q8::kBM * kLdRed * 4 + 1024 <= kClusterSmem, "a partial tile fits the span");
-static_assert(kCThreads / 4 == q8::kBM, "four threads a row of A");
-
-// The weights of one stage of kb into the B slots (the tile's columns as
-// rows, K-major, 128-byte swizzle, 64 columns a warpgroup's slot): unit u
-// (u < kCols / 4 * 8) is the 16 k from kb + 16 j of columns n0 + 4 c .. +3
-// (unit_of). A warp takes eight column groups of four k groups, so each of
-// its row loads is four 32-byte sectors and each 16-byte store phase hits
-// eight distinct chunks.
-template <int kCols>
-__device__ __forceinline__ int2 unit_of(int u) {
-  constexpr int kWarpsAcross = kCols / 4 / 8;  // warps side by side along the columns
-  const int lane = u % 32, warp = u / 32;
-  return make_int2(lane % 8 + 8 * (warp % kWarpsAcross), lane / 8 + 4 * (warp / kWarpsAcross));
-}
-
-template <bool kVec, int kCols>
-__device__ __forceinline__ void load_unit(const Args& a, int n0, int kb, int u,
-                                          unsigned (&r)[4][4]) {
-  const int2 cj = unit_of<kCols>(u);
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    s8::rows4<kVec>(a.wq, a.K, a.N, kb + 16 * cj.y + 4 * q, n0 + 4 * cj.x, r[q]);
-}
-
-template <int kCols>
-__device__ __forceinline__ void store_unit(int u, const unsigned (&r)[4][4], int8_t* slot) {
-  const int2 cj = unit_of<kCols>(u);
-  const int c = cj.x, j = cj.y;
-  unsigned w[4][4];  // [column][word of 4 k]
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    unsigned cw[4];
-    s8::transpose4(r[q], cw);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) w[e][q] = cw[e];
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int col = 4 * c + e, o = col % q8::kBN;
-    *reinterpret_cast<uint4*>(slot + col / q8::kBN * q8::kBBytes + o * q8::kBK +
-                              ((j ^ (o & 7)) << 4)) =
-        make_uint4(w[e][0], w[e][1], w[e][2], w[e][3]);
-  }
-}
-
-// x's float4 of row p at k (zero past P and K).
-__device__ __forceinline__ float4 load_x(const Args& a, int p, int k) {
-  return p < a.P && k < a.K
-             ? __ldg(reinterpret_cast<const float4*>(a.x + static_cast<size_t>(p) * a.K + k))
-             : make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// One block per (output tile, split), grid (tiles, splits), the splits of a
-// tile one cluster (a block's rank is its split). kVec: N % 4 == 0 and the
-// weights 4-byte aligned; kCols: the tile's columns, 64 or 128.
-template <bool kVec, int kCols>
-__global__ void __launch_bounds__(kCThreads, 2) pointwise_int8_cluster(Args a) {
-  extern __shared__ __align__(16) unsigned char dsmem[];
-  __shared__ unsigned rmax[q8::kBM];
-  __shared__ float sc[q8::kBM], rc[q8::kBM];
-  int8_t* sa = reinterpret_cast<int8_t*>(dsmem) + ((1024 - (wt::smem_addr(dsmem) & 1023)) & 1023);
-  int8_t* sb = sa + kSpanStages * q8::kABytes;  // stage st's slots at st * 2 * kBBytes
-  const int tiles_n = (a.N + kCols - 1) / kCols;
-  const int p0 = blockIdx.x / tiles_n * q8::kBM, n0 = blockIdx.x % tiles_n * kCols;
-  const int split = blockIdx.y;
-  const int k0 = split * a.chunk, k1 = min(a.Kp, k0 + a.chunk);
-  const int t = threadIdx.x, row = t / 4, p = p0 + row;
-  constexpr int kUnits = kCols / 4 * (q8::kBK / 16);  // weight units a stage
-
-  // Pass 1: the max |x| of this thread's row over the block's K range,
-  // eight loads in flight, then its four threads' maximum.
-  unsigned m = 0u;
-  for (int kb = k0 + 4 * (t % 4); kb < k1; kb += 16 * 8) {
-    float4 v[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-      v[i] = kb + 16 * i < k1 ? load_x(a, p, kb + 16 * i) : make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) m = max(m, abs_bits4(v[i]));
-  }
-  m = max(m, __shfl_xor_sync(0xffffffffu, m, 1));
-  m = max(m, __shfl_xor_sync(0xffffffffu, m, 2));
-  if (t % 4 == 0) rmax[row] = m;
-  // Each row's whole maximum from the cluster's blocks, then its scale.
-  if (a.splits > 1)
-    wt::cluster_sync();
-  else
-    __syncthreads();
-  if (t < q8::kBM) {
-    unsigned mm = rmax[t];
-    const unsigned at = wt::smem_addr(rmax + t);
-    for (int q = 0; q < a.splits; ++q) mm = max(mm, wt::load_rank_u32(at, q));
-    sc[t] = q8::scale_of_bits(mm);
-    rc[t] = 1.f / sc[t];
-  }
-  __syncthreads();
-
-  // Pass 2, a span at a time: the weights and the rows (read again)
-  // staged into the span's slots, then the products.
-  const int wgi = q8::wg_index();
-  const bool mma = wgi * q8::kBN < kCols;  // the warpgroup has columns
-  const float s = sc[row], rs = rc[row];
-  q8::Acc acc;
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0;
-  for (int s0 = k0; s0 < k1; s0 += kSpan) {
-    const int s1 = min(k1, s0 + kSpan);
-    // A stage at a time: its weights' loads, its rows' loads, the weights
-    // stored, the rows quantized (the loads of each in flight together,
-    // a stage's registers live at a time).
-#pragma unroll
-    for (int st = 0; st < kSpanStages; ++st) {
-      const int kb = s0 + st * q8::kBK;
-      if (kb >= s1) break;
-      unsigned w[4][4];
-      if (t < kUnits) load_unit<kVec, kCols>(a, n0, kb, t, w);
-      float4 v[kStageF4];
-#pragma unroll
-      for (int i = 0; i < kStageF4; ++i) {
-        const int k = kb + 4 * (t % 4) + 16 * i;
-        v[i] = k < s1 ? load_x(a, p, k) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      if (t < kUnits) store_unit<kCols>(t, w, sb + st * 2 * q8::kBBytes);
-#pragma unroll
-      for (int i = 0; i < kStageF4; ++i) {
-        const int kk = 4 * (t % 4) + 16 * i;  // k within the stage
-        if (kb + kk >= s1) break;
-        const int j = kk / 16;
-        *reinterpret_cast<unsigned*>(sa + st * q8::kABytes + row * q8::kBK +
-                                     ((j ^ (row & 7)) << 4) + kk % 16) =
-            wt::s8phase::quantize4_fast(v[i], s, rs);
-      }
-    }
-    wg::fence_proxy_async();  // the generic stores before wgmma reads them
-    __syncthreads();
-    if (mma) {
-      wg::wgmma_fence();
-      for (int kk = 0; kk < s1 - s0; kk += 32) {
-        const int st = kk / q8::kBK, off = kk % q8::kBK;
-        const int8_t* b = sb + st * 2 * q8::kBBytes + wgi * q8::kBBytes + off;
-        q8::wgmma_s8(acc, wg::desc128(sa + st * q8::kABytes + off, 16, 1024),
-                     wg::desc128(b, 16, 1024), 1);
-      }
-      wg::wgmma_commit();
-      wg::wgmma_wait_all();
-      q8::fence_acc(acc);
-    }
-    __syncthreads();  // every product read the span before the next is staged
-  }
-
-  const wt::Int8BnEpilogue epi = epilogue(a);
-  const int nw = n0 + wgi * q8::kBN;  // the warpgroup's first column
-  if (a.splits == 1) {
-    if (mma)
-      q8::for_each_acc([&](int r, int c, int i) {
-        if (p0 + r < a.P && nw + c < a.N) epi(p0 + r, nw + c, acc[i], sc[r]);
-      });
-    return;
-  }
-  // The span is idle: it holds this block's partial tile for the cluster.
-  int* red = reinterpret_cast<int*>(sa);
-  wg::fence_proxy_async();  // the products' reads of the span before these writes
-  if (mma)
-    q8::for_each_acc([&](int r, int c, int i) { red[r * kLdRed + wgi * q8::kBN + c] = acc[i]; });
-  wt::cluster_sync();
-  const int rows = (q8::kBM + a.splits - 1) / a.splits;
-  const int r0 = split * rows, r1 = min(q8::kBM, r0 + rows);
-  const unsigned base = wt::smem_addr(red);
-  for (int i = t; i < (r1 - r0) * kCols; i += kCThreads) {
-    const int r = r0 + i / kCols, c = i % kCols;
-    if (p0 + r >= a.P || n0 + c >= a.N) continue;
-    const unsigned at = base + 4u * (r * kLdRed + c);
-    int v[kClusterMax];
-#pragma unroll
-    for (int q = 0; q < kClusterMax; ++q)
-      v[q] = q < a.splits ? static_cast<int>(wt::load_rank_u32(at, q)) : 0;
-    int sum = 0;
-#pragma unroll
-    for (int q = 0; q < kClusterMax; ++q) sum += v[q];
-    epi(p0 + r, n0 + c, sum, sc[r]);
-  }
-  wt::cluster_sync();  // no block leaves while another reads its partial or its maxima
-}
-
-// Launches pointwise_int8_cluster<kVec, kCols> on grid (tiles, splits) in
-// clusters of (1, splits, 1), setting its dynamic shared memory limit once
-// per device.
-template <bool kVec, int kCols>
-cudaError_t launch_cluster(const Args& a, int tiles, cudaStream_t s) {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    e = cudaFuncSetAttribute(pointwise_int8_cluster<kVec, kCols>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kClusterSmem));
-    if (e != cudaSuccess) return e;
-    done[dev] = true;
-  }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(tiles, a.splits);
-  cfg.blockDim = dim3(kCThreads);
-  cfg.dynamicSmemBytes = kClusterSmem;
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = a.splits;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, pointwise_int8_cluster<kVec, kCols>, a);
-  return e != cudaSuccess ? e : cudaGetLastError();
-}
-
 bool vec_weights(const int8_t* wq, int N) {
   return N % 4 == 0 && reinterpret_cast<uintptr_t>(wq) % 4 == 0;
 }
@@ -532,7 +280,7 @@ bool vec_weights(const int8_t* wq, int N) {
 // q8::kBM); `blocks` the grid (the GEMV's column tiles x splits, the one
 // pass's tiles, the cluster path's tiles x splits); Kp in `splits` ranges
 // of `chunk`, the last one shorter (a cluster split a multiple of
-// kClusterStep, at most kClusterMax). ws, ws_words 4-byte words (may be
+// sc::kClusterStep, at most sc::kClusterPortable). ws, ws_words 4-byte words (may be
 // null where the plan needs none): for the GEMV past one split, a counter
 // per column tile from word 0 and the splits x P x N int32 partial sums
 // from word `part`; no other path takes a workspace. x must be 16-byte
@@ -579,18 +327,8 @@ extern "C" int pointwise_int8_conv1x1_bn(const float* x, const int8_t* wq, const
     else
       pointwise_int8_one_pass<false><<<blocks, s8::kThreads, 0, s>>>(a);
   } else if (path == kCluster) {
-    const int tiles = (P + q8::kBM - 1) / q8::kBM * ((N + tile - 1) / tile);
-    if ((tile != q8::kBN && tile != 2 * q8::kBN) || Kp % s8::kKAlign != 0 ||
-        Kp >= K + s8::kKAlign || splits > kClusterMax ||
-        (splits > 1 && chunk % kClusterStep != 0) || blocks != tiles * splits)
-      return invalid;
-    if (tile == q8::kBN)
-      e = vec ? launch_cluster<true, q8::kBN>(a, tiles, s)
-              : launch_cluster<false, q8::kBN>(a, tiles, s);
-    else
-      e = vec ? launch_cluster<true, 2 * q8::kBN>(a, tiles, s)
-              : launch_cluster<false, 2 * q8::kBN>(a, tiles, s);
-    return static_cast<int>(e);
+    const sc::Args c{wq, sw, scale, bias, out, P, K, N, relu, Kp, splits, chunk};
+    return static_cast<int>(sc::run<sc::kClusterPortable>(c, sc::XRows{x, P, K}, tile, blocks, s));
   } else {
     return invalid;
   }

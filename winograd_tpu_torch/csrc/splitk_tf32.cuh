@@ -1,25 +1,23 @@
-// Split-K f32 products with a folded BN (+ ReLU) epilogue, for the per-layer
-// kernels whose output tiles are fewer than the card's SMs (csrc/direct.cu,
-// and csrc/pointwise.cu's GEMV): out[P, N] = BN(A[P, K] x w[K, N]).
+// Split-K f32 products through device memory with a folded BN (+ ReLU)
+// epilogue, for csrc/pointwise.cu's GEMV (P <= 8 rows, the heads):
+// out[P, N] = BN(x[P, K] x w[K, N]).
 //
 // K is cut into `splits` ranges of `chunk` by the host's plan, one block per
-// (tile, split). With one split the block applies the epilogue itself. With
-// several, each block writes its f32 partial tile to the workspace (splits x
-// P x N) and counts itself in at its tile's counter (at the workspace's
-// start, zeroed by the C entry's cudaMemsetAsync before the launch); the last
-// block of a tile to arrive adds the partials in split order 0, 1, ...,
-// S-1 and applies BN and ReLU once. Which block is last varies; the order of
-// the sum does not, so the same inputs give the same bits on every call.
-// Nothing is allocated and nothing copied to or from the host, so the launch
-// can be captured in a CUDA graph.
+// (column tile, split). With one split the block applies the epilogue
+// itself. With several, each block writes its f32 partial sums to the
+// workspace (splits x P x N) and counts itself in at its tile's counter (at
+// the workspace's start, zeroed by the C entry's cudaMemsetAsync before the
+// launch); the last block of a tile to arrive adds the partials in split
+// order 0, 1, ..., S-1 and applies BN and ReLU once. Which block is last
+// varies; the order of the sum does not, so the same inputs give the same
+// bits on every call. Nothing is allocated and nothing copied to or from
+// the host, so the launch can be captured in a CUDA graph. The weights'
+// element type is float, or __nv_bfloat16 at the bf16w tier.
 //
-// The MMA path (mma_kernel) multiplies 64 x 64 tiles of mma_tf32.cuh, with A
-// from any of its sources; pointwise.cu's GEMV reuses the reduction. The
-// kernel takes the weights' element type: f32 weights run tf32x3's 3xTF32
-// tile, bf16 weights (the bf16w tier) mma_bf16w.cuh's tile (wt::mma_tile),
-// the plan and the reduction the same.
-//
-// The persistent kernels' GEMM phases (csrc/stage.cu, transition.cu,
+// The per-layer GEMMs over more rows run as one launch with their K splits
+// reduced inside a thread-block cluster (wgmma_cluster.cuh: csrc/
+// pointwise.cu's MMA path, csrc/direct.cu) and need none of this. The
+// persistent kernels' GEMM phases (csrc/stage.cu, transition.cu,
 // basic_stage.cu) run on wgmma_phase.cuh; they take the host-side check of
 // a phase's plan (phase_fits) and its split step (kSplitStep) from here.
 #pragma once
@@ -28,7 +26,6 @@
 
 #include "common.cuh"
 #include "grid_sync.cuh"
-#include "mma_bf16w.cuh"
 #include "mma_tf32.cuh"
 
 namespace wt {
@@ -137,37 +134,6 @@ __device__ __forceinline__ void reduce_splits(const A& a, int p0, int n0, int po
   }
 }
 
-// One block per (output tile, split): grid (tiles, splits). A from `src`
-// (an A source of mma_tf32.cuh), B = a.w; kVec: 16-byte copies (for bf16
-// weights N a multiple of 8), and N % 4 == 0 for the float4 reduction.
-template <bool kVec, class ASrc, class BT>
-__global__ void __launch_bounds__(tc::kThreads) mma_kernel(GemmArgs<BT> a, ASrc src) {
-  extern __shared__ __align__(16) float smem[];
-  const int tiles_n = (a.N + tc::kBN - 1) / tc::kBN;
-  const int tile = blockIdx.x, split = blockIdx.y;
-  const int p0 = tile / tiles_n * tc::kBM, n0 = tile % tiles_n * tc::kBN;
-  const int k0 = split * a.chunk, k1 = min(a.K, k0 + a.chunk);
-  tc::Acc acc;
-  mma_tile<kVec, false>(src, a.w, a.N, p0, n0, k0, k1, smem, acc);
-
-  if (a.splits == 1) {
-    tc::for_each_acc(acc, [&](int r, int c, float v) {
-      if (p0 + r < a.P && n0 + c < a.N)
-        a.out[static_cast<size_t>(p0 + r) * a.N + n0 + c] = bn(a, n0 + c, v);
-    });
-    return;
-  }
-  float* part = a.part + static_cast<size_t>(split) * a.P * a.N;
-  tc::for_each_acc(acc, [&](int r, int c, float v) {
-    if (p0 + r < a.P && n0 + c < a.N) part[static_cast<size_t>(p0 + r) * a.N + n0 + c] = v;
-  });
-  if (!arrive_last(a, tile)) return;
-  if (kVec)  // N % 4 == 0: four adjacent columns a load
-    reduce_splits<float4, 8, 1, tc::kThreads>(a, p0, n0, tc::kBM * tc::kBN / 4, tc::kBN / 4, 4);
-  else
-    reduce_splits<float, 8, 1, tc::kThreads>(a, p0, n0, tc::kBM * tc::kBN, tc::kBN, 1);
-}
-
 // Host side. True when a persistent kernel's phase of the host's plan fits:
 // K in `splits` ranges of `chunk`, the last one shorter, chunk a multiple
 // of the tile's k step when splits > 1.
@@ -178,7 +144,7 @@ inline bool phase_fits(const GemmPhase& g) {
          (g.splits == 1 || g.chunk % kSplitStep == 0);
 }
 
-// True when a per-layer kernel's plan fits: K in `splits` ranges of `chunk`, the
+// True when the GEMV's plan fits: K in `splits` ranges of `chunk`, the
 // last one shorter, chunk a multiple of kSplitStep when splits > 1; past one
 // split, `tiles` counters from word 0 of ws and the splits x P x N partials
 // from word `part` (a multiple of 4), within ws_words.
@@ -202,27 +168,6 @@ inline cudaError_t bind_workspace(GemmArgs<BT>& a, float* ws, long long part, in
   a.counters = reinterpret_cast<unsigned int*>(ws);
   a.part = ws + part;
   return cudaMemsetAsync(a.counters, 0, sizeof(unsigned int) * tiles, s);
-}
-
-// Launches mma_kernel<kVec, ASrc, BT> on grid (tiles, splits), setting its
-// dynamic shared memory limit once per device.
-template <bool kVec, class ASrc, class BT>
-cudaError_t launch_mma(const GemmArgs<BT>& a, const ASrc& src, int tiles, cudaStream_t s) {
-  static bool done[64] = {};
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  if (!done[dev]) {
-    e = cudaFuncSetAttribute(reinterpret_cast<const void*>(&mma_kernel<kVec, ASrc, BT>),
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kTileSmemBytes<BT>));
-    if (e != cudaSuccess) return e;
-    done[dev] = true;
-  }
-  mma_kernel<kVec, ASrc, BT>
-      <<<dim3(tiles, a.splits), tc::kThreads, kTileSmemBytes<BT>, s>>>(a, src);
-  return cudaGetLastError();
 }
 
 }  // namespace splitk

@@ -7,9 +7,10 @@
 // a matrix: tile_rows), Bt the k-contiguous (N, Kp) int8 weights. Used by
 // csrc/stage_int8.cu, csrc/transition_int8.cu and csrc/basic_stage_int8.cu
 // (their GEMM phases, through wgmma_s8_phase.cuh); csrc/winograd_int8.cu
-// and csrc/pointwise_int8.cu issue s8 wgmma on operands they stage
-// themselves (weights byte-permuted K-major, no TMA); the other int8
-// kernels stay on mma_int8.cuh's mma.sync tiles.
+// and wgmma_s8_cluster.cuh (csrc/pointwise_int8.cu's cluster path,
+// csrc/direct_int8.cu) issue s8 wgmma on operands they stage themselves
+// (weights byte-permuted K-major, no TMA); the int8 pointwise's one pass
+// stays on mma_int8.cuh's mma.sync warp tile.
 //
 // Operands. s8 wgmma reads both operands K-major from shared memory, with
 // the 128-byte swizzle here: a row holds 128 k as 128 bytes, its 16-byte

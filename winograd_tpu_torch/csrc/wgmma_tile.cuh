@@ -5,15 +5,15 @@
 // (f32, or bf16 at the bf16w tier), A f32 from any of mma_tf32.cuh's A
 // sources (RowMajorA, Im2colA<kStride>).
 //
-// Shared by csrc/pointwise.cu (its MMA path, split K reduced inside a
-// thread-block cluster), csrc/stage.cu, csrc/transition.cu and
-// csrc/basic_stage.cu (their GEMM phases, through wgmma_phase.cuh) and
-// csrc/winograd.cu (its per-position products, through wino_tf32.cuh). csrc/wgmma_s8.cuh, the int8 stage's
-// s8 tile, and csrc/winograd_int8.cu reuse its mbarrier, TMA and
-// descriptor wrappers. The other tensor-core kernels stay on
-// mma_tf32.cuh's and mma_bf16w.cuh's mma.sync tiles.
+// Shared by csrc/pointwise.cu and csrc/direct.cu (one GEMM a launch, split
+// K reduced inside a thread-block cluster, through wgmma_cluster.cuh),
+// csrc/stage.cu, csrc/transition.cu and csrc/basic_stage.cu (their GEMM
+// phases, through wgmma_phase.cuh) and csrc/winograd.cu (its per-position
+// products, through wino_tf32.cuh). csrc/wgmma_s8.cuh, the int8 stage's s8
+// tile, and the int8 cluster kernels reuse its mbarrier, TMA and
+// descriptor wrappers. Every f32 and bf16w GEMM of the port runs on it.
 //
-// Arithmetic, the same as the mma.sync tiles':
+// Arithmetic, the same as the mma.sync tiles' it replaced:
 // * f32: 3xTF32. Every operand x is split as hi = tf32(x) (cvt.rna) and
 //   lo = tf32(x - hi), and each k8 step accumulates a_lo*b_hi, a_hi*b_lo,
 //   then a_hi*b_hi through wgmma m64n64k8 .tf32 (FP32-level error; the port's
@@ -352,7 +352,7 @@ __device__ __forceinline__ void mma_stage(const float* sa, const char* split, Ac
 }
 
 // (hi, lo) bf16 pairs of two adjacent f32 values, the lower k in the lower
-// 16 bits (mma_bf16w.cuh's split).
+// 16 bits.
 __device__ __forceinline__ void split2(float2 v, unsigned& hi, unsigned& lo) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(v.x, v.y);
   const __nv_bfloat162 l = __floats2bfloat162_rn(v.x - __low2float(h), v.y - __high2float(h));

@@ -1,9 +1,10 @@
 """Fused 3x3 conv (pad 1, stride 1) + folded BN (+ReLU) as an implicit GEMM.
 
 Port of winograd_tpu/kernels/direct.py::conv3x3_bn_direct_pallas. The CUDA
-kernel is csrc/direct.cu: the pointwise kernel's split-K 3xTF32 tiles with
-A an implicit im2col, K split over blocks by direct_plan; the plain twin
-builds the im2col matrix and multiplies.
+kernel is csrc/direct.cu: the pointwise kernel's MMA path
+(csrc/wgmma_cluster.cuh: 3xTF32 wgmma tiles, the K splits of a tile one
+thread-block cluster) with A an implicit im2col, its plan direct_plan; the
+plain twin builds the im2col matrix and multiplies.
 
 A bfloat16 w9 selects the bf16w tier (the JAX op at precision="bf16w"):
 the same plan runs csrc/direct.cu's bf16w instantiation, the f32 im2col
@@ -13,38 +14,41 @@ split into two bf16 halves, each multiplied by the bf16 weights in f32
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from winograd_tpu_torch.kernels import _build
 from winograd_tpu_torch.kernels.pointwise import (
-    MMA_SPLIT_MIN_K, MMA_TILE, SPLIT_STEP, Plan, weight_matmul,
+    MMA_BLOCKS_PER_SM, MMA_TILE, SPLIT_STEP, Plan, weight_matmul,
 )
-from winograd_tpu_torch.kernels.splitk import H100_SMS, split_k
+from winograd_tpu_torch.kernels.splitk import H100_SMS, pow2_split
 
-# The plan's rule for csrc/direct.cu (its geometry is the pointwise MMA
-# path's, csrc/mma_tf32.cuh's 64 x 64 tiles and 32-deep stages, which its C
-# entry checks every plan against): K = 9 * Cin is split, not below
-# MMA_SPLIT_MIN_K, until tiles x splits fill a wave of SMs and no block
-# walks more than DIRECT_MAX_CHUNK of K (a block's walk is latency bound,
-# so blocks beyond one an SM still pay at N=8), in ranges at least
-# DIRECT_MIN_CHUNK long. Tuned on the served 7x7x512 shapes by
-# tools/chip_split_sweep.py (PERF.md): at N=1 16 splits (one wave), at N=8
-# 9 (of 8 to 16, within 2% of each other, against 0.14 ms at one wave).
-DIRECT_MAX_CHUNK = 512
-DIRECT_MIN_CHUNK = 256
+
+# The plan's rule for csrc/direct.cu, whose geometry is the pointwise MMA
+# path's (csrc/wgmma_cluster.cuh: 64 x 64 tiles, 32-deep stages; its C
+# entry checks every plan against it): K = 9 Cin is split until tiles x
+# splits reach about MMA_BLOCKS_PER_SM blocks an SM, and until no block walks
+# more than DIRECT_MAX_CHUNK of K (a block's walk is latency bound: at N=32
+# 8 ranges of 576 beat the unsplit walk by 7% at f32 and 21% at bf16w),
+# whichever wants more. A tile's splits are the blocks of one cluster, up to
+# DIRECT_CLUSTER_MAX (past 8 a non-portable cluster), and a power of two:
+# at 5, 6, 7 and 9 to 15 blocks a cluster the same walks ran slower than at
+# the power of two below. Tuned on the served 7x7x512 shapes at N=1, 8, 32
+# by tools/chip_split_sweep.py (PERF.md).
+DIRECT_CLUSTER_MAX = 16
+DIRECT_MAX_CHUNK = 576
 
 
 def direct_plan(n: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS) -> Plan:
     """The output tiles and the K split of an (n, h, w, cin) -> cout 3x3 on
-    a card with `sms` SMs (a pointwise Plan on the MMA path)."""
+    a card with `sms` SMs (a pointwise Plan on the MMA path, whatever P)."""
     k = 9 * cin
     tiles = -(-n * h * w // MMA_TILE) * -(-cout // MMA_TILE)
-    want = max(sms // tiles, -(-k // DIRECT_MAX_CHUNK)) if k >= MMA_SPLIT_MIN_K else 1
-    split = split_k(k, want, SPLIT_STEP, DIRECT_MIN_CHUNK)
+    walk = -(-k // DIRECT_MAX_CHUNK)
+    walk = 1 << (walk - 1).bit_length()          # the power of two at or above
+    want = min(max(MMA_BLOCKS_PER_SM * sms // tiles, walk), DIRECT_CLUSTER_MAX)
+    split = pow2_split(k, want, SPLIT_STEP, SPLIT_STEP)
     return Plan(False, MMA_TILE, tiles, split.splits, split.chunk)
 
 
@@ -111,8 +115,6 @@ def conv3x3_bn_direct_planned(x, w9, scale, bias, relu: bool, plan: Plan) -> tor
     them."""
     n, h, w, cin = x.shape
     cout = w9.shape[1]
-    words = plan.workspace_words(n * h * w, cout)
-    ws = torch.empty(words, device=x.device, dtype=torch.float32) if words else None
     out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
     c = _build.cint
     bf16w = w9.dtype == torch.bfloat16
@@ -120,9 +122,7 @@ def conv3x3_bn_direct_planned(x, w9, scale, bias, relu: bool, plan: Plan) -> tor
         "direct", "direct_conv3x3_bn_bf16w" if bf16w else "direct_conv3x3_bn",
         (n, h, w, cin, cout, bool(relu)), x.device,
         _build.ptr(x), _build.ptr(w9), _build.ptr(scale), _build.ptr(bias), _build.ptr(out),
-        _build.ptr(ws) if ws is not None else ctypes.c_void_p(0), ctypes.c_longlong(words),
-        ctypes.c_longlong(plan.counter_words()), c(n), c(h), c(w), c(cin), c(cout), c(relu),
-        c(plan.tile), c(plan.splits), c(plan.chunk),
+        c(n), c(h), c(w), c(cin), c(cout), c(relu), c(plan.tile), c(plan.splits), c(plan.chunk),
         counter="direct_bf16w" if bf16w else None,
     )
     return out

@@ -35,13 +35,12 @@ from winograd_tpu_torch.kernels.splitk import H100_SMS, split_k
 # at most CLUSTER_MAX, since the splits of a tile are the blocks of one
 # portable cluster and meet in its shared memory (no workspace). Both rules
 # were tuned on the served shapes by tools/chip_split_sweep.py (PERF.md).
-# MMA_SPLIT_MIN_K is csrc/direct.cu's rule (kernels/direct.py), which still
-# splits on the mma.sync tile through device memory.
+# csrc/direct.cu runs the MMA path's kernel (csrc/wgmma_cluster.cuh) on an
+# implicit im2col under a rule of its own (kernels/direct.py::direct_plan).
 GEMV_MAX_ROWS = 8
 GEMV_COLS = 128
 MMA_TILE = 64
 SPLIT_STEP = 32
-MMA_SPLIT_MIN_K = 256
 MIN_CHUNK = 64
 COUNTER_WORDS = 64
 CLUSTER_MAX = 8
@@ -63,10 +62,9 @@ class Plan(NamedTuple):
         return 0 if self.splits == 1 else -(-self.tiles // COUNTER_WORDS) * COUNTER_WORDS
 
     def workspace_words(self, p: int, n: int) -> int:
-        """4-byte words of workspace where the splits meet in device memory
-        (the GEMV, csrc/direct.cu): the tile counters, then splits x P x N
-        partial sums; none at one split. csrc/pointwise.cu's MMA path takes
-        none (pointwise_workspace_words)."""
+        """4-byte words of workspace where the GEMV's splits meet in device
+        memory: the tile counters, then splits x P x N partial sums; none at
+        one split. The MMA path takes none (pointwise_workspace_words)."""
         return 0 if self.splits == 1 else self.counter_words() + self.splits * p * n
 
 

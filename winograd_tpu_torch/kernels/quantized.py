@@ -11,8 +11,8 @@ for a 1x1, an im2col row over all 9*C gathered values (zero padding
 included) for a 3x3.
 
 Kernels (CUDA C++ for sm_90a, csrc/*_int8.cu on csrc/gemm_int8.cuh's
-arithmetic and csrc/mma_int8.cuh's s8 mma.sync, the stage on
-csrc/wgmma_s8.cuh's s8 wgmma; every one takes any channel count, see
+arithmetic and csrc/wgmma_s8.cuh's s8 wgmma, the int8 pointwise's one pass
+on csrc/mma_int8.cuh's s8 mma.sync; every one takes any channel count, see
 pad_to):
 
 * conv1x1_bn_int8 -> csrc/pointwise_int8.cu (_quant_matmul_kernel): a
@@ -22,8 +22,10 @@ pad_to):
   there too), or one pass a tile on s8 mma.sync, the path and split by
   pointwise_int8_plan;
 * conv3x3_bn_int8 -> csrc/direct_int8.cu (_direct_int8_kernel and its
-  row-banded twin) on csrc/mma_int8.cuh: rows quantized once, the product
-  on the int8 tensor cores with K split by direct_int8_plan;
+  row-banded twin): the int8 pointwise's cluster kernel
+  (csrc/wgmma_s8_cluster.cuh) on the implicit im2col rows, each row's scale
+  from the maxima its cluster's blocks exchange, the tile and K split by
+  direct_int8_plan (the pointwise's cluster rule);
 * resnet_stage_int8 -> csrc/stage_int8.cu (_stage_int8_kernel, its
   resident twin, and _block_int8_kernel at one block) on s8 wgmma tiles
   that quantize their rows as they stage them, each row's scale from the
@@ -70,7 +72,7 @@ import torch.nn.functional as F
 from winograd_tpu_torch.kernels import _build, transforms
 from winograd_tpu_torch.kernels.direct import im2col3x3
 from winograd_tpu_torch.kernels.pointwise import COUNTER_WORDS
-from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, split_k
+from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, pow2_split, split_k
 from winograd_tpu_torch.kernels.stage import WINOGRAD_MIN_PIXELS
 from winograd_tpu_torch.kernels.transition import strided_im2col
 from winograd_tpu_torch.kernels.winograd import (
@@ -412,80 +414,13 @@ def transition_block_int8_plain(x, q: Dict) -> torch.Tensor:
 # --- kernel wrappers ---------------------------------------------------------
 
 
-# The plan of a csrc/direct_int8.cu launch. The kernel's geometry, which its
-# C entry checks every plan against (s8::kKAlign, s8::kBM, s8::kBK;
-# tests/test_torch_splitk.py reads them from the sources): K (9 * Cin)
-# padded to DIRECT_INT8_K_ALIGN bytes, DIRECT_INT8_TILE x DIRECT_INT8_TILE
-# output tiles, DIRECT_INT8_STEP-byte cp.async stages. The plan's own rule:
-# a cooperative grid of DIRECT_INT8_BLOCKS_PER_SM blocks an SM (the entry
-# refuses more than the card holds resident); K split until tiles x splits
-# reach about one work item a block, in multiples of DIRECT_INT8_STEP at
-# least DIRECT_INT8_MIN_CHUNK long (tuned on the served shapes by
-# tools/chip_split_sweep.py); workspace parts start at multiples of
-# WORKSPACE_ALIGN words.
+# K of the int8 kernels' quantized operands is padded to this (s8::kKAlign,
+# the s8 tensor cores' k step).
 DIRECT_INT8_K_ALIGN = 32
-DIRECT_INT8_TILE = 64
-DIRECT_INT8_STEP = 64
-DIRECT_INT8_BLOCKS_PER_SM = 2
-DIRECT_INT8_MIN_CHUNK = 128
-WORKSPACE_ALIGN = 64
 
 
 def _round_up(v: int, m: int) -> int:
     return -(-v // m) * m
-
-
-class DirectInt8Workspace(NamedTuple):
-    """Where csrc/direct_int8.cu's parts lie in its workspace, in 4-byte
-    words: the grid barrier at 0, the row scales at `sx`, the quantized rows
-    at `aq`, the transposed weights at `bt`, the int32 partial sums at
-    `part`; `words` in all."""
-
-    sx: int
-    aq: int
-    bt: int
-    part: int
-    words: int
-
-
-def _mma_int8_workspace(p: int, kp: int, cout: int, splits: int) -> DirectInt8Workspace:
-    """The layout of a cooperative launch on csrc/mma_int8.cuh: the grid
-    barrier, p row scales, the (p, kp) quantized rows, the (cout, kp)
-    transposed weights, and splits x p x cout int32 partial sums past one
-    split, each part at a multiple of WORKSPACE_ALIGN."""
-    sx = WORKSPACE_ALIGN
-    aq = sx + _round_up(p, WORKSPACE_ALIGN)
-    bt = aq + _round_up(p * kp // 4, WORKSPACE_ALIGN)
-    part = bt + _round_up(cout * kp // 4, WORKSPACE_ALIGN)
-    return DirectInt8Workspace(sx, aq, bt, part, part + (splits * p * cout if splits > 1 else 0))
-
-
-class DirectInt8Plan(NamedTuple):
-    """How csrc/direct_int8.cu runs one conv: the padded K, the output
-    tiles, the cooperative grid's blocks and the K split."""
-
-    kp: int
-    tiles: int
-    blocks: int
-    splits: int
-    chunk: int
-
-    def workspace(self, p: int, cout: int) -> DirectInt8Workspace:
-        return _mma_int8_workspace(p, self.kp, cout, self.splits)
-
-    def workspace_words(self, p: int, cout: int) -> int:
-        return self.workspace(p, cout).words
-
-
-def direct_int8_plan(n: int, h: int, w: int, cin: int, cout: int,
-                     sms: int = H100_SMS) -> DirectInt8Plan:
-    """The grid and K split of an (n, h, w, cin) -> cout int8 3x3 on a card
-    with `sms` SMs."""
-    p, kp = n * h * w, _round_up(9 * cin, DIRECT_INT8_K_ALIGN)
-    tiles = -(-p // DIRECT_INT8_TILE) * -(-cout // DIRECT_INT8_TILE)
-    blocks = DIRECT_INT8_BLOCKS_PER_SM * sms
-    split = split_k(kp, blocks // tiles, DIRECT_INT8_STEP, DIRECT_INT8_MIN_CHUNK)
-    return DirectInt8Plan(kp, tiles, blocks, split.splits, split.chunk)
 
 
 # The plan of a csrc/transition_int8.cu launch. The kernel's geometry, which
@@ -585,9 +520,10 @@ def transition_int8_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int,
 # fill the card without a split), unless N passes 128 over more than
 # POINTWISE_INT8_ONE_PASS_WIDE_ROWS rows (there its 64-column tiles read x
 # four times or more, the cluster path's 128-column tiles half as often);
-# else the cluster path, 128 columns wide where those tiles times their
-# most splits reach half the SMs (else 64), its K split until tiles x
-# splits reach about POINTWISE_INT8_CLUSTER_BLOCKS_PER_SM blocks an SM.
+# else the cluster path, 128 columns wide where N passes 64 and those tiles
+# times their most splits reach half the SMs (else 64), its K split until
+# tiles x splits reach about POINTWISE_INT8_CLUSTER_BLOCKS_PER_SM blocks an
+# SM.
 POINTWISE_INT8_GEMV_MAX_ROWS = 8
 POINTWISE_INT8_GEMV_COLS = 128
 POINTWISE_INT8_GEMV_STEP = 32
@@ -597,6 +533,12 @@ POINTWISE_INT8_ONE_PASS_MAX_K = 256
 POINTWISE_INT8_TILE = 64
 POINTWISE_INT8_CLUSTER_COLS = (64, 128)
 POINTWISE_INT8_CLUSTER_MAX = 8
+# The int8 direct 3x3's cluster takes up to 16 splits (past 8 a non-portable
+# cluster, wgmma_s8_cluster.cuh's kClusterMax), a power of two of them: its
+# K walk is 9 Cin long, and the 7x7x512 b-leg's 8 tiles at N=1 ran 24% faster
+# at 16 than at 8; at 5 and 9 blocks a cluster the walks ran slower than at
+# 4 and 8 (tools/chip_split_sweep.py, PERF.md).
+DIRECT_INT8_CLUSTER_MAX = 16
 POINTWISE_INT8_CLUSTER_STEP = 32
 POINTWISE_INT8_CLUSTER_MIN_CHUNK = 32
 POINTWISE_INT8_CLUSTER_BLOCKS_PER_SM = 2
@@ -645,11 +587,12 @@ class PointwiseInt8Plan(NamedTuple):
 
 def pointwise_int8_plan(p: int, k: int, n: int, sms: int = H100_SMS,
                         path: str | None = None, want: int = 0,
-                        cols: int = 0) -> PointwiseInt8Plan:
+                        cols: int = 0, cap: int = 0) -> PointwiseInt8Plan:
     """The path, grid and K split of a (p, k) x (k, n) int8 product (k a
     multiple of 4) on a card with `sms` SMs; `path` forces a path that
     takes the shape, `want` a number of K ranges (split_k's: the GEMV's
-    and the cluster's) and `cols` the cluster tiles' width
+    and the cluster's), `cols` the cluster tiles' width and `cap` the
+    cluster's most splits (POINTWISE_INT8_CLUSTER_MAX where 0)
     (tools/chip_split_sweep.py times the others)."""
     kp = _round_up(k, DIRECT_INT8_K_ALIGN)
     if path is None:
@@ -670,18 +613,39 @@ def pointwise_int8_plan(p: int, k: int, n: int, sms: int = H100_SMS,
         tiles = -(-p // POINTWISE_INT8_TILE) * -(-n // POINTWISE_INT8_TILE)
         return PointwiseInt8Plan(path, kp, POINTWISE_INT8_TILE, tiles, tiles, 1, kp)
     narrow, wide = POINTWISE_INT8_CLUSTER_COLS
+    cap = cap or POINTWISE_INT8_CLUSTER_MAX
     if not cols:
         wide_tiles = -(-p // POINTWISE_INT8_TILE) * -(-n // wide)
-        most = min(POINTWISE_INT8_CLUSTER_MAX, max(1, kp // POINTWISE_INT8_CLUSTER_MIN_CHUNK))
-        cols = wide if 2 * wide_tiles * most >= sms else narrow
+        most = min(cap, max(1, kp // POINTWISE_INT8_CLUSTER_MIN_CHUNK))
+        cols = wide if n > narrow and 2 * wide_tiles * most >= sms else narrow
     if cols not in POINTWISE_INT8_CLUSTER_COLS:
         raise ValueError(f"cluster tiles are {POINTWISE_INT8_CLUSTER_COLS} columns wide, not {cols}")
     tiles = -(-p // POINTWISE_INT8_TILE) * -(-n // cols)
     want = want or POINTWISE_INT8_CLUSTER_BLOCKS_PER_SM * sms // tiles
-    split = split_k(kp, min(want, POINTWISE_INT8_CLUSTER_MAX), POINTWISE_INT8_CLUSTER_STEP,
+    split = split_k(kp, min(want, cap), POINTWISE_INT8_CLUSTER_STEP,
                     POINTWISE_INT8_CLUSTER_MIN_CHUNK)
     return PointwiseInt8Plan(path, kp, cols, tiles, tiles * split.splits, split.splits,
                              split.chunk)
+
+
+def direct_int8_plan(n: int, h: int, w: int, cin: int, cout: int, sms: int = H100_SMS,
+                     want: int = 0, cols: int = 0) -> PointwiseInt8Plan:
+    """The plan of an (n, h, w, cin) -> cout int8 3x3 (cin a multiple of 4)
+    on a card with `sms` SMs: csrc/direct_int8.cu runs the int8 pointwise's
+    cluster kernel on the im2col rows, so the plan is pointwise_int8_plan's
+    cluster path on P = n h w, K = 9 cin (its padded K, tile width, grid and
+    K split), at most DIRECT_INT8_CLUSTER_MAX splits and, unless `want`
+    names a number of K ranges, a power of two of them (as direct.py::
+    direct_plan's clusters); `want` and `cols` as pointwise_int8_plan takes
+    them (tools/chip_split_sweep.py times the others)."""
+    p, k = n * h * w, 9 * cin
+    plan = pointwise_int8_plan(p, k, cout, sms, "cluster", want, cols, DIRECT_INT8_CLUSTER_MAX)
+    if want:
+        return plan
+    fill = POINTWISE_INT8_CLUSTER_BLOCKS_PER_SM * sms // plan.tiles
+    split = pow2_split(plan.kp, min(fill, DIRECT_INT8_CLUSTER_MAX), POINTWISE_INT8_CLUSTER_STEP,
+                       POINTWISE_INT8_CLUSTER_MIN_CHUNK)
+    return plan._replace(blocks=plan.tiles * split.splits, splits=split.splits, chunk=split.chunk)
 
 
 # The plan of a csrc/winograd_int8.cu launch. The kernel's geometry, which
@@ -1059,22 +1023,23 @@ def conv3x3_bn_int8(x, w9_q, s_w9, scale, bias, relu: bool = True) -> torch.Tens
 
 
 def conv3x3_bn_int8_planned(x, w9_q, s_w9, scale, bias, relu: bool,
-                            plan: DirectInt8Plan) -> torch.Tensor:
+                            plan: PointwiseInt8Plan) -> torch.Tensor:
     """conv3x3_bn_int8's launch on CUDA tensors under an explicit plan (the
     wrapper passes direct_int8_plan's; tools/chip_split_sweep.py times
-    others). x: (N, H, W, Cin); operands as conv3x3_bn_int8 checks them."""
+    others). x: (N, H, W, Cin), Cin a multiple of 4; operands as
+    conv3x3_bn_int8 checks them."""
     n, h, w, cin = x.shape
     cout = w9_q.shape[1]
-    at = plan.workspace(n * h * w, cout)
-    ws = torch.empty(at.words, device=x.device, dtype=torch.float32)
+    if plan.path != "cluster":
+        raise ValueError(f"csrc/direct_int8.cu runs the cluster path, not {plan.path!r}")
+    if x.data_ptr() % 16:
+        x = x.clone()  # the kernel reads pixels as float4s
     out = torch.empty(n, h, w, cout, device=x.device, dtype=torch.float32)
-    ptr, c, ll = _build.ptr, _build.cint, ctypes.c_longlong
+    ptr, c = _build.ptr, _build.cint
     _build.launch(
         "direct_int8", "direct_int8_conv3x3_bn", (n, h, w, cin, cout, bool(relu)),
         x.device, ptr(x), ptr(w9_q), ptr(s_w9), ptr(scale), ptr(bias), ptr(out),
-        ptr(ws), ll(at.words), ll(at.sx), ll(at.aq), ll(at.bt), ll(at.part),
-        c(n), c(h), c(w), c(cin), c(cout), c(relu), c(plan.kp), c(DIRECT_INT8_TILE),
-        c(plan.blocks), c(plan.splits), c(plan.chunk),
+        c(n), c(h), c(w), c(cin), c(cout), c(relu), *map(c, plan.args()[1:]),
     )
     return out
 

@@ -11,7 +11,7 @@ by block with the plain versions of the per-layer kernels.
 bfloat16 weights (w_reduce, the mid's w9_mid or u2_mid, w_expand; BN stays
 float32) select the bf16w tier, the JAX kernel at precision="bf16w": the
 kernel's bf16w instantiation (every product on the f32 activation split
-into two bf16 halves, csrc/mma_bf16w.cuh), and in the plain twin
+into two bf16 halves, csrc/wgmma_tile.cuh's bf16 tile), and in the plain twin
 pointwise.py::split_dot_bf16w's arithmetic.
 """
 
