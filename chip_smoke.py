@@ -198,8 +198,11 @@ Phases, each of which must pass (exit 1 otherwise):
    cores, 1e-3 before). One JSON line per shape:
    error; the K split of the split-K kernels ("splits": pointwise, direct,
    direct_int8, pointwise_int8 and both basic stages, from their wrappers'
-   plans, pointwise_int8 with its plan's "route", GEMV, one_pass or
-   cluster, direct_int8 with its cluster tiles' "cols"; the int8 transition's splits of its reduce, mid, expand and
+   plans: for the heads' GEMVs the blocks of a column tile's cluster;
+   pointwise and pointwise_bf16w with their plan's "route", gemv or mma,
+   and its tiles' "cols", pointwise_int8 with its plan's "route", gemv,
+   one_pass or cluster, and "cols", direct_int8 with its cluster tiles'
+   "cols"; the int8 transition's splits of its reduce, mid, expand and
    projection; the f32 transition's splits of its reduce, mid and expand;
    for the f32 Winograd its plan's Cin splits; for the f32 and bf16w stage
    its plan's splits of its reduce, direct mid and expand); the int8 Winograd's plan
@@ -224,10 +227,11 @@ Phases, each of which must pass (exit 1 otherwise):
    direct 3x3, the f32 Winograd, the f32 stage, the f32 transition (their
    reduce, mid and expand) and the f32 basic stage (its 2B convs) as three
    TF32 passes (their 3xTF32 split) at the TF32 rate; the bf16w
-   instantiations' products (pointwise, GEMV included, stem, stage,
+   instantiations' products (pointwise but its GEMV, stem, stage,
    transition, Winograd, direct and basic stage) as two BF16 passes (a_hi
    and a_lo) at the BF16 rate; the
-   pointwise GEMV's (P <= 8) and the other f32 GEMMs, Winograd transforms,
+   pointwise GEMV's (P <= 8, f32 and bf16w: one FFMA a product) and the
+   other f32 GEMMs, Winograd transforms,
    epilogues (4 FLOPs an output, 5 with a residual) and int8 quantization
    (2 a quantized value) at the FP32 rate. Bytes: each input read once
    (int8 weights 1 byte, bf16 filters and weights 2), each output written
@@ -830,7 +834,9 @@ def main() -> int:
     from winograd_tpu_torch.kernels.direct import (
         conv3x3_bn_direct, conv3x3_bn_direct_plain, direct_filter, direct_plan, im2col3x3,
     )
-    from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain, split_plan
+    from winograd_tpu_torch.kernels.pointwise import (
+        GEMV_MAX_ROWS, conv1x1_bn, conv1x1_bn_plain, gemv_clusters, split_plan,
+    )
     from winograd_tpu_torch.kernels.stage import (
         resnet_stage_fused, resnet_stage_fused_plain, stack_stage_params, stage_plan,
     )
@@ -966,15 +972,18 @@ def main() -> int:
                 for k, v in layer.items()}
 
     def pointwise_bf16w_case(rng, p, k, n, relu):
-        """Products as two BF16 passes (a_hi, a_lo), GEMV too; weights at 2
-        bytes; library: the f32 row's torch.matmul on the f32 weights."""
+        """Products as two BF16 passes (a_hi, a_lo) on the MMA tiles, the
+        GEMV's as one FFMA of a_hi + a_lo (exact in f32) at the FP32 rate;
+        weights at 2 bytes; library: the f32 row's torch.matmul on the f32
+        weights."""
         x, w = t(_rand(rng, p, k)), t(_rand(rng, k, n))
         w16 = w.to(torch.bfloat16)
         s, b = bn(rng, n)
+        work = ({FP32_FLOPS: 2 * p * k * n + 4 * p * n} if p <= GEMV_MAX_ROWS
+                else {BF16_FLOPS: 2 * 2 * p * k * n, FP32_FLOPS: 4 * p * n})
         return (lambda: conv1x1_bn(x, w16, s, b, relu),
                 lambda: conv1x1_bn_plain(x, w16, s, b, relu),
-                lambda: torch.matmul(x, w),
-                {BF16_FLOPS: 2 * 2 * p * k * n, FP32_FLOPS: 4 * p * n},
+                lambda: torch.matmul(x, w), work,
                 4 * (p * k + p * n + 2 * n) + 2 * k * n)
 
     def conv3x3_inputs(rng, n, h, w, cin, cout):
@@ -2020,7 +2029,8 @@ def main() -> int:
     # the f32 route runs per layer; the int8 block (row 16) at mode 6; the
     # f32, bf16w and int8 direct 3x3s at N=8 and N=32 (the int8 one at
     # 56x56x64 too); the stem at N=8 in every precision;
-    # the bf16w pointwise head, conv4_x and conv5_x stages at N=8, the
+    # the heads (the GEMVs) of ResNet-50 and ResNet-34 at N=8 at every tier;
+    # the bf16w conv4_x and conv5_x stages at N=8, the
     # bf16w block at modes 6 and 9; the bf16w Winograd, direct 3x3 and
     # basic stage of ResNet-34 at N=8; the int8 tiers' bf16-filter Winograd
     # (the FP64 tile) at N=8 and N=32; the three transitions at both tiers,
@@ -2039,14 +2049,14 @@ def main() -> int:
         "winograd_int8": [(8, 14, 14, 256, 256, True), (8, 28, 28, 128, 128, True),
                           (32, 14, 14, 256, 256, True), (32, 28, 28, 128, 128, True),
                           *WIDE_WINOGRAD_INT8],
-        "pointwise": [(8, 2048, 1000, False), (392, 2048, 512, True)],
-        "pointwise_int8": [(8, 2048, 1000, False), (32, 2048, 1000, False),
+        "pointwise": [(8, 2048, 1000, False), (8, 512, 1000, False), (392, 2048, 512, True)],
+        "pointwise_int8": [(8, 2048, 1000, False), (8, 512, 1000, False), (32, 2048, 1000, False),
                            (6272, 576, 128, True), (392, 2304, 512, True),
                            (25088, 576, 128, True), (1568, 2304, 512, True)],
         "direct_int8": [(8, 7, 7, 512, 512, False), (32, 7, 7, 512, 512, False),
                         (8, 56, 56, 64, 64, True), (32, 56, 56, 64, 64, True)],
         "direct": [(8, 7, 7, 512, 512, True), (32, 7, 7, 512, 512, True)],
-        "pointwise_bf16w": [(8, 2048, 1000, False)],
+        "pointwise_bf16w": [(8, 2048, 1000, False), (8, 512, 1000, False)],
         "stem_bf16w": [(8, 224, 224, 3, 64, "bf16w")],
         "stage_bf16w": [(8, 14, 14, 1024, 256, 5, "direct"), (8, 7, 7, 2048, 512, 2, "direct"),
                         (1, 14, 14, 1024, 256, 1, "direct"), (1, 28, 28, 512, 128, 1, "winograd2")],
@@ -2065,13 +2075,23 @@ def main() -> int:
             return None
         return winograd_plan(n, h, w, cin, cout, m, sms).splits
 
+    def pointwise_plan(p, k, n, bf16w=False):
+        """The wrapper's plan: the GEMV's asks the card how many of its
+        wide clusters it holds at once."""
+        wide = gemv_clusters(dev, "pointwise", int(bf16w)) if p <= GEMV_MAX_ROWS else None
+        return split_plan(p, k, n, sms, wide)
+
+    def pointwise_int8_plan(p, k, n):
+        wide = gemv_clusters(dev, "pointwise_int8") if p <= GEMV_MAX_ROWS else None
+        return q8.pointwise_int8_plan(p, k, n, sms, wide_clusters=wide)
+
     splits_of = {
-        "pointwise": lambda p, k, n, relu: split_plan(p, k, n, sms).splits,
+        "pointwise": lambda p, k, n, relu: pointwise_plan(p, k, n).splits,
         "direct": lambda n, h, w, cin, cout, relu: direct_plan(n, h, w, cin, cout, sms).splits,
         "direct_int8": lambda n, h, w, cin, cout, relu: q8.direct_int8_plan(
             n, h, w, cin, cout, sms).splits,
         "winograd": winograd_cut,
-        "pointwise_int8": lambda p, k, n, relu: q8.pointwise_int8_plan(p, k, n, sms).splits,
+        "pointwise_int8": lambda p, k, n, relu: pointwise_int8_plan(p, k, n).splits,
         "transition_int8": lambda *shape: [
             s.splits for s in q8.transition_int8_plan(*shape, sms)[4:]],
         "transition": lambda *shape: [s.splits for s in transition_plan(*shape, sms)[1:]],
@@ -2084,8 +2104,9 @@ def main() -> int:
             sp.splits for sp in q8.stage_int8_plan(
                 n, h, w, cio, cmid, mid, q8.expand_groups(cmid, mid), sms)[1:]],
     }
-    for name in ("pointwise", "transition", "winograd", "direct", "basic_stage", "stage"):
+    for name in ("transition", "winograd", "direct", "basic_stage", "stage"):
         splits_of[f"{name}_bf16w"] = splits_of[name]
+    splits_of["pointwise_bf16w"] = lambda p, k, n, relu: pointwise_plan(p, k, n, True).splits
 
     def winograd_int8_cut(n, h, w, cin, cout, relu):
         plan = q8.winograd_int8_plan(n, h, w, cin, cout, sms)
@@ -2100,9 +2121,14 @@ def main() -> int:
         plan = winograd_fp64_plan(n, h, w, cout, sms)
         return {"cols": plan.cols, "blocks": plan.blocks}
 
+    def pointwise_route(plan):
+        return {"route": "gemv" if plan.gemv else "mma", "cols": plan.tile}
+
     plans_of = {
+        "pointwise": lambda p, k, n, relu: pointwise_route(pointwise_plan(p, k, n)),
+        "pointwise_bf16w": lambda p, k, n, relu: pointwise_route(pointwise_plan(p, k, n, True)),
         "pointwise_int8": lambda p, k, n, relu: {
-            "route": q8.pointwise_int8_plan(p, k, n, sms).path},
+            "route": pointwise_int8_plan(p, k, n).path, "cols": pointwise_int8_plan(p, k, n).tile},
         "direct_int8": lambda n, h, w, cin, cout, relu: {
             "cols": q8.direct_int8_plan(n, h, w, cin, cout, sms).tile},
         "winograd_int8": winograd_int8_cut,

@@ -257,15 +257,16 @@ def test_basic_stage_runs_the_wgmma_phases():
     """csrc/basic_stage.cu: per block, two wgmma_phase.cuh phases (their
     split sums after a grid barrier), the next conv's first weight boxes
     issued before each barrier, a grid barrier between convs; no mma.sync
-    phase of splitk_tf32.cuh, whose gemm_phase is gone; the plan checked
-    (phase_fits, the grid against what the card holds resident)."""
+    phase, and splitk_tf32.cuh is gone; the plan checked (wgmma_phase.cuh's
+    phase_fits, the grid against what the card holds resident)."""
     src = (CSRC / "basic_stage.cu").read_text()
     body = src[src.index("basic_stage_kernel(const"):src.index("const void* kernel_of")]
     assert body.count("ph::phase_items<kVec>(") == 2 and body.count("ph::reduce_phase(") == 2
     assert body.count("ph::prefetch_phase<kVec>(") == 2 and body.count("wt::grid_sync(") == 2
     assert "sk::gemm_phase" not in src and "mma_tile<" not in src
-    assert "sk::phase_fits(" in src and "blocks > resident" in src
-    assert "gemm_phase" not in (CSRC / "splitk_tf32.cuh").read_text()
+    assert "ph::phase_fits(" in src and "blocks > resident" in src
+    assert not (CSRC / "splitk_tf32.cuh").exists() and "splitk" not in src
+    assert "inline bool phase_fits(" in (CSRC / "wgmma_phase.cuh").read_text()
 
 
 def test_basic_stage_int8_runs_the_folded_s8_phases():

@@ -60,7 +60,11 @@ the f32 and bf16w transitions on the wgmma phases within their bars at
 N=1, 8 and 32 under every candidate split; the f32 and bf16w basic stage on
 the same phases at N=32 under every candidate split (the unsplit 4608-long
 walk too), the int8 basic stage on the folded s8 wgmma phases equal to its
-twin at N=1, 8 and 32 under every candidate split, and both keeping a NaN. Needs an NVIDIA GPU and nvcc;
+twin at N=1, 8 and 32 under every candidate split, and both keeping a NaN;
+the heads' GEMVs (f32, bf16w, int8: a column tile's K splits one
+thread-block cluster, weights by bulk copies) at P = 1..8 under every
+cluster size and tile width, a NaN kept, repeating to the bit, refusing a
+plan off their geometry. Needs an NVIDIA GPU and nvcc;
 skipped elsewhere. Run on the card with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
@@ -90,6 +94,7 @@ from winograd_tpu_torch.kernels.direct import (
     direct_plan,
 )
 from winograd_tpu_torch.kernels import basic_stage as bs
+from winograd_tpu_torch.kernels import pointwise as pw
 from winograd_tpu_torch.kernels import quantized as q8
 from winograd_tpu_torch.kernels.pointwise import conv1x1_bn, conv1x1_bn_plain, split_plan
 from winograd_tpu_torch.kernels.stage import (
@@ -1062,6 +1067,120 @@ def test_pointwise_split_k_repeats_to_the_bit(dev, p, k, n):
     again = conv1x1_bn(x, w, s, b, False)
     torch.cuda.synchronize()
     assert torch.equal(first, again)
+
+
+# --- the heads' GEMVs: a column tile's K splits one cluster ---------------------
+
+def _gemv_plans(k, n, sms):
+    """Every GEMV plan of a K x N product the kernels take: tiles GEMV_COLS
+    and half of it wide, 1, 2, 4, 8 and 16 K splits where K allows."""
+    plans = {}
+    for cols in (pw.GEMV_COLS, pw.GEMV_COLS // 2):
+        for want in (1, 2, 4, 8, 16):
+            width, tiles, split = pw.gemv_split(k, n, sms, cols=cols, want=want)
+            plans[width, split.splits] = (width, tiles, split)
+    return list(plans.values())
+
+
+def _same_nan_and_close(out, ref, rtol):
+    torch.cuda.synchronize()
+    nan = torch.isnan(ref)
+    assert torch.equal(torch.isnan(out), nan)
+    bound = rtol * max(1.0, ref[~nan].abs().max().item())
+    assert (out[~nan] - ref[~nan]).abs().max().item() <= bound
+
+
+# P = 1..8 rows, K from one 4-deep row group to the R-50 head's 2048, N the
+# heads' 1000 (the bulk copies), 70 and 999 (element loads), at f32, bf16w
+# and int8, under every cluster size and tile width the plan may take, a
+# NaN in the last row of x past one row: within the f32 bound of the plain version (int8:
+# equal to it), NaNs where it has them.
+@pytest.mark.parametrize("tier", ["f32", "bf16w", "int8"])
+@pytest.mark.parametrize("k", [4, 60, 512, 2048])
+@pytest.mark.parametrize("n", [1000, 70, 999])
+def test_gemv_under_every_cluster(dev, tier, k, n):
+    rng = np.random.default_rng(k + n)
+    sms = _build.sm_count(dev)
+    s, b = _bn(rng, dev, n)
+    if tier == "int8":
+        w_q, s_w = _q(rng, dev, k, n)
+    else:
+        w = _r(rng, dev, k, n)
+        w = w.bfloat16() if tier == "bf16w" else w
+    for p in range(1, pw.GEMV_MAX_ROWS + 1):
+        x = _r(rng, dev, p, k)
+        if p > 1:
+            x[p - 1, k // 2] = float("nan")
+        relu = p % 2 == 0
+        for width, tiles, split in _gemv_plans(k, n, sms):
+            if tier == "int8":
+                plan = q8.PointwiseInt8Plan("gemv", k, width, tiles, tiles * split.splits,
+                                            split.splits, split.chunk)
+                out = q8.conv1x1_bn_int8_planned(x, w_q, s_w, s, b, relu, plan)
+                ref = q8.conv1x1_bn_int8_plain(x, w_q, s_w, s, b, relu)
+                _same_nan_and_close(out, ref, 0.0)
+            else:
+                plan = pw.Plan(True, width, tiles, split.splits, split.chunk)
+                out = pw.conv1x1_bn_planned(x, w, s, b, relu, plan)
+                _same_nan_and_close(out, conv1x1_bn_plain(x, w, s, b, relu), 1e-4)
+
+
+# The heads at N=1 and N=8 under the wrappers' own plans: a launch counted
+# once, two calls equal to the bit, and the plan the card was asked for
+# (the wide clusters only where all of the tiles' fit at once).
+@pytest.mark.parametrize("tier", ["f32", "bf16w", "int8"])
+@pytest.mark.parametrize("p,k", [(1, 2048), (8, 2048), (1, 512), (8, 512)])
+def test_gemv_heads_repeat_to_the_bit(dev, tier, p, k):
+    rng = np.random.default_rng(p * k)
+    n = 1000
+    x, (s, b) = _r(rng, dev, p, k), _bn(rng, dev, n)
+    if tier == "int8":
+        w_q, s_w = _q(rng, dev, k, n)
+        run = lambda: q8.conv1x1_bn_int8(x, w_q, s_w, s, b, False)  # noqa: E731
+        counter, clusters = "pointwise_int8", pw.gemv_clusters(dev, "pointwise_int8")
+        plan = q8.pointwise_int8_plan(p, k, n, _build.sm_count(dev), wide_clusters=clusters)
+        assert plan.path == "gemv" or k < q8.POINTWISE_INT8_GEMV_MIN_K
+    else:
+        w = _r(rng, dev, k, n)
+        w = w.bfloat16() if tier == "bf16w" else w
+        run = lambda: conv1x1_bn(x, w, s, b, False)  # noqa: E731
+        counter = "pointwise_bf16w" if tier == "bf16w" else "pointwise"
+        clusters = pw.gemv_clusters(dev, "pointwise", int(tier == "bf16w"))
+        plan = split_plan(p, k, n, _build.sm_count(dev), clusters)
+        assert plan.gemv
+    assert clusters > 0
+    if plan.splits > pw.CLUSTER_MAX:
+        assert clusters >= plan.tiles
+    before = _build.LAUNCHES[counter]
+    first = run()
+    assert _build.LAUNCHES[counter] == before + 1
+    again = run()
+    torch.cuda.synchronize()
+    assert torch.equal(first, again) and torch.isfinite(first).all()
+
+
+def test_gemv_entries_refuse_a_plan_they_do_not_take(dev):
+    """The GEMVs' entries refuse K splits that are not a power of two, more
+    than a cluster's 16, more than 8 rows, and a tile of another width."""
+    rng = np.random.default_rng(5)
+    k, n = 512, 1000
+    s, b = _bn(rng, dev, n)
+    w = _r(rng, dev, k, n)
+    w_q, s_w = _q(rng, dev, k, n)
+    good = pw.Plan(True, pw.GEMV_COLS, 8, 4, 128)
+    for p, bad in ((4, good._replace(splits=3, chunk=192)),
+                   (4, good._replace(splits=32, chunk=16)),
+                   (9, good), (4, good._replace(tile=96, tiles=11))):
+        x = _r(rng, dev, p, k)
+        for wt in (w, w.bfloat16()):
+            with pytest.raises(RuntimeError):
+                pw.conv1x1_bn_planned(x, wt, s, b, False, bad)
+        plan = q8.PointwiseInt8Plan("gemv", k, bad.tile, bad.tiles, bad.tiles * bad.splits,
+                                    bad.splits, bad.chunk)
+        with pytest.raises(RuntimeError):
+            q8.conv1x1_bn_int8_planned(x, w_q, s_w, s, b, False, plan)
+    x = _r(rng, dev, 4, k)
+    _agree(pw.conv1x1_bn_planned(x, w, s, b, False, good), conv1x1_bn_plain(x, w, s, b, False))
 
 
 # (N, H, W, Cin, Cout): ResNet-34's int8 entry b-leg at N = 1, 8 and 32 (K

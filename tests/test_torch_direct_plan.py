@@ -84,7 +84,7 @@ def test_direct_plan_is_the_cluster_rule(shape, sms):
     if plan.tiles >= 2 * sms:                    # the tiles fill the card: the walk's cap alone
         walk = -(-k // dr.DIRECT_MAX_CHUNK)
         assert plan.splits < 2 * walk
-    assert pw.pointwise_workspace_words(plan, p, cout) == 0
+    assert not hasattr(plan, "workspace_words")
 
 
 @pytest.mark.parametrize("sms", [H100_SMS, 66])
@@ -106,7 +106,7 @@ def test_direct_int8_plan_is_the_cluster_rule(shape, sms):
                  q8.DIRECT_INT8_CLUSTER_MAX)
     _fills(plan.tiles, plan.splits, plan.kp, q8.POINTWISE_INT8_CLUSTER_MIN_CHUNK,
            q8.DIRECT_INT8_CLUSTER_MAX, sms)
-    assert plan.workspace(p, cout).words == 0
+    assert not hasattr(plan, "workspace")
     for cols in q8.POINTWISE_INT8_CLUSTER_COLS:   # the sweep's other tile width
         other = q8.direct_int8_plan(n, h, w, cin, cout, sms, cols=cols)
         assert other.tile == cols and other.blocks == other.tiles * other.splits
@@ -279,16 +279,16 @@ def test_direct_kernels_are_the_cluster_kernels():
 
 
 def test_the_mma_sync_gemms_are_gone():
-    """The last GEMMs off mma.sync: splitk_tf32.cuh's split-K kernel and its
-    launcher, mma_bf16w.cuh, mma_tf32.cuh's tile and mma_int8.cuh's phases
-    have no user left and are gone; the A sources and loader stay (the wgmma
+    """The last GEMMs off mma.sync: splitk_tf32.cuh (its split-K kernel and
+    launcher, then its GEMV reduction; its phase_fits now wgmma_phase.cuh's),
+    mma_bf16w.cuh, mma_tf32.cuh's tile and mma_int8.cuh's phases have no
+    user left and are gone; the A sources and loader stay (the wgmma
     tile's), as do the int8 pointwise's one-pass warp tile and the stage's
     weight transpose items."""
-    assert not (CSRC / "mma_bf16w.cuh").exists()
+    assert not (CSRC / "mma_bf16w.cuh").exists() and not (CSRC / "splitk_tf32.cuh").exists()
     srcs = {f.name: f.read_text() for f in CSRC.glob("*.c*")}
-    splitk = srcs["splitk_tf32.cuh"]
-    assert "mma_kernel" not in splitk and "launch_mma" not in splitk
-    assert "phase_fits" in splitk and "reduce_splits" in splitk
+    assert "inline bool phase_fits(" in srcs["wgmma_phase.cuh"]
+    assert not any("reduce_splits" in text or "mma_kernel" in text for text in srcs.values())
     tf32 = srcs["mma_tf32.cuh"]
     for gone in ("mma_stage", "void tile(", "for_each_acc", "load_b", "kSmemBytes", "mma.sync"):
         assert gone not in tf32, gone

@@ -38,6 +38,26 @@ def test_conv1x1_bn_matches_jax(p, relu):
         assert (out >= 0).all()
 
 
+# The heads (P = N images, the R-34 head's K; the GEMV on the card) at N=1
+# and N=8, f32 and bf16w (a bfloat16 weight; the JAX kernel at
+# precision="bf16w"), each within the f32 bar.
+@pytest.mark.parametrize("bf16w", [False, True])
+@pytest.mark.parametrize("p", [1, 8])
+def test_conv1x1_bn_head_matches_jax(p, bf16w):
+    x, w, scale, bias = _case(100 + p, p, 512, 1000)
+    wt = torch.from_numpy(w)
+    if bf16w:
+        wt = wt.to(torch.bfloat16)
+        w = wt.float().numpy()
+    jw = jnp.asarray(w).astype(jnp.bfloat16) if bf16w else jnp.asarray(w)
+    ref = np.asarray(conv1x1_bn_pallas(jnp.asarray(x), jw, jnp.asarray(scale), jnp.asarray(bias),
+                                       relu=False, precision="bf16w" if bf16w else "bf16x3"))
+    out = conv1x1_bn(torch.from_numpy(x), wt, *map(torch.from_numpy, (scale, bias)),
+                     relu=False).numpy()
+    assert out.shape == ref.shape == (p, 1000)
+    assert np.abs(out - ref).max() <= PARITY_ATOL * max(1.0, np.abs(ref).max())
+
+
 def test_conv1x1_bn_keeps_leading_dims():
     x, w, scale, bias = _case(3, 2 * 5 * 7, 24, 16)
     x4 = x.reshape(2, 5, 7, 24)

@@ -95,6 +95,19 @@ def test_conv1x1_int8_matches_jax(relu):
     _close(out.numpy(), ref, LAYER_RTOL)
 
 
+def test_conv1x1_int8_head_matches_jax():
+    """The int8 head at N=1 (one row, the R-34 head's K; the GEMV on the
+    card)."""
+    rng = np.random.default_rng(3)
+    x = _rand(rng, 1, 512)
+    w_q, s_w = jq.quantize_weights(_rand(rng, 512, 1000))
+    scale, bias = _bn(rng, 1000)
+    ref = jq.conv1x1_bn_int8_pallas(*map(jnp.asarray, (x, w_q, s_w, scale, bias)), relu=False)
+    out = tq.conv1x1_bn_int8(*map(torch.from_numpy, (x, w_q, s_w, scale, bias)), relu=False)
+    assert out.shape == (1, 1000)
+    _close(out.numpy(), ref, LAYER_RTOL)
+
+
 @pytest.mark.parametrize("band_h", [None, 4])
 def test_conv3x3_int8_matches_jax(band_h):
     """The whole-image kernel and the row-banded one (rows 13 and 14) are

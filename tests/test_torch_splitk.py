@@ -65,10 +65,11 @@ def test_split_k_covers_every_k_once(step, min_chunk):
 
 # The served products of csrc/pointwise.cu (P, K, N) and the split each
 # takes on 132 SMs: the heads at N=1 and N=8 (the GEMV, about a block an
-# SM) and the MMA tiles toward two blocks an SM, at most one cluster
-# (CLUSTER_MAX) a tile; the 196 tiles of 3136 x 256 keep one range.
+# SM, a power of two of splits, one cluster a column tile) and the MMA
+# tiles toward two blocks an SM, at most one cluster (CLUSTER_MAX) a tile;
+# the 196 tiles of 3136 x 256 keep one range.
 SERVED_POINTWISE = {
-    (1, 2048, 1000): 16, (8, 2048, 1000): 16, (1, 512, 1000): 8,
+    (1, 2048, 1000): 16, (8, 2048, 1000): 16, (1, 512, 1000): 8, (8, 512, 1000): 8,
     (49, 2048, 512): 8, (49, 512, 2048): 8, (49, 2304, 512): 8, (49, 256, 512): 8,
     (196, 1152, 256): 8, (196, 128, 256): 4, (392, 2048, 512): 4, (784, 576, 128): 6,
     (784, 64, 128): 2, (3136, 64, 64): 2, (3136, 64, 256): 1,
@@ -83,7 +84,9 @@ def test_pointwise_plan_fills_the_card(shape):
     _covers_once(plan, k, pw.SPLIT_STEP)
     assert plan.gemv == (p <= pw.GEMV_MAX_ROWS)
     if plan.gemv:
-        assert plan.tiles == -(-n // pw.GEMV_COLS)
+        assert plan.tile in (pw.GEMV_COLS, pw.GEMV_COLS // 2)
+        assert plan.tiles == -(-n // plan.tile)
+        assert plan.splits & (plan.splits - 1) == 0 and plan.splits <= pw.GEMV_CLUSTER_MAX
         wave, min_chunk = H100_SMS, pw.MIN_CHUNK
     else:
         assert plan.tiles == -(-p // pw.MMA_TILE) * -(-n // pw.MMA_TILE)
@@ -94,9 +97,9 @@ def test_pointwise_plan_fills_the_card(shape):
     else:                  # about one wave, K cut to the shortest ranges, or one cluster
         assert (2 * plan.tiles * plan.splits >= wave or plan.chunk == min_chunk
                 or not plan.gemv and plan.splits == pw.CLUSTER_MAX)
-    if not plan.gemv:      # the splits of a tile are one cluster: no workspace
+    if not plan.gemv:      # the splits of a tile are one cluster
         assert plan.splits <= pw.CLUSTER_MAX
-        assert pw.pointwise_workspace_words(plan, p, n) == 0
+    assert not hasattr(plan, "workspace_words")   # on both paths: no workspace
 
 
 @pytest.mark.parametrize("sms", [H100_SMS, 66, 264])
@@ -106,35 +109,47 @@ def test_pointwise_mma_plan_fits_one_cluster(p, k, sms):
     """On the MMA path (P above GEMV_MAX_ROWS) a tile's K splits are the
     blocks of one thread-block cluster: at most CLUSTER_MAX, covering K
     once, every range but the last a multiple of the tile's stage, no
-    workspace; the GEMV keeps splitting past it."""
+    workspace; the GEMV's splits are one cluster too, a power of two of
+    them, past CLUSTER_MAX only where the card holds the tiles' clusters
+    at once."""
     for n in (33, 512, 1000):
         plan = pw.split_plan(p, k, n, sms)
         assert not plan.gemv and 1 <= plan.splits <= pw.CLUSTER_MAX
         _covers_once(plan, k, pw.SPLIT_STEP)
         assert plan.splits == 1 or plan.chunk % pw.SPLIT_STEP == 0
-        assert pw.pointwise_workspace_words(plan, p, n) == 0
+        assert not hasattr(plan, "workspace_words")
         if plan.tiles * pw.CLUSTER_MAX <= sms and k >= pw.CLUSTER_MAX * pw.MIN_CHUNK:
             assert plan.splits == pw.CLUSTER_MAX   # few tiles: a whole cluster each
-    gemv = pw.split_plan(1, k, 1000, sms)
-    assert gemv.gemv and pw.pointwise_workspace_words(gemv, 1, 1000) == gemv.workspace_words(1, 1000)
+    for wide in (None, 0, 8, 100):
+        gemv = pw.split_plan(1, k, 1000, sms, wide)
+        assert gemv.gemv and gemv.splits & (gemv.splits - 1) == 0
+        assert gemv.splits <= pw.GEMV_CLUSTER_MAX and gemv.tiles * gemv.splits <= sms
+        _covers_once(gemv, k, pw.SPLIT_STEP)
+        if gemv.splits > pw.CLUSTER_MAX:
+            assert wide is None or wide >= gemv.tiles
 
 
 @pytest.mark.parametrize("p,k,n", [(1, 7, 5), (65, 130, 70), (129, 4608, 33), (9, 300, 17),
                                    (8, 4096, 4096), (4000, 4608, 2048)])
 def test_pointwise_plan_and_workspace_on_ragged_shapes(p, k, n):
+    """Every plan covers K once and takes no workspace; the GEMV's splits
+    are a power of two, within its cluster."""
     plan = pw.split_plan(p, k, n)
     _covers_once(plan, k, pw.SPLIT_STEP)
-    words = plan.workspace_words(p, n)
-    if plan.splits == 1:
-        assert words == 0
-    else:
-        counters = words - plan.splits * p * n
-        assert counters >= plan.tiles and counters % pw.COUNTER_WORDS == 0
+    assert not hasattr(plan, "workspace_words") and not hasattr(pw, "pointwise_workspace_words")
+    assert not hasattr(pw, "COUNTER_WORDS")
+    if plan.gemv:
+        assert plan.splits & (plan.splits - 1) == 0 and plan.splits <= pw.GEMV_CLUSTER_MAX
 
 
 def test_pointwise_plan_follows_the_sm_count():
     small = pw.split_plan(1, 2048, 1000, sms=66)
     assert small.splits == 8 and pw.split_plan(1, 2048, 1000, sms=132).splits == 16
+    # a card that does not hold the 8 tiles' clusters of 16 at once: twice
+    # the tiles, half as wide, a portable cluster each (the same blocks)
+    narrow = pw.split_plan(1, 2048, 1000, sms=132, wide_clusters=7)
+    assert (narrow.tile, narrow.tiles, narrow.splits) == (pw.GEMV_COLS // 2, 16, 8)
+    assert pw.split_plan(1, 2048, 1000, sms=132, wide_clusters=8).splits == 16
     assert pw.split_plan(392, 2048, 512, sms=66).splits == 2     # 56 tiles: 132 // 56
     assert pw.split_plan(392, 2048, 512, sms=132).splits == 4
     assert pw.split_plan(196, 1152, 256, sms=16).splits == 2     # 16 tiles: 32 // 16
@@ -166,7 +181,7 @@ def test_direct_plan_fills_the_card(shape):
     wave = pw.MMA_BLOCKS_PER_SM * H100_SMS
     assert 2 * plan.tiles * plan.splits >= min(wave, plan.tiles * dr.DIRECT_CLUSTER_MAX)
     assert dr.direct_plan(n, h, w, cin, cout, sms=66).splits <= plan.splits
-    assert pw.pointwise_workspace_words(plan, n * h * w, cout) == 0  # the splits meet in the cluster
+    assert not hasattr(plan, "workspace_words")  # the splits meet in the cluster
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", [(2, 5, 7, 3, 70), (1, 9, 9, 13, 65),
@@ -180,7 +195,7 @@ def test_direct_plan_and_workspace_on_ragged_shapes(n, h, w, cin, cout):
     _covers_once(plan, k, pw.SPLIT_STEP)
     assert not plan.gemv and plan.tile == pw.MMA_TILE
     assert _pow2(plan.splits) and plan.splits <= dr.DIRECT_CLUSTER_MAX
-    assert pw.pointwise_workspace_words(plan, p, cout) == 0
+    assert not hasattr(plan, "workspace_words")
 
 
 def test_direct_entry_checks_the_pointwise_geometry():
@@ -234,7 +249,7 @@ def test_direct_int8_pads_k_to_the_mma_depth(cin, kp):
     assert plan.kp == kp and plan.kp % q8.DIRECT_INT8_K_ALIGN == 0 and plan.kp >= 9 * cin
     assert plan.kp < 9 * cin + q8.DIRECT_INT8_K_ALIGN
     _covers_once(plan, plan.kp, q8.POINTWISE_INT8_CLUSTER_STEP)
-    assert plan.workspace(70, 70).words == 0      # the cluster path takes no workspace
+    assert not hasattr(plan, "workspace")       # the cluster path takes no workspace
 
 
 # The served int8 transitions (N, H, W, Cin, Cmid, Cout) and the splits of
@@ -306,15 +321,16 @@ def test_transition_int8_plan_follows_the_sm_count():
 
 
 # The served products of csrc/pointwise_int8.cu (P, K, N) at N=1, 8 and 32
-# and the (path, tile width, split) each takes on 132 SMs: the head at N=1
-# (one row, K 2048) on the GEMV; the one pass where its K fits over many rows (the
+# and the (path, tile width, split) each takes on 132 SMs: the heads at N=1
+# and N=8 (one or eight rows, K 2048 or 512) on the GEMV, under the f32
+# GEMV's rule; the one pass where its K fits over many rows (the
 # K = 64 1x1s of ResNet-50's conv2_x entry block, and past N=1 more); every
 # other product on the cluster path, 128 columns wide where those tiles
 # fill the card, its K split towards two blocks an SM, at most a portable
 # cluster (8).
 SERVED_POINTWISE_INT8 = {
-    (1, 2048, 1000): ("gemv", 128, 16), (8, 2048, 1000): ("cluster", 64, 8),
-    (1, 512, 1000): ("cluster", 64, 8), (8, 512, 1000): ("cluster", 64, 8),
+    (1, 2048, 1000): ("gemv", 128, 16), (8, 2048, 1000): ("gemv", 128, 16),
+    (1, 512, 1000): ("gemv", 128, 8), (8, 512, 1000): ("gemv", 128, 8),
     (32, 2048, 1000): ("cluster", 64, 8), (32, 512, 1000): ("cluster", 64, 8),
     (3136, 64, 64): ("one_pass", 64, 1), (3136, 64, 256): ("one_pass", 64, 1),
     (25088, 64, 64): ("one_pass", 64, 1), (25088, 64, 256): ("cluster", 128, 1),
@@ -341,10 +357,14 @@ def test_pointwise_int8_plan_fills_the_card(shape):
     assert (plan.path, plan.tile, plan.splits) == SERVED_POINTWISE_INT8[shape]
     _covers_once(plan, plan.kp, _pointwise_int8_step(plan))
     if plan.path == "gemv":
-        assert plan.kp == k and plan.tile == q8.POINTWISE_INT8_GEMV_COLS
+        assert plan.kp == k and plan.tile in (q8.POINTWISE_INT8_GEMV_COLS,
+                                              q8.POINTWISE_INT8_GEMV_COLS // 2)
         assert plan.tiles == -(-n // plan.tile) and plan.blocks == plan.tiles * plan.splits
         assert plan.blocks <= H100_SMS                       # one block an SM at most
-        assert 2 * plan.blocks >= H100_SMS or plan.chunk == q8.POINTWISE_INT8_GEMV_MIN_CHUNK
+        assert 2 * plan.blocks >= H100_SMS or plan.chunk == pw.MIN_CHUNK
+        assert plan.splits & (plan.splits - 1) == 0 and plan.splits <= pw.GEMV_CLUSTER_MAX
+        width, tiles, split = pw.gemv_split(k, n, H100_SMS)     # the f32 GEMV's rule
+        assert (plan.tile, plan.tiles, plan.splits, plan.chunk) == (width, tiles, *split)
         return
     assert plan.kp == -(-k // 32) * 32
     assert plan.tiles == -(-p // 64) * -(-n // plan.tile) and plan.blocks == plan.tiles * plan.splits
@@ -386,33 +406,37 @@ def test_pointwise_int8_plan_covers_k_on_ragged_shapes(p, k, n):
 
 
 def test_pointwise_int8_workspace_holds_every_part():
-    gemv = q8.pointwise_int8_plan(8, 2048, 1000, path="gemv")
-    at = gemv.workspace(8, 1000)
-    # a counter per column tile, then the int32 partials
-    assert gemv.tiles <= at.part and at.part % 4 == 0 and at.words == at.part + gemv.splits * 8000
-    # the cluster path keeps its partials and maxima in the cluster's shared memory
-    for shape in ((784, 576, 128), (49, 2304, 512), (32, 2048, 1000)):
+    """No path takes a workspace any more: the GEMV's and the cluster
+    path's K splits keep their partials and maxima in the cluster's shared
+    memory, the one pass has none; the C entry takes no workspace."""
+    assert not hasattr(q8, "PointwiseInt8Workspace")
+    for shape, path in (((8, 2048, 1000), "gemv"), ((1, 512, 1000), "gemv"),
+                        ((784, 576, 128), "cluster"), ((49, 2304, 512), "cluster"),
+                        ((32, 2048, 1000), "cluster"), ((3136, 64, 256), "one_pass")):
         plan = q8.pointwise_int8_plan(*shape)
-        assert plan.path == "cluster" and plan.splits > 1
-        assert plan.workspace(shape[0], shape[2]).words == 0
-    assert q8.pointwise_int8_plan(3136, 64, 256).workspace(3136, 256).words == 0
-    one = q8.pointwise_int8_plan(2, 64, 1000, path="gemv")
-    assert one.splits == 1 and one.workspace(2, 1000).words == 0
+        assert plan.path == path and not hasattr(plan, "workspace")
+        assert path == "one_pass" or plan.splits > 1
+    src = (CSRC / "pointwise_int8.cu").read_text()
+    entry = src[src.index('extern "C" int pointwise_int8_conv1x1_bn('):]
+    assert "ws_words" not in entry and "float* ws" not in entry
 
 
 def test_pointwise_int8_plan_takes_the_gemv_at_few_rows_and_follows_the_sm_count():
-    """The GEMV takes a lone row over a long K (the N=1 head); two rows or
-    more, or a short K, take the cluster path; the GEMV still takes any
-    P <= 8 when forced."""
+    """The GEMV takes the heads: up to GEMV_MAX_ROWS rows over a K of at
+    least GEMV_MIN_K; more rows, or a short K, take the cluster path; the
+    GEMV still takes any P <= 8 when forced, and halves its tiles where
+    the card does not hold the wide clusters at once."""
     assert q8.pointwise_int8_plan(1, 2048, 1000).path == "gemv"
     assert q8.pointwise_int8_plan(1, q8.POINTWISE_INT8_GEMV_MIN_K, 1000).path == "gemv"
     assert q8.pointwise_int8_plan(1, q8.POINTWISE_INT8_GEMV_MIN_K - 4, 1000).path == "cluster"
-    for p in range(2, q8.POINTWISE_INT8_GEMV_MAX_ROWS + 2):
-        assert q8.pointwise_int8_plan(p, 2048, 1000).path == "cluster"
     for p in range(1, q8.POINTWISE_INT8_GEMV_MAX_ROWS + 1):
-        assert q8.pointwise_int8_plan(p, 512, 1000, path="gemv").path == "gemv"
+        assert q8.pointwise_int8_plan(p, 2048, 1000).path == "gemv"
+        assert q8.pointwise_int8_plan(p, 256, 1000, path="gemv").path == "gemv"
+    assert q8.pointwise_int8_plan(q8.POINTWISE_INT8_GEMV_MAX_ROWS + 1, 2048, 1000).path == "cluster"
     small, large = (q8.pointwise_int8_plan(1, 2048, 1000, sms=sms) for sms in (66, H100_SMS))
     assert small.splits == 8 and large.splits == 16 and small.blocks <= 66
+    narrow = q8.pointwise_int8_plan(1, 2048, 1000, wide_clusters=7)
+    assert (narrow.tile, narrow.tiles, narrow.splits, narrow.blocks) == (64, 16, 8, 128)
     small, large = (q8.pointwise_int8_plan(392, 2304, 512, sms=sms) for sms in (66, H100_SMS))
     assert small.blocks == large.blocks // 2 and small.splits < large.splits
 
@@ -780,8 +804,10 @@ def _constexpr(source: str, name: str) -> int:
 
 
 @pytest.mark.parametrize("value,source,name", [
-    (pw.GEMV_MAX_ROWS, "pointwise.cu", "kGemvMaxP"),
+    (pw.GEMV_MAX_ROWS, "gemv_cluster.cuh", "kMaxP"),
     (pw.GEMV_COLS, "pointwise.cu", "kGemvCols"),
+    (pw.GEMV_CLUSTER_MAX, "gemv_cluster.cuh", "kClusterMax"),
+    (pw.SPLIT_STEP, "gemv_cluster.cuh", "kStep"),
     (pw.CLUSTER_MAX, "wgmma_cluster.cuh", "kClusterPortable"),
     (dr.DIRECT_CLUSTER_MAX, "wgmma_cluster.cuh", "kClusterMax"),
     (pw.MMA_TILE, "wgmma_tile.cuh", "kBM"),
@@ -794,9 +820,9 @@ def _constexpr(source: str, name: str) -> int:
     (q8.TRANSITION_INT8_BLOCKS_PER_SM, "transition_int8.cu", "kBlocksPerSm"),
     (q8.TRANSITION_INT8_MAX_SPLITS, "transition_int8.cu", "kSplitCap"),
     (q8.TRANSITION_INT8_K_ALIGN, "transition_int8.cu", "kKAlign"),
-    (q8.POINTWISE_INT8_GEMV_MAX_ROWS, "pointwise_int8.cu", "kGemvMaxP"),
+    (q8.POINTWISE_INT8_GEMV_MAX_ROWS, "gemv_cluster.cuh", "kMaxP"),
     (q8.POINTWISE_INT8_GEMV_COLS, "pointwise_int8.cu", "kGemvCols"),
-    (q8.POINTWISE_INT8_GEMV_STEP, "pointwise_int8.cu", "kGemvStep"),
+    (q8.POINTWISE_INT8_GEMV_STEP, "gemv_cluster.cuh", "kStep"),
     (q8.POINTWISE_INT8_ONE_PASS_MAX_K, "pointwise_int8.cu", "kOnePassMaxK"),
     (q8.POINTWISE_INT8_CLUSTER_MAX, "wgmma_s8_cluster.cuh", "kClusterPortable"),
     (q8.DIRECT_INT8_CLUSTER_MAX, "wgmma_s8_cluster.cuh", "kClusterMax"),
@@ -855,6 +881,55 @@ def test_pointwise_int8_entry_checks_the_int8_geometry():
     assert "s8::mma_k32(" in src and "s8::gemm_phase(" not in src
 
 
+def test_gemvs_run_in_one_cluster():
+    """Both GEMVs (pointwise.cu at f32 and bf16w, pointwise_int8.cu) run a
+    column tile's K splits as one thread-block cluster on
+    gemv_cluster.cuh: weights by 1D bulk copies onto mbarriers, partials
+    pushed through distributed shared memory to their owners (once every
+    block has started) and added there in rank order, no workspace, memset,
+    atomics or fence through device memory."""
+    header = (CSRC / "gemv_cluster.cuh").read_text()
+    assert "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes" in header
+    assert "cudaLaunchAttributeClusterDimension" in header and "store_rank_u32(" in header
+    assert "cudaOccupancyMaxActiveClusters" in header and "cp.async.bulk.tensor" not in header
+    assert "for (int q = 1; q < splits; ++q) s += recv[q * per + j];" in header
+    for name in ("pointwise.cu", "pointwise_int8.cu"):
+        src = (CSRC / name).read_text()
+        assert '#include "gemv_cluster.cuh"' in src and '#include "splitk_tf32.cuh"' not in src
+        for gone in ("cudaMemsetAsync", "atomicAdd", "__threadfence", "ws_words", "__ldcg"):
+            assert gone not in src, (name, gone)
+        gemv = src[src.index("__launch_bounds__(gv::kThreads)"):]
+        assert gemv.count("wt::cluster_sync();") == (1 if name == "pointwise.cu" else 2)
+        assert "gv::walk<kVec, kGemvXChunk>(" in gemv and "slab.begin();" in gemv
+        assert gemv.count("wt::cluster_arrive_relaxed();") == gemv.count("wt::cluster_wait();") == 1
+        assert gemv.index("wt::cluster_wait();") < gemv.index("store_rank_u32(" if "int8" in name
+                                                                else "gv::push(")
+        assert "gv::push(recv," in gemv and "gv::gather(recv," in gemv
+    for text in (header, *(f.read_text() for f in CSRC.glob("*.c*"))):
+        assert "splitk_tf32" not in text and "arrive_last" not in text
+        assert "reduce_splits" not in text and "bind_workspace" not in text
+
+
+@pytest.mark.parametrize("name,kernel", [("pointwise.cu", "pointwise_gemv"),
+                                         ("pointwise_int8.cu", "pointwise_int8_gemv")])
+def test_gemv_is_one_instantiation_for_every_cluster_size(name, kernel):
+    """A GEMV kernel is instantiated per weight route and tile width only:
+    every cluster size of the plan, up to gemv_cluster.cuh's kClusterMax,
+    launches the same kernel, whose launch sets the non-portable cluster
+    opt-in once (it allows more than 8 blocks and changes nothing for 8 or
+    fewer)."""
+    src = (CSRC / name).read_text()
+    header = (CSRC / "gemv_cluster.cuh").read_text()
+    assert "template <bool kVec, int kCols" in src and not re.search(r"\bkMax\b", src)
+    assert src.count(f"gv::launch<&{kernel}<") == 2
+    assert "template <auto kKernel, class Args>" in header
+    assert not re.search(r"\bkMax\b", header)
+    launch = header[header.index("template <auto kKernel, class Args>"):]
+    assert "if (e == cudaSuccess)\n      e = cudaFuncSetAttribute(kernel, " \
+           "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);" in launch
+    assert "gv::plan_fits(P, K, N, splits, chunk)" in src and "splits <= kClusterMax" in header
+
+
 def test_transition_entry_runs_the_tf32_phases():
     """The f32 transition's three GEMMs are wgmma_phase.cuh's phases on the
     wgmma tile (3xTF32 wgmma, weights by TMA), its grid capped at two blocks
@@ -869,15 +944,17 @@ def test_transition_entry_runs_the_tf32_phases():
 def test_basic_stage_runs_the_tf32_phases():
     """The f32 basic stage's two convs a block are wgmma_phase.cuh's 3xTF32
     wgmma phases over an implicit im2col (weights by TMA), its grid capped
-    at two blocks an SM; splitk_tf32.cuh's gemm_phase lost its last user and
-    is gone, as are gemm.cuh's FFMA tile and grid_sync.cuh's scalar phase."""
+    at two blocks an SM; splitk_tf32.cuh lost its last users and is gone
+    (phase_fits moved into wgmma_phase.cuh), as are gemm.cuh's FFMA tile
+    and grid_sync.cuh's scalar phase."""
     src = (CSRC / "basic_stage.cu").read_text()
     assert '#include "wgmma_phase.cuh"' in src and '#include "gemm.cuh"' not in src
     assert src.count("ph::phase_items<kVec>(") == 2 and "gemm_phase" not in src
     assert src.count("tc::Im2colA{") == 2 and src.count("wg::encode_weights(") == 2
     assert "__launch_bounds__(wg::kThreads, kMaxBlocksPerSm)" in src
-    assert "gemm_phase(" not in (CSRC / "splitk_tf32.cuh").read_text()
-    assert "sk::phase_fits(" in src and "make_plan" in src and "grid_size" not in src
+    assert not (CSRC / "splitk_tf32.cuh").exists()
+    assert "inline bool phase_fits(" in (CSRC / "wgmma_phase.cuh").read_text()
+    assert "ph::phase_fits(" in src and "make_plan" in src and "grid_size" not in src
     assert not (CSRC / "gemm.cuh").exists()
     for gone in ("gemm_tile", "gemm_bn_tile", "kGemmSmemFloats", "Im2colCg", "PartialEpilogue",
                  "kGemmThreads", "kMaxSplits"):

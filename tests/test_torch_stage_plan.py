@@ -126,7 +126,8 @@ def test_stage_runs_its_gemm_phases_on_the_wgmma_tile():
     splits one cluster, with no memset before its launch."""
     src = (CSRC / "stage.cu").read_text()
     assert '#include "wgmma_tile.cuh"' in src and "sk::gemm_phase" not in src
-    assert "sk::kSplitStep == wg::kBK" in src and src.count("sk::phase_fits(") == 3
+    assert src.count("ph::phase_fits(") == 3 and "splitk" not in src
+    assert "constexpr int kSplitStep = wg::kBK;" in (CSRC / "wgmma_phase.cuh").read_text()
     assert src.count("phase_items<kVec>(") == 3 and src.count("prefetch_phase<kVec>(") == 3
     assert "wtc::phase<2, kVec, true>(" in src
     assert "encode_weights(&a.map_u, wm, 16 * B, Cmid, Cmid)" in src

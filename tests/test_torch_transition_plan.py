@@ -62,17 +62,20 @@ def test_plan_geometry_is_the_wgmma_tiles(value, name):
 def test_phase_machinery_is_one_header():
     """The items, the prefetch before a barrier and the in-order split sum
     live in wgmma_phase.cuh, which the transition, the stage and the basic
-    stage include; no kernel keeps a copy; splitk_tf32.cuh's gemm_phase,
-    which the basic stage was the last to use, is gone."""
+    stage include, with the host's check of a phase's plan (phase_fits);
+    no kernel keeps a copy; splitk_tf32.cuh, whose gemm_phase the basic
+    stage was the last to use and whose phase_fits moved here, is gone."""
     header = (CSRC / "wgmma_phase.cuh").read_text()
-    for name in ("item_of", "items_of", "phase_items", "prefetch_phase", "reduce_phase"):
+    for name in ("item_of", "items_of", "phase_items", "prefetch_phase", "reduce_phase",
+                 "phase_fits"):
         assert re.search(rf"\b{name}\(", header), name
     for kernel in ("transition.cu", "stage.cu", "basic_stage.cu"):
         src = (CSRC / kernel).read_text()
         assert '#include "wgmma_phase.cuh"' in src
         assert "Item item_of(" not in src and "void reduce_phase(" not in src
+        assert "ph::phase_fits(" in src and '#include "splitk_tf32.cuh"' not in src
     users = sorted(f.name for f in CSRC.glob("*.cu") if "gemm_phase<" in f.read_text())
-    assert users == [] and "gemm_phase" not in (CSRC / "splitk_tf32.cuh").read_text()
+    assert users == [] and not (CSRC / "splitk_tf32.cuh").exists()
 
 
 @pytest.mark.parametrize("shape", SERVED[:3])

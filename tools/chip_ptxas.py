@@ -9,7 +9,8 @@ Run from the repository root on a machine with nvcc (the CUDA toolkit's
 cuobjdump beside it); no card is needed. Each csrc/<NAME>.cu is compiled
 with kernels/_build.py's flags plus -Xptxas -v into a scratch library under
 build/ptxas/, all at once (--root DIR: DIR's winograd_tpu_torch/csrc, for
-example a copy that tools/chip_fp64_tile.py edited); then one JSON line per kernel entry
+example a copy that tools/chip_fp64_tile.py edited, into DIR's build/ptxas/,
+so that runs on other roots may go side by side); then one JSON line per kernel entry
 ({"library", "kernel", "registers", "spill_stores", "spill_loads",
 "stack", "smem"}; smem the static shared memory, 0 where a kernel has
 none), one per device function compiled apart (__noinline__: {"library",
@@ -24,8 +25,10 @@ libstage, libbasic_stage, libdirect and libpointwise on 3xTF32 and bf16
 wgmma, the last two through csrc/wgmma_cluster.cuh) one more line says
 whether the SASS
 holds that wgmma and no mma.sync (libpointwise_int8 keeps its one-pass
-form's mma.sync: only its wgmma is checked); the exit code is 1 where it
-does not.
+form's mma.sync: only its wgmma is checked), and for the heads' GEMVs
+(BULK: libpointwise and libpointwise_int8, csrc/gemv_cluster.cuh) whether
+it holds their bulk copies ("UBLKCP"); the exit code is 1 where it does
+not. A kernel line has "gemv": true for the GEMVs' instantiations.
 """
 
 from __future__ import annotations
@@ -47,6 +50,8 @@ WGMMA_ONLY = {"winograd_int8": ("IGMMA", "IMMA"), "transition": ("HGMMA", "HMMA"
               "basic_stage": ("HGMMA", "HMMA"), "basic_stage_int8": ("IGMMA", "IMMA"),
               "direct": ("HGMMA", "HMMA"), "direct_int8": ("IGMMA", "IMMA"),
               "pointwise": ("HGMMA", "HMMA")}
+# The libraries whose GEMVs read their weights by 1D bulk copies.
+BULK = ("pointwise", "pointwise_int8")
 
 
 def main() -> int:
@@ -60,7 +65,7 @@ def main() -> int:
     csrc = args.root.resolve() / "winograd_tpu_torch" / "csrc"
     names = args.names.split(",") if args.names else list(_build.KERNELS)
     nvcc = _build._nvcc()
-    out = ROOT / "build" / "ptxas"
+    out = args.root.resolve() / "build" / "ptxas"
     out.mkdir(parents=True, exist_ok=True)
     links = [f"-L{d}" for d in _build._stub_dirs(nvcc)] + list(_build.LINK_FLAGS)
     procs = {name: subprocess.Popen(
@@ -94,7 +99,7 @@ def main() -> int:
             if m and kernel:
                 smem = re.search(r"(\d+) bytes smem", line)
                 stack, stores, loads = props.pop(kernel, (0, 0, 0))
-                print(json.dumps({"library": name, "kernel": kernel,
+                print(json.dumps({"library": name, "kernel": kernel, "gemv": "gemv" in kernel,
                                   "registers": int(m.group(1)), "spill_stores": stores,
                                   "spill_loads": loads, "stack": stack,
                                   "smem": int(smem.group(1)) if smem else 0}), flush=True)
@@ -114,6 +119,11 @@ def main() -> int:
             ok &= good
             print(json.dumps({"library": name, "wgmma_only": good, want: counts[want],
                               **({not_want: counts[not_want]} if not_want else {})}), flush=True)
+        if name in BULK:
+            good = counts["UBLKCP"] > 0
+            ok &= good
+            print(json.dumps({"library": name, "bulk_copies": good, "UBLKCP": counts["UBLKCP"]}),
+                  flush=True)
     return 0 if ok else 1
 
 

@@ -31,7 +31,10 @@ come first, then one JSON line per shape and candidate.
 The sweep times each shape under the K split its wrapper's plan picks
 ("chosen") and under the splits that kernels/splitk.py::split_k gives for
 1, 2, 4, ..., 32 wanted ranges (at most pointwise.py::CLUSTER_MAX on the
-pointwise MMA path; the direct 3x3, whose splits are one cluster, under
+pointwise MMA path; the heads' GEMVs at P <= 8, pointwise, pointwise_bf16w
+and pointwise_int8, under every cluster size 1, 2, 4, 8, 16 on column tiles
+128 and 64 wide, after a line giving the clusters of 16 GEMV blocks the
+card holds at once; the direct 3x3, whose splits are one cluster, under
 every split 1-16 (past 8 a non-portable cluster); its lines give the bar, 1e-4 * max(1, max|plain|), beside the error); the int8
 direct 3x3 under its plan and the int8 pointwise's cluster rule at both
 tile widths (64, 128) and the K splits split_k gives for 1, 2, 4, ..., 64
@@ -51,8 +54,8 @@ and under plans that change one phase's split (reduce, mid or expand) for
 1, 2, 4, ..., 32 wanted ranges; the int8 pointwise under its plan and on
 every other path that takes the shape (GEMV at P <= 8, one pass at a
 padded K <= 256, the cluster path at any P, its tiles 64 and 128 columns
-wide), the GEMV's and the cluster path's K split for 1, 2, 4, ..., 64
-wanted ranges (the cluster's at most 8); the f32, bf16w and int8 basic
+wide), the cluster path's K split for 1, 2, 4, ..., 64 wanted ranges (at
+most 8); the f32, bf16w and int8 basic
 stage under their plans and under the K splits split_k gives for 1, 2, 4,
 ..., 64 wanted ranges (the int8 one's at most 16; both convs share one
 split); the int8 Winograd under its
@@ -92,8 +95,9 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
-POINTWISE = [  # (P, K, N, relu)
+POINTWISE = [  # (P, K, N, relu); the MMA tiles at P = 9 and 16 beside the GEMV's 8
     (1, 2048, 1000, False), (8, 2048, 1000, False), (1, 512, 1000, False),
+    (8, 512, 1000, False), (9, 2048, 1000, False), (16, 2048, 1000, False),
     (49, 2048, 512, True), (49, 512, 2048, False), (49, 2304, 512, True), (49, 256, 512, False),
     (196, 1152, 256, True), (196, 128, 256, False), (392, 2048, 512, True),
     (784, 576, 128, True), (784, 64, 128, False), (3136, 64, 64, True), (3136, 64, 256, False),
@@ -173,6 +177,7 @@ DIRECT_INT8 = [  # (N, H, W, Cin, Cout, relu)
     (8, 56, 56, 64, 64, True), (32, 7, 7, 512, 512, False), (32, 56, 56, 64, 64, True),
 ]
 WANTS = (1, 2, 4, 8, 16, 32, 64)
+GEMV_WANTS = (1, 2, 4, 8, 16)  # the GEMVs' cluster sizes
 
 
 def device_ms(fn, calls=20, reps=20, warmup=2):
@@ -477,6 +482,12 @@ def sweep(dev) -> bool:
 
     _build.build_all()
     sms = _build.sm_count(dev)
+    # The clusters of 16 GEMV blocks on 128-column tiles the card holds at once.
+    wide = {"pointwise": pw.gemv_clusters(dev, "pointwise", 0),
+            "pointwise_bf16w": pw.gemv_clusters(dev, "pointwise", 1),
+            "pointwise_int8": pw.gemv_clusters(dev, "pointwise_int8")}
+    print(json.dumps({"gemv_clusters": wide, "tile": pw.GEMV_COLS,
+                      "splits": pw.GEMV_CLUSTER_MAX}), flush=True)
     ok = True
     for name, shape, args, ref, agrees in cases(dev):
         if name in A_B_ONLY:
@@ -494,7 +505,7 @@ def sweep(dev) -> bool:
             ok &= sweep_transition(name, shape, args, ref, agrees, sms)
             continue
         if name == "pointwise_int8":
-            ok &= sweep_pointwise_int8(shape, args, ref, agrees, q8, sms)
+            ok &= sweep_pointwise_int8(shape, args, ref, agrees, q8, sms, wide[name])
             continue
         if name == "direct_int8":
             ok &= sweep_direct_int8(shape, args, ref, agrees, q8, sms)
@@ -517,10 +528,12 @@ def sweep(dev) -> bool:
         cap = 1 << 30
         if name.startswith("pointwise"):
             p, k, n, _ = shape
-            chosen = pw.split_plan(p, k, n, sms)
+            chosen = pw.split_plan(p, k, n, sms, wide[name])
+            if chosen.gemv:
+                ok &= sweep_gemv(name, shape, args, ref, agrees, pw, sms, chosen)
+                continue
             kp, step, run = k, pw.SPLIT_STEP, pw.conv1x1_bn_planned
-            if not chosen.gemv:   # the MMA path's splits of a tile are one cluster
-                cap = pw.CLUSTER_MAX
+            cap = pw.CLUSTER_MAX   # the MMA path's splits of a tile are one cluster
         else:   # direct, direct_bf16w: the splits of a tile are one cluster
             chosen = dr.direct_plan(*shape[:5], sms)
             kp, step, run = 9 * shape[3], pw.SPLIT_STEP, dr.conv3x3_bn_direct_planned
@@ -628,16 +641,45 @@ def sweep_transition(name, shape, args, ref, agrees, sms) -> bool:
     return ok
 
 
-def sweep_pointwise_int8(shape, args, ref, agrees, q8, sms) -> bool:
-    """The int8 pointwise under its plan, and on every path that takes the
-    shape: the GEMV and the cluster path at the K splits split_k gives for
-    WANTS (the cluster's at most a portable cluster), the one pass."""
+def sweep_gemv(name, shape, args, ref, agrees, pw, sms, chosen) -> bool:
+    """The f32 or bf16w GEMV under its plan and under every cluster size
+    (1, 2, 4, 8, 16 K splits: a power of two) on tiles 128 and 64 columns
+    wide."""
     p, k, n, _ = shape
-    chosen = q8.pointwise_int8_plan(p, k, n, sms)
+    plans = [chosen]
+    for cols in (pw.GEMV_COLS, pw.GEMV_COLS // 2):
+        for want in GEMV_WANTS:
+            width, tiles, split = pw.gemv_split(k, n, sms, cols=cols, want=want)
+            plan = pw.Plan(True, width, tiles, split.splits, split.chunk)
+            if plan not in plans:
+                plans.append(plan)
+    ok = True
+    for plan in plans:
+        fn = (lambda plan=plan: pw.conv1x1_bn_planned(*args, plan))
+        y = fn()
+        ok &= agrees(y)
+        print(json.dumps({"kernel": name, "shape": shape, "path": "gemv", "cols": plan.tile,
+                          "splits": plan.splits, "chunk": plan.chunk, "chosen": plan == chosen,
+                          "max_abs_err": (y - ref).abs().max().item(),
+                          "bar": 1e-4 * max(1.0, ref.abs().max().item()),
+                          "ms": device_ms(fn)}), flush=True)
+    return ok
+
+
+def sweep_pointwise_int8(shape, args, ref, agrees, q8, sms, wide) -> bool:
+    """The int8 pointwise under its plan, and on every path that takes the
+    shape: the GEMV under every cluster size (GEMV_WANTS) on tiles 128 and
+    64 columns wide, the cluster path at the K splits split_k gives for
+    WANTS (at most a portable cluster) at both of its widths, the one
+    pass."""
+    p, k, n, _ = shape
+    chosen = q8.pointwise_int8_plan(p, k, n, sms, wide_clusters=wide)
     plans = [chosen]
     for path in q8.POINTWISE_INT8_PATHS:
-        widths = q8.POINTWISE_INT8_CLUSTER_COLS if path == "cluster" else (0,)
-        for want, cols in ((w, c) for c in widths for w in ((0,) if path == "one_pass" else WANTS)):
+        widths = {"cluster": q8.POINTWISE_INT8_CLUSTER_COLS,
+                  "gemv": (q8.POINTWISE_INT8_GEMV_COLS, q8.POINTWISE_INT8_GEMV_COLS // 2)}
+        wants = {"one_pass": (0,), "gemv": GEMV_WANTS}.get(path, WANTS)
+        for want, cols in ((w, c) for c in widths.get(path, (0,)) for w in wants):
             try:
                 plan = q8.pointwise_int8_plan(p, k, n, sms, path, want, cols)
             except ValueError:

@@ -15,8 +15,8 @@ winograd_int8.cu
 (default: this checkout's; DIR may be an unpacked `git archive` of another
 commit under build/) in which thread 0 of block 0 reads %globaltimer once
 before the first phase and again after every grid barrier of the kernel
-body (the barriers inside a phase of mma_int8.cuh or splitk_tf32.cuh,
-before its K-split sum or its Winograd inverse, are not stamped), and
+body (the barriers inside a phase, before its K-split sum or its
+Winograd inverse, are not stamped), and
 calls DIR's resnet_stage_fused, resnet_stage_int8, transition_block_int8,
 transition_block_fused, basic_stage_fused, basic_stage_int8 and
 conv3x3_bn_winograd_int8
@@ -130,7 +130,8 @@ LAYOUT = {
                         ("  // 1. The reduce, on x's rows", "  // 0. The four weight matrices"),
                         ("  expand_and_project(a, we, wp, ring, scratch);\n",
                          "  expand_and_project(a, P2, smem);\n")),
-    "transition": ('#include "splitk_tf32.cuh"\n',
+    "transition": (('#include "wgmma_phase.cuh"\n',  # since splitk_tf32.cuh went
+                    '#include "splitk_tf32.cuh"\n'),
                    ("  ph::phase_items<kVec>(a.reduce,",  # since the wgmma phases
                     "  sk::gemm_phase<kVec, true>(a.reduce,"),
                    ("  ph::reduce_phase(a.expand, e3, a.part, a.bar);\n",

@@ -51,19 +51,16 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "splitk_tf32.cuh"
 #include "wgmma_phase.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
 
 namespace tc = wt::tf32x3;
-namespace sk = wt::splitk;
 namespace wg = wt::wg;
 namespace ph = wt::wgphase;
 
 constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
-static_assert(sk::kSplitStep == wg::kBK, "a conv's splits are whole stages of the wgmma tile");
 
 // BT: the weights' element type, float or __nv_bfloat16 (bf16w). The maps
 // (kVec): w9_a and w9_b as (C, 9C, B) for the TMA loads.
@@ -156,7 +153,7 @@ int make_plan(int N, int H, int W, int C, int blocks, int splits, int chunk, Pla
     return static_cast<int>(cudaErrorInvalidValue);
   const int P = N * H * W;
   pl->conv = wt::GemmPhase{P, 9 * C, C, splits, chunk};
-  if (!sk::phase_fits(pl->conv)) return static_cast<int>(cudaErrorInvalidValue);
+  if (!ph::phase_fits(pl->conv)) return static_cast<int>(cudaErrorInvalidValue);
   pl->h1 = kWorkspaceAlign;  // the barrier's two counters sit at the front
   pl->part = pl->h1 + workspace_round_up(static_cast<size_t>(P) * C);
   pl->total = pl->part + phase_partial_floats(pl->conv);

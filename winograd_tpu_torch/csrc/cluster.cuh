@@ -1,9 +1,11 @@
 // Thread-block cluster helpers (sm_90): the cluster barrier, a block's rank
-// in its cluster, and loads from another block's shared memory through
-// distributed shared memory. Shared by csrc/pointwise.cu (its MMA path's K
-// splits reduced in a cluster), csrc/pointwise_int8.cu (the same, on s8
-// wgmma, and the row maxima its splits exchange) and csrc/winograd_int8.cu
-// (the inverse reading the 16 positions' M from the cluster's blocks).
+// in its cluster, and loads from and stores to another block's shared
+// memory through distributed shared memory. Shared by csrc/pointwise.cu
+// (its MMA path's K splits reduced in a cluster), csrc/pointwise_int8.cu
+// (the same, on s8 wgmma, and the row maxima its splits exchange), the
+// heads' GEMVs of both (gemv_cluster.cuh: partials and maxima pushed to
+// their owners) and csrc/winograd_int8.cu (the inverse reading the 16
+// positions' M from the cluster's blocks).
 #pragma once
 
 #include "cp_async.cuh"
@@ -16,6 +18,17 @@ __device__ __forceinline__ void cluster_sync() {
   asm volatile(
       "barrier.cluster.arrive.release.aligned;\n"
       "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The same barrier in two halves: every thread arrives early (relaxed: it
+// orders no memory access) and waits later, once it is about to store into
+// another block's shared memory, which it may do only once every block of
+// the cluster has started.
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ unsigned cluster_rank() {
@@ -38,6 +51,13 @@ __device__ __forceinline__ float load_rank(unsigned addr, unsigned rank) {
   asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(rank_addr(addr, rank))
                : "memory");
   return v;
+}
+
+// Stores the 32-bit word v at shared address `addr` of the cluster's block
+// `rank`.
+__device__ __forceinline__ void store_rank_u32(unsigned addr, unsigned rank, unsigned v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(rank_addr(addr, rank)), "r"(v)
+               : "memory");
 }
 
 // The 32-bit word at shared address `addr` of the cluster's block `rank`.

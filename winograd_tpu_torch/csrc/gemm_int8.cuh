@@ -66,10 +66,14 @@ struct Int8BnEpilogue {
   float* out;
   int N;
   int relu;
+  // An output from its sum, its row's scale and its column's factors.
+  static __device__ __forceinline__ float value(int acc, float sx, float sw_n, float scale_n,
+                                                float bias_n, int relu) {
+    const float y = bn_rn(dequant(acc, sx, sw_n), scale_n, bias_n);
+    return relu ? wt::relu(y) : y;
+  }
   __device__ __forceinline__ void operator()(int p, int n, int acc, float sx) const {
-    float y = bn_rn(dequant(acc, sx, sw[n]), scale[n], bias[n]);
-    if (relu) y = wt::relu(y);
-    out[static_cast<size_t>(p) * N + n] = y;
+    out[static_cast<size_t>(p) * N + n] = value(acc, sx, sw[n], scale[n], bias[n], relu);
   }
 };
 

@@ -28,13 +28,18 @@
 //   r * 64 / splits .. of every block's partial through distributed shared
 //   memory, in rank order 0, 1, ..., and applies BN and ReLU. No partial
 //   reaches device memory, no counter, no memset before the launch.
-// * GEMV (P <= kGemvMaxP): the block owns 128 columns and a K range; each
-//   warp streams whole 512-byte rows of w with 16-byte loads, the rows of x
-//   sit in shared memory, and the warps' sums meet in shared memory in
-//   warp order. Splits fill about one block per SM; their partial sums go
-//   to a workspace and the last block of a column tile adds them in split
-//   order (splitk_tf32.cuh's reduction, its counters zeroed before the
-//   launch).
+// * GEMV (P <= kGemvMaxP, the heads): gemv_cluster.cuh's form. A block
+//   owns a column tile of 128 or 64 columns (the plan's) and a range of K;
+//   one warp asks for its whole weight slab by 1D bulk copies onto the
+//   ring's mbarriers at the start (64 KB a block at the R-50 head); the
+//   rows of x sit in shared memory, each thread multiplies four columns of
+//   its rows by FMA from shared memory, and the row groups' sums meet in
+//   shared memory in group order. The K splits of a column tile are the
+//   blocks of one cluster (a power of two of them, at most 16 under the
+//   non-portable opt-in), which push their partial sums through
+//   distributed shared memory to the block that owns each; after one
+//   cluster barrier the owners add them in rank order and apply BN and
+//   ReLU: no workspace, no counter, no memset, no atomics.
 // Both paths add their K splits in a fixed order, so the same inputs give
 // the same bits on every call.
 //
@@ -43,7 +48,7 @@
 // the MMA tiles are wgmma_tile.cuh's bf16 ones (the f32 activation split
 // hi/lo, two bf16 wgmma passes on the weights read straight from the TMA's
 // swizzled box), and the GEMV stages a_hi + a_lo (exact in f32), reads four
-// bf16 weights (8 bytes) a lane a row and adds both exact products with
+// bf16 weights (8 bytes) a thread a row and adds both exact products with
 // one FMA. Its weight bytes, which bound the head, are half the f32 tier's.
 
 #include <cuda_bf16.h>
@@ -52,59 +57,66 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "splitk_tf32.cuh"
+#include "gemv_cluster.cuh"
 #include "wgmma_cluster.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
 
 namespace tc = wt::tf32x3;
-namespace sk = wt::splitk;
+namespace gv = wt::gemv;
 namespace wg = wt::wg;
 namespace wgc = wt::wgc;
-using sk::Args;
-using sk::GemmArgs;
 using bf16 = __nv_bfloat16;
 
-constexpr int kGemvMaxP = 8;      // rows the GEMV's registers and shared arrays hold
-constexpr int kGemvCols = 128;    // columns a GEMV block owns
-constexpr int kGemvThreads = 256;
-constexpr int kGemvWarps = kGemvThreads / 32;
-constexpr int kGemvXChunk = 256;
+constexpr int kGemvMaxP = gv::kMaxP;  // rows the GEMV's registers and shared arrays hold
+constexpr int kGemvCols = 128;        // columns of a GEMV block's tile: this or half of it
+constexpr int kGemvXChunk = 512;      // k of x staged in shared memory at a time
 
-// Four adjacent weights of row k from column n on (zero past N).
-template <bool kVec>
-__device__ __forceinline__ float4 weights4(const Args& a, int k, int n) {
-  const float* row = a.w + static_cast<size_t>(k) * a.N;
-  if (kVec) return n < a.N ? __ldg(reinterpret_cast<const float4*>(row + n)) : float4{};
-  float4 v;
-  v.x = n < a.N ? __ldg(row + n) : 0.f;
-  v.y = n + 1 < a.N ? __ldg(row + n + 1) : 0.f;
-  v.z = n + 2 < a.N ? __ldg(row + n + 2) : 0.f;
-  v.w = n + 3 < a.N ? __ldg(row + n + 3) : 0.f;
-  return v;
-}
+// The GEMV's operands and plan; BT: the weights' element type (float, or
+// __nv_bfloat16 at bf16w).
+template <class BT>
+struct GemvArgs {
+  const float* x;
+  const BT* w;
+  const float* scale;
+  const float* bias;
+  float* out;
+  int P, K, N, relu, splits, chunk;
+};
 
 __device__ __forceinline__ float bf16_bits(unsigned short u) {
   return __uint_as_float(static_cast<unsigned>(u) << 16);
 }
 
-// The same of bf16 weights, widened exactly to f32; kVec: one 8-byte load.
-template <bool kVec>
-__device__ __forceinline__ float4 weights4(const GemmArgs<bf16>& a, int k, int n) {
-  const auto* row = reinterpret_cast<const unsigned short*>(a.w) + static_cast<size_t>(k) * a.N;
-  if (kVec) {
-    if (n >= a.N) return float4{};
-    const uint2 u = __ldg(reinterpret_cast<const uint2*>(row + n));
-    return make_float4(bf16_bits(u.x & 0xffffu), bf16_bits(u.x >> 16), bf16_bits(u.y & 0xffffu),
-                       bf16_bits(u.y >> 16));
+// Four adjacent weights from a row in shared memory (16 bytes of f32, or 8
+// of bf16 widened exactly to f32).
+__device__ __forceinline__ float4 weights4(const float*, const unsigned char* row) {
+  return *reinterpret_cast<const float4*>(row);
+}
+__device__ __forceinline__ float4 weights4(const bf16*, const unsigned char* row) {
+  const uint2 u = *reinterpret_cast<const uint2*>(row);
+  return make_float4(bf16_bits(u.x & 0xffffu), bf16_bits(u.x >> 16), bf16_bits(u.y & 0xffffu),
+                     bf16_bits(u.y >> 16));
+}
+
+// The same from row k of the (K, N) weights in device memory, element by
+// element, zero past N (the shapes bulk copies cannot read).
+template <class BT>
+__device__ __forceinline__ float4 weights4(const BT* w, int N, int k, int n) {
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (n + j >= N) {
+      v[j] = 0.f;
+    } else if constexpr (std::is_same_v<BT, bf16>) {
+      v[j] = bf16_bits(__ldg(reinterpret_cast<const unsigned short*>(w) +
+                             static_cast<size_t>(k) * N + n + j));
+    } else {
+      v[j] = __ldg(w + static_cast<size_t>(k) * N + n + j);
+    }
   }
-  float4 v;
-  v.x = n < a.N ? bf16_bits(__ldg(row + n)) : 0.f;
-  v.y = n + 1 < a.N ? bf16_bits(__ldg(row + n + 1)) : 0.f;
-  v.z = n + 2 < a.N ? bf16_bits(__ldg(row + n + 2)) : 0.f;
-  v.w = n + 3 < a.N ? bf16_bits(__ldg(row + n + 3)) : 0.f;
-  return v;
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
 // An x value as the GEMV stages it: as it is, or for bf16 weights a_hi +
@@ -112,7 +124,7 @@ __device__ __forceinline__ float4 weights4(const GemmArgs<bf16>& a, int k, int n
 // That sum has at most 17 significant bits, so it is exact in f32, and one
 // fmaf(a_hi + a_lo, w, acc) rounds acc + a_hi * w + a_lo * w once: the two
 // bf16w products, exact, in one FMA. The split is made once a value here,
-// not by each of the 32 lanes that read it.
+// not by each thread that reads it.
 template <class BT>
 __device__ __forceinline__ float stage_x(float v) {
   if constexpr (std::is_same_v<BT, bf16>) {
@@ -123,132 +135,183 @@ __device__ __forceinline__ float stage_x(float v) {
   }
 }
 
-template <bool kVec, class BT>
-__global__ void __launch_bounds__(kGemvThreads) pointwise_gemv_kernel(GemmArgs<BT> a) {
+// One block per (column tile, split), grid (tiles, splits), the splits of a
+// tile one cluster (a block's rank is its split). kVec: the weights'
+// rows by bulk copies (gv::bulk_rows); kCols: the tile's columns, 128 or
+// 64. Thread t multiplies columns 4 (t % (kCols / 4)) .. +3 of rows g, g +
+// kGroups, ... of each stage, g = t / (kCols / 4).
+template <bool kVec, int kCols, class BT>
+__global__ void __launch_bounds__(gv::kThreads)
+    pointwise_gemv(const __grid_constant__ GemvArgs<BT> a) {
+  using Slab = gv::Slab<kCols, sizeof(BT)>;
+  constexpr int kTpr = kCols / 4;
+  constexpr int kGroups = gv::kThreads / kTpr;
+  static_assert(Slab::kSmemBytes >= sizeof(float) * kGroups * kGemvMaxP * kCols,
+                "the idle ring holds the row groups' sums");
+  extern __shared__ __align__(16) unsigned char ring[];
+  __shared__ __align__(8) uint64_t bars[gv::kStages];
   __shared__ float xs[kGemvMaxP][kGemvXChunk];
-  __shared__ float red[kGemvWarps][kGemvMaxP][kGemvCols];
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int n0 = blockIdx.x * kGemvCols, split = blockIdx.y;
+  __shared__ float recv[kGemvMaxP * kCols + gv::kClusterMax];  // this block's share, by split
+  const int t = threadIdx.x, g = t / kTpr, c = 4 * (t % kTpr);
+  const int n0 = blockIdx.x * kCols, split = blockIdx.y;
   const int k0 = split * a.chunk, k1 = min(a.K, k0 + a.chunk);
-  const int n = n0 + lane * 4;
+  const Slab slab{reinterpret_cast<const unsigned char*>(a.w), ring, bars, a.N, n0, k0, k1};
+  wt::cluster_arrive_relaxed();  // this block has started (waited for before the pushes)
+  if (kVec) slab.begin();
+  // The BN of the sums this block will own after the cluster barrier, read
+  // while the weights stream in.
+  constexpr int kOwn = (kGemvMaxP * kCols + gv::kThreads - 1) / gv::kThreads;
+  const int count = a.P * kCols, per = gv::share(count, a.splits);
+  float own_s[kOwn], own_b[kOwn];
+#pragma unroll
+  for (int u = 0; u < kOwn; ++u) {
+    const int j = t + u * gv::kThreads, n = n0 + (split * per + j) % kCols;
+    const bool ok = j < per && split * per + j < count && n < a.N;
+    own_s[u] = ok ? __ldg(a.scale + n) : 0.f;
+    own_b[u] = ok ? __ldg(a.bias + n) : 0.f;
+  }
 
   float acc[kGemvMaxP][4];
 #pragma unroll
   for (int p = 0; p < kGemvMaxP; ++p)
 #pragma unroll
     for (int j = 0; j < 4; ++j) acc[p][j] = 0.f;
-
-  for (int kc = k0; kc < k1; kc += kGemvXChunk) {
-    const int len = min(kGemvXChunk, k1 - kc);
-    __syncthreads();
-    for (int i = threadIdx.x; i < a.P * kGemvXChunk; i += kGemvThreads) {
-      const int p = i / kGemvXChunk, kk = i % kGemvXChunk;
-      xs[p][kk] = kk < len ? stage_x<BT>(__ldg(a.x + static_cast<size_t>(p) * a.K + kc + kk)) : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = warp; kk < len; kk += kGemvWarps) {
-      const float4 wv = weights4<kVec>(a, kc + kk, n);
-#pragma unroll
-      for (int p = 0; p < kGemvMaxP; ++p) {
-        if (p < a.P) {
-          const float xv = xs[p][kk];
-          acc[p][0] = fmaf(xv, wv.x, acc[p][0]);
-          acc[p][1] = fmaf(xv, wv.y, acc[p][1]);
-          acc[p][2] = fmaf(xv, wv.z, acc[p][2]);
-          acc[p][3] = fmaf(xv, wv.w, acc[p][3]);
+  int xk = k0;  // the k of xs[.][0]
+  gv::walk<kVec, kGemvXChunk>(
+      slab,
+      [&](int kc, int len) {
+        xk = kc;
+        for (int i = t; i < a.P * len; i += gv::kThreads) {
+          const int p = i / len, kk = i - p * len;
+          xs[p][kk] = stage_x<BT>(__ldg(a.x + static_cast<size_t>(p) * a.K + kc + kk));
         }
-      }
-    }
-  }
+      },
+      [&](int s, int r0, int rows) {
+#pragma unroll 4
+        for (int r = g; r < rows; r += kGroups) {
+          const float4 wv = kVec ? weights4(a.w, slab.row(s, r) + c * sizeof(BT))
+                                 : weights4(a.w, a.N, r0 + r, n0 + c);
+          const int kx = r0 + r - xk;
+#pragma unroll
+          for (int p = 0; p < kGemvMaxP; ++p) {
+            if (p < a.P) {
+              const float xv = xs[p][kx];
+              acc[p][0] = fmaf(xv, wv.x, acc[p][0]);
+              acc[p][1] = fmaf(xv, wv.y, acc[p][1]);
+              acc[p][2] = fmaf(xv, wv.z, acc[p][2]);
+              acc[p][3] = fmaf(xv, wv.w, acc[p][3]);
+            }
+          }
+        }
+      });
+
+  // The row groups' sums meet in the idle ring, then add in group order.
+  float* red = reinterpret_cast<float*>(ring);  // [kGroups][kGemvMaxP][kCols]
+  __syncthreads();
 #pragma unroll
   for (int p = 0; p < kGemvMaxP; ++p)
     if (p < a.P)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) red[warp][p][lane * 4 + j] = acc[p][j];
+      *reinterpret_cast<float4*>(red + (g * kGemvMaxP + p) * kCols + c) =
+          make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
   __syncthreads();
-
-  float* part = a.part + static_cast<size_t>(split) * a.P * a.N;
-  for (int i = threadIdx.x; i < a.P * kGemvCols; i += kGemvThreads) {
-    const int p = i / kGemvCols, c = i % kGemvCols;
-    if (n0 + c >= a.N) continue;
-    float s = red[0][p][c];
+  wt::cluster_wait();  // every block of the cluster has started
+  for (int i = t; i < count; i += gv::kThreads) {
+    const int p = i / kCols, cc = i % kCols;
+    float sum = red[p * kCols + cc];
 #pragma unroll
-    for (int wv = 1; wv < kGemvWarps; ++wv) s += red[wv][p][c];
-    const size_t at = static_cast<size_t>(p) * a.N + n0 + c;
-    if (a.splits == 1)
-      a.out[at] = sk::bn(a, n0 + c, s);
-    else
-      part[at] = s;
+    for (int q = 1; q < kGroups; ++q) sum += red[(q * kGemvMaxP + p) * kCols + cc];
+    gv::push(recv, i, per, split, sum);
   }
-  if (a.splits == 1 || !sk::arrive_last(a, blockIdx.x)) return;
-  sk::reduce_splits<float, kGemvMaxP * kGemvCols / kGemvThreads, 8, kGemvThreads>(
-      a, 0, n0, a.P * kGemvCols, kGemvCols, 1);
+  // This block's share of the tile's sums, over the cluster's blocks in
+  // rank order, through BN (+ ReLU).
+  wt::cluster_sync();
+#pragma unroll
+  for (int u = 0; u < kOwn; ++u) {
+    const int j = t + u * gv::kThreads, i = split * per + j, p = i / kCols, n = n0 + i % kCols;
+    if (j >= per || i >= count || n >= a.N) continue;
+    const float y = gv::gather(recv, j, per, a.splits) * own_s[u] + own_b[u];
+    a.out[static_cast<size_t>(p) * a.N + n] = a.relu ? wt::relu(y) : y;
+  }
+}
+
+// The GEMV at kCols columns a tile; clusters: as gv::launch takes it.
+template <int kCols, class BT>
+cudaError_t gemv(const GemvArgs<BT>& a, bool vec, cudaStream_t s, int* clusters = nullptr) {
+  constexpr size_t kSmem = gv::Slab<kCols, sizeof(BT)>::kSmemBytes;
+  const int tiles = (a.N + kCols - 1) / kCols;
+  return vec ? gv::launch<&pointwise_gemv<true, kCols, BT>>(a, tiles, a.splits, kSmem, s, clusters)
+             : gv::launch<&pointwise_gemv<false, kCols, BT>>(a, tiles, a.splits, kSmem, s,
+                                                             clusters);
+}
+
+// The GEMV under the plan's tile width (kGemvCols or half of it).
+template <class BT>
+cudaError_t run_gemv(const GemvArgs<BT>& a, int tile, cudaStream_t s, int* clusters = nullptr) {
+  const bool vec = gv::bulk_rows(a.w, a.K, a.N, sizeof(BT));
+  return tile == kGemvCols ? gemv<kGemvCols>(a, vec, s, clusters)
+                           : gemv<kGemvCols / 2>(a, vec, s, clusters);
 }
 
 using wgc::aligned16;
-bool aligned8(const void* p) { return reinterpret_cast<uintptr_t>(p) % 8 == 0; }
 
-// Both entries: check the plan, bind the GEMV's workspace or encode the
-// MMA path's weight map, launch the plan's path.
+// Both entries: check the plan, launch the plan's path (the MMA path's
+// weight map encoded here).
 template <class BT>
 int conv1x1_bn(const float* x, const BT* w, const float* scale, const float* bias, float* out,
-               float* ws, long long ws_words, long long part, int P, int K, int N, int relu,
-               int gemv, int tile, int splits, int chunk, void* stream) {
-  constexpr bool kBf16 = std::is_same_v<BT, bf16>;
-  if (tile != (gemv ? kGemvCols : wg::kBM) || (gemv && P > kGemvMaxP))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int tiles_n = (N + tile - 1) / tile;
-  const int tiles = gemv ? tiles_n : (P + tile - 1) / tile * tiles_n;
+               int P, int K, int N, int relu, int gemv, int tile, int splits, int chunk,
+               void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
   if (gemv) {
-    if (!sk::plan_fits(P, K, N, tiles, splits, chunk, ws_words, part))
+    if ((tile != kGemvCols && tile != kGemvCols / 2) ||
+        !gv::plan_fits(P, K, N, splits, chunk))
       return static_cast<int>(cudaErrorInvalidValue);
-    GemmArgs<BT> a{x, w, scale, bias, out, nullptr, nullptr, P, K, N, relu, splits, chunk};
-    e = sk::bind_workspace(a, ws, part, tiles, s);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid(tiles, splits);
-    if (N % 4 == 0 && (kBf16 ? aligned8(w) : aligned16(w)))
-      pointwise_gemv_kernel<true, BT><<<grid, kGemvThreads, 0, s>>>(a);
-    else
-      pointwise_gemv_kernel<false, BT><<<grid, kGemvThreads, 0, s>>>(a);
-    e = cudaGetLastError();
-  } else {
-    // K in `splits` ranges of `chunk` (the last shorter, each but the last
-    // a multiple of the tile's stage), the splits of a tile one cluster.
-    wgc::Args<BT> a{{}, w, scale, bias, out, P, K, N, relu, splits, chunk};
-    e = wgc::run<wgc::kClusterPortable>(a, tc::RowMajorA{x, P, K}, K % 4 == 0 && aligned16(x),
-                                        s);
+    return static_cast<int>(
+        run_gemv(GemvArgs<BT>{x, w, scale, bias, out, P, K, N, relu, splits, chunk}, tile, s));
   }
-  return static_cast<int>(e);
+  if (tile != wg::kBM) return static_cast<int>(cudaErrorInvalidValue);
+  // K in `splits` ranges of `chunk` (the last shorter, each but the last
+  // a multiple of the tile's stage), the splits of a tile one cluster.
+  wgc::Args<BT> a{{}, w, scale, bias, out, P, K, N, relu, splits, chunk};
+  return static_cast<int>(
+      wgc::run<wgc::kClusterPortable>(a, tc::RowMajorA{x, P, K}, K % 4 == 0 && aligned16(x), s));
 }
 
 }  // namespace
 
 // The host's plan (kernels/pointwise.py::split_plan): `gemv` picks the path,
-// `tile` is the width of its output tiles and must be this library's
-// (kGemvCols for the GEMV, 64 for the MMA tiles; the GEMV takes at most
-// kGemvMaxP rows); K in `splits` ranges of `chunk`, the last one shorter,
-// chunk a multiple of the 32-deep stage when splits > 1, at most
-// wgc::kClusterPortable splits on the MMA path. ws: the GEMV's, past one split (may
-// be null otherwise): one counter per output tile from word 0, the splits x
-// P x N partial sums from word `part` (a multiple of 4), ws_words words in
-// all; the MMA path takes none.
+// `tile` is the width of its output tiles (kGemvCols or half of it for the
+// GEMV, which takes at most kGemvMaxP rows; 64 for the MMA tiles); K in
+// `splits` ranges of `chunk`, the last one shorter, chunk a multiple of
+// the 32-deep stage when splits > 1: on the GEMV a power of two of splits,
+// at most gv::kClusterMax; on the MMA path at most wgc::kClusterPortable.
+// Neither path takes a workspace.
 extern "C" int pointwise_conv1x1_bn(const float* x, const float* w, const float* scale,
-                                    const float* bias, float* out, float* ws, long long ws_words,
-                                    long long part, int P, int K, int N, int relu, int gemv,
-                                    int tile, int splits, int chunk, void* stream) {
-  return conv1x1_bn(x, w, scale, bias, out, ws, ws_words, part, P, K, N, relu, gemv, tile, splits,
-                    chunk, stream);
+                                    const float* bias, float* out, int P, int K, int N, int relu,
+                                    int gemv, int tile, int splits, int chunk, void* stream) {
+  return conv1x1_bn(x, w, scale, bias, out, P, K, N, relu, gemv, tile, splits, chunk, stream);
 }
 
 // The bf16w tier: w (K, N) bf16, the rest as pointwise_conv1x1_bn.
 extern "C" int pointwise_conv1x1_bn_bf16w(const float* x, const bf16* w, const float* scale,
-                                          const float* bias, float* out, float* ws,
-                                          long long ws_words, long long part, int P, int K, int N,
+                                          const float* bias, float* out, int P, int K, int N,
                                           int relu, int gemv, int tile, int splits, int chunk,
                                           void* stream) {
-  return conv1x1_bn(x, w, scale, bias, out, ws, ws_words, part, P, K, N, relu, gemv, tile, splits,
-                    chunk, stream);
+  return conv1x1_bn(x, w, scale, bias, out, P, K, N, relu, gemv, tile, splits, chunk, stream);
+}
+
+// The clusters of the GEMV's served instantiation (bulk copies; bf16 weights
+// where bf16w) of `tile` columns and `splits` blocks that the current device
+// holds at once, into *clusters (the plan asks before it takes more than a
+// portable cluster).
+extern "C" int pointwise_gemv_clusters(int bf16w, int tile, int splits, int* clusters) {
+  if ((tile != kGemvCols && tile != kGemvCols / 2) || splits <= 0 ||
+      splits > gv::kClusterMax || (splits & (splits - 1)) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  *clusters = 0;
+  if (bf16w) {
+    const GemvArgs<bf16> a{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 4, 4, 0, splits, 4};
+    return static_cast<int>(run_gemv(a, tile, nullptr, clusters));
+  }
+  const GemvArgs<float> a{nullptr, nullptr, nullptr, nullptr, nullptr, 1, 4, 4, 0, splits, 4};
+  return static_cast<int>(run_gemv(a, tile, nullptr, clusters));
 }

@@ -76,7 +76,6 @@
 
 #include "common.cuh"
 #include "grid_sync.cuh"
-#include "splitk_tf32.cuh"
 #include "wgmma_phase.cuh"
 #include "wgmma_tile.cuh"
 #include "wino_tf32.cuh"
@@ -84,13 +83,11 @@
 namespace {
 
 namespace tc = wt::tf32x3;
-namespace sk = wt::splitk;
 namespace wg = wt::wg;
 namespace wtc = wt::winotc;
 namespace ph = wt::wgphase;
 
 constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
-static_assert(sk::kSplitStep == wg::kBK, "a phase's splits are whole stages of the wgmma tile");
 
 // BT: the weights' element type, float or __nv_bfloat16 (bf16w). The maps
 // (kVec): w_reduce, the direct mid's w9 and w_expand as (N, K, blocks), and
@@ -218,7 +215,7 @@ int make_plan(int N, int H, int W, int Cio, int Cmid, int wino, wtc::Cut wcut, i
   pl->mid = wino ? wt::GemmPhase{P, 9 * Cmid, Cmid, 1, 9 * Cmid}
                  : wt::GemmPhase{P, 9 * Cmid, Cmid, phases[2], phases[3]};
   pl->expand = wt::GemmPhase{P, Cmid, Cio, phases[4], phases[5]};
-  if (!sk::phase_fits(pl->reduce) || !sk::phase_fits(pl->mid) || !sk::phase_fits(pl->expand))
+  if (!ph::phase_fits(pl->reduce) || !ph::phase_fits(pl->mid) || !ph::phase_fits(pl->expand))
     return static_cast<int>(cudaErrorInvalidValue);
   size_t part = phase_partial_floats(pl->reduce);
   if (phase_partial_floats(pl->expand) > part) part = phase_partial_floats(pl->expand);

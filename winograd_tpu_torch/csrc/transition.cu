@@ -55,19 +55,16 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "splitk_tf32.cuh"
 #include "wgmma_tile.cuh"
 #include "wgmma_phase.cuh"
 
 namespace {
 
 namespace tc = wt::tf32x3;
-namespace sk = wt::splitk;
 namespace wg = wt::wg;
 namespace ph = wt::wgphase;
 
 constexpr int kMaxBlocksPerSm = 2;  // blocks an SM in the cooperative grid, at most
-static_assert(sk::kSplitStep == wg::kBK, "a phase's splits are whole stages of the wgmma tile");
 
 // BT: the weights' element type, float or __nv_bfloat16 (bf16w). The maps
 // (kVec): w_reduce, w9 and wep as (N, K, 1) for the TMA loads.
@@ -192,7 +189,7 @@ int make_plan(int N, int H, int W, int Cin, int Cmid, int Cout, int blocks, int 
   pl->reduce = wt::GemmPhase{P1, Cin, Cmid, rs, rc};
   pl->mid = wt::GemmPhase{P2, 9 * Cmid, Cmid, ms, mc};
   pl->expand = wt::GemmPhase{P2, Cmid + Cin, Cout, es, ec};
-  if (!sk::phase_fits(pl->reduce) || !sk::phase_fits(pl->mid) || !sk::phase_fits(pl->expand))
+  if (!ph::phase_fits(pl->reduce) || !ph::phase_fits(pl->mid) || !ph::phase_fits(pl->expand))
     return static_cast<int>(cudaErrorInvalidValue);
   size_t part = phase_partial_floats(pl->reduce);
   if (phase_partial_floats(pl->mid) > part) part = phase_partial_floats(pl->mid);

@@ -15,7 +15,7 @@
 // (its reduce, strided mid and expand with the projection). The phase's
 // plan (wt::GemmPhase: P, K, N and K in `splits` ranges of `chunk`, each a
 // whole number of the tile's kBK stages but the last) comes from the host
-// and is checked there (splitk_tf32.cuh::phase_fits).
+// and is checked there (phase_fits).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -25,6 +25,18 @@
 
 namespace wt {
 namespace wgphase {
+
+constexpr int kSplitStep = wg::kBK;  // every split but the last is a multiple of this
+
+// Host side. True when a phase of the host's plan fits: K in `splits`
+// ranges of `chunk`, the last one shorter, chunk a multiple of the tile's
+// k step when splits > 1.
+inline bool phase_fits(const GemmPhase& g) {
+  return g.P > 0 && g.K > 0 && g.N > 0 && g.splits > 0 && g.chunk > 0 &&
+         static_cast<long long>(g.chunk) * g.splits >= g.K &&
+         static_cast<long long>(g.chunk) * (g.splits - 1) < g.K &&
+         (g.splits == 1 || g.chunk % kSplitStep == 0);
+}
 
 // An item of a phase: its split's K range and its output tile's corner.
 struct Item {

@@ -70,8 +70,8 @@ import torch
 import torch.nn.functional as F
 
 from winograd_tpu_torch.kernels import _build, transforms
+from winograd_tpu_torch.kernels import pointwise as pw
 from winograd_tpu_torch.kernels.direct import im2col3x3
-from winograd_tpu_torch.kernels.pointwise import COUNTER_WORDS
 from winograd_tpu_torch.kernels.splitk import H100_SMS, Split, pow2_split, split_k
 from winograd_tpu_torch.kernels.stage import WINOGRAD_MIN_PIXELS
 from winograd_tpu_torch.kernels.transition import strided_im2col
@@ -502,20 +502,20 @@ def transition_int8_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int,
 # The plan of a csrc/pointwise_int8.cu launch. The kernel's geometry, which
 # its C entry checks every plan against (tests/test_torch_splitk.py reads
 # it from the sources): rows at or below POINTWISE_INT8_GEMV_MAX_ROWS may
-# take the GEMV (blocks of POINTWISE_INT8_GEMV_COLS columns, splits in
-# multiples of POINTWISE_INT8_GEMV_STEP); a padded K of at most
+# take the GEMV (csrc/gemv_cluster.cuh's form, shared with csrc/pointwise.cu:
+# column tiles POINTWISE_INT8_GEMV_COLS or half of it wide, a power of two
+# of K splits in multiples of POINTWISE_INT8_GEMV_STEP, at most
+# pointwise.py::GEMV_CLUSTER_MAX, one cluster); a padded K of at most
 # POINTWISE_INT8_ONE_PASS_MAX_K may take the one-pass form (one block a
 # 64 x 64 tile on s8 mma.sync); any shape the cluster form (s8 wgmma tiles
 # of 64 rows by POINTWISE_INT8_CLUSTER_COLS columns, K padded to
 # DIRECT_INT8_K_ALIGN, a tile's K splits the blocks of one cluster: at most
 # POINTWISE_INT8_CLUSTER_MAX, each a multiple of POINTWISE_INT8_CLUSTER_STEP
-# but the last). The plan's own rule, from the paths, widths and splits
-# timed against each other at the served shapes (tools/chip_split_sweep.py,
-# PERF.md): the GEMV for a lone row over a long K (P = 1, K at least
-# POINTWISE_INT8_GEMV_MIN_K: the head at N=1; every other head ran faster on
-# the cluster path), its K split until its column tiles x splits reach
-# about one block an SM, in ranges at least POINTWISE_INT8_GEMV_MIN_CHUNK
-# long; the one pass where its K fits and the
+# but the last). No path takes a workspace. The plan's own rule, from the
+# paths, widths and splits timed against each other at the served shapes
+# (tools/chip_split_sweep.py, PERF.md): the GEMV for the heads (P at most
+# POINTWISE_INT8_GEMV_MAX_ROWS, K at least POINTWISE_INT8_GEMV_MIN_K) under
+# pointwise.py::gemv_split's rule; the one pass where its K fits and the
 # rows are many (at least POINTWISE_INT8_ONE_PASS_ROWS: its tiles then
 # fill the card without a split), unless N passes 128 over more than
 # POINTWISE_INT8_ONE_PASS_WIDE_ROWS rows (there its 64-column tiles read x
@@ -527,8 +527,7 @@ def transition_int8_plan(n: int, h: int, w: int, cin: int, cmid: int, cout: int,
 POINTWISE_INT8_GEMV_MAX_ROWS = 8
 POINTWISE_INT8_GEMV_COLS = 128
 POINTWISE_INT8_GEMV_STEP = 32
-POINTWISE_INT8_GEMV_MIN_CHUNK = 64
-POINTWISE_INT8_GEMV_MIN_K = 1024
+POINTWISE_INT8_GEMV_MIN_K = 512
 POINTWISE_INT8_ONE_PASS_MAX_K = 256
 POINTWISE_INT8_TILE = 64
 POINTWISE_INT8_CLUSTER_COLS = (64, 128)
@@ -547,15 +546,6 @@ POINTWISE_INT8_ONE_PASS_WIDE_ROWS = 4096
 POINTWISE_INT8_PATHS = ("gemv", "one_pass", "cluster")  # the C entry's numbering
 
 
-class PointwiseInt8Workspace(NamedTuple):
-    """Where the GEMV's parts lie in csrc/pointwise_int8.cu's workspace, in
-    4-byte words: its column tiles' counters at 0, the int32 partial sums
-    at `part`; `words` in all (0: no workspace)."""
-
-    part: int
-    words: int
-
-
 class PointwiseInt8Plan(NamedTuple):
     """How csrc/pointwise_int8.cu runs one (P, K) x (K, N) product: the
     path, the padded K (K itself for the GEMV), the output tiles' width and
@@ -569,15 +559,6 @@ class PointwiseInt8Plan(NamedTuple):
     splits: int
     chunk: int
 
-    def workspace(self, p: int, n: int) -> PointwiseInt8Workspace:
-        """The GEMV's past one split: its column tiles' counters from word 0
-        (room rounded up to COUNTER_WORDS) and the int32 partial sums at
-        `part`; nothing else."""
-        if self.path == "gemv" and self.splits > 1:
-            part = _round_up(self.tiles, COUNTER_WORDS)
-            return PointwiseInt8Workspace(part, part + self.splits * p * n)
-        return PointwiseInt8Workspace(0, 0)
-
     def args(self) -> tuple:
         """The plan as the C entry takes it: path, Kp, tile, blocks, splits,
         chunk."""
@@ -587,28 +568,29 @@ class PointwiseInt8Plan(NamedTuple):
 
 def pointwise_int8_plan(p: int, k: int, n: int, sms: int = H100_SMS,
                         path: str | None = None, want: int = 0,
-                        cols: int = 0, cap: int = 0) -> PointwiseInt8Plan:
+                        cols: int = 0, cap: int = 0,
+                        wide_clusters: int | None = None) -> PointwiseInt8Plan:
     """The path, grid and K split of a (p, k) x (k, n) int8 product (k a
     multiple of 4) on a card with `sms` SMs; `path` forces a path that
-    takes the shape, `want` a number of K ranges (split_k's: the GEMV's
-    and the cluster's), `cols` the cluster tiles' width and `cap` the
-    cluster's most splits (POINTWISE_INT8_CLUSTER_MAX where 0)
-    (tools/chip_split_sweep.py times the others)."""
+    takes the shape, `want` a number of K ranges (split_k's: the GEMV's,
+    a power of two of them, and the cluster's), `cols` the GEMV's or the
+    cluster tiles' width and `cap` the cluster's most splits
+    (POINTWISE_INT8_CLUSTER_MAX where 0) (tools/chip_split_sweep.py times
+    the others); `wide_clusters` the GEMV's as pointwise.py::gemv_split
+    takes it."""
     kp = _round_up(k, DIRECT_INT8_K_ALIGN)
     if path is None:
         one_pass = (kp <= POINTWISE_INT8_ONE_PASS_MAX_K and p >= POINTWISE_INT8_ONE_PASS_ROWS
                     and (n <= 2 * POINTWISE_INT8_TILE or p <= POINTWISE_INT8_ONE_PASS_WIDE_ROWS))
-        path = ("gemv" if p == 1 and k >= POINTWISE_INT8_GEMV_MIN_K
+        path = ("gemv" if p <= POINTWISE_INT8_GEMV_MAX_ROWS and k >= POINTWISE_INT8_GEMV_MIN_K
                 else "one_pass" if one_pass else "cluster")
     if (path not in POINTWISE_INT8_PATHS or path == "gemv" and p > POINTWISE_INT8_GEMV_MAX_ROWS
             or path == "one_pass" and kp > POINTWISE_INT8_ONE_PASS_MAX_K):
         raise ValueError(f"path {path!r} does not take a ({p}, {k}) x ({k}, {n}) product")
     if path == "gemv":
-        tiles = -(-n // POINTWISE_INT8_GEMV_COLS)
-        split = split_k(k, want or sms // tiles, POINTWISE_INT8_GEMV_STEP,
-                        POINTWISE_INT8_GEMV_MIN_CHUNK)
-        return PointwiseInt8Plan(path, k, POINTWISE_INT8_GEMV_COLS, tiles, tiles * split.splits,
-                                 split.splits, split.chunk)
+        width, tiles, split = pw.gemv_split(k, n, sms, wide_clusters, cols, want)
+        return PointwiseInt8Plan(path, k, width, tiles, tiles * split.splits, split.splits,
+                                 split.chunk)
     if path == "one_pass":
         tiles = -(-p // POINTWISE_INT8_TILE) * -(-n // POINTWISE_INT8_TILE)
         return PointwiseInt8Plan(path, kp, POINTWISE_INT8_TILE, tiles, tiles, 1, kp)
@@ -966,8 +948,11 @@ def conv1x1_bn_int8(x, w_q, s_w, scale, bias, relu: bool) -> torch.Tensor:
     _check_shapes([("s_w", s_w, (cout,))])
     _build.check_tensors(w_q, dtype=torch.int8, device=x.device)
     p = x.numel() // cin
-    return conv1x1_bn_int8_planned(x, w_q, s_w, scale, bias, relu,
-                                   pointwise_int8_plan(p, cin, cout, _build.sm_count(x.device)))
+    wide = (pw.gemv_clusters(x.device, "pointwise_int8")
+            if p <= POINTWISE_INT8_GEMV_MAX_ROWS else None)
+    return conv1x1_bn_int8_planned(
+        x, w_q, s_w, scale, bias, relu,
+        pointwise_int8_plan(p, cin, cout, _build.sm_count(x.device), wide_clusters=wide))
 
 
 def conv1x1_bn_int8_planned(x, w_q, s_w, scale, bias, relu: bool,
@@ -979,14 +964,11 @@ def conv1x1_bn_int8_planned(x, w_q, s_w, scale, bias, relu: bool,
     p = x.numel() // cin
     if x.data_ptr() % 16:
         x = x.clone()  # the kernel reads rows as float4s
-    at = plan.workspace(p, cout)
-    ws = torch.empty(at.words, device=x.device, dtype=torch.float32) if at.words else None
     out = torch.empty(*x.shape[:-1], cout, device=x.device, dtype=torch.float32)
-    ptr, c, ll = _build.ptr, _build.cint, ctypes.c_longlong
+    ptr, c = _build.ptr, _build.cint
     _build.launch(
         "pointwise_int8", "pointwise_int8_conv1x1_bn", (p, cin, cout, bool(relu)), x.device,
         ptr(x), ptr(w_q), ptr(s_w), ptr(scale), ptr(bias), ptr(out),
-        ptr(ws) if ws is not None else ctypes.c_void_p(0), ll(at.words), ll(at.part),
         c(p), c(cin), c(cout), c(relu), *map(c, plan.args()),
     )
     return out
